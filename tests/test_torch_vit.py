@@ -227,6 +227,8 @@ def test_deterministic_views_match_jax(fold, channels):
 
 
 def test_random_augmentation_is_refused():
-    with pytest.raises(NotImplementedError):
+    """The random stack draws from an explicit generator: without one it is
+    refused, never seeded silently (tests/test_torch_augment.py covers it)."""
+    with pytest.raises(ValueError, match="generator"):
         taug.augment_batch(torch.zeros((1, 8, 8, 1), dtype=torch.uint8),
                            AugmentConfig(out_size=8))

@@ -1,6 +1,9 @@
 """Command-line interface of the PyTorch port.
 
   python -m vit2spn_tpu_torch presets                        list all presets
+  python -m vit2spn_tpu_torch run ssp --epochs 100            SSP pretraining
+                                          (fit with checkpoints and resume,
+                                          then the stream-1 backbone export)
   python -m vit2spn_tpu_torch extract ssp --out f.npz        online features
                                           over a dataset (the serving path,
                                           extract_online_features surface,
@@ -8,8 +11,9 @@
 
 Config overrides use dotted keys (`-o batch_size=64 -o data.root=/data`);
 `-o vit=small` / `-o vit=base` swaps the backbone geometry. `--device`
-defaults to `cuda`; `--device cpu` runs the plain PyTorch path. The other
-subcommands of `python -m vit2spn_tpu` come with later slices of the port.
+defaults to `cuda`; `--device cpu` runs the plain PyTorch path. Fine-tune
+presets and the other subcommands of `python -m vit2spn_tpu` come with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -66,6 +70,32 @@ def cmd_presets(_args):
     return 0
 
 
+def cmd_run(args):
+    """SSP pretraining of a preset (the JAX CLI's `run` for SSP presets):
+    fit over the preset's dataset with checkpoints in the output directory
+    (resuming from one there), then export the stream-1 online backbone.
+    Metrics go to <output-dir>/metrics.jsonl."""
+    from vit2spn_tpu_torch.data.datasets import load_dataset
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    cfg = _apply_overrides(get_preset(args.preset), args.override)
+    if not isinstance(cfg, SSPConfig):
+        raise NotImplementedError(
+            f"{args.preset!r} is a fine-tune preset: fine-tuning is not in the "
+            "port yet")
+    out_dir = args.output_dir or cfg.checkpoint_dir
+    os.makedirs(out_dir, exist_ok=True)
+    with MetricLogger(os.path.join(out_dir, "metrics.jsonl")) as logger:
+        trainer = SSPTrainer(cfg, logger=logger, device=args.device)
+        ds = load_dataset(cfg.data.name, root=cfg.data.root)
+        train = ds.split("train") if "train" in ds.splits else ds
+        trainer.fit(train, epochs=args.epochs,
+                    checkpoint_path=os.path.join(out_dir, "checkpoint.npz"))
+        trainer.export_backbone(os.path.join(out_dir, cfg.export_name + ".npz"))
+    return 0
+
+
 def cmd_extract(args):
     """Feature extraction / serving surface: run the online network over a
     dataset in eval mode and write (features, labels) to an .npz. Reads the
@@ -83,7 +113,7 @@ def cmd_extract(args):
     trainer = SSPTrainer(cfg, logger=logger, device=args.device)
     path = args.checkpoint or os.path.join(cfg.checkpoint_dir, "checkpoint.npz")
     if ckpt.exists(path):
-        trainer.restore(path)
+        trainer.restore_params(path)
         logger.log("restore", path=path)
     else:
         logger.log(
@@ -122,6 +152,20 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sub.add_parser("presets", help="list presets").set_defaults(fn=cmd_presets)
+
+    run = sub.add_parser("run", help="SSP pretraining of a preset, then the "
+                         "backbone export")
+    run.add_argument("preset", choices=sorted(PRESETS))
+    run.add_argument("--epochs", type=int, default=None,
+                     help="epochs to train to (default: the preset's)")
+    run.add_argument("--output-dir", default=None,
+                     help="checkpoint, export and metrics.jsonl (default: the "
+                     "preset's checkpoint_dir)")
+    run.add_argument("--device", default="cuda",
+                     help="torch device (default cuda; 'cpu' runs the plain "
+                     "PyTorch path)")
+    run.add_argument("-o", "--override", action="append")
+    run.set_defaults(fn=cmd_run)
 
     ex = sub.add_parser(
         "extract",

@@ -54,347 +54,7 @@
 // never written, so nothing reaches the token mean. Limits: head_dim 64,
 // S <= 256, D <= 768.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
-
-__host__ __device__ inline size_t align128(size_t n) {
-  return (n + 127) & ~(size_t)127;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// LayerNorm: one warp per row, the row's D / 32 values per lane in registers
-// ---------------------------------------------------------------------------
-
-#define LN_MAX_PER_LANE 24
-#define LN_MAX_D (32 * LN_MAX_PER_LANE)
-#define LN_WARPS 8
-
-// 16 bytes of x as floats: 8 bf16 or 4 fp32
-__device__ __forceinline__ void unpack16(const uint4& u, float* f, const bf16*) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(h[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
-__device__ __forceinline__ void unpack16(const uint4& u, float* f, const float*) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-
-// y = bf16((x - mean) * rsqrt(var + eps) * scale + bias): fp32 mean, then
-// the mean of squared deviations, as _ln_fwd. Each lane loads 16-byte
-// chunks of the row (D * sizeof(T) a multiple of 16).
-template <typename T>
-__global__ void __launch_bounds__(LN_WARPS * 32)
-layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                 const float* __restrict__ bias, bf16* __restrict__ y, int M, int D,
-                 float eps) {
-  constexpr int EPC = 16 / sizeof(T);               // elements per chunk
-  constexpr int CPL = LN_MAX_PER_LANE / EPC;        // chunks per lane, at most
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  if (row >= M) return;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
-  const int chunks = D / EPC;
-  float v[CPL][EPC];
-  float s = 0.0f;
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int ch = lane + 32 * i;
-    if (ch < chunks) {
-      unpack16(xr[ch], v[i], x);
-#pragma unroll
-      for (int e = 0; e < EPC; ++e) s += v[i][e];
-    }
-  }
-  const float mean = warp_sum(s) / (float)D;
-  float var = 0.0f;
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    if (lane + 32 * i < chunks) {
-#pragma unroll
-      for (int e = 0; e < EPC; ++e) {
-        const float d = v[i][e] - mean;
-        var += d * d;
-      }
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(var) / (float)D + eps);
-  bf16* yr = y + (size_t)row * D;
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int ch = lane + 32 * i;
-    if (ch < chunks) {
-#pragma unroll
-      for (int e = 0; e < EPC; e += 2) {
-        const int c = ch * EPC + e;
-        const float y0 = (v[i][e] - mean) * rstd * scale[c] + bias[c];
-        const float y1 = (v[i][e + 1] - mean) * rstd * scale[c + 1] + bias[c + 1];
-        *reinterpret_cast<__nv_bfloat162*>(yr + c) = __floats2bfloat162_rn(y0, y1);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// GEMM: C[M, N] = A[M, K] @ W[K, N] (row-major bf16), fused epilogue
-// ---------------------------------------------------------------------------
-
-#define BM 128
-#define BN 64
-#define BK 32
-#define GEMM_STAGES 3
-#define GEMM_THREADS 128  // 4 warps: 2 along M x 2 along N, 64 x 32 each
-#define A_LD (BK + 8)     // bf16 elements; rows stay 16-byte aligned and
-#define B_LD (BN + 8)     // ldmatrix reads them without bank conflicts
-
-enum { EPI_BIAS = 0, EPI_RESID = 1, EPI_GELU = 2, EPI_OUT = 3 };
-
-struct EpiArgs {
-  const bf16* bias;   // (N,)
-  bf16* out;          // EPI_BIAS, EPI_GELU, EPI_OUT: (M, N) bf16 result
-  float* x2;          // EPI_RESID writes it, EPI_OUT reads it: (M, N) fp32
-  const bf16* resid;  // EPI_RESID: the layer input (M, N)
-  bf16* xs;           // EPI_RESID, optional: copy of the layer input
-  bf16* x2s;          // EPI_RESID, optional: bf16(x2)
-  int fast_gelu;
-};
-
-// Abramowitz-Stegun 7.1.26 rational erf (|err| < 1.5e-7), as _erf_exact.
-__device__ __forceinline__ float erf_exact(float x) {
-  float sign = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
-  float ax = fabsf(x);
-  float t = 1.0f / (1.0f + 0.3275911f * ax);
-  float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
-               t * (-1.453152027f + t * 1.061405429f))));
-  return sign * (1.0f - poly * expf(-ax * ax));
-}
-
-// Direct cdf rational, as _gelu_fast: only Phi's argument is clamped.
-__device__ __forceinline__ float gelu_fast(float m) {
-  float xc = fminf(fmaxf(m, -4.6f), 4.6f);
-  float s = xc * xc;
-  float p = 3.303320889057693e-05f;
-  p = 0.003819241585880179f + s * p;
-  p = 0.027416247095983802f + s * p;
-  p = 0.3989386549977406f + s * p;
-  float q = 0.0011597711855913715f;
-  q = 0.023787000484733943f + s * q;
-  q = 0.23538129451100157f + s * q;
-  q = 1.0f + s * q;
-  return m * (0.5f + xc * (p / q));
-}
-
-__device__ __forceinline__ float gelu(float m, int fast) {
-  if (fast) return gelu_fast(m);
-  return 0.5f * m * (1.0f + erf_exact(m * 0.7071067811865476f));
-}
-
-// 16-byte asynchronous copy global -> shared; `pred` false fills zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_stages() {  // all but the newest
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(GEMM_STAGES - 2));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, row-major) b (16 x 8, column-major)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-}
-
-#define GEMM_A_TILE (BM * A_LD)  // bf16 elements per stage
-#define GEMM_W_TILE (BK * B_LD)
-#define GEMM_SMEM (GEMM_STAGES * (GEMM_A_TILE + GEMM_W_TILE) * 2)  // bytes
-
-// The epilogue of one output pair: row gr, columns gc and gc + 1, with
-// their fp32 sums a0, a1.
-template <int EPI>
-__device__ __forceinline__ void epilogue_pair(const EpiArgs& ep, int N, int gr, int gc,
-                                              float a0, float a1) {
-  const size_t idx = (size_t)gr * N + gc;
-  const float b0 = __bfloat162float(ep.bias[gc]);
-  const float b1 = __bfloat162float(ep.bias[gc + 1]);
-  uint32_t* out = reinterpret_cast<uint32_t*>(ep.out + idx);
-  if (EPI == EPI_BIAS) {
-    *out = pack_f32(a0 + b0, a1 + b1);
-  } else if (EPI == EPI_RESID) {
-    const uint32_t xin = *reinterpret_cast<const uint32_t*>(ep.resid + idx);
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xin));
-    const float2 x2 = make_float2((x.x + a0) + b0, (x.y + a1) + b1);
-    *reinterpret_cast<float2*>(ep.x2 + idx) = x2;
-    if (ep.xs) *reinterpret_cast<uint32_t*>(ep.xs + idx) = xin;
-    if (ep.x2s) *reinterpret_cast<uint32_t*>(ep.x2s + idx) = pack_f32(x2.x, x2.y);
-  } else if (EPI == EPI_GELU) {
-    *out = pack_f32(gelu(a0 + b0, ep.fast_gelu), gelu(a1 + b1, ep.fast_gelu));
-  } else {  // EPI_OUT
-    const float2 x2 = *reinterpret_cast<const float2*>(ep.x2 + idx);
-    *out = pack_f32((x2.x + a0) + b0, (x2.y + a1) + b1);
-  }
-}
-
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int M, int N,
-            int K, EpiArgs ep) {
-  extern __shared__ __align__(128) bf16 gsm[];
-  bf16* As = gsm;                              // GEMM_STAGES x BM x A_LD
-  bf16* Ws = gsm + GEMM_STAGES * GEMM_A_TILE;  // GEMM_STAGES x BK x B_LD
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wm = (warp >> 1) * 64;
-  const int wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  // stage `buf` of the pipeline: A columns and W rows k0..k0+BK
-  auto load_stage = [&](int buf, int k0) {
-    bf16* as = As + buf * GEMM_A_TILE;
-    bf16* ws = Ws + buf * GEMM_W_TILE;
-    for (int i = tid; i < BM * (BK / 8); i += GEMM_THREADS) {
-      const int r = i / (BK / 8);
-      const int c8 = (i % (BK / 8)) * 8;
-      const int gr = m0 + r;
-      // rows past M read row 0 (any valid address) and are zero-filled
-      cp_async16(&as[r * A_LD + c8], A + (size_t)(gr < M ? gr : 0) * K + k0 + c8, gr < M);
-    }
-    for (int i = tid; i < BK * (BN / 8); i += GEMM_THREADS) {
-      const int r = i / (BN / 8);
-      const int c8 = (i % (BN / 8)) * 8;
-      cp_async16(&ws[r * B_LD + c8], W + (size_t)(k0 + r) * N + n0 + c8, true);
-    }
-  };
-
-  // acc[mi][ni]: rows wm + 16 mi + {g, g + 8}, columns wn + 8 ni + {2t, 2t + 1}
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-  const int kt_n = K / BK;
-#pragma unroll
-  for (int st = 0; st < GEMM_STAGES - 1; ++st) {
-    if (st < kt_n) load_stage(st, st * BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait_stages();  // stage kt has landed (for this thread) ...
-    __syncthreads();         // ... for every thread; stage kt - 1 is consumed
-    // refill the buffer stage kt - 1 used; empty groups keep the count even
-    const int next = kt + GEMM_STAGES - 1;
-    if (next < kt_n) load_stage(next % GEMM_STAGES, next * BK);
-    cp_async_commit();
-
-    const bf16* as = As + (kt % GEMM_STAGES) * GEMM_A_TILE;
-    const bf16* ws = Ws + (kt % GEMM_STAGES) * GEMM_W_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(a[mi], &as[(wm + mi * 16 + (lane & 15)) * A_LD + kk + (lane >> 4) * 8]);
-      uint32_t b[2][4];  // b[np]: b0, b1 of column tile 2 np, then of 2 np + 1
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldmatrix_x4_trans(b[np], &ws[(kk + (lane & 7) + ((lane >> 3) & 1) * 8) * B_LD +
-                                     wn + np * 16 + (lane >> 4) * 8]);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2], b[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int gr = m0 + wm + mi * 16 + g;
-      const int gc = n0 + wn + ni * 8 + 2 * t;
-      if (gr < M) epilogue_pair<EPI>(ep, N, gr, gc, acc[mi][ni][0], acc[mi][ni][1]);
-      if (gr + 8 < M) epilogue_pair<EPI>(ep, N, gr + 8, gc, acc[mi][ni][2], acc[mi][ni][3]);
-    }
-}
-
-// Launch one GEMM stage with its dynamic shared memory (above the 48 KB a
-// block gets without asking).
-template <int EPI>
-static int launch_gemm(const bf16* A, const bf16* W, int M, int N, int K,
-                       const EpiArgs& ep, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(gemm_kernel<EPI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       GEMM_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  gemm_kernel<EPI><<<dim3(N / BN, (M + BM - 1) / BM), GEMM_THREADS, GEMM_SMEM, st>>>(
-      A, W, M, N, K, ep);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_layernorm(const T* x, const float* scale, const float* bias, bf16* y,
-                            int M, int D, float eps, cudaStream_t st) {
-  layernorm_kernel<T><<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
-      x, scale, bias, y, M, D, eps);
-  return (int)cudaGetLastError();
-}
+#include "common.cuh"
 
 // ---------------------------------------------------------------------------
 // Attention: one warp per 16 queries of one (image, head), four per block,
@@ -405,17 +65,12 @@ static int launch_layernorm(const T* x, const float* scale, const float* bias, b
 #define DH 64
 #define ATT_WARPS 4
 #define QCHUNK (ATT_WARPS * 16)
-#define NEG_INF (-1e30f)
 #define ATT_MAX_S 256    // K and V of one (image, head) staged in <= 72 KB
 #define VS_LD (DH + 8)  // bf16 elements per staged V row
 // Q and K are read straight from the qkv buffer in 16-row steps, so the last
 // image's last step reads up to 15 rows past it: the buffer carries this
 // many zeroed rows after its M rows.
 #define QKV_PAD_ROWS 16
-
-__device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // NT = SP / 8 key tiles: the kernel is instantiated per tile count so that
 // the warp's 16 x SP scores stay in registers (4 * NT per lane).
@@ -570,12 +225,6 @@ static int launch_attention(const bf16* qkv, bf16* att, int B, int S, int H, int
 
 #define LAUNCHES_PER_LAYER 7
 
-#define LAUNCH(call)          \
-  do {                        \
-    int e_ = (call);          \
-    if (e_ != 0) return e_;   \
-  } while (0)
-
 // qkv_buf holds (B * S + QKV_PAD_ROWS) rows of 3 * D; the pad rows are
 // zeroed here on every call. att_buf (B * S rows of D) also carries each
 // LayerNorm's output to the GEMM after it.
@@ -622,30 +271,30 @@ extern "C" int vit2spn_backbone_fwd(
     EpiArgs e1 = {};
     e1.bias = static_cast<const bf16*>(bqkv) + (size_t)l * D3;
     e1.out = qkv;
-    LAUNCH(launch_gemm<EPI_BIAS>(y, Wqkv, M, D3, D, e1, st));
+    LAUNCH((launch_gemm<false, false, EPI_BIAS>(y, Wqkv, M, D3, D, e1, st)));
 
     LAUNCH(launch_attention(qkv, att, B, S, H, D, scale, st));
 
     EpiArgs e3 = {};
     e3.bias = static_cast<const bf16*>(bo) + (size_t)l * D;
-    e3.x2 = x2;
+    e3.f32 = x2;
     e3.resid = cur;
     e3.xs = xs ? static_cast<bf16*>(xs) + (size_t)l * M * D : nullptr;
     e3.x2s = x2s ? static_cast<bf16*>(x2s) + (size_t)l * M * D : nullptr;
-    LAUNCH(launch_gemm<EPI_RESID>(att, Wo, M, D, D, e3, st));
+    LAUNCH((launch_gemm<false, false, EPI_RESID>(att, Wo, M, D, D, e3, st)));
 
     LAUNCH(launch_layernorm<float>(x2, l2s, l2b, y, M, D, eps, st));
     EpiArgs e4 = {};
     e4.bias = static_cast<const bf16*>(b1) + (size_t)l * MLP;
     e4.out = g;
     e4.fast_gelu = fast_gelu;
-    LAUNCH(launch_gemm<EPI_GELU>(y, W1, M, MLP, D, e4, st));
+    LAUNCH((launch_gemm<false, false, EPI_GELU>(y, W1, M, MLP, D, e4, st)));
 
     EpiArgs e5 = {};
     e5.bias = static_cast<const bf16*>(b2) + (size_t)l * D;
-    e5.x2 = x2;
+    e5.f32 = x2;
     e5.out = o;
-    LAUNCH(launch_gemm<EPI_OUT>(g, W2, M, D, MLP, e5, st));
+    LAUNCH((launch_gemm<false, false, EPI_OUT>(g, W2, M, D, MLP, e5, st)));
   }
   return (int)cudaSuccess;
 }
@@ -653,7 +302,3 @@ extern "C" int vit2spn_backbone_fwd(
 extern "C" int vit2spn_backbone_fwd_qkv_pad_rows() { return QKV_PAD_ROWS; }
 
 extern "C" int vit2spn_backbone_fwd_launches_per_layer() { return LAUNCHES_PER_LAYER; }
-
-extern "C" const char* vit2spn_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -46,7 +46,8 @@ def mlp_head_apply(
 ) -> torch.Tensor:
     """Linear -> ReLU [-> Dropout] -> ... -> Linear (no activation on last).
     Dropout is active only with `train=True` and draws its mask from the
-    explicit `generator` (on x's device)."""
+    explicit `generator`, which lives on x's device (a CUDA generator for
+    CUDA tensors)."""
     n = len(params)
     for i in range(n):
         p = params[f"linear_{i}"]
@@ -56,6 +57,10 @@ def mlp_head_apply(
             if train and dropout_rate > 0.0 and i == dropout_after_layer:
                 if generator is None:
                     raise ValueError("dropout in train mode needs a generator")
+                gd = generator.device
+                if gd.type != x.device.type or gd.index not in (None, x.device.index):
+                    raise ValueError(f"the dropout generator is on {gd}, x on "
+                                     f"{x.device}")
                 keep = 1.0 - dropout_rate
                 mask = torch.rand(x.shape, generator=generator,
                                   device=x.device) < keep

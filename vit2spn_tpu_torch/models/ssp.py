@@ -1,5 +1,5 @@
 """Self-supervised dual/single-stream networks (port of
-`vit2spn_tpu/models/ssp.py`, forward only).
+`vit2spn_tpu/models/ssp.py`).
 
   * DualStreamNetwork (ssp_vit2spn_tiny.py:121-166): online_1(view1),
     online_2(view2); frozen target_1(view1), target_2(view2). Online features
@@ -10,8 +10,13 @@
 
 The online pair and the target pair are each stored as ONE stacked param dict
 with a leading net axis (2, or 1 for single stream) — the JAX layout, which
-checkpoints and `from_jax` carry over unchanged. `negative_cosine_loss` and
-`ema_update` come with the training slice of the port.
+checkpoints and `from_jax` carry over unchanged.
+
+The loss is the negative mean cosine similarity of the online prediction and
+the target projection (`negative_cosine_loss`); the trainer uses its
+per-sample weighted form (`weighted_ssp_loss`), which masks the pad samples
+of the epoch's last accumulation group. After each optimizer step the
+target nets move toward the online nets by EMA (`ema_update`).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ def _tree_stack(trees):
     return torch.stack(trees)
 
 
+@torch.no_grad()
 def init_dual_stream(
     gen: torch.Generator,
     cfg: SSPConfig,
@@ -55,7 +61,8 @@ def init_dual_stream(
 ) -> DualStreamParams:
     """With `backbone_params` every net starts from it (pretrained path);
     otherwise each net gets an independent random init (the scratch
-    variant's independent online/target inits)."""
+    variant's independent online/target inits). The result is new leaf
+    tensors, whatever graph `backbone_params` carries."""
     dev = resolve_device(device)
     n = num_streams(cfg)
 
@@ -169,3 +176,49 @@ def dual_stream_forward(
             generator=generator, train=train,
         )
     return online_pred, target_proj.float()
+
+
+def _unit(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=eps)
+
+
+def negative_cosine_loss(pred: torch.Tensor, target: torch.Tensor,
+                         eps: float = 1e-8) -> torch.Tensor:
+    """-mean(cosine(pred, target)), torch.nn.CosineSimilarity semantics
+    (ssp_vit2spn_tiny.py:174,211)."""
+    return -torch.mean(torch.sum(_unit(pred, eps) * _unit(target, eps), dim=-1))
+
+
+def weighted_ssp_loss(pred: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
+                      eps: float = 1e-8):
+    """The trainer's loss (JAX train/ssp.py `loss_fn`): the mean negative
+    cosine over the samples weighted by `w` (0/1 per sample; all ones gives
+    `negative_cosine_loss`), and, without gradient, `pred_std`: the mean
+    over features of the weighted std of the L2-normalized predictions
+    across the batch. pred_std -> 0 signals representational collapse.
+    Returns (loss, pred_std)."""
+    pn, tn = _unit(pred, eps), _unit(target, eps)
+    denom = torch.clamp(torch.sum(w), min=1.0)
+    loss = -torch.sum(torch.sum(pn * tn, dim=-1) * w) / denom
+    with torch.no_grad():
+        mean_w = torch.sum(w[:, None] * pn, dim=0) / denom
+        var = torch.sum(w[:, None] * (pn - mean_w) ** 2, dim=0) / denom
+        pred_std = torch.mean(torch.sqrt(var))
+    return loss, pred_std
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+@torch.no_grad()
+def ema_update(target: dict, online: dict, momentum: float) -> dict:
+    """target <- m*target + (1-m)*online over the stacked trees. Unlike the
+    JAX package's tree.map it updates the target tensors IN PLACE (no second
+    copy of the target nets) and returns `target`."""
+    t, o = _leaves(target), _leaves(online)
+    torch._foreach_mul_(t, momentum)
+    torch._foreach_add_(t, o, alpha=1.0 - momentum)
+    return target

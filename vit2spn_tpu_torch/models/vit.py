@@ -8,9 +8,14 @@ and `blocks/<name>` stacked over layers for every name in
 ops/fused_block.py::WEIGHT_NAMES, matmul weights as (in, out).
 
 The transformer stack runs through ops/fused_block.py::fused_backbone — the
-hand-written CUDA kernel for CUDA tensors, its plain twin for CPU tensors —
-or, with `attn_impl="plain"`, through the plain twin on any device (the
-reference the kernel is held against on the card).
+hand-written CUDA kernels for CUDA tensors, their plain twins for CPU
+tensors — or, with `attn_impl="plain"`, through the plain twin on any device
+(the reference the kernels are held against on the card). Under autograd
+gradients flow through fused_backbone's Function (the backward kernels) to
+the fp32 master params, through the casts of `backbone_weights`; the patch
+embed, CLS token, position embedding and token mean are plain torch
+autograd. The kernels take bf16 only: the fp32 policy runs on CUDA through
+`attn_impl="plain"`.
 
 Feature semantics: the mean over ALL tokens (CLS included) of the last block
 output BEFORE the final layernorm (ssp_vit2spn_tiny.py:116-117).

@@ -1,24 +1,36 @@
-"""Whole-backbone ViT forward: the Hopper kernel, its plain twin, its wrapper.
+"""Whole-backbone ViT forward and backward: the Hopper kernels, their plain
+twins, their wrappers, and the autograd Function that joins them.
 
-Port of `vit2spn_tpu/ops/fused_block.py::fused_backbone` (the Pallas kernel
-`_backbone_fwd_kernel`). Three pieces:
+Port of `vit2spn_tpu/ops/fused_block.py::fused_backbone` and its custom_vjp
+(the Pallas kernels `_backbone_fwd_kernel`, `_mlp_bwd_kernel` and
+`_attn_bwd_kernel`). Per kernel three pieces:
 
-  * `backbone_forward_plain` — plain PyTorch, layer after layer, with the
-    Pallas kernel's rounding points (`_block_fwd_math`): bf16 LN outputs
+  * a plain PyTorch twin with the Pallas kernel's rounding points
+    (`backbone_forward_plain` after `_block_fwd_math`: bf16 LN outputs
     before their GEMMs, bf16 qkv, bf16 softmax probabilities before P.V,
     fp32 x2 inside the layer, a bf16 residual stream between layers, fp32
-    gelu then bf16. Matmuls take compute-dtype inputs and accumulate in fp32.
-  * the CUDA kernel in `csrc/backbone_fwd.cu` (seven launches per layer on
-    the current stream), built on first use (ops/cuda_build.py).
-  * `fused_backbone` — the wrapper. For CPU tensors it runs the plain twin;
-    for CUDA tensors it launches the kernel, or raises on what the kernel
-    does not take. It never falls back from CUDA to the plain twin.
+    gelu then bf16; `mlp_bwd_plain` after `_mlp_bwd_math` and
+    `attn_bwd_plain` after `_attn_bwd_math`: bf16 m1, dm1, datt, dS and
+    dqkv, fp32 weight gradients). Matmuls take compute-dtype inputs and
+    accumulate in fp32.
+  * the CUDA kernel in `csrc/<name>.cu` (several launches on the current
+    stream), built on first use (ops/cuda_build.py).
+  * the wrapper (`fused_backbone`, `mlp_bwd`, `attn_bwd`). For CPU tensors
+    it runs the plain twin; for CUDA tensors it launches the kernel, or
+    raises on what the kernel does not take. It never falls back from CUDA
+    to the plain twin. Each counts its kernel launches in `.launches` and
+    names them `vit2spn::<name>` for torch.profiler, which sums their
+    device time under that range.
+
+Under autograd `fused_backbone` goes through `_FusedBackbone`: its forward
+keeps each layer's input (xs) and mid-residual (x2s), its backward runs the
+layers in reverse, MLP half then attention half, as `_backbone_vjp_bwd`.
 
 Layout: x (B, S, D); weights a tuple of STACKED arrays in WEIGHT_NAMES order
 with a leading layer axis — LN params fp32 (L, D), matmul weights (L, in,
-out) and biases (L, n) in compute dtype. Unlike the TPU kernel nothing is
-padded to a multiple of 16 tokens in memory: the kernel masks its own pad
-keys, so the xs / x2s residual stacks are (L, B, S, D).
+out) and biases (L, n) in compute dtype. Unlike the TPU kernels nothing is
+padded to a multiple of 16 tokens in memory: the kernels mask their own pad
+keys and queries, so the xs / x2s residual stacks are (L, B, S, D).
 """
 
 from __future__ import annotations
@@ -84,14 +96,41 @@ def gelu(m1: torch.Tensor, fast_gelu: bool) -> torch.Tensor:
     return 0.5 * m1 * (1.0 + _erf_exact(m1 * 0.7071067811865476))
 
 
-def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            eps: float) -> torch.Tensor:
-    """fp32 layernorm: mean, then the mean of squared deviations."""
+def gelu_grad(m1: torch.Tensor, fast_gelu: bool) -> torch.Tensor:
+    """gelu'(x): Phi(x) + x phi(x) with the A&S erf, or the fast odd rational
+    0.5 + xc*P4(xc^2)/Q3(xc^2), xc = clip(x, -4.6, 4.6) (`_gelu_grad_fast`)."""
+    if not fast_gelu:
+        phi = torch.exp(-0.5 * m1 * m1) * 0.3989422804014327
+        cdf = 0.5 * (1.0 + _erf_exact(m1 * 0.7071067811865476))
+        return cdf + m1 * phi
+    xc = torch.clamp(m1, -4.6, 4.6)
+    s = xc * xc
+    p = 1.8219220945499694e-06
+    p = -1.2033074181130153e-05 + s * p
+    p = 0.013759530274157408 + s * p
+    p = -0.03544238930343691 + s * p
+    p = 0.7981352003862573 + s * p
+    q = 0.003771008302941207
+    q = 0.036972201734621915 + s * q
+    q = 0.2904124253896315 + s * q
+    q = 1.0 + s * q
+    return 0.5 + xc * p / q
+
+
+def _ln_stats(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 layernorm statistics: (xhat, rstd) from the mean, then the mean
+    of squared deviations."""
     x32 = x.float()
     mean = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
-    xhat = (x32 - mean) * torch.rsqrt(var + eps)
-    return xhat * scale.float() + bias.float()
+    rstd = torch.rsqrt(var + eps)
+    return (x32 - mean) * rstd, rstd
+
+
+def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """fp32 layernorm."""
+    return _ln_stats(x, eps)[0] * scale.float() + bias.float()
 
 
 def _block_fwd_plain(x: torch.Tensor, w: dict, heads: int, eps: float,
@@ -136,6 +175,157 @@ def backbone_forward_plain(x: torch.Tensor, weights: Tuple, heads: int,
     return h
 
 
+# ---------------------------------------------------------------------------
+# Backward: plain twins of `_mlp_bwd_math`, `_attn_bwd_math` and the reverse
+# layer loop of `_backbone_vjp_bwd`, with the Pallas kernels' rounding points
+# ---------------------------------------------------------------------------
+
+MLP_NAMES = ("ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
+ATTN_NAMES = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo")
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A GEMM of compute-dtype operands with fp32 accumulation."""
+    return a.float() @ b.float()
+
+
+def _ln_bwd(dy, xhat, rstd, scale):
+    """dy: fp32 (N, D) gradient of the LN output; returns (dx, dscale,
+    dbias), as `_ln_bwd`."""
+    dxhat = dy * scale.float()
+    dx = rstd * (dxhat - torch.mean(dxhat, dim=-1, keepdim=True)
+                 - xhat * torch.mean(dxhat * xhat, dim=-1, keepdim=True))
+    return dx, torch.sum(dy * xhat, dim=0), torch.sum(dy, dim=0)
+
+
+def mlp_bwd_plain(x2: torch.Tensor, dout: torch.Tensor, w: dict, eps: float,
+                  fast_gelu: bool):
+    """Plain twin of csrc/mlp_bwd.cu (`_mlp_bwd_math`): recompute LN2 and the
+    MLP from the mid-residual x2, then back through them. x2, dout: (B, S, D)
+    in compute dtype; w: one layer's weights by name. Returns (dx2 in
+    x2.dtype, {name: fp32 gradient} over MLP_NAMES)."""
+    dtype, shape = x2.dtype, x2.shape
+    x2 = x2.reshape(-1, shape[-1])
+    dout = dout.reshape(-1, shape[-1])
+    xhat, rstd = _ln_stats(x2, eps)
+    y2 = (xhat * w["ln2_scale"].float() + w["ln2_bias"].float()).to(dtype)
+    # the recompute stores m1 in compute dtype (the forward keeps it fp32)
+    m1 = (_mm(y2, w["w1"]) + w["b1"].float()).to(dtype).float()
+    g = gelu(m1, fast_gelu).to(dtype)
+    gg = gelu_grad(m1, fast_gelu).to(dtype)
+    dg = _mm(dout, w["w2"].t()).to(dtype)
+    dm1 = (dg.float() * gg.float()).to(dtype)
+    dx, dscale, dbias = _ln_bwd(_mm(dm1, w["w1"].t()), xhat, rstd, w["ln2_scale"])
+    grads = {
+        "ln2_scale": dscale, "ln2_bias": dbias,
+        "w1": _mm(y2.t(), dm1), "b1": torch.sum(dm1.float(), dim=0),
+        "w2": _mm(g.t(), dout), "b2": torch.sum(dout.float(), dim=0),
+    }
+    return (dout.float() + dx).to(dtype).reshape(shape), grads
+
+
+def _attention_bwd(qkv: torch.Tensor, datt: torch.Tensor, heads: int):
+    """Recompute-softmax attention and its backward (`_attention` and
+    `_attention_bwd`). qkv: (B, S, 3D), datt: (B, S, D), compute dtype.
+    Returns (att (B, S, D), dqkv (B, S, 3D)), both in compute dtype."""
+    dtype = qkv.dtype
+    b, s, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // heads
+    scale = 1.0 / (dh ** 0.5)
+
+    def split(t):  # (B, S, D) -> (B, heads, S, dh), fp32
+        return t.reshape(b, s, heads, dh).transpose(1, 2).float()
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(b, s, d)
+
+    q, k, v = (split(t) for t in qkv.split(d, dim=-1))
+    do = split(datt)
+    sc = (q @ k.transpose(-1, -2)) * scale
+    p = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
+    p = p / torch.sum(p, dim=-1, keepdim=True)
+    pdt = p.to(dtype).float()
+    att = merge(pdt @ v).to(dtype)
+    dp = do @ v.transpose(-1, -2)
+    ds = (p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))).to(dtype).float()
+    dq = (ds @ k) * scale
+    dk = (ds.transpose(-1, -2) @ q) * scale
+    dv = pdt.transpose(-1, -2) @ do
+    return att, torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1).to(dtype)
+
+
+def attn_bwd_plain(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int,
+                   eps: float):
+    """Plain twin of csrc/attn_bwd.cu (`_attn_bwd_math`): recompute LN1, QKV
+    and attention from the layer input x, then back through them. x, dx2:
+    (B, S, D) in compute dtype. Returns (dx in x.dtype, {name: fp32
+    gradient} over ATTN_NAMES)."""
+    dtype = x.dtype
+    b, s, d = x.shape
+    x = x.reshape(-1, d)
+    dx2 = dx2.reshape(-1, d)
+    xhat, rstd = _ln_stats(x, eps)
+    y1 = (xhat * w["ln1_scale"].float() + w["ln1_bias"].float()).to(dtype)
+    qkv = (_mm(y1, w["wqkv"]) + w["bqkv"].float()).to(dtype)
+    datt = _mm(dx2, w["wo"].t()).to(dtype)
+    att, dqkv = _attention_bwd(qkv.reshape(b, s, 3 * d), datt.reshape(b, s, d), heads)
+    att, dqkv = att.reshape(-1, d), dqkv.reshape(-1, 3 * d)
+    dx, dscale, dbias = _ln_bwd(_mm(dqkv, w["wqkv"].t()), xhat, rstd, w["ln1_scale"])
+    grads = {
+        "ln1_scale": dscale, "ln1_bias": dbias,
+        "wqkv": _mm(y1.t(), dqkv), "bqkv": torch.sum(dqkv.float(), dim=0),
+        "wo": _mm(att.t(), dx2), "bo": torch.sum(dx2.float(), dim=0),
+    }
+    return (dx2.float() + dx).to(dtype).reshape(b, s, d), grads
+
+
+def _backbone_backward(xs, x2s, g, weights, heads, eps, fast_gelu, mlp, attn):
+    """The reverse layer loop of `_backbone_vjp_bwd`: per layer the MLP half,
+    then the attention half, with dx2 crossing between them in compute
+    dtype. `mlp(x2, dout, w, eps, fast_gelu, out)` and `attn(x, dx2, w,
+    heads, eps, out)` write their fp32 weight gradients into `out` and return
+    the activation gradient. Returns (dx, fp32 stacked gradients in
+    WEIGHT_NAMES order)."""
+    g = g.to(xs.dtype).contiguous()
+    grads = {n: torch.empty(t.shape, dtype=torch.float32, device=t.device)
+             for n, t in zip(WEIGHT_NAMES, weights)}
+    for l in reversed(range(weights[0].shape[0])):
+        w = {n: t[l] for n, t in zip(WEIGHT_NAMES, weights)}
+        dx2 = mlp(x2s[l], g, w, eps, fast_gelu, {n: grads[n][l] for n in MLP_NAMES})
+        g = attn(xs[l], dx2, w, heads, eps, {n: grads[n][l] for n in ATTN_NAMES})
+    return g, tuple(grads[n] for n in WEIGHT_NAMES)
+
+
+def _write(grads: dict, out: Optional[dict]) -> dict:
+    if out is None:
+        return grads
+    for n, t in grads.items():
+        out[n].copy_(t)
+    return out
+
+
+def backbone_backward_plain(xs, x2s, g, weights, heads, eps, fast_gelu):
+    """Plain twin of the whole backward: xs / x2s (L, B, S, D) from the
+    forward's `emit_res`, g the gradient of its output. Returns (dx, fp32
+    stacked weight gradients in WEIGHT_NAMES order)."""
+    def mlp(x2, dout, w, eps, fast_gelu, out):
+        dx2, grads = mlp_bwd_plain(x2, dout, w, eps, fast_gelu)
+        _write(grads, out)
+        return dx2
+
+    def attn(x, dx2, w, heads, eps, out):
+        dx, grads = attn_bwd_plain(x, dx2, w, heads, eps)
+        _write(grads, out)
+        return dx
+
+    return _backbone_backward(xs, x2s, g, weights, heads, eps, fast_gelu, mlp, attn)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels: checks, loading, wrappers
+# ---------------------------------------------------------------------------
+
 def _weight_shapes(layers: int, d: int, mlp: int) -> dict:
     return {
         "ln1_scale": (layers, d), "ln1_bias": (layers, d),
@@ -147,27 +337,30 @@ def _weight_shapes(layers: int, d: int, mlp: int) -> dict:
     }
 
 
-def _check_kernel_inputs(x: torch.Tensor, weights: Tuple, heads: int) -> None:
+def _check_activation(x: torch.Tensor, heads: Optional[int]) -> None:
+    """What every kernel takes: contiguous bf16 (B, S, D) with D a multiple
+    of 64 up to KERNEL_MAX_D; the attention kernels also head_dim 64 and
+    S <= KERNEL_MAX_SEQ."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"backbone kernel takes bf16 activations, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("backbone kernel takes a contiguous (B, S, D) tensor")
-    if len(weights) != len(WEIGHT_NAMES):
-        raise ValueError(f"expected {len(WEIGHT_NAMES)} weight arrays")
     b, s, d = x.shape
-    if heads <= 0 or d != heads * KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"backbone kernel needs head_dim {KERNEL_HEAD_DIM}; got D={d}, "
-            f"heads={heads}"
-        )
-    layers, mlp = weights[0].shape[0], weights[8].shape[-1]
-    if d % 64 or mlp % 64 or d > KERNEL_MAX_D:
-        raise ValueError(f"backbone kernel needs D and mlp multiples of 64 "
-                         f"and D <= {KERNEL_MAX_D}, got {d}, {mlp}")
-    if s > KERNEL_MAX_SEQ:
-        raise ValueError(f"backbone kernel takes S <= {KERNEL_MAX_SEQ}, got {s}")
-    shapes = _weight_shapes(layers, d, mlp)
-    for name, t in zip(WEIGHT_NAMES, weights):
+    if heads is not None:
+        if heads <= 0 or d != heads * KERNEL_HEAD_DIM:
+            raise ValueError(
+                f"backbone kernel needs head_dim {KERNEL_HEAD_DIM}; got D={d}, "
+                f"heads={heads}"
+            )
+        if s > KERNEL_MAX_SEQ:
+            raise ValueError(f"backbone kernel takes S <= {KERNEL_MAX_SEQ}, got {s}")
+    if d % 64 or d > KERNEL_MAX_D:
+        raise ValueError(f"backbone kernel needs D a multiple of 64 and "
+                         f"D <= {KERNEL_MAX_D}, got {d}")
+
+
+def _check_weights(x: torch.Tensor, names, tensors, shapes: dict) -> None:
+    for name, t in zip(names, tensors):
         want_dtype = torch.float32 if name.startswith("ln") else torch.bfloat16
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -180,34 +373,100 @@ def _check_kernel_inputs(x: torch.Tensor, weights: Tuple, heads: int) -> None:
             raise ValueError(f"{name} is not contiguous")
 
 
-def _load_kernel() -> ctypes.CDLL:
+def _check_kernel_inputs(x: torch.Tensor, weights: Tuple, heads: int) -> None:
+    _check_activation(x, heads)
+    if len(weights) != len(WEIGHT_NAMES):
+        raise ValueError(f"expected {len(WEIGHT_NAMES)} weight arrays")
+    layers, mlp = weights[0].shape[0], weights[8].shape[-1]
+    if mlp % 64:
+        raise ValueError(f"backbone kernel needs mlp a multiple of 64, got {mlp}")
+    _check_weights(x, WEIGHT_NAMES, weights, _weight_shapes(layers, x.shape[2], mlp))
+
+
+def _check_layer_inputs(x, other, w: dict, names, heads, out: dict) -> None:
+    """One layer's backward operands: x and the incoming gradient alike,
+    the layer's weights, and fp32 gradient outputs of the weights' shapes."""
+    _check_activation(x, heads)
+    if other.dtype != x.dtype or other.shape != x.shape or not other.is_contiguous():
+        raise ValueError("the incoming gradient must be a contiguous tensor of "
+                         "x's shape and dtype")
+    d = x.shape[2]
+    mlp = w["w1"].shape[-1] if "w1" in names else 64
+    if mlp % 64:
+        raise ValueError(f"backbone kernel needs mlp a multiple of 64, got {mlp}")
+    shapes = {n: s[1:] for n, s in _weight_shapes(1, d, mlp).items()}
+    _check_weights(x, names, [w[n] for n in names], shapes)
+    for n in names:
+        t = out[n]
+        if (t.dtype != torch.float32 or tuple(t.shape) != shapes[n]
+                or not t.is_contiguous() or t.device != x.device):
+            raise ValueError(f"gradient output {n} must be a contiguous fp32 "
+                             f"{shapes[n]} tensor on {x.device}")
+
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# every C entry point: (argtypes, restype)
+_SIGNATURES = {
+    KERNEL_NAME: {
+        "vit2spn_backbone_fwd": ([_P] * 20 + [_I] * 6 + [_F, _I, _P], _I),
+        "vit2spn_backbone_fwd_launches_per_layer": ([], _I),
+        "vit2spn_backbone_fwd_qkv_pad_rows": ([], _I),
+    },
+    "mlp_bwd": {
+        "vit2spn_mlp_bwd": ([_P] * 19 + [_I] * 3 + [_F, _I, _P], _I),
+        "vit2spn_mlp_bwd_workspace_floats": ([_I] * 3, _LL),
+        "vit2spn_mlp_bwd_launches": ([], _I),
+    },
+    "attn_bwd": {
+        "vit2spn_attn_bwd": ([_P] * 21 + [_I] * 4 + [_F, _P], _I),
+        "vit2spn_attn_bwd_workspace_floats": ([_I] * 2, _LL),
+        "vit2spn_attn_bwd_launches": ([], _I),
+    },
+}
+KERNEL_NAMES = tuple(_SIGNATURES)
+
+
+def _load(name: str) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu, built on first use, its entry points
+    typed."""
     from vit2spn_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load(KERNEL_NAME)
+    lib = cuda_build.load(name)
     if not getattr(lib, "_vit2spn_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vit2spn_backbone_fwd.argtypes = (
-            [p] * 20 + [i] * 6 + [ctypes.c_float, i, p]
-        )
-        lib.vit2spn_backbone_fwd.restype = i
-        for fn in ("vit2spn_backbone_fwd_launches_per_layer",
-                   "vit2spn_backbone_fwd_qkv_pad_rows"):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = i
-        lib.vit2spn_cuda_error_string.argtypes = [i]
+        for fn, (args, res) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = res
+        lib.vit2spn_cuda_error_string.argtypes = [_I]
         lib.vit2spn_cuda_error_string.restype = ctypes.c_char_p
         lib._vit2spn_typed = True
     return lib
 
 
+def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.vit2spn_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+def _stream(dev: torch.device):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def kernel_launches_per_layer() -> int:
-    """CUDA kernel launches one backbone layer costs (builds if needed)."""
-    return _load_kernel().vit2spn_backbone_fwd_launches_per_layer()
+    """CUDA kernel launches one backbone forward layer costs (builds if
+    needed)."""
+    return _load(KERNEL_NAME).vit2spn_backbone_fwd_launches_per_layer()
+
+
+def backward_launches_per_layer() -> Tuple[int, int]:
+    """CUDA kernel launches of one layer's MLP and attention backward."""
+    return (_load("mlp_bwd").vit2spn_mlp_bwd_launches(),
+            _load("attn_bwd").vit2spn_attn_bwd_launches())
 
 
 def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
     _check_kernel_inputs(x, weights, heads)
-    lib = _load_kernel()
+    lib = _load(KERNEL_NAME)
     b, s, d = x.shape
     layers, mlp = weights[0].shape[0], weights[8].shape[-1]
     m = b * s
@@ -223,8 +482,7 @@ def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
     att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     x2 = torch.empty((m, d), dtype=torch.float32, device=dev)
     g = torch.empty((m, mlp), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev), torch.profiler.record_function(f"vit2spn::{KERNEL_NAME}"):
         rc = lib.vit2spn_backbone_fwd(
             x.data_ptr(), out.data_ptr(),
             xs.data_ptr() if emit_res else None,
@@ -232,27 +490,101 @@ def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
             *[t.data_ptr() for t in weights],
             qkv.data_ptr(), att.data_ptr(), x2.data_ptr(), g.data_ptr(),
             b, s, d, heads, mlp, layers, float(eps), int(bool(fast_gelu)),
-            stream,
+            _stream(dev),
         )
-    if rc != 0:
-        msg = lib.vit2spn_cuda_error_string(rc).decode()
-        raise RuntimeError(f"backbone kernel launch failed: {msg} ({rc})")
+    _raise_on(lib, rc, "backbone")
     fused_backbone.launches += 1
     if emit_res:
         return out, xs, x2s
     return out
 
 
-def fused_backbone(x: torch.Tensor, weights: Tuple, heads: int, eps: float,
-                   fast_gelu: Optional[bool] = None, emit_res: bool = False):
-    """Run the full transformer stack over x: (B, S, D).
+def _grad_outputs(w: dict, names, out: Optional[dict]) -> dict:
+    if out is not None:
+        return out
+    return {n: torch.empty(w[n].shape, dtype=torch.float32, device=w[n].device)
+            for n in names}
 
-    CUDA tensors go through the hand-written kernel (bf16 only; anything it
-    does not take raises); CPU tensors through `backbone_forward_plain`.
-    `fast_gelu=None` resolves from VIT2SPN_FAST_GELU. Returns out, or
-    (out, xs, x2s) with `emit_res` (the training forward's residuals)."""
-    if fast_gelu is None:
-        fast_gelu = fast_gelu_default()
+
+def mlp_bwd(x2: torch.Tensor, dout: torch.Tensor, w: dict, eps: float,
+            fast_gelu: bool, out: Optional[dict] = None):
+    """One layer's MLP backward: (dx2, {name: fp32 gradient} over MLP_NAMES).
+
+    CUDA tensors go through csrc/mlp_bwd.cu (bf16 only; anything it does not
+    take raises), CPU tensors through `mlp_bwd_plain`. The gradients are
+    written into `out` when it is given."""
+    if x2.device.type == "cpu":
+        dx2, grads = mlp_bwd_plain(x2, dout, w, eps, fast_gelu)
+        return dx2, _write(grads, out)
+    if x2.device.type != "cuda":
+        raise ValueError(f"mlp_bwd runs on cuda or cpu, not {x2.device}")
+    out = _grad_outputs(w, MLP_NAMES, out)
+    _check_layer_inputs(x2, dout, w, MLP_NAMES, None, out)
+    lib = _load("mlp_bwd")
+    b, s, d = x2.shape
+    m, mlp = b * s, w["w1"].shape[1]
+    dev = x2.device
+    dx2 = torch.empty_like(x2)
+    y2 = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    g = torch.empty((m, mlp), dtype=torch.bfloat16, device=dev)
+    gg = torch.empty((m, mlp), dtype=torch.bfloat16, device=dev)
+    dy = torch.empty((m, d), dtype=torch.float32, device=dev)
+    ws = torch.empty(lib.vit2spn_mlp_bwd_workspace_floats(m, d, mlp),
+                     dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::mlp_bwd"):
+        rc = lib.vit2spn_mlp_bwd(
+            x2.data_ptr(), dout.data_ptr(), *[w[n].data_ptr() for n in MLP_NAMES[:5]],
+            dx2.data_ptr(), *[out[n].data_ptr() for n in MLP_NAMES],
+            y2.data_ptr(), g.data_ptr(), gg.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+            m, d, mlp, float(eps), int(bool(fast_gelu)), _stream(dev),
+        )
+    _raise_on(lib, rc, "mlp backward")
+    mlp_bwd.launches += 1
+    return dx2, out
+
+
+def attn_bwd(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int, eps: float,
+             out: Optional[dict] = None):
+    """One layer's attention backward: (dx, {name: fp32 gradient} over
+    ATTN_NAMES).
+
+    CUDA tensors go through csrc/attn_bwd.cu (bf16 only; anything it does
+    not take raises), CPU tensors through `attn_bwd_plain`. The gradients
+    are written into `out` when it is given."""
+    if x.device.type == "cpu":
+        dx, grads = attn_bwd_plain(x, dx2, w, heads, eps)
+        return dx, _write(grads, out)
+    if x.device.type != "cuda":
+        raise ValueError(f"attn_bwd runs on cuda or cpu, not {x.device}")
+    out = _grad_outputs(w, ATTN_NAMES, out)
+    _check_layer_inputs(x, dx2, w, ATTN_NAMES, heads, out)
+    lib = _load("attn_bwd")
+    b, s, d = x.shape
+    m = b * s
+    dev = x.device
+
+    def bf(n):
+        return torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+
+    dx = torch.empty_like(x)
+    y1, qkv, datt, att, dqkv = bf(d), bf(3 * d), bf(d), bf(d), bf(3 * d)
+    dy = torch.empty((m, d), dtype=torch.float32, device=dev)
+    ws = torch.empty(lib.vit2spn_attn_bwd_workspace_floats(m, d),
+                     dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::attn_bwd"):
+        rc = lib.vit2spn_attn_bwd(
+            x.data_ptr(), dx2.data_ptr(), *[w[n].data_ptr() for n in ATTN_NAMES[:5]],
+            dx.data_ptr(), *[out[n].data_ptr() for n in ATTN_NAMES],
+            y1.data_ptr(), qkv.data_ptr(), datt.data_ptr(), att.data_ptr(),
+            dqkv.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+            b, s, d, heads, float(eps), _stream(dev),
+        )
+    _raise_on(lib, rc, "attention backward")
+    attn_bwd.launches += 1
+    return dx, out
+
+
+def _backbone_forward(x, weights, heads, eps, fast_gelu, emit_res):
     if x.device.type == "cuda":
         return _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res)
     if x.device.type != "cpu":
@@ -260,6 +592,53 @@ def fused_backbone(x: torch.Tensor, weights: Tuple, heads: int, eps: float,
     return backbone_forward_plain(x, weights, heads, eps, fast_gelu, emit_res)
 
 
-# kernel launches through the wrapper (one per backbone forward); the plain
-# twin never counts
+class _FusedBackbone(torch.autograd.Function):
+    """`fused_backbone` under autograd, as the JAX package's custom_vjp: the
+    forward keeps the xs / x2s residual stacks, the backward runs each
+    layer's MLP and attention backward in reverse (the kernels on CUDA,
+    their plain twins on the CPU). Weight gradients come back in each
+    weight's own dtype, as `_backbone_vjp_bwd` casts them."""
+
+    @staticmethod
+    def forward(ctx, x, heads, eps, fast_gelu, *weights):
+        out, xs, x2s = _backbone_forward(x, weights, heads, eps, fast_gelu, True)
+        ctx.save_for_backward(xs, x2s, *weights)
+        ctx.args = (heads, eps, fast_gelu)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, x2s, *weights = ctx.saved_tensors
+        heads, eps, fast_gelu = ctx.args
+        dx, dws = _backbone_backward(
+            xs, x2s, g, weights, heads, eps, fast_gelu,
+            lambda *a: mlp_bwd(*a)[0], lambda *a: attn_bwd(*a)[0],
+        )
+        return (dx, None, None, None,
+                *(dw.to(w.dtype) for dw, w in zip(dws, weights)))
+
+
+def fused_backbone(x: torch.Tensor, weights: Tuple, heads: int, eps: float,
+                   fast_gelu: Optional[bool] = None, emit_res: bool = False):
+    """Run the full transformer stack over x: (B, S, D).
+
+    CUDA tensors go through the hand-written kernels (bf16 only; anything
+    they do not take raises); CPU tensors through the plain twins.
+    `fast_gelu=None` resolves from VIT2SPN_FAST_GELU. Returns out, or
+    (out, xs, x2s) with `emit_res` (the training forward's residuals).
+    When autograd needs a gradient of x or a weight, the call goes through
+    `_FusedBackbone`; without one (`no_grad`, the target nets, serving) no
+    residual is kept."""
+    if fast_gelu is None:
+        fast_gelu = fast_gelu_default()
+    if (not emit_res and torch.is_grad_enabled()
+            and (x.requires_grad or any(t.requires_grad for t in weights))):
+        return _FusedBackbone.apply(x, heads, eps, fast_gelu, *weights)
+    return _backbone_forward(x, weights, heads, eps, fast_gelu, emit_res)
+
+
+# kernel launches through the wrappers (one per backbone forward, one per
+# layer of each backward half); the plain twins never count
 fused_backbone.launches = 0
+mlp_bwd.launches = 0
+attn_bwd.launches = 0

@@ -8,10 +8,13 @@ JAX package's `_path_key` names) plus a `__metadata__` JSON blob.
 `restore` takes a template tree (`like=`) and returns the same structure
 with the stored values as tensors of the template's dtype and device; keys
 must match exactly, as the JAX package's `restore(strict=True)`. The
-port's trainer state holds the parameters and the step count only: a JAX
-training checkpoint's `opt_state/...` leaves (the Adam moments) have no place
-to go until the port has an optimizer, so the trainer restores with
-`ignore=("opt_state/",)`, which neither reads them nor counts them as extra.
+port's trainer state (train/ssp.py::SSPTrainState) holds the parameters,
+Adam's state under optax.adam's leaf names (`opt_state/0/count`,
+`opt_state/0/mu/0/...`, `opt_state/0/nu/1/...`) and the step count, so a
+training checkpoint restores strictly in either package, moments included.
+Keys that start with a prefix in `ignore` are neither read nor counted as
+extra: serving reads params and step alone with `ignore=("opt_state/",)`,
+which also takes a params-only file.
 """
 
 from __future__ import annotations
