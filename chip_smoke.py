@@ -24,24 +24,46 @@ script exits non-zero without printing a result:
      through the autograd Function against `backbone_backward_plain` on that
      forward's residuals; two backward runs giving the same weight-gradient
      bits;
-  5. the serving path end to end: SSPTrainer on the dual-stream `ssp` preset
+  5. the fp32-inside attention kernels (flash forward and backward) against
+     their plain twins: o, dq, dk, dv at the training shape (B=128) and the
+     serving shape (B=256), at S = 5, 17 and 256, a ragged B, and with fp32
+     inputs; at each shape as close to the function computed in float64 as
+     the twin is (a kernel that rounded P or dS to bf16 would not be);
+  6. the one-layer forward kernel against its twin at B=128 and 256, both
+     gelu forms (out and x2), and 12 `fused_block` calls against one
+     `fused_backbone`: every output bit equal;
+  7. the merged layer backward against the split kernels (the share of equal
+     bits) and its twin at B=128, both gelu forms, dx and all 12 weight
+     gradients; two runs giving the same weight-gradient bits;
+  8. the serving path end to end: SSPTrainer on the dual-stream `ssp` preset
      (random init from the seed) runs extract_features over 1024 synthetic
-     28 px images at batch 256. The launch counters are set to 0 just before
-     and read just after; the features must be finite, (1024, 128), and
-     agree with the same path run through the plain twin;
-  6. the training path end to end: `fit` of the `ssp` preset (full width and
+     28 px images at batch 256, through attn_impl "fused", then "pallas" and
+     "fused_layer". The launch counters are set to 0 just before each run
+     and read just after: only that path's forward kernel ran; the features
+     must be finite, (1024, 128), and agree with the same path run through
+     the plain twin;
+  9. the training path end to end: `fit` of the `ssp` preset (full width and
      depth, 8 microbatches of 128, bf16) over 4096 synthetic 28 px images,
      four optimizer steps, with the counters set to 0 just before and read
      just after: finite losses, 32 forward launches and 192 launches of each
      backward kernel per step; and step 1 against the same step run with
      attn_impl="plain" from the same state (loss, Adam's first moments, the
      updated params);
-  7. times with CUDA events after a warm-up: each kernel, its plain twin, a
+ 10. the other backbone paths end to end, at the same width and depth: for
+     "pallas", "fused_layer" and "fused" with VIT2SPN_MERGED_BWD=1, step 1
+     against a reference path from the same state ("xla", "fused", the
+     split backward), then `fit` of two optimizer steps over 2048 images
+     with the counters read around it (per step: 384 flash forwards and 192
+     flash backwards; 384 layer forwards and 192 of each split half; 32
+     backbone forwards and 192 merged backwards, no split half), and the
+     step's images/s and device time by wrapper;
+ 11. times with CUDA events after a warm-up: each kernel, its plain twin, a
      library yardstick (F.layer_norm / torch.matmul / SDPA / F.gelu, and
-     their torch autograd for the backward halves) and the least time the
-     card could take for the same work; extract images/s; the optimizer
-     step's images/s, and from torch.profiler its device time by kernel
-     wrapper (each wrapper's `vit2spn::<name>` range) and by CUDA kernel.
+     their torch autograd for the backward kernels) and the least time the
+     card could take for the same work; extract images/s; the "fused"
+     optimizer step's images/s, and from torch.profiler its device time by
+     kernel wrapper (each wrapper's `vit2spn::<name>` range) and by CUDA
+     kernel.
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers; the last line is {"ok": true, "device": {...}}. The
@@ -53,6 +75,7 @@ from __future__ import annotations
 import bisect
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -115,6 +138,20 @@ STEP_MU_L2_REL_TOL = 5e-2
 STEP_SAME_DIRECTION_MIN = 0.99
 TRAIN_BATCH = 128
 TRAIN_IMAGES = 4096  # four optimizer steps of 8 x 128
+PATH_IMAGES = 2048  # two optimizer steps of each other backbone path
+# The fp32-inside attention kernels vs their plain twins: both compute in
+# fp32 and differ in the order of their sums only. bf16 outputs: a value near
+# a rounding boundary lands one bf16 step apart, so the largest difference
+# may be 1% of the output's largest magnitude (2.5 steps there) and the mean
+# 1e-4 of it; fp32 outputs: 1e-5 of it.
+FLASH_TOL = {torch.bfloat16: (1e-2, 1e-4), torch.float32: (1e-5, 1e-6)}
+# ... and against the function computed in float64 from the same inputs:
+# with bf16 outputs the kernel's mean error may be at most 5% above the
+# twin's (KERNEL_VS_FP32_RATIO; an attention that rounded P or dS to bf16
+# lands further away, as mha_plain shows beside it); with fp32 outputs both
+# sit at fp32 roundoff of sums taken in other orders, so the kernel's mean
+# error must stay under 1e-6 of the output's largest magnitude.
+FLASH_FP32_VS_FP64_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -182,27 +219,30 @@ def library_backbone(x, wt, heads, eps):
     return h
 
 
-def backbone_bound_ms(b, s, d, heads, mlp, layers, wt) -> tuple:
+def backbone_bound_ms(b, s, d, heads, mlp, layers, wt, acts=2) -> tuple:
     """Least time for one backbone forward: FLOPs over the bf16 peak vs the
-    bytes of its inputs (x, weights) read once and its output written once
-    over the memory rate. Returns (ms, "operations" | "bytes", flops)."""
+    bytes of its inputs (x, weights) read once and its outputs written once
+    (`acts` bf16 (B, S, D) activations in all: x and out, and x2 for the
+    one-layer forward) over the memory rate. Returns (ms, "operations" |
+    "bytes", flops)."""
     per_layer = (2 * s * d * 3 * d          # QKV
                  + 2 * 2 * s * s * d        # scores and P.V over all heads
                  + 2 * s * d * d            # Wo
                  + 2 * 2 * s * d * mlp)     # W1, W2
     flops = b * layers * per_layer
-    nbytes = 2 * b * s * d * 2 + sum(t.numel() * t.element_size() for t in wt)
+    nbytes = acts * b * s * d * 2 + sum(t.numel() * t.element_size() for t in wt)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
 def stage_breakdown(fn, what: str = "one backbone forward", top: int = 14,
-                    wrappers: tuple = ()) -> list:
+                    wrappers: tuple = (), rest: str = "") -> list:
     """Device time by CUDA kernel name over one call of `fn`, from
     torch.profiler (CUPTI), and, for each name in `wrappers`, the device
     time of the kernels that ran inside that wrapper's `vit2spn::<name>`
-    range on the card's timeline; says so when the trace holds no device
-    time. Sums every device event of the trace (prof.events())."""
+    range on the card's timeline (`rest` names what runs outside them);
+    says so when the trace holds no device time. Sums every device event of
+    the trace (prof.events())."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -241,9 +281,9 @@ def stage_breakdown(fn, what: str = "one backbone forward", top: int = 14,
         out.append(f"[profile]   wrapper {name:22s} {us / 1e3:9.3f} ms "
                    f"{100 * us / total:5.1f}% ({n} calls)")
     if spans:
-        rest = total - sum(us for us, _ in spans.values())
-        out.append(f"[profile]   {'outside the wrappers':30s} {rest / 1e3:9.3f} ms "
-                   f"{100 * rest / total:5.1f}% (views, embed, heads, loss, Adam, EMA)")
+        outside = total - sum(us for us, _ in spans.values())
+        out.append(f"[profile]   {'outside the wrappers':30s} {outside / 1e3:9.3f} ms "
+                   f"{100 * outside / total:5.1f}% ({rest})")
     for key, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         out.append(f"[profile]   {us / 1e3:8.3f} ms {100 * us / total:5.1f}% "
                    f"x{n:<4d} {key[:90]}")
@@ -335,12 +375,22 @@ def library_attn_half(x, dx2, w, heads, eps):
 
 
 def bwd_bound_ms(kind, b, s, d, heads, mlp, w) -> tuple:
-    """Least time for one layer's backward half at batch b: the FLOPs the
-    function needs (the recompute of what its inputs do not hold included,
-    each product once) over the bf16 peak, vs its inputs read once (x and
-    the incoming gradient in bf16, the weights) and its outputs written once
-    (dx in bf16, fp32 weight gradients) over the memory rate. Returns (ms,
-    "operations" | "bytes", flops)."""
+    """Least time for one layer's backward half ("mlp", "attn") or whole
+    backward ("merged") at batch b: the FLOPs the function needs (the
+    recompute of what its inputs do not hold included, each product once)
+    over the bf16 peak, vs its inputs read once (x, x2 and the incoming
+    gradient in bf16, the weights) and its outputs written once (dx in bf16,
+    fp32 weight gradients) over the memory rate. Returns (ms, "operations" |
+    "bytes", flops)."""
+    if kind == "merged":
+        mlp_flops = bwd_bound_ms("mlp", b, s, d, heads, mlp, w)[2]
+        attn_flops = bwd_bound_ms("attn", b, s, d, heads, mlp, w)[2]
+        flops = mlp_flops + attn_flops
+        grads = sum(t.numel() for t in w.values())
+        nbytes = (4 * b * s * d * 2 + sum(t.numel() * t.element_size() for t in w.values())
+                  + 4 * grads)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
     if kind == "mlp":
         names = ("ln2_scale", "ln2_bias", "w1", "b1", "w2")
         # m1 recompute, dout W2^T, dW2, dW1, dm1 W1^T
@@ -358,26 +408,183 @@ def bwd_bound_ms(kind, b, s, d, heads, mlp, w) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
-def step_check(cfg, images, eps_lr):
-    """Step 1 from the same initial state through the kernels and through
-    attn_impl="plain": loss, Adam's first moments, updated params."""
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from vit2spn_tpu_torch.ops import flash_attention as fa
+    from vit2spn_tpu_torch.ops import fused_block as fb
+
+    return {"backbone_fwd": fb.fused_backbone, "layer_fwd": fb.layer_fwd,
+            "mlp_bwd": fb.mlp_bwd, "attn_bwd": fb.attn_bwd, "merged_bwd": fb.merged_bwd,
+            "flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd}
+
+
+def reset_launches() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def attention_fp64(q, k, v, do):
+    """Attention and its backward computed in float64 on the card, from the
+    inputs as they are (the reference the fp32-inside kernels and their
+    twins are both held against). Returns (o, dq, dk, dv)."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    return o, dq, dk, dv
+
+
+def mean_rel64(a, ref) -> float:
+    """mean |a - ref| over the largest |ref|, in float64."""
+    return float((a.double() - ref).abs().mean()) / (float(ref.abs().max()) or 1.0)
+
+
+def flash_operands(gen, b, s, heads, dtype, dev):
+    """q, k, v as the per-op block hands them to attention (views of one
+    (B, S, 3D) qkv, read in place) and an output gradient."""
+    d = heads * 64
+    qkv = torch.randn(b, s, 3 * d, generator=gen).to(dtype).to(dev)
+    q, k, v = (t.reshape(b, s, heads, 64) for t in qkv.split(d, dim=-1))
+    do = (0.1 * torch.randn(b, s, heads, 64, generator=gen)).to(dtype).to(dev)
+    return q, k, v, do
+
+
+def check_flash(tag, q, k, v, do) -> dict:
+    """Both flash kernels against their plain twins and against float64.
+    Returns the largest absolute difference of each kernel from its twin."""
+    from vit2spn_tpu_torch.ops import flash_attention as fa
+    from vit2spn_tpu_torch.ops.attention import mha_plain
+
+    got = (fa.flash_fwd(q, k, v), *fa.flash_bwd(q, k, v, do))
+    torch.cuda.synchronize()
+    ref = (fa.flash_attention_plain(q, k, v), *fa.flash_attention_bwd_plain(q, k, v, do))
+    ref64 = attention_fp64(q, k, v, do)
+    max_tol, mean_tol = FLASH_TOL[q.dtype]
+    worst, errs = {"flash_fwd": 0.0, "flash_bwd": 0.0}, []
+    for name, a, b, c in zip(("o", "dq", "dk", "dv"), got, ref, ref64):
+        mx, mean = rel_err(a, b)
+        if not (mx <= max_tol and mean <= mean_tol):
+            raise AssertionError(f"flash kernel disagrees with its plain twin ({tag}, {name}: "
+                                 f"max {mx:.3g}, mean {mean:.3g} relative)")
+        e_k, e_t = mean_rel64(a, c), mean_rel64(b, c)
+        ok = (e_k <= KERNEL_VS_FP32_RATIO * e_t if q.dtype == torch.bfloat16
+              else e_k <= FLASH_FP32_VS_FP64_TOL)
+        if not ok:
+            raise AssertionError(f"flash kernel is further from float64 than its twin "
+                                 f"({tag}, {name}: {e_k:.4g} vs {e_t:.4g})")
+        key = "flash_fwd" if name == "o" else "flash_bwd"
+        worst[key] = max(worst[key], float((a.float() - b.float()).abs().max()))
+        errs.append(f"{name} {mx:.3g}/{e_k:.3g}/{e_t:.3g}")
+    line = (f"[flash-vs-plain] {tag}: largest relative difference / mean error vs float64 "
+            f"kernel / twin: {', '.join(errs)} (tol {max_tol}, {mean_tol}; ")
+    line += ("ratio %s)" % KERNEL_VS_FP32_RATIO if q.dtype == torch.bfloat16
+             else "%g)" % FLASH_FP32_VS_FP64_TOL)
+    if q.dtype == torch.bfloat16:  # what rounding P to bf16 would cost
+        line += f"; mha_plain (bf16 P) {mean_rel64(mha_plain(q, k, v), ref64[0]):.3g}"
+    log(line)
+    return worst
+
+
+def check_layer_fwd(tag, fb, x, w, heads, eps, fast) -> float:
+    """The one-layer forward kernel against `layer_forward_plain` (out and
+    x2), and as close to an fp32 layer as the twin. Returns the largest
+    absolute difference."""
+    got = fb.layer_fwd(x, w, heads, eps, fast)
+    torch.cuda.synchronize()
+    ref = fb.layer_forward_plain(x, w, heads, eps, fast)
+    ref32 = fb.layer_forward_plain(x.float(), tuple(t.float() for t in w), heads, eps, fast)
+    worst = 0.0
+    for name, a, b, c in zip(("out", "x2"), got, ref, ref32):
+        diff = (a.float() - b.float()).abs()
+        mx, mean = float(diff.max()), float(diff.mean())
+        e_k, e_t = float((a.float() - c).abs().mean()), float((b.float() - c).abs().mean())
+        log(f"[layer_fwd-vs-plain] {tag} {name}: max_abs_err {mx:.6g} mean_abs_err "
+            f"{mean:.3g}; vs fp32 kernel {e_k:.6g}, twin {e_t:.6g} (tol max "
+            f"{KERNEL_MAX_ABS_TOL}, mean {KERNEL_MEAN_ABS_TOL}, ratio {KERNEL_VS_FP32_RATIO})")
+        if not (mx <= KERNEL_MAX_ABS_TOL and mean <= KERNEL_MEAN_ABS_TOL):
+            raise AssertionError(f"layer kernel disagrees with its plain twin ({tag}, {name})")
+        if not e_k <= KERNEL_VS_FP32_RATIO * e_t:
+            raise AssertionError(f"layer kernel is less accurate than its twin ({tag}, {name})")
+        worst = max(worst, mx)
+    return worst
+
+
+def equal_bits(a, b) -> float:
+    """The share of elements of two tensors of one dtype that are equal bit
+    for bit."""
+    ia = a.contiguous().view(torch.int16 if a.element_size() == 2 else torch.int32)
+    ib = b.contiguous().view(torch.int16 if b.element_size() == 2 else torch.int32)
+    return float((ia == ib).float().mean())
+
+
+def check_merged_bwd(tag, fb, x, x2, dy, w, heads, eps, fast) -> float:
+    """The merged layer backward against the split kernels (the share of
+    equal bits, and the split tolerances) and against `merged_bwd_plain`
+    (and as close to an fp32 backward as it). Returns the largest absolute
+    difference from the twin."""
+    dx, grads = fb.merged_bwd(x, x2, dy, w, heads, eps, fast)
+    torch.cuda.synchronize()
+    dx2, mgrads = fb.mlp_bwd(x2, dy, w, eps, fast)
+    sdx, sgrads = fb.attn_bwd(x, dx2, w, heads, eps)
+    sgrads = {**mgrads, **sgrads}
+    rdx, rgrads = fb.merged_bwd_plain(x, x2, dy, w, heads, eps, fast)
+    w32 = {n: t.float() for n, t in w.items()}
+    fdx, fgrads = fb.merged_bwd_plain(x.float(), x2.float(), dy.float(), w32, heads, eps, fast)
+    worst, worst_rel, shares = 0.0, 0.0, []
+    for n in ("dx",) + fb.WEIGHT_NAMES:
+        a, s_, b, c = ((dx, sdx, rdx, fdx) if n == "dx"
+                       else (grads[n], sgrads[n], rgrads[n], fgrads[n]))
+        shares.append(equal_bits(a, s_))
+        for ref, what in ((b, "its plain twin"), (s_, "the split kernels")):
+            mx_rel, mean_rel = rel_err(a, ref)
+            if not (mx_rel <= BWD_MAX_REL_TOL and mean_rel <= BWD_MEAN_REL_TOL):
+                raise AssertionError(f"merged_bwd disagrees with {what} ({tag}, {n}: max "
+                                     f"{mx_rel:.3g}, mean {mean_rel:.3g} relative)")
+        e_k, e_t = rel_err(a, c)[1], rel_err(b, c)[1]
+        if not e_k <= KERNEL_VS_FP32_RATIO * e_t + BWD_VS_FP32_SLACK:
+            raise AssertionError(f"merged_bwd is less accurate than its twin ({tag}, {n})")
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+        worst_rel = max(worst_rel, rel_err(a, b)[0])
+    log(f"[merged_bwd-vs-plain] {tag}: largest relative difference {worst_rel:.3g} over dx "
+        f"and 12 weight gradients (tol max {BWD_MAX_REL_TOL}, mean {BWD_MEAN_REL_TOL}); vs "
+        f"fp32 within the twin; equal bits with the split kernels: "
+        f"{100.0 * min(shares):.4f}% (least over the 13 outputs)")
+    return worst
+
+
+def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False)):
+    """Step 1 from the same initial state through `path` and through the
+    reference path `ref`, each (attn_impl, merged backward): loss, Adam's
+    first moments, updated params."""
     from vit2spn_tpu_torch.train import checkpoint as ckpt
     from vit2spn_tpu_torch.train.ssp import SSPTrainer
     from vit2spn_tpu_torch.utils.logging import MetricLogger
 
     quiet = MetricLogger(echo=False)
-    out = {}
-    for impl in ("fused", "plain"):
+    out = []
+    for impl, merged in (path, ref):
+        os.environ["VIT2SPN_MERGED_BWD"] = "1" if merged else "0"
         tr = SSPTrainer(cfg, logger=quiet, attn_impl=impl, device="cuda")
         before = ckpt._flatten(tr.state)
         loss = float(tr.train_step(images, (0, 0))["loss"])
-        out[impl] = (loss, before, ckpt._flatten(tr.state))
+        out.append((loss, before, ckpt._flatten(tr.state)))
         del tr
         torch.cuda.empty_cache()
-    (lf, before, af), (lp, before_p, ap) = out["fused"], out["plain"]
+    os.environ["VIT2SPN_MERGED_BWD"] = "0"
+    (lf, before, af), (lp, before_p, ap) = out
+    names = [f"{impl}{' merged' if merged else ''}" for impl, merged in (path, ref)]
     assert all(np.array_equal(before[k], before_p[k]) for k in before)
     if not (np.isfinite(lf) and abs(lf - lp) <= STEP_LOSS_REL_TOL * abs(lp)):
-        raise AssertionError(f"step 1 loss: kernels {lf} vs plain {lp}")
+        raise AssertionError(f"step 1 loss: {names[0]} {lf} vs {names[1]} {lp}")
     mu = [k for k in af if k.startswith("opt_state/0/mu/")]
     worst, num, den = 0.0, 0.0, 0.0
     for k in mu:
@@ -399,15 +606,116 @@ def step_check(cfg, images, eps_lr):
                 raise AssertionError(f"{k}: a step larger than the learning rate")
             same += int(np.sum(np.sign(da) == np.sign(db)))
             total += da.size
-    log(f"[step1-vs-plain] loss kernels {lf:.6f} plain {lp:.6f}; Adam first moments: "
+    log(f"[step1-{names[0].replace(' ', '-')}-vs-{names[1].replace(' ', '-')}] loss "
+        f"{names[0]} {lf:.6f} {names[1]} {lp:.6f}; Adam first moments: "
         f"largest difference {worst:.3g} of the leaf's largest, relative L2 {l2:.3g} "
         f"(tol {STEP_MU_MAX_REL_TOL}, {STEP_MU_L2_REL_TOL}); trainable params moved "
         f"the same way in {100.0 * same / total:.2f}% of {total} elements (tol "
         f"{100.0 * STEP_SAME_DIRECTION_MIN:.0f}%)")
     if not (worst <= STEP_MU_MAX_REL_TOL and l2 <= STEP_MU_L2_REL_TOL):
-        raise AssertionError("step 1 gradients disagree with the plain path")
+        raise AssertionError(f"step 1 gradients of {names[0]} disagree with {names[1]}")
     if not same >= STEP_SAME_DIRECTION_MIN * total:
-        raise AssertionError("step 1 updated params disagree with the plain path")
+        raise AssertionError(f"step 1 updated params of {names[0]} disagree with {names[1]}")
+
+
+def fit_path(tcfg, tds, impl, merged, per_step) -> tuple:
+    """`fit` of one epoch over `tds` through one backbone path, with the
+    launch counters set to 0 just before and read just after; every counter
+    must read `per_step` (missing: 0) times the steps. Returns (trainer,
+    launches, seconds)."""
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    os.environ["VIT2SPN_MERGED_BWD"] = "1" if merged else "0"
+    trainer = SSPTrainer(tcfg, logger=MetricLogger(echo=False), attn_impl=impl, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.fit(tds, epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    eff = tcfg.effective_batch
+    n_steps = len(tds) // eff
+    name = f"{impl}{' merged' if merged else ''}"
+    log(f"[train] {name}: fit of {n_steps} optimizer steps of {eff} images in {fit_s:.2f} s "
+        f"({len(tds) / fit_s:.1f} img/s, first step included); epoch loss "
+        f"{history[0]:.6f}; launches {launches}")
+    if len(history) != 1 or not np.isfinite(history[0]):
+        raise AssertionError(f"{name}: training loss is not finite: {history}")
+    for k, n in launches.items():
+        if n != per_step.get(k, 0) * n_steps:
+            raise AssertionError(f"{name}: {k} launched {n} times in {n_steps} steps, "
+                                 f"expected {per_step.get(k, 0)} per step")
+    return trainer, launches, fit_s
+
+
+def time_steps(trainer, eff, name, card, wrappers, rest, reps=3) -> float:
+    """The optimizer step's wall time over `reps` steps after a warm-up, and
+    its device time by wrapper range (`rest` names what runs outside the
+    wrappers). Returns the step's seconds."""
+    idx = np.arange(eff)
+    trainer.train_step_indices(idx, (1, 0))  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(reps):
+        trainer.train_step_indices(idx, (1, 1 + r))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / reps
+    log(f"[time] optimizer step {name} (dual stream, 8 x {TRAIN_BATCH}, bf16): "
+        f"{1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s over {reps} steps on {card}")
+    for line in stage_breakdown(lambda: trainer.train_step_indices(idx, (1, 10)),
+                                f"one optimizer step ({name})", wrappers=wrappers, rest=rest):
+        log(line)
+    return step_s
+
+
+def extract_path(trainer, ds, impl, feats_plain, want) -> np.ndarray:
+    """extract_features through one backbone path, with the launch counters
+    set to 0 just before and read just after: the kernels in `want` must
+    have run and no other; the features must be finite and agree with the
+    plain path's. Returns the features."""
+    trainer.attn_impl = impl
+    reset_launches()
+    t0 = time.perf_counter()
+    feats, _ = trainer.extract_features(ds, batch_size=BATCH)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches = {k: n for k, n in read_launches().items() if n}
+    scale = float(np.abs(feats_plain).max())
+    err = float(np.abs(feats - feats_plain).max())
+    log(f"[extract] {impl}: {feats.shape} features, launches {launches}, {extract_s:.3f} s, "
+        f"{len(ds) / extract_s:.1f} img/s; vs plain max_abs_err {err:.6g} (max |plain| "
+        f"{scale:.4g}, tol {FEATURE_REL_TOL} relative)")
+    if set(launches) != set(want):
+        raise AssertionError(f"extract through {impl} launched {launches}, expected {want}")
+    if feats.shape != feats_plain.shape or not np.isfinite(feats).all():
+        raise AssertionError(f"bad features through {impl}: shape {feats.shape}")
+    if not err <= FEATURE_REL_TOL * scale:
+        raise AssertionError(f"features through {impl} disagree with the plain path")
+    return feats
+
+
+def flash_bound_ms(kind, b, s, heads) -> tuple:
+    """Least time for one attention forward or backward over (b, s, heads,
+    64) bf16: the products it needs (forward Q K^T and P V; backward Q K^T
+    recomputed, dV, dP, dQ, dK; each 2 S^2 64 per (image, head)) over the
+    bf16 peak, vs q, k, v (and dO) read once and o (dq, dk, dv) written
+    once. Returns (ms, "operations" | "bytes", flops)."""
+    products, tensors = (2, 4) if kind == "fwd" else (5, 7)
+    flops = b * heads * products * 2 * s * s * 64
+    nbytes = tensors * b * s * heads * 64 * 2
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def library_flash_bwd(q, k, v, do):
+    """SDPA's autograd backward on (B, H, S, Dh) copies of q, k, v
+    (yardstick only): returns a function that runs the backward alone."""
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    dot = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)
 
 
 def main() -> int:
@@ -421,6 +729,7 @@ def main() -> int:
     from vit2spn_tpu_torch.core.presets import get_preset
     from vit2spn_tpu_torch.data.datasets import synthetic_dataset
     from vit2spn_tpu_torch.ops import cuda_build
+    from vit2spn_tpu_torch.ops import flash_attention as fa
     from vit2spn_tpu_torch.ops import fused_block as fb
     from vit2spn_tpu_torch.ops.fused_block import (
         KERNEL_NAME,
@@ -432,6 +741,7 @@ def main() -> int:
     from vit2spn_tpu_torch.train.ssp import SSPTrainer
     from vit2spn_tpu_torch.utils.logging import MetricLogger
 
+    os.environ["VIT2SPN_MERGED_BWD"] = "0"
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"[card] {card}")
@@ -580,25 +890,72 @@ def main() -> int:
         raise AssertionError("the backward is not deterministic")
     del xg, wg, grads, got, xs, x2s, ref_dx, ref_dw
 
-    # -- 5. the serving path end to end --------------------------------------
+    # -- 5. the fp32-inside attention kernels vs their plain twins -------------
+    flash_err = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    for b_, s_, h_, dt in ((TRAIN_BATCH, s, heads, torch.bfloat16),
+                           (BATCH, s, heads, torch.bfloat16),
+                           (3, 5, 3, torch.bfloat16), (2, 17, 2, torch.bfloat16),
+                           (1, 256, 3, torch.bfloat16), (7, s, heads, torch.bfloat16),
+                           (4, s, heads, torch.float32), (2, 50, 1, torch.float32)):
+        errs = check_flash(f"B={b_} S={s_} H={h_} {str(dt)[6:]}",
+                           *flash_operands(gen, b_, s_, h_, dt, dev))
+        flash_err = {k: max(v, errs[k]) for k, v in flash_err.items()}
+
+    # -- 6. the one-layer forward kernel vs its plain twin ---------------------
+    layer_err = 0.0
+    for b_ in (TRAIN_BATCH, BATCH):
+        w0 = tuple(t[0] for t in wt)
+        x_ = x[:b_].contiguous()
+        for fast in (False, True):
+            layer_err = max(layer_err, check_layer_fwd(
+                f"B={b_} fast_gelu={fast}", fb, x_, w0, heads, eps, fast))
+    for fast in (False, True):
+        h = xb
+        for l in range(layers):
+            h = fb.fused_block(h, tuple(t[l] for t in wt), heads, eps, fast)
+        hb = fused_backbone(xb, wt, heads, eps, fast)
+        torch.cuda.synchronize()
+        share = equal_bits(h, hb)
+        log(f"[layer_fwd-vs-backbone] B={TRAIN_BATCH} fast_gelu={fast}: {layers} fused_block "
+            f"calls vs one fused_backbone: {100.0 * share:.4f}% of the outputs equal bit "
+            f"for bit (must be 100%: one layer code)")
+        if share != 1.0:
+            raise AssertionError("the per-layer forward differs from the backbone forward")
+
+    # -- 7. the merged layer backward vs the split kernels and its twin -------
+    x2b = torch.randn(TRAIN_BATCH, s, d, generator=gen).to(torch.bfloat16).to(dev)
+    merged_err = 0.0
+    for fast in (False, True):
+        merged_err = max(merged_err, check_merged_bwd(
+            f"B={TRAIN_BATCH} fast_gelu={fast}", fb, xb, x2b, gb, wl, heads, eps, fast))
+    runs = [fb.merged_bwd(xb, x2b, gb, wl, heads, eps, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(runs[0][1][n], runs[1][1][n]) for n in fb.WEIGHT_NAMES)
+    log(f"[determinism] two merged backward runs: weight gradients bitwise equal {same}, "
+        f"dx bitwise equal {torch.equal(runs[0][0], runs[1][0])}")
+    if not same:
+        raise AssertionError("the merged backward is not deterministic")
+    del runs
+
+    # -- 8. the serving path end to end, through each backbone path -----------
     ds = synthetic_dataset(split_sizes={"all": N_IMAGES}, image_size=28, seed=SEED)
     quiet = MetricLogger(echo=False)
     trainer = SSPTrainer(cfg, logger=quiet, device="cuda")
     trainer.extract_features(ds, batch_size=BATCH)  # warm-up (allocator, build)
     torch.cuda.synchronize()
-    fused_backbone.launches = fb.mlp_bwd.launches = fb.attn_bwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     feats, labels = trainer.extract_features(ds, batch_size=BATCH)
     torch.cuda.synchronize()
     extract_s = time.perf_counter() - t0
-    extract_launches = fused_backbone.launches
-    log(f"[extract] {feats.shape} features, {extract_launches} backbone kernel "
-        f"launches ({extract_launches * layers * kernel_launches_per_layer()} CUDA "
-        f"kernel launches), {extract_s:.3f} s, {N_IMAGES / extract_s:.1f} img/s")
-    if extract_launches <= 0:
+    extract_launches = read_launches()
+    log(f"[extract] {feats.shape} features, {extract_launches[KERNEL_NAME]} backbone kernel "
+        f"launches ({extract_launches[KERNEL_NAME] * layers * kernel_launches_per_layer()} "
+        f"CUDA kernel launches), {extract_s:.3f} s, {N_IMAGES / extract_s:.1f} img/s")
+    if extract_launches[KERNEL_NAME] <= 0:
         raise AssertionError("the serving path never launched the backbone kernel")
-    if fb.mlp_bwd.launches or fb.attn_bwd.launches:
-        raise AssertionError("the serving path launched a backward kernel")
+    if any(n for k, n in extract_launches.items() if k != KERNEL_NAME):
+        raise AssertionError(f"the serving path launched another kernel: {extract_launches}")
     if feats.shape != (N_IMAGES, cfg.proj_dim) or not np.isfinite(feats).all():
         raise AssertionError(f"bad features: shape {feats.shape}, "
                              f"finite {np.isfinite(feats).all()}")
@@ -606,45 +963,59 @@ def main() -> int:
         raise AssertionError(f"bad labels shape {labels.shape}")
     trainer.attn_impl = "plain"
     feats_plain, _ = trainer.extract_features(ds, batch_size=BATCH)
-    trainer.attn_impl = "fused"
     scale = float(np.abs(feats_plain).max())
     feat_err = float(np.abs(feats - feats_plain).max())
     log(f"[extract-vs-plain] max_abs_err {feat_err:.6g} (max |plain| {scale:.4g}, "
         f"tol {FEATURE_REL_TOL} relative)")
     if not feat_err <= FEATURE_REL_TOL * scale:
         raise AssertionError("served features disagree with the plain path")
+    extract_path(trainer, ds, "pallas", feats_plain, ("flash_fwd",))
+    extract_path(trainer, ds, "fused_layer", feats_plain, ("layer_fwd",))
     del trainer
 
-    # -- 6. the training path end to end ---------------------------------------
+    # -- 9. the training path end to end ---------------------------------------
     tcfg = replace(cfg, batch_size=TRAIN_BATCH)
     eff = tcfg.effective_batch
+    a = tcfg.accumulation_steps
     tds = synthetic_dataset(split_sizes={"train": TRAIN_IMAGES}, image_size=28,
                             seed=SEED).split("train")
     step_check(tcfg, tds.images[:eff], tcfg.learning_rate)
     torch.cuda.empty_cache()
-    trainer = SSPTrainer(tcfg, logger=quiet, device="cuda")
-    fused_backbone.launches = fb.mlp_bwd.launches = fb.attn_bwd.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    history = trainer.fit(tds, epochs=1)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    train_launches = {KERNEL_NAME: fused_backbone.launches,
-                      "mlp_bwd": fb.mlp_bwd.launches, "attn_bwd": fb.attn_bwd.launches}
-    n_steps = TRAIN_IMAGES // eff
-    log(f"[train] fit: {n_steps} optimizer steps of {eff} images in {fit_s:.2f} s "
-        f"({TRAIN_IMAGES / fit_s:.1f} img/s, first step included); epoch loss "
-        f"{history[0]:.6f}; launches {train_launches}")
-    if len(history) != 1 or not np.isfinite(history[0]):
-        raise AssertionError(f"training loss is not finite: {history}")
-    a = tcfg.accumulation_steps
-    want = {KERNEL_NAME: 2 * 2 * a, "mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers}
-    for k, per_step in want.items():
-        if train_launches[k] != per_step * n_steps:
-            raise AssertionError(f"{k}: {train_launches[k]} launches in {n_steps} steps, "
-                                 f"expected {per_step} per step")
+    # per optimizer step: 2 streams x (online under grad + target) backbone
+    # forwards per microbatch, 2 online backwards of every layer
+    split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers}
+    trainer, train_launches, _ = fit_path(tcfg, tds, "fused", False,
+                                          {KERNEL_NAME: 2 * 2 * a, **split})
 
-    # -- 7. times ---------------------------------------------------------------
+    # -- 10. the other backbone paths end to end -------------------------------
+    pds = synthetic_dataset(split_sizes={"train": PATH_IMAGES}, image_size=28,
+                            seed=SEED + 1).split("train")
+    per_layer_fwd = 2 * 2 * a * layers
+    paths = (
+        # (attn_impl, merged backward, its reference path, launches per step)
+        ("pallas", False, ("xla", False),
+         {"flash_fwd": per_layer_fwd, "flash_bwd": 2 * a * layers}),
+        ("fused_layer", False, ("fused", False), {"layer_fwd": per_layer_fwd, **split}),
+        ("fused", True, ("fused", False),
+         {KERNEL_NAME: 2 * 2 * a, "merged_bwd": 2 * a * layers}),
+    )
+    path_launches, step_ms = {}, {}
+    rest = "views, embed, heads, loss, Adam, EMA"
+    for impl, merged, ref_path, per_step in paths:
+        step_check(tcfg, pds.images[:eff], tcfg.learning_rate, (impl, merged), ref_path)
+        torch.cuda.empty_cache()
+        ptrainer, launches, _ = fit_path(tcfg, pds, impl, merged, per_step)
+        path_launches.update({k: n for k, n in launches.items() if n})
+        name = f"{impl}{' merged' if merged else ''}"
+        step_ms[name] = 1e3 * time_steps(
+            ptrainer, eff, name, card, tuple(per_step),
+            ("the per-op blocks' LayerNorms, GEMMs and gelu, " + rest) if impl == "pallas"
+            else rest)
+        os.environ["VIT2SPN_MERGED_BWD"] = "0"
+        del ptrainer
+        torch.cuda.empty_cache()
+
+    # -- 11. times ---------------------------------------------------------------
     fast = fast_gelu_default()
     kernel_ms = time_ms(lambda: fused_backbone(x, wt, heads, eps, fast))
     plain_ms = time_ms(lambda: backbone_forward_plain(x, wt, heads, eps, fast),
@@ -669,37 +1040,68 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
     }]
-    mlp_l, attn_l = fb.backward_launches_per_layer()
-    halves = (
-        ("mlp_bwd", "vit2spn_tpu/ops/fused_block.py:342", mlp_l,
+    # the new kernels at their paths' shapes: B=128, bf16
+    q, k, v, do = flash_operands(gen, TRAIN_BATCH, s, heads, torch.bfloat16, dev)
+    w0 = tuple(t[0] for t in wt)
+    merged_lib = (lambda: library_attn_half(
+        xb, library_mlp_half(x2b, gb, wl, eps)[0].to(xb.dtype), wl, heads, eps))
+    timed = (
+        # name, source, replaces, (ms, "operations" | "bytes", flops), CUDA launches,
+        # max_abs_err, kernel, plain twin, library yardstick (never called by the port)
+        ("mlp_bwd", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342",
+         bwd_bound_ms("mlp", TRAIN_BATCH, s, d, heads, mlp, wl),
+         fb.cuda_launches("mlp_bwd"), bwd_err["mlp_bwd"],
          lambda: fb.mlp_bwd(xb, gb, wl, eps, fast),
          lambda: fb.mlp_bwd_plain(xb, gb, wl, eps, fast),
          lambda: library_mlp_half(xb, gb, wl, eps)),
-        ("attn_bwd", "vit2spn_tpu/ops/fused_block.py:357", attn_l,
+        ("attn_bwd", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357",
+         bwd_bound_ms("attn", TRAIN_BATCH, s, d, heads, mlp, wl),
+         fb.cuda_launches("attn_bwd"), bwd_err["attn_bwd"],
          lambda: fb.attn_bwd(xb, gb, wl, heads, eps),
          lambda: fb.attn_bwd_plain(xb, gb, wl, heads, eps),
          lambda: library_attn_half(xb, gb, wl, heads, eps)),
+        ("merged_bwd", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
+         bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl),
+         fb.cuda_launches("merged_bwd"), merged_err,
+         lambda: fb.merged_bwd(xb, x2b, gb, wl, heads, eps, fast),
+         lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast), merged_lib),
+        ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
+         backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w0, acts=3),
+         fb.cuda_launches("layer_fwd"), layer_err,
+         lambda: fb.layer_fwd(xb, w0, heads, eps, fast),
+         lambda: fb.layer_forward_plain(xb, w0, heads, eps, fast),
+         lambda: library_backbone(xb, tuple(t[:1] for t in wt), heads, eps)),
+        ("flash_fwd", "flash_attention.cu", "vit2spn_tpu/ops/flash_attention.py:36",
+         flash_bound_ms("fwd", TRAIN_BATCH, s, heads), fb.cuda_launches("flash_fwd", fa.KERNEL_NAME),
+         flash_err["flash_fwd"], lambda: fa.flash_fwd(q, k, v),
+         lambda: fa.flash_attention_plain(q, k, v),
+         lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))),
+        ("flash_bwd", "flash_attention.cu", "vit2spn_tpu/ops/flash_attention.py:53",
+         flash_bound_ms("bwd", TRAIN_BATCH, s, heads), fb.cuda_launches("flash_bwd", fa.KERNEL_NAME),
+         flash_err["flash_bwd"], lambda: fa.flash_bwd(q, k, v, do),
+         lambda: fa.flash_attention_bwd_plain(q, k, v, do),
+         library_flash_bwd(q, k, v, do)),
     )
-    for name, replaces, per_layer, kernel, twin, library in halves:
+    # mlp_bwd / attn_bwd: their counts on the "fused" path, as before
+    launches = {**path_launches, **{k: n for k, n in train_launches.items() if n}}
+    for name, src, replaces, bound, n_cuda, err, kernel, twin, library in timed:
+        b_ms, b_by, b_flops = bound
         k_ms = time_ms(kernel)
         p_ms = time_ms(twin, iters=5, warmup=1)
-        l_ms = time_ms(library)
-        b_ms, b_by, b_flops = bwd_bound_ms(name[:-4], TRAIN_BATCH, s, d, heads, mlp, wl)
-        log(f"[time] {name} one layer B={TRAIN_BATCH}: kernel {k_ms:.4f} ms "
-            f"({per_layer} CUDA launches), plain twin {p_ms:.3f} ms, library "
-            f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {b_flops / 1e9:.2f} GFLOP), "
-            f"kernel at {b_flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        with torch.no_grad() if name in ("layer_fwd", "flash_fwd") else torch.enable_grad():
+            l_ms = time_ms(library)
+        log(f"[time] {name} B={TRAIN_BATCH}: kernel {k_ms:.4f} ms ({n_cuda} CUDA launches), "
+            f"plain twin {p_ms:.3f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {b_flops / 1e9:.2f} GFLOP), kernel at "
+            f"{b_flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
         entries.append({
-            "name": name, "route": "cuda",
-            "source": f"vit2spn_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-            "launches": train_launches[name], "max_abs_err": bwd_err[name],
+            "name": name, "route": "cuda", "source": f"vit2spn_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms,
         })
-    fb.mlp_bwd.launches = fb.attn_bwd.launches = 0  # timing launches, not the path's
 
     trainer_s = SSPTrainer(cfg, logger=quiet, device="cuda")
-    fused_backbone.launches = 0  # timing launches are not the serving path's
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reps = 3
@@ -711,20 +1113,9 @@ def main() -> int:
         f"over {reps} x {N_IMAGES} images on {card}")
     del trainer_s
 
-    idx = np.arange(eff)
-    trainer.train_step_indices(idx, (1, 0))  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reps = 3
-    for r in range(reps):
-        trainer.train_step_indices(idx, (1, 1 + r))
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / reps
-    log(f"[time] optimizer step end to end (dual stream, 8 x {TRAIN_BATCH}, bf16): "
-        f"{1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s over {reps} steps on {card}")
-    for line in stage_breakdown(lambda: trainer.train_step_indices(idx, (1, 10)),
-                                "one optimizer step", wrappers=fb.KERNEL_NAMES):
-        log(line)
+    step_ms["fused"] = 1e3 * time_steps(trainer, eff, "fused", card,
+                                        (KERNEL_NAME, "mlp_bwd", "attn_bwd"), rest)
+    log(f"[time] optimizer step by backbone path, ms: {json.dumps(step_ms)}")
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

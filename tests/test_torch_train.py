@@ -135,6 +135,53 @@ def test_training_trajectory_matches_jax(tiny_ssp, dual):
         atol=1e-7)
 
 
+@pytest.mark.parametrize("impl", ["pallas", "fused_layer"])
+def test_backbone_paths_train_like_jax(tiny_ssp, impl):
+    """2 optimizer steps through the port's other backbone paths against the
+    JAX trainer on the same batches: "pallas" against the JAX "pallas" path
+    with its flash kernels in interpret mode ("pallas_interpret");
+    "fused_layer" against the JAX trainer's default CPU path (attn_impl=None),
+    as the "fused" test above holds "fused", because the JAX "fused_layer"
+    calls its kernel without interpret mode."""
+    jcfg = _no_rand(tiny_ssp)
+    jt = JaxSSPTrainer(jcfg, logger=JaxLogger(echo=False),
+                       attn_impl="pallas_interpret" if impl == "pallas" else None)
+    pt = SSPTrainer(_port_cfg(jcfg), logger=QUIET, device="cpu", attn_impl=impl)
+    pt.state = pt.state._replace(params=from_jax(jax.device_get(jt.state.params),
+                                                 device="cpu"))
+    ds = jax_synthetic(image_size=28, split_sizes={"train": 32}, seed=6)
+    eff = tiny_ssp.effective_batch
+    for s in range(2):
+        batch = ds.images[s * eff:(s + 1) * eff]
+        ref = float(jt.train_step(batch, jax.random.key(s))["loss"])
+        got = float(pt.train_step(batch, (0, s))["loss"])
+        np.testing.assert_allclose(got, ref, atol=LOSS_TOL, rtol=0, err_msg=f"step {s}")
+    _assert_params_close(jt, pt)
+
+
+def test_fused_layer_trains_as_fused(tiny_ssp):
+    """On the CPU the per-layer path runs the whole-backbone path's twins
+    layer by layer: two steps give the same bits."""
+    cfg = _port_cfg(_no_rand(tiny_ssp))
+    ds = synthetic_dataset(image_size=28, split_sizes={"train": 32}, seed=7)
+    runs = []
+    for impl in ("fused", "fused_layer"):
+        pt = SSPTrainer(cfg, logger=QUIET, device="cpu", attn_impl=impl)
+        losses = [float(pt.train_step(ds.images[s * 16:(s + 1) * 16], (0, s))["loss"])
+                  for s in range(2)]
+        runs.append((losses, ckpt._flatten(pt.state)))
+    (la, sa), (lb, sb) = runs
+    assert la == lb
+    for k in sa:
+        np.testing.assert_array_equal(sb[k], sa[k], err_msg=k)
+
+
+def test_unknown_attn_impl_raises_at_construction(tiny_ssp):
+    with pytest.raises(ValueError, match="attn_impl"):
+        SSPTrainer(_port_cfg(tiny_ssp), logger=QUIET, device="cpu",
+                   attn_impl="pallas_interpret")
+
+
 def test_masked_tail_epoch_matches_jax_fit(tiny_ssp, tmp_path):
     """One fit epoch over 35 images at effective batch 16: two full steps
     and a tail step with 3 real samples and 13 of weight 0, in the native

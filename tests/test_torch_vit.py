@@ -141,10 +141,12 @@ def test_fold_patch_embed_gray_matches_jax():
 
 
 def test_unknown_attn_impl_raises():
+    """The port has no interpret mode: the JAX "pallas_interpret" is not one
+    of its attn_impl names."""
     p = from_jax(_params(), device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         tvit.vit_features(p, torch.zeros(1, 32, 32, 3), ViTConfig(**TINY),
-                          attn_impl="xla")
+                          attn_impl="pallas_interpret")
 
 
 def test_mlp_head_matches_jax():

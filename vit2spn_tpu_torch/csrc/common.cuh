@@ -176,18 +176,16 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* f, const float*)
 }
 
 // y = bf16((x - mean) * rsqrt(var + eps) * scale + bias): fp32 mean, then
-// the mean of squared deviations, as _ln_fwd. Each lane loads 16-byte
-// chunks of the row (D * sizeof(T) a multiple of 16).
+// the mean of squared deviations, as _ln_fwd. One warp per row: each lane
+// loads 16-byte chunks of the row (D * sizeof(T) a multiple of 16).
 template <typename T>
-__global__ void __launch_bounds__(LN_WARPS * 32)
-layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                 const float* __restrict__ bias, bf16* __restrict__ y, int M, int D,
-                 float eps) {
+__device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
+                                              const float* __restrict__ scale,
+                                              const float* __restrict__ bias,
+                                              bf16* __restrict__ y, int row, int D, float eps,
+                                              int lane) {
   constexpr int EPC = 16 / sizeof(T);               // elements per chunk
   constexpr int CPL = LN_MAX_PER_LANE / EPC;        // chunks per lane, at most
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  if (row >= M) return;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
   const int chunks = D / EPC;
   float v[CPL][EPC];
@@ -231,10 +229,44 @@ layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                 const float* __restrict__ bias, bf16* __restrict__ y, int M, int D,
+                 float eps) {
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (row < M) layernorm_row(x, scale, bias, y, row, D, eps, threadIdx.x & 31);
+}
+
+template <typename T>
 static int launch_layernorm(const T* x, const float* scale, const float* bias, bf16* y,
                             int M, int D, float eps, cudaStream_t st) {
   layernorm_kernel<T><<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
       x, scale, bias, y, M, D, eps);
+  return (int)cudaGetLastError();
+}
+
+// Two LayerNorms of M bf16 rows each in one launch: rows 0 .. M - 1 of the
+// grid normalize xa into ya, rows M .. 2 M - 1 xb into yb, each row with the
+// code of layernorm_kernel (so the same bits).
+__global__ void __launch_bounds__(LN_WARPS * 32)
+layernorm_pair_kernel(const bf16* __restrict__ xa, const float* __restrict__ sa,
+                      const float* __restrict__ ba, bf16* __restrict__ ya,
+                      const bf16* __restrict__ xb, const float* __restrict__ sb,
+                      const float* __restrict__ bb, bf16* __restrict__ yb, int M, int D,
+                      float eps) {
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row < M)
+    layernorm_row(xa, sa, ba, ya, row, D, eps, lane);
+  else if (row < 2 * M)
+    layernorm_row(xb, sb, bb, yb, row - M, D, eps, lane);
+}
+
+static int launch_layernorm_pair(const bf16* xa, const float* sa, const float* ba, bf16* ya,
+                                 const bf16* xb, const float* sb, const float* bb, bf16* yb,
+                                 int M, int D, float eps, cudaStream_t st) {
+  layernorm_pair_kernel<<<(2 * M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
+      xa, sa, ba, ya, xb, sb, bb, yb, M, D, eps);
   return (int)cudaGetLastError();
 }
 
@@ -356,34 +388,78 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
-// out0[j] (j < n0) or out1[j - n0] = sum over p of partial[p][j], p in order
-__global__ void reduce_partials_kernel(const float* __restrict__ partial, int parts, int n,
-                                       int n0, float* __restrict__ out0,
-                                       float* __restrict__ out1) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
+// A sum of split partials still to be taken: out0[j] (j < n0) or
+// out1[j - n0] = sum over p of partial[p][j], p in order, for j < n.
+struct Reduction {
+  const float* partial;
+  int parts, n, n0;
+  float* out0;
+  float* out1;
+};
+
+__device__ __forceinline__ void reduce_one(const Reduction& r, int j) {
   float s = 0.0f;
-  for (int p = 0; p < parts; ++p) s += partial[(size_t)p * n + j];
-  if (j < n0)
-    out0[j] = s;
+  for (int p = 0; p < r.parts; ++p) s += r.partial[(size_t)p * r.n + j];
+  if (j < r.n0)
+    r.out0[j] = s;
   else
-    out1[j - n0] = s;
+    r.out1[j - r.n0] = s;
 }
 
-static int launch_reduce(const float* partial, int parts, int n, int n0, float* out0,
-                         float* out1, cudaStream_t st) {
-  reduce_partials_kernel<<<(n + 255) / 256, 256, 0, st>>>(partial, parts, n, n0, out0, out1);
+__global__ void reduce_partials_kernel(Reduction r) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < r.n) reduce_one(r, j);
+}
+
+static int launch_reduce(const Reduction& r, cudaStream_t st) {
+  reduce_partials_kernel<<<(r.n + 255) / 256, 256, 0, st>>>(r);
   return (int)cudaGetLastError();
 }
 
-// LayerNorm backward plus the reduction of its parameter gradients.
+// Reductions collected to be taken by one launch (reduce_all): each in the
+// order reduce_partials_kernel takes it, so the same bits.
+#define MAX_REDUCTIONS 8
+struct Reductions {
+  Reduction r[MAX_REDUCTIONS];
+  int count;
+};
+
+// Take `r` now, or add it to `defer` when one is given.
+static int reduce_or_defer(const Reduction& r, Reductions* defer, cudaStream_t st) {
+  if (!defer) return launch_reduce(r, st);
+  if (defer->count == MAX_REDUCTIONS) return (int)cudaErrorInvalidValue;
+  defer->r[defer->count++] = r;
+  return 0;
+}
+
+__global__ void reduce_all_kernel(Reductions rs) {
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int i = 0; i < rs.count; ++i) {
+    if (j < rs.r[i].n) {
+      reduce_one(rs.r[i], j);
+      return;
+    }
+    j -= rs.r[i].n;
+  }
+}
+
+static int launch_reduce_all(const Reductions& rs, cudaStream_t st) {
+  int n = 0;
+  for (int i = 0; i < rs.count; ++i) n += rs.r[i].n;
+  reduce_all_kernel<<<(n + 255) / 256, 256, 0, st>>>(rs);
+  return (int)cudaGetLastError();
+}
+
+// LayerNorm backward plus the reduction of its parameter gradients (now, or
+// deferred into `defer`).
 static int launch_ln_bwd(const bf16* x, const float* dy, const bf16* resid,
                          const float* scale, bf16* out, float* ws, float* gscale,
-                         float* gbias, int M, int D, float eps, cudaStream_t st) {
+                         float* gbias, int M, int D, float eps, cudaStream_t st,
+                         Reductions* defer = nullptr) {
   const int nb = lnb_blocks(M);
   ln_bwd_kernel<<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws, M, D, eps);
   LAUNCH((int)cudaGetLastError());
-  return launch_reduce(ws, nb, 2 * D, D, gscale, gbias, st);
+  return reduce_or_defer({ws, nb, 2 * D, D, gscale, gbias}, defer, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -658,12 +734,12 @@ static size_t wgrad_workspace_floats(int K1, int N, int M) {
 }
 
 static int launch_wgrad(const bf16* A, const bf16* B, int K1, int N, int M, float* ws,
-                        float* dw, float* db, cudaStream_t st) {
+                        float* dw, float* db, cudaStream_t st, Reductions* defer = nullptr) {
   const int splits = wgrad_splits(K1, N, M);
   EpiArgs ep = {};
   ep.f32 = ws;
   LAUNCH((launch_gemm<true, false, EPI_F32>(A, B, K1 + 1, N, M, ep, st, splits)));
-  return launch_reduce(ws, splits, (K1 + 1) * N, K1 * N, dw, db, st);
+  return reduce_or_defer({ws, splits, (K1 + 1) * N, K1 * N, dw, db}, defer, st);
 }
 
 extern "C" const char* vit2spn_cuda_error_string(int code) {

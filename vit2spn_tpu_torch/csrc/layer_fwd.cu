@@ -1,0 +1,51 @@
+// One ViT layer's forward for Hopper (sm_90a), bf16 in / bf16 out.
+//
+// Replaces: vit2spn_tpu/ops/fused_block.py::_fwd_kernel (reached through
+// _fused_fwd_impl and fused_block, the per-layer path attn_impl="fused_layer"
+// runs under lax.scan), the Pallas TPU kernel that runs one pre-LN block over
+// a tile of images with the activations resident in VMEM and emits the
+// layer's output and its mid-residual x2, both in the input dtype, for the
+// split backward. It is _block_fwd_math once: the same function as one layer
+// of _backbone_fwd_kernel.
+//
+// So this source runs the layer code of csrc/layer_fwd.cuh once, the code
+// csrc/backbone_fwd.cu runs for every layer: seven launches (LayerNorm, the
+// QKV GEMM, attention, the Wo GEMM with the residual, LayerNorm, the W1 GEMM
+// with gelu, the W2 GEMM with the residual) on the caller's stream, and a
+// loop of these calls gives the backbone kernel's output bit for bit. x2 is
+// written as bf16 by the Wo GEMM's epilogue, as the backbone writes its x2s
+// stack.
+//
+// What bounds it on this card: operations, as for the backbone: one layer over
+// one image is 204 MFLOP of tensor-core work against ~0.15 MB of activations
+// in and out (26.1 GFLOP at B = 128, 26 us at 989 TFLOP/s). Limits: head_dim
+// 64, S <= 256, D <= 768, D and mlp multiples of 64.
+
+#include "layer_fwd.cuh"
+
+// x, out: (B * S, D) bf16; x2 (optional): (B * S, D) bf16; weights as one
+// layer's slices of the stacked arrays. Scratch as launch_layer's: qkv_buf
+// (B * S + QKV_PAD_ROWS rows of 3 D, the pad rows zeroed here), att_buf, x2_buf
+// (fp32) and g_buf.
+extern "C" int vit2spn_layer_fwd(
+    const void* x, void* out, void* x2,
+    const void* ln1_scale, const void* ln1_bias, const void* wqkv, const void* bqkv,
+    const void* wo, const void* bo, const void* ln2_scale, const void* ln2_bias,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    void* qkv_buf, void* att_buf, void* x2_buf, void* g_buf,
+    int B, int S, int D, int H, int MLP, float eps, int fast_gelu, void* stream) {
+  if (!layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
+                       ln2_scale, ln2_bias, w1, b1, w2, b2};
+  bf16* qkv = static_cast<bf16*>(qkv_buf);
+  LAUNCH(zero_qkv_pad(qkv, B * S, D, st));
+  return launch_layer(static_cast<const bf16*>(x), static_cast<bf16*>(out), nullptr,
+                      static_cast<bf16*>(x2), layer_weights(w, 0, D, MLP), qkv,
+                      static_cast<bf16*>(att_buf), static_cast<float*>(x2_buf),
+                      static_cast<bf16*>(g_buf), B, S, D, H, MLP, eps, fast_gelu, st);
+}
+
+extern "C" int vit2spn_layer_fwd_qkv_pad_rows() { return QKV_PAD_ROWS; }
+
+extern "C" int vit2spn_layer_fwd_launches() { return LAUNCHES_PER_LAYER; }

@@ -7,15 +7,29 @@ checkpoints): `patch_embed/{kernel (P*P*C, D), bias}`, `cls_token (1, 1, D)`,
 and `blocks/<name>` stacked over layers for every name in
 ops/fused_block.py::WEIGHT_NAMES, matmul weights as (in, out).
 
-The transformer stack runs through ops/fused_block.py::fused_backbone — the
-hand-written CUDA kernels for CUDA tensors, their plain twins for CPU
-tensors — or, with `attn_impl="plain"`, through the plain twin on any device
-(the reference the kernels are held against on the card). Under autograd
-gradients flow through fused_backbone's Function (the backward kernels) to
-the fp32 master params, through the casts of `backbone_weights`; the patch
-embed, CLS token, position embedding and token mean are plain torch
-autograd. The kernels take bf16 only: the fp32 policy runs on CUDA through
-`attn_impl="plain"`.
+The transformer stack runs through one of the JAX package's backbone paths,
+under its `attn_impl` names (ATTN_IMPLS):
+
+  * "fused": ops/fused_block.py::fused_backbone, all layers in one kernel
+    call, its backward the split layer halves or, under
+    VIT2SPN_MERGED_BWD=1, the merged layer kernel (the JAX "fused");
+  * "fused_layer": a loop over layers of ops/fused_block.py::fused_block,
+    one kernel call per layer (the JAX "fused_layer", its lax.scan);
+  * "xla": the per-op pre-LN block `_block` in plain torch ops with
+    `mha_plain` attention (the JAX default, attn_impl=None or "xla");
+  * "pallas": the same `_block` with `mha_pallas`, the fp32 attention
+    kernels (the JAX "pallas");
+  * "plain": the fused kernels' plain twin on any device (the reference the
+    kernels are held against on the card; the port's own name).
+
+The kernels run for CUDA tensors, their plain twins for CPU tensors. Under
+autograd gradients flow through the kernels' Functions (the backward
+kernels) to the fp32 master params, through the casts of the weights; the
+per-op block, the patch embed, CLS token, position embedding and token mean
+are plain torch autograd. The fused kernels take bf16 only: the fp32 policy
+runs on CUDA through "xla", "pallas" (its kernels take fp32) or "plain".
+`cfg.remat` ("none", "full", "dots") checkpoints each per-op block, as
+`jax.checkpoint` does; the fused paths keep their own residuals.
 
 Feature semantics: the mean over ALL tokens (CLS included) of the last block
 output BEFORE the final layernorm (ssp_vit2spn_tiny.py:116-117).
@@ -23,21 +37,31 @@ output BEFORE the final layernorm (ssp_vit2spn_tiny.py:116-117).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from vit2spn_tpu_torch.core.config import ViTConfig
 from vit2spn_tpu_torch.core.dtypes import FP32, DTypePolicy
 from vit2spn_tpu_torch.core.runtime import resolve_device
+from vit2spn_tpu_torch.ops.attention import multi_head_attention
 from vit2spn_tpu_torch.ops.fused_block import (
     WEIGHT_NAMES,
     backbone_forward_plain,
     fast_gelu_default,
     fused_backbone,
+    fused_block,
 )
 
-ATTN_IMPLS = ("fused", "plain")
+ATTN_IMPLS = ("fused", "fused_layer", "xla", "pallas", "plain")
+REMATS = ("none", "full", "dots")
 
 
 def _trunc_normal(gen: torch.Generator, shape, std: float = 0.02) -> torch.Tensor:
@@ -164,14 +188,57 @@ def _embed(params: dict, x: torch.Tensor, cfg: ViTConfig, policy: DTypePolicy,
     return (seq + params["pos_embed"].to(dt)).contiguous()
 
 
-def backbone_weights(blocks: dict, policy: DTypePolicy) -> tuple:
-    """Stacked block params in WEIGHT_NAMES order, as the kernel takes them:
-    LN params fp32, matmul weights and biases in compute dtype."""
+def backbone_weights(blocks: dict, policy: DTypePolicy, layer: Optional[int] = None) -> tuple:
+    """Block params in WEIGHT_NAMES order, as the fused kernels take them: LN
+    params fp32, matmul weights and biases in compute dtype; stacked, or
+    `layer`'s alone."""
     return tuple(
-        blocks[n].to(torch.float32 if n.startswith("ln") else policy.compute_dtype)
+        (blocks[n] if layer is None else blocks[n][layer])
+        .to(torch.float32 if n.startswith("ln") else policy.compute_dtype)
         .contiguous()
         for n in WEIGHT_NAMES
     )
+
+
+def _block(cfg: ViTConfig, attn_impl: str, x: torch.Tensor, ln1_scale, ln1_bias, wqkv,
+           bqkv, wo, bo, ln2_scale, ln2_bias, w1, b1, w2, b2) -> torch.Tensor:
+    """The per-op pre-LN block (the JAX `_block`): plain torch ops in x's
+    dtype, every param already cast to it, exact erf gelu, attention through
+    `multi_head_attention(impl=attn_impl)`."""
+    b, s, d = x.shape
+    eps = cfg.layernorm_eps
+    y = _layernorm(x, ln1_scale, ln1_bias, eps)
+    qkv = y @ wqkv + bqkv
+    q, k, v = (t.reshape(b, s, cfg.num_heads, cfg.head_dim) for t in qkv.split(d, dim=-1))
+    attn = multi_head_attention(q, k, v, attn_impl).reshape(b, s, d)
+    x = x + attn @ wo + bo
+    y = _layernorm(x, ln2_scale, ln2_bias, eps)
+    y = F.gelu(y @ w1 + b1)  # exact (erf) gelu, as HF ViT and the JAX block
+    y = y @ w2 + b2
+    return x + y
+
+
+# what remat "dots" saves: the matmul outputs (jax.checkpoint_policies.dots_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(block, remat: str):
+    """`block` checkpointed as `cfg.remat` says: "full" recomputes the whole
+    block in the backward, "dots" all but the matmul outputs. Recomputation
+    replays the same ops, so the gradients keep their bits."""
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}; one of {REMATS}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return block
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return lambda *a: checkpoint(block, *a, use_reentrant=False, **kw)
 
 
 def _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu):
@@ -181,9 +248,20 @@ def _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu):
     if fast_gelu is None:
         fast_gelu = fast_gelu_default()
     seq = _embed(params, x, cfg, policy, norm_fold)
-    wt = backbone_weights(params["blocks"], policy)
-    run = fused_backbone if attn_impl == "fused" else backbone_forward_plain
-    return run(seq, wt, cfg.num_heads, cfg.layernorm_eps, fast_gelu)
+    blocks = params["blocks"]
+    heads, eps = cfg.num_heads, cfg.layernorm_eps
+    if attn_impl in ("fused", "plain"):
+        run = fused_backbone if attn_impl == "fused" else backbone_forward_plain
+        return run(seq, backbone_weights(blocks, policy), heads, eps, fast_gelu)
+    h = seq
+    if attn_impl == "fused_layer":
+        for l in range(cfg.num_layers):
+            h = fused_block(h, backbone_weights(blocks, policy, l), heads, eps, fast_gelu)
+        return h
+    block = _remat(functools.partial(_block, cfg, attn_impl), cfg.remat)
+    for l in range(cfg.num_layers):
+        h = block(h, *(blocks[n][l].to(policy.compute_dtype) for n in WEIGHT_NAMES))
+    return h
 
 
 def vit_forward(
@@ -201,9 +279,9 @@ def vit_forward(
 
     Returns {"pre_ln": (B, S, D), "last_hidden_state": (B, S, D)}: HF
     `hidden_states[-1]` and the post-final-layernorm `last_hidden_state`.
-    `attn_impl="fused"` runs the stack through `fused_backbone` (the kernel
-    on CUDA, its plain twin on the CPU); "plain" forces the plain twin.
-    `fast_gelu=None` resolves from VIT2SPN_FAST_GELU."""
+    `attn_impl` picks the backbone path (ATTN_IMPLS, the module docstring).
+    `fast_gelu=None` resolves from VIT2SPN_FAST_GELU (the fused paths; the
+    per-op block's gelu is always the exact erf)."""
     pre_ln = _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu)
     last_hidden = _layernorm(
         pre_ln, params["final_ln"]["scale"], params["final_ln"]["bias"],

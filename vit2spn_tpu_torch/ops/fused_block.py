@@ -1,34 +1,43 @@
-"""Whole-backbone ViT forward and backward: the Hopper kernels, their plain
-twins, their wrappers, and the autograd Function that joins them.
+"""The fused ViT block kernels: whole-backbone and one-layer forwards, the
+split and merged layer backwards, their plain twins, their wrappers, and the
+autograd Functions that join them.
 
-Port of `vit2spn_tpu/ops/fused_block.py::fused_backbone` and its custom_vjp
-(the Pallas kernels `_backbone_fwd_kernel`, `_mlp_bwd_kernel` and
-`_attn_bwd_kernel`). Per kernel three pieces:
+Port of `vit2spn_tpu/ops/fused_block.py`: `fused_backbone` and its
+custom_vjp (the Pallas kernels `_backbone_fwd_kernel`, `_mlp_bwd_kernel`,
+`_attn_bwd_kernel` and, under VIT2SPN_MERGED_BWD=1, `_merged_bwd_kernel`),
+and the per-layer `fused_block` (`_fwd_kernel`, its backward the split
+halves). Per kernel three pieces:
 
   * a plain PyTorch twin with the Pallas kernel's rounding points
-    (`backbone_forward_plain` after `_block_fwd_math`: bf16 LN outputs
-    before their GEMMs, bf16 qkv, bf16 softmax probabilities before P.V,
-    fp32 x2 inside the layer, a bf16 residual stream between layers, fp32
-    gelu then bf16; `mlp_bwd_plain` after `_mlp_bwd_math` and
-    `attn_bwd_plain` after `_attn_bwd_math`: bf16 m1, dm1, datt, dS and
+    (`backbone_forward_plain` and `layer_forward_plain` after
+    `_block_fwd_math`: bf16 LN outputs before their GEMMs, bf16 qkv, bf16
+    softmax probabilities before P.V, fp32 x2 inside the layer, a bf16
+    residual stream between layers, fp32 gelu then bf16; `mlp_bwd_plain`
+    after `_mlp_bwd_math`, `attn_bwd_plain` after `_attn_bwd_math` and
+    `merged_bwd_plain`, the two in a row: bf16 m1, dm1, dx2, datt, dS and
     dqkv, fp32 weight gradients). Matmuls take compute-dtype inputs and
     accumulate in fp32.
   * the CUDA kernel in `csrc/<name>.cu` (several launches on the current
     stream), built on first use (ops/cuda_build.py).
-  * the wrapper (`fused_backbone`, `mlp_bwd`, `attn_bwd`). For CPU tensors
-    it runs the plain twin; for CUDA tensors it launches the kernel, or
-    raises on what the kernel does not take. It never falls back from CUDA
-    to the plain twin. Each counts its kernel launches in `.launches` and
-    names them `vit2spn::<name>` for torch.profiler, which sums their
-    device time under that range.
+  * the wrapper (`fused_backbone`, `layer_fwd`, `mlp_bwd`, `attn_bwd`,
+    `merged_bwd`). For CPU tensors it runs the plain twin; for CUDA tensors
+    it launches the kernel, or raises on what the kernel does not take. It
+    never falls back from CUDA to the plain twin. Each counts its kernel
+    launches in `.launches` and names them `vit2spn::<name>` for
+    torch.profiler, which sums their device time under that range.
 
 Under autograd `fused_backbone` goes through `_FusedBackbone`: its forward
 keeps each layer's input (xs) and mid-residual (x2s), its backward runs the
-layers in reverse, MLP half then attention half, as `_backbone_vjp_bwd`.
+layers in reverse as `_backbone_vjp_bwd`, per layer the MLP half then the
+attention half, or `merged_bwd` when VIT2SPN_MERGED_BWD=1 at the time of
+the backward call. `fused_block` (one layer, the "fused_layer" path) goes
+through `_FusedBlock`: the one-layer kernel forward keeps x and x2, its
+backward runs the split halves, as `_fused_bwd`.
 
-Layout: x (B, S, D); weights a tuple of STACKED arrays in WEIGHT_NAMES order
-with a leading layer axis — LN params fp32 (L, D), matmul weights (L, in,
-out) and biases (L, n) in compute dtype. Unlike the TPU kernels nothing is
+Layout: x (B, S, D); backbone weights a tuple of STACKED arrays in
+WEIGHT_NAMES order with a leading layer axis — LN params fp32 (L, D), matmul
+weights (L, in, out) and biases (L, n) in compute dtype; one layer's weights
+the same tuple without the layer axis. Unlike the TPU kernels nothing is
 padded to a multiple of 16 tokens in memory: the kernels mask their own pad
 keys and queries, so the xs / x2s residual stacks are (L, B, S, D).
 """
@@ -175,6 +184,15 @@ def backbone_forward_plain(x: torch.Tensor, weights: Tuple, heads: int,
     return h
 
 
+def layer_forward_plain(x: torch.Tensor, weights: Tuple, heads: int, eps: float,
+                        fast_gelu: bool):
+    """One block over x (B, S, D), plain PyTorch, any device: the twin of
+    csrc/layer_fwd.cu (`_fwd_kernel`). `weights` is one layer's tuple in
+    WEIGHT_NAMES order. Returns (out, x2), both in x.dtype."""
+    out, x2 = _block_fwd_plain(x, dict(zip(WEIGHT_NAMES, weights)), heads, eps, fast_gelu)
+    return out.to(x.dtype), x2.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Backward: plain twins of `_mlp_bwd_math`, `_attn_bwd_math` and the reverse
 # layer loop of `_backbone_vjp_bwd`, with the Pallas kernels' rounding points
@@ -280,20 +298,27 @@ def attn_bwd_plain(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int,
     return (dx2.float() + dx).to(dtype).reshape(b, s, d), grads
 
 
-def _backbone_backward(xs, x2s, g, weights, heads, eps, fast_gelu, mlp, attn):
-    """The reverse layer loop of `_backbone_vjp_bwd`: per layer the MLP half,
-    then the attention half, with dx2 crossing between them in compute
-    dtype. `mlp(x2, dout, w, eps, fast_gelu, out)` and `attn(x, dx2, w,
-    heads, eps, out)` write their fp32 weight gradients into `out` and return
-    the activation gradient. Returns (dx, fp32 stacked gradients in
-    WEIGHT_NAMES order)."""
+def merged_bwd_plain(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict,
+                     heads: int, eps: float, fast_gelu: bool):
+    """Plain twin of csrc/merged_bwd.cu (`_merged_bwd_kernel`): `mlp_bwd_plain`
+    then `attn_bwd_plain`, dx2 crossing in compute dtype. Returns (dx in
+    x.dtype, {name: fp32 gradient} over WEIGHT_NAMES)."""
+    dx2, grads = mlp_bwd_plain(x2, dout, w, eps, fast_gelu)
+    dx, attn_grads = attn_bwd_plain(x, dx2, w, heads, eps)
+    return dx, {**grads, **attn_grads}
+
+
+def _backbone_backward(xs, x2s, g, weights, layer):
+    """The reverse layer loop of `_backbone_vjp_bwd`. `layer(x, x2, dout, w,
+    out)` is one layer's backward: it writes the layer's fp32 weight
+    gradients into `out` and returns the gradient of its input. Returns (dx,
+    fp32 stacked gradients in WEIGHT_NAMES order)."""
     g = g.to(xs.dtype).contiguous()
     grads = {n: torch.empty(t.shape, dtype=torch.float32, device=t.device)
              for n, t in zip(WEIGHT_NAMES, weights)}
     for l in reversed(range(weights[0].shape[0])):
         w = {n: t[l] for n, t in zip(WEIGHT_NAMES, weights)}
-        dx2 = mlp(x2s[l], g, w, eps, fast_gelu, {n: grads[n][l] for n in MLP_NAMES})
-        g = attn(xs[l], dx2, w, heads, eps, {n: grads[n][l] for n in ATTN_NAMES})
+        g = layer(xs[l], x2s[l], g, w, {n: grads[n][l] for n in WEIGHT_NAMES})
     return g, tuple(grads[n] for n in WEIGHT_NAMES)
 
 
@@ -309,17 +334,12 @@ def backbone_backward_plain(xs, x2s, g, weights, heads, eps, fast_gelu):
     """Plain twin of the whole backward: xs / x2s (L, B, S, D) from the
     forward's `emit_res`, g the gradient of its output. Returns (dx, fp32
     stacked weight gradients in WEIGHT_NAMES order)."""
-    def mlp(x2, dout, w, eps, fast_gelu, out):
-        dx2, grads = mlp_bwd_plain(x2, dout, w, eps, fast_gelu)
-        _write(grads, out)
-        return dx2
-
-    def attn(x, dx2, w, heads, eps, out):
-        dx, grads = attn_bwd_plain(x, dx2, w, heads, eps)
+    def layer(x, x2, dout, w, out):
+        dx, grads = merged_bwd_plain(x, x2, dout, w, heads, eps, fast_gelu)
         _write(grads, out)
         return dx
 
-    return _backbone_backward(xs, x2s, g, weights, heads, eps, fast_gelu, mlp, attn)
+    return _backbone_backward(xs, x2s, g, weights, layer)
 
 
 # ---------------------------------------------------------------------------
@@ -373,14 +393,21 @@ def _check_weights(x: torch.Tensor, names, tensors, shapes: dict) -> None:
             raise ValueError(f"{name} is not contiguous")
 
 
-def _check_kernel_inputs(x: torch.Tensor, weights: Tuple, heads: int) -> None:
+def _check_kernel_inputs(x: torch.Tensor, weights: Tuple, heads: int,
+                         stacked: bool = True) -> None:
+    """The forward kernels' operands: the backbone's stacked weights, or
+    (stacked=False) one layer's."""
     _check_activation(x, heads)
     if len(weights) != len(WEIGHT_NAMES):
         raise ValueError(f"expected {len(WEIGHT_NAMES)} weight arrays")
-    layers, mlp = weights[0].shape[0], weights[8].shape[-1]
+    layers = weights[0].shape[0] if stacked else 1
+    mlp = weights[8].shape[-1]
     if mlp % 64:
         raise ValueError(f"backbone kernel needs mlp a multiple of 64, got {mlp}")
-    _check_weights(x, WEIGHT_NAMES, weights, _weight_shapes(layers, x.shape[2], mlp))
+    shapes = _weight_shapes(layers, x.shape[2], mlp)
+    if not stacked:
+        shapes = {n: s[1:] for n, s in shapes.items()}
+    _check_weights(x, WEIGHT_NAMES, weights, shapes)
 
 
 def _check_layer_inputs(x, other, w: dict, names, heads, out: dict) -> None:
@@ -422,6 +449,24 @@ _SIGNATURES = {
         "vit2spn_attn_bwd_workspace_floats": ([_I] * 2, _LL),
         "vit2spn_attn_bwd_launches": ([], _I),
     },
+    "layer_fwd": {
+        "vit2spn_layer_fwd": ([_P] * 19 + [_I] * 5 + [_F, _I, _P], _I),
+        "vit2spn_layer_fwd_qkv_pad_rows": ([], _I),
+        "vit2spn_layer_fwd_launches": ([], _I),
+    },
+    "merged_bwd": {
+        "vit2spn_merged_bwd": ([_P] * 37 + [_I] * 5 + [_F, _I, _P], _I),
+        "vit2spn_merged_bwd_workspace_floats": ([_I] * 3, _LL),
+        "vit2spn_merged_bwd_launches": ([], _I),
+    },
+    # ops/flash_attention.py's kernels
+    "flash_attention": {
+        "vit2spn_flash_fwd": ([_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I, _P], _I),
+        "vit2spn_flash_bwd": ([_P] * 8 + [_I] * 3 + [_LL] * 2 + [_I, _P], _I),
+        "vit2spn_flash_bwd_workspace_floats": ([_I] * 3, _LL),
+        "vit2spn_flash_fwd_launches": ([], _I),
+        "vit2spn_flash_bwd_launches": ([], _I),
+    },
 }
 KERNEL_NAMES = tuple(_SIGNATURES)
 
@@ -458,10 +503,12 @@ def kernel_launches_per_layer() -> int:
     return _load(KERNEL_NAME).vit2spn_backbone_fwd_launches_per_layer()
 
 
-def backward_launches_per_layer() -> Tuple[int, int]:
-    """CUDA kernel launches of one layer's MLP and attention backward."""
-    return (_load("mlp_bwd").vit2spn_mlp_bwd_launches(),
-            _load("attn_bwd").vit2spn_attn_bwd_launches())
+def cuda_launches(name: str, lib: Optional[str] = None) -> int:
+    """CUDA kernel launches one call of the `name` wrapper costs (one layer
+    of `layer_fwd`, `mlp_bwd`, `attn_bwd`, `merged_bwd`; one attention of
+    `flash_fwd`, `flash_bwd`), from the library of csrc/<lib or name>.cu
+    (builds if needed)."""
+    return getattr(_load(lib or name), f"vit2spn_{name}_launches")()
 
 
 def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
@@ -584,6 +631,70 @@ def attn_bwd(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int, eps: float
     return dx, out
 
 
+def merged_bwd(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict, heads: int,
+               eps: float, fast_gelu: bool, out: Optional[dict] = None):
+    """One layer's whole backward, MLP half then attention half: (dx, {name:
+    fp32 gradient} over WEIGHT_NAMES).
+
+    CUDA tensors go through csrc/merged_bwd.cu (bf16 only; anything it does
+    not take raises), CPU tensors through `merged_bwd_plain`. The gradients
+    are written into `out` when it is given."""
+    if x.device.type == "cpu":
+        dx, grads = merged_bwd_plain(x, x2, dout, w, heads, eps, fast_gelu)
+        return dx, _write(grads, out)
+    if x.device.type != "cuda":
+        raise ValueError(f"merged_bwd runs on cuda or cpu, not {x.device}")
+    out = _grad_outputs(w, WEIGHT_NAMES, out)
+    _check_layer_inputs(x2, dout, w, MLP_NAMES, None, out)
+    _check_layer_inputs(x, dout, w, ATTN_NAMES, heads, out)
+    lib = _load("merged_bwd")
+    b, s, d = x.shape
+    m, mlp = b * s, w["w1"].shape[1]
+    dev = x.device
+
+    def bf(n):
+        return torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+
+    dx = torch.empty_like(x)
+    y1, y2, qkv, datt, att, dqkv = bf(d), bf(d), bf(3 * d), bf(d), bf(d), bf(3 * d)
+    g, gg, dx2 = bf(mlp), bf(mlp), bf(d)
+    dy = torch.empty((m, d), dtype=torch.float32, device=dev)
+    ws = torch.empty(lib.vit2spn_merged_bwd_workspace_floats(m, d, mlp),
+                     dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::merged_bwd"):
+        rc = lib.vit2spn_merged_bwd(
+            x.data_ptr(), x2.data_ptr(), dout.data_ptr(),
+            *[w[n].data_ptr() for n in ATTN_NAMES[:5] + MLP_NAMES[:5]],
+            dx.data_ptr(), *[out[n].data_ptr() for n in WEIGHT_NAMES],
+            *[t.data_ptr() for t in (y1, y2, qkv, datt, att, dqkv, g, gg, dx2, dy, ws)],
+            b, s, d, heads, mlp, float(eps), int(bool(fast_gelu)), _stream(dev),
+        )
+    _raise_on(lib, rc, "merged backward")
+    merged_bwd.launches += 1
+    return dx, out
+
+
+def merged_bwd_enabled() -> bool:
+    """VIT2SPN_MERGED_BWD=1: the backbone backward runs `merged_bwd` per
+    layer instead of the two halves. Read at each backward call, as the JAX
+    package reads it when it traces its backward."""
+    return os.environ.get("VIT2SPN_MERGED_BWD", "0") == "1"
+
+
+def _layer_backward(merged: bool, heads: int, eps: float, fast_gelu: bool):
+    """One layer's backward for `_backbone_backward`: the merged kernel, or
+    the MLP half then the attention half."""
+    if merged:
+        return lambda x, x2, dout, w, out: merged_bwd(x, x2, dout, w, heads, eps,
+                                                      fast_gelu, out)[0]
+
+    def split(x, x2, dout, w, out):
+        dx2 = mlp_bwd(x2, dout, w, eps, fast_gelu, out)[0]
+        return attn_bwd(x, dx2, w, heads, eps, out)[0]
+
+    return split
+
+
 def _backbone_forward(x, weights, heads, eps, fast_gelu, emit_res):
     if x.device.type == "cuda":
         return _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res)
@@ -595,9 +706,10 @@ def _backbone_forward(x, weights, heads, eps, fast_gelu, emit_res):
 class _FusedBackbone(torch.autograd.Function):
     """`fused_backbone` under autograd, as the JAX package's custom_vjp: the
     forward keeps the xs / x2s residual stacks, the backward runs each
-    layer's MLP and attention backward in reverse (the kernels on CUDA,
-    their plain twins on the CPU). Weight gradients come back in each
-    weight's own dtype, as `_backbone_vjp_bwd` casts them."""
+    layer's backward in reverse (the kernels on CUDA, their plain twins on
+    the CPU): the MLP half then the attention half, or the merged kernel
+    under VIT2SPN_MERGED_BWD=1. Weight gradients come back in each weight's
+    own dtype, as `_backbone_vjp_bwd` casts them."""
 
     @staticmethod
     def forward(ctx, x, heads, eps, fast_gelu, *weights):
@@ -609,11 +721,8 @@ class _FusedBackbone(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xs, x2s, *weights = ctx.saved_tensors
-        heads, eps, fast_gelu = ctx.args
-        dx, dws = _backbone_backward(
-            xs, x2s, g, weights, heads, eps, fast_gelu,
-            lambda *a: mlp_bwd(*a)[0], lambda *a: attn_bwd(*a)[0],
-        )
+        layer = _layer_backward(merged_bwd_enabled(), *ctx.args)
+        dx, dws = _backbone_backward(xs, x2s, g, weights, layer)
         return (dx, None, None, None,
                 *(dw.to(w.dtype) for dw, w in zip(dws, weights)))
 
@@ -637,8 +746,88 @@ def fused_backbone(x: torch.Tensor, weights: Tuple, heads: int, eps: float,
     return _backbone_forward(x, weights, heads, eps, fast_gelu, emit_res)
 
 
+# ---------------------------------------------------------------------------
+# One layer: the "fused_layer" path (`fused_block`, `_fwd_kernel`)
+# ---------------------------------------------------------------------------
+
+def layer_fwd(x: torch.Tensor, weights: Tuple, heads: int, eps: float, fast_gelu: bool,
+              emit_x2: bool = True):
+    """One block over x (B, S, D): (out, x2) with `emit_x2`, else out, both
+    in x.dtype. `weights`: one layer's tuple in WEIGHT_NAMES order.
+
+    CUDA tensors go through csrc/layer_fwd.cu (bf16 only; anything it does
+    not take raises), CPU tensors through `layer_forward_plain`."""
+    if x.device.type == "cpu":
+        out, x2 = layer_forward_plain(x, weights, heads, eps, fast_gelu)
+        return (out, x2) if emit_x2 else out
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_fwd runs on cuda or cpu, not {x.device}")
+    _check_kernel_inputs(x, weights, heads, stacked=False)
+    lib = _load("layer_fwd")
+    b, s, d = x.shape
+    m, mlp = b * s, weights[8].shape[-1]
+    dev = x.device
+    out = torch.empty_like(x)
+    x2 = torch.empty_like(x) if emit_x2 else None
+    # attention reads 16-row steps: the kernel zeroes these pad rows
+    qkv = torch.empty((m + lib.vit2spn_layer_fwd_qkv_pad_rows(), 3 * d),
+                      dtype=torch.bfloat16, device=dev)
+    att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    x2f = torch.empty((m, d), dtype=torch.float32, device=dev)
+    g = torch.empty((m, mlp), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::layer_fwd"):
+        rc = lib.vit2spn_layer_fwd(
+            x.data_ptr(), out.data_ptr(), x2.data_ptr() if emit_x2 else None,
+            *[t.data_ptr() for t in weights],
+            qkv.data_ptr(), att.data_ptr(), x2f.data_ptr(), g.data_ptr(),
+            b, s, d, heads, mlp, float(eps), int(bool(fast_gelu)), _stream(dev),
+        )
+    _raise_on(lib, rc, "layer forward")
+    layer_fwd.launches += 1
+    return (out, x2) if emit_x2 else out
+
+
+class _FusedBlock(torch.autograd.Function):
+    """`fused_block` under autograd, as the JAX package's custom_vjp: the
+    forward keeps x and the mid-residual x2, the backward runs the MLP half
+    then the attention half (`_fused_bwd`, which never merges them)."""
+
+    @staticmethod
+    def forward(ctx, x, heads, eps, fast_gelu, *weights):
+        out, x2 = layer_fwd(x, weights, heads, eps, fast_gelu)
+        ctx.save_for_backward(x, x2, *weights)
+        ctx.args = (heads, eps, fast_gelu)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x2, *weights = ctx.saved_tensors
+        w = dict(zip(WEIGHT_NAMES, weights))
+        grads = _grad_outputs(w, WEIGHT_NAMES, None)
+        dx = _layer_backward(False, *ctx.args)(x, x2, g.to(x.dtype).contiguous(), w, grads)
+        return (dx, None, None, None,
+                *(grads[n].to(t.dtype) for n, t in zip(WEIGHT_NAMES, weights)))
+
+
+def fused_block(x: torch.Tensor, weights: Tuple, heads: int, eps: float,
+                fast_gelu: Optional[bool] = None) -> torch.Tensor:
+    """One pre-LN block over x (B, S, D), `weights` one layer's tuple in
+    WEIGHT_NAMES order (LN params fp32, matmul weights and biases in x's
+    dtype): the port of the JAX `fused_block`. CUDA tensors go through
+    csrc/layer_fwd.cu and, under autograd, the split backward kernels; CPU
+    tensors through the plain twins. `fast_gelu=None` resolves from
+    VIT2SPN_FAST_GELU."""
+    if fast_gelu is None:
+        fast_gelu = fast_gelu_default()
+    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in weights)):
+        return _FusedBlock.apply(x, heads, eps, fast_gelu, *weights)
+    return layer_fwd(x, weights, heads, eps, fast_gelu, emit_x2=False)
+
+
 # kernel launches through the wrappers (one per backbone forward, one per
-# layer of each backward half); the plain twins never count
+# layer forward, one per layer of each backward); the plain twins never count
 fused_backbone.launches = 0
+layer_fwd.launches = 0
 mlp_bwd.launches = 0
 attn_bwd.launches = 0
+merged_bwd.launches = 0

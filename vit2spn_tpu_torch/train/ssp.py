@@ -3,8 +3,9 @@
 
 One optimizer step (`train_step`): for each of the `accumulation_steps`
 microbatches, the random dual views on the card (data/augment.py), the
-dual-stream forward with the online backbones under autograd (the
-hand-written forward and backward kernels on CUDA, ops/fused_block.py) and
+dual-stream forward with the online backbones under autograd (through the
+backbone path `attn_impl` names, models/vit.py: the hand-written forward and
+backward kernels on CUDA) and
 the target backbones without gradient, the weighted negative-cosine loss and
 its backward; then the gradients averaged over the microbatches, Adam over
 the online nets and the heads, and the EMA of the target nets. `fit` runs
@@ -54,6 +55,7 @@ from vit2spn_tpu_torch.models.ssp import (
     online_prediction,
     weighted_ssp_loss,
 )
+from vit2spn_tpu_torch.models.vit import ATTN_IMPLS
 from vit2spn_tpu_torch.ops.fused_block import fast_gelu_default
 from vit2spn_tpu_torch.train import checkpoint as ckpt
 from vit2spn_tpu_torch.utils.logging import MetricLogger
@@ -113,8 +115,12 @@ class SSPTrainer:
         self.device = resolve_device(device)
         self.policy = DTypePolicy.from_str(cfg.compute_dtype)
         self.logger = logger or MetricLogger(echo=True)
-        # "fused": the hand-written backbone kernels on CUDA (their plain
-        # twins on the CPU); "plain": the plain forward under torch autograd
+        # the backbone path, under the JAX package's names (models/vit.py):
+        # "fused" (its backward merged under VIT2SPN_MERGED_BWD=1),
+        # "fused_layer", "xla", "pallas"; or "plain", the fused kernels'
+        # plain twin under torch autograd
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
         self.attn_impl = attn_impl
         gen = torch.Generator().manual_seed(cfg.seed)
         # init_provenance records what the backbone init ACTUALLY was, as
