@@ -8,8 +8,9 @@ script exits non-zero without printing a result:
 
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel from csrc/ (one nvcc per source, all started
-     together), with seconds and the compiler's register / shared-memory
-     report;
+     together), with seconds and the compiler's registers, spill stores and
+     static shared memory per kernel (of the attention kernels templated on
+     S, the instantiation for S = 197; their shared memory is dynamic);
   3. the backbone-forward kernel against its plain PyTorch twin on the card,
      at the shapes the serving path gives it (ViT-Tiny: L=12, D=192, 3 heads,
      mlp 768, S=197, B=256, bf16), both gelu forms and both emit_res
@@ -28,7 +29,8 @@ script exits non-zero without printing a result:
      their plain twins: o, dq, dk, dv at the training shape (B=128) and the
      serving shape (B=256), at S = 5, 17 and 256, a ragged B, and with fp32
      inputs; at each shape as close to the function computed in float64 as
-     the twin is (a kernel that rounded P or dS to bf16 would not be);
+     the twin is (a kernel that rounded P or dS to bf16 would not be); two
+     backward runs at B=128 giving the same dq, dk, dv bits;
   6. the one-layer forward kernel against its twin at B=128 and 256, both
      gelu forms (out and x2), and 12 `fused_block` calls against one
      `fused_backbone`: every output bit equal;
@@ -59,8 +61,10 @@ script exits non-zero without printing a result:
      step's images/s and device time by wrapper;
  11. times with CUDA events after a warm-up: each kernel, its plain twin, a
      library yardstick (F.layer_norm / torch.matmul / SDPA / F.gelu, and
-     their torch autograd for the backward kernels) and the least time the
-     card could take for the same work; extract images/s; the "fused"
+     their torch autograd for the backward kernels; for the flash kernels
+     also SDPA on fp32 copies, which keeps P and dS in fp32, with its error
+     against float64) and the least time the card could take for the same
+     work; extract images/s; the "fused"
      optimizer step's images/s, and from torch.profiler its device time by
      kernel wrapper (each wrapper's `vit2spn::<name>` range) and by CUDA
      kernel.
@@ -76,6 +80,7 @@ import bisect
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -164,6 +169,37 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def ptxas_report(log: str, nt: int) -> list:
+    """One line per kernel of a `ptxas -v` log: its registers and spill
+    stores. Of a kernel templated on its key tiles (first template argument
+    an int: the attention kernels) only the instantiation for `nt` tiles."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            n = int(m.group(1))
+            base, rest = m.group(2)[:n], m.group(2)[n:]
+            args = re.match(r"I(.*?)E(E|v)", rest)
+            tiles = re.match(r"ILi(\d+)E", rest)
+            name = None if tiles and int(tiles.group(1)) != nt else base + (
+                "<%s>" % ",".join(re.findall(r"L[a-z](\d+)E", args.group(0)) or [args.group(1)])
+                if args else "")
+            spill = "?"
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {m.group(1)} registers, {spill} B spill stores"
+                       + (f", {smem.group(1)} B static shared memory" if smem else ""))
+            name = None
+    return out
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -709,13 +745,37 @@ def flash_bound_ms(kind, b, s, heads) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
-def library_flash_bwd(q, k, v, do):
-    """SDPA's autograd backward on (B, H, S, Dh) copies of q, k, v
-    (yardstick only): returns a function that runs the backward alone."""
-    leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+def library_flash_bwd(q, k, v, do, dtype=None):
+    """SDPA's autograd backward on (B, H, S, Dh) copies of q, k, v (in
+    `dtype`, default theirs; yardstick only): returns a function that runs
+    the backward alone, and the forward's output."""
+    leaves = [t.transpose(1, 2).to(dtype or t.dtype).contiguous().requires_grad_(True)
+              for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves)
-    dot = do.transpose(1, 2).contiguous()
-    return lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)
+    dot = do.transpose(1, 2).to(dtype or do.dtype).contiguous()
+    return (lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)), out.detach()
+
+
+def check_same_fn_yardstick(q, k, v, do):
+    """SDPA on fp32 copies of q, k, v (P and dS in fp32, the Pallas body's
+    function, outputs left in fp32): its mean error against float64 beside
+    the plain twin's on the same fp32 inputs, so a bf16 P or TF32 inside it
+    shows. Returns (forward, backward) functions to time, the copies made
+    outside them."""
+    from vit2spn_tpu_torch.ops import flash_attention as fa
+
+    copies = [t.transpose(1, 2).float().contiguous() for t in (q, k, v)]
+    bwd, out = library_flash_bwd(q, k, v, do, torch.float32)
+    got = (out, *bwd())
+    ref64 = attention_fp64(q, k, v, do)
+    f32 = [t.float() for t in (q, k, v, do)]
+    twin = (fa.flash_attention_plain(*f32[:3]), *fa.flash_attention_bwd_plain(*f32))
+    errs = [f"{n} {mean_rel64(a.transpose(1, 2), c):.4g}/{mean_rel64(b, c):.4g}"
+            for n, a, b, c in zip(("o", "dq", "dk", "dv"), got, twin, ref64)]
+    log(f"[library-same-fn] SDPA on fp32 copies, B={q.shape[0]} S={q.shape[1]}: mean error "
+        f"vs float64, SDPA / the plain twin on the same fp32 copies: {', '.join(errs)} "
+        "(yardstick only; TF32 or a bf16 P would put SDPA far above the twin)")
+    return (lambda: F.scaled_dot_product_attention(*copies)), bwd
 
 
 def main() -> int:
@@ -748,19 +808,20 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
+    cfg = replace(get_preset("ssp"), pretrained_init=False)
+    vit = cfg.vit
+
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     libs = cuda_build.build_all(fb.KERNEL_NAMES)
     build_s = time.perf_counter() - t0
     log(f"[build] {', '.join(fb.KERNEL_NAMES)} in {build_s:.2f} s (in parallel)")
+    nt = (vit.seq_len + 15) // 16 * 2  # the attention kernels' key tiles at S
     for name, lib in libs.items():
-        for line in open(f"{lib}.log"):
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {name}: {line.strip()}")
+        for line in ptxas_report(open(f"{lib}.log").read(), nt):
+            log(f"[build]   {name}: {line}")
 
     # -- 3. forward kernel vs plain twin at the serving shapes -----------------
-    cfg = replace(get_preset("ssp"), pretrained_init=False)
-    vit = cfg.vit
     layers, d, heads, mlp, s = (vit.num_layers, vit.hidden_size, vit.num_heads,
                                 vit.mlp_dim, vit.seq_len)
     eps = vit.layernorm_eps
@@ -900,6 +961,15 @@ def main() -> int:
         errs = check_flash(f"B={b_} S={s_} H={h_} {str(dt)[6:]}",
                            *flash_operands(gen, b_, s_, h_, dt, dev))
         flash_err = {k: max(v, errs[k]) for k, v in flash_err.items()}
+    runs = [fa.flash_bwd(*flash_operands(torch.Generator().manual_seed(SEED), TRAIN_BATCH, s,
+                                         heads, torch.bfloat16, dev)) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    log(f"[determinism] two flash backward runs, B={TRAIN_BATCH} bf16: dq, dk, dv bitwise "
+        f"equal {same}")
+    if not all(same):
+        raise AssertionError("the flash backward is not deterministic")
+    del runs
 
     # -- 6. the one-layer forward kernel vs its plain twin ---------------------
     layer_err = 0.0
@@ -1038,67 +1108,72 @@ def main() -> int:
         "replaces": "vit2spn_tpu/ops/fused_block.py:694",
         "launches": train_launches[KERNEL_NAME], "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms,
+        "bound_by": bound_by, "library_ms": library_ms, "library_same_fn_ms": None,
     }]
     # the new kernels at their paths' shapes: B=128, bf16
     q, k, v, do = flash_operands(gen, TRAIN_BATCH, s, heads, torch.bfloat16, dev)
     w0 = tuple(t[0] for t in wt)
+    same_fn = check_same_fn_yardstick(q, k, v, do)
     merged_lib = (lambda: library_attn_half(
         xb, library_mlp_half(x2b, gb, wl, eps)[0].to(xb.dtype), wl, heads, eps))
     timed = (
         # name, source, replaces, (ms, "operations" | "bytes", flops), CUDA launches,
         # max_abs_err, kernel, plain twin, library yardstick (never called by the port)
+        # and, where the library call keeps P and dS in fp32, that one
         ("mlp_bwd", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342",
          bwd_bound_ms("mlp", TRAIN_BATCH, s, d, heads, mlp, wl),
          fb.cuda_launches("mlp_bwd"), bwd_err["mlp_bwd"],
          lambda: fb.mlp_bwd(xb, gb, wl, eps, fast),
          lambda: fb.mlp_bwd_plain(xb, gb, wl, eps, fast),
-         lambda: library_mlp_half(xb, gb, wl, eps)),
+         lambda: library_mlp_half(xb, gb, wl, eps), None),
         ("attn_bwd", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357",
          bwd_bound_ms("attn", TRAIN_BATCH, s, d, heads, mlp, wl),
          fb.cuda_launches("attn_bwd"), bwd_err["attn_bwd"],
          lambda: fb.attn_bwd(xb, gb, wl, heads, eps),
          lambda: fb.attn_bwd_plain(xb, gb, wl, heads, eps),
-         lambda: library_attn_half(xb, gb, wl, heads, eps)),
+         lambda: library_attn_half(xb, gb, wl, heads, eps), None),
         ("merged_bwd", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
          bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl),
          fb.cuda_launches("merged_bwd"), merged_err,
          lambda: fb.merged_bwd(xb, x2b, gb, wl, heads, eps, fast),
-         lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast), merged_lib),
+         lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast), merged_lib, None),
         ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
          backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w0, acts=3),
          fb.cuda_launches("layer_fwd"), layer_err,
          lambda: fb.layer_fwd(xb, w0, heads, eps, fast),
          lambda: fb.layer_forward_plain(xb, w0, heads, eps, fast),
-         lambda: library_backbone(xb, tuple(t[:1] for t in wt), heads, eps)),
+         lambda: library_backbone(xb, tuple(t[:1] for t in wt), heads, eps), None),
         ("flash_fwd", "flash_attention.cu", "vit2spn_tpu/ops/flash_attention.py:36",
          flash_bound_ms("fwd", TRAIN_BATCH, s, heads), fb.cuda_launches("flash_fwd", fa.KERNEL_NAME),
          flash_err["flash_fwd"], lambda: fa.flash_fwd(q, k, v),
          lambda: fa.flash_attention_plain(q, k, v),
-         lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))),
+         lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v))),
+         same_fn[0]),
         ("flash_bwd", "flash_attention.cu", "vit2spn_tpu/ops/flash_attention.py:53",
          flash_bound_ms("bwd", TRAIN_BATCH, s, heads), fb.cuda_launches("flash_bwd", fa.KERNEL_NAME),
          flash_err["flash_bwd"], lambda: fa.flash_bwd(q, k, v, do),
          lambda: fa.flash_attention_bwd_plain(q, k, v, do),
-         library_flash_bwd(q, k, v, do)),
+         library_flash_bwd(q, k, v, do)[0], same_fn[1]),
     )
     # mlp_bwd / attn_bwd: their counts on the "fused" path, as before
     launches = {**path_launches, **{k: n for k, n in train_launches.items() if n}}
-    for name, src, replaces, bound, n_cuda, err, kernel, twin, library in timed:
+    for name, src, replaces, bound, n_cuda, err, kernel, twin, library, same in timed:
         b_ms, b_by, b_flops = bound
         k_ms = time_ms(kernel)
         p_ms = time_ms(twin, iters=5, warmup=1)
         with torch.no_grad() if name in ("layer_fwd", "flash_fwd") else torch.enable_grad():
             l_ms = time_ms(library)
+            s_ms = time_ms(same) if same else None
         log(f"[time] {name} B={TRAIN_BATCH}: kernel {k_ms:.4f} ms ({n_cuda} CUDA launches), "
-            f"plain twin {p_ms:.3f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}; {b_flops / 1e9:.2f} GFLOP), kernel at "
-            f"{b_flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            f"plain twin {p_ms:.3f} ms, library {l_ms:.4f} ms"
+            + (f" (fp32, the same function: {s_ms:.4f} ms)" if same else "")
+            + f", bound {b_ms:.4f} ms ({b_by}; {b_flops / 1e9:.2f} GFLOP), kernel at "
+            f"{b_flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the bound")
         entries.append({
             "name": name, "route": "cuda", "source": f"vit2spn_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms,
+            "library_ms": l_ms, "library_same_fn_ms": s_ms,
         })
 
     trainer_s = SSPTrainer(cfg, logger=quiet, device="cuda")

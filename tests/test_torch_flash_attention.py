@@ -6,6 +6,8 @@ On the CPU the wrappers run the kernels' plain twins; the CUDA kernels
 (csrc/flash_attention.cu) are held against the twins on the card by
 chip_smoke.py. Inputs come from numpy with a seed and go to both sides."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -159,8 +161,75 @@ def test_kernel_input_checks():
     with pytest.raises(ValueError, match="side by side"):
         x = torch.zeros((2, 2, 9, 64), dtype=torch.bfloat16).transpose(1, 2)
         fa._check_flash_inputs(x, x, x)
+    # token rows 68 elements apart: 8-byte aligned, enough for fp32 only
+    x = torch.zeros((2, 9, 1, 68))[..., :64]
+    fa._check_flash_inputs(x, x, x)
+    with pytest.raises(ValueError, match="rows 16-byte aligned"):
+        x = torch.zeros((2, 9, 1, 68), dtype=torch.bfloat16)[..., :64]
+        fa._check_flash_inputs(x, x, x)
     m = torch.zeros((1, 5, 1, 64), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_fwd(m, m, m)
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_bwd(m, m, m, m)
+
+
+def _terms(x, mode):
+    """x as the bf16 kernels feed an fp32 operand to the tensor cores: two
+    bf16 terms hi = bf16(x), lo = bf16(x - hi) ("split"), or one ("bf16")."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi, (x - hi).to(torch.bfloat16).float()] if mode == "split" else [hi]
+
+
+def _emulate(q, k, v, do, mode):
+    """`flash_attention_plain` and `flash_attention_bwd_plain` with P and dS
+    entering P v, P^T dO, dS k and dS^T q as `_terms(., mode)`, each term's
+    product summed in fp32. Returns (o, dq, dk, dv) in bf16."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = fa._probs(q, k)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+
+    def prod(eq, x, y):
+        return sum(torch.einsum(eq, t, y) for t in _terms(x, mode))
+
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    out = (prod("bhqk,bkhd->bqhd", p, vf), prod("bhqk,bkhd->bqhd", ds, kf) * scale,
+           prod("bhqk,bqhd->bkhd", ds, qf) * scale, prod("bhqk,bqhd->bkhd", p, dof))
+    return tuple(t.to(torch.bfloat16) for t in out)
+
+
+def _attention_f64(q, k, v, do):
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    return (torch.einsum("bhqk,bkhd->bqhd", p, v), torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale, torch.einsum("bhqk,bqhd->bkhd", p, do))
+
+
+def _mean_errors(got, ref):
+    """Mean |got - ref| over the largest |ref|, per output."""
+    return [float((a.double() - r).abs().mean() / r.abs().max()) for a, r in zip(got, ref)]
+
+
+def test_two_term_split_of_p_and_ds_keeps_the_fp32_function():
+    """The premise of the bf16 CUDA kernels (csrc/flash_attention.cu): P and
+    dS fed to the tensor cores as two bf16 terms leave o, dq, dk, dv as close
+    to float64 as the fp32 twins (mean error within 1.05x theirs, the ratio
+    chip_smoke.py holds the kernels to), while one bf16 term of each, the
+    fused block's attention, lands further away than that ratio allows."""
+    rng = np.random.default_rng(6)
+    shape = (2, 197, 3, 64)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    do = torch.from_numpy(0.1 * rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+    ref = _attention_f64(q, k, v, do)
+    twin = _mean_errors((fa.flash_attention_plain(q, k, v),
+                         *fa.flash_attention_bwd_plain(q, k, v, do)), ref)
+    split = _mean_errors(_emulate(q, k, v, do, "split"), ref)
+    one = _mean_errors(_emulate(q, k, v, do, "bf16"), ref)
+    for name, e_t, e_s, e_1 in zip(("o", "dq", "dk", "dv"), twin, split, one):
+        assert e_s <= 1.05 * e_t, (name, e_s, e_t)
+        assert e_1 > 1.05 * e_t, (name, e_1, e_t)

@@ -17,71 +17,12 @@
 
 #define DH 64
 #define AB_WARPS 8
-#define AB_LD (DH + 8)  // bf16 elements per staged row
+#define AB_LD TILE_LD  // bf16 elements per staged row (the tile helpers' stride)
 #define AB_MAX_S 256
 
 static size_t attention_bwd_smem(int S) {
   const int sp = (S + 15) / 16 * 16;
   return (size_t)4 * sp * AB_LD * sizeof(bf16) + (size_t)3 * sp * sizeof(float);
-}
-
-// c (16 x 8) = A (16 x 64, fragments a[4][4]) times the 8 staged rows at
-// `rows` (64 columns each), transposed: each row is one column of the result
-__device__ __forceinline__ void mma_rows_t(float c[4], const uint32_t a[4][4],
-                                           const bf16* rows, int lane) {
-  uint32_t kb[2][4];
-  const bf16* p = rows + (size_t)(lane & 7) * AB_LD + (lane >> 3) * 8;
-  ldmatrix_x4(kb[0], p);
-  ldmatrix_x4(kb[1], p + 32);
-  c[0] = c[1] = c[2] = c[3] = 0.0f;
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks)
-    mma_bf16(c, a[ks], kb[ks >> 1][(ks & 1) * 2], kb[ks >> 1][(ks & 1) * 2 + 1]);
-}
-
-// the 16 staged rows at `rows` (64 columns) as A operand fragments
-__device__ __forceinline__ void load_a_rows(uint32_t a[4][4], const bf16* rows, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks)
-    ldmatrix_x4(a[ks], rows + (size_t)(lane & 15) * AB_LD + ks * 16 + (lane >> 4) * 8);
-}
-
-// acc (16 x 64) += a (16 x 16) times the 16 staged rows at `rows` (64
-// columns), read as the B operand [row][column]
-__device__ __forceinline__ void mma_rows(float acc[8][4], const uint32_t a[4],
-                                         const bf16* rows, int lane) {
-  const bf16* p = rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * AB_LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int np = 0; np < DH / 16; ++np) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, p + np * 16);
-    mma_bf16(acc[2 * np], a, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-  }
-}
-
-// two 16 x 8 fp32 tiles side by side as one 16 x 16 bf16 A operand
-__device__ __forceinline__ void pack_a(uint32_t a[4], const float x0[4], const float x1[4]) {
-  a[0] = pack_f32(x0[0], x0[1]);
-  a[1] = pack_f32(x0[2], x0[3]);
-  a[2] = pack_f32(x1[0], x1[1]);
-  a[3] = pack_f32(x1[2], x1[3]);
-}
-
-// rows r and r + 8 of a 16 x 64 fp32 tile, times `mul`, as bf16 into `out`
-// (row stride ld); rows >= S are not written
-__device__ __forceinline__ void store_rows(bf16* out, size_t ld, const float acc[8][4],
-                                           float mul, int r0, int S, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-    if (r0 + g < S)
-      *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g) * ld + n * 8 + 2 * t) =
-          pack_f32(acc[n][0] * mul, acc[n][1] * mul);
-    if (r0 + g + 8 < S)
-      *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g + 8) * ld + n * 8 + 2 * t) =
-          pack_f32(acc[n][2] * mul, acc[n][3] * mul);
-  }
 }
 
 __global__ void __launch_bounds__(AB_WARPS * 32)

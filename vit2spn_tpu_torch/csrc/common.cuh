@@ -1,8 +1,9 @@
 // Building blocks shared by the port's Hopper kernels (sm_90a): warp
-// reductions, the gelu forms, LayerNorm forward and backward, the mma.sync
-// GEMM with its fused epilogues, and the fixed-order reduction of per-block
-// partial sums. Each csrc/<name>.cu includes this header and compiles into its
-// own shared library with a plain C interface.
+// reductions, the gelu forms, LayerNorm forward and backward, mma.sync on
+// staged attention tiles, the mma.sync GEMM with its fused epilogues, and the
+// fixed-order reduction of per-block partial sums. Each csrc/<name>.cu
+// includes this header and compiles into its own shared library with a plain
+// C interface.
 //
 // Numerics follow vit2spn_tpu/ops/fused_block.py: bf16 GEMM operands with
 // fp32 accumulation, fp32 LayerNorm statistics, the A&S erf and the fast cdf
@@ -104,11 +105,20 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
+// 4-byte asynchronous copy global -> shared; `pred` false fills zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 __device__ __forceinline__ void cp_async_wait_stages() {  // all but the newest
   asm volatile("cp.async.wait_group %0;\n" ::"n"(GEMM_STAGES - 2));
+}
+__device__ __forceinline__ void cp_async_wait_all() {  // every copy this thread issued
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
@@ -133,6 +143,14 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the transpose of an 8 x 8 bf16 matrix held one pair per lane (lane 4g + t:
+// row g, columns 2t and 2t + 1), in the same layout
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
@@ -147,6 +165,75 @@ __device__ __forceinline__ float bf16_round(float v) {
 
 __device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync on attention tiles: rows of 64 bf16 staged in shared memory
+// TILE_LD elements apart (conflict-free ldmatrix), fp32 C tiles of 16 x 8
+// (lane 4g + t holds rows g and g + 8, columns 2t and 2t + 1)
+// ---------------------------------------------------------------------------
+
+#define TILE_DH 64
+#define TILE_LD (TILE_DH + 8)
+
+// c (16 x 8) = A (16 x 64, fragments a[4][4]) times the 8 staged rows at
+// `rows` (64 columns each), transposed: each row is one column of the result
+__device__ __forceinline__ void mma_rows_t(float c[4], const uint32_t a[4][4],
+                                           const bf16* rows, int lane) {
+  uint32_t kb[2][4];
+  const bf16* p = rows + (size_t)(lane & 7) * TILE_LD + (lane >> 3) * 8;
+  ldmatrix_x4(kb[0], p);
+  ldmatrix_x4(kb[1], p + 32);
+  c[0] = c[1] = c[2] = c[3] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < TILE_DH / 16; ++ks)
+    mma_bf16(c, a[ks], kb[ks >> 1][(ks & 1) * 2], kb[ks >> 1][(ks & 1) * 2 + 1]);
+}
+
+// the 16 staged rows at `rows` (64 columns) as A operand fragments
+__device__ __forceinline__ void load_a_rows(uint32_t a[4][4], const bf16* rows, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < TILE_DH / 16; ++ks)
+    ldmatrix_x4(a[ks], rows + (size_t)(lane & 15) * TILE_LD + ks * 16 + (lane >> 4) * 8);
+}
+
+// acc (16 x 64) += a (16 x 16) times the 16 staged rows at `rows` (64
+// columns), read as the B operand [row][column]
+__device__ __forceinline__ void mma_rows(float acc[8][4], const uint32_t a[4],
+                                         const bf16* rows, int lane) {
+  const bf16* p =
+      rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * TILE_LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < TILE_DH / 16; ++np) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, p + np * 16);
+    mma_bf16(acc[2 * np], a, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// two 16 x 8 fp32 tiles side by side as one 16 x 16 bf16 A operand
+__device__ __forceinline__ void pack_a(uint32_t a[4], const float x0[4], const float x1[4]) {
+  a[0] = pack_f32(x0[0], x0[1]);
+  a[1] = pack_f32(x0[2], x0[3]);
+  a[2] = pack_f32(x1[0], x1[1]);
+  a[3] = pack_f32(x1[2], x1[3]);
+}
+
+// rows r and r + 8 of a 16 x 64 fp32 tile, times `mul`, as bf16 into `out`
+// (row stride ld); rows >= S are not written
+__device__ __forceinline__ void store_rows(bf16* out, size_t ld, const float acc[8][4],
+                                           float mul, int r0, int S, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < TILE_DH / 8; ++n) {
+    if (r0 + g < S)
+      *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g) * ld + n * 8 + 2 * t) =
+          pack_f32(acc[n][0] * mul, acc[n][1] * mul);
+    if (r0 + g + 8 < S)
+      *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g + 8) * ld + n * 8 + 2 * t) =
+          pack_f32(acc[n][2] * mul, acc[n][3] * mul);
+  }
 }
 
 // ---------------------------------------------------------------------------

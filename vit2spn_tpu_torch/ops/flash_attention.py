@@ -13,7 +13,10 @@ and from the fused block's attention. Per kernel three pieces:
   * the plain twins `flash_attention_plain` (forward) and
     `flash_attention_bwd_plain` (dq, dk, dv), plain fp32 PyTorch;
   * the CUDA kernels in csrc/flash_attention.cu (one forward launch, two
-    backward launches), built on first use (ops/cuda_build.py);
+    backward launches), built on first use (ops/cuda_build.py): for bf16
+    inputs on the tensor cores, P and dS entering their products as two
+    bf16 terms (hi + lo, the fp32 value to about 2^-17); for fp32 inputs on
+    the CUDA cores;
   * the wrappers `flash_fwd` and `flash_bwd`: the plain twin for CPU
     tensors, the kernel for CUDA tensors (bf16 or fp32; anything else
     raises), counting launches in `.launches` under the profiler range
@@ -99,9 +102,11 @@ def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
     if ds != 1 or (h > 1 and hs != dh) or ts < h * dh or (b > 1 and bs < s * ts):
         raise ValueError("flash attention kernel needs each token's heads side by side "
                          f"(strides (*, >= {h * dh}, {dh}, 1)), got {q.stride()}")
-    if ts % 2 or bs % 2 or any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash attention kernel needs 16-byte aligned tensors with "
-                         "even strides")
+    # each row starts on 16 bytes for the bf16 kernels' cp.async, on 8 for fp32
+    align = 2 if q.dtype == torch.float32 else 8
+    if ts % align or (b > 1 and bs % align) or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash attention kernel needs 16-byte aligned tensors with rows "
+                         f"{q.element_size() * align}-byte aligned")
 
 
 def _flash_args(q: torch.Tensor):
