@@ -10,12 +10,15 @@ script exits non-zero without printing a result:
   2. the build of every kernel from csrc/ (one nvcc per source, all started
      together), with seconds and the compiler's registers, spill stores and
      static shared memory per kernel (of the attention kernels templated on
-     S, the instantiation for S = 197; their shared memory is dynamic);
+     S, the instantiation for S = 197; their shared memory is dynamic), and
+     the dynamic shared memory of the forward layer's three kernels at
+     S = 197;
   3. the backbone-forward kernel against its plain PyTorch twin on the card,
      at the shapes the serving path gives it (ViT-Tiny: L=12, D=192, 3 heads,
      mlp 768, S=197, B=256, bf16), both gelu forms and both emit_res
      settings, and at a few other shapes it takes (ragged batches, short and
-     256-token sequences, the ViT-Small and ViT-Base widths);
+     256-token sequences, D = 256, the widest layer kept in one block, and
+     the ViT-Small and ViT-Base widths, which take the five-launch layer);
   4. the two backward kernels (one layer's MLP half and attention half)
      against their plain twins at the training shape (ViT-Tiny, B=128), both
      gelu forms, dx and every weight gradient, and as close to an fp32
@@ -64,7 +67,8 @@ script exits non-zero without printing a result:
      their torch autograd for the backward kernels; for the flash kernels
      also SDPA on fp32 copies, which keeps P and dS in fp32, with its error
      against float64) and the least time the card could take for the same
-     work; extract images/s; the "fused"
+     work; the backbone forward's device time by CUDA kernel (stage) beside
+     the library yardstick's, at B=256; extract images/s; the "fused"
      optimizer step's images/s, and from torch.profiler its device time by
      kernel wrapper (each wrapper's `vit2spn::<name>` range) and by CUDA
      kernel.
@@ -173,8 +177,9 @@ def card_line() -> str:
 
 def ptxas_report(log: str, nt: int) -> list:
     """One line per kernel of a `ptxas -v` log: its registers and spill
-    stores. Of a kernel templated on its key tiles (first template argument
-    an int: the attention kernels) only the instantiation for `nt` tiles."""
+    stores. Of a kernel templated on its key tiles (the attention kernels:
+    a name with "attention" or "flash" and an int first template argument)
+    only the instantiation for `nt` tiles."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function '_Z(\d+)(\w+)'", line)
@@ -182,7 +187,7 @@ def ptxas_report(log: str, nt: int) -> list:
             n = int(m.group(1))
             base, rest = m.group(2)[:n], m.group(2)[n:]
             args = re.match(r"I(.*?)E(E|v)", rest)
-            tiles = re.match(r"ILi(\d+)E", rest)
+            tiles = re.match(r"ILi(\d+)E", rest) if re.search("attention|flash", base) else None
             name = None if tiles and int(tiles.group(1)) != nt else base + (
                 "<%s>" % ",".join(re.findall(r"L[a-z](\d+)E", args.group(0)) or [args.group(1)])
                 if args else "")
@@ -820,6 +825,11 @@ def main() -> int:
     for name, lib in libs.items():
         for line in ptxas_report(open(f"{lib}.log").read(), nt):
             log(f"[build]   {name}: {line}")
+    # the forward layer's kernels take their shared memory at launch
+    smem = {k: fb.layer_fwd_smem_bytes(vit.seq_len, vit.hidden_size, k)
+            for k in ("ln_qkv", "attention", "mlp")}
+    log(f"[build]   layer_fwd / backbone_fwd dynamic shared memory per block at S="
+        f"{vit.seq_len}, D={vit.hidden_size}: {smem} B")
 
     # -- 3. forward kernel vs plain twin at the serving shapes -----------------
     layers, d, heads, mlp, s = (vit.num_layers, vit.hidden_size, vit.num_heads,
@@ -858,10 +868,12 @@ def main() -> int:
             if not err_k <= KERNEL_VS_FP32_RATIO * err_p:
                 raise AssertionError("kernel is less accurate than its plain twin")
         del ref32
-    # other shapes the kernel takes: ragged M, S < 16 and S = 256, the
-    # ViT-Small and ViT-Base widths (1-2 layers, so the same bounds hold)
+    # other shapes the kernel takes: ragged M, S < 16 and S = 256, D = 256
+    # (the widest layer kept in one block), the ViT-Small and ViT-Base widths
+    # (the five-launch layer); 1-2 layers, so the same bounds hold
     for b_, s_, d_, h_, m_, l_ in ((3, 5, 192, 3, 768, 2), (2, 50, 384, 6, 1536, 2),
-                                   (1, 256, 192, 3, 768, 1), (5, 17, 768, 12, 3072, 1)):
+                                   (1, 256, 192, 3, 768, 1), (5, 17, 768, 12, 3072, 1),
+                                   (2, 40, 256, 4, 1024, 1)):
         wt_ = random_backbone(gen, l_, d_, m_, dev)
         x_ = torch.randn(b_, s_, d_, generator=gen).to(torch.bfloat16).to(dev)
         got = fused_backbone(x_, wt_, h_, eps, True).float()
@@ -1020,7 +1032,7 @@ def main() -> int:
     extract_s = time.perf_counter() - t0
     extract_launches = read_launches()
     log(f"[extract] {feats.shape} features, {extract_launches[KERNEL_NAME]} backbone kernel "
-        f"launches ({extract_launches[KERNEL_NAME] * layers * kernel_launches_per_layer()} "
+        f"launches ({extract_launches[KERNEL_NAME] * layers * kernel_launches_per_layer(d)} "
         f"CUDA kernel launches), {extract_s:.3f} s, {N_IMAGES / extract_s:.1f} img/s")
     if extract_launches[KERNEL_NAME] <= 0:
         raise AssertionError("the serving path never launched the backbone kernel")
@@ -1095,13 +1107,19 @@ def main() -> int:
     bound_ms, bound_by, flops = backbone_bound_ms(BATCH, s, d, heads, mlp,
                                                   layers, wt)
     log(f"[time] backbone forward B={BATCH}: kernel {kernel_ms:.3f} ms "
-        f"({kernel_ms / (layers * kernel_launches_per_layer()):.4f} ms per CUDA "
-        f"launch, {layers * kernel_launches_per_layer()} launches), plain twin "
+        f"({kernel_ms / (layers * kernel_launches_per_layer(d)):.4f} ms per CUDA "
+        f"launch, {layers * kernel_launches_per_layer(d)} launches), plain twin "
         f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}; {flops / 1e9:.1f} GFLOP), kernel at "
         f"{flops / (kernel_ms * 1e-3) / 1e12:.1f} TFLOP/s")
-    for line in stage_breakdown(lambda: fused_backbone(x, wt, heads, eps, fast)):
+    # by stage, the kernel's and the library yardstick's, one after the other
+    for line in stage_breakdown(lambda: fused_backbone(x, wt, heads, eps, fast),
+                                "kernel: one backbone forward"):
         log(line)
+    with torch.no_grad():
+        for line in stage_breakdown(lambda: library_backbone(x, wt, heads, eps),
+                                    "library yardstick: one backbone forward"):
+            log(line)
     entries = [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "vit2spn_tpu_torch/csrc/backbone_fwd.cu",
@@ -1139,7 +1157,7 @@ def main() -> int:
          lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast), merged_lib, None),
         ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
          backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w0, acts=3),
-         fb.cuda_launches("layer_fwd"), layer_err,
+         fb.cuda_launches("layer_fwd", None, d), layer_err,
          lambda: fb.layer_fwd(xb, w0, heads, eps, fast),
          lambda: fb.layer_forward_plain(xb, w0, heads, eps, fast),
          lambda: library_backbone(xb, tuple(t[:1] for t in wt), heads, eps), None),

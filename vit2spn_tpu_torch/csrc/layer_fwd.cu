@@ -9,24 +9,19 @@
 // of _backbone_fwd_kernel.
 //
 // So this source runs the layer code of csrc/layer_fwd.cuh once, the code
-// csrc/backbone_fwd.cu runs for every layer: seven launches (LayerNorm, the
-// QKV GEMM, attention, the Wo GEMM with the residual, LayerNorm, the W1 GEMM
-// with gelu, the W2 GEMM with the residual) on the caller's stream, and a
-// loop of these calls gives the backbone kernel's output bit for bit. x2 is
-// written as bf16 by the Wo GEMM's epilogue, as the backbone writes its x2s
-// stack.
-//
-// What bounds it on this card: operations, as for the backbone: one layer over
-// one image is 204 MFLOP of tensor-core work against ~0.15 MB of activations
-// in and out (26.1 GFLOP at B = 128, 26 us at 989 TFLOP/s). Limits: head_dim
-// 64, S <= 256, D <= 768, D and mlp multiples of 64.
+// csrc/backbone_fwd.cu runs for every layer (the header says what bounds it
+// and why it is built as it is): three launches for D <= 256 (LN1 + QKV, attention, Wo through
+// W2), five above, on the caller's stream; a loop of these calls gives the
+// backbone kernel's output bit for bit. x2 is written as bf16 by the same
+// epilogue that writes the backbone's x2s stack. Limits: head_dim 64, S <=
+// 256, D <= 768, D and mlp multiples of 64.
 
 #include "layer_fwd.cuh"
 
 // x, out: (B * S, D) bf16; x2 (optional): (B * S, D) bf16; weights as one
 // layer's slices of the stacked arrays. Scratch as launch_layer's: qkv_buf
-// (B * S + QKV_PAD_ROWS rows of 3 D, the pad rows zeroed here), att_buf, x2_buf
-// (fp32) and g_buf.
+// (B * S + QKV_PAD_ROWS rows of 3 D, the pad rows zeroed here), att_buf, and
+// above FUSED_MLP_MAX_D x2_buf (fp32) and g_buf (null below it).
 extern "C" int vit2spn_layer_fwd(
     const void* x, void* out, void* x2,
     const void* ln1_scale, const void* ln1_bias, const void* wqkv, const void* bqkv,
@@ -39,13 +34,34 @@ extern "C" int vit2spn_layer_fwd(
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
                        ln2_scale, ln2_bias, w1, b1, w2, b2};
   bf16* qkv = static_cast<bf16*>(qkv_buf);
+  bf16* att = static_cast<bf16*>(att_buf);
+  bf16* g = static_cast<bf16*>(g_buf);
+  LayerMaps maps;
+  LAUNCH(layer_maps(&maps, w, 1, D, MLP, B * S, static_cast<const bf16*>(x),
+                    static_cast<const bf16*>(out), qkv, att, g));
   LAUNCH(zero_qkv_pad(qkv, B * S, D, st));
   return launch_layer(static_cast<const bf16*>(x), static_cast<bf16*>(out), nullptr,
-                      static_cast<bf16*>(x2), layer_weights(w, 0, D, MLP), qkv,
-                      static_cast<bf16*>(att_buf), static_cast<float*>(x2_buf),
-                      static_cast<bf16*>(g_buf), B, S, D, H, MLP, eps, fast_gelu, st);
+                      static_cast<bf16*>(x2), layer_weights(w, 0, D, MLP), maps, 0, qkv, att,
+                      static_cast<float*>(x2_buf), g, B, S, D, H, MLP, eps, fast_gelu, st);
 }
 
 extern "C" int vit2spn_layer_fwd_qkv_pad_rows() { return QKV_PAD_ROWS; }
 
-extern "C" int vit2spn_layer_fwd_launches() { return LAUNCHES_PER_LAYER; }
+extern "C" int vit2spn_layer_fwd_launches(int D) { return launches_per_layer(D); }
+
+// dynamic shared memory per block of kernel 0 (LN1 + QKV), 1 (attention at
+// S) or 2 (Wo through W2; above FUSED_MLP_MAX_D the largest of its three
+// row-block GEMMs)
+extern "C" int vit2spn_layer_fwd_smem_bytes(int S, int D, int kernel) {
+  if (kernel == 0)
+    return D <= FUSED_MLP_MAX_D ? rb_smem_bytes<QKV_WG, QKV_NT, A_LN_BF16, EPI_BIAS>(D)
+                                : rb_smem_bytes<1, QKV_NT, A_LN_BF16, EPI_BIAS>(D);
+  if (kernel == 1) return attention_smem_bytes(S);
+  switch (D) {
+    case 64: return MlpTile<64>::SMEM;
+    case 128: return MlpTile<128>::SMEM;
+    case 192: return MlpTile<192>::SMEM;
+    case 256: return MlpTile<256>::SMEM;
+    default: return rb_smem_bytes<1, 64, A_LN_F32, EPI_GELU>(D);
+  }
+}

@@ -62,6 +62,9 @@ KERNEL_NAME = "backbone_fwd"
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_SEQ = 256
 KERNEL_MAX_D = 768
+# widest D whose layer keeps x2, y2 and g inside one block (csrc/layer_fwd.cuh
+# FUSED_MLP_MAX_D); above it the layer passes fp32 x2 and g through scratch
+FUSED_MLP_MAX_D = 256
 
 
 def fast_gelu_default() -> bool:
@@ -436,7 +439,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 _SIGNATURES = {
     KERNEL_NAME: {
         "vit2spn_backbone_fwd": ([_P] * 20 + [_I] * 6 + [_F, _I, _P], _I),
-        "vit2spn_backbone_fwd_launches_per_layer": ([], _I),
+        "vit2spn_backbone_fwd_launches_per_layer": ([_I], _I),
         "vit2spn_backbone_fwd_qkv_pad_rows": ([], _I),
     },
     "mlp_bwd": {
@@ -452,7 +455,8 @@ _SIGNATURES = {
     "layer_fwd": {
         "vit2spn_layer_fwd": ([_P] * 19 + [_I] * 5 + [_F, _I, _P], _I),
         "vit2spn_layer_fwd_qkv_pad_rows": ([], _I),
-        "vit2spn_layer_fwd_launches": ([], _I),
+        "vit2spn_layer_fwd_launches": ([_I], _I),
+        "vit2spn_layer_fwd_smem_bytes": ([_I] * 3, _I),
     },
     "merged_bwd": {
         "vit2spn_merged_bwd": ([_P] * 37 + [_I] * 5 + [_F, _I, _P], _I),
@@ -497,18 +501,42 @@ def _stream(dev: torch.device):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def kernel_launches_per_layer() -> int:
-    """CUDA kernel launches one backbone forward layer costs (builds if
-    needed)."""
-    return _load(KERNEL_NAME).vit2spn_backbone_fwd_launches_per_layer()
-
-
-def cuda_launches(name: str, lib: Optional[str] = None) -> int:
-    """CUDA kernel launches one call of the `name` wrapper costs (one layer
-    of `layer_fwd`, `mlp_bwd`, `attn_bwd`, `merged_bwd`; one attention of
-    `flash_fwd`, `flash_bwd`), from the library of csrc/<lib or name>.cu
+def kernel_launches_per_layer(d: int) -> int:
+    """CUDA kernel launches one backbone forward layer of width `d` costs
     (builds if needed)."""
-    return getattr(_load(lib or name), f"vit2spn_{name}_launches")()
+    return _load(KERNEL_NAME).vit2spn_backbone_fwd_launches_per_layer(d)
+
+
+def cuda_launches(name: str, lib: Optional[str] = None, *args: int) -> int:
+    """CUDA kernel launches one call of the `name` wrapper costs (one layer
+    of `layer_fwd`, which takes the width D in `args`, `mlp_bwd`, `attn_bwd`,
+    `merged_bwd`; one attention of `flash_fwd`, `flash_bwd`), from the
+    library of csrc/<lib or name>.cu (builds if needed)."""
+    return getattr(_load(lib or name), f"vit2spn_{name}_launches")(*args)
+
+
+def layer_fwd_smem_bytes(s: int, d: int, kernel: str) -> int:
+    """Dynamic shared memory per block of one of the forward layer's kernels
+    ("ln_qkv", "attention", "mlp") at sequence length s and width d (builds
+    if needed)."""
+    which = ("ln_qkv", "attention", "mlp").index(kernel)
+    return _load("layer_fwd").vit2spn_layer_fwd_smem_bytes(s, d, which)
+
+
+def _layer_scratch(m: int, d: int, mlp: int, pad: int, dev) -> tuple:
+    """The forward layer's scratch: qkv (with `pad` rows the kernel zeroes:
+    attention reads 16-row steps), att, and above FUSED_MLP_MAX_D the fp32
+    x2 and g that the layer then passes through device memory (else None)."""
+    qkv = torch.empty((m + pad, 3 * d), dtype=torch.bfloat16, device=dev)
+    att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    if d <= FUSED_MLP_MAX_D:
+        return qkv, att, None, None
+    return (qkv, att, torch.empty((m, d), dtype=torch.float32, device=dev),
+            torch.empty((m, mlp), dtype=torch.bfloat16, device=dev))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
@@ -523,19 +551,12 @@ def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
     if emit_res:
         xs = torch.empty((layers, b, s, d), dtype=x.dtype, device=dev)
         x2s = torch.empty((layers, b, s, d), dtype=x.dtype, device=dev)
-    # attention reads 16-row steps: the kernel zeroes these pad rows
-    pad = lib.vit2spn_backbone_fwd_qkv_pad_rows()
-    qkv = torch.empty((m + pad, 3 * d), dtype=torch.bfloat16, device=dev)
-    att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
-    x2 = torch.empty((m, d), dtype=torch.float32, device=dev)
-    g = torch.empty((m, mlp), dtype=torch.bfloat16, device=dev)
+    qkv, att, x2, g = _layer_scratch(m, d, mlp, lib.vit2spn_backbone_fwd_qkv_pad_rows(), dev)
     with torch.cuda.device(dev), torch.profiler.record_function(f"vit2spn::{KERNEL_NAME}"):
         rc = lib.vit2spn_backbone_fwd(
-            x.data_ptr(), out.data_ptr(),
-            xs.data_ptr() if emit_res else None,
-            x2s.data_ptr() if emit_res else None,
+            x.data_ptr(), out.data_ptr(), _ptr(xs), _ptr(x2s),
             *[t.data_ptr() for t in weights],
-            qkv.data_ptr(), att.data_ptr(), x2.data_ptr(), g.data_ptr(),
+            qkv.data_ptr(), att.data_ptr(), _ptr(x2), _ptr(g),
             b, s, d, heads, mlp, layers, float(eps), int(bool(fast_gelu)),
             _stream(dev),
         )
@@ -769,17 +790,12 @@ def layer_fwd(x: torch.Tensor, weights: Tuple, heads: int, eps: float, fast_gelu
     dev = x.device
     out = torch.empty_like(x)
     x2 = torch.empty_like(x) if emit_x2 else None
-    # attention reads 16-row steps: the kernel zeroes these pad rows
-    qkv = torch.empty((m + lib.vit2spn_layer_fwd_qkv_pad_rows(), 3 * d),
-                      dtype=torch.bfloat16, device=dev)
-    att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
-    x2f = torch.empty((m, d), dtype=torch.float32, device=dev)
-    g = torch.empty((m, mlp), dtype=torch.bfloat16, device=dev)
+    qkv, att, x2f, g = _layer_scratch(m, d, mlp, lib.vit2spn_layer_fwd_qkv_pad_rows(), dev)
     with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::layer_fwd"):
         rc = lib.vit2spn_layer_fwd(
-            x.data_ptr(), out.data_ptr(), x2.data_ptr() if emit_x2 else None,
+            x.data_ptr(), out.data_ptr(), _ptr(x2),
             *[t.data_ptr() for t in weights],
-            qkv.data_ptr(), att.data_ptr(), x2f.data_ptr(), g.data_ptr(),
+            qkv.data_ptr(), att.data_ptr(), _ptr(x2f), _ptr(g),
             b, s, d, heads, mlp, float(eps), int(bool(fast_gelu)), _stream(dev),
         )
     _raise_on(lib, rc, "layer forward")
