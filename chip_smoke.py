@@ -22,12 +22,13 @@ script exits non-zero without printing a result:
   4. the two backward kernels (one layer's MLP half and attention half)
      against their plain twins at the training shape (ViT-Tiny, B=128), both
      gelu forms, dx and every weight gradient, and as close to an fp32
-     backward as the twins are; at ragged B, S = 5, 17 and 256 and the
-     ViT-Small width; the forward kernel at the training shape (B=128,
-     emit_res) against its twin, as in phase 3; the 12-layer backward
-     through the autograd Function against `backbone_backward_plain` on that
-     forward's residuals; two backward runs giving the same weight-gradient
-     bits;
+     backward as the twins are; at S = 5, 17 and 256, a ragged B at S = 197,
+     D = 256 and 128 (mlp 320), and the ViT-Small width; two runs of each
+     half giving the same bits; the forward kernel at the training shape
+     (B=128, emit_res) against its twin, as in phase 3; the 12-layer
+     backward through the autograd Function against
+     `backbone_backward_plain` on that forward's residuals; two backward
+     runs giving the same weight-gradient bits;
   5. the fp32-inside attention kernels (flash forward and backward) against
      their plain twins: o, dq, dk, dv at the training shape (B=128) and the
      serving shape (B=256), at S = 5, 17 and 256, a ragged B, and with fp32
@@ -40,20 +41,31 @@ script exits non-zero without printing a result:
   7. the merged layer backward against the split kernels (the share of equal
      bits) and its twin at B=128, both gelu forms, dx and all 12 weight
      gradients; two runs giving the same weight-gradient bits;
+  7b. the fp32 routes of the five fused kernels (compute_dtype=float32)
+     against their fp32 twins and against the same twins run in float64: one
+     layer of each at B=128 and at the ViT-Small width, the 12-layer forward
+     at B=256 (both emit_res settings), the 12-layer backward through the
+     Function at B=32; and a launch the C side refuses raises;
   8. the serving path end to end: SSPTrainer on the dual-stream `ssp` preset
      (random init from the seed) runs extract_features over 1024 synthetic
      28 px images at batch 256, through attn_impl "fused", then "pallas" and
      "fused_layer". The launch counters are set to 0 just before each run
      and read just after: only that path's forward kernel ran; the features
      must be finite, (1024, 128), and agree with the same path run through
-     the plain twin;
+     the plain twin; then under compute_dtype=float32 through "fused" (the
+     fp32 backbone kernel only) against the fp32 plain path;
   9. the training path end to end: `fit` of the `ssp` preset (full width and
      depth, 8 microbatches of 128, bf16) over 4096 synthetic 28 px images,
      four optimizer steps, with the counters set to 0 just before and read
      just after: finite losses, 32 forward launches and 192 launches of each
      backward kernel per step; and step 1 against the same step run with
      attn_impl="plain" from the same state (loss, Adam's first moments, the
-     updated params);
+     updated params); under compute_dtype=float32, step 1 of "fused" against
+     "plain" and one step each of "fused", "fused_layer" and merged "fused"
+     with the counters read around it (the fp32 kernels' launches); an
+     SSPTrainer with VIT2SPN_VIT_TINY_PATH at an HF-named .npz written from
+     seeded random weights records "pretrained" and holds the file's weights
+     on the card;
  10. the other backbone paths end to end, at the same width and depth: for
      "pallas", "fused_layer" and "fused" with VIT2SPN_MERGED_BWD=1, step 1
      against a reference path from the same state ("xla", "fused", the
@@ -67,8 +79,10 @@ script exits non-zero without printing a result:
      their torch autograd for the backward kernels; for the flash kernels
      also SDPA on fp32 copies, which keeps P and dS in fp32, with its error
      against float64) and the least time the card could take for the same
-     work; the backbone forward's device time by CUDA kernel (stage) beside
-     the library yardstick's, at B=256; extract images/s; the "fused"
+     work, for the bf16 kernels and the fp32 routes; the backbone forward's
+     device time by CUDA kernel (stage) beside the library yardstick's, at
+     B=256; the two backward halves' by stage at B=128; extract images/s;
+     the "fused"
      optimizer step's images/s, and from torch.profiler its device time by
      kernel wrapper (each wrapper's `vit2spn::<name>` range) and by CUDA
      kernel.
@@ -93,8 +107,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# H100 SXM published peaks (dense): bf16 tensor-core rate and HBM3 rate
+# H100 SXM published peaks (dense): bf16 tensor-core rate, fp32 outside the
+# tensor cores (the fp32 routes' rate), and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 SEED = 0
@@ -161,6 +177,25 @@ FLASH_TOL = {torch.bfloat16: (1e-2, 1e-4), torch.float32: (1e-5, 1e-6)}
 # sit at fp32 roundoff of sums taken in other orders, so the kernel's mean
 # error must stay under 1e-6 of the output's largest magnitude.
 FLASH_FP32_VS_FP64_TOL = 1e-6
+# The fp32 routes (compute_dtype=float32) vs their fp32 twins: every
+# rounding point is the identity, so the two differ by float32 sums taken in
+# other orders: the largest difference may be 1e-4 of the output's largest
+# magnitude for one layer, 1e-3 through 12 layers (forward and backward);
+# against the same function in float64 (the twins run in float64) the
+# kernel's mean error may be at most 5% above the twin's plus 1e-6 of the
+# largest magnitude, where both sit at fp32 roundoff.
+FP32_TOL = 1e-4
+FP32_TOL_12 = 1e-3
+FP32_VS_FP64_SLACK = 1e-6
+# Served features through the fp32 kernels vs the fp32 plain path: fp32
+# roundoff through 12 layers and the heads, within 1e-4 of the features'
+# largest magnitude.
+FP32_FEATURE_REL_TOL = 1e-4
+FP32_IMAGES = 1024  # one fp32 optimizer step of 8 x 128 per fp32 path
+# The pretrained init on the card: a weight file of the HF layout written
+# from seeded random weights (no checkpoint is in the repository).
+PRETRAINED_SEED = 7
+STAGE_CALLS = 10  # calls per traced run of a backward half's stage breakdown
 
 
 def log(msg: str) -> None:
@@ -261,18 +296,19 @@ def library_backbone(x, wt, heads, eps):
 
 
 def backbone_bound_ms(b, s, d, heads, mlp, layers, wt, acts=2) -> tuple:
-    """Least time for one backbone forward: FLOPs over the bf16 peak vs the
-    bytes of its inputs (x, weights) read once and its outputs written once
-    (`acts` bf16 (B, S, D) activations in all: x and out, and x2 for the
-    one-layer forward) over the memory rate. Returns (ms, "operations" |
-    "bytes", flops)."""
+    """Least time for one backbone forward: FLOPs over the peak of the
+    weights' type (bf16 tensor cores, or fp32) vs the bytes of its inputs
+    (x, weights) read once and its outputs written once (`acts` (B, S, D)
+    activations in all: x and out, and x2 for the one-layer forward) over
+    the memory rate. Returns (ms, "operations" | "bytes", flops)."""
     per_layer = (2 * s * d * 3 * d          # QKV
                  + 2 * 2 * s * s * d        # scores and P.V over all heads
                  + 2 * s * d * d            # Wo
                  + 2 * 2 * s * d * mlp)     # W1, W2
     flops = b * layers * per_layer
-    nbytes = acts * b * s * d * 2 + sum(t.numel() * t.element_size() for t in wt)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    width = wt[2].element_size()
+    nbytes = acts * b * s * d * width + sum(t.numel() * t.element_size() for t in wt)
+    t_ops, t_bytes = flops / peak_flops(wt[2].dtype), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
@@ -382,6 +418,76 @@ def check_layer_bwd(tag, fb, x, dy, w, heads, eps, fast, against_fp32):
     return worst
 
 
+def check_fp32_layer(tag, fb, x, x2, dy, w, heads, eps, fast, tol=FP32_TOL) -> dict:
+    """The fp32 routes of the four one-layer kernels (layer_fwd, mlp_bwd,
+    attn_bwd, merged_bwd) against their fp32 twins (largest difference
+    within `tol` of each output's largest magnitude) and against the same
+    twins run in float64 (mean error at most 5% above the fp32 twin's, plus
+    FP32_VS_FP64_SLACK). x, x2, dy fp32; w one layer's weights by name.
+    Returns each kernel's largest absolute difference from its twin."""
+    w32 = {n: t.float() for n, t in w.items()}
+    w64 = {n: t.double() for n, t in w.items()}
+    x64, x264, dy64 = x.double(), x2.double(), dy.double()
+    wt32 = tuple(w32[n] for n in fb.WEIGHT_NAMES)
+    wt64 = tuple(w64[n] for n in fb.WEIGHT_NAMES)
+
+    def flat(out, names):
+        return [out[0], *[out[1][n] for n in names]]
+
+    cases = (
+        ("layer_fwd", ("out", "x2"),
+         lambda: fb.layer_fwd(x, wt32, heads, eps, fast),
+         lambda: fb.layer_forward_plain(x, wt32, heads, eps, fast),
+         lambda: fb.layer_forward_plain(x64, wt64, heads, eps, fast)),
+        ("mlp_bwd", ("dx2",) + fb.MLP_NAMES,
+         lambda: flat(fb.mlp_bwd(x2, dy, w32, eps, fast), fb.MLP_NAMES),
+         lambda: flat(fb.mlp_bwd_plain(x2, dy, w32, eps, fast), fb.MLP_NAMES),
+         lambda: flat(fb.mlp_bwd_plain(x264, dy64, w64, eps, fast), fb.MLP_NAMES)),
+        ("attn_bwd", ("dx",) + fb.ATTN_NAMES,
+         lambda: flat(fb.attn_bwd(x, dy, w32, heads, eps), fb.ATTN_NAMES),
+         lambda: flat(fb.attn_bwd_plain(x, dy, w32, heads, eps), fb.ATTN_NAMES),
+         lambda: flat(fb.attn_bwd_plain(x64, dy64, w64, heads, eps), fb.ATTN_NAMES)),
+        ("merged_bwd", ("dx",) + fb.WEIGHT_NAMES,
+         lambda: flat(fb.merged_bwd(x, x2, dy, w32, heads, eps, fast), fb.WEIGHT_NAMES),
+         lambda: flat(fb.merged_bwd_plain(x, x2, dy, w32, heads, eps, fast), fb.WEIGHT_NAMES),
+         lambda: flat(fb.merged_bwd_plain(x64, x264, dy64, w64, heads, eps, fast),
+                      fb.WEIGHT_NAMES)),
+    )
+    worst = {}
+    for name, names, kernel, twin, ref64 in cases:
+        before = getattr(fb, name).launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if getattr(fb, name).launches != before + 1:
+            raise AssertionError(f"{name} fp32 did not launch its kernel ({tag})")
+        worst[name] = check_fp32_outputs(f"{name}-fp32", tag, names, got, twin(), ref64(), tol)
+    return worst
+
+
+def check_fp32_outputs(what, tag, names, got, ref, ref64, tol) -> float:
+    """fp32 outputs against the fp32 twin's and the float64 twin's (see
+    check_fp32_layer). Returns the largest absolute difference."""
+    worst, worst_rel, ratio = 0.0, 0.0, 0.0
+    for n, a, b, c in zip(names, got, ref, ref64):
+        if a.dtype != torch.float32:
+            raise AssertionError(f"{what} gave {n} in {a.dtype} ({tag})")
+        mx_rel = rel_err(a, b)[0]
+        if not mx_rel <= tol:
+            raise AssertionError(f"{what} disagrees with its fp32 twin ({tag}, {n}: "
+                                 f"{mx_rel:.3g} of the largest magnitude, tol {tol})")
+        e_k, e_t = mean_rel64(a, c.double()), mean_rel64(b, c.double())
+        if not e_k <= KERNEL_VS_FP32_RATIO * e_t + FP32_VS_FP64_SLACK:
+            raise AssertionError(f"{what} is less accurate than its fp32 twin against float64 "
+                                 f"({tag}, {n}: {e_k:.3g} vs {e_t:.3g})")
+        worst = max(worst, float((a - b).abs().max()))
+        worst_rel = max(worst_rel, mx_rel)
+        ratio = max(ratio, e_k / e_t if e_t else 0.0)
+    log(f"[{what}-vs-plain] {tag}: largest relative difference {worst_rel:.3g} over "
+        f"{len(names)} outputs (tol {tol}); mean error vs float64 at most {ratio:.3f}x the "
+        f"fp32 twin's (tol {KERNEL_VS_FP32_RATIO}x + {FP32_VS_FP64_SLACK})")
+    return worst
+
+
 def layer_weights(names, wt):
     """Layer 0 of stacked block weights, by name."""
     return {n: t[0] for n, t in zip(names, wt)}
@@ -415,6 +521,10 @@ def library_attn_half(x, dx2, w, heads, eps):
     return torch.autograd.grad(out, leaves, dx2)
 
 
+def peak_flops(dtype) -> float:
+    return PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+
+
 def bwd_bound_ms(kind, b, s, d, heads, mlp, w) -> tuple:
     """Least time for one layer's backward half ("mlp", "attn") or whole
     backward ("merged") at batch b: the FLOPs the function needs (the
@@ -428,9 +538,9 @@ def bwd_bound_ms(kind, b, s, d, heads, mlp, w) -> tuple:
         attn_flops = bwd_bound_ms("attn", b, s, d, heads, mlp, w)[2]
         flops = mlp_flops + attn_flops
         grads = sum(t.numel() for t in w.values())
-        nbytes = (4 * b * s * d * 2 + sum(t.numel() * t.element_size() for t in w.values())
-                  + 4 * grads)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        nbytes = (4 * b * s * d * w["w1"].element_size()
+                  + sum(t.numel() * t.element_size() for t in w.values()) + 4 * grads)
+        t_ops, t_bytes = flops / peak_flops(w["w1"].dtype), nbytes / PEAK_BYTES
         return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
     if kind == "mlp":
         names = ("ln2_scale", "ln2_bias", "w1", "b1", "w2")
@@ -443,9 +553,9 @@ def bwd_bound_ms(kind, b, s, d, heads, mlp, w) -> tuple:
         # Q K^T and P V (recompute), dP, dV, dQ, dK
         flops = b * (3 * 2 * s * d * 3 * d + 2 * 2 * s * d * d + 6 * 2 * s * s * d)
         grads = 2 * d + 3 * d * d + 3 * d + d * d + d
-    nbytes = (3 * b * s * d * 2 + sum(w[n].numel() * w[n].element_size() for n in names)
-              + 4 * grads)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    nbytes = (3 * b * s * d * w[names[2]].element_size()
+              + sum(w[n].numel() * w[n].element_size() for n in names) + 4 * grads)
+    t_ops, t_bytes = flops / peak_flops(w[names[2]].dtype), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
@@ -622,7 +732,8 @@ def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False))
         torch.cuda.empty_cache()
     os.environ["VIT2SPN_MERGED_BWD"] = "0"
     (lf, before, af), (lp, before_p, ap) = out
-    names = [f"{impl}{' merged' if merged else ''}" for impl, merged in (path, ref)]
+    tag = " fp32" if cfg.compute_dtype == "float32" else ""
+    names = [f"{impl}{' merged' if merged else ''}{tag}" for impl, merged in (path, ref)]
     assert all(np.array_equal(before[k], before_p[k]) for k in before)
     if not (np.isfinite(lf) and abs(lf - lp) <= STEP_LOSS_REL_TOL * abs(lp)):
         raise AssertionError(f"step 1 loss: {names[0]} {lf} vs {names[1]} {lp}")
@@ -659,6 +770,70 @@ def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False))
         raise AssertionError(f"step 1 updated params of {names[0]} disagree with {names[1]}")
 
 
+def check_pretrained_init(cfg, dev) -> None:
+    """SSPTrainer with pretrained_init and $VIT2SPN_VIT_TINY_PATH at an .npz
+    of HF-named ViT-Tiny weights this script writes from a seeded random
+    backbone (no checkpoint is in the repository): the trainer must record
+    "pretrained" and start every online and target backbone on the card from
+    the file's weights, exactly."""
+    import tempfile
+
+    from vit2spn_tpu_torch.models import hf_convert
+    from vit2spn_tpu_torch.models.vit import init_vit
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    def numpy_tree(t):
+        return ({k: numpy_tree(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.detach().cpu().numpy())
+
+    params = numpy_tree(init_vit(torch.Generator().manual_seed(PRETRAINED_SEED), cfg.vit,
+                                 device="cpu"))
+    state = hf_convert.convert_to_hf_state_dict(params, cfg.vit)
+    want = hf_convert.convert_hf_state_dict(state, cfg.vit)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "vit_tiny.npz")
+        np.savez(path, **state)
+        old = os.environ.get("VIT2SPN_VIT_TINY_PATH")
+        os.environ["VIT2SPN_VIT_TINY_PATH"] = path
+        try:
+            tr = SSPTrainer(replace_cfg(cfg, pretrained_init=True),
+                            logger=MetricLogger(echo=False), device="cuda")
+        finally:
+            if old is None:
+                del os.environ["VIT2SPN_VIT_TINY_PATH"]
+            else:
+                os.environ["VIT2SPN_VIT_TINY_PATH"] = old
+    n_leaves = 0
+    for net_name, net in (("online", tr.params.online), ("target", tr.params.target)):
+        got = numpy_tree(net)
+
+        def walk(g, w, key):
+            nonlocal n_leaves
+            if isinstance(w, dict):
+                for k in w:
+                    walk(g[k], w[k], f"{key}/{k}")
+                return
+            for i in range(g.shape[0]):  # every stream
+                if not np.array_equal(g[i], w):
+                    raise AssertionError(f"pretrained init: {net_name}{key} differs from the "
+                                         "weight file")
+            n_leaves += 1
+
+        walk(got, want, "")
+    if tr.init_provenance != "pretrained" or tr.params.online["blocks"]["w1"].device != dev:
+        raise AssertionError(f"pretrained init: provenance {tr.init_provenance!r}")
+    log(f"[pretrained] SSPTrainer with VIT2SPN_VIT_TINY_PATH at an HF-named .npz (seed "
+        f"{PRETRAINED_SEED}): init_provenance {tr.init_provenance!r}; {n_leaves} backbone "
+        f"leaves of the online and target nets on {dev} equal the file's bit for bit")
+
+
+def replace_cfg(cfg, **kw):
+    from vit2spn_tpu_torch.core.config import replace
+
+    return replace(cfg, **kw)
+
+
 def fit_path(tcfg, tds, impl, merged, per_step) -> tuple:
     """`fit` of one epoch over `tds` through one backbone path, with the
     launch counters set to 0 just before and read just after; every counter
@@ -678,7 +853,7 @@ def fit_path(tcfg, tds, impl, merged, per_step) -> tuple:
     launches = read_launches()
     eff = tcfg.effective_batch
     n_steps = len(tds) // eff
-    name = f"{impl}{' merged' if merged else ''}"
+    name = f"{impl}{' merged' if merged else ''}{' fp32' if tcfg.compute_dtype == 'float32' else ''}"
     log(f"[train] {name}: fit of {n_steps} optimizer steps of {eff} images in {fit_s:.2f} s "
         f"({len(tds) / fit_s:.1f} img/s, first step included); epoch loss "
         f"{history[0]:.6f}; launches {launches}")
@@ -711,11 +886,14 @@ def time_steps(trainer, eff, name, card, wrappers, rest, reps=3) -> float:
     return step_s
 
 
-def extract_path(trainer, ds, impl, feats_plain, want) -> np.ndarray:
+def extract_path(trainer, ds, impl, feats_plain, want, tol=FEATURE_REL_TOL,
+                 what=None) -> np.ndarray:
     """extract_features through one backbone path, with the launch counters
     set to 0 just before and read just after: the kernels in `want` must
     have run and no other; the features must be finite and agree with the
-    plain path's. Returns the features."""
+    plain path's within `tol` of their largest magnitude. Returns the
+    features."""
+    what = what or impl
     trainer.attn_impl = impl
     reset_launches()
     t0 = time.perf_counter()
@@ -725,15 +903,15 @@ def extract_path(trainer, ds, impl, feats_plain, want) -> np.ndarray:
     launches = {k: n for k, n in read_launches().items() if n}
     scale = float(np.abs(feats_plain).max())
     err = float(np.abs(feats - feats_plain).max())
-    log(f"[extract] {impl}: {feats.shape} features, launches {launches}, {extract_s:.3f} s, "
+    log(f"[extract] {what}: {feats.shape} features, launches {launches}, {extract_s:.3f} s, "
         f"{len(ds) / extract_s:.1f} img/s; vs plain max_abs_err {err:.6g} (max |plain| "
-        f"{scale:.4g}, tol {FEATURE_REL_TOL} relative)")
+        f"{scale:.4g}, tol {tol} relative)")
     if set(launches) != set(want):
-        raise AssertionError(f"extract through {impl} launched {launches}, expected {want}")
+        raise AssertionError(f"extract through {what} launched {launches}, expected {want}")
     if feats.shape != feats_plain.shape or not np.isfinite(feats).all():
-        raise AssertionError(f"bad features through {impl}: shape {feats.shape}")
-    if not err <= FEATURE_REL_TOL * scale:
-        raise AssertionError(f"features through {impl} disagree with the plain path")
+        raise AssertionError(f"bad features through {what}: shape {feats.shape}")
+    if not err <= tol * scale:
+        raise AssertionError(f"features through {what} disagree with the plain path")
     return feats
 
 
@@ -901,13 +1079,31 @@ def main() -> int:
         errs = check_layer_bwd(f"B={TRAIN_BATCH} S={s} D={d} fast_gelu={fast}", fb, xb,
                                gb, wl, heads, eps, fast, against_fp32=True)
         bwd_err = {k: max(v, errs[k]) for k, v in bwd_err.items()}
-    for b_, s_, d_, h_, m_ in ((3, 5, 192, 3, 768), (2, 17, 192, 3, 768),
-                               (1, 256, 192, 3, 768), (5, 50, 384, 6, 1536)):
+    # other shapes: S < 16, S = 17 and 256, a ragged B at S = 197, D = 256
+    # (the widest of the wgmma route) and 128 with mlp 320 (its 64-column
+    # tiles), and the ViT-Small width (the mma.sync sequence above D = 256);
+    # both gelu forms
+    for b_, s_, d_, h_, m_, f_ in ((3, 5, 192, 3, 768, True), (2, 17, 192, 3, 768, False),
+                                   (1, 256, 192, 3, 768, True), (7, 197, 192, 3, 768, False),
+                                   (2, 40, 256, 4, 1024, True), (3, 9, 128, 2, 320, False),
+                                   (5, 50, 384, 6, 1536, True)):
         w_ = layer_weights(fb.WEIGHT_NAMES, random_backbone(gen, 1, d_, m_, dev))
         x_ = torch.randn(b_, s_, d_, generator=gen).to(torch.bfloat16).to(dev)
         g_ = (0.1 * torch.randn(b_, s_, d_, generator=gen)).to(torch.bfloat16).to(dev)
-        check_layer_bwd(f"B={b_} S={s_} D={d_} heads={h_} mlp={m_}", fb, x_, g_, w_,
-                        h_, eps, True, against_fp32=False)
+        check_layer_bwd(f"B={b_} S={s_} D={d_} heads={h_} mlp={m_} fast_gelu={f_}", fb, x_,
+                        g_, w_, h_, eps, f_, against_fp32=False)
+    # two runs of each half at the training shape: the same weight-gradient bits
+    runs = [(fb.mlp_bwd(x2_, gb, wl, eps, True), fb.attn_bwd(xb, gb, wl, heads, eps))
+            for x2_ in (xb, xb)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(runs[0][0][1][n], runs[1][0][1][n]) for n in fb.MLP_NAMES) and all(
+        torch.equal(runs[0][1][1][n], runs[1][1][1][n]) for n in fb.ATTN_NAMES)
+    same_dx = all(torch.equal(runs[0][i][0], runs[1][i][0]) for i in range(2))
+    log(f"[determinism] two runs of mlp_bwd and attn_bwd, B={TRAIN_BATCH}: weight gradients "
+        f"bitwise equal {same}, dx2 / dx bitwise equal {same_dx}")
+    if not (same and same_dx):
+        raise AssertionError("the backward halves are not deterministic")
+    del runs
     # the 12-layer backward through the Function, and its determinism
     fast = fast_gelu_default()
     xg = xb.clone().requires_grad_(True)
@@ -1019,6 +1215,51 @@ def main() -> int:
         raise AssertionError("the merged backward is not deterministic")
     del runs
 
+    # -- 7b. the fp32 routes (compute_dtype=float32) vs their fp32 twins -------
+    fp32_err = check_fp32_layer(f"B={TRAIN_BATCH} S={s} D={d}", fb, xb.float(), x2b.float(),
+                                gb.float(), wl, heads, eps, True)
+    w_ = layer_weights(fb.WEIGHT_NAMES, random_backbone(gen, 1, 384, 1536, dev))
+    x_, x2_, g_ = (torch.randn(3, 17, 384, generator=gen).to(dev) for _ in range(3))
+    for k, v in check_fp32_layer("B=3 S=17 D=384 heads=6 mlp=1536", fb, x_, x2_, 0.1 * g_,
+                                 w_, 6, eps, False).items():
+        fp32_err[k] = max(fp32_err[k], v)
+    wt64 = tuple(t.double() for t in wt32)
+    x32 = x.float()
+    for emit in (False, True):
+        got = fused_backbone(x32, wt32, heads, eps, fast, emit)
+        torch.cuda.synchronize()
+        ref = backbone_forward_plain(x32, wt32, heads, eps, fast, emit)
+        ref64 = backbone_forward_plain(x32.double(), wt64, heads, eps, fast, emit)
+        got, ref, ref64 = ((t,) if not emit else t for t in (got, ref, ref64))
+        fp32_err["backbone_fwd"] = check_fp32_outputs(
+            "backbone_fwd-fp32", f"B={BATCH} L={layers} emit_res={emit}",
+            ("out", "xs", "x2s"), got, ref, ref64, FP32_TOL_12)
+    del ref64
+    # the 12-layer backward through the Function, fp32, against the twin's
+    b12 = 32
+    xg = x32[:b12].clone().requires_grad_(True)
+    wg = tuple(t.clone().requires_grad_(True) for t in wt32)
+    out = fused_backbone(xg, wg, heads, eps, fast)
+    g12 = 0.1 * torch.randn(out.shape, generator=gen).to(dev)
+    dx12, *dw12 = torch.autograd.grad(out, (xg, *wg), g12)
+    torch.cuda.synchronize()
+    _, xs12, x2s12 = backbone_forward_plain(x32[:b12], wt32, heads, eps, fast, True)
+    rdx, rdw = fb.backbone_backward_plain(xs12, x2s12, g12, wt32, heads, eps, fast)
+    _, xs64, x2s64 = backbone_forward_plain(x32[:b12].double(), wt64, heads, eps, fast, True)
+    rdx64, rdw64 = fb.backbone_backward_plain(xs64, x2s64, g12.double(), wt64, heads, eps, fast)
+    check_fp32_outputs("backward-12-layers-fp32", f"B={b12} L={layers}",
+                       ("dx",) + fb.WEIGHT_NAMES, [dx12, *dw12], [rdx, *rdw],
+                       [rdx64, *rdw64], FP32_TOL_12)
+    del xg, wg, dw12, xs12, x2s12, xs64, x2s64, rdw, rdw64
+    # a refused launch raises: the C entry point rejects M = 0 (no twin runs)
+    lib = fb._load("mlp_bwd")
+    rc = lib.vit2spn_mlp_bwd(*[None] * 19, 0, d, mlp, eps, 1, 1, None)
+    try:
+        fb._raise_on(lib, rc, "mlp backward")
+        raise AssertionError("a refused fp32 launch did not raise")
+    except RuntimeError as e:
+        log(f"[fp32] a refused launch raises: {e}")
+
     # -- 8. the serving path end to end, through each backbone path -----------
     ds = synthetic_dataset(split_sizes={"all": N_IMAGES}, image_size=28, seed=SEED)
     quiet = MetricLogger(echo=False)
@@ -1055,6 +1296,15 @@ def main() -> int:
     extract_path(trainer, ds, "fused_layer", feats_plain, ("layer_fwd",))
     del trainer
 
+    # -- 8b. serving under compute_dtype=float32, through the fp32 kernels -----
+    cfg32 = replace(cfg, compute_dtype="float32")
+    trainer32 = SSPTrainer(cfg32, logger=quiet, device="cuda")
+    trainer32.attn_impl = "plain"
+    feats32_plain, _ = trainer32.extract_features(ds, batch_size=BATCH)
+    extract_path(trainer32, ds, "fused", feats32_plain, (KERNEL_NAME,),
+                 tol=FP32_FEATURE_REL_TOL, what="fused fp32")
+    del trainer32
+
     # -- 9. the training path end to end ---------------------------------------
     tcfg = replace(cfg, batch_size=TRAIN_BATCH)
     eff = tcfg.effective_batch
@@ -1068,6 +1318,28 @@ def main() -> int:
     split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers}
     trainer, train_launches, _ = fit_path(tcfg, tds, "fused", False,
                                           {KERNEL_NAME: 2 * 2 * a, **split})
+
+    # -- 9b. training under compute_dtype=float32 through the fp32 kernels -----
+    # step 1 of "fused" against "plain" from the same state, then one step of
+    # each fused path with the counters read around it
+    tcfg32 = replace(tcfg, compute_dtype="float32")
+    fds = synthetic_dataset(split_sizes={"train": FP32_IMAGES}, image_size=28,
+                            seed=SEED + 2).split("train")
+    step_check(tcfg32, fds.images[:eff], tcfg32.learning_rate)
+    torch.cuda.empty_cache()
+    fp32_launches = {}
+    for impl, merged, per_step in (
+            ("fused", False, {KERNEL_NAME: 2 * 2 * a, **split}),
+            ("fused_layer", False, {"layer_fwd": 2 * 2 * a * layers, **split}),
+            ("fused", True, {KERNEL_NAME: 2 * 2 * a, "merged_bwd": 2 * a * layers})):
+        t32, launches32, _ = fit_path(tcfg32, fds, impl, merged, per_step)
+        fp32_launches.update({k: n for k, n in launches32.items() if n})
+        del t32
+        torch.cuda.empty_cache()
+    os.environ["VIT2SPN_MERGED_BWD"] = "0"
+
+    # -- 9c. the pretrained init from a local weight file -----------------------
+    check_pretrained_init(cfg, dev)
 
     # -- 10. the other backbone paths end to end -------------------------------
     pds = synthetic_dataset(split_sizes={"train": PATH_IMAGES}, image_size=28,
@@ -1127,6 +1399,7 @@ def main() -> int:
         "launches": train_launches[KERNEL_NAME], "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms, "library_same_fn_ms": None,
+        "dtype": "bfloat16",
     }]
     # the new kernels at their paths' shapes: B=128, bf16
     q, k, v, do = flash_operands(gen, TRAIN_BATCH, s, heads, torch.bfloat16, dev)
@@ -1140,24 +1413,24 @@ def main() -> int:
         # and, where the library call keeps P and dS in fp32, that one
         ("mlp_bwd", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342",
          bwd_bound_ms("mlp", TRAIN_BATCH, s, d, heads, mlp, wl),
-         fb.cuda_launches("mlp_bwd"), bwd_err["mlp_bwd"],
+         fb.cuda_launches("mlp_bwd", None, d, 0), bwd_err["mlp_bwd"],
          lambda: fb.mlp_bwd(xb, gb, wl, eps, fast),
          lambda: fb.mlp_bwd_plain(xb, gb, wl, eps, fast),
          lambda: library_mlp_half(xb, gb, wl, eps), None),
         ("attn_bwd", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357",
          bwd_bound_ms("attn", TRAIN_BATCH, s, d, heads, mlp, wl),
-         fb.cuda_launches("attn_bwd"), bwd_err["attn_bwd"],
+         fb.cuda_launches("attn_bwd", None, d, 0), bwd_err["attn_bwd"],
          lambda: fb.attn_bwd(xb, gb, wl, heads, eps),
          lambda: fb.attn_bwd_plain(xb, gb, wl, heads, eps),
          lambda: library_attn_half(xb, gb, wl, heads, eps), None),
         ("merged_bwd", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
          bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl),
-         fb.cuda_launches("merged_bwd"), merged_err,
+         fb.cuda_launches("merged_bwd", None, 0), merged_err,
          lambda: fb.merged_bwd(xb, x2b, gb, wl, heads, eps, fast),
          lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast), merged_lib, None),
         ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
          backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w0, acts=3),
-         fb.cuda_launches("layer_fwd", None, d), layer_err,
+         fb.cuda_launches("layer_fwd", None, d, 0), layer_err,
          lambda: fb.layer_fwd(xb, w0, heads, eps, fast),
          lambda: fb.layer_forward_plain(xb, w0, heads, eps, fast),
          lambda: library_backbone(xb, tuple(t[:1] for t in wt), heads, eps), None),
@@ -1173,16 +1446,58 @@ def main() -> int:
          lambda: fa.flash_attention_bwd_plain(q, k, v, do),
          library_flash_bwd(q, k, v, do)[0], same_fn[1]),
     )
-    # mlp_bwd / attn_bwd: their counts on the "fused" path, as before
-    launches = {**path_launches, **{k: n for k, n in train_launches.items() if n}}
+    # the fp32 routes (compute_dtype=float32) at the same shapes, the backbone
+    # at B=256; their launches are the fp32 training steps' (phase 9b)
+    x32, xb32, x2b32, gb32 = x.float(), xb.float(), x2b.float(), gb.float()
+    wl32 = {n: t.float() for n, t in wl.items()}
+    w032 = tuple(t.float() for t in w0)
+    timed += (
+        ("backbone_fwd (fp32)", "backbone_fwd.cu", "vit2spn_tpu/ops/fused_block.py:694",
+         backbone_bound_ms(BATCH, s, d, heads, mlp, layers, wt32),
+         layers * kernel_launches_per_layer(d, True), fp32_err["backbone_fwd"],
+         lambda: fused_backbone(x32, wt32, heads, eps, fast),
+         lambda: backbone_forward_plain(x32, wt32, heads, eps, fast),
+         lambda: library_backbone(x32, wt32, heads, eps), None),
+        ("mlp_bwd (fp32)", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342",
+         bwd_bound_ms("mlp", TRAIN_BATCH, s, d, heads, mlp, wl32),
+         fb.cuda_launches("mlp_bwd", None, d, 1), fp32_err["mlp_bwd"],
+         lambda: fb.mlp_bwd(xb32, gb32, wl32, eps, fast),
+         lambda: fb.mlp_bwd_plain(xb32, gb32, wl32, eps, fast),
+         lambda: library_mlp_half(xb32, gb32, wl32, eps), None),
+        ("attn_bwd (fp32)", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357",
+         bwd_bound_ms("attn", TRAIN_BATCH, s, d, heads, mlp, wl32),
+         fb.cuda_launches("attn_bwd", None, d, 1), fp32_err["attn_bwd"],
+         lambda: fb.attn_bwd(xb32, gb32, wl32, heads, eps),
+         lambda: fb.attn_bwd_plain(xb32, gb32, wl32, heads, eps),
+         lambda: library_attn_half(xb32, gb32, wl32, heads, eps), None),
+        ("merged_bwd (fp32)", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
+         bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl32),
+         fb.cuda_launches("merged_bwd", None, 1), fp32_err["merged_bwd"],
+         lambda: fb.merged_bwd(xb32, x2b32, gb32, wl32, heads, eps, fast),
+         lambda: fb.merged_bwd_plain(xb32, x2b32, gb32, wl32, heads, eps, fast),
+         lambda: library_attn_half(xb32, library_mlp_half(x2b32, gb32, wl32, eps)[0], wl32,
+                                   heads, eps), None),
+        ("layer_fwd (fp32)", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
+         backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w032, acts=3),
+         fb.cuda_launches("layer_fwd", None, d, 1), fp32_err["layer_fwd"],
+         lambda: fb.layer_fwd(xb32, w032, heads, eps, fast),
+         lambda: fb.layer_forward_plain(xb32, w032, heads, eps, fast),
+         lambda: library_backbone(xb32, tuple(t[:1] for t in wt32), heads, eps), None),
+    )
+    # mlp_bwd / attn_bwd: their counts on the "fused" path, as before; the
+    # fp32 routes' on the fp32 paths
+    launches = {**path_launches, **{k: n for k, n in train_launches.items() if n},
+                **{f"{k} (fp32)": n for k, n in fp32_launches.items()}}
     for name, src, replaces, bound, n_cuda, err, kernel, twin, library, same in timed:
         b_ms, b_by, b_flops = bound
         k_ms = time_ms(kernel)
         p_ms = time_ms(twin, iters=5, warmup=1)
-        with torch.no_grad() if name in ("layer_fwd", "flash_fwd") else torch.enable_grad():
+        forward = name.split()[0] in ("layer_fwd", "flash_fwd", KERNEL_NAME)
+        with torch.no_grad() if forward else torch.enable_grad():
             l_ms = time_ms(library)
             s_ms = time_ms(same) if same else None
-        log(f"[time] {name} B={TRAIN_BATCH}: kernel {k_ms:.4f} ms ({n_cuda} CUDA launches), "
+        batch = BATCH if name.startswith(KERNEL_NAME) else TRAIN_BATCH
+        log(f"[time] {name} B={batch}: kernel {k_ms:.4f} ms ({n_cuda} CUDA launches), "
             f"plain twin {p_ms:.3f} ms, library {l_ms:.4f} ms"
             + (f" (fp32, the same function: {s_ms:.4f} ms)" if same else "")
             + f", bound {b_ms:.4f} ms ({b_by}; {b_flops / 1e9:.2f} GFLOP), kernel at "
@@ -1192,7 +1507,16 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms, "library_same_fn_ms": s_ms,
+            "dtype": "float32" if name.endswith("(fp32)") else "bfloat16",
         })
+    # the two backward halves by stage (CUDA kernel), B=128, bf16, over
+    # STAGE_CALLS calls (the trace drops a call's first few launches)
+    for name, fn in (("mlp_bwd", lambda: fb.mlp_bwd(xb, gb, wl, eps, fast)),
+                     ("attn_bwd", lambda: fb.attn_bwd(xb, gb, wl, heads, eps))):
+        for line in stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)],
+                                    f"{name} B={TRAIN_BATCH} by stage, {STAGE_CALLS} calls",
+                                    top=8):
+            log(line)
 
     trainer_s = SSPTrainer(cfg, logger=quiet, device="cuda")
     torch.cuda.synchronize()

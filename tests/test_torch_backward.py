@@ -268,7 +268,15 @@ def test_backward_kernel_input_checks():
         fb._check_layer_inputs(x, x, w, fb.ATTN_NAMES, 4, out)
     with pytest.raises(ValueError, match="incoming gradient"):
         fb._check_layer_inputs(x, x.float(), w, fb.MLP_NAMES, None, out)
-    with pytest.raises(TypeError, match="bf16"):
+    # fp32 activations with fp32 weights take the kernels' fp32 route
+    # (compute_dtype=float32, as the Pallas bodies take any dtype); fp16, or
+    # fp32 activations with bf16 weights, are refused
+    w32 = {n: t.float() for n, t in w.items()}
+    fb._check_layer_inputs(x.float(), x.float(), w32, fb.MLP_NAMES, None, out)
+    fb._check_layer_inputs(x.float(), x.float(), w32, fb.ATTN_NAMES, 2, out)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        fb._check_layer_inputs(x.half(), x.half(), w, fb.MLP_NAMES, None, out)
+    with pytest.raises(TypeError, match="w1: expected torch.float32"):
         fb._check_layer_inputs(x.float(), x.float(), w, fb.MLP_NAMES, None, out)
     bad = dict(w, w2=w["w2"].float())
     with pytest.raises(TypeError, match="w2"):

@@ -238,7 +238,12 @@ def test_layer_kernel_input_checks():
     fb._check_kernel_inputs(x, wt, 2, stacked=False)
     with pytest.raises(ValueError, match="expected shape"):
         fb._check_kernel_inputs(x, wt, 2)  # stacked shapes expected
-    with pytest.raises(TypeError, match="bf16"):
+    # fp32 activations with fp32 weights: the fp32 route; fp16, or fp32
+    # activations with bf16 weights, are refused
+    fb._check_kernel_inputs(x.float(), tuple(t.float() for t in wt), 2, stacked=False)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        fb._check_kernel_inputs(x.half(), wt, 2, stacked=False)
+    with pytest.raises(TypeError, match="wqkv: expected torch.float32"):
         fb._check_kernel_inputs(x.float(), wt, 2, stacked=False)
     with pytest.raises(ValueError, match="head_dim"):
         fb._check_kernel_inputs(x, wt, 4, stacked=False)

@@ -9,14 +9,39 @@
 //   dS   = bf16(P * (dP - rowsum(dP * P)))     the row sum over all keys
 //   dQ   = dS k / sqrt(dh);  dK = dS^T q / sqrt(dh);  dqkv = bf16(dQ|dK|dV)
 //
-// See csrc/attn_bwd.cu for the design.
+// One block per (image, head) stages all of its Q, K, V and dO rows in
+// shared memory (4 x 208 x 72 bf16 = 120 KB at S = 197). Phase 1: each warp
+// takes 16 queries and computes their scores against every key once, into
+// registers (the kernel is instantiated per S rounded up to 16), then the
+// softmax statistics (row max, then the sum, as _attention) and P in place;
+// dP = dO V^T one 16-key chunk at a time for rowsum(dP * P) and the attention
+// output, then again for dS and dQ; it leaves the row statistics in shared
+// memory. Phase 2: each warp takes 16 keys and walks every query: it
+// recomputes P^T and dP^T for its keys, and accumulates dV and dK for them
+// in registers. Every sum over queries of a key's gradient stays inside one
+// warp, so nothing is added across blocks or by atomics and two runs give
+// the same bits. Keys >= S get probability exactly 0 and queries >= S are
+// masked out of dK and dV (the Pallas kernel's -1e30 key mask and qmask);
+// pad rows are never written.
+//
+// What bounds it: the tensor-core issue rate of one block of AB_WARPS warps
+// per SM (its shared memory admits one): 6 products of 2 S^2 64 per (image,
+// head) that the function needs, plus the recomputed scores (once in phase
+// 1, once in phase 2) and dP (twice in phase 1, once in phase 2). Holding
+// the scores in registers took phase 1 from four score passes to one (the
+// same sums in the same order, so the same bits).
 
 #pragma once
 
 #include "common.cuh"
 
 #define DH 64
-#define AB_WARPS 8
+#ifndef AB_WARPS
+// warps per (image, head) block: 16 queries, then 16 keys, each. 16 warps
+// (128 registers, some spills) beat 8 (255 registers): 0.166 against 0.203
+// ms at ViT-Tiny B=128 (tools/bwd_tile_sweep.py, PERF.md)
+#define AB_WARPS 16
+#endif
 #define AB_LD TILE_LD  // bf16 elements per staged row (the tile helpers' stride)
 #define AB_MAX_S 256
 
@@ -25,11 +50,15 @@ static size_t attention_bwd_smem(int S) {
   return (size_t)4 * sp * AB_LD * sizeof(bf16) + (size_t)3 * sp * sizeof(float);
 }
 
+// NT = SP / 8 key tiles: the kernel is instantiated per tile count so that a
+// warp's 16 x SP scores, then probabilities, stay in registers through phase
+// 1 (4 NT per lane), as the forward's attention_kernel keeps them.
+template <int NT>
 __global__ void __launch_bounds__(AB_WARPS * 32)
 attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
                      bf16* __restrict__ att, bf16* __restrict__ dqkv, int S, int D,
                      float scale) {
-  const int SP = (S + 15) / 16 * 16;
+  constexpr int SP = 8 * NT;
   extern __shared__ __align__(128) bf16 sm[];
   bf16* Qs = sm;
   bf16* Ks = Qs + SP * AB_LD;
@@ -71,58 +100,53 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
     uint32_t qa[4][4], oa[4][4];
     load_a_rows(qa, Qs + (size_t)q0 * AB_LD, lane);
     load_a_rows(oa, Os + (size_t)q0 * AB_LD, lane);
-    // scaled scores of key tile j (8 keys), keys >= S at -1e30
-    auto scores = [&](float s[4], int j) {
-      mma_rows_t(s, qa, Ks + (size_t)8 * j * AB_LD, lane);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[e] = (8 * j + 2 * t + (e & 1) < S) ? s[e] * scale : NEG_INF;
-    };
-    // rows g and g + 8: max, then the sum of exp(s - max), over the 4 lanes
-    // of a row group
+    // P of rows g and g + 8 against every key tile j, in registers: scaled
+    // scores (keys >= S at -1e30), the row max over the 4 lanes of a row
+    // group, exp(s - max), their sum, then the division
+    float p[NT][4];
     float mx[2] = {-3.0e38f, -3.0e38f}, den[2] = {0.0f, 0.0f}, dot[2] = {0.0f, 0.0f};
-    for (int j = 0; j < SP / 8; ++j) {
-      float s[4];
-      scores(s, j);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[e]);
+    for (int j = 0; j < NT; ++j) {
+      mma_rows_t(p[j], qa, Ks + (size_t)8 * j * AB_LD, lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[j][e] = (8 * j + 2 * t + (e & 1) < S) ? p[j][e] * scale : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], p[j][e]);
+      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     }
-    for (int j = 0; j < SP / 8; ++j) {
-      float s[4];
-      scores(s, j);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) den[e >> 1] += expf(s[e] - mx[e >> 1]);
-    }
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) den[e >> 1] += expf(p[j][e] - mx[e >> 1]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       den[r] += __shfl_xor_sync(0xffffffffu, den[r], 1);
       den[r] += __shfl_xor_sync(0xffffffffu, den[r], 2);
     }
-    // P and dP = dO V^T of key tile j
-    auto probs = [&](float p[4], float dp[4], int j) {
-      scores(p, j);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[e] = expf(p[e] - mx[e >> 1]) / den[e >> 1];
-      mma_rows_t(dp, oa, Vs + (size_t)8 * j * AB_LD, lane);
-    };
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] = expf(p[j][e] - mx[e >> 1]) / den[e >> 1];
     float acc[8][4];
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-    // rowsum(dP * P) and att = bf16(P) V, 16 keys at a time
-    for (int i = 0; i < SP / 16; ++i) {
-      float p[2][4], dp[2][4];
+    // rowsum(dP * P) with dP = dO V^T, and att = bf16(P) V, 16 keys at a time
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        probs(p[hh], dp[hh], 2 * i + hh);
+        float dp[4];
+        mma_rows_t(dp, oa, Vs + (size_t)8 * (2 * i + hh) * AB_LD, lane);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dot[e >> 1] += dp[hh][e] * p[hh][e];
+        for (int e = 0; e < 4; ++e) dot[e >> 1] += dp[e] * p[2 * i + hh][e];
       }
       uint32_t pa[4];
-      pack_a(pa, p[0], p[1]);
+      pack_a(pa, p[2 * i], p[2 * i + 1]);
       mma_rows(acc, pa, Vs + (size_t)16 * i * AB_LD, lane);
     }
 #pragma unroll
@@ -131,19 +155,20 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
       dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
     }
     store_rows(att + (size_t)b * S * D + h * DH, D, acc, 1.0f, q0, S, lane);
-    // dS = bf16(P * (dP - rowsum)), dQ = dS K
+    // dS = bf16(P * (dP - rowsum)), dP recomputed; dQ = dS K
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-    for (int i = 0; i < SP / 16; ++i) {
-      float p[2][4], dp[2][4];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) {
+      float ds[2][4];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        probs(p[hh], dp[hh], 2 * i + hh);
+        mma_rows_t(ds[hh], oa, Vs + (size_t)8 * (2 * i + hh) * AB_LD, lane);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) p[hh][e] *= dp[hh][e] - dot[e >> 1];
+        for (int e = 0; e < 4; ++e) ds[hh][e] = p[2 * i + hh][e] * (ds[hh][e] - dot[e >> 1]);
       }
       uint32_t da[4];
-      pack_a(da, p[0], p[1]);
+      pack_a(da, ds[0], ds[1]);
       mma_rows(acc, da, Ks + (size_t)16 * i * AB_LD, lane);
     }
     store_rows(dqkv + (size_t)b * S * ld + h * DH, ld, acc, scale, q0, S, lane);
@@ -199,11 +224,23 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
 static int launch_attention_bwd(const bf16* qkv, const bf16* datt, bf16* att, bf16* dqkv,
                                 int B, int S, int H, int D, cudaStream_t st) {
   const size_t smem = attention_bwd_smem(S);
-  cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  attention_bwd_kernel<<<dim3(H, B), AB_WARPS * 32, smem, st>>>(
-      qkv, datt, att, dqkv, S, D, 1.0f / sqrtf((float)DH));
+  const dim3 grid(H, B);
+  const float scale = 1.0f / sqrtf((float)DH);
+  switch ((S + 15) / 16 * 2) {
+#define AB_CASE(nt)                                                                       \
+  case nt:                                                                                \
+    if (cudaFuncSetAttribute(attention_bwd_kernel<nt>,                                    \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))     \
+      return (int)cudaGetLastError();                                                     \
+    attention_bwd_kernel<nt><<<grid, AB_WARPS * 32, smem, st>>>(qkv, datt, att, dqkv, S, D, \
+                                                                scale);                   \
+    break;
+    AB_CASE(2) AB_CASE(4) AB_CASE(6) AB_CASE(8) AB_CASE(10) AB_CASE(12) AB_CASE(14)
+    AB_CASE(16) AB_CASE(18) AB_CASE(20) AB_CASE(22) AB_CASE(24) AB_CASE(26) AB_CASE(28)
+    AB_CASE(30) AB_CASE(32)
+#undef AB_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
-

@@ -7,22 +7,32 @@
 //
 // Numerics follow vit2spn_tpu/ops/fused_block.py: bf16 GEMM operands with
 // fp32 accumulation, fp32 LayerNorm statistics, the A&S erf and the fast cdf
-// rational for gelu, and their derivatives.
+// rational for gelu, and their derivatives. The LayerNorms, the epilogues and
+// the split reductions are templated on the element type T (bf16, or float
+// for compute_dtype=float32, where every rounding point to T is the
+// identity); the GEMM is mma.sync for bf16 and a CUDA-core (SIMT) kernel of
+// the same tiles for fp32.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 typedef __nv_bfloat16 bf16;
 
 #define NEG_INF (-1e30f)
 
-#define LAUNCH(call)        \
-  do {                      \
-    int e_ = (call);        \
-    if (e_ != 0) return e_; \
+// return a failing launch's code at once, naming it on stderr
+#define LAUNCH(call)                                                          \
+  do {                                                                        \
+    int e_ = (call);                                                          \
+    if (e_ != 0) {                                                            \
+      fprintf(stderr, "vit2spn: %s:%d: %s failed (%d)\n", __FILE__, __LINE__, \
+              #call, e_);                                                     \
+      return e_;                                                              \
+    }                                                                         \
   } while (0)
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -167,6 +177,28 @@ __device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// two neighbouring elements of T as floats, and back (rounded to T)
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_f32(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+// a value rounded to T, as the Pallas body's astype(dtype): bf16, or none
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (sizeof(T) == 2) return bf16_round(v);
+  return v;
+}
+
 // ---------------------------------------------------------------------------
 // mma.sync on attention tiles: rows of 64 bf16 staged in shared memory
 // TILE_LD elements apart (conflict-free ldmatrix), fp32 C tiles of 16 x 8
@@ -262,14 +294,14 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* f, const float*)
   f[3] = __uint_as_float(u.w);
 }
 
-// y = bf16((x - mean) * rsqrt(var + eps) * scale + bias): fp32 mean, then
+// y = TO((x - mean) * rsqrt(var + eps) * scale + bias): fp32 mean, then
 // the mean of squared deviations, as _ln_fwd. One warp per row: each lane
 // loads 16-byte chunks of the row (D * sizeof(T) a multiple of 16).
-template <typename T>
+template <typename T, typename TO = bf16>
 __device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
                                               const float* __restrict__ scale,
                                               const float* __restrict__ bias,
-                                              bf16* __restrict__ y, int row, int D, float eps,
+                                              TO* __restrict__ y, int row, int D, float eps,
                                               int lane) {
   constexpr int EPC = 16 / sizeof(T);               // elements per chunk
   constexpr int CPL = LN_MAX_PER_LANE / EPC;        // chunks per lane, at most
@@ -299,7 +331,7 @@ __device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
     }
   }
   const float rstd = rsqrtf(warp_sum(var) / (float)D + eps);
-  bf16* yr = y + (size_t)row * D;
+  TO* yr = y + (size_t)row * D;
 #pragma unroll
   for (int i = 0; i < CPL; ++i) {
     const int ch = lane + 32 * i;
@@ -309,25 +341,25 @@ __device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
         const int c = ch * EPC + e;
         const float y0 = (v[i][e] - mean) * rstd * scale[c] + bias[c];
         const float y1 = (v[i][e + 1] - mean) * rstd * scale[c + 1] + bias[c + 1];
-        *reinterpret_cast<__nv_bfloat162*>(yr + c) = __floats2bfloat162_rn(y0, y1);
+        store2(yr + c, y0, y1);
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                 const float* __restrict__ bias, bf16* __restrict__ y, int M, int D,
+                 const float* __restrict__ bias, TO* __restrict__ y, int M, int D,
                  float eps) {
   const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
   if (row < M) layernorm_row(x, scale, bias, y, row, D, eps, threadIdx.x & 31);
 }
 
-template <typename T>
-static int launch_layernorm(const T* x, const float* scale, const float* bias, bf16* y,
+template <typename T, typename TO = bf16>
+static int launch_layernorm(const T* x, const float* scale, const float* bias, TO* y,
                             int M, int D, float eps, cudaStream_t st) {
-  layernorm_kernel<T><<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
+  layernorm_kernel<T, TO><<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
       x, scale, bias, y, M, D, eps);
   return (int)cudaGetLastError();
 }
@@ -362,9 +394,10 @@ static int launch_layernorm_pair(const bf16* xa, const float* sa, const float* b
 //
 //   xhat = (x - mean) * rstd                 recomputed from the bf16 input
 //   dxhat = dy * scale
-//   out = bf16(resid + rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)))
+//   out = T(resid + rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)))
 //
-// One warp per row, rows strided over a grid whose size depends only on M;
+// x, resid and out in T (bf16 or fp32). One warp per row, rows strided over
+// a grid whose size depends only on M;
 // each block also writes its partial sums of dy * xhat (the scale gradient)
 // and dy (the bias gradient) over its rows, to partial[blockIdx.x][2 D], for
 // reduce_partials_kernel to add in a fixed order.
@@ -379,10 +412,11 @@ static int lnb_blocks(int M) {
   return b < LNB_MAX_BLOCKS ? b : LNB_MAX_BLOCKS;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(LNB_WARPS * 32)
-ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
-              const bf16* __restrict__ resid, const float* __restrict__ scale,
-              bf16* __restrict__ out, float* __restrict__ partial, int M, int D,
+ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
+              const T* __restrict__ resid, const float* __restrict__ scale,
+              T* __restrict__ out, float* __restrict__ partial, int M, int D,
               float eps) {
   __shared__ float red[LNB_WARPS][2 * LN_MAX_D];
   const int lane = threadIdx.x & 31;
@@ -400,8 +434,7 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
     for (int i = 0; i < LNB_MAX_PAIRS; ++i) {
       if (i < np) {
         const int c = 64 * i + 2 * lane;
-        const float2 xx = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(x + base + c));
+        const float2 xx = load2(x + base + c);
         const float2 dd = *reinterpret_cast<const float2*>(dy + base + c);
         xv[i][0] = xx.x;
         xv[i][1] = xx.y;
@@ -447,12 +480,10 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
     for (int i = 0; i < LNB_MAX_PAIRS; ++i) {
       if (i < np) {
         const int c = 64 * i + 2 * lane;
-        const float2 r = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(resid + base + c));
+        const float2 r = load2(resid + base + c);
         const float d0 = rstd * (dv[i][0] - m1 - xv[i][0] * m2);
         const float d1 = rstd * (dv[i][1] - m1 - xv[i][1] * m2);
-        *reinterpret_cast<__nv_bfloat162*>(out + base + c) =
-            __floats2bfloat162_rn(r.x + d0, r.y + d1);
+        store2(out + base + c, r.x + d0, r.y + d1);
       }
     }
   }
@@ -476,21 +507,29 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
 }
 
 // A sum of split partials still to be taken: out0[j] (j < n0) or
-// out1[j - n0] = sum over p of partial[p][j], p in order, for j < n.
+// out1[j - n0] = sum over p of partial[p][j], p in order, for j < n. With
+// tcols > 0 the first n0 entries are a row-major (n0 / tcols, tcols) matrix
+// that out0 receives transposed. tree: reduce_all_kernel takes it as a tree
+// (for many parts; see there), else part by part.
 struct Reduction {
   const float* partial;
   int parts, n, n0;
   float* out0;
   float* out1;
+  int tcols;
+  int tree;
 };
 
 __device__ __forceinline__ void reduce_one(const Reduction& r, int j) {
   float s = 0.0f;
+#pragma unroll 4
   for (int p = 0; p < r.parts; ++p) s += r.partial[(size_t)p * r.n + j];
-  if (j < r.n0)
-    r.out0[j] = s;
-  else
+  if (j >= r.n0)
     r.out1[j - r.n0] = s;
+  else if (r.tcols)
+    r.out0[(size_t)(j % r.tcols) * (r.n0 / r.tcols) + j / r.tcols] = s;
+  else
+    r.out0[j] = s;
 }
 
 __global__ void reduce_partials_kernel(Reduction r) {
@@ -503,8 +542,7 @@ static int launch_reduce(const Reduction& r, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// Reductions collected to be taken by one launch (reduce_all): each in the
-// order reduce_partials_kernel takes it, so the same bits.
+// Reductions collected to be taken by one launch (reduce_all_kernel).
 #define MAX_REDUCTIONS 8
 struct Reductions {
   Reduction r[MAX_REDUCTIONS];
@@ -519,39 +557,81 @@ static int reduce_or_defer(const Reduction& r, Reductions* defer, cudaStream_t s
   return 0;
 }
 
-__global__ void reduce_all_kernel(Reductions rs) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
+// One launch for every collected reduction. A reduction takes a thread per
+// output, its parts in order (reduce_one, the order reduce_partials_kernel
+// takes, so the same bits), or, with `tree` (many parts: the row-block
+// kernels' per-warp LayerNorm partials), a block per 32 outputs: warp w sums
+// parts w, w + 8, ... in four interleaved chains, then warp 0 adds the 8
+// warps' sums in order. Either order is fixed, so two runs give the same
+// bits.
+#define REDUCE_THREADS 256
+
+__host__ __device__ static int reduce_blocks(const Reduction& r) {
+  return r.tree ? (r.n + 31) / 32 : (r.n + REDUCE_THREADS - 1) / REDUCE_THREADS;
+}
+
+__device__ __forceinline__ void reduce_tree(const Reduction& r, int j0, float* red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, j = j0 + lane;
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (j < r.n)
+    for (int p = w, k = 0; p < r.parts; p += 8, k = (k + 1) & 3)
+      a[k] += r.partial[(size_t)p * r.n + j];
+  red[w * 32 + lane] = (a[0] + a[1]) + (a[2] + a[3]);
+  __syncthreads();
+  if (w == 0 && j < r.n) {
+    float s = 0.0f;
+    for (int i = 0; i < 8; ++i) s += red[i * 32 + lane];
+    if (j >= r.n0)
+      r.out1[j - r.n0] = s;
+    else if (r.tcols)
+      r.out0[(size_t)(j % r.tcols) * (r.n0 / r.tcols) + j / r.tcols] = s;
+    else
+      r.out0[j] = s;
+  }
+}
+
+__global__ void __launch_bounds__(REDUCE_THREADS) reduce_all_kernel(Reductions rs) {
+  __shared__ float red[REDUCE_THREADS];
+  int b = blockIdx.x;
   for (int i = 0; i < rs.count; ++i) {
-    if (j < rs.r[i].n) {
-      reduce_one(rs.r[i], j);
+    const Reduction& r = rs.r[i];
+    const int nb = reduce_blocks(r);
+    if (b < nb) {
+      if (!r.tree) {
+        const int j = b * REDUCE_THREADS + threadIdx.x;
+        if (j < r.n) reduce_one(r, j);
+      } else {
+        reduce_tree(r, b * 32, red);
+      }
       return;
     }
-    j -= rs.r[i].n;
+    b -= nb;
   }
 }
 
 static int launch_reduce_all(const Reductions& rs, cudaStream_t st) {
-  int n = 0;
-  for (int i = 0; i < rs.count; ++i) n += rs.r[i].n;
-  reduce_all_kernel<<<(n + 255) / 256, 256, 0, st>>>(rs);
+  int nb = 0;
+  for (int i = 0; i < rs.count; ++i) nb += reduce_blocks(rs.r[i]);
+  reduce_all_kernel<<<nb, REDUCE_THREADS, 0, st>>>(rs);
   return (int)cudaGetLastError();
 }
 
 // LayerNorm backward plus the reduction of its parameter gradients (now, or
 // deferred into `defer`).
-static int launch_ln_bwd(const bf16* x, const float* dy, const bf16* resid,
-                         const float* scale, bf16* out, float* ws, float* gscale,
+template <typename T>
+static int launch_ln_bwd(const T* x, const float* dy, const T* resid,
+                         const float* scale, T* out, float* ws, float* gscale,
                          float* gbias, int M, int D, float eps, cudaStream_t st,
                          Reductions* defer = nullptr) {
   const int nb = lnb_blocks(M);
-  ln_bwd_kernel<<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws, M, D, eps);
+  ln_bwd_kernel<T><<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws, M, D, eps);
   LAUNCH((int)cudaGetLastError());
-  return reduce_or_defer({ws, nb, 2 * D, D, gscale, gbias}, defer, st);
+  return reduce_or_defer({ws, nb, 2 * D, D, gscale, gbias, 0, 0}, defer, st);
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: C[M, N] = op(A) op(B), bf16 operands, fp32 accumulation, fused
-// epilogue. Operand layouts (row-major in device memory):
+// GEMM: C[M, N] = op(A) op(B), T operands (bf16 or fp32), fp32 accumulation,
+// fused epilogue. Operand layouts (row-major in device memory):
 //
 //   AT = false: A is (M, K)         AT = true: A is (K, M - 1), and C = A^T B
 //   BT = false: B is (K, N)         BT = true: B is (N, K), and C = A B^T
@@ -562,10 +642,12 @@ static int launch_ln_bwd(const bf16* x, const float* dy, const bf16* resid,
 // output row M - 1 multiplies B by a column of ones in A, so it holds B's
 // column sums: the bias gradient comes out of the same pass.
 //
-// mma.sync m16n8k16: 128x64x32 block tiles, 4 warps of 64x32 fed by ldmatrix
-// (.trans for the operands stored with the reduction index outermost), a
-// 3-stage cp.async pipeline, the epilogue applied to the accumulator
-// registers.
+// bf16: mma.sync m16n8k16, 128x64x32 block tiles, 4 warps of 64x32 fed by
+// ldmatrix (.trans for the operands stored with the reduction index
+// outermost), a 3-stage cp.async pipeline, the epilogue applied to the
+// accumulator registers. fp32 (gemm_f32_kernel): the same block tiles and
+// grid on the CUDA cores, 256 threads of 8 x 4 outputs, each summing its
+// products in ascending k.
 // ---------------------------------------------------------------------------
 
 #define BM 128
@@ -584,37 +666,40 @@ template <bool AT, bool BT> __host__ __device__ constexpr int gemm_smem() {
 }
 
 enum {
-  EPI_BIAS = 0,   // out = bf16(acc + bias)
+  EPI_BIAS = 0,   // out = T(acc + bias)
   EPI_RESID = 1,  // x2 = resid + acc + bias (fp32), with the xs / x2s stacks
-  EPI_GELU = 2,   // out = bf16(gelu(acc + bias))
-  EPI_OUT = 3,    // out = bf16(x2 + acc + bias)
-  EPI_STORE = 4,  // out = bf16(acc)
+  EPI_GELU = 2,   // out = T(gelu(acc + bias))
+  EPI_OUT = 3,    // out = T(x2 + acc + bias)
+  EPI_STORE = 4,  // out = T(acc)
   EPI_F32 = 5,    // f32[z M N + i] = acc (split partials when gridDim.z > 1)
-  EPI_GELU2 = 6,  // m = bf16(acc + bias); out = bf16(gelu(m)), out2 = bf16(gelu'(m))
-  EPI_DM1 = 7,    // out = bf16(bf16(acc) * aux), in place over aux allowed
+  EPI_GELU2 = 6,  // m = T(acc + bias); out = T(gelu(m)), out2 = T(gelu'(m))
+  EPI_DM1 = 7,    // out = T(T(acc) * aux), in place over aux allowed
+  EPI_LNBWD = 8,  // rowblock_gemm_kernel only: LayerNorm backward of full rows
 };
 
-struct EpiArgs {
-  const bf16* bias;   // (N,)
-  bf16* out;          // (M, N) bf16 result
-  bf16* out2;         // EPI_GELU2: gelu'
-  const bf16* aux;    // EPI_DM1: the factor
-  float* f32;         // EPI_F32: fp32 result; EPI_RESID writes and EPI_OUT reads x2
-  const bf16* resid;  // EPI_RESID: the layer input (M, N)
-  bf16* xs;           // EPI_RESID, optional: copy of the layer input
-  bf16* x2s;          // EPI_RESID, optional: bf16(x2)
+template <typename T>
+struct EpiArgsT {
+  const T* bias;   // (N,)
+  T* out;          // (M, N) result
+  T* out2;         // EPI_GELU2: gelu'
+  const T* aux;    // EPI_DM1: the factor
+  float* f32;      // EPI_F32: fp32 result; EPI_RESID writes and EPI_OUT reads x2
+  const T* resid;  // EPI_RESID: the layer input (M, N)
+  T* xs;           // EPI_RESID, optional: copy of the layer input
+  T* x2s;          // EPI_RESID, optional: T(x2)
   int fast_gelu;
 };
+typedef EpiArgsT<bf16> EpiArgs;
 
 // The epilogue of one output pair: row gr, columns gc and gc + 1, with
 // their fp32 sums a0, a1.
-template <int EPI>
-__device__ __forceinline__ void epilogue_pair(const EpiArgs& ep, int M, int N, int gr,
+template <int EPI, typename T>
+__device__ __forceinline__ void epilogue_pair(const EpiArgsT<T>& ep, int M, int N, int gr,
                                               int gc, float a0, float a1) {
   const size_t idx = (size_t)gr * N + gc;
-  uint32_t* out = reinterpret_cast<uint32_t*>(ep.out + idx);
+  T* out = ep.out + idx;
   if (EPI == EPI_STORE) {
-    *out = pack_f32(a0, a1);
+    store2(out, a0, a1);
     return;
   }
   if (EPI == EPI_F32) {
@@ -622,31 +707,29 @@ __device__ __forceinline__ void epilogue_pair(const EpiArgs& ep, int M, int N, i
     return;
   }
   if (EPI == EPI_DM1) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ep.aux + idx));
-    *out = pack_f32(bf16_round(a0) * f.x, bf16_round(a1) * f.y);
+    const float2 f = load2(ep.aux + idx);
+    store2(out, rnd<T>(a0) * f.x, rnd<T>(a1) * f.y);
     return;
   }
-  const float b0 = __bfloat162float(ep.bias[gc]);
-  const float b1 = __bfloat162float(ep.bias[gc + 1]);
+  const float b0 = to_f(ep.bias[gc]);
+  const float b1 = to_f(ep.bias[gc + 1]);
   if (EPI == EPI_BIAS) {
-    *out = pack_f32(a0 + b0, a1 + b1);
+    store2(out, a0 + b0, a1 + b1);
   } else if (EPI == EPI_RESID) {
-    const uint32_t xin = *reinterpret_cast<const uint32_t*>(ep.resid + idx);
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xin));
+    const float2 x = load2(ep.resid + idx);
     const float2 x2 = make_float2((x.x + a0) + b0, (x.y + a1) + b1);
     *reinterpret_cast<float2*>(ep.f32 + idx) = x2;
-    if (ep.xs) *reinterpret_cast<uint32_t*>(ep.xs + idx) = xin;
-    if (ep.x2s) *reinterpret_cast<uint32_t*>(ep.x2s + idx) = pack_f32(x2.x, x2.y);
+    if (ep.xs) store2(ep.xs + idx, x.x, x.y);
+    if (ep.x2s) store2(ep.x2s + idx, x2.x, x2.y);
   } else if (EPI == EPI_GELU) {
-    *out = pack_f32(gelu(a0 + b0, ep.fast_gelu), gelu(a1 + b1, ep.fast_gelu));
+    store2(out, gelu(a0 + b0, ep.fast_gelu), gelu(a1 + b1, ep.fast_gelu));
   } else if (EPI == EPI_GELU2) {
-    const float m0 = bf16_round(a0 + b0), m1 = bf16_round(a1 + b1);
-    *out = pack_f32(gelu(m0, ep.fast_gelu), gelu(m1, ep.fast_gelu));
-    *reinterpret_cast<uint32_t*>(ep.out2 + idx) =
-        pack_f32(gelu_grad(m0, ep.fast_gelu), gelu_grad(m1, ep.fast_gelu));
+    const float m0 = rnd<T>(a0 + b0), m1 = rnd<T>(a1 + b1);
+    store2(out, gelu(m0, ep.fast_gelu), gelu(m1, ep.fast_gelu));
+    store2(ep.out2 + idx, gelu_grad(m0, ep.fast_gelu), gelu_grad(m1, ep.fast_gelu));
   } else {  // EPI_OUT
     const float2 x2 = *reinterpret_cast<const float2*>(ep.f32 + idx);
-    *out = pack_f32((x2.x + a0) + b0, (x2.y + a1) + b1);
+    store2(out, (x2.x + a0) + b0, (x2.y + a1) + b1);
   }
 }
 
@@ -781,19 +864,95 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N
     }
 }
 
-// Launch one GEMM with its dynamic shared memory (above the 48 KB a block
-// gets without asking), the reduction split over `splits` blocks in z.
+
+// The fp32 GEMM on the CUDA cores: the bf16 kernel's tiles, grid and split
+// (so the same partial layout), 256 threads, thread (ty, tx) of 16 x 16 owning
+// rows 8 ty .. 8 ty + 7 and columns 4 tx .. 4 tx + 3 of the block's tile.
+#define F32_THREADS 256
+#define F32_ALD (BM + 4)  // floats per staged k row of A (16-byte aligned)
+
 template <bool AT, bool BT, int EPI>
-static int launch_gemm(const bf16* A, const bf16* B, int M, int N, int K,
-                       const EpiArgs& ep, cudaStream_t st, int splits = 1) {
-  constexpr int smem = gemm_smem<AT, BT>();
-  cudaError_t e = cudaFuncSetAttribute(gemm_kernel<AT, BT, EPI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+__global__ void __launch_bounds__(F32_THREADS)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M, int N, int K,
+                int kt_per_split, EpiArgsT<float> ep) {
+  __shared__ __align__(16) float As[BK][F32_ALD];  // [k][row]
+  __shared__ __align__(16) float Bs[BK][BN];       // [k][column]
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int kt_all = (K + BK - 1) / BK;
+  const int kt_n = min(kt_per_split, kt_all - kt0);
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int k0 = (kt0 + kt) * BK;
+    for (int i = tid; i < BM * BK; i += F32_THREADS) {
+      float a;
+      if (!AT) {  // row r, k c: consecutive threads read consecutive k
+        const int r = i / BK, c = i % BK, gr = m0 + r, gk = k0 + c;
+        a = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : 0.0f;
+        As[c][r] = a;
+      } else {  // k r, row c; row M - 1 is the ones column
+        const int r = i / BM, c = i % BM, gk = k0 + r, gc = m0 + c;
+        const int ma = M - 1;
+        a = gk < K ? (gc < ma ? A[(size_t)gk * ma + gc] : (gc == ma ? 1.0f : 0.0f)) : 0.0f;
+        As[r][c] = a;
+      }
+    }
+    for (int i = tid; i < BK * BN; i += F32_THREADS) {
+      if (!BT) {
+        const int r = i / BN, c = i % BN, gk = k0 + r;
+        Bs[r][c] = gk < K ? B[(size_t)gk * N + n0 + c] : 0.0f;
+      } else {
+        const int r = i / BK, c = i % BK, gk = k0 + c;
+        Bs[c][r] = gk < K ? B[(size_t)(n0 + r) * K + gk] : 0.0f;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < BK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][8 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][8 * ty + 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gr = m0 + 8 * ty + i;
+    if (gr < M) {
+      epilogue_pair<EPI>(ep, M, N, gr, n0 + 4 * tx, acc[i][0], acc[i][1]);
+      epilogue_pair<EPI>(ep, M, N, gr, n0 + 4 * tx + 2, acc[i][2], acc[i][3]);
+    }
+  }
+}
+
+// Launch one GEMM (bf16 with its dynamic shared memory, above the 48 KB a
+// block gets without asking; fp32 with static), the reduction split over
+// `splits` blocks in z.
+template <typename T, bool AT, bool BT, int EPI>
+static int launch_gemm(const T* A, const T* B, int M, int N, int K, const EpiArgsT<T>& ep,
+                       cudaStream_t st, int splits = 1) {
   const int kt_all = (K + BK - 1) / BK;
   const int kps = (kt_all + splits - 1) / splits;
-  gemm_kernel<AT, BT, EPI><<<dim3(N / BN, (M + BM - 1) / BM, (kt_all + kps - 1) / kps),
-                             GEMM_THREADS, smem, st>>>(A, B, M, N, K, kps, ep);
+  const dim3 grid(N / BN, (M + BM - 1) / BM, (kt_all + kps - 1) / kps);
+  if constexpr (sizeof(T) == 2) {
+    constexpr int smem = gemm_smem<AT, BT>();
+    cudaError_t e = cudaFuncSetAttribute(gemm_kernel<AT, BT, EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    gemm_kernel<AT, BT, EPI><<<grid, GEMM_THREADS, smem, st>>>(A, B, M, N, K, kps, ep);
+  } else {
+    gemm_f32_kernel<AT, BT, EPI><<<grid, F32_THREADS, 0, st>>>(A, B, M, N, K, kps, ep);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -820,13 +979,14 @@ static size_t wgrad_workspace_floats(int K1, int N, int M) {
   return (size_t)wgrad_splits(K1, N, M) * (K1 + 1) * N;
 }
 
-static int launch_wgrad(const bf16* A, const bf16* B, int K1, int N, int M, float* ws,
+template <typename T>
+static int launch_wgrad(const T* A, const T* B, int K1, int N, int M, float* ws,
                         float* dw, float* db, cudaStream_t st, Reductions* defer = nullptr) {
   const int splits = wgrad_splits(K1, N, M);
-  EpiArgs ep = {};
+  EpiArgsT<T> ep = {};
   ep.f32 = ws;
-  LAUNCH((launch_gemm<true, false, EPI_F32>(A, B, K1 + 1, N, M, ep, st, splits)));
-  return reduce_or_defer({ws, splits, (K1 + 1) * N, K1 * N, dw, db}, defer, st);
+  LAUNCH((launch_gemm<T, true, false, EPI_F32>(A, B, K1 + 1, N, M, ep, st, splits)));
+  return reduce_or_defer({ws, splits, (K1 + 1) * N, K1 * N, dw, db, 0, 0}, defer, st);
 }
 
 extern "C" const char* vit2spn_cuda_error_string(int code) {

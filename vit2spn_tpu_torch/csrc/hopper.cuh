@@ -51,6 +51,14 @@ static int tensor_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_
                       uint64_t layers) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return (int)cudaErrorSharedObjectInitFailed;
+  // the encode is a driver call and needs a current context, which a thread
+  // has only once a runtime call has bound it: torch runs the backward on its
+  // own autograd thread, whose allocations may all come from the cache
+  static thread_local bool bound = false;
+  if (!bound) {
+    LAUNCH((int)cudaFree(nullptr));
+    bound = true;
+  }
   const cuuint64_t dims[3] = {cols, rows, layers};
   const cuuint64_t strides[2] = {cols * 2, cols * rows * 2};
   const cuuint32_t box[3] = {TMA_BOX, TMA_BOX, 1};
@@ -59,7 +67,11 @@ static int tensor_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  if (r == CUDA_SUCCESS) return 0;
+  fprintf(stderr, "vit2spn: cuTensorMapEncodeTiled: %d at %p, %llu x %llu x %llu, map at %p\n",
+          (int)r, base, (unsigned long long)cols, (unsigned long long)rows,
+          (unsigned long long)layers, (void*)map);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -164,6 +176,14 @@ __device__ __forceinline__ uint64_t a_desc(const void* p) { return sw128_desc(p,
 __device__ __forceinline__ uint64_t b_desc(const void* p, uint32_t box_bytes) {
   return sw128_desc(p, box_bytes, 1024);
 }
+// B K-major (TB = 0): rows of 64 K (128 B) per N, N rows from `p` in 8-row
+// groups 1024 B apart (64-row boxes back to back), K step 16 at byte 32 k
+__device__ __forceinline__ uint64_t k_desc(const void* p) { return sw128_desc(p, 16, 1024); }
+// A M-major (TA = 1): 16 K rows from `p` of one [K rows][64 M] box, as
+// b_desc reads B
+__device__ __forceinline__ uint64_t mn_desc(const void* p) {
+  return sw128_desc(p, TMA_BOX_BYTES, 1024);
+}
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
@@ -183,12 +203,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 
 // d[OFF ..] (64 x N fp32, the warpgroup's fragment: register OFF + i of
 // thread t holds row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column
-// 8 (i / 4) + 2 (t % 4) + i % 2) = A B (+ d when acc != 0); A K-major, B
-// N-major (transposed). A 64-column box of a wider fragment is 32 registers
-// at OFF = 32 x (its first column / 64).
+// 8 (i / 4) + 2 (t % 4) + i % 2) = A B (+ d when acc != 0). TA = 0: A
+// K-major (a_desc); TA = 1: A M-major, [K rows][64 M] (mn_desc). TB = 1: B
+// N-major, [K rows][64 N] boxes (b_desc); TB = 0: B K-major, [N rows][64 K]
+// (k_desc), the product with a row-major weight's transpose. A 64-column
+// box of a wider fragment is 32 registers at OFF = 32 x (its first column /
+// 64).
 template <int N> struct Wgmma;
 template <> struct Wgmma<64> {
-  template <int OFF = 0, int R>
+  template <int OFF = 0, int TA = 0, int TB = 1, int R>
   __device__ __forceinline__ static void mma(float (&d)[R], uint64_t da, uint64_t db, int acc) {
     static_assert(OFF + 32 <= R, "the product's registers lie outside d");
     asm volatile(
@@ -196,18 +219,18 @@ template <> struct Wgmma<64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
           "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
           "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
           "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
           "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
           "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
-        : "l"(da), "l"(db), "r"(acc));
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };
 template <> struct Wgmma<128> {
-  template <int OFF = 0, int R>
+  template <int OFF = 0, int TA = 0, int TB = 1, int R>
   __device__ __forceinline__ static void mma(float (&d)[R], uint64_t da, uint64_t db, int acc) {
     static_assert(OFF + 64 <= R, "the product's registers lie outside d");
     asm volatile(
@@ -217,7 +240,7 @@ template <> struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
           "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
           "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
@@ -229,11 +252,11 @@ template <> struct Wgmma<128> {
           "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
           "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
           "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
-        : "l"(da), "l"(db), "r"(acc));
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };
 template <> struct Wgmma<192> {
-  template <int OFF = 0, int R>
+  template <int OFF = 0, int TA = 0, int TB = 1, int R>
   __device__ __forceinline__ static void mma(float (&d)[R], uint64_t da, uint64_t db, int acc) {
     static_assert(OFF + 96 <= R, "the product's registers lie outside d");
     asm volatile(
@@ -245,7 +268,7 @@ template <> struct Wgmma<192> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+        "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
         : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
           "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
           "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
@@ -262,11 +285,11 @@ template <> struct Wgmma<192> {
           "+f"(d[OFF + 78]), "+f"(d[OFF + 79]), "+f"(d[OFF + 80]), "+f"(d[OFF + 81]), "+f"(d[OFF + 82]), "+f"(d[OFF + 83]),
           "+f"(d[OFF + 84]), "+f"(d[OFF + 85]), "+f"(d[OFF + 86]), "+f"(d[OFF + 87]), "+f"(d[OFF + 88]), "+f"(d[OFF + 89]),
           "+f"(d[OFF + 90]), "+f"(d[OFF + 91]), "+f"(d[OFF + 92]), "+f"(d[OFF + 93]), "+f"(d[OFF + 94]), "+f"(d[OFF + 95])
-        : "l"(da), "l"(db), "r"(acc));
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };
 template <> struct Wgmma<256> {
-  template <int OFF = 0, int R>
+  template <int OFF = 0, int TA = 0, int TB = 1, int R>
   __device__ __forceinline__ static void mma(float (&d)[R], uint64_t da, uint64_t db, int acc) {
     static_assert(OFF + 128 <= R, "the product's registers lie outside d");
     asm volatile(
@@ -280,7 +303,7 @@ template <> struct Wgmma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
           "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
           "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
@@ -303,6 +326,6 @@ template <> struct Wgmma<256> {
           "+f"(d[OFF + 114]), "+f"(d[OFF + 115]), "+f"(d[OFF + 116]), "+f"(d[OFF + 117]), "+f"(d[OFF + 118]), "+f"(d[OFF + 119]),
           "+f"(d[OFF + 120]), "+f"(d[OFF + 121]), "+f"(d[OFF + 122]), "+f"(d[OFF + 123]), "+f"(d[OFF + 124]), "+f"(d[OFF + 125]),
           "+f"(d[OFF + 126]), "+f"(d[OFF + 127])
-        : "l"(da), "l"(db), "r"(acc));
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };

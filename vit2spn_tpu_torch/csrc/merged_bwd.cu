@@ -1,5 +1,5 @@
-// One ViT layer's whole backward for Hopper (sm_90a), bf16 in / bf16 out: the
-// MLP half, then the attention half, in one C entry point.
+// One ViT layer's whole backward for Hopper (sm_90a), bf16 or fp32 in and
+// out: the MLP half, then the attention half, in one C entry point.
 //
 // Replaces: vit2spn_tpu/ops/fused_block.py::_merged_bwd_kernel (run by
 // _layer_bwd with merged=True for every layer of _backbone_vjp_bwd when
@@ -44,10 +44,20 @@
 //  14. ln_bwd_kernel                        dx, LN1 partials
 //  15. reduce_all_kernel                    the 12 weight gradients
 //
-// Limits: head_dim 64, S <= 256, D <= 768, D and mlp multiples of 64, bf16
-// activations and matmul weights, fp32 LN parameters.
+// The split kernels' bf16 route at D <= 256 is the wgmma row-block kit
+// (csrc/mlp_bwd.cuh, csrc/attn_bwd.cuh), which sums in other orders than
+// these mma.sync GEMMs: the merged kernel's bits are no longer theirs, but
+// the same function within the same tolerances.
+//
+// fp32 (compute_dtype=float32): the split kernels' fp32 sequences in a row
+// (mlp_bwd_seq<float>, attn_bwd_seq<float>: 23 launches), dx2 crossing in
+// fp32.
+//
+// Limits: head_dim 64, S <= 256, D <= 768, D and mlp multiples of 64,
+// activations and matmul weights all bf16 or all fp32, fp32 LN parameters.
 
-#include "attention_bwd.cuh"
+#include "attn_bwd.cuh"
+#include "mlp_bwd.cuh"
 
 #define MERGED_BWD_LAUNCHES 15
 
@@ -62,20 +72,29 @@ static void partial_sizes(int M, int D, int MLP, size_t out[6]) {
 }
 
 // fp32 scratch the wrapper allocates for the split partials
-extern "C" long long vit2spn_merged_bwd_workspace_floats(int M, int D, int MLP) {
+extern "C" long long vit2spn_merged_bwd_workspace_floats(int B, int S, int D, int H, int MLP,
+                                                         int fp32) {
+  const int M = B * S;
+  if (fp32) {
+    const size_t m = mlp_seq_workspace(M, D, MLP), a = attn_seq_workspace(B, S, D, H);
+    return (long long)(m > a ? m : a);
+  }
   size_t sz[6], w = 0;
   partial_sizes(M, D, MLP, sz);
   for (int i = 0; i < 6; ++i) w += sz[i];
   return (long long)w;
 }
 
-extern "C" int vit2spn_merged_bwd_launches() { return MERGED_BWD_LAUNCHES; }
+extern "C" int vit2spn_merged_bwd_launches(int fp32) {
+  return fp32 ? MLP_SEQ_LAUNCHES + attn_seq_launches<float>() : MERGED_BWD_LAUNCHES;
+}
 
-// x, x2, dout, dx: (B * S, D) bf16. Weights: ln1 / ln2 scale and bias fp32
-// (D), wqkv (D, 3D), bqkv (3D), wo (D, D), w1 (D, MLP), b1 (MLP), w2 (MLP, D)
-// bf16. Gradients fp32, in WEIGHT_NAMES order. Scratch: y1, y2, datt, att,
-// dx2 (M, D) bf16, qkv and dqkv (M, 3D) bf16, g and gg (M, MLP) bf16, dy (M,
-// D) fp32, ws (workspace_floats) fp32.
+// x, x2, dout, dx: (B * S, D), all bf16 or (fp32 set) all fp32, as the
+// weights wqkv (D, 3D), bqkv (3D), wo (D, D), w1 (D, MLP), b1 (MLP), w2 (MLP,
+// D); ln1 / ln2 scale and bias fp32 (D). Gradients fp32, in WEIGHT_NAMES
+// order. Scratch in the activations' dtype: y1, y2, datt, att, dx2 (M, D),
+// qkv and dqkv (M, 3D), g and gg (M, MLP); dy (M, D) fp32, ws
+// (workspace_floats) fp32.
 extern "C" int vit2spn_merged_bwd(
     const void* x, const void* x2, const void* dout,
     const void* ln1_scale, const void* ln1_bias, const void* wqkv, const void* bqkv,
@@ -85,12 +104,22 @@ extern "C" int vit2spn_merged_bwd(
     void* gln2_scale, void* gln2_bias, void* gw1, void* gb1, void* gw2, void* gb2,
     void* y1_buf, void* y2_buf, void* qkv_buf, void* datt_buf, void* att_buf, void* dqkv_buf,
     void* g_buf, void* gg_buf, void* dx2_buf, void* dy_buf, void* ws_buf,
-    int B, int S, int D, int H, int MLP, float eps, int fast_gelu, void* stream) {
+    int B, int S, int D, int H, int MLP, float eps, int fast_gelu, int fp32, void* stream) {
   if (B <= 0 || S <= 0 || S > AB_MAX_S || H <= 0 || D != H * DH || D > LN_MAX_D || D % 64 ||
-      MLP % 64)
+      MLP <= 0 || MLP % 64)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * S;
+  if (fp32) {
+    const MlpBwdArgs m = {x2, dout, ln2_scale, ln2_bias, w1, b1, w2, dx2_buf, gln2_scale,
+                          gln2_bias, gw1, gb1, gw2, gb2, y2_buf, g_buf, gg_buf, dy_buf, ws_buf,
+                          M, D, MLP, eps, fast_gelu};
+    LAUNCH(mlp_bwd_seq<float>(m, st));
+    const AttnBwdArgs a = {x, dx2_buf, ln1_scale, ln1_bias, wqkv, bqkv, wo, dx, gln1_scale,
+                           gln1_bias, gwqkv, gbqkv, gwo, gbo, y1_buf, qkv_buf, datt_buf, att_buf,
+                           dqkv_buf, dy_buf, ws_buf, B, S, D, H, eps};
+    return attn_bwd_seq<float>(a, st);
+  }
   const bf16* X = static_cast<const bf16*>(x);
   const bf16* X2 = static_cast<const bf16*>(x2);
   const bf16* dO = static_cast<const bf16*>(dout);
@@ -126,18 +155,18 @@ extern "C" int vit2spn_merged_bwd(
   e1.out = g;
   e1.out2 = gg;
   e1.fast_gelu = fast_gelu;
-  LAUNCH((launch_gemm<false, false, EPI_GELU2>(y2, W1, M, MLP, D, e1, st)));
+  LAUNCH((launch_gemm<bf16, false, false, EPI_GELU2>(y2, W1, M, MLP, D, e1, st)));
   EpiArgs e2 = {};
   e2.aux = gg;
   e2.out = dm1;
-  LAUNCH((launch_gemm<false, true, EPI_DM1>(dO, W2, M, MLP, D, e2, st)));
+  LAUNCH((launch_gemm<bf16, false, true, EPI_DM1>(dO, W2, M, MLP, D, e2, st)));
   LAUNCH(launch_wgrad(g, dO, MLP, D, M, ws[0], static_cast<float*>(gw2),
                       static_cast<float*>(gb2), st, &red));
   LAUNCH(launch_wgrad(y2, dm1, D, MLP, M, ws[1], static_cast<float*>(gw1),
                       static_cast<float*>(gb1), st, &red));
   EpiArgs e3 = {};
   e3.f32 = dy;
-  LAUNCH((launch_gemm<false, true, EPI_F32>(dm1, W1, M, D, MLP, e3, st)));
+  LAUNCH((launch_gemm<bf16, false, true, EPI_F32>(dm1, W1, M, D, MLP, e3, st)));
   LAUNCH(launch_ln_bwd(X2, dy, dO, l2s, dx2, ws[2], static_cast<float*>(gln2_scale),
                        static_cast<float*>(gln2_bias), M, D, eps, st, &red));
 
@@ -145,10 +174,10 @@ extern "C" int vit2spn_merged_bwd(
   EpiArgs e4 = {};
   e4.bias = static_cast<const bf16*>(bqkv);
   e4.out = qkv;
-  LAUNCH((launch_gemm<false, false, EPI_BIAS>(y1, Wqkv, M, 3 * D, D, e4, st)));
+  LAUNCH((launch_gemm<bf16, false, false, EPI_BIAS>(y1, Wqkv, M, 3 * D, D, e4, st)));
   EpiArgs e5 = {};
   e5.out = datt;
-  LAUNCH((launch_gemm<false, true, EPI_STORE>(dx2, static_cast<const bf16*>(wo), M, D, D, e5,
+  LAUNCH((launch_gemm<bf16, false, true, EPI_STORE>(dx2, static_cast<const bf16*>(wo), M, D, D, e5,
                                               st)));
   LAUNCH(launch_attention_bwd(qkv, datt, att, dqkv, B, S, H, D, st));
   LAUNCH(launch_wgrad(att, dx2, D, D, M, ws[3], static_cast<float*>(gwo),
@@ -157,7 +186,7 @@ extern "C" int vit2spn_merged_bwd(
                       static_cast<float*>(gbqkv), st, &red));
   EpiArgs e6 = {};
   e6.f32 = dy;
-  LAUNCH((launch_gemm<false, true, EPI_F32>(dqkv, Wqkv, M, D, 3 * D, e6, st)));
+  LAUNCH((launch_gemm<bf16, false, true, EPI_F32>(dqkv, Wqkv, M, D, 3 * D, e6, st)));
   LAUNCH(launch_ln_bwd(X, dy, dx2, l1s, static_cast<bf16*>(dx), ws[5],
                        static_cast<float*>(gln1_scale), static_cast<float*>(gln1_bias), M, D,
                        eps, st, &red));

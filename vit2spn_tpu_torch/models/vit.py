@@ -26,8 +26,8 @@ The kernels run for CUDA tensors, their plain twins for CPU tensors. Under
 autograd gradients flow through the kernels' Functions (the backward
 kernels) to the fp32 master params, through the casts of the weights; the
 per-op block, the patch embed, CLS token, position embedding and token mean
-are plain torch autograd. The fused kernels take bf16 only: the fp32 policy
-runs on CUDA through "xla", "pallas" (its kernels take fp32) or "plain".
+are plain torch autograd. Every kernel takes the bf16 and the fp32 policy
+(compute_dtype=float32), as the Pallas bodies take whatever dtype arrives.
 `cfg.remat` ("none", "full", "dots") checkpoints each per-op block, as
 `jax.checkpoint` does; the fused paths keep their own residuals.
 

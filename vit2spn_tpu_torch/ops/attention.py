@@ -19,13 +19,20 @@ import math
 import torch
 
 
+def acc(t: torch.Tensor) -> torch.Tensor:
+    """t widened to the plain versions' accumulation type: fp32 for bf16 and
+    fp32 inputs, fp64 for fp64 (the float64 reference the fp32 kernels are
+    held against on the card)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Attention over (B, S, H, Dh) tensors; returns (B, S, H, Dh)."""
     head_dim = q.shape[-1]
     scale = 1.0 / math.sqrt(head_dim)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = torch.einsum("bqhd,bkhd->bhqk", acc(q), acc(k))
     probs = torch.softmax(scores * scale, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", acc(probs.to(v.dtype)), acc(v))
     return out.to(v.dtype)
 
 

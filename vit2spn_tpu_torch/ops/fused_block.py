@@ -22,7 +22,11 @@ halves). Per kernel three pieces:
   * the wrapper (`fused_backbone`, `layer_fwd`, `mlp_bwd`, `attn_bwd`,
     `merged_bwd`). For CPU tensors it runs the plain twin; for CUDA tensors
     it launches the kernel, or raises on what the kernel does not take. It
-    never falls back from CUDA to the plain twin. Each counts its kernel
+    never falls back from CUDA to the plain twin. Like the Pallas bodies,
+    which compute in whatever dtype arrives, each kernel takes bf16 or fp32
+    (compute_dtype=float32) activations with matmul weights of the same
+    dtype: fp32 has its own route in every source (CUDA-core GEMMs and
+    attention, every rounding point of the bf16 function the identity). Each counts its kernel
     launches in `.launches` and names them `vit2spn::<name>` for
     torch.profiler, which sums their device time under that range.
 
@@ -50,7 +54,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from vit2spn_tpu_torch.ops.attention import mha_plain
+from vit2spn_tpu_torch.ops.attention import acc, mha_plain
 
 WEIGHT_NAMES = (
     "ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
@@ -65,6 +69,10 @@ KERNEL_MAX_D = 768
 # widest D whose layer keeps x2, y2 and g inside one block (csrc/layer_fwd.cuh
 # FUSED_MLP_MAX_D); above it the layer passes fp32 x2 and g through scratch
 FUSED_MLP_MAX_D = 256
+# widest D whose bf16 backward halves run the wgmma row-block kit
+# (csrc/mlp_bwd.cuh HOPPER_BWD_MAX_D), which keeps dy in registers; above it,
+# and in fp32, the halves pass an fp32 dy through scratch
+HOPPER_BWD_MAX_D = 256
 
 
 def fast_gelu_default() -> bool:
@@ -132,7 +140,7 @@ def gelu_grad(m1: torch.Tensor, fast_gelu: bool) -> torch.Tensor:
 def _ln_stats(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 layernorm statistics: (xhat, rstd) from the mean, then the mean
     of squared deviations."""
-    x32 = x.float()
+    x32 = acc(x)
     mean = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
@@ -142,7 +150,7 @@ def _ln_stats(x: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
 def _ln_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             eps: float) -> torch.Tensor:
     """fp32 layernorm."""
-    return _ln_stats(x, eps)[0] * scale.float() + bias.float()
+    return _ln_stats(x, eps)[0] * acc(scale) + acc(bias)
 
 
 def _block_fwd_plain(x: torch.Tensor, w: dict, heads: int, eps: float,
@@ -153,16 +161,16 @@ def _block_fwd_plain(x: torch.Tensor, w: dict, heads: int, eps: float,
     b, s, d = x.shape
     dh = d // heads
     y1 = _ln_fwd(x, w["ln1_scale"], w["ln1_bias"], eps).to(dtype)
-    qkv = (y1.float() @ w["wqkv"].float() + w["bqkv"].float()).to(dtype)
+    qkv = (acc(y1) @ acc(w["wqkv"]) + acc(w["bqkv"])).to(dtype)
     q, k, v = (t.reshape(b, s, heads, dh) for t in qkv.split(d, dim=-1))
     att = mha_plain(q, k, v).reshape(b, s, d)
-    o = att.float() @ w["wo"].float()
-    x2 = x.float() + o + w["bo"].float()
+    o = acc(att) @ acc(w["wo"])
+    x2 = acc(x) + o + acc(w["bo"])
     y2 = _ln_fwd(x2, w["ln2_scale"], w["ln2_bias"], eps).to(dtype)
-    m1 = y2.float() @ w["w1"].float() + w["b1"].float()
+    m1 = acc(y2) @ acc(w["w1"]) + acc(w["b1"])
     g = gelu(m1, fast_gelu).to(dtype)
-    m2 = g.float() @ w["w2"].float()
-    out = x2 + m2 + w["b2"].float()
+    m2 = acc(g) @ acc(w["w2"])
+    out = x2 + m2 + acc(w["b2"])
     return out, x2
 
 
@@ -206,14 +214,15 @@ ATTN_NAMES = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo")
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A GEMM of compute-dtype operands with fp32 accumulation."""
-    return a.float() @ b.float()
+    """A GEMM of compute-dtype operands with fp32 accumulation (fp64 for the
+    float64 reference)."""
+    return acc(a) @ acc(b)
 
 
 def _ln_bwd(dy, xhat, rstd, scale):
     """dy: fp32 (N, D) gradient of the LN output; returns (dx, dscale,
     dbias), as `_ln_bwd`."""
-    dxhat = dy * scale.float()
+    dxhat = dy * acc(scale)
     dx = rstd * (dxhat - torch.mean(dxhat, dim=-1, keepdim=True)
                  - xhat * torch.mean(dxhat * xhat, dim=-1, keepdim=True))
     return dx, torch.sum(dy * xhat, dim=0), torch.sum(dy, dim=0)
@@ -229,20 +238,20 @@ def mlp_bwd_plain(x2: torch.Tensor, dout: torch.Tensor, w: dict, eps: float,
     x2 = x2.reshape(-1, shape[-1])
     dout = dout.reshape(-1, shape[-1])
     xhat, rstd = _ln_stats(x2, eps)
-    y2 = (xhat * w["ln2_scale"].float() + w["ln2_bias"].float()).to(dtype)
+    y2 = (xhat * acc(w["ln2_scale"]) + acc(w["ln2_bias"])).to(dtype)
     # the recompute stores m1 in compute dtype (the forward keeps it fp32)
-    m1 = (_mm(y2, w["w1"]) + w["b1"].float()).to(dtype).float()
+    m1 = acc((_mm(y2, w["w1"]) + acc(w["b1"])).to(dtype))
     g = gelu(m1, fast_gelu).to(dtype)
     gg = gelu_grad(m1, fast_gelu).to(dtype)
     dg = _mm(dout, w["w2"].t()).to(dtype)
-    dm1 = (dg.float() * gg.float()).to(dtype)
+    dm1 = (acc(dg) * acc(gg)).to(dtype)
     dx, dscale, dbias = _ln_bwd(_mm(dm1, w["w1"].t()), xhat, rstd, w["ln2_scale"])
     grads = {
         "ln2_scale": dscale, "ln2_bias": dbias,
-        "w1": _mm(y2.t(), dm1), "b1": torch.sum(dm1.float(), dim=0),
-        "w2": _mm(g.t(), dout), "b2": torch.sum(dout.float(), dim=0),
+        "w1": _mm(y2.t(), dm1), "b1": torch.sum(acc(dm1), dim=0),
+        "w2": _mm(g.t(), dout), "b2": torch.sum(acc(dout), dim=0),
     }
-    return (dout.float() + dx).to(dtype).reshape(shape), grads
+    return (acc(dout) + dx).to(dtype).reshape(shape), grads
 
 
 def _attention_bwd(qkv: torch.Tensor, datt: torch.Tensor, heads: int):
@@ -256,7 +265,7 @@ def _attention_bwd(qkv: torch.Tensor, datt: torch.Tensor, heads: int):
     scale = 1.0 / (dh ** 0.5)
 
     def split(t):  # (B, S, D) -> (B, heads, S, dh), fp32
-        return t.reshape(b, s, heads, dh).transpose(1, 2).float()
+        return acc(t.reshape(b, s, heads, dh).transpose(1, 2))
 
     def merge(t):
         return t.transpose(1, 2).reshape(b, s, d)
@@ -266,10 +275,10 @@ def _attention_bwd(qkv: torch.Tensor, datt: torch.Tensor, heads: int):
     sc = (q @ k.transpose(-1, -2)) * scale
     p = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
     p = p / torch.sum(p, dim=-1, keepdim=True)
-    pdt = p.to(dtype).float()
+    pdt = acc(p.to(dtype))
     att = merge(pdt @ v).to(dtype)
     dp = do @ v.transpose(-1, -2)
-    ds = (p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))).to(dtype).float()
+    ds = acc((p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))).to(dtype))
     dq = (ds @ k) * scale
     dk = (ds.transpose(-1, -2) @ q) * scale
     dv = pdt.transpose(-1, -2) @ do
@@ -287,18 +296,18 @@ def attn_bwd_plain(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int,
     x = x.reshape(-1, d)
     dx2 = dx2.reshape(-1, d)
     xhat, rstd = _ln_stats(x, eps)
-    y1 = (xhat * w["ln1_scale"].float() + w["ln1_bias"].float()).to(dtype)
-    qkv = (_mm(y1, w["wqkv"]) + w["bqkv"].float()).to(dtype)
+    y1 = (xhat * acc(w["ln1_scale"]) + acc(w["ln1_bias"])).to(dtype)
+    qkv = (_mm(y1, w["wqkv"]) + acc(w["bqkv"])).to(dtype)
     datt = _mm(dx2, w["wo"].t()).to(dtype)
     att, dqkv = _attention_bwd(qkv.reshape(b, s, 3 * d), datt.reshape(b, s, d), heads)
     att, dqkv = att.reshape(-1, d), dqkv.reshape(-1, 3 * d)
     dx, dscale, dbias = _ln_bwd(_mm(dqkv, w["wqkv"].t()), xhat, rstd, w["ln1_scale"])
     grads = {
         "ln1_scale": dscale, "ln1_bias": dbias,
-        "wqkv": _mm(y1.t(), dqkv), "bqkv": torch.sum(dqkv.float(), dim=0),
-        "wo": _mm(att.t(), dx2), "bo": torch.sum(dx2.float(), dim=0),
+        "wqkv": _mm(y1.t(), dqkv), "bqkv": torch.sum(acc(dqkv), dim=0),
+        "wo": _mm(att.t(), dx2), "bo": torch.sum(acc(dx2), dim=0),
     }
-    return (dx2.float() + dx).to(dtype).reshape(b, s, d), grads
+    return (acc(dx2) + dx).to(dtype).reshape(b, s, d), grads
 
 
 def merged_bwd_plain(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict,
@@ -360,12 +369,15 @@ def _weight_shapes(layers: int, d: int, mlp: int) -> dict:
     }
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check_activation(x: torch.Tensor, heads: Optional[int]) -> None:
-    """What every kernel takes: contiguous bf16 (B, S, D) with D a multiple
-    of 64 up to KERNEL_MAX_D; the attention kernels also head_dim 64 and
-    S <= KERNEL_MAX_SEQ."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"backbone kernel takes bf16 activations, got {x.dtype}")
+    """What every kernel takes: contiguous bf16 or fp32 (B, S, D) with D a
+    multiple of 64 up to KERNEL_MAX_D; the attention kernels also head_dim
+    64 and S <= KERNEL_MAX_SEQ."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"backbone kernel takes bf16 or fp32 activations, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("backbone kernel takes a contiguous (B, S, D) tensor")
     b, s, d = x.shape
@@ -383,8 +395,9 @@ def _check_activation(x: torch.Tensor, heads: Optional[int]) -> None:
 
 
 def _check_weights(x: torch.Tensor, names, tensors, shapes: dict) -> None:
+    """LN parameters fp32, matmul weights and biases in x's dtype."""
     for name, t in zip(names, tensors):
-        want_dtype = torch.float32 if name.startswith("ln") else torch.bfloat16
+        want_dtype = torch.float32 if name.startswith("ln") else x.dtype
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if t.dtype != want_dtype:
@@ -439,29 +452,31 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 _SIGNATURES = {
     KERNEL_NAME: {
         "vit2spn_backbone_fwd": ([_P] * 20 + [_I] * 6 + [_F, _I, _P], _I),
-        "vit2spn_backbone_fwd_launches_per_layer": ([_I], _I),
+        "vit2spn_backbone_fwd_f32": ([_P] * 21 + [_I] * 6 + [_F, _I, _P], _I),
+        "vit2spn_backbone_fwd_launches_per_layer": ([_I] * 2, _I),
         "vit2spn_backbone_fwd_qkv_pad_rows": ([], _I),
     },
     "mlp_bwd": {
-        "vit2spn_mlp_bwd": ([_P] * 19 + [_I] * 3 + [_F, _I, _P], _I),
-        "vit2spn_mlp_bwd_workspace_floats": ([_I] * 3, _LL),
-        "vit2spn_mlp_bwd_launches": ([], _I),
+        "vit2spn_mlp_bwd": ([_P] * 19 + [_I] * 3 + [_F, _I, _I, _P], _I),
+        "vit2spn_mlp_bwd_workspace_floats": ([_I] * 4, _LL),
+        "vit2spn_mlp_bwd_launches": ([_I] * 2, _I),
     },
     "attn_bwd": {
-        "vit2spn_attn_bwd": ([_P] * 21 + [_I] * 4 + [_F, _P], _I),
-        "vit2spn_attn_bwd_workspace_floats": ([_I] * 2, _LL),
-        "vit2spn_attn_bwd_launches": ([], _I),
+        "vit2spn_attn_bwd": ([_P] * 21 + [_I] * 4 + [_F, _I, _P], _I),
+        "vit2spn_attn_bwd_workspace_floats": ([_I] * 5, _LL),
+        "vit2spn_attn_bwd_launches": ([_I] * 2, _I),
     },
     "layer_fwd": {
         "vit2spn_layer_fwd": ([_P] * 19 + [_I] * 5 + [_F, _I, _P], _I),
+        "vit2spn_layer_fwd_f32": ([_P] * 20 + [_I] * 5 + [_F, _I, _P], _I),
         "vit2spn_layer_fwd_qkv_pad_rows": ([], _I),
-        "vit2spn_layer_fwd_launches": ([_I], _I),
+        "vit2spn_layer_fwd_launches": ([_I] * 2, _I),
         "vit2spn_layer_fwd_smem_bytes": ([_I] * 3, _I),
     },
     "merged_bwd": {
-        "vit2spn_merged_bwd": ([_P] * 37 + [_I] * 5 + [_F, _I, _P], _I),
-        "vit2spn_merged_bwd_workspace_floats": ([_I] * 3, _LL),
-        "vit2spn_merged_bwd_launches": ([], _I),
+        "vit2spn_merged_bwd": ([_P] * 37 + [_I] * 5 + [_F, _I, _I, _P], _I),
+        "vit2spn_merged_bwd_workspace_floats": ([_I] * 6, _LL),
+        "vit2spn_merged_bwd_launches": ([_I], _I),
     },
     # ops/flash_attention.py's kernels
     "flash_attention": {
@@ -501,17 +516,18 @@ def _stream(dev: torch.device):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def kernel_launches_per_layer(d: int) -> int:
-    """CUDA kernel launches one backbone forward layer of width `d` costs
-    (builds if needed)."""
-    return _load(KERNEL_NAME).vit2spn_backbone_fwd_launches_per_layer(d)
+def kernel_launches_per_layer(d: int, fp32: bool = False) -> int:
+    """CUDA kernel launches one backbone forward layer of width `d` costs,
+    bf16 or fp32 (builds if needed)."""
+    return _load(KERNEL_NAME).vit2spn_backbone_fwd_launches_per_layer(d, int(fp32))
 
 
 def cuda_launches(name: str, lib: Optional[str] = None, *args: int) -> int:
     """CUDA kernel launches one call of the `name` wrapper costs (one layer
-    of `layer_fwd`, which takes the width D in `args`, `mlp_bwd`, `attn_bwd`,
-    `merged_bwd`; one attention of `flash_fwd`, `flash_bwd`), from the
-    library of csrc/<lib or name>.cu (builds if needed)."""
+    of `layer_fwd`, `mlp_bwd`, `attn_bwd`, which take the width D and 1 for
+    fp32 in `args`, `merged_bwd`, which takes the fp32 flag; one attention
+    of `flash_fwd`, `flash_bwd`), from the library of csrc/<lib or name>.cu
+    (builds if needed)."""
     return getattr(_load(lib or name), f"vit2spn_{name}_launches")(*args)
 
 
@@ -524,15 +540,24 @@ def layer_fwd_smem_bytes(s: int, d: int, kernel: str) -> int:
 
 
 def _layer_scratch(m: int, d: int, mlp: int, pad: int, dev) -> tuple:
-    """The forward layer's scratch: qkv (with `pad` rows the kernel zeroes:
-    attention reads 16-row steps), att, and above FUSED_MLP_MAX_D the fp32
-    x2 and g that the layer then passes through device memory (else None)."""
+    """The bf16 forward layer's scratch: qkv (with `pad` rows the kernel
+    zeroes: attention reads 16-row steps), att, and above FUSED_MLP_MAX_D
+    the fp32 x2 and g that the layer then passes through device memory
+    (else None)."""
     qkv = torch.empty((m + pad, 3 * d), dtype=torch.bfloat16, device=dev)
     att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     if d <= FUSED_MLP_MAX_D:
         return qkv, att, None, None
     return (qkv, att, torch.empty((m, d), dtype=torch.float32, device=dev),
             torch.empty((m, mlp), dtype=torch.bfloat16, device=dev))
+
+
+def _layer_scratch_f32(m: int, d: int, mlp: int, dev) -> tuple:
+    """The fp32 forward layer's scratch: y (y1, then y2), qkv, att, x2, g."""
+    def f(n):
+        return torch.empty((m, n), dtype=torch.float32, device=dev)
+
+    return f(d), f(3 * d), f(d), f(d), f(mlp)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -551,12 +576,15 @@ def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
     if emit_res:
         xs = torch.empty((layers, b, s, d), dtype=x.dtype, device=dev)
         x2s = torch.empty((layers, b, s, d), dtype=x.dtype, device=dev)
-    qkv, att, x2, g = _layer_scratch(m, d, mlp, lib.vit2spn_backbone_fwd_qkv_pad_rows(), dev)
+    if x.dtype == torch.float32:
+        fn, scratch = lib.vit2spn_backbone_fwd_f32, _layer_scratch_f32(m, d, mlp, dev)
+    else:
+        fn = lib.vit2spn_backbone_fwd
+        scratch = _layer_scratch(m, d, mlp, lib.vit2spn_backbone_fwd_qkv_pad_rows(), dev)
     with torch.cuda.device(dev), torch.profiler.record_function(f"vit2spn::{KERNEL_NAME}"):
-        rc = lib.vit2spn_backbone_fwd(
+        rc = fn(
             x.data_ptr(), out.data_ptr(), _ptr(xs), _ptr(x2s),
-            *[t.data_ptr() for t in weights],
-            qkv.data_ptr(), att.data_ptr(), _ptr(x2), _ptr(g),
+            *[t.data_ptr() for t in weights], *[_ptr(t) for t in scratch],
             b, s, d, heads, mlp, layers, float(eps), int(bool(fast_gelu)),
             _stream(dev),
         )
@@ -565,6 +593,14 @@ def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
     if emit_res:
         return out, xs, x2s
     return out
+
+
+def _dy_scratch(x: torch.Tensor, m: int, d: int) -> Optional[torch.Tensor]:
+    """The fp32 dy a backward half passes through device memory: only off
+    the wgmma route (fp32, or D above HOPPER_BWD_MAX_D), else None."""
+    if x.dtype == torch.bfloat16 and d <= HOPPER_BWD_MAX_D:
+        return None
+    return torch.empty((m, d), dtype=torch.float32, device=x.device)
 
 
 def _grad_outputs(w: dict, names, out: Optional[dict]) -> dict:
@@ -578,8 +614,8 @@ def mlp_bwd(x2: torch.Tensor, dout: torch.Tensor, w: dict, eps: float,
             fast_gelu: bool, out: Optional[dict] = None):
     """One layer's MLP backward: (dx2, {name: fp32 gradient} over MLP_NAMES).
 
-    CUDA tensors go through csrc/mlp_bwd.cu (bf16 only; anything it does not
-    take raises), CPU tensors through `mlp_bwd_plain`. The gradients are
+    CUDA tensors go through csrc/mlp_bwd.cu (bf16 or fp32; anything it does
+    not take raises), CPU tensors through `mlp_bwd_plain`. The gradients are
     written into `out` when it is given."""
     if x2.device.type == "cpu":
         dx2, grads = mlp_bwd_plain(x2, dout, w, eps, fast_gelu)
@@ -592,19 +628,20 @@ def mlp_bwd(x2: torch.Tensor, dout: torch.Tensor, w: dict, eps: float,
     b, s, d = x2.shape
     m, mlp = b * s, w["w1"].shape[1]
     dev = x2.device
+    fp32 = int(x2.dtype == torch.float32)
     dx2 = torch.empty_like(x2)
-    y2 = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
-    g = torch.empty((m, mlp), dtype=torch.bfloat16, device=dev)
-    gg = torch.empty((m, mlp), dtype=torch.bfloat16, device=dev)
-    dy = torch.empty((m, d), dtype=torch.float32, device=dev)
-    ws = torch.empty(lib.vit2spn_mlp_bwd_workspace_floats(m, d, mlp),
+    y2 = torch.empty((m, d), dtype=x2.dtype, device=dev)
+    g = torch.empty((m, mlp), dtype=x2.dtype, device=dev)
+    gg = torch.empty((m, mlp), dtype=x2.dtype, device=dev)
+    dy = _dy_scratch(x2, m, d)
+    ws = torch.empty(lib.vit2spn_mlp_bwd_workspace_floats(m, d, mlp, fp32),
                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::mlp_bwd"):
         rc = lib.vit2spn_mlp_bwd(
             x2.data_ptr(), dout.data_ptr(), *[w[n].data_ptr() for n in MLP_NAMES[:5]],
             dx2.data_ptr(), *[out[n].data_ptr() for n in MLP_NAMES],
-            y2.data_ptr(), g.data_ptr(), gg.data_ptr(), dy.data_ptr(), ws.data_ptr(),
-            m, d, mlp, float(eps), int(bool(fast_gelu)), _stream(dev),
+            y2.data_ptr(), g.data_ptr(), gg.data_ptr(), _ptr(dy), ws.data_ptr(),
+            m, d, mlp, float(eps), int(bool(fast_gelu)), fp32, _stream(dev),
         )
     _raise_on(lib, rc, "mlp backward")
     mlp_bwd.launches += 1
@@ -616,9 +653,9 @@ def attn_bwd(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int, eps: float
     """One layer's attention backward: (dx, {name: fp32 gradient} over
     ATTN_NAMES).
 
-    CUDA tensors go through csrc/attn_bwd.cu (bf16 only; anything it does
-    not take raises), CPU tensors through `attn_bwd_plain`. The gradients
-    are written into `out` when it is given."""
+    CUDA tensors go through csrc/attn_bwd.cu (bf16 or fp32; anything it
+    does not take raises), CPU tensors through `attn_bwd_plain`. The
+    gradients are written into `out` when it is given."""
     if x.device.type == "cpu":
         dx, grads = attn_bwd_plain(x, dx2, w, heads, eps)
         return dx, _write(grads, out)
@@ -631,21 +668,23 @@ def attn_bwd(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int, eps: float
     m = b * s
     dev = x.device
 
-    def bf(n):
-        return torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    fp32 = int(x.dtype == torch.float32)
+
+    def act(n):
+        return torch.empty((m, n), dtype=x.dtype, device=dev)
 
     dx = torch.empty_like(x)
-    y1, qkv, datt, att, dqkv = bf(d), bf(3 * d), bf(d), bf(d), bf(3 * d)
-    dy = torch.empty((m, d), dtype=torch.float32, device=dev)
-    ws = torch.empty(lib.vit2spn_attn_bwd_workspace_floats(m, d),
+    y1, qkv, datt, att, dqkv = act(d), act(3 * d), act(d), act(d), act(3 * d)
+    dy = _dy_scratch(x, m, d)
+    ws = torch.empty(lib.vit2spn_attn_bwd_workspace_floats(b, s, d, heads, fp32),
                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::attn_bwd"):
         rc = lib.vit2spn_attn_bwd(
             x.data_ptr(), dx2.data_ptr(), *[w[n].data_ptr() for n in ATTN_NAMES[:5]],
             dx.data_ptr(), *[out[n].data_ptr() for n in ATTN_NAMES],
             y1.data_ptr(), qkv.data_ptr(), datt.data_ptr(), att.data_ptr(),
-            dqkv.data_ptr(), dy.data_ptr(), ws.data_ptr(),
-            b, s, d, heads, float(eps), _stream(dev),
+            dqkv.data_ptr(), _ptr(dy), ws.data_ptr(),
+            b, s, d, heads, float(eps), fp32, _stream(dev),
         )
     _raise_on(lib, rc, "attention backward")
     attn_bwd.launches += 1
@@ -657,9 +696,9 @@ def merged_bwd(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict, h
     """One layer's whole backward, MLP half then attention half: (dx, {name:
     fp32 gradient} over WEIGHT_NAMES).
 
-    CUDA tensors go through csrc/merged_bwd.cu (bf16 only; anything it does
-    not take raises), CPU tensors through `merged_bwd_plain`. The gradients
-    are written into `out` when it is given."""
+    CUDA tensors go through csrc/merged_bwd.cu (bf16 or fp32; anything it
+    does not take raises), CPU tensors through `merged_bwd_plain`. The
+    gradients are written into `out` when it is given."""
     if x.device.type == "cpu":
         dx, grads = merged_bwd_plain(x, x2, dout, w, heads, eps, fast_gelu)
         return dx, _write(grads, out)
@@ -673,14 +712,16 @@ def merged_bwd(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict, h
     m, mlp = b * s, w["w1"].shape[1]
     dev = x.device
 
-    def bf(n):
-        return torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    fp32 = int(x.dtype == torch.float32)
+
+    def act(n):
+        return torch.empty((m, n), dtype=x.dtype, device=dev)
 
     dx = torch.empty_like(x)
-    y1, y2, qkv, datt, att, dqkv = bf(d), bf(d), bf(3 * d), bf(d), bf(d), bf(3 * d)
-    g, gg, dx2 = bf(mlp), bf(mlp), bf(d)
+    y1, y2, qkv, datt, att, dqkv = act(d), act(d), act(3 * d), act(d), act(d), act(3 * d)
+    g, gg, dx2 = act(mlp), act(mlp), act(d)
     dy = torch.empty((m, d), dtype=torch.float32, device=dev)
-    ws = torch.empty(lib.vit2spn_merged_bwd_workspace_floats(m, d, mlp),
+    ws = torch.empty(lib.vit2spn_merged_bwd_workspace_floats(b, s, d, heads, mlp, fp32),
                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::merged_bwd"):
         rc = lib.vit2spn_merged_bwd(
@@ -688,7 +729,7 @@ def merged_bwd(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict, h
             *[w[n].data_ptr() for n in ATTN_NAMES[:5] + MLP_NAMES[:5]],
             dx.data_ptr(), *[out[n].data_ptr() for n in WEIGHT_NAMES],
             *[t.data_ptr() for t in (y1, y2, qkv, datt, att, dqkv, g, gg, dx2, dy, ws)],
-            b, s, d, heads, mlp, float(eps), int(bool(fast_gelu)), _stream(dev),
+            b, s, d, heads, mlp, float(eps), int(bool(fast_gelu)), fp32, _stream(dev),
         )
     _raise_on(lib, rc, "merged backward")
     merged_bwd.launches += 1
@@ -752,8 +793,8 @@ def fused_backbone(x: torch.Tensor, weights: Tuple, heads: int, eps: float,
                    fast_gelu: Optional[bool] = None, emit_res: bool = False):
     """Run the full transformer stack over x: (B, S, D).
 
-    CUDA tensors go through the hand-written kernels (bf16 only; anything
-    they do not take raises); CPU tensors through the plain twins.
+    CUDA tensors go through the hand-written kernels (bf16 or fp32;
+    anything they do not take raises); CPU tensors through the plain twins.
     `fast_gelu=None` resolves from VIT2SPN_FAST_GELU. Returns out, or
     (out, xs, x2s) with `emit_res` (the training forward's residuals).
     When autograd needs a gradient of x or a weight, the call goes through
@@ -776,8 +817,8 @@ def layer_fwd(x: torch.Tensor, weights: Tuple, heads: int, eps: float, fast_gelu
     """One block over x (B, S, D): (out, x2) with `emit_x2`, else out, both
     in x.dtype. `weights`: one layer's tuple in WEIGHT_NAMES order.
 
-    CUDA tensors go through csrc/layer_fwd.cu (bf16 only; anything it does
-    not take raises), CPU tensors through `layer_forward_plain`."""
+    CUDA tensors go through csrc/layer_fwd.cu (bf16 or fp32; anything it
+    does not take raises), CPU tensors through `layer_forward_plain`."""
     if x.device.type == "cpu":
         out, x2 = layer_forward_plain(x, weights, heads, eps, fast_gelu)
         return (out, x2) if emit_x2 else out
@@ -790,12 +831,15 @@ def layer_fwd(x: torch.Tensor, weights: Tuple, heads: int, eps: float, fast_gelu
     dev = x.device
     out = torch.empty_like(x)
     x2 = torch.empty_like(x) if emit_x2 else None
-    qkv, att, x2f, g = _layer_scratch(m, d, mlp, lib.vit2spn_layer_fwd_qkv_pad_rows(), dev)
+    if x.dtype == torch.float32:
+        fn, scratch = lib.vit2spn_layer_fwd_f32, _layer_scratch_f32(m, d, mlp, dev)
+    else:
+        fn = lib.vit2spn_layer_fwd
+        scratch = _layer_scratch(m, d, mlp, lib.vit2spn_layer_fwd_qkv_pad_rows(), dev)
     with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::layer_fwd"):
-        rc = lib.vit2spn_layer_fwd(
+        rc = fn(
             x.data_ptr(), out.data_ptr(), _ptr(x2),
-            *[t.data_ptr() for t in weights],
-            qkv.data_ptr(), att.data_ptr(), _ptr(x2f), _ptr(g),
+            *[t.data_ptr() for t in weights], *[_ptr(t) for t in scratch],
             b, s, d, heads, mlp, float(eps), int(bool(fast_gelu)), _stream(dev),
         )
     _raise_on(lib, rc, "layer forward")

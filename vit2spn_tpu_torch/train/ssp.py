@@ -42,6 +42,7 @@ from vit2spn_tpu_torch.core.runtime import resolve_device
 from vit2spn_tpu_torch.data import native
 from vit2spn_tpu_torch.data.augment import augment_batch, dual_view_batch
 from vit2spn_tpu_torch.data.datasets import Dataset
+from vit2spn_tpu_torch.models.convert import from_jax
 from vit2spn_tpu_torch.models.ssp import (
     DualStreamParams,
     _batched_features,
@@ -124,18 +125,16 @@ class SSPTrainer:
         self.attn_impl = attn_impl
         gen = torch.Generator().manual_seed(cfg.seed)
         # init_provenance records what the backbone init ACTUALLY was, as
-        # the JAX trainer does
+        # the JAX trainer does: _try_pretrained_backbone falls back to
+        # random init on any failure, so a corrupt weight file must not pass
+        # for the published ImageNet init (ssp_vit2spn_tiny.py:112)
         if backbone_params is not None:
             self.init_provenance = "explicit"
         elif cfg.pretrained_init:
-            # the HF ViT-Tiny converter is not in the port yet: random init,
-            # recorded as the fallback it is
-            self.logger.log(
-                "warning",
-                message="pretrained ViT-Tiny loader not available in the "
-                "PyTorch port; using random init",
+            backbone_params = self._try_pretrained_backbone()
+            self.init_provenance = (
+                "pretrained" if backbone_params is not None else "random_fallback"
             )
-            self.init_provenance = "random_fallback"
         else:
             self.init_provenance = "random"
         # fit() updates these on checkpoint resume (the restored state
@@ -162,6 +161,23 @@ class SSPTrainer:
                            cfg.data.augment.normalize_std)
         self._device_images = None
         self._staged_src = None  # host array currently staged (identity)
+
+    def _try_pretrained_backbone(self) -> Optional[dict]:
+        """HF `WinKawaks/vit-tiny-patch16-224` init (ssp_vit2spn_tiny.py:112)
+        from $VIT2SPN_VIT_TINY_PATH or the local HF cache
+        (models/hf_convert.py), carried into tensors on the CPU; on any
+        failure a warning and None (random init)."""
+        try:
+            from vit2spn_tpu_torch.models.hf_convert import load_pretrained_vit_tiny
+
+            return from_jax(load_pretrained_vit_tiny(self.cfg.vit), device="cpu")
+        except Exception as e:  # noqa: BLE001
+            self.logger.log(
+                "warning",
+                message=f"pretrained ViT-Tiny unavailable ({type(e).__name__}); "
+                "using random init",
+            )
+            return None
 
     # ------------------------------------------------------------------
     # state: live tensors, read and written through the checkpoint layout
