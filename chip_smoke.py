@@ -38,9 +38,13 @@ script exits non-zero without printing a result:
   6. the one-layer forward kernel against its twin at B=128 and 256, both
      gelu forms (out and x2), and 12 `fused_block` calls against one
      `fused_backbone`: every output bit equal;
-  7. the merged layer backward against the split kernels (the share of equal
-     bits) and its twin at B=128, both gelu forms, dx and all 12 weight
-     gradients; two runs giving the same weight-gradient bits;
+  7. the merged layer backward against the split kernels and its twin, dx
+     and all 12 weight gradients: at B=128 (both gelu forms), a ragged B at
+     S = 197, D = 128 with mlp 320 and D = 256 every bit must equal the split
+     pair's (the same wgmma stages and orders of sums); at the ViT-Small
+     width (the mma.sync sequences) the share of equal bits is reported; two
+     runs giving the same weight-gradient bits; one call's launches (its
+     counter, and 10 CUDA launches: the split pair's 11 less one reduction);
   7b. the fp32 routes of the five fused kernels (compute_dtype=float32)
      against their fp32 twins and against the same twins run in float64: one
      layer of each at B=128 and at the ViT-Small width, the 12-layer forward
@@ -72,8 +76,9 @@ script exits non-zero without printing a result:
      split backward), then `fit` of two optimizer steps over 2048 images
      with the counters read around it (per step: 384 flash forwards and 192
      flash backwards; 384 layer forwards and 192 of each split half; 32
-     backbone forwards and 192 merged backwards, no split half), and the
-     step's images/s and device time by wrapper;
+     backbone forwards and 192 merged backwards, no split half, and the
+     merged step's CUDA launches of the backward against the split step's),
+     and the step's images/s and device time by wrapper;
  11. times with CUDA events after a warm-up: each kernel, its plain twin, a
      library yardstick (F.layer_norm / torch.matmul / SDPA / F.gelu, and
      their torch autograd for the backward kernels; for the flash kernels
@@ -81,7 +86,10 @@ script exits non-zero without printing a result:
      against float64) and the least time the card could take for the same
      work, for the bf16 kernels and the fp32 routes; the backbone forward's
      device time by CUDA kernel (stage) beside the library yardstick's, at
-     B=256; the two backward halves' by stage at B=128; extract images/s;
+     B=256; the backward kernels' by stage at B=128 (the bf16 halves and
+     merged, the fp32 halves); the fp32 GEMM of every fp32 route alone
+     against torch.matmul in fp32 at the backward's shapes, in ms and
+     TFLOP/s; extract images/s;
      the "fused"
      optimizer step's images/s, and from torch.profiler its device time by
      kernel wrapper (each wrapper's `vit2spn::<name>` range) and by CUDA
@@ -677,11 +685,11 @@ def equal_bits(a, b) -> float:
     return float((ia == ib).float().mean())
 
 
-def check_merged_bwd(tag, fb, x, x2, dy, w, heads, eps, fast) -> float:
+def check_merged_bwd(tag, fb, x, x2, dy, w, heads, eps, fast, equal) -> float:
     """The merged layer backward against the split kernels (the share of
-    equal bits, and the split tolerances) and against `merged_bwd_plain`
-    (and as close to an fp32 backward as it). Returns the largest absolute
-    difference from the twin."""
+    equal bits, which must be 100% with `equal`, and the split tolerances)
+    and against `merged_bwd_plain` (and as close to an fp32 backward as it).
+    Returns the largest absolute difference from the twin."""
     dx, grads = fb.merged_bwd(x, x2, dy, w, heads, eps, fast)
     torch.cuda.synchronize()
     dx2, mgrads = fb.mlp_bwd(x2, dy, w, eps, fast)
@@ -708,8 +716,55 @@ def check_merged_bwd(tag, fb, x, x2, dy, w, heads, eps, fast) -> float:
     log(f"[merged_bwd-vs-plain] {tag}: largest relative difference {worst_rel:.3g} over dx "
         f"and 12 weight gradients (tol max {BWD_MAX_REL_TOL}, mean {BWD_MEAN_REL_TOL}); vs "
         f"fp32 within the twin; equal bits with the split kernels: "
-        f"{100.0 * min(shares):.4f}% (least over the 13 outputs)")
+        f"{100.0 * min(shares):.4f}% (least over the 13 outputs"
+        + ("; must be 100%: the same stages and orders of sums)" if equal else ")"))
+    if equal and min(shares) != 1.0:
+        raise AssertionError(f"merged_bwd differs from the split kernels bit for bit ({tag})")
     return worst
+
+
+def time_gemm_f32(fb, m, d, mlp, gen, dev) -> None:
+    """The fp32 GEMM that every fp32 route runs, alone, at the backward's
+    shapes over m token rows, against torch.matmul in fp32 (TF32 off): C = A
+    B and C = A B^T at (N, K) = (3 d, d), (d, d), (mlp, d), (d, mlp), and the
+    weight-gradient form [A | 1]^T B with the token rows split (C's last row
+    B's column sums) at (K1, N) = (d, 3 d), (d, d), (d, mlp), (mlp, d). Each
+    within FP32_TOL of the largest magnitude of torch's result."""
+    lib = fb._load("mlp_bwd")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    cases = []
+    for form, (n, k) in ((0, (3 * d, d)), (1, (d, d)), (0, (mlp, d)), (1, (d, mlp))):
+        a, b = rnd(m, k), rnd(*((k, n) if form == 0 else (n, k)))
+        c = torch.empty(m, n, device=dev)
+        lib_fn = (lambda a=a, b=b: a @ b) if form == 0 else (lambda a=a, b=b: a @ b.t())
+        cases.append((("A B", "A B^T")[form], form, m, n, k, a, b, c, None, lib_fn))
+    for k1, n in ((d, 3 * d), (d, d), (d, mlp), (mlp, d)):
+        a, b = rnd(m, k1), rnd(m, n)
+        c = torch.empty(k1 + 1, n, device=dev)
+        ws = torch.empty(lib.vit2spn_gemm_f32_workspace_floats(k1, n, m), device=dev)
+        lib_fn = (lambda a=a, b=b: torch.cat([a.t() @ b, b.sum(0, keepdim=True)]))
+        cases.append(("[A|1]^T B", 2, k1, n, m, a, b, c, ws, lib_fn))
+    for what, form, mm, n, k, a, b, c, ws, lib_fn in cases:
+        def kernel(a=a, b=b, c=c, ws=ws, mm=mm, n=n, k=k, form=form):
+            fb._raise_on(lib, lib.vit2spn_gemm_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                                   None if ws is None else ws.data_ptr(),
+                                                   mm, n, k, form, stream), "fp32 GEMM")
+        kernel()
+        torch.cuda.synchronize()
+        ref = lib_fn()
+        err = rel_err(c, ref)[0]
+        k_ms, l_ms = time_ms(kernel), time_ms(lib_fn)
+        flops = 2.0 * mm * n * k
+        log(f"[time] fp32 GEMM {what} M={mm} N={n} K={k}: kernel {k_ms:.4f} ms "
+            f"({flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s), torch.matmul {l_ms:.4f} ms "
+            f"({flops / (l_ms * 1e-3) / 1e12:.1f} TFLOP/s); largest difference {err:.3g} of "
+            f"the largest magnitude (tol {FP32_TOL})")
+        if not err <= FP32_TOL:
+            raise AssertionError(f"the fp32 GEMM disagrees with torch.matmul ({what}, N={n})")
 
 
 def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False)):
@@ -1205,7 +1260,31 @@ def main() -> int:
     merged_err = 0.0
     for fast in (False, True):
         merged_err = max(merged_err, check_merged_bwd(
-            f"B={TRAIN_BATCH} fast_gelu={fast}", fb, xb, x2b, gb, wl, heads, eps, fast))
+            f"B={TRAIN_BATCH} fast_gelu={fast}", fb, xb, x2b, gb, wl, heads, eps, fast, True))
+    # a ragged B at S = 197, D = 128 with mlp 320 and D = 256 (the kit's
+    # route: equal bits required) and the ViT-Small width (the mma.sync
+    # sequences: the share reported)
+    for b_, s_, d_, h_, m_, f_ in ((7, 197, 192, 3, 768, False), (3, 9, 128, 2, 320, True),
+                                   (2, 40, 256, 4, 1024, False), (5, 50, 384, 6, 1536, True)):
+        w_ = layer_weights(fb.WEIGHT_NAMES, random_backbone(gen, 1, d_, m_, dev))
+        x_, x2_, g_ = (torch.randn(b_, s_, d_, generator=gen) for _ in range(3))
+        x_, x2_, g_ = (t.to(torch.bfloat16).to(dev) for t in (x_, x2_, 0.1 * g_))
+        check_merged_bwd(f"B={b_} S={s_} D={d_} heads={h_} mlp={m_} fast_gelu={f_}", fb, x_,
+                         x2_, g_, w_, h_, eps, f_, d_ <= fb.HOPPER_BWD_MAX_D)
+    # one call's launches: the wrapper's counter, and its CUDA launches
+    reset_launches()
+    fb.merged_bwd(xb, x2b, gb, wl, heads, eps, True)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    per_call = fb.cuda_launches("merged_bwd", None, d, 0)
+    split_calls = fb.cuda_launches("mlp_bwd", None, d, 0) + fb.cuda_launches("attn_bwd", None, d, 0)
+    log(f"[merged_bwd] one call at B={TRAIN_BATCH}: merged_bwd counter {counts['merged_bwd']}, "
+        f"{per_call} CUDA launches per call (the split pair: {split_calls}; one reduction "
+        f"launch for both halves)")
+    if counts["merged_bwd"] != 1 or any(n for k, n in counts.items() if k != "merged_bwd"):
+        raise AssertionError(f"one merged call launched {counts}")
+    if per_call != split_calls - 1:
+        raise AssertionError(f"merged_bwd makes {per_call} CUDA launches, not {split_calls - 1}")
     runs = [fb.merged_bwd(xb, x2b, gb, wl, heads, eps, True) for _ in range(2)]
     torch.cuda.synchronize()
     same = all(torch.equal(runs[0][1][n], runs[1][1][n]) for n in fb.WEIGHT_NAMES)
@@ -1361,6 +1440,12 @@ def main() -> int:
         ptrainer, launches, _ = fit_path(tcfg, pds, impl, merged, per_step)
         path_launches.update({k: n for k, n in launches.items() if n})
         name = f"{impl}{' merged' if merged else ''}"
+        if merged:  # the merged step's backward launches against the split step's
+            calls = per_step["merged_bwd"]
+            log(f"[train] {name}: {calls} merged_bwd calls per step x "
+                f"{fb.cuda_launches('merged_bwd', None, d, 0)} CUDA launches; the split step's "
+                f"{calls} x ({fb.cuda_launches('mlp_bwd', None, d, 0)} + "
+                f"{fb.cuda_launches('attn_bwd', None, d, 0)})")
         step_ms[name] = 1e3 * time_steps(
             ptrainer, eff, name, card, tuple(per_step),
             ("the per-op blocks' LayerNorms, GEMMs and gelu, " + rest) if impl == "pallas"
@@ -1425,7 +1510,7 @@ def main() -> int:
          lambda: library_attn_half(xb, gb, wl, heads, eps), None),
         ("merged_bwd", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
          bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl),
-         fb.cuda_launches("merged_bwd", None, 0), merged_err,
+         fb.cuda_launches("merged_bwd", None, d, 0), merged_err,
          lambda: fb.merged_bwd(xb, x2b, gb, wl, heads, eps, fast),
          lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast), merged_lib, None),
         ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
@@ -1472,7 +1557,7 @@ def main() -> int:
          lambda: library_attn_half(xb32, gb32, wl32, heads, eps), None),
         ("merged_bwd (fp32)", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
          bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl32),
-         fb.cuda_launches("merged_bwd", None, 1), fp32_err["merged_bwd"],
+         fb.cuda_launches("merged_bwd", None, d, 1), fp32_err["merged_bwd"],
          lambda: fb.merged_bwd(xb32, x2b32, gb32, wl32, heads, eps, fast),
          lambda: fb.merged_bwd_plain(xb32, x2b32, gb32, wl32, heads, eps, fast),
          lambda: library_attn_half(xb32, library_mlp_half(x2b32, gb32, wl32, eps)[0], wl32,
@@ -1509,14 +1594,18 @@ def main() -> int:
             "library_ms": l_ms, "library_same_fn_ms": s_ms,
             "dtype": "float32" if name.endswith("(fp32)") else "bfloat16",
         })
-    # the two backward halves by stage (CUDA kernel), B=128, bf16, over
-    # STAGE_CALLS calls (the trace drops a call's first few launches)
+    # the backward kernels by stage (CUDA kernel), B=128, bf16 and fp32,
+    # over STAGE_CALLS calls (the trace drops a call's first few launches)
     for name, fn in (("mlp_bwd", lambda: fb.mlp_bwd(xb, gb, wl, eps, fast)),
-                     ("attn_bwd", lambda: fb.attn_bwd(xb, gb, wl, heads, eps))):
+                     ("attn_bwd", lambda: fb.attn_bwd(xb, gb, wl, heads, eps)),
+                     ("merged_bwd", lambda: fb.merged_bwd(xb, x2b, gb, wl, heads, eps, fast)),
+                     ("mlp_bwd (fp32)", lambda: fb.mlp_bwd(xb32, gb32, wl32, eps, fast)),
+                     ("attn_bwd (fp32)", lambda: fb.attn_bwd(xb32, gb32, wl32, heads, eps))):
         for line in stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)],
                                     f"{name} B={TRAIN_BATCH} by stage, {STAGE_CALLS} calls",
-                                    top=8):
+                                    top=10):
             log(line)
+    time_gemm_f32(fb, TRAIN_BATCH * s, d, mlp, gen, dev)
 
     trainer_s = SSPTrainer(cfg, logger=quiet, device="cuda")
     torch.cuda.synchronize()

@@ -8,7 +8,9 @@
    tests/test_fused_block.py holds the fused kernels to XLA.
 
 2. A plain-torch emulation of the bf16 Hopper kernels' order of sums
-   (csrc/mlp_bwd.cuh, csrc/attn_bwd.cuh): every GEMM summed in fp32 over
+   (csrc/mlp_bwd.cuh, csrc/attn_bwd.cuh, and csrc/merged_bwd.cu, which runs
+   the two halves' stages with their reductions deferred to one pass at the
+   end): every GEMM summed in fp32 over
    64-wide chunks of its reduction index in order (dy2 over hidden chunks,
    dy1 over chunks of 3 D), the weight gradients and bias sums as split-K
    partials over 64-row token chunks added split by split in a fixed order,
@@ -18,7 +20,10 @@
    in bf16 with the bf16 tolerance of tests/test_torch_backward.py: both
    round at the same points and sum in other orders, so a value near a
    rounding boundary lands one bf16 step away (max 4% of the output's
-   largest magnitude, mean 0.5%).
+   largest magnitude, mean 0.5%). The merged emulation must equal the split
+   pair's bit for bit (the same stages and orders of sums), and is held
+   against `_layer_bwd(..., merged=True)` in interpret mode at that
+   tolerance.
 """
 
 import importlib
@@ -102,9 +107,9 @@ def _mm_chunked(a, b, k_chunk):
 
 
 def _split_k(a, b, rows, cps):
-    """[a^T b; column sums of a; column sums of b] over the token rows as the
-    wgrad kernel takes them: `rows`-row chunks summed in order within a
-    split of `cps` chunks, the splits' partials then added in order."""
+    """The wgrad kernel's split partials of [a^T b; column sums of a; column
+    sums of b] over the token rows: `rows`-row chunks summed in order within
+    a split of `cps` chunks, one partial per split."""
     parts = []
     step = rows * cps
     for s0 in range(0, a.shape[0], step):
@@ -114,28 +119,36 @@ def _split_k(a, b, rows, cps):
             sa = sa + a[r:r + rows].sum(0)
             sb = sb + b[r:r + rows].sum(0)
         parts.append((acc, sa, sb))
-    out = [parts[0][i] for i in range(3)]
-    for p in parts[1:]:
-        out = [o + q for o, q in zip(out, p)]
-    return out
+    return parts
 
 
 def _ln_bwd_rows(dy, x, scale, resid, part_rows):
     """The EPI_LNBWD epilogue: fp32 statistics of x, dx rounded with the
-    residual, the parameter gradients from per-`part_rows` partials added
-    in order."""
+    residual, and the parameter gradients' per-`part_rows` partials."""
     xhat, rstd = fb._ln_stats(x, EPS)
     dxhat = dy * scale
     dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
                  - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    gs, gb = 0, 0
-    for r in range(0, dy.shape[0], part_rows):
-        gs = gs + (dy[r:r + part_rows] * xhat[r:r + part_rows]).sum(0)
-        gb = gb + dy[r:r + part_rows].sum(0)
-    return _bf(resid + dx), gs, gb
+    parts = [((dy[r:r + part_rows] * xhat[r:r + part_rows]).sum(0), dy[r:r + part_rows].sum(0))
+             for r in range(0, dy.shape[0], part_rows)]
+    return _bf(resid + dx), parts
 
 
-def _mlp_bwd_emulated(x2, dout, w, fast, k_chunk, rows, cps):
+def _take(pending):
+    """The reductions still to be taken, {name: (partials, which, transpose)},
+    each its partials' entry `which` added in order (reduce_all_kernel's
+    fixed order; the kernel's tree over many parts is another fixed order)."""
+    out = {}
+    for n, (parts, which, tr) in pending.items():
+        acc = parts[0][which]
+        for p in parts[1:]:
+            acc = acc + p[which]
+        out[n] = acc.t() if tr else acc
+    return out
+
+
+def _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps):
+    """The MLP half's stages: dx2 and its reductions still to be taken."""
     xhat, _ = fb._ln_stats(x2, EPS)
     y2 = _bf(xhat * w["ln2_scale"] + w["ln2_bias"])
     m1 = _bf(_mm_chunked(y2, _bf(w["w1"]), k_chunk) + _bf(w["b1"]))
@@ -144,14 +157,15 @@ def _mlp_bwd_emulated(x2, dout, w, fast, k_chunk, rows, cps):
     dg = _bf(_mm_chunked(dout, _bf(w["w2"]).t(), k_chunk))
     dm1 = _bf(dg * gg)
     dy2 = _mm_chunked(dm1, _bf(w["w1"]).t(), k_chunk)  # over 64-wide hidden chunks
-    dx2, gs, gb = _ln_bwd_rows(dy2, x2, w["ln2_scale"], dout, 16)
-    dw2, _, db2 = _split_k(g, dout, rows, cps)
-    dw1t, db1, _ = _split_k(dm1, y2, rows, cps)
-    return dx2, {"ln2_scale": gs, "ln2_bias": gb, "w1": dw1t.t(), "b1": db1,
-                 "w2": dw2, "b2": db2}
+    dx2, ln = _ln_bwd_rows(dy2, x2, w["ln2_scale"], dout, 16)
+    p2, p1 = _split_k(g, dout, rows, cps), _split_k(dm1, y2, rows, cps)
+    return dx2, {"ln2_scale": (ln, 0, False), "ln2_bias": (ln, 1, False),
+                 "w1": (p1, 0, True), "b1": (p1, 1, False),
+                 "w2": (p2, 0, False), "b2": (p2, 2, False)}
 
 
-def _attn_bwd_emulated(x, dx2, w, heads, b, s, k_chunk, rows, cps):
+def _attn_bwd_stages(x, dx2, w, heads, b, s, k_chunk, rows, cps):
+    """The attention half's stages: dx and its reductions still to be taken."""
     d = x.shape[1]
     xhat, _ = fb._ln_stats(x, EPS)
     y1 = _bf(xhat * w["ln1_scale"] + w["ln1_bias"])
@@ -161,11 +175,31 @@ def _attn_bwd_emulated(x, dx2, w, heads, b, s, k_chunk, rows, cps):
                                   datt.to(torch.bfloat16).reshape(b, s, d), heads)
     att, dqkv = att.float().reshape(-1, d), dqkv.float().reshape(-1, 3 * d)
     dy1 = _mm_chunked(dqkv, _bf(w["wqkv"]).t(), k_chunk)  # over chunks of 3 D
-    dx, gs, gb = _ln_bwd_rows(dy1, x, w["ln1_scale"], dx2, 16)
-    dwo, _, dbo = _split_k(att, dx2, rows, cps)
-    dwqkv_t, dbqkv, _ = _split_k(dqkv, y1, rows, cps)
-    return dx, {"ln1_scale": gs, "ln1_bias": gb, "wqkv": dwqkv_t.t(), "bqkv": dbqkv,
-                "wo": dwo, "bo": dbo}
+    dx, ln = _ln_bwd_rows(dy1, x, w["ln1_scale"], dx2, 16)
+    po, pq = _split_k(att, dx2, rows, cps), _split_k(dqkv, y1, rows, cps)
+    return dx, {"ln1_scale": (ln, 0, False), "ln1_bias": (ln, 1, False),
+                "wqkv": (pq, 0, True), "bqkv": (pq, 1, False),
+                "wo": (po, 0, False), "bo": (po, 2, False)}
+
+
+def _mlp_bwd_emulated(x2, dout, w, fast, k_chunk, rows, cps):
+    """csrc/mlp_bwd.cuh's bf16 route: the stages, then its reductions."""
+    dx2, pending = _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps)
+    return dx2, _take(pending)
+
+
+def _attn_bwd_emulated(x, dx2, w, heads, b, s, k_chunk, rows, cps):
+    """csrc/attn_bwd.cuh's bf16 route: the stages, then its reductions."""
+    dx, pending = _attn_bwd_stages(x, dx2, w, heads, b, s, k_chunk, rows, cps)
+    return dx, _take(pending)
+
+
+def _merged_bwd_emulated(x, x2, dout, w, fast, heads, b, s, k_chunk, rows, cps):
+    """csrc/merged_bwd.cu's bf16 route at D <= 256: the MLP half's stages,
+    the attention half's on its dx2, then all six reductions in one pass."""
+    dx2, pending = _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps)
+    dx, more = _attn_bwd_stages(x, dx2, w, heads, b, s, k_chunk, rows, cps)
+    return dx, _take({**pending, **more})
 
 
 def _close_bf16(got, ref, what):
@@ -227,3 +261,41 @@ def test_attn_bwd_kernel_order_matches_pallas_math(order):
     _close_bf16(got_dx.reshape(b, s, d), ref_dx.reshape(b, sp, d)[:, :s], "dx")
     for n in fb.ATTN_NAMES:
         _close_bf16(got[n], ref_g[n], n)
+
+
+_MERGED_REF = {}  # the interpret-mode merged kernel's result per gelu form
+
+
+def _merged_pallas(x, x2, dout, w, heads, s, sp, fast):
+    if fast not in _MERGED_REF:
+        jw = {k: jnp.asarray(v, jnp.float32 if k.startswith("ln") else jnp.bfloat16)
+              for k, v in w.items()}
+        dx, g = jfb._layer_bwd(*(_pad(a, sp).astype(jnp.bfloat16) for a in (x, x2, dout)), jw,
+                               heads, s, sp, EPS, 2, True, merged=True)
+        _MERGED_REF[fast] = (np.asarray(jnp.asarray(dx).astype(jnp.float32))[:, :s],
+                             {n: np.asarray(t) for n, t in g.items()})
+    return _MERGED_REF[fast]
+
+
+@pytest.mark.parametrize("order", ORDERS, ids=["kernel", "k16_r4_s2", "k32_r8_s3"])
+@pytest.mark.parametrize("fast", [False, True], ids=["exact_gelu", "fast_gelu"])
+def test_merged_kernel_order_is_the_split_pair_and_matches_pallas(order, fast, monkeypatch):
+    monkeypatch.setenv("VIT2SPN_FAST_GELU", "1" if fast else "0")
+    b, s, sp, d, heads, mlp = 3, 11, 16, 64, 2, 128
+    rng = np.random.default_rng(4)
+    w = _weights(rng, d, mlp)
+    x, x2 = (rng.standard_normal((b, s, d)).astype(np.float32) for _ in range(2))
+    dout = (0.1 * rng.standard_normal((b, s, d))).astype(np.float32)
+    tw = {k: torch.from_numpy(v) for k, v in w.items()}
+    tx, tx2, tg = (_bf(torch.from_numpy(a).reshape(-1, d)) for a in (x, x2, dout))
+    dx, got = _merged_bwd_emulated(tx, tx2, tg, tw, fast, heads, b, s, *order)
+    dx2, split = _mlp_bwd_emulated(tx2, tg, tw, fast, *order)
+    sdx, agrads = _attn_bwd_emulated(tx, dx2, tw, heads, b, s, *order)
+    split.update(agrads)
+    assert torch.equal(dx, sdx)
+    for n in fb.WEIGHT_NAMES:
+        assert torch.equal(got[n], split[n]), n
+    ref_dx, ref_g = _merged_pallas(x, x2, dout, w, heads, s, sp, fast)
+    _close_bf16(dx.reshape(b, s, d), ref_dx, "dx")
+    for n in fb.WEIGHT_NAMES:
+        _close_bf16(got[n], ref_g[n].reshape(w[n].shape), n)

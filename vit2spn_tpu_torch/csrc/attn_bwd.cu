@@ -12,8 +12,6 @@
 
 #include "attn_bwd.cuh"
 
-static bool hopper_route(int D, int fp32) { return !fp32 && D <= HOPPER_BWD_MAX_D; }
-
 // fp32 scratch the wrapper allocates for the split partials (and the fp32
 // attention's row statistics)
 extern "C" long long vit2spn_attn_bwd_workspace_floats(int B, int S, int D, int H, int fp32) {

@@ -1,5 +1,5 @@
 // Attention half of one ViT layer's backward for Hopper (sm_90a): the launch
-// sequences csrc/attn_bwd.cu runs (and csrc/merged_bwd.cu, for fp32), per
+// sequences csrc/attn_bwd.cu runs (and csrc/merged_bwd.cu, the same code), per
 // element type and width. Each computes what _attn_bwd_math and
 // _attention_bwd (vit2spn_tpu/ops/fused_block.py) compute over the
 // M = B * S token rows:
@@ -134,10 +134,12 @@ static int attn_bwd_seq(const AttnBwdArgs& a, cudaStream_t st) {
                        a.eps, st);
 }
 
-// bf16, D <= HOPPER_BWD_MAX_D: the row-block kit
+// bf16, D <= HOPPER_BWD_MAX_D: the row-block kit. With `defer`, its three
+// reductions join that list (csrc/merged_bwd.cu takes them in one launch with
+// the MLP half's) and the half is 5 launches.
 template <int D>
 static int attn_bwd_hopper_d(const AttnBwdArgs& a, cudaStream_t st, bool size_only,
-                             long long* need) {
+                             long long* need, Reductions* defer) {
   const int M = a.B * a.S;
   const bf16* X = static_cast<const bf16*>(a.x);
   const bf16* dX2 = static_cast<const bf16*>(a.dx2);
@@ -184,24 +186,27 @@ static int attn_bwd_hopper_d(const AttnBwdArgs& a, cudaStream_t st, bool size_on
   LAUNCH((launch_rowblock<2, D, A_TMA, EPI_LNBWD, 0>(dqkvm, wqkvm, dqkvm, dqkvm, dqkvm, X, l1s, nullptr,
                                                      0, M, D, 3 * D, a.eps, e3, st)));
   Reductions red = {};
-  red.r[red.count++] = wgrad_reduction(wp[0], static_cast<float*>(a.gwo),
-                                       static_cast<float*>(a.gbo), false);
-  red.r[red.count++] = wgrad_reduction(wp[1], static_cast<float*>(a.gwqkv),
-                                       static_cast<float*>(a.gbqkv), true);
-  red.r[red.count++] = {lnp, rowblocks<2>(M) * 8, 2 * D, D, static_cast<float*>(a.gln1_scale),
-                        static_cast<float*>(a.gln1_bias), 0, 1};
-  return launch_reduce_all(red, st);
+  Reductions* r = defer ? defer : &red;
+  LAUNCH(defer_reduction(r, wgrad_reduction(wp[0], static_cast<float*>(a.gwo),
+                                            static_cast<float*>(a.gbo), false)));
+  LAUNCH(defer_reduction(r, wgrad_reduction(wp[1], static_cast<float*>(a.gwqkv),
+                                            static_cast<float*>(a.gbqkv), true)));
+  LAUNCH(defer_reduction(r, {lnp, rowblocks<2>(M) * 8, 2 * D, D,
+                             static_cast<float*>(a.gln1_scale),
+                             static_cast<float*>(a.gln1_bias), 0, 1}));
+  return defer ? 0 : launch_reduce_all(red, st);
 }
 
 // The bf16 route for D <= HOPPER_BWD_MAX_D; with size_only, its workspace
-// in floats into *need and nothing launched.
+// in floats into *need and nothing launched; with `defer`, its reductions
+// left to the caller.
 static int attn_bwd_hopper(const AttnBwdArgs& a, cudaStream_t st, bool size_only = false,
-                           long long* need = nullptr) {
+                           long long* need = nullptr, Reductions* defer = nullptr) {
   switch (a.D) {
-    case 64: return attn_bwd_hopper_d<64>(a, st, size_only, need);
-    case 128: return attn_bwd_hopper_d<128>(a, st, size_only, need);
-    case 192: return attn_bwd_hopper_d<192>(a, st, size_only, need);
-    case 256: return attn_bwd_hopper_d<256>(a, st, size_only, need);
+    case 64: return attn_bwd_hopper_d<64>(a, st, size_only, need, defer);
+    case 128: return attn_bwd_hopper_d<128>(a, st, size_only, need, defer);
+    case 192: return attn_bwd_hopper_d<192>(a, st, size_only, need, defer);
+    case 256: return attn_bwd_hopper_d<256>(a, st, size_only, need, defer);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,8 +10,8 @@
 // rational for gelu, and their derivatives. The LayerNorms, the epilogues and
 // the split reductions are templated on the element type T (bf16, or float
 // for compute_dtype=float32, where every rounding point to T is the
-// identity); the GEMM is mma.sync for bf16 and a CUDA-core (SIMT) kernel of
-// the same tiles for fp32.
+// identity); the GEMM is mma.sync for bf16 and a CUDA-core (SIMT) kernel
+// for fp32.
 
 #pragma once
 
@@ -120,6 +120,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred)
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = pred ? 4 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+// 8-byte asynchronous copy global -> shared; `pred` false fills zeros.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -364,31 +370,6 @@ static int launch_layernorm(const T* x, const float* scale, const float* bias, T
   return (int)cudaGetLastError();
 }
 
-// Two LayerNorms of M bf16 rows each in one launch: rows 0 .. M - 1 of the
-// grid normalize xa into ya, rows M .. 2 M - 1 xb into yb, each row with the
-// code of layernorm_kernel (so the same bits).
-__global__ void __launch_bounds__(LN_WARPS * 32)
-layernorm_pair_kernel(const bf16* __restrict__ xa, const float* __restrict__ sa,
-                      const float* __restrict__ ba, bf16* __restrict__ ya,
-                      const bf16* __restrict__ xb, const float* __restrict__ sb,
-                      const float* __restrict__ bb, bf16* __restrict__ yb, int M, int D,
-                      float eps) {
-  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row < M)
-    layernorm_row(xa, sa, ba, ya, row, D, eps, lane);
-  else if (row < 2 * M)
-    layernorm_row(xb, sb, bb, yb, row - M, D, eps, lane);
-}
-
-static int launch_layernorm_pair(const bf16* xa, const float* sa, const float* ba, bf16* ya,
-                                 const bf16* xb, const float* sb, const float* bb, bf16* yb,
-                                 int M, int D, float eps, cudaStream_t st) {
-  layernorm_pair_kernel<<<(2 * M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
-      xa, sa, ba, ya, xb, sb, bb, yb, M, D, eps);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // LayerNorm backward, as _ln_bwd, fused with the residual add:
 //
@@ -549,11 +530,10 @@ struct Reductions {
   int count;
 };
 
-// Take `r` now, or add it to `defer` when one is given.
-static int reduce_or_defer(const Reduction& r, Reductions* defer, cudaStream_t st) {
-  if (!defer) return launch_reduce(r, st);
-  if (defer->count == MAX_REDUCTIONS) return (int)cudaErrorInvalidValue;
-  defer->r[defer->count++] = r;
+// Add `r` to the reductions that one reduce_all launch will take.
+static int defer_reduction(Reductions* rs, const Reduction& r) {
+  if (rs->count == MAX_REDUCTIONS) return (int)cudaErrorInvalidValue;
+  rs->r[rs->count++] = r;
   return 0;
 }
 
@@ -616,17 +596,15 @@ static int launch_reduce_all(const Reductions& rs, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// LayerNorm backward plus the reduction of its parameter gradients (now, or
-// deferred into `defer`).
+// LayerNorm backward plus the reduction of its parameter gradients.
 template <typename T>
 static int launch_ln_bwd(const T* x, const float* dy, const T* resid,
                          const float* scale, T* out, float* ws, float* gscale,
-                         float* gbias, int M, int D, float eps, cudaStream_t st,
-                         Reductions* defer = nullptr) {
+                         float* gbias, int M, int D, float eps, cudaStream_t st) {
   const int nb = lnb_blocks(M);
   ln_bwd_kernel<T><<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws, M, D, eps);
   LAUNCH((int)cudaGetLastError());
-  return reduce_or_defer({ws, nb, 2 * D, D, gscale, gbias, 0, 0}, defer, st);
+  return launch_reduce({ws, nb, 2 * D, D, gscale, gbias, 0, 0}, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -645,9 +623,8 @@ static int launch_ln_bwd(const T* x, const float* dy, const T* resid,
 // bf16: mma.sync m16n8k16, 128x64x32 block tiles, 4 warps of 64x32 fed by
 // ldmatrix (.trans for the operands stored with the reduction index
 // outermost), a 3-stage cp.async pipeline, the epilogue applied to the
-// accumulator registers. fp32 (gemm_f32_kernel): the same block tiles and
-// grid on the CUDA cores, 256 threads of 8 x 4 outputs, each summing its
-// products in ascending k.
+// accumulator registers. fp32 (gemm_f32_kernel, below): CUDA-core FMAs,
+// each output one chain in ascending k over the same split of K.
 // ---------------------------------------------------------------------------
 
 #define BM 128
@@ -865,95 +842,268 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N
 }
 
 
-// The fp32 GEMM on the CUDA cores: the bf16 kernel's tiles, grid and split
-// (so the same partial layout), 256 threads, thread (ty, tx) of 16 x 16 owning
-// rows 8 ty .. 8 ty + 7 and columns 4 tx .. 4 tx + 3 of the block's tile.
-#define F32_THREADS 256
-#define F32_ALD (BM + 4)  // floats per staged k row of A (16-byte aligned)
+// The fp32 GEMM on the CUDA cores (the tensor cores take no fp32 operand;
+// TF32 would be another function). What bounds it is the FMA rate (67
+// TFLOP/s on an H100 SXM), so the design keeps the FMA pipes fed:
+//
+//   * 64 x 16 TN block tiles (TN = 12, 8 or 4: 192, 128 or 64 columns, the
+//     widest that divides N; 192 divides every N of ViT-Tiny's layer), 128
+//     threads as 8 x 16, thread (ty, tx) summing 8 rows (4 ty + 0..3 and
+//     32 + 4 ty + 0..3) by TN columns: 8 TN FMAs per k step against 2 + TN / 4
+//     float4 shared reads. At 168 registers or fewer three blocks share an
+//     SM; 64-row tiles keep the grid at about a whole number of waves of
+//     three blocks per SM on the 25,216 token rows of a B = 128 microbatch;
+//   * A and B staged by 16-byte cp.async in a ring of GEMM_STAGES tiles of
+//     F32_BK k steps (two tiles in flight while one is summed), each in the
+//     layout it has in device memory, so nothing is transposed on the way
+//     in: A as [row][k] (AT false) or [k][row] (AT true), B as [k][col] (BT
+//     false) or [col][k] (BT true). A thread reads each operand as float4,
+//     along k where k is the fast index (four k steps at a time), else along
+//     rows or columns. Where k is fast, rows are F32_KLD floats apart and a
+//     warp's reads meet no bank conflict: A's two row groups per warp land
+//     20 float4 apart, and with B as [col][k] a thread's columns are
+//     16 j + tx, consecutive across a half-warp (with B as [k][col] they are
+//     the float4 groups 64 j + 4 tx);
+//   * the sums leave through shared memory (the ring, reused), so the
+//     epilogue runs as a loop with coalesced stores;
+//   * every output is one fmaf chain over k in ascending order from 0,
+//     over the split of K that the bf16 kernel takes (kt_per_split tiles of
+//     BK), so the bits do not depend on this geometry;
+//   * AT (the weight gradients): row M - 1 of the product, A's column of
+//     ones, is B's column sums, the bias gradient. The blocks of the first
+//     row tile take it apart from the tiles: thread t < 8 TN adds columns
+//     2 t and 2 t + 1 of each staged B row in order (fmaf(1, b, s) is s + b),
+//     so the row tiles cover A's K1 columns exactly.
 
-template <bool AT, bool BT, int EPI>
-__global__ void __launch_bounds__(F32_THREADS)
+#define F32_BM 64
+#define F32_BK 16
+#define F32_THREADS 128
+#define F32_KLD (F32_BK + 4)  // floats per staged row whose fast index is k
+
+template <bool AT> __host__ __device__ constexpr int f32_a_tile() {
+  return AT ? F32_BK * F32_BM : F32_BM * F32_KLD;
+}
+template <bool BT, int TN> __host__ __device__ constexpr int f32_b_tile() {
+  return BT ? 16 * TN * F32_KLD : F32_BK * 16 * TN;
+}
+template <bool AT, bool BT, int TN> __host__ __device__ constexpr int f32_gemm_smem() {
+  const int ring = GEMM_STAGES * (f32_a_tile<AT>() + f32_b_tile<BT, TN>());
+  const int tile = F32_BM * (16 * TN + 4);  // the epilogue's staged sums
+  return (ring > tile ? ring : tile) * 4;   // bytes
+}
+
+template <bool AT, bool BT, int EPI, int TN>
+__global__ void __launch_bounds__(F32_THREADS, 3)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M, int N, int K,
-                int kt_per_split, EpiArgsT<float> ep) {
-  __shared__ __align__(16) float As[BK][F32_ALD];  // [k][row]
-  __shared__ __align__(16) float Bs[BK][BN];       // [k][column]
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kt0 = blockIdx.z * kt_per_split;
-  const int kt_all = (K + BK - 1) / BK;
-  const int kt_n = min(kt_per_split, kt_all - kt0);
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-  for (int kt = 0; kt < kt_n; ++kt) {
-    const int k0 = (kt0 + kt) * BK;
-    for (int i = tid; i < BM * BK; i += F32_THREADS) {
-      float a;
-      if (!AT) {  // row r, k c: consecutive threads read consecutive k
-        const int r = i / BK, c = i % BK, gr = m0 + r, gk = k0 + c;
-        a = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : 0.0f;
-        As[c][r] = a;
-      } else {  // k r, row c; row M - 1 is the ones column
-        const int r = i / BM, c = i % BM, gk = k0 + r, gc = m0 + c;
-        const int ma = M - 1;
-        a = gk < K ? (gc < ma ? A[(size_t)gk * ma + gc] : (gc == ma ? 1.0f : 0.0f)) : 0.0f;
-        As[r][c] = a;
+                int k_per_split, EpiArgsT<float> ep) {
+  constexpr int BNF = 16 * TN;
+  constexpr int ATILE = f32_a_tile<AT>(), STAGE = ATILE + f32_b_tile<BT, TN>();
+  static_assert(!(AT && BT), "the weight-gradient form reads B as [k][col]");
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * F32_BM, n0 = blockIdx.x * BNF;
+  const int kb = blockIdx.z * k_per_split;
+  const int nt = (min(kb + k_per_split, K) - kb + F32_BK - 1) / F32_BK;
+  const int rows = AT ? M - 1 : M;  // rows of the product from A (AT: A's columns)
+  const bool sums = AT && blockIdx.y == 0 && tid < BNF / 2;  // B's column sums
+
+  // tile k0 .. k0 + F32_BK of A and B into ring slot `buf`; what lies past
+  // K, M or A's columns is zero-filled (K, N and A's row length are
+  // multiples of 4, so a 16-byte chunk is all in or all out)
+  auto load = [&](int buf, int k0) {
+    float* as = fsm + buf * STAGE;
+    float* bs = as + ATILE;
+    if constexpr (!AT) {
+      for (int i = tid; i < F32_BM * (F32_BK / 4); i += F32_THREADS) {
+        const int r = i / (F32_BK / 4), c = (i % (F32_BK / 4)) * 4;
+        const bool ok = m0 + r < M && k0 + c < K;
+        cp_async16(as + r * F32_KLD + c, ok ? A + (size_t)(m0 + r) * K + k0 + c : A, ok);
+      }
+    } else {
+      for (int i = tid; i < F32_BK * (F32_BM / 4); i += F32_THREADS) {
+        const int r = i / (F32_BM / 4), c = (i % (F32_BM / 4)) * 4;
+        const bool ok = k0 + r < K && m0 + c < rows;
+        cp_async16(as + r * F32_BM + c, ok ? A + (size_t)(k0 + r) * rows + m0 + c : A, ok);
       }
     }
-    for (int i = tid; i < BK * BN; i += F32_THREADS) {
-      if (!BT) {
-        const int r = i / BN, c = i % BN, gk = k0 + r;
-        Bs[r][c] = gk < K ? B[(size_t)gk * N + n0 + c] : 0.0f;
-      } else {
-        const int r = i / BK, c = i % BK, gk = k0 + c;
-        Bs[c][r] = gk < K ? B[(size_t)(n0 + r) * K + gk] : 0.0f;
+    if constexpr (!BT) {
+      for (int i = tid; i < F32_BK * (BNF / 4); i += F32_THREADS) {
+        const int r = i / (BNF / 4), c = (i % (BNF / 4)) * 4;
+        const bool ok = k0 + r < K;
+        cp_async16(bs + r * BNF + c, ok ? B + (size_t)(k0 + r) * N + n0 + c : B, ok);
+      }
+    } else {
+      for (int i = tid; i < BNF * (F32_BK / 4); i += F32_THREADS) {
+        const int r = i / (F32_BK / 4), c = (i % (F32_BK / 4)) * 4;
+        const bool ok = k0 + c < K;
+        cp_async16(bs + r * F32_KLD + c, ok ? B + (size_t)(n0 + r) * K + k0 + c : B, ok);
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][8 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][8 * ty + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[4] = {b.x, b.y, b.z, b.w};
+  };
+
+  float acc[8][TN];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  float bsum0 = 0.0f, bsum1 = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < GEMM_STAGES - 1; ++s) {
+    if (s < nt) load(s, kb + s * F32_BK);
+    cp_async_commit();
   }
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait_stages();  // tile t has landed (for this thread) ...
+    __syncthreads();      // ... for every thread; tile t - 1 is summed
+    const int next = t + GEMM_STAGES - 1;
+    if (next < nt) load(next % GEMM_STAGES, kb + next * F32_BK);
+    cp_async_commit();  // empty groups keep the count even
+
+    const float* as = fsm + (t % GEMM_STAGES) * STAGE;
+    const float* bs = as + ATILE;
+#pragma unroll
+    for (int k4 = 0; k4 < F32_BK; k4 += 4) {
+      float a[8][4];  // a[i][kk]: row i of the thread, k step k4 + kk
+      if constexpr (!AT) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              as + (4 * ty + (i & 3) + 32 * (i >> 2)) * F32_KLD + k4);
+          a[i][0] = v.x;
+          a[i][1] = v.y;
+          a[i][2] = v.z;
+          a[i][3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 lo = *reinterpret_cast<const float4*>(as + (k4 + kk) * F32_BM + 4 * ty);
+          const float4 hi =
+              *reinterpret_cast<const float4*>(as + (k4 + kk) * F32_BM + 32 + 4 * ty);
+          a[0][kk] = lo.x;
+          a[1][kk] = lo.y;
+          a[2][kk] = lo.z;
+          a[3][kk] = lo.w;
+          a[4][kk] = hi.x;
+          a[5][kk] = hi.y;
+          a[6][kk] = hi.z;
+          a[7][kk] = hi.w;
+        }
+      }
+      if constexpr (!BT) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int jg = 0; jg < TN / 4; ++jg) {
+            const float4 b =
+                *reinterpret_cast<const float4*>(bs + (k4 + kk) * BNF + 64 * jg + 4 * tx);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              acc[i][4 * jg] = fmaf(a[i][kk], b.x, acc[i][4 * jg]);
+              acc[i][4 * jg + 1] = fmaf(a[i][kk], b.y, acc[i][4 * jg + 1]);
+              acc[i][4 * jg + 2] = fmaf(a[i][kk], b.z, acc[i][4 * jg + 2]);
+              acc[i][4 * jg + 3] = fmaf(a[i][kk], b.w, acc[i][4 * jg + 3]);
+            }
+          }
+          if constexpr (AT) {
+            if (sums) {
+              const float2 b = *reinterpret_cast<const float2*>(bs + (k4 + kk) * BNF + 2 * tid);
+              bsum0 += b.x;
+              bsum1 += b.y;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const float4 b = *reinterpret_cast<const float4*>(bs + (16 * j + tx) * F32_KLD + k4);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][j] = fmaf(a[i][0], b.x, acc[i][j]);
+            acc[i][j] = fmaf(a[i][1], b.y, acc[i][j]);
+            acc[i][j] = fmaf(a[i][2], b.z, acc[i][j]);
+            acc[i][j] = fmaf(a[i][3], b.w, acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait_all();  // no copy outlives the block
+  __syncthreads();      // every thread is done with the ring: it becomes the tile
+
+  // the block's sums through shared memory ([row][col], rows BNF + 4 floats
+  // apart), then the epilogue over it row by row, four columns a thread,
+  // consecutive threads on consecutive columns: coalesced stores, and a loop
+  // instead of the thread's 8 TN outputs unrolled (unrolled, the gelu /
+  // gelu' epilogue took the m1 GEMM at B = 128 from 0.30 to 0.57 ms on an
+  // H100 80GB HBM3 at 700 W)
+  float* tile = fsm;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gr = m0 + 8 * ty + i;
-    if (gr < M) {
-      epilogue_pair<EPI>(ep, M, N, gr, n0 + 4 * tx, acc[i][0], acc[i][1]);
-      epilogue_pair<EPI>(ep, M, N, gr, n0 + 4 * tx + 2, acc[i][2], acc[i][3]);
+    float* row = tile + (4 * ty + (i & 3) + 32 * (i >> 2)) * (BNF + 4);
+    if constexpr (!BT) {
+#pragma unroll
+      for (int jg = 0; jg < TN / 4; ++jg)
+        *reinterpret_cast<float4*>(row + 64 * jg + 4 * tx) =
+            make_float4(acc[i][4 * jg], acc[i][4 * jg + 1], acc[i][4 * jg + 2],
+                        acc[i][4 * jg + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) row[16 * j + tx] = acc[i][j];
     }
   }
+  __syncthreads();
+#pragma unroll 1
+  for (int q = tid; q < F32_BM * (BNF / 4); q += F32_THREADS) {
+    const int r = q / (BNF / 4), c = (q % (BNF / 4)) * 4, gr = m0 + r;
+    if (gr < rows) {
+      const float4 v = *reinterpret_cast<const float4*>(tile + r * (BNF + 4) + c);
+      epilogue_pair<EPI>(ep, M, N, gr, n0 + c, v.x, v.y);
+      epilogue_pair<EPI>(ep, M, N, gr, n0 + c + 2, v.z, v.w);
+    }
+  }
+  if constexpr (AT)
+    if (sums) epilogue_pair<EPI>(ep, M, N, M - 1, n0 + 2 * tid, bsum0, bsum1);
+}
+
+template <bool AT, bool BT, int EPI, int TN>
+static int launch_gemm_f32(const float* A, const float* B, int M, int N, int K,
+                           int k_per_split, int zsplits, const EpiArgsT<float>& ep,
+                           cudaStream_t st) {
+  constexpr int smem = f32_gemm_smem<AT, BT, TN>();
+  cudaError_t e = cudaFuncSetAttribute(gemm_f32_kernel<AT, BT, EPI, TN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = AT ? M - 1 : M;
+  const dim3 grid(N / (16 * TN), (rows + F32_BM - 1) / F32_BM, zsplits);
+  gemm_f32_kernel<AT, BT, EPI, TN><<<grid, F32_THREADS, smem, st>>>(A, B, M, N, K, k_per_split,
+                                                                    ep);
+  return (int)cudaGetLastError();
 }
 
 // Launch one GEMM (bf16 with its dynamic shared memory, above the 48 KB a
-// block gets without asking; fp32 with static), the reduction split over
-// `splits` blocks in z.
+// block gets without asking; fp32 at the widest column tile that divides
+// N), the reduction split over `splits` blocks in z.
 template <typename T, bool AT, bool BT, int EPI>
 static int launch_gemm(const T* A, const T* B, int M, int N, int K, const EpiArgsT<T>& ep,
                        cudaStream_t st, int splits = 1) {
   const int kt_all = (K + BK - 1) / BK;
   const int kps = (kt_all + splits - 1) / splits;
-  const dim3 grid(N / BN, (M + BM - 1) / BM, (kt_all + kps - 1) / kps);
+  const int zs = (kt_all + kps - 1) / kps;
   if constexpr (sizeof(T) == 2) {
     constexpr int smem = gemm_smem<AT, BT>();
     cudaError_t e = cudaFuncSetAttribute(gemm_kernel<AT, BT, EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
+    const dim3 grid(N / BN, (M + BM - 1) / BM, zs);
     gemm_kernel<AT, BT, EPI><<<grid, GEMM_THREADS, smem, st>>>(A, B, M, N, K, kps, ep);
+    return (int)cudaGetLastError();
   } else {
-    gemm_f32_kernel<AT, BT, EPI><<<grid, F32_THREADS, 0, st>>>(A, B, M, N, K, kps, ep);
+    if (N % 192 == 0) return launch_gemm_f32<AT, BT, EPI, 12>(A, B, M, N, K, kps * BK, zs, ep, st);
+    if (N % 128 == 0) return launch_gemm_f32<AT, BT, EPI, 8>(A, B, M, N, K, kps * BK, zs, ep, st);
+    return launch_gemm_f32<AT, BT, EPI, 4>(A, B, M, N, K, kps * BK, zs, ep, st);
   }
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -981,12 +1131,12 @@ static size_t wgrad_workspace_floats(int K1, int N, int M) {
 
 template <typename T>
 static int launch_wgrad(const T* A, const T* B, int K1, int N, int M, float* ws,
-                        float* dw, float* db, cudaStream_t st, Reductions* defer = nullptr) {
+                        float* dw, float* db, cudaStream_t st) {
   const int splits = wgrad_splits(K1, N, M);
   EpiArgsT<T> ep = {};
   ep.f32 = ws;
   LAUNCH((launch_gemm<T, true, false, EPI_F32>(A, B, K1 + 1, N, M, ep, st, splits)));
-  return reduce_or_defer({ws, splits, (K1 + 1) * N, K1 * N, dw, db, 0, 0}, defer, st);
+  return launch_reduce({ws, splits, (K1 + 1) * N, K1 * N, dw, db, 0, 0}, st);
 }
 
 extern "C" const char* vit2spn_cuda_error_string(int code) {

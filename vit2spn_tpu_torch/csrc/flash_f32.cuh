@@ -16,7 +16,8 @@
 // (bs, ts) strides (element (b, s, h, d) at b * bs + s * ts + h * 64 + d), so
 // they may be strided views of a fused (B, S, 3D) qkv; o and dO are (B, S, H,
 // 64) contiguous; dq, dk, dv have rows gts apart (H * 64, or 3 D when they are
-// the thirds of a dqkv). Limits: head_dim 64, S <= 256, rows on 8 bytes.
+// the thirds of a dqkv). Limits: head_dim 64, S <= 256, input rows on 8
+// bytes, output rows on 16.
 
 #pragma once
 
@@ -39,13 +40,23 @@ static int set_smem(K kernel, size_t bytes) {
 //     phase) of one (image, head), 8 per warp, and stages all S rows of the
 //     other side in shared memory with rows 68 floats apart, so that lane c
 //     reading row 32 j + c and lanes reading across one row both meet no bank
-//     conflict;
+//     conflict. Staging is by cp.async, every copy in flight at once; the
+//     backward kernels stage in two groups and start on the first while the
+//     second lands (the forward holds K and then V in one buffer instead, so
+//     that two blocks fit an SM). What bounds them on this card is the FMA
+//     rate: attention in fp32 is FMAs on the CUDA cores;
 //   * each lane holds an 8 x 8 register tile of scores (its 8 rows against
 //     columns c, 32 + c, ..., 224 + c), summed over dh in ascending order, so
-//     that both backward phases recompute the same scores bit for bit;
-//   * the products with P (or dS) go through a per-warp 8 x 32 slab of shared
-//     memory, read back as broadcast float4, each lane accumulating two of the
-//     64 output dims.
+//     that both backward phases recompute the same scores bit for bit. The
+//     dh loop is the outer one: four dh steps of the warp's 8 rows are read
+//     once (broadcast float4) for all of the lane's columns, 15 shared reads
+//     per 224 FMAs at S = 197 (the FMA rate, not the shared-memory pipe,
+//     bounds it);
+//   * the products with P (or dS) go through a per-warp 32 x 8 slab of shared
+//     memory (a lane writes its column of the 8 rows), each lane then
+//     accumulating a 4 x 4 tile of the 8 x 64 output (rows 4 (lane / 16)
+//     .. + 3, dims 4 (lane % 16) .. + 3): two float4 reads per 16 FMAs, the
+//     columns in ascending order.
 
 #define FA_RW 8                     // rows per warp
 #define FA_WARPS 8
@@ -54,17 +65,31 @@ static int set_smem(K kernel, size_t bytes) {
 #define FA_LD 68                    // floats per staged row of the other side
 
 // Rows r0 .. r0 + n - 1 of one (image, head) (global row stride ts) into
-// shared memory with row stride LD; rows >= S are zeros.
+// shared memory with row stride LD, by 8-byte cp.async: every copy of the
+// block in flight at once (plain loads would wait out the memory latency
+// once per loop step); rows >= S are zeros. The caller waits (stage_wait).
 template <int LD>
 __device__ __forceinline__ void stage(float* dst, const float* src, long long ts, int r0, int n,
                                       int S) {
   for (int i = threadIdx.x; i < n * (FA_DH / 2); i += blockDim.x) {
     const int r = i / (FA_DH / 2);
     const int c = 2 * (i % (FA_DH / 2));
-    float2 x = make_float2(0.0f, 0.0f);
-    if (r0 + r < S) x = *reinterpret_cast<const float2*>(src + (r0 + r) * ts + c);
-    *reinterpret_cast<float2*>(dst + r * LD + c) = x;
+    const bool ok = r0 + r < S;
+    cp_async8(dst + r * LD + c, ok ? src + (r0 + r) * ts + c : src, ok);
   }
+}
+
+// every staged row has landed, for every thread of the block
+__device__ __forceinline__ void stage_wait() {
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// the same for the rows staged before the last cp_async_commit (the
+// backward's first operands; the second group still in flight)
+__device__ __forceinline__ void stage_wait_first() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
 }
 
 // acc[i][j] = sum over d ascending of A[i][d] * B[32 j + lane][d]: A the warp's
@@ -73,58 +98,60 @@ __device__ __forceinline__ void stage(float* dst, const float* src, long long ts
 __device__ __forceinline__ void dot_rows(float acc[FA_RW][FA_NJ], const float* A, const float* B,
                                          int S, int lane) {
 #pragma unroll
-  for (int j = 0; j < FA_NJ; ++j) {
+  for (int j = 0; j < FA_NJ; ++j)
 #pragma unroll
     for (int i = 0; i < FA_RW; ++i) acc[i][j] = 0.0f;
-    if (32 * j < S) {
-      const float* br = B + (32 * j + lane) * FA_LD;
 #pragma unroll 2
-      for (int d = 0; d < FA_DH; d += 4) {
-        const float4 b = *reinterpret_cast<const float4*>(br + d);
+  for (int d = 0; d < FA_DH; d += 4) {
+    float4 a[FA_RW];
+#pragma unroll
+    for (int i = 0; i < FA_RW; ++i) a[i] = *reinterpret_cast<const float4*>(A + i * FA_DH + d);
+#pragma unroll
+    for (int j = 0; j < FA_NJ; ++j) {
+      if (32 * j < S) {
+        const float4 b = *reinterpret_cast<const float4*>(B + (32 * j + lane) * FA_LD + d);
 #pragma unroll
         for (int i = 0; i < FA_RW; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(A + i * FA_DH + d);
-          acc[i][j] = fmaf(a.x, b.x, acc[i][j]);
-          acc[i][j] = fmaf(a.y, b.y, acc[i][j]);
-          acc[i][j] = fmaf(a.z, b.z, acc[i][j]);
-          acc[i][j] = fmaf(a.w, b.w, acc[i][j]);
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
         }
       }
     }
   }
 }
 
-// acc[i][0..1] = sum over columns c of w[i][c] * R[c][2 lane .. 2 lane + 1]:
-// w is the register tile (column 32 j + lane in w[i][j]), passed through the
-// warp's 8 x 32 slab `slab`; R the staged rows.
-__device__ __forceinline__ void product(float acc[FA_RW][2], const float w[FA_RW][FA_NJ],
+// acc[r][e] = sum over columns c ascending of w[4 rg + r][c] * R[c][4 dg + e]
+// (rg = lane / 16, dg = lane % 16): w the register tile (column 32 j + lane
+// in w[i][j]), passed through the warp's 32 x 8 slab `slab`; R the staged
+// rows.
+__device__ __forceinline__ void product(float acc[4][4], const float w[FA_RW][FA_NJ],
                                         float* slab, const float* R, int S, int lane) {
+  const int rg = lane >> 4, dg = lane & 15;
 #pragma unroll
-  for (int i = 0; i < FA_RW; ++i) acc[i][0] = acc[i][1] = 0.0f;
+  for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
 #pragma unroll
   for (int j = 0; j < FA_NJ; ++j) {
     if (32 * j < S) {
       __syncwarp();  // the slab's last readers are done
-#pragma unroll
-      for (int i = 0; i < FA_RW; ++i) slab[i * 32 + lane] = w[i][j];
+      *reinterpret_cast<float4*>(slab + lane * FA_RW) =
+          make_float4(w[0][j], w[1][j], w[2][j], w[3][j]);
+      *reinterpret_cast<float4*>(slab + lane * FA_RW + 4) =
+          make_float4(w[4][j], w[5][j], w[6][j], w[7][j]);
       __syncwarp();
-      const float* r = R + (32 * j) * FA_LD + 2 * lane;
-#pragma unroll 2
-      for (int c = 0; c < 32; c += 4) {
-        float2 x[4];
+      const float* rr = R + (32 * j) * FA_LD + 4 * dg;
+#pragma unroll 4
+      for (int c = 0; c < 32; ++c) {
+        const float4 p = *reinterpret_cast<const float4*>(slab + c * FA_RW + 4 * rg);
+        const float4 v = *reinterpret_cast<const float4*>(rr + c * FA_LD);
+        const float pr[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) x[u] = *reinterpret_cast<const float2*>(r + (c + u) * FA_LD);
-#pragma unroll
-        for (int i = 0; i < FA_RW; ++i) {
-          const float4 p = *reinterpret_cast<const float4*>(slab + i * 32 + c);
-          acc[i][0] = fmaf(p.x, x[0].x, acc[i][0]);
-          acc[i][1] = fmaf(p.x, x[0].y, acc[i][1]);
-          acc[i][0] = fmaf(p.y, x[1].x, acc[i][0]);
-          acc[i][1] = fmaf(p.y, x[1].y, acc[i][1]);
-          acc[i][0] = fmaf(p.z, x[2].x, acc[i][0]);
-          acc[i][1] = fmaf(p.z, x[2].y, acc[i][1]);
-          acc[i][0] = fmaf(p.w, x[3].x, acc[i][0]);
-          acc[i][1] = fmaf(p.w, x[3].y, acc[i][1]);
+        for (int r = 0; r < 4; ++r) {
+          acc[r][0] = fmaf(pr[r], v.x, acc[r][0]);
+          acc[r][1] = fmaf(pr[r], v.y, acc[r][1]);
+          acc[r][2] = fmaf(pr[r], v.z, acc[r][2]);
+          acc[r][3] = fmaf(pr[r], v.w, acc[r][3]);
         }
       }
     }
@@ -157,53 +184,60 @@ __device__ __forceinline__ void softmax_rows(float s[FA_RW][FA_NJ], float mx[FA_
   }
 }
 
-// rows w0 + i < S of acc * mul into out (row stride ts), two dims per lane
-__device__ __forceinline__ void store_pairs(float* out, long long ts, const float acc[FA_RW][2],
-                                            float mul, int w0, int S, int lane) {
+// the lane's tile of `product` (rows w0 + 4 (lane / 16) + r < S, dims
+// 4 (lane % 16) .. + 3) times `mul` into out (row stride ts)
+__device__ __forceinline__ void store_tile(float* out, long long ts, const float acc[4][4],
+                                           float mul, int w0, int S, int lane) {
+  const int r0 = w0 + 4 * (lane >> 4), c = 4 * (lane & 15);
 #pragma unroll
-  for (int i = 0; i < FA_RW; ++i)
-    if (w0 + i < S)
-      *reinterpret_cast<float2*>(out + (w0 + i) * ts + 2 * lane) =
-          make_float2(acc[i][0] * mul, acc[i][1] * mul);
+  for (int r = 0; r < 4; ++r)
+    if (r0 + r < S)
+      *reinterpret_cast<float4*>(out + (r0 + r) * ts + c) =
+          make_float4(acc[r][0] * mul, acc[r][1] * mul, acc[r][2] * mul, acc[r][3] * mul);
 }
 
 __host__ __device__ __forceinline__ int padded(int S) { return (S + 31) / 32 * 32; }
 
-// Forward: one block per 64 queries of one (image, head)
+// Forward: one block per 64 queries of one (image, head). K and then V take
+// turns in one staged buffer (V lands once every warp's scores are done), so
+// that two blocks share an SM: one stages while the other computes.
 
 static size_t fwd_smem(int S) {
-  return (size_t)2 * padded(S) * FA_LD * 4 + (size_t)FA_ROWS * FA_DH * 4 +
+  return (size_t)padded(S) * FA_LD * 4 + (size_t)FA_ROWS * FA_DH * 4 +
          (size_t)FA_WARPS * FA_RW * 32 * 4;
 }
 
-__global__ void __launch_bounds__(FA_WARPS * 32)
+__global__ void __launch_bounds__(FA_WARPS * 32, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S, int H, long long bs,
                  long long ts, float scale) {
   const int SP = padded(S);
   extern __shared__ __align__(128) unsigned char fa_smem[];
-  float* Ks = reinterpret_cast<float*>(fa_smem);
-  float* Vs = Ks + SP * FA_LD;
-  float* Qs = Vs + SP * FA_LD;  // this block's queries
+  float* KVs = reinterpret_cast<float*>(fa_smem);  // K, then V
+  float* Qs = KVs + SP * FA_LD;                      // this block's queries
   float* slabs = Qs + FA_ROWS * FA_DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * FA_ROWS;
   const long long head = (long long)b * bs + h * FA_DH;
-  stage<FA_LD>(Ks, k + head, ts, 0, SP, S);
-  stage<FA_LD>(Vs, v + head, ts, 0, SP, S);
-  stage<FA_DH>(Qs, q + head, ts, r0, FA_ROWS, S);
-  __syncthreads();
   const int w0 = r0 + warp * FA_RW;
-  if (w0 >= S) return;  // from here on every warp works alone
-
+  const bool live = w0 < S;  // a warp past S only helps stage
+  stage<FA_LD>(KVs, k + head, ts, 0, SP, S);
+  stage<FA_DH>(Qs, q + head, ts, r0, FA_ROWS, S);
+  stage_wait();
   float s[FA_RW][FA_NJ], mx[FA_RW], sum[FA_RW];
-  dot_rows(s, Qs + warp * FA_RW * FA_DH, Ks, S, lane);
-  softmax_rows(s, mx, sum, scale, S, lane);
-  float acc[FA_RW][2];
-  product(acc, s, slabs + warp * FA_RW * 32, Vs, S, lane);
+  if (live) {
+    dot_rows(s, Qs + warp * FA_RW * FA_DH, KVs, S, lane);
+    softmax_rows(s, mx, sum, scale, S, lane);
+  }
+  __syncthreads();  // every warp is done with K
+  stage<FA_LD>(KVs, v + head, ts, 0, SP, S);
+  stage_wait();
+  if (!live) return;
+  float acc[4][4];
+  product(acc, s, slabs + warp * FA_RW * 32, KVs, S, lane);
   const long long ots = (long long)H * FA_DH;
-  store_pairs(o + (long long)b * S * ots + h * FA_DH, ots, acc, 1.0f, w0, S, lane);
+  store_tile(o + (long long)b * S * ots + h * FA_DH, ots, acc, 1.0f, w0, S, lane);
 }
 
 // Backward, phase 1: one block per 64 queries: statistics and dQ
@@ -231,18 +265,24 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long head = (long long)b * bs + h * FA_DH;
   const long long ots = (long long)H * FA_DH;
   const long long ohead = (long long)b * S * ots + h * FA_DH;
+  // K and the queries first: the scores and softmax run while V and dO land
   stage<FA_LD>(Ks, k + head, ts, 0, SP, S);
-  stage<FA_LD>(Vs, v + head, ts, 0, SP, S);
   stage<FA_DH>(Qs, q + head, ts, r0, FA_ROWS, S);
+  cp_async_commit();
+  stage<FA_LD>(Vs, v + head, ts, 0, SP, S);
   stage<FA_DH>(Os, dout + ohead, ots, r0, FA_ROWS, S);
-  __syncthreads();
+  cp_async_commit();
   const int w0 = r0 + warp * FA_RW;
-  if (w0 >= S) return;
-
+  const bool active = w0 < S;  // a warp past S only helps stage
   float p[FA_RW][FA_NJ], dp[FA_RW][FA_NJ], mx[FA_RW], sum[FA_RW];
-  dot_rows(p, Qs + warp * FA_RW * FA_DH, Ks, S, lane);
+  stage_wait_first();
+  if (active) {
+    dot_rows(p, Qs + warp * FA_RW * FA_DH, Ks, S, lane);
+    softmax_rows(p, mx, sum, scale, S, lane);
+  }
+  stage_wait();
+  if (!active) return;
   dot_rows(dp, Os + warp * FA_RW * FA_DH, Vs, S, lane);
-  softmax_rows(p, mx, sum, scale, S, lane);
   float dot[FA_RW];
 #pragma unroll
   for (int i = 0; i < FA_RW; ++i) {
@@ -253,9 +293,9 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < FA_NJ; ++j) dp[i][j] = p[i][j] * (dp[i][j] - dot[i]);  // dS
   }
-  float acc[FA_RW][2];
+  float acc[4][4];
   product(acc, dp, slabs + warp * FA_RW * 32, Ks, S, lane);
-  store_pairs(dq + (long long)b * S * gts + h * FA_DH, gts, acc, scale, w0, S, lane);
+  store_tile(dq + (long long)b * S * gts + h * FA_DH, gts, acc, scale, w0, S, lane);
   if (lane == 0) {
     float* st = stats + ((long long)(b * H + h) * S) * 3;
 #pragma unroll
@@ -298,44 +338,53 @@ flash_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long head = (long long)b * bs + h * FA_DH;
   const long long ots = (long long)H * FA_DH;
   const long long ohead = (long long)b * S * ots + h * FA_DH;
+  // the queries and this block's keys first: P^T runs while dO and V land
   stage<FA_LD>(Qs, q + head, ts, 0, SP, S);
-  stage<FA_LD>(Os, dout + ohead, ots, 0, SP, S);
   stage<FA_DH>(Kt, k + head, ts, r0, FA_ROWS, S);
+  cp_async_commit();
+  stage<FA_LD>(Os, dout + ohead, ots, 0, SP, S);
   stage<FA_DH>(Vt, v + head, ts, r0, FA_ROWS, S);
+  cp_async_commit();
   const float* st = stats + ((long long)(b * H + h) * S) * 3;
   for (int c = threadIdx.x; c < SP; c += blockDim.x) {  // pad queries: inert
     rmax[c] = c < S ? st[c * 3 + 0] : 0.0f;
     rsum[c] = c < S ? st[c * 3 + 1] : 1.0f;
     rdot[c] = c < S ? st[c * 3 + 2] : 0.0f;
   }
-  __syncthreads();
   const int w0 = r0 + warp * FA_RW;
-  if (w0 >= S) return;
+  const bool active = w0 < S;  // a warp past S only helps stage
 
   // P^T and dP^T: rows are this warp's keys, columns the queries 32 j + lane
   float p[FA_RW][FA_NJ], ds[FA_RW][FA_NJ];
-  dot_rows(p, Kt + warp * FA_RW * FA_DH, Qs, S, lane);
+  stage_wait_first();
+  if (active) {
+    dot_rows(p, Kt + warp * FA_RW * FA_DH, Qs, S, lane);
+#pragma unroll
+    for (int j = 0; j < FA_NJ; ++j) {
+      const int c = 32 * j + lane;
+      const bool live = c < S;
+      const float m = rmax[live ? c : 0], l = rsum[live ? c : 0];
+#pragma unroll
+      for (int i = 0; i < FA_RW; ++i)  // the scores and P of phase 1, bit for bit
+        p[i][j] = live ? expf(__fsub_rn(__fmul_rn(p[i][j], scale), m)) / l : 0.0f;
+    }
+  }
+  stage_wait();
+  if (!active) return;
   dot_rows(ds, Vt + warp * FA_RW * FA_DH, Os, S, lane);
 #pragma unroll
   for (int j = 0; j < FA_NJ; ++j) {
-    const int c = 32 * j + lane;
-    const bool live = c < S;
-    const float m = rmax[live ? c : 0], l = rsum[live ? c : 0], dt = rdot[live ? c : 0];
+    const float dt = rdot[32 * j + lane < S ? 32 * j + lane : 0];
 #pragma unroll
-    for (int i = 0; i < FA_RW; ++i) {
-      // the scores and P of phase 1, bit for bit (same sums, same order)
-      const float pr = live ? expf(__fsub_rn(__fmul_rn(p[i][j], scale), m)) / l : 0.0f;
-      p[i][j] = pr;
-      ds[i][j] = pr * (ds[i][j] - dt);
-    }
+    for (int i = 0; i < FA_RW; ++i) ds[i][j] = p[i][j] * (ds[i][j] - dt);
   }
   float* slab = slabs + warp * FA_RW * 32;
-  float acc[FA_RW][2];
+  float acc[4][4];
   product(acc, p, slab, Os, S, lane);  // dV = P^T dO
   const long long ghead = (long long)b * S * gts + h * FA_DH;
-  store_pairs(dv + ghead, gts, acc, 1.0f, w0, S, lane);
+  store_tile(dv + ghead, gts, acc, 1.0f, w0, S, lane);
   product(acc, ds, slab, Qs, S, lane);  // dK = dS^T q / sqrt(dh)
-  store_pairs(dk + ghead, gts, acc, scale, w0, S, lane);
+  store_tile(dk + ghead, gts, acc, scale, w0, S, lane);
 }
 
 // ---------------------------------------------------------------------------

@@ -11,8 +11,6 @@
 
 #include "mlp_bwd.cuh"
 
-static bool hopper_route(int D, int fp32) { return !fp32 && D <= HOPPER_BWD_MAX_D; }
-
 // fp32 scratch the wrapper allocates for the split partials
 extern "C" long long vit2spn_mlp_bwd_workspace_floats(int M, int D, int MLP, int fp32) {
   if (!hopper_route(D, fp32)) return (long long)mlp_seq_workspace(M, D, MLP);
@@ -50,4 +48,29 @@ extern "C" int vit2spn_mlp_bwd(
   if (fp32) return mlp_bwd_seq<float>(a, st);
   if (hopper_route(D, fp32)) return mlp_bwd_hopper(a, st);
   return mlp_bwd_seq<bf16>(a, st);
+}
+
+// The fp32 GEMM of every fp32 route alone (common.cuh gemm_f32_kernel), for
+// timing it against a library product: form 0, C (M, N) = A (M, K) B (K, N);
+// form 1, C = A B^T with B (N, K); form 2, the weight-gradient form, C (M + 1,
+// N) = [A | 1]^T B with A (K, M), the K rows split as the backward splits its
+// token rows and the fp32 partials (ws, workspace_floats) reduced in order:
+// C's last row is B's column sums.
+extern "C" long long vit2spn_gemm_f32_workspace_floats(int M, int N, int K) {
+  return (long long)wgrad_workspace_floats(M, N, K);
+}
+
+extern "C" int vit2spn_gemm_f32(const void* a, const void* b, void* c, void* ws, int M, int N,
+                                int K, int form, void* stream) {
+  if (M <= 0 || N <= 0 || N % 64 || K <= 0 || K % 4 || M % 4 || form < 0 || form > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(b);
+  float* C = static_cast<float*>(c);
+  EpiArgsT<float> e = {};
+  e.out = C;
+  if (form == 0) return launch_gemm<float, false, false, EPI_STORE>(A, B, M, N, K, e, st);
+  if (form == 1) return launch_gemm<float, false, true, EPI_STORE>(A, B, M, N, K, e, st);
+  return launch_wgrad(A, B, M, N, K, static_cast<float*>(ws), C, C + (size_t)M * N, st);
 }

@@ -1,5 +1,5 @@
 // MLP half of one ViT layer's backward for Hopper (sm_90a): the launch
-// sequences csrc/mlp_bwd.cu runs (and csrc/merged_bwd.cu, for fp32), per
+// sequences csrc/mlp_bwd.cu runs (and csrc/merged_bwd.cu, the same code), per
 // element type and width. Each computes what _mlp_bwd_math
 // (vit2spn_tpu/ops/fused_block.py) computes over the M = B * S token rows:
 //
@@ -121,10 +121,12 @@ static int mlp_bwd_seq(const MlpBwdArgs& a, cudaStream_t st) {
 }
 
 // bf16, D <= HOPPER_BWD_MAX_D: the row-block kit. NT of the two products
-// over the MLP columns: the widest of 192, 128, 64 that divides mlp.
+// over the MLP columns: the widest of 192, 128, 64 that divides mlp. With
+// `defer`, its three reductions join that list (csrc/merged_bwd.cu takes
+// them in one launch with the attention half's) and the half is 4 launches.
 template <int D, int NT>
 static int mlp_bwd_hopper_nt(const MlpBwdArgs& a, cudaStream_t st, bool size_only,
-                             long long* need) {
+                             long long* need, Reductions* defer) {
   const int M = a.M, MLP = a.MLP;
   const bf16* X2 = static_cast<const bf16*>(a.x2);
   const bf16* dO = static_cast<const bf16*>(a.dout);
@@ -167,32 +169,35 @@ static int mlp_bwd_hopper_nt(const MlpBwdArgs& a, cudaStream_t st, bool size_onl
   LAUNCH((launch_rowblock<2, D, A_TMA, EPI_LNBWD, 0>(dm1m, w1m, dm1m, dm1m, dm1m, X2, l2s, nullptr, 0,
                                                      M, D, MLP, a.eps, e3, st)));
   Reductions red = {};
-  red.r[red.count++] = wgrad_reduction(wp[0], static_cast<float*>(a.gw2),
-                                       static_cast<float*>(a.gb2), false);
-  red.r[red.count++] = wgrad_reduction(wp[1], static_cast<float*>(a.gw1),
-                                       static_cast<float*>(a.gb1), true);
-  red.r[red.count++] = {lnp, rowblocks<2>(M) * 8, 2 * D, D, static_cast<float*>(a.gln2_scale),
-                        static_cast<float*>(a.gln2_bias), 0, 1};
-  return launch_reduce_all(red, st);
+  Reductions* r = defer ? defer : &red;
+  LAUNCH(defer_reduction(r, wgrad_reduction(wp[0], static_cast<float*>(a.gw2),
+                                            static_cast<float*>(a.gb2), false)));
+  LAUNCH(defer_reduction(r, wgrad_reduction(wp[1], static_cast<float*>(a.gw1),
+                                            static_cast<float*>(a.gb1), true)));
+  LAUNCH(defer_reduction(r, {lnp, rowblocks<2>(M) * 8, 2 * D, D,
+                             static_cast<float*>(a.gln2_scale),
+                             static_cast<float*>(a.gln2_bias), 0, 1}));
+  return defer ? 0 : launch_reduce_all(red, st);
 }
 
 template <int D>
 static int mlp_bwd_hopper_d(const MlpBwdArgs& a, cudaStream_t st, bool size_only,
-                            long long* need) {
-  if (a.MLP % 192 == 0) return mlp_bwd_hopper_nt<D, 192>(a, st, size_only, need);
-  if (a.MLP % 128 == 0) return mlp_bwd_hopper_nt<D, 128>(a, st, size_only, need);
-  return mlp_bwd_hopper_nt<D, 64>(a, st, size_only, need);
+                            long long* need, Reductions* defer) {
+  if (a.MLP % 192 == 0) return mlp_bwd_hopper_nt<D, 192>(a, st, size_only, need, defer);
+  if (a.MLP % 128 == 0) return mlp_bwd_hopper_nt<D, 128>(a, st, size_only, need, defer);
+  return mlp_bwd_hopper_nt<D, 64>(a, st, size_only, need, defer);
 }
 
 // The bf16 route for D <= HOPPER_BWD_MAX_D; with size_only, its workspace
-// in floats into *need and nothing launched.
+// in floats into *need and nothing launched; with `defer`, its reductions
+// left to the caller.
 static int mlp_bwd_hopper(const MlpBwdArgs& a, cudaStream_t st, bool size_only = false,
-                          long long* need = nullptr) {
+                          long long* need = nullptr, Reductions* defer = nullptr) {
   switch (a.D) {
-    case 64: return mlp_bwd_hopper_d<64>(a, st, size_only, need);
-    case 128: return mlp_bwd_hopper_d<128>(a, st, size_only, need);
-    case 192: return mlp_bwd_hopper_d<192>(a, st, size_only, need);
-    case 256: return mlp_bwd_hopper_d<256>(a, st, size_only, need);
+    case 64: return mlp_bwd_hopper_d<64>(a, st, size_only, need, defer);
+    case 128: return mlp_bwd_hopper_d<128>(a, st, size_only, need, defer);
+    case 192: return mlp_bwd_hopper_d<192>(a, st, size_only, need, defer);
+    case 256: return mlp_bwd_hopper_d<256>(a, st, size_only, need, defer);
     default: return (int)cudaErrorInvalidValue;
   }
 }

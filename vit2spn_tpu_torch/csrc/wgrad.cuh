@@ -26,6 +26,9 @@
 // csrc/attn_bwd.cuh): its LayerNorm-backward GEMM keeps a 64 x D fp32 dy per
 // warpgroup in registers
 #define HOPPER_BWD_MAX_D 256
+
+// the backward entry points take the kit at bf16 and D <= HOPPER_BWD_MAX_D
+static bool hopper_route(int D, int fp32) { return !fp32 && D <= HOPPER_BWD_MAX_D; }
 #define WGRAD_WG 2
 #define WGRAD_SMS 132  // blocks in flight: one per SM of an H100
 

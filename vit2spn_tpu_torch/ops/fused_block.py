@@ -69,9 +69,10 @@ KERNEL_MAX_D = 768
 # widest D whose layer keeps x2, y2 and g inside one block (csrc/layer_fwd.cuh
 # FUSED_MLP_MAX_D); above it the layer passes fp32 x2 and g through scratch
 FUSED_MLP_MAX_D = 256
-# widest D whose bf16 backward halves run the wgmma row-block kit
-# (csrc/mlp_bwd.cuh HOPPER_BWD_MAX_D), which keeps dy in registers; above it,
-# and in fp32, the halves pass an fp32 dy through scratch
+# widest D whose bf16 backward halves (and the merged backward, which runs
+# their stages) take the wgmma row-block kit (csrc/wgrad.cuh
+# HOPPER_BWD_MAX_D), which keeps dy in registers; above it, and in fp32,
+# they pass an fp32 dy through scratch
 HOPPER_BWD_MAX_D = 256
 
 
@@ -460,6 +461,8 @@ _SIGNATURES = {
         "vit2spn_mlp_bwd": ([_P] * 19 + [_I] * 3 + [_F, _I, _I, _P], _I),
         "vit2spn_mlp_bwd_workspace_floats": ([_I] * 4, _LL),
         "vit2spn_mlp_bwd_launches": ([_I] * 2, _I),
+        "vit2spn_gemm_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "vit2spn_gemm_f32_workspace_floats": ([_I] * 3, _LL),
     },
     "attn_bwd": {
         "vit2spn_attn_bwd": ([_P] * 21 + [_I] * 4 + [_F, _I, _P], _I),
@@ -476,7 +479,7 @@ _SIGNATURES = {
     "merged_bwd": {
         "vit2spn_merged_bwd": ([_P] * 37 + [_I] * 5 + [_F, _I, _I, _P], _I),
         "vit2spn_merged_bwd_workspace_floats": ([_I] * 6, _LL),
-        "vit2spn_merged_bwd_launches": ([_I], _I),
+        "vit2spn_merged_bwd_launches": ([_I] * 2, _I),
     },
     # ops/flash_attention.py's kernels
     "flash_attention": {
@@ -524,10 +527,9 @@ def kernel_launches_per_layer(d: int, fp32: bool = False) -> int:
 
 def cuda_launches(name: str, lib: Optional[str] = None, *args: int) -> int:
     """CUDA kernel launches one call of the `name` wrapper costs (one layer
-    of `layer_fwd`, `mlp_bwd`, `attn_bwd`, which take the width D and 1 for
-    fp32 in `args`, `merged_bwd`, which takes the fp32 flag; one attention
-    of `flash_fwd`, `flash_bwd`), from the library of csrc/<lib or name>.cu
-    (builds if needed)."""
+    of `layer_fwd`, `mlp_bwd`, `attn_bwd`, `merged_bwd`, which take the width
+    D and 1 for fp32 in `args`; one attention of `flash_fwd`, `flash_bwd`),
+    from the library of csrc/<lib or name>.cu (builds if needed)."""
     return getattr(_load(lib or name), f"vit2spn_{name}_launches")(*args)
 
 
@@ -720,7 +722,7 @@ def merged_bwd(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict, h
     dx = torch.empty_like(x)
     y1, y2, qkv, datt, att, dqkv = act(d), act(d), act(3 * d), act(d), act(d), act(3 * d)
     g, gg, dx2 = act(mlp), act(mlp), act(d)
-    dy = torch.empty((m, d), dtype=torch.float32, device=dev)
+    dy = _dy_scratch(x, m, d)
     ws = torch.empty(lib.vit2spn_merged_bwd_workspace_floats(b, s, d, heads, mlp, fp32),
                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::merged_bwd"):
@@ -728,7 +730,8 @@ def merged_bwd(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict, h
             x.data_ptr(), x2.data_ptr(), dout.data_ptr(),
             *[w[n].data_ptr() for n in ATTN_NAMES[:5] + MLP_NAMES[:5]],
             dx.data_ptr(), *[out[n].data_ptr() for n in WEIGHT_NAMES],
-            *[t.data_ptr() for t in (y1, y2, qkv, datt, att, dqkv, g, gg, dx2, dy, ws)],
+            *[t.data_ptr() for t in (y1, y2, qkv, datt, att, dqkv, g, gg, dx2)], _ptr(dy),
+            ws.data_ptr(),
             b, s, d, heads, mlp, float(eps), int(bool(fast_gelu)), fp32, _stream(dev),
         )
     _raise_on(lib, rc, "merged backward")
