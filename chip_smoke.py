@@ -79,6 +79,24 @@ script exits non-zero without printing a result:
      backbone forwards and 192 merged backwards, no split half, and the
      merged step's CUDA launches of the backward against the split step's),
      and the step's images/s and device time by wrapper;
+ 10b. the fine-tune path end to end, at the `ft-octmnist` preset's width and
+     depth (B=128, bf16, 4 classes): step 1 of FineTuneTrainer through
+     "fused" against "plain" (bf16 and fp32; head dropout on, the same
+     streams; loss, Adam's first moments, updated params, BN running
+     statistics; in bf16 also each path's distance from the fp32 step and
+     the two paths' distance on the blocks) and the split backward against
+     VIT2SPN_MERGED_BWD=1 (every bit equal); `evaluate` of 512 images
+     through "fused" against "plain" from one state (the backbone forward's
+     no-residual route only); a warm step's wall time (beside the same
+     steps timed right after the build, and here with the garbage
+     collector's objects frozen) and its device time by wrapper (card
+     idle); then
+     `run ft-octmnist` through the CLI from an export of phase 9's SSP
+     trainer, cut to 3 folds and 2 epochs, with the counters set to 0 just
+     before and read just after: per train step 1 backbone forward and 12
+     of each backward half, per eval batch 1 backbone forward, nothing
+     else; its four artifacts, finite fold mAUCs, and per-fold device
+     memory that rises by at most one kept model;
  11. times with CUDA events after a warm-up: each kernel, its plain twin, a
      library yardstick (F.layer_norm / torch.matmul / SDPA / F.gelu, and
      their torch autograd for the backward kernels; for the flash kernels
@@ -96,13 +114,15 @@ script exits non-zero without printing a result:
      kernel.
 
 The line before the last is one JSON object {"kernels": [...]} with each
-kernel's numbers; the last line is {"ok": true, "device": {...}}. The
+kernel's numbers (`launches` on its training path, `finetune_launches` in
+the `run ft-octmnist` of phase 10b); the last line is {"ok": true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
 
 from __future__ import annotations
 
 import bisect
+import gc
 import json
 import math
 import os
@@ -203,6 +223,32 @@ FP32_IMAGES = 1024  # one fp32 optimizer step of 8 x 128 per fp32 path
 # The pretrained init on the card: a weight file of the HF layout written
 # from seeded random weights (no checkpoint is in the repository).
 PRETRAINED_SEED = 7
+# The fine-tune path (phase 10b): evaluate's probabilities through the
+# kernels vs the plain twin, from one state and one eval stream: both round
+# the backbone at bf16 and differ as the served features do (FEATURE_REL_TOL
+# of their largest magnitude, here 1), so within 2e-2 absolute; the same
+# bound for the eval loss, relative.
+FT_PROB_TOL = 2e-2
+# Step 1 of fine-tuning in bf16 cannot be held to the SSP step's absolute
+# tolerances: the BN head makes the backbone's gradient a sum of per-image
+# terms that mostly cancel, so bf16 rounding moves it far. On the H100 both
+# bf16 paths (the kernels and the plain twin) land ~15% (relative L2) from
+# the same step taken in fp32 and ~11% from each other, while the fp32
+# routes agree with the fp32 twin within 5e-5. So the bf16 kernels are held
+# as close to the fp32 step as the twin is (KERNEL_VS_FP32_RATIO), the test
+# every bf16 kernel passes; the fp32 step keeps the STEP_* tolerances.
+# The two bf16 paths' distance from each other is held as well, on the
+# blocks' first moments (what the backward kernels compute): 0.083 relative L2
+# on the H100, held within FT_BLOCKS_MU_L2_TOL, which leaves the kernels no
+# bf16 error of their own above ~0.056 (sqrt(0.1**2 - 0.083**2)).
+FT_BLOCKS_MU_L2_TOL = 0.1
+# The head's first bias feeds train-mode BN, which subtracts the batch mean:
+# its true gradient is 0 and both paths hold rounding noise there.
+FT_ZERO_GRAD = ("mu/1/linear_0/b",)
+FT_EVAL_IMAGES = 512
+FT_STEPS = 10  # warm steps timed
+FT_FOLDS = 3  # `run ft-octmnist` cut from 10 folds and 50 epochs
+FT_EPOCHS = 2
 STAGE_CALLS = 10  # calls per traced run of a backward half's stage breakdown
 
 
@@ -321,13 +367,14 @@ def backbone_bound_ms(b, s, d, heads, mlp, layers, wt, acts=2) -> tuple:
 
 
 def stage_breakdown(fn, what: str = "one backbone forward", top: int = 14,
-                    wrappers: tuple = (), rest: str = "") -> list:
+                    wrappers: tuple = (), rest: str = "", totals: dict = None) -> list:
     """Device time by CUDA kernel name over one call of `fn`, from
     torch.profiler (CUPTI), and, for each name in `wrappers`, the device
     time of the kernels that ran inside that wrapper's `vit2spn::<name>`
     range on the card's timeline (`rest` names what runs outside them);
     says so when the trace holds no device time. Sums every device event of
-    the trace (prof.events())."""
+    the trace (prof.events()). `totals`, when given, receives the device ms
+    ("device") and each wrapper's ("vit2spn::<name>")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -365,6 +412,9 @@ def stage_breakdown(fn, what: str = "one backbone forward", top: int = 14,
     for name, (us, n) in spans.items():
         out.append(f"[profile]   wrapper {name:22s} {us / 1e3:9.3f} ms "
                    f"{100 * us / total:5.1f}% ({n} calls)")
+    if totals is not None:
+        totals["device"] = total / 1e3
+        totals.update({name: us / 1e3 for name, (us, _) in spans.items()})
     if spans:
         outside = total - sum(us for us, _ in spans.values())
         out.append(f"[profile]   {'outside the wrappers':30s} {outside / 1e3:9.3f} ms "
@@ -767,8 +817,81 @@ def time_gemm_f32(fb, m, d, mlp, gen, dev) -> None:
             raise AssertionError(f"the fp32 GEMM disagrees with torch.matmul ({what}, N={n})")
 
 
+def rel_l2(a: dict, b: dict, keys) -> float:
+    """Relative L2 distance of a's leaves from b's over `keys`, in float64."""
+    num = sum(np.sum((a[k].astype(np.float64) - b[k]) ** 2) for k in keys)
+    den = sum(np.sum(b[k].astype(np.float64) ** 2) for k in keys)
+    return math.sqrt(num / den)
+
+
+def compare_steps(tag, names, runs, eps_lr, params, stats=(), skip=()) -> None:
+    """Step 1 of two paths from one state. `runs` holds (loss, flat state
+    before, flat state after) per path, path first; `params` the prefixes of
+    the trainable leaves, `stats` those of running statistics. The loss
+    within STEP_LOSS_REL_TOL; Adam's first moments and each statistic's move
+    within STEP_MU_MAX_REL_TOL of the leaf's largest and STEP_MU_L2_REL_TOL
+    in relative L2; the updated params moved the same way in at least
+    STEP_SAME_DIRECTION_MIN of the elements, none by more than the lr.
+    Moments of the leaves in `skip` (whose true gradient is 0, so both
+    paths hold rounding noise there) are not compared."""
+    (lf, before, af), (lp, before_p, ap) = runs
+    assert all(np.array_equal(before[k], before_p[k]) for k in before)
+    if not (np.isfinite(lf) and abs(lf - lp) <= STEP_LOSS_REL_TOL * abs(lp)):
+        raise AssertionError(f"step 1 loss: {names[0]} {lf} vs {names[1]} {lp}")
+
+    def moved(keys, delta):
+        worst, num, den = 0.0, 0.0, 0.0
+        for k in keys:
+            a, b = delta(af, k), delta(ap, k)
+            scale = np.abs(b).max()
+            if scale > 0:
+                worst = max(worst, np.abs(a - b).max() / scale)
+            num += np.sum((a - b) ** 2)
+            den += np.sum(b ** 2)
+        return worst, math.sqrt(num / den)
+
+    mu = [k for k in af if k.startswith("opt_state/") and "/mu/" in k
+          and not k.endswith(skip)]
+    worst, l2 = moved(mu, lambda st, k: st[k].astype(np.float64))
+    # updated params: both moved by Adam's first step (|update| <= lr) from
+    # the same state; the share of elements that moved the same way
+    same = total = 0
+    for k in af:
+        if k.startswith(params):
+            da, db = af[k] - before[k], ap[k] - before[k]
+            lim = eps_lr * (1 + 1e-3) + 1e-7  # Adam's first step, fp32 rounding
+            if np.abs(da).max() > lim or np.abs(db).max() > lim:
+                raise AssertionError(f"{k}: a step larger than the learning rate")
+            same += int(np.sum(np.sign(da) == np.sign(db)))
+            total += da.size
+    line = (f"[{tag}-{names[0].replace(' ', '-')}-vs-{names[1].replace(' ', '-')}] loss "
+            f"{names[0]} {lf:.6f} {names[1]} {lp:.6f}; Adam first moments: "
+            f"largest difference {worst:.3g} of the leaf's largest, relative L2 {l2:.3g} "
+            f"(tol {STEP_MU_MAX_REL_TOL}, {STEP_MU_L2_REL_TOL}); trainable params moved "
+            f"the same way in {100.0 * same / total:.2f}% of {total} elements (tol "
+            f"{100.0 * STEP_SAME_DIRECTION_MIN:.0f}%)")
+    s_worst = s_l2 = 0.0
+    if stats:  # running statistics: their move from the shared start
+        s_worst, s_l2 = moved([k for k in af if k.startswith(stats) and af[k].dtype.kind == "f"],
+                              lambda st, k: st[k].astype(np.float64) - before[k])
+        line += (f"; running statistics' move: largest difference {s_worst:.3g}, relative "
+                 f"L2 {s_l2:.3g}")
+    log(line)
+    if not (worst <= STEP_MU_MAX_REL_TOL and l2 <= STEP_MU_L2_REL_TOL):
+        raise AssertionError(f"step 1 gradients of {names[0]} disagree with {names[1]}")
+    if not (s_worst <= STEP_MU_MAX_REL_TOL and s_l2 <= STEP_MU_L2_REL_TOL):
+        raise AssertionError(f"step 1 running statistics of {names[0]} disagree with "
+                             f"{names[1]}")
+    if not same >= STEP_SAME_DIRECTION_MIN * total:
+        raise AssertionError(f"step 1 updated params of {names[0]} disagree with {names[1]}")
+
+
+def path_name(impl, merged, cfg) -> str:
+    return f"{impl}{' merged' if merged else ''}{' fp32' if cfg.compute_dtype == 'float32' else ''}"
+
+
 def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False)):
-    """Step 1 from the same initial state through `path` and through the
+    """SSP step 1 from the same initial state through `path` and through the
     reference path `ref`, each (attn_impl, merged backward): loss, Adam's
     first moments, updated params."""
     from vit2spn_tpu_torch.train import checkpoint as ckpt
@@ -786,43 +909,8 @@ def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False))
         del tr
         torch.cuda.empty_cache()
     os.environ["VIT2SPN_MERGED_BWD"] = "0"
-    (lf, before, af), (lp, before_p, ap) = out
-    tag = " fp32" if cfg.compute_dtype == "float32" else ""
-    names = [f"{impl}{' merged' if merged else ''}{tag}" for impl, merged in (path, ref)]
-    assert all(np.array_equal(before[k], before_p[k]) for k in before)
-    if not (np.isfinite(lf) and abs(lf - lp) <= STEP_LOSS_REL_TOL * abs(lp)):
-        raise AssertionError(f"step 1 loss: {names[0]} {lf} vs {names[1]} {lp}")
-    mu = [k for k in af if k.startswith("opt_state/0/mu/")]
-    worst, num, den = 0.0, 0.0, 0.0
-    for k in mu:
-        a, b = af[k].astype(np.float64), ap[k].astype(np.float64)
-        scale = np.abs(b).max()
-        if scale > 0:
-            worst = max(worst, np.abs(a - b).max() / scale)
-        num += np.sum((a - b) ** 2)
-        den += np.sum(b ** 2)
-    l2 = math.sqrt(num / den)
-    # updated params: both moved by Adam's first step (|update| <= lr) from
-    # the same state; the share of elements that moved the same way
-    same = total = 0
-    for k in af:
-        if k.startswith(("params/online/", "params/heads/")):
-            da, db = af[k] - before[k], ap[k] - before[k]
-            lim = eps_lr * (1 + 1e-3) + 1e-7  # Adam's first step, fp32 rounding
-            if np.abs(da).max() > lim or np.abs(db).max() > lim:
-                raise AssertionError(f"{k}: a step larger than the learning rate")
-            same += int(np.sum(np.sign(da) == np.sign(db)))
-            total += da.size
-    log(f"[step1-{names[0].replace(' ', '-')}-vs-{names[1].replace(' ', '-')}] loss "
-        f"{names[0]} {lf:.6f} {names[1]} {lp:.6f}; Adam first moments: "
-        f"largest difference {worst:.3g} of the leaf's largest, relative L2 {l2:.3g} "
-        f"(tol {STEP_MU_MAX_REL_TOL}, {STEP_MU_L2_REL_TOL}); trainable params moved "
-        f"the same way in {100.0 * same / total:.2f}% of {total} elements (tol "
-        f"{100.0 * STEP_SAME_DIRECTION_MIN:.0f}%)")
-    if not (worst <= STEP_MU_MAX_REL_TOL and l2 <= STEP_MU_L2_REL_TOL):
-        raise AssertionError(f"step 1 gradients of {names[0]} disagree with {names[1]}")
-    if not same >= STEP_SAME_DIRECTION_MIN * total:
-        raise AssertionError(f"step 1 updated params of {names[0]} disagree with {names[1]}")
+    compare_steps("step1", [path_name(*p, cfg) for p in (path, ref)], out, eps_lr,
+                  ("params/online/", "params/heads/"))
 
 
 def check_pretrained_init(cfg, dev) -> None:
@@ -881,6 +969,291 @@ def check_pretrained_init(cfg, dev) -> None:
     log(f"[pretrained] SSPTrainer with VIT2SPN_VIT_TINY_PATH at an HF-named .npz (seed "
         f"{PRETRAINED_SEED}): init_provenance {tr.init_provenance!r}; {n_leaves} backbone "
         f"leaves of the online and target nets on {dev} equal the file's bit for bit")
+
+
+def ft_step_check(cfg, ds, weights, path=("fused", False), ref=("plain", False),
+                  against_fp32: bool = False) -> float:
+    """Fine-tune step 1 (one batch of `ds`, head dropout on, the same
+    augment and dropout streams) from one initial state through `path` and
+    through `ref`, each (attn_impl, merged backward). Without
+    `against_fp32`: loss, Adam's first moments, updated params and the BN
+    running statistics under compare_steps' tolerances. With it (the bf16
+    kernels against the bf16 plain twin): the loss and the BN statistics so,
+    and `path` at least as close to the step taken in fp32 (the plain path
+    with compute_dtype=float32, from the same state) as `ref` is, within
+    KERNEL_VS_FP32_RATIO: Adam's first moments in relative L2 (all trainable
+    leaves, and the blocks the backward kernels compute) and the share of
+    elements that moved against the fp32 step. Returns the share of equal
+    bits of `path`'s and `ref`'s updated states."""
+    from vit2spn_tpu_torch.train import checkpoint as ckpt
+    from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    quiet = MetricLogger(echo=False)
+    idx = np.arange(cfg.batch_size)[None]
+    out = []
+    runs = [(cfg, *path), (cfg, *ref)]
+    if against_fp32:
+        runs.append((replace_cfg(cfg, compute_dtype="float32"), "plain", False))
+    for rcfg, impl, merged in runs:
+        os.environ["VIT2SPN_MERGED_BWD"] = "1" if merged else "0"
+        tr = FineTuneTrainer(rcfg, ds.num_classes, logger=quiet, attn_impl=impl,
+                             device="cuda")
+        before = {k: v.copy() for k, v in ckpt._flatten(tr.state).items()}
+        loss = float(tr.train_epoch(ds, idx, weights, epoch=0))
+        out.append((loss, before, ckpt._flatten(tr.state)))
+        del tr
+        torch.cuda.empty_cache()
+    os.environ["VIT2SPN_MERGED_BWD"] = "0"
+    names = [path_name(*p, cfg) for p in (path, ref)]
+    if not against_fp32:
+        compare_steps("ft-step1", names, out, cfg.learning_rate, ("backbone/", "head/"),
+                      ("bn_state/",), skip=FT_ZERO_GRAD)
+    else:
+        (lf, before, af), (lp, before_p, ap), (l32, before32, a32) = out
+        assert all(np.array_equal(before[k], before_p[k]) for k in before)
+        assert all(np.array_equal(before[k], before32[k]) for k in before)
+        if not (np.isfinite(lf) and abs(lf - lp) <= STEP_LOSS_REL_TOL * abs(lp)):
+            raise AssertionError(f"step 1 loss: {names[0]} {lf} vs {names[1]} {lp}")
+        mu = [k for k in af if k.startswith("opt_state/") and "/mu/" in k
+              and not k.endswith(FT_ZERO_GRAD)]
+        blocks = [k for k in mu if "/blocks/" in k]
+        dist = {n: (rel_l2(st, a32, mu), rel_l2(st, a32, blocks)) for n, st in zip(names, (af, ap))}
+        blocks_l2 = rel_l2(af, ap, blocks)
+        stats = [k for k in af if k.startswith("bn_state/") and af[k].dtype.kind == "f"]
+        moved = {k: af[k] - before[k] for k in stats}
+        s_l2 = rel_l2(moved, {k: ap[k] - before[k] for k in stats}, stats)
+        against, total = {}, 0
+        for n, st in zip(names, (af, ap)):
+            against[n] = 0
+            for k in st:
+                if k.startswith(("backbone/", "head/")):
+                    d, d32 = st[k] - before[k], a32[k] - before[k]
+                    if np.abs(d).max() > cfg.learning_rate * (1 + 1e-3) + 1e-7:
+                        raise AssertionError(f"{k}: a step larger than the learning rate")
+                    against[n] += int(np.sum(np.sign(d) != np.sign(d32)))
+                    total += d.size if n == names[0] else 0
+        log(f"[ft-step1-{names[0]}-vs-{names[1]}] loss {lf:.6f} vs {lp:.6f} (fp32 step "
+            f"{l32:.6f}); Adam first moments' relative L2 from the fp32 step, all leaves / the "
+            f"blocks: {names[0]} {dist[names[0]][0]:.4f} / {dist[names[0]][1]:.4f}, {names[1]} "
+            f"{dist[names[1]][0]:.4f} / {dist[names[1]][1]:.4f}, {names[0]} vs {names[1]} "
+            f"{rel_l2(af, ap, mu):.4f} / {blocks_l2:.4f} (tol on the blocks "
+            f"{FT_BLOCKS_MU_L2_TOL}); params moved against the fp32 step in "
+            f"{100.0 * against[names[0]] / total:.3f}% / {100.0 * against[names[1]] / total:.3f}%"
+            f" of {total} elements; BN statistics' move, relative L2 {s_l2:.3g} (tol "
+            f"{STEP_MU_L2_REL_TOL}); ratio tol {KERNEL_VS_FP32_RATIO}")
+        if not all(a <= KERNEL_VS_FP32_RATIO * b
+                   for a, b in zip(dist[names[0]], dist[names[1]])):
+            raise AssertionError(f"step 1 gradients of {names[0]} are further from the fp32 "
+                                 f"step than {names[1]}'s")
+        if not blocks_l2 <= FT_BLOCKS_MU_L2_TOL:
+            raise AssertionError(f"step 1 gradients of the blocks: {names[0]} and {names[1]} "
+                                 f"are {blocks_l2:.4f} apart")
+        if not against[names[0]] <= KERNEL_VS_FP32_RATIO * against[names[1]] + 1e-4 * total:
+            raise AssertionError(f"step 1 of {names[0]} moves against the fp32 step more "
+                                 f"often than {names[1]}")
+        if not s_l2 <= STEP_MU_L2_REL_TOL:
+            raise AssertionError(f"step 1 BN statistics of {names[0]} disagree with {names[1]}")
+    af, ap = out[0][2], out[1][2]
+    floats = [k for k in af if af[k].dtype.kind == "f"]
+    equal = sum(int(np.sum(af[k] == ap[k])) for k in floats) / sum(af[k].size for k in floats)
+    log(f"[ft-step1] {names[0]} vs {names[1]}: {100.0 * equal:.4f}% of the updated "
+        "state's elements bit-equal")
+    return equal
+
+
+def ft_data():
+    """The fine-tune phases' preset, FT_EVAL_IMAGES seeded synthetic images
+    and their balanced class weights."""
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.train.optim import balanced_class_weights
+
+    ds = synthetic_dataset(split_sizes={"train": FT_EVAL_IMAGES}, image_size=28,
+                           seed=SEED + 3).split("train")
+    return get_preset("ft-octmnist"), ds, balanced_class_weights(ds.labels, ds.num_classes)
+
+
+def ft_step_wall(tf, ds, w) -> float:
+    """Wall seconds per warm fine-tune step of trainer `tf`: FT_STEPS steps
+    after two warm-up steps, the card synced around them."""
+    bs = tf.cfg.batch_size
+    idx = np.arange(FT_STEPS * bs).reshape(FT_STEPS, bs) % len(ds)
+    tf.train_epoch(ds, idx[:2], w, epoch=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tf.train_epoch(ds, idx, w, epoch=2)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / FT_STEPS
+
+
+def ft_step_wall_fresh() -> float:
+    """ft_step_wall of a new "fused" FineTuneTrainer, run right after the
+    build so that no earlier phase has left state in the process."""
+    from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    cfg, ds, w = ft_data()
+    tf = FineTuneTrainer(cfg, ds.num_classes, logger=MetricLogger(echo=False), device="cuda")
+    step_s = ft_step_wall(tf, ds, w)
+    del tf
+    torch.cuda.empty_cache()
+    return step_s
+
+
+def finetune_path(ssp_trainer, card, fresh_s) -> dict:
+    """The fine-tune path end to end at full width and depth (the
+    `ft-octmnist` preset: ViT-Tiny/16, 224 px, 12 layers, B=128, bf16, 4
+    classes): (a) step 1 of FineTuneTrainer through "fused" against "plain"
+    in bf16 and fp32, and the split backward against the merged one; (b)
+    `evaluate` of FT_EVAL_IMAGES images through "fused" against "plain" from
+    one state, and its img/s; (d) a warm step's wall time and its device
+    time by wrapper, the card's idle share; (c) `run ft-octmnist` through
+    the CLI from the export of `ssp_trainer`, cut to FT_FOLDS folds and
+    FT_EPOCHS epochs, with the launch counters read around it. `fresh_s` is
+    ft_step_wall_fresh's reading, printed beside this phase's. Returns the
+    run's launches by kernel."""
+    import tempfile
+
+    from vit2spn_tpu_torch.cli import main as cli_main
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    cfg, ds, w = ft_data()
+    bs, layers = cfg.batch_size, cfg.vit.num_layers
+
+    # (a) step 1 against a reference path from one state
+    ft_step_check(cfg, ds, w, against_fp32=True)
+    ft_step_check(replace_cfg(cfg, compute_dtype="float32"), ds, w)
+    equal = ft_step_check(cfg, ds, w, ("fused", True), ("fused", False))
+    if equal != 1.0:
+        raise AssertionError(f"fine-tune step 1: the merged backward's state differs from the "
+                             f"split pair's ({100.0 * equal:.4f}% of the elements bit-equal)")
+
+    # (b) evaluate: "fused" against "plain" from one state (one step taken,
+    # so the BN running statistics are off their init)
+    quiet = MetricLogger(echo=False)
+    tf = FineTuneTrainer(cfg, ds.num_classes, logger=quiet, device="cuda")
+    tf.train_epoch(ds, np.arange(bs)[None], w, epoch=0)
+    tp = FineTuneTrainer(cfg, ds.num_classes, logger=quiet, attn_impl="plain", device="cuda")
+    tp.state = tf.state
+    tf.evaluate(ds, w)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss_f, probs_f, labels = tf.evaluate(ds, w)
+    eval_s = time.perf_counter() - t0
+    eval_launches = {k: n for k, n in read_launches().items() if n}
+    loss_p, probs_p, _ = tp.evaluate(ds, w)
+    del tp
+    err = float(np.abs(probs_f - probs_p).max())
+    agree = float(np.mean(probs_f.argmax(1) == probs_p.argmax(1)))
+    n_eval = -(-len(ds) // bs)
+    log(f"[ft-eval] evaluate of {len(ds)} images (eval augmentation on, one stream): fused vs "
+        f"plain probabilities max_abs_err {err:.4g} (tol {FT_PROB_TOL}), equal argmax "
+        f"{100.0 * agree:.2f}%, loss {loss_f:.6f} vs {loss_p:.6f}; launches {eval_launches}; "
+        f"{1e3 * eval_s:.2f} ms, {len(ds) / eval_s:.1f} img/s on {card}")
+    if probs_f.shape != (len(ds), ds.num_classes) or not np.isfinite(probs_f).all():
+        raise AssertionError(f"bad eval probabilities: shape {probs_f.shape}")
+    if eval_launches != {KERNEL_NAME: n_eval}:
+        raise AssertionError(f"evaluate launched {eval_launches}, expected {n_eval} "
+                             f"{KERNEL_NAME} (its no-residual route) and nothing else")
+    if not (err <= FT_PROB_TOL and abs(loss_f - loss_p) <= FT_PROB_TOL * max(1.0, abs(loss_p))):
+        raise AssertionError("fine-tune evaluate through fused disagrees with plain")
+
+    # (d) a warm step: wall time over FT_STEPS steps (and again with the
+    # earlier phases' Python objects frozen out of the garbage collector's
+    # scans), device time by wrapper
+    step_s = ft_step_wall(tf, ds, w)
+    gc.collect()
+    gc.freeze()
+    frozen_s = ft_step_wall(tf, ds, w)
+    gc.unfreeze()
+    totals = {}
+    lines = stage_breakdown(lambda: tf.train_epoch(ds, np.arange(bs)[None], w, epoch=3),
+                            f"one fine-tune step (B={bs}, bf16)",
+                            wrappers=(KERNEL_NAME, "mlp_bwd", "attn_bwd"),
+                            rest="views, embed, head, loss, Adam", totals=totals)
+    for line in lines:
+        log(line)
+    def idle(wall_s):
+        return (f"{100.0 * (1.0 - totals['device'] / (1e3 * wall_s)):.1f}%" if totals
+                else "not measured")
+
+    log(f"[time] fine-tune step (B={bs}, bf16): wall {1e3 * step_s:.3f} ms over {FT_STEPS} "
+        f"warm steps, {bs / step_s:.1f} img/s; device "
+        f"{totals.get('device', float('nan')):.3f} ms; card idle {idle(step_s)} on {card}")
+    log(f"[time] fine-tune step wall, same steps: right after the build, before the other "
+        f"phases {1e3 * fresh_s:.3f} ms ({bs / fresh_s:.1f} img/s, card idle {idle(fresh_s)}); "
+        f"here with the garbage collector's objects frozen {1e3 * frozen_s:.3f} ms "
+        f"({bs / frozen_s:.1f} img/s, card idle {idle(frozen_s)}); {len(gc.get_objects())} "
+        f"objects tracked here")
+    state_bytes = 3 * 4 * sum(t.numel() for t in tf._trainable)  # params, 2 moments
+    del tf
+    torch.cuda.empty_cache()
+
+    # (c) the CLI end to end from an SSP export
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        export = ssp_trainer.export_backbone(os.path.join(tmp, "ssp_export.npz"))
+        out = os.path.join(tmp, "ft")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["run", "ft-octmnist", "--epochs", str(FT_EPOCHS), "--output-dir", out,
+                       "-o", f"k_folds={FT_FOLDS}", "-o", f"init_path={export}"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        missing = [a for a in ("roc_curve_all_folds.png", "confusion_matrix.png",
+                               "classification_report.txt", "cv_result.json")
+                   if not os.path.getsize(os.path.join(out, f"octmnist_{a}"))]
+    if rc != 0 or missing:
+        raise AssertionError(f"run ft-octmnist: rc {rc}, empty artifacts {missing}")
+    by = {}
+    for e in events:
+        by.setdefault(e["event"], []).append(e)
+    sizes = by["protocol"][0]
+    n_cv, n_test = sizes["cv_size"], sizes["test_size"]
+    # the stratified deal is one round robin over the subset: fold f holds
+    # positions f, f + k, ...
+    steps = evals = 0
+    for f in range(FT_FOLDS):
+        n_val = len(range(f, n_cv, FT_FOLDS))
+        epochs = len(by.get(f"fold{f}_epoch", []))
+        steps += epochs * max((n_cv - n_val) // bs, 1)
+        evals += (epochs + 1) * -(-n_val // bs)  # per epoch, then the fold's ROC
+    evals += -(-n_test // bs)  # the best fold's model on the test set
+    want = {KERNEL_NAME: steps + evals, "mlp_bwd": layers * steps, "attn_bwd": layers * steps}
+    aucs = [e["mauc"] for e in by.get("fold_result", [])]
+    mem = by.get("fold_memory", [])
+    peaks = [e["peak_allocated_bytes"] for e in mem]
+    held = [e["allocated_bytes"] for e in mem]
+    warm = [e["images_per_sec"] for k, v in by.items() if k.endswith("_epoch")
+            for e in v if e["epoch"] == FT_EPOCHS]
+    summary = by.get("cv_summary", [{}])[0]
+    log(f"[finetune] run ft-octmnist (cut: {FT_FOLDS} folds, {FT_EPOCHS} epochs; subset "
+        f"{n_cv}, test {n_test}, width and depth the preset's) from the SSP export in "
+        f"{run_s:.1f} s: {steps} train steps, {evals} eval batches; launches "
+        f"{ {k: n for k, n in launches.items() if n} } (expected {want}); fold mAUCs {aucs}; "
+        f"test accuracy {summary.get('test_accuracy')}; per-fold peak / held MiB "
+        f"{[round(p / 2**20, 1) for p in peaks]} / {[round(h / 2**20, 1) for h in held]}; "
+        f"warm-epoch train img/s {[round(x, 1) for x in warm]} on {card}")
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"run ft-octmnist launched {launches}, expected {want}")
+    if len(aucs) != FT_FOLDS or not all(np.isfinite(aucs)) or "cv_summary" not in by:
+        raise AssertionError(f"run ft-octmnist: fold mAUCs {aucs}, events {sorted(by)}")
+    # fold 0 holds one model; from fold 1 on, the best so far may be kept
+    # beside the current one: memory may sit one model's state (params and
+    # two Adam moments, plus 8 MiB of staged folds) above fold 0's, never more
+    slack = 1.1 * state_bytes + 8 * 2**20
+    if len(peaks) != FT_FOLDS or any(p > peaks[0] + slack for p in peaks) \
+            or any(h > held[0] + slack for h in held):
+        raise AssertionError(f"per-fold device memory grows: peaks {peaks}, held {held} "
+                             f"(one model's state {state_bytes} bytes)")
+    return {k: n for k, n in launches.items() if n}
 
 
 def replace_cfg(cfg, **kw):
@@ -1063,6 +1436,10 @@ def main() -> int:
             for k in ("ln_qkv", "attention", "mlp")}
     log(f"[build]   layer_fwd / backbone_fwd dynamic shared memory per block at S="
         f"{vit.seq_len}, D={vit.hidden_size}: {smem} B")
+
+    # the fine-tune step's wall time before any other phase (phase 10b times
+    # it again after them)
+    ft_fresh_s = ft_step_wall_fresh()
 
     # -- 3. forward kernel vs plain twin at the serving shapes -----------------
     layers, d, heads, mlp, s = (vit.num_layers, vit.hidden_size, vit.num_heads,
@@ -1454,6 +1831,9 @@ def main() -> int:
         del ptrainer
         torch.cuda.empty_cache()
 
+    # -- 10b. the fine-tune path end to end ----------------------------------------
+    ft_launches = finetune_path(trainer, card, ft_fresh_s)
+
     # -- 11. times ---------------------------------------------------------------
     fast = fast_gelu_default()
     kernel_ms = time_ms(lambda: fused_backbone(x, wt, heads, eps, fast))
@@ -1481,7 +1861,8 @@ def main() -> int:
         "name": KERNEL_NAME, "route": "cuda",
         "source": "vit2spn_tpu_torch/csrc/backbone_fwd.cu",
         "replaces": "vit2spn_tpu/ops/fused_block.py:694",
-        "launches": train_launches[KERNEL_NAME], "max_abs_err": max_err,
+        "launches": train_launches[KERNEL_NAME],
+        "finetune_launches": ft_launches.get(KERNEL_NAME, 0), "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms, "library_same_fn_ms": None,
         "dtype": "bfloat16",
@@ -1589,7 +1970,8 @@ def main() -> int:
             f"{b_flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the bound")
         entries.append({
             "name": name, "route": "cuda", "source": f"vit2spn_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": err,
+            "replaces": replaces, "launches": launches[name],
+            "finetune_launches": ft_launches.get(name, 0), "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms, "library_same_fn_ms": s_ms,
             "dtype": "float32" if name.endswith("(fp32)") else "bfloat16",

@@ -180,6 +180,12 @@ def test_port_runs_without_jax_in_a_fresh_process():
         "from vit2spn_tpu_torch.core.config import ViTConfig\n"
         "from vit2spn_tpu_torch.models.vit import init_vit, vit_features\n"
         "import vit2spn_tpu_torch.cli, vit2spn_tpu_torch.train.ssp\n"
+        "import vit2spn_tpu_torch.train.finetune, vit2spn_tpu_torch.train.optim\n"
+        "import vit2spn_tpu_torch.evals.protocol, vit2spn_tpu_torch.evals.plots\n"
+        "from vit2spn_tpu_torch.evals import CVResult, run_cv_protocol, mean_auc\n"
+        "from vit2spn_tpu_torch.train import FineTuneTrainer, EarlyStopping\n"
+        "from vit2spn_tpu_torch.models.heads import classifier_head_apply\n"
+        "from vit2spn_tpu_torch.models.convert import finetune_from_jax\n"
         "cfg = ViTConfig(image_size=32, hidden_size=32, num_layers=1,"
         " num_heads=2, mlp_dim=64)\n"
         "p = init_vit(torch.Generator().manual_seed(0), cfg, device='cpu')\n"
@@ -196,14 +202,15 @@ def test_port_runs_without_jax_in_a_fresh_process():
     assert out.stdout.strip() == "ok"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """No device given means cuda; without a card that raises instead of
     running on the CPU."""
     from vit2spn_tpu_torch.cli import main
-    from vit2spn_tpu_torch.core.config import SSPConfig, replace
+    from vit2spn_tpu_torch.core.config import FineTuneConfig, SSPConfig, replace
     from vit2spn_tpu_torch.core.runtime import resolve_device
     from vit2spn_tpu_torch.models.convert import from_jax
     from vit2spn_tpu_torch.models.vit import init_vit
+    from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
     from vit2spn_tpu_torch.train.ssp import SSPTrainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -219,6 +226,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         from_jax({"a": np.zeros(2)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["extract", "ssp", "-o", "vit.num_layers=1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FineTuneTrainer(replace(FineTuneConfig(), **{"vit.num_layers": 1}), 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["run", "ft-octmnist", "-o", "vit.num_layers=1", "--output-dir",
+              str(tmp_path)])
+    assert not (tmp_path / "metrics.jsonl").read_text()  # nothing ran
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -1,14 +1,17 @@
-"""Projection / prediction heads (port of `vit2spn_tpu/models/heads.py`).
+"""Projection / prediction / classifier heads (port of
+`vit2spn_tpu/models/heads.py`).
 
   * projection_head: Linear(384->1024) ReLU Dropout(.3) Linear(1024->128)
     (ssp_vit2spn_tiny.py:133-138; single-stream input 192).
   * prediction_head: Linear(128->128) ReLU Linear(128->128)
     (ssp_vit2spn_tiny.py:139-143).
+  * fine-tune fc: Linear(192->128) BatchNorm1d ReLU Dropout(.5)
+    Linear(128->classes) (octmnist_ft_vit2spn.py:77-83).
 
-Params are dicts `linear_<i>/{w (in, out), b}` in the JAX layout.
-Initialization follows torch.nn.Linear defaults (U(+-1/sqrt(fan_in)) for
-weights and biases). The fine-tune classifier head comes with the fine-tune
-slice of the port.
+Params are dicts `linear_<i>/{w (in, out), b}` (and the classifier's
+`bn/{scale, bias}`) in the JAX layout. Initialization follows torch.nn.Linear
+defaults (U(+-1/sqrt(fan_in)) for weights and biases). The heads' GEMMs are
+plain products outside any Pallas kernel in the JAX package too.
 """
 
 from __future__ import annotations
@@ -35,6 +38,19 @@ def init_mlp_head(gen: torch.Generator, dims: Tuple[int, ...]) -> dict:
     }
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """Inverted dropout with a mask drawn from `generator`, which must live on
+    x's device (a CUDA generator for CUDA tensors)."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a generator")
+    gd = generator.device
+    if gd.type != x.device.type or gd.index not in (None, x.device.index):
+        raise ValueError(f"the dropout generator is on {gd}, x on {x.device}")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
 def mlp_head_apply(
     params: dict,
     x: torch.Tensor,
@@ -55,14 +71,76 @@ def mlp_head_apply(
         if i < n - 1:
             x = torch.relu(x)
             if train and dropout_rate > 0.0 and i == dropout_after_layer:
-                if generator is None:
-                    raise ValueError("dropout in train mode needs a generator")
-                gd = generator.device
-                if gd.type != x.device.type or gd.index not in (None, x.device.index):
-                    raise ValueError(f"the dropout generator is on {gd}, x on "
-                                     f"{x.device}")
-                keep = 1.0 - dropout_rate
-                mask = torch.rand(x.shape, generator=generator,
-                                  device=x.device) < keep
-                x = torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+                x = _dropout(x, dropout_rate, generator)
     return x
+
+
+def init_classifier_head(gen: torch.Generator, in_dim: int, hidden: int,
+                         num_classes: int) -> dict:
+    """FineTunedModel.fc (octmnist_ft_vit2spn.py:77-83): Linear, BN affine
+    params, Linear (CPU tensors; the caller moves them)."""
+    return {
+        "linear_0": _torch_linear_init(gen, in_dim, hidden),
+        "bn": {"scale": torch.ones((hidden,)), "bias": torch.zeros((hidden,))},
+        "linear_1": _torch_linear_init(gen, hidden, num_classes),
+    }
+
+
+def init_bn_state(hidden: int, device=None) -> dict:
+    """BatchNorm1d running statistics; `count` (int32) counts train-mode
+    updates."""
+    return {
+        "mean": torch.zeros((hidden,), device=device),
+        "var": torch.ones((hidden,), device=device),
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def classifier_head_apply(
+    params: dict,
+    bn_state: dict,
+    x: torch.Tensor,
+    *,
+    dropout_rate: float = 0.5,
+    generator: Optional[torch.Generator] = None,
+    train: bool = False,
+    bn_momentum: float = 0.1,
+    bn_eps: float = 1e-5,
+) -> Tuple[torch.Tensor, dict]:
+    """Linear -> BatchNorm1d -> ReLU -> Dropout -> Linear, at the JAX
+    function's rounding points: the linears in x's dtype, BN in fp32 on the
+    rounded linear output and cast back before ReLU, fp32 logits.
+
+    Returns (logits, new_bn_state). Train mode normalizes with the batch
+    statistics (biased variance) and updates the running ones with torch's
+    unbiased-variance convention at `bn_momentum` (the new state carries no
+    autograd graph); eval mode uses the running statistics and returns
+    `bn_state` itself."""
+    p0 = params["linear_0"]
+    x = x @ p0["w"].to(x.dtype) + p0["b"].to(x.dtype)
+
+    x32 = x.float()
+    if train:
+        mean = torch.mean(x32, dim=0)
+        var = torch.var(x32, dim=0, unbiased=False)  # used for normalization
+        n = x32.shape[0]
+        with torch.no_grad():
+            unbiased = var * n / max(n - 1, 1)
+            new_state = {
+                "mean": (1 - bn_momentum) * bn_state["mean"] + bn_momentum * mean,
+                "var": (1 - bn_momentum) * bn_state["var"] + bn_momentum * unbiased,
+                "count": bn_state["count"] + 1,
+            }
+    else:
+        mean, var = bn_state["mean"], bn_state["var"]
+        new_state = bn_state
+    x32 = (x32 - mean) * torch.rsqrt(var + bn_eps)
+    x = (x32 * params["bn"]["scale"] + params["bn"]["bias"]).to(x.dtype)
+
+    x = torch.relu(x)
+    if train and dropout_rate > 0.0:
+        x = _dropout(x, dropout_rate, generator)
+
+    p1 = params["linear_1"]
+    logits = x @ p1["w"].to(x.dtype) + p1["b"].to(x.dtype)
+    return logits.float(), new_state
