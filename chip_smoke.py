@@ -97,6 +97,28 @@ script exits non-zero without printing a result:
      of each backward half, per eval batch 1 backbone forward, nothing
      else; its four artifacts, finite fold mAUCs, and per-fold device
      memory that rises by at most one kept model;
+ 12. the folder datasets and the parity runbook end to end, at the same
+     width and depth (bf16), on inputs staged in a temporary directory: an
+     octmnist.npz (28 px, 16,384 / 2,048 / 2,048 images, the multitrial
+     subset's classes balanced), 572 non-square OCTID files over 5 classes,
+     a UCSD train/test tree merged by `data merge-ucsd` into 2,048 files,
+     and the seeded HF-layout weight file through VIT2SPN_VIT_TINY_PATH:
+     (a) `data stats octid` and the folder decodes' host seconds; (b) the
+     folder presets' augmentation at 256 px sources (square with UCSD's
+     0.5/0.5 normalization, and a non-square decode) on the card against the
+     same function on the CPU from the same parameters; a warm B=128
+     ft-ucsdoct step's wall and device time by wrapper (card idle); (c)
+     `run ft-ucsdoct` through the CLI, cut to 3 folds and 1 epoch; (d)
+     `run_parity(epochs=1, ft_epochs=1)` on the staged root, multitrial
+     included: its status equals `compute_status` of the written report,
+     init_provenance "pretrained", every stage's entry present; for (c) and
+     (d) the launches of backbone_fwd, mlp_bwd and attn_bwd predicted from
+     the protocols' sizes, exactly, and no other wrapper; (e) `run ssp
+     --profile --epochs 1` on the staged npz: its profile_op lines name the
+     three wrappers' ranges, device_memory reads nonzero, model_info's
+     backbone GFLOPs equal the products counted here; (f) `convert` of (d)'s
+     export to .pth and back with equal leaves, `inspect`, and `plot roc` /
+     `cm` of (c)'s cv_result.json;
  11. times with CUDA events after a warm-up: each kernel, its plain twin, a
      library yardstick (F.layer_norm / torch.matmul / SDPA / F.gelu, and
      their torch autograd for the backward kernels; for the flash kernels
@@ -115,7 +137,8 @@ script exits non-zero without printing a result:
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
-the `run ft-octmnist` of phase 10b); the last line is {"ok": true, "device": {...}}. The
+the `run ft-octmnist` of phase 10b, `folder_launches` in phase 12's (c) and
+(d)); the last line is {"ok": true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
 
@@ -913,6 +936,16 @@ def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False))
                   ("params/online/", "params/heads/"))
 
 
+def pretrained_state(vit) -> dict:
+    """HF-named ViT-Tiny weights (numpy) from a seeded random backbone: the
+    stand-in for the published checkpoint, which is not in the repository."""
+    from vit2spn_tpu_torch.models import hf_convert
+    from vit2spn_tpu_torch.models.vit import init_vit
+
+    params = init_vit(torch.Generator().manual_seed(PRETRAINED_SEED), vit, device="cpu")
+    return hf_convert.convert_to_hf_state_dict(params, vit)
+
+
 def check_pretrained_init(cfg, dev) -> None:
     """SSPTrainer with pretrained_init and $VIT2SPN_VIT_TINY_PATH at an .npz
     of HF-named ViT-Tiny weights this script writes from a seeded random
@@ -922,7 +955,6 @@ def check_pretrained_init(cfg, dev) -> None:
     import tempfile
 
     from vit2spn_tpu_torch.models import hf_convert
-    from vit2spn_tpu_torch.models.vit import init_vit
     from vit2spn_tpu_torch.train.ssp import SSPTrainer
     from vit2spn_tpu_torch.utils.logging import MetricLogger
 
@@ -930,9 +962,7 @@ def check_pretrained_init(cfg, dev) -> None:
         return ({k: numpy_tree(v) for k, v in t.items()} if isinstance(t, dict)
                 else t.detach().cpu().numpy())
 
-    params = numpy_tree(init_vit(torch.Generator().manual_seed(PRETRAINED_SEED), cfg.vit,
-                                 device="cpu"))
-    state = hf_convert.convert_to_hf_state_dict(params, cfg.vit)
+    state = pretrained_state(cfg.vit)
     want = hf_convert.convert_hf_state_dict(state, cfg.vit)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         path = os.path.join(tmp, "vit_tiny.npz")
@@ -1254,6 +1284,372 @@ def finetune_path(ssp_trainer, card, fresh_s) -> dict:
         raise AssertionError(f"per-fold device memory grows: peaks {peaks}, held {held} "
                              f"(one model's state {state_bytes} bytes)")
     return {k: n for k, n in launches.items() if n}
+
+
+# Phase 12: the folder datasets and the parity runbook, on inputs staged here
+FOLDER_SPLITS = {"train": 16384, "val": 2048, "test": 2048}  # the staged octmnist.npz
+OCTID_FILES = 572  # over 5 classes, as the OCTID loader's synthetic stand-in
+OCTID_HW = (288, 384)  # (H, W) of the staged OCTID files: not square
+UCSD_FILES = {"train": 480, "test": 32}  # per class: 2,048 merged over 4 classes
+UCSD_HW = (300, 320)
+FOLDER_FOLDS = 3  # `run ft-ucsdoct` cut from 10 folds
+FOLDER_STEP_IMAGES = 512  # the 256 px fine-tune step's dataset
+# The augmentation at 256 px sources on the card against the same function on
+# the CPU from the same parameters: fp32 differs by the order of sums of the
+# band limit's and the resize's products and the warp's bilinear weights
+# (max 1e-4 absolute on normalized pixels, mean 1e-6); in bf16 a sum that
+# lands near a rounding boundary of the band-limited source moves one bf16
+# step, which the warp carries: at most 4 steps at |x| < 4 (0.0625), mean 1e-3.
+AUG_TOL = {"float32": (1e-4, 1e-6), "bfloat16": (0.0625, 1e-3)}
+
+
+def _smooth_image(rng, hw, cls) -> np.ndarray:
+    """A smooth grayscale image whose stripe frequency codes the class (it
+    compresses to a small JPEG)."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    theta, phase = rng.uniform(0, np.pi), rng.uniform(0, 2 * np.pi)
+    wave = np.sin(2 * np.pi * 2.0 * (1.8 ** cls) * (xx * np.cos(theta) + yy * np.sin(theta))
+                  + phase)
+    return (255 * (0.5 + 0.4 * wave)).astype(np.uint8)
+
+
+def stage_folder_inputs(root: str) -> None:
+    """Writes under `root`: octmnist.npz (medmnist keys, 28 px, 4 classes,
+    FOLDER_SPLITS; the multitrial preset's subset, the protocol's first draw
+    at the preset's seed, holds each class a quarter of the time, so each of
+    its 10 folds holds every class); octird/<class>/ with OCTID_FILES
+    non-square JPEGs over 5 classes; ucsdoct/{train,test}/<class>/ with
+    UCSD_FILES JPEGs per class, for `data merge-ucsd`."""
+    from PIL import Image
+
+    from vit2spn_tpu_torch.core.presets import get_preset
+
+    rng = np.random.default_rng(SEED + 12)
+    arrs = {}
+    for split, n in FOLDER_SPLITS.items():
+        labels = rng.permutation(np.arange(n) % 4)
+        if split == "train":
+            mt = get_preset("multitrial/ft-octmnist")
+            sub = np.random.default_rng(mt.seed).choice(
+                n, int(n * mt.data.subset_fraction), replace=False)
+            labels[sub] = np.arange(len(sub)) % 4
+        noise = rng.integers(0, 96, (n, 28, 28), dtype=np.uint8)
+        arrs[f"{split}_images"] = noise + (40 * labels).astype(np.uint8)[:, None, None]
+        arrs[f"{split}_labels"] = labels.reshape(-1, 1)
+    os.makedirs(root, exist_ok=True)
+    np.savez(os.path.join(root, "octmnist.npz"), **arrs)
+    for i in range(OCTID_FILES):
+        cls = i % 5
+        d = os.path.join(root, "octird", ("amd", "csr", "dr", "mh", "normal")[cls])
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray(_smooth_image(rng, OCTID_HW, cls), "L").save(
+            os.path.join(d, f"{i:04d}.jpg"))
+    for split, n in UCSD_FILES.items():
+        for cls, name in enumerate(("CNV", "DME", "DRUSEN", "NORMAL")):
+            d = os.path.join(root, "ucsdoct", split, name)
+            os.makedirs(d, exist_ok=True)
+            for i in range(n):
+                Image.fromarray(_smooth_image(rng, UCSD_HW, cls), "L").save(
+                    os.path.join(d, f"{name}-{split}-{i:04d}.jpeg"))
+
+
+def protocol_launches(cfg, ds, epochs: int, per_fold_test: bool = False) -> tuple:
+    """Predicted (train steps, eval batches, cv size, test size) of one
+    run_cv_protocol of `cfg` over `ds`: the protocol's own subsets and folds;
+    per fold `epochs` epochs of max(n_train // B, 1) steps, an evaluation of
+    the val fold after each epoch and one more for its ROC (with
+    `per_fold_test`, one of the test set too); then the best fold's model on
+    the test set. No early stop can end an epoch count this short."""
+    from vit2spn_tpu_torch.evals.kfold import stratified_kfold
+    from vit2spn_tpu_torch.evals.protocol import select_subsets
+
+    cv, test = select_subsets(cfg, ds)
+    bs = cfg.batch_size
+    n_test = -(-len(test) // bs)
+    steps = evals = 0
+    for tr, va in stratified_kfold(cv.labels, cfg.k_folds, seed=cfg.seed):
+        steps += epochs * max(len(tr) // bs, 1)
+        evals += (epochs + 1) * -(-len(va) // bs) + (n_test if per_fold_test else 0)
+    return steps, evals + n_test, len(cv), len(test)
+
+
+def _wanted(steps: int, evals: int, layers: int, backbone_calls: int = 0, bwd_calls: int = 0):
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+
+    return {KERNEL_NAME: backbone_calls + steps + evals, "mlp_bwd": bwd_calls + layers * steps,
+            "attn_bwd": bwd_calls + layers * steps}
+
+
+def check_launches(what: str, launches: dict, want: dict) -> None:
+    ran = {k: n for k, n in launches.items() if n}
+    log(f"[folder] {what}: launches {ran} (predicted {want})")
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"{what} launched {ran}, predicted {want} and no other wrapper")
+
+
+def check_folder_augment(dev) -> None:
+    """The folder presets' augmentation at 256 px sources (square, UCSD's
+    0.5/0.5 normalization; and a non-square (H, W) decode) on the card
+    against the same function on the CPU, from the same parameters drawn on
+    the CPU: the band limit's pre-shrink and squash, the warp, jitter, blur,
+    erasing and both output forms, in fp32 and bf16 (AUG_TOL)."""
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data import augment as aug
+
+    rng = np.random.default_rng(SEED + 13)
+    for preset, hw in (("ft-ucsdoct", (256, 256)), ("ft-octid", (248, 256))):
+        cfg = get_preset(preset).data.augment
+        u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH,) + hw + (1,), dtype=np.uint8))
+        p = aug.sample_params(torch.Generator().manual_seed(SEED), TRAIN_BATCH, cfg,
+                              (cfg.out_size, cfg.out_size))
+        for dtype in (torch.float32, torch.bfloat16):
+            for fold in (True, False):
+                outs = []
+                for d in ("cpu", dev):
+                    gray = aug._band_limit(aug._to_gray(u8.to(d)).to(dtype), cfg.band_limit)
+                    pd = aug.AugParams(*(t.to(d) for t in p))
+                    outs.append(aug._normalize(aug.apply_params(gray, pd, cfg), cfg, dtype,
+                                               fold).float().cpu())
+                err = (outs[1] - outs[0]).abs()
+                tol_max, tol_mean = AUG_TOL[str(dtype).split(".")[1]]
+                log(f"[folder-aug] {preset} {hw[0]}x{hw[1]} -> {cfg.out_size} px, {dtype}, "
+                    f"{'pre-normalize' if fold else 'normalized'} (mean {cfg.normalize_mean[0]}): "
+                    f"card vs CPU max_abs_err {float(err.max()):.4g} (tol {tol_max}), mean "
+                    f"{float(err.mean()):.4g} (tol {tol_mean})")
+                if not (float(err.max()) <= tol_max and float(err.mean()) <= tol_mean):
+                    raise AssertionError(f"the augmentation at {hw} px disagrees with the CPU")
+
+
+def folder_path(ssp_trainer, card) -> dict:
+    """Phase 12: the folder datasets and the parity runbook at the full
+    ViT-Tiny width and depth, bf16, on the card, from inputs staged in a
+    temporary directory (stage_folder_inputs; the seeded HF-layout weight
+    file through VIT2SPN_VIT_TINY_PATH). Returns the launches of (c) and (d)
+    by kernel."""
+    import contextlib
+    import io
+    import tempfile
+
+    from vit2spn_tpu_torch.cli import main as cli_main
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import load_dataset
+    from vit2spn_tpu_torch.evals.parity import compute_status, run_parity
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
+    from vit2spn_tpu_torch.train.optim import balanced_class_weights
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    t_phase = time.perf_counter()
+    quiet = MetricLogger(echo=False)
+    vit = ssp_trainer.cfg.vit
+    layers = vit.num_layers
+    total = {}
+    old_weights = os.environ.get("VIT2SPN_VIT_TINY_PATH")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        root = os.path.join(tmp, "datasets")
+        t0 = time.perf_counter()
+        stage_folder_inputs(root)
+        weights = os.path.join(tmp, "vit_tiny.npz")
+        np.savez(weights, **pretrained_state(vit))
+        os.environ["VIT2SPN_VIT_TINY_PATH"] = weights
+        with contextlib.redirect_stdout(io.StringIO()) as merged:
+            rc = cli_main(["data", "merge-ucsd", os.path.join(root, "ucsdoct")])
+        stats = json.loads(merged.getvalue())
+        log(f"[folder] staged octmnist.npz {FOLDER_SPLITS}, {OCTID_FILES} OCTID files "
+            f"{OCTID_HW[1]}x{OCTID_HW[0]}, UCSD train/test {UCSD_FILES} per class merged by "
+            f"`data merge-ucsd` (rc {rc}) into {stats} in {time.perf_counter() - t0:.2f} s (host)")
+        if rc != 0 or sum(stats.values()) != 4 * sum(UCSD_FILES.values()):
+            raise AssertionError(f"data merge-ucsd: rc {rc}, {stats}")
+        # (a) `data stats octid`, and the folder decodes' host seconds alone
+        out_a = os.path.join(tmp, "stats")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["data", "stats", "octid", "--root", root, "--out", out_a])
+        with open(os.path.join(out_a, "octid_dataset_summary.json")) as f:
+            summary = json.load(f)
+        log(f"[folder] data stats octid: rc {rc}, {summary['num_samples']} images, classes "
+            f"{summary['class_distribution']}, raw {summary['image_properties']['avg_width']:.0f}"
+            f"x{summary['image_properties']['avg_height']:.0f}, decoded "
+            f"{summary['image_size']}")
+        if rc != 0 or summary["num_samples"] != OCTID_FILES or not all(
+                os.path.getsize(os.path.join(out_a, f"octid_{n}.png"))
+                for n in ("samples", "distribution")):
+            raise AssertionError(f"data stats octid: rc {rc}, {summary}")
+        loaded, decode = {}, {}
+        for name in ("octid", "ucsdoct"):
+            t0 = time.perf_counter()
+            loaded[name] = load_dataset(name, root=root, allow_synthetic=False)
+            decode[name] = time.perf_counter() - t0
+        log("[time] folder decode on the host (PIL, grayscale, bilinear to 256 px): "
+            + ", ".join(f"{k} {len(loaded[k])} files in {sec:.3f} s "
+                        f"({len(loaded[k]) / sec:.0f} files/s)" for k, sec in decode.items()))
+        octid, ucsd = loaded["octid"], loaded["ucsdoct"]
+        if ucsd.class_names != ["CNV", "DME", "DRUSEN", "NORMAL"]:
+            raise AssertionError(f"the merged UCSD folder loads as {ucsd.class_names}")
+
+        # (b) the augmentation at 256 px sources, card vs CPU
+        check_folder_augment(torch.device("cuda", 0))
+
+        # a warm B=128 ft-ucsdoct step: device time by wrapper and its wall
+        cfg_u = get_preset("ft-ucsdoct")
+        sds = ucsd.subset(np.arange(FOLDER_STEP_IMAGES))
+        w = balanced_class_weights(sds.labels, sds.num_classes)
+        tf = FineTuneTrainer(cfg_u, sds.num_classes, logger=quiet, device="cuda")
+        step_s = ft_step_wall(tf, sds, w)
+        totals = {}
+        bs = cfg_u.batch_size
+        for line in stage_breakdown(lambda: tf.train_epoch(sds, np.arange(bs)[None], w, epoch=3),
+                                    f"one ft-ucsdoct step (B={bs}, bf16, 256 px sources)",
+                                    wrappers=(KERNEL_NAME, "mlp_bwd", "attn_bwd"),
+                                    rest="views at 256 px, embed, head, loss, Adam",
+                                    totals=totals):
+            log(line)
+        idle = (f"{100.0 * (1.0 - totals['device'] / (1e3 * step_s)):.1f}%" if totals
+                else "not measured")
+        log(f"[time] ft-ucsdoct step (B={bs}, bf16, 256 px sources): wall {1e3 * step_s:.3f} "
+            f"ms over {FT_STEPS} warm steps, {bs / step_s:.1f} img/s; device "
+            f"{totals.get('device', float('nan')):.3f} ms; card idle {idle} on {card} "
+            f"(the 28 px ft-octmnist step of phase 10b beside it)")
+        del tf
+        torch.cuda.empty_cache()
+
+        # (c) `run ft-ucsdoct` through the CLI, cut to FOLDER_FOLDS folds, 1 epoch
+        export = ssp_trainer.export_backbone(os.path.join(tmp, "ssp_export.npz"))
+        cfg_c = replace_cfg(cfg_u, k_folds=FOLDER_FOLDS)
+        steps, evals, n_cv, n_test = protocol_launches(cfg_c, ucsd, 1)
+        want_c = _wanted(steps, evals, layers)
+        out_c = os.path.join(tmp, "ft_ucsdoct")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["run", "ft-ucsdoct", "--epochs", "1", "--output-dir", out_c,
+                           "-o", f"k_folds={FOLDER_FOLDS}", "-o", f"data.root={root}",
+                           "-o", f"init_path={export}"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches_c = read_launches()
+        with open(os.path.join(out_c, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        sizes = next(e for e in events if e["event"] == "protocol")
+        aucs = [e["mauc"] for e in events if e["event"] == "fold_result"]
+        mem = [round(e["peak_allocated_bytes"] / 2**20, 1) for e in events
+               if e["event"] == "fold_memory"]
+        log(f"[folder] run ft-ucsdoct (cut: {FOLDER_FOLDS} folds, 1 epoch; subset {n_cv}, "
+            f"test {n_test} predicted, {sizes['cv_size']} / {sizes['test_size']} run) in "
+            f"{run_s:.1f} s: {steps} train steps, {evals} eval batches; fold mAUCs {aucs}; "
+            f"per-fold peak MiB {mem} on {card}")
+        if rc != 0 or (sizes["cv_size"], sizes["test_size"]) != (n_cv, n_test) \
+                or len(aucs) != FOLDER_FOLDS or not all(np.isfinite(aucs)):
+            raise AssertionError(f"run ft-ucsdoct: rc {rc}, sizes {sizes}, aucs {aucs}")
+        check_launches("run ft-ucsdoct", launches_c, want_c)
+
+        # (d) the parity runbook on the staged root, multitrial included
+        octm = load_dataset("octmnist", root=root, allow_synthetic=False)
+        ssp_steps = len(octm.split("train")) // ssp_trainer.cfg.effective_batch
+        a = ssp_trainer.cfg.accumulation_steps
+        probe = 2 * -(-min(256, len(octm.split("train"))) // 128)  # 2 streams per batch
+        parts = [protocol_launches(get_preset(n), d, 1) for n, d in (
+            ("ft-octmnist", octm), ("ft-octid", octid), ("ft-ucsdoct", ucsd))]
+        mt = get_preset("multitrial/ft-octmnist")
+        parts += [protocol_launches(mt, octm, 1, per_fold_test=True)] * mt.num_trials
+        want_d = _wanted(sum(p[0] for p in parts), sum(p[1] for p in parts), layers,
+                         backbone_calls=ssp_steps * 2 * 2 * a + probe,
+                         bwd_calls=ssp_steps * 2 * a * layers)
+        out_d = os.path.join(tmp, "parity")
+        os.makedirs(out_d)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        report = run_parity(data_root=root, out_dir=out_d, epochs=1, ft_epochs=1,
+                            logger=MetricLogger(os.path.join(out_d, "parity_metrics.jsonl"),
+                                                echo=False))
+        torch.cuda.synchronize()
+        parity_s = time.perf_counter() - t0
+        launches_d = read_launches()
+        with open(os.path.join(out_d, "parity_report.json")) as f:
+            written = json.load(f)
+        log(f"[parity] run_parity(epochs=1, ft_epochs=1) on the staged root in {parity_s:.1f} s: "
+            f"status {report['status']!r}; inputs {report['inputs']}; ssp "
+            f"{ {k: v for k, v in report['ssp'].items() if k != 'export'} }; "
+            + "; ".join(f"{k} mAUC {e['measured_mauc']:.4f} acc {e['measured_accuracy']:.4f}"
+                        for k, e in report["datasets"].items())
+            + f"; multitrial {report.get('multitrial')}; {ssp_steps} SSP steps, fine-tune "
+            f"protocols (steps, evals, cv, test) {parts[:4]} and {mt.num_trials - 1} more trials")
+        if report["status"] != compute_status(written) or written["status"] != report["status"]:
+            raise AssertionError(f"parity status {report['status']!r} is not compute_status "
+                                 f"of its report ({compute_status(written)!r})")
+        if report["ssp"]["init_provenance"] != "pretrained" or not all(report["inputs"].values()) \
+                or set(report["datasets"]) != {"octmnist", "octid", "ucsdoct"} \
+                or "multitrial" not in report or report["ssp"]["epochs_run"] != 1:
+            raise AssertionError(f"parity report incomplete: {written}")
+        check_launches("run_parity", launches_d, want_d)
+        total = {k: launches_c[k] + launches_d[k] for k in launches_c}
+
+        # (e) `run ssp --profile --epochs 1` on the staged npz
+        out_e = os.path.join(tmp, "ssp_profile")
+        t0 = time.perf_counter()
+        rc = cli_main(["run", "ssp", "--profile", "--epochs", "1", "--output-dir", out_e,
+                       "-o", f"data.root={root}"])
+        prof_s = time.perf_counter() - t0
+        with open(os.path.join(out_e, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        ops = [e for e in events if e["event"] == "profile_op"]
+        info = next(e for e in events if e["event"] == "model_info")
+        mem = next((e for e in events if e["event"] == "device_memory"), {})
+        s, d, mlp = vit.seq_len, vit.hidden_size, vit.mlp_dim
+        backbone = (2 * (s - 1) * vit.patch_size ** 2 * 3 * d
+                    + layers * (2 * s * d * 3 * d + 2 * 2 * s * s * d + 2 * s * d * d
+                                + 2 * 2 * s * d * mlp))
+        cost = next(e for e in events if e["event"] == "profile_trace")
+        fit = [e for e in events if e["event"] == "ssp_epoch"]
+        log(f"[profile] run ssp --profile --epochs 1: rc {rc} in {prof_s:.1f} s (the epoch "
+            f"{fit[0]['seconds']:.1f} s under the profiler; the trace {cost['mib']:.1f} MiB "
+            f"gzipped, written in {cost['write_s']:.1f} s and read back in "
+            f"{cost['read_s']:.1f} s); profile_op "
+            + "; ".join(f"{e['source']} {e['total_us'] / 1e3:.3f} ms x{e['count']}" for e in ops))
+        log(f"[profile] model_info { {k: v for k, v in info.items() if k not in ('event', 'time')} }"
+            f" (one backbone's products counted here: {backbone / 1e9:.4f} GFLOP); "
+            f"device_memory {mem.get('0')}")
+        names = {e["source"] for e in ops}
+        missing = [f"vit2spn::{k}" for k in (KERNEL_NAME, "mlp_bwd", "attn_bwd")
+                   if f"vit2spn::{k}" not in names]
+        if rc != 0 or missing:
+            raise AssertionError(f"run ssp --profile: rc {rc}, profile_op lacks {missing}")
+        if info["backbone_gflops"] != round(backbone / 1e9, 4) \
+                or not mem.get("0", {}).get("bytes_in_use_mb", 0) > 0:
+            raise AssertionError(f"model_info {info} / device_memory {mem}")
+
+        # (f) convert (d)'s export to .pth and back, inspect, plot (c)'s result
+        src = report["ssp"]["export"]
+        pth, back = os.path.join(tmp, "export.pth"), os.path.join(tmp, "export_back.npz")
+        with contextlib.redirect_stdout(io.StringIO()) as text, \
+                contextlib.redirect_stderr(io.StringIO()):
+            rcs = [cli_main(["convert", src, pth]), cli_main(["convert", pth, back]),
+                   cli_main(["inspect", pth]),
+                   cli_main(["plot", "roc", "--result",
+                             os.path.join(out_c, "ucsdoct_cv_result.json"),
+                             "--out", os.path.join(tmp, "roc.png")]),
+                   cli_main(["plot", "cm", "--result",
+                             os.path.join(out_c, "ucsdoct_cv_result.json"),
+                             "--out", os.path.join(tmp, "cm.png")])]
+        with np.load(src) as a_, np.load(back) as b_:
+            keys = [k for k in a_.files if k != "__metadata__"]
+            equal = sorted(keys) == sorted(k for k in b_.files if k != "__metadata__") and all(
+                np.array_equal(a_[k], b_[k]) for k in keys)
+        rows = [line for line in text.getvalue().splitlines() if "  (" in line]
+        n_hf = len(torch.load(pth, weights_only=True))
+        log(f"[folder] convert export -> .pth -> .npz: {len(keys)} leaves equal {equal}; "
+            f"inspect .pth: {len(rows)} arrays of {n_hf}; plot roc / cm: rcs {rcs}")
+        if rcs != [0] * 5 or not equal or len(rows) != n_hf or not all(
+                os.path.getsize(os.path.join(tmp, n)) for n in ("roc.png", "cm.png")):
+            raise AssertionError(f"convert / inspect / plot: rcs {rcs}, leaves equal {equal}")
+    if old_weights is None:
+        del os.environ["VIT2SPN_VIT_TINY_PATH"]
+    else:
+        os.environ["VIT2SPN_VIT_TINY_PATH"] = old_weights
+    log(f"[folder] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return {k: n for k, n in total.items() if n}
 
 
 def replace_cfg(cfg, **kw):
@@ -1834,6 +2230,9 @@ def main() -> int:
     # -- 10b. the fine-tune path end to end ----------------------------------------
     ft_launches = finetune_path(trainer, card, ft_fresh_s)
 
+    # -- 12. the folder datasets and the parity runbook end to end ------------------
+    folder_launches = folder_path(trainer, card)
+
     # -- 11. times ---------------------------------------------------------------
     fast = fast_gelu_default()
     kernel_ms = time_ms(lambda: fused_backbone(x, wt, heads, eps, fast))
@@ -1862,7 +2261,8 @@ def main() -> int:
         "source": "vit2spn_tpu_torch/csrc/backbone_fwd.cu",
         "replaces": "vit2spn_tpu/ops/fused_block.py:694",
         "launches": train_launches[KERNEL_NAME],
-        "finetune_launches": ft_launches.get(KERNEL_NAME, 0), "max_abs_err": max_err,
+        "finetune_launches": ft_launches.get(KERNEL_NAME, 0),
+        "folder_launches": folder_launches.get(KERNEL_NAME, 0), "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms, "library_same_fn_ms": None,
         "dtype": "bfloat16",
@@ -1971,7 +2371,8 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": f"vit2spn_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[name],
-            "finetune_launches": ft_launches.get(name, 0), "max_abs_err": err,
+            "finetune_launches": ft_launches.get(name, 0),
+            "folder_launches": folder_launches.get(name, 0), "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms, "library_same_fn_ms": s_ms,
             "dtype": "float32" if name.endswith("(fp32)") else "bfloat16",

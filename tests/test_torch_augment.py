@@ -172,6 +172,31 @@ def test_whole_stack_matches_jax_on_its_draws(fold):
     _close(got, ref, 5e-5 if not fold else 1e-5)
 
 
+@pytest.mark.parametrize("src,ucsd", [((256, 256), False), ((240, 256), False),
+                                      ((256, 256), True)],
+                         ids=["256px", "240x256", "256px_ucsd"])
+def test_whole_stack_matches_jax_at_folder_sizes(src, ucsd):
+    """The folder datasets' sources (256 px square, a non-square (H, W)
+    decode, and the UCSD preset's 0.5/0.5 normalization) through the band
+    limit's pre-shrink and squash and the whole stack, against
+    `_augment_batch_impl` on the same key's draws, fp32, both output forms;
+    the tolerances of the 28 px test."""
+    cfg = dataclasses.replace(AugmentConfig.ucsd() if ucsd else AugmentConfig(), out_size=48)
+    jcfg = dataclasses.replace(JaxAugmentConfig.ucsd() if ucsd else JaxAugmentConfig(),
+                               out_size=48)
+    assert cfg.normalize_mean == jcfg.normalize_mean
+    rng = np.random.default_rng(7)
+    u8 = rng.integers(0, 256, (B,) + src + (1,), dtype=np.uint8)
+    key = jax.random.key(8)
+    p = _jax_params(key, B, jcfg, (48, 48))
+    gray = aug._band_limit(aug._to_gray(torch.from_numpy(u8)), cfg.band_limit)
+    assert gray.shape == (B, 96, 96)  # pre-shrunk (and squashed) to the band limit
+    for fold in (True, False):
+        ref = jaug._augment_batch_impl(key, jnp.asarray(u8), jcfg, jnp.float32, fold)
+        got = aug._normalize(aug.apply_params(gray, p, cfg), cfg, torch.float32, fold)
+        _close(got, ref, 5e-5 if not fold else 1e-5)
+
+
 def test_sampler_distributions():
     """The port's own draws, over 4000 images: every parameter in its
     torchvision range, and the flip, erase and jitter-order rates within

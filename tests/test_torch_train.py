@@ -290,10 +290,16 @@ def test_run_cli_trains_and_exports(tmp_path, monkeypatch):
     assert "ssp_epoch" in events and "export" in events
     assert jckpt.metadata(str(export))["format"] == "vit_backbone"
     assert (out / "ssp_loss_curve.png").exists()  # the scratch variant's plot
-    # fine-tune presets run (tests/test_torch_finetune.py); a preset whose
-    # dataset needs a folder loader says that loader is missing
-    with pytest.raises(NotImplementedError, match="'octid' folder loader.*not in the port yet"):
-        port_main(["run", "ft-octid", "--device", "cpu", "--output-dir", str(out)])
+    # fine-tune presets run (tests/test_torch_finetune.py), the folder
+    # datasets' too: here ft-octid on the OCTID loader's synthetic stand-in
+    ft = tmp_path / "ft"
+    argv = ["run", "ft-octid", "--device", "cpu", "--epochs", "1", "--output-dir", str(ft),
+            "-o", "init=random", "-o", "k_folds=2", "-o", "data.subset_size=40",
+            "-o", f"data.root={tmp_path / 'no_folders'}"]
+    for o in TINY[1:-2]:
+        argv += ["-o", o]
+    assert port_main(argv) == 0
+    assert (ft / "octid_cv_result.json").exists()
 
 
 def test_run_cli_needs_cuda_unless_told_cpu(tmp_path, monkeypatch):

@@ -3,9 +3,12 @@
 Host-side numpy, identical to the JAX package's: the same `Dataset` record,
 registry, OCTMNIST npz loader with its synthetic fallback (and `synthetic`
 lineage flag), and the class-structured synthetic generator, which draws the
-same images from the same seed. The folder loaders (OCTID, UCSD-OCT) and the
-threaded native gather come with a later slice of the port; `subset` uses
-numpy fancy indexing, which the native gather reproduces bit for bit.
+same images from the same seed; the folder loaders (OCTID, UCSD-OCT), which
+decode each image once with PIL (grayscale, bilinear resize to `source_size`)
+into one uint8 array, and `probe_dataset`, the cheap availability check that
+walks the same files. `subset` uses numpy fancy indexing: the JAX package's
+threaded native gather gives the same bytes and is not ported (the port's
+trainers stage their data on the card).
 """
 
 from __future__ import annotations
@@ -84,11 +87,97 @@ def load_dataset(name: str, root: str = "./datasets", **kw) -> Dataset:
     return _REGISTRY[name](root=root, **kw)
 
 
+# shared by the loaders and probe_dataset: the parity runbook's provenance
+# gate depends on probe and loader agreeing on what counts as available
+_IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff"}
+_OCTID_SUBS = ("octird", "octid")  # the reference spells it "octird"
+
+
 def _octmnist_candidates(root: str) -> tuple:
     return (
         os.path.join(root, "octmnist.npz"),
         os.path.expanduser("~/.medmnist/octmnist.npz"),
     )
+
+
+def _is_image(fname: str) -> bool:
+    return os.path.splitext(fname)[1].lower() in _IMAGE_EXTS
+
+
+def _folder_classes(root_dir: str, class_names=None) -> list:
+    """ImageFolder class discovery: the sorted subdirectories that hold an
+    image file. A subdirectory without one is not a class: after `data
+    merge-ucsd <root>/ucsdoct` the `train/` and `test/` trees stay beside
+    the merged classes, and the JAX package's loader counts them as two
+    empty classes (6 classes, so every fold's mAUC is NaN). On a folder of
+    class directories alone both loaders give the same classes."""
+    if class_names:
+        return list(class_names)
+    return sorted(
+        d for d in os.listdir(root_dir)
+        if os.path.isdir(os.path.join(root_dir, d))
+        and any(_is_image(f) for f in os.listdir(os.path.join(root_dir, d)))
+    )
+
+
+def _iter_folder_images(root_dir: str, classes):
+    """Yield (class_index, class_name, image_path) in the order _load_folder
+    decodes: the one definition of the folder walk, shared with
+    probe_dataset so probe and loader agree on a folder's files."""
+    for ci, cls in enumerate(classes):
+        cdir = os.path.join(root_dir, cls)
+        if not os.path.isdir(cdir):
+            continue
+        for fname in sorted(os.listdir(cdir)):
+            if _is_image(fname):
+                yield ci, cls, os.path.join(cdir, fname)
+
+
+def probe_dataset(name: str, root: str = "./datasets") -> bool:
+    """Cheap availability probe: is REAL on-disk data present and plausibly
+    decodable? Structural checks plus a small sample decode (folders: the
+    first image of the loader's walk; npz: the label members), since
+    load_dataset decodes every image. A file that passes the probe but is
+    corrupt further in fails later at the strict load."""
+    if name == "octmnist":
+        for candidate in _octmnist_candidates(root):
+            if os.path.exists(candidate):
+                try:
+                    # members stay compressed until read: check the keys
+                    # from the zip directory, then decode the label members
+                    with np.load(candidate) as raw:
+                        if not all(
+                            f"{s}_{k}" in raw.files
+                            for s in ("train", "val", "test")
+                            for k in ("images", "labels")
+                        ):
+                            return False
+                        return all(
+                            raw[f"{s}_labels"].size > 0
+                            for s in ("train", "val", "test")
+                        )
+                except Exception:  # noqa: BLE001 — corrupt == unavailable
+                    return False
+        return False
+    if name in ("octid", "ucsdoct"):
+        from PIL import Image
+
+        subs = _OCTID_SUBS if name == "octid" else ("ucsdoct",)
+        for sub in subs:
+            d = os.path.join(root, sub)
+            if not os.path.isdir(d):
+                continue
+            first = next(_iter_folder_images(d, _folder_classes(d)), None)
+            if first is None:
+                return False  # the folder exists but holds no class images
+            try:
+                with Image.open(first[2]) as im:
+                    im.convert("L")
+                return True
+            except Exception:  # noqa: BLE001
+                return False
+        return False
+    raise KeyError(f"no availability probe for dataset {name!r}")
 
 
 # --------------------------------------------------------------------------
@@ -130,6 +219,78 @@ def load_octmnist(root: str = "./datasets", allow_synthetic: bool = True, **_) -
         name="octmnist", num_classes=4, class_names=OCTMNIST_CLASSES,
         image_size=28, channels=1,
         split_sizes={"train": 97477, "val": 10832, "test": 1000},
+    )
+
+
+# --------------------------------------------------------------------------
+# Folder datasets (OCTID / UCSD-OCT)
+# --------------------------------------------------------------------------
+
+def _load_folder(root_dir: str, name: str, source_size: "int | tuple",
+                 class_names: Optional[List[str]] = None) -> Dataset:
+    """torchvision-ImageFolder layout, root/<class>/<image>, classes in
+    sorted order. Each image is decoded once on the host to grayscale uint8
+    at `source_size` (an int, or an (H, W) tuple that keeps a non-square
+    shape; the view transform squashes it square on the device). Records
+    each file's (width, height) before the resize and its size in KB."""
+    from PIL import Image
+
+    sh, sw = ((source_size, source_size) if isinstance(source_size, int)
+              else tuple(source_size))
+    classes = _folder_classes(root_dir, class_names)
+    images, labels, raw_sizes, raw_kb = [], [], [], []
+    for ci, _cls, fpath in _iter_folder_images(root_dir, classes):
+        with Image.open(fpath) as im:
+            raw_sizes.append(im.size)  # (width, height) before the resize
+            # PIL's resize takes (width, height)
+            im = im.convert("L").resize((sw, sh), Image.BILINEAR)
+            images.append(np.asarray(im, dtype=np.uint8)[..., None])
+        raw_kb.append(os.path.getsize(fpath) / 1024.0)
+        labels.append(ci)
+    return Dataset(
+        name=name,
+        images=np.stack(images),
+        labels=np.asarray(labels, dtype=np.int64),
+        num_classes=len(classes),
+        class_names=classes,
+        raw_sizes=np.asarray(raw_sizes, dtype=np.int64),
+        raw_file_kb=np.asarray(raw_kb, dtype=np.float64),
+    )
+
+
+OCTID_CLASSES = ["amd", "csr", "dr", "mh", "normal"]
+UCSD_CLASSES = ["CNV", "DME", "DRUSEN", "NORMAL"]
+
+
+@register_dataset("octid")
+def load_octid(root: str = "./datasets", source_size: int = 256,
+               allow_synthetic: bool = True, **_) -> Dataset:
+    # the reference spells the directory "octird" (octird_ft_vit2spn.py:46)
+    for sub in _OCTID_SUBS:
+        d = os.path.join(root, sub)
+        if os.path.isdir(d):
+            return _load_folder(d, "octid", source_size)
+    if not allow_synthetic:
+        raise FileNotFoundError(f"octid folder not found under {root}")
+    _warn_synthetic("octid", f"no octird/octid folder under {root}")
+    return synthetic_dataset(
+        name="octid", num_classes=5, class_names=sorted(OCTID_CLASSES),
+        image_size=64, channels=1, split_sizes={"all": 572},
+    )
+
+
+@register_dataset("ucsdoct")
+def load_ucsdoct(root: str = "./datasets", source_size: int = 256,
+                 allow_synthetic: bool = True, **_) -> Dataset:
+    d = os.path.join(root, "ucsdoct")
+    if os.path.isdir(d):
+        return _load_folder(d, "ucsdoct", source_size)
+    if not allow_synthetic:
+        raise FileNotFoundError(f"ucsdoct folder not found under {root}")
+    _warn_synthetic("ucsdoct", f"no ucsdoct folder under {root}")
+    return synthetic_dataset(
+        name="ucsdoct", num_classes=4, class_names=UCSD_CLASSES,
+        image_size=64, channels=1, split_sizes={"all": 8000},
     )
 
 

@@ -77,6 +77,39 @@ def metadata(path: str) -> dict:
     return {}
 
 
+def compatible(path: str, like) -> Optional[str]:
+    """None when `restore(path, like)` would succeed (the same leaf keys,
+    the same element counts: restore reshapes, so shapes are checked by
+    size as restore checks them); else a readable reason. Never raises for
+    a well-formed npz; reads only the file's shapes and `like`'s."""
+    with np.load(path) as raw:
+        stored = {k: raw[k].shape for k in raw.files if k != "__metadata__"}
+    used = set()
+    for key, leaf in _flatten_shapes(like).items():
+        if key not in stored:
+            return f"checkpoint lacks leaf {key!r}"
+        want = tuple(np.shape(leaf))
+        if int(np.prod(stored[key])) != int(np.prod(want)):
+            return (f"leaf {key!r}: stored shape {stored[key]} is incompatible "
+                    f"with expected {want}")
+        used.add(key)
+    extra = sorted(set(stored) - used)
+    if extra:
+        return f"checkpoint has extra leaves {extra[:5]}"
+    return None
+
+
+def _flatten_shapes(tree, prefix: str = "") -> dict:
+    """{leaf key: leaf} in the order of `_flatten`, without copying."""
+    kids = _children(tree)
+    if kids is None:
+        return {prefix: tree}
+    flat = {}
+    for k, v in kids:
+        flat.update(_flatten_shapes(v, f"{prefix}/{k}" if prefix else k))
+    return flat
+
+
 def _rebuild(like, stored: dict, prefix: str, used: set, missing: list):
     kids = _children(like)
     if kids is None:
