@@ -119,6 +119,19 @@ script exits non-zero without printing a result:
      backbone GFLOPs equal the products counted here; (f) `convert` of (d)'s
      export to .pth and back with equal leaves, `inspect`, and `plot roc` /
      `cm` of (c)'s cv_result.json;
+ 13. several ranks (parallel/), at the end: (a) `run ssp` cut to one epoch of
+     1,600 staged images at 2 x 128 with a checkpoint and --profile, plain
+     and under torchrun (world size 1, NCCL): export and checkpoint equal bit
+     for bit, the wrappers' calls as predicted in both; the `ssp` step at
+     8 x 128 under torchrun timed (`chip_smoke.py --nccl-step`), with its
+     all-reduce alone, beside phase 11's step; (b) 2 gloo ranks sharing
+     cuda:0 against world size 1 from one state, fp32 and bf16: the SSP step
+     with an uneven masked tail and a one-step fine-tune epoch with global
+     BN (compare_steps), evaluate, each rank's launches equal world size
+     1's, and a 2 x 128 bf16 step's wall, device and all-reduce time by
+     rank; (c) `dryrun_multichip(2)` on the card (three OK lines, 27 sharded
+     leaves); (d) `parity --smoke` on the card through "xla", recorded in
+     its report, no kernel launched;
  11. times with CUDA events after a warm-up: each kernel, its plain twin, a
      library yardstick (F.layer_norm / torch.matmul / SDPA / F.gelu, and
      their torch autograd for the backward kernels; for the flash kernels
@@ -137,7 +150,8 @@ script exits non-zero without printing a result:
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
-the `run ft-octmnist` of phase 10b, `folder_launches` in phase 12's (c) and
+the `run ft-octmnist` of phase 10b, `parallel_launches` on rank 0 of phase
+13's (b), `folder_launches` in phase 12's (c) and
 (d)); the last line is {"ok": true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
@@ -438,6 +452,7 @@ def stage_breakdown(fn, what: str = "one backbone forward", top: int = 14,
     if totals is not None:
         totals["device"] = total / 1e3
         totals.update({name: us / 1e3 for name, (us, _) in spans.items()})
+        totals["kernels"] = {k: (us / 1e3, n) for k, (us, n) in by_name.items()}
     if spans:
         outside = total - sum(us for us, _ in spans.values())
         out.append(f"[profile]   {'outside the wrappers':30s} {outside / 1e3:9.3f} ms "
@@ -847,7 +862,8 @@ def rel_l2(a: dict, b: dict, keys) -> float:
     return math.sqrt(num / den)
 
 
-def compare_steps(tag, names, runs, eps_lr, params, stats=(), skip=()) -> None:
+def compare_steps(tag, names, runs, eps_lr, params, stats=(), skip=(),
+                  mu_max_tol=STEP_MU_MAX_REL_TOL) -> None:
     """Step 1 of two paths from one state. `runs` holds (loss, flat state
     before, flat state after) per path, path first; `params` the prefixes of
     the trainable leaves, `stats` those of running statistics. The loss
@@ -856,7 +872,9 @@ def compare_steps(tag, names, runs, eps_lr, params, stats=(), skip=()) -> None:
     in relative L2; the updated params moved the same way in at least
     STEP_SAME_DIRECTION_MIN of the elements, none by more than the lr.
     Moments of the leaves in `skip` (whose true gradient is 0, so both
-    paths hold rounding noise there) are not compared."""
+    paths hold rounding noise there) are not compared. `mu_max_tol=None`
+    holds the moments in relative L2 only (a bf16 fine-tune step, whose BN
+    head makes some leaves' gradients sums that cancel)."""
     (lf, before, af), (lp, before_p, ap) = runs
     assert all(np.array_equal(before[k], before_p[k]) for k in before)
     if not (np.isfinite(lf) and abs(lf - lp) <= STEP_LOSS_REL_TOL * abs(lp)):
@@ -890,7 +908,7 @@ def compare_steps(tag, names, runs, eps_lr, params, stats=(), skip=()) -> None:
     line = (f"[{tag}-{names[0].replace(' ', '-')}-vs-{names[1].replace(' ', '-')}] loss "
             f"{names[0]} {lf:.6f} {names[1]} {lp:.6f}; Adam first moments: "
             f"largest difference {worst:.3g} of the leaf's largest, relative L2 {l2:.3g} "
-            f"(tol {STEP_MU_MAX_REL_TOL}, {STEP_MU_L2_REL_TOL}); trainable params moved "
+            f"(tol {mu_max_tol}, {STEP_MU_L2_REL_TOL}); trainable params moved "
             f"the same way in {100.0 * same / total:.2f}% of {total} elements (tol "
             f"{100.0 * STEP_SAME_DIRECTION_MIN:.0f}%)")
     s_worst = s_l2 = 0.0
@@ -900,7 +918,7 @@ def compare_steps(tag, names, runs, eps_lr, params, stats=(), skip=()) -> None:
         line += (f"; running statistics' move: largest difference {s_worst:.3g}, relative "
                  f"L2 {s_l2:.3g}")
     log(line)
-    if not (worst <= STEP_MU_MAX_REL_TOL and l2 <= STEP_MU_L2_REL_TOL):
+    if not ((mu_max_tol is None or worst <= mu_max_tol) and l2 <= STEP_MU_L2_REL_TOL):
         raise AssertionError(f"step 1 gradients of {names[0]} disagree with {names[1]}")
     if not (s_worst <= STEP_MU_MAX_REL_TOL and s_l2 <= STEP_MU_L2_REL_TOL):
         raise AssertionError(f"step 1 running statistics of {names[0]} disagree with "
@@ -1652,6 +1670,300 @@ def folder_path(ssp_trainer, card) -> dict:
     return {k: n for k, n in total.items() if n}
 
 
+# Phase 13: several ranks (parallel/) on the one card. NCCL will not put two
+# ranks on one device, so the card holds world size 1 over NCCL (torchrun)
+# and two gloo ranks sharing cuda:0 (gloo takes CUDA tensors).
+#   (a) `run ssp` under torchrun equals the plain `run ssp` bit for bit (the
+#       world-1 all-reduce is the identity and the kernels give equal bits),
+#       with the same wrapper calls, PARALLEL_MICRO of each per microbatch;
+#   (b) 2 gloo ranks against world size 1 from one state, augmentation off
+#       and dropout 0, at fp32 and bf16: the SSP step with an uneven masked
+#       tail and a one-step fine-tune epoch with global BN, both within the
+#       step-1 tolerances of every path comparison here (compare_steps: the
+#       two differ only in the order of the ranks' sums, far inside them;
+#       the bf16 fine-tune step in relative L2 only, as phase 10b holds its
+#       bf16 step, since its BN head's gradients cancel), evaluate's
+#       probabilities within FT_PROB_TOL, and each rank's kernel launches
+#       equal world size 1's;
+#   (c) dryrun_multichip(2) on the card: three OK lines, 27 sharded leaves;
+#   (d) `parity --smoke` on the card: the smoke geometry's head_dim 16
+#       trains through "xla" (no kernel launch), recorded in the report.
+PARALLEL_MICRO = {"backbone_fwd": 4, "mlp_bwd": 24, "attn_bwd": 24}  # dual stream
+PARALLEL_TRAIN = 1600  # `run ssp` of (a): 6 steps of 2 x 128 and a masked tail
+PARALLEL_TIMEOUT = 600
+
+
+def timed_ssp_step(cfg, reps: int = 3) -> dict:
+    """On this process's rank (any world size): an SSPTrainer step over a
+    staged synthetic batch, warm, its wall time over `reps` steps, one
+    step's device time by kernel, and (under a process group) the time of
+    its one all-reduce alone: all_reduce_grads on the step's gradients, CUDA
+    events over 10 calls."""
+    from vit2spn_tpu_torch.parallel.shard_map_dp import all_reduce_grads
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    tr = SSPTrainer(cfg, logger=MetricLogger(echo=False),
+                    device=torch.device("cuda", torch.cuda.current_device()))
+    eff = cfg.effective_batch
+    tr.attach_dataset(synthetic_dataset(image_size=28, split_sizes={"train": eff},
+                                        seed=SEED).images)
+    idx = np.arange(eff)
+    tr.train_step_indices(idx, (1, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(reps):
+        tr.train_step_indices(idx, (1, 1 + r))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    totals = {}
+    lines = stage_breakdown(
+        lambda: tr.train_step_indices(idx, (1, 10)),
+        f"one optimizer step, rank {tr.mesh.rank} of {tr.mesh.world_size}",
+        wrappers=(KERNEL_NAME, "mlp_bwd", "attn_bwd"), rest="patch embed, heads, loss, "
+        "Adam, EMA, the collective's kernels", totals=totals)
+    comm = {k: v for k, v in totals.get("kernels", {}).items()
+            if "nccl" in k.lower() or "memcpy" in k.lower()}
+    grads = [p.grad for p in tr._trainable]
+    ar_ms = (time_ms(lambda: all_reduce_grads(grads, tr.mesh), iters=10, warmup=2)
+             if tr.mesh.distributed else None)
+    return {"rank": tr.mesh.rank, "world": tr.mesh.world_size, "wall_ms": 1e3 * wall,
+            "device_ms": totals.get("device"), "comm": comm, "lines": lines,
+            "allreduce_ms": ar_ms, "grad_mb": 4 * sum(g.numel() for g in grads) / 2**20}
+
+
+def nccl_step_main(path: str) -> int:
+    """Under torchrun (world size 1, NCCL): timed_ssp_step of the `ssp`
+    preset (8 x 128, bf16), written as JSON to `path`."""
+    import torch.distributed as dist
+
+    from vit2spn_tpu_torch.core.config import replace
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.parallel.mesh import init_distributed
+
+    os.environ["VIT2SPN_MERGED_BWD"] = "0"
+    init_distributed()
+    try:
+        out = timed_ssp_step(replace(get_preset("ssp"), pretrained_init=False))
+        out["backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_module(argv: list, log_path: str, torchrun: bool = False) -> tuple:
+    """`python -m <argv>` (under `torchrun --standalone --nproc_per_node=1`
+    when asked) from the repository root; output into `log_path`. Returns
+    (exit code, seconds)."""
+    cmd = [sys.executable] + (["-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node=1"] if torchrun else []) + argv
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        rc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=f, stderr=subprocess.STDOUT,
+                            timeout=PARALLEL_TIMEOUT).returncode
+    if rc != 0:
+        log(f"[parallel] {' '.join(argv[:4])} failed (rc {rc}); its output's end:\n"
+            + open(log_path).read()[-4000:])
+    return rc, time.perf_counter() - t0
+
+
+def profile_counts(out_dir: str) -> dict:
+    """The wrapper ranges' calls from a `run --profile` metrics.jsonl."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        ops = [json.loads(line) for line in f]
+    return {e["source"].split("::")[1]: e["count"] for e in ops
+            if e["event"] == "profile_op" and e["source"].startswith("vit2spn::")}
+
+
+def parallel_path(card: str, fused_totals: dict) -> dict:
+    """Phase 13: (a) `run ssp` under torchrun vs plain, with the world-1 NCCL
+    step's device and all-reduce time; (b) 2 gloo ranks on cuda:0 vs world
+    size 1 at fp32 and bf16, and their step's wall and device time; (c)
+    dryrun_multichip(2) on the card; (d) `parity --smoke` on the card.
+    Returns rank 0's launches in (b)'s compared runs by kernel entry name
+    (the fp32 runs' under "<name> (fp32)")."""
+    import contextlib
+    import io
+    import tempfile
+
+    from vit2spn_tpu_torch.cli import main as cli_main
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.entry import dryrun_multichip, finetune_epoch, ssp_step
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.parallel.launch import call_each, launch
+    from vit2spn_tpu_torch.train import checkpoint as ckpt
+    from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
+    from vit2spn_tpu_torch.train.optim import balanced_class_weights
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    t_phase = time.perf_counter()
+    quiet = MetricLogger(echo=False)
+    with tempfile.TemporaryDirectory(prefix="vit2spn_parallel_") as tmp:
+        # (a) `run ssp` cut to 1 epoch of 1,600 staged images at 2 x 128, one
+        # checkpoint, with --profile (the wrappers' calls), plain and under torchrun
+        ds = synthetic_dataset(image_size=28, seed=SEED,
+                               split_sizes={"train": PARALLEL_TRAIN, "val": 8, "test": 8})
+        np.savez(os.path.join(tmp, "octmnist.npz"),
+                 **{f"{k}_images": ds.images[ds.splits[k], ..., 0] for k in ds.splits},
+                 **{f"{k}_labels": ds.labels[ds.splits[k], None] for k in ds.splits})
+        argv = ["-m", "vit2spn_tpu_torch", "run", "ssp", "--epochs", "1", "--profile",
+                "-o", f"data.root={tmp}", "-o", "accumulation_steps=2",
+                "-o", "checkpoint_every_epochs=1", "-o", "pretrained_init=false"]
+        cfg_a = replace_cfg(get_preset("ssp"), accumulation_steps=2, pretrained_init=False)
+        eff = cfg_a.effective_batch
+        spe, rem = PARALLEL_TRAIN // eff, PARALLEL_TRAIN % eff
+        n_micro = spe * cfg_a.accumulation_steps + -(-rem // cfg_a.batch_size)
+        want = {k: n * n_micro for k, n in PARALLEL_MICRO.items()}
+        runs = {}
+        for name, tr_run in (("plain", False), ("torchrun", True)):
+            out = os.path.join(tmp, name)
+            rc, secs = run_module(argv + ["--output-dir", out], out + ".log", tr_run)
+            if rc != 0:
+                raise AssertionError(f"run ssp ({name}) exited {rc}")
+            runs[name] = (out, secs, profile_counts(out))
+        same = {}
+        for fname in (cfg_a.export_name + ".npz", "checkpoint.npz"):
+            with np.load(os.path.join(runs["plain"][0], fname)) as a_, \
+                    np.load(os.path.join(runs["torchrun"][0], fname)) as b_:
+                keys = [k for k in a_.files if k != "__metadata__"]
+                same[fname] = (sorted(keys) == sorted(k for k in b_.files if k != "__metadata__")
+                               and all(np.array_equal(a_[k], b_[k]) for k in keys))
+        got = {n: {k: c.get(k) for k in want} for n, (_, _, c) in runs.items()}
+        log(f"[parallel] (a) run ssp, 1 epoch of {PARALLEL_TRAIN} images at 2 x 128 "
+            f"({n_micro} microbatches): plain {runs['plain'][1]:.1f} s, torchrun (world 1, "
+            f"NCCL) {runs['torchrun'][1]:.1f} s; export and checkpoint bit-equal "
+            f"{same}; wrapper calls plain {got['plain']}, torchrun {got['torchrun']} "
+            f"(predicted {want})")
+        if not all(same.values()):
+            raise AssertionError(f"run ssp under torchrun differs from the plain run: {same}")
+        if got["plain"] != want or got["torchrun"] != want:
+            raise AssertionError(f"run ssp launches {got}, predicted {want}")
+        # the world-1 NCCL step at the preset's 8 x 128, against phase 11's step
+        rc, secs = run_module([os.path.abspath(__file__), "--nccl-step",
+                               os.path.join(tmp, "nccl.json")],
+                              os.path.join(tmp, "nccl.log"), torchrun=True)
+        if rc != 0:
+            raise AssertionError(f"the world-1 NCCL step exited {rc}")
+        with open(os.path.join(tmp, "nccl.json")) as f:
+            nccl = json.load(f)
+        for line in nccl["lines"]:
+            log(line.replace("[profile]", "[parallel][profile]"))
+        ar_ms = nccl["allreduce_ms"]
+        log(f"[parallel] (a) one `ssp` step (8 x 128, bf16) under torchrun, world size 1 "
+            f"({nccl['backend']}): wall {nccl['wall_ms']:.2f} ms, device "
+            f"{nccl['device_ms']:.3f} ms; its all-reduce alone ({nccl['grad_mb']:.1f} MiB "
+            f"of fp32 gradients and sums: flatten, all_reduce, unflatten) {ar_ms:.4f} ms, "
+            f"{100 * ar_ms / nccl['device_ms']:.3f}% of the step's device time; NCCL kernels "
+            f"and copies in the step {nccl['comm']}; the same step without a process group "
+            f"(phase 11, this run) device {fused_totals.get('device', float('nan')):.3f} ms "
+            f"(PERF.md §5: 220.2 ms); on {card}")
+
+        # (b) 2 gloo ranks on cuda:0 against world size 1, fp32 and bf16
+        batch = synthetic_dataset(image_size=28, split_sizes={"train": 256},
+                                  seed=SEED + 1).images
+        w = np.ones(256, np.float32)
+        w[-40:] = 0.0  # microbatch 2: rank 0's slice all real, rank 1's 24 of 64
+        ft_ds = synthetic_dataset(image_size=28, split_sizes={"train": 256}, seed=SEED + 2)
+        ft_w = balanced_class_weights(ft_ds.labels, ft_ds.num_classes)
+        calls, checks, launched_b = [], [], {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = replace_cfg(get_preset("ssp"), pretrained_init=False, accumulation_steps=2,
+                              proj_dropout=0.0, compute_dtype=dtype,
+                              **{"data.augment.enabled": False})
+            start = os.path.join(tmp, f"ssp_{dtype}.npz")
+            tr = SSPTrainer(cfg, logger=quiet, device="cuda")
+            ckpt.save(start, tr.state)
+            before = ckpt._flatten(tr.state)
+            del tr
+            calls.append((ssp_step, (cfg, batch, w), {"checkpoint": start, "device": "cuda:0"}))
+            checks.append(("ssp", dtype, cfg, before))
+            fcfg = replace_cfg(get_preset("ft-octmnist"), head_dropout=0.0, compute_dtype=dtype,
+                               **{"data.augment.enabled": False})
+            start = os.path.join(tmp, f"ft_{dtype}.npz")
+            ft = FineTuneTrainer(fcfg, ft_ds.num_classes, logger=quiet, device="cuda")
+            ckpt.save(start, ft.state)
+            before = ckpt._flatten(ft.state)
+            del ft
+            calls.append((finetune_epoch, (fcfg, ft_ds, np.arange(128)[None], ft_w),
+                          {"checkpoint": start, "device": "cuda:0"}))
+            checks.append(("ft", dtype, fcfg, before))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        two = launch(call_each, 2, args=(calls + [(timed_ssp_step, (calls[2][1][0],), {})],),
+                     device="cuda:0", timeout=PARALLEL_TIMEOUT)
+        two_s = time.perf_counter() - t0
+        one = call_each([(fn, a, {**kw, "device": "cuda"}) for fn, a, kw in calls])
+        for i, (kind, dtype, cfg, before) in enumerate(checks):
+            r0, r1, ref = two[0][i], two[1][i], one[i]
+            equal = all(np.array_equal(r0["state"][k], r1["state"][k]) for k in r0["state"])
+            tag = f"parallel-{kind}-{'fp32' if dtype == 'float32' else 'bf16'}"
+            if kind == "ssp":
+                compare_steps(tag, ["2 ranks", "1 rank"], [(r0["loss"], before, r0["state"]),
+                                                            (ref["loss"], before, ref["state"])],
+                              cfg.learning_rate, ("params/online/", "params/heads/"))
+            else:
+                compare_steps(tag, ["2 ranks", "1 rank"], [(r0["loss"], before, r0["state"]),
+                                                            (ref["loss"], before, ref["state"])],
+                              cfg.learning_rate, ("backbone/", "head/"), ("bn_state/",),
+                              skip=FT_ZERO_GRAD,
+                              mu_max_tol=STEP_MU_MAX_REL_TOL if dtype == "float32" else None)
+                perr = float(np.abs(r0["probs"] - ref["probs"]).max())
+                log(f"[{tag}] evaluate: probabilities max |2 ranks - 1 rank| {perr:.3g} "
+                    f"(tol {FT_PROB_TOL}), loss {r0['val_loss']:.6f} vs {ref['val_loss']:.6f}")
+                if not (perr <= FT_PROB_TOL and np.array_equal(r0["probs"], r1["probs"])):
+                    raise AssertionError(f"{tag}: evaluate disagrees with world size 1")
+            log(f"[{tag}] rank 0 / rank 1 / world 1 launches {r0['launches']} / "
+                f"{r1['launches']} / {ref['launches']}; the ranks' states bit-equal {equal}")
+            if not (equal and r0["launches"] == r1["launches"] == ref["launches"]):
+                raise AssertionError(f"{tag}: ranks disagree or launched other kernels")
+            for k, n in r0["launches"].items():
+                key = k if dtype == "bfloat16" else f"{k} (fp32)"
+                launched_b[key] = launched_b.get(key, 0) + n
+        for r in (two[0][-1], two[1][-1]):
+            for line in r["lines"][:6]:
+                log(line.replace("[profile]", f"[parallel][rank {r['rank']}]"))
+        t0_, t1_ = two[0][-1], two[1][-1]
+        log(f"[parallel] (b) 2 gloo ranks on cuda:0, one SSP step (2 x 128, bf16, 64 per "
+            f"rank): wall {t0_['wall_ms']:.2f} / {t1_['wall_ms']:.2f} ms, device "
+            f"{t0_['device_ms']:.3f} / {t1_['device_ms']:.3f} ms by rank; the gloo all-reduce "
+            f"alone ({t0_['grad_mb']:.1f} MiB) {t0_['allreduce_ms']:.3f} / "
+            f"{t1_['allreduce_ms']:.3f} ms; copies in the step {t0_['comm']}; the launch took "
+            f"{two_s:.1f} s; on {card}")
+
+        # (c) the dry run on the card
+        t0 = time.perf_counter()
+        lines = dryrun_multichip(2)
+        log(f"[parallel] (c) dryrun_multichip(2) on cuda:0 in {time.perf_counter() - t0:.1f} s")
+        if len(lines) != 3 or not lines[2].endswith("tp_sharded_leaves=27"):
+            raise AssertionError(f"dryrun_multichip(2): {lines}")
+
+        # (d) `parity --smoke` on the card: its head_dim 16 trains through "xla"
+        out_d = os.path.join(tmp, "parity_smoke")
+        t0 = time.perf_counter()
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["parity", "--smoke", "--epochs", "1", "--ft-epochs", "1",
+                           "--skip-multitrial", "--out", out_d])
+        launched = read_launches()
+        with open(os.path.join(out_d, "parity_report.json")) as f:
+            report = json.load(f)
+        log(f"[parallel] (d) parity --smoke on cuda: rc {rc} in "
+            f"{time.perf_counter() - t0:.1f} s, attn_impl {report.get('attn_impl')}, status "
+            f"{report['status'][:40]!r}, kernel launches {launched}")
+        if rc != 0 or report.get("attn_impl") != "xla" or any(launched.values()) \
+                or not report["status"].startswith("SMOKE"):
+            raise AssertionError(f"parity --smoke on the card: rc {rc}, {report.get('attn_impl')}")
+    log(f"[parallel] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return launched_b
+
+
 def replace_cfg(cfg, **kw):
     from vit2spn_tpu_torch.core.config import replace
 
@@ -1690,10 +2002,10 @@ def fit_path(tcfg, tds, impl, merged, per_step) -> tuple:
     return trainer, launches, fit_s
 
 
-def time_steps(trainer, eff, name, card, wrappers, rest, reps=3) -> float:
+def time_steps(trainer, eff, name, card, wrappers, rest, reps=3, totals=None) -> float:
     """The optimizer step's wall time over `reps` steps after a warm-up, and
     its device time by wrapper range (`rest` names what runs outside the
-    wrappers). Returns the step's seconds."""
+    wrappers; `totals` as stage_breakdown's). Returns the step's seconds."""
     idx = np.arange(eff)
     trainer.train_step_indices(idx, (1, 0))  # warm
     torch.cuda.synchronize()
@@ -1705,7 +2017,8 @@ def time_steps(trainer, eff, name, card, wrappers, rest, reps=3) -> float:
     log(f"[time] optimizer step {name} (dual stream, 8 x {TRAIN_BATCH}, bf16): "
         f"{1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s over {reps} steps on {card}")
     for line in stage_breakdown(lambda: trainer.train_step_indices(idx, (1, 10)),
-                                f"one optimizer step ({name})", wrappers=wrappers, rest=rest):
+                                f"one optimizer step ({name})", wrappers=wrappers, rest=rest,
+                                totals=totals):
         log(line)
     return step_s
 
@@ -1789,6 +2102,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--nccl-step"]:  # phase 13's world-1 NCCL rank, under torchrun
+        return nccl_step_main(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2402,9 +2717,19 @@ def main() -> int:
         f"over {reps} x {N_IMAGES} images on {card}")
     del trainer_s
 
+    fused_totals = {}
     step_ms["fused"] = 1e3 * time_steps(trainer, eff, "fused", card,
-                                        (KERNEL_NAME, "mlp_bwd", "attn_bwd"), rest)
+                                        (KERNEL_NAME, "mlp_bwd", "attn_bwd"), rest,
+                                        totals=fused_totals)
     log(f"[time] optimizer step by backbone path, ms: {json.dumps(step_ms)}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13. several ranks on the one card -------------------------------------
+    parallel_launches = parallel_path(card, fused_totals)
+    for e in entries:
+        e["parallel_launches"] = parallel_launches.get(e["name"], 0)
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

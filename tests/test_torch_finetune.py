@@ -255,7 +255,9 @@ def test_trainer_guards_and_trial_streams(jcfg):
     tr = FineTuneTrainer(cfg, NUM_CLASSES, logger=quiet, device="cpu")
     with pytest.raises(ValueError, match="empty dataset"):
         tr.evaluate(_datasets(0, 0)[1], np.ones(NUM_CLASSES, np.float32))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # one process cannot hold 2 model ranks (tensor parallelism needs a
+    # world size it divides): refused as the JAX make_mesh refuses it
+    with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
         FineTuneTrainer(tcfg.replace(cfg, **{"mesh.model_parallel": 2}), NUM_CLASSES,
                         device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):

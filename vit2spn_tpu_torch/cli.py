@@ -29,6 +29,13 @@
 Config overrides use dotted keys (`-o batch_size=64 -o data.root=/data`);
 `-o vit=small` / `-o vit=base` swaps the backbone geometry. `--device`
 defaults to `cuda`; `--device cpu` runs the plain PyTorch path.
+
+`run` under torchrun (`torchrun --nproc_per_node=N -m vit2spn_tpu_torch run
+<preset>`) starts the process group (NCCL on `cuda:LOCAL_RANK`, gloo on the
+CPU) and trains data-parallel over the N ranks; `-o mesh.model_parallel=k`
+makes k of them one tensor-parallel model (parallel/). Rank 0 alone writes
+metrics, checkpoints, exports and artifacts. Without torchrun nothing of
+this runs.
 """
 
 from __future__ import annotations
@@ -160,17 +167,32 @@ def cmd_run(args):
     <output-dir>/metrics.jsonl (and with --tb to TensorBoard scalars in
     <output-dir>/tb); --profile traces the run into <output-dir>/trace and
     logs its largest device-time rows as `profile_op` events."""
-    import contextlib
-    import time
-
     cfg = _apply_overrides(get_preset(args.preset), args.override)
     out_dir = args.output_dir or getattr(cfg, "checkpoint_dir", "./output")
     os.makedirs(out_dir, exist_ok=True)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
+        from vit2spn_tpu_torch.parallel.mesh import current_rank, init_distributed
+
+        args.device = str(init_distributed(device=args.device))
+        try:
+            return _run_logged(cfg, args, out_dir, rank0=current_rank() == 0)
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    return _run_logged(cfg, args, out_dir, rank0=True)
+
+
+def _run_logged(cfg, args, out_dir: str, rank0: bool) -> int:
+    """`run` on this rank: metrics (and the trace) on rank 0 only."""
+    import contextlib
+    import time
+
     trace_dir = os.path.join(out_dir, "trace")
-    with MetricLogger(os.path.join(out_dir, "metrics.jsonl"),
-                      tb_dir=os.path.join(out_dir, "tb") if args.tb else None) as logger:
+    with MetricLogger(os.path.join(out_dir, "metrics.jsonl") if rank0 else None, echo=rank0,
+                      tb_dir=os.path.join(out_dir, "tb") if args.tb and rank0 else None) as logger:
         profile_cm = contextlib.nullcontext()
-        if args.profile:
+        if args.profile and rank0:
             from vit2spn_tpu_torch.utils.profiling import trace
 
             profile_cm = trace(trace_dir)
@@ -180,7 +202,7 @@ def cmd_run(args):
             else:
                 rc = _run_finetune(cfg, args, out_dir, logger)
             t_run = time.perf_counter()
-        if args.profile:
+        if args.profile and rank0:
             from vit2spn_tpu_torch.utils.profiling import latest_trace_file, op_breakdown
 
             t_trace = time.perf_counter()
@@ -198,6 +220,7 @@ def cmd_run(args):
 def _run_ssp(cfg, args, out_dir, logger):
     from vit2spn_tpu_torch.data.datasets import load_dataset
     from vit2spn_tpu_torch.evals.plots import loss_curve
+    from vit2spn_tpu_torch.parallel.mesh import current_rank
     from vit2spn_tpu_torch.train.ssp import SSPTrainer
     from vit2spn_tpu_torch.utils.flops import dual_stream_report
     from vit2spn_tpu_torch.utils.profiling import device_memory_report
@@ -206,8 +229,11 @@ def _run_ssp(cfg, args, out_dir, logger):
     ds = load_dataset(cfg.data.name, root=cfg.data.root)
     train = ds.split("train") if "train" in ds.splits else ds
     # startup introspection (ssp_vit2spn_tiny.py:178-194,235-239): counted
-    # on the CPU's plain path whatever the device (utils/flops.py)
-    logger.log("model_info", **dual_stream_report(cfg, trainer.params))
+    # on the CPU's plain path whatever the device (utils/flops.py), on the
+    # whole params (gathered by every rank under tensor parallelism)
+    whole = trainer.full_state().params
+    if current_rank() == 0:
+        logger.log("model_info", **dual_stream_report(cfg, whole))
     # best-effort with a watchdog budget: the entry path must reach the
     # trainer even if a device query hangs
     mem = device_memory_report(timeout_s=20.0)
@@ -216,7 +242,7 @@ def _run_ssp(cfg, args, out_dir, logger):
     history = trainer.fit(train, epochs=args.epochs,
                           checkpoint_path=os.path.join(out_dir, "checkpoint.npz"))
     trainer.export_backbone(os.path.join(out_dir, cfg.export_name + ".npz"))
-    if not cfg.pretrained_init:  # the scratch variant plots its loss curve
+    if not cfg.pretrained_init and current_rank() == 0:  # the scratch variant's loss curve
         loss_curve(history, os.path.join(out_dir, "ssp_loss_curve.png"))
     return 0
 
@@ -226,6 +252,7 @@ def _run_finetune(cfg, args, out_dir, logger):
     from vit2spn_tpu_torch.evals.metrics import classification_report_text
     from vit2spn_tpu_torch.evals.plots import confusion_matrix_plot, roc_all_folds
     from vit2spn_tpu_torch.evals.protocol import run_cv_protocol, run_multitrial
+    from vit2spn_tpu_torch.parallel.mesh import current_rank
 
     device = resolve_device(args.device)  # before any loading: no card, no run
     backbone = _resolve_backbone(cfg, logger)
@@ -236,6 +263,8 @@ def _run_finetune(cfg, args, out_dir, logger):
         return 0
     res = run_cv_protocol(cfg, backbone_params=backbone, logger=logger,
                           epochs=args.epochs, device=device)
+    if current_rank() != 0:  # every rank holds the same result; rank 0 writes it
+        return 0
     # artifact names match the reference's per-script savefig targets
     # (octmnist_ft_vit2spn.py:166,226; ucsdoct_ft_vit2spn.py:248,331)
     name = cfg.data.name
@@ -590,8 +619,8 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--out", default="./output/parity")
     pa.add_argument("--smoke", action="store_true",
                     help="synthetic end-to-end plumbing check (tiny model, head_dim "
-                    "16, which the CUDA kernels refuse: run it with --device cpu; "
-                    "numbers are NOT parity evidence)")
+                    "16: on CUDA it trains through the per-op 'xla' path, which the "
+                    "report records; numbers are NOT parity evidence)")
     pa.add_argument("--epochs", type=int, default=None,
                     help="override SSP epoch count (default: preset's 100)")
     pa.add_argument("--ft-epochs", type=int, default=None,
@@ -601,8 +630,8 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--skip-multitrial", action="store_true")
     pa.add_argument("--shrink-geometry", action="store_true",
                     help="tiny model geometry on the REAL loaders + full gating "
-                    "(plumbing rehearsal, --device cpu as for --smoke; a PASS is "
-                    "labelled as NOT parity evidence)")
+                    "(plumbing rehearsal, the 'xla' path on CUDA as for --smoke; a "
+                    "PASS is labelled as NOT parity evidence)")
     pa.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     pa.set_defaults(fn=cmd_parity)
 

@@ -43,9 +43,11 @@ parity evidence). tests/test_torch_parity.py holds every status string
 against the JAX package's.
 
 Every trainer and protocol runs on `device` (default `cuda`; `cpu` runs the
-plain PyTorch path). The smoke geometry has head_dim 16, which the CUDA
-kernels refuse, so smoke and shrunk runs take `device="cpu"`; on `cuda` they
-raise the kernel wrapper's head_dim error.
+plain PyTorch path), through the backbone path `runbook_attn_impl` picks by
+geometry: the fused kernels where they take it, and on CUDA at a geometry
+they refuse (the smoke and shrunk runs' head_dim 16) the per-op block
+"xla", which takes any head_dim. The choice is logged (`parity_attn_impl`)
+and, where it is not "fused", written into the report as `attn_impl`.
 """
 
 from __future__ import annotations
@@ -120,6 +122,25 @@ def smoke_vit_config():
 
     return ViTConfig(image_size=32, patch_size=16, hidden_size=32,
                      num_layers=2, num_heads=2, mlp_dim=64)
+
+
+def runbook_attn_impl(vit_cfg, device) -> str:
+    """The runbook's backbone path: "fused" where the kernels take the
+    geometry (head_dim 64, D and mlp multiples of 64, D and S within the
+    kernels' limits) or the device is not CUDA (the CPU runs their plain
+    twins, which take any geometry); else "xla"."""
+    import torch
+
+    from vit2spn_tpu_torch.ops.fused_block import (
+        KERNEL_HEAD_DIM,
+        KERNEL_MAX_D,
+        KERNEL_MAX_SEQ,
+    )
+
+    d = vit_cfg.hidden_size
+    takes = (vit_cfg.head_dim == KERNEL_HEAD_DIM and d % 64 == 0 and d <= KERNEL_MAX_D
+             and vit_cfg.mlp_dim % 64 == 0 and vit_cfg.seq_len <= KERNEL_MAX_SEQ)
+    return "fused" if takes or torch.device(device).type != "cuda" else "xla"
 
 
 def _shrink_overrides(cfg):
@@ -254,6 +275,13 @@ def run_parity(
                     "datasets": {}}
     if shrink_geometry:
         report["shrunk_geometry"] = True
+    # every stage runs one geometry, so one backbone path (the fine-tune
+    # stages' overrides give them stage 1's vit)
+    attn_impl = runbook_attn_impl(ssp_cfg.vit, device)
+    logger.log("parity_attn_impl", attn_impl=attn_impl, head_dim=ssp_cfg.vit.head_dim,
+               device=str(device))
+    if attn_impl != "fused":
+        report["attn_impl"] = attn_impl
 
     if smoke:
         runnable = list(_FT_PRESETS)  # synthetic stand-ins validate plumbing
@@ -296,7 +324,7 @@ def run_parity(
         return loaded[name]
 
     # ---- stage 1: SSP pretrain (ssp_vit2spn_tiny.py, 100 epochs) ----------
-    trainer = SSPTrainer(ssp_cfg, logger=logger, device=device)
+    trainer = SSPTrainer(ssp_cfg, logger=logger, device=device, attn_impl=attn_impl)
     logger.log("parity_ssp_init", provenance=trainer.init_provenance)
     if smoke:  # non-smoke NEVER trains on the stand-in
         ds = load_dataset(ssp_cfg.data.name, root=ssp_cfg.data.root)
@@ -430,7 +458,7 @@ def run_parity(
         res = run_cv_protocol(
             cfg, dataset=ft_ds, backbone_params=backbone, logger=logger,
             epochs=ft_epochs if ft_epochs is not None else (1 if smoke else None),
-            device=device,
+            attn_impl=attn_impl, device=device,
         )
         if name != "octmnist":
             # folder datasets are done after their protocol (UCSD is ~GBs of
@@ -485,7 +513,7 @@ def run_parity(
             cfg, dataset=mt_ds, backbone_params=backbone, logger=logger,
             epochs=ft_epochs if ft_epochs is not None else (1 if smoke else None),
             resume_path=os.path.join(out_dir, "multitrial_state.json"),
-            device=device,
+            attn_impl=attn_impl, device=device,
         )
         agg = mt.get("across_trials", mt["aggregate"])
         spec = agg["specificity"]["mean"]
@@ -541,6 +569,9 @@ def _write_report(report: dict, out_dir: str) -> None:
                         for k, v in report["load_errors"].items()),
             "",
         ]
+    if report.get("attn_impl"):
+        lines += [f"Backbone path: `{report['attn_impl']}` (the fused kernels do not "
+                  "take this geometry on CUDA)", ""]
     if report.get("init_deviation"):
         lines += [
             f"Init deviation: **{report['init_deviation']}** — the published "

@@ -44,6 +44,7 @@ from vit2spn_tpu_torch.core.runtime import resolve_device
 from vit2spn_tpu_torch.data.datasets import Dataset, load_dataset
 from vit2spn_tpu_torch.evals.kfold import stratified_holdout, stratified_kfold
 from vit2spn_tpu_torch.evals.metrics import classification_summary, mean_auc, per_class_roc
+from vit2spn_tpu_torch.parallel.mesh import current_rank
 from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
 from vit2spn_tpu_torch.train.optim import balanced_class_weights
 from vit2spn_tpu_torch.utils.logging import MetricLogger
@@ -303,7 +304,7 @@ def run_multitrial(
         logger.log("trial", trial=trial, **{
             f"{k}_{s}": v[s] for k, v in agg.items() for s in ("mean", "std")
         })
-        if resume_path:
+        if resume_path and current_rank() == 0:  # every rank holds the same trials
             _save_trial_state(resume_path, cfg, trials, epochs)
     out = {"trials": trials, "aggregate": trials[0]["aggregate"]}
     if cfg.num_trials > 1:

@@ -12,6 +12,13 @@ Params are dicts `linear_<i>/{w (in, out), b}` (and the classifier's
 `bn/{scale, bias}`) in the JAX layout. Initialization follows torch.nn.Linear
 defaults (U(+-1/sqrt(fan_in)) for weights and biases). The heads' GEMMs are
 plain products outside any Pallas kernel in the JAX package too.
+
+Under a `mesh` (parallel/mesh.py) the heads run their part of a multi-rank
+step: a weight that holds a tensor-parallel shard (its `tp_dim`, set by
+parallel/tp.py) multiplies column- or row-parallel, dropout draws the whole
+mask and keeps this rank's columns, and the classifier's train-mode
+BatchNorm takes its batch statistics over every data rank (the
+SyncBatchNorm semantics the JAX package gets from GSPMD).
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from vit2spn_tpu_torch.parallel import tp
+from vit2spn_tpu_torch.parallel.shard_map_dp import sum_over_data
 
 
 def _torch_linear_init(gen: torch.Generator, in_dim: int, out_dim: int) -> dict:
@@ -38,17 +48,37 @@ def init_mlp_head(gen: torch.Generator, dims: Tuple[int, ...]) -> dict:
     }
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             mesh=None):
     """Inverted dropout with a mask drawn from `generator`, which must live on
-    x's device (a CUDA generator for CUDA tensors)."""
+    x's device (a CUDA generator for CUDA tensors). With `mesh`, x is this
+    rank's columns of a tensor-parallel activation: the whole mask is drawn
+    and the rank keeps its columns, so the draw equals one rank's."""
     if generator is None:
         raise ValueError("dropout in train mode needs a generator")
     gd = generator.device
     if gd.type != x.device.type or gd.index not in (None, x.device.index):
         raise ValueError(f"the dropout generator is on {gd}, x on {x.device}")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if mesh is None else (*x.shape[:-1], x.shape[-1] * mesh.model_size)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if mesh is not None:
+        mask = tp.my_columns(mask, mesh)
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+def _linear(p: dict, x: torch.Tensor, mesh):
+    """x @ w + b in x's dtype; column-parallel (x whole, the output this
+    rank's columns) or row-parallel (x this rank's columns, the output
+    summed over the ranks) where w holds a tensor-parallel shard. Returns
+    (out, whether out is a column shard)."""
+    w, b = p["w"].to(x.dtype), p["b"].to(x.dtype)
+    dim = None if mesh is None or mesh.model_size == 1 else getattr(p["w"], "tp_dim", None)
+    if dim is None:
+        return x @ w + b, False
+    if dim == w.dim() - 1:
+        return tp.column_linear(x, w, b, mesh), True
+    return tp.row_linear(x, w, mesh) + b, False
 
 
 def mlp_head_apply(
@@ -59,19 +89,20 @@ def mlp_head_apply(
     dropout_after_layer: int = -1,
     generator: Optional[torch.Generator] = None,
     train: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Linear -> ReLU [-> Dropout] -> ... -> Linear (no activation on last).
     Dropout is active only with `train=True` and draws its mask from the
     explicit `generator`, which lives on x's device (a CUDA generator for
-    CUDA tensors)."""
+    CUDA tensors). `mesh`: the tensor-parallel products where the weights
+    hold shards."""
     n = len(params)
     for i in range(n):
-        p = params[f"linear_{i}"]
-        x = x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
+        x, sharded = _linear(params[f"linear_{i}"], x, mesh)
         if i < n - 1:
             x = torch.relu(x)
             if train and dropout_rate > 0.0 and i == dropout_after_layer:
-                x = _dropout(x, dropout_rate, generator)
+                x = _dropout(x, dropout_rate, generator, mesh if sharded else None)
     return x
 
 
@@ -106,6 +137,7 @@ def classifier_head_apply(
     train: bool = False,
     bn_momentum: float = 0.1,
     bn_eps: float = 1e-5,
+    mesh=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Linear -> BatchNorm1d -> ReLU -> Dropout -> Linear, at the JAX
     function's rounding points: the linears in x's dtype, BN in fp32 on the
@@ -115,32 +147,50 @@ def classifier_head_apply(
     statistics (biased variance) and updates the running ones with torch's
     unbiased-variance convention at `bn_momentum` (the new state carries no
     autograd graph); eval mode uses the running statistics and returns
-    `bn_state` itself."""
-    p0 = params["linear_0"]
-    x = x @ p0["w"].to(x.dtype) + p0["b"].to(x.dtype)
+    `bn_state` itself.
+
+    Under a `mesh` with more than one data rank, x is this rank's slice of
+    the batch and train mode's statistics are the global batch's: the sum
+    for the mean, then the sum of centred squares for the variance, each
+    over the data ranks with its gradient; the running update counts the
+    global n. Where linear_0 holds a tensor-parallel shard, BN (per feature)
+    normalizes this rank's features and the running statistics are gathered
+    whole."""
+    x, sharded = _linear(params["linear_0"], x, mesh)
 
     x32 = x.float()
     if train:
-        mean = torch.mean(x32, dim=0)
-        var = torch.var(x32, dim=0, unbiased=False)  # used for normalization
-        n = x32.shape[0]
+        if mesh is not None and mesh.data_size > 1:
+            n = x32.shape[0] * mesh.data_size
+            mean = sum_over_data(torch.sum(x32, dim=0), mesh) / n
+            var = sum_over_data(torch.sum((x32 - mean) ** 2, dim=0), mesh) / n
+        else:
+            n = x32.shape[0]
+            mean = torch.mean(x32, dim=0)
+            var = torch.var(x32, dim=0, unbiased=False)  # used for normalization
         with torch.no_grad():
             unbiased = var * n / max(n - 1, 1)
+            run_mean, run_var = ((tp.gather_columns(mean, mesh), tp.gather_columns(unbiased, mesh))
+                                 if sharded else (mean, unbiased))
             new_state = {
-                "mean": (1 - bn_momentum) * bn_state["mean"] + bn_momentum * mean,
-                "var": (1 - bn_momentum) * bn_state["var"] + bn_momentum * unbiased,
+                "mean": (1 - bn_momentum) * bn_state["mean"] + bn_momentum * run_mean,
+                "var": (1 - bn_momentum) * bn_state["var"] + bn_momentum * run_var,
                 "count": bn_state["count"] + 1,
             }
     else:
         mean, var = bn_state["mean"], bn_state["var"]
+        if sharded:
+            mean, var = tp.my_columns(mean, mesh), tp.my_columns(var, mesh)
         new_state = bn_state
+    scale, bias = params["bn"]["scale"], params["bn"]["bias"]
+    if sharded:  # whole on every rank: the gradient of its slice sums over them
+        scale, bias = (tp.my_columns(tp.copy_to_model(t, mesh), mesh) for t in (scale, bias))
     x32 = (x32 - mean) * torch.rsqrt(var + bn_eps)
-    x = (x32 * params["bn"]["scale"] + params["bn"]["bias"]).to(x.dtype)
+    x = (x32 * scale + bias).to(x.dtype)
 
     x = torch.relu(x)
     if train and dropout_rate > 0.0:
-        x = _dropout(x, dropout_rate, generator)
+        x = _dropout(x, dropout_rate, generator, mesh if sharded else None)
 
-    p1 = params["linear_1"]
-    logits = x @ p1["w"].to(x.dtype) + p1["b"].to(x.dtype)
+    logits, _ = _linear(params["linear_1"], x, mesh)
     return logits.float(), new_state

@@ -14,9 +14,14 @@ checkpoints and `from_jax` carry over unchanged.
 
 The loss is the negative mean cosine similarity of the online prediction and
 the target projection (`negative_cosine_loss`); the trainer uses its
-per-sample weighted form (`weighted_ssp_loss`), which masks the pad samples
-of the epoch's last accumulation group. After each optimizer step the
-target nets move toward the online nets by EMA (`ema_update`).
+per-sample weighted form (`weighted_ssp_loss`, or its per-rank terms
+`ssp_loss_sums` when the ranks split a microbatch), which masks the pad
+samples of the epoch's last accumulation group. After each optimizer step
+the target nets move toward the online nets by EMA (`ema_update`).
+
+The forwards take a `mesh` (parallel/mesh.py): with a model axis > 1 the
+backbones and heads run their tensor-parallel products on this rank's
+shards (models/vit.py, models/heads.py).
 """
 
 from __future__ import annotations
@@ -84,6 +89,13 @@ def init_dual_stream(
                             target=_to_device(target, dev))
 
 
+def init_single_stream(gen: torch.Generator, cfg: SSPConfig,
+                       backbone_params: Optional[dict] = None, device=None) -> DualStreamParams:
+    """`init_dual_stream` of a single-stream config (one online/target pair)."""
+    assert not cfg.dual_stream
+    return init_dual_stream(gen, cfg, backbone_params, device=device)
+
+
 def backbone_slice(stacked: dict, i: int = 0) -> dict:
     """Net i of a stacked backbone dict (the export contract is the STREAM-1
     online backbone, ssp_vit2spn_tiny.py:246)."""
@@ -94,12 +106,14 @@ def backbone_slice(stacked: dict, i: int = 0) -> dict:
 
 def _batched_features(stacked_params: dict, views: Sequence[torch.Tensor],
                       cfg: SSPConfig, policy: DTypePolicy, attn_impl: str,
-                      norm_fold=None, fast_gelu: Optional[bool] = None) -> torch.Tensor:
+                      norm_fold=None, fast_gelu: Optional[bool] = None,
+                      mesh=None) -> torch.Tensor:
     """views: n tensors (B, H, W, C) — or (B, H, W) grayscale with norm_fold
     — through the n stacked nets, one forward each -> (n, B, D) fp32."""
     feats = [
         vit_features(backbone_slice(stacked_params, i), views[i], cfg.vit,
-                     policy, attn_impl, norm_fold=norm_fold, fast_gelu=fast_gelu)
+                     policy, attn_impl, norm_fold=norm_fold, fast_gelu=fast_gelu,
+                     mesh=mesh)
         for i in range(len(views))
     ]
     return torch.stack(feats)
@@ -120,18 +134,19 @@ def online_prediction(
     attn_impl: str = "fused",
     norm_fold=None,
     fast_gelu: Optional[bool] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """The online path alone: online backbones -> projection -> prediction,
     (B, proj_dim) fp32. This is all `extract_features(features="pred")`
     needs, so serving runs no target backbone."""
     f = _batched_features(params.online, views_online, cfg, policy, attn_impl,
-                          norm_fold, fast_gelu)
+                          norm_fold, fast_gelu, mesh)
     proj = mlp_head_apply(
         params.heads["projection"], _fuse_streams(f).to(policy.compute_dtype),
         dropout_rate=cfg.proj_dropout, dropout_after_layer=0,
-        generator=generator, train=train,
+        generator=generator, train=train, mesh=mesh,
     )
-    return mlp_head_apply(params.heads["prediction"], proj).float()
+    return mlp_head_apply(params.heads["prediction"], proj, mesh=mesh).float()
 
 
 def dual_stream_forward(
@@ -145,6 +160,7 @@ def dual_stream_forward(
     attn_impl: str = "fused",
     norm_fold=None,
     fast_gelu: Optional[bool] = None,
+    mesh=None,
 ):
     """Returns (online_pred (B, 128), target_proj (B, 128)) fp32 — the
     tensors whose negative mean cosine similarity is the SSP loss. Dual
@@ -161,21 +177,25 @@ def dual_stream_forward(
         views_online, views_target = (view1,), (view2,)
     online_pred = online_prediction(
         params, views_online, cfg, policy, generator, train, attn_impl,
-        norm_fold, fast_gelu,
+        norm_fold, fast_gelu, mesh,
     )
     # the target path shares the trainable projection head, without
     # gradient (ssp_vit2spn_tiny.py:157-158); dropout is active on it too in
     # train mode (the reference's shared nn.Dropout)
     with torch.no_grad():
         f_target = _batched_features(params.target, views_target, cfg, policy,
-                                     attn_impl, norm_fold, fast_gelu)
+                                     attn_impl, norm_fold, fast_gelu, mesh)
         target_proj = mlp_head_apply(
             params.heads["projection"],
             _fuse_streams(f_target).to(policy.compute_dtype),
             dropout_rate=cfg.proj_dropout, dropout_after_layer=0,
-            generator=generator, train=train,
+            generator=generator, train=train, mesh=mesh,
         )
     return online_pred, target_proj.float()
+
+
+# single stream: the same forward, keyed by cfg.dual_stream (the JAX alias)
+single_stream_forward = dual_stream_forward
 
 
 def _unit(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -189,22 +209,44 @@ def negative_cosine_loss(pred: torch.Tensor, target: torch.Tensor,
     return -torch.mean(torch.sum(_unit(pred, eps) * _unit(target, eps), dim=-1))
 
 
+def ssp_loss_sums(pred: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
+                  denom, eps: float = 1e-8):
+    """One rank's terms of a microbatch (the JAX shard_map step's
+    `loss_sums`): the negative cosine summed over this rank's samples
+    weighted by `w` and divided by `denom`, the microbatch's GLOBAL weight
+    sum; and, without gradient, the weighted sums s1, s2 of the
+    L2-normalized predictions and of their squares, which
+    `pred_std_from_sums` turns into pred_std once the ranks' sums are added.
+    Returns (loss, s1, s2)."""
+    pn, tn = _unit(pred, eps), _unit(target, eps)
+    loss = -torch.sum(torch.sum(pn * tn, dim=-1) * w) / denom
+    with torch.no_grad():
+        s1 = torch.sum(w[:, None] * pn, dim=0)
+        s2 = torch.sum(w[:, None] * pn * pn, dim=0)
+    return loss, s1, s2
+
+
+def pred_std_from_sums(s1: torch.Tensor, s2: torch.Tensor, denom) -> torch.Tensor:
+    """The mean over features of the weighted std across the batch, from the
+    weighted sums of `ssp_loss_sums` (the JAX shard_map step's formula)."""
+    mean_w = s1 / denom
+    var = torch.clamp(s2 / denom - mean_w ** 2, min=0.0)
+    return torch.mean(torch.sqrt(var))
+
+
 def weighted_ssp_loss(pred: torch.Tensor, target: torch.Tensor, w: torch.Tensor,
-                      eps: float = 1e-8):
+                      eps: float = 1e-8, denom=None):
     """The trainer's loss (JAX train/ssp.py `loss_fn`): the mean negative
     cosine over the samples weighted by `w` (0/1 per sample; all ones gives
     `negative_cosine_loss`), and, without gradient, `pred_std`: the mean
     over features of the weighted std of the L2-normalized predictions
     across the batch. pred_std -> 0 signals representational collapse.
+    `denom` (default: the weight sum, at least 1) divides the weighted sum.
     Returns (loss, pred_std)."""
-    pn, tn = _unit(pred, eps), _unit(target, eps)
-    denom = torch.clamp(torch.sum(w), min=1.0)
-    loss = -torch.sum(torch.sum(pn * tn, dim=-1) * w) / denom
-    with torch.no_grad():
-        mean_w = torch.sum(w[:, None] * pn, dim=0) / denom
-        var = torch.sum(w[:, None] * (pn - mean_w) ** 2, dim=0) / denom
-        pred_std = torch.mean(torch.sqrt(var))
-    return loss, pred_std
+    if denom is None:
+        denom = torch.clamp(torch.sum(w), min=1.0)
+    loss, s1, s2 = ssp_loss_sums(pred, target, w, denom, eps)
+    return loss, pred_std_from_sums(s1, s2, denom)
 
 
 def _leaves(tree) -> list:

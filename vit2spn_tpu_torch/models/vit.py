@@ -31,6 +31,11 @@ are plain torch autograd. Every kernel takes the bf16 and the fp32 policy
 `cfg.remat` ("none", "full", "dots") checkpoints each per-op block, as
 `jax.checkpoint` does; the fused paths keep their own residuals.
 
+Tensor parallelism (`mesh` with a model axis > 1, parallel/tp.py): the
+per-op block with wqkv / w1 column-parallel and wo / w2 row-parallel over the
+model group (`_tp_block`), as the JAX trainers run TP on their XLA path; the
+fused kernels are data-parallel only, so only "xla" takes a TP mesh.
+
 Feature semantics: the mean over ALL tokens (CLS included) of the last block
 output BEFORE the final layernorm (ssp_vit2spn_tiny.py:116-117).
 """
@@ -59,6 +64,7 @@ from vit2spn_tpu_torch.ops.fused_block import (
     fused_backbone,
     fused_block,
 )
+from vit2spn_tpu_torch.parallel import tp
 
 ATTN_IMPLS = ("fused", "fused_layer", "xla", "pallas", "plain")
 REMATS = ("none", "full", "dots")
@@ -218,6 +224,33 @@ def _block(cfg: ViTConfig, attn_impl: str, x: torch.Tensor, ln1_scale, ln1_bias,
     return x + y
 
 
+def _tp_block(cfg: ViTConfig, mesh, x: torch.Tensor, ln1_scale, ln1_bias, wqkv, bqkv, wo,
+              bo, ln2_scale, ln2_bias, w1, b1, w2, b2) -> torch.Tensor:
+    """`_block` with this rank's shards of the sharded leaves (parallel/tp.py):
+    the qkv columns gathered back before the q|k|v split (the 3 heads of
+    ViT-Tiny do not split over 2 ranks), attention over all heads, Wo on the
+    rank's slice of its output; one all-reduce after Wo and one after W2. A
+    leaf whose dim does not divide by the model axis is whole and multiplies
+    as in `_block`."""
+    b, s, d = x.shape
+    eps = cfg.layernorm_eps
+    y = _layernorm(x, ln1_scale, ln1_bias, eps)
+    if tp.divides(3 * d, mesh):
+        qkv = tp.gather_columns(tp.column_linear(y, wqkv, bqkv, mesh), mesh)
+    else:
+        qkv = y @ wqkv + bqkv
+    q, k, v = (t.reshape(b, s, cfg.num_heads, cfg.head_dim) for t in qkv.split(d, dim=-1))
+    attn = multi_head_attention(q, k, v, "xla").reshape(b, s, d)
+    o = tp.row_linear(tp.my_columns(attn, mesh), wo, mesh) if tp.divides(d, mesh) else attn @ wo
+    x = x + o + bo
+    y = _layernorm(x, ln2_scale, ln2_bias, eps)
+    if tp.divides(cfg.mlp_dim, mesh):
+        y = tp.row_linear(F.gelu(tp.column_linear(y, w1, b1, mesh)), w2, mesh)
+    else:
+        y = F.gelu(y @ w1 + b1) @ w2
+    return x + (y + b2)
+
+
 # what remat "dots" saves: the matmul outputs (jax.checkpoint_policies.dots_saveable)
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
          torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
@@ -241,10 +274,13 @@ def _remat(block, remat: str):
     return lambda *a: checkpoint(block, *a, use_reentrant=False, **kw)
 
 
-def _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu):
+def _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu, mesh=None):
     """Embed + the transformer stack: HF `hidden_states[-1]`, (B, S, D)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
+    if mesh is not None and mesh.model_size > 1 and attn_impl != "xla":
+        raise ValueError(f"attn_impl {attn_impl!r} does not run under tensor "
+                         f"parallelism (model_parallel={mesh.model_size}): use \"xla\"")
     if fast_gelu is None:
         fast_gelu = fast_gelu_default()
     seq = _embed(params, x, cfg, policy, norm_fold)
@@ -258,7 +294,10 @@ def _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu):
         for l in range(cfg.num_layers):
             h = fused_block(h, backbone_weights(blocks, policy, l), heads, eps, fast_gelu)
         return h
-    block = _remat(functools.partial(_block, cfg, attn_impl), cfg.remat)
+    if mesh is not None and mesh.model_size > 1:
+        block = _remat(functools.partial(_tp_block, cfg, mesh), cfg.remat)
+    else:
+        block = _remat(functools.partial(_block, cfg, attn_impl), cfg.remat)
     for l in range(cfg.num_layers):
         h = block(h, *(blocks[n][l].to(policy.compute_dtype) for n in WEIGHT_NAMES))
     return h
@@ -272,6 +311,7 @@ def vit_forward(
     attn_impl: str = "fused",
     norm_fold=None,
     fast_gelu: Optional[bool] = None,
+    mesh=None,
 ) -> dict:
     """Full forward. x: (B, H, W, C) float, already normalized — OR, with
     `norm_fold=(mean, std)`, a RAW grayscale (B, H, W) batch whose channel
@@ -281,8 +321,10 @@ def vit_forward(
     `hidden_states[-1]` and the post-final-layernorm `last_hidden_state`.
     `attn_impl` picks the backbone path (ATTN_IMPLS, the module docstring).
     `fast_gelu=None` resolves from VIT2SPN_FAST_GELU (the fused paths; the
-    per-op block's gelu is always the exact erf)."""
-    pre_ln = _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu)
+    per-op block's gelu is always the exact erf). `mesh` (parallel/mesh.py)
+    with a model axis > 1 runs the tensor-parallel block on this rank's
+    shards."""
+    pre_ln = _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu, mesh)
     last_hidden = _layernorm(
         pre_ln, params["final_ln"]["scale"], params["final_ln"]["bias"],
         cfg.layernorm_eps,
@@ -298,12 +340,13 @@ def vit_features(
     attn_impl: str = "fused",
     norm_fold=None,
     fast_gelu: Optional[bool] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Backbone feature: mean over all tokens of hidden_states[-1]
     (ssp_vit2spn_tiny.py:116-117). Returns (B, D) in fp32."""
     if cfg.use_final_layernorm_features:
         h = vit_forward(params, x, cfg, policy, attn_impl, norm_fold=norm_fold,
-                        fast_gelu=fast_gelu)["last_hidden_state"]
+                        fast_gelu=fast_gelu, mesh=mesh)["last_hidden_state"]
     else:  # the final layernorm is not needed: skip it
-        h = _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu)
+        h = _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu, mesh)
     return torch.mean(h.float(), dim=1)

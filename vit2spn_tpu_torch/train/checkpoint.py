@@ -7,7 +7,9 @@ JAX package's `_path_key` names) plus a `__metadata__` JSON blob.
 
 `restore` takes a template tree (`like=`) and returns the same structure
 with the stored values as tensors of the template's dtype and device; keys
-must match exactly, as the JAX package's `restore(strict=True)`. The
+must match exactly, as the JAX package's `restore(strict=True)`;
+`strict=False` keeps the template's value where the file lacks a leaf and
+ignores the file's extra keys (torch's `load_state_dict(strict=False)`). The
 port's trainer state (train/ssp.py::SSPTrainState) holds the parameters,
 Adam's state under optax.adam's leaf names (`opt_state/0/count`,
 `opt_state/0/mu/0/...`, `opt_state/0/nu/1/...`) and the step count, so a
@@ -134,10 +136,12 @@ def _rebuild(like, stored: dict, prefix: str, used: set, missing: list):
     return type(like)(vals[str(i)] for i in range(len(like)))
 
 
-def restore(path: str, like, ignore: Iterable[str] = ()):
-    """Load leaves into the structure of `like`, strictly: a leaf missing
-    from the file, or a stored key the template lacks, raises KeyError.
-    Stored keys that start with a prefix in `ignore` are skipped."""
+def restore(path: str, like, ignore: Iterable[str] = (), strict: bool = True):
+    """Load leaves into the structure of `like`. Strictly (the default), a
+    leaf missing from the file or a stored key the template lacks raises
+    KeyError; with `strict=False` a missing leaf keeps the template's value
+    and extra keys are ignored. Stored keys that start with a prefix in
+    `ignore` are skipped."""
     ignore = tuple(ignore)
     with np.load(path) as raw:
         stored = {k: raw[k] for k in raw.files
@@ -146,7 +150,7 @@ def restore(path: str, like, ignore: Iterable[str] = ()):
     missing: list = []
     out = _rebuild(like, stored, "", used, missing)
     extra = set(stored) - used
-    if missing or extra:
+    if strict and (missing or extra):
         raise KeyError(f"checkpoint mismatch: missing={missing[:5]} "
                        f"extra={sorted(extra)[:5]}")
     return out

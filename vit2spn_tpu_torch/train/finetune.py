@@ -39,7 +39,18 @@ purpose), other bits than the JAX package's.
 `state` reads and writes the trainer's tensors as a `FineTuneState` whose
 leaves carry the JAX package's names (`opt_state/1/mu/0/blocks/w1`);
 models/convert.py carries a JAX state across both ways. Device: `cuda`
-unless the caller passes `device="cpu"`. Tensor parallelism is not ported.
+unless the caller passes `device="cpu"`.
+
+Several ranks (parallel/): each data rank trains on its contiguous slice of
+every batch; the weighted cross-entropy divides by the GLOBAL sum of the
+batch's class weights (every rank holds the whole index row), the BN head
+takes global batch statistics (models/heads.py), and the gradients and the
+loss are summed over the data ranks in one all-reduce before Adam.
+`evaluate` gives each rank its slice of every eval batch and gathers the
+probabilities back in order, so every rank holds the same (N, C) and takes
+the same plateau and early-stop decisions. With a model axis > 1 the
+backbone, the head and Adam's moments hold their tensor-parallel shards
+(parallel/tp.py) and "fused" runs as "xla", as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -64,8 +75,16 @@ from vit2spn_tpu_torch.models.heads import (
 )
 from vit2spn_tpu_torch.models.ssp import _leaves
 from vit2spn_tpu_torch.models.vit import ATTN_IMPLS, _to_device, init_vit, vit_features
+from vit2spn_tpu_torch.parallel import tp
+from vit2spn_tpu_torch.parallel.mesh import Mesh, make_mesh
+from vit2spn_tpu_torch.parallel.shard_map_dp import (
+    all_gather_data,
+    all_reduce_grads,
+    broadcast_tensors,
+    fold_rank,
+)
 from vit2spn_tpu_torch.train.optim import EarlyStopping, ReduceLROnPlateau
-from vit2spn_tpu_torch.train.ssp import _copy, _map
+from vit2spn_tpu_torch.train.ssp import _copy, _map, resolve_tp_impl
 from vit2spn_tpu_torch.utils.logging import MetricLogger
 
 # what a stream is for, ahead of (seed, fold, trial): the JAX package folds
@@ -87,13 +106,16 @@ class FineTuneState(NamedTuple):
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                           class_weights: torch.Tensor) -> torch.Tensor:
+                           class_weights: torch.Tensor, denom=None) -> torch.Tensor:
     """torch.nn.CrossEntropyLoss(weight=w) semantics, in fp32:
-    sum_i w[y_i] * nll_i / sum_i w[y_i]."""
+    sum_i w[y_i] * nll_i / sum_i w[y_i]. `denom` replaces the denominator:
+    the whole batch's sum when the ranks each hold a slice of it."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[:, None])[:, 0]
     w = class_weights[labels]
-    return torch.sum(w * nll) / torch.clamp(torch.sum(w), min=1e-12)
+    if denom is None:
+        denom = torch.clamp(torch.sum(w), min=1e-12)
+    return torch.sum(w * nll) / denom
 
 
 def _fresh(tree, device):
@@ -128,22 +150,24 @@ class FineTuneTrainer:
         eval_augment: bool = True,
         trial: int = 0,
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         """`trial` shifts only the training randomness (init, epoch order,
         augment and dropout streams): the multitrial protocol holds the data
         subsets and folds fixed and varies exactly this; trial 0 is the
-        single-trial run."""
-        if cfg.mesh.model_parallel > 1:
-            raise NotImplementedError(
-                "tensor parallelism (mesh.model_parallel > 1) is not in the port")
+        single-trial run. `mesh` (default: `make_mesh` over cfg.mesh) is
+        this rank's place among several (module docstring)."""
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
         self.cfg = cfg
         self.num_classes = num_classes
         self.device = resolve_device(device)
         self.policy = DTypePolicy.from_str(cfg.compute_dtype)
-        self.logger = logger or MetricLogger(echo=True)
-        self.attn_impl = attn_impl
+        self.mesh = mesh if mesh is not None else make_mesh(
+            cfg.mesh.model_parallel, cfg.mesh.data_axis, cfg.mesh.model_axis,
+            device=self.device)
+        self.logger = logger or MetricLogger(echo=self.mesh.rank == 0)
+        self.attn_impl = resolve_tp_impl(attn_impl, self.mesh, self.logger)
         self._trial = trial
         self._stream = (fold, trial) if trial else (fold,)
         dev = self.device
@@ -157,6 +181,10 @@ class FineTuneTrainer:
             torch.Generator().manual_seed(rng.fold(cfg.seed, *self._stream, 1)),
             cfg.vit.hidden_size, cfg.head_hidden, num_classes), dev)
         self.bn_state = init_bn_state(cfg.head_hidden, device=dev)
+        if self.mesh.model_size > 1:  # this rank's shards (parallel/tp.py)
+            whole = {"backbone": self.backbone, "head": self.head}
+            part = tp.shard_tree(whole, tp.tp_state_shardings(self.mesh, whole), self.mesh)
+            self.backbone, self.head = part["backbone"], part["head"]
 
         # torch.optim.Adam skips parameters whose .grad is None, so the
         # reference's weight decay never touches the backbone's unused leaves
@@ -170,9 +198,11 @@ class FineTuneTrainer:
         # the moments exist from the start, as optax's zeros do
         for p in self._trainable:
             self.opt.state[p] = {"step": torch.tensor(0.0),
-                                 "exp_avg": torch.zeros_like(p),
-                                 "exp_avg_sq": torch.zeros_like(p)}
+                                 "exp_avg": tp.annotate_like(torch.zeros_like(p), p),
+                                 "exp_avg_sq": tp.annotate_like(torch.zeros_like(p), p)}
         self._count_leaf = _leaves(self.head)[0]  # a leaf every step updates
+        # every data rank starts from data rank 0's weights
+        broadcast_tensors(self._trainable, self.mesh)
 
         self._norm_fold = (cfg.data.augment.normalize_mean,
                            cfg.data.augment.normalize_std)
@@ -207,6 +237,17 @@ class FineTuneTrainer:
         count = float(adam["count"])
         for p in self._trainable:
             self.opt.state[p]["step"].fill_(count)
+
+    def full_state(self) -> FineTuneState:
+        """The whole state: under tensor parallelism every rank's shards
+        gathered (a collective: every rank calls it), else `state`."""
+        st = self.state
+        return tp.gather_tree(st, self.mesh) if self.mesh.model_size > 1 else st
+
+    def set_full_state(self, full: FineTuneState) -> None:
+        """Set the state from a whole tree (each rank keeps its shards)."""
+        self.state = (tp.shard_like(full, self.state, self.mesh)
+                      if self.mesh.model_size > 1 else full)
 
     def _set_lr_scale(self, scale: float) -> None:
         for group in self.opt.param_groups:
@@ -247,27 +288,37 @@ class FineTuneTrainer:
     def _forward(self, images: torch.Tensor, generator, train: bool):
         cfg, policy = self.cfg, self.policy
         feats = vit_features(self.backbone, images, cfg.vit, policy, self.attn_impl,
-                             norm_fold=self._norm_fold)
+                             norm_fold=self._norm_fold, mesh=self.mesh)
         return classifier_head_apply(
             self.head, self.bn_state, feats.to(policy.compute_dtype),
-            dropout_rate=cfg.head_dropout, generator=generator, train=train)
+            dropout_rate=cfg.head_dropout, generator=generator, train=train,
+            mesh=self.mesh)
 
     def _train_step(self, x_u8: torch.Tensor, y: torch.Tensor, weights: torch.Tensor,
                     epoch: int, step: int) -> torch.Tensor:
-        cfg, dev = self.cfg, self.device
-        key = (_TRAIN_STREAM, *self._stream, epoch, step)
+        """One step on the whole batch (x_u8, y): this rank trains on its
+        slice, the loss divided by the whole batch's weight sum."""
+        cfg, dev, mesh = self.cfg, self.device, self.mesh
+        sl = mesh.data_slice(len(y))
+        denom = torch.clamp(torch.sum(weights[y]), min=1e-12)
+        key = fold_rank((_TRAIN_STREAM, *self._stream, epoch, step), mesh)
         images = augment_batch(
-            x_u8, cfg.data.augment, out_dtype=self.policy.compute_dtype,
+            x_u8[sl], cfg.data.augment, out_dtype=self.policy.compute_dtype,
             fold_normalize=True,
             generator=rng.generator(dev, cfg.seed, *key, rng.AUGMENT))
         self.opt.zero_grad(set_to_none=True)
         logits, new_bn = self._forward(
             images, rng.generator(dev, cfg.seed, *key, rng.DROPOUT), train=True)
-        loss = weighted_cross_entropy(logits, y, weights)
+        loss = weighted_cross_entropy(logits, y[sl], weights, denom)
         loss.backward()
+        loss = loss.detach()
+        # the gradients and the loss summed over the data ranks; the unused
+        # leaves (no gradient on any rank) stay out, so Adam skips them
+        all_reduce_grads([p.grad for p in self._trainable if p.grad is not None] + [loss],
+                         mesh)
         self.opt.step()
         self.bn_state = new_bn
-        return loss.detach()
+        return loss
 
     def train_epoch(self, ds: Dataset, idx_mat: np.ndarray, class_weights,
                     epoch: int) -> torch.Tensor:
@@ -291,27 +342,33 @@ class FineTuneTrainer:
                 "evaluate() got an empty dataset — check the CV fold / "
                 "subset sizes (k_folds vs samples per class)"
             )
-        cfg, dev = self.cfg, self.device
+        cfg, dev, mesh = self.cfg, self.device, self.mesh
         images, labels = self._device_data(ds)
         idx_mat, mask_mat = self._eval_indices(len(ds))
         idx_all = torch.as_tensor(idx_mat, device=dev)
         mask_all = torch.as_tensor(mask_mat, device=dev)
         weights = self._weights(class_weights)
-        key = (_EVAL_STREAM, seed, *((self._trial,) if self._trial else ()))
+        key = fold_rank((_EVAL_STREAM, seed, *((self._trial,) if self._trial else ())), mesh)
+        sl = mesh.data_slice(idx_mat.shape[1])
         losses, probs = [], []
         for s in range(idx_mat.shape[0]):
             idx = idx_all[s]
-            y = labels[idx]
-            imgs = augment_batch(images[idx], self._eval_aug,
+            w = weights[labels[idx]] * mask_all[s]
+            y = labels[idx[sl]]
+            imgs = augment_batch(images[idx[sl]], self._eval_aug,
                                  out_dtype=self.policy.compute_dtype, fold_normalize=True,
                                  generator=rng.generator(dev, cfg.seed, *key, s, rng.AUGMENT))
             logits, _ = self._forward(imgs, None, train=False)
             nll = -torch.log_softmax(logits, dim=-1).gather(-1, y[:, None])[:, 0]
-            w = weights[y] * mask_all[s]
-            losses.append(torch.sum(w * nll) / torch.clamp(torch.sum(w), min=1e-12))
+            # this rank's part of the batch's weighted mean
+            losses.append(torch.sum(w[sl] * nll) / torch.clamp(torch.sum(w), min=1e-12))
             probs.append(torch.softmax(logits, dim=-1))
-        probs = torch.cat(probs).cpu().numpy()[: len(ds)]
-        return float(torch.stack(losses).mean()), probs, np.asarray(ds.labels)
+        losses = torch.stack(losses)
+        all_reduce_grads([losses], mesh)
+        # (steps, B / n, C) per rank -> (steps, n, B / n, C) in batch order
+        probs = all_gather_data(torch.stack(probs), mesh).transpose(0, 1)
+        probs = probs.reshape(-1, probs.shape[-1]).cpu().numpy()[: len(ds)]
+        return float(losses.mean()), probs, np.asarray(ds.labels)
 
     def fit(
         self,

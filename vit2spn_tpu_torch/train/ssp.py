@@ -23,11 +23,29 @@ package's checkpoints give optax.adam's state over (online, heads), so
 training checkpoints move between the two packages with the moments.
 Random streams come from core/rng.py per (seed, epoch, step, microbatch,
 purpose): other bits than the JAX package's.
+
+Several ranks (parallel/, under torchrun or parallel/launch.py): `mesh`
+(default: `make_mesh` over cfg.mesh) lays the ranks out as (data, model).
+Each data rank takes its contiguous B / n slice of EVERY microbatch, as the
+JAX trainer shards axis 1 of its microbatches, computes the loss terms
+normalized by the microbatch's GLOBAL weight sum (every rank holds the whole
+weight row, so no collective is needed for it) and skips a microbatch whose
+slice is all padding; the gradients and the loss and pred_std sums are then
+added over the data ranks in one all-reduce (parallel/shard_map_dp.py,
+"psum") before Adam. Every rank stages the whole dataset and draws the same
+epoch order; random streams take the data rank as one more key. Parameters
+are broadcast from data rank 0 after init and restore. With a model axis > 1
+the parameters, targets and Adam moments hold their tensor-parallel shards
+(parallel/tp.py) and "fused" runs as "xla", the JAX dispatch; checkpoints and
+exports gather the whole tree. Only rank 0 writes files; the others wait.
+The JAX `dist_mode` names ("gspmd", "shard_map") both run this one
+formulation; "shard_map" refuses TP, as the JAX trainer does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import NamedTuple, Optional, Sequence
@@ -54,14 +72,19 @@ from vit2spn_tpu_torch.models.ssp import (
     init_dual_stream,
     num_streams,
     online_prediction,
-    weighted_ssp_loss,
+    pred_std_from_sums,
+    ssp_loss_sums,
 )
 from vit2spn_tpu_torch.models.vit import ATTN_IMPLS
 from vit2spn_tpu_torch.ops.fused_block import fast_gelu_default
+from vit2spn_tpu_torch.parallel import tp
+from vit2spn_tpu_torch.parallel.mesh import Mesh, make_mesh
+from vit2spn_tpu_torch.parallel.shard_map_dp import broadcast_tensors, shard_map_dp_step
 from vit2spn_tpu_torch.train import checkpoint as ckpt
 from vit2spn_tpu_torch.utils.logging import MetricLogger
 
 FEATURES = ("pred", "backbone")
+DIST_MODES = ("gspmd", "shard_map")
 # the extract path's augmentation stream (the JAX package folds 31337 too)
 _EXTRACT_STREAM = 31337
 
@@ -90,6 +113,21 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def resolve_tp_impl(attn_impl: str, mesh: Mesh, logger) -> str:
+    """The backbone path under the mesh: with a model axis > 1 "fused"
+    becomes "xla" (the fused kernels are data-parallel only; the JAX
+    trainers' dispatch, logged as they log it), and the other kernel paths
+    are refused."""
+    if mesh.model_size == 1 or attn_impl == "xla":
+        return attn_impl
+    if attn_impl == "fused":
+        logger.log("info", message="tensor parallel > 1: using XLA attention "
+                   "(fused block kernel is DP-only)")
+        return "xla"
+    raise ValueError(f"attn_impl {attn_impl!r} does not run under tensor parallelism "
+                     f"(model_parallel={mesh.model_size}); use 'fused' or 'xla'")
+
+
 @torch.no_grad()
 def _copy(dst, src) -> None:
     """Copy every leaf of `src` into the same leaf of `dst`, in place."""
@@ -111,18 +149,33 @@ class SSPTrainer:
         logger: Optional[MetricLogger] = None,
         attn_impl: str = "fused",
         device=None,
+        mesh: Optional[Mesh] = None,
+        dist_mode: str = "gspmd",
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = DTypePolicy.from_str(cfg.compute_dtype)
-        self.logger = logger or MetricLogger(echo=True)
         # the backbone path, under the JAX package's names (models/vit.py):
         # "fused" (its backward merged under VIT2SPN_MERGED_BWD=1),
         # "fused_layer", "xla", "pallas"; or "plain", the fused kernels'
         # plain twin under torch autograd
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
-        self.attn_impl = attn_impl
+        if dist_mode not in DIST_MODES:
+            raise ValueError(f"unknown dist_mode {dist_mode!r}; one of {DIST_MODES}")
+        tp_size = mesh.model_size if mesh is not None else cfg.mesh.model_parallel
+        if tp_size > 1 and dist_mode == "shard_map":
+            # the JAX trainer's permanent asymmetry (PARITY.md deviation 11)
+            raise ValueError(
+                "shard_map dist_mode is DP-only (permanent — PARITY.md "
+                "deviation 11); use dist_mode='gspmd' for model_parallel>1"
+            )
+        self.dist_mode = dist_mode
+        self.mesh = mesh if mesh is not None else make_mesh(
+            cfg.mesh.model_parallel, cfg.mesh.data_axis, cfg.mesh.model_axis,
+            device=self.device)
+        self.logger = logger or MetricLogger(echo=self.mesh.rank == 0)
+        self.attn_impl = resolve_tp_impl(attn_impl, self.mesh, self.logger)
         gen = torch.Generator().manual_seed(cfg.seed)
         # init_provenance records what the backbone init ACTUALLY was, as
         # the JAX trainer does: _try_pretrained_backbone falls back to
@@ -142,6 +195,9 @@ class SSPTrainer:
         self.fit_resume_epoch = 0
         self.fit_resume_loss: Optional[float] = None
         self.params = init_dual_stream(gen, cfg, backbone_params, device=self.device)
+        if self.mesh.model_size > 1:  # this rank's shards (parallel/tp.py)
+            self.params = tp.shard_tree(
+                self.params, tp.tp_state_shardings(self.mesh, self.params), self.mesh)
         # Adam over the trainable params only (the targets are frozen,
         # ssp_vit2spn_tiny.py:173)
         self._trainable = _leaves(self.params.online) + _leaves(self.params.heads)
@@ -152,9 +208,10 @@ class SSPTrainer:
         # the moments exist from the start, as optax.adam's zeros do
         for p in self._trainable:
             self.opt.state[p] = {"step": torch.tensor(0.0),
-                                 "exp_avg": torch.zeros_like(p),
-                                 "exp_avg_sq": torch.zeros_like(p)}
+                                 "exp_avg": tp.annotate_like(torch.zeros_like(p), p),
+                                 "exp_avg_sq": tp.annotate_like(torch.zeros_like(p), p)}
         self.step = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._broadcast()
         # raw-grayscale views, normalize folded into the patch embed
         # (models/vit.py::fold_patch_embed_gray)
         self._norm_fold = (cfg.data.augment.normalize_mean,
@@ -210,18 +267,38 @@ class SSPTrainer:
             self.opt.state[p]["step"].fill_(count)
         _copy(self.step, new.step)
 
+    def _broadcast(self) -> None:
+        """Every data rank takes data rank 0's parameters and Adam state."""
+        adam = self.state.opt_state[0]
+        moments = [t for m in ("mu", "nu") for tree in adam[m] for t in _leaves(tree)]
+        broadcast_tensors(_leaves(self.params.online) + _leaves(self.params.heads)
+                          + _leaves(self.params.target) + moments, self.mesh)
+
+    def full_state(self) -> SSPTrainState:
+        """The whole state: under tensor parallelism every rank's shards
+        gathered (a collective: every rank calls it), else `state`."""
+        st = self.state
+        return tp.gather_tree(st, self.mesh) if self.mesh.model_size > 1 else st
+
+    def set_full_state(self, full: SSPTrainState) -> None:
+        """Set the state from a whole tree (each rank keeps its shards)."""
+        self.state = (tp.shard_like(full, self.state, self.mesh)
+                      if self.mesh.model_size > 1 else full)
+
     def restore(self, path: str) -> None:
         """Load a training checkpoint (the JAX package's or the port's),
         strictly: params, Adam state and step."""
-        self.state = ckpt.restore(path, self.state)
+        self.set_full_state(ckpt.restore(path, self.full_state()))
+        self._broadcast()
 
     def restore_params(self, path: str) -> None:
         """Load params and step only, from a training checkpoint or a
         params-only file (serving needs no optimizer state)."""
-        got = ckpt.restore(path, _ParamsState(self.params, self.step),
+        full = self.full_state()
+        got = ckpt.restore(path, _ParamsState(full.params, full.step),
                            ignore=("opt_state/",))
-        _copy(self.params, got.params)
-        _copy(self.step, got.step)
+        self.set_full_state(full._replace(params=got.params, step=got.step))
+        self._broadcast()
 
     # ------------------------------------------------------------------
     def attach_dataset(self, images: np.ndarray, max_bytes: int = 4 << 30) -> bool:
@@ -237,23 +314,23 @@ class SSPTrainer:
         self._staged_src = images
         return True
 
-    def _step(self, batch: torch.Tensor, key: Sequence[int], w) -> dict:
-        """One optimizer step over a device uint8 batch (accum * B, H, W, C);
-        `w` (host, (accum * B,) 0/1 or None) weighs each sample. Returns
-        device-tensor metrics {"loss", "pred_std"}."""
+    def _local_grads(self, _state, micro: torch.Tensor, key: Sequence[int],
+                     w_host: np.ndarray, den: np.ndarray):
+        """This rank's part of a step (the local step of shard_map_dp_step):
+        micro (accum, B / n, ...) its slice of every microbatch, w_host the
+        slice's weights, den each microbatch's global weight sum. Returns the
+        trainable leaves' gradient sums and the loss / pred_std sums."""
         cfg, policy, dev = self.cfg, self.policy, self.device
         a = cfg.accumulation_steps
-        micro = batch.reshape((a, -1) + tuple(batch.shape[1:]))
-        w_host = (np.ones(len(batch), np.float32) if w is None
-                  else np.asarray(w, np.float32)).reshape(a, -1)
-        wm = torch.from_numpy(w_host).to(dev)
+        wm = torch.from_numpy(np.ascontiguousarray(w_host)).to(dev)
         fast_gelu = fast_gelu_default()
         self.opt.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=dev)
-        std_sum = torch.zeros((), device=dev)
+        s1 = torch.zeros((a, cfg.proj_dim), device=dev)
+        s2 = torch.zeros((a, cfg.proj_dim), device=dev)
         for i in range(a):
             if not w_host[i].any():
-                continue  # a microbatch of pad samples adds exactly zero
+                continue  # a slice of pad samples adds exactly zero
             v1, v2 = dual_view_batch(
                 micro[i], cfg.data.augment, out_dtype=policy.compute_dtype,
                 fold_normalize=True,
@@ -263,22 +340,39 @@ class SSPTrainer:
                 self.params, v1, v2, cfg, policy,
                 generator=rng.generator(dev, cfg.seed, *key, i, rng.DROPOUT),
                 train=True, attn_impl=self.attn_impl, norm_fold=self._norm_fold,
-                fast_gelu=fast_gelu,
+                fast_gelu=fast_gelu, mesh=self.mesh,
             )
-            loss, pred_std = weighted_ssp_loss(pred, tgt, wm[i])
+            loss, s1[i], s2[i] = ssp_loss_sums(pred, tgt, wm[i], float(den[i]))
             loss.backward()
             loss_sum += loss.detach()
-            std_sum += pred_std
-        # the mean over microbatches of their gradients; leaves that got none
-        # (the inert pooler) take zeros, as jax.grad gives them
+        # leaves that got no gradient (the inert pooler, or a rank whose
+        # slices were all padding) take zeros, as jax.grad gives them
         for p in self._trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        torch._foreach_div_([p.grad for p in self._trainable], float(a))
+        return [p.grad for p in self._trainable], {"loss": loss_sum, "s1": s1, "s2": s2}
+
+    def _step(self, batch: torch.Tensor, key: Sequence[int], w) -> dict:
+        """One optimizer step over a device uint8 batch (accum * B, H, W, C);
+        `w` (host, (accum * B,) 0/1 or None) weighs each sample. Returns
+        device-tensor metrics {"loss", "pred_std"}."""
+        cfg = self.cfg
+        a = cfg.accumulation_steps
+        micro = batch.reshape((a, -1) + tuple(batch.shape[1:]))
+        w_host = (np.ones(len(batch), np.float32) if w is None
+                  else np.asarray(w, np.float32)).reshape(a, -1)
+        den = np.maximum(w_host.sum(axis=1), 1.0)  # per microbatch, over all ranks
+        step = shard_map_dp_step(functools.partial(self._local_grads, den=den), self.mesh,
+                                 self.mesh.data_axis, grad_reduce="psum", batch_dim=1)
+        grads, sums = step(None, micro, key, w_host)
+        # the mean over microbatches of their gradients
+        torch._foreach_div_(grads, float(a))
         self.opt.step()
         ema_update(self.params.target, self.params.online, cfg.ema_momentum)
         self.step += 1
-        return {"loss": loss_sum / a, "pred_std": std_sum / a}
+        std_sum = sum(pred_std_from_sums(sums["s1"][i], sums["s2"][i], float(den[i]))
+                      for i in range(a))
+        return {"loss": sums["loss"] / a, "pred_std": std_sum / a}
 
     def train_step(self, batch_u8: np.ndarray, key: Sequence[int], w=None) -> dict:
         """One optimizer step over a host batch (accum * B, H, W, C) uint8.
@@ -379,14 +473,17 @@ class SSPTrainer:
             self.logger.log("ssp_epoch", epoch=epoch + 1, loss=avg, pred_std=pred_std,
                             images_per_sec=n_trained / dt, seconds=dt)
             if checkpoint_path and (epoch + 1) % cfg.checkpoint_every_epochs == 0:
-                ckpt.save(
-                    checkpoint_path, self.state,
-                    # the checkpoint's lineage: init, data, synthetic or not
-                    {"epoch": epoch + 1, "loss": avg,
-                     "init_provenance": self.init_provenance,
-                     "dataset_name": getattr(dataset, "name", None),
-                     "dataset_synthetic": bool(getattr(dataset, "synthetic", False))},
-                )
+                full = self.full_state()
+                if self.mesh.rank == 0:
+                    ckpt.save(
+                        checkpoint_path, full,
+                        # the checkpoint's lineage: init, data, synthetic or not
+                        {"epoch": epoch + 1, "loss": avg,
+                         "init_provenance": self.init_provenance,
+                         "dataset_name": getattr(dataset, "name", None),
+                         "dataset_synthetic": bool(getattr(dataset, "synthetic", False))},
+                    )
+                self.mesh.barrier()
                 self.logger.log("checkpoint", epoch=epoch + 1, path=checkpoint_path)
         return history
 
@@ -438,11 +535,12 @@ class SSPTrainer:
                 views = [self._view(chunk, aug_cfg)] * n_nets
             if features == "pred":
                 out = online_prediction(self.params, views, cfg, policy,
-                                        attn_impl=self.attn_impl, fast_gelu=fast_gelu)
+                                        attn_impl=self.attn_impl, fast_gelu=fast_gelu,
+                                        mesh=self.mesh)
             else:
                 out = _fuse_streams(_batched_features(
                     self.params.online, views, cfg, policy, self.attn_impl,
-                    fast_gelu=fast_gelu))
+                    fast_gelu=fast_gelu, mesh=self.mesh))
             feats.append(out[: batch_size - pad].cpu().numpy())
         return np.concatenate(feats)[:n], np.asarray(dataset.labels)
 
@@ -452,7 +550,10 @@ class SSPTrainer:
         fine-tune consumes."""
         cfg = self.cfg
         path = path or os.path.join(cfg.checkpoint_dir, cfg.export_name + ".npz")
-        backbone = backbone_slice(self.params.online, 0)
-        ckpt.save(path, backbone, {"format": "vit_backbone", "source": cfg.export_name})
+        online = self.full_state().params.online
+        if self.mesh.rank == 0:
+            ckpt.save(path, backbone_slice(online, 0),
+                      {"format": "vit_backbone", "source": cfg.export_name})
+        self.mesh.barrier()
         self.logger.log("export", path=path)
         return path
