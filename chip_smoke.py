@@ -139,7 +139,10 @@ script exits non-zero without printing a result:
      against float64) and the least time the card could take for the same
      work, for the bf16 kernels and the fp32 routes; the backbone forward's
      device time by CUDA kernel (stage) beside the library yardstick's, at
-     B=256; the backward kernels' by stage at B=128 (the bf16 halves and
+     B=256; the attention stage's device time (the forward's
+     attention_kernel) per B=256 backbone forward and per B=128 launch,
+     beside SDPA's device time on the same attentions and the stage's bytes
+     bound; the backward kernels' by stage at B=128 (the bf16 halves and
      merged, the fp32 halves); the fp32 GEMM of every fp32 route alone
      against torch.matmul in fp32 at the backward's shapes, in ms and
      TFLOP/s; extract images/s;
@@ -152,7 +155,9 @@ The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
 the `run ft-octmnist` of phase 10b, `parallel_launches` on rank 0 of phase
 13's (b), `folder_launches` in phase 12's (c) and
-(d)); the last line is {"ok": true, "device": {...}}. The
+(d); the bf16 backbone_fwd and layer_fwd entries also carry
+`attention_stage_ms`, `attention_stage_bound_ms` and `attention_library_ms`
+from phase 11); the last line is {"ok": true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
 
@@ -401,6 +406,43 @@ def backbone_bound_ms(b, s, d, heads, mlp, layers, wt, acts=2) -> tuple:
     nbytes = acts * b * s * d * width + sum(t.numel() * t.element_size() for t in wt)
     t_ops, t_bytes = flops / peak_flops(wt[2].dtype), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def attention_stage_bound_ms(b, s, d, layers) -> tuple:
+    """Least time of the forward's attention stage (csrc/layer_fwd.cuh's
+    attention_kernel) over `layers` layers: each layer reads qkv once (B S
+    3D bf16) and writes att once (B S D); its 4 B S^2 D FLOPs (Q K^T and P V
+    over all heads) over the bf16 peak take less. Returns (ms, bound by)."""
+    t_bytes = layers * b * s * 4 * d * 2 / PEAK_BYTES
+    t_ops = layers * 4 * b * s * s * d / PEAK_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def attention_stage_ms(totals: dict) -> tuple:
+    """(device ms, launches) of the forward attention kernel in a
+    stage_breakdown's `totals`."""
+    rows = [v for k, v in totals.get("kernels", {}).items() if "attention_kernel" in k]
+    return sum(ms for ms, _ in rows), sum(n for _, n in rows)
+
+
+def sdpa_call_ms(b, s, d, heads, dev) -> tuple:
+    """(device ms per call, calls recorded) of SDPA on q, k, v laid out as
+    library_backbone gives them (views of one (B, S, 3D) bf16 qkv): the
+    library's time for one layer of the forward's attention stage
+    (yardstick only). Over STAGE_CALLS calls, since the trace may drop a
+    run's first launches: the trace's device time over the launches of its
+    largest kernel."""
+    gen = torch.Generator().manual_seed(SEED)
+    qkv = torch.randn(b, s, 3 * d, generator=gen).to(torch.bfloat16).to(dev)
+    q, k, v = qkv.view(b, s, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    totals = {}
+    with torch.no_grad():
+        stage_breakdown(lambda: [F.scaled_dot_product_attention(q, k, v)
+                                 for _ in range(STAGE_CALLS)], totals=totals)
+    if not totals.get("kernels"):
+        return float("nan"), 0
+    n = max(totals["kernels"].values())[1]
+    return totals["device"] / n, n
 
 
 def stage_breakdown(fn, what: str = "one backbone forward", top: int = 14,
@@ -2571,6 +2613,31 @@ def main() -> int:
         for line in stage_breakdown(lambda: library_backbone(x, wt, heads, eps),
                                     "library yardstick: one backbone forward"):
             log(line)
+    # the attention stage: its device time per launch (STAGE_CALLS calls
+    # traced: the trace may drop a run's first launches) times the launches
+    # of one call (the forward's layers, or one layer), beside SDPA's on the
+    # same B x heads attentions and the stage's bound
+    att = {}
+    for tag, b_, calls, fn in (
+            ("backbone_fwd", BATCH, layers, lambda: fused_backbone(x, wt, heads, eps, fast)),
+            ("layer_fwd", TRAIN_BATCH, 1,
+             lambda: fb.layer_fwd(xb, tuple(t[0] for t in wt), heads, eps, fast))):
+        totals = {}
+        stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)], totals=totals)
+        a_ms, a_n = attention_stage_ms(totals)
+        if not a_n:
+            raise AssertionError(f"no attention_kernel launch in the {tag} trace")
+        a_ms = calls * a_ms / a_n
+        sd_ms, sd_n = sdpa_call_ms(b_, s, d, heads, dev)
+        sd_ms *= calls
+        bnd_ms, bnd_by = attention_stage_bound_ms(b_, s, d, calls)
+        att[tag] = {"attention_stage_ms": a_ms, "attention_stage_bound_ms": bnd_ms,
+                    "attention_library_ms": sd_ms}
+        log(f"[time] attention stage of {tag} B={b_} ({calls} launch{'es' * (calls > 1)}): "
+            f"kernel {a_ms:.4f} ms device (mean of {a_n} launches traced), SDPA {sd_ms:.4f} "
+            f"ms device ({calls} call{'s' * (calls > 1)}; mean of {sd_n} traced), bound "
+            f"{bnd_ms:.4f} ms ({bnd_by}); kernel at {100 * bnd_ms / a_ms:.1f}% of the bound, "
+            f"SDPA at {100 * bnd_ms / sd_ms:.1f}%; {card}")
     entries = [{
         "name": KERNEL_NAME, "route": "cuda",
         "source": "vit2spn_tpu_torch/csrc/backbone_fwd.cu",
@@ -2580,7 +2647,7 @@ def main() -> int:
         "folder_launches": folder_launches.get(KERNEL_NAME, 0), "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms, "library_same_fn_ms": None,
-        "dtype": "bfloat16",
+        "dtype": "bfloat16", **att["backbone_fwd"],
     }]
     # the new kernels at their paths' shapes: B=128, bf16
     q, k, v, do = flash_operands(gen, TRAIN_BATCH, s, heads, torch.bfloat16, dev)
@@ -2691,6 +2758,7 @@ def main() -> int:
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms, "library_same_fn_ms": s_ms,
             "dtype": "float32" if name.endswith("(fp32)") else "bfloat16",
+            **att.get(name, {}),
         })
     # the backward kernels by stage (CUDA kernel), B=128, bf16 and fp32,
     # over STAGE_CALLS calls (the trace drops a call's first few launches)

@@ -143,7 +143,14 @@ def test_run_ssp_profile_tb_and_model_info(tmp_path, monkeypatch):
     rows = by["profile_op"]
     assert 1 <= len(rows) <= 15 and all(r["total_us"] > 0 and r["count"] > 0 for r in rows)
     assert [r["total_us"] for r in rows] == sorted((r["total_us"] for r in rows), reverse=True)
-    assert any(r["source"] in ("aten::mm", "aten::addmm", "aten::bmm") for r in rows)
+    # the logged rows are the first 15 of the trace's whole breakdown, and
+    # the step's matrix products are in that breakdown, wherever host-op
+    # timing (which moves with the host's load) ranks them
+    full = profiling.op_breakdown(str(out / "trace"), top=10**6)
+    assert [(r["source"], r["total_us"], r["count"]) for r in rows] == [
+        (name[-80:], us, n) for name, us, n in full[:15]]
+    assert any(name in ("aten::mm", "aten::addmm", "aten::bmm") and us > 0 and n > 0
+               for name, us, n in full)
     info = {k: v for k, v in by["model_info"][0].items() if k not in ("event", "time")}
     cfg = cli._apply_overrides(get_preset("ssp-scratch"), overrides)
     assert info == flops.dual_stream_report(

@@ -5,17 +5,23 @@ layer_fwd.cu) at other block geometries, on one CUDA card:
 
     python tools/fwd_tile_sweep.py [--seq 197] [--layers 12]
 
-For each (ATT_WARPS, QKV_WG, GEMM_RING) triple below both sources are
-compiled with those macros (query warps per attention block, 64-row
-warpgroups per LN1 + QKV block, weight stages in flight in the row-block
-GEMM) into build/fwd_sweep/, all builds started together; the wrappers then
+For each (ATT_WG, ATT_STAGES, ATT_PERSIST, ATT_DIV, QKV_WG, GEMM_RING)
+geometry below both sources are compiled with those macros (the attention
+kernel's 64-query warpgroups per block, its stages of {Q, K, V} per block,
+persistent blocks walking (image, head) items or one block per item, and
+its quotient p / sum: 2 the division's fast path where it is exact, 0 the
+IEEE division throughout; 64-row warpgroups per LN1 + QKV block; weight
+stages in flight in the row-block GEMM) into build/fwd_sweep/, all builds
+started together; the wrappers then
 run each geometry's libraries on the same ViT-Tiny weights and inputs:
 `fused_backbone` at B=256 and `layer_fwd` at B=128, timed with CUDA events
 after a warm-up, and torch.profiler's device time per kernel of the
-backbone. Every geometry does the same arithmetic per row and per query, so
-its outputs must equal the first geometry's bit for bit. Prints the card,
+backbone. Every geometry does the same arithmetic per row and per query
+(both quotients round as the IEEE division), so its outputs must equal the
+first geometry's bit for bit. Prints the card,
 and per geometry the compiler's registers and spills of the forward's
-kernels, both times and the per-kernel breakdown.
+kernels, both times, the attention kernel's device time per backbone
+forward and the per-kernel breakdown.
 """
 
 from __future__ import annotations
@@ -30,12 +36,22 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import card_line, ptxas_report, random_backbone, stage_breakdown, time_ms  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    attention_stage_ms,
+    card_line,
+    ptxas_report,
+    random_backbone,
+    stage_breakdown,
+    time_ms,
+)
 from vit2spn_tpu_torch.ops import cuda_build  # noqa: E402
 from vit2spn_tpu_torch.ops import fused_block as fb  # noqa: E402
 
-# (ATT_WARPS, QKV_WG, GEMM_RING); the first is the kept geometry
-GEOMETRIES = ((16, 2, 4), (8, 2, 4), (4, 2, 4), (16, 1, 4), (16, 2, 2))
+# (ATT_WG, ATT_STAGES, ATT_PERSIST, ATT_DIV, QKV_WG, GEMM_RING); the first
+# is the kept geometry
+GEOMETRIES = ((2, 2, 1, 2, 2, 4), (2, 2, 1, 0, 2, 4), (1, 1, 1, 2, 2, 4), (1, 2, 1, 2, 2, 4),
+              (2, 1, 0, 2, 2, 4))
+KNOBS = ("ATT_WG", "ATT_STAGES", "ATT_PERSIST", "ATT_DIV", "QKV_WG", "GEMM_RING")
 OUT = cuda_build.BUILD_DIR.parent / "fwd_sweep"
 SOURCES = ("backbone_fwd", "layer_fwd")
 
@@ -44,9 +60,9 @@ def build(geoms):
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for g in geoms:
-        flags = [f"-DATT_WARPS={g[0]}", f"-DQKV_WG={g[1]}", f"-DGEMM_RING={g[2]}"]
+        flags = [f"-D{k}={v}" for k, v in zip(KNOBS, g)]
         for src in SOURCES:
-            so = OUT / f"{src}_a{g[0]}_w{g[1]}_r{g[2]}.so"
+            so = OUT / f"{src}_{'_'.join(map(str, g))}.so"
             cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o", str(so),
                    str(cuda_build.CSRC / f"{src}.cu")]
             procs[(g, src)] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -93,10 +109,15 @@ def main() -> int:
         ly_ms = time_ms(lambda: fb.layer_fwd(xl, w0, heads, eps, fast, emit_x2=False), iters=50)
         regs = [r for r in ptxas_report(by_src["backbone_fwd"][1], nt)
                 if r.startswith(("attention", "rowblock_gemm_kernel<2,192", "mlp_block_kernel<192"))]
-        print(f"[sweep] ATT_WARPS {g[0]} QKV_WG {g[1]} GEMM_RING {g[2]}: backbone_fwd B=256 "
-              f"{bb_ms:.4f} ms, layer_fwd B=128 {ly_ms:.4f} ms; bits equal to the first "
-              f"geometry: {same}; {'; '.join(regs)}")
-        for line in stage_breakdown(lambda: fb.fused_backbone(x, wt, heads, eps, fast), top=4):
+        totals = {}
+        lines = stage_breakdown(lambda: fb.fused_backbone(x, wt, heads, eps, fast), top=4,
+                                totals=totals)
+        att_ms, att_n = attention_stage_ms(totals)
+        print(f"[sweep] {' '.join(f'{k} {v}' for k, v in zip(KNOBS, g))}: backbone_fwd B=256 "
+              f"{bb_ms:.4f} ms (attention stage {att_ms:.4f} ms device, {att_n} launches), "
+              f"layer_fwd B=128 {ly_ms:.4f} ms; bits equal to the first geometry: {same}; "
+              f"{'; '.join(regs)}")
+        for line in lines:
             print(f"[sweep]   {line}")
         if not same:
             return 1

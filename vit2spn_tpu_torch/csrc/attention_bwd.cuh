@@ -52,7 +52,9 @@ static size_t attention_bwd_smem(int S) {
 
 // NT = SP / 8 key tiles: the kernel is instantiated per tile count so that a
 // warp's 16 x SP scores, then probabilities, stay in registers through phase
-// 1 (4 NT per lane), as the forward's attention_kernel keeps them.
+// 1 (4 NT per lane) in the m16n8 fragment layout, the layout the forward's
+// attention_kernel (csrc/layer_fwd.cuh) reads from its wgmma accumulator,
+// each warp holding 16 of a warpgroup's 64 rows.
 template <int NT>
 __global__ void __launch_bounds__(AB_WARPS * 32)
 attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,

@@ -31,8 +31,7 @@
 // Host entry: the layer loop on the caller's stream
 // ---------------------------------------------------------------------------
 
-// qkv_buf holds (B * S + QKV_PAD_ROWS) rows of 3 * D; the pad rows are
-// zeroed here on every call. att_buf holds B * S rows of D; x2_buf (fp32) and
+// qkv_buf holds B * S rows of 3 * D, att_buf B * S rows of D; x2_buf (fp32) and
 // g_buf (B * S rows of MLP) are read only above FUSED_MLP_MAX_D and may be
 // null below it.
 extern "C" int vit2spn_backbone_fwd(
@@ -53,20 +52,17 @@ extern "C" int vit2spn_backbone_fwd(
   bf16* att = static_cast<bf16*>(att_buf);
   bf16* g = static_cast<bf16*>(g_buf);
   LayerMaps maps;
-  LAUNCH(layer_maps(&maps, w, L, D, MLP, (int)M, static_cast<const bf16*>(x), o, qkv, att, g));
-  LAUNCH(zero_qkv_pad(qkv, (int)M, D, st));
+  LAUNCH(layer_maps(&maps, w, L, D, MLP, B, S, static_cast<const bf16*>(x), o, qkv, att, g));
   for (int l = 0; l < L; ++l) {
     // layer 0 reads the caller's input; later layers update `out` in place
     const bf16* cur = (l == 0) ? static_cast<const bf16*>(x) : o;
     LAUNCH(launch_layer(cur, o, xs ? static_cast<bf16*>(xs) + l * M * D : nullptr,
                         x2s ? static_cast<bf16*>(x2s) + l * M * D : nullptr,
-                        layer_weights(w, l, D, MLP), maps, l, qkv, att,
+                        layer_weights(w, l, D, MLP), maps, l, qkv,
                         static_cast<float*>(x2_buf), g, B, S, D, H, MLP, eps, fast_gelu, st));
   }
   return (int)cudaSuccess;
 }
-
-extern "C" int vit2spn_backbone_fwd_qkv_pad_rows() { return QKV_PAD_ROWS; }
 
 extern "C" int vit2spn_backbone_fwd_launches_per_layer(int D, int fp32) {
   return fp32 ? LAYER_F32_LAUNCHES : launches_per_layer(D);

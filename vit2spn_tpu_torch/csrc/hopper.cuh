@@ -210,6 +210,52 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // box of a wider fragment is 32 registers at OFF = 32 x (its first column /
 // 64).
 template <int N> struct Wgmma;
+template <> struct Wgmma<16> {
+  template <int OFF = 0, int TA = 0, int TB = 1, int R>
+  __device__ __forceinline__ static void mma(float (&d)[R], uint64_t da, uint64_t db, int acc) {
+    static_assert(OFF + 8 <= R, "the product's registers lie outside d");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+          "+f"(d[OFF + 6]), "+f"(d[OFF + 7])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+template <> struct Wgmma<32> {
+  template <int OFF = 0, int TA = 0, int TB = 1, int R>
+  __device__ __forceinline__ static void mma(float (&d)[R], uint64_t da, uint64_t db, int acc) {
+    static_assert(OFF + 16 <= R, "the product's registers lie outside d");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+          "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+          "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+template <> struct Wgmma<48> {
+  template <int OFF = 0, int TA = 0, int TB = 1, int R>
+  __device__ __forceinline__ static void mma(float (&d)[R], uint64_t da, uint64_t db, int acc) {
+    static_assert(OFF + 24 <= R, "the product's registers lie outside d");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+        : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+          "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+          "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+          "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
 template <> struct Wgmma<64> {
   template <int OFF = 0, int TA = 0, int TB = 1, int R>
   __device__ __forceinline__ static void mma(float (&d)[R], uint64_t da, uint64_t db, int acc) {
@@ -329,3 +375,46 @@ template <> struct Wgmma<256> {
         : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };
+
+// d[OFF ..] (64 x N fp32) = A B (+ d when acc != 0) for any N = 16 j <= 256
+// with B K-major (k_desc): one product of the widest of 64 .. 256 columns
+// and, for N % 64, one of 16, 32 or 48 columns from B's row N - N % 64
+template <int N, int OFF = 0, int R>
+__device__ __forceinline__ void wgmma_kmajor(float (&d)[R], uint64_t da, const uint8_t* b,
+                                             int acc) {
+  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "N must be a multiple of 16 up to 256");
+  constexpr int WIDE = N / 64 * 64, REST = N % 64;
+  if constexpr (WIDE > 0) Wgmma<WIDE>::template mma<OFF, 0, 0>(d, da, k_desc(b), acc);
+  if constexpr (REST > 0)
+    Wgmma<REST>::template mma<OFF + WIDE / 2, 0, 0>(d, da, k_desc(b + WIDE * 128), acc);
+}
+
+// d (64 x 64 fp32, the fragment above) = A B (+ d when acc != 0) with A from
+// registers: a[0..3] of thread t are A's bf16 pairs (row r, k 2 (t % 4)),
+// (r + 8, same k), (r, k + 8), (r + 8, k + 8) with r = 16 (t / 32) + (t % 32)
+// / 4, the m16n8k16 A fragment; B N-major (b_desc). The registers are read
+// asynchronously: keep them unchanged until the product has been waited for.
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// keep the compiler from reusing a register operand's registers before the
+// asynchronous products that read it have been waited for
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]), "+r"(a[i][3])::"memory");
+}

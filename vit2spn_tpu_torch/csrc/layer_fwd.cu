@@ -23,8 +23,8 @@
 
 // x, out: (B * S, D) bf16; x2 (optional): (B * S, D) bf16; weights as one
 // layer's slices of the stacked arrays. Scratch as launch_layer's: qkv_buf
-// (B * S + QKV_PAD_ROWS rows of 3 D, the pad rows zeroed here), att_buf, and
-// above FUSED_MLP_MAX_D x2_buf (fp32) and g_buf (null below it).
+// (B * S rows of 3 D), att_buf, and above FUSED_MLP_MAX_D x2_buf (fp32) and
+// g_buf (null below it).
 extern "C" int vit2spn_layer_fwd(
     const void* x, void* out, void* x2,
     const void* ln1_scale, const void* ln1_bias, const void* wqkv, const void* bqkv,
@@ -40,15 +40,12 @@ extern "C" int vit2spn_layer_fwd(
   bf16* att = static_cast<bf16*>(att_buf);
   bf16* g = static_cast<bf16*>(g_buf);
   LayerMaps maps;
-  LAUNCH(layer_maps(&maps, w, 1, D, MLP, B * S, static_cast<const bf16*>(x),
+  LAUNCH(layer_maps(&maps, w, 1, D, MLP, B, S, static_cast<const bf16*>(x),
                     static_cast<const bf16*>(out), qkv, att, g));
-  LAUNCH(zero_qkv_pad(qkv, B * S, D, st));
   return launch_layer(static_cast<const bf16*>(x), static_cast<bf16*>(out), nullptr,
-                      static_cast<bf16*>(x2), layer_weights(w, 0, D, MLP), maps, 0, qkv, att,
+                      static_cast<bf16*>(x2), layer_weights(w, 0, D, MLP), maps, 0, qkv,
                       static_cast<float*>(x2_buf), g, B, S, D, H, MLP, eps, fast_gelu, st);
 }
-
-extern "C" int vit2spn_layer_fwd_qkv_pad_rows() { return QKV_PAD_ROWS; }
 
 extern "C" int vit2spn_layer_fwd_launches(int D, int fp32) {
   return fp32 ? LAYER_F32_LAUNCHES : launches_per_layer(D);

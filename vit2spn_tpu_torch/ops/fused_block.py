@@ -455,7 +455,6 @@ _SIGNATURES = {
         "vit2spn_backbone_fwd": ([_P] * 20 + [_I] * 6 + [_F, _I, _P], _I),
         "vit2spn_backbone_fwd_f32": ([_P] * 21 + [_I] * 6 + [_F, _I, _P], _I),
         "vit2spn_backbone_fwd_launches_per_layer": ([_I] * 2, _I),
-        "vit2spn_backbone_fwd_qkv_pad_rows": ([], _I),
     },
     "mlp_bwd": {
         "vit2spn_mlp_bwd": ([_P] * 19 + [_I] * 3 + [_F, _I, _I, _P], _I),
@@ -472,7 +471,6 @@ _SIGNATURES = {
     "layer_fwd": {
         "vit2spn_layer_fwd": ([_P] * 19 + [_I] * 5 + [_F, _I, _P], _I),
         "vit2spn_layer_fwd_f32": ([_P] * 20 + [_I] * 5 + [_F, _I, _P], _I),
-        "vit2spn_layer_fwd_qkv_pad_rows": ([], _I),
         "vit2spn_layer_fwd_launches": ([_I] * 2, _I),
         "vit2spn_layer_fwd_smem_bytes": ([_I] * 3, _I),
     },
@@ -541,12 +539,11 @@ def layer_fwd_smem_bytes(s: int, d: int, kernel: str) -> int:
     return _load("layer_fwd").vit2spn_layer_fwd_smem_bytes(s, d, which)
 
 
-def _layer_scratch(m: int, d: int, mlp: int, pad: int, dev) -> tuple:
-    """The bf16 forward layer's scratch: qkv (with `pad` rows the kernel
-    zeroes: attention reads 16-row steps), att, and above FUSED_MLP_MAX_D
+def _layer_scratch(m: int, d: int, mlp: int, dev) -> tuple:
+    """The bf16 forward layer's scratch: qkv, att, and above FUSED_MLP_MAX_D
     the fp32 x2 and g that the layer then passes through device memory
     (else None)."""
-    qkv = torch.empty((m + pad, 3 * d), dtype=torch.bfloat16, device=dev)
+    qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev)
     att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     if d <= FUSED_MLP_MAX_D:
         return qkv, att, None, None
@@ -582,7 +579,7 @@ def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
         fn, scratch = lib.vit2spn_backbone_fwd_f32, _layer_scratch_f32(m, d, mlp, dev)
     else:
         fn = lib.vit2spn_backbone_fwd
-        scratch = _layer_scratch(m, d, mlp, lib.vit2spn_backbone_fwd_qkv_pad_rows(), dev)
+        scratch = _layer_scratch(m, d, mlp, dev)
     with torch.cuda.device(dev), torch.profiler.record_function(f"vit2spn::{KERNEL_NAME}"):
         rc = fn(
             x.data_ptr(), out.data_ptr(), _ptr(xs), _ptr(x2s),
@@ -838,7 +835,7 @@ def layer_fwd(x: torch.Tensor, weights: Tuple, heads: int, eps: float, fast_gelu
         fn, scratch = lib.vit2spn_layer_fwd_f32, _layer_scratch_f32(m, d, mlp, dev)
     else:
         fn = lib.vit2spn_layer_fwd
-        scratch = _layer_scratch(m, d, mlp, lib.vit2spn_layer_fwd_qkv_pad_rows(), dev)
+        scratch = _layer_scratch(m, d, mlp, dev)
     with torch.cuda.device(dev), torch.profiler.record_function("vit2spn::layer_fwd"):
         rc = fn(
             x.data_ptr(), out.data_ptr(), _ptr(x2),
