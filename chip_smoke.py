@@ -151,13 +151,39 @@ script exits non-zero without printing a result:
      kernel wrapper (each wrapper's `vit2spn::<name>` range) and by CUDA
      kernel.
 
+ 14. the model zoo, after phase 11 and before phase 13: ViT-Small/16 (D 384, 6 heads, mlp 1536) and
+     ViT-Base/16 (D 768, 12 heads, mlp 3072), the JAX package's other
+     geometries (`-o vit=small|base`), at full width and depth: (a) the bf16
+     backward halves' wide route (mlp_bwd, attn_bwd, merged_bwd) against
+     their twins at B=128 (both gelu forms, and as close to fp32 as the
+     twins), a ragged B, S = 17 and 256; merged equal to the split pair bit
+     for bit; two runs of each giving equal bits; one call of each with its
+     counter, its CUDA launches (7, 7, 13) and no mma.sync GEMM in the
+     trace of ten calls; (b) `ssp-scratch -o vit=<name>` training (8 x 128, bf16, 224 px
+     from 28 px sources): step 1 of "fused" against "xla" from one state
+     (the moments within phase 9's tolerances; fused as close to the fp32
+     step as "xla" is), then `fit` of two "fused" steps and one merged step with the counters
+     read around each, and each step's wall, img/s, device time by wrapper
+     and card idle; (c) extract at batch 256 against the plain path, with
+     img/s and the forward's device time; (d) at ViT-Small, `run
+     ssp-scratch -o vit=small` for one epoch on a staged npz, then `run
+     ssp-ssl/ft-octmnist -o vit=small -o init=scratch` from its export, cut
+     to 2 folds and 1 epoch, each with its predicted launches; (e) the
+     times of backbone_fwd (B=256), layer_fwd, mlp_bwd, attn_bwd and
+     merged_bwd (B=128) at both widths beside their twins, library
+     yardsticks and bounds, and each backward's device time by stage.
+     `python3 chip_smoke.py --zoo-times` runs the build and (e) alone, for
+     timing another tree's kernels with the same code (the parent's
+     mma.sync sequences in PERF.md were measured so).
+
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
 the `run ft-octmnist` of phase 10b, `parallel_launches` on rank 0 of phase
 13's (b), `folder_launches` in phase 12's (c) and
 (d); the bf16 backbone_fwd and layer_fwd entries also carry
 `attention_stage_ms`, `attention_stage_bound_ms` and `attention_library_ms`
-from phase 11); the last line is {"ok": true, "device": {...}}. The
+from phase 11; phase 14 adds an entry per kernel and width, named
+"<kernel> (D=384)" and "(D=768)", its `launches` from (b)); the last line is {"ok": true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
 
@@ -905,7 +931,7 @@ def rel_l2(a: dict, b: dict, keys) -> float:
 
 
 def compare_steps(tag, names, runs, eps_lr, params, stats=(), skip=(),
-                  mu_max_tol=STEP_MU_MAX_REL_TOL) -> None:
+                  mu_max_tol=STEP_MU_MAX_REL_TOL, loss=True) -> None:
     """Step 1 of two paths from one state. `runs` holds (loss, flat state
     before, flat state after) per path, path first; `params` the prefixes of
     the trainable leaves, `stats` those of running statistics. The loss
@@ -916,10 +942,11 @@ def compare_steps(tag, names, runs, eps_lr, params, stats=(), skip=(),
     Moments of the leaves in `skip` (whose true gradient is 0, so both
     paths hold rounding noise there) are not compared. `mu_max_tol=None`
     holds the moments in relative L2 only (a bf16 fine-tune step, whose BN
-    head makes some leaves' gradients sums that cancel)."""
+    head makes some leaves' gradients sums that cancel). `loss=False` leaves
+    the loss to the caller (two paths that round at other points)."""
     (lf, before, af), (lp, before_p, ap) = runs
     assert all(np.array_equal(before[k], before_p[k]) for k in before)
-    if not (np.isfinite(lf) and abs(lf - lp) <= STEP_LOSS_REL_TOL * abs(lp)):
+    if loss and not (np.isfinite(lf) and abs(lf - lp) <= STEP_LOSS_REL_TOL * abs(lp)):
         raise AssertionError(f"step 1 loss: {names[0]} {lf} vs {names[1]} {lp}")
 
     def moved(keys, delta):
@@ -2140,6 +2167,419 @@ def check_same_fn_yardstick(q, k, v, do):
     return (lambda: F.scaled_dot_product_attention(*copies)), bwd
 
 
+# Phase 14: the model zoo. The JAX package's other backbone geometries
+# (vit2spn_tpu/core/config.py ViTConfig.small / base), selected by
+# `-o vit=small|base`, at full width: (name, preset value, D, heads, mlp).
+ZOO = (("ViT-Small", "small", 384, 6, 1536), ("ViT-Base", "base", 768, 12, 3072))
+
+
+# (a)'s shapes at each width: (B, S, fast gelu); the fp32 reference at B=128,
+# the determinism and launch checks at the last
+ZOO_SHAPES = ((7, 197, False), (3, 17, True), (2, 256, False), (128, 197, False),
+              (128, 197, True))
+# CUDA launches of one call on the wide route (csrc/*_bwd.cu): the split
+# halves 7 each, merged one reduction fewer, none of common.cuh's mma.sync GEMM
+ZOO_CUDA_LAUNCHES = {"mlp_bwd": 7, "attn_bwd": 7, "merged_bwd": 13}
+ZOO_TRAIN_IMAGES = 2048  # (b): two optimizer steps of 8 x 128 per width
+ZOO_EXTRACT_IMAGES = 1024  # (c): four batches of 256
+ZOO_CLI_SPLITS = {"train": 3072, "val": 256, "test": 512}  # (d): three SSP steps
+ZOO_FT_FOLDS = 2
+# (b)'s loss: both bf16 paths land ~1.5% from the fp32 step's loss at
+# ViT-Small on the H100 (5e-4 of -0.036), in the same direction, and 5e-5
+# apart. One scalar is one sample of that rounding, so it is not held to
+# the 5% ratio of the moments' relative L2 (millions of elements): the fused
+# loss may sit at most twice as far from the fp32 step's as the "xla" loss,
+# far inside the error of a forward that computed another function.
+ZOO_LOSS_VS_FP32 = 2.0
+
+
+def zoo_kernels(fb, dev) -> dict:
+    """Phase 14 (a): at each ZOO width and ZOO_SHAPES, mlp_bwd and attn_bwd
+    against their twins (and as close to fp32 as the twins at B=128), merged
+    against the split pair bit for bit and its twin; two runs of each giving
+    equal bits; one call of each with its counter, its CUDA launches
+    (ZOO_CUDA_LAUNCHES) and no `gemm_kernel` (common.cuh's mma.sync GEMM) in
+    its trace. Returns {D: {kernel: largest absolute difference from the
+    twin}}."""
+    eps, errs = 1e-12, {}
+    for label, _, d, heads, mlp in ZOO:
+        gen = torch.Generator().manual_seed(SEED + 14 + d)
+        w = layer_weights(fb.WEIGHT_NAMES, random_backbone(gen, 1, d, mlp, dev))
+        worst = {"mlp_bwd": 0.0, "attn_bwd": 0.0, "merged_bwd": 0.0}
+        for b, s, fast in ZOO_SHAPES:
+            x, x2, g = (torch.randn(b, s, d, generator=gen) for _ in range(3))
+            x, x2, g = (t.to(torch.bfloat16).to(dev) for t in (x, x2, 0.1 * g))
+            tag = f"{label} B={b} S={s} D={d} heads={heads} mlp={mlp} fast_gelu={fast}"
+            for k, v in check_layer_bwd(tag, fb, x, g, w, heads, eps, fast,
+                                        against_fp32=b == TRAIN_BATCH).items():
+                worst[k] = max(worst[k], v)
+            worst["merged_bwd"] = max(worst["merged_bwd"], check_merged_bwd(
+                tag, fb, x, x2, g, w, heads, eps, fast, True))
+        calls = {"mlp_bwd": lambda: fb.mlp_bwd(x2, g, w, eps, True),
+                 "attn_bwd": lambda: fb.attn_bwd(x, g, w, heads, eps),
+                 "merged_bwd": lambda: fb.merged_bwd(x, x2, g, w, heads, eps, True)}
+        for name, fn in calls.items():
+            runs = [fn() for _ in range(2)]
+            torch.cuda.synchronize()
+            same = torch.equal(runs[0][0], runs[1][0]) and all(
+                torch.equal(runs[0][1][n], runs[1][1][n]) for n in runs[0][1])
+            reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            counts = read_launches()
+            n_cuda = fb.cuda_launches(name, None, d, 0)
+            totals = {}  # STAGE_CALLS calls: the trace may drop a run's first launches
+            stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)], totals=totals)
+            mma_sync = [k for k in totals.get("kernels", {}) if k.startswith("void gemm_kernel<")]
+            log(f"[zoo] {label} {name} B={b} S={s}: two runs bitwise equal {same}; one call: "
+                f"counter {counts[name]}, {n_cuda} CUDA launches (want "
+                f"{ZOO_CUDA_LAUNCHES[name]}); kernels traced over {STAGE_CALLS} calls "
+                f"{sorted(k.split('(')[0] for k in totals.get('kernels', {}))}")
+            if not same:
+                raise AssertionError(f"{name} at D={d} is not deterministic")
+            if counts[name] != 1 or any(n for k, n in counts.items() if k != name):
+                raise AssertionError(f"one {name} call at D={d} launched {counts}")
+            if n_cuda != ZOO_CUDA_LAUNCHES[name] or mma_sync or "kernels" not in totals:
+                raise AssertionError(f"{name} at D={d}: {n_cuda} CUDA launches, mma.sync GEMMs "
+                                     f"{mma_sync}, traced {totals.get('kernels')}")
+        errs[d] = worst
+        del w, x, x2, g, runs
+        torch.cuda.empty_cache()
+    return errs
+
+
+def zoo_step_check(cfg, images, label) -> None:
+    """Phase 14 (b)'s step 1 from one state through "fused", through "xla"
+    (the per-op path: bf16 ops, rounded at other points than the fused
+    function) and through "xla" under compute_dtype=float32, exact gelu on
+    all three. "fused" against "xla": Adam's first moments and the updated
+    params under compare_steps' tolerances. Against the fp32 step: "fused"
+    at least as close as "xla", within KERNEL_VS_FP32_RATIO, in the first
+    moments' relative L2 (all trainable leaves, and the blocks the backward
+    kernels compute), and its loss within ZOO_LOSS_VS_FP32 times the "xla"
+    loss's distance from the fp32 step's. (Phase 9's fused-vs-plain loss
+    tolerance does not carry over: the two bf16 paths round at other
+    points, and the loss of random features sits near 0.)"""
+    from vit2spn_tpu_torch.train import checkpoint as ckpt
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    gelu_env = os.environ.get("VIT2SPN_FAST_GELU")
+    os.environ["VIT2SPN_FAST_GELU"] = "0"
+    out = []
+    try:
+        for rcfg, impl in ((cfg, "fused"), (cfg, "xla"),
+                           (replace_cfg(cfg, compute_dtype="float32"), "xla")):
+            tr = SSPTrainer(rcfg, logger=MetricLogger(echo=False), attn_impl=impl,
+                            device="cuda")
+            before = ckpt._flatten(tr.state)
+            loss = float(tr.train_step(images, (0, 0))["loss"])
+            out.append((loss, before, ckpt._flatten(tr.state)))
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if gelu_env is None:
+            os.environ.pop("VIT2SPN_FAST_GELU")
+        else:
+            os.environ["VIT2SPN_FAST_GELU"] = gelu_env
+    (lf, before, af), (lx, _, ax), (l32, before32, a32) = out
+    if not all(np.array_equal(before[k], before32[k]) for k in before):
+        raise AssertionError("the fp32 step did not start from the same state")
+    mu = [k for k in af if k.startswith("opt_state/") and "/mu/" in k]
+    blocks = [k for k in mu if "/blocks/" in k]
+    dist = {n: (rel_l2(st, a32, mu), rel_l2(st, a32, blocks))
+            for n, st in (("fused", af), ("xla", ax))}
+    log(f"[zoo-step1] {label}: loss fused {lf:.6f}, xla {lx:.6f}, xla fp32 {l32:.6f}; Adam "
+        f"first moments' relative L2 from the fp32 step, all leaves / the blocks: fused "
+        f"{dist['fused'][0]:.4f} / {dist['fused'][1]:.4f}, xla {dist['xla'][0]:.4f} / "
+        f"{dist['xla'][1]:.4f} (ratio tol {KERNEL_VS_FP32_RATIO}; the loss's "
+        f"{ZOO_LOSS_VS_FP32})")
+    if not (np.isfinite(lf) and abs(lf - l32) <= ZOO_LOSS_VS_FP32 * abs(lx - l32)):
+        raise AssertionError(f"{label} step 1 loss: fused {lf}, xla {lx}, fp32 {l32}")
+    if not all(dist["fused"][i] <= KERNEL_VS_FP32_RATIO * dist["xla"][i] for i in range(2)):
+        raise AssertionError(f"{label} step 1: fused is further from the fp32 step than xla "
+                             f"({dist})")
+    compare_steps("zoo-step1", ["fused", "xla"], [(lf, before, af), (lx, before, ax)],
+                  cfg.learning_rate, ("params/online/", "params/heads/"), loss=False)
+
+
+def zoo_training(card) -> dict:
+    """Phase 14 (b): SSP training at each ZOO width through the CLI's
+    overrides (`ssp-scratch`, `-o vit=<name>`: 12 layers, 224 px, 8 x 128,
+    bf16) on 28 px synthetic sources: step 1 of "fused" against "xla" and
+    the fp32 step (zoo_step_check; full remat on "xla", so its autograd fits
+    the card: the plain twin's fp32 autograd at 12 layers of B=128 would
+    not); `fit` of two steps through "fused", then one merged
+    step, each with the counters read around it; each path's step wall,
+    img/s, device time by wrapper and card idle. Returns {D: {kernel:
+    launches}}."""
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+
+    tds = synthetic_dataset(split_sizes={"train": ZOO_TRAIN_IMAGES}, image_size=28,
+                            seed=SEED + 14).split("train")
+    launches, rest = {}, "views, embed, heads, loss, Adam, EMA"
+    for label, vit, d, heads, mlp in ZOO:
+        cfg = _apply_overrides(get_preset("ssp-scratch"), [f"vit={vit}"])
+        geom = (cfg.vit.hidden_size, cfg.vit.num_heads, cfg.vit.mlp_dim, cfg.vit.num_layers,
+                cfg.vit.image_size, cfg.batch_size, cfg.compute_dtype)
+        if geom != (d, heads, mlp, 12, 224, TRAIN_BATCH, "bfloat16"):
+            raise AssertionError(f"-o vit={vit} gave {geom}")
+        eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, cfg.vit.num_layers
+        log(f"[zoo] {label} SSP training: D={d}, {heads} heads, mlp {mlp}, {layers} layers, "
+            f"{a} x {cfg.batch_size}, {cfg.compute_dtype}")
+        zoo_step_check(_apply_overrides(cfg, ["vit.remat=full"]), tds.images[:eff], label)
+        got = {}
+        for merged, images in ((False, tds), (True, tds.subset(np.arange(eff)))):
+            bwd = ({"merged_bwd": 2 * a * layers} if merged
+                   else {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers})
+            per_step = {KERNEL_NAME: 2 * 2 * a, **bwd}
+            trainer, n, _ = fit_path(cfg, images, "fused", merged, per_step)
+            got.update({k: v for k, v in n.items() if v})
+            totals = {}
+            name = f"fused{' merged' if merged else ''} {label}"
+            step_s = time_steps(trainer, eff, name, card, tuple(per_step), rest, reps=2,
+                                totals=totals)
+            log(f"[zoo] {name} step: wall {1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s, "
+                f"device {totals.get('device', float('nan')):.3f} ms, card idle "
+                f"{100 * (1 - totals.get('device', float('nan')) / (1e3 * step_s)):.1f}% on "
+                f"{card}")
+            os.environ["VIT2SPN_MERGED_BWD"] = "0"
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches[d] = got
+    return launches
+
+
+def zoo_extract(card) -> None:
+    """Phase 14 (c): extract_features at batch 256 at each ZOO width
+    (`ssp-scratch`, `-o vit=<name>`) over ZOO_EXTRACT_IMAGES 28 px sources:
+    the counters around it (the backbone kernel only), finite features that
+    agree with the plain path's, img/s and the forward's device time."""
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    ds = synthetic_dataset(split_sizes={"all": ZOO_EXTRACT_IMAGES}, image_size=28, seed=SEED)
+    for label, vit, d, _, _ in ZOO:
+        cfg = _apply_overrides(get_preset("ssp-scratch"), [f"vit={vit}"])
+        trainer = SSPTrainer(cfg, logger=MetricLogger(echo=False), device="cuda")
+        trainer.extract_features(ds, batch_size=BATCH)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        feats, _ = trainer.extract_features(ds, batch_size=BATCH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: n for k, n in read_launches().items() if n}
+        totals = {}
+        lines = stage_breakdown(lambda: trainer.extract_features(ds, batch_size=BATCH),
+                                f"{label} extract of {len(ds)} images", top=6,
+                                wrappers=(KERNEL_NAME,), rest="views, embed, heads",
+                                totals=totals)
+        trainer.attn_impl = "plain"
+        plain, _ = trainer.extract_features(ds, batch_size=BATCH)
+        scale, err = float(np.abs(plain).max()), float(np.abs(feats - plain).max())
+        log(f"[zoo] {label} extract: {feats.shape} features in {secs:.3f} s, "
+            f"{len(ds) / secs:.1f} img/s, launches {launches}; forward device time "
+            f"{totals.get('vit2spn::' + KERNEL_NAME, float('nan')):.3f} ms of "
+            f"{totals.get('device', float('nan')):.3f} ms; vs plain max_abs_err {err:.6g} "
+            f"(max |plain| {scale:.4g}, tol {FEATURE_REL_TOL} relative) on {card}")
+        for line in lines:
+            log(line)
+        if set(launches) != {KERNEL_NAME}:
+            raise AssertionError(f"{label} extract launched {launches}")
+        if feats.shape != (len(ds), cfg.proj_dim) or not np.isfinite(feats).all():
+            raise AssertionError(f"{label} extract: bad features {feats.shape}")
+        if not err <= FEATURE_REL_TOL * scale:
+            raise AssertionError(f"{label} features disagree with the plain path")
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def zoo_cli(card) -> None:
+    """Phase 14 (d): through the CLI at ViT-Small, on a staged octmnist.npz
+    (ZOO_CLI_SPLITS): `run ssp-scratch -o vit=small` for one epoch, then
+    `run ssp-ssl/ft-octmnist -o vit=small -o init=scratch -o
+    init_path=<its export>` cut to ZOO_FT_FOLDS folds and 1 epoch, each with
+    the counters read around it and held to the predicted launches."""
+    import tempfile
+
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.cli import main as cli_main
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import load_dataset, synthetic_dataset
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+
+    label, vit = ZOO[0][:2]
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        ds = synthetic_dataset(image_size=28, seed=SEED + 15, split_sizes=ZOO_CLI_SPLITS)
+        np.savez(os.path.join(tmp, "octmnist.npz"),
+                 **{f"{k}_images": ds.images[ds.splits[k], ..., 0] for k in ds.splits},
+                 **{f"{k}_labels": ds.labels[ds.splits[k], None] for k in ds.splits})
+        common = ["-o", f"vit={vit}", "-o", f"data.root={tmp}"]
+        cfg = _apply_overrides(get_preset("ssp-scratch"), [f"vit={vit}", f"data.root={tmp}"])
+        a, layers = cfg.accumulation_steps, cfg.vit.num_layers
+        steps = ZOO_CLI_SPLITS["train"] // cfg.effective_batch
+        want = {KERNEL_NAME: steps * 2 * 2 * a, "mlp_bwd": steps * 2 * a * layers,
+                "attn_bwd": steps * 2 * a * layers}
+        out = os.path.join(tmp, "ssp")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["run", "ssp-scratch", "--epochs", "1", "--output-dir", out, *common])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        export = os.path.join(out, cfg.export_name + ".npz")
+        log(f"[zoo] {label} run ssp-scratch -o vit={vit}, 1 epoch of "
+            f"{ZOO_CLI_SPLITS['train']} images ({steps} steps) in {secs:.1f} s: rc {rc}, "
+            f"launches { {k: n for k, n in launches.items() if n} } (predicted {want})")
+        if rc != 0 or not os.path.exists(export):
+            raise AssertionError(f"run ssp-scratch -o vit={vit}: rc {rc}, export {export}")
+        if launches != {k: want.get(k, 0) for k in launches}:
+            raise AssertionError(f"run ssp-scratch -o vit={vit} launched {launches}, "
+                                 f"predicted {want}")
+        with np.load(export) as z:
+            w1 = [z[k].shape for k in z.files if k.endswith("w1")]
+        if w1 != [(layers, ZOO[0][2], ZOO[0][4])]:
+            raise AssertionError(f"the export's w1 is {w1}")
+        preset = "ssp-ssl/ft-octmnist"
+        ft_over = [f"vit={vit}", f"data.root={tmp}", f"k_folds={ZOO_FT_FOLDS}", "init=scratch",
+                   f"init_path={export}"]
+        cfg_ft = _apply_overrides(get_preset(preset), ft_over)
+        octm = load_dataset("octmnist", root=tmp, allow_synthetic=False)
+        ft_steps, evals, n_cv, n_test = protocol_launches(cfg_ft, octm, 1)
+        want = _wanted(ft_steps, evals, layers)
+        out = os.path.join(tmp, "ft")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli_main(["run", preset, "--epochs", "1", "--output-dir", out,
+                       *[x for o in ft_over for x in ("-o", o)]])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        aucs = [e["mauc"] for e in events if e["event"] == "fold_result"]
+        log(f"[zoo] {label} run {preset} -o vit={vit} from that export (cut: {ZOO_FT_FOLDS} "
+            f"folds, 1 epoch; subset {n_cv}, test {n_test}) in {secs:.1f} s: rc {rc}, "
+            f"{ft_steps} train steps, {evals} eval batches; fold mAUCs {aucs}; launches "
+            f"{ {k: n for k, n in launches.items() if n} } (predicted {want}) on {card}")
+        if rc != 0 or len(aucs) != ZOO_FT_FOLDS or not all(np.isfinite(aucs)):
+            raise AssertionError(f"run {preset} -o vit={vit}: rc {rc}, fold mAUCs {aucs}")
+        if launches != {k: want.get(k, 0) for k in launches}:
+            raise AssertionError(f"run {preset} -o vit={vit} launched {launches}, "
+                                 f"predicted {want}")
+
+
+def zoo_path(fb, card, dev) -> list:
+    """Phase 14, the model zoo: (a) the wide backward route against its
+    twins, (b) SSP training, (c) extract, (d) the CLI chain at ViT-Small,
+    (e) the times. Returns (e)'s {"kernels": [...]} entries."""
+    t_phase = time.perf_counter()
+    errs = zoo_kernels(fb, dev)
+    launches = zoo_training(card)
+    zoo_extract(card)
+    zoo_cli(card)
+    entries = zoo_times(fb, card, dev, launches, errs)
+    log(f"[zoo] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def zoo_times(fb, card, dev, launches=None, errs=None) -> list:
+    """Phase 14 (e): at each ZOO width, with CUDA events after a warm-up,
+    backbone_fwd at B=256 and layer_fwd, mlp_bwd, attn_bwd and merged_bwd at
+    B=128 (S=197, bf16): the kernel, its plain twin, its library yardstick
+    and its bound; each backward's and the forward's device time by CUDA
+    kernel. `launches` ({width: {kernel: n}}) and `errs` ({width: {kernel:
+    max_abs_err}}) come from the phase's main path and checks (None: 0 and
+    null, as when this runs alone through --zoo-times). Returns the
+    {"kernels": [...]} entries."""
+    entries = []
+    s, eps, fast = 197, 1e-12, True
+    for label, _, d, heads, mlp in ZOO:
+        gen = torch.Generator().manual_seed(SEED + d)
+        wt = random_backbone(gen, 12, d, mlp, dev)
+        x = torch.randn(BATCH, s, d, generator=gen).to(torch.bfloat16).to(dev)
+        xb, x2b = (torch.randn(TRAIN_BATCH, s, d, generator=gen).to(torch.bfloat16).to(dev)
+                   for _ in range(2))
+        gb = (0.1 * torch.randn(TRAIN_BATCH, s, d, generator=gen)).to(torch.bfloat16).to(dev)
+        wl = layer_weights(fb.WEIGHT_NAMES, wt)
+        w0 = tuple(t[0] for t in wt)
+        timed = (
+            ("backbone_fwd", "backbone_fwd.cu", "vit2spn_tpu/ops/fused_block.py:694",
+             backbone_bound_ms(BATCH, s, d, heads, mlp, 12, wt),
+             12 * fb.kernel_launches_per_layer(d),
+             lambda: fb.fused_backbone(x, wt, heads, eps, fast),
+             lambda: fb.backbone_forward_plain(x, wt, heads, eps, fast),
+             lambda: library_backbone(x, wt, heads, eps)),
+            ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
+             backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w0, acts=3),
+             fb.cuda_launches("layer_fwd", None, d, 0),
+             lambda: fb.layer_fwd(xb, w0, heads, eps, fast),
+             lambda: fb.layer_forward_plain(xb, w0, heads, eps, fast),
+             lambda: library_backbone(xb, tuple(t[:1] for t in wt), heads, eps)),
+            ("mlp_bwd", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342",
+             bwd_bound_ms("mlp", TRAIN_BATCH, s, d, heads, mlp, wl),
+             fb.cuda_launches("mlp_bwd", None, d, 0),
+             lambda: fb.mlp_bwd(x2b, gb, wl, eps, fast),
+             lambda: fb.mlp_bwd_plain(x2b, gb, wl, eps, fast),
+             lambda: library_mlp_half(x2b, gb, wl, eps)),
+            ("attn_bwd", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357",
+             bwd_bound_ms("attn", TRAIN_BATCH, s, d, heads, mlp, wl),
+             fb.cuda_launches("attn_bwd", None, d, 0),
+             lambda: fb.attn_bwd(xb, gb, wl, heads, eps),
+             lambda: fb.attn_bwd_plain(xb, gb, wl, heads, eps),
+             lambda: library_attn_half(xb, gb, wl, heads, eps)),
+            ("merged_bwd", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
+             bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl),
+             fb.cuda_launches("merged_bwd", None, d, 0),
+             lambda: fb.merged_bwd(xb, x2b, gb, wl, heads, eps, fast),
+             lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast),
+             lambda: library_attn_half(xb, library_mlp_half(x2b, gb, wl, eps)[0].to(xb.dtype),
+                                       wl, heads, eps)),
+        )
+        for name, src, replaces, bound, n_cuda, kernel, twin, library in timed:
+            b_ms, b_by, b_flops = bound
+            k_ms = time_ms(kernel)
+            p_ms = time_ms(twin, iters=3, warmup=1)
+            with torch.no_grad() if name.endswith("fwd") else torch.enable_grad():
+                l_ms = time_ms(library)
+            batch = BATCH if name == "backbone_fwd" else TRAIN_BATCH
+            tag = f"{name} (D={d})"
+            log(f"[zoo-time] {label} {name} B={batch}: kernel {k_ms:.4f} ms ({n_cuda} CUDA "
+                f"launches), plain twin {p_ms:.3f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} "
+                f"ms ({b_by}; {b_flops / 1e9:.2f} GFLOP), kernel at "
+                f"{b_flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the "
+                f"bound, library at {100 * b_ms / l_ms:.1f}%; {card}")
+            entries.append({
+                "name": tag, "route": "cuda", "source": f"vit2spn_tpu_torch/csrc/{src}",
+                "replaces": replaces,
+                "launches": (launches or {}).get(d, {}).get(name, 0),
+                "max_abs_err": (errs or {}).get(d, {}).get(name),
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": l_ms, "cuda_launches": n_cuda, "dtype": "bfloat16",
+            })
+        for name, fn in (("backbone_fwd B=256", timed[0][5]), ("mlp_bwd", timed[2][5]),
+                         ("attn_bwd", timed[3][5]), ("merged_bwd", timed[4][5])):
+            calls = 1 if name.startswith("backbone") else STAGE_CALLS
+            for line in stage_breakdown(lambda: [fn() for _ in range(calls)],
+                                        f"{label} {name} by stage, {calls} call(s)", top=12):
+                log(line)
+        del wt, x, xb, x2b, gb, wl, w0, timed
+        torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2189,6 +2629,10 @@ def main() -> int:
             for k in ("ln_qkv", "attention", "mlp")}
     log(f"[build]   layer_fwd / backbone_fwd dynamic shared memory per block at S="
         f"{vit.seq_len}, D={vit.hidden_size}: {smem} B")
+
+    if sys.argv[1:2] == ["--zoo-times"]:  # phase 14 (e) alone, for another tree's kernels
+        print(json.dumps({"kernels": zoo_times(fb, card, dev)}))
+        return 0
 
     # the fine-tune step's wall time before any other phase (phase 10b times
     # it again after them)
@@ -2265,9 +2709,9 @@ def main() -> int:
                                gb, wl, heads, eps, fast, against_fp32=True)
         bwd_err = {k: max(v, errs[k]) for k, v in bwd_err.items()}
     # other shapes: S < 16, S = 17 and 256, a ragged B at S = 197, D = 256
-    # (the widest of the wgmma route) and 128 with mlp 320 (its 64-column
-    # tiles), and the ViT-Small width (the mma.sync sequence above D = 256);
-    # both gelu forms
+    # (the widest of the kit's registers route) and 128 with mlp 320 (its
+    # 64-column tiles), and the ViT-Small width (the wide route, phase 14 at
+    # full size); both gelu forms
     for b_, s_, d_, h_, m_, f_ in ((3, 5, 192, 3, 768, True), (2, 17, 192, 3, 768, False),
                                    (1, 256, 192, 3, 768, True), (7, 197, 192, 3, 768, False),
                                    (2, 40, 256, 4, 1024, True), (3, 9, 128, 2, 320, False),
@@ -2391,16 +2835,15 @@ def main() -> int:
     for fast in (False, True):
         merged_err = max(merged_err, check_merged_bwd(
             f"B={TRAIN_BATCH} fast_gelu={fast}", fb, xb, x2b, gb, wl, heads, eps, fast, True))
-    # a ragged B at S = 197, D = 128 with mlp 320 and D = 256 (the kit's
-    # route: equal bits required) and the ViT-Small width (the mma.sync
-    # sequences: the share reported)
+    # a ragged B at S = 197, D = 128 with mlp 320, D = 256 and the ViT-Small
+    # width (the kit's routes: equal bits required)
     for b_, s_, d_, h_, m_, f_ in ((7, 197, 192, 3, 768, False), (3, 9, 128, 2, 320, True),
                                    (2, 40, 256, 4, 1024, False), (5, 50, 384, 6, 1536, True)):
         w_ = layer_weights(fb.WEIGHT_NAMES, random_backbone(gen, 1, d_, m_, dev))
         x_, x2_, g_ = (torch.randn(b_, s_, d_, generator=gen) for _ in range(3))
         x_, x2_, g_ = (t.to(torch.bfloat16).to(dev) for t in (x_, x2_, 0.1 * g_))
         check_merged_bwd(f"B={b_} S={s_} D={d_} heads={h_} mlp={m_} fast_gelu={f_}", fb, x_,
-                         x2_, g_, w_, h_, eps, f_, d_ <= fb.HOPPER_BWD_MAX_D)
+                         x2_, g_, w_, h_, eps, f_, True)
     # one call's launches: the wrapper's counter, and its CUDA launches
     reset_launches()
     fb.merged_bwd(xb, x2b, gb, wl, heads, eps, True)
@@ -2793,6 +3236,11 @@ def main() -> int:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 14. the model zoo: ViT-Small and ViT-Base at full width ---------------
+    # (before phase 13: after it, a trace in this process held no device time
+    # on the H100)
+    entries += zoo_path(fb, card, dev)
 
     # -- 13. several ranks on the one card -------------------------------------
     parallel_launches = parallel_path(card, fused_totals)

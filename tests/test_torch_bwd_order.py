@@ -24,6 +24,13 @@
    pair's bit for bit (the same stages and orders of sums), and is held
    against `_layer_bwd(..., merged=True)` in interpret mode at that
    tolerance.
+
+   The wide route's cases (D = 384 and 768, ViT-Small and ViT-Base) emulate
+   its stage structure: every product whose N is D (dy, datt, the weight
+   gradients) in 192-column tiles, dy through fp32 scratch, then the
+   row-wise LayerNorm backward of 16-row warps with its per-16-row
+   partials, the weight gradients' splits as csrc/wgrad.cuh chooses them
+   for those launches.
 """
 
 import importlib
@@ -98,24 +105,30 @@ def _bf(t):
     return t.to(torch.bfloat16).float()
 
 
-def _mm_chunked(a, b, k_chunk):
-    """a @ b in fp32, the reduction in k_chunk-wide chunks taken in order."""
+def _mm_chunked(a, b, k_chunk, nt=None):
+    """a @ b in fp32, the reduction in k_chunk-wide chunks taken in order;
+    with `nt`, one nt-column tile of the output at a time (the wide route's
+    tiles of wgmma's N)."""
+    if nt is not None and nt < b.shape[1]:
+        return torch.cat([_mm_chunked(a, b[:, n:n + nt], k_chunk)
+                          for n in range(0, b.shape[1], nt)], dim=1)
     acc = torch.zeros(a.shape[0], b.shape[1])
     for k in range(0, a.shape[1], k_chunk):
         acc = acc + a[:, k:k + k_chunk] @ b[k:k + k_chunk]
     return acc
 
 
-def _split_k(a, b, rows, cps):
+def _split_k(a, b, rows, cps, nt=None):
     """The wgrad kernel's split partials of [a^T b; column sums of a; column
     sums of b] over the token rows: `rows`-row chunks summed in order within
-    a split of `cps` chunks, one partial per split."""
+    a split of `cps` chunks, one partial per split; with `nt`, a^T b in
+    nt-column tiles of b."""
     parts = []
     step = rows * cps
     for s0 in range(0, a.shape[0], step):
         acc, sa, sb = 0, 0, 0
         for r in range(s0, min(s0 + step, a.shape[0]), rows):
-            acc = acc + a[r:r + rows].t() @ b[r:r + rows]
+            acc = acc + _mm_chunked(a[r:r + rows].t(), b[r:r + rows], rows, nt)
             sa = sa + a[r:r + rows].sum(0)
             sb = sb + b[r:r + rows].sum(0)
         parts.append((acc, sa, sb))
@@ -147,8 +160,9 @@ def _take(pending):
     return out
 
 
-def _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps):
-    """The MLP half's stages: dx2 and its reductions still to be taken."""
+def _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps, nt=None):
+    """The MLP half's stages: dx2 and its reductions still to be taken.
+    `nt`: the wide route's N tiles of the products whose N is D."""
     xhat, _ = fb._ln_stats(x2, EPS)
     y2 = _bf(xhat * w["ln2_scale"] + w["ln2_bias"])
     m1 = _bf(_mm_chunked(y2, _bf(w["w1"]), k_chunk) + _bf(w["b1"]))
@@ -156,49 +170,53 @@ def _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps):
     gg = _bf(fb.gelu_grad(m1, fast))
     dg = _bf(_mm_chunked(dout, _bf(w["w2"]).t(), k_chunk))
     dm1 = _bf(dg * gg)
-    dy2 = _mm_chunked(dm1, _bf(w["w1"]).t(), k_chunk)  # over 64-wide hidden chunks
+    # over 64-wide hidden chunks; on the wide route into fp32 scratch
+    dy2 = _mm_chunked(dm1, _bf(w["w1"]).t(), k_chunk, nt).float()
     dx2, ln = _ln_bwd_rows(dy2, x2, w["ln2_scale"], dout, 16)
-    p2, p1 = _split_k(g, dout, rows, cps), _split_k(dm1, y2, rows, cps)
+    p2, p1 = _split_k(g, dout, rows, cps, nt), _split_k(dm1, y2, rows, cps, nt)
     return dx2, {"ln2_scale": (ln, 0, False), "ln2_bias": (ln, 1, False),
                  "w1": (p1, 0, True), "b1": (p1, 1, False),
                  "w2": (p2, 0, False), "b2": (p2, 2, False)}
 
 
-def _attn_bwd_stages(x, dx2, w, heads, b, s, k_chunk, rows, cps):
-    """The attention half's stages: dx and its reductions still to be taken."""
+def _attn_bwd_stages(x, dx2, w, heads, b, s, k_chunk, rows, cps, nt=None):
+    """The attention half's stages: dx and its reductions still to be taken.
+    `nt`: the wide route's N tiles of the products whose N is D."""
     d = x.shape[1]
     xhat, _ = fb._ln_stats(x, EPS)
     y1 = _bf(xhat * w["ln1_scale"] + w["ln1_bias"])
     qkv = _bf(_mm_chunked(y1, _bf(w["wqkv"]), k_chunk) + _bf(w["bqkv"]))
-    datt = _bf(_mm_chunked(dx2, _bf(w["wo"]).t(), k_chunk))
+    datt = _bf(_mm_chunked(dx2, _bf(w["wo"]).t(), k_chunk, nt))
     att, dqkv = fb._attention_bwd(qkv.to(torch.bfloat16).reshape(b, s, 3 * d),
                                   datt.to(torch.bfloat16).reshape(b, s, d), heads)
     att, dqkv = att.float().reshape(-1, d), dqkv.float().reshape(-1, 3 * d)
-    dy1 = _mm_chunked(dqkv, _bf(w["wqkv"]).t(), k_chunk)  # over chunks of 3 D
+    # over chunks of 3 D; on the wide route into fp32 scratch
+    dy1 = _mm_chunked(dqkv, _bf(w["wqkv"]).t(), k_chunk, nt).float()
     dx, ln = _ln_bwd_rows(dy1, x, w["ln1_scale"], dx2, 16)
-    po, pq = _split_k(att, dx2, rows, cps), _split_k(dqkv, y1, rows, cps)
+    po, pq = _split_k(att, dx2, rows, cps, nt), _split_k(dqkv, y1, rows, cps, nt)
     return dx, {"ln1_scale": (ln, 0, False), "ln1_bias": (ln, 1, False),
                 "wqkv": (pq, 0, True), "bqkv": (pq, 1, False),
                 "wo": (po, 0, False), "bo": (po, 2, False)}
 
 
-def _mlp_bwd_emulated(x2, dout, w, fast, k_chunk, rows, cps):
+def _mlp_bwd_emulated(x2, dout, w, fast, k_chunk, rows, cps, nt=None):
     """csrc/mlp_bwd.cuh's bf16 route: the stages, then its reductions."""
-    dx2, pending = _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps)
+    dx2, pending = _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps, nt)
     return dx2, _take(pending)
 
 
-def _attn_bwd_emulated(x, dx2, w, heads, b, s, k_chunk, rows, cps):
+def _attn_bwd_emulated(x, dx2, w, heads, b, s, k_chunk, rows, cps, nt=None):
     """csrc/attn_bwd.cuh's bf16 route: the stages, then its reductions."""
-    dx, pending = _attn_bwd_stages(x, dx2, w, heads, b, s, k_chunk, rows, cps)
+    dx, pending = _attn_bwd_stages(x, dx2, w, heads, b, s, k_chunk, rows, cps, nt)
     return dx, _take(pending)
 
 
-def _merged_bwd_emulated(x, x2, dout, w, fast, heads, b, s, k_chunk, rows, cps):
-    """csrc/merged_bwd.cu's bf16 route at D <= 256: the MLP half's stages,
-    the attention half's on its dx2, then all six reductions in one pass."""
-    dx2, pending = _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps)
-    dx, more = _attn_bwd_stages(x, dx2, w, heads, b, s, k_chunk, rows, cps)
+def _merged_bwd_emulated(x, x2, dout, w, fast, heads, b, s, k_chunk, rows, cps, nt=None):
+    """csrc/merged_bwd.cu's bf16 routes (the kit's and the wide one): the
+    MLP half's stages, the attention half's on its dx2, then all six
+    reductions in one pass."""
+    dx2, pending = _mlp_bwd_stages(x2, dout, w, fast, k_chunk, rows, cps, nt)
+    dx, more = _attn_bwd_stages(x, dx2, w, heads, b, s, k_chunk, rows, cps, nt)
     return dx, _take({**pending, **more})
 
 
@@ -211,18 +229,31 @@ def _close_bf16(got, ref, what):
     assert err.mean() <= 5e-3 * mx, (what, float(err.mean()), mx)
 
 
-# (reduction chunk, token rows per chunk, chunks per split): the kernels'
-# (64, 64, ...) and small ones that make several chunks and splits here
-ORDERS = [(64, 64, 1), (16, 4, 2), (32, 8, 3)]
+# (reduction chunk, token rows per chunk, chunks per split, N tile, D,
+# heads, mlp): the kit's order (64, 64, ...) and small ones that make several
+# chunks and splits at D = 64; the wide route's 192-column N tiles at D = 384
+# and 768 (at these 33 token rows one 64-row chunk: the splits
+# csrc/wgrad.cuh takes for the wide pairs hold several, as the small orders
+# emulate)
+ORDERS = [(64, 64, 1, None, 64, 2, 128), (16, 4, 2, None, 64, 2, 128),
+          (32, 8, 3, None, 64, 2, 128), (64, 64, 1, 192, 384, 6, 1536),
+          (64, 8, 2, 192, 768, 12, 3072)]
+ORDER_IDS = ["kernel", "k16_r4_s2", "k32_r8_s3", "wide_d384", "wide_d768_r8_s2"]
 
 
-@pytest.mark.parametrize("order", ORDERS, ids=["kernel", "k16_r4_s2", "k32_r8_s3"])
+def _w_std(d):
+    """W1's std: the gelu inputs keep D = 64's spread at every width."""
+    return 0.4 * (64 / d) ** 0.5
+
+
+@pytest.mark.parametrize("order", ORDERS, ids=ORDER_IDS)
 @pytest.mark.parametrize("fast", [False, True], ids=["exact_gelu", "fast_gelu"])
 def test_mlp_bwd_kernel_order_matches_pallas_math(order, fast, monkeypatch):
     monkeypatch.setenv("VIT2SPN_FAST_GELU", "1" if fast else "0")
-    b, s, sp, d, mlp = 3, 11, 16, 64, 128
+    *order, d, _, mlp = order
+    b, s, sp = 3, 11, 16
     rng = np.random.default_rng(2)
-    w = _weights(rng, d, mlp)
+    w = _weights(rng, d, mlp, _w_std(d))
     x2 = rng.standard_normal((b, s, d)).astype(np.float32)
     dout = (0.1 * rng.standard_normal((b, s, d))).astype(np.float32)
     jw = {k: jnp.asarray(v, jnp.float32 if k.startswith("ln") else jnp.bfloat16)
@@ -240,11 +271,12 @@ def test_mlp_bwd_kernel_order_matches_pallas_math(order, fast, monkeypatch):
         _close_bf16(got[n], ref_g[n], n)
 
 
-@pytest.mark.parametrize("order", ORDERS, ids=["kernel", "k16_r4_s2", "k32_r8_s3"])
+@pytest.mark.parametrize("order", ORDERS, ids=ORDER_IDS)
 def test_attn_bwd_kernel_order_matches_pallas_math(order):
-    b, s, sp, d, heads = 3, 11, 16, 64, 2
+    *order, d, heads, mlp = order
+    b, s, sp = 3, 11, 16
     rng = np.random.default_rng(3)
-    w = _weights(rng, d, 128)
+    w = _weights(rng, d, mlp)
     x = rng.standard_normal((b, s, d)).astype(np.float32)
     dx2 = (0.1 * rng.standard_normal((b, s, d))).astype(np.float32)
     jw = {k: jnp.asarray(v, jnp.float32 if k.startswith("ln") else jnp.bfloat16)
@@ -263,27 +295,29 @@ def test_attn_bwd_kernel_order_matches_pallas_math(order):
         _close_bf16(got[n], ref_g[n], n)
 
 
-_MERGED_REF = {}  # the interpret-mode merged kernel's result per gelu form
+_MERGED_REF = {}  # the interpret-mode merged kernel's result per gelu form and width
 
 
 def _merged_pallas(x, x2, dout, w, heads, s, sp, fast):
-    if fast not in _MERGED_REF:
+    key = (fast, x.shape[-1])
+    if key not in _MERGED_REF:
         jw = {k: jnp.asarray(v, jnp.float32 if k.startswith("ln") else jnp.bfloat16)
               for k, v in w.items()}
         dx, g = jfb._layer_bwd(*(_pad(a, sp).astype(jnp.bfloat16) for a in (x, x2, dout)), jw,
                                heads, s, sp, EPS, 2, True, merged=True)
-        _MERGED_REF[fast] = (np.asarray(jnp.asarray(dx).astype(jnp.float32))[:, :s],
-                             {n: np.asarray(t) for n, t in g.items()})
-    return _MERGED_REF[fast]
+        _MERGED_REF[key] = (np.asarray(jnp.asarray(dx).astype(jnp.float32))[:, :s],
+                            {n: np.asarray(t) for n, t in g.items()})
+    return _MERGED_REF[key]
 
 
-@pytest.mark.parametrize("order", ORDERS, ids=["kernel", "k16_r4_s2", "k32_r8_s3"])
+@pytest.mark.parametrize("order", ORDERS, ids=ORDER_IDS)
 @pytest.mark.parametrize("fast", [False, True], ids=["exact_gelu", "fast_gelu"])
 def test_merged_kernel_order_is_the_split_pair_and_matches_pallas(order, fast, monkeypatch):
     monkeypatch.setenv("VIT2SPN_FAST_GELU", "1" if fast else "0")
-    b, s, sp, d, heads, mlp = 3, 11, 16, 64, 2, 128
+    *order, d, heads, mlp = order
+    b, s, sp = 3, 11, 16
     rng = np.random.default_rng(4)
-    w = _weights(rng, d, mlp)
+    w = _weights(rng, d, mlp, _w_std(d))
     x, x2 = (rng.standard_normal((b, s, d)).astype(np.float32) for _ in range(2))
     dout = (0.1 * rng.standard_normal((b, s, d))).astype(np.float32)
     tw = {k: torch.from_numpy(v) for k, v in w.items()}

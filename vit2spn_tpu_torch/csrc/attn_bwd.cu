@@ -7,8 +7,9 @@
 // input x and emits dx and the LN1 / attention weight gradients, in whatever
 // dtype its inputs carry. The launch sequences, what bounds them and the
 // design: csrc/attn_bwd.cuh. bf16 at D <= 256 runs the wgmma row-block kit
-// (six launches), bf16 above it the eleven-launch sequence, fp32 the same
-// sequence with the CUDA-core attention of csrc/flash_f32.cuh (thirteen).
+// (six launches), bf16 at D = 384 and 768 its wide route (seven), bf16 at
+// other widths above 256 the eleven-launch sequence, fp32 the same sequence
+// with the CUDA-core attention of csrc/flash_f32.cuh (thirteen).
 
 #include "attn_bwd.cuh"
 
@@ -27,7 +28,7 @@ extern "C" long long vit2spn_attn_bwd_workspace_floats(int B, int S, int D, int 
 
 // CUDA kernel launches one call makes
 extern "C" int vit2spn_attn_bwd_launches(int D, int fp32) {
-  if (hopper_route(D, fp32)) return ATTN_HOPPER_LAUNCHES;
+  if (hopper_route(D, fp32)) return wide_route(D) ? ATTN_WIDE_LAUNCHES : ATTN_HOPPER_LAUNCHES;
   return fp32 ? attn_seq_launches<float>() : attn_seq_launches<bf16>();
 }
 

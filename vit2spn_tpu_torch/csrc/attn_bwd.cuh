@@ -41,7 +41,24 @@
 //      backward                  registers; dx and per-warp LN1 partials
 //   6. reduce_all                the three fixed-order reductions
 //
-// fp32, and bf16 above D = 256 (attn_bwd_seq<T>), the GEMMs common.cuh's:
+// bf16, D = 384 and 768 (the wide route, ViT-Small and ViT-Base): the kit's
+// stages where wgmma's N (at most 256) and the registers allow, seven
+// launches:
+//
+//   1. LN1 + QKV                 as the kit's stage 1; its resident A tile
+//                                is 64 or 128 rows x D bf16, so two
+//                                warpgroups at D = 384 (128-column tiles of
+//                                3D) and one at D = 768 (192)
+//   2. dx2 Wo^T                  N = D in 192-column tiles
+//   3. attention_bwd_kernel      att, dqkv
+//   4. dWo and dWqkv             the kit's pair, N = D in 192-column tiles
+//   5. dqkv Wqkv^T               N = D in 192-column tiles; dy1 leaves in
+//                                fp32 (EPI_F32)
+//   6. ln_bwd_rows_kernel        dx and per-16-row LN1 partials
+//   7. reduce_all                the three fixed-order reductions
+//
+// fp32, and bf16 at the other widths above D = 256 (attn_bwd_seq<T>), the
+// GEMMs common.cuh's:
 //
 //   1. layernorm_kernel                    y1
 //   2. gemm NN, EPI_BIAS                   qkv
@@ -64,6 +81,7 @@
 #include "wgrad.cuh"
 
 #define ATTN_HOPPER_LAUNCHES 6
+#define ATTN_WIDE_LAUNCHES 7
 
 template <typename T>
 static int attn_seq_launches() { return sizeof(T) == 2 ? 11 : 13; }
@@ -134,12 +152,18 @@ static int attn_bwd_seq(const AttnBwdArgs& a, cudaStream_t st) {
                        a.eps, st);
 }
 
-// bf16, D <= HOPPER_BWD_MAX_D: the row-block kit. With `defer`, its three
-// reductions join that list (csrc/merged_bwd.cu takes them in one launch with
-// the MLP half's) and the half is 5 launches.
+// bf16, D <= HOPPER_BWD_MAX_D (the row-block kit) and D = 384, 768 (its
+// wide route). With `defer`, its three reductions join that list
+// (csrc/merged_bwd.cu takes them in one launch with the MLP half's) and the
+// half is one launch shorter.
 template <int D>
 static int attn_bwd_hopper_d(const AttnBwdArgs& a, cudaStream_t st, bool size_only,
                              long long* need, Reductions* defer) {
+  constexpr bool WIDE = D > HOPPER_BWD_MAX_D;
+  constexpr int NW = WIDE ? WIDE_NT : D;  // the N tiles of the products whose N is D
+  // stage 1's resident A tile is WG1 x 64 rows x D bf16: one warpgroup at
+  // D = 768, two at D = 384 with 128-column tiles of 3 D (shared memory)
+  constexpr int WG1 = D > 384 ? 1 : 2, NT1 = D == 384 ? 128 : 192;
   const int M = a.B * a.S;
   const bf16* X = static_cast<const bf16*>(a.x);
   const bf16* dX2 = static_cast<const bf16*>(a.dx2);
@@ -151,12 +175,14 @@ static int attn_bwd_hopper_d(const AttnBwdArgs& a, cudaStream_t st, bool size_on
   float* ws = static_cast<float*>(a.ws);
   WgradProblem wp[2];
   const long long pair =
-      wgrad_pair<D>(att, dX2, D, 0, dqkv, y1, 3 * D, 1, M, nullptr, wp, st);
-  const long long ln = (long long)rowblocks<2>(M) * 8 * 2 * D;
+      wgrad_pair<NW>(att, dX2, D, 0, dqkv, y1, 3 * D, 1, D, M, nullptr, wp, st);
+  const int ln_parts = WIDE ? ln_rows_parts(M) : rowblocks<2>(M) * 8;
+  if (pair < 0) return (int)-pair;
   if (size_only) {
-    *need = pair + ln;
+    *need = pair + (long long)ln_parts * 2 * D;
     return 0;
   }
+  if (WIDE && !a.dy) return (int)cudaErrorInvalidValue;
   CUtensorMap xm, dx2m, y1m, qkvm, dqkvm, wqkvm, wom;
   LAUNCH(tensor_map(&xm, X, D, M, 1));
   LAUNCH(tensor_map(&dx2m, dX2, D, M, 1));
@@ -169,37 +195,46 @@ static int attn_bwd_hopper_d(const AttnBwdArgs& a, cudaStream_t st, bool size_on
 
   EpiArgs e1 = {};
   e1.bias = static_cast<const bf16*>(a.bqkv);
-  LAUNCH((launch_rowblock<2, 192, A_LN_BF16, EPI_BIAS, 1, true>(
-      xm, wqkvm, qkvm, qkvm, y1m, X, l1s, static_cast<const float*>(a.ln1_bias), 0, M, 3 * D, D, a.eps,
-      e1, st)));
+  LAUNCH((launch_rowblock<WG1, NT1, A_LN_BF16, EPI_BIAS, 1, true>(
+      xm, wqkvm, qkvm, qkvm, y1m, X, l1s, static_cast<const float*>(a.ln1_bias), 0, M, 3 * D, D,
+      a.eps, e1, st)));
   EpiArgs e2 = {};
   e2.out = datt;
-  LAUNCH((launch_rowblock<2, D, A_TMA, EPI_STORE, 0>(dx2m, wom, dx2m, dx2m, dx2m, nullptr, nullptr,
-                                                     nullptr, 0, M, D, D, a.eps, e2, st)));
+  LAUNCH((launch_rowblock<2, NW, A_TMA, EPI_STORE, 0>(dx2m, wom, dx2m, dx2m, dx2m, nullptr, nullptr,
+                                                      nullptr, 0, M, D, D, a.eps, e2, st)));
   LAUNCH(launch_attention_bwd(qkv, datt, att, dqkv, a.B, a.S, a.H, D, st));
-  LAUNCH((int)wgrad_pair<D>(att, dX2, D, 0, dqkv, y1, 3 * D, 1, M, ws, wp, st));
+  LAUNCH((int)wgrad_pair<NW>(att, dX2, D, 0, dqkv, y1, 3 * D, 1, D, M, ws, wp, st));
   float* lnp = ws + pair;
-  EpiArgs e3 = {};
-  e3.resid = dX2;
-  e3.out = static_cast<bf16*>(a.dx);
-  e3.f32 = lnp;
-  LAUNCH((launch_rowblock<2, D, A_TMA, EPI_LNBWD, 0>(dqkvm, wqkvm, dqkvm, dqkvm, dqkvm, X, l1s, nullptr,
-                                                     0, M, D, 3 * D, a.eps, e3, st)));
+  if constexpr (WIDE) {  // dy1 = dqkv Wqkv^T in fp32, then the row-wise LN1 backward
+    float* dy = static_cast<float*>(a.dy);
+    EpiArgs e3 = {};
+    e3.f32 = dy;
+    LAUNCH((launch_rowblock<2, NW, A_TMA, EPI_F32, 0>(dqkvm, wqkvm, dqkvm, dqkvm, dqkvm, nullptr,
+                                                      nullptr, nullptr, 0, M, D, 3 * D, a.eps, e3,
+                                                      st)));
+    LAUNCH(launch_ln_bwd_rows<D>(X, dy, dX2, l1s, static_cast<bf16*>(a.dx), lnp, M, a.eps, st));
+  } else {  // dy1 in registers, the LN1 backward in the epilogue
+    EpiArgs e3 = {};
+    e3.resid = dX2;
+    e3.out = static_cast<bf16*>(a.dx);
+    e3.f32 = lnp;
+    LAUNCH((launch_rowblock<2, D, A_TMA, EPI_LNBWD, 0>(dqkvm, wqkvm, dqkvm, dqkvm, dqkvm, X, l1s,
+                                                       nullptr, 0, M, D, 3 * D, a.eps, e3, st)));
+  }
   Reductions red = {};
   Reductions* r = defer ? defer : &red;
   LAUNCH(defer_reduction(r, wgrad_reduction(wp[0], static_cast<float*>(a.gwo),
                                             static_cast<float*>(a.gbo), false)));
   LAUNCH(defer_reduction(r, wgrad_reduction(wp[1], static_cast<float*>(a.gwqkv),
                                             static_cast<float*>(a.gbqkv), true)));
-  LAUNCH(defer_reduction(r, {lnp, rowblocks<2>(M) * 8, 2 * D, D,
-                             static_cast<float*>(a.gln1_scale),
+  LAUNCH(defer_reduction(r, {lnp, ln_parts, 2 * D, D, static_cast<float*>(a.gln1_scale),
                              static_cast<float*>(a.gln1_bias), 0, 1}));
   return defer ? 0 : launch_reduce_all(red, st);
 }
 
-// The bf16 route for D <= HOPPER_BWD_MAX_D; with size_only, its workspace
-// in floats into *need and nothing launched; with `defer`, its reductions
-// left to the caller.
+// The bf16 wgmma routes (hopper_route: D <= HOPPER_BWD_MAX_D, 384, 768);
+// with size_only, the workspace in floats into *need and nothing launched;
+// with `defer`, the reductions left to the caller.
 static int attn_bwd_hopper(const AttnBwdArgs& a, cudaStream_t st, bool size_only = false,
                            long long* need = nullptr, Reductions* defer = nullptr) {
   switch (a.D) {
@@ -207,6 +242,8 @@ static int attn_bwd_hopper(const AttnBwdArgs& a, cudaStream_t st, bool size_only
     case 128: return attn_bwd_hopper_d<128>(a, st, size_only, need, defer);
     case 192: return attn_bwd_hopper_d<192>(a, st, size_only, need, defer);
     case 256: return attn_bwd_hopper_d<256>(a, st, size_only, need, defer);
+    case 384: return attn_bwd_hopper_d<384>(a, st, size_only, need, defer);
+    case 768: return attn_bwd_hopper_d<768>(a, st, size_only, need, defer);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -35,9 +35,18 @@
 //        9. dqkv Wqkv^T + LN1 backward      dx, LN1 partials
 //       10. reduce_all_kernel               the 12 weight gradients
 //
-//   * bf16 above D = 256, and fp32 (compute_dtype=float32): the split
-//     halves' sequences in a row (mlp_bwd_seq<T>, attn_bwd_seq<T>: 21
-//     launches in bf16, 23 in fp32), each taking its reductions as it goes.
+//   * bf16, D = 384 and 768: the halves' wide routes the same way
+//     (the same functions of csrc/mlp_bwd.cuh and csrc/attn_bwd.cuh),
+//     their six reductions in one reduce_all. Thirteen launches: the MLP
+//     half's LN2, y2 W1 + gelu, dout W2^T * gg, dW2 and dW1, dm1 W1^T (fp32
+//     dy2), ln_bwd_rows (dx2); the attention half's LN1 + QKV, dx2 Wo^T,
+//     attention_bwd_kernel, dWo and dWqkv, dqkv Wqkv^T (fp32 dy1),
+//     ln_bwd_rows (dx); reduce_all.
+//
+//   * bf16 at the other widths above D = 256, and fp32
+//     (compute_dtype=float32): the split halves' sequences in a row
+//     (mlp_bwd_seq<T>, attn_bwd_seq<T>: 21 launches in bf16, 23 in fp32),
+//     each taking its reductions as it goes.
 //
 // dx2 crosses from the MLP half to the attention half through device memory
 // in the compute dtype, as the split path hands it over.
@@ -49,6 +58,7 @@
 #include "mlp_bwd.cuh"
 
 #define MERGED_HOPPER_LAUNCHES (MLP_HOPPER_LAUNCHES + ATTN_HOPPER_LAUNCHES - 1)
+#define MERGED_WIDE_LAUNCHES (MLP_WIDE_LAUNCHES + ATTN_WIDE_LAUNCHES - 1)
 
 // fp32 scratch the wrapper allocates for the split partials
 extern "C" long long vit2spn_merged_bwd_workspace_floats(int B, int S, int D, int H, int MLP,
@@ -72,7 +82,7 @@ extern "C" long long vit2spn_merged_bwd_workspace_floats(int B, int S, int D, in
 
 // CUDA kernel launches one call makes
 extern "C" int vit2spn_merged_bwd_launches(int D, int fp32) {
-  if (hopper_route(D, fp32)) return MERGED_HOPPER_LAUNCHES;
+  if (hopper_route(D, fp32)) return wide_route(D) ? MERGED_WIDE_LAUNCHES : MERGED_HOPPER_LAUNCHES;
   return MLP_SEQ_LAUNCHES + (fp32 ? attn_seq_launches<float>() : attn_seq_launches<bf16>());
 }
 

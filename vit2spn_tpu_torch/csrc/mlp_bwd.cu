@@ -6,8 +6,9 @@
 // recomputes LN2 and the MLP from the saved mid-residual x2 and emits dx2 and
 // the LN2 / MLP weight gradients, in whatever dtype its inputs carry. The
 // launch sequences, what bounds them and the design: csrc/mlp_bwd.cuh. bf16
-// at D <= 256 runs the wgmma row-block kit (five launches), bf16 above it
-// and fp32 the ten-launch sequence.
+// at D <= 256 runs the wgmma row-block kit (five launches), bf16 at D = 384
+// and 768 its wide route (seven), bf16 at other widths above 256 and fp32 the
+// ten-launch sequence.
 
 #include "mlp_bwd.cuh"
 
@@ -24,7 +25,8 @@ extern "C" long long vit2spn_mlp_bwd_workspace_floats(int M, int D, int MLP, int
 
 // CUDA kernel launches one call makes
 extern "C" int vit2spn_mlp_bwd_launches(int D, int fp32) {
-  return hopper_route(D, fp32) ? MLP_HOPPER_LAUNCHES : MLP_SEQ_LAUNCHES;
+  if (!hopper_route(D, fp32)) return MLP_SEQ_LAUNCHES;
+  return wide_route(D) ? MLP_WIDE_LAUNCHES : MLP_HOPPER_LAUNCHES;
 }
 
 // x2, dout, dx2: (M, D), all bf16 or (fp32 set) all fp32, as the matmul

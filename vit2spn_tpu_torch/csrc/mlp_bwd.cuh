@@ -42,8 +42,33 @@
 //                                and per-warp LN2 parameter partials
 //   5. reduce_all                the three fixed-order reductions
 //
-// fp32, and bf16 above D = 256 (mlp_bwd_seq<T>): ten launches, the GEMMs
-// common.cuh's (mma.sync for bf16, CUDA cores for fp32):
+// bf16, D = 384 and 768 (the wide route, ViT-Small and ViT-Base): the
+// kit's stages where wgmma's N (at most 256), shared memory and the
+// registers allow, seven launches:
+//
+//   1. layernorm_kernel          y2 (bf16, for W1 and dW1)
+//   2. y2 W1 + gelu / gelu'      the kit's stage 1 with y2 streamed by TMA
+//                                beside W1: a resident 128-row LN tile is
+//                                192 KB at D = 768, and the one-warpgroup
+//                                block that fits (64 rows) reads W1 from L2
+//                                twice as often and leaves the tensor cores
+//                                idle through its gelu epilogue (0.775 ms
+//                                of a 1.94 ms half on an H100 at D = 768,
+//                                B = 128)
+//   3. dout W2^T, * gg           the kit's stage 2
+//   4. dW2 and dW1 in one launch the kit's pair, N = D in 192-column tiles
+//   5. dm1 W1^T                  N = D in 192-column tiles; dy2 leaves in
+//                                fp32 (EPI_F32): 64 x D fp32 per warpgroup
+//                                is 384 registers a thread at D = 768
+//   6. ln_bwd_rows_kernel        dx2 and per-16-row LN2 partials, as the
+//                                kit's epilogue gives them
+//   7. reduce_all                the three fixed-order reductions
+//
+// The fp32 dy2 costs 2 x 77.5 MB of traffic at D = 768, B = 128 (about
+// 0.05 ms against the half's 0.60 ms operations bound).
+//
+// fp32, and bf16 at the other widths above D = 256 (mlp_bwd_seq<T>): ten
+// launches, the GEMMs common.cuh's (mma.sync for bf16, CUDA cores for fp32):
 //
 //   1. layernorm_kernel                    y2
 //   2. gemm NN, EPI_GELU2                  g, gg
@@ -62,6 +87,7 @@
 
 #define MLP_SEQ_LAUNCHES 10
 #define MLP_HOPPER_LAUNCHES 5
+#define MLP_WIDE_LAUNCHES 7
 
 struct MlpBwdArgs {
   const void *x2, *dout, *ln2_scale, *ln2_bias, *w1, *b1, *w2;
@@ -120,13 +146,16 @@ static int mlp_bwd_seq(const MlpBwdArgs& a, cudaStream_t st) {
                        D, a.eps, st);
 }
 
-// bf16, D <= HOPPER_BWD_MAX_D: the row-block kit. NT of the two products
-// over the MLP columns: the widest of 192, 128, 64 that divides mlp. With
-// `defer`, its three reductions join that list (csrc/merged_bwd.cu takes
-// them in one launch with the attention half's) and the half is 4 launches.
+// bf16, D <= HOPPER_BWD_MAX_D (the row-block kit) and D = 384, 768 (its
+// wide route). NT of the two products over the MLP columns: the widest of
+// 192, 128, 64 that divides mlp. With `defer`, its three reductions join that
+// list (csrc/merged_bwd.cu takes them in one launch with the attention
+// half's) and the half is one launch shorter.
 template <int D, int NT>
 static int mlp_bwd_hopper_nt(const MlpBwdArgs& a, cudaStream_t st, bool size_only,
                              long long* need, Reductions* defer) {
+  constexpr bool WIDE = D > HOPPER_BWD_MAX_D;
+  constexpr int NW = WIDE ? WIDE_NT : D;  // the N tiles of the products whose N is D
   const int M = a.M, MLP = a.MLP;
   const bf16* X2 = static_cast<const bf16*>(a.x2);
   const bf16* dO = static_cast<const bf16*>(a.dout);
@@ -135,12 +164,16 @@ static int mlp_bwd_hopper_nt(const MlpBwdArgs& a, cudaStream_t st, bool size_onl
   bf16* dm1 = static_cast<bf16*>(a.gg);  // gg, then dm1 over it
   float* ws = static_cast<float*>(a.ws);
   WgradProblem wp[2];
-  const long long pair = wgrad_pair<D>(g, dO, MLP, 0, dm1, y2, MLP, 1, M, nullptr, wp, st);
-  const long long ln = (long long)rowblocks<2>(M) * 8 * 2 * D;
+  const long long pair = wgrad_pair<NW>(g, dO, MLP, 0, dm1, y2, MLP, 1, D, M, nullptr, wp, st);
+  // the LayerNorm partials: one per 16 rows (per warp of the kit's epilogue,
+  // rounded up to its 128-row blocks)
+  const int ln_parts = WIDE ? ln_rows_parts(M) : rowblocks<2>(M) * 8;
+  if (pair < 0) return (int)-pair;
   if (size_only) {
-    *need = pair + ln;
+    *need = pair + (long long)ln_parts * 2 * D;
     return 0;
   }
+  if (WIDE && !a.dy) return (int)cudaErrorInvalidValue;
   CUtensorMap x2m, doutm, y2m, gm, dm1m, w1m, w2m;
   LAUNCH(tensor_map(&x2m, X2, D, M, 1));
   LAUNCH(tensor_map(&doutm, dO, D, M, 1));
@@ -150,32 +183,48 @@ static int mlp_bwd_hopper_nt(const MlpBwdArgs& a, cudaStream_t st, bool size_onl
   LAUNCH(tensor_map(&w1m, a.w1, MLP, D, 1));
   LAUNCH(tensor_map(&w2m, a.w2, D, MLP, 1));
   const float* l2s = static_cast<const float*>(a.ln2_scale);
+  const float* l2b = static_cast<const float*>(a.ln2_bias);
 
   EpiArgs e1 = {};  // g and gg leave by TMA stores (gm, dm1m)
   e1.bias = static_cast<const bf16*>(a.b1);
   e1.fast_gelu = a.fast_gelu;
-  LAUNCH((launch_rowblock<2, NT, A_LN_BF16, EPI_GELU2, 1, true>(
-      x2m, w1m, gm, dm1m, y2m, X2, l2s, static_cast<const float*>(a.ln2_bias), 0, M, MLP, D, a.eps,
-      e1, st)));
+  if constexpr (WIDE) {  // y2 first, then streamed beside W1
+    LAUNCH((launch_layernorm<bf16, bf16>(X2, l2s, l2b, y2, M, D, a.eps, st)));
+    LAUNCH((launch_rowblock<2, NT, A_TMA, EPI_GELU2, 1>(y2m, w1m, gm, dm1m, y2m, nullptr,
+                                                        nullptr, nullptr, 0, M, MLP, D, a.eps,
+                                                        e1, st)));
+  } else {  // LN2 into the resident A tile, y2 out by TMA stores
+    LAUNCH((launch_rowblock<2, NT, A_LN_BF16, EPI_GELU2, 1, true>(
+        x2m, w1m, gm, dm1m, y2m, X2, l2s, l2b, 0, M, MLP, D, a.eps, e1, st)));
+  }
   EpiArgs e2 = {};  // gg arrives and dm1 leaves by TMA (dm1m)
   LAUNCH((launch_rowblock<2, NT, A_TMA, EPI_DM1, 0>(doutm, w2m, dm1m, dm1m, doutm, nullptr, nullptr,
                                                     nullptr, 0, M, MLP, D, a.eps, e2, st)));
-  LAUNCH((int)wgrad_pair<D>(g, dO, MLP, 0, dm1, y2, MLP, 1, M, ws, wp, st));
+  LAUNCH((int)wgrad_pair<NW>(g, dO, MLP, 0, dm1, y2, MLP, 1, D, M, ws, wp, st));
   float* lnp = ws + pair;
-  EpiArgs e3 = {};
-  e3.resid = dO;
-  e3.out = static_cast<bf16*>(a.dx2);
-  e3.f32 = lnp;
-  LAUNCH((launch_rowblock<2, D, A_TMA, EPI_LNBWD, 0>(dm1m, w1m, dm1m, dm1m, dm1m, X2, l2s, nullptr, 0,
-                                                     M, D, MLP, a.eps, e3, st)));
+  if constexpr (WIDE) {  // dy2 = dm1 W1^T in fp32, then the row-wise LN2 backward
+    float* dy = static_cast<float*>(a.dy);
+    EpiArgs e3 = {};
+    e3.f32 = dy;
+    LAUNCH((launch_rowblock<2, NW, A_TMA, EPI_F32, 0>(dm1m, w1m, dm1m, dm1m, dm1m, nullptr,
+                                                      nullptr, nullptr, 0, M, D, MLP, a.eps, e3,
+                                                      st)));
+    LAUNCH(launch_ln_bwd_rows<D>(X2, dy, dO, l2s, static_cast<bf16*>(a.dx2), lnp, M, a.eps, st));
+  } else {  // dy2 in registers, the LN2 backward in the epilogue
+    EpiArgs e3 = {};
+    e3.resid = dO;
+    e3.out = static_cast<bf16*>(a.dx2);
+    e3.f32 = lnp;
+    LAUNCH((launch_rowblock<2, D, A_TMA, EPI_LNBWD, 0>(dm1m, w1m, dm1m, dm1m, dm1m, X2, l2s,
+                                                       nullptr, 0, M, D, MLP, a.eps, e3, st)));
+  }
   Reductions red = {};
   Reductions* r = defer ? defer : &red;
   LAUNCH(defer_reduction(r, wgrad_reduction(wp[0], static_cast<float*>(a.gw2),
                                             static_cast<float*>(a.gb2), false)));
   LAUNCH(defer_reduction(r, wgrad_reduction(wp[1], static_cast<float*>(a.gw1),
                                             static_cast<float*>(a.gb1), true)));
-  LAUNCH(defer_reduction(r, {lnp, rowblocks<2>(M) * 8, 2 * D, D,
-                             static_cast<float*>(a.gln2_scale),
+  LAUNCH(defer_reduction(r, {lnp, ln_parts, 2 * D, D, static_cast<float*>(a.gln2_scale),
                              static_cast<float*>(a.gln2_bias), 0, 1}));
   return defer ? 0 : launch_reduce_all(red, st);
 }
@@ -188,9 +237,9 @@ static int mlp_bwd_hopper_d(const MlpBwdArgs& a, cudaStream_t st, bool size_only
   return mlp_bwd_hopper_nt<D, 64>(a, st, size_only, need, defer);
 }
 
-// The bf16 route for D <= HOPPER_BWD_MAX_D; with size_only, its workspace
-// in floats into *need and nothing launched; with `defer`, its reductions
-// left to the caller.
+// The bf16 wgmma routes (hopper_route: D <= HOPPER_BWD_MAX_D, 384, 768);
+// with size_only, the workspace in floats into *need and nothing launched;
+// with `defer`, the reductions left to the caller.
 static int mlp_bwd_hopper(const MlpBwdArgs& a, cudaStream_t st, bool size_only = false,
                           long long* need = nullptr, Reductions* defer = nullptr) {
   switch (a.D) {
@@ -198,6 +247,8 @@ static int mlp_bwd_hopper(const MlpBwdArgs& a, cudaStream_t st, bool size_only =
     case 128: return mlp_bwd_hopper_d<128>(a, st, size_only, need, defer);
     case 192: return mlp_bwd_hopper_d<192>(a, st, size_only, need, defer);
     case 256: return mlp_bwd_hopper_d<256>(a, st, size_only, need, defer);
+    case 384: return mlp_bwd_hopper_d<384>(a, st, size_only, need, defer);
+    case 768: return mlp_bwd_hopper_d<768>(a, st, size_only, need, defer);
     default: return (int)cudaErrorInvalidValue;
   }
 }

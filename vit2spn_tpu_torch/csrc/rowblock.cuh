@@ -127,16 +127,20 @@ __host__ __device__ constexpr int rb_out_bytes() {
          TMA_BOX_BYTES;
 }
 
-// weight stages in flight: two where the epilogue stages two output tiles
-template <int EPI>
+// weight stages in flight: fewer where the epilogue stages two output tiles,
+// two beside a resident LN tile, three where A streams in (the wide route's
+// y2 W1: with two, the loads of a 64-deep k-chunk outlast its products; on
+// an H100 at D = 768, B = 128 the stage took 0.69 ms where the same GEMM
+// with four stages and EPI_DM1 takes 0.28 ms)
+template <int ASRC, int EPI>
 __host__ __device__ constexpr int rb_ring() {
-  return EPI == EPI_GELU2 ? 2 : GEMM_RING;
+  return EPI == EPI_GELU2 ? (ASRC == A_TMA ? 3 : 2) : GEMM_RING;
 }
 
 template <int WG, int NT, int ASRC, int EPI>
 static int rb_smem_bytes(int K) {
   return 1024 + (ASRC == A_TMA ? 0 : K * WG * 64 * 2) + rb_out_bytes<WG, NT, EPI>() +
-         rb_ring<EPI>() * rb_stage_bytes<WG, NT, ASRC>();
+         rb_ring<ASRC, EPI>() * rb_stage_bytes<WG, NT, ASRC>();
 }
 
 // LayerNorm in place of rows lr0 .. lr0 + 15 of a K-major bf16 tile (D / 64
@@ -411,6 +415,108 @@ __device__ __forceinline__ void epi_ln_bwd(const float* acc, const bf16* __restr
   }
 }
 
+// EPI_LNBWD's function for the wide route (D > HOPPER_BWD_MAX_D), where a
+// 64 x D fp32 dy per warpgroup does not fit the registers: dy arrives from
+// device memory (the N-tiled GEMM's EPI_F32 scratch) and each warp takes 16
+// consecutive rows, as a warp of the kit's epilogue does, lane l holding
+// columns 64 i + 2 l, 64 i + 2 l + 1. Per row: fp32 statistics of the bf16
+// x row, then out = bf16(resid + rstd * (dxhat - mean(dxhat) - xhat *
+// mean(dxhat * xhat))). The column sums of dy * xhat and dy over the warp's
+// 16 rows, rows in order, go to partial[part][0 .. 2 D) (part = the warp's
+// index in the grid, rows 16 part .. 16 part + 15) for a fixed-order
+// reduction. Bound by bytes: dy in fp32, x, resid and out in bf16, each
+// moved once.
+#define LNR_WARPS 8
+
+template <int D>
+__global__ void __launch_bounds__(LNR_WARPS * 32)
+ln_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
+                   const bf16* __restrict__ resid, const float* __restrict__ scale,
+                   bf16* __restrict__ out, float* __restrict__ partial, int M, float eps) {
+  constexpr int NP = D / 64;  // column pairs per lane
+  const int lane = threadIdx.x & 31;
+  const int part = blockIdx.x * LNR_WARPS + (threadIdx.x >> 5);
+  float sc[NP][2], gs[NP][2], gb[NP][2];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const float2 s2 = *reinterpret_cast<const float2*>(scale + 64 * i + 2 * lane);
+    sc[i][0] = s2.x;
+    sc[i][1] = s2.y;
+    gs[i][0] = gs[i][1] = gb[i][0] = gb[i][1] = 0.0f;
+  }
+  const int r1 = min(16 * part + 16, M);
+  for (int row = 16 * part; row < r1; ++row) {
+    const size_t base = (size_t)row * D;
+    float xv[NP][2], dv[NP][2];
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int c = 64 * i + 2 * lane;
+      const float2 xx = load2(x + base + c);
+      const float2 dd = *reinterpret_cast<const float2*>(dy + base + c);
+      xv[i][0] = xx.x;
+      xv[i][1] = xx.y;
+      dv[i][0] = dd.x;
+      dv[i][1] = dd.y;
+      s += xx.x + xx.y;
+    }
+    const float mean = warp_sum(s) / (float)D;
+    float var = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = xv[i][e] - mean;
+        var += d * d;
+      }
+    const float rstd = rsqrtf(warp_sum(var) / (float)D + eps);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xh = (xv[i][e] - mean) * rstd;
+        const float dxh = dv[i][e] * sc[i][e];
+        gs[i][e] += dv[i][e] * xh;
+        gb[i][e] += dv[i][e];
+        xv[i][e] = xh;   // xhat from here on
+        dv[i][e] = dxh;  // dxhat from here on
+        s1 += dxh;
+        s2 += dxh * xh;
+      }
+    const float m1 = warp_sum(s1) / (float)D;
+    const float m2 = warp_sum(s2) / (float)D;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int c = 64 * i + 2 * lane;
+      const float2 r = load2(resid + base + c);
+      store2(out + base + c, r.x + rstd * (dv[i][0] - m1 - xv[i][0] * m2),
+             r.y + rstd * (dv[i][1] - m1 - xv[i][1] * m2));
+    }
+  }
+  if (16 * part >= M) return;
+  float* pr = partial + (size_t)part * 2 * D;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int c = 64 * i + 2 * lane;
+    *reinterpret_cast<float2*>(pr + c) = make_float2(gs[i][0], gs[i][1]);
+    *reinterpret_cast<float2*>(pr + D + c) = make_float2(gb[i][0], gb[i][1]);
+  }
+}
+
+// the partial sets ln_bwd_rows_kernel writes: one per 16 rows
+static int ln_rows_parts(int M) { return (M + 15) / 16; }
+
+template <int D>
+static int launch_ln_bwd_rows(const bf16* x, const float* dy, const bf16* resid,
+                              const float* scale, bf16* out, float* partial, int M, float eps,
+                              cudaStream_t st) {
+  const int parts = ln_rows_parts(M);
+  ln_bwd_rows_kernel<D><<<(parts + LNR_WARPS - 1) / LNR_WARPS, LNR_WARPS * 32, 0, st>>>(
+      x, dy, resid, scale, out, partial, M, eps);
+  return (int)cudaGetLastError();
+}
+
 // Block: WG consumer warpgroups (64 rows each) and one producer warp.
 // `layer` selects the matrix of a stacked weight map; `amap` is x's map
 // (A_LN_BF16) or A's (A_TMA); `omap` the output's where it leaves by TMA
@@ -433,7 +539,7 @@ rowblock_gemm_kernel(const __grid_constant__ CUtensorMap amap,
   constexpr int ROWS = WG * 64;
   constexpr int STAGE = rb_stage_bytes<WG, NT, ASRC>();
   constexpr int B_OFF = ASRC == A_TMA ? WG * TMA_BOX_BYTES : 0;
-  constexpr int RING = rb_ring<EPI>();
+  constexpr int RING = rb_ring<ASRC, EPI>();
   constexpr int OBOX = (NT / 64) * TMA_BOX_BYTES;  // one warpgroup's staged output tile
   __shared__ uint64_t full[RING], empty[RING], a_full, aux_full[WG], aux_empty[WG];
   extern __shared__ uint8_t raw[];

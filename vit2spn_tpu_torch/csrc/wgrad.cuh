@@ -6,12 +6,15 @@
 // their row, so A enters wgmma M-major (TA = 1: a [64 tokens][64 K1] box is
 // 16 K-steps of 64 output rows) and B N-major (TB = 1), each by TMA, 64 token
 // rows per stage. A block owns 128 rows of K1 (two consumer warpgroups of 64)
-// by NT = N columns over one split of the tokens, with a producer warp
-// feeding a ring of GEMM_RING stages; a warpgroup whose 64 rows lie past K1
-// (K1 an odd multiple of 64) only walks the ring. The bias gradient is the
-// column sums of B (bias_a = 0) or of A (bias_a = 1): the block of the first
-// K1 tile (or every block, for A's columns) sums them from the staged tiles,
-// one thread per column, rows in order, while the products run.
+// by one NT-column tile of N (N = NT up to D = 256; wgmma's N stops at 256,
+// so the wide route's N = 384 and 768 take two and four tiles of 192) over
+// one split of the tokens, with a producer warp feeding a ring of GEMM_RING
+// stages; a warpgroup whose 64 rows lie past K1 (K1 an odd multiple of 64)
+// only walks the ring. The bias gradient is the column sums of B (bias_a =
+// 0) or of A (bias_a = 1): the blocks of the first K1 tile (or of the first
+// N tile, for A's columns) sum them from the staged tiles, one thread per
+// column, rows in order, while the products run. The N tiling leaves every
+// output's order of sums as it was.
 //
 // Partials: split s writes ws[s][0 .. K1 N) (row-major (K1, N)) and
 // ws[s][K1 N ..) (the bias); reduce_all_kernel adds the splits in order and
@@ -22,22 +25,32 @@
 
 #include "rowblock.cuh"
 
-// widest D of the bf16 backward halves' wgmma route (csrc/mlp_bwd.cuh,
-// csrc/attn_bwd.cuh): its LayerNorm-backward GEMM keeps a 64 x D fp32 dy per
-// warpgroup in registers
+// widest D whose bf16 backward halves (csrc/mlp_bwd.cuh, csrc/attn_bwd.cuh)
+// keep the LayerNorm backward's 64 x D fp32 dy per warpgroup in registers
+// (EPI_LNBWD). The wide route takes D = 384 and 768 (ViT-Small and
+// ViT-Base): the same kit with N tiled in 192 columns, dy through fp32
+// scratch and a row-wise LayerNorm backward (ln_bwd_rows_kernel). Every
+// other D above 256 keeps the mma.sync sequences (*_bwd_seq<bf16>).
 #define HOPPER_BWD_MAX_D 256
 
-// the backward entry points take the kit at bf16 and D <= HOPPER_BWD_MAX_D
-static bool hopper_route(int D, int fp32) { return !fp32 && D <= HOPPER_BWD_MAX_D; }
+static bool wide_route(int D) { return D == 384 || D == 768; }
+
+// the backward entry points take the wgmma kit at bf16, D <= HOPPER_BWD_MAX_D
+// or the wide route's widths
+static bool hopper_route(int D, int fp32) {
+  return !fp32 && (D <= HOPPER_BWD_MAX_D || wide_route(D));
+}
+#define WIDE_NT 192  // the wide route's tiles of the products whose N is D
 #define WGRAD_WG 2
 #define WGRAD_SMS 132  // blocks in flight: one per SM of an H100
 
 struct WgradProblem {
   int K1, N, M;
-  int k1tiles, splits, cps;  // 128-row tiles of K1; token splits, 64-row chunks each
-  int bias_a;                // the bias sums A's columns (else B's)
-  float* ws;                 // splits x (K1 N + bias length) partials
-  __host__ __device__ int blocks() const { return k1tiles * splits; }
+  int k1tiles, ntiles, splits, cps;  // 128-row tiles of K1, NT-column tiles of N;
+                                     // token splits, 64-row chunks each
+  int bias_a;                        // the bias sums A's columns (else B's)
+  float* ws;                         // splits x (K1 N + bias length) partials
+  __host__ __device__ int blocks() const { return k1tiles * ntiles * splits; }
   __host__ __device__ int bias_len() const { return bias_a ? K1 : N; }
   __host__ __device__ size_t part_floats() const { return (size_t)K1 * N + bias_len(); }
 };
@@ -63,7 +76,8 @@ wgrad_kernel(const __grid_constant__ CUtensorMap a0map, const __grid_constant__ 
   const CUtensorMap* amap = second ? &a1map : &a0map;
   const CUtensorMap* bmap = second ? &b1map : &b0map;
   const int local = blockIdx.x - (second ? p0.blocks() : 0);
-  const int kt = local % p.k1tiles, split = local / p.k1tiles;
+  const int kt = local % p.k1tiles, nt = (local / p.k1tiles) % p.ntiles;
+  const int split = local / (p.k1tiles * p.ntiles);
   const int nchunks = (p.M + 63) / 64;
   const int c0 = split * p.cps, c1 = min(c0 + p.cps, nchunks);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -81,7 +95,7 @@ wgrad_kernel(const __grid_constant__ CUtensorMap a0map, const __grid_constant__ 
         for (int w = 0; w < WGRAD_WG; ++w)
           tma_load(st + w * TMA_BOX_BYTES, amap, bar, kt * 128 + w * 64, c * 64, 0);
         for (int j = 0; j < NT / 64; ++j)
-          tma_load(st + B_OFF + j * TMA_BOX_BYTES, bmap, bar, j * 64, c * 64, 0);
+          tma_load(st + B_OFF + j * TMA_BOX_BYTES, bmap, bar, nt * NT + j * 64, c * 64, 0);
       }
     return;
   }
@@ -89,13 +103,13 @@ wgrad_kernel(const __grid_constant__ CUtensorMap a0map, const __grid_constant__ 
   const int w = warp >> 2, wl = warp & 3;
   const bool live = kt * 128 + w * 64 < p.K1;
   // the bias column this thread sums, if any: a column of B (threads of the
-  // first K1 tile), or of this warpgroup's A box
+  // first K1 tile), or of this warpgroup's A box (blocks of the first N tile)
   int bias_col = -1, bias_out = 0, bias_box = 0;  // bias_box: its box's offset in a stage
   if (!p.bias_a && kt == 0 && tid < NT) {
     bias_col = tid & 63;
-    bias_out = tid;
+    bias_out = nt * NT + tid;
     bias_box = B_OFF + (tid >> 6) * TMA_BOX_BYTES;
-  } else if (p.bias_a && live && (tid & 127) < 64) {
+  } else if (p.bias_a && nt == 0 && live && (tid & 127) < 64) {
     bias_col = tid & 63;
     bias_out = kt * 128 + w * 64 + bias_col;
     bias_box = w * TMA_BOX_BYTES;
@@ -141,23 +155,44 @@ wgrad_kernel(const __grid_constant__ CUtensorMap a0map, const __grid_constant__ 
   const int r0 = kt * 128 + w * 64 + wl * 16 + (lane >> 2);
 #pragma unroll
   for (int i = 0; i < NT / 2; i += 2) {
-    const int gr = r0 + 8 * ((i >> 1) & 1), gc = 8 * (i >> 2) + 2 * (lane & 3);
+    const int gr = r0 + 8 * ((i >> 1) & 1), gc = nt * NT + 8 * (i >> 2) + 2 * (lane & 3);
     *reinterpret_cast<float2*>(part + (size_t)gr * p.N + gc) = make_float2(acc[i], acc[i + 1]);
   }
 }
 
-// A problem's geometry for `total_tiles` K1 tiles in its launch: splits of
-// whole 64-row chunks, enough blocks for about one per SM. Depends only on
-// the shapes.
-static WgradProblem wgrad_problem(int K1, int N, int M, int bias_a, int total_tiles) {
+// The token splits for `total_tiles` (K1, N) tiles in a launch: the count
+// from 1 to max(4, WGRAD_SMS / total_tiles) whose blocks fill their last
+// wave of WGRAD_SMS best, the smallest of equals. Up to 33 tiles (the kit's
+// every launch) that is the most that fit one wave; the wide route's pairs
+// (24 to 192 tiles) may take two or three waves of fuller blocks. Depends
+// only on the shapes.
+static int wgrad_splits_for(int total_tiles) {
+  const int most = WGRAD_SMS / total_tiles > 4 ? WGRAD_SMS / total_tiles : 4;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= most; ++s) {
+    const int blocks = s * total_tiles, waves = (blocks + WGRAD_SMS - 1) / WGRAD_SMS;
+    const double fill = (double)blocks / ((double)waves * WGRAD_SMS);
+    if (fill > best_fill + 1e-9) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return best;
+}
+
+// A problem's geometry for `total_tiles` tiles in its launch: NT-column tiles
+// of N, splits of whole 64-row chunks of the tokens.
+static WgradProblem wgrad_problem(int K1, int N, int NT, int M, int bias_a, int total_tiles) {
   WgradProblem p = {};
   p.K1 = K1;
   p.N = N;
   p.M = M;
   p.k1tiles = (K1 + 127) / 128;
+  p.ntiles = N / NT;
   p.bias_a = bias_a;
   const int nchunks = (M + 63) / 64;
-  int s = WGRAD_SMS / total_tiles;
+  int s = wgrad_splits_for(total_tiles);
   s = s < 1 ? 1 : (s > nchunks ? nchunks : s);
   p.cps = (nchunks + s - 1) / s;
   p.splits = (nchunks + p.cps - 1) / p.cps;
@@ -165,24 +200,26 @@ static WgradProblem wgrad_problem(int K1, int N, int M, int bias_a, int total_ti
 }
 
 // The two problems of one launch, (A0, B0) and (A1, B1), each A and B a
-// row-major bf16 (M, K1) and (M, N), N = NT; their partials at ws, one after
-// the other. Returns the fp32 workspace they need when `ws` is null.
+// row-major bf16 (M, K1) and (M, N), N a multiple of NT; their partials at
+// ws, one after the other. Returns the fp32 workspace they need when `ws` is
+// null.
 template <int NT>
 static long long wgrad_pair(const bf16* a0, const bf16* b0, int k0, int bias_a0, const bf16* a1,
-                            const bf16* b1, int k1, int bias_a1, int M, float* ws,
+                            const bf16* b1, int k1, int bias_a1, int N, int M, float* ws,
                             WgradProblem* out, cudaStream_t st) {
-  const int tiles = (k0 + 127) / 128 + (k1 + 127) / 128;
-  WgradProblem p0 = wgrad_problem(k0, NT, M, bias_a0, tiles);
-  WgradProblem p1 = wgrad_problem(k1, NT, M, bias_a1, tiles);
+  if (N % NT) return -(long long)cudaErrorInvalidValue;
+  const int tiles = ((k0 + 127) / 128 + (k1 + 127) / 128) * (N / NT);
+  WgradProblem p0 = wgrad_problem(k0, N, NT, M, bias_a0, tiles);
+  WgradProblem p1 = wgrad_problem(k1, N, NT, M, bias_a1, tiles);
   const size_t need = (size_t)p0.splits * p0.part_floats() + (size_t)p1.splits * p1.part_floats();
   if (!ws) return (long long)need;
   p0.ws = ws;
   p1.ws = ws + (size_t)p0.splits * p0.part_floats();
   CUtensorMap am0, bm0, am1, bm1;
   LAUNCH(tensor_map(&am0, a0, k0, M, 1));
-  LAUNCH(tensor_map(&bm0, b0, NT, M, 1));
+  LAUNCH(tensor_map(&bm0, b0, N, M, 1));
   LAUNCH(tensor_map(&am1, a1, k1, M, 1));
-  LAUNCH(tensor_map(&bm1, b1, NT, M, 1));
+  LAUNCH(tensor_map(&bm1, b1, N, M, 1));
   const int smem = 1024 + GEMM_RING * wgrad_stage_bytes<NT>();
   LAUNCH((int)cudaFuncSetAttribute(wgrad_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem));

@@ -70,9 +70,11 @@ KERNEL_MAX_D = 768
 # FUSED_MLP_MAX_D); above it the layer passes fp32 x2 and g through scratch
 FUSED_MLP_MAX_D = 256
 # widest D whose bf16 backward halves (and the merged backward, which runs
-# their stages) take the wgmma row-block kit (csrc/wgrad.cuh
-# HOPPER_BWD_MAX_D), which keeps dy in registers; above it, and in fp32,
-# they pass an fp32 dy through scratch
+# their stages) take the wgmma row-block kit with dy kept in registers
+# (csrc/wgrad.cuh HOPPER_BWD_MAX_D). Above it they pass an fp32 dy through
+# scratch: on the kit's wide route at D = 384 and 768 (ViT-Small and
+# ViT-Base: wgmma's N tiled in 192 columns, a row-wise LayerNorm backward),
+# on the mma.sync sequences at every other width, and in fp32
 HOPPER_BWD_MAX_D = 256
 
 
@@ -595,8 +597,9 @@ def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
 
 
 def _dy_scratch(x: torch.Tensor, m: int, d: int) -> Optional[torch.Tensor]:
-    """The fp32 dy a backward half passes through device memory: only off
-    the wgmma route (fp32, or D above HOPPER_BWD_MAX_D), else None."""
+    """The fp32 dy a backward half passes through device memory: fp32, or
+    D above HOPPER_BWD_MAX_D (the wide route and the sequences), else
+    None."""
     if x.dtype == torch.bfloat16 and d <= HOPPER_BWD_MAX_D:
         return None
     return torch.empty((m, d), dtype=torch.float32, device=x.device)
@@ -615,7 +618,9 @@ def mlp_bwd(x2: torch.Tensor, dout: torch.Tensor, w: dict, eps: float,
 
     CUDA tensors go through csrc/mlp_bwd.cu (bf16 or fp32; anything it does
     not take raises), CPU tensors through `mlp_bwd_plain`. The gradients are
-    written into `out` when it is given."""
+    written into `out` when it is given. Its bf16 routes: the wgmma row-block kit at D <=
+    HOPPER_BWD_MAX_D, its wide route at D = 384 and 768 (ViT-Small and
+    ViT-Base), the mma.sync sequences at every other D above 256."""
     if x2.device.type == "cpu":
         dx2, grads = mlp_bwd_plain(x2, dout, w, eps, fast_gelu)
         return dx2, _write(grads, out)
@@ -654,7 +659,9 @@ def attn_bwd(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int, eps: float
 
     CUDA tensors go through csrc/attn_bwd.cu (bf16 or fp32; anything it
     does not take raises), CPU tensors through `attn_bwd_plain`. The
-    gradients are written into `out` when it is given."""
+    gradients are written into `out` when it is given. Its bf16 routes: the wgmma row-block kit at D <=
+    HOPPER_BWD_MAX_D, its wide route at D = 384 and 768 (ViT-Small and
+    ViT-Base), the mma.sync sequences at every other D above 256."""
     if x.device.type == "cpu":
         dx, grads = attn_bwd_plain(x, dx2, w, heads, eps)
         return dx, _write(grads, out)
@@ -697,7 +704,8 @@ def merged_bwd(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict, h
 
     CUDA tensors go through csrc/merged_bwd.cu (bf16 or fp32; anything it
     does not take raises), CPU tensors through `merged_bwd_plain`. The
-    gradients are written into `out` when it is given."""
+    gradients are written into `out` when it is given. It runs the two
+    halves' own routes (see `mlp_bwd`), so its bits equal theirs."""
     if x.device.type == "cpu":
         dx, grads = merged_bwd_plain(x, x2, dout, w, heads, eps, fast_gelu)
         return dx, _write(grads, out)
