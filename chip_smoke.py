@@ -18,7 +18,8 @@ script exits non-zero without printing a result:
      mlp 768, S=197, B=256, bf16), both gelu forms and both emit_res
      settings, and at a few other shapes it takes (ragged batches, short and
      256-token sequences, D = 256, the widest layer kept in one block, and
-     the ViT-Small and ViT-Base widths, which take the five-launch layer);
+     the ViT-Small and ViT-Base widths, which take the seven-launch wide
+     route);
   4. the two backward kernels (one layer's MLP half and attention half)
      against their plain twins at the training shape (ViT-Tiny, B=128), both
      gelu forms, dx and every weight gradient, and as close to an fp32
@@ -159,7 +160,13 @@ script exits non-zero without printing a result:
      twins), a ragged B, S = 17 and 256; merged equal to the split pair bit
      for bit; two runs of each giving equal bits; one call of each with its
      counter, its CUDA launches (7, 7, 13) and no mma.sync GEMM in the
-     trace of ten calls; (b) `ssp-scratch -o vit=<name>` training (8 x 128, bf16, 224 px
+     trace of ten calls; the forward's wide route the same way:
+     fused_backbone (12 layers, with and without emit_res) and layer_fwd
+     against their twins at every shape, as close to fp32 as the twins at
+     B=128, and at D = 512 (8 heads, mlp 2048, tile_gemm's 128-column
+     tiles), 12 fused_block calls equal to one fused_backbone bit for bit,
+     two runs equal, one call of each with its counter and its CUDA
+     launches (84, 7); (b) `ssp-scratch -o vit=<name>` training (8 x 128, bf16, 224 px
      from 28 px sources): step 1 of "fused" against "xla" from one state
      (the moments within phase 9's tolerances; fused as close to the fp32
      step as "xla" is), then `fit` of two "fused" steps and one merged step with the counters
@@ -171,10 +178,11 @@ script exits non-zero without printing a result:
      to 2 folds and 1 epoch, each with its predicted launches; (e) the
      times of backbone_fwd (B=256), layer_fwd, mlp_bwd, attn_bwd and
      merged_bwd (B=128) at both widths beside their twins, library
-     yardsticks and bounds, and each backward's device time by stage.
+     yardsticks and bounds, each backward's device time by stage, and the
+     B=256 forward's device time by launch with each GEMM's TFLOP/s.
      `python3 chip_smoke.py --zoo-times` runs the build and (e) alone, for
-     timing another tree's kernels with the same code (the parent's
-     mma.sync sequences in PERF.md were measured so).
+     timing another tree's kernels with the same code (the parents' routes
+     in PERF.md were measured so).
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
@@ -809,10 +817,10 @@ def check_flash(tag, q, k, v, do) -> dict:
     return worst
 
 
-def check_layer_fwd(tag, fb, x, w, heads, eps, fast) -> float:
+def check_layer_fwd(tag, fb, x, w, heads, eps, fast, against_fp32=True) -> float:
     """The one-layer forward kernel against `layer_forward_plain` (out and
-    x2), and as close to an fp32 layer as the twin. Returns the largest
-    absolute difference."""
+    x2), and (`against_fp32`) as close to an fp32 layer as the twin. Returns
+    the largest absolute difference."""
     got = fb.layer_fwd(x, w, heads, eps, fast)
     torch.cuda.synchronize()
     ref = fb.layer_forward_plain(x, w, heads, eps, fast)
@@ -827,9 +835,42 @@ def check_layer_fwd(tag, fb, x, w, heads, eps, fast) -> float:
             f"{KERNEL_MAX_ABS_TOL}, mean {KERNEL_MEAN_ABS_TOL}, ratio {KERNEL_VS_FP32_RATIO})")
         if not (mx <= KERNEL_MAX_ABS_TOL and mean <= KERNEL_MEAN_ABS_TOL):
             raise AssertionError(f"layer kernel disagrees with its plain twin ({tag}, {name})")
-        if not e_k <= KERNEL_VS_FP32_RATIO * e_t:
+        if against_fp32 and not e_k <= KERNEL_VS_FP32_RATIO * e_t:
             raise AssertionError(f"layer kernel is less accurate than its twin ({tag}, {name})")
         worst = max(worst, mx)
+    return worst
+
+
+def check_backbone_fwd(tag, fb, x, wt, heads, eps, fast) -> float:
+    """The backbone forward kernel against `backbone_forward_plain` at a wide
+    route's width (phase 14 (a)), with and without the emit_res stacks:
+    max and mean differences within ZOO_FWD_REL_TOL of the twin's largest
+    magnitude, and the kernel's output as close to an fp32 forward of the
+    same weights as the twin's (KERNEL_VS_FP32_RATIO), at every shape.
+    Returns the largest absolute difference."""
+    max_tol, mean_tol = ZOO_FWD_REL_TOL
+    worst = 0.0
+    ref32 = fb.backbone_forward_plain(x.float(), tuple(t.float() for t in wt), heads, eps, fast)
+    for emit in (False, True):
+        got = fb.fused_backbone(x, wt, heads, eps, fast, emit)
+        torch.cuda.synchronize()
+        ref = fb.backbone_forward_plain(x, wt, heads, eps, fast, emit)
+        got, ref = (got, ref) if emit else ((got,), (ref,))
+        for name, a, b in zip(("out", "xs", "x2s"), got, ref):
+            mx, mean = rel_err(a, b)
+            big = float(b.float().abs().max())
+            log(f"[backbone_fwd-vs-plain] {tag} emit_res={emit} {name}: max_abs_err "
+                f"{mx * big:.6g} mean_abs_err {mean * big:.3g}, relative to max |ref| {big:.4g}: "
+                f"{mx:.3g} / {mean:.3g} (tol {max_tol}, {mean_tol})")
+            if not (mx <= max_tol and mean <= mean_tol):
+                raise AssertionError(f"backbone kernel disagrees with its twin ({tag}, {name})")
+            worst = max(worst, mx * big)
+        e_k = float((got[0].float() - ref32).abs().mean())
+        e_t = float((ref[0].float() - ref32).abs().mean())
+        log(f"[backbone_fwd-vs-fp32] {tag} emit_res={emit}: mean_abs_err kernel {e_k:.6g}, "
+            f"twin {e_t:.6g} (tol ratio {KERNEL_VS_FP32_RATIO})")
+        if not e_k <= KERNEL_VS_FP32_RATIO * e_t:
+            raise AssertionError(f"backbone kernel is less accurate than its twin ({tag})")
     return worst
 
 
@@ -2177,9 +2218,25 @@ ZOO = (("ViT-Small", "small", 384, 6, 1536), ("ViT-Base", "base", 768, 12, 3072)
 # the determinism and launch checks at the last
 ZOO_SHAPES = ((7, 197, False), (3, 17, True), (2, 256, False), (128, 197, False),
               (128, 197, True))
-# CUDA launches of one call on the wide route (csrc/*_bwd.cu): the split
-# halves 7 each, merged one reduction fewer, none of common.cuh's mma.sync GEMM
-ZOO_CUDA_LAUNCHES = {"mlp_bwd": 7, "attn_bwd": 7, "merged_bwd": 13}
+# CUDA launches of one call on the wide routes, none of common.cuh's mma.sync
+# GEMM: the backward's (csrc/*_bwd.cu) split halves 7 each, merged one
+# reduction fewer; the forward's (csrc/layer_fwd.cuh) 7 a layer, 12 layers in
+# one backbone call
+ZOO_CUDA_LAUNCHES = {"mlp_bwd": 7, "attn_bwd": 7, "merged_bwd": 13, "backbone_fwd": 84,
+                     "layer_fwd": 7}
+# (a)'s forward also at D = 512 (8 heads, mlp 2048), ragged B: there Wo, W2
+# (N = 512) and W1 (N = 2048) are no multiple of 192, so tile_gemm takes its
+# 128-column tiles
+ZOO_FWD_EXTRA = ("D=512", 512, 8, 2048, ((7, 197, False), (3, 17, True)))
+# (a)'s 12-layer backbone forward vs its twin, relative to the twin's largest
+# magnitude (the phase's backward tolerances): phase 3's absolute bounds were
+# set at ViT-Tiny, where the two sit 1.3e-3 apart on average. At wider D the
+# two bf16 computations drift further apart over 12 layers while each stays
+# as far from the fp32 forward as the other (H100, mean over the outputs:
+# 3.3e-3 apart at ViT-Small, 7.8e-3 at ViT-Base, each 4.9e-3 / 7.7e-3 from
+# fp32; the route before tile_gemm read the same to 2 digits). So every shape
+# also holds the kernel as close to fp32 as the twin (KERNEL_VS_FP32_RATIO).
+ZOO_FWD_REL_TOL = (2e-2, 2e-3)
 ZOO_TRAIN_IMAGES = 2048  # (b): two optimizer steps of 8 x 128 per width
 ZOO_EXTRACT_IMAGES = 1024  # (c): four batches of 256
 ZOO_CLI_SPLITS = {"train": 3072, "val": 256, "test": 512}  # (d): three SSP steps
@@ -2219,31 +2276,98 @@ def zoo_kernels(fb, dev) -> dict:
                  "attn_bwd": lambda: fb.attn_bwd(x, g, w, heads, eps),
                  "merged_bwd": lambda: fb.merged_bwd(x, x2, g, w, heads, eps, True)}
         for name, fn in calls.items():
-            runs = [fn() for _ in range(2)]
-            torch.cuda.synchronize()
-            same = torch.equal(runs[0][0], runs[1][0]) and all(
-                torch.equal(runs[0][1][n], runs[1][1][n]) for n in runs[0][1])
-            reset_launches()
-            fn()
-            torch.cuda.synchronize()
-            counts = read_launches()
-            n_cuda = fb.cuda_launches(name, None, d, 0)
-            totals = {}  # STAGE_CALLS calls: the trace may drop a run's first launches
-            stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)], totals=totals)
-            mma_sync = [k for k in totals.get("kernels", {}) if k.startswith("void gemm_kernel<")]
-            log(f"[zoo] {label} {name} B={b} S={s}: two runs bitwise equal {same}; one call: "
-                f"counter {counts[name]}, {n_cuda} CUDA launches (want "
-                f"{ZOO_CUDA_LAUNCHES[name]}); kernels traced over {STAGE_CALLS} calls "
-                f"{sorted(k.split('(')[0] for k in totals.get('kernels', {}))}")
-            if not same:
-                raise AssertionError(f"{name} at D={d} is not deterministic")
-            if counts[name] != 1 or any(n for k, n in counts.items() if k != name):
-                raise AssertionError(f"one {name} call at D={d} launched {counts}")
-            if n_cuda != ZOO_CUDA_LAUNCHES[name] or mma_sync or "kernels" not in totals:
-                raise AssertionError(f"{name} at D={d}: {n_cuda} CUDA launches, mma.sync GEMMs "
-                                     f"{mma_sync}, traced {totals.get('kernels')}")
+            check_zoo_call(f"{label} {name} B={b} S={s}", name, fn, d,
+                           fb.cuda_launches(name, None, d, 0))
         errs[d] = worst
-        del w, x, x2, g, runs
+        del w, x, x2, g
+        torch.cuda.empty_cache()
+    return errs
+
+
+def tensors_of(out) -> list:
+    """The tensors of a wrapper's result (a tensor, or tuples and dicts of
+    them), in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in tensors_of(out[k])]
+    return [t for o in out for t in tensors_of(o)]
+
+
+def check_zoo_call(tag, name, fn, d, n_cuda) -> None:
+    """Phase 14 (a)'s checks of one wrapper call `fn` of kernel `name` at
+    width d: two runs give equal bits; one call raises its counter by 1 and
+    no other; the C entry point's CUDA launches (`n_cuda`) equal
+    ZOO_CUDA_LAUNCHES; no `gemm_kernel` (common.cuh's mma.sync GEMM) in a
+    trace of STAGE_CALLS calls (the trace may drop a run's first launches)."""
+    runs = [tensors_of(fn()) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs
+    reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    totals = {}
+    stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)], totals=totals)
+    mma_sync = [k for k in totals.get("kernels", {}) if k.startswith("void gemm_kernel<")]
+    log(f"[zoo] {tag}: two runs bitwise equal {same}; one call: counter {counts[name]}, "
+        f"{n_cuda} CUDA launches (want {ZOO_CUDA_LAUNCHES[name]}); kernels traced over "
+        f"{STAGE_CALLS} calls {sorted(k.split('(')[0] for k in totals.get('kernels', {}))}")
+    if not same:
+        raise AssertionError(f"{name} at D={d} is not deterministic")
+    if counts[name] != 1 or any(n for k, n in counts.items() if k != name):
+        raise AssertionError(f"one {name} call at D={d} launched {counts}")
+    if n_cuda != ZOO_CUDA_LAUNCHES[name] or mma_sync or "kernels" not in totals:
+        raise AssertionError(f"{name} at D={d}: {n_cuda} CUDA launches, mma.sync GEMMs "
+                             f"{mma_sync}, traced {totals.get('kernels')}")
+
+
+def zoo_forward(fb, dev) -> dict:
+    """Phase 14 (a), the forward's wide route: at each ZOO width and
+    ZOO_SHAPES, and at ZOO_FWD_EXTRA, fused_backbone (12 layers, with and
+    without emit_res) against its twin under ZOO_FWD_REL_TOL and as close to
+    fp32 as the twin, layer_fwd against its twin under phase 3's tolerances
+    and at B=128 as close to fp32 as the twin; 12 fused_block
+    calls equal to one fused_backbone bit for bit; two runs of each giving
+    equal bits; one call of each with its counter, its CUDA launches
+    (ZOO_CUDA_LAUNCHES) and no `gemm_kernel` (common.cuh's mma.sync GEMM) in
+    its trace. Returns {D: {kernel: largest absolute difference from the
+    twin}}."""
+    eps, errs = 1e-12, {}
+    widths = [(label, d, heads, mlp, ZOO_SHAPES) for label, _, d, heads, mlp in ZOO]
+    for label, d, heads, mlp, shapes in widths + [ZOO_FWD_EXTRA]:
+        gen = torch.Generator().manual_seed(SEED + 140 + d)
+        wt = random_backbone(gen, 12, d, mlp, dev)
+        w0 = tuple(t[0] for t in wt)
+        worst = {"backbone_fwd": 0.0, "layer_fwd": 0.0}
+        for b, s, fast in shapes:
+            x = torch.randn(b, s, d, generator=gen).to(torch.bfloat16).to(dev)
+            tag = f"{label} B={b} S={s} D={d} heads={heads} mlp={mlp} fast_gelu={fast}"
+            worst["backbone_fwd"] = max(worst["backbone_fwd"], check_backbone_fwd(
+                tag, fb, x, wt, heads, eps, fast))
+            worst["layer_fwd"] = max(worst["layer_fwd"], check_layer_fwd(
+                tag, fb, x, w0, heads, eps, fast, b == TRAIN_BATCH))
+        with torch.no_grad():
+            h = x
+            for l in range(12):
+                h = fb.fused_block(h, tuple(t[l] for t in wt), heads, eps, fast)
+            hb = fb.fused_backbone(x, wt, heads, eps, fast)
+            torch.cuda.synchronize()
+        share = equal_bits(h, hb)
+        log(f"[zoo] {label} B={b} S={s} fast_gelu={fast}: 12 fused_block calls vs one "
+            f"fused_backbone: {100.0 * share:.4f}% of the outputs equal bit for bit (must be "
+            f"100%: one layer code)")
+        if share != 1.0:
+            raise AssertionError(f"the per-layer forward differs from the backbone at D={d}")
+        calls = {"backbone_fwd": lambda: fb.fused_backbone(x, wt, heads, eps, fast, True),
+                 "layer_fwd": lambda: fb.layer_fwd(x, w0, heads, eps, fast)}
+        n_cuda = {"backbone_fwd": 12 * fb.kernel_launches_per_layer(d),
+                  "layer_fwd": fb.cuda_launches("layer_fwd", None, d, 0)}
+        for name, fn in calls.items():
+            check_zoo_call(f"{label} {name} B={b} S={s}", name, fn, d, n_cuda[name])
+        errs[d] = worst
+        del wt, w0, x, h, hb
         torch.cuda.empty_cache()
     return errs
 
@@ -2482,17 +2606,74 @@ def zoo_cli(card) -> None:
 
 
 def zoo_path(fb, card, dev) -> list:
-    """Phase 14, the model zoo: (a) the wide backward route against its
-    twins, (b) SSP training, (c) extract, (d) the CLI chain at ViT-Small,
+    """Phase 14, the model zoo: (a) the wide backward and forward routes
+    against their twins, (b) SSP training, (c) extract, (d) the CLI chain at ViT-Small,
     (e) the times. Returns (e)'s {"kernels": [...]} entries."""
     t_phase = time.perf_counter()
     errs = zoo_kernels(fb, dev)
+    for d, e in zoo_forward(fb, dev).items():
+        errs.setdefault(d, {}).update(e)
     launches = zoo_training(card)
     zoo_extract(card)
     zoo_cli(card)
     entries = zoo_times(fb, card, dev, launches, errs)
     log(f"[zoo] phase 14 in {time.perf_counter() - t_phase:.1f} s")
     return entries
+
+
+# The forward's GEMMs (csrc/layer_fwd.cuh) by their epilogue, common.cuh's
+# EPI_* code; the row-block kit's (the route before tile_gemm) with the
+# LayerNorm its A tile came from (ASRC 0: LN1 of bf16 x, 1: LN2 of fp32 x2)
+FWD_GEMMS = {0: "QKV", 1: "Wo + residual", 2: "W1 + gelu", 3: "W2 + residual"}
+
+
+def forward_stage(name: str, b, s, d, mlp):
+    """(stage, FLOPs, bytes) of one launch of the forward's CUDA kernel
+    `name` over B images: a GEMM's or the attention's FLOPs, a LayerNorm's
+    bytes (its input read once, bf16 y written once); None for a kernel of
+    no forward stage."""
+    m = b * s
+    flops = {0: 2 * m * d * 3 * d, 1: 2 * m * d * d, 2: 2 * m * d * mlp, 3: 2 * m * mlp * d}
+    g = re.match(r"void (tile_gemm_kernel|rowblock_gemm_kernel)<([^>]*)>", name)
+    if g:
+        args = [a.strip() for a in g.group(2).split(",")]
+        if g.group(1) == "tile_gemm_kernel":
+            return FWD_GEMMS[int(args[1])], flops[int(args[1])], 0
+        ln = ("LN1 + ", "LN2 + ", "")[int(args[2])]
+        return ln + FWD_GEMMS[int(args[3])], flops[int(args[3])], 0
+    if "attention_kernel" in name:
+        return "attention", 4 * b * s * s * d, 0
+    if name.startswith("void layernorm_kernel<__nv_bfloat16"):
+        return "LN1", 0, 4 * m * d
+    if name.startswith("void layernorm_kernel<float"):
+        return "LN2", 0, 6 * m * d
+    return None
+
+
+def forward_by_stage(fn, b, s, d, mlp, label, card, calls: int = 3) -> None:
+    """Phase 14 (e): a B-image backbone forward's device time by launch, from
+    a torch.profiler trace of `calls` calls (the trace may drop a run's first
+    launches, so each kernel's time a launch is its traced time over its
+    traced launches), with each GEMM's and the attention's TFLOP/s and the
+    LayerNorms' GB/s."""
+    totals = {}
+    stage_breakdown(lambda: [fn() for _ in range(calls)], totals=totals)
+    rows = []
+    for name, (ms, n) in totals.get("kernels", {}).items():
+        stage = forward_stage(name, b, s, d, mlp)
+        if stage is not None:
+            rows.append((stage[0], ms / n, n, stage[1], stage[2]))
+    if not rows:
+        log(f"[zoo-stage] {label} forward B={b}: the trace holds no device time: not measured")
+        return
+    layer = sum(r[1] for r in rows)
+    for stage, t, n, flops, nbytes in sorted(rows, key=lambda r: -r[1]):
+        rate = (f"{flops / (t * 1e-3) / 1e12:.1f} TFLOP/s" if flops
+                else f"{nbytes / (t * 1e-3) / 1e9:.0f} GB/s")
+        log(f"[zoo-stage] {label} forward B={b}: {stage:18s} {t:.4f} ms a launch ({n} traced), "
+            f"{100 * t / layer:.1f}% of a layer, {rate}; {card}")
+    log(f"[zoo-stage] {label} forward B={b}: {len(rows)} launches a layer, {layer:.4f} ms, x 12 "
+        f"layers = {12 * layer:.3f} ms of device time; {card}")
 
 
 def zoo_times(fb, card, dev, launches=None, errs=None) -> list:
@@ -2569,11 +2750,11 @@ def zoo_times(fb, card, dev, launches=None, errs=None) -> list:
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": l_ms, "cuda_launches": n_cuda, "dtype": "bfloat16",
             })
-        for name, fn in (("backbone_fwd B=256", timed[0][5]), ("mlp_bwd", timed[2][5]),
-                         ("attn_bwd", timed[3][5]), ("merged_bwd", timed[4][5])):
-            calls = 1 if name.startswith("backbone") else STAGE_CALLS
-            for line in stage_breakdown(lambda: [fn() for _ in range(calls)],
-                                        f"{label} {name} by stage, {calls} call(s)", top=12):
+        forward_by_stage(timed[0][5], BATCH, s, d, mlp, label, card)
+        for name, fn in (("mlp_bwd", timed[2][5]), ("attn_bwd", timed[3][5]),
+                         ("merged_bwd", timed[4][5])):
+            for line in stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)],
+                                        f"{label} {name} by stage, {STAGE_CALLS} calls", top=12):
                 log(line)
         del wt, x, xb, x2b, gb, wl, w0, timed
         torch.cuda.empty_cache()
@@ -2677,7 +2858,7 @@ def main() -> int:
         del ref32
     # other shapes the kernel takes: ragged M, S < 16 and S = 256, D = 256
     # (the widest layer kept in one block), the ViT-Small and ViT-Base widths
-    # (the five-launch layer); 1-2 layers, so the same bounds hold
+    # (the seven-launch wide route); 1-2 layers, so the same bounds hold
     for b_, s_, d_, h_, m_, l_ in ((3, 5, 192, 3, 768, 2), (2, 50, 384, 6, 1536, 2),
                                    (1, 256, 192, 3, 768, 1), (5, 17, 768, 12, 3072, 1),
                                    (2, 40, 256, 4, 1024, 1)):

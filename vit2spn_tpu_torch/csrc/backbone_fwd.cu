@@ -17,7 +17,8 @@
 //
 // What bounds it, and the design: see csrc/layer_fwd.cuh, whose layer code
 // this source runs for every layer: three launches per layer for D <= 256
-// (LN1 + QKV, attention, Wo through W2 with LN2 and gelu), five above. The
+// (LN1 + QKV, attention, Wo through W2 with LN2 and gelu), seven above
+// (LN1, QKV, attention, Wo, LN2, W1 with gelu, W2). The
 // weight matrices are read through TMA maps of the stacked arrays, built
 // once per call, the layer as their third coordinate. fp32
 // (compute_dtype=float32): the seven-launch CUDA-core layer of
@@ -31,15 +32,15 @@
 // Host entry: the layer loop on the caller's stream
 // ---------------------------------------------------------------------------
 
-// qkv_buf holds B * S rows of 3 * D, att_buf B * S rows of D; x2_buf (fp32) and
-// g_buf (B * S rows of MLP) are read only above FUSED_MLP_MAX_D and may be
-// null below it.
+// qkv_buf holds B * S rows of 3 * D, att_buf B * S rows of D; y_buf (bf16)
+// and x2_buf (fp32), B * S rows of D, and g_buf (B * S rows of MLP) are used
+// only above FUSED_MLP_MAX_D and may be null below it.
 extern "C" int vit2spn_backbone_fwd(
     const void* x, void* out, void* xs, void* x2s,
     const void* ln1_scale, const void* ln1_bias, const void* wqkv, const void* bqkv,
     const void* wo, const void* bo, const void* ln2_scale, const void* ln2_bias,
     const void* w1, const void* b1, const void* w2, const void* b2,
-    void* qkv_buf, void* att_buf, void* x2_buf, void* g_buf,
+    void* qkv_buf, void* att_buf, void* y_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, int L, float eps, int fast_gelu,
     void* stream) {
   if (L <= 0 || !layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
@@ -49,17 +50,17 @@ extern "C" int vit2spn_backbone_fwd(
                        ln2_scale, ln2_bias, w1, b1, w2, b2};
   bf16* o = static_cast<bf16*>(out);
   bf16* qkv = static_cast<bf16*>(qkv_buf);
-  bf16* att = static_cast<bf16*>(att_buf);
-  bf16* g = static_cast<bf16*>(g_buf);
+  bf16* y = static_cast<bf16*>(y_buf);
   LayerMaps maps;
-  LAUNCH(layer_maps(&maps, w, L, D, MLP, B, S, static_cast<const bf16*>(x), o, qkv, att, g));
+  LAUNCH(layer_maps(&maps, w, L, D, MLP, B, S, static_cast<const bf16*>(x), o, qkv,
+                    static_cast<const bf16*>(att_buf), y, static_cast<const bf16*>(g_buf)));
   for (int l = 0; l < L; ++l) {
     // layer 0 reads the caller's input; later layers update `out` in place
     const bf16* cur = (l == 0) ? static_cast<const bf16*>(x) : o;
-    LAUNCH(launch_layer(cur, o, xs ? static_cast<bf16*>(xs) + l * M * D : nullptr,
+    LAUNCH(launch_layer(cur, xs ? static_cast<bf16*>(xs) + l * M * D : nullptr,
                         x2s ? static_cast<bf16*>(x2s) + l * M * D : nullptr,
-                        layer_weights(w, l, D, MLP), maps, l, qkv,
-                        static_cast<float*>(x2_buf), g, B, S, D, H, MLP, eps, fast_gelu, st));
+                        layer_weights(w, l, D, MLP), maps, l, qkv, y,
+                        static_cast<float*>(x2_buf), B, S, D, H, MLP, eps, fast_gelu, st));
   }
   return (int)cudaSuccess;
 }

@@ -10,9 +10,10 @@
 //
 // So this source runs the layer code of csrc/layer_fwd.cuh once, the code
 // csrc/backbone_fwd.cu runs for every layer (the header says what bounds it
-// and why it is built as it is): three launches for D <= 256 (LN1 + QKV, attention, Wo through
-// W2), five above, on the caller's stream; a loop of these calls gives the
-// backbone kernel's output bit for bit. x2 is written as bf16 by the same
+// and why it is built as it is): three launches for D <= 256 (LN1 + QKV,
+// attention, Wo through W2), seven above (two LayerNorms and four GEMMs
+// beside the attention), on the caller's stream; a loop of these calls gives
+// the backbone kernel's output bit for bit. x2 is written as bf16 by the same
 // epilogue that writes the backbone's x2s stack. fp32 (compute_dtype=
 // float32): the seven-launch CUDA-core layer of csrc/layer_fwd_f32.cuh, the
 // backbone's fp32 layer code. Limits: head_dim 64, S <= 256, D <= 768, D and
@@ -23,28 +24,28 @@
 
 // x, out: (B * S, D) bf16; x2 (optional): (B * S, D) bf16; weights as one
 // layer's slices of the stacked arrays. Scratch as launch_layer's: qkv_buf
-// (B * S rows of 3 D), att_buf, and above FUSED_MLP_MAX_D x2_buf (fp32) and
-// g_buf (null below it).
+// (B * S rows of 3 D), att_buf, and above FUSED_MLP_MAX_D y_buf (bf16),
+// x2_buf (fp32) and g_buf (null below it).
 extern "C" int vit2spn_layer_fwd(
     const void* x, void* out, void* x2,
     const void* ln1_scale, const void* ln1_bias, const void* wqkv, const void* bqkv,
     const void* wo, const void* bo, const void* ln2_scale, const void* ln2_bias,
     const void* w1, const void* b1, const void* w2, const void* b2,
-    void* qkv_buf, void* att_buf, void* x2_buf, void* g_buf,
+    void* qkv_buf, void* att_buf, void* y_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, float eps, int fast_gelu, void* stream) {
   if (!layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
                        ln2_scale, ln2_bias, w1, b1, w2, b2};
   bf16* qkv = static_cast<bf16*>(qkv_buf);
-  bf16* att = static_cast<bf16*>(att_buf);
-  bf16* g = static_cast<bf16*>(g_buf);
+  bf16* y = static_cast<bf16*>(y_buf);
   LayerMaps maps;
   LAUNCH(layer_maps(&maps, w, 1, D, MLP, B, S, static_cast<const bf16*>(x),
-                    static_cast<const bf16*>(out), qkv, att, g));
-  return launch_layer(static_cast<const bf16*>(x), static_cast<bf16*>(out), nullptr,
-                      static_cast<bf16*>(x2), layer_weights(w, 0, D, MLP), maps, 0, qkv,
-                      static_cast<float*>(x2_buf), g, B, S, D, H, MLP, eps, fast_gelu, st);
+                    static_cast<const bf16*>(out), qkv, static_cast<const bf16*>(att_buf), y,
+                    static_cast<const bf16*>(g_buf)));
+  return launch_layer(static_cast<const bf16*>(x), nullptr, static_cast<bf16*>(x2),
+                      layer_weights(w, 0, D, MLP), maps, 0, qkv, y,
+                      static_cast<float*>(x2_buf), B, S, D, H, MLP, eps, fast_gelu, st);
 }
 
 extern "C" int vit2spn_layer_fwd_launches(int D, int fp32) {
@@ -70,19 +71,24 @@ extern "C" int vit2spn_layer_fwd_f32(
                           MLP, eps, fast_gelu, static_cast<cudaStream_t>(stream));
 }
 
-// dynamic shared memory per block of kernel 0 (LN1 + QKV), 1 (attention at
-// S) or 2 (Wo through W2; above FUSED_MLP_MAX_D the largest of its three
-// row-block GEMMs)
+// dynamic shared memory per block of kernel 0 (LN1 + QKV; above
+// FUSED_MLP_MAX_D the QKV GEMM), 1 (attention at S) or 2 (Wo through W2;
+// above FUSED_MLP_MAX_D the largest of their three GEMMs)
 extern "C" int vit2spn_layer_fwd_smem_bytes(int S, int D, int kernel) {
+  if (kernel == 1) return attention_smem_bytes(S);
   if (kernel == 0)
     return D <= FUSED_MLP_MAX_D ? rb_smem_bytes<QKV_WG, QKV_NT, A_LN_BF16, EPI_BIAS>(D)
-                                : rb_smem_bytes<1, QKV_NT, A_LN_BF16, EPI_BIAS>(D);
-  if (kernel == 1) return attention_smem_bytes(S);
+                                : tile_gemm_smem_bytes<EPI_BIAS>(3 * D);
   switch (D) {
     case 64: return MlpTile<64>::SMEM;
     case 128: return MlpTile<128>::SMEM;
     case 192: return MlpTile<192>::SMEM;
     case 256: return MlpTile<256>::SMEM;
-    default: return rb_smem_bytes<1, 64, A_LN_F32, EPI_GELU>(D);
+    default: break;
   }
+  // MLP: the widths of W1 (mlp columns) and of Wo and W2 (D columns) at the
+  // caller's D; the largest of the three at mlp = 4 D
+  const int a = tile_gemm_smem_bytes<EPI_RESID>(D), b = tile_gemm_smem_bytes<EPI_GELU>(4 * D),
+            c = tile_gemm_smem_bytes<EPI_OUT>(D);
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }

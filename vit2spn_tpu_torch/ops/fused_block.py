@@ -67,7 +67,8 @@ KERNEL_HEAD_DIM = 64
 KERNEL_MAX_SEQ = 256
 KERNEL_MAX_D = 768
 # widest D whose layer keeps x2, y2 and g inside one block (csrc/layer_fwd.cuh
-# FUSED_MLP_MAX_D); above it the layer passes fp32 x2 and g through scratch
+# FUSED_MLP_MAX_D); above it the layer runs two LayerNorms and four GEMMs
+# (csrc/tile_gemm.cuh) and passes y, fp32 x2 and g through scratch
 FUSED_MLP_MAX_D = 256
 # widest D whose bf16 backward halves (and the merged backward, which runs
 # their stages) take the wgmma row-block kit with dy kept in registers
@@ -454,7 +455,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # every C entry point: (argtypes, restype)
 _SIGNATURES = {
     KERNEL_NAME: {
-        "vit2spn_backbone_fwd": ([_P] * 20 + [_I] * 6 + [_F, _I, _P], _I),
+        "vit2spn_backbone_fwd": ([_P] * 21 + [_I] * 6 + [_F, _I, _P], _I),
         "vit2spn_backbone_fwd_f32": ([_P] * 21 + [_I] * 6 + [_F, _I, _P], _I),
         "vit2spn_backbone_fwd_launches_per_layer": ([_I] * 2, _I),
     },
@@ -471,7 +472,7 @@ _SIGNATURES = {
         "vit2spn_attn_bwd_launches": ([_I] * 2, _I),
     },
     "layer_fwd": {
-        "vit2spn_layer_fwd": ([_P] * 19 + [_I] * 5 + [_F, _I, _P], _I),
+        "vit2spn_layer_fwd": ([_P] * 20 + [_I] * 5 + [_F, _I, _P], _I),
         "vit2spn_layer_fwd_f32": ([_P] * 20 + [_I] * 5 + [_F, _I, _P], _I),
         "vit2spn_layer_fwd_launches": ([_I] * 2, _I),
         "vit2spn_layer_fwd_smem_bytes": ([_I] * 3, _I),
@@ -543,13 +544,14 @@ def layer_fwd_smem_bytes(s: int, d: int, kernel: str) -> int:
 
 def _layer_scratch(m: int, d: int, mlp: int, dev) -> tuple:
     """The bf16 forward layer's scratch: qkv, att, and above FUSED_MLP_MAX_D
-    the fp32 x2 and g that the layer then passes through device memory
-    (else None)."""
+    y (bf16 y1, then y2), the fp32 x2 and g, which the layer then passes
+    through device memory (else None)."""
     qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev)
     att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     if d <= FUSED_MLP_MAX_D:
-        return qkv, att, None, None
-    return (qkv, att, torch.empty((m, d), dtype=torch.float32, device=dev),
+        return qkv, att, None, None, None
+    return (qkv, att, torch.empty((m, d), dtype=torch.bfloat16, device=dev),
+            torch.empty((m, d), dtype=torch.float32, device=dev),
             torch.empty((m, mlp), dtype=torch.bfloat16, device=dev))
 
 
