@@ -183,6 +183,29 @@ script exits non-zero without printing a result:
      `python3 chip_smoke.py --zoo-times` runs the build and (e) alone, for
      timing another tree's kernels with the same code (the parents' routes
      in PERF.md were measured so).
+ 15. inputs above 256 tokens, after phase 14 and before phase 13: the four
+     bf16 attention kernels' multi-pass routes (csrc/long_attention.cuh).
+     (a) At S = 257, 577, 785 and 1024, D = 192 (3 heads) and 768 (12),
+     ragged B: the forward layer's attention stage and the backward's
+     attention core alone (their C entry points) against their twins and
+     as close to fp32 as the twins, the core's att equal to the stage's
+     bit for bit, two core runs equal; the flash pair as phase 5 holds it,
+     two backward runs equal; a 2-layer fused_backbone, both backward
+     halves and merged (equal to the split pair bit for bit, two runs of
+     each equal) through the wrappers; at S = 577, 12 fused_block calls
+     equal to one fused_backbone, one call of each wrapper with its
+     counter and its route's count, and fp32 above 256 tokens refused. (b)
+     ViT-Base/16-384 (`ssp-scratch -o vit=base -o vit.image_size=384 -o
+     data.augment.out_size=384`, bf16, cut to 2 x 64 images a step): step 1
+     of "fused" against "xla" and the fp32 step, `fit` of two "fused"
+     steps, one merged and one "pallas" step with every counter as
+     predicted, the fused step's time by wrapper, and extract of 512 images
+     against the plain path. (c) `run ft-ucsdoct` at 256 px (S = 257, 2
+     folds, 1 epoch, random init) on phase 12's stand-ins with its
+     predicted launches. (d) Each route by launch at (b)'s and (c)'s
+     attentions beside its bound, its twin and bf16 SDPA (or its
+     backward). `python3 chip_smoke.py --long-seq` runs the build and this
+     phase alone.
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
@@ -191,7 +214,10 @@ the `run ft-octmnist` of phase 10b, `parallel_launches` on rank 0 of phase
 (d); the bf16 backbone_fwd and layer_fwd entries also carry
 `attention_stage_ms`, `attention_stage_bound_ms` and `attention_library_ms`
 from phase 11; phase 14 adds an entry per kernel and width, named
-"<kernel> (D=384)" and "(D=768)", its `launches` from (b)); the last line is {"ok": true, "device": {...}}. The
+"<kernel> (D=384)" and "(D=768)", its `launches` from (b); phase 15 one per
+long route, "<route> (S>256)", its `launches` from (b), `ft_256px_launches`
+from (c) and its (c)-shape times in `at_256px`); the last line is {"ok":
+true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
 
@@ -742,12 +768,21 @@ def kernel_counters() -> dict:
 
 
 def reset_launches() -> None:
+    from vit2spn_tpu_torch.ops.fused_block import LONG_SEQ_LAUNCHES
+
     for fn in kernel_counters().values():
         fn.launches = 0
+    for route in LONG_SEQ_LAUNCHES:
+        LONG_SEQ_LAUNCHES[route] = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    """Each wrapper's calls, and the launches of each long-sequence route
+    (S > 256, csrc/long_attention.cuh) as "<route> (S>256)"."""
+    from vit2spn_tpu_torch.ops.fused_block import LONG_SEQ_LAUNCHES
+
+    return {**{name: fn.launches for name, fn in kernel_counters().items()},
+            **{f"{route} (S>256)": n for route, n in LONG_SEQ_LAUNCHES.items()}}
 
 
 def attention_fp64(q, k, v, do):
@@ -876,10 +911,12 @@ def check_backbone_fwd(tag, fb, x, wt, heads, eps, fast) -> float:
 
 def equal_bits(a, b) -> float:
     """The share of elements of two tensors of one dtype that are equal bit
-    for bit."""
+    for bit: exactly 1.0 when every element is (counted in integers: a float
+    mean of the matches can read 1 - 2^-24 for some sizes, as torch's mean
+    multiplies by 1/N)."""
     ia = a.contiguous().view(torch.int16 if a.element_size() == 2 else torch.int32)
     ib = b.contiguous().view(torch.int16 if b.element_size() == 2 else torch.int32)
-    return float((ia == ib).float().mean())
+    return 1.0 - int((ia != ib).sum()) / ia.numel()
 
 
 def check_merged_bwd(tag, fb, x, x2, dy, w, heads, eps, fast, equal) -> float:
@@ -2124,7 +2161,9 @@ def time_steps(trainer, eff, name, card, wrappers, rest, reps=3, totals=None) ->
         trainer.train_step_indices(idx, (1, 1 + r))
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / reps
-    log(f"[time] optimizer step {name} (dual stream, 8 x {TRAIN_BATCH}, bf16): "
+    cfg = trainer.cfg
+    log(f"[time] optimizer step {name} (dual stream, {cfg.accumulation_steps} x "
+        f"{cfg.batch_size}, {cfg.compute_dtype}): "
         f"{1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s over {reps} steps on {card}")
     for line in stage_breakdown(lambda: trainer.train_step_indices(idx, (1, 10)),
                                 f"one optimizer step ({name})", wrappers=wrappers, rest=rest,
@@ -2761,6 +2800,506 @@ def zoo_times(fb, card, dev, launches=None, errs=None) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: inputs above 256 tokens. Above S = 256 the four bf16 attention
+# kernels take csrc/long_attention.cuh's multi-pass routes: the forward
+# layer's attention stage, the backward's attention core, the flash forward
+# and backward. (a) holds each against its plain twin at these sequence
+# lengths (257: the folder datasets at 256 px; 577: 384 px images; 785 and
+# 1024 beyond) and widths (ViT-Tiny's D = 192 with 3 heads, ViT-Base's 768
+# with 12), ragged batches:
+LONG_SEQS = ((257, 5), (577, 3), (785, 2), (1024, 2))  # (S, B)
+LONG_WIDTHS = (("D=192", 192, 3, 768), ("D=768", 768, 12, 3072))
+# The stage and the core alone (their C entry points) against their twins
+# (mha_plain; fused_block._attention_bwd): the same rounding points (bf16
+# P, dS, outputs), sums in other orders, so an output near a bf16 boundary
+# lands one step apart: the backward tolerances, relative to each output's
+# largest magnitude (BWD_MAX_REL_TOL, BWD_MEAN_REL_TOL), and each as close
+# to the same function in fp32 (the twin on fp32 copies) as the twin is
+# (KERNEL_VS_FP32_RATIO, plus BWD_VS_FP32_SLACK). The core's att must equal
+# the stage's bit for bit (one code for both: the same passes and sums).
+# The flash pair: check_flash's tolerances (phase 5). The layers: 2-layer
+# fused_backbone under ZOO_FWD_REL_TOL (phase 14's), attn_bwd and mlp_bwd
+# under check_layer_bwd's, merged equal to the split pair bit for bit.
+LONG_LAYERS = 2
+
+
+def attention_stage_call(fb, qkv, heads):
+    """The forward layer's attention stage alone (csrc/layer_fwd.cu
+    vit2spn_attention_stage): att (B, S, D) from a bf16 qkv (B, S, 3D)."""
+    b, s, d3 = qkv.shape
+    att = torch.empty((b, s, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lib = fb._load("layer_fwd")
+    fb._raise_on(lib, lib.vit2spn_attention_stage(qkv.data_ptr(), att.data_ptr(), b, s, heads,
+                                                  d3 // 3, fb._stream(qkv.device)),
+                 "attention stage")
+    return att
+
+
+def attention_core_call(fb, qkv, datt, heads):
+    """The backward's attention core alone (csrc/attn_bwd.cu
+    vit2spn_attention_core): (att, dqkv) from qkv and datt."""
+    b, s, d3 = qkv.shape
+    att = torch.empty_like(datt)
+    dqkv = torch.empty_like(qkv)
+    lib = fb._load("attn_bwd")
+    fb._raise_on(lib, lib.vit2spn_attention_core(qkv.data_ptr(), datt.data_ptr(), att.data_ptr(),
+                                                 dqkv.data_ptr(), b, s, heads, d3 // 3,
+                                                 fb._stream(qkv.device)),
+                 "attention core")
+    return att, dqkv
+
+
+def attention_stage_plain(qkv, heads):
+    """The stage's twin: mha_plain over the heads of a (B, S, 3D) qkv."""
+    from vit2spn_tpu_torch.ops.attention import mha_plain
+
+    b, s, d3 = qkv.shape
+    q, k, v = (t.reshape(b, s, heads, 64) for t in qkv.split(d3 // 3, dim=-1))
+    return mha_plain(q, k, v).reshape(b, s, d3 // 3)
+
+
+def check_rel(tag, names, got, ref, ref32) -> float:
+    """Each output against its twin (BWD_*_REL_TOL of the twin's largest
+    magnitude) and as close to the fp32 function as the twin. Returns the
+    largest absolute difference from the twin."""
+    worst, worst_rel = 0.0, 0.0
+    for n, a, b, c in zip(names, got, ref, ref32):
+        mx_rel, mean_rel = rel_err(a, b)
+        e_k, e_t = rel_err(a, c)[1], rel_err(b, c)[1]
+        if not (mx_rel <= BWD_MAX_REL_TOL and mean_rel <= BWD_MEAN_REL_TOL):
+            raise AssertionError(f"{tag}: {n} disagrees with its twin (max {mx_rel:.3g}, mean "
+                                 f"{mean_rel:.3g} relative)")
+        if not e_k <= KERNEL_VS_FP32_RATIO * e_t + BWD_VS_FP32_SLACK:
+            raise AssertionError(f"{tag}: {n} is further from fp32 than its twin ({e_k:.4g} vs "
+                                 f"{e_t:.4g})")
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+        worst_rel = max(worst_rel, mx_rel)
+    log(f"[long-vs-plain] {tag}: largest relative difference {worst_rel:.3g} over "
+        f"{', '.join(names)} (tol {BWD_MAX_REL_TOL}, {BWD_MEAN_REL_TOL}); vs fp32 within the twin")
+    return worst
+
+
+def long_kernels(fb, fa, dev) -> dict:
+    """Phase 15 (a). Returns each route's largest absolute difference from
+    its twin: {"attention_fwd", "attention_bwd", "flash_fwd", "flash_bwd"}."""
+    eps = 1e-12
+    errs = {"attention_fwd": 0.0, "attention_bwd": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0}
+    for label, d, heads, mlp in LONG_WIDTHS:
+        gen = torch.Generator().manual_seed(SEED + 15 + d)
+        for s, b in LONG_SEQS:
+            tag = f"{label} heads={heads} S={s} B={b}"
+            # the stage and the core alone
+            qkv = torch.randn(b, s, 3 * d, generator=gen).to(torch.bfloat16).to(dev)
+            datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(torch.bfloat16).to(dev)
+            att_f = attention_stage_call(fb, qkv, heads)
+            att_b, dqkv = attention_core_call(fb, qkv, datt, heads)
+            torch.cuda.synchronize()
+            errs["attention_fwd"] = max(errs["attention_fwd"], check_rel(
+                f"attention stage {tag}", ("att",), (att_f,),
+                (attention_stage_plain(qkv, heads),),
+                (attention_stage_plain(qkv.float(), heads),)))
+            ref = fb._attention_bwd(qkv, datt, heads)
+            ref32 = fb._attention_bwd(qkv.float(), datt.float(), heads)
+            names = ("att", "dq", "dk", "dv")
+            thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
+            errs["attention_bwd"] = max(errs["attention_bwd"], check_rel(
+                f"attention core {tag}", names, thirds((att_b, dqkv)), thirds(ref),
+                thirds(ref32)))
+            again = attention_core_call(fb, qkv, datt, heads)
+            torch.cuda.synchronize()
+            same_att = torch.equal(att_b, att_f)
+            same = torch.equal(again[0], att_b) and torch.equal(again[1], dqkv)
+            log(f"[long-bits] {tag}: core att = stage att bit for bit {same_att}; two core "
+                f"runs equal {same}")
+            if not (same_att and same):
+                raise AssertionError(f"long attention bits ({tag}): att {same_att}, runs {same}")
+            del qkv, datt, att_f, att_b, dqkv, ref, ref32, again
+            # the flash pair
+            for k_, v_ in check_flash(f"long {tag}", *flash_operands(
+                    gen, b, s, heads, torch.bfloat16, dev)).items():
+                errs[k_] = max(errs[k_], v_)
+            ops = flash_operands(torch.Generator().manual_seed(SEED + s), b, s, heads,
+                                 torch.bfloat16, dev)
+            runs = [fa.flash_bwd(*ops) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(x_, y_) for x_, y_ in zip(*runs)):
+                raise AssertionError(f"the flash backward is not deterministic ({tag})")
+            del ops, runs
+            # the layers through the wrappers
+            wt = random_backbone(gen, LONG_LAYERS, d, mlp, dev)
+            x = torch.randn(b, s, d, generator=gen).to(torch.bfloat16).to(dev)
+            got = fb.fused_backbone(x, wt, heads, eps, True)
+            torch.cuda.synchronize()
+            mx_rel, mean_rel = rel_err(got, fb.backbone_forward_plain(x, wt, heads, eps, True))
+            log(f"[long-vs-plain] fused_backbone {tag} L={LONG_LAYERS}: largest relative "
+                f"difference {mx_rel:.3g}, mean {mean_rel:.3g} (tol {ZOO_FWD_REL_TOL})")
+            if not (mx_rel <= ZOO_FWD_REL_TOL[0] and mean_rel <= ZOO_FWD_REL_TOL[1]):
+                raise AssertionError(f"fused_backbone disagrees with its twin ({tag})")
+            w = layer_weights(fb.WEIGHT_NAMES, random_backbone(gen, 1, d, mlp, dev))
+            x2, g = (torch.randn(b, s, d, generator=gen) for _ in range(2))
+            x2, g = x2.to(torch.bfloat16).to(dev), (0.1 * g).to(torch.bfloat16).to(dev)
+            check_layer_bwd(tag, fb, x, g, w, heads, eps, True, against_fp32=s == 577)
+            for name, fn in (("attn_bwd", lambda: fb.attn_bwd(x, g, w, heads, eps)),
+                             ("merged_bwd", lambda: fb.merged_bwd(x, x2, g, w, heads, eps,
+                                                                  True))):
+                runs = [tensors_of(fn()) for _ in range(2)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(a_, b_) for a_, b_ in zip(*runs))
+                log(f"[long-bits] {tag}: two {name} runs equal bit for bit {same}")
+                if not same:
+                    raise AssertionError(f"{name} is not deterministic ({tag})")
+                del runs
+            check_merged_bwd(tag, fb, x, x2, g, w, heads, eps, True, True)
+            del wt, x, x2, g, w, got
+            torch.cuda.empty_cache()
+    return errs
+
+
+
+def long_calls(fb, fa, dev) -> None:
+    """Phase 15 (a), through the wrappers at S = 577 (ViT-Base width): 12
+    `fused_block` calls equal one `fused_backbone` bit for bit; one call of
+    each wrapper raises its own counter by 1 and its route's long-sequence
+    count by its launches of the route (the backbone: one a layer), nothing
+    else, with the C entry point's CUDA launches as at S <= 256; fp32 above
+    256 tokens raises, naming the later slice."""
+    eps, s, d, heads, mlp, layers = 1e-12, 577, 768, 12, 3072, 12
+    gen = torch.Generator().manual_seed(SEED + 1577)
+    wt = random_backbone(gen, layers, d, mlp, dev)
+    x = torch.randn(1, s, d, generator=gen).to(torch.bfloat16).to(dev)
+    h = x
+    for l in range(layers):
+        h = fb.fused_block(h, tuple(t[l] for t in wt), heads, eps, True)
+    hb = fb.fused_backbone(x, wt, heads, eps, True)
+    torch.cuda.synchronize()
+    share = equal_bits(h, hb)
+    log(f"[long-calls] S={s} D={d}: {layers} fused_block calls vs one fused_backbone: "
+        f"{100.0 * share:.4f}% of the outputs equal bit for bit (must be 100%)")
+    if share != 1.0:
+        raise AssertionError("at S = 577 the per-layer forward differs from the backbone's")
+    w = layer_weights(fb.WEIGHT_NAMES, tuple(t[:1] for t in wt))
+    x2, g = (torch.randn(1, s, d, generator=gen) for _ in range(2))
+    x2, g = x2.to(torch.bfloat16).to(dev), (0.1 * g).to(torch.bfloat16).to(dev)
+    q, k, v, do = flash_operands(gen, 1, s, heads, torch.bfloat16, dev)
+    calls = (
+        ("backbone_fwd", "attention_fwd", layers, fb.kernel_launches_per_layer(d) * layers,
+         lambda: fb.fused_backbone(x, wt, heads, eps, True)),
+        ("layer_fwd", "attention_fwd", 1, fb.cuda_launches("layer_fwd", None, d, 0),
+         lambda: fb.layer_fwd(x, tuple(t[0] for t in wt), heads, eps, True)),
+        ("attn_bwd", "attention_bwd", 1, fb.cuda_launches("attn_bwd", None, d, 0),
+         lambda: fb.attn_bwd(x, g, w, heads, eps)),
+        ("merged_bwd", "attention_bwd", 1, fb.cuda_launches("merged_bwd", None, d, 0),
+         lambda: fb.merged_bwd(x, x2, g, w, heads, eps, True)),
+        ("flash_fwd", "flash_fwd", 1, fb.cuda_launches("flash_fwd", fa.KERNEL_NAME),
+         lambda: fa.flash_fwd(q, k, v)),
+        ("flash_bwd", "flash_bwd", 1, fb.cuda_launches("flash_bwd", fa.KERNEL_NAME),
+         lambda: fa.flash_bwd(q, k, v, do)),
+    )
+    for name, route, n_route, n_cuda, fn in calls:
+        reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        counts = {k_: n for k_, n in read_launches().items() if n}
+        want = {name: 1, f"{route} (S>256)": n_route}
+        log(f"[long-calls] one {name} call at S={s}: counters {counts} (want {want}); "
+            f"{n_cuda} CUDA launches, as at S <= 256")
+        if counts != want:
+            raise AssertionError(f"one {name} call at S = {s} counted {counts}, not {want}")
+    wt32 = tuple(t.float() for t in wt)
+    w32 = {n: t.float() for n, t in w.items()}
+    for name, fn in (("fused_backbone", lambda: fb.fused_backbone(x.float(), wt32, heads, eps)),
+                     ("attn_bwd", lambda: fb.attn_bwd(x.float(), g.float(), w32, heads, eps)),
+                     ("flash_fwd", lambda: fa.flash_fwd(q.float(), k.float(), v.float()))):
+        try:
+            fn()
+        except ValueError as e:
+            if "later slice" not in str(e):
+                raise
+            log(f"[long-calls] fp32 {name} at S={s} raises: {e}")
+            continue
+        raise AssertionError(f"fp32 {name} at S = {s} did not raise")
+
+
+# (b): ViT-Base/16-384, the published fine-tuning geometry
+# (google/vit-base-patch16-384: image 384, patch 16, hidden 768, 12 heads, 12
+# layers, mlp 3072, S = 577), through the CLI's overrides of `ssp-scratch`,
+# bf16. The steps are cut from 8 x 128 to LONG_MICRO x LONG_ACCUM images for
+# the phase's time (the "xla" reference's scores alone are 1 GB a layer at
+# 64 images); extract takes LONG_EXTRACT images at batch LONG_EXTRACT_BATCH.
+LONG_OVERRIDES = ("vit=base", "vit.image_size=384", "data.augment.out_size=384")
+LONG_MICRO, LONG_ACCUM = 64, 2
+LONG_EXTRACT, LONG_EXTRACT_BATCH = 512, 128
+# (c): `run ft-ucsdoct` at 256 px (S = 257), cut to 2 folds and 1 epoch,
+# from random init (the pretrained and SSP inits are 224 px geometries)
+LONG_FT_OVERRIDES = ("vit.image_size=256", "data.augment.out_size=256", "k_folds=2",
+                     "init=random")
+
+
+def long_training(card) -> dict:
+    """Phase 15 (b): step 1 of "fused" against "xla" (and the fp32 "xla"
+    step, zoo_step_check), then `fit` of two "fused" steps, one merged and
+    one "pallas" step with the counters read around each (every wrapper and
+    route exactly as predicted), the fused step's time by wrapper, and
+    extract of LONG_EXTRACT images against the plain path. Returns the
+    long-sequence routes' launches summed over the four runs."""
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    cfg = _apply_overrides(get_preset("ssp-scratch"), [
+        *LONG_OVERRIDES, f"batch_size={LONG_MICRO}", f"accumulation_steps={LONG_ACCUM}"])
+    vit = cfg.vit
+    geom = (vit.image_size, vit.hidden_size, vit.num_heads, vit.mlp_dim, vit.num_layers,
+            vit.seq_len, cfg.compute_dtype)
+    if geom != (384, 768, 12, 3072, 12, 577, "bfloat16"):
+        raise AssertionError(f"the ViT-Base/16-384 overrides gave {geom}")
+    eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, vit.num_layers
+    log(f"[long] (b) ViT-Base/16-384 SSP: S={vit.seq_len}, D={vit.hidden_size}, "
+        f"{a} x {cfg.batch_size} (cut from 8 x 128), bf16")
+    tds = synthetic_dataset(split_sizes={"train": 2 * eff}, image_size=28,
+                            seed=SEED + 15).split("train")
+    t0 = time.perf_counter()
+    zoo_step_check(_apply_overrides(cfg, ["vit.remat=full"]), tds.images[:eff],
+                   "ViT-Base/16-384")
+    log(f"[long] (b) step 1 checks in {time.perf_counter() - t0:.1f} s")
+    fwd = {KERNEL_NAME: 2 * 2 * a, "attention_fwd (S>256)": 2 * 2 * a * layers}
+    split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers,
+             "attention_bwd (S>256)": 2 * a * layers}
+    merged = {"merged_bwd": 2 * a * layers, "attention_bwd (S>256)": 2 * a * layers}
+    flash = {"flash_fwd": 2 * 2 * a * layers, "flash_bwd": 2 * a * layers,
+             "flash_fwd (S>256)": 2 * 2 * a * layers, "flash_bwd (S>256)": 2 * a * layers}
+    total = {}
+    one = tds.subset(np.arange(eff))
+    for impl, is_merged, images, per_step in (("fused", False, tds, {**fwd, **split}),
+                                             ("fused", True, one, {**fwd, **merged}),
+                                             ("pallas", False, one, flash)):
+        trainer, n, _ = fit_path(cfg, images, impl, is_merged, per_step)
+        for k_, v_ in n.items():
+            if k_.endswith("(S>256)"):
+                total[k_] = total.get(k_, 0) + v_
+        if impl == "fused" and not is_merged:
+            totals = {}
+            step_s = time_steps(trainer, eff, "fused ViT-Base/16-384", card,
+                                (KERNEL_NAME, "mlp_bwd", "attn_bwd"),
+                                "views, embed, heads, loss, Adam, EMA", reps=2, totals=totals)
+            log(f"[long] (b) fused ViT-Base/16-384 step ({eff} images): wall "
+                f"{1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s, device "
+                f"{totals.get('device', float('nan')):.3f} ms, card idle "
+                f"{100 * (1 - totals.get('device', float('nan')) / (1e3 * step_s)):.1f}% on "
+                f"{card}")
+        os.environ["VIT2SPN_MERGED_BWD"] = "0"
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    # extract through "fused", against the plain path
+    ds = synthetic_dataset(split_sizes={"all": LONG_EXTRACT}, image_size=28, seed=SEED)
+    trainer = SSPTrainer(cfg, logger=MetricLogger(echo=False), device="cuda")
+    trainer.extract_features(ds, batch_size=LONG_EXTRACT_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    feats, _ = trainer.extract_features(ds, batch_size=LONG_EXTRACT_BATCH)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k_: n for k_, n in read_launches().items() if n}
+    calls = 2 * -(-LONG_EXTRACT // LONG_EXTRACT_BATCH)  # dual stream
+    want = {KERNEL_NAME: calls, "attention_fwd (S>256)": calls * layers}
+    totals = {}
+    lines = stage_breakdown(lambda: trainer.extract_features(ds, batch_size=LONG_EXTRACT_BATCH),
+                            f"ViT-Base/16-384 extract of {len(ds)} images", top=6,
+                            wrappers=(KERNEL_NAME,), rest="views, embed, heads", totals=totals)
+    trainer.attn_impl = "plain"
+    plain, _ = trainer.extract_features(ds, batch_size=LONG_EXTRACT_BATCH)
+    scale, err = float(np.abs(plain).max()), float(np.abs(feats - plain).max())
+    log(f"[long] (b) ViT-Base/16-384 extract: {feats.shape} features in {secs:.3f} s, "
+        f"{len(ds) / secs:.1f} img/s, launches {launches} (want {want}); forward device "
+        f"{totals.get('vit2spn::' + KERNEL_NAME, float('nan')):.3f} ms of "
+        f"{totals.get('device', float('nan')):.3f} ms; vs plain max_abs_err {err:.6g} (max "
+        f"|plain| {scale:.4g}, tol {FEATURE_REL_TOL} relative) on {card}")
+    for line in lines:
+        log(line)
+    if launches != want:
+        raise AssertionError(f"ViT-Base/16-384 extract launched {launches}, not {want}")
+    if feats.shape != (len(ds), cfg.proj_dim) or not np.isfinite(feats).all():
+        raise AssertionError(f"ViT-Base/16-384 extract: bad features {feats.shape}")
+    if not err <= FEATURE_REL_TOL * scale:
+        raise AssertionError("ViT-Base/16-384 features disagree with the plain path")
+    total["attention_fwd (S>256)"] += launches["attention_fwd (S>256)"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def long_ft_run(card) -> tuple:
+    """Phase 15 (c): `run ft-ucsdoct` at 256 px sources and 256 px views (S =
+    257) on phase 12's stand-ins (stage_folder_inputs, then `data
+    merge-ucsd`), LONG_FT_OVERRIDES, with the counters read around it and
+    held to the protocol's predicted launches (backbone, split halves and
+    the long routes). Returns (launches, the run's microbatch)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.cli import main as cli_main
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import load_dataset
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        root = os.path.join(tmp, "datasets")
+        stage_folder_inputs(root)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["data", "merge-ucsd", os.path.join(root, "ucsdoct")])
+        if rc != 0:
+            raise AssertionError(f"data merge-ucsd: rc {rc}")
+        over = [*LONG_FT_OVERRIDES, f"data.root={root}"]
+        cfg = _apply_overrides(get_preset("ft-ucsdoct"), over)
+        if (cfg.vit.seq_len, cfg.data.augment.out_size) != (257, 256):
+            raise AssertionError(f"ft-ucsdoct at 256 px: S {cfg.vit.seq_len}")
+        ucsd = load_dataset("ucsdoct", root=root, allow_synthetic=False)
+        steps, evals, n_cv, n_test = protocol_launches(cfg, ucsd, 1)
+        layers = cfg.vit.num_layers
+        want = {**_wanted(steps, evals, layers), "attention_fwd (S>256)": layers * (steps + evals),
+                "attention_bwd (S>256)": layers * steps}
+        out = os.path.join(tmp, "ft")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["run", "ft-ucsdoct", "--epochs", "1", "--output-dir", out,
+                           *[x for o in over for x in ("-o", o)]])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+    aucs = [e["mauc"] for e in events if e["event"] == "fold_result"]
+    log(f"[long] (c) run ft-ucsdoct at 256 px (S=257; cut: 2 folds, 1 epoch, random init; "
+        f"subset {n_cv}, test {n_test}) in {secs:.1f} s: rc {rc}, {steps} train steps, "
+        f"{evals} eval batches; fold mAUCs {aucs}; launches "
+        f"{ {k_: n for k_, n in launches.items() if n} } (predicted {want}) on {card}")
+    if rc != 0 or len(aucs) != 2 or not all(np.isfinite(aucs)):
+        raise AssertionError(f"run ft-ucsdoct at 256 px: rc {rc}, fold mAUCs {aucs}")
+    if launches != {k_: want.get(k_, 0) for k_ in launches}:
+        raise AssertionError(f"run ft-ucsdoct at 256 px launched {launches}, predicted {want}")
+    return launches, cfg.batch_size
+
+
+def long_bound_ms(kind, b, s, heads) -> tuple:
+    """Least time of one long-sequence route over b images x heads at S (bf16,
+    head_dim 64): its products (2 S^2 64 each per (image, head): the stage
+    and the flash forward 2, the core and the flash backward 6 and 5 as the
+    function needs them) over the bf16 peak, vs its tensors read and written
+    once (the stage: qkv in, att out; the core: qkv and datt in, att and
+    dqkv out; flash as flash_bound_ms). Returns (ms, bound by, flops)."""
+    if kind in ("flash_fwd", "flash_bwd"):
+        return flash_bound_ms(kind.split("_")[1], b, s, heads)
+    products, rows = (2, 3 + 1) if kind == "attention_fwd" else (6, 3 + 1 + 1 + 3)
+    d = 64 * heads
+    flops = b * heads * products * 2 * s * s * 64
+    nbytes = rows * b * s * d * 2
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def long_times(fb, fa, card, dev, shapes) -> dict:
+    """Phase 15 (d): each long route by launch at `shapes` ((label, B, S,
+    heads): (b)'s and (c)'s attentions), CUDA events, beside its bound, its
+    plain twin and bf16 SDPA (forward, or its autograd backward; a yardstick
+    the port never calls). Returns {route: {label: (ms, twin ms, library ms,
+    bound ms, bound by)}}."""
+    out = {}
+    for label, b, s, heads in shapes:
+        d = 64 * heads
+        gen = torch.Generator().manual_seed(SEED + s)
+        qkv = torch.randn(b, s, 3 * d, generator=gen).to(torch.bfloat16).to(dev)
+        datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(torch.bfloat16).to(dev)
+        q, k, v = (t.reshape(b, s, heads, 64) for t in qkv.split(d, dim=-1))
+        do = datt.reshape(b, s, heads, 64)
+        sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
+        sdpa_bwd, _ = library_flash_bwd(q, k, v, do)
+        routes = (
+            ("attention_fwd", lambda: attention_stage_call(fb, qkv, heads),
+             lambda: attention_stage_plain(qkv, heads),
+             lambda: F.scaled_dot_product_attention(*sdpa_in)),
+            ("attention_bwd", lambda: attention_core_call(fb, qkv, datt, heads),
+             lambda: fb._attention_bwd(qkv, datt, heads), sdpa_bwd),
+            ("flash_fwd", lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+             lambda: F.scaled_dot_product_attention(*sdpa_in)),
+            ("flash_bwd", lambda: fa.flash_bwd(q, k, v, do),
+             lambda: fa.flash_attention_bwd_plain(q, k, v, do), sdpa_bwd),
+        )
+        for route, kernel, twin, library in routes:
+            k_ms = time_ms(kernel, iters=10, warmup=2)
+            p_ms = time_ms(twin, iters=3, warmup=1)
+            with torch.no_grad() if route.endswith("fwd") else torch.enable_grad():
+                l_ms = time_ms(library, iters=10, warmup=2)
+            b_ms, b_by, flops = long_bound_ms(route, b, s, heads)
+            out.setdefault(route, {})[label] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            log(f"[time] {route} (S>256) {label} B={b} S={s} heads={heads}: kernel {k_ms:.4f} ms "
+                f"per launch, plain twin {p_ms:.3f} ms, bf16 SDPA"
+                f"{' backward' if route.endswith('bwd') else ''} {l_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP), kernel at "
+                f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the "
+                f"bound; {card}")
+        del qkv, datt, q, k, v, do, sdpa_in, sdpa_bwd
+        torch.cuda.empty_cache()
+    return out
+
+
+# the four long routes: (route, source, the Pallas kernel whose attention it
+# computes above 256 keys)
+LONG_ROUTES = (
+    ("attention_fwd", "vit2spn_tpu/ops/fused_block.py:694"),
+    ("attention_bwd", "vit2spn_tpu/ops/fused_block.py:357"),
+    ("flash_fwd", "vit2spn_tpu/ops/flash_attention.py:36"),
+    ("flash_bwd", "vit2spn_tpu/ops/flash_attention.py:53"),
+)
+
+
+def long_seq_path(fb, fa, card, dev) -> list:
+    """Phase 15: (a) the kernels against their twins and the wrappers'
+    calls, (b) ViT-Base/16-384 training and extract, (c) `run ft-ucsdoct` at
+    256 px, (d) the times. Returns the four routes' `kernels` entries."""
+    t_phase = time.perf_counter()
+    errs = long_kernels(fb, fa, dev)
+    long_calls(fb, fa, dev)
+    log(f"[long] (a) in {time.perf_counter() - t_phase:.1f} s: largest absolute differences "
+        f"from the twins {errs}")
+    t0 = time.perf_counter()
+    launches = long_training(card)
+    log(f"[long] (b) in {time.perf_counter() - t0:.1f} s: long-route launches {launches}")
+    t0 = time.perf_counter()
+    ft_launches, ft_batch = long_ft_run(card)
+    log(f"[long] (c) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    times = long_times(fb, fa, card, dev, (("ViT-Base/16-384", LONG_MICRO, 577, 12),
+                                           ("ViT-Tiny 256 px", ft_batch, 257, 3)))
+    log(f"[long] (d) in {time.perf_counter() - t0:.1f} s; phase 15 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    entries = []
+    for route, replaces in LONG_ROUTES:
+        name = f"{route} (S>256)"
+        k_ms, p_ms, l_ms, b_ms, b_by = times[route]["ViT-Base/16-384"]
+        entries.append({
+            "name": name, "route": "cuda", "source": "vit2spn_tpu_torch/csrc/long_attention.cuh",
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "ft_256px_launches": ft_launches.get(name, 0), "max_abs_err": errs[route],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms, "dtype": "bfloat16",
+            "shape": f"B={LONG_MICRO} S=577 heads=12 (ViT-Base/16-384)",
+            "at_256px": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                                 times[route]["ViT-Tiny 256 px"])),
+        })
+        if not entries[-1]["launches"]:
+            raise AssertionError(f"{name} was never launched on phase 15's main path")
+    return entries
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2813,6 +3352,9 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--zoo-times"]:  # phase 14 (e) alone, for another tree's kernels
         print(json.dumps({"kernels": zoo_times(fb, card, dev)}))
+        return 0
+    if sys.argv[1:2] == ["--long-seq"]:  # phase 15 alone
+        print(json.dumps({"kernels": long_seq_path(fb, fa, card, dev)}))
         return 0
 
     # the fine-tune step's wall time before any other phase (phase 10b times
@@ -3422,6 +3964,9 @@ def main() -> int:
     # (before phase 13: after it, a trace in this process held no device time
     # on the H100)
     entries += zoo_path(fb, card, dev)
+
+    # -- 15. inputs above 256 tokens (before phase 13, as phase 14) -------------
+    entries += long_seq_path(fb, fa, card, dev)
 
     # -- 13. several ranks on the one card -------------------------------------
     parallel_launches = parallel_path(card, fused_totals)

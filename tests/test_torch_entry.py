@@ -104,6 +104,15 @@ def test_parity_runbook_picks_its_path_by_geometry():
     assert tpar.runbook_attn_impl(smoke, "cpu") == "fused"
     assert tpar.runbook_attn_impl(dataclasses.replace(full, hidden_size=160, num_heads=2),
                                   "cuda") == "xla"
+    # above 256 tokens (384 px: S = 577) bf16 keeps the kernels, fp32 has no
+    # long-sequence route on the card yet
+    long = dataclasses.replace(full, image_size=384)
+    assert long.seq_len == 577
+    assert tpar.runbook_attn_impl(long, "cuda") == "fused"
+    assert tpar.runbook_attn_impl(long, "cuda", "bfloat16") == "fused"
+    assert tpar.runbook_attn_impl(long, "cuda", "float32") == "xla"
+    assert tpar.runbook_attn_impl(full, "cuda", "float32") == "fused"
+    assert tpar.runbook_attn_impl(long, "cpu", "float32") == "fused"
 
 
 def test_parity_smoke_records_the_xla_path(tmp_path, monkeypatch):
@@ -112,7 +121,7 @@ def test_parity_smoke_records_the_xla_path(tmp_path, monkeypatch):
     parity_report.json and .md (here on the CPU, the choice forced)."""
     from vit2spn_tpu_torch.evals import protocol
 
-    monkeypatch.setattr(tpar, "runbook_attn_impl", lambda vit, device: "xla")
+    monkeypatch.setattr(tpar, "runbook_attn_impl", lambda vit, device, dtype: "xla")
     seen = []
     real_cv = protocol.run_cv_protocol
 

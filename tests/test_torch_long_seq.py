@@ -1,0 +1,477 @@
+"""Sequences above 256 tokens (384 px images: S = 577; the folder datasets at
+256 px: S = 257) through the port on the CPU, against the JAX package's
+Pallas kernels in interpret mode, which pad the sequence and take the
+softmax over the whole padded row.
+
+On the CPU every wrapper runs its plain twin, which takes any S; on the card
+the four bf16 attention kernels take csrc/long_attention.cuh's multi-pass
+routes above 256 keys, held against the twins by chip_smoke.py (phase 15).
+Here, at tiny widths (D 64-128, head_dim 64, 2 layers, B <= 4):
+
+1. the twins against interpret-mode Pallas at S = 257 and 290 (300 for the
+   flash pair, which pads to 384): the backbone and one-layer forwards, the
+   split and merged layer backwards, and mha_pallas with its gradients;
+2. a plain-torch emulation of each long route's order of sums, held in the
+   same place of the same computation against interpret-mode Pallas: the
+   scores as fp32 sums of 16-wide k-steps of head_dim, each row's max over
+   every key, the row sum as a lane sums its keys (keys 2t, 2t + 1 mod 8 in
+   ascending order, over 64-key chunks) and the quad adds its four lanes,
+   the IEEE quotient, the products with P and dS as fp32 sums over 16-key
+   (or 16-query) k-steps in order, P and dS one bf16 term (the fused block)
+   or two (flash: hi = bf16(x), lo = bf16(x - hi));
+3. two SSP optimizer steps at image_size 272 (S = 290) against the JAX
+   trainer, the weights carried over by models/convert.py.
+
+Inputs come from numpy with a seed and go to both sides. Tolerances as the
+files for S <= 256 state them: fp32 differs by float32 reassociation only,
+bf16 rounds at the same points on both sides and sums in other orders, so a
+value near a rounding boundary lands one bf16 step away."""
+
+import dataclasses
+import importlib
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vit2spn_tpu.core.config import SSPConfig as JSSPConfig
+from vit2spn_tpu.core.config import ViTConfig as JViTConfig
+from vit2spn_tpu.data.datasets import synthetic_dataset as jax_synthetic
+from vit2spn_tpu.ops.flash_attention import mha_pallas as jax_mha_pallas
+from vit2spn_tpu.train import checkpoint as jckpt
+from vit2spn_tpu.train.ssp import SSPTrainer as JaxSSPTrainer
+from vit2spn_tpu.utils.logging import MetricLogger as JaxLogger
+from vit2spn_tpu_torch.core import config as tcfg
+from vit2spn_tpu_torch.models.convert import from_jax
+from vit2spn_tpu_torch.ops import flash_attention as fa
+from vit2spn_tpu_torch.ops import fused_block as fb
+from vit2spn_tpu_torch.train import checkpoint as ckpt
+from vit2spn_tpu_torch.train.ssp import SSPTrainer
+from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+# the module, not the `fused_block` function vit2spn_tpu.ops exports
+jfb = importlib.import_module("vit2spn_tpu.ops.fused_block")
+torch.set_num_threads(1)
+
+L, B = 2, 2
+EPS = 1e-12
+SEQS = [257, 290]
+WIDTHS = {257: (64, 1, 128), 290: (128, 2, 256)}  # S: (D, heads, mlp), head_dim 64
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# fp32: float32 reassociation over sums of up to 290 terms (forward atol,
+# gradient atol); bf16: the largest and the mean error relative to the
+# output's largest magnitude (tests/test_torch_backward.py's bounds)
+TOL = {"float32": (2e-5, 2e-4), "bfloat16": (4e-2, 5e-3)}
+CHUNK = 64  # csrc/long_attention.cuh LA_CHUNK: keys per staged chunk
+
+
+def _weights(seed, d, mlp, layers=None):
+    """Block weights (stacked with `layers`) with nonzero biases and LN
+    params; W1 large enough that the gelu forms differ."""
+    rng = np.random.default_rng(seed)
+    lead = () if layers is None else (layers,)
+
+    def n(*shape, std):
+        return (rng.standard_normal(lead + shape) * std).astype(np.float32)
+
+    ws = {
+        "ln1_scale": 1.0 + n(d, std=0.1), "ln1_bias": n(d, std=0.1),
+        "wqkv": n(d, 3 * d, std=0.1), "bqkv": n(3 * d, std=0.05),
+        "wo": n(d, d, std=0.1), "bo": n(d, std=0.05),
+        "ln2_scale": 1.0 + n(d, std=0.1), "ln2_bias": n(d, std=0.1),
+        "w1": n(d, mlp, std=0.4), "b1": n(mlp, std=0.05),
+        "w2": n(mlp, d, std=0.1), "b2": n(d, std=0.05),
+    }
+    return rng, ws
+
+
+def _typed(ws, jdt, tdt):
+    """(jax tuple, torch tuple) in WEIGHT_NAMES order: LN params fp32, the
+    rest in the compute dtype."""
+    j = tuple(jnp.asarray(ws[n], jnp.float32 if n.startswith("ln") else jdt)
+              for n in fb.WEIGHT_NAMES)
+    t = tuple(torch.from_numpy(ws[n]).to(torch.float32 if n.startswith("ln") else tdt)
+              for n in fb.WEIGHT_NAMES)
+    return j, t
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _close(got, ref, dtype, what, grad=False):
+    got, ref = _f32(got), _f32(ref)
+    assert got.shape == ref.shape, what
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=TOL[dtype][grad], rtol=1e-4, err_msg=what)
+    else:
+        mx = float(np.abs(ref).max()) or 1.0
+        err = np.abs(got - ref)
+        assert err.max() <= TOL[dtype][0] * mx, (what, float(err.max()), mx)
+        assert err.mean() <= TOL[dtype][1] * mx, (what, float(err.mean()), mx)
+
+
+def _pad(x, sp):
+    return jnp.pad(jnp.asarray(x), ((0, 0), (0, sp - x.shape[1]), (0, 0)))
+
+
+# ---------------------------------------------------------------------------
+# 1. the twins against interpret-mode Pallas
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", SEQS)
+def test_backbone_twin_matches_pallas_above_256(s, dtype):
+    """`fused_backbone` (two layers) against `_backbone_fwd_kernel`."""
+    d, heads, mlp = WIDTHS[s]
+    jdt, tdt = DTYPES[dtype]
+    rng, ws = _weights(s, d, mlp, layers=L)
+    x = rng.standard_normal((B, s, d)).astype(np.float32)
+    jw, tw = _typed(ws, jdt, tdt)
+    ref = jfb.fused_backbone(jnp.asarray(x, jdt), jw, heads, EPS, 2, True)
+    got = fb.fused_backbone(torch.from_numpy(x).to(tdt), tw, heads, EPS, fast_gelu=False)
+    assert got.shape == (B, s, d) and got.dtype == tdt
+    _close(got, ref, dtype, "out")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", SEQS)
+def test_fused_block_matches_pallas_above_256(s, dtype):
+    """`fused_block`'s output, dx and 12 weight gradients for the loss
+    sum(out * cot) against the JAX `fused_block`: `_fwd_kernel` forward, the
+    split `_layer_bwd` backward, both in interpret mode."""
+    d, heads, mlp = WIDTHS[s]
+    jdt, tdt = DTYPES[dtype]
+    rng, ws = _weights(s + 1, d, mlp)
+    x = rng.standard_normal((B, s, d)).astype(np.float32)
+    cot = (0.1 * rng.standard_normal((B, s, d))).astype(np.float32)
+    jw, tw = _typed(ws, jdt, tdt)
+
+    def loss(xx, ww):
+        out = jfb.fused_block(xx, ww, heads, EPS, 2, True)
+        return jnp.sum(out.astype(jnp.float32) * cot), out
+
+    (_, ref), (ref_dx, ref_dw) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x, jdt), jw)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    wt = tuple(t.requires_grad_(True) for t in tw)
+    out = fb.fused_block(xt, wt, heads, EPS, fast_gelu=False)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    _close(out, ref, dtype, "out")
+    _close(xt.grad, ref_dx, dtype, "dx", True)
+    for n, w, r in zip(fb.WEIGHT_NAMES, wt, ref_dw):
+        _close(w.grad, r, dtype, n, True)
+
+
+@pytest.mark.parametrize("merged", [False, True], ids=["split", "merged"])
+def test_layer_bwd_twins_match_pallas_above_256(merged):
+    """fp32 `mlp_bwd_plain` then `attn_bwd_plain` (or `merged_bwd_plain`)
+    against `_layer_bwd` in interpret mode at S = 290 (padded to 304)."""
+    s, sp = 290, 304
+    d, heads, mlp = WIDTHS[s]
+    rng, w = _weights(3, d, mlp)
+    x, x2 = (rng.standard_normal((B, s, d)).astype(np.float32) for _ in range(2))
+    g = (0.1 * rng.standard_normal((B, s, d))).astype(np.float32)
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+    ref_dx, ref_g = jfb._layer_bwd(_pad(x, sp), _pad(x2, sp), _pad(g, sp), jw, heads, s, sp,
+                                   EPS, 2, True, merged=merged)
+    tw = {k: torch.from_numpy(v) for k, v in w.items()}
+    tx, tx2, tg = (torch.from_numpy(a) for a in (x, x2, g))
+    if merged:
+        dx, grads = fb.merged_bwd_plain(tx, tx2, tg, tw, heads, EPS, False)
+    else:
+        dx2, grads = fb.mlp_bwd_plain(tx2, tg, tw, EPS, False)
+        dx, agrads = fb.attn_bwd_plain(tx, dx2, tw, heads, EPS)
+        grads = {**grads, **agrads}
+    np.testing.assert_allclose(dx.numpy(), np.asarray(ref_dx)[:, :s], atol=2e-4, rtol=0)
+    for n in fb.WEIGHT_NAMES:
+        np.testing.assert_allclose(grads[n].numpy(), np.asarray(ref_g[n]).reshape(w[n].shape),
+                                   atol=2e-4, rtol=0, err_msg=n)
+
+
+def _attention_operands(shape, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    cot = rng.standard_normal(shape).astype(np.float32)
+    return q, k, v, cot
+
+
+def _jax_mha(q, k, v, cot, jdt):
+    args = tuple(jnp.asarray(t, jdt) for t in (q, k, v))
+
+    def loss(*a):
+        out = jax_mha_pallas(*a, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * cot), out
+
+    (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(*args)
+    return out, grads
+
+
+def _port_mha(q, k, v, cot, tdt):
+    args = [torch.from_numpy(t).to(tdt).requires_grad_(True) for t in (q, k, v)]
+    out = fa.mha_pallas(*args)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    return out, [t.grad for t in args]
+
+
+def _close_mha(got, got_g, ref, ref_g, dtype):
+    """tests/test_torch_flash_attention.py's bounds: fp32 2e-5 forward, 5e-5
+    gradients; bf16 (only the outputs rounded) 1% of the largest magnitude,
+    the mean 0.1%."""
+    for name, a, b, tol in [("out", got, ref, 2e-5)] + [
+            (f"d{n}", a, b, 5e-5) for n, a, b in zip("qkv", got_g, ref_g)]:
+        a, b = _f32(a), _f32(b)
+        assert a.shape == b.shape, name
+        if dtype == "float32":
+            np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=name)
+        else:
+            scale = float(np.abs(b).max())
+            err = np.abs(a - b)
+            assert err.max() <= 1e-2 * scale, (name, float(err.max()), scale)
+            assert err.mean() <= 1e-3 * scale, (name, float(err.mean()), scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [257, 300])
+def test_mha_pallas_matches_jax_above_256(s, dtype):
+    """The port's `mha_pallas` forward and gradients against the JAX one,
+    whose flash kernels run in interpret mode on the sequence padded to 384."""
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, cot = _attention_operands((2, s, 2, 64), s)
+    ref, ref_g = _jax_mha(q, k, v, cot, jdt)
+    got, got_g = _port_mha(q, k, v, cot, tdt)
+    assert got.dtype == tdt and all(g.dtype == tdt for g in got_g)
+    _close_mha(got, got_g, ref, ref_g, dtype)
+
+
+# ---------------------------------------------------------------------------
+# 2. the long routes' order of sums
+# ---------------------------------------------------------------------------
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _ksum(a, b, axis_len, step=16):
+    """a @ b in fp32 with the reduction taken in `step`-wide k-steps in
+    order (one mma chain)."""
+    out = None
+    for c in range(0, axis_len, step):
+        part = a[..., c:c + step] @ b[..., c:c + step, :]
+        out = part if out is None else out + part
+    return out
+
+
+def _scores(q, k):
+    """fp32 scores of (B, H, S, 64) q, k: 16-wide k-steps of head_dim in
+    order, times 1/8 (exact)."""
+    return _ksum(q, k.transpose(-1, -2), q.shape[-1]) * 0.125
+
+
+def _lane_sum(x):
+    """The sum over keys of x (..., S) as the kernels take it: lane t adds
+    the keys 8j + 2t and 8j + 2t + 1 in ascending order (over the 64-key
+    chunks, which keep that order), then the quad (l0 + l1) + (l2 + l3)."""
+    s = x.shape[-1]
+    sp = (s + CHUNK - 1) // CHUNK * CHUNK
+    lanes = torch.nn.functional.pad(x, (0, sp - s)).reshape(*x.shape[:-1], sp // 8, 4, 2)
+    part = torch.zeros(*x.shape[:-1], 4)
+    for j in range(sp // 8):
+        for e in range(2):
+            part = part + lanes[..., j, :, e]
+    return (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+
+
+def _probs(q, k):
+    """fp32 P of the long routes: the row max over every key, exp(s - max),
+    the lane-ordered row sum, the IEEE quotient."""
+    sc = _scores(q, k)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    return p / _lane_sum(p)[..., None]
+
+
+def _split_mm(x, rows, k_len):
+    """(hi + lo) rows over 16-wide k-steps in order, hi = bf16(x), lo =
+    bf16(x - hi): per step acc + hi rows, then + lo rows (flash)."""
+    hi = _bf(x)
+    lo = _bf(x - hi)
+    out = torch.zeros(*x.shape[:-1], rows.shape[-1])
+    for c in range(0, k_len, 16):
+        out = out + hi[..., c:c + 16] @ rows[..., c:c + 16, :]
+        out = out + lo[..., c:c + 16] @ rows[..., c:c + 16, :]
+    return out
+
+
+def _heads(t):  # (B, S, H, 64) -> (B, H, S, 64) fp32
+    return t.float().permute(0, 2, 1, 3)
+
+
+def _tokens(t, dtype):  # back to (B, S, H, 64) in dtype
+    return t.permute(0, 2, 1, 3).to(dtype)
+
+
+def _long_stage(q, k, v):
+    """The fused layer's long attention stage (long_attention_fwd<false>):
+    bf16(bf16(P) v), P V over 16-key k-steps in order."""
+    qf, kf, vf = (_heads(t) for t in (q, k, v))
+    o = _ksum(_bf(_probs(qf, kf)), vf, qf.shape[-2])
+    return _tokens(o, q.dtype)
+
+
+def _long_core(qkv, datt, heads):
+    """The backward's long core (long_attention_bwd_kernel) in
+    `fb._attention_bwd`'s interface: att as the stage computes it; rowsum(dP
+    P) lane-ordered; dS = bf16(P (dP - rowsum)); dQ over 16-key k-steps; dK
+    and dV over 16-query k-steps (the key-major pass)."""
+    dtype = qkv.dtype
+    b, s, d3 = qkv.shape
+    d = d3 // 3
+    q, k, v = (_heads(t.reshape(b, s, heads, 64)) for t in qkv.split(d, dim=-1))
+    do = _heads(datt.reshape(b, s, heads, 64))
+    p = _probs(q, k)
+    att = _ksum(_bf(p), v, s)
+    dp = _ksum(do, v.transpose(-1, -2), 64)
+    ds = _bf(p * (dp - _lane_sum(dp * p)[..., None]))
+    dq = _ksum(ds, k, s) * 0.125
+    dk = _ksum(ds.transpose(-1, -2), q, s) * 0.125
+    dv = _ksum(_bf(p).transpose(-1, -2), do, s)
+
+    def merge(t):
+        return t.permute(0, 2, 1, 3).reshape(b, s, d)
+
+    return merge(att).to(dtype), torch.cat([merge(dq), merge(dk), merge(dv)], -1).to(dtype)
+
+
+def _long_flash_fwd(q, k, v):
+    """long_attention_fwd<true>: P in two bf16 terms."""
+    qf, kf, vf = (_heads(t) for t in (q, k, v))
+    return _tokens(_split_mm(_probs(qf, kf), vf, qf.shape[-2]), q.dtype)
+
+
+def _long_flash_bwd(q, k, v, do):
+    """long_flash_bwd_rows then long_flash_bwd_cols: P and dS in two terms,
+    dQ over 16-key k-steps, dK and dV over 16-query k-steps."""
+    qf, kf, vf, dof = (_heads(t) for t in (q, k, v, do))
+    s = qf.shape[-2]
+    p = _probs(qf, kf)
+    dp = _ksum(dof, vf.transpose(-1, -2), 64)
+    ds = p * (dp - _lane_sum(dp * p)[..., None])
+    dq = _split_mm(ds, kf, s) * 0.125
+    dk = _split_mm(ds.transpose(-1, -2), qf, s) * 0.125
+    dv = _split_mm(p.transpose(-1, -2), dof, s)
+    return tuple(_tokens(t, q.dtype) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("s", SEQS)
+def test_long_stage_order_matches_pallas_bf16(s, monkeypatch):
+    """The backbone twin with its attention replaced by the long stage's
+    order of sums, against `_backbone_fwd_kernel` in interpret mode (bf16);
+    and the emulation is mha_plain's function to within a bf16 step."""
+    d, heads, mlp = WIDTHS[s]
+    rng, ws = _weights(s + 2, d, mlp, layers=L)
+    x = rng.standard_normal((B, s, d)).astype(np.float32)
+    jw, tw = _typed(ws, jnp.bfloat16, torch.bfloat16)
+    ref = jfb.fused_backbone(jnp.asarray(x, jnp.bfloat16), jw, heads, EPS, 2, True)
+    monkeypatch.setattr(fb, "mha_plain", _long_stage)
+    got = fb.fused_backbone(torch.from_numpy(x).to(torch.bfloat16), tw, heads, EPS,
+                            fast_gelu=False)
+    _close(got, ref, "bfloat16", "out")
+    monkeypatch.undo()
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16)
+               for t in rng.standard_normal((3, B, s, heads, 64)).astype(np.float32))
+    np.testing.assert_allclose(_f32(_long_stage(q, k, v)), _f32(fb.mha_plain(q, k, v)),
+                               atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("s", SEQS)
+def test_long_core_order_matches_pallas_bf16(s, monkeypatch):
+    """The split layer backward with its attention core replaced by the
+    long core's order of sums (bf16), against `_layer_bwd` in interpret
+    mode: dx and every weight gradient."""
+    d, heads, mlp = WIDTHS[s]
+    sp = (s + 15) // 16 * 16
+    rng, w = _weights(s + 3, d, mlp)
+    x, x2 = (rng.standard_normal((B, s, d)).astype(np.float32) for _ in range(2))
+    g = (0.1 * rng.standard_normal((B, s, d))).astype(np.float32)
+    jw = {k: jnp.asarray(v, jnp.float32 if k.startswith("ln") else jnp.bfloat16)
+          for k, v in w.items()}
+    ref_dx, ref_g = jfb._layer_bwd(*(_pad(a, sp).astype(jnp.bfloat16) for a in (x, x2, g)), jw,
+                                   heads, s, sp, EPS, 2, True)
+    tw = {k: torch.from_numpy(v).to(torch.float32 if k.startswith("ln") else torch.bfloat16)
+          for k, v in w.items()}
+    tx, tx2, tg = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, x2, g))
+    monkeypatch.setattr(fb, "_attention_bwd", _long_core)
+    dx2, grads = fb.mlp_bwd_plain(tx2, tg, tw, EPS, False)
+    dx, agrads = fb.attn_bwd_plain(tx, dx2, tw, heads, EPS)
+    grads.update(agrads)
+    _close(dx, np.asarray(jnp.asarray(ref_dx).astype(jnp.float32))[:, :s], "bfloat16", "dx")
+    for n in fb.WEIGHT_NAMES:
+        _close(grads[n], np.asarray(ref_g[n]).reshape(w[n].shape), "bfloat16", n)
+
+
+@pytest.mark.parametrize("s", [257, 300])
+def test_long_flash_order_matches_pallas_bf16(s, monkeypatch):
+    """mha_pallas with its twins replaced by the long flash routes' order of
+    sums (P and dS in two bf16 terms), against the JAX mha_pallas in
+    interpret mode, at the bf16 bounds of section 1."""
+    q, k, v, cot = _attention_operands((2, s, 2, 64), s + 1)
+    ref, ref_g = _jax_mha(q, k, v, cot, jnp.bfloat16)
+    monkeypatch.setattr(fa, "flash_attention_plain", _long_flash_fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", _long_flash_bwd)
+    got, got_g = _port_mha(q, k, v, cot, torch.bfloat16)
+    _close_mha(got, got_g, ref, ref_g, "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# 3. two SSP steps at 272 px (S = 290)
+# ---------------------------------------------------------------------------
+
+def _port_cfg(jax_cfg):
+    d = dataclasses.asdict(jax_cfg)
+    return tcfg.SSPConfig(
+        vit=tcfg.ViTConfig(**d.pop("vit")),
+        data=tcfg.DataConfig(**{**d["data"], "augment": tcfg.AugmentConfig(
+            **d["data"]["augment"])}),
+        mesh=tcfg.MeshConfig(**d.pop("mesh")),
+        **{k: v for k, v in d.items() if k != "data"},
+    )
+
+
+def test_ssp_trajectory_at_272px_matches_jax(tiny_ssp):
+    """Two optimizer steps (2 microbatches of 4, Adam, EMA) of the port's
+    "fused" path at image_size 272 (17 x 17 patches + cls = 290 tokens,
+    D = 64, one head of 64) against the JAX trainer from the same weights on
+    the same batches, augmentation and dropout off: losses within 3e-5,
+    parameters within 2e-5 (tests/test_torch_train.py's bounds)."""
+    vit = JViTConfig(image_size=272, patch_size=16, hidden_size=64, num_layers=2,
+                     num_heads=1, mlp_dim=128)
+    assert vit.seq_len == 290
+    data = dataclasses.replace(tiny_ssp.data, augment=dataclasses.replace(
+        tiny_ssp.data.augment, out_size=272, enabled=False))
+    jcfg = dataclasses.replace(tiny_ssp, vit=vit, data=data, batch_size=4,
+                               accumulation_steps=2, proj_dropout=0.0)
+    assert isinstance(jcfg, JSSPConfig)
+    jt = JaxSSPTrainer(jcfg, logger=JaxLogger(echo=False))
+    pt = SSPTrainer(_port_cfg(jcfg), logger=MetricLogger(echo=False), device="cpu")
+    pt.state = pt.state._replace(params=from_jax(jax.device_get(jt.state.params),
+                                                 device="cpu"))
+    assert pt.attn_impl == "fused"
+    ds = jax_synthetic(image_size=28, split_sizes={"train": 16}, seed=7)
+    eff = jcfg.effective_batch
+    for step in range(2):
+        batch = ds.images[step * eff:(step + 1) * eff]
+        ref = float(jt.train_step(batch, jax.random.key(step))["loss"])
+        got = float(pt.train_step(batch, (0, step))["loss"])
+        assert math.isfinite(got)
+        np.testing.assert_allclose(got, ref, atol=3e-5, rtol=0, err_msg=f"step {step}")
+    ref = jax.tree_util.tree_flatten_with_path(jax.device_get(jt.state.params))[0]
+    got = ckpt._flatten(pt.state.params)
+    assert got["online/pos_embed"].shape[-3:] == (1, 290, 64)
+    for path, leaf in ref:
+        key = jckpt._path_key(path)
+        np.testing.assert_allclose(got[key], np.asarray(leaf), atol=2e-5, rtol=0, err_msg=key)

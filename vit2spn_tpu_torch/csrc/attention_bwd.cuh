@@ -34,6 +34,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "long_attention.cuh"
 
 #define DH 64
 #ifndef AB_WARPS
@@ -43,7 +44,7 @@
 #define AB_WARPS 16
 #endif
 #define AB_LD TILE_LD  // bf16 elements per staged row (the tile helpers' stride)
-#define AB_MAX_S 256
+#define AB_MAX_S 256  // the row of scores in registers; longer rows: long_attention.cuh
 
 static size_t attention_bwd_smem(int S) {
   const int sp = (S + 15) / 16 * 16;
@@ -223,8 +224,11 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
   }
 }
 
+// S <= AB_MAX_S: attention_bwd_kernel; above it the multi-pass core of
+// csrc/long_attention.cuh (the same function, one launch)
 static int launch_attention_bwd(const bf16* qkv, const bf16* datt, bf16* att, bf16* dqkv,
                                 int B, int S, int H, int D, cudaStream_t st) {
+  if (S > AB_MAX_S) return launch_long_attention_bwd(qkv, datt, att, dqkv, B, S, H, D, st);
   const size_t smem = attention_bwd_smem(S);
   const dim3 grid(H, B);
   const float scale = 1.0f / sqrtf((float)DH);

@@ -26,6 +26,18 @@ extern "C" long long vit2spn_attn_bwd_workspace_floats(int B, int S, int D, int 
   return attn_bwd_hopper(a, 0, true, &need) == 0 ? need : -1;
 }
 
+// The backward's attention core alone (bf16): att (B * S, D) and dqkv (B *
+// S, 3 D) from qkv (B * S, 3 D) and datt (B * S, D), the launch
+// vit2spn_attn_bwd makes for it; for holding the core against its twin and
+// timing it by itself.
+extern "C" int vit2spn_attention_core(const void* qkv, const void* datt, void* att, void* dqkv,
+                                      int B, int S, int H, int D, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
+  return launch_attention_bwd(static_cast<const bf16*>(qkv), static_cast<const bf16*>(datt),
+                              static_cast<bf16*>(att), static_cast<bf16*>(dqkv), B, S, H, D,
+                              static_cast<cudaStream_t>(stream));
+}
+
 // CUDA kernel launches one call makes
 extern "C" int vit2spn_attn_bwd_launches(int D, int fp32) {
   if (hopper_route(D, fp32)) return wide_route(D) ? ATTN_WIDE_LAUNCHES : ATTN_HOPPER_LAUNCHES;
@@ -44,7 +56,7 @@ extern "C" int vit2spn_attn_bwd(
     void* dx, void* gln1_scale, void* gln1_bias, void* gwqkv, void* gbqkv, void* gwo, void* gbo,
     void* y1_buf, void* qkv_buf, void* datt_buf, void* att_buf, void* dqkv_buf, void* dy_buf,
     void* ws_buf, int B, int S, int D, int H, float eps, int fp32, void* stream) {
-  if (B <= 0 || S <= 0 || S > AB_MAX_S || H <= 0 || D != H * DH || D > LN_MAX_D)
+  if (B <= 0 || S <= 0 || (fp32 && S > FA_MAX_S) || H <= 0 || D != H * DH || D > LN_MAX_D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const AttnBwdArgs a = {x, dx2, ln1_scale, ln1_bias, wqkv, bqkv, wo, dx, gln1_scale, gln1_bias,

@@ -72,15 +72,21 @@
 // and k leaves about 2^-17 of each score, above the 1e-6 of the outputs'
 // largest magnitude within which those kernels stay of float64.
 //
+// Above 256 keys the warp's row of scores no longer fits its registers: bf16
+// inputs take the multi-pass route of csrc/long_attention.cuh (the same
+// function, P and dS in two bf16 terms, the same two-launch backward with
+// the same row statistics), fp32 inputs are refused (a later slice).
+//
 // Layout: q, k, v are read in place through strides, as the views the split
 // of the block's (B, S, 3D) qkv gives them: element (b, s, h, d) at
 // b * bs + s * ts + h * 64 + d. o, dO, dq, dk and dv are contiguous (B, S, H,
-// 64). Limits: head_dim 64, S <= 256; bf16 rows start on 16 bytes (ts and bs
-// multiples of 8), fp32 rows on 8.
+// 64). Limits: head_dim 64, S <= 256 in fp32; bf16 rows start on 16 bytes
+// (ts and bs multiples of 8), fp32 rows on 8.
 
 #include <type_traits>
 
 #include "flash_f32.cuh"
+#include "long_attention.cuh"
 
 // ===========================================================================
 // bf16 inputs: the tensor cores
@@ -105,61 +111,6 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long
     const bool live = r0 + r < S;
     cp_async16(dst + r * TILE_LD + c, src + (live ? r0 + r : 0) * ts + c, live);
   }
-}
-
-// x0, x1 as bf16 pairs hi = bf16(x) and lo = bf16(x - hi) (x - hi is exact)
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const bf16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  hi = pack_bf16(h0, h1);
-  lo = pack_f32(__fsub_rn(x0, __bfloat162float(h0)), __fsub_rn(x1, __bfloat162float(h1)));
-}
-
-// two 16 x 8 fp32 C tiles side by side as the hi and lo terms of one 16 x 16
-// A operand
-__device__ __forceinline__ void split_a(uint32_t hi[4], uint32_t lo[4], const float x0[4],
-                                        const float x1[4]) {
-  split_pair(x0[0], x0[1], hi[0], lo[0]);
-  split_pair(x0[2], x0[3], hi[1], lo[1]);
-  split_pair(x1[0], x1[1], hi[2], lo[2]);
-  split_pair(x1[2], x1[3], hi[3], lo[3]);
-}
-
-// the same for the transpose of the 16 x 16 tile whose columns 8n .. 8n + 7
-// are the C tile x[n]: quarter (rows 8h.., columns 8n..) becomes A fragment
-// 2h + n once movmatrix has transposed it
-__device__ __forceinline__ void split_a_t(uint32_t hi[4], uint32_t lo[4], const float x[2][4]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      uint32_t a, b;
-      split_pair(x[n][2 * h], x[n][2 * h + 1], a, b);
-      hi[2 * h + n] = movmatrix_t(a);
-      lo[2 * h + n] = movmatrix_t(b);
-    }
-}
-
-// acc (16 x 64) += (hi + lo) (16 x 16) times the 16 staged rows at `rows`:
-// mma_rows with both terms on one load of the B fragments
-__device__ __forceinline__ void mma_rows_split(float acc[8][4], const uint32_t hi[4],
-                                               const uint32_t lo[4], const bf16* rows,
-                                               int lane) {
-  const bf16* p =
-      rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * TILE_LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int np = 0; np < FA_DH / 16; ++np) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, p + np * 16);
-    mma_bf16(acc[2 * np], hi, b[0], b[1]);
-    mma_bf16(acc[2 * np], lo, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
-    mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float acc[8][4]) {
-#pragma unroll
-  for (int n = 0; n < FA_DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 }
 
 // the sum, or the max, of one row over the 4 lanes of its row group (rows g
@@ -457,12 +408,16 @@ static int by_key_tiles(int S, F&& f) {
 // rows start on 16 bytes for the bf16 kernels' cp.async, on 8 for fp32 float2
 static bool bad_shape(int B, int S, int H, long long bs, long long ts, int fp32) {
   const int align = fp32 ? 2 : 8;
-  return B <= 0 || S <= 0 || S > FA_MAX_S || H <= 0 || ts < (long long)H * FA_DH ||
+  return B <= 0 || S <= 0 || (fp32 && S > FA_MAX_S) || H <= 0 || ts < (long long)H * FA_DH ||
          bs < (long long)S * ts || ts % align || (B > 1 && bs % align);
 }
 
 static int fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
                     long long bs, long long ts, float scale, cudaStream_t st) {
+  if (S > FA_MAX_S)  // above 256 keys: csrc/long_attention.cuh, P in two terms as here
+    return launch_long_attention_fwd<true>({q, bs, ts}, {k, bs, ts}, {v, bs, ts}, o,
+                                           (long long)S * H * FA_DH, (long long)H * FA_DH, B, S,
+                                           H, st);
   const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
   const size_t smem = tc_fwd_smem(S);
   return by_key_tiles(S, [&](auto nt) {
@@ -476,6 +431,9 @@ static int fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
 static int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, bf16* dq,
                     bf16* dk, bf16* dv, float* ws, int B, int S, int H, long long bs,
                     long long ts, float scale, cudaStream_t st) {
+  if (S > FA_MAX_S)
+    return launch_long_flash_bwd({q, bs, ts}, {k, bs, ts}, {v, bs, ts}, dout, dq, dk, dv, ws,
+                                 (long long)S * H * FA_DH, (long long)H * FA_DH, B, S, H, st);
   const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
   const size_t smem = tc_bwd_smem(S);
   const int rc = by_key_tiles(S, [&](auto nt) {

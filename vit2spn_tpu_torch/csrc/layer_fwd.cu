@@ -16,8 +16,8 @@
 // the backbone kernel's output bit for bit. x2 is written as bf16 by the same
 // epilogue that writes the backbone's x2s stack. fp32 (compute_dtype=
 // float32): the seven-launch CUDA-core layer of csrc/layer_fwd_f32.cuh, the
-// backbone's fp32 layer code. Limits: head_dim 64, S <= 256, D <= 768, D and
-// mlp multiples of 64.
+// backbone's fp32 layer code. Limits: head_dim 64, S <= 256 in fp32, D <=
+// 768, D and mlp multiples of 64.
 
 #include "layer_fwd.cuh"
 #include "layer_fwd_f32.cuh"
@@ -33,7 +33,7 @@ extern "C" int vit2spn_layer_fwd(
     const void* w1, const void* b1, const void* w2, const void* b2,
     void* qkv_buf, void* att_buf, void* y_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, float eps, int fast_gelu, void* stream) {
-  if (!layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
+  if (!layer_shape_ok(B, S, D, H, MLP, 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
                        ln2_scale, ln2_bias, w1, b1, w2, b2};
@@ -46,6 +46,20 @@ extern "C" int vit2spn_layer_fwd(
   return launch_layer(static_cast<const bf16*>(x), nullptr, static_cast<bf16*>(x2),
                       layer_weights(w, 0, D, MLP), maps, 0, qkv, y,
                       static_cast<float*>(x2_buf), B, S, D, H, MLP, eps, fast_gelu, st);
+}
+
+// The layer's attention stage alone (bf16): att (B * S, D) from qkv (B * S,
+// 3 D), the launch vit2spn_layer_fwd makes for it; for holding the stage
+// against its twin and timing it by itself.
+extern "C" int vit2spn_attention_stage(const void* qkv, void* att, int B, int S, int H, int D,
+                                       void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
+  LayerMaps mp;
+  LAUNCH(tensor_map(&mp.qkv_img, qkv, 3 * D, S, B));
+  LAUNCH(tensor_map(&mp.att_img, att, D, S, B));
+  mp.qkv_buf = static_cast<const bf16*>(qkv);
+  mp.att_buf = static_cast<bf16*>(att);
+  return launch_layer_attention(mp, B, S, D, H, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int vit2spn_layer_fwd_launches(int D, int fp32) {
@@ -61,7 +75,7 @@ extern "C" int vit2spn_layer_fwd_f32(
     const void* w1, const void* b1, const void* w2, const void* b2,
     void* y_buf, void* qkv_buf, void* att_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, float eps, int fast_gelu, void* stream) {
-  if (!layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
+  if (!layer_shape_ok(B, S, D, H, MLP, 1)) return (int)cudaErrorInvalidValue;
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
                        ln2_scale, ln2_bias, w1, b1, w2, b2};
   return launch_layer_f32(static_cast<const float*>(x), static_cast<float*>(out), nullptr,
@@ -75,7 +89,7 @@ extern "C" int vit2spn_layer_fwd_f32(
 // FUSED_MLP_MAX_D the QKV GEMM), 1 (attention at S) or 2 (Wo through W2;
 // above FUSED_MLP_MAX_D the largest of their three GEMMs)
 extern "C" int vit2spn_layer_fwd_smem_bytes(int S, int D, int kernel) {
-  if (kernel == 1) return attention_smem_bytes(S);
+  if (kernel == 1) return S > ATT_MAX_S ? (int)long_fwd_smem() : attention_smem_bytes(S);
   if (kernel == 0)
     return D <= FUSED_MLP_MAX_D ? rb_smem_bytes<QKV_WG, QKV_NT, A_LN_BF16, EPI_BIAS>(D)
                                 : tile_gemm_smem_bytes<EPI_BIAS>(3 * D);

@@ -124,11 +124,12 @@ def smoke_vit_config():
                      num_layers=2, num_heads=2, mlp_dim=64)
 
 
-def runbook_attn_impl(vit_cfg, device) -> str:
+def runbook_attn_impl(vit_cfg, device, compute_dtype: str = "bfloat16") -> str:
     """The runbook's backbone path: "fused" where the kernels take the
-    geometry (head_dim 64, D and mlp multiples of 64, D and S within the
-    kernels' limits) or the device is not CUDA (the CPU runs their plain
-    twins, which take any geometry); else "xla"."""
+    geometry (head_dim 64, D and mlp multiples of 64, D within the kernels'
+    limits; any S in bf16, S <= KERNEL_MAX_SEQ in fp32) or the device is not
+    CUDA (the CPU runs their plain twins, which take any geometry); else
+    "xla"."""
     import torch
 
     from vit2spn_tpu_torch.ops.fused_block import (
@@ -139,7 +140,8 @@ def runbook_attn_impl(vit_cfg, device) -> str:
 
     d = vit_cfg.hidden_size
     takes = (vit_cfg.head_dim == KERNEL_HEAD_DIM and d % 64 == 0 and d <= KERNEL_MAX_D
-             and vit_cfg.mlp_dim % 64 == 0 and vit_cfg.seq_len <= KERNEL_MAX_SEQ)
+             and vit_cfg.mlp_dim % 64 == 0
+             and (compute_dtype != "float32" or vit_cfg.seq_len <= KERNEL_MAX_SEQ))
     return "fused" if takes or torch.device(device).type != "cuda" else "xla"
 
 
@@ -277,7 +279,7 @@ def run_parity(
         report["shrunk_geometry"] = True
     # every stage runs one geometry, so one backbone path (the fine-tune
     # stages' overrides give them stage 1's vit)
-    attn_impl = runbook_attn_impl(ssp_cfg.vit, device)
+    attn_impl = runbook_attn_impl(ssp_cfg.vit, device, ssp_cfg.compute_dtype)
     logger.log("parity_attn_impl", attn_impl=attn_impl, head_dim=ssp_cfg.vit.head_dim,
                device=str(device))
     if attn_impl != "fused":

@@ -61,8 +61,11 @@ WEIGHT_NAMES = (
     "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2",
 )
 KERNEL_NAME = "backbone_fwd"
-# what csrc/backbone_fwd.cu takes: its attention holds a row of scores in
-# registers (S <= 256), its LayerNorm a row of D values (D <= 768)
+# what csrc/backbone_fwd.cu takes: head_dim 64, a LayerNorm row of D values
+# (D <= 768). Its attention holds a row of scores in registers up to
+# KERNEL_MAX_SEQ keys; bf16 above it takes the multi-pass route of
+# csrc/long_attention.cuh (whose backward core, keeping three fp32 statistics
+# a query in shared memory, refuses S above 13,056), fp32 has no such route
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_SEQ = 256
 KERNEL_MAX_D = 768
@@ -376,10 +379,22 @@ def _weight_shapes(layers: int, d: int, mlp: int) -> dict:
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
+def check_seq_len(s: int, dtype: torch.dtype, what: str) -> None:
+    """The attention kernels' sequence limits: any S in bf16 (above
+    KERNEL_MAX_SEQ through csrc/long_attention.cuh), S <= KERNEL_MAX_SEQ in
+    fp32, whose attention core (csrc/flash_f32.cuh) holds a row of scores
+    in registers and has no longer route yet."""
+    if dtype == torch.float32 and s > KERNEL_MAX_SEQ:
+        raise ValueError(
+            f"{what} kernel takes S <= {KERNEL_MAX_SEQ} in fp32, got {s}: fp32 attention "
+            "above 256 tokens is a later slice of the port (ROADMAP Queue 1 item 6); bf16 "
+            "takes it")
+
+
 def _check_activation(x: torch.Tensor, heads: Optional[int]) -> None:
     """What every kernel takes: contiguous bf16 or fp32 (B, S, D) with D a
     multiple of 64 up to KERNEL_MAX_D; the attention kernels also head_dim
-    64 and S <= KERNEL_MAX_SEQ."""
+    64 and, in fp32, S <= KERNEL_MAX_SEQ."""
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"backbone kernel takes bf16 or fp32 activations, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
@@ -391,8 +406,7 @@ def _check_activation(x: torch.Tensor, heads: Optional[int]) -> None:
                 f"backbone kernel needs head_dim {KERNEL_HEAD_DIM}; got D={d}, "
                 f"heads={heads}"
             )
-        if s > KERNEL_MAX_SEQ:
-            raise ValueError(f"backbone kernel takes S <= {KERNEL_MAX_SEQ}, got {s}")
+        check_seq_len(s, x.dtype, "backbone")
     if d % 64 or d > KERNEL_MAX_D:
         raise ValueError(f"backbone kernel needs D a multiple of 64 and "
                          f"D <= {KERNEL_MAX_D}, got {d}")
@@ -470,12 +484,14 @@ _SIGNATURES = {
         "vit2spn_attn_bwd": ([_P] * 21 + [_I] * 4 + [_F, _I, _P], _I),
         "vit2spn_attn_bwd_workspace_floats": ([_I] * 5, _LL),
         "vit2spn_attn_bwd_launches": ([_I] * 2, _I),
+        "vit2spn_attention_core": ([_P] * 4 + [_I] * 4 + [_P], _I),
     },
     "layer_fwd": {
         "vit2spn_layer_fwd": ([_P] * 20 + [_I] * 5 + [_F, _I, _P], _I),
         "vit2spn_layer_fwd_f32": ([_P] * 20 + [_I] * 5 + [_F, _I, _P], _I),
         "vit2spn_layer_fwd_launches": ([_I] * 2, _I),
         "vit2spn_layer_fwd_smem_bytes": ([_I] * 3, _I),
+        "vit2spn_attention_stage": ([_P] * 2 + [_I] * 4 + [_P], _I),
     },
     "merged_bwd": {
         "vit2spn_merged_bwd": ([_P] * 37 + [_I] * 5 + [_F, _I, _I, _P], _I),
@@ -508,6 +524,21 @@ def _load(name: str) -> ctypes.CDLL:
         lib.vit2spn_cuda_error_string.restype = ctypes.c_char_p
         lib._vit2spn_typed = True
     return lib
+
+
+# CUDA launches of csrc/long_attention.cuh's routes (S > KERNEL_MAX_SEQ, bf16),
+# by route, counted by the wrappers that make them beside their own counts:
+# the forward layer's attention stage (one a layer), the backward's attention
+# core (one per attn_bwd or merged_bwd call), the flash forward and backward
+# (one per call, the backward's two CUDA launches counted once)
+LONG_SEQ_LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0, "flash_fwd": 0, "flash_bwd": 0}
+
+
+def count_long_seq(route: str, s: int, n: int = 1) -> None:
+    """Count `n` launches of a long-sequence route when S is above
+    KERNEL_MAX_SEQ (only bf16 gets there on the card)."""
+    if s > KERNEL_MAX_SEQ:
+        LONG_SEQ_LAUNCHES[route] += n
 
 
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -593,6 +624,7 @@ def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
         )
     _raise_on(lib, rc, "backbone")
     fused_backbone.launches += 1
+    count_long_seq("attention_fwd", s, layers)
     if emit_res:
         return out, xs, x2s
     return out
@@ -696,6 +728,7 @@ def attn_bwd(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int, eps: float
         )
     _raise_on(lib, rc, "attention backward")
     attn_bwd.launches += 1
+    count_long_seq("attention_bwd", s)
     return dx, out
 
 
@@ -743,6 +776,7 @@ def merged_bwd(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict, h
         )
     _raise_on(lib, rc, "merged backward")
     merged_bwd.launches += 1
+    count_long_seq("attention_bwd", s)
     return dx, out
 
 
@@ -854,6 +888,7 @@ def layer_fwd(x: torch.Tensor, weights: Tuple, heads: int, eps: float, fast_gelu
         )
     _raise_on(lib, rc, "layer forward")
     layer_fwd.launches += 1
+    count_long_seq("attention_fwd", s)
     return (out, x2) if emit_x2 else out
 
 
