@@ -194,7 +194,12 @@ script exits non-zero without printing a result:
      halves and merged (equal to the split pair bit for bit, two runs of
      each equal) through the wrappers; at S = 577, 12 fused_block calls
      equal to one fused_backbone, one call of each wrapper with its
-     counter and its route's count, and fp32 above 256 tokens refused. (b)
+     counter and its route's count, and fp32 above 256 tokens refused; the
+     routes' branch-free quotient equal to __fdiv_rn bit for bit on 2^27
+     random pairs and the edges where the routes take it; whether the
+     key-major phase's scores K Q^T equal Q K^T bit for bit (recorded); the
+     core at its longest S against its twin, one query tile past it refused
+     by the C entry and by the wrappers' check. (b)
      ViT-Base/16-384 (`ssp-scratch -o vit=base -o vit.image_size=384 -o
      data.augment.out_size=384`, bf16, cut to 2 x 64 images a step): step 1
      of "fused" against "xla" and the fp32 step, `fit` of two "fused"
@@ -204,8 +209,9 @@ script exits non-zero without printing a result:
      folds, 1 epoch, random init) on phase 12's stand-ins with its
      predicted launches. (d) Each route by launch at (b)'s and (c)'s
      attentions beside its bound, its twin and bf16 SDPA (or its
-     backward). `python3 chip_smoke.py --long-seq` runs the build and this
-     phase alone.
+     backward), the flash pair also beside SDPA on fp32 copies (the same
+     function: P and dS in fp32). `python3 chip_smoke.py --long-seq` runs
+     the build and this phase alone.
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
@@ -2957,6 +2963,73 @@ def long_kernels(fb, fa, dev) -> dict:
 
 
 
+# The routes' branch-free quotient (long_attention.cuh LaQuot) against
+# __fdiv_rn: pseudo-random pairs over a in [0, 1] (every exponent, the
+# subnormals too) and l in [1, 2^16] (every exponent), plus 9 x 12 edges.
+# Where the routes take it (a = 0 or a >= 2^-100, l <= 2^16) not one bit may
+# differ; below, a warp takes the IEEE division, and the count there is
+# recorded.
+LONG_QUOTIENT_PAIRS, LONG_QUOTIENT_EDGES = 1 << 27, 9 * 12
+
+
+def long_limits(fb, dev) -> None:
+    """Phase 15 (a): the quotient probe, the scores' operand order, and the
+    core's S limit on the card."""
+    lib = fb._load("attn_bwd")
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    fb._raise_on(lib, lib.vit2spn_long_quotient_probe(LONG_QUOTIENT_PAIRS, counts.data_ptr(),
+                                                      fb._stream(dev)), "quotient probe")
+    bad, pairs, bad_low, low = counts.tolist()
+    log(f"[long-quotient] branch-free a / l vs __fdiv_rn: {bad} of {pairs} pairs differ where "
+        f"the routes take it (a = 0 or a >= 2^-100; l <= 2^16; edges included); below it "
+        f"{bad_low} of "
+        f"{low} differ (the routes' IEEE division there)")
+    if bad or pairs + low != LONG_QUOTIENT_PAIRS + LONG_QUOTIENT_EDGES:
+        raise AssertionError(f"the branch-free quotient differs from __fdiv_rn ({bad} pairs)")
+    gen = torch.Generator().manual_seed(SEED + 16)
+    same, total = 0, 0
+    s_, st = (torch.empty(64, 64, device=dev) for _ in range(2))
+    for _ in range(16):
+        q, k = (torch.randn(64, 64, generator=gen).to(torch.bfloat16).to(dev) for _ in range(2))
+        fb._raise_on(lib, lib.vit2spn_long_scores_probe(q.data_ptr(), k.data_ptr(), s_.data_ptr(),
+                                                        st.data_ptr(), fb._stream(dev)),
+                     "scores probe")
+        torch.cuda.synchronize()
+        same += int((s_ == st.T).sum())
+        total += s_.numel()
+    log(f"[long-scores] K Q^T (the core's key-major phase) vs Q K^T (its query passes) on "
+        f"wgmma: {same} of {total} scores equal bit for bit")
+    limit = lib.vit2spn_attention_core_max_seq()
+    if limit != fb.LONG_CORE_MAX_SEQ:
+        raise AssertionError(f"the core's S limit is {limit}, ops/fused_block.py says "
+                             f"{fb.LONG_CORE_MAX_SEQ}")
+    qkv = (0.5 * torch.randn(1, limit, 192, generator=gen)).to(torch.bfloat16).to(dev)
+    datt = (0.1 * torch.randn(1, limit, 64, generator=gen)).to(torch.bfloat16).to(dev)
+    got = attention_core_call(fb, qkv, datt, 1)
+    torch.cuda.synchronize()
+    names = ("att", "dq", "dk", "dv")
+    thirds = lambda t: (t[0], *t[1].split(64, dim=-1))  # noqa: E731
+    check_rel(f"attention core at its longest S={limit}", names, thirds(got),
+              thirds(fb._attention_bwd(qkv, datt, 1)),
+              thirds(fb._attention_bwd(qkv.float(), datt.float(), 1)))
+    over = torch.zeros(1, limit + 1, 192, dtype=torch.bfloat16, device=dev)
+    rc = lib.vit2spn_attention_core(over.data_ptr(), over[..., :64].contiguous().data_ptr(),
+                                    over.data_ptr(), over.data_ptr(), 1, limit + 1, 1, 64,
+                                    fb._stream(dev))
+    try:
+        fb._check_layer_inputs(over[..., :64].contiguous(), over[..., :64].contiguous(), {},
+                               fb.ATTN_NAMES, 1, {})
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    log(f"[long-limit] the core at S={limit} within the twin's tolerances; at S={limit + 1} "
+        f"the C entry returns {rc} without a launch and the wrappers' check raises: {raised}")
+    if rc == 0 or f"S <= {limit}" not in raised:
+        raise AssertionError(f"S = {limit + 1} was not refused (rc {rc}, check {raised!r})")
+    del qkv, datt, got, over
+    torch.cuda.empty_cache()
+
+
 def long_calls(fb, fa, dev) -> None:
     """Phase 15 (a), through the wrappers at S = 577 (ViT-Base width): 12
     `fused_block` calls equal one `fused_backbone` bit for bit; one call of
@@ -3211,8 +3284,9 @@ def long_times(fb, fa, card, dev, shapes) -> dict:
     """Phase 15 (d): each long route by launch at `shapes` ((label, B, S,
     heads): (b)'s and (c)'s attentions), CUDA events, beside its bound, its
     plain twin and bf16 SDPA (forward, or its autograd backward; a yardstick
-    the port never calls). Returns {route: {label: (ms, twin ms, library ms,
-    bound ms, bound by)}}."""
+    the port never calls), the flash pair also beside SDPA on fp32 copies.
+    Returns {route: {label: (ms, twin ms, library ms, bound ms, bound by,
+    same-fn ms or None)}}."""
     out = {}
     for label, b, s, heads in shapes:
         d = 64 * heads
@@ -3223,6 +3297,10 @@ def long_times(fb, fa, card, dev, shapes) -> dict:
         do = datt.reshape(b, s, heads, 64)
         sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
         sdpa_bwd, _ = library_flash_bwd(q, k, v, do)
+        same_fwd, same_bwd = check_same_fn_yardstick(q, k, v, do)
+        with torch.no_grad():
+            same = {"flash_fwd": time_ms(same_fwd, iters=10, warmup=2)}
+        same["flash_bwd"] = time_ms(same_bwd, iters=10, warmup=2)
         routes = (
             ("attention_fwd", lambda: attention_stage_call(fb, qkv, heads),
              lambda: attention_stage_plain(qkv, heads),
@@ -3240,14 +3318,16 @@ def long_times(fb, fa, card, dev, shapes) -> dict:
             with torch.no_grad() if route.endswith("fwd") else torch.enable_grad():
                 l_ms = time_ms(library, iters=10, warmup=2)
             b_ms, b_by, flops = long_bound_ms(route, b, s, heads)
-            out.setdefault(route, {})[label] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            out.setdefault(route, {})[label] = (k_ms, p_ms, l_ms, b_ms, b_by, same.get(route))
+            same_txt = (f", SDPA{' backward' if route.endswith('bwd') else ''} on fp32 copies "
+                        f"(same fn) {same[route]:.4f} ms" if route in same else "")
             log(f"[time] {route} (S>256) {label} B={b} S={s} heads={heads}: kernel {k_ms:.4f} ms "
                 f"per launch, plain twin {p_ms:.3f} ms, bf16 SDPA"
-                f"{' backward' if route.endswith('bwd') else ''} {l_ms:.4f} ms, bound "
+                f"{' backward' if route.endswith('bwd') else ''} {l_ms:.4f} ms{same_txt}, bound "
                 f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP), kernel at "
                 f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the "
                 f"bound; {card}")
-        del qkv, datt, q, k, v, do, sdpa_in, sdpa_bwd
+        del qkv, datt, q, k, v, do, sdpa_in, sdpa_bwd, same_fwd, same_bwd
         torch.cuda.empty_cache()
     return out
 
@@ -3269,6 +3349,7 @@ def long_seq_path(fb, fa, card, dev) -> list:
     t_phase = time.perf_counter()
     errs = long_kernels(fb, fa, dev)
     long_calls(fb, fa, dev)
+    long_limits(fb, dev)
     log(f"[long] (a) in {time.perf_counter() - t_phase:.1f} s: largest absolute differences "
         f"from the twins {errs}")
     t0 = time.perf_counter()
@@ -3285,7 +3366,7 @@ def long_seq_path(fb, fa, card, dev) -> list:
     entries = []
     for route, replaces in LONG_ROUTES:
         name = f"{route} (S>256)"
-        k_ms, p_ms, l_ms, b_ms, b_by = times[route]["ViT-Base/16-384"]
+        k_ms, p_ms, l_ms, b_ms, b_by, same_ms = times[route]["ViT-Base/16-384"]
         entries.append({
             "name": name, "route": "cuda", "source": "vit2spn_tpu_torch/csrc/long_attention.cuh",
             "replaces": replaces, "launches": launches.get(name, 0),
@@ -3293,9 +3374,12 @@ def long_seq_path(fb, fa, card, dev) -> list:
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms, "dtype": "bfloat16",
             "shape": f"B={LONG_MICRO} S=577 heads=12 (ViT-Base/16-384)",
-            "at_256px": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
-                                 times[route]["ViT-Tiny 256 px"])),
+            "at_256px": {k_: v_ for k_, v_ in zip(
+                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "same_fn_library_ms"),
+                times[route]["ViT-Tiny 256 px"]) if v_ is not None},
         })
+        if same_ms is not None:
+            entries[-1]["same_fn_library_ms"] = same_ms
         if not entries[-1]["launches"]:
             raise AssertionError(f"{name} was never launched on phase 15's main path")
     return entries

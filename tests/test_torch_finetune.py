@@ -297,9 +297,9 @@ def jax_heads(monkeypatch):
     fold, trial): the two packages draw other bits by design."""
     init = FineTuneTrainer.__init__
 
-    def patched(self, cfg, num_classes, backbone_params=None, logger=None, fold=0,
-                attn_impl="fused", eval_augment=True, trial=0, device=None):
-        init(self, cfg, num_classes, backbone_params, logger, fold, attn_impl,
+    def patched(self, cfg, num_classes, backbone_params=None, mesh=None, logger=None, fold=0,
+                attn_impl=None, eval_augment=True, trial=0, device=None):
+        init(self, cfg, num_classes, backbone_params, mesh, logger, fold, attn_impl,
              eval_augment, trial, device)
         key = jrng.fold(jrng.root_key(cfg.seed), fold)
         if trial:
@@ -368,6 +368,37 @@ def test_cv_protocol_matches_jax(jcfg, jax_heads, monkeypatch, tmp_path):
 
     same_keys(pay, jpay)
     assert pay["best_fold"] == jpay["best_fold"] and pay["class_names"] == jpay["class_names"]
+
+
+def test_protocol_hands_one_mesh_to_every_fold(jcfg, monkeypatch):
+    """run_cv_protocol(cfg, mesh=m) and run_multitrial(cfg, mesh=m) hand m to
+    every fold's trainer, as the JAX functions do; without a mesh each call
+    makes one for all of its trials and folds, so no fold makes process
+    groups of its own."""
+    cfg = port_cfg(_protocol_cfg(jcfg, num_trials=2))
+    ds = synthetic_dataset(split_sizes={"train": 48, "test": 20}, seed=10)
+    quiet = MetricLogger(echo=False)
+    seen, made = [], []
+    real_trainer, real_make = protocol.FineTuneTrainer, protocol.make_mesh
+
+    def trainer(*a, mesh=None, **kw):
+        seen.append(mesh)
+        return real_trainer(*a, mesh=mesh, **kw)
+
+    def make(*a, **kw):
+        made.append(real_make(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(protocol, "FineTuneTrainer", trainer)
+    monkeypatch.setattr(protocol, "make_mesh", make)
+    m = real_make(cfg.mesh.model_parallel, device="cpu")
+    protocol.run_cv_protocol(cfg, dataset=ds, logger=quiet, mesh=m, device="cpu")
+    protocol.run_multitrial(cfg, dataset=ds, logger=quiet, mesh=m, device="cpu")
+    assert len(seen) == 3 * cfg.k_folds and all(x is m for x in seen) and made == []
+    seen.clear()
+    protocol.run_multitrial(cfg, dataset=ds, logger=quiet, device="cpu")
+    assert len(made) == 1 and len(seen) == 2 * cfg.k_folds
+    assert all(x is made[0] for x in seen)
 
 
 def test_multitrial_resume_equals_an_uninterrupted_run(jcfg, tmp_path, monkeypatch):

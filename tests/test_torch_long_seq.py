@@ -427,6 +427,29 @@ def test_long_flash_order_matches_pallas_bf16(s, monkeypatch):
     _close_mha(got, got_g, ref, ref_g, "bfloat16")
 
 
+def test_core_seq_limit_is_checked_before_a_launch():
+    """bf16 S above the long core's shared-memory limit (three fp32
+    statistics a query beside a tile slot and two ring stages: (232,448 -
+    256 - 50,176) / 12 bytes in whole 64-query tiles) is refused
+    with a ValueError naming the limit by the layer backwards' input check,
+    before any launch; the forward takes any bf16 S; fp32 above 256 tokens
+    still names the later slice."""
+    limit = fb.LONG_CORE_MAX_SEQ
+    assert limit == (232448 - 256 - 50176) // 12 // 64 * 64 == 15168
+    fb.check_seq_len(limit, torch.bfloat16, "attention backward", core=True)
+    fb.check_seq_len(4 * limit, torch.bfloat16, "backbone")
+    msg = f"attention backward kernel takes S <= {limit} in bf16, got {limit + 1}"
+    with pytest.raises(ValueError, match=msg):
+        fb.check_seq_len(limit + 1, torch.bfloat16, "attention backward", core=True)
+    with pytest.raises(ValueError, match="later slice"):
+        fb.check_seq_len(257, torch.float32, "backbone", core=True)
+    # the backward wrappers' check (attn_bwd, merged_bwd) takes core=True
+    x = torch.zeros(1, limit + 1, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"S <= {limit} in bf16"):
+        fb._check_layer_inputs(x, x, {}, fb.ATTN_NAMES, 1, {})
+    fb._check_activation(x, 1)  # the forward's
+
+
 # ---------------------------------------------------------------------------
 # 3. two SSP steps at 272 px (S = 290)
 # ---------------------------------------------------------------------------

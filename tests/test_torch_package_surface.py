@@ -1,8 +1,11 @@
 """The port's package surface against the JAX package's: every name in the
 JAX subpackages' `__all__` lists (read with `ast`, without importing JAX)
-resolves on the port in a fresh process that imports no JAX; no module of
-the port imports `jax` or `vit2spn_tpu`; `checkpoint.restore(strict=False)`
-and the single-stream names behave as the JAX ones."""
+resolves on the port in a fresh process that imports no JAX; every public
+function and method of every JAX module has its counterpart in the port's
+module of the same path, with the same parameter names, order and defaults
+but for the deliberate differences listed below; no module of the port
+imports `jax` or `vit2spn_tpu`; `checkpoint.restore(strict=False)` and the
+single-stream names behave as the JAX ones."""
 
 import ast
 import json
@@ -67,6 +70,108 @@ def test_jax_exports_resolve_on_the_port(resolved, package):
     assert got[package]["missing"] == []
     assert set(names[package]) <= set(got[package]["all"])
     assert got["jax"] == []  # the probe process imported no JAX
+
+
+# The deliberate differences between the two packages' public signatures.
+# JAX's random keys are torch.Generators in the port: `key` is `gen` or
+# `generator` at the same place.
+RENAMED = {"gen": "key", "generator": "key"}
+# parameters only the port has (where the JAX function has no parameter of
+# that name): the torch device; the fused kernels' gelu form and residual
+# stacks; the explicit tensor-parallel mesh of functions whose JAX versions
+# read their sharding from their arrays; the protocol's backbone path, which
+# the JAX protocol leaves to its trainers' default; the cross-entropy's
+# global weight sum, which GSPMD forms by itself in the JAX package;
+# checkpoint.restore's skipped key prefixes (a params-only read of a
+# training checkpoint), after `strict` as the JAX order has it
+PORT_ONLY = {"device", "fast_gelu", "emit_res", "mesh", "attn_impl", "denom", "ignore"}
+# the Pallas kernels' TPU tiling and interpret-mode knobs
+TPU_KNOBS = {"interpret", "block_images", "bwd_block_images"}
+# signatures that differ as a whole
+WHOLE = {
+    "parallel/mesh.py::make_mesh": "a mesh over torch.distributed's process group (its "
+                                   "backend and this rank's device), not over JAX devices",
+    "data/augment.py::augment_batch": "the rng API: an optional torch.Generator last, in "
+                                      "place of a leading JAX key",
+    "data/augment.py::dual_view_batch": "the same",
+    "core/rng.py::fold": "the rng API: streams keyed by integers, not a JAX key",
+}
+# JAX functions with no counterpart
+ABSENT = {
+    "core/rng.py::root_key": "the rng API (no JAX key to make)",
+    "core/rng.py::split_tree": "the rng API",
+    "core/runtime.py::cache_stats": "XLA's persistent compilation cache",
+    "core/runtime.py::report_cache": "XLA's persistent compilation cache",
+    "core/runtime.py::enable_compilation_cache": "XLA's persistent compilation cache",
+}
+
+
+def _signatures(path: str) -> dict:
+    """{function or Class.method: [(name, default source), ...]} of a
+    module's public functions and methods (and __init__), keyword-only
+    parameters marked with a leading '*'."""
+    def sig(fn):
+        a = fn.args
+        pos = a.posonlyargs + a.args
+        defaults = [None] * (len(pos) - len(a.defaults)) + [ast.unparse(d) for d in a.defaults]
+        out = [(p.arg, d) for p, d in zip(pos, defaults)]
+        out += [("*" + p.arg, None if d is None else ast.unparse(d))
+                for p, d in zip(a.kwonlyargs, a.kw_defaults)]
+        return out
+
+    out = {}
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = sig(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef) and (
+                        not sub.name.startswith("_") or sub.name == "__init__"):
+                    out[f"{node.name}.{sub.name}"] = sig(sub)
+        elif (isinstance(node, ast.Assign) and len(node.targets) == 1
+              and isinstance(node.targets[0], ast.Name) and isinstance(node.value, ast.Name)
+              and node.value.id in out):  # an alias: `mha_xla = mha_plain`
+            out[node.targets[0].id] = out[node.value.id]
+    return out
+
+
+def _modules() -> list:
+    jax_root = os.path.join(REPO, "vit2spn_tpu")
+    return sorted(os.path.relpath(os.path.join(d, f), jax_root)
+                  for d, _, fs in os.walk(jax_root) for f in fs if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("module", _modules())
+def test_public_signatures_match_jax(module):
+    """Each public function's parameter names, their order and defaults as
+    the JAX one's: JAX keys renamed, the TPU knobs out of the JAX list, the
+    port's own parameters out of the port's list (PORT_ONLY), whole-signature
+    differences and absent functions only where listed with their reason."""
+    jax_path = os.path.join(REPO, "vit2spn_tpu", module)
+    port_path = os.path.join(PORT, module)
+    assert os.path.exists(port_path), module
+    want, got = _signatures(jax_path), _signatures(port_path)
+    for name, jsig in want.items():
+        key = f"{module}::{name}"
+        if key in ABSENT:
+            assert name not in got, f"{key} is listed as absent but exists"
+            continue
+        assert name in got, f"{key} has no counterpart in the port"
+        if key in WHOLE:
+            continue
+        jnames = {n.lstrip("*") for n, _ in jsig}
+
+        def norm(n):
+            bare = n.lstrip("*")
+            return n[:len(n) - len(bare)] + RENAMED.get(bare, bare)
+
+        j = [(n, (d or "").replace("jnp.", "torch.")) for n, d in jsig
+             if n.lstrip("*") not in TPU_KNOBS]
+        p = [(norm(n), d or "") for n, d in got[name]
+             if not (n.lstrip("*") in PORT_ONLY and n.lstrip("*") not in jnames)]
+        assert p == j, f"{key}: port {got[name]} vs JAX {jsig}"
+    for key in list(WHOLE) + list(ABSENT):
+        assert key.split("::")[0] != module or key.split("::")[1] in want, key
 
 
 def _imports(path: str) -> set:

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Time the long-sequence attention routes of the PyTorch port
-(vit2spn_tpu_torch/csrc/long_attention.cuh: S > 256) at other block
-geometries, on one CUDA card:
+(vit2spn_tpu_torch/csrc/long_attention.cuh: S > 256) at other geometries,
+on one CUDA card:
 
     python tools/long_seq_sweep.py [--batch 64] [--seq 577] [--heads 12]
 
-For each (LA_ROW_WARPS, LA_ROW_MINB, LA_CORE_WARPS, LA_CORE_MINB) below,
-csrc/layer_fwd.cu, csrc/attn_bwd.cu and csrc/flash_attention.cu are compiled
-with those macros (warps per block and the blocks an SM must hold, which caps
-the registers, of the query-tiled kernels and of the fused backward core)
-into build/long_sweep/, all builds started together; each geometry then runs
-the forward layer's attention stage, the backward's attention core and the
-flash forward and backward on the same bf16 operands, timed with CUDA events
-after a warm-up. Every geometry does the same arithmetic per 16 rows, so its
-outputs must equal the first geometry's bit for bit. Prints the card, per
-geometry each kernel's registers and spills, and the four times.
+For each (LA_FWD_WG, LA_FWD_STAGES, LA_CORE_WG, LA_CORE_STAGES,
+LA_CORE_MINB) below (the forward's consumer warpgroups and its ring's
+stages, one 64-row chunk of K, or of K and V, each; the backward core's
+consumer warpgroups, its ring's stages at most, and the blocks an SM must
+hold, which sets its consumers' registers), csrc/layer_fwd.cu, csrc/attn_bwd.cu and csrc/flash_attention.cu are compiled
+with those macros into build/long_sweep/, all builds started together;
+each geometry then runs the forward layer's attention stage, the backward's
+attention core and the flash forward and backward on the same bf16
+operands, timed with CUDA events after a warm-up. Every geometry does the
+same arithmetic per 64 rows, so its outputs must equal the first
+geometry's bit for bit. Prints the card, per geometry each kernel's
+registers and spills, and the four times.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from chip_smoke import ptxas_report, time_ms  # noqa: E402
 from vit2spn_tpu_torch.ops import cuda_build  # noqa: E402
 from vit2spn_tpu_torch.ops.fused_block import _SIGNATURES  # noqa: E402
 
-GEOMETRIES = ((4, 4, 8, 2), (4, 1, 8, 1), (8, 2, 4, 3), (4, 3, 4, 4))  # the first: the default
+GEOMETRIES = ((2, 6, 1, 4, 2), (2, 4, 1, 3, 2), (2, 6, 2, 4, 1), (3, 6, 1, 3, 2))  # the first: the default
 SOURCES = ("layer_fwd", "attn_bwd", "flash_attention")
 OUT = cuda_build.BUILD_DIR.parent / "long_sweep"
 
@@ -43,7 +45,7 @@ def build(geoms):
     procs = {}
     for g in geoms:
         defs = [f"-D{n}={v}" for n, v in zip(
-            ("LA_ROW_WARPS", "LA_ROW_MINB", "LA_CORE_WARPS", "LA_CORE_MINB"), g)]
+            ("LA_FWD_WG", "LA_FWD_STAGES", "LA_CORE_WG", "LA_CORE_STAGES", "LA_CORE_MINB"), g)]
         for src in SOURCES:
             so = OUT / f"{src}_{'_'.join(map(str, g))}.so"
             cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, *defs, "-o", str(so),
@@ -62,6 +64,9 @@ def build(geoms):
         libs.setdefault(g, {})[src] = lib
         report = [ln for ln in ptxas_report(log, 0) if ln.startswith("long_")]
         print(f"[build] {g} {src}: " + "; ".join(report))
+        for line in log.splitlines():  # ptxas serializing a long route's wgmma
+            if "Performance Loss" in line and "long_" in line:
+                print(f"[build] {g} {src}: {line.split('info    : ')[-1]}")
     return libs
 
 
@@ -115,7 +120,8 @@ def main() -> int:
         outs = [t.clone() for t in (att, att2, dqkv, o, dq, dk, dv)]
         same = first is None or all(torch.equal(x, y) for x, y in zip(first, outs))
         first = first or outs
-        print(f"[time] (row warps, row min blocks, core warps, core min blocks) {g}, B={b} "
+        print(f"[time] (forward warpgroups, forward stages, core warpgroups, core stages, core "
+              f"min blocks) {g}, B={b} "
               f"S={s} heads={h}: " + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items())
               + f"; bits equal to the first geometry {same}; {card}")
         if not same:

@@ -38,6 +38,28 @@ extern "C" int vit2spn_attention_core(const void* qkv, const void* datt, void* a
                               static_cast<cudaStream_t>(stream));
 }
 
+// The longest S the bf16 core takes above 256 keys: csrc/long_attention.cuh
+// keeps three fp32 statistics a query in shared memory beside its ring
+extern "C" int vit2spn_attention_core_max_seq() { return long_core_max_seq(); }
+
+// s = q k^T and st = k q^T (64 x 64 fp32) of one pair of 64 x 64 bf16 tiles
+// through the long core's score products (long_scores_probe): whether its
+// key-major phase's scores equal its query passes' bit for bit
+extern "C" int vit2spn_long_scores_probe(const void* q, const void* k, void* s, void* st,
+                                         void* stream) {
+  return launch_long_scores_probe(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                  static_cast<float*>(s), static_cast<float*>(st),
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// The long routes' branch-free quotient against __fdiv_rn on n pairs and
+// the edges (long_quotient_probe); counts: 4 zeroed uint64
+extern "C" int vit2spn_long_quotient_probe(long long n, void* counts, void* stream) {
+  return launch_long_quotient_probe((unsigned long long)n,
+                                    static_cast<unsigned long long*>(counts),
+                                    static_cast<cudaStream_t>(stream));
+}
+
 // CUDA kernel launches one call makes
 extern "C" int vit2spn_attn_bwd_launches(int D, int fp32) {
   if (hopper_route(D, fp32)) return wide_route(D) ? ATTN_WIDE_LAUNCHES : ATTN_HOPPER_LAUNCHES;

@@ -415,9 +415,7 @@ static bool bad_shape(int B, int S, int H, long long bs, long long ts, int fp32)
 static int fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
                     long long bs, long long ts, float scale, cudaStream_t st) {
   if (S > FA_MAX_S)  // above 256 keys: csrc/long_attention.cuh, P in two terms as here
-    return launch_long_attention_fwd<true>({q, bs, ts}, {k, bs, ts}, {v, bs, ts}, o,
-                                           (long long)S * H * FA_DH, (long long)H * FA_DH, B, S,
-                                           H, st);
+    return launch_long_flash_fwd(q, k, v, o, bs, ts, B, S, H, st);
   const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
   const size_t smem = tc_fwd_smem(S);
   return by_key_tiles(S, [&](auto nt) {

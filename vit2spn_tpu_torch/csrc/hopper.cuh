@@ -45,10 +45,11 @@ static EncodeTiledFn encode_tiled() {
 #define TMA_BOX 64  // a box is 64 columns (128 B, the swizzle's width) x 64 rows
 #define TMA_BOX_BYTES (TMA_BOX * TMA_BOX * 2)
 
-// `layers` row-major bf16 (rows, cols) matrices one after another, read in
-// 64 x 64 boxes with the 128-byte swizzle; rows past the end read as zeros.
-static int tensor_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
-                      uint64_t layers) {
+// `layers` bf16 (rows, cols) matrices, row r of layer l at base + l
+// layer_stride + r row_stride (elements; both multiples of 8), read in 64 x
+// 64 boxes with the 128-byte swizzle; rows past the end read as zeros.
+static int tensor_map_strided(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                              uint64_t layers, uint64_t row_stride, uint64_t layer_stride) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return (int)cudaErrorSharedObjectInitFailed;
   // the encode is a driver call and needs a current context, which a thread
@@ -60,7 +61,7 @@ static int tensor_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_
     bound = true;
   }
   const cuuint64_t dims[3] = {cols, rows, layers};
-  const cuuint64_t strides[2] = {cols * 2, cols * rows * 2};
+  const cuuint64_t strides[2] = {row_stride * 2, layer_stride * 2};
   const cuuint32_t box[3] = {TMA_BOX, TMA_BOX, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
@@ -72,6 +73,12 @@ static int tensor_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_
           (int)r, base, (unsigned long long)cols, (unsigned long long)rows,
           (unsigned long long)layers, (void*)map);
   return (int)cudaErrorInvalidValue;
+}
+
+// `layers` row-major bf16 (rows, cols) matrices one after another
+static int tensor_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                      uint64_t layers) {
+  return tensor_map_strided(map, base, cols, rows, layers, cols, cols * rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -156,9 +163,65 @@ __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// this warpgroup's registers a thread, lowered (a producer) or raised (the
+// consumers) to N, a multiple of 8 in [24, 256]; every warp of the
+// warpgroup executes it. ptxas allocates the code that follows within N
+// (it reports the kernel's count at entry, the launch bound's).
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // byte offset of bf16 element (r, c) in a 128-byte-swizzled [rows][64] region
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return (uint32_t)(r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2);
+}
+
+// ---------------------------------------------------------------------------
+// A ring of stages in shared memory, filled by the producer warp's TMA loads
+// in the order the consumers take them; a stage is free again once every
+// consumer warp has released it.
+// ---------------------------------------------------------------------------
+
+struct Ring {
+  uint64_t* full;   // count 1: the producer's expect_tx, then the bytes
+  uint64_t* empty;  // count: the consumer warps
+  uint8_t* base;
+  int stage_bytes, stages, it;
+
+  // producer: the next stage, once free, expecting `bytes`
+  __device__ __forceinline__ uint8_t* fill(uint32_t bytes, uint64_t** bar) {
+    const int s = it % stages;
+    mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+    mbar_expect_tx(&full[s], bytes);
+    ++it;
+    *bar = &full[s];
+    return base + s * stage_bytes;
+  }
+  // consumer: the next stage, once loaded; returns its index
+  __device__ __forceinline__ int take() {
+    const int s = it % stages;
+    mbar_wait(&full[s], (it / stages) & 1);
+    ++it;
+    return s;
+  }
+  __device__ __forceinline__ const uint8_t* at(int s) const { return base + s * stage_bytes; }
+  // consumer: done with stage s (lane 0 speaks for its warp)
+  __device__ __forceinline__ void release(int s, int lane) const {
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+};
+
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int stages,
+                                          int consumer_warps) {
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(&full[s], 1);
+    mbar_init(&empty[s], consumer_warps);
+  }
 }
 
 // ---------------------------------------------------------------------------

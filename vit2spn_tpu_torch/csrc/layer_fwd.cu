@@ -57,7 +57,6 @@ extern "C" int vit2spn_attention_stage(const void* qkv, void* att, int B, int S,
   LayerMaps mp;
   LAUNCH(tensor_map(&mp.qkv_img, qkv, 3 * D, S, B));
   LAUNCH(tensor_map(&mp.att_img, att, D, S, B));
-  mp.qkv_buf = static_cast<const bf16*>(qkv);
   mp.att_buf = static_cast<bf16*>(att);
   return launch_layer_attention(mp, B, S, D, H, static_cast<cudaStream_t>(stream));
 }

@@ -51,7 +51,7 @@
 // dx2 crosses from the MLP half to the attention half through device memory
 // in the compute dtype, as the split path hands it over.
 //
-// Limits: head_dim 64, S <= 256 in fp32 (bf16: 13,056), D <= 768, D and mlp
+// Limits: head_dim 64, S <= 256 in fp32 (bf16: 15,168), D <= 768, D and mlp
 // multiples of 64, activations and matmul weights all bf16 or all fp32, fp32
 // LN parameters.
 

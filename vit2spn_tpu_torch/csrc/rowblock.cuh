@@ -52,49 +52,6 @@ __device__ __forceinline__ float gelu_fwd(float m) {
 }
 
 // ---------------------------------------------------------------------------
-// The weight ring: stages filled by the producer warp's TMA loads in the
-// order the consumers take them; a stage is free again once every consumer
-// warp has released it.
-// ---------------------------------------------------------------------------
-
-struct Ring {
-  uint64_t* full;   // count 1: the producer's expect_tx, then the bytes
-  uint64_t* empty;  // count: the consumer warps
-  uint8_t* base;
-  int stage_bytes, stages, it;
-
-  // producer: the next stage, once free, expecting `bytes`
-  __device__ __forceinline__ uint8_t* fill(uint32_t bytes, uint64_t** bar) {
-    const int s = it % stages;
-    mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
-    mbar_expect_tx(&full[s], bytes);
-    ++it;
-    *bar = &full[s];
-    return base + s * stage_bytes;
-  }
-  // consumer: the next stage, once loaded; returns its index
-  __device__ __forceinline__ int take() {
-    const int s = it % stages;
-    mbar_wait(&full[s], (it / stages) & 1);
-    ++it;
-    return s;
-  }
-  __device__ __forceinline__ const uint8_t* at(int s) const { return base + s * stage_bytes; }
-  // consumer: done with stage s (lane 0 speaks for its warp)
-  __device__ __forceinline__ void release(int s, int lane) const {
-    if (lane == 0) mbar_arrive(&empty[s]);
-  }
-};
-
-__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int stages,
-                                          int consumer_warps) {
-  for (int s = 0; s < stages; ++s) {
-    mbar_init(&full[s], 1);
-    mbar_init(&empty[s], consumer_warps);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Row-block GEMM on wgmma: C[ROWS, N] = A[ROWS, K] B[K, N] with a fused
 // epilogue (common.cuh's epilogue_pair, or one of its own). A is LayerNorm of
 // the rows of x, computed once into a resident K-major tile (bf16 x arrives

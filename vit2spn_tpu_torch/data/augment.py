@@ -278,7 +278,7 @@ def _normalize(out: torch.Tensor, cfg: AugmentConfig, out_dtype, fold_normalize)
 
 
 def augment_batch(
-    images_u8: torch.Tensor,
+    images: torch.Tensor,
     cfg: AugmentConfig,
     out_dtype: torch.dtype = torch.float32,
     fold_normalize: bool = False,
@@ -288,7 +288,7 @@ def augment_batch(
     pre-normalize grayscale (B, out, out) with `fold_normalize` (pair with
     `norm_fold` on the model forward). With `cfg.enabled` the random stack
     draws its parameters from `generator` (on the images' device)."""
-    gray = _to_gray(images_u8)
+    gray = _to_gray(images)
     if not cfg.enabled:
         return _normalize(_separable_resize(gray, cfg.out_size), cfg, out_dtype,
                           fold_normalize)
@@ -301,7 +301,7 @@ def augment_batch(
 
 
 def dual_view_batch(
-    images_u8: torch.Tensor,
+    images: torch.Tensor,
     cfg: AugmentConfig,
     out_dtype: torch.dtype = torch.float32,
     fold_normalize: bool = False,
@@ -310,7 +310,7 @@ def dual_view_batch(
     """Two independent augmentation draws per image (DualViewTransform,
     ssp_vit2spn_tiny.py:75-82). With the deterministic transform the two
     views are the same tensor, so it is computed once."""
-    v1 = augment_batch(images_u8, cfg, out_dtype, fold_normalize, generator)
+    v1 = augment_batch(images, cfg, out_dtype, fold_normalize, generator)
     if not cfg.enabled:
         return v1, v1
-    return v1, augment_batch(images_u8, cfg, out_dtype, fold_normalize, generator)
+    return v1, augment_batch(images, cfg, out_dtype, fold_normalize, generator)

@@ -44,7 +44,7 @@ from vit2spn_tpu_torch.core.runtime import resolve_device
 from vit2spn_tpu_torch.data.datasets import Dataset, load_dataset
 from vit2spn_tpu_torch.evals.kfold import stratified_holdout, stratified_kfold
 from vit2spn_tpu_torch.evals.metrics import classification_summary, mean_auc, per_class_roc
-from vit2spn_tpu_torch.parallel.mesh import current_rank
+from vit2spn_tpu_torch.parallel.mesh import current_rank, make_mesh
 from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
 from vit2spn_tpu_torch.train.optim import balanced_class_weights
 from vit2spn_tpu_torch.utils.logging import MetricLogger
@@ -117,19 +117,25 @@ def run_cv_protocol(
     logger: Optional[MetricLogger] = None,
     epochs: Optional[int] = None,
     trial_seed: Optional[int] = None,
+    mesh=None,
     eval_augment: bool = True,
     per_fold_test: bool = False,
     trial: int = 0,
-    attn_impl: str = "fused",
+    attn_impl: Optional[str] = None,
     device=None,
 ) -> CVResult:
     """`trial_seed` re-draws the data (subsets and fold assignment);
     `trial` re-draws only the training randomness with the data held fixed —
     what the reference's repeated "retraining runs" vary (its subset and
     folds are pinned at seed 42; multitrial/octmnist_ft_vit2spn.py:28,58,193).
-    Runs on `device` (default `cuda`)."""
+    Runs on `device` (default `cuda`). Every fold's trainer takes `mesh`
+    (parallel/mesh.py); without one, one mesh over cfg.mesh is made here for
+    all the folds, so the folds make no process groups of their own."""
     logger = logger or MetricLogger(echo=True)
     dev = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(cfg.mesh.model_parallel, cfg.mesh.data_axis, cfg.mesh.model_axis,
+                         device=dev)
     ds = dataset if dataset is not None else load_dataset(
         cfg.data.name, root=cfg.data.root
     )
@@ -164,6 +170,7 @@ def run_cv_protocol(
             eval_augment=eval_augment,
             trial=trial,
             device=dev,
+            mesh=mesh,
         )
         trainer.fit(train_fold, val_fold, weights, epochs=epochs,
                     tag=f"fold{fold}")
@@ -267,8 +274,9 @@ def run_multitrial(
     backbone_params: Optional[dict] = None,
     logger: Optional[MetricLogger] = None,
     epochs: Optional[int] = None,
+    mesh=None,
     resume_path: Optional[str] = None,
-    attn_impl: str = "fused",
+    attn_impl: Optional[str] = None,
     device=None,
 ) -> dict:
     """multitrial/*: one run evaluates EVERY fold's model on the held-out test
@@ -286,13 +294,16 @@ def run_multitrial(
     at the next trial (trial results are deterministic given the per-trial
     streams, so resumed aggregates equal an uninterrupted run's)."""
     logger = logger or MetricLogger(echo=True)
+    if mesh is None:  # one for every trial and fold
+        mesh = make_mesh(cfg.mesh.model_parallel, cfg.mesh.data_axis, cfg.mesh.model_axis,
+                         device=resolve_device(device))
     trials = _load_trial_state(resume_path, cfg, epochs) if resume_path else []
     if trials:
         logger.log("multitrial_resume", completed=len(trials),
                    total=cfg.num_trials, path=resume_path)
     for trial in range(len(trials), cfg.num_trials):
         res = run_cv_protocol(
-            cfg, dataset, backbone_params, logger, epochs,
+            cfg, dataset, backbone_params, logger, epochs, mesh=mesh,
             per_fold_test=True, trial=trial, attn_impl=attn_impl, device=device,
         )
         agg = res.multitrial_aggregate()

@@ -131,7 +131,7 @@ def online_prediction(
     policy: DTypePolicy = FP32,
     generator: Optional[torch.Generator] = None,
     train: bool = False,
-    attn_impl: str = "fused",
+    attn_impl: Optional[str] = None,
     norm_fold=None,
     fast_gelu: Optional[bool] = None,
     mesh=None,
@@ -157,7 +157,7 @@ def dual_stream_forward(
     policy: DTypePolicy = FP32,
     generator: Optional[torch.Generator] = None,
     train: bool = False,
-    attn_impl: str = "fused",
+    attn_impl: Optional[str] = None,
     norm_fold=None,
     fast_gelu: Optional[bool] = None,
     mesh=None,

@@ -16,11 +16,14 @@ under its `attn_impl` names (ATTN_IMPLS):
   * "fused_layer": a loop over layers of ops/fused_block.py::fused_block,
     one kernel call per layer (the JAX "fused_layer", its lax.scan);
   * "xla": the per-op pre-LN block `_block` in plain torch ops with
-    `mha_plain` attention (the JAX default, attn_impl=None or "xla");
+    `mha_plain` attention (the JAX package's path off the TPU);
   * "pallas": the same `_block` with `mha_pallas`, the fp32 attention
     kernels (the JAX "pallas");
   * "plain": the fused kernels' plain twin on any device (the reference the
     kernels are held against on the card; the port's own name).
+
+attn_impl=None takes ops/attention.py::default_model_impl() ("fused"), as
+the JAX package's None takes its default for the backend.
 
 The kernels run for CUDA tensors, their plain twins for CPU tensors. Under
 autograd gradients flow through the kernels' Functions (the backward
@@ -56,7 +59,7 @@ from torch.utils.checkpoint import (
 from vit2spn_tpu_torch.core.config import ViTConfig
 from vit2spn_tpu_torch.core.dtypes import FP32, DTypePolicy
 from vit2spn_tpu_torch.core.runtime import resolve_device
-from vit2spn_tpu_torch.ops.attention import multi_head_attention
+from vit2spn_tpu_torch.ops.attention import default_model_impl, multi_head_attention
 from vit2spn_tpu_torch.ops.fused_block import (
     WEIGHT_NAMES,
     backbone_forward_plain,
@@ -274,8 +277,10 @@ def _remat(block, remat: str):
     return lambda *a: checkpoint(block, *a, use_reentrant=False, **kw)
 
 
-def _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu, mesh=None):
+def _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu, mesh=None, remat=None):
     """Embed + the transformer stack: HF `hidden_states[-1]`, (B, S, D)."""
+    attn_impl = attn_impl or default_model_impl()
+    remat = remat if remat is not None else cfg.remat
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
     if mesh is not None and mesh.model_size > 1 and attn_impl != "xla":
@@ -295,9 +300,9 @@ def _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu, mesh=None):
             h = fused_block(h, backbone_weights(blocks, policy, l), heads, eps, fast_gelu)
         return h
     if mesh is not None and mesh.model_size > 1:
-        block = _remat(functools.partial(_tp_block, cfg, mesh), cfg.remat)
+        block = _remat(functools.partial(_tp_block, cfg, mesh), remat)
     else:
-        block = _remat(functools.partial(_block, cfg, attn_impl), cfg.remat)
+        block = _remat(functools.partial(_block, cfg, attn_impl), remat)
     for l in range(cfg.num_layers):
         h = block(h, *(blocks[n][l].to(policy.compute_dtype) for n in WEIGHT_NAMES))
     return h
@@ -308,7 +313,8 @@ def vit_forward(
     x: torch.Tensor,
     cfg: ViTConfig,
     policy: DTypePolicy = FP32,
-    attn_impl: str = "fused",
+    attn_impl: Optional[str] = None,
+    remat: Optional[str] = None,
     norm_fold=None,
     fast_gelu: Optional[bool] = None,
     mesh=None,
@@ -320,11 +326,11 @@ def vit_forward(
     Returns {"pre_ln": (B, S, D), "last_hidden_state": (B, S, D)}: HF
     `hidden_states[-1]` and the post-final-layernorm `last_hidden_state`.
     `attn_impl` picks the backbone path (ATTN_IMPLS, the module docstring).
-    `fast_gelu=None` resolves from VIT2SPN_FAST_GELU (the fused paths; the
+    `remat` overrides `cfg.remat` for the per-op blocks. `fast_gelu=None` resolves from VIT2SPN_FAST_GELU (the fused paths; the
     per-op block's gelu is always the exact erf). `mesh` (parallel/mesh.py)
     with a model axis > 1 runs the tensor-parallel block on this rank's
     shards."""
-    pre_ln = _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu, mesh)
+    pre_ln = _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu, mesh, remat)
     last_hidden = _layernorm(
         pre_ln, params["final_ln"]["scale"], params["final_ln"]["bias"],
         cfg.layernorm_eps,
@@ -337,7 +343,7 @@ def vit_features(
     x: torch.Tensor,
     cfg: ViTConfig,
     policy: DTypePolicy = FP32,
-    attn_impl: str = "fused",
+    attn_impl: Optional[str] = None,
     norm_fold=None,
     fast_gelu: Optional[bool] = None,
     mesh=None,
@@ -350,3 +356,12 @@ def vit_features(
     else:  # the final layernorm is not needed: skip it
         h = _pre_ln(params, x, cfg, policy, attn_impl, norm_fold, fast_gelu, mesh)
     return torch.mean(h.float(), dim=1)
+
+
+def count_params(tree) -> int:
+    """Elements over every tensor of a (nested dict) parameter tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return sum(count_params(v) for v in tree)

@@ -3,18 +3,21 @@
 Two implementations, under the JAX names, for the per-op block
 (models/vit.py::_block):
 
-  * `mha_plain` (the JAX `mha_xla`, impl="xla"): plain PyTorch, softmax
+  * `mha_xla` (impl="xla", also named `mha_plain`): plain PyTorch, softmax
     statistics in fp32 regardless of input dtype, the probabilities rounded
     to the value dtype before P.V, as the JAX version does;
   * `mha_pallas` (impl="pallas", ops/flash_attention.py): the hand-written
     kernel on CUDA with P and dS in fp32, its plain twin on the CPU.
 
-The fused block kernels (ops/fused_block.py) carry their own attention.
+`multi_head_attention` takes "xla" unless `impl=` names another, as the
+JAX one does. The fused block kernels (ops/fused_block.py) carry their own
+attention; `default_model_impl` names the trainers' default path.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -36,11 +39,23 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     return out.to(v.dtype)
 
 
+mha_xla = mha_plain  # the JAX package's name
+
+
+def default_model_impl() -> Optional[str]:
+    """The whole-model path the trainers and model functions take when
+    `attn_impl` is None: "fused", the port's kernels on CUDA and their plain
+    twins on the CPU (the JAX package takes its fused Pallas kernel on a TPU
+    and XLA elsewhere)."""
+    return "fused"
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         impl: str) -> torch.Tensor:
-    """Attention over (B, S, H, Dh) through `impl`: "xla" (`mha_plain`) or
-    "pallas" (`mha_pallas`). The port has no interpret mode: on the CPU
-    "pallas" runs the kernels' plain twins."""
+                         impl: Optional[str] = None) -> torch.Tensor:
+    """Attention over (B, S, H, Dh) through `impl`: "xla" (`mha_xla`, the
+    default) or "pallas" (`mha_pallas`). The port has no interpret mode: on
+    the CPU "pallas" runs the kernels' plain twins."""
+    impl = impl or "xla"
     if impl == "xla":
         return mha_plain(q, k, v)
     if impl == "pallas":

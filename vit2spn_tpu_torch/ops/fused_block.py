@@ -64,10 +64,15 @@ KERNEL_NAME = "backbone_fwd"
 # what csrc/backbone_fwd.cu takes: head_dim 64, a LayerNorm row of D values
 # (D <= 768). Its attention holds a row of scores in registers up to
 # KERNEL_MAX_SEQ keys; bf16 above it takes the multi-pass route of
-# csrc/long_attention.cuh (whose backward core, keeping three fp32 statistics
-# a query in shared memory, refuses S above 13,056), fp32 has no such route
+# csrc/long_attention.cuh, fp32 has no such route
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_SEQ = 256
+# the longest S of that route's backward core, which keeps three fp32
+# statistics a query in shared memory beside at least one 16 KB tile slot
+# and two 16 KB ring stages: (232,448 - 256 - 50,176) / 12 bytes, in whole
+# 64-query tiles (csrc/long_attention.cuh long_core_max_seq, which
+# chip_smoke.py holds this to)
+LONG_CORE_MAX_SEQ = 15168
 KERNEL_MAX_D = 768
 # widest D whose layer keeps x2, y2 and g inside one block (csrc/layer_fwd.cuh
 # FUSED_MLP_MAX_D); above it the layer runs two LayerNorms and four GEMMs
@@ -379,22 +384,29 @@ def _weight_shapes(layers: int, d: int, mlp: int) -> dict:
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def check_seq_len(s: int, dtype: torch.dtype, what: str) -> None:
+def check_seq_len(s: int, dtype: torch.dtype, what: str, core: bool = False) -> None:
     """The attention kernels' sequence limits: any S in bf16 (above
-    KERNEL_MAX_SEQ through csrc/long_attention.cuh), S <= KERNEL_MAX_SEQ in
-    fp32, whose attention core (csrc/flash_f32.cuh) holds a row of scores
-    in registers and has no longer route yet."""
+    KERNEL_MAX_SEQ through csrc/long_attention.cuh), except S <=
+    LONG_CORE_MAX_SEQ for the backward's attention core (`core`: the layer
+    backwards), whose statistics fill the shared memory there; S <=
+    KERNEL_MAX_SEQ in fp32, whose attention core (csrc/flash_f32.cuh) holds a
+    row of scores in registers and has no longer route yet."""
     if dtype == torch.float32 and s > KERNEL_MAX_SEQ:
         raise ValueError(
             f"{what} kernel takes S <= {KERNEL_MAX_SEQ} in fp32, got {s}: fp32 attention "
             "above 256 tokens is a later slice of the port (ROADMAP Queue 1 item 6); bf16 "
             "takes it")
+    if core and s > LONG_CORE_MAX_SEQ:
+        raise ValueError(
+            f"{what} kernel takes S <= {LONG_CORE_MAX_SEQ} in bf16, got {s}: its attention "
+            "core keeps three fp32 statistics a query in one block's shared memory "
+            "(csrc/long_attention.cuh)")
 
 
-def _check_activation(x: torch.Tensor, heads: Optional[int]) -> None:
+def _check_activation(x: torch.Tensor, heads: Optional[int], core: bool = False) -> None:
     """What every kernel takes: contiguous bf16 or fp32 (B, S, D) with D a
     multiple of 64 up to KERNEL_MAX_D; the attention kernels also head_dim
-    64 and, in fp32, S <= KERNEL_MAX_SEQ."""
+    64 and check_seq_len's S (`core`: the backward's attention core)."""
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"backbone kernel takes bf16 or fp32 activations, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
@@ -406,7 +418,7 @@ def _check_activation(x: torch.Tensor, heads: Optional[int]) -> None:
                 f"backbone kernel needs head_dim {KERNEL_HEAD_DIM}; got D={d}, "
                 f"heads={heads}"
             )
-        check_seq_len(s, x.dtype, "backbone")
+        check_seq_len(s, x.dtype, "backbone", core)
     if d % 64 or d > KERNEL_MAX_D:
         raise ValueError(f"backbone kernel needs D a multiple of 64 and "
                          f"D <= {KERNEL_MAX_D}, got {d}")
@@ -447,7 +459,7 @@ def _check_kernel_inputs(x: torch.Tensor, weights: Tuple, heads: int,
 def _check_layer_inputs(x, other, w: dict, names, heads, out: dict) -> None:
     """One layer's backward operands: x and the incoming gradient alike,
     the layer's weights, and fp32 gradient outputs of the weights' shapes."""
-    _check_activation(x, heads)
+    _check_activation(x, heads, core=True)
     if other.dtype != x.dtype or other.shape != x.shape or not other.is_contiguous():
         raise ValueError("the incoming gradient must be a contiguous tensor of "
                          "x's shape and dtype")
@@ -485,6 +497,9 @@ _SIGNATURES = {
         "vit2spn_attn_bwd_workspace_floats": ([_I] * 5, _LL),
         "vit2spn_attn_bwd_launches": ([_I] * 2, _I),
         "vit2spn_attention_core": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "vit2spn_attention_core_max_seq": ([], _I),
+        "vit2spn_long_scores_probe": ([_P] * 5, _I),
+        "vit2spn_long_quotient_probe": ([_LL, _P, _P], _I),
     },
     "layer_fwd": {
         "vit2spn_layer_fwd": ([_P] * 20 + [_I] * 5 + [_F, _I, _P], _I),

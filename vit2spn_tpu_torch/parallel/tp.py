@@ -114,11 +114,11 @@ def _leaves(tree) -> list:
     return out
 
 
-def tp_state_shardings(mesh: Mesh, state, model_axis: Optional[str] = None):
+def tp_state_shardings(mesh: Mesh, state, model_axis: str = "model"):
     """The spec of every leaf of a WHOLE (unsharded) tree: the model axis at
     its sharded dim, or P() where the leaf stays whole, also where that dim
-    does not divide by the axis size."""
-    model_axis = model_axis or mesh.model_axis
+    does not divide by the axis size. The trainers pass their mesh's axis
+    name."""
 
     def one(names, leaf):
         if not isinstance(leaf, torch.Tensor):

@@ -136,7 +136,7 @@ def _rebuild(like, stored: dict, prefix: str, used: set, missing: list):
     return type(like)(vals[str(i)] for i in range(len(like)))
 
 
-def restore(path: str, like, ignore: Iterable[str] = (), strict: bool = True):
+def restore(path: str, like, strict: bool = True, ignore: Iterable[str] = ()):
     """Load leaves into the structure of `like`. Strictly (the default), a
     leaf missing from the file or a stored key the template lacks raises
     KeyError; with `strict=False` a missing leaf keeps the template's value

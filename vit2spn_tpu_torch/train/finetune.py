@@ -75,6 +75,7 @@ from vit2spn_tpu_torch.models.heads import (
 )
 from vit2spn_tpu_torch.models.ssp import _leaves
 from vit2spn_tpu_torch.models.vit import ATTN_IMPLS, _to_device, init_vit, vit_features
+from vit2spn_tpu_torch.ops.attention import default_model_impl
 from vit2spn_tpu_torch.parallel import tp
 from vit2spn_tpu_torch.parallel.mesh import Mesh, make_mesh
 from vit2spn_tpu_torch.parallel.shard_map_dp import (
@@ -144,19 +145,20 @@ class FineTuneTrainer:
         cfg: FineTuneConfig,
         num_classes: int,
         backbone_params: Optional[dict] = None,
+        mesh: Optional[Mesh] = None,
         logger: Optional[MetricLogger] = None,
         fold: int = 0,
-        attn_impl: str = "fused",
+        attn_impl: Optional[str] = None,
         eval_augment: bool = True,
         trial: int = 0,
         device=None,
-        mesh: Optional[Mesh] = None,
     ):
         """`trial` shifts only the training randomness (init, epoch order,
         augment and dropout streams): the multitrial protocol holds the data
         subsets and folds fixed and varies exactly this; trial 0 is the
         single-trial run. `mesh` (default: `make_mesh` over cfg.mesh) is
         this rank's place among several (module docstring)."""
+        attn_impl = attn_impl or default_model_impl()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
         self.cfg = cfg
@@ -183,7 +185,7 @@ class FineTuneTrainer:
         self.bn_state = init_bn_state(cfg.head_hidden, device=dev)
         if self.mesh.model_size > 1:  # this rank's shards (parallel/tp.py)
             whole = {"backbone": self.backbone, "head": self.head}
-            part = tp.shard_tree(whole, tp.tp_state_shardings(self.mesh, whole), self.mesh)
+            part = tp.shard_tree(whole, tp.tp_state_shardings(self.mesh, whole, self.mesh.model_axis), self.mesh)
             self.backbone, self.head = part["backbone"], part["head"]
 
         # torch.optim.Adam skips parameters whose .grad is None, so the

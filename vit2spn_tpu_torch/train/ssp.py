@@ -76,6 +76,7 @@ from vit2spn_tpu_torch.models.ssp import (
     ssp_loss_sums,
 )
 from vit2spn_tpu_torch.models.vit import ATTN_IMPLS
+from vit2spn_tpu_torch.ops.attention import default_model_impl
 from vit2spn_tpu_torch.ops.fused_block import fast_gelu_default
 from vit2spn_tpu_torch.parallel import tp
 from vit2spn_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -145,20 +146,21 @@ class SSPTrainer:
     def __init__(
         self,
         cfg: SSPConfig,
+        mesh: Optional[Mesh] = None,
         backbone_params: Optional[dict] = None,
         logger: Optional[MetricLogger] = None,
-        attn_impl: str = "fused",
+        attn_impl: Optional[str] = None,
         device=None,
-        mesh: Optional[Mesh] = None,
         dist_mode: str = "gspmd",
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = DTypePolicy.from_str(cfg.compute_dtype)
         # the backbone path, under the JAX package's names (models/vit.py):
-        # "fused" (its backward merged under VIT2SPN_MERGED_BWD=1),
-        # "fused_layer", "xla", "pallas"; or "plain", the fused kernels'
-        # plain twin under torch autograd
+        # "fused" (the default; its backward merged under
+        # VIT2SPN_MERGED_BWD=1), "fused_layer", "xla", "pallas"; or "plain",
+        # the fused kernels' plain twin under torch autograd
+        attn_impl = attn_impl or default_model_impl()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
         if dist_mode not in DIST_MODES:
@@ -197,7 +199,7 @@ class SSPTrainer:
         self.params = init_dual_stream(gen, cfg, backbone_params, device=self.device)
         if self.mesh.model_size > 1:  # this rank's shards (parallel/tp.py)
             self.params = tp.shard_tree(
-                self.params, tp.tp_state_shardings(self.mesh, self.params), self.mesh)
+                self.params, tp.tp_state_shardings(self.mesh, self.params, self.mesh.model_axis), self.mesh)
         # Adam over the trainable params only (the targets are frozen,
         # ssp_vit2spn_tiny.py:173)
         self._trainable = _leaves(self.params.online) + _leaves(self.params.heads)
@@ -374,22 +376,22 @@ class SSPTrainer:
                       for i in range(a))
         return {"loss": sums["loss"] / a, "pred_std": std_sum / a}
 
-    def train_step(self, batch_u8: np.ndarray, key: Sequence[int], w=None) -> dict:
+    def train_step(self, batch_u8: np.ndarray, step_key: Sequence[int], w=None) -> dict:
         """One optimizer step over a host batch (accum * B, H, W, C) uint8.
-        `key` (ints, e.g. (epoch, step)) seeds the step's random streams;
-        `w` (optional, (accum * B,) 0/1) masks padded tail samples. Returns
-        DEVICE-tensor metrics {"loss", "pred_std"}: fetch them once per
-        epoch, not per step."""
+        `step_key` (ints, e.g. (epoch, step)) seeds the step's random
+        streams; `w` (optional, (accum * B,) 0/1) masks padded tail samples.
+        Returns DEVICE-tensor metrics {"loss", "pred_std"}: fetch them once
+        per epoch, not per step."""
         batch = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
-        return self._step(batch, key, w)
+        return self._step(batch, step_key, w)
 
-    def train_step_indices(self, idx: np.ndarray, key: Sequence[int], w=None) -> dict:
+    def train_step_indices(self, idx: np.ndarray, step_key: Sequence[int], w=None) -> dict:
         """A step over the staged dataset (attach_dataset): only the index
         vector crosses to the device."""
         if self._device_images is None:
             raise RuntimeError("call attach_dataset first")
         idx_dev = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        return self._step(self._device_images[idx_dev], key, w)
+        return self._step(self._device_images[idx_dev], step_key, w)
 
     def train_epoch(self, idx_mat: np.ndarray, keys: Sequence[Sequence[int]],
                     w_mat: Optional[np.ndarray] = None) -> dict:

@@ -77,7 +77,7 @@ def device_memory_report(timeout_s: Optional[float] = None) -> dict:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "./output/trace"):
+def trace(log_dir: str = "/tmp/vit2spn_trace"):
     """Profile the block (host ops; the card's kernels when CUDA is up) and
     write `<log_dir>/trace_<ns>.json.gz` on exit."""
     import torch
@@ -146,7 +146,7 @@ def op_breakdown(log_dir: str, top: int = 20) -> list:
     return rows[:top]
 
 
-def profile_fn(fn: Callable, *args, log_dir: str = "./output/trace",
+def profile_fn(fn: Callable, *args, log_dir: str = "/tmp/vit2spn_trace",
                warmup: bool = True, top: int = 20):
     """Trace one call of `fn(*args)` (after one untraced call with
     `warmup`) and return its op breakdown."""
