@@ -190,7 +190,10 @@ script exits non-zero without printing a result:
      attention core alone (their C entry points) against their twins and
      as close to fp32 as the twins, the core's att equal to the stage's
      bit for bit, two core runs equal; the flash pair as phase 5 holds it,
-     two backward runs equal; a 2-layer fused_backbone, both backward
+     two backward runs equal, and the flash backward once more at S =
+     65,600 (B = 1, one head; row sums on both sides of 2^16) against the
+     twin's function in blocks of 2,048 queries, two runs equal; a 2-layer
+     fused_backbone, both backward
      halves and merged (equal to the split pair bit for bit, two runs of
      each equal) through the wrappers; at S = 577, 12 fused_block calls
      equal to one fused_backbone, one call of each wrapper with its
@@ -204,9 +207,10 @@ script exits non-zero without printing a result:
      data.augment.out_size=384`, bf16, cut to 2 x 64 images a step): step 1
      of "fused" against "xla" and the fp32 step, `fit` of two "fused"
      steps, one merged and one "pallas" step with every counter as
-     predicted, the fused step's time by wrapper, and extract of 512 images
-     against the plain path. (c) `run ft-ucsdoct` at 256 px (S = 257, 2
-     folds, 1 epoch, random init) on phase 12's stand-ins with its
+     predicted, the "fused" and "pallas" steps' device time by wrapper, and
+     extract of 512 images against the plain path. (c) `run ft-ucsdoct` at
+     256 px (S = 257, 2 folds, 1 epoch, random init) on phase 12's stand-ins
+     with its
      predicted launches. (d) Each route by launch at (b)'s and (c)'s
      attentions beside its bound, its twin and bf16 SDPA (or its
      backward), the flash pair also beside SDPA on fp32 copies (the same
@@ -2959,8 +2963,84 @@ def long_kernels(fb, fa, dev) -> dict:
             check_merged_bwd(tag, fb, x, x2, g, w, heads, eps, True, True)
             del wt, x, x2, g, w, got
             torch.cuda.empty_cache()
+    errs["flash_bwd"] = max(errs["flash_bwd"], long_flash_far(fa, dev))
     return errs
 
+
+# (a) also takes the flash backward (which takes any bf16 S) to S = 65,600,
+# B = 1, one head: past 2^16 keys a row sum l can exceed LA_QUOT_MAX_L,
+# where the routes must take the IEEE division. The first half of the
+# queries is scaled by 1e-5 (scores near 0, so l near S, above 2^16), the
+# rest as drawn. The twin's four S^2 matrices (17 GB each) cannot run
+# whole: the reference is the twin's function in blocks of LONG_FAR_BLOCK
+# queries (each row's softmax whole), held to check_flash's tolerances.
+LONG_FAR_SEQ, LONG_FAR_BLOCK = 65600, 2048
+
+
+def flash_bwd_blocked(q, k, v, do, rows=LONG_FAR_BLOCK):
+    """`flash_attention_bwd_plain`'s function, fp32 inside, over blocks of
+    `rows` queries: dq block by block, dk and dv summed over the blocks.
+    Returns ((dq, dk, dv) in q.dtype, each query's row sum l in fp32, in
+    (B, H, S) order)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kf, vf = k.float(), v.float()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = (torch.zeros_like(dq) for _ in range(2))
+    sums = []
+    for r0 in range(0, q.shape[1], rows):
+        qb, ob = q[:, r0:r0 + rows].float(), do[:, r0:r0 + rows].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, kf) * scale
+        e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+        del s
+        l = torch.sum(e, dim=-1, keepdim=True)
+        p = e / l
+        del e
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, ob)
+        dp = torch.einsum("bqhd,bkhd->bhqk", ob, vf)
+        ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+        del p, dp
+        dq[:, r0:r0 + rows] = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qb) * scale
+        del ds
+        sums.append(l[..., 0])
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv)), torch.cat(sums, dim=-1)
+
+
+def long_flash_far(fa, dev) -> float:
+    """Phase 15 (a): one flash backward at LONG_FAR_SEQ against
+    flash_bwd_blocked (FLASH_TOL), with rows on both sides of l = 2^16, and
+    two runs' bits. Returns the largest absolute difference."""
+    s = LONG_FAR_SEQ
+    q, k, v, do = flash_operands(torch.Generator().manual_seed(SEED + s), 1, s, 1,
+                                 torch.bfloat16, dev)
+    q[:, :s // 2] *= 1e-5  # q is a view of the (1, S, 192) qkv: scaled in place
+    got = fa.flash_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: fa.flash_bwd(q, k, v, do), iters=2, warmup=0)
+    again = fa.flash_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    ref, sums = flash_bwd_blocked(q, k, v, do)
+    over = int((sums > 65536.0).sum())
+    max_tol, mean_tol = FLASH_TOL[torch.bfloat16]
+    worst, errs = 0.0, []
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        mx, mean = rel_err(a, b)
+        if not (mx <= max_tol and mean <= mean_tol):
+            raise AssertionError(f"the flash backward at S = {s} disagrees with the blocked "
+                                 f"reference ({name}: max {mx:.3g}, mean {mean:.3g} relative)")
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+        errs.append(f"{name} {mx:.3g}/{mean:.3g}")
+    same = all(torch.equal(x_, y_) for x_, y_ in zip(got, again))
+    log(f"[flash-far] flash backward at S={s} B=1 heads=1 ({over} of {s} row sums above 2^16): "
+        f"largest / mean relative difference from the blocked fp32 reference {', '.join(errs)} "
+        f"(tol {max_tol}, {mean_tol}); two runs equal bit for bit {same}; {ms:.3f} ms a call")
+    if not same:
+        raise AssertionError(f"the flash backward is not deterministic at S = {s}")
+    if not 0 < over < s:
+        raise AssertionError(f"at S = {s} {over} row sums lie above 2^16: both sides must occur")
+    del q, k, v, do, got, again, ref, sums
+    torch.cuda.empty_cache()
+    return worst
 
 
 # The routes' branch-free quotient (long_attention.cuh LaQuot) against
@@ -3113,9 +3193,10 @@ def long_training(card) -> dict:
     """Phase 15 (b): step 1 of "fused" against "xla" (and the fp32 "xla"
     step, zoo_step_check), then `fit` of two "fused" steps, one merged and
     one "pallas" step with the counters read around each (every wrapper and
-    route exactly as predicted), the fused step's time by wrapper, and
-    extract of LONG_EXTRACT images against the plain path. Returns the
-    long-sequence routes' launches summed over the four runs."""
+    route exactly as predicted), the "fused" and "pallas" steps' device
+    time by wrapper, and extract of LONG_EXTRACT images against the plain
+    path. Returns the long-sequence routes' launches summed over the four
+    runs."""
     from vit2spn_tpu_torch.cli import _apply_overrides
     from vit2spn_tpu_torch.core.presets import get_preset
     from vit2spn_tpu_torch.data.datasets import synthetic_dataset
@@ -3154,16 +3235,22 @@ def long_training(card) -> dict:
         for k_, v_ in n.items():
             if k_.endswith("(S>256)"):
                 total[k_] = total.get(k_, 0) + v_
-        if impl == "fused" and not is_merged:
+        if not is_merged:  # the step's time by wrapper
+            wrappers = ((KERNEL_NAME, "mlp_bwd", "attn_bwd") if impl == "fused"
+                        else ("flash_fwd", "flash_bwd"))
+            rest = ("views, embed, heads, loss, Adam, EMA" if impl == "fused" else
+                    "views, embed, the per-op blocks' GEMMs and norms, heads, loss, Adam, EMA")
             totals = {}
-            step_s = time_steps(trainer, eff, "fused ViT-Base/16-384", card,
-                                (KERNEL_NAME, "mlp_bwd", "attn_bwd"),
-                                "views, embed, heads, loss, Adam, EMA", reps=2, totals=totals)
-            log(f"[long] (b) fused ViT-Base/16-384 step ({eff} images): wall "
-                f"{1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s, device "
-                f"{totals.get('device', float('nan')):.3f} ms, card idle "
-                f"{100 * (1 - totals.get('device', float('nan')) / (1e3 * step_s)):.1f}% on "
-                f"{card}")
+            step_s = time_steps(trainer, eff, f"{impl} ViT-Base/16-384", card, wrappers, rest,
+                                reps=2, totals=totals)
+            device = totals.get("device", float("nan"))
+            launches = sum(n for _, n in totals.get("kernels", {}).values())
+            by = {w: totals.get(f"vit2spn::{w}", float("nan")) for w in wrappers}
+            log(f"[long] (b) {impl} ViT-Base/16-384 step ({eff} images): wall "
+                f"{1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s, device {device:.3f} ms "
+                f"({', '.join(f'{w} {ms:.3f}' for w, ms in by.items())}, the rest "
+                f"{device - sum(by.values()):.3f}) in {launches} launches, card idle "
+                f"{100 * (1 - device / (1e3 * step_s)):.1f}% on {card}")
         os.environ["VIT2SPN_MERGED_BWD"] = "0"
         del trainer
         gc.collect()

@@ -354,8 +354,11 @@ def _long_flash_fwd(q, k, v):
 
 
 def _long_flash_bwd(q, k, v, do):
-    """long_flash_bwd_rows then long_flash_bwd_cols: P and dS in two terms,
-    dQ over 16-key k-steps, dK and dV over 16-query k-steps."""
+    """long_flash_bwd_rows (query-major: la_stats, then la_core_rows<false,
+    true> for rowsum(dP P) and la_core_rows<true, true> for dQ) then
+    long_flash_bwd_cols (key-major: la_core_cols<true> for dK and dV), both
+    on wgmma: P and dS in two terms, dQ over 16-key k-steps, dK and dV over
+    16-query k-steps."""
     qf, kf, vf, dof = (_heads(t) for t in (q, k, v, do))
     s = qf.shape[-2]
     p = _probs(qf, kf)
@@ -414,11 +417,12 @@ def test_long_core_order_matches_pallas_bf16(s, monkeypatch):
         _close(grads[n], np.asarray(ref_g[n]).reshape(w[n].shape), "bfloat16", n)
 
 
-@pytest.mark.parametrize("s", [257, 300])
+@pytest.mark.parametrize("s", [257, 300, 577])
 def test_long_flash_order_matches_pallas_bf16(s, monkeypatch):
     """mha_pallas with its twins replaced by the long flash routes' order of
     sums (P and dS in two bf16 terms), against the JAX mha_pallas in
-    interpret mode, at the bf16 bounds of section 1."""
+    interpret mode, at the bf16 bounds of section 1; S = 577 is
+    ViT-Base/16-384's length."""
     q, k, v, cot = _attention_operands((2, s, 2, 64), s + 1)
     ref, ref_g = _jax_mha(q, k, v, cot, jnp.bfloat16)
     monkeypatch.setattr(fa, "flash_attention_plain", _long_flash_fwd)

@@ -73,9 +73,10 @@
 // largest magnitude within which those kernels stay of float64.
 //
 // Above 256 keys the warp's row of scores no longer fits its registers: bf16
-// inputs take the multi-pass route of csrc/long_attention.cuh (the same
-// function, P and dS in two bf16 terms, the same two-launch backward with
-// the same row statistics), fp32 inputs are refused (a later slice).
+// inputs take the wgmma multi-pass route of csrc/long_attention.cuh (the
+// same function, P and dS in two bf16 terms, the same two-launch backward
+// with the same row statistics, kept per 64-query chunk), fp32 inputs are
+// refused (a later slice).
 //
 // Layout: q, k, v are read in place through strides, as the views the split
 // of the block's (B, S, 3D) qkv gives them: element (b, s, h, d) at
@@ -122,6 +123,54 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// two 16 x 8 fp32 C tiles side by side as the hi and lo terms of one 16 x 16
+// A operand
+__device__ __forceinline__ void split_a(uint32_t hi[4], uint32_t lo[4], const float x0[4],
+                                        const float x1[4]) {
+  split_pair(x0[0], x0[1], hi[0], lo[0]);
+  split_pair(x0[2], x0[3], hi[1], lo[1]);
+  split_pair(x1[0], x1[1], hi[2], lo[2]);
+  split_pair(x1[2], x1[3], hi[3], lo[3]);
+}
+
+// the same for the transpose of the 16 x 16 tile whose columns 8n .. 8n + 7
+// are the C tile x[n]: quarter (rows 8h.., columns 8n..) becomes A fragment
+// 2h + n once movmatrix has transposed it
+__device__ __forceinline__ void split_a_t(uint32_t hi[4], uint32_t lo[4], const float x[2][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      uint32_t a, b;
+      split_pair(x[n][2 * h], x[n][2 * h + 1], a, b);
+      hi[2 * h + n] = movmatrix_t(a);
+      lo[2 * h + n] = movmatrix_t(b);
+    }
+}
+
+// acc (16 x 64) += (hi + lo) (16 x 16) times the 16 staged rows at `rows`:
+// mma_rows with both terms on one load of the B fragments
+__device__ __forceinline__ void mma_rows_split(float acc[8][4], const uint32_t hi[4],
+                                               const uint32_t lo[4], const bf16* rows,
+                                               int lane) {
+  const bf16* p =
+      rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * TILE_LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < TILE_DH / 16; ++np) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, p + np * 16);
+    mma_bf16(acc[2 * np], hi, b[0], b[1]);
+    mma_bf16(acc[2 * np], lo, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
+    mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float acc[8][4]) {
+#pragma unroll
+  for (int n = 0; n < TILE_DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 }
 
 // P of the warp's 16 queries (A fragments qa) against the SP = 8 NT staged
@@ -430,8 +479,7 @@ static int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dou
                     bf16* dk, bf16* dv, float* ws, int B, int S, int H, long long bs,
                     long long ts, float scale, cudaStream_t st) {
   if (S > FA_MAX_S)
-    return launch_long_flash_bwd({q, bs, ts}, {k, bs, ts}, {v, bs, ts}, dout, dq, dk, dv, ws,
-                                 (long long)S * H * FA_DH, (long long)H * FA_DH, B, S, H, st);
+    return launch_long_flash_bwd(q, k, v, dout, dq, dk, dv, ws, bs, ts, B, S, H, st);
   const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
   const size_t smem = tc_bwd_smem(S);
   const int rc = by_key_tiles(S, [&](auto nt) {
@@ -487,7 +535,7 @@ extern "C" int vit2spn_flash_bwd(const void* q, const void* k, const void* v,
 
 // the row statistics between the two backward launches
 extern "C" long long vit2spn_flash_bwd_workspace_floats(int B, int S, int H) {
-  return (long long)B * H * S * 3;
+  return S > FA_MAX_S ? long_flash_bwd_ws_floats(B, S, H) : (long long)B * H * S * 3;
 }
 
 extern "C" int vit2spn_flash_fwd_launches() { return 1; }

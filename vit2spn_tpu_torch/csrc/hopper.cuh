@@ -135,6 +135,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global `src` into `dst`, both 16-byte
+// aligned, completing its bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // one 64 x 64 box from `src` to (column c0, row c1, layer c2); rows past the
 // tensor's end are not written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,

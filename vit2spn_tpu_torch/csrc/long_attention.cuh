@@ -52,20 +52,27 @@
 //            dO^T, p and dS from each query's statistics, dV += bf16(p)^T
 //            dO and dK += dS^T q (the keys are the accumulator's rows, so
 //            no transposes).
+//   flash    the core's passes with p and dS in two terms and no att (its
+//   backward pass 3 has no P V), in two launches: the query passes write
+//            each query's statistics to a workspace in global memory, the
+//            key-major pass streams them beside the Q and dO chunks.
 //
 // What bounds it on this card: at ViT-Base/16-384 (S = 577, 12 heads, B =
 // 64) the function's products are 32.7 GFLOP each (2 S^2 64 per (image,
-// head)), 2 in the forward and 6 in the backward, against 56.7 MB (forward)
-// to 113 MB (backward) of q, k, v, dO and outputs: operations, at 989
-// TFLOP/s, beside 0.017-0.034 ms of bytes. What the passes do beside the
-// products is CUDA-core work, and it is what bounds them: per score and
-// pass a scale, a subtraction, an expf (the SFU's ex2) and a correctly
-// rounded quotient, ~27 instructions a score over the forward's passes and
-// ~69 over the core's, which at 132 SMs is ~0.22 and ~0.6 ms before any
-// stall.
+// head)), 2 in the forward, 6 in the core's backward and 5 in the flash
+// backward, against 56.7 MB (forward) to 113 MB (backward) of q, k, v, dO
+// and outputs: operations, at 989 TFLOP/s, beside 0.017-0.034 ms of bytes.
+// What the passes do beside the products is CUDA-core work, and it is what
+// bounds them: per score and pass a scale, a subtraction, an expf (the
+// SFU's ex2) and a correctly rounded quotient, ~27 instructions a score
+// over the forward's passes and ~69 over the core's (more in the flash
+// backward: its hi / lo splits), which at 132 SMs is ~0.22 and ~0.6 ms
+// before any stall. Measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (chip_smoke.py phase 15, tools/long_seq_sweep.py): all four routes at
+// 9-11% of their bounds, the flash backward's two launches 1.76-1.78 ms
+// (9.3-9.4%), 59% of it the query-major launch.
 //
-// The design (the forward and the core; the flash backward keeps the
-// mma.sync passes below): every product on wgmma, the scores and dP on SS
+// The design: every product on wgmma, the scores and dP on SS
 // products (Q, dO, K or V tiles in the 128-byte swizzle), P and dS packed
 // straight from the accumulator registers into the A registers of RS
 // products. Operands arrive by TMA (3-D maps over the (B, S, columns)
@@ -79,15 +86,22 @@
 // load feeds all of them, the next item's Q tiles loaded into a second slot
 // while this one runs. The
 // core keeps one block per (image, head), LA_CORE_MINB blocks an SM, each
-// query's three statistics in shared memory. Within a warpgroup the
+// query's three statistics in shared memory. The flash backward's two
+// launches are persistent like the forward (LA_FBWD_WG consumer warpgroups,
+// LA_FBWD_MINB blocks an SM), the key-major one over key tiles, each query
+// chunk's statistics arriving by one bulk copy in the ring stage beside
+// its Q and dO boxes, so S is not bounded by shared memory; P and dS enter
+// their RS products as two bf16 terms (la_pack<true>: per 16-wide k-step
+// hi, then lo). Within a warpgroup the
 // forward's passes and the core's statistics passes issue the scores of
 // chunk c + 1 before the softmax of chunk c (two accumulator sets), so the
 // CUDA cores' work overlaps the tensor cores; the core's other passes, whose
 // dP doubles a set, have the registers for one (a second made ptxas
-// serialize their wgmma): its query passes issue the next chunk's SS
-// products right behind each chunk's RS product, its key-major phase once
-// the RS products have read their A registers, and two blocks an SM fill
-// each other's waits. The quotient is la_quot, three branch-free
+// serialize their wgmma, and in the flash backward's pass 3, which has no
+// RS product, spilled and ran slower): the query passes issue the next
+// chunk's SS products right behind each chunk's RS product, the key-major
+// pass once the RS products have read their A registers, and two blocks an
+// SM fill each other's waits. The quotient is la_quot, three branch-free
 // instructions that give the IEEE division's bits where a >= 2^-100 and l
 // <= 2^16 (proven on the card by chip_smoke.py; the IEEE division's
 // slow-path branch had split a chunk's 32 quotients into as many basic
@@ -106,7 +120,8 @@
 // backward core, which call the same passes, give the same att bits at the
 // same S. Limits: head_dim 64; rows 16-byte aligned; the core keeps three
 // fp32 statistics a query in shared memory beside at least one tile slot
-// and two ring stages, so S <= long_core_max_seq() (15,168).
+// and two ring stages, so S <= long_core_max_seq() (15,168); the forward
+// and the flash backward take any S.
 
 #pragma once
 
@@ -115,12 +130,6 @@
 #include "hopper.cuh"
 
 #define LA_CHUNK 64  // rows of the streamed side per staged chunk
-#ifndef LA_ROW_WARPS
-#define LA_ROW_WARPS 4  // the flash backward's kernels: 16 rows a warp
-#endif
-#ifndef LA_ROW_MINB
-#define LA_ROW_MINB 4  // their blocks an SM must hold (caps the registers at 128)
-#endif
 #ifndef LA_FWD_WG
 #define LA_FWD_WG 2  // the forward's consumer warpgroups: one 64-query tile each
 #endif
@@ -136,34 +145,21 @@
 #ifndef LA_CORE_MINB
 #define LA_CORE_MINB 2  // its blocks an SM must hold (sets its consumers' registers)
 #endif
+#ifndef LA_FBWD_WG
+#define LA_FBWD_WG 1  // the flash backward's consumer warpgroups (both launches)
+#endif
+#ifndef LA_FBWD_STAGES
+#define LA_FBWD_STAGES 4  // their rings' stages
+#endif
+#ifndef LA_FBWD_MINB
+#define LA_FBWD_MINB 2  // their blocks an SM must hold (sets their consumers' registers)
+#endif
 #define LA_SCALE 0.125f  // 1 / sqrt(head_dim 64)
-// one slot of the flash backward's chunk ring: two operands of LA_CHUNK
-// rows, and three fp32 row statistics per row of the chunk (its key-major
-// pass)
-#define LA_SLOT_BF16 (2 * LA_CHUNK * TILE_LD)
-#define LA_SLOT_BYTES (LA_SLOT_BF16 * 2 + 3 * LA_CHUNK * 4)
 #define LA_MAX_SMEM 232448  // dynamic shared memory a block may take (227 KB)
 #define LA_CORE_SMEM (LA_MAX_SMEM - 256)  // the core's, beside its static mbarriers
 
-// one operand of the attention: element (image b, token s, head h, dim d) at
-// p + b bs + s ts + h 64 + d
-struct LaOp {
-  const bf16* p;
-  long long bs, ts;
-};
-
-// the rows of one (image, head) of an operand: row r at p + r ts
-struct LaRows {
-  const bf16* p;
-  long long ts;
-};
-
-__device__ __forceinline__ LaRows la_rows(const LaOp& op, int b, int h) {
-  return {op.p + (long long)b * op.bs + h * TILE_DH, op.ts};
-}
-
 // ---------------------------------------------------------------------------
-// Fragment helpers (shared with the S <= 256 flash kernels)
+// Fragment helpers
 // ---------------------------------------------------------------------------
 
 // x0, x1 as bf16 pairs hi = bf16(x) and lo = bf16(x - hi) (x - hi is exact)
@@ -171,71 +167,6 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uin
   const bf16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
   hi = pack_bf16(h0, h1);
   lo = pack_f32(__fsub_rn(x0, __bfloat162float(h0)), __fsub_rn(x1, __bfloat162float(h1)));
-}
-
-// two 16 x 8 fp32 C tiles side by side as the hi and lo terms of one 16 x 16
-// A operand
-__device__ __forceinline__ void split_a(uint32_t hi[4], uint32_t lo[4], const float x0[4],
-                                        const float x1[4]) {
-  split_pair(x0[0], x0[1], hi[0], lo[0]);
-  split_pair(x0[2], x0[3], hi[1], lo[1]);
-  split_pair(x1[0], x1[1], hi[2], lo[2]);
-  split_pair(x1[2], x1[3], hi[3], lo[3]);
-}
-
-// the same for the transpose of the 16 x 16 tile whose columns 8n .. 8n + 7
-// are the C tile x[n]: quarter (rows 8h.., columns 8n..) becomes A fragment
-// 2h + n once movmatrix has transposed it
-__device__ __forceinline__ void split_a_t(uint32_t hi[4], uint32_t lo[4], const float x[2][4]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      uint32_t a, b;
-      split_pair(x[n][2 * h], x[n][2 * h + 1], a, b);
-      hi[2 * h + n] = movmatrix_t(a);
-      lo[2 * h + n] = movmatrix_t(b);
-    }
-}
-
-// acc (16 x 64) += (hi + lo) (16 x 16) times the 16 staged rows at `rows`:
-// mma_rows with both terms on one load of the B fragments
-__device__ __forceinline__ void mma_rows_split(float acc[8][4], const uint32_t hi[4],
-                                               const uint32_t lo[4], const bf16* rows,
-                                               int lane) {
-  const bf16* p =
-      rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * TILE_LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int np = 0; np < TILE_DH / 16; ++np) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, p + np * 16);
-    mma_bf16(acc[2 * np], hi, b[0], b[1]);
-    mma_bf16(acc[2 * np], lo, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
-    mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float acc[8][4]) {
-#pragma unroll
-  for (int n = 0; n < TILE_DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-}
-
-// acc += x (16 x 16 fp32, the C tiles x0 | x1) times 16 staged rows, x in
-// two bf16 terms (flash)
-__device__ __forceinline__ void la_mma_p(float acc[8][4], const float x0[4], const float x1[4],
-                                         const bf16* rows, int lane) {
-  uint32_t hi[4], lo[4];
-  split_a(hi, lo, x0, x1);
-  mma_rows_split(acc, hi, lo, rows, lane);
-}
-
-// the same with the transpose of the 16 x 16 tile x[0] | x[1]
-__device__ __forceinline__ void la_mma_p_t(float acc[8][4], const float x[2][4],
-                                           const bf16* rows, int lane) {
-  uint32_t hi[4], lo[4];
-  split_a_t(hi, lo, x);
-  mma_rows_split(acc, hi, lo, rows, lane);
 }
 
 // the sum, or the max, of one row over the 4 lanes of its row group
@@ -248,294 +179,9 @@ __device__ __forceinline__ float la_quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-template <int N>
-__device__ __forceinline__ void la_wait() {  // all but the newest N cp.async groups
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // ---------------------------------------------------------------------------
-// The flash backward's mma.sync passes: staging and the chunk loop
-// ---------------------------------------------------------------------------
-
-// rows r0 .. r0 + n - 1 of `src` into dst, TILE_LD apart, by threads tid of
-// nt with cp.async; rows >= S are zeros
-__device__ __forceinline__ void la_stage(bf16* dst, const LaRows& src, int r0, int n, int S,
-                                         int tid, int nt) {
-  for (int i = tid; i < n * (TILE_DH / 8); i += nt) {
-    const int r = i / (TILE_DH / 8), c = (i % (TILE_DH / 8)) * 8;
-    const bool live = r0 + r < S;
-    cp_async16(dst + r * TILE_LD + c, src.p + (live ? (long long)(r0 + r) * src.ts : 0) + c,
-               live);
-  }
-}
-
-// Every chunk of the streamed side, in order: rows LA_CHUNK c .. of `a` (and
-// of `b` when `two`; of the statistics `st`, three floats a row, when it is
-// not null) land in slot c % 2 of the ring `ring` (2 LA_SLOT_BYTES) while
-// chunk c - 1 is worked on; f(c, a rows, b rows, statistics) runs with every
-// thread of the block between two barriers, so every warp of the block must
-// call this the same number of times.
-template <class F>
-__device__ __forceinline__ void la_chunks(unsigned char* ring, const LaRows& a, const LaRows& b,
-                                          bool two, const float* st, int S, F&& f) {
-  const int nc = (S + LA_CHUNK - 1) / LA_CHUNK;
-  auto stage = [&](int c) {
-    unsigned char* slot = ring + (c & 1) * LA_SLOT_BYTES;
-    bf16* rows = reinterpret_cast<bf16*>(slot);
-    la_stage(rows, a, c * LA_CHUNK, LA_CHUNK, S, threadIdx.x, blockDim.x);
-    if (two) la_stage(rows + LA_CHUNK * TILE_LD, b, c * LA_CHUNK, LA_CHUNK, S, threadIdx.x, blockDim.x);
-    if (st) {
-      float* s = reinterpret_cast<float*>(slot + LA_SLOT_BF16 * 2);
-      for (int i = threadIdx.x; i < 3 * LA_CHUNK; i += blockDim.x) {
-        const bool live = c * LA_CHUNK + i / 3 < S;
-        cp_async4(s + i, st + (live ? (long long)c * LA_CHUNK * 3 + i : 0), live);
-      }
-    }
-    cp_async_commit();
-  };
-  stage(0);
-  for (int c = 0; c < nc; ++c) {
-    if (c + 1 < nc) {
-      stage(c + 1);
-      la_wait<1>();
-    } else {
-      la_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* slot = ring + (c & 1) * LA_SLOT_BYTES;
-    const bf16* rows = reinterpret_cast<const bf16*>(slot);
-    f(c, rows, rows + LA_CHUNK * TILE_LD, reinterpret_cast<const float*>(slot + LA_SLOT_BF16 * 2));
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The query passes of one warp (16 rows: A fragments qa, dO fragments oa)
-// ---------------------------------------------------------------------------
-
-// s of the warp's 16 rows against the chunk's keys c0 .. c0 + 63 at K
-// (staged rows): scaled, keys >= S at -1e30; lane 4g + t holds rows g, g + 8
-// and keys c0 + 8j + 2t, + 1 in sc[j]
-__device__ __forceinline__ void la_scores(float sc[8][4], const uint32_t qa[4][4], const bf16* K,
-                                          int c0, int S, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < LA_CHUNK / 8; ++j) {
-    mma_rows_t(sc[j], qa, K + (size_t)8 * j * TILE_LD, lane);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sc[j][e] = (c0 + 8 * j + 2 * t + (e & 1) < S) ? __fmul_rn(sc[j][e], LA_SCALE) : NEG_INF;
-  }
-}
-
-// p = exp(s - m) / l in place (rows g: m[0], l[0]; g + 8: m[1], l[1])
-__device__ __forceinline__ void la_probs(float p[8][4], const float m[2], const float l[2]) {
-#pragma unroll
-  for (int j = 0; j < LA_CHUNK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[j][e] = expf(__fsub_rn(p[j][e], m[e >> 1])) / l[e >> 1];
-}
-
-// passes 1 and 2: each row's max m over all keys, then l = sum exp(s - m)
-// (per lane in key order, then the quad)
-__device__ __forceinline__ void la_row_stats(float m[2], float l[2], const uint32_t qa[4][4],
-                                             unsigned char* ring, const LaRows& k, int S,
-                                             int lane) {
-  m[0] = m[1] = -3.0e38f;
-  la_chunks(ring, k, k, false, nullptr, S, [&](int c, const bf16* K, const bf16*, const float*) {
-    float sc[8][4];
-    la_scores(sc, qa, K, c * LA_CHUNK, S, lane);
-#pragma unroll
-    for (int j = 0; j < LA_CHUNK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], sc[j][e]);
-  });
-  m[0] = la_quad_max(m[0]);
-  m[1] = la_quad_max(m[1]);
-  l[0] = l[1] = 0.0f;
-  la_chunks(ring, k, k, false, nullptr, S, [&](int c, const bf16* K, const bf16*, const float*) {
-    float sc[8][4];
-    la_scores(sc, qa, K, c * LA_CHUNK, S, lane);
-#pragma unroll
-    for (int j = 0; j < LA_CHUNK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) l[e >> 1] += expf(__fsub_rn(sc[j][e], m[e >> 1]));
-  });
-  l[0] = la_quad_sum(l[0]);
-  l[1] = la_quad_sum(l[1]);
-}
-
-// the flash backward's pass 3: dot = rowsum(dP p), dP = dO v^T
-__device__ __forceinline__ void la_dot(float dot[2], const uint32_t qa[4][4],
-                                       const uint32_t oa[4][4], const float m[2], const float l[2],
-                                       unsigned char* ring, const LaRows& k, const LaRows& v,
-                                       int S, int lane) {
-  dot[0] = dot[1] = 0.0f;
-  la_chunks(ring, k, v, true, nullptr, S, [&](int c, const bf16* K, const bf16* V, const float*) {
-    float p[8][4];
-    la_scores(p, qa, K, c * LA_CHUNK, S, lane);
-    la_probs(p, m, l);
-#pragma unroll
-    for (int j = 0; j < LA_CHUNK / 8; ++j) {
-      float dp[4];
-      mma_rows_t(dp, oa, V + (size_t)8 * j * TILE_LD, lane);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dot[e >> 1] += dp[e] * p[j][e];
-    }
-  });
-  dot[0] = la_quad_sum(dot[0]);
-  dot[1] = la_quad_sum(dot[1]);
-}
-
-// the flash backward's pass 4: acc = dS k, dS = p (dP - dot) in two bf16
-// terms
-__device__ __forceinline__ void la_dq(float acc[8][4], const uint32_t qa[4][4],
-                                      const uint32_t oa[4][4], const float m[2], const float l[2],
-                                      const float dot[2], unsigned char* ring, const LaRows& k,
-                                      const LaRows& v, int S, int lane) {
-  zero_acc(acc);
-  la_chunks(ring, k, v, true, nullptr, S, [&](int c, const bf16* K, const bf16* V, const float*) {
-    float p[8][4];
-    la_scores(p, qa, K, c * LA_CHUNK, S, lane);
-    la_probs(p, m, l);
-#pragma unroll
-    for (int i = 0; i < LA_CHUNK / 16; ++i) {
-      float ds[2][4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mma_rows_t(ds[hh], oa, V + (size_t)8 * (2 * i + hh) * TILE_LD, lane);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ds[hh][e] = p[2 * i + hh][e] * (ds[hh][e] - dot[e >> 1]);
-      }
-      la_mma_p(acc, ds[0], ds[1], K + (size_t)16 * i * TILE_LD, lane);
-    }
-  });
-}
-
-// The key-major pass over one chunk of 64 queries (rows Qc, dO rows Oc) for
-// the warp's 16 keys k0.. (staged rows Kw, Vw): per 16 queries, s and dP
-// with the queries as rows, p and dS from each query's statistics (m, l,
-// dot at stat(row)), then dV += p^T dO and dK += dS^T q. Queries >= S and
-// keys >= S give p = 0.
-template <class Stat>
-__device__ __forceinline__ void la_cols_chunk(float ak[8][4], float av[8][4], const bf16* Qc,
-                                              const bf16* Oc, const bf16* Kw, const bf16* Vw,
-                                              int q0, int k0, int S, int lane, Stat&& stat) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int i = 0; i < LA_CHUNK / 16; ++i) {
-    uint32_t qa[4][4], oa[4][4];
-    load_a_rows(qa, Qc + (size_t)16 * i * TILE_LD, lane);
-    load_a_rows(oa, Oc + (size_t)16 * i * TILE_LD, lane);
-    float p[2][4], ds[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      mma_rows_t(p[n], qa, Kw + (size_t)8 * n * TILE_LD, lane);
-      mma_rows_t(ds[n], oa, Vw + (size_t)8 * n * TILE_LD, lane);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int local = 16 * i + g + 8 * (e >> 1);
-        const bool live = q0 + local < S && k0 + 8 * n + 2 * t + (e & 1) < S;
-        float m = 0.0f, l = 1.0f, dot = 0.0f;
-        stat(live ? local : 0, m, l, dot);
-        // the query passes' p, bit for bit: the same score, the same operations
-        const float pr = live ? expf(__fsub_rn(__fmul_rn(p[n][e], LA_SCALE), m)) / l : 0.0f;
-        p[n][e] = pr;
-        ds[n][e] = pr * (ds[n][e] - dot);
-      }
-    }
-    la_mma_p_t(av, p, Oc + (size_t)16 * i * TILE_LD, lane);
-    la_mma_p_t(ak, ds, Qc + (size_t)16 * i * TILE_LD, lane);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The flash backward's kernels
-// ---------------------------------------------------------------------------
-
-// The flash backward, launch 1 (query-major, grid (S / 64, H, B)): per
-// query the statistics (m, l, rowsum(dP p)) into `stats` ((b H + h) S + row)
-// x 3, and dq. dout, dq: rows of (b, h) at + b obs + h 64 + r ots.
-__global__ void __launch_bounds__(LA_ROW_WARPS * 32, LA_ROW_MINB)
-long_flash_bwd_rows(LaOp q, LaOp k, LaOp v, const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                    float* __restrict__ stats, long long obs, long long ots, int S, int H) {
-  extern __shared__ __align__(128) unsigned char la_smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  bf16* Qw = reinterpret_cast<bf16*>(la_smem + 2 * LA_SLOT_BYTES) + warp * 32 * TILE_LD;
-  bf16* Ow = Qw + 16 * TILE_LD;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int r0 = blockIdx.x * (16 * LA_ROW_WARPS) + 16 * warp;
-  const LaRows kr = la_rows(k, b, h), vr = la_rows(v, b, h);
-  const long long ohead = (long long)b * obs + h * TILE_DH;
-  la_stage(Qw, la_rows(q, b, h), r0, 16, S, lane, 32);
-  la_stage(Ow, {dout + ohead, ots}, r0, 16, S, lane, 32);
-  cp_async_commit();
-  la_wait<0>();
-  __syncwarp();
-  uint32_t qa[4][4], oa[4][4];
-  load_a_rows(qa, Qw, lane);
-  load_a_rows(oa, Ow, lane);
-  float m[2], l[2], dot[2], acc[8][4];
-  la_row_stats(m, l, qa, la_smem, kr, S, lane);
-  la_dot(dot, qa, oa, m, l, la_smem, kr, vr, S, lane);
-  la_dq(acc, qa, oa, m, l, dot, la_smem, kr, vr, S, lane);
-  store_rows(dq + ohead, ots, acc, LA_SCALE, r0, S, lane);
-  if (t == 0) {
-    float* st = stats + ((long long)(b * H + h) * S) * 3;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + g + 8 * r;
-      if (row < S) {
-        st[row * 3 + 0] = m[r];
-        st[row * 3 + 1] = l[r];
-        st[row * 3 + 2] = dot[r];
-      }
-    }
-  }
-}
-
-// The flash backward, launch 2 (key-major, grid (S / 64, H, B)): the warp's
-// 16 keys against every query, the queries' statistics streamed with them.
-__global__ void __launch_bounds__(LA_ROW_WARPS * 32, LA_ROW_MINB)
-long_flash_bwd_cols(LaOp q, LaOp k, LaOp v, const bf16* __restrict__ dout,
-                    const float* __restrict__ stats, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    long long obs, long long ots, int S, int H) {
-  extern __shared__ __align__(128) unsigned char la_smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Kw = reinterpret_cast<bf16*>(la_smem + 2 * LA_SLOT_BYTES) + warp * 32 * TILE_LD;
-  bf16* Vw = Kw + 16 * TILE_LD;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * (16 * LA_ROW_WARPS) + 16 * warp;
-  const long long ohead = (long long)b * obs + h * TILE_DH;
-  la_stage(Kw, la_rows(k, b, h), k0, 16, S, lane, 32);
-  la_stage(Vw, la_rows(v, b, h), k0, 16, S, lane, 32);
-  cp_async_commit();
-  la_wait<0>();
-  __syncwarp();
-  float ak[8][4], av[8][4];
-  zero_acc(ak);
-  zero_acc(av);
-  la_chunks(la_smem, la_rows(q, b, h), {dout + ohead, ots}, true,
-            stats + ((long long)(b * H + h) * S) * 3, S,
-            [&](int c, const bf16* Qc, const bf16* Oc, const float* st) {
-              la_cols_chunk(ak, av, Qc, Oc, Kw, Vw, c * LA_CHUNK, k0, S, lane,
-                                  [&](int r, float& m, float& l, float& dot) {
-                                    m = st[3 * r];
-                                    l = st[3 * r + 1];
-                                    dot = st[3 * r + 2];
-                                  });
-            });
-  store_rows(dk + ohead, ots, ak, LA_SCALE, k0, S, lane);
-  store_rows(dv + ohead, ots, av, 1.0f, k0, S, lane);
-}
-
-static size_t long_flash_bwd_smem() {
-  return 2 * LA_SLOT_BYTES + (size_t)LA_ROW_WARPS * 32 * TILE_LD * sizeof(bf16);
-}
-
-// ---------------------------------------------------------------------------
-// The wgmma routes: the forward (stage and flash) and the fused backward
-// core. A warpgroup owns 64 rows; its accumulator register i of thread t
+// The wgmma routes: the forward (stage and flash), the fused backward core
+// and the flash backward. A warpgroup owns 64 rows; its accumulator register i of thread t
 // (lane 4 g + t of warp wl) is row 16 wl + g + 8 ((i / 2) % 2), column
 // la_col(i, t).
 // ---------------------------------------------------------------------------
@@ -580,7 +226,8 @@ __device__ __forceinline__ float la_exp(float x, float m) {
 // exponent, the subnormals too) and l in [1, 2^16] (every exponent), and on
 // the edges (long_quotient_probe); a warp with an a below LA_QUOT_MIN or an
 // l above LA_QUOT_MAX_L (a row sum beyond the core's S limit: the forward
-// takes any S) takes __fdiv_rn for its chunk (la_divide), the same bits.
+// and the flash backward take any S) takes __fdiv_rn for its chunk
+// (la_divide, la_core_cols), the same bits.
 #define LA_QUOT_MIN 7.88860905e-31f  // 2^-100
 #define LA_QUOT_MAX_L 65536.0f        // 2^16
 __device__ __forceinline__ float la_quot(float a, float l, float r) {
@@ -667,13 +314,13 @@ __device__ __forceinline__ void la_store(bf16* out, long long ld, const float (&
 }
 
 // The chunk loop of a pass with two accumulator sets: step(cur, nxt, c,
-// more) for c = 0 .. nc - 1, sets a and b taking turns as cur, `more` a
-// compile-time bool: whether chunk c + 1 follows (its products are issued
-// into nxt by the step). The last chunk is peeled off, so no product is
-// issued on a path that depends on the data: ptxas would serialize every
-// wgmma of the kernel otherwise.
-template <class F>
-__device__ __forceinline__ void la_chunk_loop(float (&a)[32], float (&b)[32], int nc, F&& step) {
+// more) for c = 0 .. nc - 1, sets a and b (a fragment, or a struct of
+// them) taking turns as cur, `more` a compile-time bool: whether chunk c +
+// 1 follows (its products are issued into nxt by the step). The last chunk
+// is peeled off, so no product is issued on a path that depends on the
+// data: ptxas would serialize every wgmma of the kernel otherwise.
+template <class T, class F>
+__device__ __forceinline__ void la_chunk_loop(T& a, T& b, int nc, F&& step) {
   int c = 0;
   for (; c + 2 < nc; c += 2) {
     step(a, b, c, std::true_type{});
@@ -920,20 +567,22 @@ static size_t long_fwd_smem() {
   return 1024 + (size_t)(2 * LA_FWD_WG) * TMA_BOX_BYTES + (size_t)LA_FWD_STAGES * LA_STAGE_BYTES;
 }
 
-// The core's query passes 3 and 4 for the warpgroup's 64 query rows (Q tile
-// qt, dO tile ot) over the nc chunks of the ring (K and V): s = q k^T and dP
-// = dO v^T on SS products, then per chunk
+// Passes 3 and 4 for the warpgroup's 64 query rows (Q tile qt, dO tile ot)
+// over the nc chunks of the ring (K and V): s = q k^T and dP = dO v^T on SS
+// products, then per chunk
 //   DQ false (pass 3): p; dot += dP p (per lane in key order); acc += bf16(p) v
-//   DQ true  (pass 4): dS = bf16(p (dP - dot)); acc += dS k
-// with the next chunk's SS products issued right behind the RS product.
-template <bool DQ>
+//   DQ true  (pass 4): dS = p (dP - dot); acc += dS k
+// with the next chunk's SS products issued right behind the RS product. The
+// core: P and dS one bf16 term. SPLIT, the flash backward: dS in two terms,
+// and its pass 3 forms no att, so no RS product (acc untouched).
+template <bool DQ, bool SPLIT = false>
 __device__ __forceinline__ void la_core_rows(float (&acc)[32], float (&dot)[2],
                                              const float (&m)[2], const float (&l)[2],
                                              const LaQuot (&q)[2], Ring& ring, const uint8_t* qt,
                                              const uint8_t* ot, int nc, int S, int lane) {
   const int t = lane & 3, tail = S - (nc - 1) * LA_CHUNK;
   float s[32], dp[32];
-  uint32_t pa[4][4];
+  uint32_t pa[4][4], pl[4][4];
   auto issue = [&]() {
     const int st = ring.take();
     wgmma_fence();
@@ -944,14 +593,22 @@ __device__ __forceinline__ void la_core_rows(float (&acc)[32], float (&dot)[2],
     fence_regs<32>(dp);
     return st;
   };
+  constexpr bool RS = DQ || !SPLIT;  // an RS product in this pass
+  // what the products in flight may read or write besides s and dP
+  auto fence_rs = [&]() {
+    if constexpr (RS) {
+      fence_regs<32>(acc);
+      fence_regs<4>(pa);
+    }
+    if constexpr (RS && SPLIT) fence_regs<4>(pl);
+  };
   if (!DQ) dot[0] = dot[1] = 0.0f;
   int st = issue(), prev = -1;
   la_chunk_loop1(nc, [&](int c, auto more) {
     wgmma_wait<0>();
     fence_regs<32>(s);
     fence_regs<32>(dp);
-    fence_regs<32>(acc);
-    fence_regs<4>(pa);
+    fence_rs();
     if (prev >= 0) ring.release(prev, lane);
     la_masked(more, tail, [&](auto mask) { la_probs_wg(s, m, l, q, t, tail, mask); });
 #pragma unroll
@@ -961,19 +618,20 @@ __device__ __forceinline__ void la_core_rows(float (&acc)[32], float (&dot)[2],
       else
         dot[(i >> 1) & 1] += dp[i] * s[i];
     }
-    la_pack<false>(pa, pa, s);
-    wgmma_fence();
-    la_rs<false>(acc, pa, pa, ring.at(st) + (DQ ? 0 : TMA_BOX_BYTES), c == 0);
+    if constexpr (RS) {
+      la_pack<SPLIT>(pa, pl, s);
+      wgmma_fence();
+      la_rs<SPLIT>(acc, pa, pl, ring.at(st) + (DQ ? 0 : TMA_BOX_BYTES), c == 0);
+    }
     prev = st;
     if constexpr (decltype(more)::value)
       st = issue();
     else
       wgmma_commit();
-    fence_regs<32>(acc);
+    if constexpr (RS) fence_regs<32>(acc);
   });
   wgmma_wait<0>();
-  fence_regs<32>(acc);
-  fence_regs<4>(pa);
+  fence_rs();
   ring.release(prev, lane);
   if (!DQ) {
     dot[0] = la_quad_sum(dot[0]);
@@ -981,19 +639,26 @@ __device__ __forceinline__ void la_core_rows(float (&acc)[32], float (&dot)[2],
   }
 }
 
-// The core's key-major pass for the warpgroup's 64 keys (K tile kt, V tile
-// vt) over the nc query chunks of the ring (Q and dO): s^T = k q^T and dP^T
-// = v dO^T on SS products, p and dS = p (dP - dot) from each column's query
-// statistics (queries >= S: 0), then dV += bf16(p)^T dO and dK += bf16(dS)^T
-// q on RS products (the 16-query k-steps in order), the next chunk's SS
-// products issued right behind.
-__device__ __forceinline__ void la_core_cols(float (&dk)[32], float (&dv)[32],
-                                             const float* rmax, const float* rsum,
-                                             const float* rdot, Ring& ring, const uint8_t* kt,
-                                             const uint8_t* vt, int nc, int S, int lane) {
-  const int t = lane & 3, tail = S - (nc - 1) * LA_CHUNK;
+// one 64-query chunk's statistics in the key-major pass: each query's row
+// max m, row sum l and rowsum(dP p), 64 floats each
+struct LaStatRows {
+  const float *m, *l, *d;
+};
+
+// The key-major pass for the warpgroup's 64 keys (K tile kt, V tile vt) over
+// the nc query chunks of the ring (Q and dO): s^T = k q^T and dP^T = v dO^T
+// on SS products, p and dS = p (dP - dot) from each column's query
+// statistics (stats(c, stage): a LaStatRows; queries >= S: 0), then dV +=
+// p^T dO and dK += dS^T q on RS products (the 16-query k-steps in order), P
+// and dS one bf16 term (the core) or (SPLIT: flash) two, the next chunk's
+// SS products issued once the RS products have read their A registers.
+template <bool SPLIT, class Stats>
+__device__ __forceinline__ void la_core_cols(float (&dk)[32], float (&dv)[32], Stats&& stats,
+                                             Ring& ring, const uint8_t* kt, const uint8_t* vt,
+                                             int nc, int S, int lane) {
+  const int t = lane & 3, g = lane >> 2, tail = S - (nc - 1) * LA_CHUNK;
   float s[32], dp[32];
-  uint32_t pa[4][4], da[4][4];
+  uint32_t pa[4][4], pl[4][4], da[4][4], dl[4][4];
   auto issue = [&]() {
     const int st = ring.take();
     wgmma_fence();
@@ -1004,6 +669,14 @@ __device__ __forceinline__ void la_core_cols(float (&dk)[32], float (&dv)[32],
     fence_regs<32>(dp);
     return st;
   };
+  auto fence_packed = [&]() {
+    fence_regs<4>(pa);
+    fence_regs<4>(da);
+    if constexpr (SPLIT) {
+      fence_regs<4>(pl);
+      fence_regs<4>(dl);
+    }
+  };
   int st = issue(), prev = -1;
   la_chunk_loop1(nc, [&](int c, auto more) {
     wgmma_wait<0>();
@@ -1011,17 +684,28 @@ __device__ __forceinline__ void la_core_cols(float (&dk)[32], float (&dv)[32],
     fence_regs<32>(dp);
     fence_regs<32>(dk);
     fence_regs<32>(dv);
-    fence_regs<4>(pa);
-    fence_regs<4>(da);
+    fence_packed();
     if (prev >= 0) ring.release(prev, lane);
     // register i: key row (i / 2) % 2, query column q0 + 8 (i / 4) + 2 t +
     // i % 2, whose statistics are the pair j = i / 4 at q0 + 8 j + 2 t
-    const float* st_m = rmax + c * LA_CHUNK + 2 * t;
-    const float* st_l = rsum + c * LA_CHUNK + 2 * t;
-    const float* st_d = rdot + c * LA_CHUNK + 2 * t;
+    const LaStatRows rows = stats(c, st);
+    const float* st_m = rows.m + 2 * t;
+    const float* st_l = rows.l + 2 * t;
+    const float* st_d = rows.d + 2 * t;
     la_masked(more, tail, [&](auto mask) {
       auto live = [&](int i) { return !decltype(mask)::value || la_col(i, t) < tail; };
+      // la_divide's rule for the warp: the IEEE division where an a falls
+      // below LA_QUOT_MIN or a live column's l exceeds LA_QUOT_MAX_L, which
+      // only the flash backward's S reaches (the core's S limit keeps l
+      // below). The 8 lanes of a quad position t share their 16 columns:
+      // lane 4 g + t reads the row sums of pair g (columns 8 g + 2 t, + 1)
+      // and takes their reciprocals, the others read them by shuffle.
+      float2 lg = make_float2(0.0f, 0.0f);
       bool slow = false;
+      if constexpr (SPLIT) {
+        lg = *reinterpret_cast<const float2*>(st_l + 8 * g);
+        slow = (live(4 * g) && lg.x > LA_QUOT_MAX_L) || (live(4 * g + 1) && lg.y > LA_QUOT_MAX_L);
+      }
 #pragma unroll
       for (int j = 0; j < LA_CHUNK / 8; ++j) {
         const float2 m2 = *reinterpret_cast<const float2*>(st_m + 8 * j);
@@ -1033,15 +717,12 @@ __device__ __forceinline__ void la_core_cols(float (&dk)[32], float (&dv)[32],
           s[i] = a;
         }
       }
-      // the quotients (la_divide's rule, each column's own l, which the
-      // core's S limit keeps below LA_QUOT_MAX_L), then dS; a column past
-      // S reads no statistics of its own: 0. The 8 lanes of a
-      // quad position t share their 16 columns: lane 4 g + t takes the
-      // reciprocals of pair g, the others read them by shuffle.
+      // the quotients, then dS; a column past S reads no statistics of its
+      // own: 0
       auto finish = [&](auto ieee) {
         float2 rg = make_float2(0.0f, 0.0f);
         if constexpr (!decltype(ieee)::value) {
-          const float2 lg = *reinterpret_cast<const float2*>(st_l + 8 * (lane >> 2));
+          if constexpr (!SPLIT) lg = *reinterpret_cast<const float2*>(st_l + 8 * g);
           rg = make_float2(la_rcp(lg.x), la_rcp(lg.y));
         }
 #pragma unroll
@@ -1068,29 +749,27 @@ __device__ __forceinline__ void la_core_cols(float (&dk)[32], float (&dv)[32],
       else
         finish(std::false_type{});
     });
-    la_pack<false>(pa, pa, s);
-    la_pack<false>(da, da, dp);
+    la_pack<SPLIT>(pa, pl, s);
+    la_pack<SPLIT>(da, dl, dp);
     wgmma_fence();
-    la_rs<false>(dv, pa, pa, ring.at(st) + TMA_BOX_BYTES, c == 0);
-    la_rs<false>(dk, da, da, ring.at(st), c == 0);
+    la_rs<SPLIT>(dv, pa, pl, ring.at(st) + TMA_BOX_BYTES, c == 0);
+    la_rs<SPLIT>(dk, da, dl, ring.at(st), c == 0);
     wgmma_commit();
     fence_regs<32>(dk);
     fence_regs<32>(dv);
     prev = st;
-    if constexpr (decltype(more)::value) {  // the next chunk's products once pa, da are read
+    if constexpr (decltype(more)::value) {  // the next chunk's products once A is read
       wgmma_wait<0>();
       fence_regs<32>(dk);
       fence_regs<32>(dv);
-      fence_regs<4>(pa);
-      fence_regs<4>(da);
+      fence_packed();
       st = issue();
     }
   });
   wgmma_wait<0>();
   fence_regs<32>(dk);
   fence_regs<32>(dv);
-  fence_regs<4>(pa);
-  fence_regs<4>(da);
+  fence_packed();
   ring.release(prev, lane);
 }
 
@@ -1201,7 +880,12 @@ long_attention_bwd_kernel(const __grid_constant__ CUtensorMap qkv_map,
           }
     } else {
       float dk[32], dv[32];
-      la_core_cols(dk, dv, rmax, rsum, rdot, ring, ta, ta + TMA_BOX_BYTES, nc, S, lane);
+      la_core_cols<false>(
+          dk, dv,
+          [&](int c, int) {
+            return LaStatRows{rmax + c * LA_CHUNK, rsum + c * LA_CHUNK, rdot + c * LA_CHUNK};
+          },
+          ring, ta, ta + TMA_BOX_BYTES, nc, S, lane);
       if (lane == 0) mbar_arrive(&tempty[slot]);
       la_store(dq + D, ld, dk, LA_SCALE, row, S, t);
       la_store(dq + 2 * D, ld, dv, 1.0f, row, S, t);
@@ -1231,6 +915,208 @@ static bool long_core_layout(int S, int* slots, int* stages) {
 static int long_core_max_seq() {
   const long long room = LA_CORE_SMEM - (long long)long_core_smem(0, 1, 2);
   return (int)(room / (3 * (long long)sizeof(float)) / LA_CHUNK * LA_CHUNK);
+}
+
+// The flash backward's two launches. Launch 1 writes each query's
+// statistics (m, l, rowsum(dP p)) to a workspace of three planes a 64-query
+// chunk, (b H + h) nc + chunk, each plane 64 floats: a key-major ring stage
+// takes a chunk's three in one bulk copy beside its Q and dO boxes.
+#define LA_FBWD_STATS (3 * LA_CHUNK)                   // floats of one chunk's statistics
+#define LA_FBWD_STATS_BYTES (LA_FBWD_STATS * 4)
+#define LA_FBWD_COL_STAGE (LA_STAGE_BYTES + 1024)      // Q, dO, statistics; boxes 1024-aligned
+
+// The flash backward, launch 1 (query-major): persistent blocks of
+// LA_FBWD_WG consumer warpgroups and a producer warpgroup over items (image
+// b, head h, group g of LA_FBWD_WG 64-query tiles), item = (b H + h) ng + g;
+// block i takes items i, i + gridDim.x, ... Per query tile: passes 1-2
+// (la_stats: m, l), then la_core_rows' pass 3 (dot) and pass 4 (dq += dS k,
+// dS in two terms), the ring streaming K (passes 1-2), then K and V. q, k,
+// v, dO through their maps as (columns, S rows, B images), head h at
+// column 64 h; dq rows of (b, h) at dq + b obs + h 64 + r ots; the
+// statistics of every row of the tile (rows >= S too: zeros in, finite
+// out) into `ws`. Shared memory: two slots of the item's Q and dO tiles,
+// then the ring.
+__global__ void __launch_bounds__((LA_FBWD_WG + 1) * 128, LA_FBWD_MINB)
+long_flash_bwd_rows(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap, bf16* __restrict__ dq,
+                    float* __restrict__ ws, long long obs, long long ots, int S, int H,
+                    int items) {
+  constexpr int WG = LA_FBWD_WG;
+  __shared__ uint64_t full[LA_FBWD_STAGES], empty[LA_FBWD_STAGES], tfull[2], tempty[2];
+  extern __shared__ uint8_t raw[];
+  uint8_t* tiles = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  Ring ring{full, empty, tiles + 2 * WG * LA_STAGE_BYTES, LA_STAGE_BYTES, LA_FBWD_STAGES, 0};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nc = (S + LA_CHUNK - 1) / LA_CHUNK, ng = (nc + WG - 1) / WG;
+  if (tid == 0) {
+    ring_init(full, empty, LA_FBWD_STAGES, WG * 4);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&tfull[s], 1);
+      mbar_init(&tempty[s], WG * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= WG * 4) {  // the producer warpgroup: one lane issues every load
+    reg_dealloc<LA_PRODUCER_REGS>();
+    if (warp == WG * 4 && lane == 0) {
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int g = item % ng, h = item / ng % H, b = item / ng / H;
+        const int ts = n & 1, live = min(WG, nc - g * WG);  // tiles with a row below S
+        mbar_wait(&tempty[ts], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&tfull[ts], live * LA_STAGE_BYTES);
+        for (int w = 0; w < live; ++w) {
+          uint8_t* dst = tiles + (ts * WG + w) * LA_STAGE_BYTES;
+          tma_load(dst, &qmap, &tfull[ts], h * TILE_DH, (g * WG + w) * LA_CHUNK, b);
+          tma_load(dst + TMA_BOX_BYTES, &omap, &tfull[ts], h * TILE_DH, (g * WG + w) * LA_CHUNK,
+                   b);
+        }
+        for (int pass = 0; pass < 4; ++pass)
+          for (int c = 0; c < nc; ++c) {  // K, and in passes 3-4 V beside it
+            uint64_t* bar;
+            uint8_t* st = ring.fill(pass < 2 ? TMA_BOX_BYTES : LA_STAGE_BYTES, &bar);
+            tma_load(st, &kmap, bar, h * TILE_DH, c * LA_CHUNK, b);
+            if (pass >= 2) tma_load(st + TMA_BOX_BYTES, &vmap, bar, h * TILE_DH, c * LA_CHUNK, b);
+          }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<la_consumer_regs(WG, LA_FBWD_MINB)>();
+  const int w = warp >> 2, t = lane & 3;
+  const int lrow = (warp & 3) * 16 + (lane >> 2);
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int g = item % ng, h = item / ng % H, b = item / ng / H;
+    const int ts = n & 1, tile = g * WG + w;
+    if (WG > 1 && tile >= nc) {  // no row below S: keep pace with the ring
+      for (int i = 0; i < 4 * nc; ++i) ring.release(ring.take(), lane);
+      if (lane == 0) mbar_arrive(&tempty[ts]);
+      continue;
+    }
+    mbar_wait(&tfull[ts], (n >> 1) & 1);
+    const uint8_t* qt = tiles + (ts * WG + w) * LA_STAGE_BYTES;
+    float m[2], l[2], dot[2], acc[32];
+    la_stats(m, l, ring, qt, nc, S, lane);
+    const LaQuot q[2] = {LaQuot(l[0]), LaQuot(l[1])};
+    la_core_rows<false, true>(acc, dot, m, l, q, ring, qt, qt + TMA_BOX_BYTES, nc, S, lane);
+    la_core_rows<true, true>(acc, dot, m, l, q, ring, qt, qt + TMA_BOX_BYTES, nc, S, lane);
+    if (lane == 0) mbar_arrive(&tempty[ts]);
+    la_store(dq + (long long)b * obs + h * TILE_DH, ots, acc, LA_SCALE, tile * LA_CHUNK + lrow, S,
+             t);
+    if (t == 0) {
+      float* st = ws + ((long long)(b * H + h) * nc + tile) * LA_FBWD_STATS;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        st[lrow + 8 * i] = m[i];
+        st[LA_CHUNK + lrow + 8 * i] = l[i];
+        st[2 * LA_CHUNK + lrow + 8 * i] = dot[i];
+      }
+    }
+  }
+}
+
+// The flash backward, launch 2 (key-major): launch 1's items with key tiles
+// in the place of query tiles. Per key tile (K and V in a slot), la_core_cols
+// over every query chunk of the ring (Q, dO and the chunk's statistics from
+// `ws`): dv = p^T dO, dk = dS^T q / 8, P and dS in two terms. dk, dv rows as
+// launch 1's dq.
+__global__ void __launch_bounds__((LA_FBWD_WG + 1) * 128, LA_FBWD_MINB)
+long_flash_bwd_cols(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap, const float* __restrict__ ws,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, long long obs, long long ots,
+                    int S, int H, int items) {
+  constexpr int WG = LA_FBWD_WG;
+  __shared__ uint64_t full[LA_FBWD_STAGES], empty[LA_FBWD_STAGES], tfull[2], tempty[2];
+  extern __shared__ uint8_t raw[];
+  uint8_t* tiles = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  Ring ring{full, empty, tiles + 2 * WG * LA_STAGE_BYTES, LA_FBWD_COL_STAGE, LA_FBWD_STAGES, 0};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nc = (S + LA_CHUNK - 1) / LA_CHUNK, ng = (nc + WG - 1) / WG;
+  if (tid == 0) {
+    ring_init(full, empty, LA_FBWD_STAGES, WG * 4);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&tfull[s], 1);
+      mbar_init(&tempty[s], WG * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= WG * 4) {  // the producer warpgroup: one lane issues every load
+    reg_dealloc<LA_PRODUCER_REGS>();
+    if (warp == WG * 4 && lane == 0) {
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int g = item % ng, h = item / ng % H, b = item / ng / H;
+        const int ts = n & 1, live = min(WG, nc - g * WG);
+        mbar_wait(&tempty[ts], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&tfull[ts], live * LA_STAGE_BYTES);
+        for (int w = 0; w < live; ++w) {
+          uint8_t* dst = tiles + (ts * WG + w) * LA_STAGE_BYTES;
+          tma_load(dst, &kmap, &tfull[ts], h * TILE_DH, (g * WG + w) * LA_CHUNK, b);
+          tma_load(dst + TMA_BOX_BYTES, &vmap, &tfull[ts], h * TILE_DH, (g * WG + w) * LA_CHUNK,
+                   b);
+        }
+        const float* head = ws + (long long)(b * H + h) * nc * LA_FBWD_STATS;
+        for (int c = 0; c < nc; ++c) {  // Q, dO and the statistics of query chunk c
+          uint64_t* bar;
+          uint8_t* st = ring.fill(LA_STAGE_BYTES + LA_FBWD_STATS_BYTES, &bar);
+          tma_load(st, &qmap, bar, h * TILE_DH, c * LA_CHUNK, b);
+          tma_load(st + TMA_BOX_BYTES, &omap, bar, h * TILE_DH, c * LA_CHUNK, b);
+          bulk_load(st + LA_STAGE_BYTES, head + (long long)c * LA_FBWD_STATS, LA_FBWD_STATS_BYTES,
+                    bar);
+        }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<la_consumer_regs(WG, LA_FBWD_MINB)>();
+  const int w = warp >> 2, t = lane & 3;
+  const int lrow = (warp & 3) * 16 + (lane >> 2);
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int g = item % ng, h = item / ng % H, b = item / ng / H;
+    const int ts = n & 1, tile = g * WG + w;
+    if (WG > 1 && tile >= nc) {  // no row below S: keep pace with the ring
+      for (int i = 0; i < nc; ++i) ring.release(ring.take(), lane);
+      if (lane == 0) mbar_arrive(&tempty[ts]);
+      continue;
+    }
+    mbar_wait(&tfull[ts], (n >> 1) & 1);
+    const uint8_t* kt = tiles + (ts * WG + w) * LA_STAGE_BYTES;
+    float ak[32], av[32];
+    la_core_cols<true>(
+        ak, av,
+        [&](int, int st) {
+          const float* p = reinterpret_cast<const float*>(ring.at(st) + LA_STAGE_BYTES);
+          return LaStatRows{p, p + LA_CHUNK, p + 2 * LA_CHUNK};
+        },
+        ring, kt, kt + TMA_BOX_BYTES, nc, S, lane);
+    if (lane == 0) mbar_arrive(&tempty[ts]);
+    const long long head = (long long)b * obs + h * TILE_DH;
+    la_store(dk + head, ots, ak, LA_SCALE, tile * LA_CHUNK + lrow, S, t);
+    la_store(dv + head, ots, av, 1.0f, tile * LA_CHUNK + lrow, S, t);
+  }
+}
+
+// the flash backward's dynamic shared memory: two slots of LA_FBWD_WG tile
+// pairs, then the ring of stages of `stage_bytes`
+static size_t long_flash_bwd_smem(int stage_bytes) {
+  return 1024 + (size_t)(2 * LA_FBWD_WG) * LA_STAGE_BYTES + (size_t)LA_FBWD_STAGES * stage_bytes;
+}
+
+// floats of the flash backward's statistics workspace
+static long long long_flash_bwd_ws_floats(int B, int S, int H) {
+  return (long long)B * H * ((S + LA_CHUNK - 1) / LA_CHUNK) * LA_FBWD_STATS;
 }
 
 // s = q k^T and st = k q^T for one 64 x 64 pair of tiles by one warpgroup,
@@ -1324,8 +1210,22 @@ static int la_set_smem(K kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-static dim3 la_row_grid(int B, int S, int H) {
-  return dim3((S + 16 * LA_ROW_WARPS - 1) / (16 * LA_ROW_WARPS), H, B);
+// a persistent launch's blocks: as many of `kernel` at `threads` and `smem`
+// as the card holds at once (found once into `per_card`: the same for
+// every card of the build), never more than `items`
+template <class K>
+static int la_persistent_grid(K kernel, int threads, size_t smem, int items, int& per_card,
+                              int* grid) {
+  LAUNCH(la_set_smem(kernel, smem));
+  if (per_card == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    LAUNCH((int)cudaGetDevice(&dev));
+    LAUNCH((int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    LAUNCH((int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem));
+    per_card = (per_sm > 0 ? per_sm : 1) * sms;
+  }
+  *grid = items < per_card ? items : per_card;
+  return 0;
 }
 
 // o = softmax(q k^T / 8) v over B images x H heads of S tokens, q, k and v
@@ -1339,19 +1239,13 @@ static int launch_long_attention_fwd(const CUtensorMap& qmap, const CUtensorMap&
                                      cudaStream_t st) {
   const int nc = (S + LA_CHUNK - 1) / LA_CHUNK;
   const int items = B * H * ((nc + LA_FWD_WG - 1) / LA_FWD_WG);
+  const int threads = (LA_FWD_WG + 1) * 128;
   const size_t smem = long_fwd_smem();
-  static int per_card = 0;  // blocks the card holds at once (same for every card of the build)
-  LAUNCH(la_set_smem(long_attention_fwd<SPLIT>, smem));
-  if (per_card == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    LAUNCH((int)cudaGetDevice(&dev));
-    LAUNCH((int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-    LAUNCH((int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, long_attention_fwd<SPLIT>, (LA_FWD_WG + 1) * 128, smem));
-    per_card = (per_sm > 0 ? per_sm : 1) * sms;
-  }
-  long_attention_fwd<SPLIT><<<items < per_card ? items : per_card, (LA_FWD_WG + 1) * 128, smem,
-                              st>>>(qmap, kmap, vmap, qc, kc, vc, o, obs, ots, S, H, items);
+  static int per_card = 0;
+  int grid;
+  LAUNCH(la_persistent_grid(long_attention_fwd<SPLIT>, threads, smem, items, per_card, &grid));
+  long_attention_fwd<SPLIT><<<grid, threads, smem, st>>>(qmap, kmap, vmap, qc, kc, vc, o, obs,
+                                                         ots, S, H, items);
   return (int)cudaGetLastError();
 }
 
@@ -1369,20 +1263,33 @@ static int launch_long_flash_fwd(const bf16* q, const bf16* k, const bf16* v, bf
                                          H, st);
 }
 
-// the flash backward: dq, dk, dv (rows as o's), two launches; stats holds B
-// H S x 3 floats
-static int launch_long_flash_bwd(const LaOp& q, const LaOp& k, const LaOp& v, const bf16* dout,
-                                 bf16* dq, bf16* dk, bf16* dv, float* stats, long long obs,
-                                 long long ots, int B, int S, int H, cudaStream_t st) {
-  const size_t smem = long_flash_bwd_smem();
-  const dim3 grid = la_row_grid(B, S, H);
-  LAUNCH(la_set_smem(long_flash_bwd_rows, smem));
-  long_flash_bwd_rows<<<grid, LA_ROW_WARPS * 32, smem, st>>>(q, k, v, dout, dq, stats, obs, ots,
-                                                             S, H);
+// the flash backward above 256 keys: dq, dk, dv contiguous (B, S, H, 64)
+// from q, k, v (as launch_long_flash_fwd takes them) and a contiguous dout,
+// two persistent launches; ws: long_flash_bwd_ws_floats(B, S, H) floats
+static int launch_long_flash_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                                 bf16* dq, bf16* dk, bf16* dv, float* ws, long long bs,
+                                 long long ts, int B, int S, int H, cudaStream_t st) {
+  const uint64_t cols = (uint64_t)H * TILE_DH, lay = B > 1 ? bs : (long long)S * ts;
+  CUtensorMap qm, km, vm, om;
+  LAUNCH(tensor_map_strided(&qm, q, cols, S, B, ts, lay));
+  LAUNCH(tensor_map_strided(&km, k, cols, S, B, ts, lay));
+  LAUNCH(tensor_map_strided(&vm, v, cols, S, B, ts, lay));
+  LAUNCH(tensor_map(&om, dout, cols, S, B));
+  const int nc = (S + LA_CHUNK - 1) / LA_CHUNK;
+  const int items = B * H * ((nc + LA_FBWD_WG - 1) / LA_FBWD_WG);
+  const int threads = (LA_FBWD_WG + 1) * 128;
+  const long long obs = (long long)S * cols;
+  static int rows_per_card = 0, cols_per_card = 0;
+  int grid;
+  const size_t smem_rows = long_flash_bwd_smem(LA_STAGE_BYTES);
+  LAUNCH(la_persistent_grid(long_flash_bwd_rows, threads, smem_rows, items, rows_per_card, &grid));
+  long_flash_bwd_rows<<<grid, threads, smem_rows, st>>>(qm, km, vm, om, dq, ws, obs, cols, S, H,
+                                                        items);
   LAUNCH((int)cudaGetLastError());
-  LAUNCH(la_set_smem(long_flash_bwd_cols, smem));
-  long_flash_bwd_cols<<<grid, LA_ROW_WARPS * 32, smem, st>>>(q, k, v, dout, stats, dk, dv, obs,
-                                                             ots, S, H);
+  const size_t smem_cols = long_flash_bwd_smem(LA_FBWD_COL_STAGE);
+  LAUNCH(la_persistent_grid(long_flash_bwd_cols, threads, smem_cols, items, cols_per_card, &grid));
+  long_flash_bwd_cols<<<grid, threads, smem_cols, st>>>(qm, km, vm, om, ws, dk, dv, obs, cols, S,
+                                                        H, items);
   return (int)cudaGetLastError();
 }
 
