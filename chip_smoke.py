@@ -197,8 +197,7 @@ script exits non-zero without printing a result:
      halves and merged (equal to the split pair bit for bit, two runs of
      each equal) through the wrappers; at S = 577, 12 fused_block calls
      equal to one fused_backbone, one call of each wrapper with its
-     counter and its route's count, and fp32 above 256 tokens refused; the
-     routes' branch-free quotient equal to __fdiv_rn bit for bit on 2^27
+     counter and its route's count; the routes' branch-free quotient equal to __fdiv_rn bit for bit on 2^27
      random pairs and the edges where the routes take it; whether the
      key-major phase's scores K Q^T equal Q K^T bit for bit (recorded); the
      core at its longest S against its twin, one query tile past it refused
@@ -216,6 +215,26 @@ script exits non-zero without printing a result:
      backward), the flash pair also beside SDPA on fp32 copies (the same
      function: P and dS in fp32). `python3 chip_smoke.py --long-seq` runs
      the build and this phase alone.
+ 16. fp32 above 256 tokens (compute_dtype=float32), after phase 15 and
+     before phase 13: the multi-pass route of csrc/flash_f32.cuh behind
+     every fp32 attention. (a) At phase 15's S, B and widths: the fp32
+     forward stage and attention core alone (their C entry points), the
+     flash pair, a 2-layer fused_backbone and the four one-layer kernels
+     through the wrappers, each against its fp32 twin and as close to
+     float64 as the twin; the core's att equal to the stage's, two runs of
+     the core, the flash backward, attn_bwd and merged_bwd equal, merged
+     equal to split, all bit for bit; at S = 577, 12 fused_block calls
+     equal to one fused_backbone and one call of each wrapper with its
+     counter and its route's count. (b) fp32 ViT-Base/16-384 (phase 15
+     (b)'s overrides and cut, `-o compute_dtype=float32`): step 1 of
+     "fused" against "xla", `fit` of one merged, one split "fused" and one
+     "pallas" step with every counter as predicted, the split step's
+     device time by wrapper. (c) `run ft-ucsdoct -o compute_dtype=float32`
+     at 256 px as phase 15 (c), and the parity runbook keeping "fused" for
+     fp32 at S = 257 and 577. (d) Each fp32 route by launch at (b)'s and
+     (c)'s attentions beside its bound (67 TFLOP/s), its twin and SDPA in
+     fp32 (TF32 off). `python3 chip_smoke.py --fp32-long` runs the build
+     and this phase alone.
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
@@ -226,7 +245,8 @@ the `run ft-octmnist` of phase 10b, `parallel_launches` on rank 0 of phase
 from phase 11; phase 14 adds an entry per kernel and width, named
 "<kernel> (D=384)" and "(D=768)", its `launches` from (b); phase 15 one per
 long route, "<route> (S>256)", its `launches` from (b), `ft_256px_launches`
-from (c) and its (c)-shape times in `at_256px`); the last line is {"ok":
+from (c) and its (c)-shape times in `at_256px`; phase 16 the same per fp32
+long route, "<route> (fp32, S>256)"); the last line is {"ok":
 true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
@@ -2211,16 +2231,18 @@ def extract_path(trainer, ds, impl, feats_plain, want, tol=FEATURE_REL_TOL,
     return feats
 
 
-def flash_bound_ms(kind, b, s, heads) -> tuple:
+def flash_bound_ms(kind, b, s, heads, fp32=False) -> tuple:
     """Least time for one attention forward or backward over (b, s, heads,
-    64) bf16: the products it needs (forward Q K^T and P V; backward Q K^T
-    recomputed, dV, dP, dQ, dK; each 2 S^2 64 per (image, head)) over the
-    bf16 peak, vs q, k, v (and dO) read once and o (dq, dk, dv) written
-    once. Returns (ms, "operations" | "bytes", flops)."""
+    64) bf16 (or fp32): the products it needs (forward Q K^T and P V;
+    backward Q K^T recomputed, dV, dP, dQ, dK; each 2 S^2 64 per (image,
+    head)) over the bf16 peak (the fp32 peak outside the tensor cores), vs
+    q, k, v (and dO) read once and o (dq, dk, dv) written once. Returns (ms,
+    "operations" | "bytes", flops)."""
     products, tensors = (2, 4) if kind == "fwd" else (5, 7)
     flops = b * heads * products * 2 * s * s * 64
-    nbytes = tensors * b * s * heads * 64 * 2
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    nbytes = tensors * b * s * heads * 64 * (4 if fp32 else 2)
+    t_ops = flops / (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
@@ -3110,39 +3132,42 @@ def long_limits(fb, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def long_calls(fb, fa, dev) -> None:
-    """Phase 15 (a), through the wrappers at S = 577 (ViT-Base width): 12
-    `fused_block` calls equal one `fused_backbone` bit for bit; one call of
-    each wrapper raises its own counter by 1 and its route's long-sequence
-    count by its launches of the route (the backbone: one a layer), nothing
-    else, with the C entry point's CUDA launches as at S <= 256; fp32 above
-    256 tokens raises, naming the later slice."""
+def long_calls(fb, fa, dev, dtype=torch.bfloat16) -> None:
+    """Phase 15 (a) (bf16) and 16 (a) (fp32), through the wrappers at S = 577
+    (ViT-Base width): 12 `fused_block` calls equal one `fused_backbone` bit
+    for bit; one call of each wrapper raises its own counter by 1 and its
+    route's long-sequence count by its launches of the route (the backbone:
+    one a layer), nothing else, with the C entry point's CUDA launches as at
+    S <= 256."""
     eps, s, d, heads, mlp, layers = 1e-12, 577, 768, 12, 3072, 12
+    fp32 = int(dtype == torch.float32)
     gen = torch.Generator().manual_seed(SEED + 1577)
-    wt = random_backbone(gen, layers, d, mlp, dev)
-    x = torch.randn(1, s, d, generator=gen).to(torch.bfloat16).to(dev)
+    wt = tuple(t.float() if fp32 else t for t in random_backbone(gen, layers, d, mlp, dev))
+    x = torch.randn(1, s, d, generator=gen).to(dtype).to(dev)
     h = x
     for l in range(layers):
         h = fb.fused_block(h, tuple(t[l] for t in wt), heads, eps, True)
     hb = fb.fused_backbone(x, wt, heads, eps, True)
     torch.cuda.synchronize()
     share = equal_bits(h, hb)
-    log(f"[long-calls] S={s} D={d}: {layers} fused_block calls vs one fused_backbone: "
+    log(f"[long-calls] {dtype} S={s} D={d}: {layers} fused_block calls vs one fused_backbone: "
         f"{100.0 * share:.4f}% of the outputs equal bit for bit (must be 100%)")
     if share != 1.0:
-        raise AssertionError("at S = 577 the per-layer forward differs from the backbone's")
+        raise AssertionError(f"at S = 577 the per-layer forward differs from the backbone's "
+                             f"({dtype})")
     w = layer_weights(fb.WEIGHT_NAMES, tuple(t[:1] for t in wt))
     x2, g = (torch.randn(1, s, d, generator=gen) for _ in range(2))
-    x2, g = x2.to(torch.bfloat16).to(dev), (0.1 * g).to(torch.bfloat16).to(dev)
-    q, k, v, do = flash_operands(gen, 1, s, heads, torch.bfloat16, dev)
+    x2, g = x2.to(dtype).to(dev), (0.1 * g).to(dtype).to(dev)
+    q, k, v, do = flash_operands(gen, 1, s, heads, dtype, dev)
     calls = (
-        ("backbone_fwd", "attention_fwd", layers, fb.kernel_launches_per_layer(d) * layers,
+        ("backbone_fwd", "attention_fwd", layers,
+         fb.kernel_launches_per_layer(d, bool(fp32)) * layers,
          lambda: fb.fused_backbone(x, wt, heads, eps, True)),
-        ("layer_fwd", "attention_fwd", 1, fb.cuda_launches("layer_fwd", None, d, 0),
+        ("layer_fwd", "attention_fwd", 1, fb.cuda_launches("layer_fwd", None, d, fp32),
          lambda: fb.layer_fwd(x, tuple(t[0] for t in wt), heads, eps, True)),
-        ("attn_bwd", "attention_bwd", 1, fb.cuda_launches("attn_bwd", None, d, 0),
+        ("attn_bwd", "attention_bwd", 1, fb.cuda_launches("attn_bwd", None, d, fp32),
          lambda: fb.attn_bwd(x, g, w, heads, eps)),
-        ("merged_bwd", "attention_bwd", 1, fb.cuda_launches("merged_bwd", None, d, 0),
+        ("merged_bwd", "attention_bwd", 1, fb.cuda_launches("merged_bwd", None, d, fp32),
          lambda: fb.merged_bwd(x, x2, g, w, heads, eps, True)),
         ("flash_fwd", "flash_fwd", 1, fb.cuda_launches("flash_fwd", fa.KERNEL_NAME),
          lambda: fa.flash_fwd(q, k, v)),
@@ -3155,23 +3180,11 @@ def long_calls(fb, fa, dev) -> None:
         torch.cuda.synchronize()
         counts = {k_: n for k_, n in read_launches().items() if n}
         want = {name: 1, f"{route} (S>256)": n_route}
-        log(f"[long-calls] one {name} call at S={s}: counters {counts} (want {want}); "
+        log(f"[long-calls] one {dtype} {name} call at S={s}: counters {counts} (want {want}); "
             f"{n_cuda} CUDA launches, as at S <= 256")
         if counts != want:
-            raise AssertionError(f"one {name} call at S = {s} counted {counts}, not {want}")
-    wt32 = tuple(t.float() for t in wt)
-    w32 = {n: t.float() for n, t in w.items()}
-    for name, fn in (("fused_backbone", lambda: fb.fused_backbone(x.float(), wt32, heads, eps)),
-                     ("attn_bwd", lambda: fb.attn_bwd(x.float(), g.float(), w32, heads, eps)),
-                     ("flash_fwd", lambda: fa.flash_fwd(q.float(), k.float(), v.float()))):
-        try:
-            fn()
-        except ValueError as e:
-            if "later slice" not in str(e):
-                raise
-            log(f"[long-calls] fp32 {name} at S={s} raises: {e}")
-            continue
-        raise AssertionError(f"fp32 {name} at S = {s} did not raise")
+            raise AssertionError(f"one {dtype} {name} call at S = {s} counted {counts}, not "
+                                 f"{want}")
 
 
 # (b): ViT-Base/16-384, the published fine-tuning geometry
@@ -3295,12 +3308,13 @@ def long_training(card) -> dict:
     return total
 
 
-def long_ft_run(card) -> tuple:
-    """Phase 15 (c): `run ft-ucsdoct` at 256 px sources and 256 px views (S =
-    257) on phase 12's stand-ins (stage_folder_inputs, then `data
-    merge-ucsd`), LONG_FT_OVERRIDES, with the counters read around it and
-    held to the protocol's predicted launches (backbone, split halves and
-    the long routes). Returns (launches, the run's microbatch)."""
+def long_ft_run(card, extra=()) -> tuple:
+    """Phase 15 (c) (and 16 (c), `extra` ["compute_dtype=float32"]): `run
+    ft-ucsdoct` at 256 px sources and 256 px views (S = 257) on phase 12's
+    stand-ins (stage_folder_inputs, then `data merge-ucsd`),
+    LONG_FT_OVERRIDES and `extra`, with the counters read around it and held
+    to the protocol's predicted launches (backbone, split halves and the
+    long routes). Returns (launches, the run's microbatch)."""
     import contextlib
     import io
     import tempfile
@@ -3317,7 +3331,7 @@ def long_ft_run(card) -> tuple:
             rc = cli_main(["data", "merge-ucsd", os.path.join(root, "ucsdoct")])
         if rc != 0:
             raise AssertionError(f"data merge-ucsd: rc {rc}")
-        over = [*LONG_FT_OVERRIDES, f"data.root={root}"]
+        over = [*LONG_FT_OVERRIDES, *extra, f"data.root={root}"]
         cfg = _apply_overrides(get_preset("ft-ucsdoct"), over)
         if (cfg.vit.seq_len, cfg.data.augment.out_size) != (257, 256):
             raise AssertionError(f"ft-ucsdoct at 256 px: S {cfg.vit.seq_len}")
@@ -3339,9 +3353,9 @@ def long_ft_run(card) -> tuple:
         with open(os.path.join(out, "metrics.jsonl")) as f:
             events = [json.loads(line) for line in f]
     aucs = [e["mauc"] for e in events if e["event"] == "fold_result"]
-    log(f"[long] (c) run ft-ucsdoct at 256 px (S=257; cut: 2 folds, 1 epoch, random init; "
-        f"subset {n_cv}, test {n_test}) in {secs:.1f} s: rc {rc}, {steps} train steps, "
-        f"{evals} eval batches; fold mAUCs {aucs}; launches "
+    log(f"[long] (c) run ft-ucsdoct at 256 px ({cfg.compute_dtype}, S=257; cut: 2 folds, 1 "
+        f"epoch, random init; subset {n_cv}, test {n_test}) in {secs:.1f} s: rc {rc}, {steps} "
+        f"train steps, {evals} eval batches; fold mAUCs {aucs}; launches "
         f"{ {k_: n for k_, n in launches.items() if n} } (predicted {want}) on {card}")
     if rc != 0 or len(aucs) != 2 or not all(np.isfinite(aucs)):
         raise AssertionError(f"run ft-ucsdoct at 256 px: rc {rc}, fold mAUCs {aucs}")
@@ -3350,71 +3364,81 @@ def long_ft_run(card) -> tuple:
     return launches, cfg.batch_size
 
 
-def long_bound_ms(kind, b, s, heads) -> tuple:
+def long_bound_ms(kind, b, s, heads, fp32=False) -> tuple:
     """Least time of one long-sequence route over b images x heads at S (bf16,
-    head_dim 64): its products (2 S^2 64 each per (image, head): the stage
-    and the flash forward 2, the core and the flash backward 6 and 5 as the
-    function needs them) over the bf16 peak, vs its tensors read and written
-    once (the stage: qkv in, att out; the core: qkv and datt in, att and
-    dqkv out; flash as flash_bound_ms). Returns (ms, bound by, flops)."""
+    or fp32, head_dim 64): its products (2 S^2 64 each per (image, head):
+    the stage and the flash forward 2, the core and the flash backward 6 and
+    5 as the function needs them) over the bf16 peak (the fp32 peak outside
+    the tensor cores), vs its tensors read and written once (the stage: qkv
+    in, att out; the core: qkv and datt in, att and dqkv out; flash as
+    flash_bound_ms). Returns (ms, bound by, flops)."""
     if kind in ("flash_fwd", "flash_bwd"):
-        return flash_bound_ms(kind.split("_")[1], b, s, heads)
+        return flash_bound_ms(kind.split("_")[1], b, s, heads, fp32)
     products, rows = (2, 3 + 1) if kind == "attention_fwd" else (6, 3 + 1 + 1 + 3)
     d = 64 * heads
     flops = b * heads * products * 2 * s * s * 64
-    nbytes = rows * b * s * d * 2
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    nbytes = rows * b * s * d * (4 if fp32 else 2)
+    t_ops = flops / (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
-def long_times(fb, fa, card, dev, shapes) -> dict:
-    """Phase 15 (d): each long route by launch at `shapes` ((label, B, S,
-    heads): (b)'s and (c)'s attentions), CUDA events, beside its bound, its
-    plain twin and bf16 SDPA (forward, or its autograd backward; a yardstick
-    the port never calls), the flash pair also beside SDPA on fp32 copies.
+def long_times(fb, fa, card, dev, shapes, dtype=torch.bfloat16) -> dict:
+    """Phase 15 (d) (bf16) and 16 (d) (fp32): each long route by launch at
+    `shapes` ((label, B, S, heads): (b)'s and (c)'s attentions), CUDA
+    events, beside its bound, its plain twin and SDPA in the same dtype
+    (forward, or its autograd backward; a yardstick the port never calls;
+    TF32 off), in bf16 the flash pair also beside SDPA on fp32 copies.
     Returns {route: {label: (ms, twin ms, library ms, bound ms, bound by,
     same-fn ms or None)}}."""
+    fp32 = dtype == torch.float32
+    stage, core = ((attention_stage_f32_call, attention_core_f32_call) if fp32
+                   else (attention_stage_call, attention_core_call))
     out = {}
     for label, b, s, heads in shapes:
         d = 64 * heads
         gen = torch.Generator().manual_seed(SEED + s)
-        qkv = torch.randn(b, s, 3 * d, generator=gen).to(torch.bfloat16).to(dev)
-        datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(torch.bfloat16).to(dev)
+        qkv = torch.randn(b, s, 3 * d, generator=gen).to(dtype).to(dev)
+        datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(dtype).to(dev)
         q, k, v = (t.reshape(b, s, heads, 64) for t in qkv.split(d, dim=-1))
         do = datt.reshape(b, s, heads, 64)
         sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
         sdpa_bwd, _ = library_flash_bwd(q, k, v, do)
-        same_fwd, same_bwd = check_same_fn_yardstick(q, k, v, do)
-        with torch.no_grad():
-            same = {"flash_fwd": time_ms(same_fwd, iters=10, warmup=2)}
-        same["flash_bwd"] = time_ms(same_bwd, iters=10, warmup=2)
+        same = {}
+        if not fp32:
+            same_fwd, same_bwd = check_same_fn_yardstick(q, k, v, do)
+            with torch.no_grad():
+                same["flash_fwd"] = time_ms(same_fwd, iters=10, warmup=2)
+            same["flash_bwd"] = time_ms(same_bwd, iters=10, warmup=2)
+            del same_fwd, same_bwd
         routes = (
-            ("attention_fwd", lambda: attention_stage_call(fb, qkv, heads),
+            ("attention_fwd", lambda: stage(fb, qkv, heads),
              lambda: attention_stage_plain(qkv, heads),
              lambda: F.scaled_dot_product_attention(*sdpa_in)),
-            ("attention_bwd", lambda: attention_core_call(fb, qkv, datt, heads),
+            ("attention_bwd", lambda: core(fb, qkv, datt, heads),
              lambda: fb._attention_bwd(qkv, datt, heads), sdpa_bwd),
             ("flash_fwd", lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
              lambda: F.scaled_dot_product_attention(*sdpa_in)),
             ("flash_bwd", lambda: fa.flash_bwd(q, k, v, do),
              lambda: fa.flash_attention_bwd_plain(q, k, v, do), sdpa_bwd),
         )
+        sdpa = f"{'fp32' if fp32 else 'bf16'} SDPA"
         for route, kernel, twin, library in routes:
             k_ms = time_ms(kernel, iters=10, warmup=2)
             p_ms = time_ms(twin, iters=3, warmup=1)
             with torch.no_grad() if route.endswith("fwd") else torch.enable_grad():
                 l_ms = time_ms(library, iters=10, warmup=2)
-            b_ms, b_by, flops = long_bound_ms(route, b, s, heads)
+            b_ms, b_by, flops = long_bound_ms(route, b, s, heads, fp32)
             out.setdefault(route, {})[label] = (k_ms, p_ms, l_ms, b_ms, b_by, same.get(route))
             same_txt = (f", SDPA{' backward' if route.endswith('bwd') else ''} on fp32 copies "
                         f"(same fn) {same[route]:.4f} ms" if route in same else "")
-            log(f"[time] {route} (S>256) {label} B={b} S={s} heads={heads}: kernel {k_ms:.4f} ms "
-                f"per launch, plain twin {p_ms:.3f} ms, bf16 SDPA"
-                f"{' backward' if route.endswith('bwd') else ''} {l_ms:.4f} ms{same_txt}, bound "
-                f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP), kernel at "
+            log(f"[time] {route} ({'fp32, ' if fp32 else ''}S>256) {label} B={b} S={s} "
+                f"heads={heads}: kernel {k_ms:.4f} ms per launch, plain twin {p_ms:.3f} ms, "
+                f"{sdpa}{' backward' if route.endswith('bwd') else ''} {l_ms:.4f} ms{same_txt}, "
+                f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP), kernel at "
                 f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the "
                 f"bound; {card}")
-        del qkv, datt, q, k, v, do, sdpa_in, sdpa_bwd, same_fwd, same_bwd
+        del qkv, datt, q, k, v, do, sdpa_in, sdpa_bwd
         torch.cuda.empty_cache()
     return out
 
@@ -3427,6 +3451,34 @@ LONG_ROUTES = (
     ("flash_fwd", "vit2spn_tpu/ops/flash_attention.py:36"),
     ("flash_bwd", "vit2spn_tpu/ops/flash_attention.py:53"),
 )
+
+
+def long_entries(times, launches, ft_launches, errs, fp32=False) -> list:
+    """The `kernels` entries of the four long routes (phase 15, or with
+    `fp32` phase 16's fp32 routes): launches from (b), ft_256px_launches
+    from (c), times at (b)'s attention and (c)'s in `at_256px`."""
+    entries = []
+    for route, replaces in LONG_ROUTES:
+        counter, name = f"{route} (S>256)", f"{route} ({'fp32, ' if fp32 else ''}S>256)"
+        k_ms, p_ms, l_ms, b_ms, b_by, same_ms = times[route]["ViT-Base/16-384"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": ("vit2spn_tpu_torch/csrc/flash_f32.cuh" if fp32
+                       else "vit2spn_tpu_torch/csrc/long_attention.cuh"),
+            "replaces": replaces, "launches": launches.get(counter, 0),
+            "ft_256px_launches": ft_launches.get(counter, 0), "max_abs_err": errs[route],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms, "dtype": "float32" if fp32 else "bfloat16",
+            "shape": f"B={LONG_MICRO} S=577 heads=12 (ViT-Base/16-384)",
+            "at_256px": {k_: v_ for k_, v_ in zip(
+                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "same_fn_library_ms"),
+                times[route]["ViT-Tiny 256 px"]) if v_ is not None},
+        })
+        if same_ms is not None:
+            entries[-1]["same_fn_library_ms"] = same_ms
+        if not entries[-1]["launches"]:
+            raise AssertionError(f"{name} was never launched on its phase's main path")
+    return entries
 
 
 def long_seq_path(fb, fa, card, dev) -> list:
@@ -3450,26 +3502,221 @@ def long_seq_path(fb, fa, card, dev) -> list:
                                            ("ViT-Tiny 256 px", ft_batch, 257, 3)))
     log(f"[long] (d) in {time.perf_counter() - t0:.1f} s; phase 15 in "
         f"{time.perf_counter() - t_phase:.1f} s")
-    entries = []
-    for route, replaces in LONG_ROUTES:
-        name = f"{route} (S>256)"
-        k_ms, p_ms, l_ms, b_ms, b_by, same_ms = times[route]["ViT-Base/16-384"]
-        entries.append({
-            "name": name, "route": "cuda", "source": "vit2spn_tpu_torch/csrc/long_attention.cuh",
-            "replaces": replaces, "launches": launches.get(name, 0),
-            "ft_256px_launches": ft_launches.get(name, 0), "max_abs_err": errs[route],
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms, "dtype": "bfloat16",
-            "shape": f"B={LONG_MICRO} S=577 heads=12 (ViT-Base/16-384)",
-            "at_256px": {k_: v_ for k_, v_ in zip(
-                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "same_fn_library_ms"),
-                times[route]["ViT-Tiny 256 px"]) if v_ is not None},
-        })
-        if same_ms is not None:
-            entries[-1]["same_fn_library_ms"] = same_ms
-        if not entries[-1]["launches"]:
-            raise AssertionError(f"{name} was never launched on phase 15's main path")
-    return entries
+    return long_entries(times, launches, ft_launches, errs)
+
+
+# Phase 16: fp32 above 256 tokens (compute_dtype=float32), the multi-pass
+# route of csrc/flash_f32.cuh behind every fp32 attention on the card: the
+# forward layer's attention stage, the backward's attention core (the
+# forward for att, then the two-launch backward), the flash forward and
+# backward. (a) holds each against its fp32 twin (FP32_TOL of each output's
+# largest magnitude; the flash pair check_flash's fp32 tolerances) and
+# against the same twin run in float64 (as close as the fp32 twin: the mean
+# error at most KERNEL_VS_FP32_RATIO times the twin's plus FP32_VS_FP64_SLACK;
+# the flash pair within FLASH_FP32_VS_FP64_TOL) at LONG_SEQS and LONG_WIDTHS,
+# with phase 15's bit checks; and the four one-layer kernels' fp32 routes
+# and a 2-layer fp32 fused_backbone through the wrappers the same way.
+
+
+def attention_stage_f32_call(fb, qkv, heads):
+    """The fp32 forward layer's attention stage alone (csrc/layer_fwd.cu
+    vit2spn_attention_stage_f32): att (B, S, D) from an fp32 qkv (B, S, 3D)."""
+    b, s, d3 = qkv.shape
+    att = torch.empty((b, s, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lib = fb._load("layer_fwd")
+    fb._raise_on(lib, lib.vit2spn_attention_stage_f32(qkv.data_ptr(), att.data_ptr(), b, s,
+                                                      heads, d3 // 3, fb._stream(qkv.device)),
+                 "fp32 attention stage")
+    return att
+
+
+def attention_core_f32_call(fb, qkv, datt, heads):
+    """The fp32 backward's attention core alone (csrc/attn_bwd.cu
+    vit2spn_attention_core_f32): (att, dqkv) from qkv and datt."""
+    b, s, d3 = qkv.shape
+    att = torch.empty_like(datt)
+    dqkv = torch.empty_like(qkv)
+    ws = torch.empty(b * heads * s * 3, dtype=torch.float32, device=qkv.device)
+    lib = fb._load("attn_bwd")
+    fb._raise_on(lib, lib.vit2spn_attention_core_f32(
+        qkv.data_ptr(), datt.data_ptr(), att.data_ptr(), dqkv.data_ptr(), ws.data_ptr(), b, s,
+        heads, d3 // 3, fb._stream(qkv.device)), "fp32 attention core")
+    return att, dqkv
+
+
+def fp32_long_kernels(fb, fa, dev) -> dict:
+    """Phase 16 (a). Returns each route's largest absolute difference from
+    its fp32 twin: {"attention_fwd", "attention_bwd", "flash_fwd",
+    "flash_bwd"}."""
+    eps = 1e-12
+    errs = {"attention_fwd": 0.0, "attention_bwd": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0}
+    for label, d, heads, mlp in LONG_WIDTHS:
+        gen = torch.Generator().manual_seed(SEED + 16 + d)
+        thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
+        for s, b in LONG_SEQS:
+            tag = f"fp32 {label} heads={heads} S={s} B={b}"
+            # the stage and the core alone
+            qkv = torch.randn(b, s, 3 * d, generator=gen).to(dev)
+            datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(dev)
+            att_f = attention_stage_f32_call(fb, qkv, heads)
+            core = attention_core_f32_call(fb, qkv, datt, heads)
+            torch.cuda.synchronize()
+            errs["attention_fwd"] = max(errs["attention_fwd"], check_fp32_outputs(
+                "attention-stage-fp32", tag, ("att",), (att_f,),
+                (attention_stage_plain(qkv, heads),),
+                (attention_stage_plain(qkv.double(), heads),), FP32_TOL))
+            errs["attention_bwd"] = max(errs["attention_bwd"], check_fp32_outputs(
+                "attention-core-fp32", tag, ("att", "dq", "dk", "dv"), thirds(core),
+                thirds(fb._attention_bwd(qkv, datt, heads)),
+                thirds(fb._attention_bwd(qkv.double(), datt.double(), heads)), FP32_TOL))
+            again = attention_core_f32_call(fb, qkv, datt, heads)
+            torch.cuda.synchronize()
+            same_att = torch.equal(core[0], att_f)
+            same = torch.equal(again[0], core[0]) and torch.equal(again[1], core[1])
+            log(f"[long-bits] {tag}: core att = stage att bit for bit {same_att}; two core "
+                f"runs equal {same}")
+            if not (same_att and same):
+                raise AssertionError(f"fp32 long attention bits ({tag}): att {same_att}, runs "
+                                     f"{same}")
+            del qkv, datt, att_f, core, again
+            # the flash pair
+            for k_, v_ in check_flash(f"long {tag}", *flash_operands(
+                    gen, b, s, heads, torch.float32, dev)).items():
+                errs[k_] = max(errs[k_], v_)
+            ops = flash_operands(torch.Generator().manual_seed(SEED + s), b, s, heads,
+                                 torch.float32, dev)
+            runs = [fa.flash_bwd(*ops) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(x_, y_) for x_, y_ in zip(*runs)):
+                raise AssertionError(f"the fp32 flash backward is not deterministic ({tag})")
+            del ops, runs
+            # the layers through the wrappers
+            wt = tuple(t.float() for t in random_backbone(gen, LONG_LAYERS, d, mlp, dev))
+            x = torch.randn(b, s, d, generator=gen).to(dev)
+            check_fp32_outputs(
+                "fused_backbone-fp32", f"{tag} L={LONG_LAYERS}", ("out",),
+                (fb.fused_backbone(x, wt, heads, eps, True),),
+                (fb.backbone_forward_plain(x, wt, heads, eps, True),),
+                (fb.backbone_forward_plain(x.double(), tuple(t.double() for t in wt), heads,
+                                           eps, True),), FP32_TOL)
+            w = layer_weights(fb.WEIGHT_NAMES, tuple(t[:1] for t in wt))
+            x2 = torch.randn(b, s, d, generator=gen).to(dev)
+            g = (0.1 * torch.randn(b, s, d, generator=gen)).to(dev)
+            check_fp32_layer(tag, fb, x, x2, g, w, heads, eps, True)
+            for name, fn in (("attn_bwd", lambda: fb.attn_bwd(x, g, w, heads, eps)),
+                             ("merged_bwd", lambda: fb.merged_bwd(x, x2, g, w, heads, eps,
+                                                                  True))):
+                runs = [tensors_of(fn()) for _ in range(2)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(a_, b_) for a_, b_ in zip(*runs))
+                log(f"[long-bits] {tag}: two {name} runs equal bit for bit {same}")
+                if not same:
+                    raise AssertionError(f"fp32 {name} is not deterministic ({tag})")
+                del runs
+            check_merged_bwd(tag, fb, x, x2, g, w, heads, eps, True, True)
+            del wt, x, x2, g, w
+            torch.cuda.empty_cache()
+    return errs
+
+
+def fp32_long_training(card) -> dict:
+    """Phase 16 (b): ViT-Base/16-384 under compute_dtype=float32 (phase 15
+    (b)'s overrides and 2 x 64 cut): step 1 of "fused" against "xla" from one
+    state (compare_steps), then `fit` of one merged and one split "fused"
+    step and one "pallas" step (the flash pair) with every counter as
+    predicted, and the split step's device time by wrapper. Returns the
+    long-sequence routes' launches summed over the three fits."""
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+
+    cfg = _apply_overrides(get_preset("ssp-scratch"), [
+        *LONG_OVERRIDES, "compute_dtype=float32", f"batch_size={LONG_MICRO}",
+        f"accumulation_steps={LONG_ACCUM}"])
+    vit = cfg.vit
+    geom = (vit.image_size, vit.hidden_size, vit.num_heads, vit.mlp_dim, vit.num_layers,
+            vit.seq_len, cfg.compute_dtype)
+    if geom != (384, 768, 12, 3072, 12, 577, "float32"):
+        raise AssertionError(f"the fp32 ViT-Base/16-384 overrides gave {geom}")
+    eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, vit.num_layers
+    log(f"[fp32-long] (b) ViT-Base/16-384 SSP: S={vit.seq_len}, D={vit.hidden_size}, "
+        f"{a} x {cfg.batch_size} (cut from 8 x 128), fp32")
+    tds = synthetic_dataset(split_sizes={"train": eff}, image_size=28,
+                            seed=SEED + 16).split("train")
+    t0 = time.perf_counter()
+    step_check(_apply_overrides(cfg, ["vit.remat=full"]), tds.images[:eff], cfg.learning_rate,
+               ref=("xla", False))
+    log(f"[fp32-long] (b) step 1 against xla in {time.perf_counter() - t0:.1f} s")
+    fwd = {KERNEL_NAME: 2 * 2 * a, "attention_fwd (S>256)": 2 * 2 * a * layers}
+    split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers,
+             "attention_bwd (S>256)": 2 * a * layers}
+    merged = {"merged_bwd": 2 * a * layers, "attention_bwd (S>256)": 2 * a * layers}
+    flash = {"flash_fwd": 2 * 2 * a * layers, "flash_bwd": 2 * a * layers,
+             "flash_fwd (S>256)": 2 * 2 * a * layers, "flash_bwd (S>256)": 2 * a * layers}
+    total = {}
+    for impl, is_merged, per_step in (("fused", True, {**fwd, **merged}),
+                                      ("fused", False, {**fwd, **split}),
+                                      ("pallas", False, flash)):
+        trainer, n, _ = fit_path(cfg, tds, impl, is_merged, per_step)
+        for k_, v_ in n.items():
+            if k_.endswith("(S>256)"):
+                total[k_] = total.get(k_, 0) + v_
+        os.environ["VIT2SPN_MERGED_BWD"] = "0"
+        if impl == "fused" and not is_merged:  # the step's time by wrapper
+            wrappers = (KERNEL_NAME, "mlp_bwd", "attn_bwd")
+            totals = {}
+            step_s = time_steps(trainer, eff, "fused fp32 ViT-Base/16-384", card, wrappers,
+                                "views, embed, heads, loss, Adam, EMA", reps=1, totals=totals)
+            device = totals.get("device", float("nan"))
+            by = {w: totals.get(f"vit2spn::{w}", float("nan")) for w in wrappers}
+            log(f"[fp32-long] (b) fused fp32 ViT-Base/16-384 step ({eff} images): wall "
+                f"{1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s, device {device:.3f} ms "
+                f"({', '.join(f'{w} {ms:.3f}' for w, ms in by.items())}, the rest "
+                f"{device - sum(by.values()):.3f}), card idle "
+                f"{100 * (1 - device / (1e3 * step_s)):.1f}% on {card}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def fp32_long_path(fb, fa, card, dev) -> list:
+    """Phase 16: (a) the fp32 routes against their twins and float64, and
+    the wrappers' calls at S = 577; (b) fp32 ViT-Base/16-384 training; (c)
+    `run ft-ucsdoct -o compute_dtype=float32` at 256 px and the parity
+    runbook's path at both lengths; (d) the times. Returns the four fp32
+    routes' `kernels` entries."""
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.evals.parity import runbook_attn_impl
+
+    t_phase = time.perf_counter()
+    errs = fp32_long_kernels(fb, fa, dev)
+    long_calls(fb, fa, dev, torch.float32)
+    log(f"[fp32-long] (a) in {time.perf_counter() - t_phase:.1f} s: largest absolute "
+        f"differences from the fp32 twins {errs}")
+    t0 = time.perf_counter()
+    launches = fp32_long_training(card)
+    log(f"[fp32-long] (b) in {time.perf_counter() - t0:.1f} s: long-route launches {launches}")
+    t0 = time.perf_counter()
+    ft_launches, ft_batch = long_ft_run(card, ("compute_dtype=float32",))
+    paths = {}
+    for preset, over in (("ssp-scratch", LONG_OVERRIDES), ("ft-ucsdoct", LONG_FT_OVERRIDES)):
+        vit = _apply_overrides(get_preset(preset), [*over, "compute_dtype=float32"]).vit
+        paths[vit.seq_len] = runbook_attn_impl(vit, dev, "float32")
+    log(f"[fp32-long] (c) in {time.perf_counter() - t0:.1f} s; the parity runbook's path in "
+        f"fp32 on {dev} by S: {paths}")
+    if paths != {577: "fused", 257: "fused"}:
+        raise AssertionError(f"the runbook does not keep the kernels for fp32 above 256: {paths}")
+    t0 = time.perf_counter()
+    times = long_times(fb, fa, card, dev, (("ViT-Base/16-384", LONG_MICRO, 577, 12),
+                                           ("ViT-Tiny 256 px", ft_batch, 257, 3)),
+                       torch.float32)
+    log(f"[fp32-long] (d) in {time.perf_counter() - t0:.1f} s; phase 16 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return long_entries(times, launches, ft_launches, errs, fp32=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3526,6 +3773,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--long-seq"]:  # phase 15 alone
         print(json.dumps({"kernels": long_seq_path(fb, fa, card, dev)}))
+        return 0
+    if sys.argv[1:2] == ["--fp32-long"]:  # phase 16 alone
+        print(json.dumps({"kernels": fp32_long_path(fb, fa, card, dev)}))
         return 0
 
     # the fine-tune step's wall time before any other phase (phase 10b times
@@ -4138,6 +4388,9 @@ def main() -> int:
 
     # -- 15. inputs above 256 tokens (before phase 13, as phase 14) -------------
     entries += long_seq_path(fb, fa, card, dev)
+
+    # -- 16. fp32 above 256 tokens (before phase 13, as phase 14) --------------
+    entries += fp32_long_path(fb, fa, card, dev)
 
     # -- 13. several ranks on the one card -------------------------------------
     parallel_launches = parallel_path(card, fused_totals)

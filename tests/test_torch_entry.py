@@ -104,13 +104,16 @@ def test_parity_runbook_picks_its_path_by_geometry():
     assert tpar.runbook_attn_impl(smoke, "cpu") == "fused"
     assert tpar.runbook_attn_impl(dataclasses.replace(full, hidden_size=160, num_heads=2),
                                   "cuda") == "xla"
-    # above 256 tokens (384 px: S = 577) bf16 keeps the kernels, fp32 has no
-    # long-sequence route on the card yet
+    # above 256 tokens (384 px: S = 577; ViT-Tiny at 256 px: S = 257) the
+    # kernels take bf16 and fp32
     long = dataclasses.replace(full, image_size=384)
     assert long.seq_len == 577
     assert tpar.runbook_attn_impl(long, "cuda") == "fused"
     assert tpar.runbook_attn_impl(long, "cuda", "bfloat16") == "fused"
-    assert tpar.runbook_attn_impl(long, "cuda", "float32") == "xla"
+    assert tpar.runbook_attn_impl(long, "cuda", "float32") == "fused"
+    tiny256 = dataclasses.replace(full, image_size=256)
+    assert (tiny256.seq_len, tiny256.hidden_size) == (257, 192)
+    assert tpar.runbook_attn_impl(tiny256, "cuda", "float32") == "fused"
     assert tpar.runbook_attn_impl(full, "cuda", "float32") == "fused"
     assert tpar.runbook_attn_impl(long, "cpu", "float32") == "fused"
 

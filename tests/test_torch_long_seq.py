@@ -249,6 +249,47 @@ def test_mha_pallas_matches_jax_above_256(s, dtype):
     _close_mha(got, got_g, ref, ref_g, dtype)
 
 
+def test_fp32_backbone_twin_matches_pallas_at_577():
+    """fp32 at 384 px's S = 577 (csrc/flash_f32.cuh's multi-pass route on the
+    card), at the smallest width (D 64, one head, mlp 128, B 1, 2 layers):
+    `fused_backbone` against interpret-mode `_backbone_fwd_kernel`."""
+    s, d, heads, mlp = 577, 64, 1, 128
+    rng, ws = _weights(s, d, mlp, layers=L)
+    x = rng.standard_normal((1, s, d)).astype(np.float32)
+    jw, tw = _typed(ws, jnp.float32, torch.float32)
+    ref = jfb.fused_backbone(jnp.asarray(x), jw, heads, EPS, 2, True)
+    got = fb.fused_backbone(torch.from_numpy(x), tw, heads, EPS, fast_gelu=False)
+    assert got.shape == (1, s, d) and got.dtype == torch.float32
+    _close(got, ref, "float32", "out")
+
+
+def test_fp32_mha_pallas_matches_jax_at_577():
+    """fp32 `mha_pallas` forward and gradients at S = 577 (one image, one
+    head) against the JAX one, whose flash kernels run in interpret mode on
+    the sequence padded to 640."""
+    q, k, v, cot = _attention_operands((1, 577, 1, 64), 577)
+    ref, ref_g = _jax_mha(q, k, v, cot, jnp.float32)
+    got, got_g = _port_mha(q, k, v, cot, torch.float32)
+    assert got.dtype == torch.float32 and all(g.dtype == torch.float32 for g in got_g)
+    _close_mha(got, got_g, ref, ref_g, "float32")
+
+
+def test_long_seq_counters_count_fp32_routes(monkeypatch):
+    """fp32 above 256 tokens passes every wrapper's input check and is
+    counted by its route's counter, as bf16 is (the wrappers count on the
+    card); at 256 tokens nothing is counted."""
+    monkeypatch.setattr(fb, "LONG_SEQ_LAUNCHES", dict.fromkeys(fb.LONG_SEQ_LAUNCHES, 0))
+    x = torch.zeros(1, 577, 64)
+    fb._check_activation(x, 1)
+    fb._check_activation(x, 1, core=True)
+    fa._check_flash_inputs(*(x.reshape(1, 577, 1, 64),) * 3)
+    routes = {"attention_fwd": 12, "attention_bwd": 1, "flash_fwd": 1, "flash_bwd": 1}
+    for route, n in routes.items():
+        fb.count_long_seq(route, 577, n)
+        fb.count_long_seq(route, fb.KERNEL_MAX_SEQ, n)
+    assert fb.LONG_SEQ_LAUNCHES == routes
+
+
 # ---------------------------------------------------------------------------
 # 2. the long routes' order of sums
 # ---------------------------------------------------------------------------
@@ -436,8 +477,8 @@ def test_core_seq_limit_is_checked_before_a_launch():
     statistics a query beside a tile slot and two ring stages: (232,448 -
     256 - 50,176) / 12 bytes in whole 64-query tiles) is refused
     with a ValueError naming the limit by the layer backwards' input check,
-    before any launch; the forward takes any bf16 S; fp32 above 256 tokens
-    still names the later slice."""
+    before any launch; the forward takes any bf16 S; fp32, whose core keeps
+    its statistics in device memory, takes any S."""
     limit = fb.LONG_CORE_MAX_SEQ
     assert limit == (232448 - 256 - 50176) // 12 // 64 * 64 == 15168
     fb.check_seq_len(limit, torch.bfloat16, "attention backward", core=True)
@@ -445,13 +486,14 @@ def test_core_seq_limit_is_checked_before_a_launch():
     msg = f"attention backward kernel takes S <= {limit} in bf16, got {limit + 1}"
     with pytest.raises(ValueError, match=msg):
         fb.check_seq_len(limit + 1, torch.bfloat16, "attention backward", core=True)
-    with pytest.raises(ValueError, match="later slice"):
-        fb.check_seq_len(257, torch.float32, "backbone", core=True)
+    fb.check_seq_len(257, torch.float32, "backbone", core=True)
+    fb.check_seq_len(4 * limit, torch.float32, "attention backward", core=True)
     # the backward wrappers' check (attn_bwd, merged_bwd) takes core=True
     x = torch.zeros(1, limit + 1, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=f"S <= {limit} in bf16"):
         fb._check_layer_inputs(x, x, {}, fb.ATTN_NAMES, 1, {})
     fb._check_activation(x, 1)  # the forward's
+    fb._check_activation(x.float(), 1, core=True)  # the fp32 backwards'
 
 
 # ---------------------------------------------------------------------------

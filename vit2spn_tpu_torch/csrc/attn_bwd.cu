@@ -38,6 +38,24 @@ extern "C" int vit2spn_attention_core(const void* qkv, const void* datt, void* a
                               static_cast<cudaStream_t>(stream));
 }
 
+// The fp32 backward's attention core alone, as attn_bwd_seq<float> makes it
+// (csrc/flash_f32.cuh: the forward for att, then the backward pair): att and
+// dqkv from qkv and datt, fp32; ws: B * H * S * 3 floats (the row
+// statistics)
+extern "C" int vit2spn_attention_core_f32(const void* qkv, const void* datt, void* att,
+                                          void* dqkv, void* ws, int B, int S, int H, int D,
+                                          void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
+  const float* q = static_cast<const float*>(qkv);
+  float* dq = static_cast<float*>(dqkv);
+  const float scale = 1.0f / sqrtf((float)FA_DH);
+  const long long ts = 3LL * D, bs = (long long)S * ts;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  LAUNCH(fwd_f32(q, q + D, q + 2 * D, static_cast<float*>(att), B, S, H, bs, ts, scale, st));
+  return bwd_f32(q, q + D, q + 2 * D, static_cast<const float*>(datt), dq, dq + D, dq + 2 * D,
+                 static_cast<float*>(ws), B, S, H, bs, ts, ts, scale, st);
+}
+
 // The longest S the bf16 core takes above 256 keys: csrc/long_attention.cuh
 // keeps three fp32 statistics a query in shared memory beside its ring
 extern "C" int vit2spn_attention_core_max_seq() { return long_core_max_seq(); }
@@ -78,7 +96,7 @@ extern "C" int vit2spn_attn_bwd(
     void* dx, void* gln1_scale, void* gln1_bias, void* gwqkv, void* gbqkv, void* gwo, void* gbo,
     void* y1_buf, void* qkv_buf, void* datt_buf, void* att_buf, void* dqkv_buf, void* dy_buf,
     void* ws_buf, int B, int S, int D, int H, float eps, int fp32, void* stream) {
-  if (B <= 0 || S <= 0 || (fp32 && S > FA_MAX_S) || H <= 0 || D != H * DH || D > LN_MAX_D)
+  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH || D > LN_MAX_D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const AttnBwdArgs a = {x, dx2, ln1_scale, ln1_bias, wqkv, bqkv, wo, dx, gln1_scale, gln1_bias,

@@ -71,9 +71,9 @@
 //
 // The weight gradients split the token rows into fp32 partials added in a
 // fixed order: no atomics, so two runs give the same bits. Limits: head_dim
-// 64, S <= 256 in fp32 (bf16 above 256: csrc/long_attention.cuh's core, S <=
-// 15,168), D <= 768, activations and matmul weights in T, fp32 LN
-// parameters.
+// 64, any S in fp32 (csrc/flash_f32.cuh), bf16 S <= 15,168 (above 256:
+// csrc/long_attention.cuh's core), D <= 768, activations and matmul weights
+// in T, fp32 LN parameters.
 
 #pragma once
 

@@ -22,8 +22,8 @@
 // weight matrices are read through TMA maps of the stacked arrays, built
 // once per call, the layer as their third coordinate. fp32
 // (compute_dtype=float32): the seven-launch CUDA-core layer of
-// csrc/layer_fwd_f32.cuh per layer. Limits: head_dim 64, S <= 256 in fp32,
-// D <= 768, D and mlp multiples of 64.
+// csrc/layer_fwd_f32.cuh per layer. Limits: head_dim 64, D <= 768, D and
+// mlp multiples of 64.
 
 #include "layer_fwd.cuh"
 #include "layer_fwd_f32.cuh"
@@ -43,7 +43,7 @@ extern "C" int vit2spn_backbone_fwd(
     void* qkv_buf, void* att_buf, void* y_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, int L, float eps, int fast_gelu,
     void* stream) {
-  if (L <= 0 || !layer_shape_ok(B, S, D, H, MLP, 0)) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || !layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t M = (size_t)B * S;
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
@@ -80,7 +80,7 @@ extern "C" int vit2spn_backbone_fwd_f32(
     const void* w1, const void* b1, const void* w2, const void* b2,
     void* y_buf, void* qkv_buf, void* att_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, int L, float eps, int fast_gelu, void* stream) {
-  if (L <= 0 || !layer_shape_ok(B, S, D, H, MLP, 1)) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || !layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t M = (size_t)B * S;
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,

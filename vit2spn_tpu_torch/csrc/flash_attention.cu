@@ -75,14 +75,15 @@
 // Above 256 keys the warp's row of scores no longer fits its registers: bf16
 // inputs take the wgmma multi-pass route of csrc/long_attention.cuh (the
 // same function, P and dS in two bf16 terms, the same two-launch backward
-// with the same row statistics, kept per 64-query chunk), fp32 inputs are
-// refused (a later slice).
+// with the same row statistics, kept per 64-query chunk), fp32 inputs the
+// multi-pass route of csrc/flash_f32.cuh (256-key chunks on the CUDA cores,
+// the row statistics through the same workspace).
 //
 // Layout: q, k, v are read in place through strides, as the views the split
 // of the block's (B, S, 3D) qkv gives them: element (b, s, h, d) at
 // b * bs + s * ts + h * 64 + d. o, dO, dq, dk and dv are contiguous (B, S, H,
-// 64). Limits: head_dim 64, S <= 256 in fp32; bf16 rows start on 16 bytes
-// (ts and bs multiples of 8), fp32 rows on 8.
+// 64). Limits: head_dim 64; bf16 rows start on 16 bytes (ts and bs
+// multiples of 8), fp32 rows on 8.
 
 #include <type_traits>
 
@@ -457,7 +458,7 @@ static int by_key_tiles(int S, F&& f) {
 // rows start on 16 bytes for the bf16 kernels' cp.async, on 8 for fp32 float2
 static bool bad_shape(int B, int S, int H, long long bs, long long ts, int fp32) {
   const int align = fp32 ? 2 : 8;
-  return B <= 0 || S <= 0 || (fp32 && S > FA_MAX_S) || H <= 0 || ts < (long long)H * FA_DH ||
+  return B <= 0 || S <= 0 || H <= 0 || ts < (long long)H * FA_DH ||
          bs < (long long)S * ts || ts % align || (B > 1 && bs % align);
 }
 
@@ -533,7 +534,9 @@ extern "C" int vit2spn_flash_bwd(const void* q, const void* k, const void* v,
                   S, H, bs, ts, scale, st);
 }
 
-// the row statistics between the two backward launches
+// the row statistics between the two backward launches (above FA_MAX_S the
+// bf16 route's 3 x 64 floats a 64-query chunk, which also holds the fp32
+// route's 3 a query)
 extern "C" long long vit2spn_flash_bwd_workspace_floats(int B, int S, int H) {
   return S > FA_MAX_S ? long_flash_bwd_ws_floats(B, S, H) : (long long)B * H * S * 3;
 }

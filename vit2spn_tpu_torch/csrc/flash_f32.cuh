@@ -16,8 +16,10 @@
 // (bs, ts) strides (element (b, s, h, d) at b * bs + s * ts + h * 64 + d), so
 // they may be strided views of a fused (B, S, 3D) qkv; o and dO are (B, S, H,
 // 64) contiguous; dq, dk, dv have rows gts apart (H * 64, or 3 D when they are
-// the thirds of a dqkv). Limits: head_dim 64, S <= 256, input rows on 8
-// bytes, output rows on 16.
+// the thirds of a dqkv). Limits: head_dim 64, input rows on 8 bytes, output
+// rows on 16. Up to FA_MAX_S (256) keys a warp holds its rows' whole row of
+// scores in registers (the kernels below); above it the multi-pass route at
+// the end of this file takes any S.
 
 #pragma once
 
@@ -388,11 +390,416 @@ flash_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// Above FA_MAX_S keys: several passes over 256-key chunks
+// ---------------------------------------------------------------------------
+//
+// Replaces, for fp32 sequences longer than the row of scores a warp's
+// registers hold (384 px images: S = 577; the folder datasets at 256 px: S =
+// 257), the attention of the Pallas kernels the kernels above replace
+// (vit2spn_tpu/ops/fused_block.py::_attention inside _backbone_fwd_kernel and
+// _fwd_kernel, ::_attention_bwd inside _attn_bwd_kernel and
+// _merged_bwd_kernel, vit2spn_tpu/ops/flash_attention.py::_fwd_kernel and
+// ::_bwd_kernel), which pad the sequence and take the softmax over the whole
+// padded row at once. The function and its rounding points are the ones
+// above, per (image, head), in fp32 FMAs on the CUDA cores:
+//
+//   s = (q . k, dh ascending) * 1/8 (__fmul_rn), keys >= S at -1e30
+//   m = the row max over ALL keys;  l = sum of exp(s - m);  p = exp(s - m) / l
+//   o = p v;  dV = p^T dO;  dP = dO v^T;  dS = p (dP - rowsum(dP p))
+//   dQ = dS k / 8;  dK = dS^T q / 8;  queries >= S out of dK and dV
+//
+// A running-max (online) softmax would rescale partial sums and round at
+// other points: a different function. So p is formed only once m and l over
+// every key are known, and nothing a row holds between passes is rescaled.
+// The keys (the queries, in the key-major phase) come in chunks of LF_CHUNK
+// = 256, so that the register tile of dot_rows serves each chunk as it
+// serves a whole row above; nothing of a row's scores is kept between
+// passes, and the row statistics pass through device memory, so S is not
+// bounded. Per 64-query block (8 rows a warp):
+//
+//   forward    pass 1  s of every chunk: m
+//              pass 2  s again: l
+//              pass 3  s again and p, o += p v
+//   rows phase passes 1 and 2; pass 3: s and dP, dot = rowsum(dP p);
+//   (launch 1) pass 4: s and dP, dS, dQ += dS k; m, l and dot to ws
+//   cols phase per 64 keys, every 256-query chunk of Q and dO: s^T and dP^T,
+//   (launch 2) p and dS from each query's m, l, dot (ws), dV += p^T dO,
+//              dK += dS^T q
+//
+// The orders of the sums, fixed, so that two runs give the same bits: the
+// scores as dot_rows sums them (every pass and both phases recompute the
+// same bits: the key-major phase's k . q multiplies the same pairs in the
+// same order); the max in any order (it is exact); l and dot per chunk as
+// softmax_rows sums a row (a lane over its columns 32 j + lane, j
+// ascending, then warp_sum), the chunks' sums added in chunk order from 0;
+// o, dQ, dV and dK per chunk as `product` sums (columns ascending from 0),
+// the chunks' partial tiles added in chunk order from 0. The kernels above
+// are left as they were; this route calls their helpers unchanged.
+//
+// What bounds it on this card: every product and every recomputed score is
+// an fp32 FMA on the CUDA cores (67 TFLOP/s). At S = 577 the function's
+// products are 2 S^2 64 a (image, head) each, 2 in the forward and 5 in the
+// backward; the passes run 4 (the forward) and 7 + 4 (the backward's two
+// launches) of that size, beside an expf per score and pass, and an IEEE
+// division per score in the passes that form p. Shared memory (two 256-row chunk buffers of
+// 68 floats a row: 139 KB) leaves one block of 8 warps an SM: the forward's
+// pass 3 stages the next K chunk while the product with V runs, the
+// statistics passes double-buffer K, the backward stages K (or Q) and V (or
+// dO) in two groups and starts on the first while the second lands.
+
+#define LF_CHUNK FA_MAX_S  // keys (queries, in the key-major phase) per staged chunk
+#define LF_BUF (LF_CHUNK * FA_LD)  // floats of one chunk buffer
+
+__device__ __forceinline__ int lf_chunks(int S) { return (S + LF_CHUNK - 1) / LF_CHUNK; }
+
+// rows of chunk c that are below S
+__device__ __forceinline__ int lf_rows(int c, int S) {
+  return min(LF_CHUNK, S - c * LF_CHUNK);
+}
+
+// Rows c * LF_CHUNK .. of a (image, head) into a chunk buffer (rows >= S
+// zeros), committed as one cp.async group
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src, long long ts, int c,
+                                            int S) {
+  stage<FA_LD>(dst, src, ts, c * LF_CHUNK, padded(lf_rows(c, S)), S);
+  cp_async_commit();
+}
+
+// the chunk's scores (dot_rows' tile over its n keys) scaled, keys >= n at
+// -1e30, as softmax_rows takes them
+__device__ __forceinline__ void scale_scores(float s[FA_RW][FA_NJ], float scale, int n,
+                                             int lane) {
+#pragma unroll
+  for (int i = 0; i < FA_RW; ++i)
+#pragma unroll
+    for (int j = 0; j < FA_NJ; ++j)
+      s[i][j] = (32 * j + lane < n) ? __fmul_rn(s[i][j], scale) : NEG_INF;
+}
+
+// scaled scores to p = exp(s - m) / l, in place
+__device__ __forceinline__ void probs(float s[FA_RW][FA_NJ], const float mx[FA_RW],
+                                      const float l[FA_RW]) {
+#pragma unroll
+  for (int i = 0; i < FA_RW; ++i)
+#pragma unroll
+    for (int j = 0; j < FA_NJ; ++j) s[i][j] = expf(__fsub_rn(s[i][j], mx[i])) / l[i];
+}
+
+__device__ __forceinline__ void add_tile(float acc[4][4], const float part[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] += part[r][e];
+}
+
+// Passes 1 and 2: the max m and the sum l of the warp's 8 rows (Qw, stride
+// FA_DH, already staged or in a committed group) over every key, the K
+// chunks double-buffered in buf0 and buf1. Every thread of the block calls
+// it (staging, barriers); `live` warps compute.
+__device__ __forceinline__ void row_stats(float mx[FA_RW], float l[FA_RW], const float* Qw,
+                                          float* buf0, float* buf1, const float* kh,
+                                          long long ts, int S, float scale, bool live,
+                                          int lane) {
+  const int nc = lf_chunks(S);
+#pragma unroll
+  for (int i = 0; i < FA_RW; ++i) {
+    mx[i] = -3.0e38f;
+    l[i] = 0.0f;
+  }
+  for (int pass = 0; pass < 2; ++pass) {
+    stage_chunk(buf0, kh, ts, 0, S);
+    for (int c = 0; c < nc; ++c) {
+      if (c + 1 < nc) {
+        stage_chunk(c & 1 ? buf0 : buf1, kh, ts, c + 1, S);
+        stage_wait_first();
+      } else {
+        stage_wait();
+      }
+      if (live) {
+        const int n = lf_rows(c, S);
+        float s[FA_RW][FA_NJ];
+        dot_rows(s, Qw, c & 1 ? buf1 : buf0, n, lane);
+        scale_scores(s, scale, n, lane);
+#pragma unroll
+        for (int i = 0; i < FA_RW; ++i) {
+          if (pass == 0) {
+#pragma unroll
+            for (int j = 0; j < FA_NJ; ++j) mx[i] = fmaxf(mx[i], s[i][j]);
+          } else {
+            float t = 0.0f;
+#pragma unroll
+            for (int j = 0; j < FA_NJ; ++j) t += expf(__fsub_rn(s[i][j], mx[i]));
+            l[i] += warp_sum(t);
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with this buffer
+    }
+    if (pass == 0 && live) {
+#pragma unroll
+      for (int i = 0; i < FA_RW; ++i) mx[i] = warp_max(mx[i]);
+    }
+  }
+}
+
+// Shared memory: two chunk buffers, the block's 64-row tiles (queries, dO;
+// keys, values), the per-warp slabs, and in the cols phase three statistics
+// of each query of a chunk
+static size_t long_f32_smem(int tiles, int stats) {
+  return (size_t)2 * LF_BUF * 4 + (size_t)tiles * FA_ROWS * FA_DH * 4 +
+         (size_t)stats * LF_CHUNK * 4 + (size_t)FA_WARPS * FA_RW * 32 * 4;
+}
+
+// Forward: one block per 64 queries of one (image, head)
+__global__ void __launch_bounds__(FA_WARPS * 32, 1)
+long_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int S, int H,
+                    long long bs, long long ts, float scale) {
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  float* Ks = reinterpret_cast<float*>(fa_smem);  // K chunks (both buffers in passes 1, 2)
+  float* Vs = Ks + LF_BUF;                        // V chunks
+  float* Qs = Vs + LF_BUF;
+  float* slabs = Qs + FA_ROWS * FA_DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * FA_ROWS;
+  const long long head = (long long)b * bs + h * FA_DH;
+  const int w0 = r0 + warp * FA_RW;
+  const bool live = w0 < S;  // a warp past S only helps stage
+  const float* Qw = Qs + warp * FA_RW * FA_DH;
+  stage<FA_DH>(Qs, q + head, ts, r0, FA_ROWS, S);
+  cp_async_commit();
+  float mx[FA_RW], l[FA_RW];
+  row_stats(mx, l, Qw, Ks, Vs, k + head, ts, S, scale, live, lane);
+  // pass 3: the next K chunk lands while the product with this V runs
+  const int nc = lf_chunks(S);
+  float acc[4][4] = {}, part[4][4];
+  stage_chunk(Ks, k + head, ts, 0, S);
+  stage_chunk(Vs, v + head, ts, 0, S);
+  for (int c = 0; c < nc; ++c) {
+    const int n = lf_rows(c, S);
+    stage_wait_first();  // K of chunk c (V of it may still be in flight)
+    float p[FA_RW][FA_NJ];
+    if (live) {
+      dot_rows(p, Qw, Ks, n, lane);
+      scale_scores(p, scale, n, lane);
+      probs(p, mx, l);
+    }
+    __syncthreads();  // every warp is done with K
+    if (c + 1 < nc) {  // V of chunk c lands
+      stage_chunk(Ks, k + head, ts, c + 1, S);
+      stage_wait_first();
+    } else {
+      stage_wait();
+    }
+    if (live) {
+      product(part, p, slabs + warp * FA_RW * 32, Vs, n, lane);
+      add_tile(acc, part);
+    }
+    __syncthreads();  // every warp is done with V
+    if (c + 1 < nc) stage_chunk(Vs, v + head, ts, c + 1, S);
+  }
+  if (!live) return;
+  const long long ots = (long long)H * FA_DH;
+  store_tile(o + (long long)b * S * ots + h * FA_DH, ots, acc, 1.0f, w0, S, lane);
+}
+
+// Backward, phase 1: one block per 64 queries: the statistics and dQ
+__global__ void __launch_bounds__(FA_WARPS * 32, 1)
+long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         float* __restrict__ dq, float* __restrict__ stats, int S, int H,
+                         long long bs, long long ts, long long gts, float scale) {
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  float* Ks = reinterpret_cast<float*>(fa_smem);  // K chunks (both buffers in passes 1, 2)
+  float* Vs = Ks + LF_BUF;                        // V chunks
+  float* Qs = Vs + LF_BUF;
+  float* Os = Qs + FA_ROWS * FA_DH;  // dO of this block's queries
+  float* slabs = Os + FA_ROWS * FA_DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * FA_ROWS;
+  const long long head = (long long)b * bs + h * FA_DH;
+  const long long ots = (long long)H * FA_DH;
+  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const int w0 = r0 + warp * FA_RW;
+  const bool live = w0 < S;  // a warp past S only helps stage
+  const float* Qw = Qs + warp * FA_RW * FA_DH;
+  const float* Ow = Os + warp * FA_RW * FA_DH;
+  stage<FA_DH>(Qs, q + head, ts, r0, FA_ROWS, S);
+  stage<FA_DH>(Os, dout + ohead, ots, r0, FA_ROWS, S);
+  cp_async_commit();
+  float mx[FA_RW], l[FA_RW], dot[FA_RW] = {};
+  row_stats(mx, l, Qw, Ks, Vs, k + head, ts, S, scale, live, lane);
+  // pass 3: dot = rowsum(dP p); pass 4: dS and dQ. The scores start on K
+  // while V lands
+  const int nc = lf_chunks(S);
+  float acc[4][4] = {}, part[4][4];
+  for (int pass = 3; pass <= 4; ++pass) {
+    for (int c = 0; c < nc; ++c) {
+      const int n = lf_rows(c, S);
+      stage_chunk(Ks, k + head, ts, c, S);
+      stage_chunk(Vs, v + head, ts, c, S);
+      stage_wait_first();
+      float p[FA_RW][FA_NJ], dp[FA_RW][FA_NJ];
+      if (live) {
+        dot_rows(p, Qw, Ks, n, lane);
+        scale_scores(p, scale, n, lane);
+        probs(p, mx, l);
+      }
+      stage_wait();
+      if (live) {
+        dot_rows(dp, Ow, Vs, n, lane);
+#pragma unroll
+        for (int i = 0; i < FA_RW; ++i) {
+          if (pass == 3) {
+            float t = 0.0f;
+#pragma unroll
+            for (int j = 0; j < FA_NJ; ++j) t += dp[i][j] * p[i][j];
+            dot[i] += warp_sum(t);
+          } else {
+#pragma unroll
+            for (int j = 0; j < FA_NJ; ++j) dp[i][j] = p[i][j] * (dp[i][j] - dot[i]);  // dS
+          }
+        }
+        if (pass == 4) {
+          product(part, dp, slabs + warp * FA_RW * 32, Ks, n, lane);
+          add_tile(acc, part);
+        }
+      }
+      __syncthreads();  // every warp is done with both buffers
+    }
+  }
+  if (!live) return;
+  store_tile(dq + (long long)b * S * gts + h * FA_DH, gts, acc, scale, w0, S, lane);
+  if (lane == 0) {
+    float* st = stats + ((long long)(b * H + h) * S) * 3;
+#pragma unroll
+    for (int i = 0; i < FA_RW; ++i) {
+      if (w0 + i < S) {
+        st[(w0 + i) * 3 + 0] = mx[i];
+        st[(w0 + i) * 3 + 1] = l[i];
+        st[(w0 + i) * 3 + 2] = dot[i];
+      }
+    }
+  }
+}
+
+// Backward, phase 2: one block per 64 keys, every query in 256-query
+// chunks: dK and dV
+__global__ void __launch_bounds__(FA_WARPS * 32, 1)
+long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ stats, float* __restrict__ dk,
+                         float* __restrict__ dv, int S, int H, long long bs, long long ts,
+                         long long gts, float scale) {
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  float* Qc = reinterpret_cast<float*>(fa_smem);  // a chunk of queries
+  float* Oc = Qc + LF_BUF;                        // their dO
+  float* Kt = Oc + LF_BUF;                        // this block's keys
+  float* Vt = Kt + FA_ROWS * FA_DH;
+  float* rmax = Vt + FA_ROWS * FA_DH;
+  float* rsum = rmax + LF_CHUNK;
+  float* rdot = rsum + LF_CHUNK;
+  float* slab = rdot + LF_CHUNK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * FA_ROWS;
+  const long long head = (long long)b * bs + h * FA_DH;
+  const long long ots = (long long)H * FA_DH;
+  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const int w0 = r0 + warp * FA_RW;
+  const bool live = w0 < S;  // a warp past S only helps stage
+  const float* Kw = Kt + warp * FA_RW * FA_DH;
+  const float* Vw = Vt + warp * FA_RW * FA_DH;
+  slab += warp * FA_RW * 32;
+  stage<FA_DH>(Kt, k + head, ts, r0, FA_ROWS, S);
+  stage<FA_DH>(Vt, v + head, ts, r0, FA_ROWS, S);
+  cp_async_commit();
+  const float* st = stats + ((long long)(b * H + h) * S) * 3;
+  const int nc = lf_chunks(S);
+  float adk[4][4] = {}, adv[4][4] = {}, part[4][4];
+  for (int c = 0; c < nc; ++c) {
+    const int n = lf_rows(c, S), q0 = c * LF_CHUNK;
+    // the queries first: P^T runs while dO lands
+    stage_chunk(Qc, q + head, ts, c, S);
+    stage_chunk(Oc, dout + ohead, ots, c, S);
+    for (int i = threadIdx.x; i < LF_CHUNK; i += blockDim.x) {  // pad queries: inert
+      rmax[i] = i < n ? st[(q0 + i) * 3 + 0] : 0.0f;
+      rsum[i] = i < n ? st[(q0 + i) * 3 + 1] : 1.0f;
+      rdot[i] = i < n ? st[(q0 + i) * 3 + 2] : 0.0f;
+    }
+    stage_wait_first();
+    // P^T and dP^T: rows are this warp's keys, columns the queries 32 j + lane
+    float p[FA_RW][FA_NJ], ds[FA_RW][FA_NJ];
+    if (live) {
+      dot_rows(p, Kw, Qc, n, lane);
+#pragma unroll
+      for (int j = 0; j < FA_NJ; ++j) {
+        const int cq = 32 * j + lane;
+        const bool ok = cq < n;
+        const float m = rmax[ok ? cq : 0], l = rsum[ok ? cq : 0];
+#pragma unroll
+        for (int i = 0; i < FA_RW; ++i)  // the scores and p of phase 1, bit for bit
+          p[i][j] = ok ? expf(__fsub_rn(__fmul_rn(p[i][j], scale), m)) / l : 0.0f;
+      }
+    }
+    stage_wait();
+    if (live) {
+      dot_rows(ds, Vw, Oc, n, lane);
+#pragma unroll
+      for (int j = 0; j < FA_NJ; ++j) {
+        const float dt = rdot[32 * j + lane < n ? 32 * j + lane : 0];
+#pragma unroll
+        for (int i = 0; i < FA_RW; ++i) ds[i][j] = p[i][j] * (ds[i][j] - dt);
+      }
+      product(part, p, slab, Oc, n, lane);  // dV += P^T dO
+      add_tile(adv, part);
+      product(part, ds, slab, Qc, n, lane);  // dK += dS^T q
+      add_tile(adk, part);
+    }
+    __syncthreads();  // every warp is done with the chunk and its statistics
+  }
+  if (!live) return;
+  const long long ghead = (long long)b * S * gts + h * FA_DH;
+  store_tile(dv + ghead, gts, adv, 1.0f, w0, S, lane);
+  store_tile(dk + ghead, gts, adk, scale, w0, S, lane);
+}
+
+static int long_fwd_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
+                        int H, long long bs, long long ts, float scale, cudaStream_t st) {
+  const size_t smem = long_f32_smem(1, 0);
+  LAUNCH(set_smem(long_fwd_f32_kernel, smem));
+  const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
+  long_fwd_f32_kernel<<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, o, S, H, bs, ts, scale);
+  return (int)cudaGetLastError();
+}
+
+// two launches, the statistics through ws (B * H * S * 3 floats)
+static int long_bwd_f32(const float* q, const float* k, const float* v, const float* dout,
+                        float* dq, float* dk, float* dv, float* ws, int B, int S, int H,
+                        long long bs, long long ts, long long gts, float scale,
+                        cudaStream_t st) {
+  const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
+  size_t smem = long_f32_smem(2, 0);
+  LAUNCH(set_smem(long_bwd_rows_f32_kernel, smem));
+  long_bwd_rows_f32_kernel<<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H, bs,
+                                                              ts, gts, scale);
+  LAUNCH((int)cudaGetLastError());
+  smem = long_f32_smem(2, 3);
+  LAUNCH(set_smem(long_bwd_cols_f32_kernel, smem));
+  long_bwd_cols_f32_kernel<<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, ws, dk, dv, S, H,
+                                                              bs, ts, gts, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Launches on the caller's stream
 // ---------------------------------------------------------------------------
 
 static int fwd_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
                    int H, long long bs, long long ts, float scale, cudaStream_t st) {
+  if (S > FA_MAX_S) return long_fwd_f32(q, k, v, o, B, S, H, bs, ts, scale, st);
   const size_t smem = fwd_smem(S);
   LAUNCH(set_smem(flash_fwd_kernel, smem));
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
@@ -403,6 +810,8 @@ static int fwd_f32(const float* q, const float* k, const float* v, float* o, int
 static int bwd_f32(const float* q, const float* k, const float* v, const float* dout,
                    float* dq, float* dk, float* dv, float* ws, int B, int S, int H,
                    long long bs, long long ts, long long gts, float scale, cudaStream_t st) {
+  if (S > FA_MAX_S)
+    return long_bwd_f32(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
   size_t smem = bwd_rows_smem(S);
   LAUNCH(set_smem(flash_bwd_rows_kernel, smem));

@@ -16,8 +16,8 @@
 // the backbone kernel's output bit for bit. x2 is written as bf16 by the same
 // epilogue that writes the backbone's x2s stack. fp32 (compute_dtype=
 // float32): the seven-launch CUDA-core layer of csrc/layer_fwd_f32.cuh, the
-// backbone's fp32 layer code. Limits: head_dim 64, S <= 256 in fp32, D <=
-// 768, D and mlp multiples of 64.
+// backbone's fp32 layer code. Limits: head_dim 64, D <= 768, D and mlp
+// multiples of 64.
 
 #include "layer_fwd.cuh"
 #include "layer_fwd_f32.cuh"
@@ -33,7 +33,7 @@ extern "C" int vit2spn_layer_fwd(
     const void* w1, const void* b1, const void* w2, const void* b2,
     void* qkv_buf, void* att_buf, void* y_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, float eps, int fast_gelu, void* stream) {
-  if (!layer_shape_ok(B, S, D, H, MLP, 0)) return (int)cudaErrorInvalidValue;
+  if (!layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
                        ln2_scale, ln2_bias, w1, b1, w2, b2};
@@ -61,6 +61,17 @@ extern "C" int vit2spn_attention_stage(const void* qkv, void* att, int B, int S,
   return launch_layer_attention(mp, B, S, D, H, static_cast<cudaStream_t>(stream));
 }
 
+// The fp32 layer's attention stage alone (csrc/flash_f32.cuh, as
+// launch_layer_f32 makes it): att (B * S, D) from qkv (B * S, 3 D), fp32
+extern "C" int vit2spn_attention_stage_f32(const void* qkv, void* att, int B, int S, int H,
+                                           int D, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
+  const float* q = static_cast<const float*>(qkv);
+  const long long ts = 3LL * D;
+  return fwd_f32(q, q + D, q + 2 * D, static_cast<float*>(att), B, S, H, S * ts, ts,
+                 1.0f / sqrtf((float)FA_DH), static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int vit2spn_layer_fwd_launches(int D, int fp32) {
   return fp32 ? LAYER_F32_LAUNCHES : launches_per_layer(D);
 }
@@ -74,7 +85,7 @@ extern "C" int vit2spn_layer_fwd_f32(
     const void* w1, const void* b1, const void* w2, const void* b2,
     void* y_buf, void* qkv_buf, void* att_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, float eps, int fast_gelu, void* stream) {
-  if (!layer_shape_ok(B, S, D, H, MLP, 1)) return (int)cudaErrorInvalidValue;
+  if (!layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
                        ln2_scale, ln2_bias, w1, b1, w2, b2};
   return launch_layer_f32(static_cast<const float*>(x), static_cast<float*>(out), nullptr,

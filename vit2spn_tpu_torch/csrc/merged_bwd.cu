@@ -51,7 +51,7 @@
 // dx2 crosses from the MLP half to the attention half through device memory
 // in the compute dtype, as the split path hands it over.
 //
-// Limits: head_dim 64, S <= 256 in fp32 (bf16: 15,168), D <= 768, D and mlp
+// Limits: head_dim 64, S <= 15,168 in bf16 (any in fp32), D <= 768, D and mlp
 // multiples of 64, activations and matmul weights all bf16 or all fp32, fp32
 // LN parameters.
 
@@ -109,8 +109,8 @@ extern "C" int vit2spn_merged_bwd(
     void* y1_buf, void* y2_buf, void* qkv_buf, void* datt_buf, void* att_buf, void* dqkv_buf,
     void* g_buf, void* gg_buf, void* dx2_buf, void* dy_buf, void* ws_buf,
     int B, int S, int D, int H, int MLP, float eps, int fast_gelu, int fp32, void* stream) {
-  if (B <= 0 || S <= 0 || (fp32 && S > FA_MAX_S) || H <= 0 || D != H * DH || D > LN_MAX_D || D % 64 ||
-      MLP <= 0 || MLP % 64)
+  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH || D > LN_MAX_D || D % 64 || MLP <= 0 ||
+      MLP % 64)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   MlpBwdArgs m = {x2, dout, ln2_scale, ln2_bias, w1, b1, w2, dx2_buf, gln2_scale, gln2_bias,

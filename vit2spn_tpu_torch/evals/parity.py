@@ -127,21 +127,17 @@ def smoke_vit_config():
 def runbook_attn_impl(vit_cfg, device, compute_dtype: str = "bfloat16") -> str:
     """The runbook's backbone path: "fused" where the kernels take the
     geometry (head_dim 64, D and mlp multiples of 64, D within the kernels'
-    limits; any S in bf16, S <= KERNEL_MAX_SEQ in fp32) or the device is not
-    CUDA (the CPU runs their plain twins, which take any geometry); else
-    "xla"."""
+    limits; any S) or the device is not CUDA (the CPU runs their plain
+    twins, which take any geometry); else "xla". The kernels take both
+    compute dtypes at every S, so `compute_dtype` does not change the
+    choice."""
     import torch
 
-    from vit2spn_tpu_torch.ops.fused_block import (
-        KERNEL_HEAD_DIM,
-        KERNEL_MAX_D,
-        KERNEL_MAX_SEQ,
-    )
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_HEAD_DIM, KERNEL_MAX_D
 
     d = vit_cfg.hidden_size
     takes = (vit_cfg.head_dim == KERNEL_HEAD_DIM and d % 64 == 0 and d <= KERNEL_MAX_D
-             and vit_cfg.mlp_dim % 64 == 0
-             and (compute_dtype != "float32" or vit_cfg.seq_len <= KERNEL_MAX_SEQ))
+             and vit_cfg.mlp_dim % 64 == 0)
     return "fused" if takes or torch.device(device).type != "cuda" else "xla"
 
 

@@ -41,16 +41,15 @@ from vit2spn_tpu_torch.ops.fused_block import (
     _load,
     _raise_on,
     _stream,
-    check_seq_len,
     count_long_seq,
 )
 
 # the Pallas kernels' key mask
 NEG_INF = -1e30
 KERNEL_NAME = "flash_attention"
-# what csrc/flash_attention.cu takes: head_dim 64, any S in bf16 (above
-# KERNEL_MAX_SEQ the multi-pass route of csrc/long_attention.cuh), S <=
-# KERNEL_MAX_SEQ in fp32
+# what csrc/flash_attention.cu takes: head_dim 64, any S (above
+# KERNEL_MAX_SEQ the multi-pass routes of csrc/long_attention.cuh in bf16 and
+# csrc/flash_f32.cuh in fp32)
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_SEQ = 256
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -89,10 +88,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the kernels take: q, k, v of one shape (B, S, H, 64) (S <= 256
-    in fp32), one dtype (bf16 or fp32), one device and one set of strides,
-    each head's 64 values contiguous and the heads of a token side by
-    side."""
+    """What the kernels take: q, k, v of one shape (B, S, H, 64) (any S),
+    one dtype (bf16 or fp32), one device and one set of strides, each head's
+    64 values contiguous and the heads of a token side by side."""
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash attention kernel takes bf16 or fp32, got {q.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -105,7 +103,6 @@ def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
     b, s, h, dh = q.shape
     if dh != KERNEL_HEAD_DIM:
         raise ValueError(f"flash attention kernel needs head_dim {KERNEL_HEAD_DIM}, got {dh}")
-    check_seq_len(s, q.dtype, "flash attention")
     bs, ts, hs, ds = q.stride()
     if ds != 1 or (h > 1 and hs != dh) or ts < h * dh or (b > 1 and bs < s * ts):
         raise ValueError("flash attention kernel needs each token's heads side by side "

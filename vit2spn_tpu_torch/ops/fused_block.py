@@ -63,8 +63,8 @@ WEIGHT_NAMES = (
 KERNEL_NAME = "backbone_fwd"
 # what csrc/backbone_fwd.cu takes: head_dim 64, a LayerNorm row of D values
 # (D <= 768). Its attention holds a row of scores in registers up to
-# KERNEL_MAX_SEQ keys; bf16 above it takes the multi-pass route of
-# csrc/long_attention.cuh, fp32 has no such route
+# KERNEL_MAX_SEQ keys; above it bf16 takes the multi-pass routes of
+# csrc/long_attention.cuh, fp32 those of csrc/flash_f32.cuh
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_SEQ = 256
 # the longest S of that route's backward core, which keeps three fp32
@@ -385,18 +385,13 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def check_seq_len(s: int, dtype: torch.dtype, what: str, core: bool = False) -> None:
-    """The attention kernels' sequence limits: any S in bf16 (above
-    KERNEL_MAX_SEQ through csrc/long_attention.cuh), except S <=
-    LONG_CORE_MAX_SEQ for the backward's attention core (`core`: the layer
-    backwards), whose statistics fill the shared memory there; S <=
-    KERNEL_MAX_SEQ in fp32, whose attention core (csrc/flash_f32.cuh) holds a
-    row of scores in registers and has no longer route yet."""
-    if dtype == torch.float32 and s > KERNEL_MAX_SEQ:
-        raise ValueError(
-            f"{what} kernel takes S <= {KERNEL_MAX_SEQ} in fp32, got {s}: fp32 attention "
-            "above 256 tokens is a later slice of the port (ROADMAP Queue 1 item 6); bf16 "
-            "takes it")
-    if core and s > LONG_CORE_MAX_SEQ:
+    """The attention kernels' sequence limit: any S (above KERNEL_MAX_SEQ
+    through the multi-pass routes of csrc/long_attention.cuh in bf16 and
+    csrc/flash_f32.cuh in fp32), except S <= LONG_CORE_MAX_SEQ for the bf16
+    backward's attention core (`core`: the layer backwards), whose
+    statistics fill the shared memory there. The fp32 routes keep theirs in
+    device memory."""
+    if core and dtype == torch.bfloat16 and s > LONG_CORE_MAX_SEQ:
         raise ValueError(
             f"{what} kernel takes S <= {LONG_CORE_MAX_SEQ} in bf16, got {s}: its attention "
             "core keeps three fp32 statistics a query in one block's shared memory "
@@ -497,6 +492,7 @@ _SIGNATURES = {
         "vit2spn_attn_bwd_workspace_floats": ([_I] * 5, _LL),
         "vit2spn_attn_bwd_launches": ([_I] * 2, _I),
         "vit2spn_attention_core": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "vit2spn_attention_core_f32": ([_P] * 5 + [_I] * 4 + [_P], _I),
         "vit2spn_attention_core_max_seq": ([], _I),
         "vit2spn_long_scores_probe": ([_P] * 5, _I),
         "vit2spn_long_quotient_probe": ([_LL, _P, _P], _I),
@@ -507,6 +503,7 @@ _SIGNATURES = {
         "vit2spn_layer_fwd_launches": ([_I] * 2, _I),
         "vit2spn_layer_fwd_smem_bytes": ([_I] * 3, _I),
         "vit2spn_attention_stage": ([_P] * 2 + [_I] * 4 + [_P], _I),
+        "vit2spn_attention_stage_f32": ([_P] * 2 + [_I] * 4 + [_P], _I),
     },
     "merged_bwd": {
         "vit2spn_merged_bwd": ([_P] * 37 + [_I] * 5 + [_F, _I, _I, _P], _I),
@@ -541,8 +538,9 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
-# CUDA launches of csrc/long_attention.cuh's routes (S > KERNEL_MAX_SEQ, bf16),
-# by route, counted by the wrappers that make them beside their own counts:
+# CUDA launches of the attention routes above KERNEL_MAX_SEQ keys (bf16:
+# csrc/long_attention.cuh; fp32: csrc/flash_f32.cuh's multi-pass route), by
+# route, counted by the wrappers that make them beside their own counts:
 # the forward layer's attention stage (one a layer), the backward's attention
 # core (one per attn_bwd or merged_bwd call), the flash forward and backward
 # (one per call, the backward's two CUDA launches counted once)
@@ -551,7 +549,7 @@ LONG_SEQ_LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0, "flash_fwd": 0, "fl
 
 def count_long_seq(route: str, s: int, n: int = 1) -> None:
     """Count `n` launches of a long-sequence route when S is above
-    KERNEL_MAX_SEQ (only bf16 gets there on the card)."""
+    KERNEL_MAX_SEQ, in bf16 or fp32."""
     if s > KERNEL_MAX_SEQ:
         LONG_SEQ_LAUNCHES[route] += n
 
