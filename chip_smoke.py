@@ -3515,24 +3515,37 @@ def long_seq_path(fb, fa, card, dev) -> list:
 # error at most KERNEL_VS_FP32_RATIO times the twin's plus FP32_VS_FP64_SLACK;
 # the flash pair within FLASH_FP32_VS_FP64_TOL) at LONG_SEQS and LONG_WIDTHS,
 # with phase 15's bit checks; and the four one-layer kernels' fp32 routes
-# and a 2-layer fp32 fused_backbone through the wrappers the same way.
+# and a 2-layer fp32 fused_backbone through the wrappers the same way. Up to
+# FP32_ONEPASS_MAX_S keys the routes run flash_f32.cuh's one-pass kernels,
+# which form the multi-pass route's p bit for bit and sum the products with
+# p and dS in another order: at FP32_ONEPASS_SEQS the stage and the core are
+# held against the multi-pass route (forced through the C entries'
+# `multipass` argument) and float64 (check_onepass_vs_multipass); and the
+# multi-pass route, which takes S above it, is held at FP32_MULTIPASS_SEQ
+# the same way as the LONG_SEQS (twins, float64, bits).
+FP32_ONEPASS_MAX_S = 1152  # flash_f32.cuh OP_MAX_S
+FP32_ONEPASS_SEQS = (577, 1024)
+FP32_MULTIPASS_SEQ = (1200, 1)  # (S, B), at LONG_WIDTHS[0]
 
 
-def attention_stage_f32_call(fb, qkv, heads):
+def attention_stage_f32_call(fb, qkv, heads, multipass=False):
     """The fp32 forward layer's attention stage alone (csrc/layer_fwd.cu
-    vit2spn_attention_stage_f32): att (B, S, D) from an fp32 qkv (B, S, 3D)."""
+    vit2spn_attention_stage_f32): att (B, S, D) from an fp32 qkv (B, S, 3D);
+    `multipass` forces the multi-pass route above 256 keys."""
     b, s, d3 = qkv.shape
     att = torch.empty((b, s, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     lib = fb._load("layer_fwd")
     fb._raise_on(lib, lib.vit2spn_attention_stage_f32(qkv.data_ptr(), att.data_ptr(), b, s,
-                                                      heads, d3 // 3, fb._stream(qkv.device)),
+                                                      heads, d3 // 3, int(multipass),
+                                                      fb._stream(qkv.device)),
                  "fp32 attention stage")
     return att
 
 
-def attention_core_f32_call(fb, qkv, datt, heads):
+def attention_core_f32_call(fb, qkv, datt, heads, multipass=False):
     """The fp32 backward's attention core alone (csrc/attn_bwd.cu
-    vit2spn_attention_core_f32): (att, dqkv) from qkv and datt."""
+    vit2spn_attention_core_f32): (att, dqkv) from qkv and datt; `multipass`
+    forces the multi-pass route above 256 keys."""
     b, s, d3 = qkv.shape
     att = torch.empty_like(datt)
     dqkv = torch.empty_like(qkv)
@@ -3540,8 +3553,55 @@ def attention_core_f32_call(fb, qkv, datt, heads):
     lib = fb._load("attn_bwd")
     fb._raise_on(lib, lib.vit2spn_attention_core_f32(
         qkv.data_ptr(), datt.data_ptr(), att.data_ptr(), dqkv.data_ptr(), ws.data_ptr(), b, s,
-        heads, d3 // 3, fb._stream(qkv.device)), "fp32 attention core")
+        heads, d3 // 3, int(multipass), fb._stream(qkv.device)), "fp32 attention core")
     return att, dqkv
+
+
+def check_fp32_core_pair(fb, tag, qkv, datt, heads, errs):
+    """Phase 16 (a) at one shape: the fp32 stage and core against their
+    twins and float64 (into `errs`), the core's att equal to the stage's and
+    two core runs equal bit for bit. Returns (stage att, core (att, dqkv))."""
+    d = qkv.shape[-1] // 3
+    thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
+    att_f = attention_stage_f32_call(fb, qkv, heads)
+    core = attention_core_f32_call(fb, qkv, datt, heads)
+    torch.cuda.synchronize()
+    errs["attention_fwd"] = max(errs["attention_fwd"], check_fp32_outputs(
+        "attention-stage-fp32", tag, ("att",), (att_f,), (attention_stage_plain(qkv, heads),),
+        (attention_stage_plain(qkv.double(), heads),), FP32_TOL))
+    errs["attention_bwd"] = max(errs["attention_bwd"], check_fp32_outputs(
+        "attention-core-fp32", tag, ("att", "dq", "dk", "dv"), thirds(core),
+        thirds(fb._attention_bwd(qkv, datt, heads)),
+        thirds(fb._attention_bwd(qkv.double(), datt.double(), heads)), FP32_TOL))
+    again = attention_core_f32_call(fb, qkv, datt, heads)
+    torch.cuda.synchronize()
+    same_att = torch.equal(core[0], att_f)
+    same = torch.equal(again[0], core[0]) and torch.equal(again[1], core[1])
+    log(f"[long-bits] {tag}: core att = stage att bit for bit {same_att}; two core "
+        f"runs equal {same}")
+    if not (same_att and same):
+        raise AssertionError(f"fp32 long attention bits ({tag}): att {same_att}, runs "
+                             f"{same}")
+    return att_f, core
+
+
+def check_onepass_vs_multipass(fb, tag, qkv, datt, heads, att_f, core):
+    """The one-pass route's stage att and core (att, dq, dk, dv) against the
+    multi-pass route's on the same inputs. Both form the same p; the one-pass
+    route sums its products with p and dS in split runs (flash_f32.cuh), the
+    multi-pass route per 256-key chunk, so they differ by fp32
+    reassociation: within FP32_TOL of each other, and the one-pass route as
+    close to float64 as the multi-pass route (check_fp32_outputs, which logs
+    the ratio of their mean errors against float64)."""
+    d = qkv.shape[-1] // 3
+    thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
+    multi_att = attention_stage_f32_call(fb, qkv, heads, multipass=True)
+    multi = attention_core_f32_call(fb, qkv, datt, heads, multipass=True)
+    torch.cuda.synchronize()
+    ref64 = thirds(fb._attention_bwd(qkv.double(), datt.double(), heads))
+    check_fp32_outputs("one-pass-vs-multi-pass", tag, ("stage att", "att", "dq", "dk", "dv"),
+                       (att_f, *thirds(core)), (multi_att, *thirds(multi)),
+                       (ref64[0], *ref64), FP32_TOL)
 
 
 def fp32_long_kernels(fb, fa, dev) -> dict:
@@ -3552,33 +3612,15 @@ def fp32_long_kernels(fb, fa, dev) -> dict:
     errs = {"attention_fwd": 0.0, "attention_bwd": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0}
     for label, d, heads, mlp in LONG_WIDTHS:
         gen = torch.Generator().manual_seed(SEED + 16 + d)
-        thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
         for s, b in LONG_SEQS:
             tag = f"fp32 {label} heads={heads} S={s} B={b}"
             # the stage and the core alone
             qkv = torch.randn(b, s, 3 * d, generator=gen).to(dev)
             datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(dev)
-            att_f = attention_stage_f32_call(fb, qkv, heads)
-            core = attention_core_f32_call(fb, qkv, datt, heads)
-            torch.cuda.synchronize()
-            errs["attention_fwd"] = max(errs["attention_fwd"], check_fp32_outputs(
-                "attention-stage-fp32", tag, ("att",), (att_f,),
-                (attention_stage_plain(qkv, heads),),
-                (attention_stage_plain(qkv.double(), heads),), FP32_TOL))
-            errs["attention_bwd"] = max(errs["attention_bwd"], check_fp32_outputs(
-                "attention-core-fp32", tag, ("att", "dq", "dk", "dv"), thirds(core),
-                thirds(fb._attention_bwd(qkv, datt, heads)),
-                thirds(fb._attention_bwd(qkv.double(), datt.double(), heads)), FP32_TOL))
-            again = attention_core_f32_call(fb, qkv, datt, heads)
-            torch.cuda.synchronize()
-            same_att = torch.equal(core[0], att_f)
-            same = torch.equal(again[0], core[0]) and torch.equal(again[1], core[1])
-            log(f"[long-bits] {tag}: core att = stage att bit for bit {same_att}; two core "
-                f"runs equal {same}")
-            if not (same_att and same):
-                raise AssertionError(f"fp32 long attention bits ({tag}): att {same_att}, runs "
-                                     f"{same}")
-            del qkv, datt, att_f, core, again
+            att_f, core = check_fp32_core_pair(fb, tag, qkv, datt, heads, errs)
+            if s in FP32_ONEPASS_SEQS:
+                check_onepass_vs_multipass(fb, tag, qkv, datt, heads, att_f, core)
+            del qkv, datt, att_f, core
             # the flash pair
             for k_, v_ in check_flash(f"long {tag}", *flash_operands(
                     gen, b, s, heads, torch.float32, dev)).items():
@@ -3616,6 +3658,18 @@ def fp32_long_kernels(fb, fa, dev) -> dict:
             check_merged_bwd(tag, fb, x, x2, g, w, heads, eps, True, True)
             del wt, x, x2, g, w
             torch.cuda.empty_cache()
+    # the multi-pass route above the one-pass route's S
+    (s, b), (label, d, heads, _) = FP32_MULTIPASS_SEQ, LONG_WIDTHS[0]
+    if s <= FP32_ONEPASS_MAX_S:
+        raise AssertionError(f"S = {s} does not reach the multi-pass route")
+    tag = f"fp32 multi-pass {label} heads={heads} S={s} B={b}"
+    gen = torch.Generator().manual_seed(SEED + 16 + s)
+    qkv = torch.randn(b, s, 3 * d, generator=gen).to(dev)
+    datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(dev)
+    check_fp32_core_pair(fb, tag, qkv, datt, heads, errs)
+    for k_, v_ in check_flash(f"long {tag}", *flash_operands(
+            gen, b, s, heads, torch.float32, dev)).items():
+        errs[k_] = max(errs[k_], v_)
     return errs
 
 
@@ -3681,6 +3735,27 @@ def fp32_long_training(card) -> dict:
     return total
 
 
+def multipass_times(fb, card, dev, shapes, times):
+    """Phase 16 (d): the fp32 stage and core forced onto the multi-pass
+    route (the C entries' `multipass`) at `shapes`, CUDA events, beside the
+    one-pass route's times in `times` (long_times)."""
+    for label, b, s, heads in shapes:
+        d = 64 * heads
+        gen = torch.Generator().manual_seed(SEED + s)
+        qkv = torch.randn(b, s, 3 * d, generator=gen).to(dev)
+        datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(dev)
+        stage_ms = time_ms(lambda: attention_stage_f32_call(fb, qkv, heads, True), iters=5,
+                           warmup=1)
+        core_ms = time_ms(lambda: attention_core_f32_call(fb, qkv, datt, heads, True), iters=5,
+                          warmup=1)
+        log(f"[time] fp32 multi-pass route (forced), {label} B={b} S={s} heads={heads}: stage "
+            f"{stage_ms:.4f} ms, core {core_ms:.4f} ms; the route taken (one-pass up to S = "
+            f"{FP32_ONEPASS_MAX_S}) {times['attention_fwd'][label][0]:.4f} and "
+            f"{times['attention_bwd'][label][0]:.4f} ms; {card}")
+        del qkv, datt
+    torch.cuda.empty_cache()
+
+
 def fp32_long_path(fb, fa, card, dev) -> list:
     """Phase 16: (a) the fp32 routes against their twins and float64, and
     the wrappers' calls at S = 577; (b) fp32 ViT-Base/16-384 training; (c)
@@ -3710,9 +3785,9 @@ def fp32_long_path(fb, fa, card, dev) -> list:
     if paths != {577: "fused", 257: "fused"}:
         raise AssertionError(f"the runbook does not keep the kernels for fp32 above 256: {paths}")
     t0 = time.perf_counter()
-    times = long_times(fb, fa, card, dev, (("ViT-Base/16-384", LONG_MICRO, 577, 12),
-                                           ("ViT-Tiny 256 px", ft_batch, 257, 3)),
-                       torch.float32)
+    shapes = (("ViT-Base/16-384", LONG_MICRO, 577, 12), ("ViT-Tiny 256 px", ft_batch, 257, 3))
+    times = long_times(fb, fa, card, dev, shapes, torch.float32)
+    multipass_times(fb, card, dev, shapes, times)
     log(f"[fp32-long] (d) in {time.perf_counter() - t0:.1f} s; phase 16 in "
         f"{time.perf_counter() - t_phase:.1f} s")
     return long_entries(times, launches, ft_launches, errs, fp32=True)

@@ -18,7 +18,10 @@ Here, at tiny widths (D 64-128, head_dim 64, 2 layers, B <= 4):
    ascending order, over 64-key chunks) and the quad adds its four lanes,
    the IEEE quotient, the products with P and dS as fp32 sums over 16-key
    (or 16-query) k-steps in order, P and dS one bf16 term (the fused block)
-   or two (flash: hi = bf16(x), lo = bf16(x - hi));
+   or two (flash: hi = bf16(x), lo = bf16(x - hi)); and the fp32 routes'
+   (csrc/flash_f32.cuh) order of sums, the one-pass route's emulation
+   against interpret-mode Pallas and against the multi-pass route's (the
+   same p bit for bit; section 2b);
 3. two SSP optimizer steps at image_size 272 (S = 290) against the JAX
    trainer, the weights carried over by models/convert.py.
 
@@ -494,6 +497,186 @@ def test_core_seq_limit_is_checked_before_a_launch():
         fb._check_layer_inputs(x, x, {}, fb.ATTN_NAMES, 1, {})
     fb._check_activation(x, 1)  # the forward's
     fb._check_activation(x.float(), 1, core=True)  # the fp32 backwards'
+
+
+# ---------------------------------------------------------------------------
+# 2b. the fp32 routes' order of sums (csrc/flash_f32.cuh above 256 keys)
+# ---------------------------------------------------------------------------
+# Both fp32 routes sum each score over head_dim in ascending order (one fma
+# a term), and l and rowsum(dP p) per 256-key chunk as a lane sums its keys
+# 32 j + lane (j ascending) and the warp's butterfly adds its lanes, the
+# chunks in order: they form the same p and dS. The multi-pass route
+# recomputes the scores per 256-key chunk and pass, and sums the products
+# with p and dS over keys (queries) in ascending order within each 256-key
+# (256-query) chunk, the chunks' partial sums added in order. The one-pass
+# route reads the scores once from a tile and splits each staged chunk (128
+# keys, 64 queries) into runs, each run's thread group summing its keys in
+# ascending order over the whole row, the runs' sums added in order: 4 runs
+# of 32 keys for o, 8 of 16 for dQ, 2 of 32 queries for dK and dV. fp32 fma
+# is emulated in float64 (exact product, then one rounding to fp32 up to
+# double rounding: the same in both emulations).
+
+F32_CHUNK = 256  # flash_f32.cuh LF_CHUNK: the multi-pass route's chunks
+F32_KC, F32_QC = 128, 64  # the one-pass route's staged chunks: keys, queries
+
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _dots(a, b):
+    """(..., M, 64) . (..., N, 64) -> (..., M, N): dh ascending, one fma a
+    term from 0 (dot_rows, op_dots)."""
+    acc = torch.zeros(*a.shape[:-1], b.shape[-2])
+    for d in range(a.shape[-1]):
+        acc = _fma(a[..., :, d:d + 1], b[..., None, :, d], acc)
+    return acc
+
+
+def _warp_sum(x):
+    """The lanes (last axis, 32) added by the xor butterfly (warp_sum)."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ o]
+    return x[..., 0]
+
+
+def _chunk_lane_sum(x, y=None):
+    """Per 256-key chunk, lane t adds keys 32 j + t (j ascending: x, or one
+    fma of x y a term), then the butterfly; the chunks added in order."""
+    n = (x.shape[-1] + F32_CHUNK - 1) // F32_CHUNK * F32_CHUNK
+    x = torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    y = None if y is None else torch.nn.functional.pad(y, (0, n - y.shape[-1]))
+    total = torch.zeros(x.shape[:-1])
+    for c0 in range(0, n, F32_CHUNK):
+        t = torch.zeros(*x.shape[:-1], 32)
+        for j in range(c0, c0 + F32_CHUNK, 32):
+            t = t + x[..., j:j + 32] if y is None else _fma(x[..., j:j + 32], y[..., j:j + 32], t)
+        total = total + _warp_sum(t)
+    return total
+
+
+def _pad_keys(t, s, n):
+    return torch.nn.functional.pad(t, (0, 0, 0, n - s))
+
+
+def _runs_product(w, r, s, chunk, runs, k_round=4):
+    """sum over k < s of w[..., i, k] r[..., k, :]: each `chunk` of keys
+    split into `runs` runs of chunk / runs keys (those below s, to the next
+    k_round multiple: zeros past s), run g of every chunk summed into one
+    sum in ascending order (one fma a term), the runs' sums added in order.
+    One run of the whole chunk per 256 keys is the multi-pass route's order
+    (its partial sums per chunk, added in order)."""
+    n = (s + k_round - 1) // k_round * k_round
+    w = torch.nn.functional.pad(w[..., :s], (0, n - s))
+    r = _pad_keys(r[..., :s, :], s, n)
+    length = chunk // runs
+    parts = [torch.zeros(*w.shape[:-1], r.shape[-1]) for _ in range(runs)]
+    out = None
+    for c0 in range(0, s, chunk):
+        for g in range(runs):
+            for k in range(c0 + g * length, min(c0 + (g + 1) * length, n)):
+                parts[g] = _fma(w[..., k:k + 1], r[..., k:k + 1, :], parts[g])
+        if runs == 1:  # a partial sum per chunk
+            out = parts[0] if out is None else out + parts[0]
+            parts[0] = torch.zeros_like(parts[0])
+    if runs == 1:
+        return out
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def _onepass_f32(q, k, v, do):
+    """flash_f32.cuh's one-pass route ((B, H, S, 64) fp32): the forward's
+    and the rows phase's tile of scaled scores over op_cols(S) columns
+    (-1e30 past S), m over the tile's row, e = exp(s - m) in place with l,
+    p = e / l; o in 4 runs; dP once, rowsum(dP p) and dS in place, dQ in 8
+    runs; the cols phase's p^T from K Q^T and the statistics, dS^T, dV and
+    dK in 2 runs. Returns p, o, dq, dk, dv."""
+    s = q.shape[-2]
+    cols = (s + F32_KC - 1) // F32_KC * F32_KC
+    tile = _dots(q, _pad_keys(k, s, cols)) * 0.125
+    tile[..., s:] = -1e30
+    m = tile.amax(-1, keepdim=True)
+    e = torch.exp(tile[..., :s] - m)
+    l = _chunk_lane_sum(e)[..., None]
+    p = e / l
+    o = _runs_product(p, v, s, F32_KC, 4)
+    dp = _dots(do, v)
+    dot = _chunk_lane_sum(dp, p)[..., None]
+    dq = _runs_product(p * (dp - dot), k, s, F32_KC, 8) * 0.125
+    # the cols phase: keys as rows, every query as a column
+    pt = torch.exp(_dots(k, q) * 0.125 - m.transpose(-1, -2)) / l.transpose(-1, -2)
+    dst = pt * (_dots(v, do) - dot.transpose(-1, -2))
+    dv = _runs_product(pt, do, s, F32_QC, 2)
+    dk = _runs_product(dst, q, s, F32_QC, 2) * 0.125
+    return p, o, dq, dk, dv
+
+
+def _multipass_f32(q, k, v, do):
+    """flash_f32.cuh's multi-pass route: per 256-key chunk the scores again
+    in every pass (masked past S), m over the chunks, l, p, o += p v; the
+    rows phase's passes for rowsum(dP p) and dS, dQ; the cols phase per
+    256-query chunk; `product` walks 32-column groups. Returns p, o, dq,
+    dk, dv."""
+    s = q.shape[-2]
+    chunks = range(0, s, F32_CHUNK)
+
+    def scores(c0):  # a chunk's 256 scaled scores of every query, -1e30 past S
+        n = min(F32_CHUNK, s - c0)
+        sc = torch.full((*q.shape[:-1], F32_CHUNK), -1e30)
+        sc[..., :n] = _dots(q, k[..., c0:c0 + n, :]) * 0.125
+        return sc
+
+    m = torch.stack([scores(c0).amax(-1) for c0 in chunks], -1).amax(-1, keepdim=True)
+    l = torch.zeros_like(m)
+    for c0 in chunks:  # pass 2, as softmax_rows sums a chunk
+        t = torch.zeros(*q.shape[:-1], 32)
+        sc = torch.exp(scores(c0) - m)
+        for j in range(0, F32_CHUNK, 32):
+            t = t + sc[..., j:j + 32]
+        l = l + _warp_sum(t)[..., None]
+    p = torch.cat([torch.exp(scores(c0) - m) / l for c0 in chunks], -1)[..., :s]
+    o = _runs_product(p, v, s, F32_CHUNK, 1, 32)
+    dp = _dots(do, v)
+    ds = p * (dp - _chunk_lane_sum(dp, p)[..., None])  # passes 3 and 4
+    dq = _runs_product(ds, k, s, F32_CHUNK, 1, 32) * 0.125
+    pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
+    dv = _runs_product(pt, do, s, F32_CHUNK, 1, 32)
+    dk = _runs_product(dst, q, s, F32_CHUNK, 1, 32) * 0.125
+    return p, o, dq, dk, dv
+
+
+def _onepass_flash_fwd(q, k, v):
+    return _tokens(_onepass_f32(*(_heads(t) for t in (q, k, v)), _heads(v))[1], q.dtype)
+
+
+def _onepass_flash_bwd(q, k, v, do):
+    return tuple(_tokens(t, q.dtype) for t in _onepass_f32(*(_heads(t) for t in (q, k, v, do)))[2:])
+
+
+@pytest.mark.parametrize("s", [290, 577])
+def test_fp32_long_order_matches_pallas(s, monkeypatch):
+    """mha_pallas in fp32 with its twins replaced by the emulation of the
+    one-pass route's order of sums, against the JAX mha_pallas in interpret
+    mode (fp32 bounds of section 1); and against the emulation of the
+    multi-pass route: p bit for bit, o, dq, dk, dv within fp32 reassociation
+    (1e-5 of each output's largest magnitude). One image, one head; S = 577
+    is ViT-Base/16-384's length."""
+    q, k, v, cot = _attention_operands((1, s, 1, 64), s + 5)
+    ref, ref_g = _jax_mha(q, k, v, cot, jnp.float32)
+    monkeypatch.setattr(fa, "flash_attention_plain", _onepass_flash_fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", _onepass_flash_bwd)
+    got, got_g = _port_mha(q, k, v, cot, torch.float32)
+    _close_mha(got, got_g, ref, ref_g, "float32")
+    heads = [_heads(torch.from_numpy(t)) for t in (q, k, v, cot)]
+    one, multi = _onepass_f32(*heads), _multipass_f32(*heads)
+    assert torch.equal(one[0], multi[0]), "p"
+    for name, a, b in zip(("o", "dq", "dk", "dv"), one[1:], multi[1:]):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * scale, (name, float((a - b).abs().max()))
 
 
 # ---------------------------------------------------------------------------

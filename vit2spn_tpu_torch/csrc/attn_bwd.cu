@@ -41,19 +41,21 @@ extern "C" int vit2spn_attention_core(const void* qkv, const void* datt, void* a
 // The fp32 backward's attention core alone, as attn_bwd_seq<float> makes it
 // (csrc/flash_f32.cuh: the forward for att, then the backward pair): att and
 // dqkv from qkv and datt, fp32; ws: B * H * S * 3 floats (the row
-// statistics)
+// statistics); `multipass` set takes the multi-pass route above 256 keys at
+// any S
 extern "C" int vit2spn_attention_core_f32(const void* qkv, const void* datt, void* att,
                                           void* dqkv, void* ws, int B, int S, int H, int D,
-                                          void* stream) {
+                                          int multipass, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
   const float* q = static_cast<const float*>(qkv);
   float* dq = static_cast<float*>(dqkv);
   const float scale = 1.0f / sqrtf((float)FA_DH);
   const long long ts = 3LL * D, bs = (long long)S * ts;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  LAUNCH(fwd_f32(q, q + D, q + 2 * D, static_cast<float*>(att), B, S, H, bs, ts, scale, st));
+  LAUNCH(fwd_f32(q, q + D, q + 2 * D, static_cast<float*>(att), B, S, H, bs, ts, scale, st,
+                 multipass != 0));
   return bwd_f32(q, q + D, q + 2 * D, static_cast<const float*>(datt), dq, dq + D, dq + 2 * D,
-                 static_cast<float*>(ws), B, S, H, bs, ts, ts, scale, st);
+                 static_cast<float*>(ws), B, S, H, bs, ts, ts, scale, st, multipass != 0);
 }
 
 // The longest S the bf16 core takes above 256 keys: csrc/long_attention.cuh

@@ -18,15 +18,28 @@
 // 64) contiguous; dq, dk, dv have rows gts apart (H * 64, or 3 D when they are
 // the thirds of a dqkv). Limits: head_dim 64, input rows on 8 bytes, output
 // rows on 16. Up to FA_MAX_S (256) keys a warp holds its rows' whole row of
-// scores in registers (the kernels below); above it the multi-pass route at
-// the end of this file takes any S.
+// scores in registers (the kernels below); above it the one-pass route at
+// the end of this file (S <= OP_MAX_S = 1,152: a block's query tile of
+// scores in shared memory, 2 products in the forward and 3 + 4 in the
+// backward's two launches, operands from register tiles, loads behind the
+// products) and beyond that the multi-pass route before it (any S: the
+// scores recomputed per pass, 4 and 7 + 4 products).
 
 #pragma once
 
 #include "common.cuh"
+#include "long_attention.cuh"  // la_quot
 
 #define FA_DH 64
 #define FA_MAX_S 256
+
+// FA_F32_PROBE, for the builds of tools/fp32_long_probe.py only: 1 leaves
+// out the products' FMAs (dot_rows, product, op_dots and op_prod add
+// nothing), 2 the staging copies (stage copies nothing); 0, the default,
+// neither
+#ifndef FA_F32_PROBE
+#define FA_F32_PROBE 0
+#endif
 
 template <typename K>
 static int set_smem(K kernel, size_t bytes) {
@@ -73,6 +86,7 @@ static int set_smem(K kernel, size_t bytes) {
 template <int LD>
 __device__ __forceinline__ void stage(float* dst, const float* src, long long ts, int r0, int n,
                                       int S) {
+  if (FA_F32_PROBE == 2) return;
   for (int i = threadIdx.x; i < n * (FA_DH / 2); i += blockDim.x) {
     const int r = i / (FA_DH / 2);
     const int c = 2 * (i % (FA_DH / 2));
@@ -103,6 +117,7 @@ __device__ __forceinline__ void dot_rows(float acc[FA_RW][FA_NJ], const float* A
   for (int j = 0; j < FA_NJ; ++j)
 #pragma unroll
     for (int i = 0; i < FA_RW; ++i) acc[i][j] = 0.0f;
+  if (FA_F32_PROBE == 1) return;
 #pragma unroll 2
   for (int d = 0; d < FA_DH; d += 4) {
     float4 a[FA_RW];
@@ -133,6 +148,7 @@ __device__ __forceinline__ void product(float acc[4][4], const float w[FA_RW][FA
   const int rg = lane >> 4, dg = lane & 15;
 #pragma unroll
   for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+  if (FA_F32_PROBE == 1) return;
 #pragma unroll
   for (int j = 0; j < FA_NJ; ++j) {
     if (32 * j < S) {
@@ -437,15 +453,19 @@ flash_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // are left as they were; this route calls their helpers unchanged.
 //
 // What bounds it on this card: every product and every recomputed score is
-// an fp32 FMA on the CUDA cores (67 TFLOP/s). At S = 577 the function's
-// products are 2 S^2 64 a (image, head) each, 2 in the forward and 5 in the
-// backward; the passes run 4 (the forward) and 7 + 4 (the backward's two
-// launches) of that size, beside an expf per score and pass, and an IEEE
-// division per score in the passes that form p. Shared memory (two 256-row chunk buffers of
-// 68 floats a row: 139 KB) leaves one block of 8 warps an SM: the forward's
-// pass 3 stages the next K chunk while the product with V runs, the
-// statistics passes double-buffer K, the backward stages K (or Q) and V (or
-// dO) in two groups and starts on the first while the second lands.
+// an fp32 FMA on the CUDA cores (67 TFLOP/s). The function's products are 2
+// S^2 64 a (image, head) each, 2 in the forward and 5 in the backward; the
+// passes run 4 (the forward) and 7 + 4 (the backward's two launches) of
+// that size, beside an expf per score and pass, and an IEEE division per
+// score in the passes that form p, and `product` passes its weights
+// through a per-warp slab (two float4 shared reads for every 16 FMAs).
+// Shared memory (two 256-row chunk buffers of 68 floats a row: 139 KB)
+// leaves one block of 8 warps an SM: the forward's pass 3 stages the next K
+// chunk while the product with V runs, the statistics passes double-buffer
+// K, the backward stages K (or Q) and V (or dO) in two groups and starts on
+// the first while the second lands. Since the one-pass route below took S
+// up to OP_MAX_S, this route runs only above it (or where a test entry
+// forces it): it takes any S.
 
 #define LF_CHUNK FA_MAX_S  // keys (queries, in the key-major phase) per staged chunk
 #define LF_BUF (LF_CHUNK * FA_LD)  // floats of one chunk buffer
@@ -766,6 +786,621 @@ long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   store_tile(dk + ghead, gts, adk, scale, w0, S, lane);
 }
 
+// ---------------------------------------------------------------------------
+// Up to OP_MAX_S keys: one pass, the scores of a query tile in shared memory
+// ---------------------------------------------------------------------------
+//
+// The function of the multi-pass route above, for S up to OP_MAX_S = 1,152,
+// where a tile of 32 rows of scores fits beside its ring. Per (image, head):
+//
+//   forward    (32 queries a block) s = q k^T once, K in 128-key chunks,
+//              into a 32 x S tile; m, then e = exp(s - m) in place with l,
+//              then p = e / l; o = p V, V in 128-key chunks
+//   rows phase (16 queries a block) s once into one tile, p as above; dP =
+//   (launch 1) dO V^T once into a second tile; dot = rowsum(dP p); dS = p
+//              (dP - dot) in place; dQ = dS K; m, l and dot to ws
+//   cols phase (64 keys a block, every query in 64-query chunks) s^T and
+//   (launch 2) dP^T, then p and dS from each query's m, l, dot (ws) into
+//              two 64 x 64 tiles; dV += p^T dO, dK += dS^T q
+//
+// So 2 products of 2 S^2 64 an (image, head) in the forward (the multi-pass
+// route: 4) and 3 + 4 in the backward (7 + 4), and one expf a score in the
+// forward and the rows phase (2 and 4). Each K, V, Q or dO chunk is staged
+// by cp.async (16-byte copies where every row starts on 16 bytes) into a
+// two-stage ring: the next chunk lands while the current one is multiplied
+// (one barrier a chunk, op_wait), the first V (K) chunk while the softmax
+// (dS) runs.
+//
+// What bounds it on this card: the FMAs on the CUDA cores and the shared
+// memory that feeds them (tools/fp32_long_probe.py at S = 577: leaving out
+// the FMAs saves ~60% of the time, the staging copies ~16%). Shared memory
+// delivers 32 floats a clock an SM against 128 FMAs, so a thread's register
+// tile sets how many FMAs each float it reads feeds. The tiles of scores
+// bound the block: 32 rows (16 in the rows phase, which holds two) of S
+// fp32 scores beside a two-stage ring of 128-key chunks leave one 8-warp
+// block an SM, so a score product's chunk holds 32 x 128 outputs, 16 a
+// thread: 4 x 4 tiles (2 FMAs a float read; 2 x 4 in the rows phase, 1.3;
+// 4 x 4 in the cols phase). The products with p and dS have 32 x 64 (16 x
+// 64, 64 x 64) outputs over S keys: each staged chunk's keys are split into
+// runs that thread groups sum at once, so a thread holds a 4 x 8 tile (2.7
+// FMAs a float): 4 runs of 32 keys for o, 8 runs of 16 for dQ, 2 runs of 32
+// queries for dK and dV. Operands are read as float4 and the next step's
+// are loaded while this step's FMAs run. Chunks of 256 keys where they fit
+// (S <= 640: 4 x 8 score tiles in the forward, 4 x 4 in the rows phase)
+// measured 7% slower, and a third ring stage no faster: with one block an
+// SM the steps' latency, not the loads, is what is left.
+
+// The orders: each score summed over dh in ascending order as dot_rows sums
+// it (k . q and q . k alike); the max in any order; l and the rowsum per
+// 256-key chunk as a lane of softmax_rows sums its keys (32 j + lane, j
+// ascending; the rowsum's terms one fma each, as nvcc contracts the
+// multi-pass route's t += dP p), then warp_sum, the chunks added in order;
+// the quotient la_quot (csrc/long_attention.cuh: the IEEE division's bits;
+// __fdiv_rn for a warp with an operand outside its range). So p and dS are
+// the multi-pass route's bit for bit. The products with p and dS take
+// another order: run g of every staged chunk summed in ascending order into
+// one partial tile over the whole row (column), the runs' tiles added in
+// run order (op_combine). The outputs differ from the multi-pass route's by
+// fp32 reassociation (chip_smoke.py holds both against float64); two runs,
+// the stage and the core give the same bits.
+
+#define OP_MAX_S 1152     // the longest S of this route: onepass_smem(S) <= 232,448 B
+#define OP_KC 128         // keys a staged K or V chunk (forward, rows phase)
+#define OP_QC 64          // queries a staged Q and dO chunk (cols phase)
+#define OP_FWD_ROWS 32    // queries a forward block
+#define OP_BWD_ROWS 16    // queries a rows-phase block
+#define OP_COLS_KEYS 64   // keys a cols-phase block
+#define OP_THREADS (FA_WARPS * 32)
+
+// columns of a score tile (S in whole chunks) and its row stride (4 floats
+// more: its rows start on other banks)
+__host__ __device__ __forceinline__ int op_cols(int S) { return (S + OP_KC - 1) / OP_KC * OP_KC; }
+__host__ __device__ __forceinline__ int op_ld(int S) { return op_cols(S) + 4; }
+
+// the forward's tile of 32 rows, or the rows phase's two of 16, beside the
+// query tile (or the query and dO tiles) and the ring's two stages
+static size_t onepass_smem(int S) {
+  return ((size_t)32 * op_ld(S) + 32 * FA_LD + 2 * OP_KC * FA_LD) * 4;
+}
+#define OP_COLS_STAGE (2 * OP_QC * FA_LD + 3 * OP_QC)  // Q, dO, 3 statistics a query
+static size_t onepass_cols_smem() {
+  return ((size_t)4 * OP_COLS_KEYS * FA_LD + 2 * OP_COLS_STAGE) * 4;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// c[i][j] = the dot over dh of rows A + i as and B + j bs, ascending, as
+// dot_rows sums it; column groups j >= jn stay 0. The operands of the next
+// 4 dh are loaded while this step's FMAs run (two register sets).
+template <int TM, int TN>
+__device__ __forceinline__ void op_dots(float (&c)[TM][TN], const float* A, int as,
+                                        const float* B, int bs, int jn) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) c[i][j] = 0.0f;
+  if (FA_F32_PROBE == 1) return;
+  float4 a[2][TM], b[2][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) a[0][i] = ld4(A + i * as);
+#pragma unroll
+  for (int j = 0; j < TN; ++j) b[0][j] = ld4(B + j * bs);
+#pragma unroll
+  for (int d = 0; d < FA_DH; d += 4) {
+    const int cur = (d >> 2) & 1;
+    if (d + 4 < FA_DH) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[cur ^ 1][i] = ld4(A + i * as + d + 4);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[cur ^ 1][j] = ld4(B + j * bs + d + 4);
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (j < jn) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          c[i][j] = fmaf(a[cur][i].x, b[cur][j].x, c[i][j]);
+          c[i][j] = fmaf(a[cur][i].y, b[cur][j].y, c[i][j]);
+          c[i][j] = fmaf(a[cur][i].z, b[cur][j].z, c[i][j]);
+          c[i][j] = fmaf(a[cur][i].w, b[cur][j].w, c[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// The operands of op_prod's step at k: TM float4 of W (4 keys of each row)
+// and 4 rows of TG float4 of R
+template <int TM, int TG>
+__device__ __forceinline__ void op_prod_load(float4 (&w)[TM], float4 (&r)[4][TG], const float* W,
+                                             int ws, const float* R, int k) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) w[i] = ld4(W + i * ws + k);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int g = 0; g < TG; ++g) r[kk][g] = ld4(R + (k + kk) * FA_LD + 32 * g);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int kk) {
+  return kk == 0 ? v.x : kk == 1 ? v.y : kk == 2 ? v.z : v.w;
+}
+
+// p[i][4 g + e] += the sum over k in [0, n) ascending (n a positive multiple
+// of 4) of W[i ws + k] R[k FA_LD + 32 g + e], as `product` sums: W rows of a
+// tile of p or dS, R a staged chunk's rows at the thread's dims. The next
+// step's operands are loaded while this step's FMAs run (the last step
+// loads its own again).
+template <int TM, int TG>
+__device__ __forceinline__ void op_prod(float (&p)[TM][4 * TG], const float* W, int ws,
+                                        const float* R, int n) {
+  if (FA_F32_PROBE == 1) return;
+  float4 w[TM], r[4][TG];
+  op_prod_load(w, r, W, ws, R, 0);
+#pragma unroll 2
+  for (int k = 0; k < n; k += 4) {
+    float4 wn[TM], rn[4][TG];
+    op_prod_load(wn, rn, W, ws, R, min(k + 4, n - 4));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int g = 0; g < TG; ++g)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float x = lane4(w[i], kk);
+          p[i][4 * g + 0] = fmaf(x, r[kk][g].x, p[i][4 * g + 0]);
+          p[i][4 * g + 1] = fmaf(x, r[kk][g].y, p[i][4 * g + 1]);
+          p[i][4 * g + 2] = fmaf(x, r[kk][g].z, p[i][4 * g + 2]);
+          p[i][4 * g + 3] = fmaf(x, r[kk][g].w, p[i][4 * g + 3]);
+        }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) w[i] = wn[i];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int g = 0; g < TG; ++g) r[kk][g] = rn[kk][g];
+  }
+}
+
+// The sum of G partial tiles (rows x 64 floats each, from X, in shared
+// memory) in group order, times mul, into out (rows os apart) for rows r0 +
+// r below S; every thread of the block takes 4 floats at a time
+__device__ __forceinline__ void op_combine(float* out, long long os, const float* X, int G,
+                                           int rows, int r0, int S, float mul) {
+  for (int i = threadIdx.x; i < rows * (FA_DH / 4); i += blockDim.x) {
+    const int r = i / (FA_DH / 4), c = 4 * (i % (FA_DH / 4));
+    float4 t = ld4(X + r * FA_DH + c);
+    for (int g = 1; g < G; ++g) {
+      const float4 x = ld4(X + (g * rows + r) * FA_DH + c);
+      t.x += x.x;
+      t.y += x.y;
+      t.z += x.z;
+      t.w += x.w;
+    }
+    if (r0 + r < S)
+      *reinterpret_cast<float4*>(out + r * os + c) =
+          make_float4(t.x * mul, t.y * mul, t.z * mul, t.w * mul);
+  }
+}
+
+// a thread's 4 x 8 partial tile (rows row + rs i, dims 4 dg + e and 32 + 4
+// dg + e) into tile X (rows x 64 floats)
+__device__ __forceinline__ void op_put(float* X, const float (&acc)[4][8], int row, int rs,
+                                       int dg) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* x = X + (row + rs * i) * FA_DH + 4 * dg;
+    *reinterpret_cast<float4*>(x) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(x + 32) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// One warp's WR rows of scaled scores (from t0, ld apart: S live of
+// op_cols(S) columns, -1e30 past S) to p in place, the rows side by side:
+// m over every key, e = exp(s - m) with l per 256-key chunk as softmax_rows
+// sums it, then p = e / l; the columns past S to 0
+template <int WR>
+__device__ __forceinline__ void op_softmax_rows(float* t0, int ld, int S, float (&m)[WR],
+                                                float (&l)[WR], int lane) {
+  const int cols = op_cols(S);
+#pragma unroll
+  for (int i = 0; i < WR; ++i) m[i] = -3.0e38f;
+  for (int k = lane; k < cols; k += 32)
+#pragma unroll
+    for (int i = 0; i < WR; ++i) m[i] = fmaxf(m[i], t0[i * ld + k]);
+#pragma unroll
+  for (int i = 0; i < WR; ++i) {
+    m[i] = warp_max(m[i]);
+    l[i] = 0.0f;
+  }
+  bool slow = false;
+  for (int c0 = 0; c0 < S; c0 += LF_CHUNK) {
+    float t[WR];
+#pragma unroll
+    for (int i = 0; i < WR; ++i) t[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < FA_NJ; ++j) {
+      const int k = c0 + 32 * j + lane;
+      if (k < S) {
+#pragma unroll
+        for (int i = 0; i < WR; ++i) {
+          const float e = expf(__fsub_rn(t0[i * ld + k], m[i]));
+          t0[i * ld + k] = e;
+          t[i] += e;
+          slow |= e != 0.0f && e < LA_QUOT_MIN;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WR; ++i) l[i] += warp_sum(t[i]);
+  }
+  // la_quot where every operand of the warp's rows is in its range, else
+  // the IEEE division: the same bits
+#pragma unroll
+  for (int i = 0; i < WR; ++i) slow |= l[i] > LA_QUOT_MAX_L;
+  slow = __any_sync(0xffffffffu, slow);
+  float r[WR];
+#pragma unroll
+  for (int i = 0; i < WR; ++i) r[i] = la_rcp(l[i]);
+  for (int k = lane; k < cols; k += 32)
+#pragma unroll
+    for (int i = 0; i < WR; ++i) {
+      const float e = t0[i * ld + k];
+      t0[i * ld + k] = k < S ? (slow ? __fdiv_rn(e, l[i]) : la_quot(e, l[i], r[i])) : 0.0f;
+    }
+}
+
+// Rows r0 .. r0 + n - 1 of one (image, head) (zeros past S) into shared
+// memory, rows FA_LD apart: by 16-byte cp.async where every row starts on
+// 16 bytes (v16: the callers' fused qkv and its views; half the copies of
+// `stage`), else as `stage`
+__device__ __forceinline__ void op_rows(float* dst, const float* src, long long ts, int r0,
+                                        int n, int S, bool v16) {
+  if (!v16) {
+    stage<FA_LD>(dst, src, ts, r0, n, S);
+    return;
+  }
+  if (FA_F32_PROBE == 2) return;
+  for (int i = threadIdx.x; i < n * (FA_DH / 4); i += blockDim.x) {
+    const int r = i / (FA_DH / 4), c = 4 * (i % (FA_DH / 4));
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * FA_LD + c, ok ? src + (r0 + r) * ts + c : src, ok);
+  }
+}
+
+// Chunk c (OP_KC rows from c OP_KC) of src into ring stage t & 1, one
+// cp.async group
+__device__ __forceinline__ void op_stage(float* ring, const float* src, long long ts, int c,
+                                         int t, int S, bool v16) {
+  op_rows(ring + (t & 1) * OP_KC * FA_LD, src, ts, c * OP_KC, OP_KC, S, v16);
+  cp_async_commit();
+}
+
+// The ring's loop, one barrier a chunk: wait until chunk t has landed, then
+// the barrier: every thread sees chunk t and is done with chunk t - 1,
+// whose stage the caller refills with chunk t + 1 before using chunk t
+__device__ __forceinline__ void op_wait() { stage_wait(); }
+
+// the column groups j of a 128-key chunk from c0 (keys kg + 32 j, a warp's
+// kg from kg0) that hold a key below S
+__device__ __forceinline__ int op_groups(int S, int c0, int kg0) {
+  return min(4, max(0, (S - c0 - kg0 + 31) / 32));
+}
+
+// the keys below S of a staged chunk from c0 (n rounded up to 4) that run
+// g of runs of `len` takes, or 0
+__device__ __forceinline__ int op_run(int S, int c0, int chunk, int len, int g) {
+  return min(len, ((min(chunk, S - c0) + 3) & ~3) - len * g);
+}
+
+// Forward: one block per 32 queries of one (image, head)
+__global__ void __launch_bounds__(OP_THREADS, 1)
+onepass_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int S, int H,
+                       long long bs, long long ts, float scale, int v16) {
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  const int ld = op_ld(S);
+  float* T = reinterpret_cast<float*>(fa_smem);  // 32 rows of scores, then p
+  float* Qs = T + OP_FWD_ROWS * ld;
+  float* ring = Qs + OP_FWD_ROWS * FA_LD;  // at the end the 4 runs' partial o
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * OP_FWD_ROWS;
+  const long long head = (long long)b * bs + h * FA_DH;
+  const int nk = op_cols(S) / OP_KC;
+  // scores: rows 4 rg + i, keys kg + 32 j of a chunk (a warp: two rg, 16
+  // kg); o: run pg (keys 32 pg .. + 31 of each chunk) by threads 64 pg ..,
+  // rows orow + 8 i, dims 4 dg + e and 32 + 4 dg + e
+  const int rg = 2 * (warp & 3) + (lane >> 4), kg0 = 16 * (warp >> 2), kg = kg0 + (lane & 15);
+  const int pg = tid >> 6, orow = (tid >> 3) & 7, dg = tid & 7;
+  constexpr int WR = OP_FWD_ROWS / FA_WARPS;  // rows of a warp's softmax
+  float acc[4][8] = {};
+  op_rows(Qs, q + head, ts, r0, OP_FWD_ROWS, S, v16);
+  op_stage(ring, k + head, ts, 0, 0, S, v16);
+  for (int t = 0; t < 2 * nk; ++t) {  // K chunks (s), then V chunks (o)
+    op_wait();
+    if (t + 1 < 2 * nk)
+      op_stage(ring, (t + 1 < nk ? k : v) + head, ts, (t + 1) % nk, t + 1, S, v16);
+    const float* buf = ring + (t & 1) * OP_KC * FA_LD;
+    const int c0 = (t % nk) * OP_KC;
+    if (t < nk) {
+      float s[4][4];
+      op_dots(s, Qs + 4 * rg * FA_LD, FA_LD, buf + kg * FA_LD, 32 * FA_LD, op_groups(S, c0, kg0));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = c0 + kg + 32 * j;
+          T[(4 * rg + i) * ld + key] = key < S ? __fmul_rn(s[i][j], scale) : NEG_INF;
+        }
+      if (t == nk - 1) {  // every score is in: p, while V chunk 0 lands
+        __syncthreads();
+        float m[WR], l[WR];
+        op_softmax_rows(T + warp * WR * ld, ld, S, m, l, lane);
+      }
+    } else {
+      const int n = op_run(S, c0, OP_KC, 32, pg);
+      if (n > 0)
+        op_prod<4, 2>(acc, T + orow * ld + c0 + 32 * pg, 8 * ld, buf + 32 * pg * FA_LD + 4 * dg,
+                      n);
+    }
+  }
+  __syncthreads();  // every warp is done with the ring
+  op_put(ring + pg * OP_FWD_ROWS * FA_DH, acc, orow, 8, dg);
+  __syncthreads();
+  const long long ots = (long long)H * FA_DH;
+  op_combine(o + (long long)b * S * ots + r0 * ots + h * FA_DH, ots, ring, 4, OP_FWD_ROWS, r0, S,
+             1.0f);
+}
+
+// Backward, phase 1: one block per 16 queries: the statistics and dQ
+__global__ void __launch_bounds__(OP_THREADS, 1)
+onepass_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            float* __restrict__ dq, float* __restrict__ stats, int S, int H,
+                            long long bs, long long ts, long long gts, float scale, int v16) {
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  const int ld = op_ld(S);
+  float* P = reinterpret_cast<float*>(fa_smem);  // 16 rows of scores, then p
+  float* D = P + OP_BWD_ROWS * ld;                // dP, then dS
+  float* Qs = D + OP_BWD_ROWS * ld;
+  float* Os = Qs + OP_BWD_ROWS * FA_LD;    // dO of this block's queries
+  float* ring = Os + OP_BWD_ROWS * FA_LD;  // at the end the 8 runs' partial dQ
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * OP_BWD_ROWS;
+  const long long head = (long long)b * bs + h * FA_DH;
+  const long long ots = (long long)H * FA_DH;
+  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const int nk = op_cols(S) / OP_KC;
+  // s and dP: rows 2 rg + i, keys kg + 32 j (a warp: four rg, 8 kg); dQ:
+  // run `warp` (keys 16 warp .. + 15 of each chunk), rows qrow + 4 i, dims
+  // 4 dg + e and 32 + 4 dg + e
+  const int rg = (lane >> 3) + 4 * (warp & 1), kg0 = 8 * (warp >> 1), kg = kg0 + (lane & 7);
+  const int qrow = lane >> 3, dg = lane & 7;
+  constexpr int WR = OP_BWD_ROWS / FA_WARPS;  // rows of a warp's softmax and dS
+  float mx[WR], l[WR], dot[WR];
+  float acc[4][8] = {};
+  op_rows(Qs, q + head, ts, r0, OP_BWD_ROWS, S, v16);
+  op_rows(Os, dout + ohead, ots, r0, OP_BWD_ROWS, S, v16);
+  op_stage(ring, k + head, ts, 0, 0, S, v16);
+  for (int t = 0; t < 3 * nk; ++t) {  // K chunks (s), V chunks (dP), K chunks (dQ)
+    op_wait();
+    if (t + 1 < 3 * nk)
+      op_stage(ring, ((t + 1) / nk == 1 ? v : k) + head, ts, (t + 1) % nk, t + 1, S, v16);
+    const float* buf = ring + (t & 1) * OP_KC * FA_LD;
+    const int c0 = (t % nk) * OP_KC;
+    if (t < 2 * nk) {
+      float s[2][4];
+      op_dots(s, (t < nk ? Qs : Os) + 2 * rg * FA_LD, FA_LD, buf + kg * FA_LD, 32 * FA_LD,
+              op_groups(S, c0, kg0));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = c0 + kg + 32 * j;
+          if (t < nk)
+            P[(2 * rg + i) * ld + key] = key < S ? __fmul_rn(s[i][j], scale) : NEG_INF;
+          else
+            D[(2 * rg + i) * ld + key] = s[i][j];
+        }
+      if (t == nk - 1) {  // p, while V chunk 0 lands
+        __syncthreads();
+        op_softmax_rows(P + warp * WR * ld, ld, S, mx, l, lane);
+      } else if (t == 2 * nk - 1) {  // dot and dS, while K chunk 0 lands
+        __syncthreads();
+        const float* pr = P + warp * WR * ld;
+        float* dr = D + warp * WR * ld;
+#pragma unroll
+        for (int i = 0; i < WR; ++i) dot[i] = 0.0f;
+        for (int k0 = 0; k0 < S; k0 += LF_CHUNK) {
+          float tt[WR];
+#pragma unroll
+          for (int i = 0; i < WR; ++i) tt[i] = 0.0f;
+#pragma unroll
+          for (int j = 0; j < FA_NJ; ++j) {
+            const int key = k0 + 32 * j + lane;
+            if (key < S)
+#pragma unroll
+              for (int i = 0; i < WR; ++i) tt[i] = fmaf(dr[i * ld + key], pr[i * ld + key], tt[i]);
+          }
+#pragma unroll
+          for (int i = 0; i < WR; ++i) dot[i] += warp_sum(tt[i]);
+        }
+        for (int key = lane; key < op_cols(S); key += 32)
+#pragma unroll
+          for (int i = 0; i < WR; ++i)
+            dr[i * ld + key] = key < S ? pr[i * ld + key] * (dr[i * ld + key] - dot[i]) : 0.0f;
+      }
+    } else {
+      const int n = op_run(S, c0, OP_KC, 16, warp);
+      if (n > 0)
+        op_prod<4, 2>(acc, D + qrow * ld + c0 + 16 * warp, 4 * ld,
+                      buf + 16 * warp * FA_LD + 4 * dg, n);
+    }
+  }
+  __syncthreads();  // every warp is done with the ring
+  op_put(ring + warp * OP_BWD_ROWS * FA_DH, acc, qrow, 4, dg);
+  __syncthreads();
+  op_combine(dq + (long long)b * S * gts + r0 * gts + h * FA_DH, gts, ring, FA_WARPS,
+             OP_BWD_ROWS, r0, S, scale);
+  if (lane == 0) {
+    float* st = stats + ((long long)(b * H + h) * S) * 3;
+#pragma unroll
+    for (int i = 0; i < WR; ++i) {
+      const int r = r0 + warp * WR + i;
+      if (r < S) {
+        st[r * 3 + 0] = mx[i];
+        st[r * 3 + 1] = l[i];
+        st[r * 3 + 2] = dot[i];
+      }
+    }
+  }
+}
+
+// Backward, phase 2: one block per 64 keys, every query in 64-query chunks:
+// dK and dV
+__global__ void __launch_bounds__(OP_THREADS, 1)
+onepass_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ stats, float* __restrict__ dk,
+                            float* __restrict__ dv, int S, int H, long long bs, long long ts,
+                            long long gts, float scale, int v16) {
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  float* Kt = reinterpret_cast<float*>(fa_smem);  // this block's keys
+  float* Vt = Kt + OP_COLS_KEYS * FA_LD;
+  float* Pt = Vt + OP_COLS_KEYS * FA_LD;    // a chunk's p^T: [key][query]
+  float* Dt = Pt + OP_COLS_KEYS * FA_LD;    // its dS^T
+  float* ring = Dt + OP_COLS_KEYS * FA_LD;  // 2 stages of Q, dO, each query's m, l, dot;
+                                            // at the end the 2 runs' partial dV, dK
+  constexpr int STAGE = OP_COLS_STAGE;
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * OP_COLS_KEYS;
+  const long long head = (long long)b * bs + h * FA_DH;
+  const long long ots = (long long)H * FA_DH;
+  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const float* st = stats + ((long long)(b * H + h) * S) * 3;
+  const int nq = (S + OP_QC - 1) / OP_QC;
+  // s^T, dP^T: keys 4 rg + i, queries qg + 16 j (a warp: two rg, 16 qg);
+  // dK, dV: run cg (queries 32 cg .. + 31 of each chunk) by threads 128 cg
+  // .., keys krow + 16 i, dims 4 dg + e and 32 + 4 dg + e
+  const int rg = tid >> 4, qg = tid & 15;
+  const int cg = tid >> 7, krow = (tid >> 3) & 15, dg = tid & 7;
+  float adk[4][8] = {}, adv[4][8] = {};
+  auto stage_q = [&](int u) {
+    float* sb = ring + (u & 1) * STAGE;
+    op_rows(sb, q + head, ts, u * OP_QC, OP_QC, S, v16);
+    op_rows(sb + OP_QC * FA_LD, dout + ohead, ots, u * OP_QC, OP_QC, S, v16);
+    for (int i = tid; i < 3 * OP_QC; i += OP_THREADS) {
+      const int qi = u * OP_QC + i / 3;
+      cp_async4(sb + 2 * OP_QC * FA_LD + i, qi < S ? st + 3 * qi + i % 3 : st, qi < S);
+    }
+    cp_async_commit();
+  };
+  op_rows(Kt, k + head, ts, r0, OP_COLS_KEYS, S, v16);
+  op_rows(Vt, v + head, ts, r0, OP_COLS_KEYS, S, v16);
+  stage_q(0);
+  for (int u = 0; u < nq; ++u) {
+    op_wait();
+    if (u + 1 < nq) stage_q(u + 1);
+    const float* Qc = ring + (u & 1) * STAGE;
+    const float* Oc = Qc + OP_QC * FA_LD;
+    const float* sc = Oc + OP_QC * FA_LD;
+    const int q0 = u * OP_QC;
+    {
+      const int jn = min(4, (S - q0 + 15) / 16);
+      float s[4][4], dp[4][4];
+      op_dots(s, Kt + 4 * rg * FA_LD, FA_LD, Qc + qg * FA_LD, 16 * FA_LD, jn);
+      op_dots(dp, Vt + 4 * rg * FA_LD, FA_LD, Oc + qg * FA_LD, 16 * FA_LD, jn);
+      // the scores and p of phase 1, bit for bit
+      bool slow = false;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cq = qg + 16 * j;
+        const bool ok = q0 + cq < S;
+        const float m = sc[3 * cq];
+        slow |= ok && sc[3 * cq + 1] > LA_QUOT_MAX_L;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = ok ? expf(__fsub_rn(__fmul_rn(s[i][j], scale), m)) : 0.0f;
+          slow |= s[i][j] != 0.0f && s[i][j] < LA_QUOT_MIN;
+        }
+      }
+      slow = __any_sync(0xffffffffu, slow);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cq = qg + 16 * j;
+        const bool ok = q0 + cq < S;
+        const float lq = ok ? sc[3 * cq + 1] : 1.0f, dt = ok ? sc[3 * cq + 2] : 0.0f;
+        const LaQuot quot(lq);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = slow ? __fdiv_rn(s[i][j], lq) : quot(s[i][j]);
+          Pt[(4 * rg + i) * FA_LD + cq] = p;
+          Dt[(4 * rg + i) * FA_LD + cq] = p * (dp[i][j] - dt);
+        }
+      }
+    }
+    __syncthreads();  // the chunk's p^T and dS^T are in
+    const int n = op_run(S, q0, OP_QC, 32, cg);
+    if (n > 0) {
+      op_prod<4, 2>(adv, Pt + krow * FA_LD + 32 * cg, 16 * FA_LD, Oc + 32 * cg * FA_LD + 4 * dg,
+                    n);  // dV += p^T dO
+      op_prod<4, 2>(adk, Dt + krow * FA_LD + 32 * cg, 16 * FA_LD, Qc + 32 * cg * FA_LD + 4 * dg,
+                    n);  // dK += dS^T q
+    }
+  }
+  __syncthreads();  // every warp is done with the tiles and the ring
+  constexpr int PART = 2 * OP_COLS_KEYS * FA_DH;  // the two runs' partial tiles
+  op_put(ring + cg * OP_COLS_KEYS * FA_DH, adv, krow, 16, dg);
+  op_put(ring + PART + cg * OP_COLS_KEYS * FA_DH, adk, krow, 16, dg);
+  __syncthreads();
+  const long long ghead = (long long)b * S * gts + r0 * gts + h * FA_DH;
+  op_combine(dv + ghead, gts, ring, 2, OP_COLS_KEYS, r0, S, 1.0f);
+  op_combine(dk + ghead, gts, ring + PART, 2, OP_COLS_KEYS, r0, S, scale);
+}
+
+// every row of q, k, v (and dO) starts on 16 bytes: the 16-byte copies
+static int op_v16(const void* q, const void* k, const void* v, const void* d, long long bs,
+                  long long ts) {
+  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return al(q) && al(k) && al(v) && al(d) && bs % 4 == 0 && ts % 4 == 0;
+}
+
+static int onepass_fwd_f32(const float* q, const float* k, const float* v, float* o, int B,
+                           int S, int H, long long bs, long long ts, float scale,
+                           cudaStream_t st) {
+  const size_t smem = onepass_smem(S);
+  LAUNCH(set_smem(onepass_fwd_f32_kernel, smem));
+  const dim3 grid((S + OP_FWD_ROWS - 1) / OP_FWD_ROWS, H, B);
+  onepass_fwd_f32_kernel<<<grid, OP_THREADS, smem, st>>>(q, k, v, o, S, H, bs, ts, scale,
+                                                          op_v16(q, k, v, q, bs, ts));
+  return (int)cudaGetLastError();
+}
+
+// two launches, the statistics through ws (B * H * S * 3 floats)
+static int onepass_bwd_f32(const float* q, const float* k, const float* v, const float* dout,
+                           float* dq, float* dk, float* dv, float* ws, int B, int S, int H,
+                           long long bs, long long ts, long long gts, float scale,
+                           cudaStream_t st) {
+  const int v16 = op_v16(q, k, v, dout, bs, ts);
+  size_t smem = onepass_smem(S);
+  LAUNCH(set_smem(onepass_bwd_rows_f32_kernel, smem));
+  onepass_bwd_rows_f32_kernel<<<dim3((S + OP_BWD_ROWS - 1) / OP_BWD_ROWS, H, B), OP_THREADS,
+                                smem, st>>>(q, k, v, dout, dq, ws, S, H, bs, ts, gts, scale,
+                                            v16);
+  LAUNCH((int)cudaGetLastError());
+  smem = onepass_cols_smem();
+  LAUNCH(set_smem(onepass_bwd_cols_f32_kernel, smem));
+  onepass_bwd_cols_f32_kernel<<<dim3((S + OP_COLS_KEYS - 1) / OP_COLS_KEYS, H, B), OP_THREADS,
+                                smem, st>>>(q, k, v, dout, ws, dk, dv, S, H, bs, ts, gts, scale,
+                                            v16);
+  return (int)cudaGetLastError();
+}
+
 static int long_fwd_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
                         int H, long long bs, long long ts, float scale, cudaStream_t st) {
   const size_t smem = long_f32_smem(1, 0);
@@ -797,9 +1432,14 @@ static int long_bwd_f32(const float* q, const float* k, const float* v, const fl
 // Launches on the caller's stream
 // ---------------------------------------------------------------------------
 
+// Above FA_MAX_S keys the one-pass route up to OP_MAX_S, the multi-pass
+// route beyond it or where `multipass` (a test entry's choice) asks for it
 static int fwd_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
-                   int H, long long bs, long long ts, float scale, cudaStream_t st) {
-  if (S > FA_MAX_S) return long_fwd_f32(q, k, v, o, B, S, H, bs, ts, scale, st);
+                   int H, long long bs, long long ts, float scale, cudaStream_t st,
+                   bool multipass = false) {
+  if (S > FA_MAX_S)
+    return S <= OP_MAX_S && !multipass ? onepass_fwd_f32(q, k, v, o, B, S, H, bs, ts, scale, st)
+                                       : long_fwd_f32(q, k, v, o, B, S, H, bs, ts, scale, st);
   const size_t smem = fwd_smem(S);
   LAUNCH(set_smem(flash_fwd_kernel, smem));
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
@@ -809,9 +1449,12 @@ static int fwd_f32(const float* q, const float* k, const float* v, float* o, int
 
 static int bwd_f32(const float* q, const float* k, const float* v, const float* dout,
                    float* dq, float* dk, float* dv, float* ws, int B, int S, int H,
-                   long long bs, long long ts, long long gts, float scale, cudaStream_t st) {
+                   long long bs, long long ts, long long gts, float scale, cudaStream_t st,
+                   bool multipass = false) {
   if (S > FA_MAX_S)
-    return long_bwd_f32(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
+    return S <= OP_MAX_S && !multipass
+               ? onepass_bwd_f32(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st)
+               : long_bwd_f32(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
   size_t smem = bwd_rows_smem(S);
   LAUNCH(set_smem(flash_bwd_rows_kernel, smem));

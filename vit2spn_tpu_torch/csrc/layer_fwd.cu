@@ -62,14 +62,15 @@ extern "C" int vit2spn_attention_stage(const void* qkv, void* att, int B, int S,
 }
 
 // The fp32 layer's attention stage alone (csrc/flash_f32.cuh, as
-// launch_layer_f32 makes it): att (B * S, D) from qkv (B * S, 3 D), fp32
+// launch_layer_f32 makes it): att (B * S, D) from qkv (B * S, 3 D), fp32;
+// `multipass` set takes the multi-pass route above 256 keys at any S
 extern "C" int vit2spn_attention_stage_f32(const void* qkv, void* att, int B, int S, int H,
-                                           int D, void* stream) {
+                                           int D, int multipass, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
   const float* q = static_cast<const float*>(qkv);
   const long long ts = 3LL * D;
   return fwd_f32(q, q + D, q + 2 * D, static_cast<float*>(att), B, S, H, S * ts, ts,
-                 1.0f / sqrtf((float)FA_DH), static_cast<cudaStream_t>(stream));
+                 1.0f / sqrtf((float)FA_DH), static_cast<cudaStream_t>(stream), multipass != 0);
 }
 
 extern "C" int vit2spn_layer_fwd_launches(int D, int fp32) {

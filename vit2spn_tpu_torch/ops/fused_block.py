@@ -492,7 +492,7 @@ _SIGNATURES = {
         "vit2spn_attn_bwd_workspace_floats": ([_I] * 5, _LL),
         "vit2spn_attn_bwd_launches": ([_I] * 2, _I),
         "vit2spn_attention_core": ([_P] * 4 + [_I] * 4 + [_P], _I),
-        "vit2spn_attention_core_f32": ([_P] * 5 + [_I] * 4 + [_P], _I),
+        "vit2spn_attention_core_f32": ([_P] * 5 + [_I] * 5 + [_P], _I),
         "vit2spn_attention_core_max_seq": ([], _I),
         "vit2spn_long_scores_probe": ([_P] * 5, _I),
         "vit2spn_long_quotient_probe": ([_LL, _P, _P], _I),
@@ -503,7 +503,7 @@ _SIGNATURES = {
         "vit2spn_layer_fwd_launches": ([_I] * 2, _I),
         "vit2spn_layer_fwd_smem_bytes": ([_I] * 3, _I),
         "vit2spn_attention_stage": ([_P] * 2 + [_I] * 4 + [_P], _I),
-        "vit2spn_attention_stage_f32": ([_P] * 2 + [_I] * 4 + [_P], _I),
+        "vit2spn_attention_stage_f32": ([_P] * 2 + [_I] * 5 + [_P], _I),
     },
     "merged_bwd": {
         "vit2spn_merged_bwd": ([_P] * 37 + [_I] * 5 + [_F, _I, _I, _P], _I),
