@@ -115,13 +115,14 @@ script exits non-zero without printing a result:
      init_provenance "pretrained", every stage's entry present; for (c) and
      (d) the launches of backbone_fwd, mlp_bwd and attn_bwd predicted from
      the protocols' sizes, exactly, and no other wrapper; (e) `run ssp
-     --profile --epochs 1` on the staged npz: its profile_op lines name the
+     --profile --epochs 1` on a staged npz of PROFILE_IMAGES (cut from the
+     folder npz's 16,384 for time): its profile_op lines name the
      three wrappers' ranges, device_memory reads nonzero, model_info's
      backbone GFLOPs equal the products counted here; (f) `convert` of (d)'s
      export to .pth and back with equal leaves, `inspect`, and `plot roc` /
      `cm` of (c)'s cv_result.json;
  13. several ranks (parallel/), at the end: (a) `run ssp` cut to one epoch of
-     1,600 staged images at 2 x 128 with a checkpoint and --profile, plain
+     800 staged images at 2 x 128 with a checkpoint and --profile, plain
      and under torchrun (world size 1, NCCL): export and checkpoint equal bit
      for bit, the wrappers' calls as predicted in both; the `ssp` step at
      8 x 128 under torchrun timed (`chip_smoke.py --nccl-step`), with its
@@ -131,8 +132,8 @@ script exits non-zero without printing a result:
      BN (compare_steps), evaluate, each rank's launches equal world size
      1's, and a 2 x 128 bf16 step's wall, device and all-reduce time by
      rank; (c) `dryrun_multichip(2)` on the card (three OK lines, 27 sharded
-     leaves); (d) `parity --smoke` on the card through "xla", recorded in
-     its report, no kernel launched;
+     leaves) (its former (d), `parity --smoke`, runs in phase 17: the
+     kernels now take its head_dim 16);
  11. times with CUDA events after a warm-up: each kernel, its plain twin, a
      library yardstick (F.layer_norm / torch.matmul / SDPA / F.gelu, and
      their torch autograd for the backward kernels; for the flash kernels
@@ -203,7 +204,8 @@ script exits non-zero without printing a result:
      core at its longest S against its twin, one query tile past it refused
      by the C entry and by the wrappers' check. (b)
      ViT-Base/16-384 (`ssp-scratch -o vit=base -o vit.image_size=384 -o
-     data.augment.out_size=384`, bf16, cut to 2 x 64 images a step): step 1
+     data.augment.out_size=384`, bf16, cut to 2 x 64 images a step and to 6
+     of its 12 layers): step 1
      of "fused" against "xla" and the fp32 step, `fit` of two "fused"
      steps, one merged and one "pallas" step with every counter as
      predicted, the "fused" and "pallas" steps' device time by wrapper, and
@@ -235,6 +237,29 @@ script exits non-zero without printing a result:
      (c)'s attentions beside its bound (67 TFLOP/s), its twin and SDPA in
      fp32 (TF32 off). `python3 chip_smoke.py --fp32-long` runs the build
      and this phase alone.
+ 17. head_dim 16, 32 and 48 and D below 64 (the kernels' general route),
+     after phase 16 and before phase 13: (a) at D 32 / 64 / 96 (2 heads)
+     and D 192 at 12 / 6 / 4 heads, S = 5 / 50 / 197 / 256, ragged B, and
+     at the main path's B = 128 (S = 5 at D 32, 197 at D 192), bf16
+     and fp32: a 2-layer fused_backbone (with and without its stacks),
+     layer_fwd, mlp_bwd, attn_bwd, merged_bwd (equal to the split pair bit
+     for bit) and the flash pair against their twins (and fp32 or float64),
+     each wrapper's counter raised by one a call; (b) each route's CUDA
+     launches against the predicted counts, and in a fresh process
+     (`chip_smoke.py --hd-trace`) the device kernels of traced calls, equal
+     to the route's and to the predicted count; (c) two runs of each backward equal bit for bit; (d) the
+     main path: the tiny model (D 32, 2 heads, mlp 64, 2 layers, 32 px)
+     and ViT-Tiny's width at 6 and 4 heads through "fused": step 1 against
+     "plain" and "xla" and in fp32, `fit` through "fused", merged,
+     "fused_layer", "pallas" and fp32 "fused" with every counter as
+     predicted; at the tiny model `run ssp-scratch` in bf16 and fp32,
+     `extract`, `run ft-octmnist` from the export and `parity --smoke`
+     (moved here from phase 13 (d): it now logs "fused"); (e) each
+     kernel's time at D 192, B = 128, S = 197 per head_dim beside the
+     head_dim-64 route, the twin and the library call. `python3
+     chip_smoke.py --head-dim` runs the build and this phase alone, with
+     ptxas's registers and spills of every instantiation on head_dim 16,
+     32 and 48.
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
@@ -246,7 +271,10 @@ from phase 11; phase 14 adds an entry per kernel and width, named
 "<kernel> (D=384)" and "(D=768)", its `launches` from (b); phase 15 one per
 long route, "<route> (S>256)", its `launches` from (b), `ft_256px_launches`
 from (c) and its (c)-shape times in `at_256px`; phase 16 the same per fp32
-long route, "<route> (fp32, S>256)"); the last line is {"ok":
+long route, "<route> (fp32, S>256)"; phase 17 one per kernel and head_dim,
+"<kernel> (head_dim 16)" and so on, in fp32 too at head_dim 32, its
+`launches` from (d) at that head_dim, its times from (e) beside
+`head_dim_64_ms`); the last line is {"ok":
 true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
@@ -396,11 +424,34 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def ptxas_report(log: str, nt: int) -> list:
+# kernels templated on their key tiles first (then the head_dim and, for
+# the backward core, its forward-only mode), and those on the head_dim
+PTXAS_TILES_FIRST = ("attention_bwd_kernel", "flash_fwd_tc", "flash_bwd_rows_tc",
+                     "attention_kernel")
+PTXAS_HEAD_DIM_FIRST = ("flash_fwd_kernel", "flash_bwd_rows_kernel", "flash_bwd_cols_kernel",
+                        "flash_bwd_cols_tc")
+
+
+def ptxas_keep(base: str, ints: list, nt, head_dims: bool) -> bool:
+    """Whether ptxas_report lists a kernel: by default one line per kernel,
+    an attention kernel at `nt` key tiles and head_dim 64 only (the backward
+    core not in its forward-only mode); with `head_dims`, every attention
+    kernel at head_dim 16, 32 or 48, and the forward-only core."""
+    if base in PTXAS_TILES_FIRST:
+        dh, fwd = (ints[1] if len(ints) > 1 else 64), (ints[2] if len(ints) > 2 else 0)
+        if head_dims:
+            return dh != 64 or fwd == 1
+        return ints[:1] == [nt] and dh == 64 and fwd == 0
+    if base in PTXAS_HEAD_DIM_FIRST:
+        dh = ints[0] if ints else 64
+        return dh != 64 if head_dims else dh == 64
+    return not head_dims
+
+
+def ptxas_report(log: str, nt, head_dims: bool = False) -> list:
     """One line per kernel of a `ptxas -v` log: its registers and spill
-    stores. Of a kernel templated on its key tiles (the attention kernels:
-    a name with "attention" or "flash" and an int first template argument)
-    only the instantiation for `nt` tiles."""
+    stores, the attention kernels' instantiations as ptxas_keep picks
+    them."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function '_Z(\d+)(\w+)'", line)
@@ -408,8 +459,8 @@ def ptxas_report(log: str, nt: int) -> list:
             n = int(m.group(1))
             base, rest = m.group(2)[:n], m.group(2)[n:]
             args = re.match(r"I(.*?)E(E|v)", rest)
-            tiles = re.match(r"ILi(\d+)E", rest) if re.search("attention|flash", base) else None
-            name = None if tiles and int(tiles.group(1)) != nt else base + (
+            ints = [int(i) for i in re.findall(r"L[a-z](\d+)E", args.group(0))] if args else []
+            name = None if not ptxas_keep(base, ints, nt, head_dims) else base + (
                 "<%s>" % ",".join(re.findall(r"L[a-z](\d+)E", args.group(0)) or [args.group(1)])
                 if args else "")
             spill = "?"
@@ -1108,10 +1159,10 @@ def path_name(impl, merged, cfg) -> str:
     return f"{impl}{' merged' if merged else ''}{' fp32' if cfg.compute_dtype == 'float32' else ''}"
 
 
-def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False)):
+def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False), loss=True):
     """SSP step 1 from the same initial state through `path` and through the
-    reference path `ref`, each (attn_impl, merged backward): loss, Adam's
-    first moments, updated params."""
+    reference path `ref`, each (attn_impl, merged backward): loss (unless
+    `loss` is False: compare_steps), Adam's first moments, updated params."""
     from vit2spn_tpu_torch.train import checkpoint as ckpt
     from vit2spn_tpu_torch.train.ssp import SSPTrainer
     from vit2spn_tpu_torch.utils.logging import MetricLogger
@@ -1122,13 +1173,13 @@ def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False))
         os.environ["VIT2SPN_MERGED_BWD"] = "1" if merged else "0"
         tr = SSPTrainer(cfg, logger=quiet, attn_impl=impl, device="cuda")
         before = ckpt._flatten(tr.state)
-        loss = float(tr.train_step(images, (0, 0))["loss"])
-        out.append((loss, before, ckpt._flatten(tr.state)))
+        value = float(tr.train_step(images, (0, 0))["loss"])
+        out.append((value, before, ckpt._flatten(tr.state)))
         del tr
         torch.cuda.empty_cache()
     os.environ["VIT2SPN_MERGED_BWD"] = "0"
     compare_steps("step1", [path_name(*p, cfg) for p in (path, ref)], out, eps_lr,
-                  ("params/online/", "params/heads/"))
+                  ("params/online/", "params/heads/"), loss=loss)
 
 
 def pretrained_state(vit) -> dict:
@@ -1489,6 +1540,7 @@ UCSD_FILES = {"train": 480, "test": 32}  # per class: 2,048 merged over 4 classe
 UCSD_HW = (300, 320)
 FOLDER_FOLDS = 3  # `run ft-ucsdoct` cut from 10 folds
 FOLDER_STEP_IMAGES = 512  # the 256 px fine-tune step's dataset
+PROFILE_IMAGES = 4096  # (e): four `ssp` steps of 8 x 128 under the profiler
 # The augmentation at 256 px sources on the card against the same function on
 # the CPU from the same parameters: fp32 differs by the order of sums of the
 # band limit's and the resize's products and the warp's bilinear weights
@@ -1781,11 +1833,13 @@ def folder_path(ssp_trainer, card) -> dict:
         check_launches("run_parity", launches_d, want_d)
         total = {k: launches_c[k] + launches_d[k] for k in launches_c}
 
-        # (e) `run ssp --profile --epochs 1` on the staged npz
-        out_e = os.path.join(tmp, "ssp_profile")
+        # (e) `run ssp --profile --epochs 1` on a staged npz of PROFILE_IMAGES
+        out_e, root_e = os.path.join(tmp, "ssp_profile"), os.path.join(tmp, "profile_data")
+        os.makedirs(root_e)
+        stage_octmnist(root_e, {"train": PROFILE_IMAGES, "val": 8, "test": 8}, SEED + 12)
         t0 = time.perf_counter()
         rc = cli_main(["run", "ssp", "--profile", "--epochs", "1", "--output-dir", out_e,
-                       "-o", f"data.root={root}"])
+                       "-o", f"data.root={root_e}"])
         prof_s = time.perf_counter() - t0
         with open(os.path.join(out_e, "metrics.jsonl")) as f:
             events = [json.loads(line) for line in f]
@@ -1862,11 +1916,9 @@ def folder_path(ssp_trainer, card) -> dict:
 #       bf16 step, since its BN head's gradients cancel), evaluate's
 #       probabilities within FT_PROB_TOL, and each rank's kernel launches
 #       equal world size 1's;
-#   (c) dryrun_multichip(2) on the card: three OK lines, 27 sharded leaves;
-#   (d) `parity --smoke` on the card: the smoke geometry's head_dim 16
-#       trains through "xla" (no kernel launch), recorded in the report.
+#   (c) dryrun_multichip(2) on the card: three OK lines, 27 sharded leaves.
 PARALLEL_MICRO = {"backbone_fwd": 4, "mlp_bwd": 24, "attn_bwd": 24}  # dual stream
-PARALLEL_TRAIN = 1600  # `run ssp` of (a): 6 steps of 2 x 128 and a masked tail
+PARALLEL_TRAIN = 800  # `run ssp` of (a): 3 steps of 2 x 128 and a masked tail of 32
 PARALLEL_TIMEOUT = 600
 
 
@@ -1961,18 +2013,15 @@ def parallel_path(card: str, fused_totals: dict) -> dict:
     """Phase 13: (a) `run ssp` under torchrun vs plain, with the world-1 NCCL
     step's device and all-reduce time; (b) 2 gloo ranks on cuda:0 vs world
     size 1 at fp32 and bf16, and their step's wall and device time; (c)
-    dryrun_multichip(2) on the card; (d) `parity --smoke` on the card.
-    Returns rank 0's launches in (b)'s compared runs by kernel entry name
-    (the fp32 runs' under "<name> (fp32)")."""
-    import contextlib
-    import io
+    dryrun_multichip(2) on the card (`parity --smoke`, which now takes the
+    kernels' general route, runs in phase 17 (d)). Returns rank 0's launches
+    in (b)'s compared runs by kernel entry name (the fp32 runs' under
+    "<name> (fp32)")."""
     import tempfile
 
-    from vit2spn_tpu_torch.cli import main as cli_main
     from vit2spn_tpu_torch.core.presets import get_preset
     from vit2spn_tpu_torch.data.datasets import synthetic_dataset
     from vit2spn_tpu_torch.entry import dryrun_multichip, finetune_epoch, ssp_step
-    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
     from vit2spn_tpu_torch.parallel.launch import call_each, launch
     from vit2spn_tpu_torch.train import checkpoint as ckpt
     from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
@@ -1983,7 +2032,7 @@ def parallel_path(card: str, fused_totals: dict) -> dict:
     t_phase = time.perf_counter()
     quiet = MetricLogger(echo=False)
     with tempfile.TemporaryDirectory(prefix="vit2spn_parallel_") as tmp:
-        # (a) `run ssp` cut to 1 epoch of 1,600 staged images at 2 x 128, one
+        # (a) `run ssp` cut to 1 epoch of PARALLEL_TRAIN staged images at 2 x 128, one
         # checkpoint, with --profile (the wrappers' calls), plain and under torchrun
         ds = synthetic_dataset(image_size=28, seed=SEED,
                                split_sizes={"train": PARALLEL_TRAIN, "val": 8, "test": 8})
@@ -2121,22 +2170,6 @@ def parallel_path(card: str, fused_totals: dict) -> dict:
         if len(lines) != 3 or not lines[2].endswith("tp_sharded_leaves=27"):
             raise AssertionError(f"dryrun_multichip(2): {lines}")
 
-        # (d) `parity --smoke` on the card: its head_dim 16 trains through "xla"
-        out_d = os.path.join(tmp, "parity_smoke")
-        t0 = time.perf_counter()
-        reset_launches()
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli_main(["parity", "--smoke", "--epochs", "1", "--ft-epochs", "1",
-                           "--skip-multitrial", "--out", out_d])
-        launched = read_launches()
-        with open(os.path.join(out_d, "parity_report.json")) as f:
-            report = json.load(f)
-        log(f"[parallel] (d) parity --smoke on cuda: rc {rc} in "
-            f"{time.perf_counter() - t0:.1f} s, attn_impl {report.get('attn_impl')}, status "
-            f"{report['status'][:40]!r}, kernel launches {launched}")
-        if rc != 0 or report.get("attn_impl") != "xla" or any(launched.values()) \
-                or not report["status"].startswith("SMOKE"):
-            raise AssertionError(f"parity --smoke on the card: rc {rc}, {report.get('attn_impl')}")
     log(f"[parallel] phase 13 in {time.perf_counter() - t_phase:.1f} s")
     return launched_b
 
@@ -2231,16 +2264,16 @@ def extract_path(trainer, ds, impl, feats_plain, want, tol=FEATURE_REL_TOL,
     return feats
 
 
-def flash_bound_ms(kind, b, s, heads, fp32=False) -> tuple:
+def flash_bound_ms(kind, b, s, heads, fp32=False, dh=64) -> tuple:
     """Least time for one attention forward or backward over (b, s, heads,
-    64) bf16 (or fp32): the products it needs (forward Q K^T and P V;
-    backward Q K^T recomputed, dV, dP, dQ, dK; each 2 S^2 64 per (image,
+    dh) bf16 (or fp32): the products it needs (forward Q K^T and P V;
+    backward Q K^T recomputed, dV, dP, dQ, dK; each 2 S^2 dh per (image,
     head)) over the bf16 peak (the fp32 peak outside the tensor cores), vs
     q, k, v (and dO) read once and o (dq, dk, dv) written once. Returns (ms,
     "operations" | "bytes", flops)."""
     products, tensors = (2, 4) if kind == "fwd" else (5, 7)
-    flops = b * heads * products * 2 * s * s * 64
-    nbytes = tensors * b * s * heads * 64 * (4 if fp32 else 2)
+    flops = b * heads * products * 2 * s * s * dh
+    nbytes = tensors * b * s * heads * dh * (4 if fp32 else 2)
     t_ops = flops / (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
@@ -2348,7 +2381,7 @@ def zoo_kernels(fb, dev) -> dict:
                  "merged_bwd": lambda: fb.merged_bwd(x, x2, g, w, heads, eps, True)}
         for name, fn in calls.items():
             check_zoo_call(f"{label} {name} B={b} S={s}", name, fn, d,
-                           fb.cuda_launches(name, None, d, 0))
+                           fb.cuda_launches(name, None, d, 0, heads=heads, mlp=mlp))
         errs[d] = worst
         del w, x, x2, g
         torch.cuda.empty_cache()
@@ -2433,8 +2466,8 @@ def zoo_forward(fb, dev) -> dict:
             raise AssertionError(f"the per-layer forward differs from the backbone at D={d}")
         calls = {"backbone_fwd": lambda: fb.fused_backbone(x, wt, heads, eps, fast, True),
                  "layer_fwd": lambda: fb.layer_fwd(x, w0, heads, eps, fast)}
-        n_cuda = {"backbone_fwd": 12 * fb.kernel_launches_per_layer(d),
-                  "layer_fwd": fb.cuda_launches("layer_fwd", None, d, 0)}
+        n_cuda = {"backbone_fwd": 12 * fb.kernel_launches_per_layer(d, False, heads, mlp),
+                  "layer_fwd": fb.cuda_launches("layer_fwd", None, d, 0, heads=heads, mlp=mlp)}
         for name, fn in calls.items():
             check_zoo_call(f"{label} {name} B={b} S={s}", name, fn, d, n_cuda[name])
         errs[d] = worst
@@ -2599,6 +2632,17 @@ def zoo_extract(card) -> None:
         torch.cuda.empty_cache()
 
 
+def stage_octmnist(tmp, splits, seed) -> None:
+    """An octmnist.npz of 28 px synthetic sources with `splits` in tmp, as
+    the loader reads the published file."""
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+
+    ds = synthetic_dataset(image_size=28, seed=seed, split_sizes=splits)
+    np.savez(os.path.join(tmp, "octmnist.npz"),
+             **{f"{k}_images": ds.images[ds.splits[k], ..., 0] for k in ds.splits},
+             **{f"{k}_labels": ds.labels[ds.splits[k], None] for k in ds.splits})
+
+
 def zoo_cli(card) -> None:
     """Phase 14 (d): through the CLI at ViT-Small, on a staged octmnist.npz
     (ZOO_CLI_SPLITS): `run ssp-scratch -o vit=small` for one epoch, then
@@ -2610,15 +2654,12 @@ def zoo_cli(card) -> None:
     from vit2spn_tpu_torch.cli import _apply_overrides
     from vit2spn_tpu_torch.cli import main as cli_main
     from vit2spn_tpu_torch.core.presets import get_preset
-    from vit2spn_tpu_torch.data.datasets import load_dataset, synthetic_dataset
+    from vit2spn_tpu_torch.data.datasets import load_dataset
     from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
 
     label, vit = ZOO[0][:2]
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
-        ds = synthetic_dataset(image_size=28, seed=SEED + 15, split_sizes=ZOO_CLI_SPLITS)
-        np.savez(os.path.join(tmp, "octmnist.npz"),
-                 **{f"{k}_images": ds.images[ds.splits[k], ..., 0] for k in ds.splits},
-                 **{f"{k}_labels": ds.labels[ds.splits[k], None] for k in ds.splits})
+        stage_octmnist(tmp, ZOO_CLI_SPLITS, SEED + 15)
         common = ["-o", f"vit={vit}", "-o", f"data.root={tmp}"]
         cfg = _apply_overrides(get_preset("ssp-scratch"), [f"vit={vit}", f"data.root={tmp}"])
         a, layers = cfg.accumulation_steps, cfg.vit.num_layers
@@ -2770,31 +2811,31 @@ def zoo_times(fb, card, dev, launches=None, errs=None) -> list:
         timed = (
             ("backbone_fwd", "backbone_fwd.cu", "vit2spn_tpu/ops/fused_block.py:694",
              backbone_bound_ms(BATCH, s, d, heads, mlp, 12, wt),
-             12 * fb.kernel_launches_per_layer(d),
+             12 * fb.kernel_launches_per_layer(d, False, heads, mlp),
              lambda: fb.fused_backbone(x, wt, heads, eps, fast),
              lambda: fb.backbone_forward_plain(x, wt, heads, eps, fast),
              lambda: library_backbone(x, wt, heads, eps)),
             ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
              backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w0, acts=3),
-             fb.cuda_launches("layer_fwd", None, d, 0),
+             fb.cuda_launches("layer_fwd", None, d, 0, heads=heads, mlp=mlp),
              lambda: fb.layer_fwd(xb, w0, heads, eps, fast),
              lambda: fb.layer_forward_plain(xb, w0, heads, eps, fast),
              lambda: library_backbone(xb, tuple(t[:1] for t in wt), heads, eps)),
             ("mlp_bwd", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342",
              bwd_bound_ms("mlp", TRAIN_BATCH, s, d, heads, mlp, wl),
-             fb.cuda_launches("mlp_bwd", None, d, 0),
+             fb.cuda_launches("mlp_bwd", None, d, 0, heads=heads, mlp=mlp),
              lambda: fb.mlp_bwd(x2b, gb, wl, eps, fast),
              lambda: fb.mlp_bwd_plain(x2b, gb, wl, eps, fast),
              lambda: library_mlp_half(x2b, gb, wl, eps)),
             ("attn_bwd", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357",
              bwd_bound_ms("attn", TRAIN_BATCH, s, d, heads, mlp, wl),
-             fb.cuda_launches("attn_bwd", None, d, 0),
+             fb.cuda_launches("attn_bwd", None, d, 0, heads=heads, mlp=mlp),
              lambda: fb.attn_bwd(xb, gb, wl, heads, eps),
              lambda: fb.attn_bwd_plain(xb, gb, wl, heads, eps),
              lambda: library_attn_half(xb, gb, wl, heads, eps)),
             ("merged_bwd", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
              bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl),
-             fb.cuda_launches("merged_bwd", None, d, 0),
+             fb.cuda_launches("merged_bwd", None, d, 0, heads=heads, mlp=mlp),
              lambda: fb.merged_bwd(xb, x2b, gb, wl, heads, eps, fast),
              lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast),
              lambda: library_attn_half(xb, library_mlp_half(x2b, gb, wl, eps)[0].to(xb.dtype),
@@ -2891,24 +2932,26 @@ def attention_stage_plain(qkv, heads):
     return mha_plain(q, k, v).reshape(b, s, d3 // 3)
 
 
-def check_rel(tag, names, got, ref, ref32) -> float:
+def check_rel(tag, names, got, ref, ref32, what="long") -> float:
     """Each output against its twin (BWD_*_REL_TOL of the twin's largest
-    magnitude) and as close to the fp32 function as the twin. Returns the
-    largest absolute difference from the twin."""
+    magnitude) and, unless `ref32` is None, as close to the fp32 function as
+    the twin. Returns the largest absolute difference from the twin."""
     worst, worst_rel = 0.0, 0.0
-    for n, a, b, c in zip(names, got, ref, ref32):
+    for i, (n, a, b) in enumerate(zip(names, got, ref)):
         mx_rel, mean_rel = rel_err(a, b)
-        e_k, e_t = rel_err(a, c)[1], rel_err(b, c)[1]
         if not (mx_rel <= BWD_MAX_REL_TOL and mean_rel <= BWD_MEAN_REL_TOL):
             raise AssertionError(f"{tag}: {n} disagrees with its twin (max {mx_rel:.3g}, mean "
                                  f"{mean_rel:.3g} relative)")
-        if not e_k <= KERNEL_VS_FP32_RATIO * e_t + BWD_VS_FP32_SLACK:
-            raise AssertionError(f"{tag}: {n} is further from fp32 than its twin ({e_k:.4g} vs "
-                                 f"{e_t:.4g})")
+        if ref32 is not None:
+            e_k, e_t = rel_err(a, ref32[i])[1], rel_err(b, ref32[i])[1]
+            if not e_k <= KERNEL_VS_FP32_RATIO * e_t + BWD_VS_FP32_SLACK:
+                raise AssertionError(f"{tag}: {n} is further from fp32 than its twin ({e_k:.4g} "
+                                     f"vs {e_t:.4g})")
         worst = max(worst, float((a.float() - b.float()).abs().max()))
         worst_rel = max(worst_rel, mx_rel)
-    log(f"[long-vs-plain] {tag}: largest relative difference {worst_rel:.3g} over "
-        f"{', '.join(names)} (tol {BWD_MAX_REL_TOL}, {BWD_MEAN_REL_TOL}); vs fp32 within the twin")
+    log(f"[{what}-vs-plain] {tag}: largest relative difference {worst_rel:.3g} over "
+        f"{', '.join(names)} (tol {BWD_MAX_REL_TOL}, {BWD_MEAN_REL_TOL})"
+        + ("; vs fp32 within the twin" if ref32 is not None else ""))
     return worst
 
 
@@ -3161,13 +3204,13 @@ def long_calls(fb, fa, dev, dtype=torch.bfloat16) -> None:
     q, k, v, do = flash_operands(gen, 1, s, heads, dtype, dev)
     calls = (
         ("backbone_fwd", "attention_fwd", layers,
-         fb.kernel_launches_per_layer(d, bool(fp32)) * layers,
+         fb.kernel_launches_per_layer(d, bool(fp32), heads, mlp) * layers,
          lambda: fb.fused_backbone(x, wt, heads, eps, True)),
-        ("layer_fwd", "attention_fwd", 1, fb.cuda_launches("layer_fwd", None, d, fp32),
+        ("layer_fwd", "attention_fwd", 1, fb.cuda_launches("layer_fwd", None, d, fp32, heads=heads, mlp=mlp),
          lambda: fb.layer_fwd(x, tuple(t[0] for t in wt), heads, eps, True)),
-        ("attn_bwd", "attention_bwd", 1, fb.cuda_launches("attn_bwd", None, d, fp32),
+        ("attn_bwd", "attention_bwd", 1, fb.cuda_launches("attn_bwd", None, d, fp32, heads=heads, mlp=mlp),
          lambda: fb.attn_bwd(x, g, w, heads, eps)),
-        ("merged_bwd", "attention_bwd", 1, fb.cuda_launches("merged_bwd", None, d, fp32),
+        ("merged_bwd", "attention_bwd", 1, fb.cuda_launches("merged_bwd", None, d, fp32, heads=heads, mlp=mlp),
          lambda: fb.merged_bwd(x, x2, g, w, heads, eps, True)),
         ("flash_fwd", "flash_fwd", 1, fb.cuda_launches("flash_fwd", fa.KERNEL_NAME),
          lambda: fa.flash_fwd(q, k, v)),
@@ -3192,9 +3235,12 @@ def long_calls(fb, fa, dev, dtype=torch.bfloat16) -> None:
 # layers, mlp 3072, S = 577), through the CLI's overrides of `ssp-scratch`,
 # bf16. The steps are cut from 8 x 128 to LONG_MICRO x LONG_ACCUM images for
 # the phase's time (the "xla" reference's scores alone are 1 GB a layer at
-# 64 images); extract takes LONG_EXTRACT images at batch LONG_EXTRACT_BATCH.
+# 64 images), and the depth from 12 layers to LONG_TRAIN_LAYERS for the
+# script's (phase 16 (b) takes the same cuts); extract takes LONG_EXTRACT
+# images at batch LONG_EXTRACT_BATCH.
 LONG_OVERRIDES = ("vit=base", "vit.image_size=384", "data.augment.out_size=384")
 LONG_MICRO, LONG_ACCUM = 64, 2
+LONG_TRAIN_LAYERS = 6
 LONG_EXTRACT, LONG_EXTRACT_BATCH = 512, 128
 # (c): `run ft-ucsdoct` at 256 px (S = 257), cut to 2 folds and 1 epoch,
 # from random init (the pretrained and SSP inits are 224 px geometries)
@@ -3218,15 +3264,16 @@ def long_training(card) -> dict:
     from vit2spn_tpu_torch.utils.logging import MetricLogger
 
     cfg = _apply_overrides(get_preset("ssp-scratch"), [
-        *LONG_OVERRIDES, f"batch_size={LONG_MICRO}", f"accumulation_steps={LONG_ACCUM}"])
+        *LONG_OVERRIDES, f"batch_size={LONG_MICRO}", f"accumulation_steps={LONG_ACCUM}",
+        f"vit.num_layers={LONG_TRAIN_LAYERS}"])
     vit = cfg.vit
     geom = (vit.image_size, vit.hidden_size, vit.num_heads, vit.mlp_dim, vit.num_layers,
             vit.seq_len, cfg.compute_dtype)
-    if geom != (384, 768, 12, 3072, 12, 577, "bfloat16"):
+    if geom != (384, 768, 12, 3072, LONG_TRAIN_LAYERS, 577, "bfloat16"):
         raise AssertionError(f"the ViT-Base/16-384 overrides gave {geom}")
     eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, vit.num_layers
     log(f"[long] (b) ViT-Base/16-384 SSP: S={vit.seq_len}, D={vit.hidden_size}, "
-        f"{a} x {cfg.batch_size} (cut from 8 x 128), bf16")
+        f"{a} x {cfg.batch_size} (cut from 8 x 128), {layers} layers (cut from 12), bf16")
     tds = synthetic_dataset(split_sizes={"train": 2 * eff}, image_size=28,
                             seed=SEED + 15).split("train")
     t0 = time.perf_counter()
@@ -3687,15 +3734,15 @@ def fp32_long_training(card) -> dict:
 
     cfg = _apply_overrides(get_preset("ssp-scratch"), [
         *LONG_OVERRIDES, "compute_dtype=float32", f"batch_size={LONG_MICRO}",
-        f"accumulation_steps={LONG_ACCUM}"])
+        f"accumulation_steps={LONG_ACCUM}", f"vit.num_layers={LONG_TRAIN_LAYERS}"])
     vit = cfg.vit
     geom = (vit.image_size, vit.hidden_size, vit.num_heads, vit.mlp_dim, vit.num_layers,
             vit.seq_len, cfg.compute_dtype)
-    if geom != (384, 768, 12, 3072, 12, 577, "float32"):
+    if geom != (384, 768, 12, 3072, LONG_TRAIN_LAYERS, 577, "float32"):
         raise AssertionError(f"the fp32 ViT-Base/16-384 overrides gave {geom}")
     eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, vit.num_layers
     log(f"[fp32-long] (b) ViT-Base/16-384 SSP: S={vit.seq_len}, D={vit.hidden_size}, "
-        f"{a} x {cfg.batch_size} (cut from 8 x 128), fp32")
+        f"{a} x {cfg.batch_size} (cut from 8 x 128), {layers} layers (cut from 12), fp32")
     tds = synthetic_dataset(split_sizes={"train": eff}, image_size=28,
                             seed=SEED + 16).split("train")
     t0 = time.perf_counter()
@@ -3793,6 +3840,615 @@ def fp32_long_path(fb, fa, card, dev) -> list:
     return long_entries(times, launches, ft_launches, errs, fp32=True)
 
 
+# Phase 17: head_dim 16, 32 and 48, and D below 64: the general route of
+# every kernel (ops/fused_block.py geometry_route, csrc/common.cuh
+# general_route): the seven-launch forward layer in bf16 and fp32, the
+# backward halves' sequences, the S <= 256 attention kernels instantiated on
+# the head_dim. (a) At HD_GEOMS and HD_SHAPES (ragged B, S = 5 / 50 / 197 /
+# 256) and at the main path's own B and S (HD_MAIN_SHAPES: 128 x 5 at D 32,
+# 128 x 197 at D 192), bf16 and fp32: a 2-layer fused_backbone (with and without the
+# emit_res stacks), layer_fwd, mlp_bwd, attn_bwd, merged_bwd (equal to the
+# split pair bit for bit) and the flash pair, each against its plain twin
+# (bf16: BWD_*_REL_TOL of the twin's largest magnitude, and as close to the
+# fp32 function as the twin where B S >= 100; fp32: FP32_TOL and float64, as
+# phase 7b; the flash pair as phase 5), every wrapper's counter raised by
+# one a call. (b) Each route's CUDA launches (the C entries' counts) against
+# the prediction of hd_predicted_launches, and in a fresh process (`--hd-trace`)
+# the device kernels a trace of STAGE_CALLS calls holds: exactly the route's
+# kernels, STAGE_CALLS times the prediction. (c) Two runs of each backward
+# equal bit for bit. (d) The main path: the tiny model (HD_TINY: D 32, 2
+# heads, mlp 64, 2 layers, 32 px) and ViT-Tiny's width at 6 and 4 heads on
+# the card through "fused": step 1 against "xla" (bf16, with the fp32 step
+# at the tiny model) and in fp32; `fit` through
+# "fused", "fused" merged, "fused_layer" and "pallas" with every counter as
+# predicted; `run ssp-scratch` at the tiny model in bf16 and fp32, `extract`
+# and `run ft-octmnist` from its export, and `parity --smoke`, which now
+# takes "fused" and records it. (e) The times at ViT-Tiny's width (D 192,
+# B = 128, S = 197) for each head_dim beside the head_dim-64 route and the
+# library call. `python3 chip_smoke.py --head-dim` runs the build and this
+# phase alone.
+HD_GEOMS = (("hd16 D=32", 32, 2, 64), ("hd32 D=64", 64, 2, 128), ("hd48 D=96", 96, 2, 384),
+            ("hd16 D=192", 192, 12, 768), ("hd32 D=192", 192, 6, 768),
+            ("hd48 D=192", 192, 4, 768))
+HD_SHAPES = ((3, 5), (2, 50), (5, 197), (2, 256))  # (B, S)
+# ... and, by D, the (B, S) the main path (d) gives the kernels there: the
+# tiny model's microbatch of 128 at S = 5, ViT-Tiny's of 128 at S = 197 (its
+# GEMMs' M = 25,216: the masked column tiles and the weight-gradient splits
+# at the main path's M)
+HD_MAIN_SHAPES = {32: ((128, 5),), 192: ((128, 197),)}
+HD_DIMS = (16, 32, 48)
+HD_TIME_B, HD_TIME_S, HD_TIME_D, HD_TIME_MLP = 128, 197, 192, 768
+HD_TIME_HEADS = ((16, 12), (32, 6), (48, 4), (64, 3))  # (head_dim, heads) at D 192
+HD_TINY = ("vit.image_size=32", "vit.hidden_size=32", "vit.num_layers=2", "vit.num_heads=2",
+           "vit.mlp_dim=64", "data.augment.out_size=32")
+HD_TINY_SPLITS = {"train": 512, "val": 64, "test": 128}  # (d): two SSP steps of 2 x 128
+HD_KERNELS = (("backbone_fwd", "backbone_fwd.cu", "vit2spn_tpu/ops/fused_block.py:694"),
+              ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170"),
+              ("mlp_bwd", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342"),
+              ("attn_bwd", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357"),
+              ("merged_bwd", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375"),
+              ("flash_fwd", "flash_attention.cu", "vit2spn_tpu/ops/flash_attention.py:36"),
+              ("flash_bwd", "flash_attention.cu", "vit2spn_tpu/ops/flash_attention.py:53"))
+
+
+def hd_predicted_launches(name, d, heads, mlp, fp32) -> int:
+    """CUDA launches of one wrapper call (a forward: per layer) as the
+    routes are written: the forward's 3-launch fused layer at head_dim 64, D
+    and mlp multiples of 64, D <= 256, else 7; the backward halves' kit (5
+    and 6, the wide route 7 and 7) at bf16, D and mlp multiples of 64 and
+    head_dim 64 (the MLP half: any head_dim), else the sequences (10, and 11
+    in bf16 or 13 in fp32); merged the kit's 10 / 13, else its halves' in a
+    row; the flash pair 1 and 2."""
+    kit = not fp32 and d % 64 == 0 and (d <= 256 or d in (384, 768))
+    kit_mlp, kit_attn = kit and mlp % 64 == 0, kit and d == 64 * heads
+    general = d % 64 or mlp % 64 or d != 64 * heads
+    n_mlp = (7 if d > 256 else 5) if kit_mlp else 10
+    n_attn = (7 if d > 256 else 6) if kit_attn else (13 if fp32 else 11)
+    return {"backbone_fwd": 7 if fp32 or general or d > 256 else 3,
+            "layer_fwd": 7 if fp32 or general or d > 256 else 3,
+            "mlp_bwd": n_mlp, "attn_bwd": n_attn,
+            "merged_bwd": ((13 if d > 256 else 10) if kit_mlp and kit_attn
+                           else n_mlp + n_attn),
+            "flash_fwd": 1, "flash_bwd": 2}[name]
+
+
+def hd_operands(gen, b, s, d, heads, dtype, dev):
+    """x, x2, an output gradient (B, S, D) and flash operands (views of one
+    (B, S, 3D) qkv and dO, head_dim D / heads) in `dtype`."""
+    dh = d // heads
+    x, x2 = (torch.randn(b, s, d, generator=gen) for _ in range(2))
+    g = 0.1 * torch.randn(b, s, d, generator=gen)
+    qkv = torch.randn(b, s, 3 * d, generator=gen).to(dtype).to(dev)
+    q, k, v = (t.reshape(b, s, heads, dh) for t in qkv.split(d, dim=-1))
+    do = (0.1 * torch.randn(b, s, heads, dh, generator=gen)).to(dtype).to(dev)
+    return (*(t.to(dtype).to(dev) for t in (x, x2, g)), q, k, v, do)
+
+
+def hd_counted(fb, name, fn):
+    """fn() with the wrapper `name`'s counter checked to rise by one."""
+    wrapper = kernel_counters()[name]
+    before = wrapper.launches
+    out = fn()
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        raise AssertionError(f"{name} did not count its launch ({wrapper.launches - before})")
+    return out
+
+
+def hd_flat(out, names):
+    return [out[0], *[out[1][n] for n in names]]
+
+
+def hd_kernels(fb, fa, dev) -> dict:
+    """Phase 17 (a). Returns {(kernel, head_dim, dtype): largest absolute
+    difference from the twin}."""
+    eps, errs = 1e-12, {}
+
+    def note(name, dh, dt, e):
+        key = (name, dh, dt)
+        errs[key] = max(errs.get(key, 0.0), e)
+
+    for label, d, heads, mlp in HD_GEOMS:
+        dh = d // heads
+        gen = torch.Generator().manual_seed(SEED + 17 + d + heads)
+        wt = random_backbone(gen, 2, d, mlp, dev)
+        wt32 = tuple(t.float() for t in wt)
+        w = layer_weights(fb.WEIGHT_NAMES, wt)
+        w32 = {n: t.float() for n, t in w.items()}
+        w0 = tuple(t[0] for t in wt)
+        for b, s in HD_SHAPES + HD_MAIN_SHAPES.get(d, ()):
+            fast = s % 2 == 1
+            tag = f"{label} heads={heads} mlp={mlp} B={b} S={s} fast_gelu={fast}"
+            x, x2, g, q, k, v, do = hd_operands(gen, b, s, d, heads, torch.bfloat16, dev)
+            vs32 = b * s >= 100
+            # bf16: the forwards, the halves, merged (equal to the split pair), flash
+            for emit in (False, True):
+                got = hd_counted(fb, "backbone_fwd",
+                                 lambda: fb.fused_backbone(x, wt, heads, eps, fast, emit))
+                ref = fb.backbone_forward_plain(x, wt, heads, eps, fast, emit)
+                ref32 = fb.backbone_forward_plain(x.float(), wt32, heads, eps, fast, emit)
+                got, ref, ref32 = ((got, ref, ref32) if emit else ((got,), (ref,), (ref32,)))
+                note("backbone_fwd", dh, "bf16", check_rel(
+                    f"{tag} emit_res={emit}", ("out", "xs", "x2s")[:len(got)], got, ref,
+                    ref32 if vs32 else None, "hd-backbone_fwd"))
+            got = hd_counted(fb, "layer_fwd", lambda: fb.layer_fwd(x, w0, heads, eps, fast))
+            note("layer_fwd", dh, "bf16", check_rel(
+                tag, ("out", "x2"), got, fb.layer_forward_plain(x, w0, heads, eps, fast),
+                fb.layer_forward_plain(x.float(), tuple(t[0] for t in wt32), heads, eps, fast)
+                if vs32 else None, "hd-layer_fwd"))
+            for name, names, kernel, twin, fp32 in (
+                    ("mlp_bwd", ("dx2",) + fb.MLP_NAMES,
+                     lambda: fb.mlp_bwd(x2, g, w, eps, fast),
+                     lambda: fb.mlp_bwd_plain(x2, g, w, eps, fast),
+                     lambda: fb.mlp_bwd_plain(x2.float(), g.float(), w32, eps, fast)),
+                    ("attn_bwd", ("dx",) + fb.ATTN_NAMES,
+                     lambda: fb.attn_bwd(x, g, w, heads, eps),
+                     lambda: fb.attn_bwd_plain(x, g, w, heads, eps),
+                     lambda: fb.attn_bwd_plain(x.float(), g.float(), w32, heads, eps))):
+                got = hd_flat(hd_counted(fb, name, kernel), names[1:])
+                note(name, dh, "bf16", check_rel(
+                    tag, names, got, hd_flat(twin(), names[1:]),
+                    hd_flat(fp32(), names[1:]) if vs32 else None, f"hd-{name}"))
+            merged = hd_counted(fb, "merged_bwd",
+                                lambda: fb.merged_bwd(x, x2, g, w, heads, eps, fast))
+            dx2, mg = fb.mlp_bwd(x2, g, w, eps, fast)
+            sdx, sg = fb.attn_bwd(x, dx2, w, heads, eps)
+            split = [sdx, *[{**mg, **sg}[n] for n in fb.WEIGHT_NAMES]]
+            got = hd_flat(merged, fb.WEIGHT_NAMES)
+            share = min(equal_bits(a, b_) for a, b_ in zip(got, split))
+            if share != 1.0:
+                raise AssertionError(f"merged_bwd differs from the split pair bit for bit ({tag})")
+            note("merged_bwd", dh, "bf16", check_rel(
+                f"{tag} (equal bits with the split pair)", ("dx",) + fb.WEIGHT_NAMES, got,
+                hd_flat(fb.merged_bwd_plain(x, x2, g, w, heads, eps, fast), fb.WEIGHT_NAMES),
+                hd_flat(fb.merged_bwd_plain(x.float(), x2.float(), g.float(), w32, heads, eps,
+                                            fast), fb.WEIGHT_NAMES) if vs32 else None,
+                "hd-merged_bwd"))
+            before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+            fl = check_flash(f"{tag} bf16", q, k, v, do)
+            if (fa.flash_fwd.launches, fa.flash_bwd.launches) != (before[0] + 1, before[1] + 1):
+                raise AssertionError(f"the flash pair did not count its launches ({tag})")
+            note("flash_fwd", dh, "bf16", fl["flash_fwd"])
+            note("flash_bwd", dh, "bf16", fl["flash_bwd"])
+            # fp32: the four one-layer kernels (check_fp32_layer counts
+            # them), the 2-layer backbone, the flash pair
+            for n_, e in check_fp32_layer(tag, fb, x.float(), x2.float(), g.float(), w, heads,
+                                          eps, fast).items():
+                note(n_, dh, "fp32", e)
+            x32 = x.float()
+            got = hd_counted(fb, "backbone_fwd",
+                             lambda: fb.fused_backbone(x32, wt32, heads, eps, fast))
+            note("backbone_fwd", dh, "fp32", check_fp32_outputs(
+                "backbone_fwd-fp32", tag, ("out",), [got],
+                [fb.backbone_forward_plain(x32, wt32, heads, eps, fast)],
+                [fb.backbone_forward_plain(x.double(), tuple(t.double() for t in wt), heads,
+                                           eps, fast)], FP32_TOL))
+            fl = check_flash(f"{tag} fp32", *(t.float() for t in (q, k, v, do)))
+            note("flash_fwd", dh, "fp32", fl["flash_fwd"])
+            note("flash_bwd", dh, "fp32", fl["flash_bwd"])
+        del wt, wt32, w, w32
+        torch.cuda.empty_cache()
+    return errs
+
+
+# The kernels each wrapper's route runs at ViT-Tiny's width with 6 heads
+# (head_dim 32: the general route, whose MLP half keeps the bf16 kit at D
+# 192), by (wrapper, fp32)
+HD_SEQ_BWD = {"layernorm_kernel", "ln_bwd_kernel", "reduce_partials_kernel"}
+HD_ROUTE_KERNELS = {
+    ("backbone_fwd", 0): {"layernorm_kernel", "gemm_kernel", "attention_bwd_kernel"},
+    ("backbone_fwd", 1): {"layernorm_kernel", "gemm_f32_kernel", "flash_fwd_kernel"},
+    ("mlp_bwd", 0): {"rowblock_gemm_kernel", "wgrad_kernel", "reduce_all_kernel"},
+    ("mlp_bwd", 1): HD_SEQ_BWD | {"gemm_f32_kernel"},
+    ("attn_bwd", 0): HD_SEQ_BWD | {"gemm_kernel", "attention_bwd_kernel"},
+    ("attn_bwd", 1): HD_SEQ_BWD | {"gemm_f32_kernel", "flash_fwd_kernel",
+                                   "flash_bwd_rows_kernel", "flash_bwd_cols_kernel"},
+    ("flash_fwd", 0): {"flash_fwd_tc"},
+    ("flash_fwd", 1): {"flash_fwd_kernel"},
+    ("flash_bwd", 0): {"flash_bwd_rows_tc", "flash_bwd_cols_tc"},
+    ("flash_bwd", 1): {"flash_bwd_rows_kernel", "flash_bwd_cols_kernel"},
+}
+for _fp32 in (0, 1):
+    HD_ROUTE_KERNELS[("layer_fwd", _fp32)] = HD_ROUTE_KERNELS[("backbone_fwd", _fp32)]
+    HD_ROUTE_KERNELS[("merged_bwd", _fp32)] = (HD_ROUTE_KERNELS[("mlp_bwd", _fp32)]
+                                               | HD_ROUTE_KERNELS[("attn_bwd", _fp32)])
+
+
+def kernel_base(name: str) -> str:
+    """A traced kernel's function name without its template arguments."""
+    m = re.search(r"([A-Za-z_]\w*)\s*[<(]", re.sub(r"^void ", "", name))
+    return m.group(1) if m else name
+
+
+def hd_launch_counts(fb, fa) -> None:
+    """Phase 17 (b), (c): each route's CUDA launches at every HD_GEOMS
+    geometry and dtype as the C entries count them against
+    hd_predicted_launches, then hd_trace in a fresh process (`python3
+    chip_smoke.py --hd-trace`): late in the whole script a trace in this
+    process drops device kernels (PR 20's full runs: 27 of 70 backbone_fwd
+    kernels, 0 of 10 flash_fwd), while the first traces of a process hold
+    them all."""
+    for label, d, heads, mlp in HD_GEOMS:
+        got, want = {}, {}
+        for fp32 in (0, 1):
+            for name, _, _ in HD_KERNELS:
+                tag = f"{name}{' fp32' if fp32 else ''}"
+                if name == "backbone_fwd":
+                    got[tag] = fb.kernel_launches_per_layer(d, bool(fp32), heads, mlp)
+                elif name.startswith("flash"):
+                    got[tag] = fb.cuda_launches(name, fa.KERNEL_NAME)
+                else:
+                    got[tag] = fb.cuda_launches(name, None, d, fp32, heads=heads, mlp=mlp)
+                want[tag] = hd_predicted_launches(name, d, heads, mlp, fp32)
+        log(f"[hd-launches] {label} heads={heads} mlp={mlp}: CUDA launches per call (forwards "
+            f"per layer) {got}")
+        if got != want:
+            raise AssertionError(f"{label}: CUDA launches {got}, predicted {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--hd-trace"],
+                        timeout=600).returncode
+    if rc != 0:
+        raise AssertionError(f"chip_smoke.py --hd-trace exited with {rc}")
+
+
+def hd_trace(fb, fa, dev) -> None:
+    """Phase 17 (b), (c), the traced half, in a process of its own: at
+    ViT-Tiny's width with 6 heads, B = 5, S = 197, each wrapper's route
+    (HD_ROUTE_KERNELS: every one of its kernels, no other) and exactly
+    STAGE_CALLS times its predicted launches in a trace of STAGE_CALLS
+    calls; two runs of each backward equal bit for bit; bf16 and fp32."""
+    d, heads, mlp, eps = HD_TIME_D, 6, HD_TIME_MLP, 1e-12
+    gen = torch.Generator().manual_seed(SEED + 170)
+    for dtype in (torch.bfloat16, torch.float32):
+        wt = tuple(t if t.dtype == torch.float32 else t.to(dtype)
+                   for t in random_backbone(gen, 1, d, mlp, dev))
+        w = layer_weights(fb.WEIGHT_NAMES, wt)
+        x, x2, g, q, k, v, do = hd_operands(gen, 5, 197, d, heads, dtype, dev)
+        fp32 = int(dtype == torch.float32)
+        calls = {"backbone_fwd": lambda: fb.fused_backbone(x, wt, heads, eps, True),
+                 "layer_fwd": lambda: fb.layer_fwd(x, tuple(t[0] for t in wt), heads, eps, True),
+                 "mlp_bwd": lambda: fb.mlp_bwd(x2, g, w, eps, True),
+                 "attn_bwd": lambda: fb.attn_bwd(x, g, w, heads, eps),
+                 "merged_bwd": lambda: fb.merged_bwd(x, x2, g, w, heads, eps, True),
+                 "flash_fwd": lambda: fa.flash_fwd(q, k, v),
+                 "flash_bwd": lambda: fa.flash_bwd(q, k, v, do)}
+        for name, fn in calls.items():
+            n_want = STAGE_CALLS * hd_predicted_launches(name, d, heads, mlp, fp32)
+            totals = {}
+            stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)], totals=totals)
+            traced = sum(n for _, n in totals.get("kernels", {}).values())
+            names = {kernel_base(k) for k in totals.get("kernels", {})}
+            route = HD_ROUTE_KERNELS[(name, fp32)]
+            same = True
+            if name.endswith("bwd"):
+                runs = [tensors_of(fn()) for _ in range(2)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(*runs))
+                del runs
+            log(f"[hd-launches] {name} {str(dtype)[6:]} D={d} heads={heads} B=5 S=197: "
+                f"{traced} device kernels traced over {STAGE_CALLS} calls (predicted "
+                f"{n_want}), of {sorted(names)}; two runs bitwise equal {same}")
+            if names != route or traced != n_want:
+                raise AssertionError(f"{name} at head_dim 32 ran {sorted(names)} ({traced} "
+                                     f"launches in {STAGE_CALLS} calls, predicted {n_want}), "
+                                     f"its route {sorted(route)}")
+            if not same:
+                raise AssertionError(f"{name} at head_dim 32 is not deterministic")
+        del wt, w, x, x2, g, q, k, v, do
+        torch.cuda.empty_cache()
+
+
+def hd_cli_run(what, argv, want) -> dict:
+    """One CLI command with the counters set to 0 just before and read just
+    after, held to `want` (None: only that it ran). Returns the counts."""
+    import contextlib
+    import io
+
+    from vit2spn_tpu_torch.cli import main as cli_main
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    ran = {k: n for k, n in launches.items() if n}
+    log(f"[hd-main] {what}: rc {rc} in {secs:.1f} s, launches {ran}"
+        + (f" (predicted {want})" if want is not None else ""))
+    if rc != 0:
+        raise AssertionError(f"{what}: rc {rc}")
+    if want is not None and launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"{what} launched {ran}, predicted {want}")
+    return launches
+
+
+def hd_step_check(cfg, images, label, loss=True, fp32=True) -> None:
+    """Step 1 of phase 17 (d) from one state (exact gelu): "fused" against
+    "plain" (its kernels' twins, the same rounding points: compare_steps'
+    tolerances, the loss too where `loss`, as phase 9) and against "xla"
+    (the per-op path, which rounds at other points: the moments and the
+    updated params, as phase 14 holds it); in fp32 "fused" against "xla"
+    (the same function), where `fp32` (the tiny model; at ViT-Tiny's width
+    (a) holds the fp32 kernels at the main path's B and S). At ViT-Tiny's 12
+    layers of random features the loss sits near 0 (0.0117 at 6 heads on
+    the H100), where the relative loss bound measures its denominator, so
+    `loss` is False there, as phase 14 leaves it out at the zoo's widths;
+    the moments and the updated params are held as everywhere."""
+    from vit2spn_tpu_torch.train import checkpoint as ckpt
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    gelu_env = os.environ.get("VIT2SPN_FAST_GELU")
+    os.environ["VIT2SPN_FAST_GELU"] = "0"
+    runs = {}
+    try:
+        for impl in ("fused", "plain", "xla"):
+            tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), attn_impl=impl,
+                            device="cuda")
+            before = ckpt._flatten(tr.state)
+            value = float(tr.train_step(images, (0, 0))["loss"])
+            runs[impl] = (value, before, ckpt._flatten(tr.state))
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        params = ("params/online/", "params/heads/")
+        compare_steps(f"hd-step1 {label}", ["fused", "plain"], [runs["fused"], runs["plain"]],
+                      cfg.learning_rate, params, loss=loss)
+        compare_steps(f"hd-step1 {label}", ["fused", "xla"], [runs["fused"], runs["xla"]],
+                      cfg.learning_rate, params, loss=False)
+        if fp32:
+            cfg32 = replace_cfg(cfg, compute_dtype="float32")
+            step_check(cfg32, images, cfg32.learning_rate, ("fused", False), ("xla", False),
+                       loss=loss)
+    finally:
+        if gelu_env is None:
+            os.environ.pop("VIT2SPN_FAST_GELU")
+        else:
+            os.environ["VIT2SPN_FAST_GELU"] = gelu_env
+
+
+def hd_main_path(card) -> dict:
+    """Phase 17 (d). Returns {head_dim: {kernel: launches}} over the main
+    path's runs at that head_dim."""
+    import tempfile
+
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import load_dataset, synthetic_dataset
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+
+    by_dh = {dh: {} for dh in HD_DIMS}
+
+    def add(dh, launches):
+        for k, n in launches.items():
+            if n:
+                by_dh[dh][k] = by_dh[dh].get(k, 0) + n
+
+    # step 1 and the four paths at the tiny model (head_dim 16, 2 x 128 a
+    # step) and at ViT-Tiny's width with 6 and 4 heads (head_dim 32, 48;
+    # 1 x 128)
+    for dh, over, a_ in ((16, HD_TINY, 2), (32, ("vit.num_heads=6",), 1),
+                         (48, ("vit.num_heads=4",), 1)):
+        cfg = _apply_overrides(get_preset("ssp-scratch"),
+                               [*over, "batch_size=128", f"accumulation_steps={a_}"])
+        if cfg.vit.head_dim != dh:
+            raise AssertionError(f"{over} gave head_dim {cfg.vit.head_dim}")
+        eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, cfg.vit.num_layers
+        tds = synthetic_dataset(split_sizes={"train": eff}, image_size=28,
+                                seed=SEED + 17 + dh).split("train")
+        label = f"head_dim {dh} (D={cfg.vit.hidden_size}, {cfg.vit.num_heads} heads)"
+        hd_step_check(cfg, tds.images[:eff], label, loss=dh == 16, fp32=dh == 16)
+        cfg32 = replace_cfg(cfg, compute_dtype="float32")
+        split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers}
+        per_layer_fwd = 2 * 2 * a * layers
+        for c, impl, merged, per_step in (
+                (cfg, "fused", False, {KERNEL_NAME: 2 * 2 * a, **split}),
+                (cfg, "fused", True, {KERNEL_NAME: 2 * 2 * a, "merged_bwd": 2 * a * layers}),
+                (cfg, "fused_layer", False, {"layer_fwd": per_layer_fwd, **split}),
+                (cfg, "pallas", False, {"flash_fwd": per_layer_fwd,
+                                        "flash_bwd": 2 * a * layers}),
+                (cfg32, "fused", False, {KERNEL_NAME: 2 * 2 * a, **split})):
+            trainer, launches, _ = fit_path(c, tds, impl, merged, per_step)
+            add(dh, launches)
+            os.environ["VIT2SPN_MERGED_BWD"] = "0"
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"[hd-main] {label}: step 1 of fused against xla and fp32, fits of fused, merged, "
+            f"fused_layer, pallas and fp32 fused on {card}")
+
+    # the tiny model through the CLI: SSP training in bf16 and fp32, extract,
+    # fine-tune from the export, the parity smoke
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        stage_octmnist(tmp, HD_TINY_SPLITS, SEED + 171)
+        over = [*HD_TINY, f"data.root={tmp}"]
+        ssp_over = [*over, "batch_size=128", "accumulation_steps=2"]  # 2 steps of 2 x 128
+        common = [x for o in ssp_over for x in ("-o", o)]
+        cfg = _apply_overrides(get_preset("ssp-scratch"), ssp_over)
+        a, layers = cfg.accumulation_steps, cfg.vit.num_layers
+        steps = HD_TINY_SPLITS["train"] // cfg.effective_batch
+        want = {KERNEL_NAME: steps * 2 * 2 * a, "mlp_bwd": steps * 2 * a * layers,
+                "attn_bwd": steps * 2 * a * layers}
+        for dtype in ("bfloat16", "float32"):
+            out = os.path.join(tmp, f"ssp_{dtype}")
+            add(16, hd_cli_run(f"run ssp-scratch (tiny model, {dtype}, 1 epoch of "
+                               f"{HD_TINY_SPLITS['train']} images, {steps} steps)",
+                               ["run", "ssp-scratch", "--epochs", "1", "--output-dir", out,
+                                *common, "-o", f"compute_dtype={dtype}"], want))
+            export = os.path.join(out, cfg.export_name + ".npz")
+            with np.load(export) as z:
+                w1 = [z[k].shape for k in z.files if k.endswith("w1")]
+                finite = all(np.isfinite(z[k]).all() for k in z.files
+                             if z[k].dtype.kind == "f")
+            if w1 != [(layers, 32, 64)] or not finite:
+                raise AssertionError(f"the tiny export's w1 is {w1}, finite {finite}")
+        feats = os.path.join(tmp, "feats.npz")
+        ckpt_bf16 = os.path.join(tmp, "ssp_bfloat16", "checkpoint.npz")
+        got = hd_cli_run("extract ssp-scratch (tiny model, bf16, the bf16 run's checkpoint)",
+                         ["extract", "ssp-scratch", "--out", feats, *common,
+                          *(["--checkpoint", ckpt_bf16] if os.path.exists(ckpt_bf16) else [])],
+                         None)
+        add(16, got)
+        with np.load(feats) as z:
+            arrays = [z[k] for k in z.files if z[k].dtype.kind == "f"]
+        if set(k for k, n in got.items() if n) != {KERNEL_NAME} or not arrays or not all(
+                np.isfinite(t).all() for t in arrays):
+            raise AssertionError(f"extract at the tiny model: launches {got}")
+        preset = "ssp-ssl/ft-octmnist"
+        ft_over = [*over, "k_folds=2", "init=scratch", f"init_path={export}"]
+        cfg_ft = _apply_overrides(get_preset(preset), ft_over)
+        octm = load_dataset("octmnist", root=tmp, allow_synthetic=False)
+        ft_steps, evals, _, _ = protocol_launches(cfg_ft, octm, 1)
+        add(16, hd_cli_run(f"run {preset} (tiny model from the fp32 export, 2 folds, 1 epoch)",
+                           ["run", preset, "--epochs", "1", "--output-dir",
+                            os.path.join(tmp, "ft"), *[x for o in ft_over for x in ("-o", o)]],
+                           _wanted(ft_steps, evals, layers)))
+        out_d = os.path.join(tmp, "parity_smoke")
+        got = hd_cli_run("parity --smoke", ["parity", "--smoke", "--epochs", "1",
+                                            "--ft-epochs", "1", "--skip-multitrial",
+                                            "--out", out_d], None)
+        add(16, got)
+        with open(os.path.join(out_d, "parity_report.json")) as f:
+            report = json.load(f)
+        with open(os.path.join(out_d, "parity_metrics.jsonl")) as f:
+            picked = [json.loads(line) for line in f if '"parity_attn_impl"' in line]
+        log(f"[hd-main] parity --smoke: logged {[p.get('attn_impl') for p in picked]}, "
+            f"report attn_impl {report.get('attn_impl')} (written only off \"fused\"), status "
+            f"{report['status'][:40]!r}")
+        if ("attn_impl" in report or not picked or picked[0].get("attn_impl") != "fused"
+                or not report["status"].startswith("SMOKE")
+                or not all(got.get(k) for k in (KERNEL_NAME, "mlp_bwd", "attn_bwd"))):
+            raise AssertionError(f"parity --smoke: {report.get('attn_impl')}, launches {got}")
+    for dh, launches in by_dh.items():
+        missing = [k for k, _, _ in HD_KERNELS if not launches.get(k)]
+        log(f"[hd-main] head_dim {dh}: launches on the main path {launches}")
+        if missing:
+            raise AssertionError(f"head_dim {dh}: {missing} never launched on the main path")
+    return by_dh
+
+
+def hd_times(fb, fa, card, dev) -> dict:
+    """Phase 17 (e): each wrapper at D 192, B = 128, S = 197 (the backbone
+    12 layers) for each head_dim of HD_TIME_HEADS (64: the head_dim-64
+    routes at the same width), bf16, and at head_dim 32 in fp32: kernel (CUDA
+    events), plain twin, library call (yardstick only; TF32 off) and bound.
+    Returns {(kernel, head_dim, dtype): (ms, plain ms, library ms, bound ms,
+    bound by)}."""
+    b, s, d, mlp, eps = HD_TIME_B, HD_TIME_S, HD_TIME_D, HD_TIME_MLP, 1e-12
+    out = {}
+    for dh, heads in HD_TIME_HEADS:
+        for dtype in ((torch.bfloat16, torch.float32) if dh == 32 else (torch.bfloat16,)):
+            fp32 = dtype == torch.float32
+            gen = torch.Generator().manual_seed(SEED + 172 + dh)
+            wt = tuple(t if t.dtype == torch.float32 else t.to(dtype)
+                       for t in random_backbone(gen, 12, d, mlp, dev))
+            w = layer_weights(fb.WEIGHT_NAMES, wt)
+            w0 = tuple(t[0] for t in wt)
+            x, x2, g, q, k, v, do = hd_operands(gen, b, s, d, heads, dtype, dev)
+            sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
+            sdpa_bwd, _ = library_flash_bwd(q, k, v, do)
+            rows = (
+                ("backbone_fwd", backbone_bound_ms(b, s, d, heads, mlp, 12, wt),
+                 lambda: fb.fused_backbone(x, wt, heads, eps, True),
+                 lambda: fb.backbone_forward_plain(x, wt, heads, eps, True),
+                 lambda: library_backbone(x, wt, heads, eps)),
+                ("layer_fwd", backbone_bound_ms(b, s, d, heads, mlp, 1, w0, acts=3),
+                 lambda: fb.layer_fwd(x, w0, heads, eps, True),
+                 lambda: fb.layer_forward_plain(x, w0, heads, eps, True),
+                 lambda: library_backbone(x, tuple(t[:1] for t in wt), heads, eps)),
+                ("mlp_bwd", bwd_bound_ms("mlp", b, s, d, heads, mlp, w),
+                 lambda: fb.mlp_bwd(x2, g, w, eps, True),
+                 lambda: fb.mlp_bwd_plain(x2, g, w, eps, True),
+                 lambda: library_mlp_half(x2, g, w, eps)),
+                ("attn_bwd", bwd_bound_ms("attn", b, s, d, heads, mlp, w),
+                 lambda: fb.attn_bwd(x, g, w, heads, eps),
+                 lambda: fb.attn_bwd_plain(x, g, w, heads, eps),
+                 lambda: library_attn_half(x, g, w, heads, eps)),
+                ("merged_bwd", bwd_bound_ms("merged", b, s, d, heads, mlp, w),
+                 lambda: fb.merged_bwd(x, x2, g, w, heads, eps, True),
+                 lambda: fb.merged_bwd_plain(x, x2, g, w, heads, eps, True),
+                 lambda: library_attn_half(x, library_mlp_half(x2, g, w, eps)[0].to(dtype), w,
+                                           heads, eps)),
+                ("flash_fwd", flash_bound_ms("fwd", b, s, heads, fp32, dh),
+                 lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+                 lambda: F.scaled_dot_product_attention(*sdpa_in)),
+                ("flash_bwd", flash_bound_ms("bwd", b, s, heads, fp32, dh),
+                 lambda: fa.flash_bwd(q, k, v, do),
+                 lambda: fa.flash_attention_bwd_plain(q, k, v, do), sdpa_bwd),
+            )
+            for name, (b_ms, b_by, flops), kernel, twin, library in rows:
+                k_ms = time_ms(kernel, iters=10, warmup=2)
+                p_ms = time_ms(twin, iters=2, warmup=1)
+                fwd = name.endswith("fwd")
+                with torch.no_grad() if fwd else torch.enable_grad():
+                    l_ms = time_ms(library, iters=10, warmup=2)
+                out[(name, dh, "fp32" if fp32 else "bf16")] = (k_ms, p_ms, l_ms, b_ms, b_by)
+                log(f"[time] {name} head_dim {dh} ({heads} heads, {str(dtype)[6:]}) B={b} "
+                    f"S={s} D={d}: kernel {k_ms:.4f} ms, plain twin {p_ms:.3f} ms, library "
+                    f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP), "
+                    f"kernel at {flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+                    f"{100 * b_ms / k_ms:.1f}% of the bound; {card}")
+            del wt, w, w0, x, x2, g, q, k, v, do, sdpa_in, sdpa_bwd
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def hd_ptxas(libs) -> None:
+    """The registers and spill stores of every kernel instantiated on a
+    head_dim other than 64, and of the forward-only core (its last template
+    argument 1) at every head_dim."""
+    for name, lib in libs.items():
+        for line in ptxas_report(open(f"{lib}.log").read(), None, head_dims=True):
+            log(f"[hd-build] {name}: {line}")
+
+
+def head_dim_path(fb, fa, card, dev, libs=None) -> list:
+    """Phase 17 (a)-(e), with the new instantiations' ptxas report where
+    `libs` is given (`--head-dim`). Returns its `kernels` entries: one per
+    kernel and head_dim (16, 32, 48; bf16, and fp32 at head_dim 32),
+    `launches` from (d)'s main path at that head_dim, times from (e), beside
+    them the head_dim-64 route's at the same width (`head_dim_64_ms`)."""
+    t_phase = time.perf_counter()
+    if libs:
+        hd_ptxas(libs)
+    errs = hd_kernels(fb, fa, dev)
+    log(f"[hd] (a) in {time.perf_counter() - t_phase:.1f} s: largest absolute differences "
+        f"from the twins { {f'{k} hd{dh} {dt}': round(e, 6) for (k, dh, dt), e in errs.items()} }")
+    t0 = time.perf_counter()
+    hd_launch_counts(fb, fa)
+    log(f"[hd] (b), (c) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = hd_main_path(card)
+    log(f"[hd] (d) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    times = hd_times(fb, fa, card, dev)
+    log(f"[hd] (e) in {time.perf_counter() - t0:.1f} s; phase 17 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    entries = []
+    for dh, heads in HD_TIME_HEADS[:3]:
+        for dt in ("bf16", "fp32") if dh == 32 else ("bf16",):
+            for name, src, replaces in HD_KERNELS:
+                k_ms, p_ms, l_ms, b_ms, b_by = times[(name, dh, dt)]
+                entries.append({
+                    "name": f"{name} ({'fp32, ' if dt == 'fp32' else ''}head_dim {dh})",
+                    "route": "cuda", "source": f"vit2spn_tpu_torch/csrc/{src}",
+                    "replaces": replaces, "launches": launches[dh].get(name, 0),
+                    "max_abs_err": errs[(name, dh, dt)], "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+                    "dtype": "float32" if dt == "fp32" else "bfloat16",
+                    "shape": f"B={HD_TIME_B} S={HD_TIME_S} D={HD_TIME_D} heads={heads}",
+                    "head_dim_64_ms": times[(name, 64, "bf16")][0] if dt == "bf16" else None,
+                })
+                if not entries[-1]["launches"]:
+                    raise AssertionError(f"{entries[-1]['name']} was never launched on the "
+                                         "main path")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3825,6 +4481,10 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
+    if sys.argv[1:2] == ["--hd-trace"]:  # phase 17 (b)'s trace, in a process of its own
+        hd_trace(fb, fa, dev)
+        return 0
+
     cfg = replace(get_preset("ssp"), pretrained_init=False)
     vit = cfg.vit
 
@@ -3832,7 +4492,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = cuda_build.build_all(fb.KERNEL_NAMES)
     build_s = time.perf_counter() - t0
-    log(f"[build] {', '.join(fb.KERNEL_NAMES)} in {build_s:.2f} s (in parallel)")
+    log(f"[build] {', '.join(fb.KERNEL_NAMES)} in {build_s:.2f} s (in parallel); each "
+        f"source's nvcc, s: {json.dumps(cuda_build.BUILD_SECONDS)}")
     nt = (vit.seq_len + 15) // 16 * 2  # the attention kernels' key tiles at S
     for name, lib in libs.items():
         for line in ptxas_report(open(f"{lib}.log").read(), nt):
@@ -3851,6 +4512,12 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--fp32-long"]:  # phase 16 alone
         print(json.dumps({"kernels": fp32_long_path(fb, fa, card, dev)}))
+        return 0
+    if sys.argv[1:2] == ["--head-dim"]:  # phase 17 alone
+        print(json.dumps({"kernels": head_dim_path(fb, fa, card, dev, libs)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
 
     # the fine-tune step's wall time before any other phase (phase 10b times
@@ -4068,8 +4735,8 @@ def main() -> int:
     fb.merged_bwd(xb, x2b, gb, wl, heads, eps, True)
     torch.cuda.synchronize()
     counts = read_launches()
-    per_call = fb.cuda_launches("merged_bwd", None, d, 0)
-    split_calls = fb.cuda_launches("mlp_bwd", None, d, 0) + fb.cuda_launches("attn_bwd", None, d, 0)
+    per_call = fb.cuda_launches("merged_bwd", None, d, 0, heads=heads, mlp=mlp)
+    split_calls = fb.cuda_launches("mlp_bwd", None, d, 0, heads=heads, mlp=mlp) + fb.cuda_launches("attn_bwd", None, d, 0, heads=heads, mlp=mlp)
     log(f"[merged_bwd] one call at B={TRAIN_BATCH}: merged_bwd counter {counts['merged_bwd']}, "
         f"{per_call} CUDA launches per call (the split pair: {split_calls}; one reduction "
         f"launch for both halves)")
@@ -4144,7 +4811,7 @@ def main() -> int:
     extract_s = time.perf_counter() - t0
     extract_launches = read_launches()
     log(f"[extract] {feats.shape} features, {extract_launches[KERNEL_NAME]} backbone kernel "
-        f"launches ({extract_launches[KERNEL_NAME] * layers * kernel_launches_per_layer(d)} "
+        f"launches ({extract_launches[KERNEL_NAME] * layers * kernel_launches_per_layer(d, False, heads, mlp)} "
         f"CUDA kernel launches), {extract_s:.3f} s, {N_IMAGES / extract_s:.1f} img/s")
     if extract_launches[KERNEL_NAME] <= 0:
         raise AssertionError("the serving path never launched the backbone kernel")
@@ -4235,9 +4902,9 @@ def main() -> int:
         if merged:  # the merged step's backward launches against the split step's
             calls = per_step["merged_bwd"]
             log(f"[train] {name}: {calls} merged_bwd calls per step x "
-                f"{fb.cuda_launches('merged_bwd', None, d, 0)} CUDA launches; the split step's "
-                f"{calls} x ({fb.cuda_launches('mlp_bwd', None, d, 0)} + "
-                f"{fb.cuda_launches('attn_bwd', None, d, 0)})")
+                f"{fb.cuda_launches('merged_bwd', None, d, 0, heads=heads, mlp=mlp)} CUDA launches; the split step's "
+                f"{calls} x ({fb.cuda_launches('mlp_bwd', None, d, 0, heads=heads, mlp=mlp)} + "
+                f"{fb.cuda_launches('attn_bwd', None, d, 0, heads=heads, mlp=mlp)})")
         step_ms[name] = 1e3 * time_steps(
             ptrainer, eff, name, card, tuple(per_step),
             ("the per-op blocks' LayerNorms, GEMMs and gelu, " + rest) if impl == "pallas"
@@ -4262,8 +4929,8 @@ def main() -> int:
     bound_ms, bound_by, flops = backbone_bound_ms(BATCH, s, d, heads, mlp,
                                                   layers, wt)
     log(f"[time] backbone forward B={BATCH}: kernel {kernel_ms:.3f} ms "
-        f"({kernel_ms / (layers * kernel_launches_per_layer(d)):.4f} ms per CUDA "
-        f"launch, {layers * kernel_launches_per_layer(d)} launches), plain twin "
+        f"({kernel_ms / (layers * kernel_launches_per_layer(d, False, heads, mlp)):.4f} ms per CUDA "
+        f"launch, {layers * kernel_launches_per_layer(d, False, heads, mlp)} launches), plain twin "
         f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}; {flops / 1e9:.1f} GFLOP), kernel at "
         f"{flops / (kernel_ms * 1e-3) / 1e12:.1f} TFLOP/s")
@@ -4323,24 +4990,24 @@ def main() -> int:
         # and, where the library call keeps P and dS in fp32, that one
         ("mlp_bwd", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342",
          bwd_bound_ms("mlp", TRAIN_BATCH, s, d, heads, mlp, wl),
-         fb.cuda_launches("mlp_bwd", None, d, 0), bwd_err["mlp_bwd"],
+         fb.cuda_launches("mlp_bwd", None, d, 0, heads=heads, mlp=mlp), bwd_err["mlp_bwd"],
          lambda: fb.mlp_bwd(xb, gb, wl, eps, fast),
          lambda: fb.mlp_bwd_plain(xb, gb, wl, eps, fast),
          lambda: library_mlp_half(xb, gb, wl, eps), None),
         ("attn_bwd", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357",
          bwd_bound_ms("attn", TRAIN_BATCH, s, d, heads, mlp, wl),
-         fb.cuda_launches("attn_bwd", None, d, 0), bwd_err["attn_bwd"],
+         fb.cuda_launches("attn_bwd", None, d, 0, heads=heads, mlp=mlp), bwd_err["attn_bwd"],
          lambda: fb.attn_bwd(xb, gb, wl, heads, eps),
          lambda: fb.attn_bwd_plain(xb, gb, wl, heads, eps),
          lambda: library_attn_half(xb, gb, wl, heads, eps), None),
         ("merged_bwd", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
          bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl),
-         fb.cuda_launches("merged_bwd", None, d, 0), merged_err,
+         fb.cuda_launches("merged_bwd", None, d, 0, heads=heads, mlp=mlp), merged_err,
          lambda: fb.merged_bwd(xb, x2b, gb, wl, heads, eps, fast),
          lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast), merged_lib, None),
         ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
          backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w0, acts=3),
-         fb.cuda_launches("layer_fwd", None, d, 0), layer_err,
+         fb.cuda_launches("layer_fwd", None, d, 0, heads=heads, mlp=mlp), layer_err,
          lambda: fb.layer_fwd(xb, w0, heads, eps, fast),
          lambda: fb.layer_forward_plain(xb, w0, heads, eps, fast),
          lambda: library_backbone(xb, tuple(t[:1] for t in wt), heads, eps), None),
@@ -4364,32 +5031,32 @@ def main() -> int:
     timed += (
         ("backbone_fwd (fp32)", "backbone_fwd.cu", "vit2spn_tpu/ops/fused_block.py:694",
          backbone_bound_ms(BATCH, s, d, heads, mlp, layers, wt32),
-         layers * kernel_launches_per_layer(d, True), fp32_err["backbone_fwd"],
+         layers * kernel_launches_per_layer(d, True, heads, mlp), fp32_err["backbone_fwd"],
          lambda: fused_backbone(x32, wt32, heads, eps, fast),
          lambda: backbone_forward_plain(x32, wt32, heads, eps, fast),
          lambda: library_backbone(x32, wt32, heads, eps), None),
         ("mlp_bwd (fp32)", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342",
          bwd_bound_ms("mlp", TRAIN_BATCH, s, d, heads, mlp, wl32),
-         fb.cuda_launches("mlp_bwd", None, d, 1), fp32_err["mlp_bwd"],
+         fb.cuda_launches("mlp_bwd", None, d, 1, heads=heads, mlp=mlp), fp32_err["mlp_bwd"],
          lambda: fb.mlp_bwd(xb32, gb32, wl32, eps, fast),
          lambda: fb.mlp_bwd_plain(xb32, gb32, wl32, eps, fast),
          lambda: library_mlp_half(xb32, gb32, wl32, eps), None),
         ("attn_bwd (fp32)", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357",
          bwd_bound_ms("attn", TRAIN_BATCH, s, d, heads, mlp, wl32),
-         fb.cuda_launches("attn_bwd", None, d, 1), fp32_err["attn_bwd"],
+         fb.cuda_launches("attn_bwd", None, d, 1, heads=heads, mlp=mlp), fp32_err["attn_bwd"],
          lambda: fb.attn_bwd(xb32, gb32, wl32, heads, eps),
          lambda: fb.attn_bwd_plain(xb32, gb32, wl32, heads, eps),
          lambda: library_attn_half(xb32, gb32, wl32, heads, eps), None),
         ("merged_bwd (fp32)", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
          bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl32),
-         fb.cuda_launches("merged_bwd", None, d, 1), fp32_err["merged_bwd"],
+         fb.cuda_launches("merged_bwd", None, d, 1, heads=heads, mlp=mlp), fp32_err["merged_bwd"],
          lambda: fb.merged_bwd(xb32, x2b32, gb32, wl32, heads, eps, fast),
          lambda: fb.merged_bwd_plain(xb32, x2b32, gb32, wl32, heads, eps, fast),
          lambda: library_attn_half(xb32, library_mlp_half(x2b32, gb32, wl32, eps)[0], wl32,
                                    heads, eps), None),
         ("layer_fwd (fp32)", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
          backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w032, acts=3),
-         fb.cuda_launches("layer_fwd", None, d, 1), fp32_err["layer_fwd"],
+         fb.cuda_launches("layer_fwd", None, d, 1, heads=heads, mlp=mlp), fp32_err["layer_fwd"],
          lambda: fb.layer_fwd(xb32, w032, heads, eps, fast),
          lambda: fb.layer_forward_plain(xb32, w032, heads, eps, fast),
          lambda: library_backbone(xb32, tuple(t[:1] for t in wt32), heads, eps), None),
@@ -4466,6 +5133,9 @@ def main() -> int:
 
     # -- 16. fp32 above 256 tokens (before phase 13, as phase 14) --------------
     entries += fp32_long_path(fb, fa, card, dev)
+
+    # -- 17. head_dim 16, 32, 48 and D below 64 (before phase 13, as phase 14) --
+    entries += head_dim_path(fb, fa, card, dev)
 
     # -- 13. several ranks on the one card -------------------------------------
     parallel_launches = parallel_path(card, fused_totals)

@@ -264,8 +264,9 @@ def test_backward_kernel_input_checks():
     x = torch.zeros((2, 9, 128), dtype=torch.bfloat16)
     fb._check_layer_inputs(x, x, w, fb.MLP_NAMES, None, out)
     fb._check_layer_inputs(x, x, w, fb.ATTN_NAMES, 2, out)
+    fb._check_layer_inputs(x, x, w, fb.ATTN_NAMES, 4, out)  # head_dim 32: the general route
     with pytest.raises(ValueError, match="head_dim"):
-        fb._check_layer_inputs(x, x, w, fb.ATTN_NAMES, 4, out)
+        fb._check_layer_inputs(x, x, w, fb.ATTN_NAMES, 1, out)
     with pytest.raises(ValueError, match="incoming gradient"):
         fb._check_layer_inputs(x, x.float(), w, fb.MLP_NAMES, None, out)
     # fp32 activations with fp32 weights take the kernels' fp32 route

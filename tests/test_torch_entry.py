@@ -96,12 +96,13 @@ def test_ssp_trainer_refuses_model_parallel_it_cannot_run(tiny_ssp, tmp_path):
 
 def test_parity_runbook_picks_its_path_by_geometry():
     smoke, full = tpar.smoke_vit_config(), tcfg.ViTConfig()
-    # the kernels refuse head_dim 16 on CUDA: the per-op block
-    assert tpar.runbook_attn_impl(smoke, "cuda") == "xla"
-    assert tpar.runbook_attn_impl(smoke, torch.device("cuda", 0)) == "xla"
+    # the kernels take head_dim 16 on CUDA (their general route, S <= 256)
+    assert tpar.runbook_attn_impl(smoke, "cuda") == "fused"
+    assert tpar.runbook_attn_impl(smoke, torch.device("cuda", 0)) == "fused"
     # the full geometry keeps the kernels; the CPU runs their twins
     assert tpar.runbook_attn_impl(full, "cuda") == "fused"
     assert tpar.runbook_attn_impl(smoke, "cpu") == "fused"
+    # head_dim 80 the kernels refuse: the per-op block
     assert tpar.runbook_attn_impl(dataclasses.replace(full, hidden_size=160, num_heads=2),
                                   "cuda") == "xla"
     # above 256 tokens (384 px: S = 577; ViT-Tiny at 256 px: S = 257) the

@@ -148,8 +148,13 @@ def test_kernel_input_checks():
     fa._check_flash_inputs(*(t.float().contiguous() for t in (q, k, v)))
     with pytest.raises(TypeError, match="bf16 or fp32"):
         fa._check_flash_inputs(*(t.half() for t in (q, k, v)))
+    x = torch.zeros((2, 9, 4, 32), dtype=torch.bfloat16)  # head_dim 32, S <= 256
+    fa._check_flash_inputs(x, x, x)
+    with pytest.raises(ValueError, match="S <= 256 at head_dim 32"):
+        x = torch.zeros((1, fa.KERNEL_MAX_SEQ + 1, 4, 32), dtype=torch.bfloat16)
+        fa._check_flash_inputs(x, x, x)
     with pytest.raises(ValueError, match="head_dim"):
-        x = torch.zeros((2, 9, 4, 32), dtype=torch.bfloat16)
+        x = torch.zeros((2, 9, 2, 80), dtype=torch.bfloat16)
         fa._check_flash_inputs(x, x, x)
     # above 256 tokens bf16 and fp32 take the long-sequence routes
     x = torch.zeros((1, fa.KERNEL_MAX_SEQ + 1, 1, 64), dtype=torch.bfloat16)

@@ -245,8 +245,9 @@ def test_layer_kernel_input_checks():
         fb._check_kernel_inputs(x.half(), wt, 2, stacked=False)
     with pytest.raises(TypeError, match="wqkv: expected torch.float32"):
         fb._check_kernel_inputs(x.float(), wt, 2, stacked=False)
+    fb._check_kernel_inputs(x, wt, 4, stacked=False)  # head_dim 32: the general route
     with pytest.raises(ValueError, match="head_dim"):
-        fb._check_kernel_inputs(x, wt, 4, stacked=False)
+        fb._check_kernel_inputs(x, wt, 1, stacked=False)
     m = torch.zeros((2, 9, 128), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fb.layer_fwd(m, wt, 2, EPS, True)

@@ -391,7 +391,8 @@ def test_tp_refuses_the_kernel_paths():
 
 def test_launch_raises_for_a_failed_rank(tmp_path):
     with pytest.raises(RuntimeError, match="FileNotFoundError"):
-        launch(os.path.getsize, 2, args=(str(tmp_path / "missing"),), timeout=LAUNCH_TIMEOUT)
+        launch(os.path.getsize, 2, args=(str(tmp_path / "missing"),), device="cpu",
+               timeout=LAUNCH_TIMEOUT)
 
 
 def test_launch_kills_ranks_at_the_timeout():
@@ -399,5 +400,5 @@ def test_launch_kills_ranks_at_the_timeout():
 
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match="still running"):
-        launch(time.sleep, 2, args=(120,), timeout=8.0)
+        launch(time.sleep, 2, args=(120,), device="cpu", timeout=8.0)
     assert time.monotonic() - t0 < 60

@@ -20,6 +20,7 @@ import torch
 from vit2spn_tpu.data.datasets import synthetic_dataset as jax_synthetic
 from vit2spn_tpu.models.ssp import ema_update as jax_ema_update
 from vit2spn_tpu.models.ssp import negative_cosine_loss as jax_nc_loss
+from vit2spn_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from vit2spn_tpu.train import checkpoint as jckpt
 from vit2spn_tpu.train.ssp import SSPTrainer as JaxSSPTrainer
 from vit2spn_tpu.utils.logging import MetricLogger as JaxLogger
@@ -142,10 +143,17 @@ def test_backbone_paths_train_like_jax(tiny_ssp, impl):
     with its flash kernels in interpret mode ("pallas_interpret");
     "fused_layer" against the JAX trainer's default CPU path (attn_impl=None),
     as the "fused" test above holds "fused", because the JAX "fused_layer"
-    calls its kernel without interpret mode."""
+    calls its kernel without interpret mode.
+
+    The JAX trainer runs on a one-device mesh (the port's world size), not
+    over the 8 virtual CPU devices of tests/conftest.py: the same function,
+    without eight interpret-mode programs running side by side in one
+    process (a test worker running them once died natively under a parallel
+    run of the suite)."""
     jcfg = _no_rand(tiny_ssp)
     jt = JaxSSPTrainer(jcfg, logger=JaxLogger(echo=False),
-                       attn_impl="pallas_interpret" if impl == "pallas" else None)
+                       attn_impl="pallas_interpret" if impl == "pallas" else None,
+                       mesh=jax_make_mesh(jax.devices()[:1]))
     pt = SSPTrainer(_port_cfg(jcfg), logger=QUIET, device="cpu", attn_impl=impl)
     pt.state = pt.state._replace(params=from_jax(jax.device_get(jt.state.params),
                                                  device="cpu"))

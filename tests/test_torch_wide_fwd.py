@@ -118,8 +118,8 @@ def _leading_pointers(argtypes) -> int:
 def test_layer_scratch_matches_entry_points(wide):
     """(b) `_layer_scratch` gives the C entry points' scratch in their order
     (qkv, att, y, x2, g: after x, out, the optional stacks and the 12 weight
-    pointers), in the shapes and dtypes the layer takes; at D <= 256 only qkv
-    and att, the rest null."""
+    pointers), in the shapes and dtypes the layer takes, at every D (at
+    D <= 256 the head_dim-64 layer reads only qkv and att)."""
     sig = fb._SIGNATURES
     assert _leading_pointers(sig["backbone_fwd"]["vit2spn_backbone_fwd"][0]) == 4 + 12 + 5
     assert _leading_pointers(sig["layer_fwd"]["vit2spn_layer_fwd"][0]) == 3 + 12 + 5
@@ -129,11 +129,7 @@ def test_layer_scratch_matches_entry_points(wide):
         mlp = 4 * d
         scratch = fb._layer_scratch(m, d, mlp, "cpu")
         assert len(scratch) == 5
-        want = [((m, 3 * d), bf), ((m, d), bf)]
-        if wide:
-            assert d > fb.FUSED_MLP_MAX_D
-            want += [((m, d), bf), ((m, d), f32), ((m, mlp), bf)]
-        else:
-            assert d <= fb.FUSED_MLP_MAX_D and scratch[2:] == (None, None, None)
-        for t, (shape, dtype) in zip(scratch, want):
+        assert (d > fb.FUSED_MLP_MAX_D) == wide
+        want = [((m, 3 * d), bf), ((m, d), bf), ((m, d), bf), ((m, d), f32), ((m, mlp), bf)]
+        for t, (shape, dtype) in zip(scratch, want, strict=True):
             assert tuple(t.shape) == shape and t.dtype == dtype and t.is_contiguous()

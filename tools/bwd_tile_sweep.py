@@ -79,8 +79,8 @@ def _compile(jobs):
 @contextlib.contextmanager
 def using(libs, tag, sources):
     """The wrappers run the libraries built under `tag`. An earlier tree's
-    libraries get the entry points they have typed, and its merged kernel
-    an fp32 dy at every width (it may write one)."""
+    libraries get the entry points they have typed (every wrapper passes an
+    fp32 dy scratch at every width)."""
     for src in sources:
         lib = cuda_build._LIBS[src] = libs[(tag, src)][0]
         if tag == "parent":
@@ -90,14 +90,9 @@ def using(libs, tag, sources):
             lib.vit2spn_cuda_error_string.argtypes = [fb._I]
             lib.vit2spn_cuda_error_string.restype = ctypes.c_char_p
             lib._vit2spn_typed = True
-    dy_scratch = fb._dy_scratch
-    if tag == "parent":
-        fb._dy_scratch = lambda x, m, d: torch.empty((m, d), dtype=torch.float32,
-                                                     device=x.device)
     try:
         yield
     finally:
-        fb._dy_scratch = dy_scratch
         for src in sources:
             cuda_build._LIBS.pop(src, None)
 

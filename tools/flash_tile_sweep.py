@@ -88,13 +88,13 @@ def main() -> int:
 
         def fwd():
             rc = lib.vit2spn_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                       b, s, h, bs, ts, 0, stream)
+                                       b, s, h, 64, bs, ts, 0, stream)
             assert rc == 0, rc
 
         def bwd():
             rc = lib.vit2spn_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                        *(g.data_ptr() for g in grads), ws.data_ptr(),
-                                       b, s, h, bs, ts, 0, stream)
+                                       b, s, h, 64, bs, ts, 0, stream)
             assert rc == 0, rc
 
         times = []

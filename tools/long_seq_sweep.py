@@ -140,11 +140,11 @@ def main() -> int:
                 qkv.data_ptr(), datt.data_ptr(), att2.data_ptr(), dqkv.data_ptr(), b, s, h, d,
                 stream)),
             "flash_fwd": lambda: check(lib["flash_attention"].vit2spn_flash_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, bs, ts, 0,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, 64, bs, ts, 0,
                 stream)),
             "flash_bwd": lambda: check(lib["flash_attention"].vit2spn_flash_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), datt.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, s, h, bs, ts, 0, stream)),
+                dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, s, h, 64, bs, ts, 0, stream)),
         }
         times = {n: time_ms(fn, iters=10, warmup=2) for n, fn in calls.items()}
         outs = [t.clone() for t in (att, att2, dqkv, o, dq, dk, dv)]

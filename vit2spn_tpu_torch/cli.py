@@ -619,8 +619,8 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--out", default="./output/parity")
     pa.add_argument("--smoke", action="store_true",
                     help="synthetic end-to-end plumbing check (tiny model, head_dim "
-                    "16: on CUDA it trains through the per-op 'xla' path, which the "
-                    "report records; numbers are NOT parity evidence)")
+                    "16: on CUDA it trains through the fused kernels' general route, "
+                    "which the log records; numbers are NOT parity evidence)")
     pa.add_argument("--epochs", type=int, default=None,
                     help="override SSP epoch count (default: preset's 100)")
     pa.add_argument("--ft-epochs", type=int, default=None,

@@ -36,38 +36,45 @@
 #include "common.cuh"
 #include "long_attention.cuh"
 
-#define DH 64
+#define ATT_DH 64  // head_dim of every route at any S
 #ifndef AB_WARPS
 // warps per (image, head) block: 16 queries, then 16 keys, each. 16 warps
 // (128 registers, some spills) beat 8 (255 registers): 0.166 against 0.203
 // ms at ViT-Tiny B=128 (tools/bwd_tile_sweep.py, PERF.md)
 #define AB_WARPS 16
 #endif
-#define AB_LD TILE_LD  // bf16 elements per staged row (the tile helpers' stride)
 #define AB_MAX_S 256  // the row of scores in registers; longer rows: long_attention.cuh
 
+template <int DH>
+static size_t attention_bwd_smem_dh(int sp, bool fwd_only) {
+  return (size_t)(fwd_only ? 3 : 4) * sp * tile_ld<DH>() * sizeof(bf16) +
+         (fwd_only ? 0 : (size_t)3 * sp * sizeof(float));
+}
+
 static size_t attention_bwd_smem(int S) {
-  const int sp = (S + 15) / 16 * 16;
-  return (size_t)4 * sp * AB_LD * sizeof(bf16) + (size_t)3 * sp * sizeof(float);
+  return attention_bwd_smem_dh<ATT_DH>((S + 15) / 16 * 16, false);
 }
 
 // NT = SP / 8 key tiles: the kernel is instantiated per tile count so that a
 // warp's 16 x SP scores, then probabilities, stay in registers through phase
 // 1 (4 NT per lane) in the m16n8 fragment layout, the layout the forward's
 // attention_kernel (csrc/layer_fwd.cuh) reads from its wgmma accumulator,
-// each warp holding 16 of a warpgroup's 64 rows.
-template <int NT>
+// each warp holding 16 of a warpgroup's 64 rows. DH is the head_dim (64, or
+// 16, 32, 48 on the general route). FWD: the forward's attention only, att =
+// bf16(bf16(P) v), the same sums as the backward's recompute of it (datt,
+// dqkv and phase 2 unused): the general route's forward stage.
+template <int NT, int DH = 64, bool FWD = false>
 __global__ void __launch_bounds__(AB_WARPS * 32)
 attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
                      bf16* __restrict__ att, bf16* __restrict__ dqkv, int S, int D,
                      float scale) {
-  constexpr int SP = 8 * NT;
+  constexpr int SP = 8 * NT, LD = tile_ld<DH>(), KS = DH / 16, NO = DH / 8;
   extern __shared__ __align__(128) bf16 sm[];
   bf16* Qs = sm;
-  bf16* Ks = Qs + SP * AB_LD;
-  bf16* Vs = Ks + SP * AB_LD;
-  bf16* Os = Vs + SP * AB_LD;  // dO = datt
-  float* rmax = reinterpret_cast<float*>(Os + SP * AB_LD);
+  bf16* Ks = Qs + SP * LD;
+  bf16* Vs = Ks + SP * LD;
+  bf16* Os = Vs + SP * LD;  // dO = datt
+  float* rmax = reinterpret_cast<float*>(Os + SP * LD);
   float* rsum = rmax + SP;
   float* rdot = rsum + SP;  // rowsum(dP * P)
   const int warp = threadIdx.x >> 5;
@@ -78,7 +85,7 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
   const int b = blockIdx.y;
   const int ld = 3 * D;
   const bf16* img = qkv + (size_t)b * S * ld + h * DH;
-  const bf16* dimg = datt + (size_t)b * S * D + h * DH;
+  const bf16* dimg = FWD ? nullptr : datt + (size_t)b * S * D + h * DH;
 
   for (int i = threadIdx.x; i < SP * (DH / 8); i += blockDim.x) {
     const int r = i / (DH / 8);
@@ -89,20 +96,20 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
       q = *reinterpret_cast<const uint4*>(row);
       k = *reinterpret_cast<const uint4*>(row + D);
       v = *reinterpret_cast<const uint4*>(row + 2 * D);
-      o = *reinterpret_cast<const uint4*>(dimg + (size_t)r * D + c8);
+      if (!FWD) o = *reinterpret_cast<const uint4*>(dimg + (size_t)r * D + c8);
     }
-    *reinterpret_cast<uint4*>(&Qs[r * AB_LD + c8]) = q;
-    *reinterpret_cast<uint4*>(&Ks[r * AB_LD + c8]) = k;
-    *reinterpret_cast<uint4*>(&Vs[r * AB_LD + c8]) = v;
-    *reinterpret_cast<uint4*>(&Os[r * AB_LD + c8]) = o;
+    *reinterpret_cast<uint4*>(&Qs[r * LD + c8]) = q;
+    *reinterpret_cast<uint4*>(&Ks[r * LD + c8]) = k;
+    *reinterpret_cast<uint4*>(&Vs[r * LD + c8]) = v;
+    if (!FWD) *reinterpret_cast<uint4*>(&Os[r * LD + c8]) = o;
   }
   __syncthreads();
 
   // ---- phase 1: 16 queries per warp ----------------------------------------
   for (int q0 = warp * 16; q0 < SP; q0 += AB_WARPS * 16) {
-    uint32_t qa[4][4], oa[4][4];
-    load_a_rows(qa, Qs + (size_t)q0 * AB_LD, lane);
-    load_a_rows(oa, Os + (size_t)q0 * AB_LD, lane);
+    uint32_t qa[KS][4], oa[KS][4];
+    load_a_rows<DH>(qa, Qs + (size_t)q0 * LD, lane);
+    if (!FWD) load_a_rows<DH>(oa, Os + (size_t)q0 * LD, lane);
     // P of rows g and g + 8 against every key tile j, in registers: scaled
     // scores (keys >= S at -1e30), the row max over the 4 lanes of a row
     // group, exp(s - max), their sum, then the division
@@ -110,7 +117,7 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
     float mx[2] = {-3.0e38f, -3.0e38f}, den[2] = {0.0f, 0.0f}, dot[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      mma_rows_t(p[j], qa, Ks + (size_t)8 * j * AB_LD, lane);
+      mma_rows_t<DH>(p[j], qa, Ks + (size_t)8 * j * LD, lane);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         p[j][e] = (8 * j + 2 * t + (e & 1) < S) ? p[j][e] * scale : NEG_INF;
@@ -135,46 +142,49 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[j][e] = expf(p[j][e] - mx[e >> 1]) / den[e >> 1];
-    float acc[8][4];
+    float acc[NO][4];
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+    for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
     // rowsum(dP * P) with dP = dO V^T, and att = bf16(P) V, 16 keys at a time
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) {
+      if (!FWD) {
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float dp[4];
-        mma_rows_t(dp, oa, Vs + (size_t)8 * (2 * i + hh) * AB_LD, lane);
+        for (int hh = 0; hh < 2; ++hh) {
+          float dp[4];
+          mma_rows_t<DH>(dp, oa, Vs + (size_t)8 * (2 * i + hh) * LD, lane);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dot[e >> 1] += dp[e] * p[2 * i + hh][e];
+          for (int e = 0; e < 4; ++e) dot[e >> 1] += dp[e] * p[2 * i + hh][e];
+        }
       }
       uint32_t pa[4];
       pack_a(pa, p[2 * i], p[2 * i + 1]);
-      mma_rows(acc, pa, Vs + (size_t)16 * i * AB_LD, lane);
+      mma_rows<DH>(acc, pa, Vs + (size_t)16 * i * LD, lane);
     }
+    store_rows<DH>(att + (size_t)b * S * D + h * DH, D, acc, 1.0f, q0, S, lane);
+    if (FWD) continue;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
       dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
     }
-    store_rows(att + (size_t)b * S * D + h * DH, D, acc, 1.0f, q0, S, lane);
     // dS = bf16(P * (dP - rowsum)), dP recomputed; dQ = dS K
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+    for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) {
       float ds[2][4];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        mma_rows_t(ds[hh], oa, Vs + (size_t)8 * (2 * i + hh) * AB_LD, lane);
+        mma_rows_t<DH>(ds[hh], oa, Vs + (size_t)8 * (2 * i + hh) * LD, lane);
 #pragma unroll
         for (int e = 0; e < 4; ++e) ds[hh][e] = p[2 * i + hh][e] * (ds[hh][e] - dot[e >> 1]);
       }
       uint32_t da[4];
       pack_a(da, ds[0], ds[1]);
-      mma_rows(acc, da, Ks + (size_t)16 * i * AB_LD, lane);
+      mma_rows<DH>(acc, da, Ks + (size_t)16 * i * LD, lane);
     }
-    store_rows(dqkv + (size_t)b * S * ld + h * DH, ld, acc, scale, q0, S, lane);
+    store_rows<DH>(dqkv + (size_t)b * S * ld + h * DH, ld, acc, scale, q0, S, lane);
     if (t == 0) {
       rmax[q0 + g] = mx[0];
       rmax[q0 + g + 8] = mx[1];
@@ -184,16 +194,17 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
       rdot[q0 + g + 8] = dot[1];
     }
   }
+  if (FWD) return;
   __syncthreads();
 
   // ---- phase 2: 16 keys per warp, every query ---------------------------
   for (int k0 = warp * 16; k0 < SP; k0 += AB_WARPS * 16) {
-    uint32_t ka[4][4], va[4][4];
-    load_a_rows(ka, Ks + (size_t)k0 * AB_LD, lane);
-    load_a_rows(va, Vs + (size_t)k0 * AB_LD, lane);
-    float dk[8][4], dv[8][4];
+    uint32_t ka[KS][4], va[KS][4];
+    load_a_rows<DH>(ka, Ks + (size_t)k0 * LD, lane);
+    load_a_rows<DH>(va, Vs + (size_t)k0 * LD, lane);
+    float dk[NO][4], dv[NO][4];
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
+    for (int n = 0; n < NO; ++n)
       dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.0f;
     for (int i = 0; i < SP / 16; ++i) {
       // P^T and dS^T of keys k0.., queries 16 i + 8 hh.. (rows key, columns query)
@@ -201,8 +212,8 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int qj = 2 * i + hh;
-        mma_rows_t(pt[hh], ka, Qs + (size_t)8 * qj * AB_LD, lane);
-        mma_rows_t(dst[hh], va, Os + (size_t)8 * qj * AB_LD, lane);
+        mma_rows_t<DH>(pt[hh], ka, Qs + (size_t)8 * qj * LD, lane);
+        mma_rows_t<DH>(dst[hh], va, Os + (size_t)8 * qj * LD, lane);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + g + 8 * (e >> 1);
@@ -216,22 +227,83 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt
       uint32_t pa[4], da[4];
       pack_a(pa, pt[0], pt[1]);
       pack_a(da, dst[0], dst[1]);
-      mma_rows(dv, pa, Os + (size_t)16 * i * AB_LD, lane);
-      mma_rows(dk, da, Qs + (size_t)16 * i * AB_LD, lane);
+      mma_rows<DH>(dv, pa, Os + (size_t)16 * i * LD, lane);
+      mma_rows<DH>(dk, da, Qs + (size_t)16 * i * LD, lane);
     }
-    store_rows(dqkv + (size_t)b * S * ld + D + h * DH, ld, dk, scale, k0, S, lane);
-    store_rows(dqkv + (size_t)b * S * ld + 2 * D + h * DH, ld, dv, 1.0f, k0, S, lane);
+    store_rows<DH>(dqkv + (size_t)b * S * ld + D + h * DH, ld, dk, scale, k0, S, lane);
+    store_rows<DH>(dqkv + (size_t)b * S * ld + 2 * D + h * DH, ld, dv, 1.0f, k0, S, lane);
   }
 }
 
+// A source that includes this header for the forward's attention alone
+// (csrc/layer_fwd_seq.cuh) defines ATTENTION_CORE_FWD_ONLY first: it then
+// gets the forward-only launcher and no backward instantiation, the others
+// the backward's launcher and no forward-only one, so that each library
+// compiles only the instantiations it runs.
+
+// The core at head_dim DH other than 64 (S <= AB_MAX_S), at the coarse
+// key-tile counts of GENERAL_KEY_TILES; FWD: att alone
+template <int DH, bool FWD>
+static int launch_attention_core_dh(const bf16* qkv, const bf16* datt, bf16* att, bf16* dqkv,
+                                    int B, int S, int H, int D, cudaStream_t st) {
+  const int nt = general_key_tiles(S);
+  const size_t smem = attention_bwd_smem_dh<DH>(8 * nt, FWD);
+  const dim3 grid(H, B);
+  const float scale = attention_scale(DH);
+  switch (nt) {
+#define AB_GEN_CASE(n)                                                                     \
+  case n:                                                                                  \
+    if (cudaFuncSetAttribute(attention_bwd_kernel<n, DH, FWD>,                             \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))      \
+      return (int)cudaGetLastError();                                                      \
+    attention_bwd_kernel<n, DH, FWD><<<grid, AB_WARPS * 32, smem, st>>>(qkv, datt, att, dqkv, \
+                                                                        S, D, scale);      \
+    break;
+    GENERAL_KEY_TILES(AB_GEN_CASE)
+#undef AB_GEN_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+#ifdef ATTENTION_CORE_FWD_ONLY
+// The general route's bf16 forward attention stage: att = bf16(concat_h(
+// bf16(softmax(q k^T / sqrt(dh))) v)) from qkv (B * S, 3 D), S <= 256, any
+// head_dim of the four (64 too: the general route at mlp % 64 != 0)
+static int launch_attention_fwd_general(const bf16* qkv, bf16* att, int B, int S, int H, int D,
+                                        cudaStream_t st) {
+  if (S > AB_MAX_S || H <= 0 || D % H) return (int)cudaErrorInvalidValue;
+  switch (D / H) {
+    case 16: return launch_attention_core_dh<16, true>(qkv, nullptr, att, nullptr, B, S, H, D, st);
+    case 32: return launch_attention_core_dh<32, true>(qkv, nullptr, att, nullptr, B, S, H, D, st);
+    case 48: return launch_attention_core_dh<48, true>(qkv, nullptr, att, nullptr, B, S, H, D, st);
+    case 64: return launch_attention_core_dh<64, true>(qkv, nullptr, att, nullptr, B, S, H, D, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#else
+
 // S <= AB_MAX_S: attention_bwd_kernel; above it the multi-pass core of
-// csrc/long_attention.cuh (the same function, one launch)
+// csrc/long_attention.cuh (the same function, one launch). head_dim D / H:
+// 64 at every S, 16, 32 or 48 up to AB_MAX_S keys
 static int launch_attention_bwd(const bf16* qkv, const bf16* datt, bf16* att, bf16* dqkv,
                                 int B, int S, int H, int D, cudaStream_t st) {
+  if (H <= 0 || D % H) return (int)cudaErrorInvalidValue;
+  if (D / H != ATT_DH) {
+    if (S > AB_MAX_S) return (int)cudaErrorInvalidValue;
+    switch (D / H) {
+      case 16: return launch_attention_core_dh<16, false>(qkv, datt, att, dqkv, B, S, H, D, st);
+      case 32: return launch_attention_core_dh<32, false>(qkv, datt, att, dqkv, B, S, H, D, st);
+      case 48: return launch_attention_core_dh<48, false>(qkv, datt, att, dqkv, B, S, H, D, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (S > AB_MAX_S) return launch_long_attention_bwd(qkv, datt, att, dqkv, B, S, H, D, st);
   const size_t smem = attention_bwd_smem(S);
   const dim3 grid(H, B);
-  const float scale = 1.0f / sqrtf((float)DH);
+  const float scale = attention_scale(ATT_DH);
   switch ((S + 15) / 16 * 2) {
 #define AB_CASE(nt)                                                                       \
   case nt:                                                                                \
@@ -250,3 +322,4 @@ static int launch_attention_bwd(const bf16* qkv, const bf16* datt, bf16* att, bf
   }
   return (int)cudaGetLastError();
 }
+#endif  // ATTENTION_CORE_FWD_ONLY

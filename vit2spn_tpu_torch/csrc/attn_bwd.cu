@@ -8,7 +8,8 @@
 // dtype its inputs carry. The launch sequences, what bounds them and the
 // design: csrc/attn_bwd.cuh. bf16 at D <= 256 runs the wgmma row-block kit
 // (six launches), bf16 at D = 384 and 768 its wide route (seven), bf16 at
-// other widths above 256 the eleven-launch sequence, fp32 the same sequence
+// other widths above 256 and at the general geometry (head_dim 16, 32, 48;
+// D a multiple of 32) the eleven-launch sequence, fp32 the same sequence
 // with the CUDA-core attention of csrc/flash_f32.cuh (thirteen).
 
 #include "attn_bwd.cuh"
@@ -16,7 +17,7 @@
 // fp32 scratch the wrapper allocates for the split partials (and the fp32
 // attention's row statistics)
 extern "C" long long vit2spn_attn_bwd_workspace_floats(int B, int S, int D, int H, int fp32) {
-  if (!hopper_route(D, fp32)) return (long long)attn_seq_workspace(B, S, D, H);
+  if (H <= 0 || !hopper_route(D, fp32, 64, D / H)) return (long long)attn_seq_workspace(B, S, D, H);
   AttnBwdArgs a = {};
   a.B = B;
   a.S = S;
@@ -32,7 +33,7 @@ extern "C" long long vit2spn_attn_bwd_workspace_floats(int B, int S, int D, int 
 // timing it by itself.
 extern "C" int vit2spn_attention_core(const void* qkv, const void* datt, void* att, void* dqkv,
                                       int B, int S, int H, int D, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(B, S, D, H, 64)) return (int)cudaErrorInvalidValue;
   return launch_attention_bwd(static_cast<const bf16*>(qkv), static_cast<const bf16*>(datt),
                               static_cast<bf16*>(att), static_cast<bf16*>(dqkv), B, S, H, D,
                               static_cast<cudaStream_t>(stream));
@@ -46,16 +47,17 @@ extern "C" int vit2spn_attention_core(const void* qkv, const void* datt, void* a
 extern "C" int vit2spn_attention_core_f32(const void* qkv, const void* datt, void* att,
                                           void* dqkv, void* ws, int B, int S, int H, int D,
                                           int multipass, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(B, S, D, H, 64)) return (int)cudaErrorInvalidValue;
   const float* q = static_cast<const float*>(qkv);
   float* dq = static_cast<float*>(dqkv);
-  const float scale = 1.0f / sqrtf((float)FA_DH);
+  const int dh = D / H;
+  const float scale = attention_scale(dh);
   const long long ts = 3LL * D, bs = (long long)S * ts;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  LAUNCH(fwd_f32(q, q + D, q + 2 * D, static_cast<float*>(att), B, S, H, bs, ts, scale, st,
+  LAUNCH(fwd_f32(q, q + D, q + 2 * D, static_cast<float*>(att), B, S, H, dh, bs, ts, scale, st,
                  multipass != 0));
   return bwd_f32(q, q + D, q + 2 * D, static_cast<const float*>(datt), dq, dq + D, dq + 2 * D,
-                 static_cast<float*>(ws), B, S, H, bs, ts, ts, scale, st, multipass != 0);
+                 static_cast<float*>(ws), B, S, H, dh, bs, ts, ts, scale, st, multipass != 0);
 }
 
 // The longest S the bf16 core takes above 256 keys: csrc/long_attention.cuh
@@ -81,8 +83,10 @@ extern "C" int vit2spn_long_quotient_probe(long long n, void* counts, void* stre
 }
 
 // CUDA kernel launches one call makes
-extern "C" int vit2spn_attn_bwd_launches(int D, int fp32) {
-  if (hopper_route(D, fp32)) return wide_route(D) ? ATTN_WIDE_LAUNCHES : ATTN_HOPPER_LAUNCHES;
+extern "C" int vit2spn_attn_bwd_launches(int D, int fp32, int H, int MLP) {
+  (void)MLP;
+  if (H > 0 && hopper_route(D, fp32, 64, D / H))
+    return wide_route(D) ? ATTN_WIDE_LAUNCHES : ATTN_HOPPER_LAUNCHES;
   return fp32 ? attn_seq_launches<float>() : attn_seq_launches<bf16>();
 }
 
@@ -98,13 +102,12 @@ extern "C" int vit2spn_attn_bwd(
     void* dx, void* gln1_scale, void* gln1_bias, void* gwqkv, void* gbqkv, void* gwo, void* gbo,
     void* y1_buf, void* qkv_buf, void* datt_buf, void* att_buf, void* dqkv_buf, void* dy_buf,
     void* ws_buf, int B, int S, int D, int H, float eps, int fp32, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH || D > LN_MAX_D)
-    return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(B, S, D, H, 64)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const AttnBwdArgs a = {x, dx2, ln1_scale, ln1_bias, wqkv, bqkv, wo, dx, gln1_scale, gln1_bias,
                          gwqkv, gbqkv, gwo, gbo, y1_buf, qkv_buf, datt_buf, att_buf, dqkv_buf,
                          dy_buf, ws_buf, B, S, D, H, eps};
   if (fp32) return attn_bwd_seq<float>(a, st);
-  if (hopper_route(D, fp32)) return attn_bwd_hopper(a, st);
+  if (hopper_route(D, fp32, 64, D / H)) return attn_bwd_hopper(a, st);
   return attn_bwd_seq<bf16>(a, st);
 }

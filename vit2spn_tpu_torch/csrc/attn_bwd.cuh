@@ -70,10 +70,14 @@
 //   8. ln_bwd_kernel + reduce              dx, dln1_scale, dln1_bias
 //
 // The weight gradients split the token rows into fp32 partials added in a
-// fixed order: no atomics, so two runs give the same bits. Limits: head_dim
-// 64, any S in fp32 (csrc/flash_f32.cuh), bf16 S <= 15,168 (above 256:
-// csrc/long_attention.cuh's core), D <= 768, activations and matmul weights
-// in T, fp32 LN parameters.
+// fixed order: no atomics, so two runs give the same bits. The general
+// geometry (head_dim 16, 32 or 48, or D not a multiple of 64: common.cuh
+// general_route) takes attn_bwd_seq<T> in bf16 too, its attention core
+// instantiated on the head_dim. Limits: head_dim 64 at any S in fp32
+// (csrc/flash_f32.cuh) and bf16 S <= 15,168 (above 256:
+// csrc/long_attention.cuh's core); head_dim 16, 32 or 48 at S <= 256; D a
+// multiple of 32 up to 768, activations and matmul weights in T, fp32 LN
+// parameters.
 
 #pragma once
 
@@ -135,11 +139,12 @@ static int attn_bwd_seq(const AttnBwdArgs& a, cudaStream_t st) {
   if constexpr (sizeof(T) == 2) {
     LAUNCH(launch_attention_bwd(qkv, datt, att, dqkv, B, S, H, D, st));
   } else {
-    const float scale = 1.0f / sqrtf((float)FA_DH);
+    const int dh = D / H;
+    const float scale = attention_scale(dh);
     const long long ts = 3LL * D, bs = (long long)S * ts;
-    LAUNCH(fwd_f32(qkv, qkv + D, qkv + 2 * D, att, B, S, H, bs, ts, scale, st));
-    LAUNCH(bwd_f32(qkv, qkv + D, qkv + 2 * D, datt, dqkv, dqkv + D, dqkv + 2 * D, ws, B, S, H, bs,
-                   ts, ts, scale, st));
+    LAUNCH(fwd_f32(qkv, qkv + D, qkv + 2 * D, att, B, S, H, dh, bs, ts, scale, st));
+    LAUNCH(bwd_f32(qkv, qkv + D, qkv + 2 * D, datt, dqkv, dqkv + D, dqkv + 2 * D, ws, B, S, H, dh,
+                   bs, ts, ts, scale, st));
   }
   LAUNCH(launch_wgrad(att, dX2, D, D, M, ws, static_cast<float*>(a.gwo),
                       static_cast<float*>(a.gbo), st));

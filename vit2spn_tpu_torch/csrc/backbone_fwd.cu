@@ -22,11 +22,15 @@
 // weight matrices are read through TMA maps of the stacked arrays, built
 // once per call, the layer as their third coordinate. fp32
 // (compute_dtype=float32): the seven-launch CUDA-core layer of
-// csrc/layer_fwd_f32.cuh per layer. Limits: head_dim 64, D <= 768, D and
-// mlp multiples of 64.
+// csrc/layer_fwd_seq.cuh per layer. The general geometry (head_dim 16, 32
+// or 48, or D or mlp not a multiple of 64; common.cuh general_route) takes
+// that seven-launch layer in bf16 too, on the mma.sync GEMMs, with its
+// attention on the forward-only mode of csrc/attention_bwd.cuh's core.
+// Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to 768, mlp a
+// multiple of 32; S <= 256 on the general route.
 
 #include "layer_fwd.cuh"
-#include "layer_fwd_f32.cuh"
+#include "layer_fwd_seq.cuh"
 
 // ---------------------------------------------------------------------------
 // Host entry: the layer loop on the caller's stream
@@ -34,7 +38,8 @@
 
 // qkv_buf holds B * S rows of 3 * D, att_buf B * S rows of D; y_buf (bf16)
 // and x2_buf (fp32), B * S rows of D, and g_buf (B * S rows of MLP) are used
-// only above FUSED_MLP_MAX_D and may be null below it.
+// only above FUSED_MLP_MAX_D and on the general route, and may be null
+// otherwise.
 extern "C" int vit2spn_backbone_fwd(
     const void* x, void* out, void* xs, void* x2s,
     const void* ln1_scale, const void* ln1_bias, const void* wqkv, const void* bqkv,
@@ -43,7 +48,7 @@ extern "C" int vit2spn_backbone_fwd(
     void* qkv_buf, void* att_buf, void* y_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, int L, float eps, int fast_gelu,
     void* stream) {
-  if (L <= 0 || !layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || !geometry_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t M = (size_t)B * S;
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
@@ -51,6 +56,18 @@ extern "C" int vit2spn_backbone_fwd(
   bf16* o = static_cast<bf16*>(out);
   bf16* qkv = static_cast<bf16*>(qkv_buf);
   bf16* y = static_cast<bf16*>(y_buf);
+  if (general_route(D, H, MLP)) {
+    if (!y || !x2_buf || !g_buf) return (int)cudaErrorInvalidValue;
+    for (int l = 0; l < L; ++l) {
+      const bf16* cur = (l == 0) ? static_cast<const bf16*>(x) : o;
+      LAUNCH(launch_layer_seq<bf16>(cur, o, xs ? static_cast<bf16*>(xs) + l * M * D : nullptr,
+                                    x2s ? static_cast<bf16*>(x2s) + l * M * D : nullptr, w, l, y,
+                                    qkv, static_cast<bf16*>(att_buf),
+                                    static_cast<float*>(x2_buf), static_cast<bf16*>(g_buf), B,
+                                    S, D, H, MLP, eps, fast_gelu, st));
+    }
+    return (int)cudaSuccess;
+  }
   LayerMaps maps;
   LAUNCH(layer_maps(&maps, w, L, D, MLP, B, S, static_cast<const bf16*>(x), o, qkv,
                     static_cast<const bf16*>(att_buf), y, static_cast<const bf16*>(g_buf)));
@@ -65,8 +82,8 @@ extern "C" int vit2spn_backbone_fwd(
   return (int)cudaSuccess;
 }
 
-extern "C" int vit2spn_backbone_fwd_launches_per_layer(int D, int fp32) {
-  return fp32 ? LAYER_F32_LAUNCHES : launches_per_layer(D);
+extern "C" int vit2spn_backbone_fwd_launches_per_layer(int D, int fp32, int H, int MLP) {
+  return fp32 ? LAYER_SEQ_LAUNCHES : launches_per_layer(D, H, MLP);
 }
 
 // fp32: x, out (B * S, D), xs / x2s (optional, L x B * S x D) and the
@@ -80,7 +97,7 @@ extern "C" int vit2spn_backbone_fwd_f32(
     const void* w1, const void* b1, const void* w2, const void* b2,
     void* y_buf, void* qkv_buf, void* att_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, int L, float eps, int fast_gelu, void* stream) {
-  if (L <= 0 || !layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || !geometry_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t M = (size_t)B * S;
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
@@ -88,11 +105,12 @@ extern "C" int vit2spn_backbone_fwd_f32(
   float* o = static_cast<float*>(out);
   for (int l = 0; l < L; ++l) {
     const float* cur = (l == 0) ? static_cast<const float*>(x) : o;
-    LAUNCH(launch_layer_f32(cur, o, xs ? static_cast<float*>(xs) + l * M * D : nullptr,
-                            x2s ? static_cast<float*>(x2s) + l * M * D : nullptr, w, l,
-                            static_cast<float*>(y_buf), static_cast<float*>(qkv_buf),
-                            static_cast<float*>(att_buf), static_cast<float*>(x2_buf),
-                            static_cast<float*>(g_buf), B, S, D, H, MLP, eps, fast_gelu, st));
+    LAUNCH(launch_layer_seq<float>(cur, o, xs ? static_cast<float*>(xs) + l * M * D : nullptr,
+                                   x2s ? static_cast<float*>(x2s) + l * M * D : nullptr, w, l,
+                                   static_cast<float*>(y_buf), static_cast<float*>(qkv_buf),
+                                   static_cast<float*>(att_buf), static_cast<float*>(x2_buf),
+                                   static_cast<float*>(g_buf), B, S, D, H, MLP, eps, fast_gelu,
+                                   st));
   }
   return (int)cudaSuccess;
 }

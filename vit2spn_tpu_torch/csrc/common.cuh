@@ -206,43 +206,70 @@ __device__ __forceinline__ float rnd(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync on attention tiles: rows of 64 bf16 staged in shared memory
-// TILE_LD elements apart (conflict-free ldmatrix), fp32 C tiles of 16 x 8
-// (lane 4g + t holds rows g and g + 8, columns 2t and 2t + 1)
+// mma.sync on attention tiles: rows of DH bf16 (DH = head_dim: 16, 32, 48
+// or 64) staged in shared memory tile_ld<DH>() = DH + 8 elements apart
+// (conflict-free ldmatrix at every DH: the rows of an 8 x 8 matrix start
+// DH / 2 + 4 words apart), fp32 C tiles of 16 x 8 (lane 4g + t holds rows g
+// and g + 8, columns 2t and 2t + 1). The A operand of a 16-row tile is DH /
+// 16 fragments (k-steps of 16), an accumulator of 16 x DH is DH / 8 C tiles.
 // ---------------------------------------------------------------------------
 
 #define TILE_DH 64
 #define TILE_LD (TILE_DH + 8)
 
-// c (16 x 8) = A (16 x 64, fragments a[4][4]) times the 8 staged rows at
-// `rows` (64 columns each), transposed: each row is one column of the result
-__device__ __forceinline__ void mma_rows_t(float c[4], const uint32_t a[4][4],
-                                           const bf16* rows, int lane) {
-  uint32_t kb[2][4];
-  const bf16* p = rows + (size_t)(lane & 7) * TILE_LD + (lane >> 3) * 8;
-  ldmatrix_x4(kb[0], p);
-  ldmatrix_x4(kb[1], p + 32);
+template <int DH>
+__host__ __device__ constexpr int tile_ld() {
+  return DH + 8;
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+// c (16 x 8) = A (16 x DH, fragments a[DH / 16][4]) times the 8 staged rows
+// at `rows` (DH columns each), transposed: each row is one column of the
+// result. The k-steps in ascending order (DH = 48: three of them).
+template <int DH = TILE_DH>
+__device__ __forceinline__ void mma_rows_t(float c[4], const uint32_t a[][4], const bf16* rows,
+                                           int lane) {
+  constexpr int LD = tile_ld<DH>(), KS = DH / 16;
+  uint32_t kb[KS][2];
+  const bf16* p = rows + (size_t)(lane & 7) * LD + (lane >> 3) * 8;
+#pragma unroll
+  for (int ks = 0; ks + 1 < KS; ks += 2) {  // two k-steps a load
+    uint32_t r[4];
+    ldmatrix_x4(r, p + ks * 16);
+    kb[ks][0] = r[0];
+    kb[ks][1] = r[1];
+    kb[ks + 1][0] = r[2];
+    kb[ks + 1][1] = r[3];
+  }
+  if constexpr (KS & 1)
+    ldmatrix_x2(kb[KS - 1], rows + (size_t)(lane & 7) * LD + (KS - 1) * 16 + ((lane >> 3) & 1) * 8);
   c[0] = c[1] = c[2] = c[3] = 0.0f;
 #pragma unroll
-  for (int ks = 0; ks < TILE_DH / 16; ++ks)
-    mma_bf16(c, a[ks], kb[ks >> 1][(ks & 1) * 2], kb[ks >> 1][(ks & 1) * 2 + 1]);
+  for (int ks = 0; ks < KS; ++ks) mma_bf16(c, a[ks], kb[ks][0], kb[ks][1]);
 }
 
-// the 16 staged rows at `rows` (64 columns) as A operand fragments
-__device__ __forceinline__ void load_a_rows(uint32_t a[4][4], const bf16* rows, int lane) {
+// the 16 staged rows at `rows` (DH columns) as A operand fragments
+template <int DH = TILE_DH>
+__device__ __forceinline__ void load_a_rows(uint32_t a[][4], const bf16* rows, int lane) {
 #pragma unroll
-  for (int ks = 0; ks < TILE_DH / 16; ++ks)
-    ldmatrix_x4(a[ks], rows + (size_t)(lane & 15) * TILE_LD + ks * 16 + (lane >> 4) * 8);
+  for (int ks = 0; ks < DH / 16; ++ks)
+    ldmatrix_x4(a[ks], rows + (size_t)(lane & 15) * tile_ld<DH>() + ks * 16 + (lane >> 4) * 8);
 }
 
-// acc (16 x 64) += a (16 x 16) times the 16 staged rows at `rows` (64
+// acc (16 x DH) += a (16 x 16) times the 16 staged rows at `rows` (DH
 // columns), read as the B operand [row][column]
-__device__ __forceinline__ void mma_rows(float acc[8][4], const uint32_t a[4],
-                                         const bf16* rows, int lane) {
-  const bf16* p =
-      rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * TILE_LD + (lane >> 4) * 8;
+template <int DH = TILE_DH>
+__device__ __forceinline__ void mma_rows(float acc[][4], const uint32_t a[4], const bf16* rows,
+                                         int lane) {
+  const bf16* p = rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * tile_ld<DH>() +
+                  (lane >> 4) * 8;
 #pragma unroll
-  for (int np = 0; np < TILE_DH / 16; ++np) {
+  for (int np = 0; np < DH / 16; ++np) {
     uint32_t b[4];
     ldmatrix_x4_trans(b, p + np * 16);
     mma_bf16(acc[2 * np], a, b[0], b[1]);
@@ -258,13 +285,14 @@ __device__ __forceinline__ void pack_a(uint32_t a[4], const float x0[4], const f
   a[3] = pack_f32(x1[2], x1[3]);
 }
 
-// rows r and r + 8 of a 16 x 64 fp32 tile, times `mul`, as bf16 into `out`
+// rows r and r + 8 of a 16 x DH fp32 tile, times `mul`, as bf16 into `out`
 // (row stride ld); rows >= S are not written
-__device__ __forceinline__ void store_rows(bf16* out, size_t ld, const float acc[8][4],
-                                           float mul, int r0, int S, int lane) {
+template <int DH = TILE_DH>
+__device__ __forceinline__ void store_rows(bf16* out, size_t ld, const float acc[][4], float mul,
+                                           int r0, int S, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < TILE_DH / 8; ++n) {
+  for (int n = 0; n < DH / 8; ++n) {
     if (r0 + g < S)
       *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g) * ld + n * 8 + 2 * t) =
           pack_f32(acc[n][0] * mul, acc[n][1] * mul);
@@ -272,6 +300,46 @@ __device__ __forceinline__ void store_rows(bf16* out, size_t ld, const float acc
       *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g + 8) * ld + n * 8 + 2 * t) =
           pack_f32(acc[n][2] * mul, acc[n][3] * mul);
   }
+}
+
+// 1 / sqrt(dh) as an fp32 value: the JAX bodies' Python-float scale, rounded
+// once to fp32 (exactly 0.125 at head_dim 64)
+static inline float attention_scale(int dh) { return (float)(1.0 / sqrt((double)dh)); }
+
+// ---------------------------------------------------------------------------
+// The geometry the kernels take (ops/fused_block.py geometry_route says the
+// same in Python): head_dim 16, 32, 48 or 64, D = H head_dim a multiple of
+// 32 up to LN_MAX_D, mlp a multiple of 32. Head_dim 64 with D and mlp
+// multiples of 64 keeps every route it had (any S); any other geometry
+// takes the general route (FA_MAX_S keys at most): the seven-launch
+// forward layer on the mma.sync GEMMs, the *_bwd_seq sequences, the S <=
+// FA_MAX_S attention kernels instantiated on head_dim.
+// ---------------------------------------------------------------------------
+
+// the longest S whose row of scores the S <= 256 attention kernels (bf16
+// and flash_f32.cuh's fp32 ones) hold in registers
+#define FA_MAX_S 256
+
+static bool head_dim_ok(int dh) { return dh == 16 || dh == 32 || dh == 48 || dh == 64; }
+
+static bool general_route(int D, int H, int MLP) {
+  return D % 64 || MLP % 64 || H <= 0 || D != H * 64;
+}
+
+// The bf16 S <= 256 attention kernels (mma.sync) hold a row of scores in
+// registers and are instantiated per key-tile count NT (SP = 8 NT staged
+// keys, pad keys masked). At head_dim 64 NT follows S in steps of 16;
+// at the general route's head_dims only these counts (S rounded up to 16,
+// 32, 64, 128, 208 or 256), so that three more head_dims keep the build time
+// bounded.
+#define GENERAL_KEY_TILES(X) X(2) X(4) X(8) X(16) X(26) X(32)
+
+static int general_key_tiles(int S) {
+  const int nt = (S + 7) / 8;
+  const int tiles[] = {2, 4, 8, 16, 26, 32};
+  for (int t : tiles)
+    if (nt <= t) return t;
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -282,6 +350,14 @@ __device__ __forceinline__ void store_rows(bf16* out, size_t ld, const float acc
 #define LN_MAX_PER_LANE 24
 #define LN_MAX_D (32 * LN_MAX_PER_LANE)
 #define LN_WARPS 8
+
+// B images of S tokens at width D, H heads, mlp MLP: what every layer
+// kernel takes (the attention-only entries skip MLP with MLP = 32)
+static bool geometry_ok(int B, int S, int D, int H, int MLP) {
+  return B > 0 && S > 0 && H > 0 && D % H == 0 && head_dim_ok(D / H) && D % 32 == 0 &&
+         D <= LN_MAX_D && MLP > 0 && MLP % 32 == 0 &&
+         (!general_route(D, H, MLP) || S <= FA_MAX_S);
+}
 
 // 16 bytes of x as floats: 8 bf16 or 4 fp32
 __device__ __forceinline__ void unpack16(const uint4& u, float* f, const bf16*) {
@@ -385,7 +461,7 @@ static int launch_layernorm(const T* x, const float* scale, const float* bias, T
 // ---------------------------------------------------------------------------
 
 #define LNB_WARPS 4
-#define LNB_MAX_PAIRS (LN_MAX_D / 64)  // a lane holds D / 64 pairs of columns
+#define LNB_MAX_PAIRS (LN_MAX_D / 64)  // a lane holds D / 64 pairs of columns, rounded up
 #define LNB_MAX_BLOCKS 1056            // eight per SM of an H100
 
 static int lnb_blocks(int M) {
@@ -402,7 +478,8 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
   __shared__ float red[LNB_WARPS][2 * LN_MAX_D];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int np = D / 64;
+  // pair i of the lane: columns 64 i + 2 lane and the next, while below D
+  // (D a multiple of 32: every pair of the last 64 columns, or the first half)
   float gs[LNB_MAX_PAIRS][2], gb[LNB_MAX_PAIRS][2];
 #pragma unroll
   for (int i = 0; i < LNB_MAX_PAIRS; ++i) gs[i][0] = gs[i][1] = gb[i][0] = gb[i][1] = 0.0f;
@@ -413,8 +490,8 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
     float s = 0.0f;
 #pragma unroll
     for (int i = 0; i < LNB_MAX_PAIRS; ++i) {
-      if (i < np) {
-        const int c = 64 * i + 2 * lane;
+      const int c = 64 * i + 2 * lane;
+      if (c < D) {
         const float2 xx = load2(x + base + c);
         const float2 dd = *reinterpret_cast<const float2*>(dy + base + c);
         xv[i][0] = xx.x;
@@ -428,7 +505,7 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
     float var = 0.0f;
 #pragma unroll
     for (int i = 0; i < LNB_MAX_PAIRS; ++i) {
-      if (i < np) {
+      if (64 * i + 2 * lane < D) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float d = xv[i][e] - mean;
@@ -440,8 +517,8 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
     float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
     for (int i = 0; i < LNB_MAX_PAIRS; ++i) {
-      if (i < np) {
-        const int c = 64 * i + 2 * lane;
+      const int c = 64 * i + 2 * lane;
+      if (c < D) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float xh = (xv[i][e] - mean) * rstd;
@@ -459,8 +536,8 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
     const float m2 = warp_sum(s2) / (float)D;
 #pragma unroll
     for (int i = 0; i < LNB_MAX_PAIRS; ++i) {
-      if (i < np) {
-        const int c = 64 * i + 2 * lane;
+      const int c = 64 * i + 2 * lane;
+      if (c < D) {
         const float2 r = load2(resid + base + c);
         const float d0 = rstd * (dv[i][0] - m1 - xv[i][0] * m2);
         const float d1 = rstd * (dv[i][1] - m1 - xv[i][1] * m2);
@@ -470,8 +547,8 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
   }
 #pragma unroll
   for (int i = 0; i < LNB_MAX_PAIRS; ++i) {
-    if (i < np) {
-      const int c = 64 * i + 2 * lane;
+    const int c = 64 * i + 2 * lane;
+    if (c < D) {
       red[warp][c] = gs[i][0];
       red[warp][c + 1] = gs[i][1];
       red[warp][D + c] = gb[i][0];
@@ -620,6 +697,9 @@ static int launch_ln_bwd(const T* x, const float* dy, const T* resid,
 // output row M - 1 multiplies B by a column of ones in A, so it holds B's
 // column sums: the bias gradient comes out of the same pass.
 //
+// N a multiple of 32: the last column tile may be half outside, its
+// columns past N read as zeros and never written.
+//
 // bf16: mma.sync m16n8k16, 128x64x32 block tiles, 4 warps of 64x32 fed by
 // ldmatrix (.trans for the operands stored with the reduction index
 // outermost), a 3-stage cp.async pipeline, the epilogue applied to the
@@ -766,13 +846,15 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N
         const int r = i / (BN / 8);
         const int c8 = (i % (BN / 8)) * 8;
         const int gk = k0 + r;
-        cp_async16(&bs[r * BLD + c8], B + (size_t)(gk < K ? gk : 0) * N + n0 + c8, gk < K);
+        const bool ok = gk < K && n0 + c8 < N;
+        cp_async16(&bs[r * BLD + c8], ok ? B + (size_t)gk * N + n0 + c8 : B, ok);
       }
     } else {
       for (int i = tid; i < BN * (BK / 8); i += GEMM_THREADS) {
         const int r = i / (BK / 8);
         const int c8 = (i % (BK / 8)) * 8;
-        cp_async16(&bs[r * BLD + c8], B + (size_t)(n0 + r) * K + k0 + c8, true);
+        const bool ok = n0 + r < N;
+        cp_async16(&bs[r * BLD + c8], ok ? B + (size_t)(n0 + r) * K + k0 + c8 : B, ok);
       }
     }
   };
@@ -836,6 +918,7 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N
     for (int ni = 0; ni < 4; ++ni) {
       const int gr = m0 + wm + mi * 16 + g;
       const int gc = n0 + wn + ni * 8 + 2 * t;
+      if (gc >= N) continue;
       if (gr < M) epilogue_pair<EPI>(ep, M, N, gr, gc, acc[mi][ni][0], acc[mi][ni][1]);
       if (gr + 8 < M) epilogue_pair<EPI>(ep, M, N, gr + 8, gc, acc[mi][ni][2], acc[mi][ni][3]);
     }
@@ -847,7 +930,9 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N
 // TFLOP/s on an H100 SXM), so the design keeps the FMA pipes fed:
 //
 //   * 64 x 16 TN block tiles (TN = 12, 8 or 4: 192, 128 or 64 columns, the
-//     widest that divides N; 192 divides every N of ViT-Tiny's layer), 128
+//     widest that divides N; 192 divides every N of ViT-Tiny's layer; at N a
+//     multiple of 32 only, 64 with the last tile's columns past N zeros in
+//     and never written), 128
 //     threads as 8 x 16, thread (ty, tx) summing 8 rows (4 ty + 0..3 and
 //     32 + 4 ty + 0..3) by TN columns: 8 TN FMAs per k step against 2 + TN / 4
 //     float4 shared reads. At 168 registers or fewer three blocks share an
@@ -905,7 +990,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M,
   const int kb = blockIdx.z * k_per_split;
   const int nt = (min(kb + k_per_split, K) - kb + F32_BK - 1) / F32_BK;
   const int rows = AT ? M - 1 : M;  // rows of the product from A (AT: A's columns)
-  const bool sums = AT && blockIdx.y == 0 && tid < BNF / 2;  // B's column sums
+  const bool sums = AT && blockIdx.y == 0 && tid < BNF / 2 && n0 + 2 * tid < N;  // B's column sums
 
   // tile k0 .. k0 + F32_BK of A and B into ring slot `buf`; what lies past
   // K, M or A's columns is zero-filled (K, N and A's row length are
@@ -929,13 +1014,13 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M,
     if constexpr (!BT) {
       for (int i = tid; i < F32_BK * (BNF / 4); i += F32_THREADS) {
         const int r = i / (BNF / 4), c = (i % (BNF / 4)) * 4;
-        const bool ok = k0 + r < K;
+        const bool ok = k0 + r < K && n0 + c < N;
         cp_async16(bs + r * BNF + c, ok ? B + (size_t)(k0 + r) * N + n0 + c : B, ok);
       }
     } else {
       for (int i = tid; i < BNF * (F32_BK / 4); i += F32_THREADS) {
         const int r = i / (F32_BK / 4), c = (i % (F32_BK / 4)) * 4;
-        const bool ok = k0 + c < K;
+        const bool ok = k0 + c < K && n0 + r < N;
         cp_async16(bs + r * F32_KLD + c, ok ? B + (size_t)(n0 + r) * K + k0 + c : B, ok);
       }
     }
@@ -1057,7 +1142,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M,
 #pragma unroll 1
   for (int q = tid; q < F32_BM * (BNF / 4); q += F32_THREADS) {
     const int r = q / (BNF / 4), c = (q % (BNF / 4)) * 4, gr = m0 + r;
-    if (gr < rows) {
+    if (gr < rows && n0 + c < N) {
       const float4 v = *reinterpret_cast<const float4*>(tile + r * (BNF + 4) + c);
       epilogue_pair<EPI>(ep, M, N, gr, n0 + c, v.x, v.y);
       epilogue_pair<EPI>(ep, M, N, gr, n0 + c + 2, v.z, v.w);
@@ -1076,7 +1161,7 @@ static int launch_gemm_f32(const float* A, const float* B, int M, int N, int K,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int rows = AT ? M - 1 : M;
-  const dim3 grid(N / (16 * TN), (rows + F32_BM - 1) / F32_BM, zsplits);
+  const dim3 grid((N + 16 * TN - 1) / (16 * TN), (rows + F32_BM - 1) / F32_BM, zsplits);
   gemm_f32_kernel<AT, BT, EPI, TN><<<grid, F32_THREADS, smem, st>>>(A, B, M, N, K, k_per_split,
                                                                     ep);
   return (int)cudaGetLastError();
@@ -1096,7 +1181,7 @@ static int launch_gemm(const T* A, const T* B, int M, int N, int K, const EpiArg
     cudaError_t e = cudaFuncSetAttribute(gemm_kernel<AT, BT, EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid(N / BN, (M + BM - 1) / BM, zs);
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, zs);
     gemm_kernel<AT, BT, EPI><<<grid, GEMM_THREADS, smem, st>>>(A, B, M, N, K, kps, ep);
     return (int)cudaGetLastError();
   } else {
@@ -1117,7 +1202,7 @@ static int launch_gemm(const T* A, const T* B, int M, int N, int K, const EpiArg
 // The split count: enough blocks to fill the card about four times, at least one
 // BK step of token rows each. It depends only on the shapes.
 static int wgrad_splits(int K1, int N, int M) {
-  const int tiles = (N / BN) * ((K1 + 1 + BM - 1) / BM);
+  const int tiles = ((N + BN - 1) / BN) * ((K1 + 1 + BM - 1) / BM);
   const int kt_all = (M + BK - 1) / BK;
   int s = (WGRAD_TARGET_BLOCKS + tiles - 1) / tiles;
   if (s > kt_all) s = kt_all;

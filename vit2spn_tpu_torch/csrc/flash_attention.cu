@@ -42,7 +42,7 @@
 //
 //   * a block takes TC_TILE = 128 rows (queries, or keys in the backward's
 //     second launch) of one (image, head) and stages all S rows of the other
-//     side in shared memory with cp.async (zeros past S), TILE_LD apart for
+//     side in shared memory with cp.async (zeros past S), tile_ld<DH>() apart for
 //     conflict-free ldmatrix; each warp stages its own 16 rows the same way,
 //     the next 16 in flight while it works on these. At S = 197 that is two
 //     stagings of K and V per (image, head): 64 and 256 rows per block were
@@ -81,8 +81,10 @@
 //
 // Layout: q, k, v are read in place through strides, as the views the split
 // of the block's (B, S, 3D) qkv gives them: element (b, s, h, d) at
-// b * bs + s * ts + h * 64 + d. o, dO, dq, dk and dv are contiguous (B, S, H,
-// 64). Limits: head_dim 64; bf16 rows start on 16 bytes (ts and bs
+// b * bs + s * ts + h * dh + d. o, dO, dq, dk and dv are contiguous (B, S, H,
+// dh). Limits: head_dim 64 at any S; head_dim 16, 32 or 48 (the kernels
+// above instantiated on DH, at the coarser key-tile counts of
+// GENERAL_KEY_TILES) up to 256 keys; bf16 rows start on 16 bytes (ts and bs
 // multiples of 8), fp32 rows on 8.
 
 #include <type_traits>
@@ -103,15 +105,16 @@
 
 __host__ __device__ __forceinline__ int pad16(int S) { return (S + 15) / 16 * 16; }
 
-// Rows r0 .. r0 + n - 1 of one (image, head) (global row stride ts) into
-// shared memory TILE_LD apart, with cp.async by threads `tid` of `nt`; rows >=
-// S are zeros.
+// Rows r0 .. r0 + n - 1 of one (image, head) (global row stride ts, DH
+// values each) into shared memory tile_ld<DH>() apart, with cp.async by
+// threads `tid` of `nt`; rows >= S are zeros.
+template <int DH>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long ts, int r0,
                                            int n, int S, int tid, int nt) {
-  for (int i = tid; i < n * (FA_DH / 8); i += nt) {
-    const int r = i / (FA_DH / 8), c = (i % (FA_DH / 8)) * 8;
+  for (int i = tid; i < n * (DH / 8); i += nt) {
+    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
     const bool live = r0 + r < S;
-    cp_async16(dst + r * TILE_LD + c, src + (live ? r0 + r : 0) * ts + c, live);
+    cp_async16(dst + r * tile_ld<DH>() + c, src + (live ? r0 + r : 0) * ts + c, live);
   }
 }
 
@@ -151,15 +154,16 @@ __device__ __forceinline__ void split_a_t(uint32_t hi[4], uint32_t lo[4], const 
     }
 }
 
-// acc (16 x 64) += (hi + lo) (16 x 16) times the 16 staged rows at `rows`:
+// acc (16 x DH) += (hi + lo) (16 x 16) times the 16 staged rows at `rows`:
 // mma_rows with both terms on one load of the B fragments
-__device__ __forceinline__ void mma_rows_split(float acc[8][4], const uint32_t hi[4],
+template <int DH>
+__device__ __forceinline__ void mma_rows_split(float acc[][4], const uint32_t hi[4],
                                                const uint32_t lo[4], const bf16* rows,
                                                int lane) {
   const bf16* p =
-      rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * TILE_LD + (lane >> 4) * 8;
+      rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * tile_ld<DH>() + (lane >> 4) * 8;
 #pragma unroll
-  for (int np = 0; np < TILE_DH / 16; ++np) {
+  for (int np = 0; np < DH / 16; ++np) {
     uint32_t b[4];
     ldmatrix_x4_trans(b, p + np * 16);
     mma_bf16(acc[2 * np], hi, b[0], b[1]);
@@ -169,24 +173,25 @@ __device__ __forceinline__ void mma_rows_split(float acc[8][4], const uint32_t h
   }
 }
 
-__device__ __forceinline__ void zero_acc(float acc[8][4]) {
+template <int DH>
+__device__ __forceinline__ void zero_acc(float acc[][4]) {
 #pragma unroll
-  for (int n = 0; n < TILE_DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 }
 
 // P of the warp's 16 queries (A fragments qa) against the SP = 8 NT staged
 // keys Ks, in sc: scores scaled with __fmul_rn, keys >= S at -1e30, the row
 // max mx, exp(s - max) (exactly 0 for masked keys), their sum l, then the
 // division. Rows g and g + 8 of the tile: mx[0], l[0] and mx[1], l[1].
-template <int NT>
+template <int NT, int DH>
 __device__ __forceinline__ void probs_tile(float sc[NT][4], float mx[2], float l[2],
-                                           const uint32_t qa[4][4], const bf16* Ks, int S,
+                                           const uint32_t qa[][4], const bf16* Ks, int S,
                                            float scale, int lane) {
   const int t = lane & 3;
   mx[0] = mx[1] = -3.0e38f;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
-    mma_rows_t(sc[j], qa, Ks + (size_t)8 * j * TILE_LD, lane);
+    mma_rows_t<DH>(sc[j], qa, Ks + (size_t)8 * j * tile_ld<DH>(), lane);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       sc[j][e] = (8 * j + 2 * t + (e & 1) < S) ? __fmul_rn(sc[j][e], scale) : NEG_INF;
@@ -215,50 +220,54 @@ __device__ __forceinline__ void probs_tile(float sc[NT][4], float mx[2], float l
 // Forward: one block per TC_TILE queries of one (image, head)
 // ---------------------------------------------------------------------------
 
-static size_t tc_fwd_smem(int S) {
-  return (size_t)(2 * pad16(S) + TC_WARPS * 16) * TILE_LD * sizeof(bf16);
+// SP: the staged key rows (S rounded up to 16, or to the general route's
+// coarser key-tile counts)
+template <int DH>
+static size_t tc_fwd_smem(int SP) {
+  return (size_t)(2 * SP + TC_WARPS * 16) * tile_ld<DH>() * sizeof(bf16);
 }
 
-template <int NT>
+template <int NT, int DH = FA_DH>
 __global__ void __launch_bounds__(TC_WARPS * 32)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
              bf16* __restrict__ o, int S, int H, long long bs, long long ts, float scale) {
-  constexpr int SP = 8 * NT;
+  constexpr int SP = 8 * NT, LD = tile_ld<DH>();
   extern __shared__ __align__(128) unsigned char fa_smem[];
   bf16* Ks = reinterpret_cast<bf16*>(fa_smem);
-  bf16* Vs = Ks + SP * TILE_LD;
+  bf16* Vs = Ks + SP * LD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Qw = Vs + SP * TILE_LD + warp * 16 * TILE_LD;  // this warp's 16 queries
+  bf16* Qw = Vs + SP * LD + warp * 16 * LD;  // this warp's 16 queries
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * TC_TILE, r1 = min(r0 + TC_TILE, S);
-  const long long head = (long long)b * bs + h * FA_DH;
-  const long long ots = (long long)H * FA_DH;
-  bf16* out = o + (long long)b * S * ots + h * FA_DH;
-  stage_rows(Ks, k + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
-  stage_rows(Vs, v + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
-  stage_rows(Qw, q + head, ts, r0 + 16 * warp, 16, S, lane, 32);
+  const long long head = (long long)b * bs + h * DH;
+  const long long ots = (long long)H * DH;
+  bf16* out = o + (long long)b * S * ots + h * DH;
+  stage_rows<DH>(Ks, k + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
+  stage_rows<DH>(Vs, v + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
+  stage_rows<DH>(Qw, q + head, ts, r0 + 16 * warp, 16, S, lane, 32);
   cp_async_wait_all();
   __syncthreads();
 
   for (int q0 = r0 + 16 * warp; q0 < r1; q0 += 16 * TC_WARPS) {
-    uint32_t qa[4][4];
-    load_a_rows(qa, Qw, lane);
+    uint32_t qa[DH / 16][4];
+    load_a_rows<DH>(qa, Qw, lane);
     __syncwarp();  // every lane has read the buffer: stage the next 16 queries
-    if (q0 + 16 * TC_WARPS < r1) stage_rows(Qw, q + head, ts, q0 + 16 * TC_WARPS, 16, S, lane, 32);
+    if (q0 + 16 * TC_WARPS < r1)
+      stage_rows<DH>(Qw, q + head, ts, q0 + 16 * TC_WARPS, 16, S, lane, 32);
 
     float sc[NT][4], mx[2], l[2];
-    probs_tile<NT>(sc, mx, l, qa, Ks, S, scale, lane);
+    probs_tile<NT, DH>(sc, mx, l, qa, Ks, S, scale, lane);
     // o = (P_hi + P_lo) v: score tiles 2i and 2i + 1 are the A operand of
     // key step i as they lie
-    float acc[8][4];
-    zero_acc(acc);
+    float acc[DH / 8][4];
+    zero_acc<DH>(acc);
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) {
       uint32_t hi[4], lo[4];
       split_a(hi, lo, sc[2 * i], sc[2 * i + 1]);
-      mma_rows_split(acc, hi, lo, Vs + (size_t)16 * i * TILE_LD, lane);
+      mma_rows_split<DH>(acc, hi, lo, Vs + (size_t)16 * i * LD, lane);
     }
-    store_rows(out, ots, acc, 1.0f, q0, S, lane);
+    store_rows<DH>(out, ots, acc, 1.0f, q0, S, lane);
     cp_async_wait_all();
     __syncwarp();
   }
@@ -268,76 +277,77 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 // Backward, launch 1: one block per TC_TILE queries: statistics and dQ
 // ---------------------------------------------------------------------------
 
-static size_t tc_bwd_smem(int S) {  // both launches' staged rows
-  return (size_t)(2 * pad16(S) + TC_WARPS * 32) * TILE_LD * sizeof(bf16);
+template <int DH>
+static size_t tc_bwd_smem(int SP) {  // both launches' staged rows
+  return (size_t)(2 * SP + TC_WARPS * 32) * tile_ld<DH>() * sizeof(bf16);
 }
 
-template <int NT>
+template <int NT, int DH = FA_DH>
 __global__ void __launch_bounds__(TC_WARPS * 32)
 flash_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   bf16* __restrict__ dq, float* __restrict__ stats, int S, int H, long long bs,
                   long long ts, float scale) {
-  constexpr int SP = 8 * NT;
+  constexpr int SP = 8 * NT, LD = tile_ld<DH>();
   extern __shared__ __align__(128) unsigned char fa_smem[];
   bf16* Ks = reinterpret_cast<bf16*>(fa_smem);
-  bf16* Vs = Ks + SP * TILE_LD;
+  bf16* Vs = Ks + SP * LD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  bf16* Qw = Vs + SP * TILE_LD + warp * 32 * TILE_LD;  // this warp's 16 queries
-  bf16* Ow = Qw + 16 * TILE_LD;                        // and their dO
+  bf16* Qw = Vs + SP * LD + warp * 32 * LD;  // this warp's 16 queries
+  bf16* Ow = Qw + 16 * LD;                   // and their dO
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * TC_TILE, r1 = min(r0 + TC_TILE, S);
-  const long long head = (long long)b * bs + h * FA_DH;
-  const long long ots = (long long)H * FA_DH;
-  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const long long head = (long long)b * bs + h * DH;
+  const long long ots = (long long)H * DH;
+  const long long ohead = (long long)b * S * ots + h * DH;
   float* st = stats + ((long long)(b * H + h) * S) * 3;
-  stage_rows(Ks, k + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
-  stage_rows(Vs, v + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
-  stage_rows(Qw, q + head, ts, r0 + 16 * warp, 16, S, lane, 32);
-  stage_rows(Ow, dout + ohead, ots, r0 + 16 * warp, 16, S, lane, 32);
+  stage_rows<DH>(Ks, k + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
+  stage_rows<DH>(Vs, v + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
+  stage_rows<DH>(Qw, q + head, ts, r0 + 16 * warp, 16, S, lane, 32);
+  stage_rows<DH>(Ow, dout + ohead, ots, r0 + 16 * warp, 16, S, lane, 32);
   cp_async_wait_all();
   __syncthreads();
 
   for (int q0 = r0 + 16 * warp; q0 < r1; q0 += 16 * TC_WARPS) {
-    uint32_t qa[4][4], oa[4][4];
-    load_a_rows(qa, Qw, lane);
-    load_a_rows(oa, Ow, lane);
+    uint32_t qa[DH / 16][4], oa[DH / 16][4];
+    load_a_rows<DH>(qa, Qw, lane);
+    load_a_rows<DH>(oa, Ow, lane);
     __syncwarp();
     if (q0 + 16 * TC_WARPS < r1) {
-      stage_rows(Qw, q + head, ts, q0 + 16 * TC_WARPS, 16, S, lane, 32);
-      stage_rows(Ow, dout + ohead, ots, q0 + 16 * TC_WARPS, 16, S, lane, 32);
+      stage_rows<DH>(Qw, q + head, ts, q0 + 16 * TC_WARPS, 16, S, lane, 32);
+      stage_rows<DH>(Ow, dout + ohead, ots, q0 + 16 * TC_WARPS, 16, S, lane, 32);
     }
 
     float p[NT][4], mx[2], l[2];
-    probs_tile<NT>(p, mx, l, qa, Ks, S, scale, lane);
+    probs_tile<NT, DH>(p, mx, l, qa, Ks, S, scale, lane);
     // rowsum(dP * P), dP = dO v^T one key tile at a time
     float dot[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       float dp[4];
-      mma_rows_t(dp, oa, Vs + (size_t)8 * j * TILE_LD, lane);
+      mma_rows_t<DH>(dp, oa, Vs + (size_t)8 * j * LD, lane);
 #pragma unroll
       for (int e = 0; e < 4; ++e) dot[e >> 1] += dp[e] * p[j][e];
     }
     dot[0] = quad_sum(dot[0]);
     dot[1] = quad_sum(dot[1]);
     // dS = P (dP - rowsum), dP recomputed; dQ = (dS_hi + dS_lo) k
-    float acc[8][4];
-    zero_acc(acc);
+    float acc[DH / 8][4];
+    zero_acc<DH>(acc);
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) {
       float ds[2][4];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        mma_rows_t(ds[hh], oa, Vs + (size_t)8 * (2 * i + hh) * TILE_LD, lane);
+        mma_rows_t<DH>(ds[hh], oa, Vs + (size_t)8 * (2 * i + hh) * LD, lane);
 #pragma unroll
         for (int e = 0; e < 4; ++e) ds[hh][e] = p[2 * i + hh][e] * (ds[hh][e] - dot[e >> 1]);
       }
       uint32_t hi[4], lo[4];
       split_a(hi, lo, ds[0], ds[1]);
-      mma_rows_split(acc, hi, lo, Ks + (size_t)16 * i * TILE_LD, lane);
+      mma_rows_split<DH>(acc, hi, lo, Ks + (size_t)16 * i * LD, lane);
     }
-    store_rows(dq + ohead, ots, acc, scale, q0, S, lane);
+    store_rows<DH>(dq + ohead, ots, acc, scale, q0, S, lane);
     if (t == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -358,61 +368,63 @@ flash_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Backward, launch 2: one block per TC_TILE keys, every query: dK and dV
 // ---------------------------------------------------------------------------
 
+template <int DH = FA_DH>
 __global__ void __launch_bounds__(TC_WARPS * 32)
 flash_bwd_cols_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ stats, bf16* __restrict__ dk,
                   bf16* __restrict__ dv, int S, int H, long long bs, long long ts, float scale) {
+  constexpr int LD = tile_ld<DH>();
   const int SP = pad16(S);
   extern __shared__ __align__(128) unsigned char fa_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(fa_smem);
-  bf16* Os = Qs + SP * TILE_LD;  // dO, every query
+  bf16* Os = Qs + SP * LD;  // dO, every query
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  bf16* Kw = Os + SP * TILE_LD + warp * 32 * TILE_LD;  // this warp's 16 keys
-  bf16* Vw = Kw + 16 * TILE_LD;
-  float* rmax = reinterpret_cast<float*>(Os + SP * TILE_LD + TC_WARPS * 32 * TILE_LD);
+  bf16* Kw = Os + SP * LD + warp * 32 * LD;  // this warp's 16 keys
+  bf16* Vw = Kw + 16 * LD;
+  float* rmax = reinterpret_cast<float*>(Os + SP * LD + TC_WARPS * 32 * LD);
   float* rsum = rmax + SP;
   float* rdot = rsum + SP;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * TC_TILE, r1 = min(r0 + TC_TILE, S);
-  const long long head = (long long)b * bs + h * FA_DH;
-  const long long ots = (long long)H * FA_DH;
-  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const long long head = (long long)b * bs + h * DH;
+  const long long ots = (long long)H * DH;
+  const long long ohead = (long long)b * S * ots + h * DH;
   const float* st = stats + ((long long)(b * H + h) * S) * 3;
-  stage_rows(Qs, q + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
-  stage_rows(Os, dout + ohead, ots, 0, SP, S, threadIdx.x, blockDim.x);
+  stage_rows<DH>(Qs, q + head, ts, 0, SP, S, threadIdx.x, blockDim.x);
+  stage_rows<DH>(Os, dout + ohead, ots, 0, SP, S, threadIdx.x, blockDim.x);
   for (int i = threadIdx.x; i < 3 * SP; i += blockDim.x) {  // pad queries: zeros, masked
     const int c = i / 3, f = i % 3;
     cp_async4(rmax + f * SP + c, st + (c < S ? i : 0), c < S);
   }
   int k0 = r0 + 16 * warp;
-  stage_rows(Kw, k + head, ts, k0, 16, S, lane, 32);
-  stage_rows(Vw, v + head, ts, k0, 16, S, lane, 32);
+  stage_rows<DH>(Kw, k + head, ts, k0, 16, S, lane, 32);
+  stage_rows<DH>(Vw, v + head, ts, k0, 16, S, lane, 32);
   cp_async_wait_all();
   __syncthreads();
 
   for (; k0 < r1; k0 += 16 * TC_WARPS) {
     if (k0 != r0 + 16 * warp) {  // the next 16 keys of this warp
       __syncwarp();
-      stage_rows(Kw, k + head, ts, k0, 16, S, lane, 32);
-      stage_rows(Vw, v + head, ts, k0, 16, S, lane, 32);
+      stage_rows<DH>(Kw, k + head, ts, k0, 16, S, lane, 32);
+      stage_rows<DH>(Vw, v + head, ts, k0, 16, S, lane, 32);
       cp_async_wait_all();
       __syncwarp();
     }
-    float ak[8][4], av[8][4];
-    zero_acc(ak);
-    zero_acc(av);
+    float ak[DH / 8][4], av[DH / 8][4];
+    zero_acc<DH>(ak);
+    zero_acc<DH>(av);
     for (int i = 0; i < SP / 16; ++i) {
       // scores and dP of queries 16 i.. against the warp's keys, in launch
       // 1's roles (rows query, columns key), then P and dS from the statistics
-      uint32_t qa[4][4], oa[4][4];
-      load_a_rows(qa, Qs + (size_t)16 * i * TILE_LD, lane);
-      load_a_rows(oa, Os + (size_t)16 * i * TILE_LD, lane);
+      uint32_t qa[DH / 16][4], oa[DH / 16][4];
+      load_a_rows<DH>(qa, Qs + (size_t)16 * i * LD, lane);
+      load_a_rows<DH>(oa, Os + (size_t)16 * i * LD, lane);
       float p[2][4], ds[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
-        mma_rows_t(p[n], qa, Kw + (size_t)8 * n * TILE_LD, lane);
-        mma_rows_t(ds[n], oa, Vw + (size_t)8 * n * TILE_LD, lane);
+        mma_rows_t<DH>(p[n], qa, Kw + (size_t)8 * n * LD, lane);
+        mma_rows_t<DH>(ds[n], oa, Vw + (size_t)8 * n * LD, lane);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = 16 * i + g + 8 * (e >> 1);
@@ -426,28 +438,49 @@ flash_bwd_cols_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       uint32_t hi[4], lo[4];
       split_a_t(hi, lo, p);  // P^T: rows key, columns query
-      mma_rows_split(av, hi, lo, Os + (size_t)16 * i * TILE_LD, lane);
+      mma_rows_split<DH>(av, hi, lo, Os + (size_t)16 * i * LD, lane);
       split_a_t(hi, lo, ds);
-      mma_rows_split(ak, hi, lo, Qs + (size_t)16 * i * TILE_LD, lane);
+      mma_rows_split<DH>(ak, hi, lo, Qs + (size_t)16 * i * LD, lane);
     }
-    store_rows(dk + ohead, ots, ak, scale, k0, S, lane);
-    store_rows(dv + ohead, ots, av, 1.0f, k0, S, lane);
+    store_rows<DH>(dk + ohead, ots, ak, scale, k0, S, lane);
+    store_rows<DH>(dv + ohead, ots, av, 1.0f, k0, S, lane);
   }
 }
 
 // f(std::integral_constant<int, NT>) for NT = S rounded up to 16, over 8
-template <typename F>
+// (head_dim 64), or the general route's coarser counts (GENERAL_KEY_TILES)
+template <int DH, typename F>
 static int by_key_tiles(int S, F&& f) {
-  switch (pad16(S) / 8) {
 #define FA_CASE(nt) \
   case nt:          \
     return f(std::integral_constant<int, nt>());
-    FA_CASE(2) FA_CASE(4) FA_CASE(6) FA_CASE(8) FA_CASE(10) FA_CASE(12) FA_CASE(14)
-    FA_CASE(16) FA_CASE(18) FA_CASE(20) FA_CASE(22) FA_CASE(24) FA_CASE(26) FA_CASE(28)
-    FA_CASE(30) FA_CASE(32)
+  if constexpr (DH != FA_DH) {
+    switch (general_key_tiles(S)) {
+      GENERAL_KEY_TILES(FA_CASE)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (pad16(S) / 8) {
+      FA_CASE(2) FA_CASE(4) FA_CASE(6) FA_CASE(8) FA_CASE(10) FA_CASE(12) FA_CASE(14)
+      FA_CASE(16) FA_CASE(18) FA_CASE(20) FA_CASE(22) FA_CASE(24) FA_CASE(26) FA_CASE(28)
+      FA_CASE(30) FA_CASE(32)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
 #undef FA_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+}
+
+// f(std::integral_constant<int, DH>) for head_dim dh
+template <typename F>
+static int by_head_dim(int dh, F&& f) {
+  switch (dh) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 48: return f(std::integral_constant<int, 48>());
+    case 64: return f(std::integral_constant<int, 64>());
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -455,83 +488,92 @@ static int by_key_tiles(int S, F&& f) {
 // Host entries
 // ---------------------------------------------------------------------------
 
-// rows start on 16 bytes for the bf16 kernels' cp.async, on 8 for fp32 float2
-static bool bad_shape(int B, int S, int H, long long bs, long long ts, int fp32) {
+// head_dim 16, 32, 48 (S <= FA_MAX_S) or 64 (any S); rows start on 16 bytes
+// for the bf16 kernels' cp.async, on 8 for fp32 float2
+static bool bad_shape(int B, int S, int H, int dh, long long bs, long long ts, int fp32) {
   const int align = fp32 ? 2 : 8;
-  return B <= 0 || S <= 0 || H <= 0 || ts < (long long)H * FA_DH ||
-         bs < (long long)S * ts || ts % align || (B > 1 && bs % align);
+  return B <= 0 || S <= 0 || H <= 0 || !head_dim_ok(dh) || (dh != FA_DH && S > FA_MAX_S) ||
+         ts < (long long)H * dh || bs < (long long)S * ts || ts % align || (B > 1 && bs % align);
 }
 
+template <int DH>
 static int fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
                     long long bs, long long ts, float scale, cudaStream_t st) {
   if (S > FA_MAX_S)  // above 256 keys: csrc/long_attention.cuh, P in two terms as here
     return launch_long_flash_fwd(q, k, v, o, bs, ts, B, S, H, st);
   const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
-  const size_t smem = tc_fwd_smem(S);
-  return by_key_tiles(S, [&](auto nt) {
+  return by_key_tiles<DH>(S, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    LAUNCH(set_smem(flash_fwd_tc<NT>, smem));
-    flash_fwd_tc<NT><<<grid, TC_WARPS * 32, smem, st>>>(q, k, v, o, S, H, bs, ts, scale);
+    const size_t smem = tc_fwd_smem<DH>(8 * NT);
+    LAUNCH(set_smem(flash_fwd_tc<NT, DH>, smem));
+    flash_fwd_tc<NT, DH><<<grid, TC_WARPS * 32, smem, st>>>(q, k, v, o, S, H, bs, ts, scale);
     return (int)cudaGetLastError();
   });
 }
 
+template <int DH>
 static int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, bf16* dq,
                     bf16* dk, bf16* dv, float* ws, int B, int S, int H, long long bs,
                     long long ts, float scale, cudaStream_t st) {
   if (S > FA_MAX_S)
     return launch_long_flash_bwd(q, k, v, dout, dq, dk, dv, ws, bs, ts, B, S, H, st);
   const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
-  const size_t smem = tc_bwd_smem(S);
-  const int rc = by_key_tiles(S, [&](auto nt) {
+  size_t smem = 0;
+  const int rc = by_key_tiles<DH>(S, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    LAUNCH(set_smem(flash_bwd_rows_tc<NT>, smem));
-    flash_bwd_rows_tc<NT><<<grid, TC_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H, bs,
-                                                             ts, scale);
+    smem = tc_bwd_smem<DH>(8 * NT);
+    LAUNCH(set_smem(flash_bwd_rows_tc<NT, DH>, smem));
+    flash_bwd_rows_tc<NT, DH><<<grid, TC_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H,
+                                                                 bs, ts, scale);
     return (int)cudaGetLastError();
   });
   if (rc != 0) return rc;
   const size_t smem2 = smem + (size_t)3 * pad16(S) * sizeof(float);
-  LAUNCH(set_smem(flash_bwd_cols_tc, smem2));
-  flash_bwd_cols_tc<<<grid, TC_WARPS * 32, smem2, st>>>(q, k, v, dout, ws, dk, dv, S, H, bs, ts,
-                                                        scale);
+  LAUNCH(set_smem(flash_bwd_cols_tc<DH>, smem2));
+  flash_bwd_cols_tc<DH><<<grid, TC_WARPS * 32, smem2, st>>>(q, k, v, dout, ws, dk, dv, S, H, bs,
+                                                            ts, scale);
   return (int)cudaGetLastError();
 }
 
-// q, k, v: (B, S, H, 64) read through (bs, ts) strides; o contiguous (B, S,
-// H, 64); all bf16, or all fp32 with `fp32` set.
+// q, k, v: (B, S, H, dh) read through (bs, ts) strides; o contiguous (B, S,
+// H, dh); all bf16, or all fp32 with `fp32` set.
 extern "C" int vit2spn_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                 int S, int H, long long bs, long long ts, int fp32,
+                                 int S, int H, int dh, long long bs, long long ts, int fp32,
                                  void* stream) {
-  if (bad_shape(B, S, H, bs, ts, fp32)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, S, H, dh, bs, ts, fp32)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)FA_DH);
+  const float scale = attention_scale(dh);
   if (fp32)
     return fwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                   static_cast<const float*>(v), static_cast<float*>(o), B, S, H, bs, ts, scale,
-                   st);
-  return fwd_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<bf16*>(o), B, S, H, bs, ts, scale, st);
+                   static_cast<const float*>(v), static_cast<float*>(o), B, S, H, dh, bs, ts,
+                   scale, st);
+  return by_head_dim(dh, [&](auto d) {
+    return fwd_bf16<decltype(d)::value>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                        static_cast<const bf16*>(v), static_cast<bf16*>(o), B,
+                                        S, H, bs, ts, scale, st);
+  });
 }
 
-// dout, dq, dk, dv contiguous (B, S, H, 64); stats: workspace_floats fp32.
+// dout, dq, dk, dv contiguous (B, S, H, dh); stats: workspace_floats fp32.
 extern "C" int vit2spn_flash_bwd(const void* q, const void* k, const void* v,
                                  const void* dout, void* dq, void* dk, void* dv, void* stats,
-                                 int B, int S, int H, long long bs, long long ts, int fp32,
-                                 void* stream) {
-  if (bad_shape(B, S, H, bs, ts, fp32)) return (int)cudaErrorInvalidValue;
+                                 int B, int S, int H, int dh, long long bs, long long ts,
+                                 int fp32, void* stream) {
+  if (bad_shape(B, S, H, dh, bs, ts, fp32)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)FA_DH);
+  const float scale = attention_scale(dh);
   float* ws = static_cast<float*>(stats);
   if (fp32)
     return bwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                    static_cast<const float*>(v), static_cast<const float*>(dout),
                    static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), ws,
-                   B, S, H, bs, ts, (long long)H * FA_DH, scale, st);
-  return bwd_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                  static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), ws, B,
-                  S, H, bs, ts, scale, st);
+                   B, S, H, dh, bs, ts, (long long)H * dh, scale, st);
+  return by_head_dim(dh, [&](auto d) {
+    return bwd_bf16<decltype(d)::value>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), ws, B, S, H, bs, ts, scale, st);
+  });
 }
 
 // the row statistics between the two backward launches (above FA_MAX_S the

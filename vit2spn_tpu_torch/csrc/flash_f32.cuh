@@ -1,6 +1,6 @@
 // Attention forward and backward on the CUDA cores in fp32, every product an
 // fp32 FMA: the fp32 route of csrc/flash_attention.cu (the "pallas" path under
-// compute_dtype=float32), of the fp32 forward layer (csrc/layer_fwd_f32.cuh)
+// compute_dtype=float32), of the fp32 forward layer (csrc/layer_fwd_seq.cuh)
 // and of the fp32 attention backward of the fused block (csrc/attn_bwd.cuh).
 // One copy of the device code, included by each of those sources.
 //
@@ -16,8 +16,9 @@
 // (bs, ts) strides (element (b, s, h, d) at b * bs + s * ts + h * 64 + d), so
 // they may be strided views of a fused (B, S, 3D) qkv; o and dO are (B, S, H,
 // 64) contiguous; dq, dk, dv have rows gts apart (H * 64, or 3 D when they are
-// the thirds of a dqkv). Limits: head_dim 64, input rows on 8 bytes, output
-// rows on 16. Up to FA_MAX_S (256) keys a warp holds its rows' whole row of
+// the thirds of a dqkv). Limits: head_dim 64 at any S, 16, 32 or 48 (the
+// kernels below on DH) up to FA_MAX_S; input rows on 8 bytes, output rows
+// on 16. Up to FA_MAX_S (256) keys a warp holds its rows' whole row of
 // scores in registers (the kernels below); above it the one-pass route at
 // the end of this file (S <= OP_MAX_S = 1,152: a block's query tile of
 // scores in shared memory, 2 products in the forward and 3 + 4 in the
@@ -31,7 +32,6 @@
 #include "long_attention.cuh"  // la_quot
 
 #define FA_DH 64
-#define FA_MAX_S 256
 
 // FA_F32_PROBE, for the builds of tools/fp32_long_probe.py only: 1 leaves
 // out the products' FMAs (dot_rows, product, op_dots and op_prod add
@@ -83,13 +83,13 @@ static int set_smem(K kernel, size_t bytes) {
 // shared memory with row stride LD, by 8-byte cp.async: every copy of the
 // block in flight at once (plain loads would wait out the memory latency
 // once per loop step); rows >= S are zeros. The caller waits (stage_wait).
-template <int LD>
+template <int LD, int DH = FA_DH>
 __device__ __forceinline__ void stage(float* dst, const float* src, long long ts, int r0, int n,
                                       int S) {
   if (FA_F32_PROBE == 2) return;
-  for (int i = threadIdx.x; i < n * (FA_DH / 2); i += blockDim.x) {
-    const int r = i / (FA_DH / 2);
-    const int c = 2 * (i % (FA_DH / 2));
+  for (int i = threadIdx.x; i < n * (DH / 2); i += blockDim.x) {
+    const int r = i / (DH / 2);
+    const int c = 2 * (i % (DH / 2));
     const bool ok = r0 + r < S;
     cp_async8(dst + r * LD + c, ok ? src + (r0 + r) * ts + c : src, ok);
   }
@@ -109,8 +109,9 @@ __device__ __forceinline__ void stage_wait_first() {
 }
 
 // acc[i][j] = sum over d ascending of A[i][d] * B[32 j + lane][d]: A the warp's
-// 8 rows (stride FA_DH, read as broadcasts), B the staged rows. Groups with
-// 32 j >= S stay 0.
+// 8 rows (stride DH, read as broadcasts), B the staged rows (LD apart). Groups
+// with 32 j >= S stay 0.
+template <int DH = FA_DH, int LD = FA_LD>
 __device__ __forceinline__ void dot_rows(float acc[FA_RW][FA_NJ], const float* A, const float* B,
                                          int S, int lane) {
 #pragma unroll
@@ -119,14 +120,14 @@ __device__ __forceinline__ void dot_rows(float acc[FA_RW][FA_NJ], const float* A
     for (int i = 0; i < FA_RW; ++i) acc[i][j] = 0.0f;
   if (FA_F32_PROBE == 1) return;
 #pragma unroll 2
-  for (int d = 0; d < FA_DH; d += 4) {
+  for (int d = 0; d < DH; d += 4) {
     float4 a[FA_RW];
 #pragma unroll
-    for (int i = 0; i < FA_RW; ++i) a[i] = *reinterpret_cast<const float4*>(A + i * FA_DH + d);
+    for (int i = 0; i < FA_RW; ++i) a[i] = *reinterpret_cast<const float4*>(A + i * DH + d);
 #pragma unroll
     for (int j = 0; j < FA_NJ; ++j) {
       if (32 * j < S) {
-        const float4 b = *reinterpret_cast<const float4*>(B + (32 * j + lane) * FA_LD + d);
+        const float4 b = *reinterpret_cast<const float4*>(B + (32 * j + lane) * LD + d);
 #pragma unroll
         for (int i = 0; i < FA_RW; ++i) {
           acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
@@ -142,7 +143,8 @@ __device__ __forceinline__ void dot_rows(float acc[FA_RW][FA_NJ], const float* A
 // acc[r][e] = sum over columns c ascending of w[4 rg + r][c] * R[c][4 dg + e]
 // (rg = lane / 16, dg = lane % 16): w the register tile (column 32 j + lane
 // in w[i][j]), passed through the warp's 32 x 8 slab `slab`; R the staged
-// rows.
+// rows (LD apart). At DH below 64 the lanes with 4 dg >= DH sum nothing.
+template <int DH = FA_DH, int LD = FA_LD>
 __device__ __forceinline__ void product(float acc[4][4], const float w[FA_RW][FA_NJ],
                                         float* slab, const float* R, int S, int lane) {
   const int rg = lane >> 4, dg = lane & 15;
@@ -158,11 +160,12 @@ __device__ __forceinline__ void product(float acc[4][4], const float w[FA_RW][FA
       *reinterpret_cast<float4*>(slab + lane * FA_RW + 4) =
           make_float4(w[4][j], w[5][j], w[6][j], w[7][j]);
       __syncwarp();
-      const float* rr = R + (32 * j) * FA_LD + 4 * dg;
+      if (DH < 64 && 4 * dg >= DH) continue;
+      const float* rr = R + (32 * j) * LD + 4 * dg;
 #pragma unroll 4
       for (int c = 0; c < 32; ++c) {
         const float4 p = *reinterpret_cast<const float4*>(slab + c * FA_RW + 4 * rg);
-        const float4 v = *reinterpret_cast<const float4*>(rr + c * FA_LD);
+        const float4 v = *reinterpret_cast<const float4*>(rr + c * LD);
         const float pr[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -203,10 +206,12 @@ __device__ __forceinline__ void softmax_rows(float s[FA_RW][FA_NJ], float mx[FA_
 }
 
 // the lane's tile of `product` (rows w0 + 4 (lane / 16) + r < S, dims
-// 4 (lane % 16) .. + 3) times `mul` into out (row stride ts)
+// 4 (lane % 16) .. + 3 < DH) times `mul` into out (row stride ts)
+template <int DH = FA_DH>
 __device__ __forceinline__ void store_tile(float* out, long long ts, const float acc[4][4],
                                            float mul, int w0, int S, int lane) {
   const int r0 = w0 + 4 * (lane >> 4), c = 4 * (lane & 15);
+  if (DH < 64 && c >= DH) return;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
     if (r0 + r < S)
@@ -220,87 +225,101 @@ __host__ __device__ __forceinline__ int padded(int S) { return (S + 31) / 32 * 3
 // turns in one staged buffer (V lands once every warp's scores are done), so
 // that two blocks share an SM: one stages while the other computes.
 
+// head_dim DH (64; 16, 32 or 48 on the general route): the other side's rows
+// DH + 4 floats apart (68 at 64), which keeps both access patterns free of
+// bank conflicts at every DH
+template <int DH>
+__host__ __device__ constexpr int fa_ld() {
+  return DH + 4;
+}
+
+template <int DH = FA_DH>
 static size_t fwd_smem(int S) {
-  return (size_t)padded(S) * FA_LD * 4 + (size_t)FA_ROWS * FA_DH * 4 +
+  return (size_t)padded(S) * fa_ld<DH>() * 4 + (size_t)FA_ROWS * DH * 4 +
          (size_t)FA_WARPS * FA_RW * 32 * 4;
 }
 
+template <int DH = FA_DH>
 __global__ void __launch_bounds__(FA_WARPS * 32, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S, int H, long long bs,
                  long long ts, float scale) {
+  constexpr int LD = fa_ld<DH>();
   const int SP = padded(S);
   extern __shared__ __align__(128) unsigned char fa_smem[];
   float* KVs = reinterpret_cast<float*>(fa_smem);  // K, then V
-  float* Qs = KVs + SP * FA_LD;                      // this block's queries
-  float* slabs = Qs + FA_ROWS * FA_DH;
+  float* Qs = KVs + SP * LD;                         // this block's queries
+  float* slabs = Qs + FA_ROWS * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * FA_ROWS;
-  const long long head = (long long)b * bs + h * FA_DH;
+  const long long head = (long long)b * bs + h * DH;
   const int w0 = r0 + warp * FA_RW;
   const bool live = w0 < S;  // a warp past S only helps stage
-  stage<FA_LD>(KVs, k + head, ts, 0, SP, S);
-  stage<FA_DH>(Qs, q + head, ts, r0, FA_ROWS, S);
+  stage<LD, DH>(KVs, k + head, ts, 0, SP, S);
+  stage<DH, DH>(Qs, q + head, ts, r0, FA_ROWS, S);
   stage_wait();
   float s[FA_RW][FA_NJ], mx[FA_RW], sum[FA_RW];
   if (live) {
-    dot_rows(s, Qs + warp * FA_RW * FA_DH, KVs, S, lane);
+    dot_rows<DH, LD>(s, Qs + warp * FA_RW * DH, KVs, S, lane);
     softmax_rows(s, mx, sum, scale, S, lane);
   }
   __syncthreads();  // every warp is done with K
-  stage<FA_LD>(KVs, v + head, ts, 0, SP, S);
+  stage<LD, DH>(KVs, v + head, ts, 0, SP, S);
   stage_wait();
   if (!live) return;
   float acc[4][4];
-  product(acc, s, slabs + warp * FA_RW * 32, KVs, S, lane);
-  const long long ots = (long long)H * FA_DH;
-  store_tile(o + (long long)b * S * ots + h * FA_DH, ots, acc, 1.0f, w0, S, lane);
+  product<DH, LD>(acc, s, slabs + warp * FA_RW * 32, KVs, S, lane);
+  const long long ots = (long long)H * DH;
+  store_tile<DH>(o + (long long)b * S * ots + h * DH, ots, acc, 1.0f, w0, S, lane);
 }
 
 // Backward, phase 1: one block per 64 queries: statistics and dQ
 
+template <int DH = FA_DH>
 static size_t bwd_rows_smem(int S) {
-  return (size_t)2 * padded(S) * FA_LD * 4 + (size_t)2 * FA_ROWS * FA_DH * 4 +
+  return (size_t)2 * padded(S) * fa_ld<DH>() * 4 + (size_t)2 * FA_ROWS * DH * 4 +
          (size_t)FA_WARPS * FA_RW * 32 * 4;
 }
 
+template <int DH = FA_DH>
 __global__ void __launch_bounds__(FA_WARPS * 32, 1)
 flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       float* __restrict__ dq, float* __restrict__ stats, int S, int H,
                       long long bs, long long ts, long long gts, float scale) {
+  constexpr int LD = fa_ld<DH>();
   const int SP = padded(S);
   extern __shared__ __align__(128) unsigned char fa_smem[];
   float* Ks = reinterpret_cast<float*>(fa_smem);
-  float* Vs = Ks + SP * FA_LD;
-  float* Qs = Vs + SP * FA_LD;
-  float* Os = Qs + FA_ROWS * FA_DH;  // dO of this block's queries
-  float* slabs = Os + FA_ROWS * FA_DH;
+  float* Vs = Ks + SP * LD;
+  float* Qs = Vs + SP * LD;
+  float* Os = Qs + FA_ROWS * DH;  // dO of this block's queries
+  float* slabs = Os + FA_ROWS * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * FA_ROWS;
-  const long long head = (long long)b * bs + h * FA_DH;
-  const long long ots = (long long)H * FA_DH;
-  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const long long head = (long long)b * bs + h * DH;
+  const long long ots = (long long)H * DH;
+  const long long ohead = (long long)b * S * ots + h * DH;
   // K and the queries first: the scores and softmax run while V and dO land
-  stage<FA_LD>(Ks, k + head, ts, 0, SP, S);
-  stage<FA_DH>(Qs, q + head, ts, r0, FA_ROWS, S);
+  stage<LD, DH>(Ks, k + head, ts, 0, SP, S);
+  stage<DH, DH>(Qs, q + head, ts, r0, FA_ROWS, S);
   cp_async_commit();
-  stage<FA_LD>(Vs, v + head, ts, 0, SP, S);
-  stage<FA_DH>(Os, dout + ohead, ots, r0, FA_ROWS, S);
+  stage<LD, DH>(Vs, v + head, ts, 0, SP, S);
+  stage<DH, DH>(Os, dout + ohead, ots, r0, FA_ROWS, S);
   cp_async_commit();
   const int w0 = r0 + warp * FA_RW;
   const bool active = w0 < S;  // a warp past S only helps stage
   float p[FA_RW][FA_NJ], dp[FA_RW][FA_NJ], mx[FA_RW], sum[FA_RW];
   stage_wait_first();
   if (active) {
-    dot_rows(p, Qs + warp * FA_RW * FA_DH, Ks, S, lane);
+    dot_rows<DH, LD>(p, Qs + warp * FA_RW * DH, Ks, S, lane);
     softmax_rows(p, mx, sum, scale, S, lane);
   }
   stage_wait();
   if (!active) return;
-  dot_rows(dp, Os + warp * FA_RW * FA_DH, Vs, S, lane);
+  dot_rows<DH, LD>(dp, Os + warp * FA_RW * DH, Vs, S, lane);
   float dot[FA_RW];
 #pragma unroll
   for (int i = 0; i < FA_RW; ++i) {
@@ -312,8 +331,8 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < FA_NJ; ++j) dp[i][j] = p[i][j] * (dp[i][j] - dot[i]);  // dS
   }
   float acc[4][4];
-  product(acc, dp, slabs + warp * FA_RW * 32, Ks, S, lane);
-  store_tile(dq + (long long)b * S * gts + h * FA_DH, gts, acc, scale, w0, S, lane);
+  product<DH, LD>(acc, dp, slabs + warp * FA_RW * 32, Ks, S, lane);
+  store_tile<DH>(dq + (long long)b * S * gts + h * DH, gts, acc, scale, w0, S, lane);
   if (lane == 0) {
     float* st = stats + ((long long)(b * H + h) * S) * 3;
 #pragma unroll
@@ -329,39 +348,42 @@ flash_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // Backward, phase 2: one block per 64 keys, every query: dK and dV
 
+template <int DH = FA_DH>
 static size_t bwd_cols_smem(int S) {
-  return (size_t)2 * padded(S) * FA_LD * 4 + (size_t)2 * FA_ROWS * FA_DH * 4 +
+  return (size_t)2 * padded(S) * fa_ld<DH>() * 4 + (size_t)2 * FA_ROWS * DH * 4 +
          (size_t)3 * padded(S) * 4 + (size_t)FA_WARPS * FA_RW * 32 * 4;
 }
 
+template <int DH = FA_DH>
 __global__ void __launch_bounds__(FA_WARPS * 32, 1)
 flash_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ stats, float* __restrict__ dk,
                       float* __restrict__ dv, int S, int H, long long bs, long long ts,
                       long long gts, float scale) {
+  constexpr int LD = fa_ld<DH>();
   const int SP = padded(S);
   extern __shared__ __align__(128) unsigned char fa_smem[];
   float* Qs = reinterpret_cast<float*>(fa_smem);
-  float* Os = Qs + SP * FA_LD;  // dO, every query
-  float* Kt = Os + SP * FA_LD;  // this block's keys
-  float* Vt = Kt + FA_ROWS * FA_DH;
-  float* rmax = Vt + FA_ROWS * FA_DH;
+  float* Os = Qs + SP * LD;  // dO, every query
+  float* Kt = Os + SP * LD;  // this block's keys
+  float* Vt = Kt + FA_ROWS * DH;
+  float* rmax = Vt + FA_ROWS * DH;
   float* rsum = rmax + SP;
   float* rdot = rsum + SP;
   float* slabs = rdot + SP;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * FA_ROWS;
-  const long long head = (long long)b * bs + h * FA_DH;
-  const long long ots = (long long)H * FA_DH;
-  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const long long head = (long long)b * bs + h * DH;
+  const long long ots = (long long)H * DH;
+  const long long ohead = (long long)b * S * ots + h * DH;
   // the queries and this block's keys first: P^T runs while dO and V land
-  stage<FA_LD>(Qs, q + head, ts, 0, SP, S);
-  stage<FA_DH>(Kt, k + head, ts, r0, FA_ROWS, S);
+  stage<LD, DH>(Qs, q + head, ts, 0, SP, S);
+  stage<DH, DH>(Kt, k + head, ts, r0, FA_ROWS, S);
   cp_async_commit();
-  stage<FA_LD>(Os, dout + ohead, ots, 0, SP, S);
-  stage<FA_DH>(Vt, v + head, ts, r0, FA_ROWS, S);
+  stage<LD, DH>(Os, dout + ohead, ots, 0, SP, S);
+  stage<DH, DH>(Vt, v + head, ts, r0, FA_ROWS, S);
   cp_async_commit();
   const float* st = stats + ((long long)(b * H + h) * S) * 3;
   for (int c = threadIdx.x; c < SP; c += blockDim.x) {  // pad queries: inert
@@ -376,7 +398,7 @@ flash_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float p[FA_RW][FA_NJ], ds[FA_RW][FA_NJ];
   stage_wait_first();
   if (active) {
-    dot_rows(p, Kt + warp * FA_RW * FA_DH, Qs, S, lane);
+    dot_rows<DH, LD>(p, Kt + warp * FA_RW * DH, Qs, S, lane);
 #pragma unroll
     for (int j = 0; j < FA_NJ; ++j) {
       const int c = 32 * j + lane;
@@ -389,7 +411,7 @@ flash_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   stage_wait();
   if (!active) return;
-  dot_rows(ds, Vt + warp * FA_RW * FA_DH, Os, S, lane);
+  dot_rows<DH, LD>(ds, Vt + warp * FA_RW * DH, Os, S, lane);
 #pragma unroll
   for (int j = 0; j < FA_NJ; ++j) {
     const float dt = rdot[32 * j + lane < S ? 32 * j + lane : 0];
@@ -398,11 +420,11 @@ flash_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   float* slab = slabs + warp * FA_RW * 32;
   float acc[4][4];
-  product(acc, p, slab, Os, S, lane);  // dV = P^T dO
-  const long long ghead = (long long)b * S * gts + h * FA_DH;
-  store_tile(dv + ghead, gts, acc, 1.0f, w0, S, lane);
-  product(acc, ds, slab, Qs, S, lane);  // dK = dS^T q / sqrt(dh)
-  store_tile(dk + ghead, gts, acc, scale, w0, S, lane);
+  product<DH, LD>(acc, p, slab, Os, S, lane);  // dV = P^T dO
+  const long long ghead = (long long)b * S * gts + h * DH;
+  store_tile<DH>(dv + ghead, gts, acc, 1.0f, w0, S, lane);
+  product<DH, LD>(acc, ds, slab, Qs, S, lane);  // dK = dS^T q / sqrt(dh)
+  store_tile<DH>(dk + ghead, gts, acc, scale, w0, S, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1432,39 +1454,70 @@ static int long_bwd_f32(const float* q, const float* k, const float* v, const fl
 // Launches on the caller's stream
 // ---------------------------------------------------------------------------
 
-// Above FA_MAX_S keys the one-pass route up to OP_MAX_S, the multi-pass
-// route beyond it or where `multipass` (a test entry's choice) asks for it
-static int fwd_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
-                   int H, long long bs, long long ts, float scale, cudaStream_t st,
-                   bool multipass = false) {
-  if (S > FA_MAX_S)
-    return S <= OP_MAX_S && !multipass ? onepass_fwd_f32(q, k, v, o, B, S, H, bs, ts, scale, st)
-                                       : long_fwd_f32(q, k, v, o, B, S, H, bs, ts, scale, st);
-  const size_t smem = fwd_smem(S);
-  LAUNCH(set_smem(flash_fwd_kernel, smem));
+template <int DH>
+static int fwd_f32_dh(const float* q, const float* k, const float* v, float* o, int B, int S,
+                      int H, long long bs, long long ts, float scale, cudaStream_t st) {
+  const size_t smem = fwd_smem<DH>(S);
+  LAUNCH(set_smem(flash_fwd_kernel<DH>, smem));
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
-  flash_fwd_kernel<<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, o, S, H, bs, ts, scale);
+  flash_fwd_kernel<DH><<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, o, S, H, bs, ts, scale);
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+static int bwd_f32_dh(const float* q, const float* k, const float* v, const float* dout,
+                      float* dq, float* dk, float* dv, float* ws, int B, int S, int H,
+                      long long bs, long long ts, long long gts, float scale, cudaStream_t st) {
+  const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
+  size_t smem = bwd_rows_smem<DH>(S);
+  LAUNCH(set_smem(flash_bwd_rows_kernel<DH>, smem));
+  flash_bwd_rows_kernel<DH><<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H, bs,
+                                                               ts, gts, scale);
+  LAUNCH((int)cudaGetLastError());
+  smem = bwd_cols_smem<DH>(S);
+  LAUNCH(set_smem(flash_bwd_cols_kernel<DH>, smem));
+  flash_bwd_cols_kernel<DH><<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, ws, dk, dv, S, H,
+                                                               bs, ts, gts, scale);
+  return (int)cudaGetLastError();
+}
+
+// Head_dim dh: 64 at any S (above FA_MAX_S keys the one-pass route up to
+// OP_MAX_S, the multi-pass route beyond it or where `multipass`, a test
+// entry's choice, asks for it); 16, 32 or 48 up to FA_MAX_S keys
+static int fwd_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
+                   int H, int dh, long long bs, long long ts, float scale, cudaStream_t st,
+                   bool multipass = false) {
+  if (dh != FA_DH) {
+    if (S > FA_MAX_S) return (int)cudaErrorInvalidValue;
+    switch (dh) {
+      case 16: return fwd_f32_dh<16>(q, k, v, o, B, S, H, bs, ts, scale, st);
+      case 32: return fwd_f32_dh<32>(q, k, v, o, B, S, H, bs, ts, scale, st);
+      case 48: return fwd_f32_dh<48>(q, k, v, o, B, S, H, bs, ts, scale, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (S > FA_MAX_S)
+    return S <= OP_MAX_S && !multipass ? onepass_fwd_f32(q, k, v, o, B, S, H, bs, ts, scale, st)
+                                       : long_fwd_f32(q, k, v, o, B, S, H, bs, ts, scale, st);
+  return fwd_f32_dh<FA_DH>(q, k, v, o, B, S, H, bs, ts, scale, st);
+}
+
 static int bwd_f32(const float* q, const float* k, const float* v, const float* dout,
-                   float* dq, float* dk, float* dv, float* ws, int B, int S, int H,
+                   float* dq, float* dk, float* dv, float* ws, int B, int S, int H, int dh,
                    long long bs, long long ts, long long gts, float scale, cudaStream_t st,
                    bool multipass = false) {
+  if (dh != FA_DH) {
+    if (S > FA_MAX_S) return (int)cudaErrorInvalidValue;
+    switch (dh) {
+      case 16: return bwd_f32_dh<16>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
+      case 32: return bwd_f32_dh<32>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
+      case 48: return bwd_f32_dh<48>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (S > FA_MAX_S)
     return S <= OP_MAX_S && !multipass
                ? onepass_bwd_f32(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st)
                : long_bwd_f32(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
-  const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
-  size_t smem = bwd_rows_smem(S);
-  LAUNCH(set_smem(flash_bwd_rows_kernel, smem));
-  flash_bwd_rows_kernel<<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H, bs, ts,
-                                                           gts, scale);
-  LAUNCH((int)cudaGetLastError());
-  smem = bwd_cols_smem(S);
-  LAUNCH(set_smem(flash_bwd_cols_kernel, smem));
-  flash_bwd_cols_kernel<<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, ws, dk, dv, S, H, bs,
-                                                           ts, gts, scale);
-  return (int)cudaGetLastError();
+  return bwd_f32_dh<FA_DH>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
 }
-

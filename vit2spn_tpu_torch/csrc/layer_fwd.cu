@@ -15,17 +15,19 @@
 // beside the attention), on the caller's stream; a loop of these calls gives
 // the backbone kernel's output bit for bit. x2 is written as bf16 by the same
 // epilogue that writes the backbone's x2s stack. fp32 (compute_dtype=
-// float32): the seven-launch CUDA-core layer of csrc/layer_fwd_f32.cuh, the
-// backbone's fp32 layer code. Limits: head_dim 64, D <= 768, D and mlp
-// multiples of 64.
+// float32): the seven-launch CUDA-core layer of csrc/layer_fwd_seq.cuh, the
+// backbone's fp32 layer code, which the general geometry (head_dim 16, 32
+// or 48, or D or mlp not a multiple of 64) also takes in bf16, as the
+// backbone does. Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to
+// 768, mlp a multiple of 32; S <= 256 on the general route.
 
 #include "layer_fwd.cuh"
-#include "layer_fwd_f32.cuh"
+#include "layer_fwd_seq.cuh"
 
 // x, out: (B * S, D) bf16; x2 (optional): (B * S, D) bf16; weights as one
 // layer's slices of the stacked arrays. Scratch as launch_layer's: qkv_buf
 // (B * S rows of 3 D), att_buf, and above FUSED_MLP_MAX_D y_buf (bf16),
-// x2_buf (fp32) and g_buf (null below it).
+// x2_buf (fp32) and g_buf (null below it, except on the general route).
 extern "C" int vit2spn_layer_fwd(
     const void* x, void* out, void* x2,
     const void* ln1_scale, const void* ln1_bias, const void* wqkv, const void* bqkv,
@@ -33,12 +35,19 @@ extern "C" int vit2spn_layer_fwd(
     const void* w1, const void* b1, const void* w2, const void* b2,
     void* qkv_buf, void* att_buf, void* y_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, float eps, int fast_gelu, void* stream) {
-  if (!layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
                        ln2_scale, ln2_bias, w1, b1, w2, b2};
   bf16* qkv = static_cast<bf16*>(qkv_buf);
   bf16* y = static_cast<bf16*>(y_buf);
+  if (general_route(D, H, MLP)) {
+    if (!y || !x2_buf || !g_buf) return (int)cudaErrorInvalidValue;
+    return launch_layer_seq<bf16>(static_cast<const bf16*>(x), static_cast<bf16*>(out), nullptr,
+                                  static_cast<bf16*>(x2), w, 0, y, qkv,
+                                  static_cast<bf16*>(att_buf), static_cast<float*>(x2_buf),
+                                  static_cast<bf16*>(g_buf), B, S, D, H, MLP, eps, fast_gelu, st);
+  }
   LayerMaps maps;
   LAUNCH(layer_maps(&maps, w, 1, D, MLP, B, S, static_cast<const bf16*>(x),
                     static_cast<const bf16*>(out), qkv, static_cast<const bf16*>(att_buf), y,
@@ -49,11 +58,15 @@ extern "C" int vit2spn_layer_fwd(
 }
 
 // The layer's attention stage alone (bf16): att (B * S, D) from qkv (B * S,
-// 3 D), the launch vit2spn_layer_fwd makes for it; for holding the stage
-// against its twin and timing it by itself.
+// 3 D), the launch vit2spn_layer_fwd makes for it (head_dim D / H; at 16,
+// 32 and 48 the general route's, S <= 256); for holding the stage against
+// its twin and timing it by itself.
 extern "C" int vit2spn_attention_stage(const void* qkv, void* att, int B, int S, int H, int D,
                                        void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(B, S, D, H, 64)) return (int)cudaErrorInvalidValue;
+  if (D != H * ATT_DH)
+    return launch_attention_fwd_general(static_cast<const bf16*>(qkv), static_cast<bf16*>(att),
+                                        B, S, H, D, static_cast<cudaStream_t>(stream));
   LayerMaps mp;
   LAUNCH(tensor_map(&mp.qkv_img, qkv, 3 * D, S, B));
   LAUNCH(tensor_map(&mp.att_img, att, D, S, B));
@@ -62,19 +75,20 @@ extern "C" int vit2spn_attention_stage(const void* qkv, void* att, int B, int S,
 }
 
 // The fp32 layer's attention stage alone (csrc/flash_f32.cuh, as
-// launch_layer_f32 makes it): att (B * S, D) from qkv (B * S, 3 D), fp32;
-// `multipass` set takes the multi-pass route above 256 keys at any S
+// launch_layer_seq<float> makes it): att (B * S, D) from qkv (B * S, 3 D),
+// fp32; `multipass` set takes the multi-pass route above 256 keys at any S
+// (head_dim 64)
 extern "C" int vit2spn_attention_stage_f32(const void* qkv, void* att, int B, int S, int H,
                                            int D, int multipass, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH) return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(B, S, D, H, 64)) return (int)cudaErrorInvalidValue;
   const float* q = static_cast<const float*>(qkv);
   const long long ts = 3LL * D;
-  return fwd_f32(q, q + D, q + 2 * D, static_cast<float*>(att), B, S, H, S * ts, ts,
-                 1.0f / sqrtf((float)FA_DH), static_cast<cudaStream_t>(stream), multipass != 0);
+  return fwd_f32(q, q + D, q + 2 * D, static_cast<float*>(att), B, S, H, D / H, S * ts, ts,
+                 attention_scale(D / H), static_cast<cudaStream_t>(stream), multipass != 0);
 }
 
-extern "C" int vit2spn_layer_fwd_launches(int D, int fp32) {
-  return fp32 ? LAYER_F32_LAUNCHES : launches_per_layer(D);
+extern "C" int vit2spn_layer_fwd_launches(int D, int fp32, int H, int MLP) {
+  return fp32 ? LAYER_SEQ_LAUNCHES : launches_per_layer(D, H, MLP);
 }
 
 // fp32: x, out, x2 (optional) (B * S, D), weights one layer's fp32 arrays;
@@ -86,14 +100,14 @@ extern "C" int vit2spn_layer_fwd_f32(
     const void* w1, const void* b1, const void* w2, const void* b2,
     void* y_buf, void* qkv_buf, void* att_buf, void* x2_buf, void* g_buf,
     int B, int S, int D, int H, int MLP, float eps, int fast_gelu, void* stream) {
-  if (!layer_shape_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   const void* w[12] = {ln1_scale, ln1_bias, wqkv, bqkv, wo, bo,
                        ln2_scale, ln2_bias, w1, b1, w2, b2};
-  return launch_layer_f32(static_cast<const float*>(x), static_cast<float*>(out), nullptr,
-                          static_cast<float*>(x2), w, 0, static_cast<float*>(y_buf),
-                          static_cast<float*>(qkv_buf), static_cast<float*>(att_buf),
-                          static_cast<float*>(x2_buf), static_cast<float*>(g_buf), B, S, D, H,
-                          MLP, eps, fast_gelu, static_cast<cudaStream_t>(stream));
+  return launch_layer_seq<float>(static_cast<const float*>(x), static_cast<float*>(out), nullptr,
+                                 static_cast<float*>(x2), w, 0, static_cast<float*>(y_buf),
+                                 static_cast<float*>(qkv_buf), static_cast<float*>(att_buf),
+                                 static_cast<float*>(x2_buf), static_cast<float*>(g_buf), B, S, D,
+                                 H, MLP, eps, fast_gelu, static_cast<cudaStream_t>(stream));
 }
 
 // dynamic shared memory per block of kernel 0 (LN1 + QKV; above

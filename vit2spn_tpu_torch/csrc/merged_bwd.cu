@@ -48,12 +48,18 @@
 //     (mlp_bwd_seq<T>, attn_bwd_seq<T>: 21 launches in bf16, 23 in fp32),
 //     each taking its reductions as it goes.
 //
+//   * bf16 at the general geometry (head_dim 16, 32 or 48, or D or mlp not
+//     a multiple of 64): each half's own route as the split pair takes it,
+//     one after the other with its own reductions: the MLP half's kit (5
+//     launches) where D and mlp allow it, else its sequence (10), then the
+//     attention half's sequence (11), its core on the head_dim.
+//
 // dx2 crosses from the MLP half to the attention half through device memory
 // in the compute dtype, as the split path hands it over.
 //
-// Limits: head_dim 64, S <= 15,168 in bf16 (any in fp32), D <= 768, D and mlp
-// multiples of 64, activations and matmul weights all bf16 or all fp32, fp32
-// LN parameters.
+// Limits: head_dim 64 at S <= 15,168 in bf16 (any in fp32); head_dim 16, 32
+// or 48 at S <= 256; D a multiple of 32 up to 768, mlp a multiple of 32,
+// activations and matmul weights all bf16 or all fp32, fp32 LN parameters.
 
 #include "attn_bwd.cuh"
 #include "mlp_bwd.cuh"
@@ -72,9 +78,12 @@ extern "C" long long vit2spn_merged_bwd_workspace_floats(int B, int S, int D, in
   a.B = B;
   a.S = S;
   a.H = H;
-  if (!hopper_route(D, fp32)) {  // one half at a time
-    const size_t wm = mlp_seq_workspace(m.M, D, MLP), wa = attn_seq_workspace(B, S, D, H);
-    return (long long)(wm > wa ? wm : wa);
+  if (H <= 0) return -1;
+  if (!hopper_route(D, fp32, MLP, D / H)) {  // one half at a time
+    long long wm = (long long)mlp_seq_workspace(m.M, D, MLP);
+    if (hopper_route(D, fp32, MLP) && mlp_bwd_hopper(m, 0, true, &wm)) return -1;
+    const long long wa = (long long)attn_seq_workspace(B, S, D, H);
+    return wm > wa ? wm : wa;
   }
   long long nm = 0, na = 0;  // the two halves' kit workspaces side by side
   if (mlp_bwd_hopper(m, 0, true, &nm) || attn_bwd_hopper(a, 0, true, &na)) return -1;
@@ -82,14 +91,23 @@ extern "C" long long vit2spn_merged_bwd_workspace_floats(int B, int S, int D, in
 }
 
 // CUDA kernel launches one call makes
-extern "C" int vit2spn_merged_bwd_launches(int D, int fp32) {
-  if (hopper_route(D, fp32)) return wide_route(D) ? MERGED_WIDE_LAUNCHES : MERGED_HOPPER_LAUNCHES;
-  return MLP_SEQ_LAUNCHES + (fp32 ? attn_seq_launches<float>() : attn_seq_launches<bf16>());
+extern "C" int vit2spn_merged_bwd_launches(int D, int fp32, int H, int MLP) {
+  if (H <= 0) return -1;
+  if (hopper_route(D, fp32, MLP, D / H))
+    return wide_route(D) ? MERGED_WIDE_LAUNCHES : MERGED_HOPPER_LAUNCHES;
+  const int mlp = !hopper_route(D, fp32, MLP)  ? MLP_SEQ_LAUNCHES
+                  : wide_route(D)              ? MLP_WIDE_LAUNCHES
+                                               : MLP_HOPPER_LAUNCHES;
+  return mlp + (fp32 ? attn_seq_launches<float>() : attn_seq_launches<bf16>());
 }
 
+// the halves one after the other, each on the route the split pair takes
 template <typename T>
-static int merged_seq(const MlpBwdArgs& m, const AttnBwdArgs& a, cudaStream_t st) {
-  LAUNCH(mlp_bwd_seq<T>(m, st));
+static int merged_seq(const MlpBwdArgs& m, const AttnBwdArgs& a, int fp32, cudaStream_t st) {
+  if (hopper_route(m.D, fp32, m.MLP))
+    LAUNCH(mlp_bwd_hopper(m, st));
+  else
+    LAUNCH(mlp_bwd_seq<T>(m, st));
   return attn_bwd_seq<T>(a, st);
 }
 
@@ -109,9 +127,7 @@ extern "C" int vit2spn_merged_bwd(
     void* y1_buf, void* y2_buf, void* qkv_buf, void* datt_buf, void* att_buf, void* dqkv_buf,
     void* g_buf, void* gg_buf, void* dx2_buf, void* dy_buf, void* ws_buf,
     int B, int S, int D, int H, int MLP, float eps, int fast_gelu, int fp32, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != H * DH || D > LN_MAX_D || D % 64 || MLP <= 0 ||
-      MLP % 64)
-    return (int)cudaErrorInvalidValue;
+  if (!geometry_ok(B, S, D, H, MLP)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   MlpBwdArgs m = {x2, dout, ln2_scale, ln2_bias, w1, b1, w2, dx2_buf, gln2_scale, gln2_bias,
                   gw1, gb1, gw2, gb2, y2_buf, g_buf, gg_buf, dy_buf, ws_buf, B * S, D, MLP, eps,
@@ -119,8 +135,8 @@ extern "C" int vit2spn_merged_bwd(
   AttnBwdArgs a = {x, dx2_buf, ln1_scale, ln1_bias, wqkv, bqkv, wo, dx, gln1_scale, gln1_bias,
                    gwqkv, gbqkv, gwo, gbo, y1_buf, qkv_buf, datt_buf, att_buf, dqkv_buf, dy_buf,
                    ws_buf, B, S, D, H, eps};
-  if (!hopper_route(D, fp32))
-    return fp32 ? merged_seq<float>(m, a, st) : merged_seq<bf16>(m, a, st);
+  if (!hopper_route(D, fp32, MLP, D / H))
+    return fp32 ? merged_seq<float>(m, a, fp32, st) : merged_seq<bf16>(m, a, fp32, st);
   long long mlp_need = 0;  // the attention half's partials after the MLP half's
   LAUNCH(mlp_bwd_hopper(m, st, true, &mlp_need));
   a.ws = static_cast<float*>(ws_buf) + mlp_need;

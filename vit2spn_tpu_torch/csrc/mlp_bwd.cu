@@ -7,14 +7,15 @@
 // the LN2 / MLP weight gradients, in whatever dtype its inputs carry. The
 // launch sequences, what bounds them and the design: csrc/mlp_bwd.cuh. bf16
 // at D <= 256 runs the wgmma row-block kit (five launches), bf16 at D = 384
-// and 768 its wide route (seven), bf16 at other widths above 256 and fp32 the
-// ten-launch sequence.
+// and 768 its wide route (seven), bf16 at other widths above 256, at D or mlp
+// not a multiple of 64 (the general geometry) and fp32 the ten-launch
+// sequence.
 
 #include "mlp_bwd.cuh"
 
 // fp32 scratch the wrapper allocates for the split partials
 extern "C" long long vit2spn_mlp_bwd_workspace_floats(int M, int D, int MLP, int fp32) {
-  if (!hopper_route(D, fp32)) return (long long)mlp_seq_workspace(M, D, MLP);
+  if (!hopper_route(D, fp32, MLP)) return (long long)mlp_seq_workspace(M, D, MLP);
   MlpBwdArgs a = {};
   a.M = M;
   a.D = D;
@@ -24,8 +25,9 @@ extern "C" long long vit2spn_mlp_bwd_workspace_floats(int M, int D, int MLP, int
 }
 
 // CUDA kernel launches one call makes
-extern "C" int vit2spn_mlp_bwd_launches(int D, int fp32) {
-  if (!hopper_route(D, fp32)) return MLP_SEQ_LAUNCHES;
+extern "C" int vit2spn_mlp_bwd_launches(int D, int fp32, int H, int MLP) {
+  (void)H;
+  if (!hopper_route(D, fp32, MLP)) return MLP_SEQ_LAUNCHES;
   return wide_route(D) ? MLP_WIDE_LAUNCHES : MLP_HOPPER_LAUNCHES;
 }
 
@@ -41,14 +43,14 @@ extern "C" int vit2spn_mlp_bwd(
     void* dx2, void* gln2_scale, void* gln2_bias, void* gw1, void* gb1, void* gw2, void* gb2,
     void* y2_buf, void* g_buf, void* gg_buf, void* dy_buf, void* ws_buf,
     int M, int D, int MLP, float eps, int fast_gelu, int fp32, void* stream) {
-  if (M <= 0 || D <= 0 || D > LN_MAX_D || D % 64 || MLP <= 0 || MLP % 64)
+  if (M <= 0 || D <= 0 || D > LN_MAX_D || D % 32 || MLP <= 0 || MLP % 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const MlpBwdArgs a = {x2, dout, ln2_scale, ln2_bias, w1, b1, w2, dx2, gln2_scale, gln2_bias,
                         gw1, gb1, gw2, gb2, y2_buf, g_buf, gg_buf, dy_buf, ws_buf, M, D, MLP,
                         eps, fast_gelu};
   if (fp32) return mlp_bwd_seq<float>(a, st);
-  if (hopper_route(D, fp32)) return mlp_bwd_hopper(a, st);
+  if (hopper_route(D, fp32, MLP)) return mlp_bwd_hopper(a, st);
   return mlp_bwd_seq<bf16>(a, st);
 }
 

@@ -78,8 +78,10 @@
 //   6. gemm NT, EPI_F32                    dy2 = dm1 W1^T, fp32
 //   7. ln_bwd_kernel + reduce              dx2, dln2_scale, dln2_bias
 //
-// Limits: D <= 768, D and mlp multiples of 64, activations and matmul
-// weights in T, fp32 LN parameters.
+// The sequence also takes the general geometry in bf16: D or mlp a multiple
+// of 32 but not of 64 (the GEMMs' last column tile masked, the LayerNorm
+// backward's last pairs of columns half used). Limits: D <= 768, D and mlp
+// multiples of 32, activations and matmul weights in T, fp32 LN parameters.
 
 #pragma once
 

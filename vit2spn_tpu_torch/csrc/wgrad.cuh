@@ -36,9 +36,12 @@
 static bool wide_route(int D) { return D == 384 || D == 768; }
 
 // the backward entry points take the wgmma kit at bf16, D <= HOPPER_BWD_MAX_D
-// or the wide route's widths
-static bool hopper_route(int D, int fp32) {
-  return !fp32 && (D <= HOPPER_BWD_MAX_D || wide_route(D));
+// or the wide route's widths, D and mlp multiples of 64 and, for the
+// attention half (dh its head_dim), head_dim 64; every other geometry takes
+// the *_bwd_seq<T> sequences (the MLP half's do not depend on dh)
+static bool hopper_route(int D, int fp32, int MLP = 64, int dh = 64) {
+  return !fp32 && D % 64 == 0 && MLP % 64 == 0 && dh == 64 &&
+         (D <= HOPPER_BWD_MAX_D || wide_route(D));
 }
 #define WIDE_NT 192  // the wide route's tiles of the products whose N is D
 #define WGRAD_WG 2

@@ -44,10 +44,12 @@ against the JAX package's.
 
 Every trainer and protocol runs on `device` (default `cuda`; `cpu` runs the
 plain PyTorch path), through the backbone path `runbook_attn_impl` picks by
-geometry: the fused kernels where they take it, and on CUDA at a geometry
-they refuse (the smoke and shrunk runs' head_dim 16) the per-op block
-"xla", which takes any head_dim. The choice is logged (`parity_attn_impl`)
-and, where it is not "fused", written into the report as `attn_impl`.
+geometry: the fused kernels where they take it (the smoke and shrunk runs'
+head_dim 16 included, through the kernels' general route), and on CUDA at
+a geometry they refuse the per-op block "xla", which takes any head_dim.
+The choice is logged (`parity_attn_impl`) and, where it is not "fused",
+written into the report as `attn_impl` (the report otherwise keeps the
+JAX package's form).
 """
 
 from __future__ import annotations
@@ -126,19 +128,19 @@ def smoke_vit_config():
 
 def runbook_attn_impl(vit_cfg, device, compute_dtype: str = "bfloat16") -> str:
     """The runbook's backbone path: "fused" where the kernels take the
-    geometry (head_dim 64, D and mlp multiples of 64, D within the kernels'
-    limits; any S) or the device is not CUDA (the CPU runs their plain
-    twins, which take any geometry); else "xla". The kernels take both
-    compute dtypes at every S, so `compute_dtype` does not change the
-    choice."""
+    geometry (`ops/fused_block.py::geometry_route`: head_dim 16, 32, 48 or
+    64, D and mlp multiples of 32, D within the kernels' limits; any S at
+    head_dim 64 with D and mlp multiples of 64, else S <= 256) or the device
+    is not CUDA (the CPU runs their plain twins, which take any geometry);
+    else "xla". The kernels take both compute dtypes wherever they take the
+    geometry, so `compute_dtype` does not change the choice."""
     import torch
 
-    from vit2spn_tpu_torch.ops.fused_block import KERNEL_HEAD_DIM, KERNEL_MAX_D
+    from vit2spn_tpu_torch.ops.fused_block import geometry_route
 
-    d = vit_cfg.hidden_size
-    takes = (vit_cfg.head_dim == KERNEL_HEAD_DIM and d % 64 == 0 and d <= KERNEL_MAX_D
-             and vit_cfg.mlp_dim % 64 == 0)
-    return "fused" if takes or torch.device(device).type != "cuda" else "xla"
+    route, _ = geometry_route(vit_cfg.hidden_size, vit_cfg.num_heads, vit_cfg.mlp_dim,
+                              vit_cfg.seq_len)
+    return "fused" if route is not None or torch.device(device).type != "cuda" else "xla"
 
 
 def _shrink_overrides(cfg):

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -26,6 +27,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# seconds each source's nvcc took in the last build_all that compiled it,
+# from the start of the build
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -58,8 +62,9 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     """Compile every named source that is not built yet, one nvcc process
     each, all started together. Returns {name: library path}. The compiler's
     output (ptxas register and shared-memory report) is kept beside each
-    library as `<library>.log`."""
+    library as `<library>.log`; each source's time goes to BUILD_SECONDS."""
     out, procs = {}, {}
+    t0 = time.perf_counter()
     for name in names:
         so = library_path(name)
         out[name] = so
@@ -68,18 +73,23 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.tmp{os.getpid()}.so")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp)
+        log = open(f"{so}.log", "w")
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    pending = dict(procs)
+    while pending:
+        for name, (proc, _, log) in list(pending.items()):
+            if proc.poll() is not None:
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+                log.close()
+                del pending[name]
+        if pending:
+            time.sleep(0.05)
     failed = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        so = out[name]
-        Path(f"{so}.log").write_text(log)
+    for name, (proc, tmp, _) in procs.items():
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log[-6000:]}")
+            failed.append(f"{name}:\n{Path(f'{out[name]}.log').read_text()[-6000:]}")
             continue
-        os.replace(tmp, so)
+        os.replace(tmp, out[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return out

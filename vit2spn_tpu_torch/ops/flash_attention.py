@@ -41,16 +41,18 @@ from vit2spn_tpu_torch.ops.fused_block import (
     _load,
     _raise_on,
     _stream,
+    check_geometry,
     count_long_seq,
 )
 
 # the Pallas kernels' key mask
 NEG_INF = -1e30
 KERNEL_NAME = "flash_attention"
-# what csrc/flash_attention.cu takes: head_dim 64, any S (above
-# KERNEL_MAX_SEQ the multi-pass routes of csrc/long_attention.cuh in bf16 and
-# csrc/flash_f32.cuh in fp32)
-KERNEL_HEAD_DIM = 64
+# what csrc/flash_attention.cu takes (fused_block.geometry_route without an
+# MLP or a LayerNorm, so any D): head_dim 64 at any S (above KERNEL_MAX_SEQ
+# the multi-pass routes of csrc/long_attention.cuh in bf16 and
+# csrc/flash_f32.cuh in fp32); head_dim 16, 32 or 48 up to KERNEL_MAX_SEQ
+# (the S <= 256 kernels on the head_dim)
 KERNEL_MAX_SEQ = 256
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -88,9 +90,11 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the kernels take: q, k, v of one shape (B, S, H, 64) (any S),
-    one dtype (bf16 or fp32), one device and one set of strides, each head's
-    64 values contiguous and the heads of a token side by side."""
+    """What the kernels take: q, k, v of one shape (B, S, H, Dh) of a
+    geometry `check_geometry` accepts without a LayerNorm (head_dim 64 at
+    any S and any number of heads; 16, 32 or 48 at S <= 256), one dtype
+    (bf16 or fp32), one device and one set of strides, each head's Dh values
+    contiguous and the heads of a token side by side."""
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash attention kernel takes bf16 or fp32, got {q.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -101,8 +105,7 @@ def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
     if q.dim() != 4:
         raise ValueError("flash attention kernel takes (B, S, H, Dh) tensors")
     b, s, h, dh = q.shape
-    if dh != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash attention kernel needs head_dim {KERNEL_HEAD_DIM}, got {dh}")
+    check_geometry(h * dh, h, None, s, "flash attention", layernorm=False)
     bs, ts, hs, ds = q.stride()
     if ds != 1 or (h > 1 and hs != dh) or ts < h * dh or (b > 1 and bs < s * ts):
         raise ValueError("flash attention kernel needs each token's heads side by side "
@@ -115,9 +118,9 @@ def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
 
 
 def _flash_args(q: torch.Tensor):
-    b, s, h, _ = q.shape
+    b, s, h, dh = q.shape
     bs, ts = q.stride()[:2]
-    return b, s, h, max(bs, s * ts), ts, int(q.dtype == torch.float32)
+    return b, s, h, dh, max(bs, s * ts), ts, int(q.dtype == torch.float32)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -61,11 +61,13 @@ WEIGHT_NAMES = (
     "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2",
 )
 KERNEL_NAME = "backbone_fwd"
-# what csrc/backbone_fwd.cu takes: head_dim 64, a LayerNorm row of D values
-# (D <= 768). Its attention holds a row of scores in registers up to
+# what the kernels take (`geometry_route`): head_dim 16, 32, 48 or 64, a
+# LayerNorm row of D values (D <= 768, a multiple of 32), mlp a multiple of
+# 32. Their attention holds a row of scores in registers up to
 # KERNEL_MAX_SEQ keys; above it bf16 takes the multi-pass routes of
-# csrc/long_attention.cuh, fp32 those of csrc/flash_f32.cuh
-KERNEL_HEAD_DIM = 64
+# csrc/long_attention.cuh, fp32 those of csrc/flash_f32.cuh, both at head_dim
+# 64 only: the general route (any other geometry) stops at KERNEL_MAX_SEQ
+KERNEL_HEAD_DIMS = (16, 32, 48, 64)
 KERNEL_MAX_SEQ = 256
 # the longest S of that route's backward core, which keeps three fp32
 # statistics a query in shared memory beside at least one 16 KB tile slot
@@ -384,6 +386,55 @@ def _weight_shapes(layers: int, d: int, mlp: int) -> dict:
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
+ROUTE_FAST = "fast"
+ROUTE_GENERAL = "general"
+
+
+def geometry_route(d: int, heads: Optional[int] = None, mlp: Optional[int] = None,
+                   s: Optional[int] = None, layernorm: bool = True) -> Tuple[Optional[str], str]:
+    """The route a geometry takes through the kernels, or why they refuse it:
+    a pure function of the shapes (no device, no build), the one check every
+    wrapper and `evals/parity.py::runbook_attn_impl` make, as
+    csrc/common.cuh geometry_ok makes it in C.
+
+    Returns (ROUTE_FAST, "") where head_dim is 64 and D and mlp are
+    multiples of 64 (every route of the earlier slices, any S);
+    (ROUTE_GENERAL, "") for the other geometries the kernels take: head_dim
+    16, 32 or 48, D and mlp multiples of 32, D <= KERNEL_MAX_D, S <=
+    KERNEL_MAX_SEQ (the seven-launch forward layer, the backward sequences,
+    the S <= 256 attention kernels on the head_dim); (None, reason) when
+    refused. `heads` None leaves the attention out (the MLP half), `mlp`
+    None the MLP, `s` None the sequence; `layernorm` False (the flash pair,
+    which normalises no row of D values) drops the D <= KERNEL_MAX_D bound."""
+    if d <= 0 or d % 32 or (layernorm and d > KERNEL_MAX_D):
+        return None, (f"the kernels need D a multiple of 32"
+                      f"{f' with D <= {KERNEL_MAX_D}' if layernorm else ''}, got D={d}")
+    if mlp is not None and (mlp <= 0 or mlp % 32):
+        return None, f"the kernels need mlp a multiple of 32, got {mlp}"
+    dh = None
+    if heads is not None:
+        dh = d // heads if heads > 0 and d % heads == 0 else None
+        if dh not in KERNEL_HEAD_DIMS:
+            return None, (f"the kernels need head_dim in {KERNEL_HEAD_DIMS}; got D={d}, "
+                          f"heads={heads}")
+    general = d % 64 or (mlp is not None and mlp % 64) or (dh is not None and dh != 64)
+    if not general:
+        return ROUTE_FAST, ""
+    if dh is not None and s is not None and s > KERNEL_MAX_SEQ:
+        return None, (f"the kernels take S <= {KERNEL_MAX_SEQ} at head_dim {dh}, D={d}"
+                      f"{'' if mlp is None else f', mlp={mlp}'} (the general route); got S={s}")
+    return ROUTE_GENERAL, ""
+
+
+def check_geometry(d: int, heads: Optional[int] = None, mlp: Optional[int] = None,
+                   s: Optional[int] = None, what: str = "backbone", layernorm: bool = True) -> str:
+    """`geometry_route`'s route, or ValueError with its reason."""
+    route, why = geometry_route(d, heads, mlp, s, layernorm)
+    if route is None:
+        raise ValueError(f"{what} kernel refuses this geometry: {why}")
+    return route
+
+
 def check_seq_len(s: int, dtype: torch.dtype, what: str, core: bool = False) -> None:
     """The attention kernels' sequence limit: any S (above KERNEL_MAX_SEQ
     through the multi-pass routes of csrc/long_attention.cuh in bf16 and
@@ -398,25 +449,20 @@ def check_seq_len(s: int, dtype: torch.dtype, what: str, core: bool = False) -> 
             "(csrc/long_attention.cuh)")
 
 
-def _check_activation(x: torch.Tensor, heads: Optional[int], core: bool = False) -> None:
-    """What every kernel takes: contiguous bf16 or fp32 (B, S, D) with D a
-    multiple of 64 up to KERNEL_MAX_D; the attention kernels also head_dim
-    64 and check_seq_len's S (`core`: the backward's attention core)."""
+def _check_activation(x: torch.Tensor, heads: Optional[int], core: bool = False,
+                      mlp: Optional[int] = None) -> None:
+    """What every kernel takes: contiguous bf16 or fp32 (B, S, D) of a
+    geometry `geometry_route` accepts (with `heads` and `mlp` where the
+    kernel has attention or an MLP); the attention kernels also
+    check_seq_len's S (`core`: the backward's attention core)."""
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"backbone kernel takes bf16 or fp32 activations, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("backbone kernel takes a contiguous (B, S, D) tensor")
     b, s, d = x.shape
+    check_geometry(d, heads, mlp, s)
     if heads is not None:
-        if heads <= 0 or d != heads * KERNEL_HEAD_DIM:
-            raise ValueError(
-                f"backbone kernel needs head_dim {KERNEL_HEAD_DIM}; got D={d}, "
-                f"heads={heads}"
-            )
         check_seq_len(s, x.dtype, "backbone", core)
-    if d % 64 or d > KERNEL_MAX_D:
-        raise ValueError(f"backbone kernel needs D a multiple of 64 and "
-                         f"D <= {KERNEL_MAX_D}, got {d}")
 
 
 def _check_weights(x: torch.Tensor, names, tensors, shapes: dict) -> None:
@@ -438,13 +484,11 @@ def _check_kernel_inputs(x: torch.Tensor, weights: Tuple, heads: int,
                          stacked: bool = True) -> None:
     """The forward kernels' operands: the backbone's stacked weights, or
     (stacked=False) one layer's."""
-    _check_activation(x, heads)
     if len(weights) != len(WEIGHT_NAMES):
         raise ValueError(f"expected {len(WEIGHT_NAMES)} weight arrays")
     layers = weights[0].shape[0] if stacked else 1
     mlp = weights[8].shape[-1]
-    if mlp % 64:
-        raise ValueError(f"backbone kernel needs mlp a multiple of 64, got {mlp}")
+    _check_activation(x, heads, mlp=mlp)
     shapes = _weight_shapes(layers, x.shape[2], mlp)
     if not stacked:
         shapes = {n: s[1:] for n, s in shapes.items()}
@@ -454,15 +498,13 @@ def _check_kernel_inputs(x: torch.Tensor, weights: Tuple, heads: int,
 def _check_layer_inputs(x, other, w: dict, names, heads, out: dict) -> None:
     """One layer's backward operands: x and the incoming gradient alike,
     the layer's weights, and fp32 gradient outputs of the weights' shapes."""
-    _check_activation(x, heads, core=True)
+    mlp = w["w1"].shape[-1] if "w1" in names else None
+    _check_activation(x, heads, core=True, mlp=mlp)
     if other.dtype != x.dtype or other.shape != x.shape or not other.is_contiguous():
         raise ValueError("the incoming gradient must be a contiguous tensor of "
                          "x's shape and dtype")
     d = x.shape[2]
-    mlp = w["w1"].shape[-1] if "w1" in names else 64
-    if mlp % 64:
-        raise ValueError(f"backbone kernel needs mlp a multiple of 64, got {mlp}")
-    shapes = {n: s[1:] for n, s in _weight_shapes(1, d, mlp).items()}
+    shapes = {n: s[1:] for n, s in _weight_shapes(1, d, mlp or 32).items()}
     _check_weights(x, names, [w[n] for n in names], shapes)
     for n in names:
         t = out[n]
@@ -478,19 +520,19 @@ _SIGNATURES = {
     KERNEL_NAME: {
         "vit2spn_backbone_fwd": ([_P] * 21 + [_I] * 6 + [_F, _I, _P], _I),
         "vit2spn_backbone_fwd_f32": ([_P] * 21 + [_I] * 6 + [_F, _I, _P], _I),
-        "vit2spn_backbone_fwd_launches_per_layer": ([_I] * 2, _I),
+        "vit2spn_backbone_fwd_launches_per_layer": ([_I] * 4, _I),
     },
     "mlp_bwd": {
         "vit2spn_mlp_bwd": ([_P] * 19 + [_I] * 3 + [_F, _I, _I, _P], _I),
         "vit2spn_mlp_bwd_workspace_floats": ([_I] * 4, _LL),
-        "vit2spn_mlp_bwd_launches": ([_I] * 2, _I),
+        "vit2spn_mlp_bwd_launches": ([_I] * 4, _I),
         "vit2spn_gemm_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "vit2spn_gemm_f32_workspace_floats": ([_I] * 3, _LL),
     },
     "attn_bwd": {
         "vit2spn_attn_bwd": ([_P] * 21 + [_I] * 4 + [_F, _I, _P], _I),
         "vit2spn_attn_bwd_workspace_floats": ([_I] * 5, _LL),
-        "vit2spn_attn_bwd_launches": ([_I] * 2, _I),
+        "vit2spn_attn_bwd_launches": ([_I] * 4, _I),
         "vit2spn_attention_core": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "vit2spn_attention_core_f32": ([_P] * 5 + [_I] * 5 + [_P], _I),
         "vit2spn_attention_core_max_seq": ([], _I),
@@ -500,7 +542,7 @@ _SIGNATURES = {
     "layer_fwd": {
         "vit2spn_layer_fwd": ([_P] * 20 + [_I] * 5 + [_F, _I, _P], _I),
         "vit2spn_layer_fwd_f32": ([_P] * 20 + [_I] * 5 + [_F, _I, _P], _I),
-        "vit2spn_layer_fwd_launches": ([_I] * 2, _I),
+        "vit2spn_layer_fwd_launches": ([_I] * 4, _I),
         "vit2spn_layer_fwd_smem_bytes": ([_I] * 3, _I),
         "vit2spn_attention_stage": ([_P] * 2 + [_I] * 4 + [_P], _I),
         "vit2spn_attention_stage_f32": ([_P] * 2 + [_I] * 5 + [_P], _I),
@@ -508,12 +550,12 @@ _SIGNATURES = {
     "merged_bwd": {
         "vit2spn_merged_bwd": ([_P] * 37 + [_I] * 5 + [_F, _I, _I, _P], _I),
         "vit2spn_merged_bwd_workspace_floats": ([_I] * 6, _LL),
-        "vit2spn_merged_bwd_launches": ([_I] * 2, _I),
+        "vit2spn_merged_bwd_launches": ([_I] * 4, _I),
     },
     # ops/flash_attention.py's kernels
     "flash_attention": {
-        "vit2spn_flash_fwd": ([_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I, _P], _I),
-        "vit2spn_flash_bwd": ([_P] * 8 + [_I] * 3 + [_LL] * 2 + [_I, _P], _I),
+        "vit2spn_flash_fwd": ([_P] * 4 + [_I] * 4 + [_LL] * 2 + [_I, _P], _I),
+        "vit2spn_flash_bwd": ([_P] * 8 + [_I] * 4 + [_LL] * 2 + [_I, _P], _I),
         "vit2spn_flash_bwd_workspace_floats": ([_I] * 3, _LL),
         "vit2spn_flash_fwd_launches": ([], _I),
         "vit2spn_flash_bwd_launches": ([], _I),
@@ -564,18 +606,26 @@ def _stream(dev: torch.device):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def kernel_launches_per_layer(d: int, fp32: bool = False) -> int:
+def kernel_launches_per_layer(d: int, fp32: bool, heads: int, mlp: int) -> int:
     """CUDA kernel launches one backbone forward layer of width `d` costs,
-    bf16 or fp32 (builds if needed)."""
-    return _load(KERNEL_NAME).vit2spn_backbone_fwd_launches_per_layer(d, int(fp32))
+    bf16 or fp32, with `heads` heads and an mlp of `mlp` (the general
+    route's geometries take seven) (builds if needed)."""
+    return _load(KERNEL_NAME).vit2spn_backbone_fwd_launches_per_layer(d, int(fp32), heads, mlp)
 
 
-def cuda_launches(name: str, lib: Optional[str] = None, *args: int) -> int:
+def cuda_launches(name: str, lib: Optional[str] = None, *args: int,
+                  heads: Optional[int] = None, mlp: Optional[int] = None) -> int:
     """CUDA kernel launches one call of the `name` wrapper costs (one layer
     of `layer_fwd`, `mlp_bwd`, `attn_bwd`, `merged_bwd`, which take the width
-    D and 1 for fp32 in `args`; one attention of `flash_fwd`, `flash_bwd`),
-    from the library of csrc/<lib or name>.cu (builds if needed)."""
-    return getattr(_load(lib or name), f"vit2spn_{name}_launches")(*args)
+    D and 1 for fp32 in `args` and require the geometry's `heads` and `mlp`;
+    one attention of `flash_fwd`, `flash_bwd`), from the library of
+    csrc/<lib or name>.cu (builds if needed)."""
+    fn = getattr(_load(lib or name), f"vit2spn_{name}_launches")
+    if name in ("layer_fwd", "mlp_bwd", "attn_bwd", "merged_bwd"):
+        if heads is None or mlp is None:
+            raise TypeError(f"cuda_launches({name!r}) needs the geometry's heads and mlp")
+        return fn(*args, heads, mlp)
+    return fn(*args)
 
 
 def layer_fwd_smem_bytes(s: int, d: int, kernel: str) -> int:
@@ -587,14 +637,13 @@ def layer_fwd_smem_bytes(s: int, d: int, kernel: str) -> int:
 
 
 def _layer_scratch(m: int, d: int, mlp: int, dev) -> tuple:
-    """The bf16 forward layer's scratch: qkv, att, and above FUSED_MLP_MAX_D
-    y (bf16 y1, then y2), the fp32 x2 and g, which the layer then passes
-    through device memory (else None)."""
-    qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev)
-    att = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
-    if d <= FUSED_MLP_MAX_D:
-        return qkv, att, None, None, None
-    return (qkv, att, torch.empty((m, d), dtype=torch.bfloat16, device=dev),
+    """The bf16 forward layer's scratch: qkv, att, y (bf16 y1, then y2), the
+    fp32 x2 and g. The layer passes the last three through device memory
+    above FUSED_MLP_MAX_D and on the general route, and ignores them
+    elsewhere."""
+    return (torch.empty((m, 3 * d), dtype=torch.bfloat16, device=dev),
+            torch.empty((m, d), dtype=torch.bfloat16, device=dev),
+            torch.empty((m, d), dtype=torch.bfloat16, device=dev),
             torch.empty((m, d), dtype=torch.float32, device=dev),
             torch.empty((m, mlp), dtype=torch.bfloat16, device=dev))
 
@@ -643,12 +692,11 @@ def _backbone_fwd_cuda(x, weights, heads, eps, fast_gelu, emit_res):
     return out
 
 
-def _dy_scratch(x: torch.Tensor, m: int, d: int) -> Optional[torch.Tensor]:
-    """The fp32 dy a backward half passes through device memory: fp32, or
-    D above HOPPER_BWD_MAX_D (the wide route and the sequences), else
-    None."""
-    if x.dtype == torch.bfloat16 and d <= HOPPER_BWD_MAX_D:
-        return None
+def _dy_scratch(x: torch.Tensor, m: int, d: int) -> torch.Tensor:
+    """The fp32 dy a backward half passes through device memory: in fp32,
+    above HOPPER_BWD_MAX_D (the wide route and the sequences) and on the
+    general route's sequences; the bf16 kit at D <= HOPPER_BWD_MAX_D keeps
+    dy in registers and ignores it."""
     return torch.empty((m, d), dtype=torch.float32, device=x.device)
 
 
@@ -667,7 +715,8 @@ def mlp_bwd(x2: torch.Tensor, dout: torch.Tensor, w: dict, eps: float,
     not take raises), CPU tensors through `mlp_bwd_plain`. The gradients are
     written into `out` when it is given. Its bf16 routes: the wgmma row-block kit at D <=
     HOPPER_BWD_MAX_D, its wide route at D = 384 and 768 (ViT-Small and
-    ViT-Base), the mma.sync sequences at every other D above 256."""
+    ViT-Base), the mma.sync sequences at every other D above 256 and at the
+    general geometry (`geometry_route`)."""
     if x2.device.type == "cpu":
         dx2, grads = mlp_bwd_plain(x2, dout, w, eps, fast_gelu)
         return dx2, _write(grads, out)
@@ -708,7 +757,8 @@ def attn_bwd(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int, eps: float
     does not take raises), CPU tensors through `attn_bwd_plain`. The
     gradients are written into `out` when it is given. Its bf16 routes: the wgmma row-block kit at D <=
     HOPPER_BWD_MAX_D, its wide route at D = 384 and 768 (ViT-Small and
-    ViT-Base), the mma.sync sequences at every other D above 256."""
+    ViT-Base), the mma.sync sequences at every other D above 256 and at the
+    general geometry (`geometry_route`)."""
     if x.device.type == "cpu":
         dx, grads = attn_bwd_plain(x, dx2, w, heads, eps)
         return dx, _write(grads, out)
@@ -762,9 +812,10 @@ def merged_bwd(x: torch.Tensor, x2: torch.Tensor, dout: torch.Tensor, w: dict, h
     out = _grad_outputs(w, WEIGHT_NAMES, out)
     _check_layer_inputs(x2, dout, w, MLP_NAMES, None, out)
     _check_layer_inputs(x, dout, w, ATTN_NAMES, heads, out)
-    lib = _load("merged_bwd")
     b, s, d = x.shape
     m, mlp = b * s, w["w1"].shape[1]
+    check_geometry(d, heads, mlp, s, "merged backward")
+    lib = _load("merged_bwd")
     dev = x.device
 
     fp32 = int(x.dtype == torch.float32)

@@ -9,9 +9,11 @@ pickle (numpy arrays, not CUDA tensors). Every rank has one deadline: a rank
 that raises, dies or is still running at the deadline fails the launch,
 and every rank still alive is killed before `launch` raises.
 
-`device` is every rank's device: "cpu", or "cuda:0" for ranks that share
-one card (NCCL refuses two ranks on one device, so this group is gloo,
-which takes CUDA tensors for all_reduce, broadcast and all_gather).
+`device` is every rank's device: "cuda:0" (the default) for ranks that
+share one card (NCCL refuses two ranks on one device, so this group is gloo,
+which takes CUDA tensors for all_reduce, broadcast and all_gather), or
+"cpu" when the caller asks for CPU ranks. Without a card a "cuda:0" rank
+fails, and with it the launch: nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def _rank_main(rank: int, n: int, init_method: str, device: str, threads: Option
             dist.destroy_process_group()
 
 
-def launch(fn: Callable, n: int, args: Sequence = (), device: str = "cpu",
+def launch(fn: Callable, n: int, args: Sequence = (), device: str = "cuda:0",
            timeout: float = 600.0, threads: Optional[int] = None) -> list:
     """`fn(*args)` in n spawned gloo ranks on `device`; their results by rank.
     Raises RuntimeError when a rank fails and TimeoutError at `timeout`
