@@ -168,7 +168,7 @@ script exits non-zero without printing a result:
      tiles), 12 fused_block calls equal to one fused_backbone bit for bit,
      two runs equal, one call of each with its counter and its CUDA
      launches (84, 7); (b) `ssp-scratch -o vit=<name>` training (8 x 128, bf16, 224 px
-     from 28 px sources): step 1 of "fused" against "xla" from one state
+     from 28 px sources, 6 of the 12 layers): step 1 of "fused" against "xla" from one state
      (the moments within phase 9's tolerances; fused as close to the fp32
      step as "xla" is), then `fit` of two "fused" steps and one merged step with the counters
      read around each, and each step's wall, img/s, device time by wrapper
@@ -260,6 +260,33 @@ script exits non-zero without printing a result:
      chip_smoke.py --head-dim` runs the build and this phase alone, with
      ptxas's registers and spills of every instantiation on head_dim 16,
      32 and 48.
+ 18. ViT-Large/16 (D 1024, 16 heads, mlp 4096, 24 layers, through the
+     dotted overrides `-o vit.hidden_size=1024 -o vit.num_heads=16 -o
+     vit.mlp_dim=4096 -o vit.num_layers=24`), after phase 17 and before
+     phase 13, in a process of its own (`chip_smoke.py --vit-large`): (a)
+     at a ragged B, S = 17 and the training shape (B=128), both gelu
+     forms: fused_backbone (24 layers, with and without its
+     stacks; also at the serving shape B=256), layer_fwd, mlp_bwd, attn_bwd
+     and merged_bwd against their twins and as close to fp32 as the twins;
+     merged equal to the split pair bit for bit; at B=128 24 fused_block
+     calls equal to one fused_backbone, two runs of each wrapper equal, one
+     call of each with its counter and its CUDA launches (168, 7, 7, 7, 13)
+     and no mma.sync GEMM in its trace; the flash pair at 16 heads the same
+     way; the fp32 routes at B=128 against the fp32 twins and float64; D =
+     896 (14 heads, mlp 3584) and S = 577, 2 layers each (at S = 577 in
+     fp32 too); D = 1056 refused by the layer kernels' C entries and by
+     geometry_route. (b) `ssp-scratch` with those overrides, bf16, cut to 2
+     x 64 images a step, on one trainer (its 24-layer random init is drawn
+     once): step 1 of "fused" against "xla" and the fp32 step from one
+     state, then `fit` of two "fused" steps, one merged, one "pallas" and
+     one fp32 "fused" step with every counter as predicted, the "fused"
+     step's device time by wrapper and card idle. (c) extract of 512 images
+     at batch 256 from the trained state against the plain path, with img/s
+     and the forward's device time. (d) The times of the five layer kernels
+     (the forward at B=256, the others at B=128) and the flash pair at 16
+     heads beside their twins, library calls and bounds, the backward's
+     device time by stage and the forward's by launch. `python3
+     chip_smoke.py --vit-large` runs the build and this phase alone.
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
@@ -274,7 +301,8 @@ from (c) and its (c)-shape times in `at_256px`; phase 16 the same per fp32
 long route, "<route> (fp32, S>256)"; phase 17 one per kernel and head_dim,
 "<kernel> (head_dim 16)" and so on, in fp32 too at head_dim 32, its
 `launches` from (d) at that head_dim, its times from (e) beside
-`head_dim_64_ms`); the last line is {"ok":
+`head_dim_64_ms`; phase 18 one per kernel at ViT-Large's width, "<kernel>
+(D=1024)", its `launches` from (b)); the last line is {"ok":
 true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
@@ -957,14 +985,14 @@ def check_layer_fwd(tag, fb, x, w, heads, eps, fast, against_fp32=True) -> float
     return worst
 
 
-def check_backbone_fwd(tag, fb, x, wt, heads, eps, fast) -> float:
+def check_backbone_fwd(tag, fb, x, wt, heads, eps, fast, tol=None) -> float:
     """The backbone forward kernel against `backbone_forward_plain` at a wide
     route's width (phase 14 (a)), with and without the emit_res stacks:
-    max and mean differences within ZOO_FWD_REL_TOL of the twin's largest
-    magnitude, and the kernel's output as close to an fp32 forward of the
-    same weights as the twin's (KERNEL_VS_FP32_RATIO), at every shape.
-    Returns the largest absolute difference."""
-    max_tol, mean_tol = ZOO_FWD_REL_TOL
+    max and mean differences within `tol` (ZOO_FWD_REL_TOL by default) of
+    the twin's largest magnitude, and the kernel's output as close to an
+    fp32 forward of the same weights as the twin's (KERNEL_VS_FP32_RATIO),
+    at every shape. Returns the largest absolute difference."""
+    max_tol, mean_tol = tol or ZOO_FWD_REL_TOL
     worst = 0.0
     ref32 = fb.backbone_forward_plain(x.float(), tuple(t.float() for t in wt), heads, eps, fast)
     for emit in (False, True):
@@ -1162,22 +1190,25 @@ def path_name(impl, merged, cfg) -> str:
 def step_check(cfg, images, eps_lr, path=("fused", False), ref=("plain", False), loss=True):
     """SSP step 1 from the same initial state through `path` and through the
     reference path `ref`, each (attn_impl, merged backward): loss (unless
-    `loss` is False: compare_steps), Adam's first moments, updated params."""
+    `loss` is False: compare_steps), Adam's first moments, updated params.
+    One trainer, its state restored on the card before each path."""
     from vit2spn_tpu_torch.train import checkpoint as ckpt
     from vit2spn_tpu_torch.train.ssp import SSPTrainer
     from vit2spn_tpu_torch.utils.logging import MetricLogger
 
-    quiet = MetricLogger(echo=False)
+    tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), device="cuda")
+    start = state_copy(tr.state)
+    before = ckpt._flatten(tr.state)
     out = []
     for impl, merged in (path, ref):
         os.environ["VIT2SPN_MERGED_BWD"] = "1" if merged else "0"
-        tr = SSPTrainer(cfg, logger=quiet, attn_impl=impl, device="cuda")
-        before = ckpt._flatten(tr.state)
+        tr.state = start
+        use_path(tr, cfg, impl)
         value = float(tr.train_step(images, (0, 0))["loss"])
         out.append((value, before, ckpt._flatten(tr.state)))
-        del tr
-        torch.cuda.empty_cache()
     os.environ["VIT2SPN_MERGED_BWD"] = "0"
+    del tr, start
+    torch.cuda.empty_cache()
     compare_steps("step1", [path_name(*p, cfg) for p in (path, ref)], out, eps_lr,
                   ("params/online/", "params/heads/"), loss=loss)
 
@@ -2180,16 +2211,19 @@ def replace_cfg(cfg, **kw):
     return replace(cfg, **kw)
 
 
-def fit_path(tcfg, tds, impl, merged, per_step) -> tuple:
+def fit_path(tcfg, tds, impl, merged, per_step, trainer=None) -> tuple:
     """`fit` of one epoch over `tds` through one backbone path, with the
     launch counters set to 0 just before and read just after; every counter
-    must read `per_step` (missing: 0) times the steps. Returns (trainer,
-    launches, seconds)."""
+    must read `per_step` (missing: 0) times the steps. A new trainer of
+    `tcfg`, or `trainer` (set to `tcfg` and `impl` by the caller). Returns
+    (trainer, launches, seconds)."""
     from vit2spn_tpu_torch.train.ssp import SSPTrainer
     from vit2spn_tpu_torch.utils.logging import MetricLogger
 
     os.environ["VIT2SPN_MERGED_BWD"] = "1" if merged else "0"
-    trainer = SSPTrainer(tcfg, logger=MetricLogger(echo=False), attn_impl=impl, device="cuda")
+    if trainer is None:
+        trainer = SSPTrainer(tcfg, logger=MetricLogger(echo=False), attn_impl=impl,
+                             device="cuda")
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -2342,6 +2376,7 @@ ZOO_FWD_EXTRA = ("D=512", 512, 8, 2048, ((7, 197, False), (3, 17, True)))
 # also holds the kernel as close to fp32 as the twin (KERNEL_VS_FP32_RATIO).
 ZOO_FWD_REL_TOL = (2e-2, 2e-3)
 ZOO_TRAIN_IMAGES = 2048  # (b): two optimizer steps of 8 x 128 per width
+ZOO_TRAIN_LAYERS = 6  # (b): cut from 12 for the script's time (phase 18 trains 24)
 ZOO_EXTRACT_IMAGES = 1024  # (c): four batches of 256
 ZOO_CLI_SPLITS = {"train": 3072, "val": 256, "test": 512}  # (d): three SSP steps
 ZOO_FT_FOLDS = 2
@@ -2398,12 +2433,14 @@ def tensors_of(out) -> list:
     return [t for o in out for t in tensors_of(o)]
 
 
-def check_zoo_call(tag, name, fn, d, n_cuda) -> None:
-    """Phase 14 (a)'s checks of one wrapper call `fn` of kernel `name` at
-    width d: two runs give equal bits; one call raises its counter by 1 and
-    no other; the C entry point's CUDA launches (`n_cuda`) equal
-    ZOO_CUDA_LAUNCHES; no `gemm_kernel` (common.cuh's mma.sync GEMM) in a
-    trace of STAGE_CALLS calls (the trace may drop a run's first launches)."""
+def check_zoo_call(tag, name, fn, d, n_cuda, want=None) -> None:
+    """Phase 14 (a)'s (and 18 (a)'s) checks of one wrapper call `fn` of
+    kernel `name` at width d: two runs give equal bits; one call raises its
+    counter by 1 and no other; the C entry point's CUDA launches (`n_cuda`)
+    equal `want` (ZOO_CUDA_LAUNCHES by default); no `gemm_kernel`
+    (common.cuh's mma.sync GEMM) in a trace of STAGE_CALLS calls (the trace
+    may drop a run's first launches)."""
+    want = ZOO_CUDA_LAUNCHES[name] if want is None else want
     runs = [tensors_of(fn()) for _ in range(2)]
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(*runs))
@@ -2416,13 +2453,13 @@ def check_zoo_call(tag, name, fn, d, n_cuda) -> None:
     stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)], totals=totals)
     mma_sync = [k for k in totals.get("kernels", {}) if k.startswith("void gemm_kernel<")]
     log(f"[zoo] {tag}: two runs bitwise equal {same}; one call: counter {counts[name]}, "
-        f"{n_cuda} CUDA launches (want {ZOO_CUDA_LAUNCHES[name]}); kernels traced over "
+        f"{n_cuda} CUDA launches (want {want}); kernels traced over "
         f"{STAGE_CALLS} calls {sorted(k.split('(')[0] for k in totals.get('kernels', {}))}")
     if not same:
         raise AssertionError(f"{name} at D={d} is not deterministic")
     if counts[name] != 1 or any(n for k, n in counts.items() if k != name):
         raise AssertionError(f"one {name} call at D={d} launched {counts}")
-    if n_cuda != ZOO_CUDA_LAUNCHES[name] or mma_sync or "kernels" not in totals:
+    if n_cuda != want or mma_sync or "kernels" not in totals:
         raise AssertionError(f"{name} at D={d}: {n_cuda} CUDA launches, mma.sync GEMMs "
                              f"{mma_sync}, traced {totals.get('kernels')}")
 
@@ -2476,96 +2513,156 @@ def zoo_forward(fb, dev) -> dict:
     return errs
 
 
-def zoo_step_check(cfg, images, label) -> None:
-    """Phase 14 (b)'s step 1 from one state through "fused", through "xla"
-    (the per-op path: bf16 ops, rounded at other points than the fused
-    function) and through "xla" under compute_dtype=float32, exact gelu on
-    all three. "fused" against "xla": Adam's first moments and the updated
+def state_copy(tree):
+    """A copy on the card of a trainer state's tensors (params, Adam's
+    moments and count, the step), the structure kept."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: state_copy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[state_copy(v) for v in tree])
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(state_copy(v) for v in tree)
+    return tree
+
+
+def flat_tensors(tree, prefix="") -> dict:
+    """{path: tensor} of a nested dict or tuple of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return {k: v for key, sub in items for k, v in flat_tensors(sub, f"{prefix}/{key}").items()}
+
+
+def use_path(tr, cfg, impl) -> None:
+    """Point one trainer at a backbone path and a config's compute dtype
+    (its params are fp32 whatever the compute dtype, so one state serves
+    every path)."""
+    from vit2spn_tpu_torch.core.dtypes import DTypePolicy
+
+    tr.cfg, tr.policy, tr.attn_impl = cfg, DTypePolicy.from_str(cfg.compute_dtype), impl
+
+
+def zoo_step_check(tr, cfg, images, label) -> None:
+    """Phase 14 (b)'s (and 15 (b)'s, 18 (b)'s) step 1 from one state
+    through "fused", through "xla" (the per-op path: bf16 ops, rounded at
+    other points than the fused function) and through "xla" under
+    compute_dtype=float32, exact gelu on all three, "xla" with full remat
+    (so its autograd fits the card). One trainer `tr` of `cfg`: its state is
+    copied on the card and restored before each path and after the last (a
+    new trainer a path would draw its random init on the host three
+    times). "fused" against "xla": Adam's first moments and the updated
     params under compare_steps' tolerances. Against the fp32 step: "fused"
     at least as close as "xla", within KERNEL_VS_FP32_RATIO, in the first
     moments' relative L2 (all trainable leaves, and the blocks the backward
     kernels compute), and its loss within ZOO_LOSS_VS_FP32 times the "xla"
-    loss's distance from the fp32 step's. (Phase 9's fused-vs-plain loss
-    tolerance does not carry over: the two bf16 paths round at other
-    points, and the loss of random features sits near 0.)"""
-    from vit2spn_tpu_torch.train import checkpoint as ckpt
-    from vit2spn_tpu_torch.train.ssp import SSPTrainer
-    from vit2spn_tpu_torch.utils.logging import MetricLogger
+    loss's distance from the fp32 step's. (Phase 9's
+    fused-vs-plain loss tolerance does not carry over: the two bf16 paths
+    round at other points, and the loss of random features sits near 0.)
+    Every comparison runs on the card, leaf by leaf in float64."""
+    from vit2spn_tpu_torch.cli import _apply_overrides
 
+    start = state_copy(tr.state)
+    remat = _apply_overrides(cfg, ["vit.remat=full"])
     gelu_env = os.environ.get("VIT2SPN_FAST_GELU")
     os.environ["VIT2SPN_FAST_GELU"] = "0"
-    out = []
+    runs = {}
     try:
-        for rcfg, impl in ((cfg, "fused"), (cfg, "xla"),
-                           (replace_cfg(cfg, compute_dtype="float32"), "xla")):
-            tr = SSPTrainer(rcfg, logger=MetricLogger(echo=False), attn_impl=impl,
-                            device="cuda")
-            before = ckpt._flatten(tr.state)
+        for name, rcfg, impl in (("fused", cfg, "fused"), ("xla", remat, "xla"),
+                                 ("fp32", replace_cfg(remat, compute_dtype="float32"), "xla")):
+            tr.state = start
+            use_path(tr, rcfg, impl)
             loss = float(tr.train_step(images, (0, 0))["loss"])
-            out.append((loss, before, ckpt._flatten(tr.state)))
-            del tr
-            gc.collect()
-            torch.cuda.empty_cache()
+            st = tr.state
+            runs[name] = (loss, state_copy(flat_tensors(st.opt_state[0]["mu"], "mu")),
+                          state_copy(flat_tensors((st.params.online, st.params.heads), "params")))
     finally:
         if gelu_env is None:
             os.environ.pop("VIT2SPN_FAST_GELU")
         else:
             os.environ["VIT2SPN_FAST_GELU"] = gelu_env
-    (lf, before, af), (lx, _, ax), (l32, before32, a32) = out
-    if not all(np.array_equal(before[k], before32[k]) for k in before):
-        raise AssertionError("the fp32 step did not start from the same state")
-    mu = [k for k in af if k.startswith("opt_state/") and "/mu/" in k]
-    blocks = [k for k in mu if "/blocks/" in k]
-    dist = {n: (rel_l2(st, a32, mu), rel_l2(st, a32, blocks))
-            for n, st in (("fused", af), ("xla", ax))}
+    tr.state = start
+    use_path(tr, cfg, "fused")
+    before = flat_tensors((start.params.online, start.params.heads), "params")
+
+    def l2(a, b, keys):
+        num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in keys)
+        return math.sqrt(num / sum(float((b[k].double() ** 2).sum()) for k in keys))
+
+    (lf, muf, pf), (lx, mux, px), (l32, mu32, _) = runs["fused"], runs["xla"], runs["fp32"]
+    blocks = [k for k in mu32 if "/blocks/" in k]
+    dist = {n: (l2(m, mu32, list(mu32)), l2(m, mu32, blocks)) for n, m in (("fused", muf),
+                                                                           ("xla", mux))}
+    worst = max(float((muf[k] - mux[k]).abs().max()) / float(mux[k].abs().max())
+                for k in mux if float(mux[k].abs().max()) > 0)
+    same = total = 0
+    lim = cfg.learning_rate * (1 + 1e-3) + 1e-7  # Adam's first step, fp32 rounding
+    for k in before:
+        da, db = pf[k] - before[k], px[k] - before[k]
+        if float(da.abs().max()) > lim or float(db.abs().max()) > lim:
+            raise AssertionError(f"{k}: a step larger than the learning rate")
+        same += int((torch.sign(da) == torch.sign(db)).sum())
+        total += da.numel()
+    fused_xla = l2(muf, mux, list(mux))
     log(f"[zoo-step1] {label}: loss fused {lf:.6f}, xla {lx:.6f}, xla fp32 {l32:.6f}; Adam "
         f"first moments' relative L2 from the fp32 step, all leaves / the blocks: fused "
         f"{dist['fused'][0]:.4f} / {dist['fused'][1]:.4f}, xla {dist['xla'][0]:.4f} / "
         f"{dist['xla'][1]:.4f} (ratio tol {KERNEL_VS_FP32_RATIO}; the loss's "
-        f"{ZOO_LOSS_VS_FP32})")
+        f"{ZOO_LOSS_VS_FP32}); fused vs xla: moments' largest difference {worst:.3g} of the "
+        f"leaf's largest, relative L2 {fused_xla:.3g} (tol {STEP_MU_MAX_REL_TOL}, "
+        f"{STEP_MU_L2_REL_TOL}); params moved the same way in {100.0 * same / total:.2f}% of "
+        f"{total} (tol {100.0 * STEP_SAME_DIRECTION_MIN:.0f}%)")
     if not (np.isfinite(lf) and abs(lf - l32) <= ZOO_LOSS_VS_FP32 * abs(lx - l32)):
         raise AssertionError(f"{label} step 1 loss: fused {lf}, xla {lx}, fp32 {l32}")
     if not all(dist["fused"][i] <= KERNEL_VS_FP32_RATIO * dist["xla"][i] for i in range(2)):
         raise AssertionError(f"{label} step 1: fused is further from the fp32 step than xla "
                              f"({dist})")
-    compare_steps("zoo-step1", ["fused", "xla"], [(lf, before, af), (lx, before, ax)],
-                  cfg.learning_rate, ("params/online/", "params/heads/"), loss=False)
+    if not (worst <= STEP_MU_MAX_REL_TOL and fused_xla <= STEP_MU_L2_REL_TOL
+            and same >= STEP_SAME_DIRECTION_MIN * total):
+        raise AssertionError(f"{label} step 1 of fused disagrees with xla")
+    del start, runs, before
 
 
 def zoo_training(card) -> dict:
     """Phase 14 (b): SSP training at each ZOO width through the CLI's
-    overrides (`ssp-scratch`, `-o vit=<name>`: 12 layers, 224 px, 8 x 128,
-    bf16) on 28 px synthetic sources: step 1 of "fused" against "xla" and
-    the fp32 step (zoo_step_check; full remat on "xla", so its autograd fits
-    the card: the plain twin's fp32 autograd at 12 layers of B=128 would
-    not); `fit` of two steps through "fused", then one merged
-    step, each with the counters read around it; each path's step wall,
-    img/s, device time by wrapper and card idle. Returns {D: {kernel:
-    launches}}."""
+    overrides (`ssp-scratch`, `-o vit=<name>`: ZOO_TRAIN_LAYERS of 12
+    layers, 224 px, 8 x 128, bf16) on 28 px synthetic sources, one trainer
+    a width: step 1 of "fused" against "xla" and the fp32 step
+    (zoo_step_check; full remat on "xla", so its autograd fits the card:
+    the plain twin's fp32 autograd at B=128 would not); `fit` of two steps
+    through "fused", then
+    one merged step, each with the counters read around it; each path's
+    step wall, img/s, device time by wrapper and card idle. Returns {D:
+    {kernel: launches}}."""
     from vit2spn_tpu_torch.cli import _apply_overrides
     from vit2spn_tpu_torch.core.presets import get_preset
     from vit2spn_tpu_torch.data.datasets import synthetic_dataset
     from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
 
     tds = synthetic_dataset(split_sizes={"train": ZOO_TRAIN_IMAGES}, image_size=28,
                             seed=SEED + 14).split("train")
     launches, rest = {}, "views, embed, heads, loss, Adam, EMA"
     for label, vit, d, heads, mlp in ZOO:
-        cfg = _apply_overrides(get_preset("ssp-scratch"), [f"vit={vit}"])
+        cfg = _apply_overrides(get_preset("ssp-scratch"),
+                               [f"vit={vit}", f"vit.num_layers={ZOO_TRAIN_LAYERS}"])
         geom = (cfg.vit.hidden_size, cfg.vit.num_heads, cfg.vit.mlp_dim, cfg.vit.num_layers,
                 cfg.vit.image_size, cfg.batch_size, cfg.compute_dtype)
-        if geom != (d, heads, mlp, 12, 224, TRAIN_BATCH, "bfloat16"):
+        if geom != (d, heads, mlp, ZOO_TRAIN_LAYERS, 224, TRAIN_BATCH, "bfloat16"):
             raise AssertionError(f"-o vit={vit} gave {geom}")
         eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, cfg.vit.num_layers
-        log(f"[zoo] {label} SSP training: D={d}, {heads} heads, mlp {mlp}, {layers} layers, "
-            f"{a} x {cfg.batch_size}, {cfg.compute_dtype}")
-        zoo_step_check(_apply_overrides(cfg, ["vit.remat=full"]), tds.images[:eff], label)
+        log(f"[zoo] {label} SSP training: D={d}, {heads} heads, mlp {mlp}, {layers} layers "
+            f"(cut from 12), {a} x {cfg.batch_size}, {cfg.compute_dtype}")
+        tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), attn_impl="fused", device="cuda")
+        zoo_step_check(tr, cfg, tds.images[:eff], label)
         got = {}
         for merged, images in ((False, tds), (True, tds.subset(np.arange(eff)))):
             bwd = ({"merged_bwd": 2 * a * layers} if merged
                    else {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers})
             per_step = {KERNEL_NAME: 2 * 2 * a, **bwd}
-            trainer, n, _ = fit_path(cfg, images, "fused", merged, per_step)
+            trainer, n, _ = fit_path(cfg, images, "fused", merged, per_step, trainer=tr)
             got.update({k: v for k, v in n.items() if v})
             totals = {}
             name = f"fused{' merged' if merged else ''} {label}"
@@ -2576,9 +2673,9 @@ def zoo_training(card) -> dict:
                 f"{100 * (1 - totals.get('device', float('nan')) / (1e3 * step_s)):.1f}% on "
                 f"{card}")
             os.environ["VIT2SPN_MERGED_BWD"] = "0"
-            del trainer
-            gc.collect()
-            torch.cuda.empty_cache()
+        del tr, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
         launches[d] = got
     return launches
 
@@ -2762,7 +2859,7 @@ def forward_stage(name: str, b, s, d, mlp):
     return None
 
 
-def forward_by_stage(fn, b, s, d, mlp, label, card, calls: int = 3) -> None:
+def forward_by_stage(fn, b, s, d, mlp, label, card, calls: int = 3, layers: int = 12) -> None:
     """Phase 14 (e): a B-image backbone forward's device time by launch, from
     a torch.profiler trace of `calls` calls (the trace may drop a run's first
     launches, so each kernel's time a launch is its traced time over its
@@ -2784,24 +2881,25 @@ def forward_by_stage(fn, b, s, d, mlp, label, card, calls: int = 3) -> None:
                 else f"{nbytes / (t * 1e-3) / 1e9:.0f} GB/s")
         log(f"[zoo-stage] {label} forward B={b}: {stage:18s} {t:.4f} ms a launch ({n} traced), "
             f"{100 * t / layer:.1f}% of a layer, {rate}; {card}")
-    log(f"[zoo-stage] {label} forward B={b}: {len(rows)} launches a layer, {layer:.4f} ms, x 12 "
-        f"layers = {12 * layer:.3f} ms of device time; {card}")
+    log(f"[zoo-stage] {label} forward B={b}: {len(rows)} launches a layer, {layer:.4f} ms, x "
+        f"{layers} layers = {layers * layer:.3f} ms of device time; {card}")
 
 
-def zoo_times(fb, card, dev, launches=None, errs=None) -> list:
-    """Phase 14 (e): at each ZOO width, with CUDA events after a warm-up,
-    backbone_fwd at B=256 and layer_fwd, mlp_bwd, attn_bwd and merged_bwd at
-    B=128 (S=197, bf16): the kernel, its plain twin, its library yardstick
-    and its bound; each backward's and the forward's device time by CUDA
-    kernel. `launches` ({width: {kernel: n}}) and `errs` ({width: {kernel:
-    max_abs_err}}) come from the phase's main path and checks (None: 0 and
-    null, as when this runs alone through --zoo-times). Returns the
-    {"kernels": [...]} entries."""
+def zoo_times(fb, card, dev, launches=None, errs=None, widths=None) -> list:
+    """Phase 14 (e) (and 18 (d)): at each of `widths` ((label, D, heads, mlp,
+    layers); default the ZOO widths at 12 layers), with CUDA events after a
+    warm-up, backbone_fwd at B=256 and layer_fwd, mlp_bwd, attn_bwd and
+    merged_bwd at B=128 (S=197, bf16): the kernel, its plain twin, its
+    library yardstick and its bound; each backward's and the forward's
+    device time by CUDA kernel. `launches` ({width: {kernel: n}}) and `errs`
+    ({width: {kernel: max_abs_err}}) come from the phase's main path and
+    checks (None: 0 and null, as when this runs alone through --zoo-times).
+    Returns the {"kernels": [...]} entries."""
     entries = []
     s, eps, fast = 197, 1e-12, True
-    for label, _, d, heads, mlp in ZOO:
+    for label, d, heads, mlp, layers in widths or [(z[0], *z[2:], 12) for z in ZOO]:
         gen = torch.Generator().manual_seed(SEED + d)
-        wt = random_backbone(gen, 12, d, mlp, dev)
+        wt = random_backbone(gen, layers, d, mlp, dev)
         x = torch.randn(BATCH, s, d, generator=gen).to(torch.bfloat16).to(dev)
         xb, x2b = (torch.randn(TRAIN_BATCH, s, d, generator=gen).to(torch.bfloat16).to(dev)
                    for _ in range(2))
@@ -2810,8 +2908,8 @@ def zoo_times(fb, card, dev, launches=None, errs=None) -> list:
         w0 = tuple(t[0] for t in wt)
         timed = (
             ("backbone_fwd", "backbone_fwd.cu", "vit2spn_tpu/ops/fused_block.py:694",
-             backbone_bound_ms(BATCH, s, d, heads, mlp, 12, wt),
-             12 * fb.kernel_launches_per_layer(d, False, heads, mlp),
+             backbone_bound_ms(BATCH, s, d, heads, mlp, layers, wt),
+             layers * fb.kernel_launches_per_layer(d, False, heads, mlp),
              lambda: fb.fused_backbone(x, wt, heads, eps, fast),
              lambda: fb.backbone_forward_plain(x, wt, heads, eps, fast),
              lambda: library_backbone(x, wt, heads, eps)),
@@ -2862,7 +2960,7 @@ def zoo_times(fb, card, dev, launches=None, errs=None) -> list:
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": l_ms, "cuda_launches": n_cuda, "dtype": "bfloat16",
             })
-        forward_by_stage(timed[0][5], BATCH, s, d, mlp, label, card)
+        forward_by_stage(timed[0][5], BATCH, s, d, mlp, label, card, layers=layers)
         for name, fn in (("mlp_bwd", timed[2][5]), ("attn_bwd", timed[3][5]),
                          ("merged_bwd", timed[4][5])):
             for line in stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)],
@@ -3249,13 +3347,13 @@ LONG_FT_OVERRIDES = ("vit.image_size=256", "data.augment.out_size=256", "k_folds
 
 
 def long_training(card) -> dict:
-    """Phase 15 (b): step 1 of "fused" against "xla" (and the fp32 "xla"
-    step, zoo_step_check), then `fit` of two "fused" steps, one merged and
-    one "pallas" step with the counters read around each (every wrapper and
-    route exactly as predicted), the "fused" and "pallas" steps' device
-    time by wrapper, and extract of LONG_EXTRACT images against the plain
-    path. Returns the long-sequence routes' launches summed over the four
-    runs."""
+    """Phase 15 (b), on one trainer: step 1 of "fused" against "xla" (and
+    the fp32 "xla" step, zoo_step_check), then `fit` of two "fused" steps,
+    one merged and one "pallas" step with the counters read around each
+    (every wrapper and route exactly as predicted), the "fused" and
+    "pallas" steps' device time by wrapper, and extract of LONG_EXTRACT
+    images from the trained state against the plain path. Returns the
+    long-sequence routes' launches summed over the four runs."""
     from vit2spn_tpu_torch.cli import _apply_overrides
     from vit2spn_tpu_torch.core.presets import get_preset
     from vit2spn_tpu_torch.data.datasets import synthetic_dataset
@@ -3277,8 +3375,8 @@ def long_training(card) -> dict:
     tds = synthetic_dataset(split_sizes={"train": 2 * eff}, image_size=28,
                             seed=SEED + 15).split("train")
     t0 = time.perf_counter()
-    zoo_step_check(_apply_overrides(cfg, ["vit.remat=full"]), tds.images[:eff],
-                   "ViT-Base/16-384")
+    tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), attn_impl="fused", device="cuda")
+    zoo_step_check(tr, cfg, tds.images[:eff], "ViT-Base/16-384")
     log(f"[long] (b) step 1 checks in {time.perf_counter() - t0:.1f} s")
     fwd = {KERNEL_NAME: 2 * 2 * a, "attention_fwd (S>256)": 2 * 2 * a * layers}
     split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers,
@@ -3291,7 +3389,8 @@ def long_training(card) -> dict:
     for impl, is_merged, images, per_step in (("fused", False, tds, {**fwd, **split}),
                                              ("fused", True, one, {**fwd, **merged}),
                                              ("pallas", False, one, flash)):
-        trainer, n, _ = fit_path(cfg, images, impl, is_merged, per_step)
+        use_path(tr, cfg, impl)
+        trainer, n, _ = fit_path(cfg, images, impl, is_merged, per_step, trainer=tr)
         for k_, v_ in n.items():
             if k_.endswith("(S>256)"):
                 total[k_] = total.get(k_, 0) + v_
@@ -3312,12 +3411,9 @@ def long_training(card) -> dict:
                 f"{device - sum(by.values()):.3f}) in {launches} launches, card idle "
                 f"{100 * (1 - device / (1e3 * step_s)):.1f}% on {card}")
         os.environ["VIT2SPN_MERGED_BWD"] = "0"
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-    # extract through "fused", against the plain path
+    # extract through "fused" from the trained state, against the plain path
     ds = synthetic_dataset(split_sizes={"all": LONG_EXTRACT}, image_size=28, seed=SEED)
-    trainer = SSPTrainer(cfg, logger=MetricLogger(echo=False), device="cuda")
+    use_path(tr, cfg, "fused")
     trainer.extract_features(ds, batch_size=LONG_EXTRACT_BATCH)  # warm-up
     torch.cuda.synchronize()
     reset_launches()
@@ -3349,7 +3445,7 @@ def long_training(card) -> dict:
     if not err <= FEATURE_REL_TOL * scale:
         raise AssertionError("ViT-Base/16-384 features disagree with the plain path")
     total["attention_fwd (S>256)"] += launches["attention_fwd (S>256)"]
-    del trainer
+    del trainer, tr
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -3724,13 +3820,15 @@ def fp32_long_training(card) -> dict:
     """Phase 16 (b): ViT-Base/16-384 under compute_dtype=float32 (phase 15
     (b)'s overrides and 2 x 64 cut): step 1 of "fused" against "xla" from one
     state (compare_steps), then `fit` of one merged and one split "fused"
-    step and one "pallas" step (the flash pair) with every counter as
-    predicted, and the split step's device time by wrapper. Returns the
-    long-sequence routes' launches summed over the three fits."""
+    step and one "pallas" step (the flash pair) on one trainer with every
+    counter as predicted, and the split step's device time by wrapper.
+    Returns the long-sequence routes' launches summed over the three fits."""
     from vit2spn_tpu_torch.cli import _apply_overrides
     from vit2spn_tpu_torch.core.presets import get_preset
     from vit2spn_tpu_torch.data.datasets import synthetic_dataset
     from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
 
     cfg = _apply_overrides(get_preset("ssp-scratch"), [
         *LONG_OVERRIDES, "compute_dtype=float32", f"batch_size={LONG_MICRO}",
@@ -3749,6 +3847,7 @@ def fp32_long_training(card) -> dict:
     step_check(_apply_overrides(cfg, ["vit.remat=full"]), tds.images[:eff], cfg.learning_rate,
                ref=("xla", False))
     log(f"[fp32-long] (b) step 1 against xla in {time.perf_counter() - t0:.1f} s")
+    tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), device="cuda")
     fwd = {KERNEL_NAME: 2 * 2 * a, "attention_fwd (S>256)": 2 * 2 * a * layers}
     split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers,
              "attention_bwd (S>256)": 2 * a * layers}
@@ -3759,7 +3858,8 @@ def fp32_long_training(card) -> dict:
     for impl, is_merged, per_step in (("fused", True, {**fwd, **merged}),
                                       ("fused", False, {**fwd, **split}),
                                       ("pallas", False, flash)):
-        trainer, n, _ = fit_path(cfg, tds, impl, is_merged, per_step)
+        use_path(tr, cfg, impl)
+        trainer, n, _ = fit_path(cfg, tds, impl, is_merged, per_step, trainer=tr)
         for k_, v_ in n.items():
             if k_.endswith("(S>256)"):
                 total[k_] = total.get(k_, 0) + v_
@@ -3776,9 +3876,9 @@ def fp32_long_training(card) -> dict:
                 f"({', '.join(f'{w} {ms:.3f}' for w, ms in by.items())}, the rest "
                 f"{device - sum(by.values()):.3f}), card idle "
                 f"{100 * (1 - device / (1e3 * step_s)):.1f}% on {card}")
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
+    del tr, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
     return total
 
 
@@ -4449,6 +4549,350 @@ def head_dim_path(fb, fa, card, dev, libs=None) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: ViT-Large/16 (Dosovitskiy et al. 2021, Table 1: 24 layers, D
+# 1024, mlp 4096, 16 heads, 307M parameters; HF google/vit-large-patch16-224)
+# at full width and depth, through the dotted overrides (neither CLI has a
+# shorthand for it). Above D = 768 the LayerNorm rows keep 32 values a lane
+# (csrc/common.cuh LN_PL_WIDE), the backward's wide route tiles N = D in 256
+# columns and its attention half's stage 1 keeps its 128 KB LN tile beside a
+# ring of 128-column stages.
+VL_LABEL, VL_D, VL_HEADS, VL_MLP, VL_LAYERS = "ViT-Large", 1024, 16, 4096, 24
+VL_OVERRIDES = ("vit.hidden_size=1024", "vit.num_heads=16", "vit.mlp_dim=4096",
+                "vit.num_layers=24")
+# (a)'s shapes, (B, S, fast gelu): a ragged B, S = 17 and the training shape
+# (the fp32 references, and the bit and launch checks at the last) for every
+# kernel; the forward also at the serving shape
+VL_SHAPES = ((7, 197, False), (3, 17, True), (128, 197, True))
+VL_SERVE = (256, 197, False)
+# The 24-layer forward against its twin, relative to the twin's largest
+# magnitude: twice ZOO_FWD_REL_TOL, set at 12 layers, for twice the depth
+# (the residual stream carries each layer's one-step bf16 differences
+# through the later layers, as BWD12_* allow for the 12-layer backward; on
+# the H100 the B=128 forward read 0.0207 / 0.00145 at 24 layers). Every
+# shape also holds the kernel as close to fp32 as the twin
+# (KERNEL_VS_FP32_RATIO), which a forward of another function fails.
+VL_FWD_REL_TOL = (4e-2, 4e-3)
+# CUDA launches of one call: the wide routes', none of common.cuh's mma.sync
+# GEMM (7 a layer forward, 7 + 7 backward, merged 13), and the flash pair's
+VL_CUDA_LAUNCHES = {"mlp_bwd": 7, "attn_bwd": 7, "merged_bwd": 13,
+                    "backbone_fwd": 7 * VL_LAYERS, "layer_fwd": 7, "flash_fwd": 1,
+                    "flash_bwd": 2}
+# (a)'s other geometries: a width between ViT-Base and ViT-Large (14 heads
+# of 64: the forward's wide route, the backward's mma.sync sequences), and
+# ViT-Large at 384 px (S = 577: the long routes at 16 heads), 2 layers each;
+# one multiple of 32 past the widest LayerNorm row (33 heads of 32, so only
+# D bounds it) refused by the C entries and by geometry_route
+VL_MID = ("D=896", 896, 14, 3584)
+VL_LONG = (2, 577)  # (B, S)
+VL_REFUSED = (1056, 33, 4224)
+# (b): `ssp-scratch` with VL_OVERRIDES, bf16, 24 layers, cut from 8 x 128 to
+# 2 x 64 images a step; (c): extract at batch 256
+VL_MICRO, VL_ACCUM = 64, 2
+VL_EXTRACT = 512
+VL_CHILD_TIMEOUT = 600  # s; the phase took 91 s alone on the H100
+
+
+def vl_kernels(fb, fa, dev) -> dict:
+    """Phase 18 (a). Returns {kernel: largest absolute difference from the
+    twin} at D = 1024, S = 197."""
+    eps, d, heads, mlp = 1e-12, VL_D, VL_HEADS, VL_MLP
+    gen = torch.Generator().manual_seed(SEED + 18)
+    wt = random_backbone(gen, VL_LAYERS, d, mlp, dev)
+    w0 = tuple(t[0] for t in wt)
+    w = layer_weights(fb.WEIGHT_NAMES, wt)
+    errs = {k: 0.0 for k in VL_CUDA_LAUNCHES}
+    for b, s, fast in VL_SHAPES + (VL_SERVE,):
+        x, x2, g = (torch.randn(b, s, d, generator=gen) for _ in range(3))
+        x, x2, g = (t.to(torch.bfloat16).to(dev) for t in (x, x2, 0.1 * g))
+        tag = f"{VL_LABEL} B={b} S={s} fast_gelu={fast}"
+        errs["backbone_fwd"] = max(errs["backbone_fwd"], check_backbone_fwd(
+            tag, fb, x, wt, heads, eps, fast, VL_FWD_REL_TOL))
+        if (b, s, fast) == VL_SERVE:
+            break
+        errs["layer_fwd"] = max(errs["layer_fwd"], check_layer_fwd(
+            tag, fb, x, w0, heads, eps, fast, b == TRAIN_BATCH))
+        for k, v in check_layer_bwd(tag, fb, x, g, w, heads, eps, fast,
+                                    against_fp32=b == TRAIN_BATCH).items():
+            errs[k] = max(errs[k], v)
+        errs["merged_bwd"] = max(errs["merged_bwd"], check_merged_bwd(
+            tag, fb, x, x2, g, w, heads, eps, fast, True))
+        if b != TRAIN_BATCH:
+            continue
+        with torch.no_grad():
+            h = x
+            for l in range(VL_LAYERS):
+                h = fb.fused_block(h, tuple(t[l] for t in wt), heads, eps, fast)
+            share = equal_bits(h, fb.fused_backbone(x, wt, heads, eps, fast))
+        log(f"[vl] {tag}: {VL_LAYERS} fused_block calls vs one fused_backbone: "
+            f"{100.0 * share:.4f}% of the outputs equal bit for bit (must be 100%)")
+        if share != 1.0:
+            raise AssertionError("the per-layer forward differs from the backbone at D=1024")
+        calls = {"backbone_fwd": lambda: fb.fused_backbone(x, wt, heads, eps, fast, True),
+                 "layer_fwd": lambda: fb.layer_fwd(x, w0, heads, eps, fast),
+                 "mlp_bwd": lambda: fb.mlp_bwd(x2, g, w, eps, fast),
+                 "attn_bwd": lambda: fb.attn_bwd(x, g, w, heads, eps),
+                 "merged_bwd": lambda: fb.merged_bwd(x, x2, g, w, heads, eps, fast)}
+        for name, fn in calls.items():
+            n_cuda = (VL_LAYERS * fb.kernel_launches_per_layer(d, False, heads, mlp)
+                      if name == "backbone_fwd"
+                      else fb.cuda_launches(name, None, d, 0, heads=heads, mlp=mlp))
+            check_zoo_call(f"{VL_LABEL} {name} B={b} S={s}", name, fn, d, n_cuda,
+                           VL_CUDA_LAUNCHES[name])
+        # the flash pair at 16 heads, and the fp32 routes, at the training shape
+        q, k, v, do = flash_operands(gen, b, s, heads, torch.bfloat16, dev)
+        for name, e in check_flash(f"{VL_LABEL} B={b} S={s}", q, k, v, do).items():
+            errs[name] = e
+            check_zoo_call(f"{VL_LABEL} {name} B={b} S={s}", name,
+                           (lambda: fa.flash_fwd(q, k, v)) if name == "flash_fwd"
+                           else (lambda: fa.flash_bwd(q, k, v, do)), d,
+                           fb.cuda_launches(name, fa.KERNEL_NAME), VL_CUDA_LAUNCHES[name])
+        check_fp32_layer(f"{VL_LABEL} fp32 B={b} S={s}", fb, x.float(), x2.float(),
+                         g.float(), w, heads, eps, fast)
+        del q, k, v, do, h
+    del wt, w0, w, x, x2, g
+    torch.cuda.empty_cache()
+    # a width between, and 384 px (the long routes), 2 layers each
+    for label, d_, heads_, mlp_, b, s in ((*VL_MID, 7, 197),
+                                          (f"{VL_LABEL} 384 px", d, heads, mlp, *VL_LONG)):
+        wt = random_backbone(gen, 2, d_, mlp_, dev)
+        w = layer_weights(fb.WEIGHT_NAMES, wt)
+        x, x2, g = (torch.randn(b, s, d_, generator=gen) for _ in range(3))
+        x, x2, g = (t.to(torch.bfloat16).to(dev) for t in (x, x2, 0.1 * g))
+        tag = f"{label} D={d_} heads={heads_} mlp={mlp_} B={b} S={s}"
+        check_backbone_fwd(tag, fb, x, wt, heads_, eps, True)
+        check_layer_bwd(tag, fb, x, g, w, heads_, eps, True, against_fp32=True)
+        check_merged_bwd(tag, fb, x, x2, g, w, heads_, eps, True, True)
+        if s > fb.KERNEL_MAX_SEQ:  # fp32 above 256 tokens too
+            x32, wt32 = x.float(), tuple(t.float() for t in wt)
+            check_fp32_outputs(
+                "fused_backbone-fp32", f"{tag} L=2", ("out",),
+                (fb.fused_backbone(x32, wt32, heads_, eps, True),),
+                (fb.backbone_forward_plain(x32, wt32, heads_, eps, True),),
+                (fb.backbone_forward_plain(x32.double(), tuple(t.double() for t in wt32),
+                                           heads_, eps, True),), FP32_TOL)
+            check_fp32_layer(f"{tag} fp32", fb, x32, x2.float(), g.float(), w, heads_, eps,
+                             True)
+        del wt, w, x, x2, g
+        torch.cuda.empty_cache()
+    vl_refused(fb, dev)
+    return errs
+
+
+def vl_refused(fb, dev) -> None:
+    """Phase 18 (a): D = 1056 (VL_REFUSED; head_dim 32, so only the
+    LayerNorm row's bound refuses it) returns an error from every layer
+    kernel's C entry before any launch, and geometry_route refuses it with
+    its reason."""
+    d, heads, mlp = VL_REFUSED
+    b, s, m = 2, 197, 2 * 197
+    eps, st = 1e-12, fb._stream(dev)
+    rcs = {
+        "backbone_fwd": fb._load("backbone_fwd").vit2spn_backbone_fwd(
+            *[None] * 21, b, s, d, heads, mlp, 1, eps, 1, st),
+        "layer_fwd": fb._load("layer_fwd").vit2spn_layer_fwd(
+            *[None] * 20, b, s, d, heads, mlp, eps, 1, st),
+        "mlp_bwd": fb._load("mlp_bwd").vit2spn_mlp_bwd(*[None] * 19, m, d, mlp, eps, 1, 0, st),
+        "attn_bwd": fb._load("attn_bwd").vit2spn_attn_bwd(*[None] * 21, b, s, d, heads, eps, 0,
+                                                          st),
+        "merged_bwd": fb._load("merged_bwd").vit2spn_merged_bwd(
+            *[None] * 37, b, s, d, heads, mlp, eps, 1, 0, st),
+    }
+    torch.cuda.synchronize()
+    route, why = fb.geometry_route(d, heads, mlp, s)
+    log(f"[vl] D={d} ({heads} heads of {d // heads}, mlp {mlp}): the C entries return {rcs}; "
+        f"geometry_route: {route}, {why!r}")
+    if not all(rcs.values()) or route is not None or f"D <= {fb.KERNEL_MAX_D}" not in why:
+        raise AssertionError(f"D = {d} was not refused ({rcs}, {route}, {why!r})")
+
+
+def vl_training(card) -> tuple:
+    """Phase 18 (b) and (c) on one SSPTrainer of `ssp-scratch` with the
+    ViT-Large overrides (its random init at 24 layers is 1.2 G values drawn
+    on the host, so the paths share it): step 1 (zoo_step_check); `fit` of
+    two "fused" steps, one merged, one "pallas" and one fp32 "fused" step,
+    every counter as predicted; the "fused" step's wall, img/s, device time
+    by wrapper and card idle; then extract of VL_EXTRACT images at batch
+    256 through "fused" against the plain path, with img/s and the
+    forward's device time. Returns the launches of (b)'s runs by kernel."""
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    cfg = _apply_overrides(get_preset("ssp-scratch"), [
+        *VL_OVERRIDES, f"batch_size={VL_MICRO}", f"accumulation_steps={VL_ACCUM}"])
+    vit = cfg.vit
+    geom = (vit.hidden_size, vit.num_heads, vit.mlp_dim, vit.num_layers, vit.image_size,
+            vit.seq_len, cfg.compute_dtype)
+    if geom != (VL_D, VL_HEADS, VL_MLP, VL_LAYERS, 224, 197, "bfloat16"):
+        raise AssertionError(f"the ViT-Large overrides gave {geom}")
+    eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, vit.num_layers
+    t0 = time.perf_counter()
+    tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), attn_impl="fused", device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in flat_tensors(tr.params.online).values()) // 2
+    log(f"[vl] (b) {VL_LABEL} SSP: D={VL_D}, {VL_HEADS} heads, mlp {VL_MLP}, {layers} layers, "
+        f"{a} x {cfg.batch_size} (cut from 8 x 128), bf16; one trainer, {n_params} params a "
+        f"backbone, built in {time.perf_counter() - t0:.1f} s")
+    tds = synthetic_dataset(split_sizes={"train": 2 * eff}, image_size=28,
+                            seed=SEED + 18).split("train")
+    t0 = time.perf_counter()
+    zoo_step_check(tr, cfg, tds.images[:eff], VL_LABEL)
+    log(f"[vl] (b) step 1 checks in {time.perf_counter() - t0:.1f} s")
+    fwd = {KERNEL_NAME: 2 * 2 * a}
+    split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers}
+    flash = {"flash_fwd": 2 * 2 * a * layers, "flash_bwd": 2 * a * layers}
+    one = tds.subset(np.arange(eff))
+    total = {}
+    for impl, merged, fp32, images, per_step in (
+            ("fused", False, False, tds, {**fwd, **split}),
+            ("fused", True, False, one, {**fwd, "merged_bwd": 2 * a * layers}),
+            ("pallas", False, False, one, flash),
+            ("fused", False, True, one, {**fwd, **split})):
+        pcfg = replace_cfg(cfg, compute_dtype="float32") if fp32 else cfg
+        use_path(tr, pcfg, impl)
+        torch.cuda.reset_peak_memory_stats()
+        _, n, _ = fit_path(pcfg, images, impl, merged, per_step, trainer=tr)
+        log(f"[vl] (b) {path_name(impl, merged, pcfg)}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        if not (merged or fp32):
+            for k_, v_ in n.items():
+                total[k_] = total.get(k_, 0) + v_
+        elif merged:
+            total["merged_bwd"] = n["merged_bwd"]
+        if impl == "fused" and not (merged or fp32):  # the step's time by wrapper
+            totals = {}
+            wrappers = (KERNEL_NAME, "mlp_bwd", "attn_bwd")
+            step_s = time_steps(tr, eff, f"fused {VL_LABEL}", card, wrappers,
+                                "views, embed, heads, loss, Adam, EMA", reps=2, totals=totals)
+            device = totals.get("device", float("nan"))
+            by = {w_: totals.get(f"vit2spn::{w_}", float("nan")) for w_ in wrappers}
+            log(f"[vl] (b) fused {VL_LABEL} step ({eff} images): wall {1e3 * step_s:.2f} ms, "
+                f"{eff / step_s:.1f} img/s, device {device:.3f} ms "
+                f"({', '.join(f'{w_} {ms:.3f}' for w_, ms in by.items())}, the rest "
+                f"{device - sum(by.values()):.3f}), card idle "
+                f"{100 * (1 - device / (1e3 * step_s)):.1f}% on {card}")
+        os.environ["VIT2SPN_MERGED_BWD"] = "0"
+    use_path(tr, cfg, "fused")
+    # (c) extract through "fused", against the plain path
+    ds = synthetic_dataset(split_sizes={"all": VL_EXTRACT}, image_size=28, seed=SEED)
+    tr.extract_features(ds, batch_size=BATCH)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    feats, _ = tr.extract_features(ds, batch_size=BATCH)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k_: n_ for k_, n_ in read_launches().items() if n_}
+    want = {KERNEL_NAME: 2 * -(-VL_EXTRACT // BATCH)}  # dual stream
+    totals = {}
+    lines = stage_breakdown(lambda: tr.extract_features(ds, batch_size=BATCH),
+                            f"{VL_LABEL} extract of {len(ds)} images", top=6,
+                            wrappers=(KERNEL_NAME,), rest="views, embed, heads", totals=totals)
+    tr.attn_impl = "plain"
+    plain, _ = tr.extract_features(ds, batch_size=BATCH)
+    scale, err = float(np.abs(plain).max()), float(np.abs(feats - plain).max())
+    log(f"[vl] (c) {VL_LABEL} extract at batch {BATCH}: {feats.shape} features in {secs:.3f} s, "
+        f"{len(ds) / secs:.1f} img/s, launches {launches} (want {want}); forward device "
+        f"{totals.get('vit2spn::' + KERNEL_NAME, float('nan')):.3f} ms of "
+        f"{totals.get('device', float('nan')):.3f} ms; vs plain max_abs_err {err:.6g} (max "
+        f"|plain| {scale:.4g}, tol {FEATURE_REL_TOL} relative) on {card}")
+    for line in lines:
+        log(line)
+    if launches != want:
+        raise AssertionError(f"{VL_LABEL} extract launched {launches}, not {want}")
+    if feats.shape != (len(ds), cfg.proj_dim) or not np.isfinite(feats).all():
+        raise AssertionError(f"{VL_LABEL} extract: bad features {feats.shape}")
+    if not err <= FEATURE_REL_TOL * scale:
+        raise AssertionError(f"{VL_LABEL} features disagree with the plain path")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def vl_flash_times(fb, fa, card, dev, launches, errs) -> list:
+    """Phase 18 (d) for the flash pair at 16 heads, B=128, S=197: kernel,
+    twin, SDPA (and its backward) and the bound, as phase 11 times them."""
+    gen = torch.Generator().manual_seed(SEED + 180)
+    b, s, heads = TRAIN_BATCH, 197, VL_HEADS
+    q, k, v, do = flash_operands(gen, b, s, heads, torch.bfloat16, dev)
+    lib_bwd, _ = library_flash_bwd(q, k, v, do)
+    entries = []
+    for name, replaces, kind, kernel, twin, library in (
+            ("flash_fwd", "vit2spn_tpu/ops/flash_attention.py:36", "fwd",
+             lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+             lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))),
+            ("flash_bwd", "vit2spn_tpu/ops/flash_attention.py:53", "bwd",
+             lambda: fa.flash_bwd(q, k, v, do), lambda: fa.flash_attention_bwd_plain(q, k, v, do),
+             lib_bwd)):
+        b_ms, b_by, b_flops = flash_bound_ms(kind, b, s, heads)
+        k_ms = time_ms(kernel)
+        p_ms = time_ms(twin, iters=5, warmup=1)
+        with torch.no_grad() if kind == "fwd" else torch.enable_grad():
+            l_ms = time_ms(library)
+        n_cuda = fb.cuda_launches(name, fa.KERNEL_NAME)
+        log(f"[vl-time] {VL_LABEL} {name} B={b} heads={heads}: kernel {k_ms:.4f} ms ({n_cuda} "
+            f"CUDA launches), plain twin {p_ms:.3f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} "
+            f"ms ({b_by}; {b_flops / 1e9:.2f} GFLOP), {100 * b_ms / k_ms:.1f}% of the bound; "
+            f"{card}")
+        entries.append({
+            "name": f"{name} (D={VL_D})", "route": "cuda",
+            "source": "vit2spn_tpu_torch/csrc/flash_attention.cu", "replaces": replaces,
+            "launches": launches.get(name, 0), "max_abs_err": errs.get(name), "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            "cuda_launches": n_cuda, "dtype": "bfloat16",
+        })
+    return entries
+
+
+def vit_large_in_child() -> list:
+    """Phase 18 in a process of its own (`chip_smoke.py --vit-large`, the
+    kernels already built on disk): after phases 14-17 a torch.profiler
+    trace in this process held none of a flash forward's launches on the
+    H100, as phase 17 (b)'s trace had held too few. Its lines are logged
+    here but its last two: its `kernels` line, whose entries this returns,
+    and its `ok` line."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--vit-large"],
+                          capture_output=True, text=True, timeout=VL_CHILD_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-2] if proc.returncode == 0 else lines:
+        log(line)
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0 or len(lines) < 2:
+        raise AssertionError(f"chip_smoke.py --vit-large exited with {proc.returncode}")
+    return json.loads(lines[-2])["kernels"]
+
+
+def vit_large_path(fb, fa, card, dev) -> list:
+    """Phase 18, ViT-Large/16: (a) the kernels at D = 1024 against their
+    twins, (b) SSP training, (c) extract, (d) the times. Returns (d)'s
+    {"kernels": [...]} entries, each kernel's `launches` from (b); a kernel
+    of the path that (b) never launched fails the phase."""
+    t_phase = time.perf_counter()
+    errs = vl_kernels(fb, fa, dev)
+    log(f"[vl] (a) in {time.perf_counter() - t_phase:.1f} s: largest absolute differences "
+        f"from the twins { {k: round(e, 6) for k, e in errs.items()} }")
+    t0 = time.perf_counter()
+    launches = vl_training(card)
+    log(f"[vl] (b), (c) in {time.perf_counter() - t0:.1f} s; launches {launches}")
+    t0 = time.perf_counter()
+    entries = zoo_times(fb, card, dev, {VL_D: launches}, {VL_D: errs},
+                        widths=[(VL_LABEL, VL_D, VL_HEADS, VL_MLP, VL_LAYERS)])
+    entries += vl_flash_times(fb, fa, card, dev, launches, errs)
+    log(f"[vl] (d) in {time.perf_counter() - t0:.1f} s; phase 18 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for e in entries:
+        if not e["launches"] and not e["name"].startswith("layer_fwd"):
+            raise AssertionError(f"{e['name']} was never launched on the main path")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4513,8 +4957,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--fp32-long"]:  # phase 16 alone
         print(json.dumps({"kernels": fp32_long_path(fb, fa, card, dev)}))
         return 0
-    if sys.argv[1:2] == ["--head-dim"]:  # phase 17 alone
-        print(json.dumps({"kernels": head_dim_path(fb, fa, card, dev, libs)}))
+    if sys.argv[1:2] in (["--head-dim"], ["--vit-large"]):  # phase 17 or 18 alone
+        entries = (head_dim_path(fb, fa, card, dev, libs) if sys.argv[1] == "--head-dim"
+                   else vit_large_path(fb, fa, card, dev))
+        print(json.dumps({"kernels": entries}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -5136,6 +5582,10 @@ def main() -> int:
 
     # -- 17. head_dim 16, 32, 48 and D below 64 (before phase 13, as phase 14) --
     entries += head_dim_path(fb, fa, card, dev)
+
+    # -- 18. ViT-Large/16 at full width and depth (before phase 13, as phase 14;
+    # in a process of its own, as phase 17 (b)'s trace)
+    entries += vit_large_in_child()
 
     # -- 13. several ranks on the one card -------------------------------------
     parallel_launches = parallel_path(card, fused_totals)

@@ -25,9 +25,10 @@
    against `_layer_bwd(..., merged=True)` in interpret mode at that
    tolerance.
 
-   The wide route's cases (D = 384 and 768, ViT-Small and ViT-Base) emulate
-   its stage structure: every product whose N is D (dy, datt, the weight
-   gradients) in 192-column tiles, dy through fp32 scratch, then the
+   The wide route's cases (D = 384, 768 and 1024: ViT-Small, ViT-Base and
+   ViT-Large) emulate its stage structure: every product whose N is D (dy,
+   datt, the weight gradients) in 192-column tiles (256 at D = 1024), dy
+   through fp32 scratch, then the
    row-wise LayerNorm backward of 16-row warps with its per-16-row
    partials, the weight gradients' splits as csrc/wgrad.cuh chooses them
    for those launches.
@@ -232,13 +233,13 @@ def _close_bf16(got, ref, what):
 # (reduction chunk, token rows per chunk, chunks per split, N tile, D,
 # heads, mlp): the kit's order (64, 64, ...) and small ones that make several
 # chunks and splits at D = 64; the wide route's 192-column N tiles at D = 384
-# and 768 (at these 33 token rows one 64-row chunk: the splits
-# csrc/wgrad.cuh takes for the wide pairs hold several, as the small orders
-# emulate)
+# and 768, and its 256-column tiles at D = 1024 (ViT-Large; at these 33
+# token rows one 64-row chunk: the splits csrc/wgrad.cuh takes for the wide
+# pairs hold several, as the small orders emulate)
 ORDERS = [(64, 64, 1, None, 64, 2, 128), (16, 4, 2, None, 64, 2, 128),
           (32, 8, 3, None, 64, 2, 128), (64, 64, 1, 192, 384, 6, 1536),
-          (64, 8, 2, 192, 768, 12, 3072)]
-ORDER_IDS = ["kernel", "k16_r4_s2", "k32_r8_s3", "wide_d384", "wide_d768_r8_s2"]
+          (64, 8, 2, 192, 768, 12, 3072), (64, 64, 1, 256, 1024, 16, 4096)]
+ORDER_IDS = ["kernel", "k16_r4_s2", "k32_r8_s3", "wide_d384", "wide_d768_r8_s2", "wide_d1024"]
 
 
 def _w_std(d):

@@ -240,9 +240,10 @@ def test_geometry_route_accepts(d, heads, mlp, s, route):
 
 @pytest.mark.parametrize("d, heads, mlp, s, message", [
     (160, 2, 640, 5, "head_dim in (16, 32, 48, 64); got D=160, heads=2"),
-    (48, 1, 192, 5, "D a multiple of 32 with D <= 768, got D=48"),
+    (48, 1, 192, 5, "D a multiple of 32 with D <= 1024, got D=48"),
     (32, 2, 64, 257, "S <= 256 at head_dim 16, D=32, mlp=64 (the general route); got S=257"),
-    (1024, 16, 4096, 5, "D <= 768, got D=1024"),
+    # past the widest LayerNorm row, ViT-Large's D = 1024 (which the kernels take)
+    (1056, 16, 4224, 5, "D <= 1024, got D=1056"),
     (64, 2, 80, 5, "mlp a multiple of 32, got 80"),
     (96, 5, 384, 5, "head_dim in"),
     (64, 1, 96, 300, "S <= 256 at head_dim 64"),
@@ -280,14 +281,14 @@ def test_wrappers_check_the_geometry_before_any_launch():
 @pytest.mark.parametrize("s", [197, 577])
 def test_flash_checks_take_any_number_of_heads_at_head_dim_64(s):
     """The flash pair normalises no row of D values, so the LayerNorm's
-    D <= 768 does not bound it: 16 heads of 64 (D 1024) pass its checks at
+    D <= 1024 does not bound it: 20 heads of 64 (D 1280) pass its checks at
     any S, as the C entry takes them; the layer kernels refuse that D."""
-    q = torch.zeros((2, s, 16, 64), dtype=torch.bfloat16)
+    q = torch.zeros((2, s, 20, 64), dtype=torch.bfloat16)
     fa._check_flash_inputs(q, q, q)
     fa._check_flash_inputs(q.float(), q.float(), q.float())
-    assert fb.geometry_route(1024, 16, None, s, layernorm=False) == ("fast", "")
-    route, why = fb.geometry_route(1024, 16, None, s)
-    assert route is None and "D <= 768" in why
+    assert fb.geometry_route(1280, 20, None, s, layernorm=False) == ("fast", "")
+    route, why = fb.geometry_route(1280, 20, None, s)
+    assert route is None and "D <= 1024" in why
 
 
 def test_runbook_takes_the_kernels_where_the_predicate_does():

@@ -7,7 +7,7 @@
 // input x and emits dx and the LN1 / attention weight gradients, in whatever
 // dtype its inputs carry. The launch sequences, what bounds them and the
 // design: csrc/attn_bwd.cuh. bf16 at D <= 256 runs the wgmma row-block kit
-// (six launches), bf16 at D = 384 and 768 its wide route (seven), bf16 at
+// (six launches), bf16 at D = 384, 768 and 1024 its wide route (seven), bf16 at
 // other widths above 256 and at the general geometry (head_dim 16, 32, 48;
 // D a multiple of 32) the eleven-launch sequence, fp32 the same sequence
 // with the CUDA-core attention of csrc/flash_f32.cuh (thirteen).

@@ -41,19 +41,23 @@
 //      backward                  registers; dx and per-warp LN1 partials
 //   6. reduce_all                the three fixed-order reductions
 //
-// bf16, D = 384 and 768 (the wide route, ViT-Small and ViT-Base): the kit's
-// stages where wgmma's N (at most 256) and the registers allow, seven
-// launches:
+// bf16, D = 384, 768 and 1024 (the wide route, ViT-Small, ViT-Base and
+// ViT-Large): the kit's stages where wgmma's N (at most 256) and the
+// registers allow, seven launches:
 //
 //   1. LN1 + QKV                 as the kit's stage 1; its resident A tile
 //                                is 64 or 128 rows x D bf16, so two
 //                                warpgroups at D = 384 (128-column tiles of
-//                                3D) and one at D = 768 (192)
-//   2. dx2 Wo^T                  N = D in 192-column tiles
+//                                3D) and one at D = 768 (192) and 1024
+//                                (128: the 128 KB tile and a 192-column
+//                                ring exceed the 227 KB of a block)
+//   2. dx2 Wo^T                  N = D in wide_nt(D)-column tiles (192; 256
+//                                at D = 1024)
 //   3. attention_bwd_kernel      att, dqkv
-//   4. dWo and dWqkv             the kit's pair, N = D in 192-column tiles
-//   5. dqkv Wqkv^T               N = D in 192-column tiles; dy1 leaves in
-//                                fp32 (EPI_F32)
+//   4. dWo and dWqkv             the kit's pair, N = D in wide_nt(D)-column
+//                                tiles
+//   5. dqkv Wqkv^T               N = D in wide_nt(D)-column tiles; dy1
+//                                leaves in fp32 (EPI_F32)
 //   6. ln_bwd_rows_kernel        dx and per-16-row LN1 partials
 //   7. reduce_all                the three fixed-order reductions
 //
@@ -76,7 +80,7 @@
 // instantiated on the head_dim. Limits: head_dim 64 at any S in fp32
 // (csrc/flash_f32.cuh) and bf16 S <= 15,168 (above 256:
 // csrc/long_attention.cuh's core); head_dim 16, 32 or 48 at S <= 256; D a
-// multiple of 32 up to 768, activations and matmul weights in T, fp32 LN
+// multiple of 32 up to 1024, activations and matmul weights in T, fp32 LN
 // parameters.
 
 #pragma once
@@ -158,18 +162,20 @@ static int attn_bwd_seq(const AttnBwdArgs& a, cudaStream_t st) {
                        a.eps, st);
 }
 
-// bf16, D <= HOPPER_BWD_MAX_D (the row-block kit) and D = 384, 768 (its
-// wide route). With `defer`, its three reductions join that list
+// bf16, D <= HOPPER_BWD_MAX_D (the row-block kit) and D = 384, 768, 1024
+// (its wide route). With `defer`, its three reductions join that list
 // (csrc/merged_bwd.cu takes them in one launch with the MLP half's) and the
 // half is one launch shorter.
 template <int D>
 static int attn_bwd_hopper_d(const AttnBwdArgs& a, cudaStream_t st, bool size_only,
                              long long* need, Reductions* defer) {
   constexpr bool WIDE = D > HOPPER_BWD_MAX_D;
-  constexpr int NW = WIDE ? WIDE_NT : D;  // the N tiles of the products whose N is D
+  constexpr int NW = WIDE ? wide_nt(D) : D;  // the N tiles of the products whose N is D
   // stage 1's resident A tile is WG1 x 64 rows x D bf16: one warpgroup at
-  // D = 768, two at D = 384 with 128-column tiles of 3 D (shared memory)
-  constexpr int WG1 = D > 384 ? 1 : 2, NT1 = D == 384 ? 128 : 192;
+  // D = 768 and 1024, two at D = 384 with 128-column tiles of 3 D; at D =
+  // 1024 the 128 KB tile leaves room for four stages of 128 columns (209 KB
+  // of the 227 KB a block may have; 192 columns would need 249 KB)
+  constexpr int WG1 = D > 384 ? 1 : 2, NT1 = D == 384 || D > 768 ? 128 : 192;
   const int M = a.B * a.S;
   const bf16* X = static_cast<const bf16*>(a.x);
   const bf16* dX2 = static_cast<const bf16*>(a.dx2);
@@ -201,7 +207,7 @@ static int attn_bwd_hopper_d(const AttnBwdArgs& a, cudaStream_t st, bool size_on
 
   EpiArgs e1 = {};
   e1.bias = static_cast<const bf16*>(a.bqkv);
-  LAUNCH((launch_rowblock<WG1, NT1, A_LN_BF16, EPI_BIAS, 1, true>(
+  LAUNCH((launch_rowblock<WG1, NT1, A_LN_BF16, EPI_BIAS, 1, true, ln_per_lane(D)>(
       xm, wqkvm, qkvm, qkvm, y1m, X, l1s, static_cast<const float*>(a.ln1_bias), 0, M, 3 * D, D,
       a.eps, e1, st)));
   EpiArgs e2 = {};
@@ -238,7 +244,7 @@ static int attn_bwd_hopper_d(const AttnBwdArgs& a, cudaStream_t st, bool size_on
   return defer ? 0 : launch_reduce_all(red, st);
 }
 
-// The bf16 wgmma routes (hopper_route: D <= HOPPER_BWD_MAX_D, 384, 768);
+// The bf16 wgmma routes (hopper_route: D <= HOPPER_BWD_MAX_D, 384, 768, 1024);
 // with size_only, the workspace in floats into *need and nothing launched;
 // with `defer`, the reductions left to the caller.
 static int attn_bwd_hopper(const AttnBwdArgs& a, cudaStream_t st, bool size_only = false,
@@ -250,6 +256,7 @@ static int attn_bwd_hopper(const AttnBwdArgs& a, cudaStream_t st, bool size_only
     case 256: return attn_bwd_hopper_d<256>(a, st, size_only, need, defer);
     case 384: return attn_bwd_hopper_d<384>(a, st, size_only, need, defer);
     case 768: return attn_bwd_hopper_d<768>(a, st, size_only, need, defer);
+    case 1024: return attn_bwd_hopper_d<1024>(a, st, size_only, need, defer);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,7 +26,7 @@
 // or 48, or D or mlp not a multiple of 64; common.cuh general_route) takes
 // that seven-launch layer in bf16 too, on the mma.sync GEMMs, with its
 // attention on the forward-only mode of csrc/attention_bwd.cuh's core.
-// Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to 768, mlp a
+// Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to 1024, mlp a
 // multiple of 32; S <= 256 on the general route.
 
 #include "layer_fwd.cuh"

@@ -344,15 +344,25 @@ static int general_key_tiles(int S) {
 
 // ---------------------------------------------------------------------------
 // LayerNorm forward: one warp per row, the row's D / 32 values per lane in
-// registers
+// registers, at most PL of them: LN_PL_NARROW up to D = 768 (ViT-Base),
+// LN_PL_WIDE above it up to LN_MAX_D = 1024 (ViT-Large). The kernels are
+// instantiated on PL and launched by D, so the widths up to 768 keep the
+// code and the registers they had; one kernel at the larger count for
+// every D would hold registers the narrow widths never use.
 // ---------------------------------------------------------------------------
 
-#define LN_MAX_PER_LANE 24
-#define LN_MAX_D (32 * LN_MAX_PER_LANE)
+#define LN_PL_NARROW 24
+#define LN_PL_WIDE 32
+#define LN_MAX_D (32 * LN_PL_WIDE)
 #define LN_WARPS 8
 
+// the per-lane count of a row of D values
+__host__ __device__ constexpr int ln_per_lane(int D) {
+  return D <= 32 * LN_PL_NARROW ? LN_PL_NARROW : LN_PL_WIDE;
+}
+
 // B images of S tokens at width D, H heads, mlp MLP: what every layer
-// kernel takes (the attention-only entries skip MLP with MLP = 32)
+// kernel takes (the attention-only entries skip MLP with MLP = 64)
 static bool geometry_ok(int B, int S, int D, int H, int MLP) {
   return B > 0 && S > 0 && H > 0 && D % H == 0 && head_dim_ok(D / H) && D % 32 == 0 &&
          D <= LN_MAX_D && MLP > 0 && MLP % 32 == 0 &&
@@ -379,14 +389,14 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* f, const float*)
 // y = TO((x - mean) * rsqrt(var + eps) * scale + bias): fp32 mean, then
 // the mean of squared deviations, as _ln_fwd. One warp per row: each lane
 // loads 16-byte chunks of the row (D * sizeof(T) a multiple of 16).
-template <typename T, typename TO = bf16>
+template <typename T, typename TO = bf16, int PL = LN_PL_NARROW>
 __device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
                                               const float* __restrict__ scale,
                                               const float* __restrict__ bias,
                                               TO* __restrict__ y, int row, int D, float eps,
                                               int lane) {
-  constexpr int EPC = 16 / sizeof(T);               // elements per chunk
-  constexpr int CPL = LN_MAX_PER_LANE / EPC;        // chunks per lane, at most
+  constexpr int EPC = 16 / sizeof(T);  // elements per chunk
+  constexpr int CPL = PL / EPC;        // chunks per lane, at most
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
   const int chunks = D / EPC;
   float v[CPL][EPC];
@@ -429,20 +439,25 @@ __device__ __forceinline__ void layernorm_row(const T* __restrict__ x,
   }
 }
 
-template <typename T, typename TO>
+template <typename T, typename TO, int PL>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                  const float* __restrict__ bias, TO* __restrict__ y, int M, int D,
                  float eps) {
   const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  if (row < M) layernorm_row(x, scale, bias, y, row, D, eps, threadIdx.x & 31);
+  if (row < M) layernorm_row<T, TO, PL>(x, scale, bias, y, row, D, eps, threadIdx.x & 31);
 }
 
 template <typename T, typename TO = bf16>
 static int launch_layernorm(const T* x, const float* scale, const float* bias, TO* y,
                             int M, int D, float eps, cudaStream_t st) {
-  layernorm_kernel<T, TO><<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
-      x, scale, bias, y, M, D, eps);
+  const int blocks = (M + LN_WARPS - 1) / LN_WARPS;
+  if (ln_per_lane(D) == LN_PL_NARROW)
+    layernorm_kernel<T, TO, LN_PL_NARROW><<<blocks, LN_WARPS * 32, 0, st>>>(x, scale, bias, y,
+                                                                           M, D, eps);
+  else
+    layernorm_kernel<T, TO, LN_PL_WIDE><<<blocks, LN_WARPS * 32, 0, st>>>(x, scale, bias, y, M,
+                                                                         D, eps);
   return (int)cudaGetLastError();
 }
 
@@ -461,21 +476,23 @@ static int launch_layernorm(const T* x, const float* scale, const float* bias, T
 // ---------------------------------------------------------------------------
 
 #define LNB_WARPS 4
-#define LNB_MAX_PAIRS (LN_MAX_D / 64)  // a lane holds D / 64 pairs of columns, rounded up
-#define LNB_MAX_BLOCKS 1056            // eight per SM of an H100
+#define LNB_MAX_BLOCKS 1056  // eight per SM of an H100
 
 static int lnb_blocks(int M) {
   const int b = (M + LNB_WARPS - 1) / LNB_WARPS;
   return b < LNB_MAX_BLOCKS ? b : LNB_MAX_BLOCKS;
 }
 
-template <typename T>
+// PL as layernorm_row's: a lane holds D / 64 pairs of columns, rounded up,
+// at most PL / 2 (D <= 32 PL)
+template <typename T, int PL>
 __global__ void __launch_bounds__(LNB_WARPS * 32)
 ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
               const T* __restrict__ resid, const float* __restrict__ scale,
               T* __restrict__ out, float* __restrict__ partial, int M, int D,
               float eps) {
-  __shared__ float red[LNB_WARPS][2 * LN_MAX_D];
+  constexpr int LNB_MAX_PAIRS = PL / 2;
+  __shared__ float red[LNB_WARPS][64 * PL];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // pair i of the lane: columns 64 i + 2 lane and the next, while below D
@@ -679,7 +696,12 @@ static int launch_ln_bwd(const T* x, const float* dy, const T* resid,
                          const float* scale, T* out, float* ws, float* gscale,
                          float* gbias, int M, int D, float eps, cudaStream_t st) {
   const int nb = lnb_blocks(M);
-  ln_bwd_kernel<T><<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws, M, D, eps);
+  if (ln_per_lane(D) == LN_PL_NARROW)
+    ln_bwd_kernel<T, LN_PL_NARROW><<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws,
+                                                                  M, D, eps);
+  else
+    ln_bwd_kernel<T, LN_PL_WIDE><<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws, M,
+                                                                D, eps);
   LAUNCH((int)cudaGetLastError());
   return launch_reduce({ws, nb, 2 * D, D, gscale, gbias, 0, 0}, st);
 }

@@ -19,7 +19,7 @@
 // backbone's fp32 layer code, which the general geometry (head_dim 16, 32
 // or 48, or D or mlp not a multiple of 64) also takes in bf16, as the
 // backbone does. Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to
-// 768, mlp a multiple of 32; S <= 256 on the general route.
+// 1024, mlp a multiple of 32; S <= 256 on the general route.
 
 #include "layer_fwd.cuh"
 #include "layer_fwd_seq.cuh"

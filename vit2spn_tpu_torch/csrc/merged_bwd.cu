@@ -35,7 +35,7 @@
 //        9. dqkv Wqkv^T + LN1 backward      dx, LN1 partials
 //       10. reduce_all_kernel               the 12 weight gradients
 //
-//   * bf16, D = 384 and 768: the halves' wide routes the same way
+//   * bf16, D = 384, 768 and 1024: the halves' wide routes the same way
 //     (the same functions of csrc/mlp_bwd.cuh and csrc/attn_bwd.cuh),
 //     their six reductions in one reduce_all. Thirteen launches: the MLP
 //     half's LN2, y2 W1 + gelu, dout W2^T * gg, dW2 and dW1, dm1 W1^T (fp32
@@ -58,7 +58,7 @@
 // in the compute dtype, as the split path hands it over.
 //
 // Limits: head_dim 64 at S <= 15,168 in bf16 (any in fp32); head_dim 16, 32
-// or 48 at S <= 256; D a multiple of 32 up to 768, mlp a multiple of 32,
+// or 48 at S <= 256; D a multiple of 32 up to 1024, mlp a multiple of 32,
 // activations and matmul weights all bf16 or all fp32, fp32 LN parameters.
 
 #include "attn_bwd.cuh"

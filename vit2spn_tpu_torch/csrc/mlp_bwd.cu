@@ -6,8 +6,8 @@
 // recomputes LN2 and the MLP from the saved mid-residual x2 and emits dx2 and
 // the LN2 / MLP weight gradients, in whatever dtype its inputs carry. The
 // launch sequences, what bounds them and the design: csrc/mlp_bwd.cuh. bf16
-// at D <= 256 runs the wgmma row-block kit (five launches), bf16 at D = 384
-// and 768 its wide route (seven), bf16 at other widths above 256, at D or mlp
+// at D <= 256 runs the wgmma row-block kit (five launches), bf16 at D = 384,
+// 768 and 1024 its wide route (seven), bf16 at other widths above 256, at D or mlp
 // not a multiple of 64 (the general geometry) and fp32 the ten-launch
 // sequence.
 

@@ -42,8 +42,8 @@
 //                                and per-warp LN2 parameter partials
 //   5. reduce_all                the three fixed-order reductions
 //
-// bf16, D = 384 and 768 (the wide route, ViT-Small and ViT-Base): the
-// kit's stages where wgmma's N (at most 256), shared memory and the
+// bf16, D = 384, 768 and 1024 (the wide route, ViT-Small, ViT-Base and
+// ViT-Large): the kit's stages where wgmma's N (at most 256), shared memory and the
 // registers allow, seven launches:
 //
 //   1. layernorm_kernel          y2 (bf16, for W1 and dW1)
@@ -56,10 +56,12 @@
 //                                of a 1.94 ms half on an H100 at D = 768,
 //                                B = 128)
 //   3. dout W2^T, * gg           the kit's stage 2
-//   4. dW2 and dW1 in one launch the kit's pair, N = D in 192-column tiles
-//   5. dm1 W1^T                  N = D in 192-column tiles; dy2 leaves in
-//                                fp32 (EPI_F32): 64 x D fp32 per warpgroup
-//                                is 384 registers a thread at D = 768
+//   4. dW2 and dW1 in one launch the kit's pair, N = D in wide_nt(D)-column
+//                                tiles (192; 256 at D = 1024)
+//   5. dm1 W1^T                  N = D in wide_nt(D)-column tiles; dy2
+//                                leaves in fp32 (EPI_F32): 64 x D fp32 per
+//                                warpgroup is 384 registers a thread at
+//                                D = 768
 //   6. ln_bwd_rows_kernel        dx2 and per-16-row LN2 partials, as the
 //                                kit's epilogue gives them
 //   7. reduce_all                the three fixed-order reductions
@@ -80,7 +82,7 @@
 //
 // The sequence also takes the general geometry in bf16: D or mlp a multiple
 // of 32 but not of 64 (the GEMMs' last column tile masked, the LayerNorm
-// backward's last pairs of columns half used). Limits: D <= 768, D and mlp
+// backward's last pairs of columns half used). Limits: D <= 1024, D and mlp
 // multiples of 32, activations and matmul weights in T, fp32 LN parameters.
 
 #pragma once
@@ -148,8 +150,8 @@ static int mlp_bwd_seq(const MlpBwdArgs& a, cudaStream_t st) {
                        D, a.eps, st);
 }
 
-// bf16, D <= HOPPER_BWD_MAX_D (the row-block kit) and D = 384, 768 (its
-// wide route). NT of the two products over the MLP columns: the widest of
+// bf16, D <= HOPPER_BWD_MAX_D (the row-block kit) and D = 384, 768, 1024
+// (its wide route). NT of the two products over the MLP columns: the widest of
 // 192, 128, 64 that divides mlp. With `defer`, its three reductions join that
 // list (csrc/merged_bwd.cu takes them in one launch with the attention
 // half's) and the half is one launch shorter.
@@ -157,7 +159,7 @@ template <int D, int NT>
 static int mlp_bwd_hopper_nt(const MlpBwdArgs& a, cudaStream_t st, bool size_only,
                              long long* need, Reductions* defer) {
   constexpr bool WIDE = D > HOPPER_BWD_MAX_D;
-  constexpr int NW = WIDE ? WIDE_NT : D;  // the N tiles of the products whose N is D
+  constexpr int NW = WIDE ? wide_nt(D) : D;  // the N tiles of the products whose N is D
   const int M = a.M, MLP = a.MLP;
   const bf16* X2 = static_cast<const bf16*>(a.x2);
   const bf16* dO = static_cast<const bf16*>(a.dout);
@@ -239,7 +241,7 @@ static int mlp_bwd_hopper_d(const MlpBwdArgs& a, cudaStream_t st, bool size_only
   return mlp_bwd_hopper_nt<D, 64>(a, st, size_only, need, defer);
 }
 
-// The bf16 wgmma routes (hopper_route: D <= HOPPER_BWD_MAX_D, 384, 768);
+// The bf16 wgmma routes (hopper_route: D <= HOPPER_BWD_MAX_D, 384, 768, 1024);
 // with size_only, the workspace in floats into *need and nothing launched;
 // with `defer`, the reductions left to the caller.
 static int mlp_bwd_hopper(const MlpBwdArgs& a, cudaStream_t st, bool size_only = false,
@@ -251,6 +253,7 @@ static int mlp_bwd_hopper(const MlpBwdArgs& a, cudaStream_t st, bool size_only =
     case 256: return mlp_bwd_hopper_d<256>(a, st, size_only, need, defer);
     case 384: return mlp_bwd_hopper_d<384>(a, st, size_only, need, defer);
     case 768: return mlp_bwd_hopper_d<768>(a, st, size_only, need, defer);
+    case 1024: return mlp_bwd_hopper_d<1024>(a, st, size_only, need, defer);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,8 +7,6 @@
 
 #pragma once
 
-#include <type_traits>
-
 #include "hopper.cuh"
 
 // a bf16 pair (low half first) as floats, exactly
@@ -55,16 +53,14 @@ __device__ __forceinline__ float gelu_fwd(float m) {
 // Row-block GEMM on wgmma: C[ROWS, N] = A[ROWS, K] B[K, N] with a fused
 // epilogue (common.cuh's epilogue_pair, or one of its own). A is LayerNorm of
 // the rows of x, computed once into a resident K-major tile (bf16 x arrives
-// there by TMA and is normalized in place; fp32 x2 is read from device
-// memory), or is streamed by TMA beside B. B is streamed in stages of 64 K
+// there by TMA and is normalized in place), or is streamed by TMA beside B. B is streamed in stages of 64 K
 // rows x NT columns: from a row-major (K, N) weight (TB = 1), or, for the
 // product with a row-major (N, K) weight's transpose, from its rows, K-major
 // (TB = 0). The warpgroups walk every NT-column tile of N, one k-chunk's
 // products in flight while the next is issued.
 // ---------------------------------------------------------------------------
 
-enum { A_LN_BF16 = 0, A_LN_F32 = 1, A_TMA = 2 };
-
+enum { A_LN_BF16 = 0, A_TMA = 1 };
 
 #ifndef GEMM_RING
 #define GEMM_RING 4  // weight stages in flight
@@ -165,38 +161,25 @@ __device__ __forceinline__ void ln_tile_rows(uint8_t* a, int rows, int lr0,
   }
 }
 
-// LayerNorm of one row (D values) as bf16 into row `lr` of a K-major A tile
-// (D / 64 regions of `rows` rows); the statistics as common.cuh's
-// layernorm_row: fp32 mean, then the mean of squared deviations, one warp per
-// row. IN_TILE: the bf16 row is already in the tile (normalized in place);
-// else it is row `row` of x in device memory (zeros past M).
-template <typename T, bool IN_TILE>
-__device__ __forceinline__ void ln_row_to_tile(const T* __restrict__ x,
-                                               const float* __restrict__ scale,
+// LayerNorm in place of row `lr` of a K-major bf16 A tile (D / 64 regions of
+// `rows` rows), D <= 32 PL; the statistics as common.cuh's layernorm_row:
+// fp32 mean, then the mean of squared deviations, one warp per row.
+template <int PL>
+__device__ __forceinline__ void ln_row_in_tile(const float* __restrict__ scale,
                                                const float* __restrict__ bias, uint8_t* a,
-                                               int rows, int lr, int row, int M, int D, float eps,
-                                               int lane) {
-  constexpr int EPC = 16 / sizeof(T);         // elements per 16-byte chunk
-  constexpr int CPL = LN_MAX_PER_LANE / EPC;  // chunks per lane, at most
+                                               int rows, int lr, int D, float eps, int lane) {
+  constexpr int EPC = 8;         // bf16 elements per 16-byte chunk
+  constexpr int CPL = PL / EPC;  // chunks per lane, at most
   const int chunks = D / EPC;
   auto at = [&](int c) { return a + (c >> 6) * rows * 128 + sw128(lr, c & 63); };
-  if (!IN_TILE && row >= M) {
-    for (int ch = lane; ch < chunks; ch += 32) {
-      if constexpr (EPC == 8)
-        *reinterpret_cast<uint4*>(at(ch * EPC)) = make_uint4(0u, 0u, 0u, 0u);
-      else
-        *reinterpret_cast<uint2*>(at(ch * EPC)) = make_uint2(0u, 0u);
-    }
-    return;
-  }
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
   float v[CPL][EPC];
   float s = 0.0f;
 #pragma unroll
   for (int i = 0; i < CPL; ++i) {
     const int ch = lane + 32 * i;
     if (ch < chunks) {
-      unpack16(IN_TILE ? *reinterpret_cast<const uint4*>(at(ch * EPC)) : xr[ch], v[i], x);
+      unpack16(*reinterpret_cast<const uint4*>(at(ch * EPC)), v[i],
+               static_cast<const bf16*>(nullptr));
 #pragma unroll
       for (int e = 0; e < EPC; ++e) s += v[i][e];
     }
@@ -224,10 +207,7 @@ __device__ __forceinline__ void ln_row_to_tile(const T* __restrict__ x,
       for (int e = 0; e < EPC; e += 2)
         p[e / 2] = pack_f32((v[i][e] - mean) * rstd * scale[c + e] + bias[c + e],
                             (v[i][e + 1] - mean) * rstd * scale[c + e + 1] + bias[c + e + 1]);
-      if constexpr (EPC == 8)
-        *reinterpret_cast<uint4*>(at(c)) = make_uint4(p[0], p[1], p[2], p[3]);
-      else
-        *reinterpret_cast<uint2*>(at(c)) = make_uint2(p[0], p[1]);
+      *reinterpret_cast<uint4*>(at(c)) = make_uint4(p[0], p[1], p[2], p[3]);
     }
   }
 }
@@ -482,8 +462,10 @@ static int launch_ln_bwd_rows(const bf16* x, const float* dy, const bf16* resid,
 // normalized tile also goes out through `ymap` (the recompute's y for a
 // weight gradient). EPI_LNBWD (A_TMA, N = NT): x and ln_scale are the
 // LayerNorm's input and scale; ep.resid the residual, ep.out the result,
-// ep.f32 the per-warp partials (gridDim.x * WG * 4 parts).
-template <int WG, int NT, int ASRC, int EPI, int TB = 1, bool STORE_A = false>
+// ep.f32 the per-warp partials (gridDim.x * WG * 4 parts). LNPL: the
+// LayerNorm's values per lane above K = 256 (common.cuh ln_per_lane(K)).
+template <int WG, int NT, int ASRC, int EPI, int TB = 1, bool STORE_A = false,
+          int LNPL = LN_PL_NARROW>
 __global__ void __launch_bounds__(WG * 128 + 32, 1)
 rowblock_gemm_kernel(const __grid_constant__ CUtensorMap amap,
                      const __grid_constant__ CUtensorMap bmap,
@@ -492,7 +474,6 @@ rowblock_gemm_kernel(const __grid_constant__ CUtensorMap amap,
                      const __grid_constant__ CUtensorMap ymap, const void* __restrict__ x,
                      const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
                      int layer, int M, int N, int K, float eps, EpiArgs ep) {
-  using T = typename std::conditional<ASRC == A_LN_F32, float, bf16>::type;
   constexpr int ROWS = WG * 64;
   constexpr int STAGE = rb_stage_bytes<WG, NT, ASRC>();
   constexpr int B_OFF = ASRC == A_TMA ? WG * TMA_BOX_BYTES : 0;
@@ -555,14 +536,13 @@ rowblock_gemm_kernel(const __grid_constant__ CUtensorMap amap,
   }
 
   const int w = warp >> 2, wl = warp & 3;  // warpgroup, warp in it
-  if (ASRC != A_TMA) {
-    if (ASRC == A_LN_BF16) mbar_wait(&a_full, 0);
-    if (ASRC == A_LN_BF16 && K <= 256)
+  if (ASRC == A_LN_BF16) {
+    mbar_wait(&a_full, 0);
+    if (K <= 256)
       ln_tile_rows(tile, ROWS, w * 64 + wl * 16, ln_scale, ln_bias, K, eps, lane);
     else
       for (int r = wl * 16; r < wl * 16 + 16; ++r)
-        ln_row_to_tile<T, ASRC == A_LN_BF16>(static_cast<const T*>(x), ln_scale, ln_bias, tile,
-                                             ROWS, w * 64 + r, m0 + w * 64 + r, M, K, eps, lane);
+        ln_row_in_tile<LNPL>(ln_scale, ln_bias, tile, ROWS, w * 64 + r, K, eps, lane);
     fence_async_smem();
     named_sync(1 + w, 128);
     if (STORE_A && wl == 0 && lane == 0) {
@@ -681,16 +661,19 @@ rowblock_gemm_kernel(const __grid_constant__ CUtensorMap amap,
   if ((EPI == EPI_BIAS || EPI == EPI_GELU2 || STORE_A) && wl == 0 && lane == 0) bulk_wait_read();
 }
 
-template <int WG, int NT, int ASRC, int EPI, int TB = 1, bool STORE_A = false>
+template <int WG, int NT, int ASRC, int EPI, int TB = 1, bool STORE_A = false,
+          int LNPL = LN_PL_NARROW>
 static int launch_rowblock(const CUtensorMap& amap, const CUtensorMap& bmap,
                            const CUtensorMap& omap, const CUtensorMap& o2map,
                            const CUtensorMap& ymap, const void* x,
                            const float* ln_scale, const float* ln_bias, int layer, int M, int N,
                            int K, float eps, const EpiArgs& ep, cudaStream_t st) {
-  if (N % NT || K % 64 || (EPI == EPI_LNBWD && N != NT)) return (int)cudaErrorInvalidValue;
+  if (N % NT || K % 64 || (EPI == EPI_LNBWD && N != NT) ||
+      (ASRC == A_LN_BF16 && K > 32 * LNPL))
+    return (int)cudaErrorInvalidValue;
   const int smem = rb_smem_bytes<WG, NT, ASRC, EPI>(K);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kernel = rowblock_gemm_kernel<WG, NT, ASRC, EPI, TB, STORE_A>;
+  auto kernel = rowblock_gemm_kernel<WG, NT, ASRC, EPI, TB, STORE_A, LNPL>;
   LAUNCH((int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   kernel<<<(M + WG * 64 - 1) / (WG * 64), WG * 128 + 32, smem, st>>>(
       amap, bmap, omap, o2map, ymap, x, ln_scale, ln_bias, layer, M, N, K, eps, ep);

@@ -1,5 +1,5 @@
 // The forward layer's GEMM on its wide route (D > FUSED_MLP_MAX_D: ViT-Small,
-// ViT-Base) for Hopper (sm_90a): C[M, N] = A[M, K] B[K, N] with one of four
+// ViT-Base, ViT-Large) for Hopper (sm_90a): C[M, N] = A[M, K] B[K, N] with one of four
 // fused epilogues, B one layer's matrix of a stacked (L, K, N) weight.
 // csrc/layer_fwd.cuh runs it for the layer's four products (QKV, Wo, W1,
 // W2); see there for the layer it belongs to.
@@ -19,7 +19,8 @@
 // four m64nNTk16 wgmmas in k order, one k-chunk's products in flight while
 // the next is issued. Each output sums its K as one fp32 chain of 16-deep
 // k-steps in order (no split K). NT = 192 wherever it divides N (every
-// matrix of both zoo widths), else 128 or 64.
+// matrix of ViT-Small and ViT-Base, ViT-Large's QKV), else 128 or 64
+// (ViT-Large's Wo, W1 and W2).
 //
 // Epilogues, per output pair (fp32 acc):
 //   EPI_BIAS   out = bf16(acc + bias)                          (qkv)

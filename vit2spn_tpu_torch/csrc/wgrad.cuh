@@ -7,7 +7,8 @@
 // 16 K-steps of 64 output rows) and B N-major (TB = 1), each by TMA, 64 token
 // rows per stage. A block owns 128 rows of K1 (two consumer warpgroups of 64)
 // by one NT-column tile of N (N = NT up to D = 256; wgmma's N stops at 256,
-// so the wide route's N = 384 and 768 take two and four tiles of 192) over
+// so the wide route's N = 384 and 768 take two and four tiles of 192, N =
+// 1024 four of 256) over
 // one split of the tokens, with a producer warp feeding a ring of GEMM_RING
 // stages; a warpgroup whose 64 rows lie past K1 (K1 an odd multiple of 64)
 // only walks the ring. The bias gradient is the column sums of B (bias_a =
@@ -27,13 +28,20 @@
 
 // widest D whose bf16 backward halves (csrc/mlp_bwd.cuh, csrc/attn_bwd.cuh)
 // keep the LayerNorm backward's 64 x D fp32 dy per warpgroup in registers
-// (EPI_LNBWD). The wide route takes D = 384 and 768 (ViT-Small and
-// ViT-Base): the same kit with N tiled in 192 columns, dy through fp32
-// scratch and a row-wise LayerNorm backward (ln_bwd_rows_kernel). Every
-// other D above 256 keeps the mma.sync sequences (*_bwd_seq<bf16>).
+// (EPI_LNBWD). The wide route takes D = 384, 768 and 1024 (ViT-Small,
+// ViT-Base and ViT-Large): the same kit with N tiled in wide_nt(D) columns,
+// dy through fp32 scratch and a row-wise LayerNorm backward
+// (ln_bwd_rows_kernel). Every other D above 256 keeps the mma.sync
+// sequences (*_bwd_seq<bf16>): each width is one more instantiation of
+// every wide stage, so only the published ones have one.
 #define HOPPER_BWD_MAX_D 256
 
-static bool wide_route(int D) { return D == 384 || D == 768; }
+static bool wide_route(int D) { return D == 384 || D == 768 || D == 1024; }
+
+// the wide route's tiles of the products whose N is D: 192 columns where
+// they divide D, else 256 (D = 1024: four tiles, fewer re-reads of the A
+// rows than eight of 128)
+__host__ __device__ constexpr int wide_nt(int D) { return D % 192 == 0 ? 192 : 256; }
 
 // the backward entry points take the wgmma kit at bf16, D <= HOPPER_BWD_MAX_D
 // or the wide route's widths, D and mlp multiples of 64 and, for the
@@ -43,7 +51,6 @@ static bool hopper_route(int D, int fp32, int MLP = 64, int dh = 64) {
   return !fp32 && D % 64 == 0 && MLP % 64 == 0 && dh == 64 &&
          (D <= HOPPER_BWD_MAX_D || wide_route(D));
 }
-#define WIDE_NT 192  // the wide route's tiles of the products whose N is D
 #define WGRAD_WG 2
 #define WGRAD_SMS 132  // blocks in flight: one per SM of an H100
 

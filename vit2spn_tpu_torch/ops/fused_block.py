@@ -62,7 +62,7 @@ WEIGHT_NAMES = (
 )
 KERNEL_NAME = "backbone_fwd"
 # what the kernels take (`geometry_route`): head_dim 16, 32, 48 or 64, a
-# LayerNorm row of D values (D <= 768, a multiple of 32), mlp a multiple of
+# LayerNorm row of D values (D <= 1024, a multiple of 32), mlp a multiple of
 # 32. Their attention holds a row of scores in registers up to
 # KERNEL_MAX_SEQ keys; above it bf16 takes the multi-pass routes of
 # csrc/long_attention.cuh, fp32 those of csrc/flash_f32.cuh, both at head_dim
@@ -75,7 +75,9 @@ KERNEL_MAX_SEQ = 256
 # 64-query tiles (csrc/long_attention.cuh long_core_max_seq, which
 # chip_smoke.py holds this to)
 LONG_CORE_MAX_SEQ = 15168
-KERNEL_MAX_D = 768
+# the widest LayerNorm row: 32 values a lane of a warp (csrc/common.cuh
+# LN_MAX_D; up to D = 768 the kernels keep 24, their code before ViT-Large)
+KERNEL_MAX_D = 1024
 # widest D whose layer keeps x2, y2 and g inside one block (csrc/layer_fwd.cuh
 # FUSED_MLP_MAX_D); above it the layer runs two LayerNorms and four GEMMs
 # (csrc/tile_gemm.cuh) and passes y, fp32 x2 and g through scratch
@@ -83,8 +85,9 @@ FUSED_MLP_MAX_D = 256
 # widest D whose bf16 backward halves (and the merged backward, which runs
 # their stages) take the wgmma row-block kit with dy kept in registers
 # (csrc/wgrad.cuh HOPPER_BWD_MAX_D). Above it they pass an fp32 dy through
-# scratch: on the kit's wide route at D = 384 and 768 (ViT-Small and
-# ViT-Base: wgmma's N tiled in 192 columns, a row-wise LayerNorm backward),
+# scratch: on the kit's wide route at D = 384, 768 and 1024 (ViT-Small,
+# ViT-Base and ViT-Large: wgmma's N tiled in 192 columns, 256 at D = 1024,
+# a row-wise LayerNorm backward),
 # on the mma.sync sequences at every other width, and in fp32
 HOPPER_BWD_MAX_D = 256
 
@@ -714,8 +717,8 @@ def mlp_bwd(x2: torch.Tensor, dout: torch.Tensor, w: dict, eps: float,
     CUDA tensors go through csrc/mlp_bwd.cu (bf16 or fp32; anything it does
     not take raises), CPU tensors through `mlp_bwd_plain`. The gradients are
     written into `out` when it is given. Its bf16 routes: the wgmma row-block kit at D <=
-    HOPPER_BWD_MAX_D, its wide route at D = 384 and 768 (ViT-Small and
-    ViT-Base), the mma.sync sequences at every other D above 256 and at the
+    HOPPER_BWD_MAX_D, its wide route at D = 384, 768 and 1024 (ViT-Small,
+    ViT-Base and ViT-Large), the mma.sync sequences at every other D above 256 and at the
     general geometry (`geometry_route`)."""
     if x2.device.type == "cpu":
         dx2, grads = mlp_bwd_plain(x2, dout, w, eps, fast_gelu)
@@ -756,8 +759,8 @@ def attn_bwd(x: torch.Tensor, dx2: torch.Tensor, w: dict, heads: int, eps: float
     CUDA tensors go through csrc/attn_bwd.cu (bf16 or fp32; anything it
     does not take raises), CPU tensors through `attn_bwd_plain`. The
     gradients are written into `out` when it is given. Its bf16 routes: the wgmma row-block kit at D <=
-    HOPPER_BWD_MAX_D, its wide route at D = 384 and 768 (ViT-Small and
-    ViT-Base), the mma.sync sequences at every other D above 256 and at the
+    HOPPER_BWD_MAX_D, its wide route at D = 384, 768 and 1024 (ViT-Small,
+    ViT-Base and ViT-Large), the mma.sync sequences at every other D above 256 and at the
     general geometry (`geometry_route`)."""
     if x.device.type == "cpu":
         dx, grads = attn_bwd_plain(x, dx2, w, heads, eps)
