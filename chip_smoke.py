@@ -287,6 +287,32 @@ script exits non-zero without printing a result:
      heads beside their twins, library calls and bounds, the backward's
      device time by stage and the forward's by launch. `python3
      chip_smoke.py --vit-large` runs the build and this phase alone.
+ 19. the general route above 256 tokens (head_dim 16, 32 and 48, and head
+     dim 64 with D or mlp not a multiple of 64, at S > 256), after phase 18
+     and before phase 13, in a process of its own (`chip_smoke.py
+     --general-long`): (b) first, a trace of each wrapper at ViT-Tiny's
+     width with 6 heads, S = 290, bf16 and fp32 (the route's kernels only,
+     the predicted CUDA launches, the counters, two backward runs equal),
+     and the C entries' launch counts at head_dim 64 with mlp 96 and 736;
+     (a) at D 32 / 64 / 96 (2 heads) and D 192 at 12 / 6 / 4 heads, S =
+     257, 290, 577, 1024 (fp32 also 1,200), ragged B and the main path's B
+     = 128 / 64: the stage and the core alone and the flash pair against
+     their twins and fp32 (bf16) or float64 (fp32), core att = stage att
+     and two runs equal bit for bit; phase 17 (a)'s wrapper checks at S =
+     257 and 290 (merged equal to split bit for bit), at head_dim 64 with
+     mlp 96 and 736 too; the bf16 core at its longest S at head_dim 16 and
+     one query past it refused; (c) ViT-Tiny's width at 6 and 4 heads at
+     384 px (2 x 64 images, 6 of 12 layers): step 1 against "plain" and
+     "xla", fits through "fused", merged, "fused_layer", "pallas" and fp32
+     "fused" (and fp32 "pallas" at 6 heads) with every counter as
+     predicted; `run ft-ucsdoct` at 256 px (6 heads bf16, 4 heads fp32);
+     the tiny model at 256 px: `run ssp-scratch` and `extract` through the
+     CLI, "pallas" fit and extract, extract through "fused" against the
+     plain path; the parity runbook keeping "fused"; (d) each new route's
+     time at D 192, B = 64, S = 577 and B = 128, S = 257 per head_dim
+     beside its twin, SDPA, its bound and the head_dim-64 route's kernel.
+     `python3 chip_smoke.py --general-long` runs the build and this phase
+     alone.
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
@@ -302,7 +328,10 @@ long route, "<route> (fp32, S>256)"; phase 17 one per kernel and head_dim,
 "<kernel> (head_dim 16)" and so on, in fp32 too at head_dim 32, its
 `launches` from (d) at that head_dim, its times from (e) beside
 `head_dim_64_ms`; phase 18 one per kernel at ViT-Large's width, "<kernel>
-(D=1024)", its `launches` from (b)); the last line is {"ok":
+(D=1024)", its `launches` from (b); phase 19 one per new route and head
+dim, "<route> (S>256, hd 16)" and so on (fp32 at head_dim 32), its
+`launches` from (c) at that head_dim and dtype, its times at B = 64, S =
+577 beside `head_dim_64_ms` and in `at_256px`); the last line is {"ok":
 true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
@@ -457,7 +486,9 @@ def card_line() -> str:
 PTXAS_TILES_FIRST = ("attention_bwd_kernel", "flash_fwd_tc", "flash_bwd_rows_tc",
                      "attention_kernel")
 PTXAS_HEAD_DIM_FIRST = ("flash_fwd_kernel", "flash_bwd_rows_kernel", "flash_bwd_cols_kernel",
-                        "flash_bwd_cols_tc")
+                        "flash_bwd_cols_tc", "gl_fwd_kernel", "gl_core_kernel",
+                        "gl_flash_rows_kernel", "gl_flash_cols_kernel", "long_fwd_f32_kernel",
+                        "long_bwd_rows_f32_kernel", "long_bwd_cols_f32_kernel")
 
 
 def ptxas_keep(base: str, ints: list, nt, head_dims: bool) -> bool:
@@ -614,6 +645,15 @@ def sdpa_call_ms(b, s, d, heads, dev) -> tuple:
     return totals["device"] / n, n
 
 
+# Host time inside the profiler's window on each side of the traced calls.
+# The window is kept on the host's clock and each kernel's stamp on the
+# card's, and on the H100 a stamp fell up to 1.6 ms before the host range
+# that launched it (tools/trace_window_probe.py): traced unpadded, 1 of 200
+# short traces lost 6 of its 10 kernels (and one of phase 19 (b)'s, in a
+# whole run, all 10); padded by this much, 200 of 200 kept every kernel.
+TRACE_PAD_S = 0.02
+
+
 def stage_breakdown(fn, what: str = "one backbone forward", top: int = 14,
                     wrappers: tuple = (), rest: str = "", totals: dict = None) -> list:
     """Device time by CUDA kernel name over one call of `fn`, from
@@ -621,7 +661,8 @@ def stage_breakdown(fn, what: str = "one backbone forward", top: int = 14,
     time of the kernels that ran inside that wrapper's `vit2spn::<name>`
     range on the card's timeline (`rest` names what runs outside them);
     says so when the trace holds no device time. Sums every device event of
-    the trace (prof.events()). `totals`, when given, receives the device ms
+    the trace (prof.events()); the calls run TRACE_PAD_S inside the trace's
+    window on each side. `totals`, when given, receives the device ms
     ("device") and each wrapper's ("vit2spn::<name>")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -629,8 +670,10 @@ def stage_breakdown(fn, what: str = "one backbone forward", top: int = 14,
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     by_name, kernels, ranges = {}, [], []
     for ev in prof.events():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
@@ -915,13 +958,13 @@ def mean_rel64(a, ref) -> float:
     return float((a.double() - ref).abs().mean()) / (float(ref.abs().max()) or 1.0)
 
 
-def flash_operands(gen, b, s, heads, dtype, dev):
+def flash_operands(gen, b, s, heads, dtype, dev, dh=64):
     """q, k, v as the per-op block hands them to attention (views of one
-    (B, S, 3D) qkv, read in place) and an output gradient."""
-    d = heads * 64
+    (B, S, 3D) qkv, read in place; head_dim dh) and an output gradient."""
+    d = heads * dh
     qkv = torch.randn(b, s, 3 * d, generator=gen).to(dtype).to(dev)
-    q, k, v = (t.reshape(b, s, heads, 64) for t in qkv.split(d, dim=-1))
-    do = (0.1 * torch.randn(b, s, heads, 64, generator=gen)).to(dtype).to(dev)
+    q, k, v = (t.reshape(b, s, heads, dh) for t in qkv.split(d, dim=-1))
+    do = (0.1 * torch.randn(b, s, heads, dh, generator=gen)).to(dtype).to(dev)
     return q, k, v, do
 
 
@@ -3026,7 +3069,7 @@ def attention_stage_plain(qkv, heads):
     from vit2spn_tpu_torch.ops.attention import mha_plain
 
     b, s, d3 = qkv.shape
-    q, k, v = (t.reshape(b, s, heads, 64) for t in qkv.split(d3 // 3, dim=-1))
+    q, k, v = (t.reshape(b, s, heads, d3 // 3 // heads) for t in qkv.split(d3 // 3, dim=-1))
     return mha_plain(q, k, v).reshape(b, s, d3 // 3)
 
 
@@ -3452,12 +3495,50 @@ def long_training(card) -> dict:
 
 
 def long_ft_run(card, extra=()) -> tuple:
-    """Phase 15 (c) (and 16 (c), `extra` ["compute_dtype=float32"]): `run
-    ft-ucsdoct` at 256 px sources and 256 px views (S = 257) on phase 12's
-    stand-ins (stage_folder_inputs, then `data merge-ucsd`),
-    LONG_FT_OVERRIDES and `extra`, with the counters read around it and held
-    to the protocol's predicted launches (backbone, split halves and the
-    long routes). Returns (launches, the run's microbatch)."""
+    """Phase 15 (c) (and 16 (c), `extra` ["compute_dtype=float32"]): one
+    `long_ft_runs` run. Returns (launches, the run's microbatch)."""
+    return long_ft_runs(card, [extra])[0]
+
+
+_FT_STAGED = []  # [(TemporaryDirectory, root)] once ft_stand_ins has staged them
+
+
+def ft_stand_ins() -> str:
+    """The root of phase 12's stand-ins (stage_folder_inputs, then `data
+    merge-ucsd`) that every `run ft-ucsdoct` of phases 15, 16 and 19 reads:
+    staged once a process in a temporary directory beside this script, or,
+    in phase 19's child (`chip_smoke.py --general-long ROOT`), the root its
+    parent staged."""
+    import contextlib
+    import io
+    import tempfile
+
+    from vit2spn_tpu_torch.cli import main as cli_main
+
+    if sys.argv[1:2] == ["--general-long"] and len(sys.argv) > 2:
+        return sys.argv[2]
+    if not _FT_STAGED:
+        tmp = tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__)))
+        root = os.path.join(tmp.name, "datasets")
+        t0 = time.perf_counter()
+        stage_folder_inputs(root)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["data", "merge-ucsd", os.path.join(root, "ucsdoct")])
+        if rc != 0:
+            raise AssertionError(f"data merge-ucsd: rc {rc}")
+        log(f"[long] the folder stand-ins for `run ft-ucsdoct` staged in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _FT_STAGED.append((tmp, root))
+    return _FT_STAGED[0][1]
+
+
+def long_ft_runs(card, extras) -> list:
+    """`run ft-ucsdoct` at 256 px sources and 256 px views (S = 257) on phase
+    12's stand-ins (ft_stand_ins), one run for each tuple of `extras` with
+    LONG_FT_OVERRIDES and those overrides, the counters read around each and
+    held to the protocol's predicted launches (backbone, split halves and
+    the long routes). Returns [(launches, the run's microbatch)] in
+    `extras`' order."""
     import contextlib
     import io
     import tempfile
@@ -3467,84 +3548,86 @@ def long_ft_run(card, extra=()) -> tuple:
     from vit2spn_tpu_torch.core.presets import get_preset
     from vit2spn_tpu_torch.data.datasets import load_dataset
 
+    results = []
+    root = ft_stand_ins()
+    ucsd = load_dataset("ucsdoct", root=root, allow_synthetic=False)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
-        root = os.path.join(tmp, "datasets")
-        stage_folder_inputs(root)
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli_main(["data", "merge-ucsd", os.path.join(root, "ucsdoct")])
-        if rc != 0:
-            raise AssertionError(f"data merge-ucsd: rc {rc}")
-        over = [*LONG_FT_OVERRIDES, *extra, f"data.root={root}"]
-        cfg = _apply_overrides(get_preset("ft-ucsdoct"), over)
-        if (cfg.vit.seq_len, cfg.data.augment.out_size) != (257, 256):
-            raise AssertionError(f"ft-ucsdoct at 256 px: S {cfg.vit.seq_len}")
-        ucsd = load_dataset("ucsdoct", root=root, allow_synthetic=False)
-        steps, evals, n_cv, n_test = protocol_launches(cfg, ucsd, 1)
-        layers = cfg.vit.num_layers
-        want = {**_wanted(steps, evals, layers), "attention_fwd (S>256)": layers * (steps + evals),
-                "attention_bwd (S>256)": layers * steps}
-        out = os.path.join(tmp, "ft")
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli_main(["run", "ft-ucsdoct", "--epochs", "1", "--output-dir", out,
-                           *[x for o in over for x in ("-o", o)]])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = read_launches()
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            events = [json.loads(line) for line in f]
-    aucs = [e["mauc"] for e in events if e["event"] == "fold_result"]
-    log(f"[long] (c) run ft-ucsdoct at 256 px ({cfg.compute_dtype}, S=257; cut: 2 folds, 1 "
-        f"epoch, random init; subset {n_cv}, test {n_test}) in {secs:.1f} s: rc {rc}, {steps} "
-        f"train steps, {evals} eval batches; fold mAUCs {aucs}; launches "
-        f"{ {k_: n for k_, n in launches.items() if n} } (predicted {want}) on {card}")
-    if rc != 0 or len(aucs) != 2 or not all(np.isfinite(aucs)):
-        raise AssertionError(f"run ft-ucsdoct at 256 px: rc {rc}, fold mAUCs {aucs}")
-    if launches != {k_: want.get(k_, 0) for k_ in launches}:
-        raise AssertionError(f"run ft-ucsdoct at 256 px launched {launches}, predicted {want}")
-    return launches, cfg.batch_size
+        for i, extra in enumerate(extras):
+            over = [*LONG_FT_OVERRIDES, *extra, f"data.root={root}"]
+            cfg = _apply_overrides(get_preset("ft-ucsdoct"), over)
+            if (cfg.vit.seq_len, cfg.data.augment.out_size) != (257, 256):
+                raise AssertionError(f"ft-ucsdoct at 256 px: S {cfg.vit.seq_len}")
+            steps, evals, n_cv, n_test = protocol_launches(cfg, ucsd, 1)
+            layers = cfg.vit.num_layers
+            want = {**_wanted(steps, evals, layers),
+                    "attention_fwd (S>256)": layers * (steps + evals),
+                    "attention_bwd (S>256)": layers * steps}
+            out = os.path.join(tmp, f"ft{i}")
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli_main(["run", "ft-ucsdoct", "--epochs", "1", "--output-dir", out,
+                               *[x for o in over for x in ("-o", o)]])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                events = [json.loads(line) for line in f]
+            aucs = [e["mauc"] for e in events if e["event"] == "fold_result"]
+            log(f"[long] (c) run ft-ucsdoct at 256 px ({cfg.compute_dtype}, S=257, "
+                f"{cfg.vit.num_heads} heads, {layers} layers; cut: 2 folds, 1 epoch, random init; "
+                f"subset {n_cv}, "
+                f"test {n_test}) in {secs:.1f} s: rc {rc}, {steps} train steps, {evals} eval "
+                f"batches; fold mAUCs {aucs}; launches "
+                f"{ {k_: n for k_, n in launches.items() if n} } (predicted {want}) on {card}")
+            if rc != 0 or len(aucs) != 2 or not all(np.isfinite(aucs)):
+                raise AssertionError(f"run ft-ucsdoct at 256 px: rc {rc}, fold mAUCs {aucs}")
+            if launches != {k_: want.get(k_, 0) for k_ in launches}:
+                raise AssertionError(f"run ft-ucsdoct at 256 px launched {launches}, predicted "
+                                     f"{want}")
+            results.append((launches, cfg.batch_size))
+    return results
 
 
-def long_bound_ms(kind, b, s, heads, fp32=False) -> tuple:
+def long_bound_ms(kind, b, s, heads, fp32=False, dh=64) -> tuple:
     """Least time of one long-sequence route over b images x heads at S (bf16,
-    or fp32, head_dim 64): its products (2 S^2 64 each per (image, head):
+    or fp32, head_dim dh): its products (2 S^2 dh each per (image, head):
     the stage and the flash forward 2, the core and the flash backward 6 and
     5 as the function needs them) over the bf16 peak (the fp32 peak outside
     the tensor cores), vs its tensors read and written once (the stage: qkv
     in, att out; the core: qkv and datt in, att and dqkv out; flash as
     flash_bound_ms). Returns (ms, bound by, flops)."""
     if kind in ("flash_fwd", "flash_bwd"):
-        return flash_bound_ms(kind.split("_")[1], b, s, heads, fp32)
+        return flash_bound_ms(kind.split("_")[1], b, s, heads, fp32, dh)
     products, rows = (2, 3 + 1) if kind == "attention_fwd" else (6, 3 + 1 + 1 + 3)
-    d = 64 * heads
-    flops = b * heads * products * 2 * s * s * 64
+    d = dh * heads
+    flops = b * heads * products * 2 * s * s * dh
     nbytes = rows * b * s * d * (4 if fp32 else 2)
     t_ops = flops / (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
-def long_times(fb, fa, card, dev, shapes, dtype=torch.bfloat16) -> dict:
-    """Phase 15 (d) (bf16) and 16 (d) (fp32): each long route by launch at
-    `shapes` ((label, B, S, heads): (b)'s and (c)'s attentions), CUDA
-    events, beside its bound, its plain twin and SDPA in the same dtype
-    (forward, or its autograd backward; a yardstick the port never calls;
-    TF32 off), in bf16 the flash pair also beside SDPA on fp32 copies.
-    Returns {route: {label: (ms, twin ms, library ms, bound ms, bound by,
-    same-fn ms or None)}}."""
+def long_times(fb, fa, card, dev, shapes, dtype=torch.bfloat16, dh=64) -> dict:
+    """Phase 15 (d) (bf16) and 16 (d) (fp32), and 19 (d) at head_dim dh:
+    each long route by launch at `shapes` ((label, B, S, heads): (b)'s and
+    (c)'s attentions), CUDA events, beside its bound, its plain twin and
+    SDPA in the same dtype (forward, or its autograd backward; a yardstick
+    the port never calls; TF32 off), in bf16 the flash pair also beside SDPA
+    on fp32 copies. Returns {route: {label: (ms, twin ms, library ms, bound
+    ms, bound by, same-fn ms or None)}}."""
     fp32 = dtype == torch.float32
     stage, core = ((attention_stage_f32_call, attention_core_f32_call) if fp32
                    else (attention_stage_call, attention_core_call))
     out = {}
     for label, b, s, heads in shapes:
-        d = 64 * heads
+        d = dh * heads
         gen = torch.Generator().manual_seed(SEED + s)
         qkv = torch.randn(b, s, 3 * d, generator=gen).to(dtype).to(dev)
         datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(dtype).to(dev)
-        q, k, v = (t.reshape(b, s, heads, 64) for t in qkv.split(d, dim=-1))
-        do = datt.reshape(b, s, heads, 64)
+        q, k, v = (t.reshape(b, s, heads, dh) for t in qkv.split(d, dim=-1))
+        do = datt.reshape(b, s, heads, dh)
         sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
         sdpa_bwd, _ = library_flash_bwd(q, k, v, do)
         same = {}
@@ -3571,12 +3654,12 @@ def long_times(fb, fa, card, dev, shapes, dtype=torch.bfloat16) -> dict:
             p_ms = time_ms(twin, iters=3, warmup=1)
             with torch.no_grad() if route.endswith("fwd") else torch.enable_grad():
                 l_ms = time_ms(library, iters=10, warmup=2)
-            b_ms, b_by, flops = long_bound_ms(route, b, s, heads, fp32)
+            b_ms, b_by, flops = long_bound_ms(route, b, s, heads, fp32, dh)
             out.setdefault(route, {})[label] = (k_ms, p_ms, l_ms, b_ms, b_by, same.get(route))
             same_txt = (f", SDPA{' backward' if route.endswith('bwd') else ''} on fp32 copies "
                         f"(same fn) {same[route]:.4f} ms" if route in same else "")
             log(f"[time] {route} ({'fp32, ' if fp32 else ''}S>256) {label} B={b} S={s} "
-                f"heads={heads}: kernel {k_ms:.4f} ms per launch, plain twin {p_ms:.3f} ms, "
+                f"heads={heads} head_dim {dh}: kernel {k_ms:.4f} ms per launch, plain twin {p_ms:.3f} ms, "
                 f"{sdpa}{' backward' if route.endswith('bwd') else ''} {l_ms:.4f} ms{same_txt}, "
                 f"bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP), kernel at "
                 f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the "
@@ -4039,24 +4122,26 @@ def hd_flat(out, names):
     return [out[0], *[out[1][n] for n in names]]
 
 
-def hd_kernels(fb, fa, dev) -> dict:
-    """Phase 17 (a). Returns {(kernel, head_dim, dtype): largest absolute
-    difference from the twin}."""
+def hd_kernels(fb, fa, dev, geoms=HD_GEOMS, shapes=HD_SHAPES, main_shapes=HD_MAIN_SHAPES,
+               seed=SEED + 17) -> dict:
+    """Phase 17 (a) (and 19 (a) with phase 19's geometries and shapes).
+    Returns {(kernel, head_dim, dtype): largest absolute difference from the
+    twin}."""
     eps, errs = 1e-12, {}
 
     def note(name, dh, dt, e):
         key = (name, dh, dt)
         errs[key] = max(errs.get(key, 0.0), e)
 
-    for label, d, heads, mlp in HD_GEOMS:
+    for label, d, heads, mlp in geoms:
         dh = d // heads
-        gen = torch.Generator().manual_seed(SEED + 17 + d + heads)
+        gen = torch.Generator().manual_seed(seed + d + heads)
         wt = random_backbone(gen, 2, d, mlp, dev)
         wt32 = tuple(t.float() for t in wt)
         w = layer_weights(fb.WEIGHT_NAMES, wt)
         w32 = {n: t.float() for n, t in w.items()}
         w0 = tuple(t[0] for t in wt)
-        for b, s in HD_SHAPES + HD_MAIN_SHAPES.get(d, ()):
+        for b, s in shapes + main_shapes.get((d, heads), main_shapes.get(d, ())):
             fast = s % 2 == 1
             tag = f"{label} heads={heads} mlp={mlp} B={b} S={s} fast_gelu={fast}"
             x, x2, g, q, k, v, do = hd_operands(gen, b, s, d, heads, torch.bfloat16, dev)
@@ -4160,15 +4245,10 @@ def kernel_base(name: str) -> str:
     return m.group(1) if m else name
 
 
-def hd_launch_counts(fb, fa) -> None:
-    """Phase 17 (b), (c): each route's CUDA launches at every HD_GEOMS
-    geometry and dtype as the C entries count them against
-    hd_predicted_launches, then hd_trace in a fresh process (`python3
-    chip_smoke.py --hd-trace`): late in the whole script a trace in this
-    process drops device kernels (PR 20's full runs: 27 of 70 backbone_fwd
-    kernels, 0 of 10 flash_fwd), while the first traces of a process hold
-    them all."""
-    for label, d, heads, mlp in HD_GEOMS:
+def hd_cuda_counts(fb, fa, geoms) -> None:
+    """Each route's CUDA launches at every geometry of `geoms` and dtype as
+    the C entries count them, against hd_predicted_launches."""
+    for label, d, heads, mlp in geoms:
         got, want = {}, {}
         for fp32 in (0, 1):
             for name, _, _ in HD_KERNELS:
@@ -4184,6 +4264,16 @@ def hd_launch_counts(fb, fa) -> None:
             f"per layer) {got}")
         if got != want:
             raise AssertionError(f"{label}: CUDA launches {got}, predicted {want}")
+
+
+def hd_launch_counts(fb, fa) -> None:
+    """Phase 17 (b), (c): each route's CUDA launches at every HD_GEOMS
+    geometry and dtype against hd_predicted_launches (hd_cuda_counts), then
+    hd_trace in a fresh process (`python3 chip_smoke.py --hd-trace`): late
+    in the whole script a trace in this process drops device kernels (in
+    whole runs on the H100: 27 of 70 backbone_fwd kernels, 0 of 10
+    flash_fwd), while the first traces of a process hold them all."""
+    hd_cuda_counts(fb, fa, HD_GEOMS)
     gc.collect()
     torch.cuda.empty_cache()
     rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--hd-trace"],
@@ -4893,6 +4983,545 @@ def vit_large_path(fb, fa, card, dev) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the general route above 256 tokens. At head_dim 16, 32 and 48
+# the bf16 attention above 256 keys runs csrc/general_long.cuh (the forward
+# stage and the flash forward on gl_fwd_kernel, the fused backward core on
+# gl_core_kernel in one launch, the flash backward on gl_flash_rows_kernel
+# and gl_flash_cols_kernel) and the fp32 attention csrc/flash_f32.cuh's
+# multi-pass route on the head_dim; at head_dim 64 with D or mlp not a
+# multiple of 64 the general route's layer sequences call phases 15-16's
+# head_dim-64 long routes. In a process of its own (`chip_smoke.py
+# --general-long`), after phase 18 and before phase 13, (b)'s trace first,
+# while the process's traces hold every kernel:
+# (a) at GL_GEOMS (phase 17's: head_dim 16 / 32 / 48 at D 32 / 64 / 96 with
+# 2 heads and D 192 with 12 / 6 / 4 heads), at GL_KERNEL_SHAPES (ragged B,
+# S = 257, 290, 577), at D 192 also GL_LONGEST_SHAPES (S = 1024; fp32 also
+# 1,200), and the main path's B and S (GL_MAIN_SHAPES), bf16 and fp32: the stage and the core alone (their C
+# entries) and the flash pair against their twins and fp32 (bf16: phase
+# 15's tolerances) or float64 (fp32: phase 16's), the core's att equal to
+# the stage's, two core runs and two flash backward runs equal bit for bit;
+# through the wrappers, at GL_LAYER_SHAPES and the main path's shapes, at
+# GL_GEOMS and the head_dim-64 general geometries (GL_HD64_GEOMS), phase 17
+# (a)'s checks (hd_kernels: the 2-layer fused_backbone with and without its
+# stacks, layer_fwd, mlp_bwd, attn_bwd, merged_bwd equal to the split pair
+# bit for bit, the flash pair, in bf16 and fp32, each counter raised by one
+# a call); the bf16 core at its longest S (fb.LONG_CORE_MAX_SEQ, head_dim
+# 16) against its twin and one query past it refused by the C entry and by
+# the wrappers' check, before any launch.
+# (b) a torch.profiler trace of STAGE_CALLS calls of each wrapper at
+# ViT-Tiny's width with 6 heads, B = 2, S = 290, bf16 and fp32: the route's
+# kernels (GL_ROUTE_KERNELS) and no other, STAGE_CALLS times
+# hd_predicted_launches (the launch counts do not change above 256 keys);
+# one call of each raises its counter by one and its long route's count by
+# its launches of the route; two runs of each backward equal bit for bit;
+# the C entries' counts at GL_HD64_GEOMS against hd_predicted_launches
+# (hd_cuda_counts: merged runs each half on the route the split pair takes).
+# (c) the main path: ViT-Tiny's width (D 192, mlp 768) at 6 and 4 heads at
+# 384 px (`ssp-scratch -o vit.num_heads=6|4 -o vit.image_size=384 -o
+# data.augment.out_size=384`, cut as phase 15 (b): 2 x 64 images a step,
+# GL_TRAIN_LAYERS of the 12 layers): step 1 of "fused" against "plain" and
+# "xla" (hd_step_check, as phase 17 (d) holds ViT-Tiny's width; in fp32 too
+# at 6 heads), then on one trainer a head count `fit` through "fused",
+# merged, "fused_layer", "pallas" and fp32 "fused" (and fp32 "pallas" at 6
+# heads) with every counter as predicted; `run ft-ucsdoct` at
+# 256 px (phase 15 (c)'s cut) at 6 heads in bf16 and at 4 heads in fp32; the
+# tiny model (D 32, 2 heads, mlp 64) at 256 px: `run ssp-scratch` and
+# `extract` through the CLI ("fused"), `fit` and extract through "pallas",
+# extract through "fused" and "pallas" against the plain path; the parity
+# runbook's path ("fused") at each of these geometries.
+# (d) each new route's time (CUDA events) at D 192, B = 64, S = 577 and B =
+# 128, S = 257, head_dim 16 / 32 / 48 (12 / 6 / 4 heads; fp32 at head_dim
+# 32), beside its twin, SDPA (bf16, or fp32 with TF32 off; the flash pair
+# also SDPA on fp32 copies), its bound and the head_dim-64 long route's
+# kernel at the same width (3 heads). `python3 chip_smoke.py
+# --general-long` runs the build and this phase alone.
+GL_GEOMS = HD_GEOMS
+GL_HD64_GEOMS = (("hd64 mlp96 D=64", 64, 1, 96), ("hd64 mlp736 D=192", 192, 3, 736))
+GL_KERNEL_SHAPES = ((3, 257), (2, 290), (2, 577))  # (B, S)
+# at D 192 only (each head_dim once more, at the longest S): bf16 and fp32,
+# and fp32 alone
+GL_LONGEST_SHAPES, GL_F32_SHAPES = ((1, 1024),), ((1, 1200),)
+GL_LAYER_SHAPES = ((3, 257), (2, 290))
+# the main path's (B, S) by (D, heads): the tiny model's microbatch of 128
+# and extract's batch of 256 at 256 px; ViT-Tiny's width at 6 and 4 heads,
+# its microbatch of 64 at 384 px ((c)'s steps) and of 128 at 256 px (`run
+# ft-ucsdoct`)
+GL_MAIN_SHAPES = {(32, 2): ((128, 257), (256, 257)), (192, 6): ((128, 257), (64, 577)),
+                  (192, 4): ((64, 577), (128, 257))}
+GL_TRAIN_LAYERS = 6
+GL_TINY_256 = tuple(o for o in HD_TINY if not o.startswith(("vit.image_size",
+                                                            "data.augment.out_size"))) + (
+    "vit.image_size=256", "data.augment.out_size=256")
+GL_TIME_SHAPES = (("384 px", LONG_MICRO, 577), ("256 px", TRAIN_BATCH, 257))  # at D 192
+GL_TIME_HEADS = ((16, 12), (32, 6), (48, 4))  # (head_dim, heads) at D 192
+GL_CHILD_TIMEOUT = 600  # s
+GL_NEW_KERNELS = ("gl_fwd_kernel", "gl_core_kernel", "gl_flash_rows_kernel",
+                  "gl_flash_cols_kernel", "long_fwd_f32_kernel", "long_bwd_rows_f32_kernel",
+                  "long_bwd_cols_f32_kernel")
+GL_F32_LONG = {"long_fwd_f32_kernel"}
+GL_F32_LONG_BWD = {"long_bwd_rows_f32_kernel", "long_bwd_cols_f32_kernel"}
+# The kernels each wrapper's route runs above 256 keys at ViT-Tiny's width
+# with 6 heads (head_dim 32), by (wrapper, fp32)
+GL_ROUTE_KERNELS = {
+    ("backbone_fwd", 0): {"layernorm_kernel", "gemm_kernel", "gl_fwd_kernel"},
+    ("backbone_fwd", 1): {"layernorm_kernel", "gemm_f32_kernel"} | GL_F32_LONG,
+    ("mlp_bwd", 0): HD_ROUTE_KERNELS[("mlp_bwd", 0)],
+    ("mlp_bwd", 1): HD_ROUTE_KERNELS[("mlp_bwd", 1)],
+    ("attn_bwd", 0): HD_SEQ_BWD | {"gemm_kernel", "gl_core_kernel"},
+    ("attn_bwd", 1): HD_SEQ_BWD | {"gemm_f32_kernel"} | GL_F32_LONG | GL_F32_LONG_BWD,
+    ("flash_fwd", 0): {"gl_fwd_kernel"},
+    ("flash_fwd", 1): GL_F32_LONG,
+    ("flash_bwd", 0): {"gl_flash_rows_kernel", "gl_flash_cols_kernel"},
+    ("flash_bwd", 1): GL_F32_LONG_BWD,
+}
+for _fp32 in (0, 1):
+    GL_ROUTE_KERNELS[("layer_fwd", _fp32)] = GL_ROUTE_KERNELS[("backbone_fwd", _fp32)]
+    GL_ROUTE_KERNELS[("merged_bwd", _fp32)] = (GL_ROUTE_KERNELS[("mlp_bwd", _fp32)]
+                                               | GL_ROUTE_KERNELS[("attn_bwd", _fp32)])
+# the long-sequence route each wrapper counts, and how many a call
+GL_WRAPPER_ROUTES = {"backbone_fwd": "attention_fwd", "layer_fwd": "attention_fwd",
+                     "attn_bwd": "attention_bwd", "merged_bwd": "attention_bwd",
+                     "flash_fwd": "flash_fwd", "flash_bwd": "flash_bwd"}
+
+
+def gl_trace(fb, fa, dev) -> None:
+    """Phase 19 (b): at ViT-Tiny's width with 6 heads, B = 2, S = 290, each
+    wrapper in bf16 and fp32: one call raises its own counter by one and its
+    long route's count by one, nothing else; a trace of STAGE_CALLS calls
+    holds the route's kernels (GL_ROUTE_KERNELS) and no other, STAGE_CALLS
+    times its predicted CUDA launches; two runs of each backward equal bit
+    for bit."""
+    d, heads, mlp, eps, b, s = HD_TIME_D, 6, HD_TIME_MLP, 1e-12, 2, 290
+    gen = torch.Generator().manual_seed(SEED + 190)
+    for dtype in (torch.bfloat16, torch.float32):
+        wt = tuple(t if t.dtype == torch.float32 else t.to(dtype)
+                   for t in random_backbone(gen, 1, d, mlp, dev))
+        w = layer_weights(fb.WEIGHT_NAMES, wt)
+        x, x2, g, q, k, v, do = hd_operands(gen, b, s, d, heads, dtype, dev)
+        fp32 = int(dtype == torch.float32)
+        calls = {"backbone_fwd": lambda: fb.fused_backbone(x, wt, heads, eps, True),
+                 "layer_fwd": lambda: fb.layer_fwd(x, tuple(t[0] for t in wt), heads, eps, True),
+                 "mlp_bwd": lambda: fb.mlp_bwd(x2, g, w, eps, True),
+                 "attn_bwd": lambda: fb.attn_bwd(x, g, w, heads, eps),
+                 "merged_bwd": lambda: fb.merged_bwd(x, x2, g, w, heads, eps, True),
+                 "flash_fwd": lambda: fa.flash_fwd(q, k, v),
+                 "flash_bwd": lambda: fa.flash_bwd(q, k, v, do)}
+        for name, fn in calls.items():
+            reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            counts = {k_: n for k_, n in read_launches().items() if n}
+            want = {name: 1}
+            if name in GL_WRAPPER_ROUTES:
+                want[f"{GL_WRAPPER_ROUTES[name]} (S>256)"] = 1
+            n_want = STAGE_CALLS * hd_predicted_launches(name, d, heads, mlp, fp32)
+            totals = {}
+            stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)], totals=totals)
+            traced = sum(n for _, n in totals.get("kernels", {}).values())
+            names = {kernel_base(k_) for k_ in totals.get("kernels", {})}
+            route = GL_ROUTE_KERNELS[(name, fp32)]
+            same = True
+            if name.endswith("bwd"):
+                runs = [tensors_of(fn()) for _ in range(2)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(a_, b_) for a_, b_ in zip(*runs))
+                del runs
+            log(f"[gl-launches] {name} {str(dtype)[6:]} D={d} heads={heads} B={b} S={s}: "
+                f"counters {counts} (want {want}); {traced} device kernels traced over "
+                f"{STAGE_CALLS} calls (predicted {n_want}), of {sorted(names)}; two runs "
+                f"bitwise equal {same}")
+            if counts != want:
+                raise AssertionError(f"one {name} call at S = {s} counted {counts}, not {want}")
+            if names != route or traced != n_want:
+                raise AssertionError(f"{name} at head_dim 32, S = {s} ran {sorted(names)} "
+                                     f"({traced} launches in {STAGE_CALLS} calls, predicted "
+                                     f"{n_want}), its route {sorted(route)}")
+            if not same:
+                raise AssertionError(f"{name} at head_dim 32, S = {s} is not deterministic")
+        del wt, w, x, x2, g, q, k, v, do
+        torch.cuda.empty_cache()
+
+
+def gl_kernels(fb, fa, dev) -> dict:
+    """Phase 19 (a), the kernels alone. Returns {(route, head_dim, dtype):
+    largest absolute difference from the twin}."""
+    errs = {}
+    names = ("att", "dq", "dk", "dv")
+
+    def note(route, dh, dt, e):
+        errs[(route, dh, dt)] = max(errs.get((route, dh, dt), 0.0), e)
+
+    for label, d, heads, _ in GL_GEOMS:
+        dh, gen = d // heads, torch.Generator().manual_seed(SEED + 19 + d + heads)
+        thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
+        wide = d == HD_TIME_D
+        shapes = [(b, s, dt) for b, s in GL_KERNEL_SHAPES + GL_MAIN_SHAPES.get((d, heads), ())
+                  + (GL_LONGEST_SHAPES if wide else ()) for dt in (torch.bfloat16, torch.float32)]
+        for b, s, dtype in shapes + [(b, s, torch.float32) for b, s in GL_F32_SHAPES if wide]:
+            dt = "fp32" if dtype == torch.float32 else "bf16"
+            tag = f"{label} heads={heads} S={s} B={b} {dt}"
+            qkv = torch.randn(b, s, 3 * d, generator=gen).to(dtype).to(dev)
+            datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(dtype).to(dev)
+            if dt == "bf16":
+                att_f = attention_stage_call(fb, qkv, heads)
+                att_b, dqkv = attention_core_call(fb, qkv, datt, heads)
+                torch.cuda.synchronize()
+                note("attention_fwd", dh, dt, check_rel(
+                    f"stage {tag}", ("att",), (att_f,), (attention_stage_plain(qkv, heads),),
+                    (attention_stage_plain(qkv.float(), heads),), "gl"))
+                note("attention_bwd", dh, dt, check_rel(
+                    f"core {tag}", names, thirds((att_b, dqkv)),
+                    thirds(fb._attention_bwd(qkv, datt, heads)),
+                    thirds(fb._attention_bwd(qkv.float(), datt.float(), heads)), "gl"))
+                again = attention_core_call(fb, qkv, datt, heads)
+                torch.cuda.synchronize()
+                same_att = torch.equal(att_b, att_f)
+                same = torch.equal(again[0], att_b) and torch.equal(again[1], dqkv)
+                log(f"[gl-bits] {tag}: core att = stage att bit for bit {same_att}; two core "
+                    f"runs equal {same}")
+                if not (same_att and same):
+                    raise AssertionError(f"general long attention bits ({tag}): att "
+                                         f"{same_att}, runs {same}")
+                del att_f, att_b, dqkv, again
+            else:
+                e32 = {"attention_fwd": 0.0, "attention_bwd": 0.0}
+                check_fp32_core_pair(fb, tag, qkv, datt, heads, e32)
+                for route, e in e32.items():
+                    note(route, dh, dt, e)
+            del qkv, datt
+            q, k, v, do = flash_operands(gen, b, s, heads, dtype, dev, dh)
+            for route, e in check_flash(f"gl {tag}", q, k, v, do).items():
+                note(route, dh, dt, e)
+            runs = [fa.flash_bwd(q, k, v, do) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(x_, y_) for x_, y_ in zip(*runs)):
+                raise AssertionError(f"the flash backward is not deterministic ({tag})")
+            del q, k, v, do, runs
+            torch.cuda.empty_cache()
+    return errs
+
+
+def gl_limit(fb, dev) -> None:
+    """Phase 19 (a): the bf16 core at head_dim 16 (D 32, 2 heads) at its
+    longest S against its twin; one query past it refused by the C entry
+    (no launch) and by the wrappers' check."""
+    lib = fb._load("attn_bwd")
+    limit, d, heads = lib.vit2spn_attention_core_max_seq(), 32, 2
+    if limit != fb.LONG_CORE_MAX_SEQ:
+        raise AssertionError(f"the core's S limit is {limit}, ops/fused_block.py says "
+                             f"{fb.LONG_CORE_MAX_SEQ}")
+    gen = torch.Generator().manual_seed(SEED + 191)
+    qkv = (0.5 * torch.randn(1, limit, 3 * d, generator=gen)).to(torch.bfloat16).to(dev)
+    datt = (0.1 * torch.randn(1, limit, d, generator=gen)).to(torch.bfloat16).to(dev)
+    t0 = time.perf_counter()
+    got = attention_core_call(fb, qkv, datt, heads)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
+    check_rel(f"core at its longest S={limit}, head_dim 16 ({secs:.2f} s)",
+              ("att", "dq", "dk", "dv"), thirds(got),
+              thirds(fb._attention_bwd(qkv, datt, heads)),
+              thirds(fb._attention_bwd(qkv.float(), datt.float(), heads)), "gl")
+    del qkv, datt, got
+    torch.cuda.empty_cache()
+    over = torch.zeros(1, limit + 1, 3 * d, dtype=torch.bfloat16, device=dev)
+    x = torch.zeros(1, limit + 1, d, dtype=torch.bfloat16, device=dev)
+    rc = lib.vit2spn_attention_core(over.data_ptr(), x.data_ptr(), x.data_ptr(), over.data_ptr(),
+                                    1, limit + 1, heads, d, fb._stream(dev))
+    try:
+        fb._check_layer_inputs(x, x, {}, fb.ATTN_NAMES, heads, {})
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    log(f"[gl-limit] head_dim 16: at S={limit + 1} the C entry returns {rc} without a launch "
+        f"and the wrappers' check raises: {raised}")
+    if rc == 0 or f"S <= {limit}" not in raised:
+        raise AssertionError(f"S = {limit + 1} at head_dim 16 was not refused (rc {rc}, check "
+                             f"{raised!r})")
+    del over, x
+    torch.cuda.empty_cache()
+
+
+def gl_long_launches(launches) -> dict:
+    return {k_: n for k_, n in launches.items() if k_.endswith("(S>256)") and n}
+
+
+def gl_main_path(card) -> dict:
+    """Phase 19 (c). Returns {(head_dim, compute dtype): {"<route> (S>256)":
+    launches}} over the main path's runs."""
+    import tempfile
+
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.evals.parity import runbook_attn_impl
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    by = {}
+
+    def add(dh, dtype, launches):
+        for k_, n in gl_long_launches(launches).items():
+            by.setdefault((dh, dtype), {})
+            by[(dh, dtype)][k_] = by[(dh, dtype)].get(k_, 0) + n
+
+    def runbook(cfg, what):
+        path = runbook_attn_impl(cfg.vit, "cuda", cfg.compute_dtype)
+        log(f"[gl-main] the parity runbook's path at {what} (S={cfg.vit.seq_len}, head_dim "
+            f"{cfg.vit.head_dim}, {cfg.compute_dtype}): {path}")
+        if path != "fused":
+            raise AssertionError(f"the parity runbook takes {path} at {what}")
+
+    # ViT-Tiny's width at 6 and 4 heads, 384 px
+    for heads in (6, 4):
+        t0 = time.perf_counter()
+        cfg = _apply_overrides(get_preset("ssp-scratch"), [
+            f"vit.num_heads={heads}", "vit.image_size=384", "data.augment.out_size=384",
+            f"batch_size={LONG_MICRO}", f"accumulation_steps={LONG_ACCUM}",
+            f"vit.num_layers={GL_TRAIN_LAYERS}"])
+        vit = cfg.vit
+        dh = vit.head_dim
+        geom = (vit.image_size, vit.hidden_size, vit.mlp_dim, vit.num_layers, vit.seq_len)
+        if geom != (384, 192, 768, GL_TRAIN_LAYERS, 577) or dh != 192 // heads:
+            raise AssertionError(f"the ViT-Tiny 384 px overrides gave {geom}, head_dim {dh}")
+        label = f"ViT-Tiny width, {heads} heads (head_dim {dh}), 384 px"
+        eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, vit.num_layers
+        tds = synthetic_dataset(split_sizes={"train": 2 * eff}, image_size=28,
+                                seed=SEED + 19 + heads).split("train")
+        hd_step_check(cfg, tds.images[:eff], label, loss=False, fp32=heads == 6)
+        tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), attn_impl="fused", device="cuda")
+        fwd = {KERNEL_NAME: 2 * 2 * a, "attention_fwd (S>256)": 2 * 2 * a * layers}
+        split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers,
+                 "attention_bwd (S>256)": 2 * a * layers}
+        merged = {"merged_bwd": 2 * a * layers, "attention_bwd (S>256)": 2 * a * layers}
+        layer = {"layer_fwd": 2 * 2 * a * layers, "attention_fwd (S>256)": 2 * 2 * a * layers,
+                 **split}
+        flash = {"flash_fwd": 2 * 2 * a * layers, "flash_bwd": 2 * a * layers,
+                 "flash_fwd (S>256)": 2 * 2 * a * layers, "flash_bwd (S>256)": 2 * a * layers}
+        cfg32 = replace_cfg(cfg, compute_dtype="float32")
+        one = tds.subset(np.arange(eff))
+        runs = [(cfg, "fused", False, tds, {**fwd, **split}),
+                (cfg, "fused", True, one, {**fwd, **merged}),
+                (cfg, "fused_layer", False, one, layer),
+                (cfg, "pallas", False, one, flash),
+                (cfg32, "fused", False, one, {**fwd, **split})]
+        if heads == 6:
+            runs.append((cfg32, "pallas", False, one, flash))
+        for c, impl, is_merged, images, per_step in runs:
+            use_path(tr, c, impl)
+            _, n, _ = fit_path(c, images, impl, is_merged, per_step, trainer=tr)
+            add(dh, c.compute_dtype, n)
+            os.environ["VIT2SPN_MERGED_BWD"] = "0"
+        runbook(cfg, label)
+        runbook(cfg32, label)
+        log(f"[gl-main] {label}: step 1 against plain and xla, fits of fused, merged, "
+            f"fused_layer, pallas, fp32 fused{' and fp32 pallas' if heads == 6 else ''} in "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # `run ft-ucsdoct` at 256 px, GL_TRAIN_LAYERS deep: 6 heads in bf16, 4
+    # heads in fp32
+    t0 = time.perf_counter()
+    depth = f"vit.num_layers={GL_TRAIN_LAYERS}"
+    ft_runs = (("vit.num_heads=6", depth), ("vit.num_heads=4", "compute_dtype=float32", depth))
+    for ft_over, (launches, _) in zip(ft_runs, long_ft_runs(card, ft_runs)):
+        cfg = _apply_overrides(get_preset("ft-ucsdoct"), [*LONG_FT_OVERRIDES, *ft_over])
+        add(cfg.vit.head_dim, cfg.compute_dtype, launches)
+        runbook(cfg, f"ft-ucsdoct at 256 px, {cfg.vit.num_heads} heads")
+    log(f"[gl-main] run ft-ucsdoct at 256 px, {GL_TRAIN_LAYERS} layers, 6 heads bf16 and 4 "
+        f"heads fp32 in {time.perf_counter() - t0:.1f} s")
+
+    # the tiny model at 256 px: train and serve through "fused" (the CLI) and
+    # "pallas"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        stage_octmnist(tmp, HD_TINY_SPLITS, SEED + 192)
+        over = [*GL_TINY_256, f"data.root={tmp}", "batch_size=128", "accumulation_steps=2"]
+        common = [x for o in over for x in ("-o", o)]
+        cfg = _apply_overrides(get_preset("ssp-scratch"), over)
+        if (cfg.vit.seq_len, cfg.vit.head_dim, cfg.vit.hidden_size) != (257, 16, 32):
+            raise AssertionError(f"the tiny model at 256 px: S {cfg.vit.seq_len}, head_dim "
+                                 f"{cfg.vit.head_dim}")
+        runbook(cfg, "the tiny model at 256 px")
+        a, layers = cfg.accumulation_steps, cfg.vit.num_layers
+        steps = HD_TINY_SPLITS["train"] // cfg.effective_batch
+        want = {KERNEL_NAME: steps * 2 * 2 * a, "mlp_bwd": steps * 2 * a * layers,
+                "attn_bwd": steps * 2 * a * layers,
+                "attention_fwd (S>256)": steps * 2 * 2 * a * layers,
+                "attention_bwd (S>256)": steps * 2 * a * layers}
+        out = os.path.join(tmp, "ssp")
+        add(16, "bfloat16", hd_cli_run(
+            f"run ssp-scratch (tiny model at 256 px, S=257, 1 epoch of "
+            f"{HD_TINY_SPLITS['train']} images, {steps} steps)",
+            ["run", "ssp-scratch", "--epochs", "1", "--output-dir", out, *common], want))
+        feats_path = os.path.join(tmp, "feats.npz")
+        ckpt_path = os.path.join(out, "checkpoint.npz")
+        got = hd_cli_run("extract ssp-scratch (tiny model at 256 px, its checkpoint)",
+                         ["extract", "ssp-scratch", "--out", feats_path, *common,
+                          *(["--checkpoint", ckpt_path] if os.path.exists(ckpt_path) else [])],
+                         None)
+        add(16, "bfloat16", got)
+        with np.load(feats_path) as z:
+            arrays = [z[k_] for k_ in z.files if z[k_].dtype.kind == "f"]
+        ran = {k_ for k_, n in got.items() if n}
+        if ran != {KERNEL_NAME, "attention_fwd (S>256)"} or not arrays or not all(
+                np.isfinite(t).all() for t in arrays):
+            raise AssertionError(f"extract of the tiny model at 256 px: launches {got}")
+        eff = cfg.effective_batch
+        tds = synthetic_dataset(split_sizes={"train": eff}, image_size=28,
+                                seed=SEED + 193).split("train")
+        per_step = {"flash_fwd": 2 * 2 * a * layers, "flash_bwd": 2 * a * layers,
+                    "flash_fwd (S>256)": 2 * 2 * a * layers,
+                    "flash_bwd (S>256)": 2 * a * layers}
+        trainer, n, _ = fit_path(cfg, tds, "pallas", False, per_step)
+        add(16, "bfloat16", n)
+        ds = synthetic_dataset(split_sizes={"all": BATCH}, image_size=28, seed=SEED)
+        trainer.attn_impl = "plain"
+        plain, _ = trainer.extract_features(ds, batch_size=BATCH)
+        extract_path(trainer, ds, "pallas", plain, {"flash_fwd", "flash_fwd (S>256)"},
+                     what="pallas (tiny model at 256 px)")
+        extract_path(trainer, ds, "fused", plain, {KERNEL_NAME, "attention_fwd (S>256)"},
+                     what="fused (tiny model at 256 px)")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[gl-main] the tiny model at 256 px through the CLI and \"pallas\" in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for key, launches in sorted(by.items()):
+        log(f"[gl-main] head_dim {key[0]} {key[1]}: long-route launches on the main path "
+            f"{launches}")
+    return by
+
+
+def gl_hd64_ms(fb, fa, dev) -> dict:
+    """Phase 19 (d)'s head_dim-64 yardstick: each long route's kernel at D
+    192 with 3 heads at GL_TIME_SHAPES (the routes of phases 15 and 16).
+    Returns {(route, label, dtype): ms}."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        stage, core = ((attention_stage_f32_call, attention_core_f32_call)
+                       if dtype == torch.float32 else (attention_stage_call, attention_core_call))
+        for label, b, s in GL_TIME_SHAPES:
+            gen = torch.Generator().manual_seed(SEED + 194 + s)
+            qkv = torch.randn(b, s, 3 * HD_TIME_D, generator=gen).to(dtype).to(dev)
+            datt = (0.1 * torch.randn(b, s, HD_TIME_D, generator=gen)).to(dtype).to(dev)
+            q, k, v = (t.reshape(b, s, 3, 64) for t in qkv.split(HD_TIME_D, dim=-1))
+            do = datt.reshape(b, s, 3, 64)
+            for route, fn in (("attention_fwd", lambda: stage(fb, qkv, 3)),
+                              ("attention_bwd", lambda: core(fb, qkv, datt, 3)),
+                              ("flash_fwd", lambda: fa.flash_fwd(q, k, v)),
+                              ("flash_bwd", lambda: fa.flash_bwd(q, k, v, do))):
+                out[(route, label, dtype)] = time_ms(fn, iters=10, warmup=2)
+            del qkv, datt, q, k, v, do
+    return out
+
+
+def gl_times(fb, fa, card, dev) -> dict:
+    """Phase 19 (d). Returns {(head_dim, dtype): long_times' result}."""
+    out = {}
+    for dh, heads in GL_TIME_HEADS:
+        for dtype in ((torch.bfloat16, torch.float32) if dh == 32 else (torch.bfloat16,)):
+            out[(dh, dtype)] = long_times(fb, fa, card, dev,
+                                          [(label, b, s, heads) for label, b, s in GL_TIME_SHAPES],
+                                          dtype, dh)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def gl_ptxas(libs) -> None:
+    """The registers and spill stores of the new kernels' instantiations."""
+    for name, lib in libs.items():
+        for line in ptxas_report(open(f"{lib}.log").read(), None, head_dims=True):
+            if line.split("<")[0] in GL_NEW_KERNELS:
+                log(f"[gl-build] {name}: {line}")
+
+
+def general_long_path(fb, fa, card, dev, libs=None) -> list:
+    """Phase 19: (b)'s trace, (a) the kernels against their twins and the
+    wrappers, (c) the main path, (d) the times. Returns one `kernels` entry
+    per new route and head_dim (bf16 at 16, 32, 48; fp32 at 32), `launches`
+    from (c) at that head_dim and dtype; a route of the path that (c) never
+    launched fails the phase."""
+    t_phase = time.perf_counter()
+    if libs:
+        gl_ptxas(libs)
+    gl_trace(fb, fa, dev)
+    hd_cuda_counts(fb, fa, GL_HD64_GEOMS)
+    log(f"[gl] (b) in {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    errs = gl_kernels(fb, fa, dev)
+    log(f"[gl] (a) the kernels alone in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    layer_errs = hd_kernels(fb, fa, dev, GL_GEOMS + GL_HD64_GEOMS, GL_LAYER_SHAPES,
+                            GL_MAIN_SHAPES, seed=SEED + 195)
+    gl_limit(fb, dev)
+    log(f"[gl] (a) the wrappers and the limit in {time.perf_counter() - t1:.1f} s: largest "
+        f"absolute differences from the twins "
+        f"{ {f'{k_} hd{dh} {dt}': round(e, 6) for (k_, dh, dt), e in errs.items()} }, through "
+        f"the wrappers "
+        f"{ {f'{k_} hd{dh} {dt}': round(e, 6) for (k_, dh, dt), e in layer_errs.items()} }")
+    t0 = time.perf_counter()
+    launches = gl_main_path(card)
+    log(f"[gl] (c) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    times = gl_times(fb, fa, card, dev)
+    hd64 = gl_hd64_ms(fb, fa, dev)
+    log(f"[gl] (d) in {time.perf_counter() - t0:.1f} s; phase 19 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    entries = []
+    for (dh, dtype), tm in times.items():
+        fp32 = dtype == torch.float32
+        dt, heads = ("fp32" if fp32 else "bf16"), dict(GL_TIME_HEADS)[dh]
+        for route, replaces in LONG_ROUTES:
+            k_ms, p_ms, l_ms, b_ms, b_by, same_ms = tm[route]["384 px"]
+            entries.append({
+                "name": f"{route} ({'fp32, ' if fp32 else ''}S>256, hd {dh})", "route": "cuda",
+                "source": ("vit2spn_tpu_torch/csrc/flash_f32.cuh" if fp32
+                           else "vit2spn_tpu_torch/csrc/general_long.cuh"),
+                "replaces": replaces,
+                "launches": launches.get((dh, str(dtype)[6:]), {}).get(f"{route} (S>256)", 0),
+                "max_abs_err": errs[(route, dh, dt)], "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+                "dtype": str(dtype)[6:], "shape": f"B={LONG_MICRO} S=577 D=192 heads={heads}",
+                "head_dim_64_ms": hd64[(route, "384 px", dtype)],
+                "at_256px": {k_: v_ for k_, v_ in zip(
+                    ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "same_fn_library_ms"), tm[route]["256 px"]) if v_ is not None},
+            })
+            entries[-1]["at_256px"]["head_dim_64_ms"] = hd64[(route, "256 px", dtype)]
+            if same_ms is not None:
+                entries[-1]["same_fn_library_ms"] = same_ms
+            if not entries[-1]["launches"]:
+                raise AssertionError(f"{entries[-1]['name']} was never launched on the main "
+                                     "path")
+    return entries
+
+
+def general_long_in_child() -> list:
+    """Phase 19 in a process of its own (`chip_smoke.py --general-long`, the
+    kernels already built on disk), as phase 18: late in this process a
+    torch.profiler trace drops device kernels, and (b) counts them. Its
+    lines are logged here but its last two: its `kernels` line, whose
+    entries this returns, and its `ok` line."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--general-long",
+                           ft_stand_ins()], capture_output=True, text=True,
+                          timeout=GL_CHILD_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-2] if proc.returncode == 0 else lines:
+        log(line)
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0 or len(lines) < 2:
+        raise AssertionError(f"chip_smoke.py --general-long exited with {proc.returncode}")
+    return json.loads(lines[-2])["kernels"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4957,9 +5586,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--fp32-long"]:  # phase 16 alone
         print(json.dumps({"kernels": fp32_long_path(fb, fa, card, dev)}))
         return 0
-    if sys.argv[1:2] in (["--head-dim"], ["--vit-large"]):  # phase 17 or 18 alone
+    if sys.argv[1:2] in (["--head-dim"], ["--vit-large"], ["--general-long"]):  # 17, 18, 19
         entries = (head_dim_path(fb, fa, card, dev, libs) if sys.argv[1] == "--head-dim"
-                   else vit_large_path(fb, fa, card, dev))
+                   else vit_large_path(fb, fa, card, dev) if sys.argv[1] == "--vit-large"
+                   else general_long_path(fb, fa, card, dev, libs))
         print(json.dumps({"kernels": entries}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5586,6 +6216,10 @@ def main() -> int:
     # -- 18. ViT-Large/16 at full width and depth (before phase 13, as phase 14;
     # in a process of its own, as phase 17 (b)'s trace)
     entries += vit_large_in_child()
+
+    # -- 19. the general route above 256 tokens (before phase 13, as phase 14;
+    # in a process of its own, as phase 18)
+    entries += general_long_in_child()
 
     # -- 13. several ranks on the one card -------------------------------------
     parallel_launches = parallel_path(card, fused_totals)

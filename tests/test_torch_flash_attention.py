@@ -16,6 +16,7 @@ import torch
 
 from vit2spn_tpu.ops.flash_attention import mha_pallas as jax_mha_pallas
 from vit2spn_tpu_torch.ops import flash_attention as fa
+from vit2spn_tpu_torch.ops import fused_block as fb
 from vit2spn_tpu_torch.ops.attention import mha_plain, multi_head_attention
 
 torch.set_num_threads(1)
@@ -148,16 +149,17 @@ def test_kernel_input_checks():
     fa._check_flash_inputs(*(t.float().contiguous() for t in (q, k, v)))
     with pytest.raises(TypeError, match="bf16 or fp32"):
         fa._check_flash_inputs(*(t.half() for t in (q, k, v)))
-    x = torch.zeros((2, 9, 4, 32), dtype=torch.bfloat16)  # head_dim 32, S <= 256
+    x = torch.zeros((2, 9, 4, 32), dtype=torch.bfloat16)  # head_dim 32
     fa._check_flash_inputs(x, x, x)
-    with pytest.raises(ValueError, match="S <= 256 at head_dim 32"):
-        x = torch.zeros((1, fa.KERNEL_MAX_SEQ + 1, 4, 32), dtype=torch.bfloat16)
-        fa._check_flash_inputs(x, x, x)
+    # head_dim 32 above 256 tokens: the general route's multi-pass kernels
+    x = torch.zeros((1, fb.KERNEL_MAX_SEQ + 1, 4, 32), dtype=torch.bfloat16)
+    fa._check_flash_inputs(x, x, x)
+    fa._check_flash_inputs(x.float(), x.float(), x.float())
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.zeros((2, 9, 2, 80), dtype=torch.bfloat16)
         fa._check_flash_inputs(x, x, x)
     # above 256 tokens bf16 and fp32 take the long-sequence routes
-    x = torch.zeros((1, fa.KERNEL_MAX_SEQ + 1, 1, 64), dtype=torch.bfloat16)
+    x = torch.zeros((1, fb.KERNEL_MAX_SEQ + 1, 1, 64), dtype=torch.bfloat16)
     fa._check_flash_inputs(x, x, x)
     fa._check_flash_inputs(x.float(), x.float(), x.float())
     with pytest.raises(ValueError, match="k must match"):

@@ -4,9 +4,10 @@ mode on the CPU, and the geometry predicate that picks a kernel route.
 
 On the card these geometries take the kernels' general route
 (ops/fused_block.py geometry_route: the seven-launch forward layer, the
-backward sequences, the S <= 256 attention kernels instantiated on the
-head_dim), which chip_smoke.py phase 17 holds against the same twins. Here
-the wrappers run the twins. Inputs and weights come from numpy with a seed
+backward sequences, the attention kernels instantiated on the head_dim),
+which chip_smoke.py phase 17 holds against the same twins up to 256 tokens
+(above them tests/test_torch_general_long.py and phase 19). Here the
+wrappers run the twins. Inputs and weights come from numpy with a seed
 and go to both sides.
 
 Each body is held at every head_dim in both dtypes and at both S (5: one
@@ -231,8 +232,11 @@ def test_mha_pallas_matches_pallas(dh, s, dtype):
     (768, 12, 3072, 577, "fast"),
     (96, 2, None, 256, "general"),  # the attention kernels: no mlp
     (96, None, 384, 5000, "general"),  # the MLP half: no attention, any S
+    # above 256 tokens the general route's multi-pass attention kernels
+    (32, 2, 64, 257, "general"),    # the tiny model at 256 px
+    (64, 1, 96, 300, "general"),    # head_dim 64 with mlp 96: the head_dim-64 long routes
 ], ids=["dh16", "dh32", "dh48_s256", "tiny_width_6_heads", "dh64_mlp96", "tiny_384px",
-        "base_384px", "no_mlp", "no_heads"])
+        "base_384px", "no_mlp", "no_heads", "s257_dh16", "mlp96_s300"])
 def test_geometry_route_accepts(d, heads, mlp, s, route):
     assert fb.geometry_route(d, heads, mlp, s) == (route, "")
     assert fb.check_geometry(d, heads, mlp, s) == route
@@ -241,13 +245,17 @@ def test_geometry_route_accepts(d, heads, mlp, s, route):
 @pytest.mark.parametrize("d, heads, mlp, s, message", [
     (160, 2, 640, 5, "head_dim in (16, 32, 48, 64); got D=160, heads=2"),
     (48, 1, 192, 5, "D a multiple of 32 with D <= 1024, got D=48"),
-    (32, 2, 64, 257, "S <= 256 at head_dim 16, D=32, mlp=64 (the general route); got S=257"),
     # past the widest LayerNorm row, ViT-Large's D = 1024 (which the kernels take)
     (1056, 16, 4224, 5, "D <= 1024, got D=1056"),
     (64, 2, 80, 5, "mlp a multiple of 32, got 80"),
     (96, 5, 384, 5, "head_dim in"),
-    (64, 1, 96, 300, "S <= 256 at head_dim 64"),
-], ids=["dh80", "d48", "s257_dh16", "d1024", "mlp80", "heads_not_dividing", "mlp96_s300"])
+    # above 256 tokens the same refusals hold (S bounds only the bf16 core:
+    # check_seq_len)
+    (160, 2, 640, 577, "head_dim in (16, 32, 48, 64); got D=160, heads=2"),
+    (64, 2, 80, 257, "mlp a multiple of 32, got 80"),
+    (32, 2, 64, 0, "S >= 1, got S=0"),  # as csrc/common.cuh geometry_ok
+], ids=["dh80", "d48", "d1024", "mlp80", "heads_not_dividing", "dh80_s577", "mlp80_s257",
+        "s0"])
 def test_geometry_route_refuses_with_its_reason(d, heads, mlp, s, message):
     route, why = fb.geometry_route(d, heads, mlp, s)
     assert route is None and message in why
@@ -257,15 +265,21 @@ def test_geometry_route_refuses_with_its_reason(d, heads, mlp, s, message):
 
 def test_wrappers_check_the_geometry_before_any_launch():
     """The wrappers' checks are the predicate's: the tiny model's operands
-    pass, head_dim 80 and S 257 at head_dim 16 are refused with its
-    message (plain Python, so they run here)."""
+    pass, at S = 257 too (the multi-pass routes), head_dim 80 is refused
+    with its message, and S above LONG_CORE_MAX_SEQ at head_dim 16 by the
+    layer backwards' check in bf16 (plain Python, so they run here)."""
     shapes = fb._weight_shapes(L, 32, 64)
     wt = tuple(torch.zeros(shapes[n], dtype=torch.float32 if n.startswith("ln")
                            else torch.bfloat16) for n in fb.WEIGHT_NAMES)
     x = torch.zeros((2, 5, 32), dtype=torch.bfloat16)
     fb._check_kernel_inputs(x, wt, 2)
-    with pytest.raises(ValueError, match="S <= 256 at head_dim 16"):
-        fb._check_kernel_inputs(torch.zeros((1, 257, 32), dtype=torch.bfloat16), wt, 2)
+    fb._check_kernel_inputs(torch.zeros((1, 257, 32), dtype=torch.bfloat16), wt, 2)
+    limit = fb.LONG_CORE_MAX_SEQ
+    x = torch.zeros((1, limit + 1, 32), dtype=torch.bfloat16)
+    fb._check_activation(x, 2)  # the forward's: any S
+    fb._check_activation(x.float(), 2, core=True)  # the fp32 backwards': any S
+    with pytest.raises(ValueError, match=f"S <= {limit} in bf16"):
+        fb._check_layer_inputs(x, x, {}, fb.ATTN_NAMES, 2, {})
     shapes = fb._weight_shapes(L, 160, 640)
     wt = tuple(torch.zeros(shapes[n], dtype=torch.float32 if n.startswith("ln")
                            else torch.bfloat16) for n in fb.WEIGHT_NAMES)
@@ -274,8 +288,7 @@ def test_wrappers_check_the_geometry_before_any_launch():
     q = torch.zeros((2, 5, 2, 16), dtype=torch.bfloat16)
     fa._check_flash_inputs(q, q, q)
     q = torch.zeros((2, 257, 2, 16), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="S <= 256 at head_dim 16"):
-        fa._check_flash_inputs(q, q, q)
+    fa._check_flash_inputs(q, q, q)
 
 
 @pytest.mark.parametrize("s", [197, 577])
@@ -300,6 +313,6 @@ def test_runbook_takes_the_kernels_where_the_predicate_does():
     assert runbook_attn_impl(ViTConfig(hidden_size=160, num_heads=2, mlp_dim=640),
                              "cuda") == "xla"
     assert runbook_attn_impl(ViTConfig(num_heads=6), "cuda") == "fused"
-    # head_dim 16 above 256 tokens: refused, so the per-op block
+    # head_dim 16 above 256 tokens: the general route's multi-pass kernels
     assert runbook_attn_impl(ViTConfig(image_size=384, hidden_size=32, num_heads=2,
-                                       mlp_dim=64), "cuda") == "xla"
+                                       mlp_dim=64), "cuda") == "fused"

@@ -34,6 +34,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "general_long.cuh"
 #include "long_attention.cuh"
 
 #define ATT_DH 64  // head_dim of every route at any S
@@ -43,7 +44,7 @@
 // ms at ViT-Tiny B=128 (tools/bwd_tile_sweep.py, PERF.md)
 #define AB_WARPS 16
 #endif
-#define AB_MAX_S 256  // the row of scores in registers; longer rows: long_attention.cuh
+#define AB_MAX_S 256  // the row of scores in registers; longer rows: long_attention.cuh, general_long.cuh
 
 template <int DH>
 static size_t attention_bwd_smem_dh(int sp, bool fwd_only) {
@@ -269,11 +270,26 @@ static int launch_attention_core_dh(const bf16* qkv, const bf16* datt, bf16* att
 
 #ifdef ATTENTION_CORE_FWD_ONLY
 // The general route's bf16 forward attention stage: att = bf16(concat_h(
-// bf16(softmax(q k^T / sqrt(dh))) v)) from qkv (B * S, 3 D), S <= 256, any
-// head_dim of the four (64 too: the general route at mlp % 64 != 0)
+// bf16(softmax(q k^T / sqrt(dh))) v)) from qkv (B * S, 3 D), any head_dim of
+// the four (64 too: the general route at mlp % 64 != 0). Above AB_MAX_S keys
+// the multi-pass routes: csrc/long_attention.cuh's stage at head_dim 64,
+// csrc/general_long.cuh's at 16, 32 and 48
 static int launch_attention_fwd_general(const bf16* qkv, bf16* att, int B, int S, int H, int D,
                                         cudaStream_t st) {
-  if (S > AB_MAX_S || H <= 0 || D % H) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || D % H) return (int)cudaErrorInvalidValue;
+  if (S > AB_MAX_S) {
+    switch (D / H) {
+      case 16: return gl_launch_stage<16>(qkv, att, B, S, H, D, st);
+      case 32: return gl_launch_stage<32>(qkv, att, B, S, H, D, st);
+      case 48: return gl_launch_stage<48>(qkv, att, B, S, H, D, st);
+      case 64: {
+        CUtensorMap qkv_map;
+        LAUNCH(tensor_map(&qkv_map, qkv, 3 * D, S, B));
+        return launch_long_attention_stage(qkv_map, att, B, S, H, D, st);
+      }
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (D / H) {
     case 16: return launch_attention_core_dh<16, true>(qkv, nullptr, att, nullptr, B, S, H, D, st);
     case 32: return launch_attention_core_dh<32, true>(qkv, nullptr, att, nullptr, B, S, H, D, st);
@@ -285,14 +301,21 @@ static int launch_attention_fwd_general(const bf16* qkv, bf16* att, int B, int S
 
 #else
 
-// S <= AB_MAX_S: attention_bwd_kernel; above it the multi-pass core of
-// csrc/long_attention.cuh (the same function, one launch). head_dim D / H:
-// 64 at every S, 16, 32 or 48 up to AB_MAX_S keys
+// S <= AB_MAX_S: attention_bwd_kernel; above it the multi-pass cores (the
+// same function, one launch): csrc/long_attention.cuh's at head_dim 64,
+// csrc/general_long.cuh's at 16, 32 and 48, both up to long_core_max_seq()
 static int launch_attention_bwd(const bf16* qkv, const bf16* datt, bf16* att, bf16* dqkv,
                                 int B, int S, int H, int D, cudaStream_t st) {
   if (H <= 0 || D % H) return (int)cudaErrorInvalidValue;
   if (D / H != ATT_DH) {
-    if (S > AB_MAX_S) return (int)cudaErrorInvalidValue;
+    if (S > AB_MAX_S) {
+      switch (D / H) {
+        case 16: return gl_launch_core<16>(qkv, datt, att, dqkv, B, S, H, D, st);
+        case 32: return gl_launch_core<32>(qkv, datt, att, dqkv, B, S, H, D, st);
+        case 48: return gl_launch_core<48>(qkv, datt, att, dqkv, B, S, H, D, st);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
     switch (D / H) {
       case 16: return launch_attention_core_dh<16, false>(qkv, datt, att, dqkv, B, S, H, D, st);
       case 32: return launch_attention_core_dh<32, false>(qkv, datt, att, dqkv, B, S, H, D, st);

@@ -60,8 +60,10 @@ extern "C" int vit2spn_attention_core_f32(const void* qkv, const void* datt, voi
                  static_cast<float*>(ws), B, S, H, dh, bs, ts, ts, scale, st, multipass != 0);
 }
 
-// The longest S the bf16 core takes above 256 keys: csrc/long_attention.cuh
-// keeps three fp32 statistics a query in shared memory beside its ring
+// The longest S the bf16 core takes above 256 keys, at every head_dim:
+// csrc/long_attention.cuh keeps three fp32 statistics a query in shared
+// memory beside its ring (csrc/general_long.cuh's core, which keeps them
+// beside smaller staged tiles, takes the same limit)
 extern "C" int vit2spn_attention_core_max_seq() { return long_core_max_seq(); }
 
 // s = q k^T and st = k q^T (64 x 64 fp32) of one pair of 64 x 64 bf16 tiles

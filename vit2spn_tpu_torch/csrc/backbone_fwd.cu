@@ -25,9 +25,10 @@
 // csrc/layer_fwd_seq.cuh per layer. The general geometry (head_dim 16, 32
 // or 48, or D or mlp not a multiple of 64; common.cuh general_route) takes
 // that seven-launch layer in bf16 too, on the mma.sync GEMMs, with its
-// attention on the forward-only mode of csrc/attention_bwd.cuh's core.
-// Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to 1024, mlp a
-// multiple of 32; S <= 256 on the general route.
+// attention on the forward-only mode of csrc/attention_bwd.cuh's core (above
+// 256 keys csrc/general_long.cuh's stage, or long_attention.cuh's at head
+// dim 64). Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to 1024,
+// mlp a multiple of 32; any S.
 
 #include "layer_fwd.cuh"
 #include "layer_fwd_seq.cuh"

@@ -309,15 +309,20 @@ static inline float attention_scale(int dh) { return (float)(1.0 / sqrt((double)
 // ---------------------------------------------------------------------------
 // The geometry the kernels take (ops/fused_block.py geometry_route says the
 // same in Python): head_dim 16, 32, 48 or 64, D = H head_dim a multiple of
-// 32 up to LN_MAX_D, mlp a multiple of 32. Head_dim 64 with D and mlp
-// multiples of 64 keeps every route it had (any S); any other geometry
-// takes the general route (FA_MAX_S keys at most): the seven-launch
-// forward layer on the mma.sync GEMMs, the *_bwd_seq sequences, the S <=
-// FA_MAX_S attention kernels instantiated on head_dim.
+// 32 up to LN_MAX_D, mlp a multiple of 32, any S. Head_dim 64 with D and mlp
+// multiples of 64 keeps every route it had; any other geometry takes the
+// general route: the seven-launch forward layer on the mma.sync GEMMs, the
+// *_bwd_seq sequences, the attention kernels instantiated on head_dim (up to
+// FA_MAX_S keys those that hold a row of scores in registers, above it the
+// multi-pass routes: csrc/general_long.cuh in bf16, flash_f32.cuh's in fp32,
+// and at head_dim 64 long_attention.cuh's). The bf16 backward core takes S
+// <= long_core_max_seq() at every head_dim (csrc/long_attention.cuh), which
+// its launcher checks.
 // ---------------------------------------------------------------------------
 
 // the longest S whose row of scores the S <= 256 attention kernels (bf16
-// and flash_f32.cuh's fp32 ones) hold in registers
+// and flash_f32.cuh's fp32 ones) hold in registers; above it the multi-pass
+// routes
 #define FA_MAX_S 256
 
 static bool head_dim_ok(int dh) { return dh == 16 || dh == 32 || dh == 48 || dh == 64; }
@@ -365,8 +370,7 @@ __host__ __device__ constexpr int ln_per_lane(int D) {
 // kernel takes (the attention-only entries skip MLP with MLP = 64)
 static bool geometry_ok(int B, int S, int D, int H, int MLP) {
   return B > 0 && S > 0 && H > 0 && D % H == 0 && head_dim_ok(D / H) && D % 32 == 0 &&
-         D <= LN_MAX_D && MLP > 0 && MLP % 32 == 0 &&
-         (!general_route(D, H, MLP) || S <= FA_MAX_S);
+         D <= LN_MAX_D && MLP > 0 && MLP % 32 == 0;
 }
 
 // 16 bytes of x as floats: 8 bf16 or 4 fp32

@@ -73,23 +73,26 @@
 // largest magnitude within which those kernels stay of float64.
 //
 // Above 256 keys the warp's row of scores no longer fits its registers: bf16
-// inputs take the wgmma multi-pass route of csrc/long_attention.cuh (the
-// same function, P and dS in two bf16 terms, the same two-launch backward
-// with the same row statistics, kept per 64-query chunk), fp32 inputs the
-// multi-pass route of csrc/flash_f32.cuh (256-key chunks on the CUDA cores,
-// the row statistics through the same workspace).
+// inputs take the wgmma multi-pass route of csrc/long_attention.cuh at head
+// dim 64 and the mma.sync multi-pass route of csrc/general_long.cuh at 16,
+// 32 and 48 (the same function, P and dS in two bf16 terms, the same
+// two-launch backward with the same row statistics), fp32 inputs the routes
+// of csrc/flash_f32.cuh (the one-pass route up to 1,152 keys at head_dim 64,
+// else the multi-pass route: 256-key chunks on the CUDA cores, the row
+// statistics through the same workspace).
 //
 // Layout: q, k, v are read in place through strides, as the views the split
 // of the block's (B, S, 3D) qkv gives them: element (b, s, h, d) at
 // b * bs + s * ts + h * dh + d. o, dO, dq, dk and dv are contiguous (B, S, H,
-// dh). Limits: head_dim 64 at any S; head_dim 16, 32 or 48 (the kernels
-// above instantiated on DH, at the coarser key-tile counts of
-// GENERAL_KEY_TILES) up to 256 keys; bf16 rows start on 16 bytes (ts and bs
-// multiples of 8), fp32 rows on 8.
+// dh). Limits: head_dim 16, 32, 48 or 64 at any S (up to 256 keys the
+// kernels above, instantiated on DH, at head_dim 16-48 at the coarser
+// key-tile counts of GENERAL_KEY_TILES); bf16 rows start on 16 bytes (ts and
+// bs multiples of 8), fp32 rows on 8.
 
 #include <type_traits>
 
 #include "flash_f32.cuh"
+#include "general_long.cuh"
 #include "long_attention.cuh"
 
 // ===========================================================================
@@ -127,56 +130,6 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-// two 16 x 8 fp32 C tiles side by side as the hi and lo terms of one 16 x 16
-// A operand
-__device__ __forceinline__ void split_a(uint32_t hi[4], uint32_t lo[4], const float x0[4],
-                                        const float x1[4]) {
-  split_pair(x0[0], x0[1], hi[0], lo[0]);
-  split_pair(x0[2], x0[3], hi[1], lo[1]);
-  split_pair(x1[0], x1[1], hi[2], lo[2]);
-  split_pair(x1[2], x1[3], hi[3], lo[3]);
-}
-
-// the same for the transpose of the 16 x 16 tile whose columns 8n .. 8n + 7
-// are the C tile x[n]: quarter (rows 8h.., columns 8n..) becomes A fragment
-// 2h + n once movmatrix has transposed it
-__device__ __forceinline__ void split_a_t(uint32_t hi[4], uint32_t lo[4], const float x[2][4]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      uint32_t a, b;
-      split_pair(x[n][2 * h], x[n][2 * h + 1], a, b);
-      hi[2 * h + n] = movmatrix_t(a);
-      lo[2 * h + n] = movmatrix_t(b);
-    }
-}
-
-// acc (16 x DH) += (hi + lo) (16 x 16) times the 16 staged rows at `rows`:
-// mma_rows with both terms on one load of the B fragments
-template <int DH>
-__device__ __forceinline__ void mma_rows_split(float acc[][4], const uint32_t hi[4],
-                                               const uint32_t lo[4], const bf16* rows,
-                                               int lane) {
-  const bf16* p =
-      rows + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * tile_ld<DH>() + (lane >> 4) * 8;
-#pragma unroll
-  for (int np = 0; np < DH / 16; ++np) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, p + np * 16);
-    mma_bf16(acc[2 * np], hi, b[0], b[1]);
-    mma_bf16(acc[2 * np], lo, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
-    mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ void zero_acc(float acc[][4]) {
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 }
 
 // P of the warp's 16 queries (A fragments qa) against the SP = 8 NT staged
@@ -488,19 +441,26 @@ static int by_head_dim(int dh, F&& f) {
 // Host entries
 // ---------------------------------------------------------------------------
 
-// head_dim 16, 32, 48 (S <= FA_MAX_S) or 64 (any S); rows start on 16 bytes
-// for the bf16 kernels' cp.async, on 8 for fp32 float2
+// head_dim 16, 32, 48 or 64, any S; rows start on 16 bytes for the bf16
+// kernels' cp.async, on 8 for fp32 float2
 static bool bad_shape(int B, int S, int H, int dh, long long bs, long long ts, int fp32) {
   const int align = fp32 ? 2 : 8;
-  return B <= 0 || S <= 0 || H <= 0 || !head_dim_ok(dh) || (dh != FA_DH && S > FA_MAX_S) ||
-         ts < (long long)H * dh || bs < (long long)S * ts || ts % align || (B > 1 && bs % align);
+  return B <= 0 || S <= 0 || H <= 0 || !head_dim_ok(dh) || ts < (long long)H * dh ||
+         bs < (long long)S * ts || ts % align || (B > 1 && bs % align);
 }
 
 template <int DH>
 static int fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
                     long long bs, long long ts, float scale, cudaStream_t st) {
-  if (S > FA_MAX_S)  // above 256 keys: csrc/long_attention.cuh, P in two terms as here
-    return launch_long_flash_fwd(q, k, v, o, bs, ts, B, S, H, st);
+  if (S > FA_MAX_S) {  // above 256 keys P in two terms as here: csrc/long_attention.cuh at
+                       // head_dim 64, csrc/general_long.cuh at the others
+    if constexpr (DH == FA_DH) {
+      return launch_long_flash_fwd(q, k, v, o, bs, ts, B, S, H, st);
+    } else {
+      const long long ots = (long long)H * DH;
+      return gl_launch_fwd<DH, true>(q, k, v, o, B, S, H, bs, ts, S * ots, ots, st);
+    }
+  }
   const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
   return by_key_tiles<DH>(S, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
@@ -515,8 +475,12 @@ template <int DH>
 static int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, bf16* dq,
                     bf16* dk, bf16* dv, float* ws, int B, int S, int H, long long bs,
                     long long ts, float scale, cudaStream_t st) {
-  if (S > FA_MAX_S)
-    return launch_long_flash_bwd(q, k, v, dout, dq, dk, dv, ws, bs, ts, B, S, H, st);
+  if (S > FA_MAX_S) {
+    if constexpr (DH == FA_DH)
+      return launch_long_flash_bwd(q, k, v, dout, dq, dk, dv, ws, bs, ts, B, S, H, st);
+    else
+      return gl_launch_flash_bwd<DH>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, st);
+  }
   const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
   size_t smem = 0;
   const int rc = by_key_tiles<DH>(S, [&](auto nt) {

@@ -16,15 +16,16 @@
 // (bs, ts) strides (element (b, s, h, d) at b * bs + s * ts + h * 64 + d), so
 // they may be strided views of a fused (B, S, 3D) qkv; o and dO are (B, S, H,
 // 64) contiguous; dq, dk, dv have rows gts apart (H * 64, or 3 D when they are
-// the thirds of a dqkv). Limits: head_dim 64 at any S, 16, 32 or 48 (the
-// kernels below on DH) up to FA_MAX_S; input rows on 8 bytes, output rows
-// on 16. Up to FA_MAX_S (256) keys a warp holds its rows' whole row of
-// scores in registers (the kernels below); above it the one-pass route at
-// the end of this file (S <= OP_MAX_S = 1,152: a block's query tile of
-// scores in shared memory, 2 products in the forward and 3 + 4 in the
-// backward's two launches, operands from register tiles, loads behind the
-// products) and beyond that the multi-pass route before it (any S: the
-// scores recomputed per pass, 4 and 7 + 4 products).
+// the thirds of a dqkv). Limits: head_dim 16, 32, 48 or 64 at any S; input
+// rows on 8 bytes, output rows on 16. Up to FA_MAX_S (256) keys a warp holds
+// its rows' whole row of scores in registers (the kernels below, on DH);
+// above it, at head_dim 64, the one-pass route at the end of this file (S <=
+// OP_MAX_S = 1,152: a block's query tile of scores in shared memory, 2
+// products in the forward and 3 + 4 in the backward's two launches,
+// operands from register tiles, loads behind the products) and beyond that
+// the multi-pass route before it (any S: the scores recomputed per pass, 4
+// and 7 + 4 products), which also takes head_dim 16, 32 and 48 at every S
+// above FA_MAX_S (the one-pass route is written for head_dim 64 only).
 
 #pragma once
 
@@ -472,7 +473,9 @@ flash_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ascending, then warp_sum), the chunks' sums added in chunk order from 0;
 // o, dQ, dV and dK per chunk as `product` sums (columns ascending from 0),
 // the chunks' partial tiles added in chunk order from 0. The kernels above
-// are left as they were; this route calls their helpers unchanged.
+// are left as they were; this route calls their helpers unchanged, on the
+// head_dim DH as they take it (rows fa_ld<DH>() floats apart in a chunk
+// buffer): the head_dim-64 instantiations are the code of before.
 //
 // What bounds it on this card: every product and every recomputed score is
 // an fp32 FMA on the CUDA cores (67 TFLOP/s). The function's products are 2
@@ -490,7 +493,11 @@ flash_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // forces it): it takes any S.
 
 #define LF_CHUNK FA_MAX_S  // keys (queries, in the key-major phase) per staged chunk
-#define LF_BUF (LF_CHUNK * FA_LD)  // floats of one chunk buffer
+// floats of one chunk buffer: LF_CHUNK rows fa_ld<DH>() apart
+template <int DH>
+__host__ __device__ constexpr int lf_buf() {
+  return LF_CHUNK * fa_ld<DH>();
+}
 
 __device__ __forceinline__ int lf_chunks(int S) { return (S + LF_CHUNK - 1) / LF_CHUNK; }
 
@@ -501,9 +508,10 @@ __device__ __forceinline__ int lf_rows(int c, int S) {
 
 // Rows c * LF_CHUNK .. of a (image, head) into a chunk buffer (rows >= S
 // zeros), committed as one cp.async group
+template <int DH>
 __device__ __forceinline__ void stage_chunk(float* dst, const float* src, long long ts, int c,
                                             int S) {
-  stage<FA_LD>(dst, src, ts, c * LF_CHUNK, padded(lf_rows(c, S)), S);
+  stage<fa_ld<DH>(), DH>(dst, src, ts, c * LF_CHUNK, padded(lf_rows(c, S)), S);
   cp_async_commit();
 }
 
@@ -535,9 +543,10 @@ __device__ __forceinline__ void add_tile(float acc[4][4], const float part[4][4]
 }
 
 // Passes 1 and 2: the max m and the sum l of the warp's 8 rows (Qw, stride
-// FA_DH, already staged or in a committed group) over every key, the K
+// DH, already staged or in a committed group) over every key, the K
 // chunks double-buffered in buf0 and buf1. Every thread of the block calls
 // it (staging, barriers); `live` warps compute.
+template <int DH>
 __device__ __forceinline__ void row_stats(float mx[FA_RW], float l[FA_RW], const float* Qw,
                                           float* buf0, float* buf1, const float* kh,
                                           long long ts, int S, float scale, bool live,
@@ -549,10 +558,10 @@ __device__ __forceinline__ void row_stats(float mx[FA_RW], float l[FA_RW], const
     l[i] = 0.0f;
   }
   for (int pass = 0; pass < 2; ++pass) {
-    stage_chunk(buf0, kh, ts, 0, S);
+    stage_chunk<DH>(buf0, kh, ts, 0, S);
     for (int c = 0; c < nc; ++c) {
       if (c + 1 < nc) {
-        stage_chunk(c & 1 ? buf0 : buf1, kh, ts, c + 1, S);
+        stage_chunk<DH>(c & 1 ? buf0 : buf1, kh, ts, c + 1, S);
         stage_wait_first();
       } else {
         stage_wait();
@@ -560,7 +569,7 @@ __device__ __forceinline__ void row_stats(float mx[FA_RW], float l[FA_RW], const
       if (live) {
         const int n = lf_rows(c, S);
         float s[FA_RW][FA_NJ];
-        dot_rows(s, Qw, c & 1 ? buf1 : buf0, n, lane);
+        dot_rows<DH, fa_ld<DH>()>(s, Qw, c & 1 ? buf1 : buf0, n, lane);
         scale_scores(s, scale, n, lane);
 #pragma unroll
         for (int i = 0; i < FA_RW; ++i) {
@@ -587,66 +596,69 @@ __device__ __forceinline__ void row_stats(float mx[FA_RW], float l[FA_RW], const
 // Shared memory: two chunk buffers, the block's 64-row tiles (queries, dO;
 // keys, values), the per-warp slabs, and in the cols phase three statistics
 // of each query of a chunk
+template <int DH>
 static size_t long_f32_smem(int tiles, int stats) {
-  return (size_t)2 * LF_BUF * 4 + (size_t)tiles * FA_ROWS * FA_DH * 4 +
+  return (size_t)2 * lf_buf<DH>() * 4 + (size_t)tiles * FA_ROWS * DH * 4 +
          (size_t)stats * LF_CHUNK * 4 + (size_t)FA_WARPS * FA_RW * 32 * 4;
 }
 
 // Forward: one block per 64 queries of one (image, head)
+template <int DH = FA_DH>
 __global__ void __launch_bounds__(FA_WARPS * 32, 1)
 long_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o, int S, int H,
                     long long bs, long long ts, float scale) {
   extern __shared__ __align__(128) unsigned char fa_smem[];
   float* Ks = reinterpret_cast<float*>(fa_smem);  // K chunks (both buffers in passes 1, 2)
-  float* Vs = Ks + LF_BUF;                        // V chunks
-  float* Qs = Vs + LF_BUF;
-  float* slabs = Qs + FA_ROWS * FA_DH;
+  float* Vs = Ks + lf_buf<DH>();                  // V chunks
+  float* Qs = Vs + lf_buf<DH>();
+  float* slabs = Qs + FA_ROWS * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * FA_ROWS;
-  const long long head = (long long)b * bs + h * FA_DH;
+  const long long head = (long long)b * bs + h * DH;
   const int w0 = r0 + warp * FA_RW;
   const bool live = w0 < S;  // a warp past S only helps stage
-  const float* Qw = Qs + warp * FA_RW * FA_DH;
-  stage<FA_DH>(Qs, q + head, ts, r0, FA_ROWS, S);
+  const float* Qw = Qs + warp * FA_RW * DH;
+  stage<DH, DH>(Qs, q + head, ts, r0, FA_ROWS, S);
   cp_async_commit();
   float mx[FA_RW], l[FA_RW];
-  row_stats(mx, l, Qw, Ks, Vs, k + head, ts, S, scale, live, lane);
+  row_stats<DH>(mx, l, Qw, Ks, Vs, k + head, ts, S, scale, live, lane);
   // pass 3: the next K chunk lands while the product with this V runs
   const int nc = lf_chunks(S);
   float acc[4][4] = {}, part[4][4];
-  stage_chunk(Ks, k + head, ts, 0, S);
-  stage_chunk(Vs, v + head, ts, 0, S);
+  stage_chunk<DH>(Ks, k + head, ts, 0, S);
+  stage_chunk<DH>(Vs, v + head, ts, 0, S);
   for (int c = 0; c < nc; ++c) {
     const int n = lf_rows(c, S);
     stage_wait_first();  // K of chunk c (V of it may still be in flight)
     float p[FA_RW][FA_NJ];
     if (live) {
-      dot_rows(p, Qw, Ks, n, lane);
+      dot_rows<DH, fa_ld<DH>()>(p, Qw, Ks, n, lane);
       scale_scores(p, scale, n, lane);
       probs(p, mx, l);
     }
     __syncthreads();  // every warp is done with K
     if (c + 1 < nc) {  // V of chunk c lands
-      stage_chunk(Ks, k + head, ts, c + 1, S);
+      stage_chunk<DH>(Ks, k + head, ts, c + 1, S);
       stage_wait_first();
     } else {
       stage_wait();
     }
     if (live) {
-      product(part, p, slabs + warp * FA_RW * 32, Vs, n, lane);
+      product<DH, fa_ld<DH>()>(part, p, slabs + warp * FA_RW * 32, Vs, n, lane);
       add_tile(acc, part);
     }
     __syncthreads();  // every warp is done with V
-    if (c + 1 < nc) stage_chunk(Vs, v + head, ts, c + 1, S);
+    if (c + 1 < nc) stage_chunk<DH>(Vs, v + head, ts, c + 1, S);
   }
   if (!live) return;
-  const long long ots = (long long)H * FA_DH;
-  store_tile(o + (long long)b * S * ots + h * FA_DH, ots, acc, 1.0f, w0, S, lane);
+  const long long ots = (long long)H * DH;
+  store_tile<DH>(o + (long long)b * S * ots + h * DH, ots, acc, 1.0f, w0, S, lane);
 }
 
 // Backward, phase 1: one block per 64 queries: the statistics and dQ
+template <int DH = FA_DH>
 __global__ void __launch_bounds__(FA_WARPS * 32, 1)
 long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
@@ -654,25 +666,25 @@ long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          long long bs, long long ts, long long gts, float scale) {
   extern __shared__ __align__(128) unsigned char fa_smem[];
   float* Ks = reinterpret_cast<float*>(fa_smem);  // K chunks (both buffers in passes 1, 2)
-  float* Vs = Ks + LF_BUF;                        // V chunks
-  float* Qs = Vs + LF_BUF;
-  float* Os = Qs + FA_ROWS * FA_DH;  // dO of this block's queries
-  float* slabs = Os + FA_ROWS * FA_DH;
+  float* Vs = Ks + lf_buf<DH>();                  // V chunks
+  float* Qs = Vs + lf_buf<DH>();
+  float* Os = Qs + FA_ROWS * DH;  // dO of this block's queries
+  float* slabs = Os + FA_ROWS * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * FA_ROWS;
-  const long long head = (long long)b * bs + h * FA_DH;
-  const long long ots = (long long)H * FA_DH;
-  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const long long head = (long long)b * bs + h * DH;
+  const long long ots = (long long)H * DH;
+  const long long ohead = (long long)b * S * ots + h * DH;
   const int w0 = r0 + warp * FA_RW;
   const bool live = w0 < S;  // a warp past S only helps stage
-  const float* Qw = Qs + warp * FA_RW * FA_DH;
-  const float* Ow = Os + warp * FA_RW * FA_DH;
-  stage<FA_DH>(Qs, q + head, ts, r0, FA_ROWS, S);
-  stage<FA_DH>(Os, dout + ohead, ots, r0, FA_ROWS, S);
+  const float* Qw = Qs + warp * FA_RW * DH;
+  const float* Ow = Os + warp * FA_RW * DH;
+  stage<DH, DH>(Qs, q + head, ts, r0, FA_ROWS, S);
+  stage<DH, DH>(Os, dout + ohead, ots, r0, FA_ROWS, S);
   cp_async_commit();
   float mx[FA_RW], l[FA_RW], dot[FA_RW] = {};
-  row_stats(mx, l, Qw, Ks, Vs, k + head, ts, S, scale, live, lane);
+  row_stats<DH>(mx, l, Qw, Ks, Vs, k + head, ts, S, scale, live, lane);
   // pass 3: dot = rowsum(dP p); pass 4: dS and dQ. The scores start on K
   // while V lands
   const int nc = lf_chunks(S);
@@ -680,18 +692,18 @@ long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int pass = 3; pass <= 4; ++pass) {
     for (int c = 0; c < nc; ++c) {
       const int n = lf_rows(c, S);
-      stage_chunk(Ks, k + head, ts, c, S);
-      stage_chunk(Vs, v + head, ts, c, S);
+      stage_chunk<DH>(Ks, k + head, ts, c, S);
+      stage_chunk<DH>(Vs, v + head, ts, c, S);
       stage_wait_first();
       float p[FA_RW][FA_NJ], dp[FA_RW][FA_NJ];
       if (live) {
-        dot_rows(p, Qw, Ks, n, lane);
+        dot_rows<DH, fa_ld<DH>()>(p, Qw, Ks, n, lane);
         scale_scores(p, scale, n, lane);
         probs(p, mx, l);
       }
       stage_wait();
       if (live) {
-        dot_rows(dp, Ow, Vs, n, lane);
+        dot_rows<DH, fa_ld<DH>()>(dp, Ow, Vs, n, lane);
 #pragma unroll
         for (int i = 0; i < FA_RW; ++i) {
           if (pass == 3) {
@@ -705,7 +717,7 @@ long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
           }
         }
         if (pass == 4) {
-          product(part, dp, slabs + warp * FA_RW * 32, Ks, n, lane);
+          product<DH, fa_ld<DH>()>(part, dp, slabs + warp * FA_RW * 32, Ks, n, lane);
           add_tile(acc, part);
         }
       }
@@ -713,7 +725,7 @@ long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
   }
   if (!live) return;
-  store_tile(dq + (long long)b * S * gts + h * FA_DH, gts, acc, scale, w0, S, lane);
+  store_tile<DH>(dq + (long long)b * S * gts + h * DH, gts, acc, scale, w0, S, lane);
   if (lane == 0) {
     float* st = stats + ((long long)(b * H + h) * S) * 3;
 #pragma unroll
@@ -729,6 +741,7 @@ long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 
 // Backward, phase 2: one block per 64 keys, every query in 256-query
 // chunks: dK and dV
+template <int DH = FA_DH>
 __global__ void __launch_bounds__(FA_WARPS * 32, 1)
 long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
@@ -737,26 +750,26 @@ long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          long long gts, float scale) {
   extern __shared__ __align__(128) unsigned char fa_smem[];
   float* Qc = reinterpret_cast<float*>(fa_smem);  // a chunk of queries
-  float* Oc = Qc + LF_BUF;                        // their dO
-  float* Kt = Oc + LF_BUF;                        // this block's keys
-  float* Vt = Kt + FA_ROWS * FA_DH;
-  float* rmax = Vt + FA_ROWS * FA_DH;
+  float* Oc = Qc + lf_buf<DH>();                  // their dO
+  float* Kt = Oc + lf_buf<DH>();                  // this block's keys
+  float* Vt = Kt + FA_ROWS * DH;
+  float* rmax = Vt + FA_ROWS * DH;
   float* rsum = rmax + LF_CHUNK;
   float* rdot = rsum + LF_CHUNK;
   float* slab = rdot + LF_CHUNK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const int r0 = blockIdx.x * FA_ROWS;
-  const long long head = (long long)b * bs + h * FA_DH;
-  const long long ots = (long long)H * FA_DH;
-  const long long ohead = (long long)b * S * ots + h * FA_DH;
+  const long long head = (long long)b * bs + h * DH;
+  const long long ots = (long long)H * DH;
+  const long long ohead = (long long)b * S * ots + h * DH;
   const int w0 = r0 + warp * FA_RW;
   const bool live = w0 < S;  // a warp past S only helps stage
-  const float* Kw = Kt + warp * FA_RW * FA_DH;
-  const float* Vw = Vt + warp * FA_RW * FA_DH;
+  const float* Kw = Kt + warp * FA_RW * DH;
+  const float* Vw = Vt + warp * FA_RW * DH;
   slab += warp * FA_RW * 32;
-  stage<FA_DH>(Kt, k + head, ts, r0, FA_ROWS, S);
-  stage<FA_DH>(Vt, v + head, ts, r0, FA_ROWS, S);
+  stage<DH, DH>(Kt, k + head, ts, r0, FA_ROWS, S);
+  stage<DH, DH>(Vt, v + head, ts, r0, FA_ROWS, S);
   cp_async_commit();
   const float* st = stats + ((long long)(b * H + h) * S) * 3;
   const int nc = lf_chunks(S);
@@ -764,8 +777,8 @@ long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int c = 0; c < nc; ++c) {
     const int n = lf_rows(c, S), q0 = c * LF_CHUNK;
     // the queries first: P^T runs while dO lands
-    stage_chunk(Qc, q + head, ts, c, S);
-    stage_chunk(Oc, dout + ohead, ots, c, S);
+    stage_chunk<DH>(Qc, q + head, ts, c, S);
+    stage_chunk<DH>(Oc, dout + ohead, ots, c, S);
     for (int i = threadIdx.x; i < LF_CHUNK; i += blockDim.x) {  // pad queries: inert
       rmax[i] = i < n ? st[(q0 + i) * 3 + 0] : 0.0f;
       rsum[i] = i < n ? st[(q0 + i) * 3 + 1] : 1.0f;
@@ -775,7 +788,7 @@ long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     // P^T and dP^T: rows are this warp's keys, columns the queries 32 j + lane
     float p[FA_RW][FA_NJ], ds[FA_RW][FA_NJ];
     if (live) {
-      dot_rows(p, Kw, Qc, n, lane);
+      dot_rows<DH, fa_ld<DH>()>(p, Kw, Qc, n, lane);
 #pragma unroll
       for (int j = 0; j < FA_NJ; ++j) {
         const int cq = 32 * j + lane;
@@ -788,24 +801,24 @@ long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
     stage_wait();
     if (live) {
-      dot_rows(ds, Vw, Oc, n, lane);
+      dot_rows<DH, fa_ld<DH>()>(ds, Vw, Oc, n, lane);
 #pragma unroll
       for (int j = 0; j < FA_NJ; ++j) {
         const float dt = rdot[32 * j + lane < n ? 32 * j + lane : 0];
 #pragma unroll
         for (int i = 0; i < FA_RW; ++i) ds[i][j] = p[i][j] * (ds[i][j] - dt);
       }
-      product(part, p, slab, Oc, n, lane);  // dV += P^T dO
+      product<DH, fa_ld<DH>()>(part, p, slab, Oc, n, lane);  // dV += P^T dO
       add_tile(adv, part);
-      product(part, ds, slab, Qc, n, lane);  // dK += dS^T q
+      product<DH, fa_ld<DH>()>(part, ds, slab, Qc, n, lane);  // dK += dS^T q
       add_tile(adk, part);
     }
     __syncthreads();  // every warp is done with the chunk and its statistics
   }
   if (!live) return;
-  const long long ghead = (long long)b * S * gts + h * FA_DH;
-  store_tile(dv + ghead, gts, adv, 1.0f, w0, S, lane);
-  store_tile(dk + ghead, gts, adk, scale, w0, S, lane);
+  const long long ghead = (long long)b * S * gts + h * DH;
+  store_tile<DH>(dv + ghead, gts, adv, 1.0f, w0, S, lane);
+  store_tile<DH>(dk + ghead, gts, adk, scale, w0, S, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1423,30 +1436,32 @@ static int onepass_bwd_f32(const float* q, const float* k, const float* v, const
   return (int)cudaGetLastError();
 }
 
+template <int DH = FA_DH>
 static int long_fwd_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
                         int H, long long bs, long long ts, float scale, cudaStream_t st) {
-  const size_t smem = long_f32_smem(1, 0);
-  LAUNCH(set_smem(long_fwd_f32_kernel, smem));
+  const size_t smem = long_f32_smem<DH>(1, 0);
+  LAUNCH(set_smem(long_fwd_f32_kernel<DH>, smem));
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
-  long_fwd_f32_kernel<<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, o, S, H, bs, ts, scale);
+  long_fwd_f32_kernel<DH><<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, o, S, H, bs, ts, scale);
   return (int)cudaGetLastError();
 }
 
 // two launches, the statistics through ws (B * H * S * 3 floats)
+template <int DH = FA_DH>
 static int long_bwd_f32(const float* q, const float* k, const float* v, const float* dout,
                         float* dq, float* dk, float* dv, float* ws, int B, int S, int H,
                         long long bs, long long ts, long long gts, float scale,
                         cudaStream_t st) {
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
-  size_t smem = long_f32_smem(2, 0);
-  LAUNCH(set_smem(long_bwd_rows_f32_kernel, smem));
-  long_bwd_rows_f32_kernel<<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H, bs,
-                                                              ts, gts, scale);
+  size_t smem = long_f32_smem<DH>(2, 0);
+  LAUNCH(set_smem(long_bwd_rows_f32_kernel<DH>, smem));
+  long_bwd_rows_f32_kernel<DH><<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H,
+                                                                  bs, ts, gts, scale);
   LAUNCH((int)cudaGetLastError());
-  smem = long_f32_smem(2, 3);
-  LAUNCH(set_smem(long_bwd_cols_f32_kernel, smem));
-  long_bwd_cols_f32_kernel<<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, ws, dk, dv, S, H,
-                                                              bs, ts, gts, scale);
+  smem = long_f32_smem<DH>(2, 3);
+  LAUNCH(set_smem(long_bwd_cols_f32_kernel<DH>, smem));
+  long_bwd_cols_f32_kernel<DH><<<grid, FA_WARPS * 32, smem, st>>>(q, k, v, dout, ws, dk, dv, S,
+                                                                  H, bs, ts, gts, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1454,9 +1469,12 @@ static int long_bwd_f32(const float* q, const float* k, const float* v, const fl
 // Launches on the caller's stream
 // ---------------------------------------------------------------------------
 
+// head_dim DH up to FA_MAX_S keys; above it (head_dim 16, 32, 48) the
+// multi-pass route
 template <int DH>
 static int fwd_f32_dh(const float* q, const float* k, const float* v, float* o, int B, int S,
                       int H, long long bs, long long ts, float scale, cudaStream_t st) {
+  if (S > FA_MAX_S) return long_fwd_f32<DH>(q, k, v, o, B, S, H, bs, ts, scale, st);
   const size_t smem = fwd_smem<DH>(S);
   LAUNCH(set_smem(flash_fwd_kernel<DH>, smem));
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
@@ -1468,6 +1486,8 @@ template <int DH>
 static int bwd_f32_dh(const float* q, const float* k, const float* v, const float* dout,
                       float* dq, float* dk, float* dv, float* ws, int B, int S, int H,
                       long long bs, long long ts, long long gts, float scale, cudaStream_t st) {
+  if (S > FA_MAX_S)
+    return long_bwd_f32<DH>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
   const dim3 grid((S + FA_ROWS - 1) / FA_ROWS, H, B);
   size_t smem = bwd_rows_smem<DH>(S);
   LAUNCH(set_smem(flash_bwd_rows_kernel<DH>, smem));
@@ -1481,14 +1501,14 @@ static int bwd_f32_dh(const float* q, const float* k, const float* v, const floa
   return (int)cudaGetLastError();
 }
 
-// Head_dim dh: 64 at any S (above FA_MAX_S keys the one-pass route up to
+// Head_dim dh at any S: 64 above FA_MAX_S keys the one-pass route up to
 // OP_MAX_S, the multi-pass route beyond it or where `multipass`, a test
-// entry's choice, asks for it); 16, 32 or 48 up to FA_MAX_S keys
+// entry's choice, asks for it; 16, 32 and 48 the multi-pass route above
+// FA_MAX_S (the one-pass route is written for head_dim 64)
 static int fwd_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
                    int H, int dh, long long bs, long long ts, float scale, cudaStream_t st,
                    bool multipass = false) {
   if (dh != FA_DH) {
-    if (S > FA_MAX_S) return (int)cudaErrorInvalidValue;
     switch (dh) {
       case 16: return fwd_f32_dh<16>(q, k, v, o, B, S, H, bs, ts, scale, st);
       case 32: return fwd_f32_dh<32>(q, k, v, o, B, S, H, bs, ts, scale, st);
@@ -1502,12 +1522,15 @@ static int fwd_f32(const float* q, const float* k, const float* v, float* o, int
   return fwd_f32_dh<FA_DH>(q, k, v, o, B, S, H, bs, ts, scale, st);
 }
 
+// Not in a source that defines ATTENTION_CORE_FWD_ONLY (the forward layers',
+// csrc/layer_fwd_seq.cuh), so that it instantiates none of the backward
+// kernels on the head_dim (as csrc/attention_bwd.cuh's launchers)
+#ifndef ATTENTION_CORE_FWD_ONLY
 static int bwd_f32(const float* q, const float* k, const float* v, const float* dout,
                    float* dq, float* dk, float* dv, float* ws, int B, int S, int H, int dh,
                    long long bs, long long ts, long long gts, float scale, cudaStream_t st,
                    bool multipass = false) {
   if (dh != FA_DH) {
-    if (S > FA_MAX_S) return (int)cudaErrorInvalidValue;
     switch (dh) {
       case 16: return bwd_f32_dh<16>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
       case 32: return bwd_f32_dh<32>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
@@ -1521,3 +1544,4 @@ static int bwd_f32(const float* q, const float* k, const float* v, const float* 
                : long_bwd_f32(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
   return bwd_f32_dh<FA_DH>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
 }
+#endif  // ATTENTION_CORE_FWD_ONLY

@@ -19,7 +19,7 @@
 // backbone's fp32 layer code, which the general geometry (head_dim 16, 32
 // or 48, or D or mlp not a multiple of 64) also takes in bf16, as the
 // backbone does. Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to
-// 1024, mlp a multiple of 32; S <= 256 on the general route.
+// 1024, mlp a multiple of 32; any S.
 
 #include "layer_fwd.cuh"
 #include "layer_fwd_seq.cuh"
@@ -59,8 +59,8 @@ extern "C" int vit2spn_layer_fwd(
 
 // The layer's attention stage alone (bf16): att (B * S, D) from qkv (B * S,
 // 3 D), the launch vit2spn_layer_fwd makes for it (head_dim D / H; at 16,
-// 32 and 48 the general route's, S <= 256); for holding the stage against
-// its twin and timing it by itself.
+// 32 and 48 the general route's, above 256 keys csrc/general_long.cuh's);
+// for holding the stage against its twin and timing it by itself.
 extern "C" int vit2spn_attention_stage(const void* qkv, void* att, int B, int S, int H, int D,
                                        void* stream) {
   if (!geometry_ok(B, S, D, H, 64)) return (int)cudaErrorInvalidValue;
@@ -77,7 +77,7 @@ extern "C" int vit2spn_attention_stage(const void* qkv, void* att, int B, int S,
 // The fp32 layer's attention stage alone (csrc/flash_f32.cuh, as
 // launch_layer_seq<float> makes it): att (B * S, D) from qkv (B * S, 3 D),
 // fp32; `multipass` set takes the multi-pass route above 256 keys at any S
-// (head_dim 64)
+// (head_dim 64; head_dim 16, 32 and 48 take it above 256 keys anyway)
 extern "C" int vit2spn_attention_stage_f32(const void* qkv, void* att, int B, int S, int H,
                                            int D, int multipass, void* stream) {
   if (!geometry_ok(B, S, D, H, 64)) return (int)cudaErrorInvalidValue;

@@ -52,13 +52,15 @@
 //     a multiple of 64): each half's own route as the split pair takes it,
 //     one after the other with its own reductions: the MLP half's kit (5
 //     launches) where D and mlp allow it, else its sequence (10), then the
-//     attention half's sequence (11), its core on the head_dim.
+//     attention half's kit (6, or the wide route's 7) where head_dim is 64
+//     and D allows it (mlp not a multiple of 64), else its sequence (11),
+//     its core on the head_dim.
 //
 // dx2 crosses from the MLP half to the attention half through device memory
 // in the compute dtype, as the split path hands it over.
 //
-// Limits: head_dim 64 at S <= 15,168 in bf16 (any in fp32); head_dim 16, 32
-// or 48 at S <= 256; D a multiple of 32 up to 1024, mlp a multiple of 32,
+// Limits: head_dim 16, 32, 48 or 64 at S <= 15,168 in bf16 (any in fp32); D
+// a multiple of 32 up to 1024, mlp a multiple of 32,
 // activations and matmul weights all bf16 or all fp32, fp32 LN parameters.
 
 #include "attn_bwd.cuh"
@@ -82,7 +84,8 @@ extern "C" long long vit2spn_merged_bwd_workspace_floats(int B, int S, int D, in
   if (!hopper_route(D, fp32, MLP, D / H)) {  // one half at a time
     long long wm = (long long)mlp_seq_workspace(m.M, D, MLP);
     if (hopper_route(D, fp32, MLP) && mlp_bwd_hopper(m, 0, true, &wm)) return -1;
-    const long long wa = (long long)attn_seq_workspace(B, S, D, H);
+    long long wa = (long long)attn_seq_workspace(B, S, D, H);
+    if (hopper_route(D, fp32, 64, D / H) && attn_bwd_hopper(a, 0, true, &wa)) return -1;
     return wm > wa ? wm : wa;
   }
   long long nm = 0, na = 0;  // the two halves' kit workspaces side by side
@@ -98,16 +101,22 @@ extern "C" int vit2spn_merged_bwd_launches(int D, int fp32, int H, int MLP) {
   const int mlp = !hopper_route(D, fp32, MLP)  ? MLP_SEQ_LAUNCHES
                   : wide_route(D)              ? MLP_WIDE_LAUNCHES
                                                : MLP_HOPPER_LAUNCHES;
-  return mlp + (fp32 ? attn_seq_launches<float>() : attn_seq_launches<bf16>());
+  const int attn = !hopper_route(D, fp32, 64, D / H) ? (fp32 ? attn_seq_launches<float>()
+                                                             : attn_seq_launches<bf16>())
+                   : wide_route(D)                   ? ATTN_WIDE_LAUNCHES
+                                                     : ATTN_HOPPER_LAUNCHES;
+  return mlp + attn;
 }
 
 // the halves one after the other, each on the route the split pair takes
+// (csrc/mlp_bwd.cu and attn_bwd.cu choose them by the same hopper_route)
 template <typename T>
 static int merged_seq(const MlpBwdArgs& m, const AttnBwdArgs& a, int fp32, cudaStream_t st) {
   if (hopper_route(m.D, fp32, m.MLP))
     LAUNCH(mlp_bwd_hopper(m, st));
   else
     LAUNCH(mlp_bwd_seq<T>(m, st));
+  if (hopper_route(a.D, fp32, 64, a.D / a.H)) return attn_bwd_hopper(a, st);
   return attn_bwd_seq<T>(a, st);
 }
 

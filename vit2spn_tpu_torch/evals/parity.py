@@ -130,11 +130,10 @@ def runbook_attn_impl(vit_cfg, device, compute_dtype: str = "bfloat16") -> str:
     """The runbook's backbone path: "fused" where the kernels take the
     geometry (`ops/fused_block.py::geometry_route`: head_dim 16, 32, 48 or
     64, D and mlp multiples of 32, D <= 1024, so ViT-Tiny through
-    ViT-Large; any S at head_dim 64 with D and mlp multiples of 64, else
-    S <= 256) or the device
-    is not CUDA (the CPU runs their plain twins, which take any geometry);
-    else "xla". The kernels take both compute dtypes wherever they take the
-    geometry, so `compute_dtype` does not change the choice."""
+    ViT-Large, at any S) or the device is not CUDA (the CPU runs their
+    plain twins, which take any geometry); else "xla". The kernels take
+    both compute dtypes wherever they take the geometry, so
+    `compute_dtype` does not change the choice."""
     import torch
 
     from vit2spn_tpu_torch.ops.fused_block import geometry_route

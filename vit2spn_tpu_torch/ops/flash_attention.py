@@ -49,11 +49,10 @@ from vit2spn_tpu_torch.ops.fused_block import (
 NEG_INF = -1e30
 KERNEL_NAME = "flash_attention"
 # what csrc/flash_attention.cu takes (fused_block.geometry_route without an
-# MLP or a LayerNorm, so any D): head_dim 64 at any S (above KERNEL_MAX_SEQ
-# the multi-pass routes of csrc/long_attention.cuh in bf16 and
-# csrc/flash_f32.cuh in fp32); head_dim 16, 32 or 48 up to KERNEL_MAX_SEQ
-# (the S <= 256 kernels on the head_dim)
-KERNEL_MAX_SEQ = 256
+# MLP or a LayerNorm, so any D): head_dim 16, 32, 48 or 64 at any S (above
+# fused_block.KERNEL_MAX_SEQ the multi-pass routes: csrc/long_attention.cuh
+# at head_dim 64 and csrc/general_long.cuh at 16-48 in bf16,
+# csrc/flash_f32.cuh in fp32)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -91,8 +90,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """What the kernels take: q, k, v of one shape (B, S, H, Dh) of a
-    geometry `check_geometry` accepts without a LayerNorm (head_dim 64 at
-    any S and any number of heads; 16, 32 or 48 at S <= 256), one dtype
+    geometry `check_geometry` accepts without a LayerNorm (head_dim 16, 32,
+    48 or 64 at any S and any number of heads), one dtype
     (bf16 or fp32), one device and one set of strides, each head's Dh values
     contiguous and the heads of a token side by side."""
     if q.dtype not in KERNEL_DTYPES:

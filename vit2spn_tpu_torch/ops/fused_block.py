@@ -63,17 +63,19 @@ WEIGHT_NAMES = (
 KERNEL_NAME = "backbone_fwd"
 # what the kernels take (`geometry_route`): head_dim 16, 32, 48 or 64, a
 # LayerNorm row of D values (D <= 1024, a multiple of 32), mlp a multiple of
-# 32. Their attention holds a row of scores in registers up to
-# KERNEL_MAX_SEQ keys; above it bf16 takes the multi-pass routes of
-# csrc/long_attention.cuh, fp32 those of csrc/flash_f32.cuh, both at head_dim
-# 64 only: the general route (any other geometry) stops at KERNEL_MAX_SEQ
+# 32, any S. Their attention holds a row of scores in registers up to
+# KERNEL_MAX_SEQ keys; above it the multi-pass routes: in bf16 those of
+# csrc/long_attention.cuh at head_dim 64 and of csrc/general_long.cuh at 16,
+# 32 and 48, in fp32 those of csrc/flash_f32.cuh
 KERNEL_HEAD_DIMS = (16, 32, 48, 64)
 KERNEL_MAX_SEQ = 256
-# the longest S of that route's backward core, which keeps three fp32
+# the longest S of the bf16 backward's attention core above KERNEL_MAX_SEQ,
+# at every head_dim: csrc/long_attention.cuh's core keeps three fp32
 # statistics a query in shared memory beside at least one 16 KB tile slot
 # and two 16 KB ring stages: (232,448 - 256 - 50,176) / 12 bytes, in whole
-# 64-query tiles (csrc/long_attention.cuh long_core_max_seq, which
-# chip_smoke.py holds this to)
+# 64-query tiles (long_core_max_seq, which chip_smoke.py holds this to);
+# csrc/general_long.cuh's core keeps them beside its staged rows and takes
+# the same limit
 LONG_CORE_MAX_SEQ = 15168
 # the widest LayerNorm row: 32 values a lane of a warp (csrc/common.cuh
 # LN_MAX_D; up to D = 768 the kernels keep 24, their code before ViT-Large)
@@ -403,17 +405,22 @@ def geometry_route(d: int, heads: Optional[int] = None, mlp: Optional[int] = Non
     Returns (ROUTE_FAST, "") where head_dim is 64 and D and mlp are
     multiples of 64 (every route of the earlier slices, any S);
     (ROUTE_GENERAL, "") for the other geometries the kernels take: head_dim
-    16, 32 or 48, D and mlp multiples of 32, D <= KERNEL_MAX_D, S <=
-    KERNEL_MAX_SEQ (the seven-launch forward layer, the backward sequences,
-    the S <= 256 attention kernels on the head_dim); (None, reason) when
-    refused. `heads` None leaves the attention out (the MLP half), `mlp`
-    None the MLP, `s` None the sequence; `layernorm` False (the flash pair,
-    which normalises no row of D values) drops the D <= KERNEL_MAX_D bound."""
+    16, 32 or 48, D and mlp multiples of 32, D <= KERNEL_MAX_D, any S (the
+    seven-launch forward layer, the backward sequences, the attention
+    kernels on the head_dim: up to KERNEL_MAX_SEQ keys a row of scores in
+    registers, above it the multi-pass routes); (None, reason) when
+    refused. The S limit of the bf16 backward core (LONG_CORE_MAX_SEQ) is
+    `check_seq_len`'s, the same on both routes. `heads` None leaves the
+    attention out (the MLP half), `mlp` None the MLP, `s` None the sequence
+    (any S >= 1 is taken); `layernorm` False (the flash pair, which
+    normalises no row of D values) drops the D <= KERNEL_MAX_D bound."""
     if d <= 0 or d % 32 or (layernorm and d > KERNEL_MAX_D):
         return None, (f"the kernels need D a multiple of 32"
                       f"{f' with D <= {KERNEL_MAX_D}' if layernorm else ''}, got D={d}")
     if mlp is not None and (mlp <= 0 or mlp % 32):
         return None, f"the kernels need mlp a multiple of 32, got {mlp}"
+    if s is not None and s <= 0:
+        return None, f"the kernels need S >= 1, got S={s}"
     dh = None
     if heads is not None:
         dh = d // heads if heads > 0 and d % heads == 0 else None
@@ -421,12 +428,7 @@ def geometry_route(d: int, heads: Optional[int] = None, mlp: Optional[int] = Non
             return None, (f"the kernels need head_dim in {KERNEL_HEAD_DIMS}; got D={d}, "
                           f"heads={heads}")
     general = d % 64 or (mlp is not None and mlp % 64) or (dh is not None and dh != 64)
-    if not general:
-        return ROUTE_FAST, ""
-    if dh is not None and s is not None and s > KERNEL_MAX_SEQ:
-        return None, (f"the kernels take S <= {KERNEL_MAX_SEQ} at head_dim {dh}, D={d}"
-                      f"{'' if mlp is None else f', mlp={mlp}'} (the general route); got S={s}")
-    return ROUTE_GENERAL, ""
+    return (ROUTE_GENERAL if general else ROUTE_FAST), ""
 
 
 def check_geometry(d: int, heads: Optional[int] = None, mlp: Optional[int] = None,
@@ -440,16 +442,16 @@ def check_geometry(d: int, heads: Optional[int] = None, mlp: Optional[int] = Non
 
 def check_seq_len(s: int, dtype: torch.dtype, what: str, core: bool = False) -> None:
     """The attention kernels' sequence limit: any S (above KERNEL_MAX_SEQ
-    through the multi-pass routes of csrc/long_attention.cuh in bf16 and
-    csrc/flash_f32.cuh in fp32), except S <= LONG_CORE_MAX_SEQ for the bf16
-    backward's attention core (`core`: the layer backwards), whose
-    statistics fill the shared memory there. The fp32 routes keep theirs in
-    device memory."""
+    through the multi-pass routes of csrc/long_attention.cuh and
+    csrc/general_long.cuh in bf16 and csrc/flash_f32.cuh in fp32), except S
+    <= LONG_CORE_MAX_SEQ for the bf16 backward's attention core (`core`:
+    the layer backwards) at every head_dim, whose statistics fill the
+    shared memory there. The fp32 routes keep theirs in device memory."""
     if core and dtype == torch.bfloat16 and s > LONG_CORE_MAX_SEQ:
         raise ValueError(
             f"{what} kernel takes S <= {LONG_CORE_MAX_SEQ} in bf16, got {s}: its attention "
             "core keeps three fp32 statistics a query in one block's shared memory "
-            "(csrc/long_attention.cuh)")
+            "(csrc/long_attention.cuh, csrc/general_long.cuh)")
 
 
 def _check_activation(x: torch.Tensor, heads: Optional[int], core: bool = False,
@@ -584,7 +586,8 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 # CUDA launches of the attention routes above KERNEL_MAX_SEQ keys (bf16:
-# csrc/long_attention.cuh; fp32: csrc/flash_f32.cuh's multi-pass route), by
+# csrc/long_attention.cuh, or csrc/general_long.cuh at head_dim 16-48; fp32:
+# csrc/flash_f32.cuh's one-pass or multi-pass route), by
 # route, counted by the wrappers that make them beside their own counts:
 # the forward layer's attention stage (one a layer), the backward's attention
 # core (one per attn_bwd or merged_bwd call), the flash forward and backward
