@@ -123,17 +123,18 @@ script exits non-zero without printing a result:
      `cm` of (c)'s cv_result.json;
  13. several ranks (parallel/), at the end: (a) `run ssp` cut to one epoch of
      800 staged images at 2 x 128 with a checkpoint and --profile, plain
-     and under torchrun (world size 1, NCCL): export and checkpoint equal bit
-     for bit, the wrappers' calls as predicted in both; the `ssp` step at
-     8 x 128 under torchrun timed (`chip_smoke.py --nccl-step`), with its
-     all-reduce alone, beside phase 11's step; (b) 2 gloo ranks sharing
-     cuda:0 against world size 1 from one state, fp32 and bf16: the SSP step
-     with an uneven masked tail and a one-step fine-tune epoch with global
-     BN (compare_steps), evaluate, each rank's launches equal world size
-     1's, and a 2 x 128 bf16 step's wall, device and all-reduce time by
-     rank; (c) `dryrun_multichip(2)` on the card (three OK lines, 27 sharded
-     leaves) (its former (d), `parity --smoke`, runs in phase 17: the
-     kernels now take its head_dim 16);
+     and under torchrun (world size 1, NCCL), side by side: export and checkpoint equal bit
+     for bit, the wrappers' calls as predicted in both; (b) 2 gloo ranks
+     sharing cuda:0 against world size 1 from one state, fp32 and bf16: the
+     SSP step with an uneven masked tail and a one-step fine-tune epoch with
+     global BN (compare_steps), evaluate, each rank's launches equal world
+     size 1's, and a 2 x 128 bf16 step's wall, device and all-reduce time by
+     rank; (c) the dry run's three stages (`entry.py::_dryrun_rank`, what
+     `dryrun_multichip(2)` runs) on (b)'s two ranks (three OK lines, 27
+     sharded leaves) (its former (d), `parity --smoke`, runs in phase 17:
+     the kernels now take its head_dim 16; its world-1 NCCL step process
+     went for the script's time, (a)'s torchrun run holding NCCL at world
+     size 1);
  11. times with CUDA events after a warm-up: each kernel, its plain twin, a
      library yardstick (F.layer_norm / torch.matmul / SDPA / F.gelu, and
      their torch autograd for the backward kernels; for the flash kernels
@@ -274,10 +275,9 @@ script exits non-zero without printing a result:
      and no mma.sync GEMM in its trace; the flash pair at 16 heads the same
      way; the fp32 routes at B=128 against the fp32 twins and float64; D =
      896 (14 heads, mlp 3584) and S = 577, 2 layers each (at S = 577 in
-     fp32 too); D = 1056 refused by the layer kernels' C entries and by
-     geometry_route. (b) `ssp-scratch` with those overrides, bf16, cut to 2
-     x 64 images a step, on one trainer (its 24-layer random init is drawn
-     once): step 1 of "fused" against "xla" and the fp32 step from one
+     fp32 too). (b) `ssp-scratch` with those overrides, bf16, cut to 2
+     x 64 images a step and 8 of the 24 layers, on one trainer
+     (its random init is drawn once): step 1 of "fused" against "xla" and the fp32 step from one
      state, then `fit` of two "fused" steps, one merged, one "pallas" and
      one fp32 "fused" step with every counter as predicted, the "fused"
      step's device time by wrapper and card idle. (c) extract of 512 images
@@ -313,6 +313,30 @@ script exits non-zero without printing a result:
      beside its twin, SDPA, its bound and the head_dim-64 route's kernel.
      `python3 chip_smoke.py --general-long` runs the build and this phase
      alone.
+ 20. ViT-Huge/14 (D 1280, 16 heads of 80, mlp 5120, 32 layers, patch 14:
+     S = 257; `-o vit.hidden_size=1280 -o vit.num_heads=16 -o
+     vit.mlp_dim=5120 -o vit.num_layers=32 -o vit.patch_size=14`), after
+     phase 19 and before phase 13, in a process of its own (`chip_smoke.py
+     --vit-huge`): (a) the ptxas lines of the head_dim-80 kernels and the
+     LayerNorm at 40 values a lane; a trace of each wrapper at D 1280, B =
+     2, S = 257 (bf16 and fp32: the route's kernels only, the predicted
+     launches, the counters); at a ragged B at S = 17 and the training
+     shape B = 64, S = 257, every wrapper against its twin and as close to
+     fp32 as the twin (the 32-layer forward also at the serving shape B =
+     256), merged equal to split bit for bit, 32 fused_block calls equal to
+     one fused_backbone, two runs of each wrapper equal, the CUDA launches
+     as predicted, the flash pair at head_dim 80 and the fp32 routes
+     against float64; the head_dim-80 attention kernels alone at S = 577
+     and 1,024; the core at its longest S at head_dim 80 (13,696) and one
+     query past it refused; D 1280 as 20 heads of 64 (the fast route), 2
+     layers; head_dim 96 and D = 1312 refused. (b) `ssp-scratch` with those
+     overrides, 2 x 64 images a step, one trainer: step 1 against "xla"
+     and fp32 "xla", fits through "fused", merged, "fused_layer", "pallas",
+     fp32 "fused" and fp32 "pallas" with every counter as predicted and
+     each path's peak memory. (c) extract at batch 256 against the plain
+     path. (d) the times: the 32-layer forward at B = 256, the layer
+     kernels and the flash pair at B = 64. `python3 chip_smoke.py
+     --vit-huge` runs the build and this phase alone.
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
@@ -331,7 +355,9 @@ long route, "<route> (fp32, S>256)"; phase 17 one per kernel and head_dim,
 (D=1024)", its `launches` from (b); phase 19 one per new route and head
 dim, "<route> (S>256, hd 16)" and so on (fp32 at head_dim 32), its
 `launches` from (c) at that head_dim and dtype, its times at B = 64, S =
-577 beside `head_dim_64_ms` and in `at_256px`); the last line is {"ok":
+577 beside `head_dim_64_ms` and in `at_256px`; phase 20 one per layer kernel
+at ViT-Huge/14's width, "<kernel> (D=1280)", and per flash kernel and
+dtype, "<kernel> (hd 80, D=1280)", its `launches` from (b)); the last line is {"ok":
 true, "device": {...}}. The
 script needs no network and no JAX, and stops every process it starts.
 """
@@ -1981,6 +2007,7 @@ def folder_path(ssp_trainer, card) -> dict:
 #   (a) `run ssp` under torchrun equals the plain `run ssp` bit for bit (the
 #       world-1 all-reduce is the identity and the kernels give equal bits),
 #       with the same wrapper calls, PARALLEL_MICRO of each per microbatch;
+#       the two runs side by side on the card;
 #   (b) 2 gloo ranks against world size 1 from one state, augmentation off
 #       and dropout 0, at fp32 and bf16: the SSP step with an uneven masked
 #       tail and a one-step fine-tune epoch with global BN, both within the
@@ -1990,7 +2017,9 @@ def folder_path(ssp_trainer, card) -> dict:
 #       bf16 step, since its BN head's gradients cancel), evaluate's
 #       probabilities within FT_PROB_TOL, and each rank's kernel launches
 #       equal world size 1's;
-#   (c) dryrun_multichip(2) on the card: three OK lines, 27 sharded leaves.
+#   (c) the dry run's three stages on (b)'s two ranks, in the same spawn
+#       (entry.py::_dryrun_rank, which dryrun_multichip(2) spawns ranks to
+#       run): three OK lines, 27 sharded leaves.
 PARALLEL_MICRO = {"backbone_fwd": 4, "mlp_bwd": 24, "attn_bwd": 24}  # dual stream
 PARALLEL_TRAIN = 800  # `run ssp` of (a): 3 steps of 2 x 128 and a masked tail of 32
 PARALLEL_TIMEOUT = 600
@@ -2037,42 +2066,42 @@ def timed_ssp_step(cfg, reps: int = 3) -> dict:
             "allreduce_ms": ar_ms, "grad_mb": 4 * sum(g.numel() for g in grads) / 2**20}
 
 
-def nccl_step_main(path: str) -> int:
-    """Under torchrun (world size 1, NCCL): timed_ssp_step of the `ssp`
-    preset (8 x 128, bf16), written as JSON to `path`."""
-    import torch.distributed as dist
-
-    from vit2spn_tpu_torch.core.config import replace
-    from vit2spn_tpu_torch.core.presets import get_preset
-    from vit2spn_tpu_torch.parallel.mesh import init_distributed
-
-    os.environ["VIT2SPN_MERGED_BWD"] = "0"
-    init_distributed()
+def run_modules(jobs: dict) -> dict:
+    """`python -m <argv>` for each job of `jobs` ({name: (argv, log path,
+    under `torchrun --standalone --nproc_per_node=1`)}) from the repository
+    root, all started together, each one's output into its log. Returns
+    {name: (exit code, seconds from the start to its exit)}; kills every
+    one still running at PARALLEL_TIMEOUT."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs, done, t0 = {}, {}, time.perf_counter()
     try:
-        out = timed_ssp_step(replace(get_preset("ssp"), pretrained_init=False))
-        out["backend"] = dist.get_backend()
+        for name, (argv, log_path, torchrun) in jobs.items():
+            cmd = [sys.executable] + (["-m", "torch.distributed.run", "--standalone",
+                                       "--nproc_per_node=1"] if torchrun else []) + argv
+            f = open(log_path, "w")
+            procs[name] = (subprocess.Popen(cmd, cwd=root, stdout=f, stderr=subprocess.STDOUT),
+                           f)
+        while len(done) < len(procs):
+            if time.perf_counter() - t0 > PARALLEL_TIMEOUT:
+                raise TimeoutError(f"{sorted(set(procs) - set(done))} still running after "
+                                   f"{PARALLEL_TIMEOUT} s")
+            for name, (proc, f) in procs.items():
+                if name not in done and proc.poll() is not None:
+                    done[name] = (proc.returncode, time.perf_counter() - t0)
+                    f.close()
+            time.sleep(0.1)
     finally:
-        dist.destroy_process_group()
-    with open(path, "w") as f:
-        json.dump(out, f)
-    return 0
-
-
-def run_module(argv: list, log_path: str, torchrun: bool = False) -> tuple:
-    """`python -m <argv>` (under `torchrun --standalone --nproc_per_node=1`
-    when asked) from the repository root; output into `log_path`. Returns
-    (exit code, seconds)."""
-    cmd = [sys.executable] + (["-m", "torch.distributed.run", "--standalone",
-                               "--nproc_per_node=1"] if torchrun else []) + argv
-    t0 = time.perf_counter()
-    with open(log_path, "w") as f:
-        rc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
-                            stdout=f, stderr=subprocess.STDOUT,
-                            timeout=PARALLEL_TIMEOUT).returncode
-    if rc != 0:
-        log(f"[parallel] {' '.join(argv[:4])} failed (rc {rc}); its output's end:\n"
-            + open(log_path).read()[-4000:])
-    return rc, time.perf_counter() - t0
+        for proc, f in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    for name, (rc, _) in done.items():
+        if rc != 0:
+            argv, log_path, _ = jobs[name]
+            log(f"[parallel] {' '.join(argv[:4])} ({name}) failed (rc {rc}); its output's end:\n"
+                + open(log_path).read()[-4000:])
+    return done
 
 
 def profile_counts(out_dir: str) -> dict:
@@ -2083,19 +2112,18 @@ def profile_counts(out_dir: str) -> dict:
             if e["event"] == "profile_op" and e["source"].startswith("vit2spn::")}
 
 
-def parallel_path(card: str, fused_totals: dict) -> dict:
-    """Phase 13: (a) `run ssp` under torchrun vs plain, with the world-1 NCCL
-    step's device and all-reduce time; (b) 2 gloo ranks on cuda:0 vs world
-    size 1 at fp32 and bf16, and their step's wall and device time; (c)
-    dryrun_multichip(2) on the card (`parity --smoke`, which now takes the
-    kernels' general route, runs in phase 17 (d)). Returns rank 0's launches
-    in (b)'s compared runs by kernel entry name (the fp32 runs' under
-    "<name> (fp32)")."""
+def parallel_path(card: str) -> dict:
+    """Phase 13: (a) `run ssp` under torchrun vs plain; (b) 2 gloo ranks on
+    cuda:0 vs world size 1 at fp32 and bf16, and their step's wall, device
+    and all-reduce time; (c) the dry run's stages on (b)'s ranks (`parity
+    --smoke`, which now takes the kernels' general route, runs in phase 17
+    (d)). Returns rank 0's launches in (b)'s compared runs by kernel entry
+    name (the fp32 runs' under "<name> (fp32)")."""
     import tempfile
 
     from vit2spn_tpu_torch.core.presets import get_preset
     from vit2spn_tpu_torch.data.datasets import synthetic_dataset
-    from vit2spn_tpu_torch.entry import dryrun_multichip, finetune_epoch, ssp_step
+    from vit2spn_tpu_torch.entry import _dryrun_rank, finetune_epoch, ssp_step
     from vit2spn_tpu_torch.parallel.launch import call_each, launch
     from vit2spn_tpu_torch.train import checkpoint as ckpt
     from vit2spn_tpu_torch.train.finetune import FineTuneTrainer
@@ -2121,10 +2149,14 @@ def parallel_path(card: str, fused_totals: dict) -> dict:
         spe, rem = PARALLEL_TRAIN // eff, PARALLEL_TRAIN % eff
         n_micro = spe * cfg_a.accumulation_steps + -(-rem // cfg_a.batch_size)
         want = {k: n * n_micro for k, n in PARALLEL_MICRO.items()}
+        # both at once on the card: each run is deterministic, and the checks are
+        # their outputs and calls (the wall times are not compared)
+        outs = {name: os.path.join(tmp, name) for name in ("plain", "torchrun")}
+        done = run_modules({name: (argv + ["--output-dir", out], out + ".log",
+                                   name == "torchrun") for name, out in outs.items()})
         runs = {}
-        for name, tr_run in (("plain", False), ("torchrun", True)):
-            out = os.path.join(tmp, name)
-            rc, secs = run_module(argv + ["--output-dir", out], out + ".log", tr_run)
+        for name, out in outs.items():
+            rc, secs = done[name]
             if rc != 0:
                 raise AssertionError(f"run ssp ({name}) exited {rc}")
             runs[name] = (out, secs, profile_counts(out))
@@ -2137,34 +2169,15 @@ def parallel_path(card: str, fused_totals: dict) -> dict:
                                and all(np.array_equal(a_[k], b_[k]) for k in keys))
         got = {n: {k: c.get(k) for k in want} for n, (_, _, c) in runs.items()}
         log(f"[parallel] (a) run ssp, 1 epoch of {PARALLEL_TRAIN} images at 2 x 128 "
-            f"({n_micro} microbatches): plain {runs['plain'][1]:.1f} s, torchrun (world 1, "
-            f"NCCL) {runs['torchrun'][1]:.1f} s; export and checkpoint bit-equal "
+            f"({n_micro} microbatches), both started together: plain {runs['plain'][1]:.1f} s, "
+            f"torchrun (world 1, NCCL) {runs['torchrun'][1]:.1f} s; export and checkpoint "
+            f"bit-equal "
             f"{same}; wrapper calls plain {got['plain']}, torchrun {got['torchrun']} "
             f"(predicted {want})")
         if not all(same.values()):
             raise AssertionError(f"run ssp under torchrun differs from the plain run: {same}")
         if got["plain"] != want or got["torchrun"] != want:
             raise AssertionError(f"run ssp launches {got}, predicted {want}")
-        # the world-1 NCCL step at the preset's 8 x 128, against phase 11's step
-        rc, secs = run_module([os.path.abspath(__file__), "--nccl-step",
-                               os.path.join(tmp, "nccl.json")],
-                              os.path.join(tmp, "nccl.log"), torchrun=True)
-        if rc != 0:
-            raise AssertionError(f"the world-1 NCCL step exited {rc}")
-        with open(os.path.join(tmp, "nccl.json")) as f:
-            nccl = json.load(f)
-        for line in nccl["lines"]:
-            log(line.replace("[profile]", "[parallel][profile]"))
-        ar_ms = nccl["allreduce_ms"]
-        log(f"[parallel] (a) one `ssp` step (8 x 128, bf16) under torchrun, world size 1 "
-            f"({nccl['backend']}): wall {nccl['wall_ms']:.2f} ms, device "
-            f"{nccl['device_ms']:.3f} ms; its all-reduce alone ({nccl['grad_mb']:.1f} MiB "
-            f"of fp32 gradients and sums: flatten, all_reduce, unflatten) {ar_ms:.4f} ms, "
-            f"{100 * ar_ms / nccl['device_ms']:.3f}% of the step's device time; NCCL kernels "
-            f"and copies in the step {nccl['comm']}; the same step without a process group "
-            f"(phase 11, this run) device {fused_totals.get('device', float('nan')):.3f} ms "
-            f"(PERF.md §5: 220.2 ms); on {card}")
-
         # (b) 2 gloo ranks on cuda:0 against world size 1, fp32 and bf16
         batch = synthetic_dataset(image_size=28, split_sizes={"train": 256},
                                   seed=SEED + 1).images
@@ -2196,10 +2209,14 @@ def parallel_path(card: str, fused_totals: dict) -> dict:
             checks.append(("ft", dtype, fcfg, before))
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        two = launch(call_each, 2, args=(calls + [(timed_ssp_step, (calls[2][1][0],), {})],),
+        two = launch(call_each, 2, args=(calls + [(timed_ssp_step, (calls[2][1][0],), {}),
+                                                  (_dryrun_rank, (2, "cuda:0"), {})],),
                      device="cuda:0", timeout=PARALLEL_TIMEOUT)
         two_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         one = call_each([(fn, a, {**kw, "device": "cuda"}) for fn, a, kw in calls])
+        log(f"[parallel] (b) 2 ranks in {two_s:.1f} s, world size 1 in "
+            f"{time.perf_counter() - t0:.1f} s")
         for i, (kind, dtype, cfg, before) in enumerate(checks):
             r0, r1, ref = two[0][i], two[1][i], one[i]
             equal = all(np.array_equal(r0["state"][k], r1["state"][k]) for k in r0["state"])
@@ -2226,10 +2243,10 @@ def parallel_path(card: str, fused_totals: dict) -> dict:
             for k, n in r0["launches"].items():
                 key = k if dtype == "bfloat16" else f"{k} (fp32)"
                 launched_b[key] = launched_b.get(key, 0) + n
-        for r in (two[0][-1], two[1][-1]):
+        for r in (two[0][-2], two[1][-2]):
             for line in r["lines"][:6]:
                 log(line.replace("[profile]", f"[parallel][rank {r['rank']}]"))
-        t0_, t1_ = two[0][-1], two[1][-1]
+        t0_, t1_ = two[0][-2], two[1][-2]
         log(f"[parallel] (b) 2 gloo ranks on cuda:0, one SSP step (2 x 128, bf16, 64 per "
             f"rank): wall {t0_['wall_ms']:.2f} / {t1_['wall_ms']:.2f} ms, device "
             f"{t0_['device_ms']:.3f} / {t1_['device_ms']:.3f} ms by rank; the gloo all-reduce "
@@ -2237,12 +2254,12 @@ def parallel_path(card: str, fused_totals: dict) -> dict:
             f"{t1_['allreduce_ms']:.3f} ms; copies in the step {t0_['comm']}; the launch took "
             f"{two_s:.1f} s; on {card}")
 
-        # (c) the dry run on the card
-        t0 = time.perf_counter()
-        lines = dryrun_multichip(2)
-        log(f"[parallel] (c) dryrun_multichip(2) on cuda:0 in {time.perf_counter() - t0:.1f} s")
+        # (c) the dry run's stages, run by (b)'s ranks after their steps
+        lines = two[0][-1]
+        for line in lines:
+            log(f"[parallel] (c) rank 0: {line}")
         if len(lines) != 3 or not lines[2].endswith("tp_sharded_leaves=27"):
-            raise AssertionError(f"dryrun_multichip(2): {lines}")
+            raise AssertionError(f"the dry run on 2 ranks: {lines}")
 
     log(f"[parallel] phase 13 in {time.perf_counter() - t_phase:.1f} s")
     return launched_b
@@ -2886,6 +2903,9 @@ def forward_stage(name: str, b, s, d, mlp):
     no forward stage."""
     m = b * s
     flops = {0: 2 * m * d * 3 * d, 1: 2 * m * d * d, 2: 2 * m * d * mlp, 3: 2 * m * mlp * d}
+    g = re.match(r"void gemm_kernel<false, false, ([0-3])>", name)
+    if g:  # common.cuh's mma.sync GEMM (the general route): its epilogue names the stage
+        return FWD_GEMMS[int(g.group(1))], flops[int(g.group(1))], 0
     g = re.match(r"void (tile_gemm_kernel|rowblock_gemm_kernel)<([^>]*)>", name)
     if g:
         args = [a.strip() for a in g.group(2).split(",")]
@@ -2893,7 +2913,7 @@ def forward_stage(name: str, b, s, d, mlp):
             return FWD_GEMMS[int(args[1])], flops[int(args[1])], 0
         ln = ("LN1 + ", "LN2 + ", "")[int(args[2])]
         return ln + FWD_GEMMS[int(args[3])], flops[int(args[3])], 0
-    if "attention_kernel" in name:
+    if "attention_kernel" in name or "gl_fwd_kernel" in name:
         return "attention", 4 * b * s * s * d, 0
     if name.startswith("void layernorm_kernel<__nv_bfloat16"):
         return "LN1", 0, 4 * m * d
@@ -2928,25 +2948,28 @@ def forward_by_stage(fn, b, s, d, mlp, label, card, calls: int = 3, layers: int 
         f"{layers} layers = {layers * layer:.3f} ms of device time; {card}")
 
 
-def zoo_times(fb, card, dev, launches=None, errs=None, widths=None) -> list:
-    """Phase 14 (e) (and 18 (d)): at each of `widths` ((label, D, heads, mlp,
-    layers); default the ZOO widths at 12 layers), with CUDA events after a
-    warm-up, backbone_fwd at B=256 and layer_fwd, mlp_bwd, attn_bwd and
-    merged_bwd at B=128 (S=197, bf16): the kernel, its plain twin, its
+def zoo_times(fb, card, dev, launches=None, errs=None, widths=None, s=197,
+              b_layer=TRAIN_BATCH, fwd_iters=20, weights=None) -> list:
+    """Phase 14 (e) (and 18 (d), 20 (d)): at each of `widths` ((label, D,
+    heads, mlp, layers); default the ZOO widths at 12 layers), with CUDA
+    events after a warm-up, backbone_fwd at B=256 and layer_fwd, mlp_bwd,
+    attn_bwd and merged_bwd at B=`b_layer` (S=`s`, bf16; the backbone over
+    `fwd_iters` calls, its twin over 3, or 1 below 20; on `weights` where
+    given, one width's, else drawn): the kernel, its plain twin, its
     library yardstick and its bound; each backward's and the forward's
     device time by CUDA kernel. `launches` ({width: {kernel: n}}) and `errs`
     ({width: {kernel: max_abs_err}}) come from the phase's main path and
     checks (None: 0 and null, as when this runs alone through --zoo-times).
     Returns the {"kernels": [...]} entries."""
     entries = []
-    s, eps, fast = 197, 1e-12, True
+    eps, fast = 1e-12, True
     for label, d, heads, mlp, layers in widths or [(z[0], *z[2:], 12) for z in ZOO]:
         gen = torch.Generator().manual_seed(SEED + d)
-        wt = random_backbone(gen, layers, d, mlp, dev)
+        wt = weights if weights is not None else random_backbone(gen, layers, d, mlp, dev)
         x = torch.randn(BATCH, s, d, generator=gen).to(torch.bfloat16).to(dev)
-        xb, x2b = (torch.randn(TRAIN_BATCH, s, d, generator=gen).to(torch.bfloat16).to(dev)
+        xb, x2b = (torch.randn(b_layer, s, d, generator=gen).to(torch.bfloat16).to(dev)
                    for _ in range(2))
-        gb = (0.1 * torch.randn(TRAIN_BATCH, s, d, generator=gen)).to(torch.bfloat16).to(dev)
+        gb = (0.1 * torch.randn(b_layer, s, d, generator=gen)).to(torch.bfloat16).to(dev)
         wl = layer_weights(fb.WEIGHT_NAMES, wt)
         w0 = tuple(t[0] for t in wt)
         timed = (
@@ -2957,25 +2980,25 @@ def zoo_times(fb, card, dev, launches=None, errs=None, widths=None) -> list:
              lambda: fb.backbone_forward_plain(x, wt, heads, eps, fast),
              lambda: library_backbone(x, wt, heads, eps)),
             ("layer_fwd", "layer_fwd.cu", "vit2spn_tpu/ops/fused_block.py:170",
-             backbone_bound_ms(TRAIN_BATCH, s, d, heads, mlp, 1, w0, acts=3),
+             backbone_bound_ms(b_layer, s, d, heads, mlp, 1, w0, acts=3),
              fb.cuda_launches("layer_fwd", None, d, 0, heads=heads, mlp=mlp),
              lambda: fb.layer_fwd(xb, w0, heads, eps, fast),
              lambda: fb.layer_forward_plain(xb, w0, heads, eps, fast),
              lambda: library_backbone(xb, tuple(t[:1] for t in wt), heads, eps)),
             ("mlp_bwd", "mlp_bwd.cu", "vit2spn_tpu/ops/fused_block.py:342",
-             bwd_bound_ms("mlp", TRAIN_BATCH, s, d, heads, mlp, wl),
+             bwd_bound_ms("mlp", b_layer, s, d, heads, mlp, wl),
              fb.cuda_launches("mlp_bwd", None, d, 0, heads=heads, mlp=mlp),
              lambda: fb.mlp_bwd(x2b, gb, wl, eps, fast),
              lambda: fb.mlp_bwd_plain(x2b, gb, wl, eps, fast),
              lambda: library_mlp_half(x2b, gb, wl, eps)),
             ("attn_bwd", "attn_bwd.cu", "vit2spn_tpu/ops/fused_block.py:357",
-             bwd_bound_ms("attn", TRAIN_BATCH, s, d, heads, mlp, wl),
+             bwd_bound_ms("attn", b_layer, s, d, heads, mlp, wl),
              fb.cuda_launches("attn_bwd", None, d, 0, heads=heads, mlp=mlp),
              lambda: fb.attn_bwd(xb, gb, wl, heads, eps),
              lambda: fb.attn_bwd_plain(xb, gb, wl, heads, eps),
              lambda: library_attn_half(xb, gb, wl, heads, eps)),
             ("merged_bwd", "merged_bwd.cu", "vit2spn_tpu/ops/fused_block.py:375",
-             bwd_bound_ms("merged", TRAIN_BATCH, s, d, heads, mlp, wl),
+             bwd_bound_ms("merged", b_layer, s, d, heads, mlp, wl),
              fb.cuda_launches("merged_bwd", None, d, 0, heads=heads, mlp=mlp),
              lambda: fb.merged_bwd(xb, x2b, gb, wl, heads, eps, fast),
              lambda: fb.merged_bwd_plain(xb, x2b, gb, wl, heads, eps, fast),
@@ -2984,11 +3007,12 @@ def zoo_times(fb, card, dev, launches=None, errs=None, widths=None) -> list:
         )
         for name, src, replaces, bound, n_cuda, kernel, twin, library in timed:
             b_ms, b_by, b_flops = bound
-            k_ms = time_ms(kernel)
-            p_ms = time_ms(twin, iters=3, warmup=1)
+            iters = fwd_iters if name == "backbone_fwd" else 20
+            k_ms = time_ms(kernel, iters=iters)
+            p_ms = time_ms(twin, iters=3 if iters >= 20 else 1, warmup=1)
             with torch.no_grad() if name.endswith("fwd") else torch.enable_grad():
-                l_ms = time_ms(library)
-            batch = BATCH if name == "backbone_fwd" else TRAIN_BATCH
+                l_ms = time_ms(library, iters=iters)
+            batch = BATCH if name == "backbone_fwd" else b_layer
             tag = f"{name} (D={d})"
             log(f"[zoo-time] {label} {name} B={batch}: kernel {k_ms:.4f} ms ({n_cuda} CUDA "
                 f"launches), plain twin {p_ms:.3f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} "
@@ -3285,7 +3309,7 @@ def long_limits(fb, dev) -> None:
         total += s_.numel()
     log(f"[long-scores] K Q^T (the core's key-major phase) vs Q K^T (its query passes) on "
         f"wgmma: {same} of {total} scores equal bit for bit")
-    limit = lib.vit2spn_attention_core_max_seq()
+    limit = lib.vit2spn_attention_core_max_seq(64)
     if limit != fb.LONG_CORE_MAX_SEQ:
         raise AssertionError(f"the core's S limit is {limit}, ops/fused_block.py says "
                              f"{fb.LONG_CORE_MAX_SEQ}")
@@ -4670,15 +4694,17 @@ VL_CUDA_LAUNCHES = {"mlp_bwd": 7, "attn_bwd": 7, "merged_bwd": 13,
                     "flash_bwd": 2}
 # (a)'s other geometries: a width between ViT-Base and ViT-Large (14 heads
 # of 64: the forward's wide route, the backward's mma.sync sequences), and
-# ViT-Large at 384 px (S = 577: the long routes at 16 heads), 2 layers each;
-# one multiple of 32 past the widest LayerNorm row (33 heads of 32, so only
-# D bounds it) refused by the C entries and by geometry_route
+# ViT-Large at 384 px (S = 577: the long routes at 16 heads), 2 layers each
+# (the widest LayerNorm row's refusal is phase 20's: VH_REFUSED)
 VL_MID = ("D=896", 896, 14, 3584)
 VL_LONG = (2, 577)  # (B, S)
-VL_REFUSED = (1056, 33, 4224)
-# (b): `ssp-scratch` with VL_OVERRIDES, bf16, 24 layers, cut from 8 x 128 to
-# 2 x 64 images a step; (c): extract at batch 256
+# (b): `ssp-scratch` with VL_OVERRIDES, bf16, cut from 8 x 128 to 2 x 64
+# images a step and (for the script's time, since phase 20 came in) from 24
+# layers to VL_TRAIN_LAYERS; every kernel and route of the step is
+# the same at 8 layers, and (a) and (d) keep all 24; (c): extract at batch
+# 256 from that trainer
 VL_MICRO, VL_ACCUM = 64, 2
+VL_TRAIN_LAYERS = 8
 VL_EXTRACT = 512
 VL_CHILD_TIMEOUT = 600  # s; the phase took 91 s alone on the H100
 
@@ -4765,41 +4791,13 @@ def vl_kernels(fb, fa, dev) -> dict:
                              True)
         del wt, w, x, x2, g
         torch.cuda.empty_cache()
-    vl_refused(fb, dev)
     return errs
-
-
-def vl_refused(fb, dev) -> None:
-    """Phase 18 (a): D = 1056 (VL_REFUSED; head_dim 32, so only the
-    LayerNorm row's bound refuses it) returns an error from every layer
-    kernel's C entry before any launch, and geometry_route refuses it with
-    its reason."""
-    d, heads, mlp = VL_REFUSED
-    b, s, m = 2, 197, 2 * 197
-    eps, st = 1e-12, fb._stream(dev)
-    rcs = {
-        "backbone_fwd": fb._load("backbone_fwd").vit2spn_backbone_fwd(
-            *[None] * 21, b, s, d, heads, mlp, 1, eps, 1, st),
-        "layer_fwd": fb._load("layer_fwd").vit2spn_layer_fwd(
-            *[None] * 20, b, s, d, heads, mlp, eps, 1, st),
-        "mlp_bwd": fb._load("mlp_bwd").vit2spn_mlp_bwd(*[None] * 19, m, d, mlp, eps, 1, 0, st),
-        "attn_bwd": fb._load("attn_bwd").vit2spn_attn_bwd(*[None] * 21, b, s, d, heads, eps, 0,
-                                                          st),
-        "merged_bwd": fb._load("merged_bwd").vit2spn_merged_bwd(
-            *[None] * 37, b, s, d, heads, mlp, eps, 1, 0, st),
-    }
-    torch.cuda.synchronize()
-    route, why = fb.geometry_route(d, heads, mlp, s)
-    log(f"[vl] D={d} ({heads} heads of {d // heads}, mlp {mlp}): the C entries return {rcs}; "
-        f"geometry_route: {route}, {why!r}")
-    if not all(rcs.values()) or route is not None or f"D <= {fb.KERNEL_MAX_D}" not in why:
-        raise AssertionError(f"D = {d} was not refused ({rcs}, {route}, {why!r})")
 
 
 def vl_training(card) -> tuple:
     """Phase 18 (b) and (c) on one SSPTrainer of `ssp-scratch` with the
-    ViT-Large overrides (its random init at 24 layers is 1.2 G values drawn
-    on the host, so the paths share it): step 1 (zoo_step_check); `fit` of
+    ViT-Large overrides, VL_TRAIN_LAYERS deep (its random init is drawn on
+    the host, so the paths share it): step 1 (zoo_step_check); `fit` of
     two "fused" steps, one merged, one "pallas" and one fp32 "fused" step,
     every counter as predicted; the "fused" step's wall, img/s, device time
     by wrapper and card idle; then extract of VL_EXTRACT images at batch
@@ -4813,19 +4811,21 @@ def vl_training(card) -> tuple:
     from vit2spn_tpu_torch.utils.logging import MetricLogger
 
     cfg = _apply_overrides(get_preset("ssp-scratch"), [
-        *VL_OVERRIDES, f"batch_size={VL_MICRO}", f"accumulation_steps={VL_ACCUM}"])
+        *VL_OVERRIDES, f"batch_size={VL_MICRO}", f"accumulation_steps={VL_ACCUM}",
+        f"vit.num_layers={VL_TRAIN_LAYERS}"])
     vit = cfg.vit
     geom = (vit.hidden_size, vit.num_heads, vit.mlp_dim, vit.num_layers, vit.image_size,
             vit.seq_len, cfg.compute_dtype)
-    if geom != (VL_D, VL_HEADS, VL_MLP, VL_LAYERS, 224, 197, "bfloat16"):
+    if geom != (VL_D, VL_HEADS, VL_MLP, VL_TRAIN_LAYERS, 224, 197, "bfloat16"):
         raise AssertionError(f"the ViT-Large overrides gave {geom}")
     eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, vit.num_layers
     t0 = time.perf_counter()
     tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), attn_impl="fused", device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in flat_tensors(tr.params.online).values()) // 2
-    log(f"[vl] (b) {VL_LABEL} SSP: D={VL_D}, {VL_HEADS} heads, mlp {VL_MLP}, {layers} layers, "
-        f"{a} x {cfg.batch_size} (cut from 8 x 128), bf16; one trainer, {n_params} params a "
+    log(f"[vl] (b) {VL_LABEL} SSP: D={VL_D}, {VL_HEADS} heads, mlp {VL_MLP}, {layers} layers "
+        f"(cut from {VL_LAYERS}), {a} x {cfg.batch_size} (cut from 8 x 128), bf16; one trainer, "
+        f"{n_params} params a "
         f"backbone, built in {time.perf_counter() - t0:.1f} s")
     tds = synthetic_dataset(split_sizes={"train": 2 * eff}, image_size=28,
                             seed=SEED + 18).split("train")
@@ -5085,15 +5085,18 @@ GL_WRAPPER_ROUTES = {"backbone_fwd": "attention_fwd", "layer_fwd": "attention_fw
                      "flash_fwd": "flash_fwd", "flash_bwd": "flash_bwd"}
 
 
-def gl_trace(fb, fa, dev) -> None:
-    """Phase 19 (b): at ViT-Tiny's width with 6 heads, B = 2, S = 290, each
-    wrapper in bf16 and fp32: one call raises its own counter by one and its
-    long route's count by one, nothing else; a trace of STAGE_CALLS calls
-    holds the route's kernels (GL_ROUTE_KERNELS) and no other, STAGE_CALLS
-    times its predicted CUDA launches; two runs of each backward equal bit
-    for bit."""
-    d, heads, mlp, eps, b, s = HD_TIME_D, 6, HD_TIME_MLP, 1e-12, 2, 290
-    gen = torch.Generator().manual_seed(SEED + 190)
+def gl_trace(fb, fa, dev, geom=(HD_TIME_D, 6, HD_TIME_MLP, 2, 290), routes=None,
+             seed=SEED + 190, tag="gl") -> None:
+    """Phase 19 (b) (and 20 (a) at ViT-Huge's width): at `geom` (D, heads,
+    mlp, B, S; by default ViT-Tiny's width with 6 heads, B = 2, S = 290),
+    each wrapper in bf16 and fp32: one call raises its own counter by one and
+    its long route's count by one, nothing else; a trace of STAGE_CALLS
+    calls holds the route's kernels (`routes`, GL_ROUTE_KERNELS by default)
+    and no other, STAGE_CALLS times its predicted CUDA launches; two runs of
+    each backward equal bit for bit."""
+    d, heads, mlp, b, s = geom
+    eps, routes, dh = 1e-12, routes or GL_ROUTE_KERNELS, d // heads
+    gen = torch.Generator().manual_seed(seed)
     for dtype in (torch.bfloat16, torch.float32):
         wt = tuple(t if t.dtype == torch.float32 else t.to(dtype)
                    for t in random_backbone(gen, 1, d, mlp, dev))
@@ -5120,85 +5123,98 @@ def gl_trace(fb, fa, dev) -> None:
             stage_breakdown(lambda: [fn() for _ in range(STAGE_CALLS)], totals=totals)
             traced = sum(n for _, n in totals.get("kernels", {}).values())
             names = {kernel_base(k_) for k_ in totals.get("kernels", {})}
-            route = GL_ROUTE_KERNELS[(name, fp32)]
+            route = routes[(name, fp32)]
             same = True
             if name.endswith("bwd"):
                 runs = [tensors_of(fn()) for _ in range(2)]
                 torch.cuda.synchronize()
                 same = all(torch.equal(a_, b_) for a_, b_ in zip(*runs))
                 del runs
-            log(f"[gl-launches] {name} {str(dtype)[6:]} D={d} heads={heads} B={b} S={s}: "
+            log(f"[{tag}-launches] {name} {str(dtype)[6:]} D={d} heads={heads} B={b} S={s}: "
                 f"counters {counts} (want {want}); {traced} device kernels traced over "
                 f"{STAGE_CALLS} calls (predicted {n_want}), of {sorted(names)}; two runs "
                 f"bitwise equal {same}")
             if counts != want:
                 raise AssertionError(f"one {name} call at S = {s} counted {counts}, not {want}")
             if names != route or traced != n_want:
-                raise AssertionError(f"{name} at head_dim 32, S = {s} ran {sorted(names)} "
+                raise AssertionError(f"{name} at head_dim {dh}, S = {s} ran {sorted(names)} "
                                      f"({traced} launches in {STAGE_CALLS} calls, predicted "
                                      f"{n_want}), its route {sorted(route)}")
             if not same:
-                raise AssertionError(f"{name} at head_dim 32, S = {s} is not deterministic")
+                raise AssertionError(f"{name} at head_dim {dh}, S = {s} is not deterministic")
         del wt, w, x, x2, g, q, k, v, do
         torch.cuda.empty_cache()
+
+
+def gl_check_shape(fb, fa, dev, gen, label, d, heads, b, s, dtype, note) -> None:
+    """Phase 19 (a)'s checks of the head_dim D / heads attention kernels at
+    one (B, S, dtype) (and 20 (a)'s at head_dim 80): bf16, the stage and the
+    core alone (their C entries) against their twins and fp32, the core's
+    att equal to the stage's and two core runs equal bit for bit; fp32, the
+    stage and core pair against the fp32 twins and float64; the flash pair
+    against its twins and fp32 / float64, two flash backward runs equal.
+    `note(route, dh, dt, e)` receives each route's largest absolute
+    difference from the twin."""
+    names = ("att", "dq", "dk", "dv")
+    dh = d // heads
+    thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
+    dt = "fp32" if dtype == torch.float32 else "bf16"
+    tag = f"{label} heads={heads} S={s} B={b} {dt}"
+    qkv = torch.randn(b, s, 3 * d, generator=gen).to(dtype).to(dev)
+    datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(dtype).to(dev)
+    if dt == "bf16":
+        att_f = attention_stage_call(fb, qkv, heads)
+        att_b, dqkv = attention_core_call(fb, qkv, datt, heads)
+        torch.cuda.synchronize()
+        note("attention_fwd", dh, dt, check_rel(
+            f"stage {tag}", ("att",), (att_f,), (attention_stage_plain(qkv, heads),),
+            (attention_stage_plain(qkv.float(), heads),), "gl"))
+        note("attention_bwd", dh, dt, check_rel(
+            f"core {tag}", names, thirds((att_b, dqkv)),
+            thirds(fb._attention_bwd(qkv, datt, heads)),
+            thirds(fb._attention_bwd(qkv.float(), datt.float(), heads)), "gl"))
+        again = attention_core_call(fb, qkv, datt, heads)
+        torch.cuda.synchronize()
+        same_att = torch.equal(att_b, att_f)
+        same = torch.equal(again[0], att_b) and torch.equal(again[1], dqkv)
+        log(f"[gl-bits] {tag}: core att = stage att bit for bit {same_att}; two core "
+            f"runs equal {same}")
+        if not (same_att and same):
+            raise AssertionError(f"general long attention bits ({tag}): att "
+                                 f"{same_att}, runs {same}")
+        del att_f, att_b, dqkv, again
+    else:
+        e32 = {"attention_fwd": 0.0, "attention_bwd": 0.0}
+        check_fp32_core_pair(fb, tag, qkv, datt, heads, e32)
+        for route, e in e32.items():
+            note(route, dh, dt, e)
+    del qkv, datt
+    q, k, v, do = flash_operands(gen, b, s, heads, dtype, dev, dh)
+    for route, e in check_flash(f"gl {tag}", q, k, v, do).items():
+        note(route, dh, dt, e)
+    runs = [fa.flash_bwd(q, k, v, do) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(x_, y_) for x_, y_ in zip(*runs)):
+        raise AssertionError(f"the flash backward is not deterministic ({tag})")
+    del q, k, v, do, runs
+    torch.cuda.empty_cache()
 
 
 def gl_kernels(fb, fa, dev) -> dict:
     """Phase 19 (a), the kernels alone. Returns {(route, head_dim, dtype):
     largest absolute difference from the twin}."""
     errs = {}
-    names = ("att", "dq", "dk", "dv")
 
     def note(route, dh, dt, e):
         errs[(route, dh, dt)] = max(errs.get((route, dh, dt), 0.0), e)
 
     for label, d, heads, _ in GL_GEOMS:
-        dh, gen = d // heads, torch.Generator().manual_seed(SEED + 19 + d + heads)
-        thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
+        gen = torch.Generator().manual_seed(SEED + 19 + d + heads)
         wide = d == HD_TIME_D
         shapes = [(b, s, dt) for b, s in GL_KERNEL_SHAPES + GL_MAIN_SHAPES.get((d, heads), ())
                   + (GL_LONGEST_SHAPES if wide else ()) for dt in (torch.bfloat16, torch.float32)]
         for b, s, dtype in shapes + [(b, s, torch.float32) for b, s in GL_F32_SHAPES if wide]:
-            dt = "fp32" if dtype == torch.float32 else "bf16"
-            tag = f"{label} heads={heads} S={s} B={b} {dt}"
-            qkv = torch.randn(b, s, 3 * d, generator=gen).to(dtype).to(dev)
-            datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(dtype).to(dev)
-            if dt == "bf16":
-                att_f = attention_stage_call(fb, qkv, heads)
-                att_b, dqkv = attention_core_call(fb, qkv, datt, heads)
-                torch.cuda.synchronize()
-                note("attention_fwd", dh, dt, check_rel(
-                    f"stage {tag}", ("att",), (att_f,), (attention_stage_plain(qkv, heads),),
-                    (attention_stage_plain(qkv.float(), heads),), "gl"))
-                note("attention_bwd", dh, dt, check_rel(
-                    f"core {tag}", names, thirds((att_b, dqkv)),
-                    thirds(fb._attention_bwd(qkv, datt, heads)),
-                    thirds(fb._attention_bwd(qkv.float(), datt.float(), heads)), "gl"))
-                again = attention_core_call(fb, qkv, datt, heads)
-                torch.cuda.synchronize()
-                same_att = torch.equal(att_b, att_f)
-                same = torch.equal(again[0], att_b) and torch.equal(again[1], dqkv)
-                log(f"[gl-bits] {tag}: core att = stage att bit for bit {same_att}; two core "
-                    f"runs equal {same}")
-                if not (same_att and same):
-                    raise AssertionError(f"general long attention bits ({tag}): att "
-                                         f"{same_att}, runs {same}")
-                del att_f, att_b, dqkv, again
-            else:
-                e32 = {"attention_fwd": 0.0, "attention_bwd": 0.0}
-                check_fp32_core_pair(fb, tag, qkv, datt, heads, e32)
-                for route, e in e32.items():
-                    note(route, dh, dt, e)
-            del qkv, datt
-            q, k, v, do = flash_operands(gen, b, s, heads, dtype, dev, dh)
-            for route, e in check_flash(f"gl {tag}", q, k, v, do).items():
-                note(route, dh, dt, e)
-            runs = [fa.flash_bwd(q, k, v, do) for _ in range(2)]
-            torch.cuda.synchronize()
-            if not all(torch.equal(x_, y_) for x_, y_ in zip(*runs)):
-                raise AssertionError(f"the flash backward is not deterministic ({tag})")
-            del q, k, v, do, runs
-            torch.cuda.empty_cache()
+            gl_check_shape(fb, fa, dev, gen, label, d, heads, b, s, dtype, note)
     return errs
 
 
@@ -5207,7 +5223,7 @@ def gl_limit(fb, dev) -> None:
     longest S against its twin; one query past it refused by the C entry
     (no launch) and by the wrappers' check."""
     lib = fb._load("attn_bwd")
-    limit, d, heads = lib.vit2spn_attention_core_max_seq(), 32, 2
+    limit, d, heads = lib.vit2spn_attention_core_max_seq(16), 32, 2
     if limit != fb.LONG_CORE_MAX_SEQ:
         raise AssertionError(f"the core's S limit is {limit}, ops/fused_block.py says "
                              f"{fb.LONG_CORE_MAX_SEQ}")
@@ -5522,12 +5538,567 @@ def general_long_in_child() -> list:
     return json.loads(lines[-2])["kernels"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: ViT-Huge/14 (Dosovitskiy et al. 2021, Table 1: 32 layers, D
+# 1280, mlp 5120, 16 heads of 80, 632M parameters; HF
+# google/vit-huge-patch14-224-in21k; at 224 px with patch 14, S = 257) at
+# full width, through the dotted overrides. Head_dim 80 has no register-row
+# attention kernels: the bf16 attention runs csrc/general_long.cuh's streamed
+# kernels at every S (gl_fwd_kernel<80, *>, gl_core_kernel<80>,
+# gl_flash_rows_kernel<80> / _cols_kernel<80>), the fp32 attention
+# csrc/flash_f32.cuh's multi-pass route on DH 80; the LayerNorm rows keep 40
+# values a lane (csrc/common.cuh LN_PL_HUGE); every GEMM is common.cuh's
+# mma.sync (the general route). In a process of its own (`chip_smoke.py
+# --vit-huge`), after phase 19 and before phase 13:
+# (a) the new kernels' ptxas registers and spills; the trace of gl_trace at
+# D 1280, 16 heads, B = 2, S = 257 (every wrapper in bf16 and fp32 runs its
+# route's kernels and no other, STAGE_CALLS times the predicted launches;
+# one call raises its counter and its long route's by one; two backward
+# runs equal); at VH_SHAPES (a ragged B at S = 17, the training shape B =
+# 64 at S = 257) and the serving shape (forward only): backbone_fwd at 32
+# layers against its twin (VH_FWD_REL_TOL) and as close to fp32 as the
+# twin, layer_fwd, mlp_bwd, attn_bwd, merged_bwd (equal to the split pair
+# bit for bit) against their twins, at the training shape also as close to
+# fp32 as the twins, 32 fused_block calls equal to one fused_backbone, the
+# C entries' CUDA launches as predicted, two runs of every backward equal,
+# the flash pair at head_dim 80 against its twins and float64, and fp32
+# (the four layer kernels and the flash pair) against their fp32 twins and
+# float64; the head_dim-80 attention kernels alone at VH_LONG (S = 577,
+# 1,024) in bf16 and fp32 (gl_check_shape); the core's S limit at head_dim
+# 80 (13,696) held at its edge; D = 1280 as 20 heads of 64 (the fast route
+# at the widest LayerNorm row), 2 layers; head_dim 96 and D = 1312 refused
+# by the C entries and geometry_route.
+# (b) `ssp-scratch` with VH_OVERRIDES, bf16, 2 x 64 images a step,
+# VH_TRAIN_LAYERS deep on one trainer: step 1 of "fused" against "xla" and
+# fp32 "xla" (zoo_step_check), then fits through "fused", merged,
+# "fused_layer", "pallas", and one fp32 step of "fused" and of "pallas",
+# every counter as predicted, each path's peak device memory; the "fused" step's wall, device
+# time by wrapper and card idle. (c) extract at batch 256 through "fused"
+# against the plain path. (d) the times: zoo_times at S = 257 (the 32-layer
+# forward at B = 256, the layer kernels at B = 64) and the flash pair at B
+# = 64 beside SDPA (bf16, and on fp32 copies). `python3 chip_smoke.py
+# --vit-huge` runs the build and this phase alone.
+VH_LABEL, VH_D, VH_HEADS, VH_MLP, VH_LAYERS = "ViT-Huge/14", 1280, 16, 5120, 32
+VH_OVERRIDES = ("vit.hidden_size=1280", "vit.num_heads=16", "vit.mlp_dim=5120",
+                "vit.num_layers=32", "vit.patch_size=14")
+VH_S, VH_MICRO, VH_ACCUM = 257, 64, 2
+VH_SHAPES = ((3, 17, True), (VH_MICRO, VH_S, False))  # (B, S, fast gelu)
+VH_SERVE = (BATCH, VH_S, True)
+# The 32-layer forward against its twin, relative to the twin's largest
+# magnitude: ZOO_FWD_REL_TOL, set at 12 layers, scaled by 32 / 12 (rounded
+# up) for the depth, as VL_FWD_REL_TOL scales it for 24; the kernel must
+# also be as close to fp32 as the twin (KERNEL_VS_FP32_RATIO) at every shape
+VH_FWD_REL_TOL = (5.4e-2, 5.4e-3)
+VH_LONG = ((2, 577), (1, 1024))  # (B, S) of the attention kernels alone
+VH_FAST_WIDE = ("D=1280 20 heads of 64", 1280, 20, 5120, 3, 197)
+# refused: head_dim 96 (only the head_dim bounds it) and D = 1312 (41 heads
+# of 32: only the LayerNorm row bounds it), with geometry_route's reason
+VH_REFUSED = (("head_dim 96", 768, 8, 3072, "head_dim in"),
+              ("D=1312", 1312, 41, 5248, f"D <= {1280}"))
+# (b) trains 8 of the 32 layers: at 32 the step-1 check's copies of the
+# 632M-parameter state (Adam's moments, three paths' updates) filled the
+# 80 GB card, and its host init alone took 29.5 s (H100 80GB HBM3 host);
+# every kernel and route of the step is the same at 8 layers. (c) serves
+# the full 32 layers from a trainer of its own.
+VH_TRAIN_LAYERS = 8
+VH_EXTRACT = 512
+VH_CHILD_TIMEOUT = 900  # s
+VH_NEW_KERNELS = GL_NEW_KERNELS + ("layernorm_kernel", "ln_bwd_kernel")
+# the route each wrapper runs at D 1280, 16 heads (head_dim 80): the general
+# route's sequences (the MLP half too, D 1280 having no kit route), the
+# streamed attention kernels at every S
+VH_ROUTE_KERNELS = dict(GL_ROUTE_KERNELS)
+VH_ROUTE_KERNELS[("mlp_bwd", 0)] = HD_SEQ_BWD | {"gemm_kernel"}
+VH_ROUTE_KERNELS[("merged_bwd", 0)] = (VH_ROUTE_KERNELS[("mlp_bwd", 0)]
+                                       | VH_ROUTE_KERNELS[("attn_bwd", 0)])
+
+
+def vh_ptxas(libs) -> None:
+    """The registers and spill stores of the head_dim-80 instantiations and
+    of the LayerNorm kernels at 40 values a lane."""
+    for name, lib in libs.items():
+        text = open(f"{lib}.log").read()
+        for line in ptxas_report(text, None, head_dims=True):
+            if line.split("<")[0] in GL_NEW_KERNELS and "<80" in line:
+                log(f"[vh-build] {name}: {line}")
+        for line in ptxas_report(text, None):
+            if line.split("<")[0] in ("layernorm_kernel", "ln_bwd_kernel"):
+                log(f"[vh-build] {name}: {line}")
+
+
+def vh_counted_twice(fb, name, fn, n_cuda, want) -> None:
+    """Two runs of wrapper `name` equal bit for bit, one call raising its
+    counter by one, and its C entry's CUDA launches `n_cuda` as predicted."""
+    runs = [tensors_of(fn()) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs
+    reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in read_launches().items() if n and not k.endswith("(S>256)")}
+    log(f"[vh] {name}: two runs bitwise equal {same}; one call counted {counts}; {n_cuda} CUDA "
+        f"launches (predicted {want})")
+    if not same or counts != {name: 1} or n_cuda != want:
+        raise AssertionError(f"{name} at ViT-Huge: equal {same}, counted {counts}, "
+                             f"{n_cuda} CUDA launches (predicted {want})")
+
+
+def vh_kernels(fb, fa, dev, wt) -> dict:
+    """Phase 20 (a) at D 1280, 16 heads, mlp 5120, on the 32 layers `wt`.
+    Returns {kernel: largest absolute difference from the twin} (bf16; fp32
+    under "<kernel> (fp32)")."""
+    eps, d, heads, mlp = 1e-12, VH_D, VH_HEADS, VH_MLP
+    gen = torch.Generator().manual_seed(SEED + 20)
+    w0 = tuple(t[0] for t in wt)
+    w = layer_weights(fb.WEIGHT_NAMES, wt)
+    errs = {}
+
+    def note(k, e):
+        errs[k] = max(errs.get(k, 0.0), e)
+
+    for b, s, fast in VH_SHAPES + (VH_SERVE,):
+        t0 = time.perf_counter()
+        x, x2, g = (torch.randn(b, s, d, generator=gen) for _ in range(3))
+        x, x2, g = (t.to(torch.bfloat16).to(dev) for t in (x, x2, 0.1 * g))
+        tag = f"{VH_LABEL} B={b} S={s} fast_gelu={fast}"
+        note("backbone_fwd", check_backbone_fwd(tag, fb, x, wt, heads, eps, fast,
+                                                VH_FWD_REL_TOL))
+        if (b, s, fast) == VH_SERVE:
+            log(f"[vh] (a) {tag}: {time.perf_counter() - t0:.1f} s")
+            break
+        train = b == VH_MICRO
+        note("layer_fwd", check_layer_fwd(tag, fb, x, w0, heads, eps, fast, train))
+        for k, v in check_layer_bwd(tag, fb, x, g, w, heads, eps, fast,
+                                    against_fp32=train).items():
+            note(k, v)
+        note("merged_bwd", check_merged_bwd(tag, fb, x, x2, g, w, heads, eps, fast, True))
+        if not train:
+            log(f"[vh] (a) {tag}: {time.perf_counter() - t0:.1f} s")
+            continue
+        with torch.no_grad():
+            h = x
+            for l in range(VH_LAYERS):
+                h = fb.fused_block(h, tuple(t[l] for t in wt), heads, eps, fast)
+            share = equal_bits(h, fb.fused_backbone(x, wt, heads, eps, fast))
+        log(f"[vh] {tag}: {VH_LAYERS} fused_block calls vs one fused_backbone: "
+            f"{100.0 * share:.4f}% of the outputs equal bit for bit (must be 100%)")
+        if share != 1.0:
+            raise AssertionError("the per-layer forward differs from the backbone at D=1280")
+        del h
+        calls = {"backbone_fwd": lambda: fb.fused_backbone(x, wt, heads, eps, fast, True),
+                 "layer_fwd": lambda: fb.layer_fwd(x, w0, heads, eps, fast),
+                 "mlp_bwd": lambda: fb.mlp_bwd(x2, g, w, eps, fast),
+                 "attn_bwd": lambda: fb.attn_bwd(x, g, w, heads, eps),
+                 "merged_bwd": lambda: fb.merged_bwd(x, x2, g, w, heads, eps, fast)}
+        for name, fn in calls.items():
+            n_cuda = (VH_LAYERS * fb.kernel_launches_per_layer(d, False, heads, mlp)
+                      if name == "backbone_fwd"
+                      else fb.cuda_launches(name, None, d, 0, heads=heads, mlp=mlp))
+            want = hd_predicted_launches(name, d, heads, mlp, 0) * (
+                VH_LAYERS if name == "backbone_fwd" else 1)
+            vh_counted_twice(fb, name, fn, n_cuda, want)
+        # the flash pair at head_dim 80, bf16 and fp32
+        q, k, v, do = flash_operands(gen, b, s, heads, torch.bfloat16, dev, d // heads)
+        for name, e in check_flash(f"{VH_LABEL} B={b} S={s}", q, k, v, do).items():
+            note(name, e)
+            vh_counted_twice(fb, name, (lambda: fa.flash_fwd(q, k, v)) if name == "flash_fwd"
+                             else (lambda: fa.flash_bwd(q, k, v, do)),
+                             fb.cuda_launches(name, fa.KERNEL_NAME),
+                             hd_predicted_launches(name, d, heads, mlp, 0))
+        for name, e in check_flash(f"{VH_LABEL} fp32 B={b} S={s}",
+                                   *(t.float() for t in (q, k, v, do))).items():
+            note(f"{name} (fp32)", e)
+        del q, k, v, do
+        for k_, e in check_fp32_layer(f"{VH_LABEL} fp32 B={b} S={s}", fb, x.float(),
+                                      x2.float(), g.float(), w, heads, eps, fast).items():
+            note(f"{k_} (fp32)", e)
+        log(f"[vh] (a) {tag}: {time.perf_counter() - t0:.1f} s")
+    del w0, w, x, x2, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def vh_long(fb, fa, dev) -> dict:
+    """Phase 20 (a): the head_dim-80 attention kernels alone at D 1280, 16
+    heads, at VH_LONG, bf16 and fp32 (gl_check_shape). Returns {(route,
+    80, dtype): largest absolute difference from the twin}."""
+    errs = {}
+
+    def note(route, dh, dt, e):
+        errs[(route, dh, dt)] = max(errs.get((route, dh, dt), 0.0), e)
+
+    gen = torch.Generator().manual_seed(SEED + 201)
+    for b, s in VH_LONG:
+        for dtype in (torch.bfloat16, torch.float32):
+            gl_check_shape(fb, fa, dev, gen, VH_LABEL, VH_D, VH_HEADS, b, s, dtype, note)
+    return errs
+
+
+def vh_limit(fb, dev) -> None:
+    """Phase 20 (a): the bf16 core's S limit at head_dim 80 as the C entry
+    and ops/fused_block.py state it; the core at that S (D 160, 2 heads)
+    against its twin; one query past it refused by the C entry (no launch)
+    and by the wrappers' check."""
+    lib = fb._load("attn_bwd")
+    limit, d, heads = lib.vit2spn_attention_core_max_seq(80), 160, 2
+    if limit != fb.attention_core_max_seq(80):
+        raise AssertionError(f"the core's S limit at head_dim 80 is {limit}, "
+                             f"ops/fused_block.py says {fb.attention_core_max_seq(80)}")
+    gen = torch.Generator().manual_seed(SEED + 202)
+    qkv = (0.5 * torch.randn(1, limit, 3 * d, generator=gen)).to(torch.bfloat16).to(dev)
+    datt = (0.1 * torch.randn(1, limit, d, generator=gen)).to(torch.bfloat16).to(dev)
+    t0 = time.perf_counter()
+    got = attention_core_call(fb, qkv, datt, heads)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    thirds = lambda t: (t[0], *t[1].split(d, dim=-1))  # noqa: E731
+    check_rel(f"core at its longest S={limit}, head_dim 80 ({secs:.2f} s)",
+              ("att", "dq", "dk", "dv"), thirds(got),
+              thirds(fb._attention_bwd(qkv, datt, heads)),
+              thirds(fb._attention_bwd(qkv.float(), datt.float(), heads)), "vh")
+    del qkv, datt, got
+    torch.cuda.empty_cache()
+    over = torch.zeros(1, limit + 1, 3 * d, dtype=torch.bfloat16, device=dev)
+    x = torch.zeros(1, limit + 1, d, dtype=torch.bfloat16, device=dev)
+    rc = lib.vit2spn_attention_core(over.data_ptr(), x.data_ptr(), x.data_ptr(), over.data_ptr(),
+                                    1, limit + 1, heads, d, fb._stream(dev))
+    try:
+        fb._check_layer_inputs(x, x, {}, fb.ATTN_NAMES, heads, {})
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    log(f"[vh-limit] head_dim 80: the core takes S <= {limit}; at S={limit + 1} the C entry "
+        f"returns {rc} without a launch and the wrappers' check raises: {raised}")
+    if rc == 0 or f"S <= {limit}" not in raised:
+        raise AssertionError(f"S = {limit + 1} at head_dim 80 was not refused (rc {rc}, check "
+                             f"{raised!r})")
+    del over, x
+    torch.cuda.empty_cache()
+
+
+def vh_fast_wide(fb, dev) -> None:
+    """Phase 20 (a): D 1280 as 20 heads of 64 (the fast route: the forward's
+    seven launches on tile_gemm.cuh, the backward's mma.sync sequences, at
+    the widest LayerNorm row), 2 layers, against the twins."""
+    label, d, heads, mlp, b, s = VH_FAST_WIDE
+    eps = 1e-12
+    if fb.geometry_route(d, heads, mlp, s) != (fb.ROUTE_FAST, ""):
+        raise AssertionError(f"{label} does not take the fast route")
+    gen = torch.Generator().manual_seed(SEED + 203)
+    wt = random_backbone(gen, 2, d, mlp, dev)
+    w = layer_weights(fb.WEIGHT_NAMES, wt)
+    x, x2, g = (torch.randn(b, s, d, generator=gen) for _ in range(3))
+    x, x2, g = (t.to(torch.bfloat16).to(dev) for t in (x, x2, 0.1 * g))
+    tag = f"{label} mlp={mlp} B={b} S={s}"
+    check_backbone_fwd(tag, fb, x, wt, heads, eps, True)
+    check_layer_bwd(tag, fb, x, g, w, heads, eps, True, against_fp32=True)
+    check_merged_bwd(tag, fb, x, x2, g, w, heads, eps, True, True)
+    del wt, w, x, x2, g
+    torch.cuda.empty_cache()
+
+
+def vh_refused(fb, dev) -> None:
+    """Phase 20 (a): VH_REFUSED returned as errors by every layer kernel's
+    C entry (and, for the head_dim, the flash pair's) before any launch, and
+    refused by geometry_route with its reason."""
+    eps, st = 1e-12, fb._stream(dev)
+    for label, d, heads, mlp, reason in VH_REFUSED:
+        b, s = 2, 197
+        m = b * s
+        rcs = {
+            "backbone_fwd": fb._load("backbone_fwd").vit2spn_backbone_fwd(
+                *[None] * 21, b, s, d, heads, mlp, 1, eps, 1, st),
+            "layer_fwd": fb._load("layer_fwd").vit2spn_layer_fwd(
+                *[None] * 20, b, s, d, heads, mlp, eps, 1, st),
+            "attn_bwd": fb._load("attn_bwd").vit2spn_attn_bwd(*[None] * 21, b, s, d, heads, eps,
+                                                              0, st),
+            "merged_bwd": fb._load("merged_bwd").vit2spn_merged_bwd(
+                *[None] * 37, b, s, d, heads, mlp, eps, 1, 0, st),
+        }
+        if d > fb.KERNEL_MAX_D:
+            rcs["mlp_bwd"] = fb._load("mlp_bwd").vit2spn_mlp_bwd(*[None] * 19, m, d, mlp, eps,
+                                                                 1, 0, st)
+        else:
+            dh = d // heads
+            rcs["flash_fwd"] = fb._load("flash_attention").vit2spn_flash_fwd(
+                *[None] * 4, b, s, heads, dh, s * 3 * d, 3 * d, 0, st)
+        torch.cuda.synchronize()
+        route, why = fb.geometry_route(d, heads, mlp, s)
+        log(f"[vh] {label} (D={d}, {heads} heads of {d // heads}, mlp {mlp}): the C entries "
+            f"return {rcs}; geometry_route: {route}, {why!r}")
+        if not all(rcs.values()) or route is not None or reason not in why:
+            raise AssertionError(f"{label} was not refused ({rcs}, {route}, {why!r})")
+
+
+def vh_card_backbone(vit, seed) -> dict:
+    """A ViT backbone of `vit`'s shape drawn on the card from `seed`: the
+    block matrices normal with std 0.02 (as random_backbone's), LN 1 and 0,
+    biases 0, the rest as init_vit draws it at one layer. (c)'s trainer
+    takes it as its backbone (the pretrained path's `backbone_params`):
+    its own init draws every net's truncated normals on the host, 27-30 s
+    at 32 layers on the H100 80GB HBM3's host)."""
+    from vit2spn_tpu_torch.core.config import replace
+    from vit2spn_tpu_torch.models.vit import init_vit
+
+    p = init_vit(torch.Generator().manual_seed(seed), replace(vit, num_layers=1), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, t in p["blocks"].items():
+        shape = (vit.num_layers, *t.shape[1:])
+        p["blocks"][name] = (0.02 * torch.randn(shape, generator=gen, device="cuda")
+                             if name in ("wqkv", "wo", "w1", "w2")
+                             else t.expand(shape).contiguous())
+    return p
+
+
+def vh_training(card) -> dict:
+    """Phase 20 (b) on one SSPTrainer of `ssp-scratch` with the ViT-Huge/14
+    overrides, VH_TRAIN_LAYERS deep: step 1 (zoo_step_check);
+    `fit` through "fused" (two steps), merged, "fused_layer", "pallas", fp32
+    "fused" and fp32 "pallas" (one step each), every counter as predicted, each path's
+    peak device memory; the "fused" step's wall, device time by wrapper and
+    card idle; then (c) on a trainer of all 32 layers, extract of
+    VH_EXTRACT images at batch 256 through "fused" against the plain path.
+    Returns the launches of (b)'s runs by kernel (fp32 under "<kernel>
+    (fp32)")."""
+    from vit2spn_tpu_torch.cli import _apply_overrides
+    from vit2spn_tpu_torch.core.presets import get_preset
+    from vit2spn_tpu_torch.data.datasets import synthetic_dataset
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+    from vit2spn_tpu_torch.train.ssp import SSPTrainer
+    from vit2spn_tpu_torch.utils.logging import MetricLogger
+
+    over = [*VH_OVERRIDES, f"batch_size={VH_MICRO}", f"accumulation_steps={VH_ACCUM}"]
+    if VH_TRAIN_LAYERS != VH_LAYERS:
+        over.append(f"vit.num_layers={VH_TRAIN_LAYERS}")
+    cfg = _apply_overrides(get_preset("ssp-scratch"), over)
+    vit = cfg.vit
+    geom = (vit.hidden_size, vit.num_heads, vit.head_dim, vit.mlp_dim, vit.num_layers,
+            vit.image_size, vit.patch_size, vit.seq_len, cfg.compute_dtype)
+    if geom != (VH_D, VH_HEADS, 80, VH_MLP, VH_TRAIN_LAYERS, 224, 14, VH_S, "bfloat16"):
+        raise AssertionError(f"the ViT-Huge/14 overrides gave {geom}")
+    eff, a, layers = cfg.effective_batch, cfg.accumulation_steps, vit.num_layers
+    t0 = time.perf_counter()
+    tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), attn_impl="fused", device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in flat_tensors(tr.params.online).values()) // 2
+    log(f"[vh] (b) {VH_LABEL} SSP: D={VH_D}, {VH_HEADS} heads of 80, mlp {VH_MLP}, {layers} "
+        f"layers{'' if layers == VH_LAYERS else f' (cut from {VH_LAYERS})'}, S={vit.seq_len}, "
+        f"{a} x {cfg.batch_size} (cut from 8 x 128), bf16; one trainer, {n_params} params a "
+        f"backbone, built in {time.perf_counter() - t0:.1f} s")
+    tds = synthetic_dataset(split_sizes={"train": 2 * eff}, image_size=28,
+                            seed=SEED + 20).split("train")
+    t0 = time.perf_counter()
+    zoo_step_check(tr, cfg, tds.images[:eff], VH_LABEL)
+    log(f"[vh] (b) step 1 checks in {time.perf_counter() - t0:.1f} s")
+    long_fwd, long_bwd = 2 * 2 * a * layers, 2 * a * layers
+    fwd = {KERNEL_NAME: 2 * 2 * a, "attention_fwd (S>256)": long_fwd}
+    split = {"mlp_bwd": 2 * a * layers, "attn_bwd": 2 * a * layers,
+             "attention_bwd (S>256)": long_bwd}
+    merged = {"merged_bwd": 2 * a * layers, "attention_bwd (S>256)": long_bwd}
+    layer = {"layer_fwd": long_fwd, "attention_fwd (S>256)": long_fwd, **split}
+    flash = {"flash_fwd": long_fwd, "flash_bwd": long_bwd, "flash_fwd (S>256)": long_fwd,
+             "flash_bwd (S>256)": long_bwd}
+    one = tds.subset(np.arange(eff))
+    total = {}
+    for impl, merged_bwd, fp32, images, per_step in (
+            ("fused", False, False, tds, {**fwd, **split}),
+            ("fused", True, False, one, {**fwd, **merged}),
+            ("fused_layer", False, False, one, layer),
+            ("pallas", False, False, one, flash),
+            ("fused", False, True, one, {**fwd, **split}),
+            ("pallas", False, True, one, flash)):
+        pcfg = replace_cfg(cfg, compute_dtype="float32") if fp32 else cfg
+        use_path(tr, pcfg, impl)
+        torch.cuda.reset_peak_memory_stats()
+        _, n, _ = fit_path(pcfg, images, impl, merged_bwd, per_step, trainer=tr)
+        log(f"[vh] (b) {path_name(impl, merged_bwd, pcfg)}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {card}")
+        for k_, v_ in n.items():
+            key = f"{k_} (fp32)" if fp32 else k_
+            total[key] = total.get(key, 0) + v_
+        if impl == "fused" and not (merged_bwd or fp32):  # the step's time by wrapper
+            totals = {}
+            wrappers = (KERNEL_NAME, "mlp_bwd", "attn_bwd")
+            step_s = time_steps(tr, eff, f"fused {VH_LABEL}", card, wrappers,
+                                "views, embed, heads, loss, Adam, EMA", reps=2, totals=totals)
+            device = totals.get("device", float("nan"))
+            by = {w_: totals.get(f"vit2spn::{w_}", float("nan")) for w_ in wrappers}
+            log(f"[vh] (b) fused {VH_LABEL} step ({eff} images, {layers} layers): wall "
+                f"{1e3 * step_s:.2f} ms, {eff / step_s:.1f} img/s, device {device:.3f} ms "
+                f"({', '.join(f'{w_} {ms:.3f}' for w_, ms in by.items())}, the rest "
+                f"{device - sum(by.values()):.3f}), card idle "
+                f"{100 * (1 - device / (1e3 * step_s)):.1f}% on {card}")
+        os.environ["VIT2SPN_MERGED_BWD"] = "0"
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) extract through "fused" at all 32 layers, against the plain path
+    cfg = _apply_overrides(get_preset("ssp-scratch"), list(VH_OVERRIDES))
+    layers = cfg.vit.num_layers
+    t0 = time.perf_counter()
+    tr = SSPTrainer(cfg, backbone_params=vh_card_backbone(cfg.vit, SEED + 205),
+                    logger=MetricLogger(echo=False), attn_impl="fused", device="cuda")
+    torch.cuda.synchronize()
+    log(f"[vh] (c) a {layers}-layer trainer built in {time.perf_counter() - t0:.1f} s (its "
+        f"backbone drawn on the card, init {tr.init_provenance!r})")
+    ds = synthetic_dataset(split_sizes={"all": VH_EXTRACT}, image_size=28, seed=SEED)
+    tr.extract_features(ds, batch_size=BATCH)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    feats, _ = tr.extract_features(ds, batch_size=BATCH)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k_: n_ for k_, n_ in read_launches().items() if n_}
+    calls = 2 * -(-VH_EXTRACT // BATCH)  # dual stream
+    want = {KERNEL_NAME: calls, "attention_fwd (S>256)": calls * layers}
+    totals = {}
+    lines = stage_breakdown(lambda: tr.extract_features(ds, batch_size=BATCH),
+                            f"{VH_LABEL} extract of {len(ds)} images", top=6,
+                            wrappers=(KERNEL_NAME,), rest="views, embed, heads", totals=totals)
+    tr.attn_impl = "plain"
+    plain, _ = tr.extract_features(ds, batch_size=BATCH)
+    scale, err = float(np.abs(plain).max()), float(np.abs(feats - plain).max())
+    log(f"[vh] (c) {VH_LABEL} extract at batch {BATCH}, {layers} layers: {feats.shape} features "
+        f"in {secs:.3f} s, {len(ds) / secs:.1f} img/s, launches {launches} (want {want}); "
+        f"forward device {totals.get('vit2spn::' + KERNEL_NAME, float('nan')):.3f} ms of "
+        f"{totals.get('device', float('nan')):.3f} ms; vs plain max_abs_err {err:.6g} (max "
+        f"|plain| {scale:.4g}, tol {FEATURE_REL_TOL} relative) on {card}")
+    for line in lines:
+        log(line)
+    if launches != want:
+        raise AssertionError(f"{VH_LABEL} extract launched {launches}, not {want}")
+    if feats.shape != (len(ds), cfg.proj_dim) or not np.isfinite(feats).all():
+        raise AssertionError(f"{VH_LABEL} extract: bad features {feats.shape}")
+    if not err <= FEATURE_REL_TOL * scale:
+        raise AssertionError(f"{VH_LABEL} features disagree with the plain path")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def vh_flash_times(fb, fa, card, dev, launches, errs) -> list:
+    """Phase 20 (d) for the flash pair at head_dim 80, B = 64, S = 257, 16
+    heads: kernel, twin, bf16 SDPA (its backward), SDPA on fp32 copies (the
+    same function) and the bound; then the fp32 route on fp32 copies beside
+    fp32 SDPA."""
+    gen = torch.Generator().manual_seed(SEED + 204)
+    b, s, heads, dh = VH_MICRO, VH_S, VH_HEADS, VH_D // VH_HEADS
+    entries = []
+    for dtype in (torch.bfloat16, torch.float32):
+        fp32 = dtype == torch.float32
+        q, k, v, do = flash_operands(gen, b, s, heads, dtype, dev, dh)
+        lib_bwd, _ = library_flash_bwd(q, k, v, do)
+        same = check_same_fn_yardstick(q, k, v, do) if not fp32 else (None, None)
+        for (name, replaces, kind, kernel, twin, library), same_fn in zip((
+                ("flash_fwd", "vit2spn_tpu/ops/flash_attention.py:36", "fwd",
+                 lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+                 lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))),
+                ("flash_bwd", "vit2spn_tpu/ops/flash_attention.py:53", "bwd",
+                 lambda: fa.flash_bwd(q, k, v, do),
+                 lambda: fa.flash_attention_bwd_plain(q, k, v, do), lib_bwd)), same):
+            b_ms, b_by, b_flops = flash_bound_ms(kind, b, s, heads, fp32, dh)
+            k_ms = time_ms(kernel)
+            p_ms = time_ms(twin, iters=5, warmup=1)
+            with torch.no_grad() if kind == "fwd" else torch.enable_grad():
+                l_ms = time_ms(library)
+                s_ms = time_ms(same_fn) if same_fn else None
+            n_cuda = fb.cuda_launches(name, fa.KERNEL_NAME)
+            key = f"{name} (fp32)" if fp32 else name
+            log(f"[vh-time] {VH_LABEL} {key} B={b} S={s} heads={heads} head_dim {dh}: kernel "
+                f"{k_ms:.4f} ms ({n_cuda} CUDA launches), plain twin {p_ms:.3f} ms, "
+                f"{'fp32' if fp32 else 'bf16'} SDPA {l_ms:.4f} ms"
+                + (f", SDPA on fp32 copies (same fn) {s_ms:.4f} ms" if s_ms else "")
+                + f", bound {b_ms:.4f} ms ({b_by}; {b_flops / 1e9:.2f} GFLOP), kernel at "
+                f"{b_flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the "
+                f"bound; {card}")
+            entries.append({
+                "name": f"{key} (hd 80, D={VH_D})", "route": "cuda",
+                "source": ("vit2spn_tpu_torch/csrc/flash_f32.cuh" if fp32
+                           else "vit2spn_tpu_torch/csrc/general_long.cuh"),
+                "replaces": replaces, "launches": launches.get(key, 0),
+                "max_abs_err": errs.get(key), "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": l_ms, "library_same_fn_ms": s_ms,
+                "cuda_launches": n_cuda, "dtype": str(dtype)[6:],
+            })
+        del q, k, v, do, lib_bwd, same
+        torch.cuda.empty_cache()
+    return entries
+
+
+def vit_huge_path(fb, fa, card, dev, libs=None) -> list:
+    """Phase 20, ViT-Huge/14: (a) the kernels at D 1280 and head_dim 80
+    against their twins, (b) SSP training, (c) extract, (d) the times.
+    Returns (d)'s {"kernels": [...]} entries, each kernel's `launches` from
+    (b); a kernel of the path that (b) never launched fails the phase."""
+    t_phase = time.perf_counter()
+    if libs:
+        vh_ptxas(libs)
+    gl_trace(fb, fa, dev, (VH_D, VH_HEADS, VH_MLP, 2, VH_S), VH_ROUTE_KERNELS, SEED + 200, "vh")
+    log(f"[vh] (a) the trace in {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    # one draw of the 32 layers for (a) and (d): ~10 s of host RNG each
+    wt = random_backbone(torch.Generator().manual_seed(SEED + VH_D), VH_LAYERS, VH_D, VH_MLP,
+                         dev)
+    errs = vh_kernels(fb, fa, dev, wt)
+    log(f"[vh] (a) the wrappers in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    long_errs = vh_long(fb, fa, dev)
+    log(f"[vh] (a) the attention kernels at S = {[s for _, s in VH_LONG]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vh_limit(fb, dev)
+    log(f"[vh] (a) the core's limit in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vh_fast_wide(fb, dev)
+    vh_refused(fb, dev)
+    log(f"[vh] (a) the fast route at D 1280 and the refusals in "
+        f"{time.perf_counter() - t0:.1f} s; largest absolute differences from the twins "
+        f"{ {k: round(e, 6) for k, e in errs.items()} }, the attention kernels alone "
+        f"{ {f'{k_} {dt} hd{dh}': round(e, 6) for (k_, dh, dt), e in long_errs.items()} }")
+    t0 = time.perf_counter()
+    launches = vh_training(card)
+    log(f"[vh] (b), (c) in {time.perf_counter() - t0:.1f} s; launches {launches}")
+    t0 = time.perf_counter()
+    entries = zoo_times(fb, card, dev, {VH_D: launches}, {VH_D: errs},
+                        widths=[(VH_LABEL, VH_D, VH_HEADS, VH_MLP, VH_LAYERS)], s=VH_S,
+                        b_layer=VH_MICRO, fwd_iters=5, weights=wt)
+    del wt
+    entries += vh_flash_times(fb, fa, card, dev, launches, errs)
+    log(f"[vh] (d) in {time.perf_counter() - t0:.1f} s; phase 20 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for e in entries:
+        if not e["launches"]:
+            raise AssertionError(f"{e['name']} was never launched on the main path")
+    return entries
+
+
+def vit_huge_in_child() -> list:
+    """Phase 20 in a process of its own (`chip_smoke.py --vit-huge`, the
+    kernels already built on disk), as phases 18 and 19: its traces count
+    device kernels, which a trace late in this process drops. Its lines are
+    logged here but its last two: its `kernels` line, whose entries this
+    returns, and its `ok` line."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--vit-huge"],
+                          capture_output=True, text=True, timeout=VH_CHILD_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-2] if proc.returncode == 0 else lines:
+        log(line)
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0 or len(lines) < 2:
+        raise AssertionError(f"chip_smoke.py --vit-huge exited with {proc.returncode}")
+    return json.loads(lines[-2])["kernels"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--nccl-step"]:  # phase 13's world-1 NCCL rank, under torchrun
-        return nccl_step_main(sys.argv[2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5586,9 +6157,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--fp32-long"]:  # phase 16 alone
         print(json.dumps({"kernels": fp32_long_path(fb, fa, card, dev)}))
         return 0
-    if sys.argv[1:2] in (["--head-dim"], ["--vit-large"], ["--general-long"]):  # 17, 18, 19
+    if sys.argv[1:2] in (["--head-dim"], ["--vit-large"], ["--general-long"],
+                         ["--vit-huge"]):  # phases 17, 18, 19, 20
         entries = (head_dim_path(fb, fa, card, dev, libs) if sys.argv[1] == "--head-dim"
                    else vit_large_path(fb, fa, card, dev) if sys.argv[1] == "--vit-large"
+                   else vit_huge_path(fb, fa, card, dev, libs) if sys.argv[1] == "--vit-huge"
                    else general_long_path(fb, fa, card, dev, libs))
         print(json.dumps({"kernels": entries}))
         print(json.dumps({"ok": True, "device": {
@@ -6190,10 +6763,8 @@ def main() -> int:
         f"over {reps} x {N_IMAGES} images on {card}")
     del trainer_s
 
-    fused_totals = {}
     step_ms["fused"] = 1e3 * time_steps(trainer, eff, "fused", card,
-                                        (KERNEL_NAME, "mlp_bwd", "attn_bwd"), rest,
-                                        totals=fused_totals)
+                                        (KERNEL_NAME, "mlp_bwd", "attn_bwd"), rest)
     log(f"[time] optimizer step by backbone path, ms: {json.dumps(step_ms)}")
     del trainer
     gc.collect()
@@ -6221,8 +6792,12 @@ def main() -> int:
     # in a process of its own, as phase 18)
     entries += general_long_in_child()
 
+    # -- 20. ViT-Huge/14: head_dim 80 and D 1280 (before phase 13, as phase 14;
+    # in a process of its own, as phase 18)
+    entries += vit_huge_in_child()
+
     # -- 13. several ranks on the one card -------------------------------------
-    parallel_launches = parallel_path(card, fused_totals)
+    parallel_launches = parallel_path(card)
     for e in entries:
         e["parallel_launches"] = parallel_launches.get(e["name"], 0)
 

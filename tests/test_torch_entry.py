@@ -102,9 +102,11 @@ def test_parity_runbook_picks_its_path_by_geometry():
     # the full geometry keeps the kernels; the CPU runs their twins
     assert tpar.runbook_attn_impl(full, "cuda") == "fused"
     assert tpar.runbook_attn_impl(smoke, "cpu") == "fused"
-    # head_dim 80 the kernels refuse: the per-op block
-    assert tpar.runbook_attn_impl(dataclasses.replace(full, hidden_size=160, num_heads=2),
+    # head_dim 96 the kernels refuse: the per-op block; head_dim 80 they take
+    assert tpar.runbook_attn_impl(dataclasses.replace(full, hidden_size=192, num_heads=2),
                                   "cuda") == "xla"
+    assert tpar.runbook_attn_impl(dataclasses.replace(full, hidden_size=160, num_heads=2),
+                                  "cuda") == "fused"
     # above 256 tokens (384 px: S = 577; ViT-Tiny at 256 px: S = 257) the
     # kernels take bf16 and fp32
     long = dataclasses.replace(full, image_size=384)

@@ -155,8 +155,11 @@ def test_kernel_input_checks():
     x = torch.zeros((1, fb.KERNEL_MAX_SEQ + 1, 4, 32), dtype=torch.bfloat16)
     fa._check_flash_inputs(x, x, x)
     fa._check_flash_inputs(x.float(), x.float(), x.float())
+    # head_dim 80 (ViT-Huge/14) takes the streamed kernels at every S; 96 is refused
+    x = torch.zeros((2, 9, 2, 80), dtype=torch.bfloat16)
+    fa._check_flash_inputs(x, x, x)
     with pytest.raises(ValueError, match="head_dim"):
-        x = torch.zeros((2, 9, 2, 80), dtype=torch.bfloat16)
+        x = torch.zeros((2, 9, 2, 96), dtype=torch.bfloat16)
         fa._check_flash_inputs(x, x, x)
     # above 256 tokens bf16 and fp32 take the long-sequence routes
     x = torch.zeros((1, fb.KERNEL_MAX_SEQ + 1, 1, 64), dtype=torch.bfloat16)

@@ -235,26 +235,31 @@ def test_mha_pallas_matches_pallas(dh, s, dtype):
     # above 256 tokens the general route's multi-pass attention kernels
     (32, 2, 64, 257, "general"),    # the tiny model at 256 px
     (64, 1, 96, 300, "general"),    # head_dim 64 with mlp 96: the head_dim-64 long routes
+    # head_dim 80 (ViT-Huge/14) at any S: the multi-pass kernels at every S
+    (160, 2, 640, 5, "general"),
+    (160, 2, 640, 577, "general"),
+    (1056, 33, 4224, 5, "general"),  # head_dim 32 at a D between 1024 and 1280
 ], ids=["dh16", "dh32", "dh48_s256", "tiny_width_6_heads", "dh64_mlp96", "tiny_384px",
-        "base_384px", "no_mlp", "no_heads", "s257_dh16", "mlp96_s300"])
+        "base_384px", "no_mlp", "no_heads", "s257_dh16", "mlp96_s300", "dh80", "dh80_s577",
+        "d1056"])
 def test_geometry_route_accepts(d, heads, mlp, s, route):
     assert fb.geometry_route(d, heads, mlp, s) == (route, "")
     assert fb.check_geometry(d, heads, mlp, s) == route
 
 
 @pytest.mark.parametrize("d, heads, mlp, s, message", [
-    (160, 2, 640, 5, "head_dim in (16, 32, 48, 64); got D=160, heads=2"),
-    (48, 1, 192, 5, "D a multiple of 32 with D <= 1024, got D=48"),
-    # past the widest LayerNorm row, ViT-Large's D = 1024 (which the kernels take)
-    (1056, 16, 4224, 5, "D <= 1024, got D=1056"),
+    (192, 2, 768, 5, "head_dim in (16, 32, 48, 64, 80); got D=192, heads=2"),
+    (48, 1, 192, 5, "D a multiple of 32 with D <= 1280, got D=48"),
+    # past the widest LayerNorm row, ViT-Huge's D = 1280 (which the kernels take)
+    (1312, 41, 5248, 5, "D <= 1280, got D=1312"),
     (64, 2, 80, 5, "mlp a multiple of 32, got 80"),
     (96, 5, 384, 5, "head_dim in"),
     # above 256 tokens the same refusals hold (S bounds only the bf16 core:
     # check_seq_len)
-    (160, 2, 640, 577, "head_dim in (16, 32, 48, 64); got D=160, heads=2"),
+    (192, 2, 768, 577, "head_dim in (16, 32, 48, 64, 80); got D=192, heads=2"),
     (64, 2, 80, 257, "mlp a multiple of 32, got 80"),
     (32, 2, 64, 0, "S >= 1, got S=0"),  # as csrc/common.cuh geometry_ok
-], ids=["dh80", "d48", "d1024", "mlp80", "heads_not_dividing", "dh80_s577", "mlp80_s257",
+], ids=["dh96", "d48", "d1280", "mlp80", "heads_not_dividing", "dh96_s577", "mlp80_s257",
         "s0"])
 def test_geometry_route_refuses_with_its_reason(d, heads, mlp, s, message):
     route, why = fb.geometry_route(d, heads, mlp, s)
@@ -265,7 +270,7 @@ def test_geometry_route_refuses_with_its_reason(d, heads, mlp, s, message):
 
 def test_wrappers_check_the_geometry_before_any_launch():
     """The wrappers' checks are the predicate's: the tiny model's operands
-    pass, at S = 257 too (the multi-pass routes), head_dim 80 is refused
+    pass, at S = 257 too (the multi-pass routes), head_dim 96 is refused
     with its message, and S above LONG_CORE_MAX_SEQ at head_dim 16 by the
     layer backwards' check in bf16 (plain Python, so they run here)."""
     shapes = fb._weight_shapes(L, 32, 64)
@@ -280,11 +285,11 @@ def test_wrappers_check_the_geometry_before_any_launch():
     fb._check_activation(x.float(), 2, core=True)  # the fp32 backwards': any S
     with pytest.raises(ValueError, match=f"S <= {limit} in bf16"):
         fb._check_layer_inputs(x, x, {}, fb.ATTN_NAMES, 2, {})
-    shapes = fb._weight_shapes(L, 160, 640)
+    shapes = fb._weight_shapes(L, 192, 768)
     wt = tuple(torch.zeros(shapes[n], dtype=torch.float32 if n.startswith("ln")
                            else torch.bfloat16) for n in fb.WEIGHT_NAMES)
     with pytest.raises(ValueError, match="head_dim in"):
-        fb._check_kernel_inputs(torch.zeros((2, 5, 160), dtype=torch.bfloat16), wt, 2)
+        fb._check_kernel_inputs(torch.zeros((2, 5, 192), dtype=torch.bfloat16), wt, 2)
     q = torch.zeros((2, 5, 2, 16), dtype=torch.bfloat16)
     fa._check_flash_inputs(q, q, q)
     q = torch.zeros((2, 257, 2, 16), dtype=torch.bfloat16)
@@ -294,23 +299,25 @@ def test_wrappers_check_the_geometry_before_any_launch():
 @pytest.mark.parametrize("s", [197, 577])
 def test_flash_checks_take_any_number_of_heads_at_head_dim_64(s):
     """The flash pair normalises no row of D values, so the LayerNorm's
-    D <= 1024 does not bound it: 20 heads of 64 (D 1280) pass its checks at
+    D <= 1280 does not bound it: 21 heads of 64 (D 1344) pass its checks at
     any S, as the C entry takes them; the layer kernels refuse that D."""
-    q = torch.zeros((2, s, 20, 64), dtype=torch.bfloat16)
+    q = torch.zeros((2, s, 21, 64), dtype=torch.bfloat16)
     fa._check_flash_inputs(q, q, q)
     fa._check_flash_inputs(q.float(), q.float(), q.float())
-    assert fb.geometry_route(1280, 20, None, s, layernorm=False) == ("fast", "")
-    route, why = fb.geometry_route(1280, 20, None, s)
-    assert route is None and "D <= 1024" in why
+    assert fb.geometry_route(1344, 21, None, s, layernorm=False) == ("fast", "")
+    route, why = fb.geometry_route(1344, 21, None, s)
+    assert route is None and "D <= 1280" in why
 
 
 def test_runbook_takes_the_kernels_where_the_predicate_does():
     """The parity runbook's path on CUDA follows the predicate: the smoke
-    geometry (head_dim 16) takes "fused", head_dim 80 "xla"."""
+    geometry (head_dim 16) takes "fused", head_dim 80 too, head_dim 96 "xla"."""
     smoke = smoke_vit_config()
     assert (smoke.head_dim, smoke.seq_len) == (16, 5)
     assert runbook_attn_impl(smoke, "cuda") == "fused"
     assert runbook_attn_impl(ViTConfig(hidden_size=160, num_heads=2, mlp_dim=640),
+                             "cuda") == "fused"
+    assert runbook_attn_impl(ViTConfig(hidden_size=192, num_heads=2, mlp_dim=768),
                              "cuda") == "xla"
     assert runbook_attn_impl(ViTConfig(num_heads=6), "cuda") == "fused"
     # head_dim 16 above 256 tokens: the general route's multi-pass kernels

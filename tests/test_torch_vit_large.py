@@ -5,9 +5,10 @@ widest geometry its kernels take, against the JAX package.
    vit.num_heads=16 -o vit.mlp_dim=4096 -o vit.num_layers=24`; neither CLI
    has a shorthand for it) give equal configs in both CLIs.
 2. `geometry_route`: D = 1024 takes the fast route at 197 and 577 tokens,
-   D = 896 (14 heads) and 800 (25 heads of 32) their routes; D = 1056 is
-   refused for the LayerNorm row, head_dim 80 for the head_dim; the parity
-   runbook keeps "fused" for ViT-Large on CUDA.
+   D = 896 (14 heads) and 800 (25 heads of 32) their routes; past
+   ViT-Huge/14's D = 1280 (tests/test_torch_vit_huge.py) D = 1312 is refused
+   for the LayerNorm row, head_dim 96 for the head_dim; the parity runbook
+   keeps "fused" for ViT-Large on CUDA.
 3. The backward twins (`mlp_bwd_plain`, `attn_bwd_plain`,
    `merged_bwd_plain`) against `_mlp_bwd_math` and `_attn_bwd_math`, and
    `fused_block` and a 2-layer `fused_backbone` (B=2, S=17) against the JAX
@@ -96,10 +97,10 @@ def test_geometry_route_takes_vit_large(d, heads, mlp, s, route):
 
 
 @pytest.mark.parametrize("d, heads, mlp, message", [
-    (1056, 16, 4224, "D a multiple of 32 with D <= 1024, got D=1056"),
-    (1280, 16, 5120, "D <= 1024, got D=1280"),  # ViT-Huge/14: head_dim 80 too
-    (960, 12, 3840, "head_dim in (16, 32, 48, 64); got D=960, heads=12"),
-], ids=["d1056", "vit_huge", "dh80"])
+    (1312, 41, 5248, "D a multiple of 32 with D <= 1280, got D=1312"),
+    (1408, 16, 6144, "D <= 1280, got D=1408"),  # ViT-g/14: head_dim 88 too
+    (1152, 12, 4608, "head_dim in (16, 32, 48, 64, 80); got D=1152, heads=12"),
+], ids=["d1312", "vit_giant", "dh96"])
 def test_geometry_route_refuses_past_vit_large(d, heads, mlp, message):
     route, why = fb.geometry_route(d, heads, mlp, 197)
     assert route is None and message in why

@@ -271,17 +271,18 @@ static int launch_attention_core_dh(const bf16* qkv, const bf16* datt, bf16* att
 #ifdef ATTENTION_CORE_FWD_ONLY
 // The general route's bf16 forward attention stage: att = bf16(concat_h(
 // bf16(softmax(q k^T / sqrt(dh))) v)) from qkv (B * S, 3 D), any head_dim of
-// the four (64 too: the general route at mlp % 64 != 0). Above AB_MAX_S keys
+// the five (64 too: the general route at mlp % 64 != 0). Above AB_MAX_S keys
 // the multi-pass routes: csrc/long_attention.cuh's stage at head_dim 64,
-// csrc/general_long.cuh's at 16, 32 and 48
+// csrc/general_long.cuh's at 16, 32 and 48, and at 80 at every S
 static int launch_attention_fwd_general(const bf16* qkv, bf16* att, int B, int S, int H, int D,
                                         cudaStream_t st) {
   if (H <= 0 || D % H) return (int)cudaErrorInvalidValue;
-  if (S > AB_MAX_S) {
+  if (S > AB_MAX_S || streamed_head_dim(D / H)) {
     switch (D / H) {
       case 16: return gl_launch_stage<16>(qkv, att, B, S, H, D, st);
       case 32: return gl_launch_stage<32>(qkv, att, B, S, H, D, st);
       case 48: return gl_launch_stage<48>(qkv, att, B, S, H, D, st);
+      case 80: return gl_launch_stage<80>(qkv, att, B, S, H, D, st);
       case 64: {
         CUtensorMap qkv_map;
         LAUNCH(tensor_map(&qkv_map, qkv, 3 * D, S, B));
@@ -301,18 +302,27 @@ static int launch_attention_fwd_general(const bf16* qkv, bf16* att, int B, int S
 
 #else
 
+// The longest S the bf16 core takes at head_dim dh (attention_core_max_seq
+// in ops/fused_block.py says the same): long_core_max_seq() at 16-64,
+// gl_core_max_seq<80>() at 80
+static int attention_core_max_seq(int dh) {
+  return streamed_head_dim(dh) ? gl_core_max_seq<80>() : long_core_max_seq();
+}
+
 // S <= AB_MAX_S: attention_bwd_kernel; above it the multi-pass cores (the
 // same function, one launch): csrc/long_attention.cuh's at head_dim 64,
-// csrc/general_long.cuh's at 16, 32 and 48, both up to long_core_max_seq()
+// csrc/general_long.cuh's at 16, 32 and 48, and at 80 at every S, each up
+// to attention_core_max_seq(head_dim)
 static int launch_attention_bwd(const bf16* qkv, const bf16* datt, bf16* att, bf16* dqkv,
                                 int B, int S, int H, int D, cudaStream_t st) {
   if (H <= 0 || D % H) return (int)cudaErrorInvalidValue;
   if (D / H != ATT_DH) {
-    if (S > AB_MAX_S) {
+    if (S > AB_MAX_S || streamed_head_dim(D / H)) {
       switch (D / H) {
         case 16: return gl_launch_core<16>(qkv, datt, att, dqkv, B, S, H, D, st);
         case 32: return gl_launch_core<32>(qkv, datt, att, dqkv, B, S, H, D, st);
         case 48: return gl_launch_core<48>(qkv, datt, att, dqkv, B, S, H, D, st);
+        case 80: return gl_launch_core<80>(qkv, datt, att, dqkv, B, S, H, D, st);
         default: return (int)cudaErrorInvalidValue;
       }
     }

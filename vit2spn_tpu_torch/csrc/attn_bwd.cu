@@ -8,8 +8,8 @@
 // dtype its inputs carry. The launch sequences, what bounds them and the
 // design: csrc/attn_bwd.cuh. bf16 at D <= 256 runs the wgmma row-block kit
 // (six launches), bf16 at D = 384, 768 and 1024 its wide route (seven), bf16 at
-// other widths above 256 and at the general geometry (head_dim 16, 32, 48;
-// D a multiple of 32) the eleven-launch sequence, fp32 the same sequence
+// other widths above 256 and at the general geometry (head_dim 16, 32, 48,
+// 80; D a multiple of 32 up to 1280) the eleven-launch sequence, fp32 the same sequence
 // with the CUDA-core attention of csrc/flash_f32.cuh (thirteen).
 
 #include "attn_bwd.cuh"
@@ -60,11 +60,14 @@ extern "C" int vit2spn_attention_core_f32(const void* qkv, const void* datt, voi
                  static_cast<float*>(ws), B, S, H, dh, bs, ts, ts, scale, st, multipass != 0);
 }
 
-// The longest S the bf16 core takes above 256 keys, at every head_dim:
+// The longest S the bf16 core takes above 256 keys at head_dim dh:
 // csrc/long_attention.cuh keeps three fp32 statistics a query in shared
 // memory beside its ring (csrc/general_long.cuh's core, which keeps them
-// beside smaller staged tiles, takes the same limit)
-extern "C" int vit2spn_attention_core_max_seq() { return long_core_max_seq(); }
+// beside smaller staged tiles, takes the same limit at 16-48, and less at
+// 80, whose staged rows are wider); 0 for a head_dim the kernels refuse
+extern "C" int vit2spn_attention_core_max_seq(int dh) {
+  return head_dim_ok(dh) ? attention_core_max_seq(dh) : 0;
+}
 
 // s = q k^T and st = k q^T (64 x 64 fp32) of one pair of 64 x 64 bf16 tiles
 // through the long core's score products (long_scores_probe): whether its

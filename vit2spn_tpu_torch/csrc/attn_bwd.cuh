@@ -75,12 +75,12 @@
 //
 // The weight gradients split the token rows into fp32 partials added in a
 // fixed order: no atomics, so two runs give the same bits. The general
-// geometry (head_dim 16, 32 or 48, or D not a multiple of 64: common.cuh
+// geometry (head_dim 16, 32, 48 or 80, or D not a multiple of 64: common.cuh
 // general_route) takes attn_bwd_seq<T> in bf16 too, its attention core
-// instantiated on the head_dim. Limits: head_dim 16, 32, 48 or 64 at any S
+// instantiated on the head_dim. Limits: head_dim 16, 32, 48, 64 or 80 at any S
 // in fp32 (csrc/flash_f32.cuh) and at S <= 15,168 in bf16 (above 256 keys
 // csrc/long_attention.cuh's core at head_dim 64, csrc/general_long.cuh's at
-// the others; long_core_max_seq()); D a multiple of 32 up to 1024,
+// the others; attention_core_max_seq()); D a multiple of 32 up to 1280,
 // activations and matmul weights in T, fp32 LN parameters.
 
 #pragma once

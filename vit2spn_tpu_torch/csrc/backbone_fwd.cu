@@ -27,7 +27,7 @@
 // that seven-launch layer in bf16 too, on the mma.sync GEMMs, with its
 // attention on the forward-only mode of csrc/attention_bwd.cuh's core (above
 // 256 keys csrc/general_long.cuh's stage, or long_attention.cuh's at head
-// dim 64). Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to 1024,
+// dim 64). Limits: head_dim 16, 32, 48, 64 or 80, D a multiple of 32 up to 1280,
 // mlp a multiple of 32; any S.
 
 #include "layer_fwd.cuh"

@@ -206,8 +206,8 @@ __device__ __forceinline__ float rnd(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync on attention tiles: rows of DH bf16 (DH = head_dim: 16, 32, 48
-// or 64) staged in shared memory tile_ld<DH>() = DH + 8 elements apart
+// mma.sync on attention tiles: rows of DH bf16 (DH = head_dim: 16, 32, 48,
+// 64 or 80) staged in shared memory tile_ld<DH>() = DH + 8 elements apart
 // (conflict-free ldmatrix at every DH: the rows of an 8 x 8 matrix start
 // DH / 2 + 4 words apart), fp32 C tiles of 16 x 8 (lane 4g + t holds rows g
 // and g + 8, columns 2t and 2t + 1). The A operand of a 16-row tile is DH /
@@ -308,16 +308,17 @@ static inline float attention_scale(int dh) { return (float)(1.0 / sqrt((double)
 
 // ---------------------------------------------------------------------------
 // The geometry the kernels take (ops/fused_block.py geometry_route says the
-// same in Python): head_dim 16, 32, 48 or 64, D = H head_dim a multiple of
-// 32 up to LN_MAX_D, mlp a multiple of 32, any S. Head_dim 64 with D and mlp
-// multiples of 64 keeps every route it had; any other geometry takes the
+// same in Python): head_dim 16, 32, 48, 64 or 80, D = H head_dim a multiple
+// of 32 up to LN_MAX_D, mlp a multiple of 32, any S. Head_dim 64 with D and
+// mlp multiples of 64 keeps every route it had; any other geometry takes the
 // general route: the seven-launch forward layer on the mma.sync GEMMs, the
 // *_bwd_seq sequences, the attention kernels instantiated on head_dim (up to
 // FA_MAX_S keys those that hold a row of scores in registers, above it the
 // multi-pass routes: csrc/general_long.cuh in bf16, flash_f32.cuh's in fp32,
-// and at head_dim 64 long_attention.cuh's). The bf16 backward core takes S
-// <= long_core_max_seq() at every head_dim (csrc/long_attention.cuh), which
-// its launcher checks.
+// and at head_dim 64 long_attention.cuh's; at head_dim 80 the multi-pass
+// routes at every S: streamed_head_dim). The bf16 backward core takes S <=
+// long_core_max_seq() at head_dim 16-64 (csrc/long_attention.cuh) and less
+// at 80 (csrc/general_long.cuh gl_core_max_seq), which its launcher checks.
 // ---------------------------------------------------------------------------
 
 // the longest S whose row of scores the S <= 256 attention kernels (bf16
@@ -325,7 +326,14 @@ static inline float attention_scale(int dh) { return (float)(1.0 / sqrt((double)
 // routes
 #define FA_MAX_S 256
 
-static bool head_dim_ok(int dh) { return dh == 16 || dh == 32 || dh == 48 || dh == 64; }
+static bool head_dim_ok(int dh) {
+  return dh == 16 || dh == 32 || dh == 48 || dh == 64 || dh == 80;
+}
+
+// head_dims with no register-row attention kernel (ViT-Huge/14's 80): their
+// attention takes the multi-pass routes at every S, S <= FA_MAX_S too
+// (csrc/general_long.cuh in bf16, flash_f32.cuh's multi-pass route in fp32)
+__host__ __device__ constexpr bool streamed_head_dim(int dh) { return dh > 64; }
 
 static bool general_route(int D, int H, int MLP) {
   return D % 64 || MLP % 64 || H <= 0 || D != H * 64;
@@ -350,20 +358,22 @@ static int general_key_tiles(int S) {
 // ---------------------------------------------------------------------------
 // LayerNorm forward: one warp per row, the row's D / 32 values per lane in
 // registers, at most PL of them: LN_PL_NARROW up to D = 768 (ViT-Base),
-// LN_PL_WIDE above it up to LN_MAX_D = 1024 (ViT-Large). The kernels are
-// instantiated on PL and launched by D, so the widths up to 768 keep the
-// code and the registers they had; one kernel at the larger count for
-// every D would hold registers the narrow widths never use.
+// LN_PL_WIDE up to 1024 (ViT-Large), LN_PL_HUGE above it up to LN_MAX_D =
+// 1280 (ViT-Huge). The kernels are instantiated on PL and launched by D, so
+// the narrower widths keep the code and the registers they had; one kernel
+// at the largest count for every D would hold registers the narrow widths
+// never use.
 // ---------------------------------------------------------------------------
 
 #define LN_PL_NARROW 24
 #define LN_PL_WIDE 32
-#define LN_MAX_D (32 * LN_PL_WIDE)
+#define LN_PL_HUGE 40
+#define LN_MAX_D (32 * LN_PL_HUGE)
 #define LN_WARPS 8
 
 // the per-lane count of a row of D values
 __host__ __device__ constexpr int ln_per_lane(int D) {
-  return D <= 32 * LN_PL_NARROW ? LN_PL_NARROW : LN_PL_WIDE;
+  return D <= 32 * LN_PL_NARROW ? LN_PL_NARROW : D <= 32 * LN_PL_WIDE ? LN_PL_WIDE : LN_PL_HUGE;
 }
 
 // B images of S tokens at width D, H heads, mlp MLP: what every layer
@@ -459,8 +469,11 @@ static int launch_layernorm(const T* x, const float* scale, const float* bias, T
   if (ln_per_lane(D) == LN_PL_NARROW)
     layernorm_kernel<T, TO, LN_PL_NARROW><<<blocks, LN_WARPS * 32, 0, st>>>(x, scale, bias, y,
                                                                            M, D, eps);
-  else
+  else if (ln_per_lane(D) == LN_PL_WIDE)
     layernorm_kernel<T, TO, LN_PL_WIDE><<<blocks, LN_WARPS * 32, 0, st>>>(x, scale, bias, y, M,
+                                                                         D, eps);
+  else
+    layernorm_kernel<T, TO, LN_PL_HUGE><<<blocks, LN_WARPS * 32, 0, st>>>(x, scale, bias, y, M,
                                                                          D, eps);
   return (int)cudaGetLastError();
 }
@@ -488,7 +501,9 @@ static int lnb_blocks(int M) {
 }
 
 // PL as layernorm_row's: a lane holds D / 64 pairs of columns, rounded up,
-// at most PL / 2 (D <= 32 PL)
+// at most PL / 2 (D <= 32 PL). The block's static partials `red` take
+// LNB_WARPS x 64 PL floats: 24 KB at LN_PL_NARROW, 32 KB at LN_PL_WIDE, 40
+// KB at LN_PL_HUGE, under the 48 KB of static shared memory a block may have
 template <typename T, int PL>
 __global__ void __launch_bounds__(LNB_WARPS * 32)
 ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
@@ -703,8 +718,11 @@ static int launch_ln_bwd(const T* x, const float* dy, const T* resid,
   if (ln_per_lane(D) == LN_PL_NARROW)
     ln_bwd_kernel<T, LN_PL_NARROW><<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws,
                                                                   M, D, eps);
-  else
+  else if (ln_per_lane(D) == LN_PL_WIDE)
     ln_bwd_kernel<T, LN_PL_WIDE><<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws, M,
+                                                                D, eps);
+  else
+    ln_bwd_kernel<T, LN_PL_HUGE><<<nb, LNB_WARPS * 32, 0, st>>>(x, dy, resid, scale, out, ws, M,
                                                                 D, eps);
   LAUNCH((int)cudaGetLastError());
   return launch_reduce({ws, nb, 2 * D, D, gscale, gbias, 0, 0}, st);

@@ -79,15 +79,16 @@
 // two-launch backward with the same row statistics), fp32 inputs the routes
 // of csrc/flash_f32.cuh (the one-pass route up to 1,152 keys at head_dim 64,
 // else the multi-pass route: 256-key chunks on the CUDA cores, the row
-// statistics through the same workspace).
+// statistics through the same workspace). Head_dim 80 takes the multi-pass
+// routes at every S (common.cuh streamed_head_dim).
 //
 // Layout: q, k, v are read in place through strides, as the views the split
 // of the block's (B, S, 3D) qkv gives them: element (b, s, h, d) at
 // b * bs + s * ts + h * dh + d. o, dO, dq, dk and dv are contiguous (B, S, H,
-// dh). Limits: head_dim 16, 32, 48 or 64 at any S (up to 256 keys the
+// dh). Limits: head_dim 16, 32, 48, 64 or 80 at any S (up to 256 keys the
 // kernels above, instantiated on DH, at head_dim 16-48 at the coarser
-// key-tile counts of GENERAL_KEY_TILES); bf16 rows start on 16 bytes (ts and
-// bs multiples of 8), fp32 rows on 8.
+// key-tile counts of GENERAL_KEY_TILES; at 80 the multi-pass routes);
+// bf16 rows start on 16 bytes (ts and bs multiples of 8), fp32 rows on 8.
 
 #include <type_traits>
 
@@ -433,6 +434,7 @@ static int by_head_dim(int dh, F&& f) {
     case 32: return f(std::integral_constant<int, 32>());
     case 48: return f(std::integral_constant<int, 48>());
     case 64: return f(std::integral_constant<int, 64>());
+    case 80: return f(std::integral_constant<int, 80>());
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -441,7 +443,7 @@ static int by_head_dim(int dh, F&& f) {
 // Host entries
 // ---------------------------------------------------------------------------
 
-// head_dim 16, 32, 48 or 64, any S; rows start on 16 bytes for the bf16
+// head_dim 16, 32, 48, 64 or 80, any S; rows start on 16 bytes for the bf16
 // kernels' cp.async, on 8 for fp32 float2
 static bool bad_shape(int B, int S, int H, int dh, long long bs, long long ts, int fp32) {
   const int align = fp32 ? 2 : 8;
@@ -452,51 +454,60 @@ static bool bad_shape(int B, int S, int H, int dh, long long bs, long long ts, i
 template <int DH>
 static int fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
                     long long bs, long long ts, float scale, cudaStream_t st) {
-  if (S > FA_MAX_S) {  // above 256 keys P in two terms as here: csrc/long_attention.cuh at
-                       // head_dim 64, csrc/general_long.cuh at the others
-    if constexpr (DH == FA_DH) {
-      return launch_long_flash_fwd(q, k, v, o, bs, ts, B, S, H, st);
-    } else {
-      const long long ots = (long long)H * DH;
-      return gl_launch_fwd<DH, true>(q, k, v, o, B, S, H, bs, ts, S * ots, ots, st);
+  if constexpr (streamed_head_dim(DH)) {  // every S: csrc/general_long.cuh
+    const long long ots = (long long)H * DH;
+    return gl_launch_fwd<DH, true>(q, k, v, o, B, S, H, bs, ts, S * ots, ots, st);
+  } else {
+    if (S > FA_MAX_S) {  // above 256 keys P in two terms as here: csrc/long_attention.cuh at
+                         // head_dim 64, csrc/general_long.cuh at the others
+      if constexpr (DH == FA_DH) {
+        return launch_long_flash_fwd(q, k, v, o, bs, ts, B, S, H, st);
+      } else {
+        const long long ots = (long long)H * DH;
+        return gl_launch_fwd<DH, true>(q, k, v, o, B, S, H, bs, ts, S * ots, ots, st);
+      }
     }
+    const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
+    return by_key_tiles<DH>(S, [&](auto nt) {
+      constexpr int NT = decltype(nt)::value;
+      const size_t smem = tc_fwd_smem<DH>(8 * NT);
+      LAUNCH(set_smem(flash_fwd_tc<NT, DH>, smem));
+      flash_fwd_tc<NT, DH><<<grid, TC_WARPS * 32, smem, st>>>(q, k, v, o, S, H, bs, ts, scale);
+      return (int)cudaGetLastError();
+    });
   }
-  const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
-  return by_key_tiles<DH>(S, [&](auto nt) {
-    constexpr int NT = decltype(nt)::value;
-    const size_t smem = tc_fwd_smem<DH>(8 * NT);
-    LAUNCH(set_smem(flash_fwd_tc<NT, DH>, smem));
-    flash_fwd_tc<NT, DH><<<grid, TC_WARPS * 32, smem, st>>>(q, k, v, o, S, H, bs, ts, scale);
-    return (int)cudaGetLastError();
-  });
 }
 
 template <int DH>
 static int bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, bf16* dq,
                     bf16* dk, bf16* dv, float* ws, int B, int S, int H, long long bs,
                     long long ts, float scale, cudaStream_t st) {
-  if (S > FA_MAX_S) {
-    if constexpr (DH == FA_DH)
-      return launch_long_flash_bwd(q, k, v, dout, dq, dk, dv, ws, bs, ts, B, S, H, st);
-    else
-      return gl_launch_flash_bwd<DH>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, st);
-  }
-  const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
-  size_t smem = 0;
-  const int rc = by_key_tiles<DH>(S, [&](auto nt) {
-    constexpr int NT = decltype(nt)::value;
-    smem = tc_bwd_smem<DH>(8 * NT);
-    LAUNCH(set_smem(flash_bwd_rows_tc<NT, DH>, smem));
-    flash_bwd_rows_tc<NT, DH><<<grid, TC_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H,
-                                                                 bs, ts, scale);
+  if constexpr (streamed_head_dim(DH)) {  // every S: csrc/general_long.cuh
+    return gl_launch_flash_bwd<DH>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, st);
+  } else {
+    if (S > FA_MAX_S) {
+      if constexpr (DH == FA_DH)
+        return launch_long_flash_bwd(q, k, v, dout, dq, dk, dv, ws, bs, ts, B, S, H, st);
+      else
+        return gl_launch_flash_bwd<DH>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, st);
+    }
+    const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
+    size_t smem = 0;
+    const int rc = by_key_tiles<DH>(S, [&](auto nt) {
+      constexpr int NT = decltype(nt)::value;
+      smem = tc_bwd_smem<DH>(8 * NT);
+      LAUNCH(set_smem(flash_bwd_rows_tc<NT, DH>, smem));
+      flash_bwd_rows_tc<NT, DH><<<grid, TC_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H,
+                                                                   bs, ts, scale);
+      return (int)cudaGetLastError();
+    });
+    if (rc != 0) return rc;
+    const size_t smem2 = smem + (size_t)3 * pad16(S) * sizeof(float);
+    LAUNCH(set_smem(flash_bwd_cols_tc<DH>, smem2));
+    flash_bwd_cols_tc<DH><<<grid, TC_WARPS * 32, smem2, st>>>(q, k, v, dout, ws, dk, dv, S, H, bs,
+                                                              ts, scale);
     return (int)cudaGetLastError();
-  });
-  if (rc != 0) return rc;
-  const size_t smem2 = smem + (size_t)3 * pad16(S) * sizeof(float);
-  LAUNCH(set_smem(flash_bwd_cols_tc<DH>, smem2));
-  flash_bwd_cols_tc<DH><<<grid, TC_WARPS * 32, smem2, st>>>(q, k, v, dout, ws, dk, dv, S, H, bs,
-                                                            ts, scale);
-  return (int)cudaGetLastError();
+  }
 }
 
 // q, k, v: (B, S, H, dh) read through (bs, ts) strides; o contiguous (B, S,

@@ -16,7 +16,7 @@
 // (bs, ts) strides (element (b, s, h, d) at b * bs + s * ts + h * 64 + d), so
 // they may be strided views of a fused (B, S, 3D) qkv; o and dO are (B, S, H,
 // 64) contiguous; dq, dk, dv have rows gts apart (H * 64, or 3 D when they are
-// the thirds of a dqkv). Limits: head_dim 16, 32, 48 or 64 at any S; input
+// the thirds of a dqkv). Limits: head_dim 16, 32, 48, 64 or 80 at any S; input
 // rows on 8 bytes, output rows on 16. Up to FA_MAX_S (256) keys a warp holds
 // its rows' whole row of scores in registers (the kernels below, on DH);
 // above it, at head_dim 64, the one-pass route at the end of this file (S <=
@@ -25,7 +25,8 @@
 // operands from register tiles, loads behind the products) and beyond that
 // the multi-pass route before it (any S: the scores recomputed per pass, 4
 // and 7 + 4 products), which also takes head_dim 16, 32 and 48 at every S
-// above FA_MAX_S (the one-pass route is written for head_dim 64 only).
+// above FA_MAX_S, and 80 at every S (the one-pass route is written for head
+// dim 64 only; the kernels above cover 64 dims a warp).
 
 #pragma once
 
@@ -144,13 +145,19 @@ __device__ __forceinline__ void dot_rows(float acc[FA_RW][FA_NJ], const float* A
 // acc[r][e] = sum over columns c ascending of w[4 rg + r][c] * R[c][4 dg + e]
 // (rg = lane / 16, dg = lane % 16): w the register tile (column 32 j + lane
 // in w[i][j]), passed through the warp's 32 x 8 slab `slab`; R the staged
-// rows (LD apart). At DH below 64 the lanes with 4 dg >= DH sum nothing.
+// rows (LD apart). At DH below 64 the lanes with 4 dg >= DH sum nothing. At
+// DH = 80 (the multi-pass route only) dims 64 .. 79 go to `tail` in the same
+// order, a lane's row lane / 4 of the warp's 8 and dims 64 + 4 (lane % 4)
+// .. + 3 (store_tail): 20 FMAs a lane a column, as 16 at DH = 64.
 template <int DH = FA_DH, int LD = FA_LD>
 __device__ __forceinline__ void product(float acc[4][4], const float w[FA_RW][FA_NJ],
-                                        float* slab, const float* R, int S, int lane) {
+                                        float* slab, const float* R, int S, int lane,
+                                        float* tail = nullptr) {
+  static_assert(DH <= 64 || DH == 80, "product: head_dim up to 64, or 80");
   const int rg = lane >> 4, dg = lane & 15;
 #pragma unroll
   for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+  if constexpr (DH > 64) tail[0] = tail[1] = tail[2] = tail[3] = 0.0f;
   if (FA_F32_PROBE == 1) return;
 #pragma unroll
   for (int j = 0; j < FA_NJ; ++j) {
@@ -174,6 +181,15 @@ __device__ __forceinline__ void product(float acc[4][4], const float w[FA_RW][FA
           acc[r][1] = fmaf(pr[r], v.y, acc[r][1]);
           acc[r][2] = fmaf(pr[r], v.z, acc[r][2]);
           acc[r][3] = fmaf(pr[r], v.w, acc[r][3]);
+        }
+        if constexpr (DH > 64) {
+          const float pt = slab[c * FA_RW + (lane >> 2)];
+          const float4 vt = *reinterpret_cast<const float4*>(R + (32 * j + c) * LD + 64 +
+                                                             4 * (lane & 3));
+          tail[0] = fmaf(pt, vt.x, tail[0]);
+          tail[1] = fmaf(pt, vt.y, tail[1]);
+          tail[2] = fmaf(pt, vt.z, tail[2]);
+          tail[3] = fmaf(pt, vt.w, tail[3]);
         }
       }
     }
@@ -220,13 +236,23 @@ __device__ __forceinline__ void store_tile(float* out, long long ts, const float
           make_float4(acc[r][0] * mul, acc[r][1] * mul, acc[r][2] * mul, acc[r][3] * mul);
 }
 
+// the lane's `tail` of `product` (DH = 80: row w0 + lane / 4 < S, dims 64 +
+// 4 (lane % 4) .. + 3) times `mul` into out (row stride ts)
+__device__ __forceinline__ void store_tail(float* out, long long ts, const float tail[4],
+                                           float mul, int w0, int S, int lane) {
+  const int r = w0 + (lane >> 2), c = 64 + 4 * (lane & 3);
+  if (r < S)
+    *reinterpret_cast<float4*>(out + r * ts + c) =
+        make_float4(tail[0] * mul, tail[1] * mul, tail[2] * mul, tail[3] * mul);
+}
+
 __host__ __device__ __forceinline__ int padded(int S) { return (S + 31) / 32 * 32; }
 
 // Forward: one block per 64 queries of one (image, head). K and then V take
 // turns in one staged buffer (V lands once every warp's scores are done), so
 // that two blocks share an SM: one stages while the other computes.
 
-// head_dim DH (64; 16, 32 or 48 on the general route): the other side's rows
+// head_dim DH (64; 16, 32, 48 or 80 on the general route): the other side's rows
 // DH + 4 floats apart (68 at 64), which keeps both access patterns free of
 // bank conflicts at every DH
 template <int DH>
@@ -542,6 +568,12 @@ __device__ __forceinline__ void add_tile(float acc[4][4], const float part[4][4]
     for (int e = 0; e < 4; ++e) acc[r][e] += part[r][e];
 }
 
+// add_tile for `product`'s tail (DH = 80), in the same chunk order
+__device__ __forceinline__ void add_tail(float acc[4], const float part[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+
 // Passes 1 and 2: the max m and the sum l of the warp's 8 rows (Qw, stride
 // DH, already staged or in a committed group) over every key, the K
 // chunks double-buffered in buf0 and buf1. Every thread of the block calls
@@ -627,6 +659,7 @@ long_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // pass 3: the next K chunk lands while the product with this V runs
   const int nc = lf_chunks(S);
   float acc[4][4] = {}, part[4][4];
+  float acct[4] = {}, partt[4];  // dims 64 .. 79 at DH = 80 (product's tail)
   stage_chunk<DH>(Ks, k + head, ts, 0, S);
   stage_chunk<DH>(Vs, v + head, ts, 0, S);
   for (int c = 0; c < nc; ++c) {
@@ -646,8 +679,9 @@ long_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       stage_wait();
     }
     if (live) {
-      product<DH, fa_ld<DH>()>(part, p, slabs + warp * FA_RW * 32, Vs, n, lane);
+      product<DH, fa_ld<DH>()>(part, p, slabs + warp * FA_RW * 32, Vs, n, lane, partt);
       add_tile(acc, part);
+      if constexpr (DH > 64) add_tail(acct, partt);
     }
     __syncthreads();  // every warp is done with V
     if (c + 1 < nc) stage_chunk<DH>(Vs, v + head, ts, c + 1, S);
@@ -655,6 +689,8 @@ long_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (!live) return;
   const long long ots = (long long)H * DH;
   store_tile<DH>(o + (long long)b * S * ots + h * DH, ots, acc, 1.0f, w0, S, lane);
+  if constexpr (DH > 64)
+    store_tail(o + (long long)b * S * ots + h * DH, ots, acct, 1.0f, w0, S, lane);
 }
 
 // Backward, phase 1: one block per 64 queries: the statistics and dQ
@@ -689,6 +725,7 @@ long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   // while V lands
   const int nc = lf_chunks(S);
   float acc[4][4] = {}, part[4][4];
+  float acct[4] = {}, partt[4];  // dims 64 .. 79 at DH = 80 (product's tail)
   for (int pass = 3; pass <= 4; ++pass) {
     for (int c = 0; c < nc; ++c) {
       const int n = lf_rows(c, S);
@@ -717,8 +754,9 @@ long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
           }
         }
         if (pass == 4) {
-          product<DH, fa_ld<DH>()>(part, dp, slabs + warp * FA_RW * 32, Ks, n, lane);
+          product<DH, fa_ld<DH>()>(part, dp, slabs + warp * FA_RW * 32, Ks, n, lane, partt);
           add_tile(acc, part);
+          if constexpr (DH > 64) add_tail(acct, partt);
         }
       }
       __syncthreads();  // every warp is done with both buffers
@@ -726,6 +764,8 @@ long_bwd_rows_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
   if (!live) return;
   store_tile<DH>(dq + (long long)b * S * gts + h * DH, gts, acc, scale, w0, S, lane);
+  if constexpr (DH > 64)
+    store_tail(dq + (long long)b * S * gts + h * DH, gts, acct, scale, w0, S, lane);
   if (lane == 0) {
     float* st = stats + ((long long)(b * H + h) * S) * 3;
 #pragma unroll
@@ -774,6 +814,7 @@ long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const float* st = stats + ((long long)(b * H + h) * S) * 3;
   const int nc = lf_chunks(S);
   float adk[4][4] = {}, adv[4][4] = {}, part[4][4];
+  float adkt[4] = {}, advt[4] = {}, partt[4];  // dims 64 .. 79 at DH = 80 (product's tail)
   for (int c = 0; c < nc; ++c) {
     const int n = lf_rows(c, S), q0 = c * LF_CHUNK;
     // the queries first: P^T runs while dO lands
@@ -808,10 +849,12 @@ long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
         for (int i = 0; i < FA_RW; ++i) ds[i][j] = p[i][j] * (ds[i][j] - dt);
       }
-      product<DH, fa_ld<DH>()>(part, p, slab, Oc, n, lane);  // dV += P^T dO
+      product<DH, fa_ld<DH>()>(part, p, slab, Oc, n, lane, partt);  // dV += P^T dO
       add_tile(adv, part);
-      product<DH, fa_ld<DH>()>(part, ds, slab, Qc, n, lane);  // dK += dS^T q
+      if constexpr (DH > 64) add_tail(advt, partt);
+      product<DH, fa_ld<DH>()>(part, ds, slab, Qc, n, lane, partt);  // dK += dS^T q
       add_tile(adk, part);
+      if constexpr (DH > 64) add_tail(adkt, partt);
     }
     __syncthreads();  // every warp is done with the chunk and its statistics
   }
@@ -819,6 +862,10 @@ long_bwd_cols_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const long long ghead = (long long)b * S * gts + h * DH;
   store_tile<DH>(dv + ghead, gts, adv, 1.0f, w0, S, lane);
   store_tile<DH>(dk + ghead, gts, adk, scale, w0, S, lane);
+  if constexpr (DH > 64) {
+    store_tail(dv + ghead, gts, advt, 1.0f, w0, S, lane);
+    store_tail(dk + ghead, gts, adkt, scale, w0, S, lane);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1470,7 +1517,7 @@ static int long_bwd_f32(const float* q, const float* k, const float* v, const fl
 // ---------------------------------------------------------------------------
 
 // head_dim DH up to FA_MAX_S keys; above it (head_dim 16, 32, 48) the
-// multi-pass route
+// multi-pass route (head_dim 80 takes it at every S: fwd_f32)
 template <int DH>
 static int fwd_f32_dh(const float* q, const float* k, const float* v, float* o, int B, int S,
                       int H, long long bs, long long ts, float scale, cudaStream_t st) {
@@ -1504,7 +1551,9 @@ static int bwd_f32_dh(const float* q, const float* k, const float* v, const floa
 // Head_dim dh at any S: 64 above FA_MAX_S keys the one-pass route up to
 // OP_MAX_S, the multi-pass route beyond it or where `multipass`, a test
 // entry's choice, asks for it; 16, 32 and 48 the multi-pass route above
-// FA_MAX_S (the one-pass route is written for head_dim 64)
+// FA_MAX_S (the one-pass route is written for head_dim 64); 80 the
+// multi-pass route at every S (common.cuh streamed_head_dim: the kernels
+// that hold a row of scores in registers cover 64 dims a warp)
 static int fwd_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
                    int H, int dh, long long bs, long long ts, float scale, cudaStream_t st,
                    bool multipass = false) {
@@ -1513,6 +1562,7 @@ static int fwd_f32(const float* q, const float* k, const float* v, float* o, int
       case 16: return fwd_f32_dh<16>(q, k, v, o, B, S, H, bs, ts, scale, st);
       case 32: return fwd_f32_dh<32>(q, k, v, o, B, S, H, bs, ts, scale, st);
       case 48: return fwd_f32_dh<48>(q, k, v, o, B, S, H, bs, ts, scale, st);
+      case 80: return long_fwd_f32<80>(q, k, v, o, B, S, H, bs, ts, scale, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1535,6 +1585,7 @@ static int bwd_f32(const float* q, const float* k, const float* v, const float* 
       case 16: return bwd_f32_dh<16>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
       case 32: return bwd_f32_dh<32>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
       case 48: return bwd_f32_dh<48>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
+      case 80: return long_bwd_f32<80>(q, k, v, dout, dq, dk, dv, ws, B, S, H, bs, ts, gts, scale, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }

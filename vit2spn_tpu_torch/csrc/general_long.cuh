@@ -1,8 +1,9 @@
-// Attention above 256 tokens at head_dim 16, 32 and 48 for Hopper (sm_90a),
-// bf16 in and out: the S > 256 route of the general geometry (common.cuh
-// general_route), behind the same four bf16 attention functions as
-// csrc/long_attention.cuh, whose wgmma / TMA routes are written for head_dim
-// 64:
+// Attention above 256 tokens at head_dim 16, 32 and 48, and at every S at
+// head_dim 80 (common.cuh streamed_head_dim: ViT-Huge/14, which has no
+// register-row kernels), for Hopper (sm_90a), bf16 in and out: the S > 256
+// route of the general geometry (common.cuh general_route), behind the same
+// four bf16 attention functions as csrc/long_attention.cuh, whose wgmma /
+// TMA routes are written for head_dim 64:
 //
 //   vit2spn_tpu/ops/fused_block.py::_attention (inside _backbone_fwd_kernel
 //     and _fwd_kernel)               -> gl_fwd_kernel<DH, false>, the forward
@@ -60,11 +61,12 @@
 // walks the keys; so the layer backward's launch count does not change with
 // S. Its statistics bound S: 3 floats a query beside the staged rows, which
 // leaves room for more than long_core_max_seq() (the head_dim-64 core's
-// limit, 15,168), the one limit the layer backwards state for every head
-// dim. The flash backward is two launches, as every flash backward route:
-// the rows launch writes the statistics to the workspace
-// (vit2spn_flash_bwd_workspace_floats), the cols launch reads them a chunk
-// at a time beside its Q and dO chunks, so S is not bounded.
+// limit, 15,168) at head_dim 16-48, so the layer backwards state that one
+// limit there; at head_dim 80 the staged rows (88 bf16 apart) leave room for
+// 13,696 queries (gl_core_max_seq). The flash backward is two launches, as
+// every flash backward route: the rows launch writes the statistics to the
+// workspace (vit2spn_flash_bwd_workspace_floats), the cols launch reads them
+// a chunk at a time beside its Q and dO chunks, so S is not bounded.
 //
 // Why mma.sync and not long_attention.cuh's wgmma / TMA on DH: a simple
 // kernel that is right first. The S <= 256 kernels' fragment code already
@@ -83,7 +85,14 @@
 // 256 kernels keep S <= 256: at S = 197, B = 128, D 192 these take 1.17-1.49x
 // their time for the stage and the flash pair and 1.66-2.59x for the core,
 // with the same bits but for 5e-5 of the core's (tools/gl_short_probe.py,
-// same card). Limits: head dim 16, 32 or 48; rows 16-byte aligned.
+// same card). Head_dim 80 (five k-steps of 16 for the scores, ten n8 tiles
+// for P v) takes these kernels at every S: registering the S <= 256 kernels
+// there would add six key-tile instantiations to each attention kernel, and
+// the register-row core already spills 1.1-1.6 KB at 256 keys at head_dim
+// 16-48. Its rows and cols kernels of the flash backward hold dQ (dK and
+// dV) beside both operands' fragments: at two blocks an SM (128 registers)
+// they would spill, so at head_dim 80 they take one (GL_FLASH_MINB).
+// Limits: head dim 16, 32, 48 or 80; rows 16-byte aligned.
 
 #pragma once
 
@@ -93,6 +102,11 @@
 #define GL_WARPS 8               // warps a block, 16 rows each
 #define GL_ROWS (16 * GL_WARPS)  // a block's rows at a time: queries, or keys (cols)
 #define GL_CHUNK 64              // rows of the other side a staged chunk
+
+// blocks an SM the flash backward's kernels are compiled for: two (at most
+// 128 registers) up to head_dim 48, one at 80, whose accumulators and
+// operand fragments need more
+#define GL_FLASH_MINB(DH) ((DH) > 64 ? 1 : 2)
 
 // ---------------------------------------------------------------------------
 // Fragment helpers (shared with csrc/flash_attention.cu's S <= 256 kernels)
@@ -379,6 +393,17 @@ static size_t gl_core_smem(int S) {
          (size_t)3 * gl_chunks_rows(S) * sizeof(float);
 }
 
+// the longest S the core takes at head_dim DH: the three statistics of every
+// query beside the staged rows, in whole GL_CHUNK-query chunks, and at most
+// long_core_max_seq() (the head_dim-64 core's): 15,168 at head_dim 16-48,
+// (232,448 - 67,584) / 12 bytes = 13,696 queries at 80
+template <int DH>
+static int gl_core_max_seq() {
+  const long long room = LA_MAX_SMEM - (long long)gl_core_smem<DH>(0);
+  const int fit = (int)(room / (3 * (long long)sizeof(float)) / GL_CHUNK * GL_CHUNK);
+  return fit < long_core_max_seq() ? fit : long_core_max_seq();
+}
+
 // att (B S, D) and dqkv (B S, 3 D) from qkv (B S, 3 D) and datt = dO (B S,
 // D), head h at column h DH of each third
 template <int DH>
@@ -499,7 +524,7 @@ static size_t gl_flash_smem() {  // a round of two operands, a chunk of two, a c
 // one block per GL_ROWS queries: dq (contiguous (B, S, H, DH)) and each
 // query's m, l, dot at stats + ((b H + h) S + s) 3
 template <int DH>
-__global__ void __launch_bounds__(GL_WARPS * 32, 2)
+__global__ void __launch_bounds__(GL_WARPS * 32, GL_FLASH_MINB(DH))
 gl_flash_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      bf16* __restrict__ dq, float* __restrict__ stats, int S, int H,
@@ -546,7 +571,7 @@ gl_flash_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // dV, with the operands in the rows launch's roles (queries as A, keys as
 // B: the same scores bit for bit), P and dS transposed by movmatrix
 template <int DH>
-__global__ void __launch_bounds__(GL_WARPS * 32, 2)
+__global__ void __launch_bounds__(GL_WARPS * 32, GL_FLASH_MINB(DH))
 gl_flash_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ stats, bf16* __restrict__ dk,
@@ -653,12 +678,12 @@ static int gl_launch_stage(const bf16* qkv, bf16* att, int B, int S, int H, int 
 }
 
 // the fused block's backward core: att and dqkv from qkv and datt, one
-// launch; S <= long_core_max_seq() (the one bf16 core limit)
+// launch; S <= gl_core_max_seq<DH>()
 template <int DH>
 static int gl_launch_core(const bf16* qkv, const bf16* datt, bf16* att, bf16* dqkv, int B, int S,
                           int H, int D, cudaStream_t st) {
   const size_t smem = gl_core_smem<DH>(S);
-  if (S > long_core_max_seq() || smem > LA_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (S > gl_core_max_seq<DH>() || smem > LA_MAX_SMEM) return (int)cudaErrorInvalidValue;
   LAUNCH(gl_set_smem(gl_core_kernel<DH>, smem));
   gl_core_kernel<DH><<<dim3(H, B), GL_WARPS * 32, smem, st>>>(qkv, datt, att, dqkv, S, D,
                                                               attention_scale(DH));

@@ -18,7 +18,7 @@
 // float32): the seven-launch CUDA-core layer of csrc/layer_fwd_seq.cuh, the
 // backbone's fp32 layer code, which the general geometry (head_dim 16, 32
 // or 48, or D or mlp not a multiple of 64) also takes in bf16, as the
-// backbone does. Limits: head_dim 16, 32, 48 or 64, D a multiple of 32 up to
+// backbone does. Limits: head_dim 16, 32, 48, 64 or 80, D a multiple of 32 up to
 // 1024, mlp a multiple of 32; any S.
 
 #include "layer_fwd.cuh"

@@ -1,7 +1,7 @@
 // One pre-LN ViT layer's forward as seven launches for Hopper (sm_90a), in
 // T = fp32 or bf16: the fp32 route (compute_dtype=float32) of
 // csrc/backbone_fwd.cu and csrc/layer_fwd.cu at every geometry, and their
-// bf16 route at the general geometry (head_dim 16, 32 or 48, or D or mlp
+// bf16 route at the general geometry (head_dim 16, 32, 48 or 80, or D or mlp
 // not a multiple of 64, any S: common.cuh general_route).
 //
 // It computes _block_fwd_math (vit2spn_tpu/ops/fused_block.py) with its
@@ -25,8 +25,9 @@
 // backward's mma.sync core (csrc/attention_bwd.cuh), which rounds P to bf16
 // before P v as the function does (the flash kernels keep P in fp32: another
 // function), above 256 keys the multi-pass stage of csrc/general_long.cuh
-// (head_dim 16, 32, 48) or csrc/long_attention.cuh (64). `out` may be `in`: `in` is last read by the Wo launch, `out`
-// first written by the W2 launch.
+// (head_dim 16, 32, 48; 80 at every S) or csrc/long_attention.cuh (64). `out`
+// may be `in`: `in` is last read by the Wo launch, `out` first written by
+// the W2 launch.
 
 #pragma once
 

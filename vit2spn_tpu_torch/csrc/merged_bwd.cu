@@ -48,7 +48,7 @@
 //     (mlp_bwd_seq<T>, attn_bwd_seq<T>: 21 launches in bf16, 23 in fp32),
 //     each taking its reductions as it goes.
 //
-//   * bf16 at the general geometry (head_dim 16, 32 or 48, or D or mlp not
+//   * bf16 at the general geometry (head_dim 16, 32, 48 or 80, or D or mlp not
 //     a multiple of 64): each half's own route as the split pair takes it,
 //     one after the other with its own reductions: the MLP half's kit (5
 //     launches) where D and mlp allow it, else its sequence (10), then the
@@ -59,8 +59,8 @@
 // dx2 crosses from the MLP half to the attention half through device memory
 // in the compute dtype, as the split path hands it over.
 //
-// Limits: head_dim 16, 32, 48 or 64 at S <= 15,168 in bf16 (any in fp32); D
-// a multiple of 32 up to 1024, mlp a multiple of 32,
+// Limits: head_dim 16, 32, 48 or 64 at S <= 15,168 in bf16, 80 at S <=
+// 13,696 (any in fp32); D a multiple of 32 up to 1280, mlp a multiple of 32,
 // activations and matmul weights all bf16 or all fp32, fp32 LN parameters.
 
 #include "attn_bwd.cuh"

@@ -128,9 +128,9 @@ def smoke_vit_config():
 
 def runbook_attn_impl(vit_cfg, device, compute_dtype: str = "bfloat16") -> str:
     """The runbook's backbone path: "fused" where the kernels take the
-    geometry (`ops/fused_block.py::geometry_route`: head_dim 16, 32, 48 or
-    64, D and mlp multiples of 32, D <= 1024, so ViT-Tiny through
-    ViT-Large, at any S) or the device is not CUDA (the CPU runs their
+    geometry (`ops/fused_block.py::geometry_route`: head_dim 16, 32, 48, 64
+    or 80, D and mlp multiples of 32, D <= 1280, so ViT-Tiny through
+    ViT-Huge/14, at any S) or the device is not CUDA (the CPU runs their
     plain twins, which take any geometry); else "xla". The kernels take
     both compute dtypes wherever they take the geometry, so
     `compute_dtype` does not change the choice."""

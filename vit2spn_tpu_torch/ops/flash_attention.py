@@ -49,10 +49,10 @@ from vit2spn_tpu_torch.ops.fused_block import (
 NEG_INF = -1e30
 KERNEL_NAME = "flash_attention"
 # what csrc/flash_attention.cu takes (fused_block.geometry_route without an
-# MLP or a LayerNorm, so any D): head_dim 16, 32, 48 or 64 at any S (above
-# fused_block.KERNEL_MAX_SEQ the multi-pass routes: csrc/long_attention.cuh
-# at head_dim 64 and csrc/general_long.cuh at 16-48 in bf16,
-# csrc/flash_f32.cuh in fp32)
+# MLP or a LayerNorm, so any D): head_dim 16, 32, 48, 64 or 80 at any S
+# (above fused_block.KERNEL_MAX_SEQ the multi-pass routes:
+# csrc/long_attention.cuh at head_dim 64 and csrc/general_long.cuh at 16-48
+# in bf16, csrc/flash_f32.cuh in fp32; at head_dim 80 those at every S)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -91,7 +91,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """What the kernels take: q, k, v of one shape (B, S, H, Dh) of a
     geometry `check_geometry` accepts without a LayerNorm (head_dim 16, 32,
-    48 or 64 at any S and any number of heads), one dtype
+    48, 64 or 80 at any S and any number of heads), one dtype
     (bf16 or fp32), one device and one set of strides, each head's Dh values
     contiguous and the heads of a token side by side."""
     if q.dtype not in KERNEL_DTYPES:

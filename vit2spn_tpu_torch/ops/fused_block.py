@@ -61,25 +61,30 @@ WEIGHT_NAMES = (
     "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2",
 )
 KERNEL_NAME = "backbone_fwd"
-# what the kernels take (`geometry_route`): head_dim 16, 32, 48 or 64, a
-# LayerNorm row of D values (D <= 1024, a multiple of 32), mlp a multiple of
+# what the kernels take (`geometry_route`): head_dim 16, 32, 48, 64 or 80, a
+# LayerNorm row of D values (D <= 1280, a multiple of 32), mlp a multiple of
 # 32, any S. Their attention holds a row of scores in registers up to
 # KERNEL_MAX_SEQ keys; above it the multi-pass routes: in bf16 those of
 # csrc/long_attention.cuh at head_dim 64 and of csrc/general_long.cuh at 16,
-# 32 and 48, in fp32 those of csrc/flash_f32.cuh
-KERNEL_HEAD_DIMS = (16, 32, 48, 64)
+# 32 and 48, in fp32 those of csrc/flash_f32.cuh. Head_dim 80 (ViT-Huge/14)
+# has no register-row kernels: the multi-pass routes at every S
+# (STREAMED_HEAD_DIMS, csrc/common.cuh streamed_head_dim)
+KERNEL_HEAD_DIMS = (16, 32, 48, 64, 80)
+STREAMED_HEAD_DIMS = (80,)
 KERNEL_MAX_SEQ = 256
-# the longest S of the bf16 backward's attention core above KERNEL_MAX_SEQ,
-# at every head_dim: csrc/long_attention.cuh's core keeps three fp32
+# the longest S of the bf16 backward's attention core above KERNEL_MAX_SEQ
+# at head_dim 16-64: csrc/long_attention.cuh's core keeps three fp32
 # statistics a query in shared memory beside at least one 16 KB tile slot
 # and two 16 KB ring stages: (232,448 - 256 - 50,176) / 12 bytes, in whole
 # 64-query tiles (long_core_max_seq, which chip_smoke.py holds this to);
 # csrc/general_long.cuh's core keeps them beside its staged rows and takes
-# the same limit
+# the same limit at 16-48. At 80 its staged rows leave less room:
+# `attention_core_max_seq`
 LONG_CORE_MAX_SEQ = 15168
-# the widest LayerNorm row: 32 values a lane of a warp (csrc/common.cuh
-# LN_MAX_D; up to D = 768 the kernels keep 24, their code before ViT-Large)
-KERNEL_MAX_D = 1024
+# the widest LayerNorm row: 40 values a lane of a warp (csrc/common.cuh
+# LN_MAX_D; up to D = 768 the kernels keep 24, up to 1024 32, their code
+# before ViT-Huge)
+KERNEL_MAX_D = 1280
 # widest D whose layer keeps x2, y2 and g inside one block (csrc/layer_fwd.cuh
 # FUSED_MLP_MAX_D); above it the layer runs two LayerNorms and four GEMMs
 # (csrc/tile_gemm.cuh) and passes y, fp32 x2 and g through scratch
@@ -405,12 +410,12 @@ def geometry_route(d: int, heads: Optional[int] = None, mlp: Optional[int] = Non
     Returns (ROUTE_FAST, "") where head_dim is 64 and D and mlp are
     multiples of 64 (every route of the earlier slices, any S);
     (ROUTE_GENERAL, "") for the other geometries the kernels take: head_dim
-    16, 32 or 48, D and mlp multiples of 32, D <= KERNEL_MAX_D, any S (the
-    seven-launch forward layer, the backward sequences, the attention
-    kernels on the head_dim: up to KERNEL_MAX_SEQ keys a row of scores in
-    registers, above it the multi-pass routes); (None, reason) when
-    refused. The S limit of the bf16 backward core (LONG_CORE_MAX_SEQ) is
-    `check_seq_len`'s, the same on both routes. `heads` None leaves the
+    16, 32, 48 or 80, D and mlp multiples of 32, D <= KERNEL_MAX_D (1280),
+    any S (the seven-launch forward layer, the backward sequences, the
+    attention kernels on the head_dim: up to KERNEL_MAX_SEQ keys a row of
+    scores in registers, above it the multi-pass routes, which head_dim 80
+    takes at every S); (None, reason) when refused. The S limit of the bf16
+    backward core (`attention_core_max_seq`) is `check_seq_len`'s. `heads` None leaves the
     attention out (the MLP half), `mlp` None the MLP, `s` None the sequence
     (any S >= 1 is taken); `layernorm` False (the flash pair, which
     normalises no row of D values) drops the D <= KERNEL_MAX_D bound."""
@@ -440,17 +445,32 @@ def check_geometry(d: int, heads: Optional[int] = None, mlp: Optional[int] = Non
     return route
 
 
-def check_seq_len(s: int, dtype: torch.dtype, what: str, core: bool = False) -> None:
+def attention_core_max_seq(head_dim: int) -> int:
+    """The longest S of the bf16 backward's attention core at `head_dim`
+    (csrc/attention_bwd.cuh attention_core_max_seq, which chip_smoke.py holds
+    this to): LONG_CORE_MAX_SEQ at 16-64; at 80 csrc/general_long.cuh's core
+    keeps the three statistics beside two 192-row buffers of 88 bf16 rows
+    (67,584 B): (232,448 - 67,584) / 12 bytes in whole 64-query chunks,
+    13,696."""
+    if head_dim not in STREAMED_HEAD_DIMS:
+        return LONG_CORE_MAX_SEQ
+    staged = 2 * (128 + 64) * (head_dim + 8) * 2
+    return min(LONG_CORE_MAX_SEQ, (232448 - staged) // 12 // 64 * 64)
+
+
+def check_seq_len(s: int, dtype: torch.dtype, what: str, core: bool = False,
+                  head_dim: int = 64) -> None:
     """The attention kernels' sequence limit: any S (above KERNEL_MAX_SEQ
     through the multi-pass routes of csrc/long_attention.cuh and
     csrc/general_long.cuh in bf16 and csrc/flash_f32.cuh in fp32), except S
-    <= LONG_CORE_MAX_SEQ for the bf16 backward's attention core (`core`:
-    the layer backwards) at every head_dim, whose statistics fill the
-    shared memory there. The fp32 routes keep theirs in device memory."""
-    if core and dtype == torch.bfloat16 and s > LONG_CORE_MAX_SEQ:
+    <= attention_core_max_seq(head_dim) for the bf16 backward's attention
+    core (`core`: the layer backwards), whose statistics fill the shared
+    memory there. The fp32 routes keep theirs in device memory."""
+    limit = attention_core_max_seq(head_dim)
+    if core and dtype == torch.bfloat16 and s > limit:
         raise ValueError(
-            f"{what} kernel takes S <= {LONG_CORE_MAX_SEQ} in bf16, got {s}: its attention "
-            "core keeps three fp32 statistics a query in one block's shared memory "
+            f"{what} kernel takes S <= {limit} in bf16, got {s} (head_dim {head_dim}): its "
+            "attention core keeps three fp32 statistics a query in one block's shared memory "
             "(csrc/long_attention.cuh, csrc/general_long.cuh)")
 
 
@@ -467,7 +487,7 @@ def _check_activation(x: torch.Tensor, heads: Optional[int], core: bool = False,
     b, s, d = x.shape
     check_geometry(d, heads, mlp, s)
     if heads is not None:
-        check_seq_len(s, x.dtype, "backbone", core)
+        check_seq_len(s, x.dtype, "backbone", core, d // heads)
 
 
 def _check_weights(x: torch.Tensor, names, tensors, shapes: dict) -> None:
@@ -540,7 +560,7 @@ _SIGNATURES = {
         "vit2spn_attn_bwd_launches": ([_I] * 4, _I),
         "vit2spn_attention_core": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "vit2spn_attention_core_f32": ([_P] * 5 + [_I] * 5 + [_P], _I),
-        "vit2spn_attention_core_max_seq": ([], _I),
+        "vit2spn_attention_core_max_seq": ([_I], _I),
         "vit2spn_long_scores_probe": ([_P] * 5, _I),
         "vit2spn_long_quotient_probe": ([_LL, _P, _P], _I),
     },
@@ -588,7 +608,9 @@ def _load(name: str) -> ctypes.CDLL:
 # CUDA launches of the attention routes above KERNEL_MAX_SEQ keys (bf16:
 # csrc/long_attention.cuh, or csrc/general_long.cuh at head_dim 16-48; fp32:
 # csrc/flash_f32.cuh's one-pass or multi-pass route), by
-# route, counted by the wrappers that make them beside their own counts:
+# route, counted by the wrappers that make them beside their own counts (by
+# S: at head_dim 80 the multi-pass kernels also run at S <= KERNEL_MAX_SEQ,
+# where this does not count them):
 # the forward layer's attention stage (one a layer), the backward's attention
 # core (one per attn_bwd or merged_bwd call), the flash forward and backward
 # (one per call, the backward's two CUDA launches counted once)
