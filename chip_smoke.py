@@ -327,7 +327,7 @@ script exits non-zero without printing a result:
      one fused_backbone, two runs of each wrapper equal, the CUDA launches
      as predicted, the flash pair at head_dim 80 and the fp32 routes
      against float64; the head_dim-80 attention kernels alone at S = 577
-     and 1,024; the core at its longest S at head_dim 80 (13,696) and one
+     and 1,024; the core at its longest S at head_dim 80 (11,072) and one
      query past it refused; D 1280 as 20 heads of 64 (the fast route), 2
      layers; head_dim 96 and D = 1312 refused. (b) `ssp-scratch` with those
      overrides, 2 x 64 images a step, one trainer: step 1 against "xla"
@@ -335,8 +335,9 @@ script exits non-zero without printing a result:
      fp32 "fused" and fp32 "pallas" with every counter as predicted and
      each path's peak memory. (c) extract at batch 256 against the plain
      path. (d) the times: the 32-layer forward at B = 256, the layer
-     kernels and the flash pair at B = 64. `python3 chip_smoke.py
-     --vit-huge` runs the build and this phase alone.
+     kernels and the flash pair at B = 64, the attention stage and core
+     alone at B = 64, S = 257 and 577. `python3 chip_smoke.py --vit-huge`
+     runs the build and this phase alone.
 
 The line before the last is one JSON object {"kernels": [...]} with each
 kernel's numbers (`launches` on its training path, `finetune_launches` in
@@ -5449,12 +5450,30 @@ def gl_times(fb, fa, card, dev) -> dict:
     return out
 
 
+# the general route's wgmma kernels, which must not spill
+GL_WGMMA_KERNELS = ("gl_fwd_kernel", "gl_core_kernel")
+
+
+def no_spill(tag, line) -> None:
+    """`line` of ptxas_report for a kernel of GL_WGMMA_KERNELS: no spill
+    stores."""
+    if line.split("<")[0] in GL_WGMMA_KERNELS and ", 0 B spill stores" not in line:
+        raise AssertionError(f"{tag}: {line} spills")
+
+
 def gl_ptxas(libs) -> None:
-    """The registers and spill stores of the new kernels' instantiations."""
+    """The registers, spill stores and static shared memory of the new
+    kernels' instantiations, and any ptxas line on their wgmma; the wgmma
+    kernels must not spill."""
     for name, lib in libs.items():
-        for line in ptxas_report(open(f"{lib}.log").read(), None, head_dims=True):
+        text = open(f"{lib}.log").read()
+        for line in ptxas_report(text, None, head_dims=True):
             if line.split("<")[0] in GL_NEW_KERNELS:
                 log(f"[gl-build] {name}: {line}")
+                no_spill(name, line)
+        for line in text.splitlines():
+            if "wgmma" in line and "gl_" in line:
+                log(f"[gl-build] {name}: ptxas: {line.strip()[:240]}")
 
 
 def general_long_path(fb, fa, card, dev, libs=None) -> list:
@@ -5565,7 +5584,7 @@ def general_long_in_child() -> list:
 # (the four layer kernels and the flash pair) against their fp32 twins and
 # float64; the head_dim-80 attention kernels alone at VH_LONG (S = 577,
 # 1,024) in bf16 and fp32 (gl_check_shape); the core's S limit at head_dim
-# 80 (13,696) held at its edge; D = 1280 as 20 heads of 64 (the fast route
+# 80 (11,072) held at its edge; D = 1280 as 20 heads of 64 (the fast route
 # at the widest LayerNorm row), 2 layers; head_dim 96 and D = 1312 refused
 # by the C entries and geometry_route.
 # (b) `ssp-scratch` with VH_OVERRIDES, bf16, 2 x 64 images a step,
@@ -5575,9 +5594,11 @@ def general_long_in_child() -> list:
 # every counter as predicted, each path's peak device memory; the "fused" step's wall, device
 # time by wrapper and card idle. (c) extract at batch 256 through "fused"
 # against the plain path. (d) the times: zoo_times at S = 257 (the 32-layer
-# forward at B = 256, the layer kernels at B = 64) and the flash pair at B
-# = 64 beside SDPA (bf16, and on fp32 copies). `python3 chip_smoke.py
-# --vit-huge` runs the build and this phase alone.
+# forward at B = 256, the layer kernels at B = 64), the flash pair at B = 64
+# beside SDPA (bf16, and on fp32 copies), and the attention stage and core
+# alone at VH_ATT_TIMES beside their twins, SDPA (its backward) and their
+# bounds. `python3 chip_smoke.py --vit-huge` runs the build and this phase
+# alone.
 VH_LABEL, VH_D, VH_HEADS, VH_MLP, VH_LAYERS = "ViT-Huge/14", 1280, 16, 5120, 32
 VH_OVERRIDES = ("vit.hidden_size=1280", "vit.num_heads=16", "vit.mlp_dim=5120",
                 "vit.num_layers=32", "vit.patch_size=14")
@@ -5590,6 +5611,7 @@ VH_SERVE = (BATCH, VH_S, True)
 # also be as close to fp32 as the twin (KERNEL_VS_FP32_RATIO) at every shape
 VH_FWD_REL_TOL = (5.4e-2, 5.4e-3)
 VH_LONG = ((2, 577), (1, 1024))  # (B, S) of the attention kernels alone
+VH_ATT_TIMES = ((64, 257), (64, 577))  # (B, S) of (d)'s stage and core alone
 VH_FAST_WIDE = ("D=1280 20 heads of 64", 1280, 20, 5120, 3, 197)
 # refused: head_dim 96 (only the head_dim bounds it) and D = 1312 (41 heads
 # of 32: only the LayerNorm row bounds it), with geometry_route's reason
@@ -5621,6 +5643,7 @@ def vh_ptxas(libs) -> None:
         for line in ptxas_report(text, None, head_dims=True):
             if line.split("<")[0] in GL_NEW_KERNELS and "<80" in line:
                 log(f"[vh-build] {name}: {line}")
+                no_spill(name, line)
         for line in ptxas_report(text, None):
             if line.split("<")[0] in ("layernorm_kernel", "ln_bwd_kernel"):
                 log(f"[vh-build] {name}: {line}")
@@ -6029,6 +6052,62 @@ def vh_flash_times(fb, fa, card, dev, launches, errs) -> list:
     return entries
 
 
+def vh_attention_times(fb, fa, card, dev, launches, errs) -> list:
+    """Phase 20 (d) for the attention stage and core alone at head_dim 80
+    (D 1280, 16 heads) at VH_ATT_TIMES: kernel (CUDA events), twin, bf16
+    SDPA (its backward for the core) and the bound, and the flash forward
+    beside them. Returns the stage's and the core's `kernels` entries at the
+    first shape, the second under "at_<S>"."""
+    heads, dh = VH_HEADS, VH_D // VH_HEADS
+    entries = {}
+    for b, s in VH_ATT_TIMES:
+        gen = torch.Generator().manual_seed(SEED + 206 + s)
+        qkv = torch.randn(b, s, 3 * VH_D, generator=gen).to(torch.bfloat16).to(dev)
+        datt = (0.1 * torch.randn(b, s, VH_D, generator=gen)).to(torch.bfloat16).to(dev)
+        q, k, v = (t.reshape(b, s, heads, dh) for t in qkv.split(VH_D, dim=-1))
+        do = datt.reshape(b, s, heads, dh)
+        sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
+        sdpa_bwd, _ = library_flash_bwd(q, k, v, do)
+        for route, replaces, kernel, twin, library in (
+                ("attention_fwd", "vit2spn_tpu/ops/fused_block.py:694",
+                 lambda: attention_stage_call(fb, qkv, heads),
+                 lambda: attention_stage_plain(qkv, heads),
+                 lambda: F.scaled_dot_product_attention(*sdpa_in)),
+                ("attention_bwd", "vit2spn_tpu/ops/fused_block.py:357",
+                 lambda: attention_core_call(fb, qkv, datt, heads),
+                 lambda: fb._attention_bwd(qkv, datt, heads), sdpa_bwd),
+                ("flash_fwd", "vit2spn_tpu/ops/flash_attention.py:36",
+                 lambda: fa.flash_fwd(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+                 lambda: F.scaled_dot_product_attention(*sdpa_in))):
+            k_ms = time_ms(kernel, iters=10, warmup=2)
+            p_ms = time_ms(twin, iters=3, warmup=1)
+            with torch.no_grad() if route.endswith("fwd") else torch.enable_grad():
+                l_ms = time_ms(library, iters=10, warmup=2)
+            b_ms, b_by, flops = long_bound_ms(route, b, s, heads, False, dh)
+            log(f"[vh-time] {VH_LABEL} {route} alone B={b} S={s} heads={heads} head_dim {dh}: "
+                f"kernel {k_ms:.4f} ms, plain twin {p_ms:.3f} ms, bf16 SDPA"
+                f"{' backward' if route.endswith('bwd') else ''} {l_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP), kernel at "
+                f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the "
+                f"bound; {card}")
+            if route == "flash_fwd":  # vh_flash_times holds its entry
+                continue
+            numbers = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": l_ms}
+            if route not in entries:
+                entries[route] = {
+                    "name": f"{route} (hd 80, D={VH_D})", "route": "cuda",
+                    "source": "vit2spn_tpu_torch/csrc/general_long.cuh", "replaces": replaces,
+                    "launches": launches.get(f"{route} (S>256)", 0),
+                    "max_abs_err": errs.get((route, dh, "bf16")), **numbers,
+                    "dtype": "bfloat16", "shape": f"B={b} S={s} D={VH_D} heads={heads}"}
+            else:
+                entries[route][f"at_{s}"] = numbers
+        del qkv, datt, q, k, v, do, sdpa_in, sdpa_bwd
+        torch.cuda.empty_cache()
+    return list(entries.values())
+
+
 def vit_huge_path(fb, fa, card, dev, libs=None) -> list:
     """Phase 20, ViT-Huge/14: (a) the kernels at D 1280 and head_dim 80
     against their twins, (b) SSP training, (c) extract, (d) the times.
@@ -6068,6 +6147,7 @@ def vit_huge_path(fb, fa, card, dev, libs=None) -> list:
                         b_layer=VH_MICRO, fwd_iters=5, weights=wt)
     del wt
     entries += vh_flash_times(fb, fa, card, dev, launches, errs)
+    entries += vh_attention_times(fb, fa, card, dev, launches, long_errs)
     log(f"[vh] (d) in {time.perf_counter() - t0:.1f} s; phase 20 in "
         f"{time.perf_counter() - t_phase:.1f} s")
     for e in entries:

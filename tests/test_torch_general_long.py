@@ -23,9 +23,11 @@ Here, at tiny widths (2 layers, B = 2):
    64-key chunks) and the quad adds its four lanes, the IEEE quotient, the
    products with P and dS as fp32 sums over 16-key (16-query) k-steps in
    order, P and dS one bf16 term (the fused block's stage and core) or two
-   (the flash pair: hi = bf16(x), lo = bf16(x - hi)); and the fp32
-   multi-pass route's order (per 256-key chunk, csrc/flash_f32.cuh) at the
-   three head_dims;
+   (the flash pair: hi = bf16(x), lo = bf16(x - hi)); the stage, the flash
+   forward and the core run on wgmma, whose accumulator holds each lane's
+   mma.sync fragment positions, and keep these orders, as the flash
+   backward's mma.sync kernels do; and the fp32 multi-pass route's order
+   (per 256-key chunk, csrc/flash_f32.cuh) at the three head_dims;
 3. two SSP optimizer steps of the tiny model (D 32, 2 heads, mlp 64: head
    dim 16) at image_size 272 (S = 290) against the JAX trainer, the
    weights carried over by models/convert.py.

@@ -142,12 +142,13 @@ def test_geometry_route_refuses_past_vit_huge(d, heads, mlp, message):
 
 def test_core_seq_limit_at_head_dim_80():
     """The bf16 core at head_dim 80 keeps three fp32 statistics a query
-    beside two 192-row buffers of 88-element bf16 rows: (232,448 - 67,584) /
-    12 bytes in whole 64-query chunks; at 16-64 the limit stays 15,168. The
-    wrappers' check refuses one query more before any launch; fp32 takes
-    any S."""
+    beside one tile slot and two ring stages, each two 64-row tiles of two
+    8 KB slabs, and 1 KB to align them, in 232,448 - 256 bytes: (232,192 -
+    99,328) / 12 bytes in whole 64-query chunks; at 16-64 the limit stays
+    15,168. The wrappers' check refuses one query more before any launch;
+    fp32 takes any S."""
     limit = fb.attention_core_max_seq(80)
-    assert limit == (232448 - 2 * (128 + 64) * 88 * 2) // 12 // 64 * 64 == 13696
+    assert limit == (232448 - 256 - 1024 - 3 * 2 * 2 * 8192) // 12 // 64 * 64 == 11072
     assert [fb.attention_core_max_seq(dh) for dh in (16, 32, 48, 64)] == [15168] * 4
     fb.check_seq_len(limit, torch.bfloat16, "attention backward", core=True, head_dim=80)
     with pytest.raises(ValueError, match=f"takes S <= {limit} in bf16, got {limit + 1}"):

@@ -44,11 +44,10 @@ extern "C" int gl_probe_core(const void* qkv, const void* datt, void* att, void*
 extern "C" int gl_probe_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                   int S, int H, int dh, long long bs, long long ts,
                                   void* stream) {
-  const long long ots = (long long)H * dh;
   return by_dh(dh, [&](auto d) {
-    return gl_launch_fwd<decltype(d)::value, true>(
+    return gl_launch_flash_fwd<decltype(d)::value>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), B, S, H, bs, ts, S * ots, ots, static_cast<cudaStream_t>(stream));
+        static_cast<bf16*>(o), B, S, H, bs, ts, static_cast<cudaStream_t>(stream));
   });
 }
 

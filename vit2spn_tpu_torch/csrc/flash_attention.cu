@@ -455,17 +455,14 @@ template <int DH>
 static int fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S, int H,
                     long long bs, long long ts, float scale, cudaStream_t st) {
   if constexpr (streamed_head_dim(DH)) {  // every S: csrc/general_long.cuh
-    const long long ots = (long long)H * DH;
-    return gl_launch_fwd<DH, true>(q, k, v, o, B, S, H, bs, ts, S * ots, ots, st);
+    return gl_launch_flash_fwd<DH>(q, k, v, o, B, S, H, bs, ts, st);
   } else {
     if (S > FA_MAX_S) {  // above 256 keys P in two terms as here: csrc/long_attention.cuh at
                          // head_dim 64, csrc/general_long.cuh at the others
-      if constexpr (DH == FA_DH) {
+      if constexpr (DH == FA_DH)
         return launch_long_flash_fwd(q, k, v, o, bs, ts, B, S, H, st);
-      } else {
-        const long long ots = (long long)H * DH;
-        return gl_launch_fwd<DH, true>(q, k, v, o, B, S, H, bs, ts, S * ots, ots, st);
-      }
+      else
+        return gl_launch_flash_fwd<DH>(q, k, v, o, B, S, H, bs, ts, st);
     }
     const dim3 grid((S + TC_TILE - 1) / TC_TILE, H, B);
     return by_key_tiles<DH>(S, [&](auto nt) {

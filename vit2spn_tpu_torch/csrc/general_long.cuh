@@ -2,8 +2,8 @@
 // head_dim 80 (common.cuh streamed_head_dim: ViT-Huge/14, which has no
 // register-row kernels), for Hopper (sm_90a), bf16 in and out: the S > 256
 // route of the general geometry (common.cuh general_route), behind the same
-// four bf16 attention functions as csrc/long_attention.cuh, whose wgmma /
-// TMA routes are written for head_dim 64:
+// four bf16 attention functions as csrc/long_attention.cuh, whose routes are
+// written for head_dim 64:
 //
 //   vit2spn_tpu/ops/fused_block.py::_attention (inside _backbone_fwd_kernel
 //     and _fwd_kernel)               -> gl_fwd_kernel<DH, false>, the forward
@@ -31,76 +31,88 @@
 //                bf16 terms each (hi = bf16(x), lo = bf16(x - hi))
 //
 // with queries >= S out of dK and dV. As in long_attention.cuh, p is formed
-// only once the row's max and sum over every key are known (no running
-// max, no rescaled sum): several passes over the keys, the scores recomputed
-// in each. The design is the S <= 256 mma.sync kernels' (one warp a 16-row
-// tile, the m16n8k16 fragments, DH / 16 k-steps of head_dim) with the other
-// side streamed through shared memory in GL_CHUNK-row chunks that every warp
-// of a block shares, instead of held whole:
+// only once the row's max and sum over every key are known (no running max,
+// no rescaled sum): several passes over the keys, the scores recomputed in
+// each.
 //
-//   passes 1, 2  s of every key: the row max m, then l = sum exp(s - m)
-//   forward      pass 3: s again, p, o += p v (per 16-key step)
-//   rows         pass 3: s and dP = dO v^T: dot = rowsum(dP p) (and the
-//                core's att += bf16(p) v); pass 4: s and dP again, dS,
-//                dQ += dS k; m, l and dot of each query kept
-//   cols         per 16 keys a warp, every query chunk: s^T and dP^T, p and
-//                dS from each query's m, l, dot, dV += p^T dO, dK += dS^T q
+// The forward (stage and flash) and the fused backward core are
+// long_attention.cuh's wgmma / TMA design on the head_dim (the gw_ helpers
+// below, its la_ helpers where nothing depends on the head_dim): a
+// warpgroup owns 64 rows; the scores and dP are SS products over DH / 16
+// k-steps of 16, P and dS are packed from the accumulator registers into
+// the A registers of RS products whose N is DH (o, att, dQ, dK, dV: DH / 2
+// accumulator registers a thread); the operands arrive by TMA through a
+// ring of 64-row chunks kept in flight by one lane of a producer warpgroup
+// that gives its registers to the consumers (setmaxnreg); the forward's
+// passes and the core's statistics passes issue chunk c + 1's scores before
+// chunk c's softmax (two accumulator sets); the quotient is la_quot (three
+// branch-free instructions with the IEEE division's bits, __fdiv_rn for a
+// warp whose chunk holds an a below 2^-100 or an l above 2^16). The forward
+// runs persistent blocks of GL_FWD_WG consumer warpgroups over (image, head,
+// GL_FWD_WG query tiles) items; the core one block per (image, head),
+// gl_core_minb blocks an SM (two; one at 80), its rows phase (passes 1-4:
+// m, l, then dot = rowsum(dP p) with att, then dQ) and its cols phase (per
+// 64 keys every query chunk: s^T = k q^T and dP^T from each query's
+// statistics in shared memory, dV and dK) in ONE launch, so the layer
+// backward's launch count does not change with S.
 //
-// Orders of the sums, fixed, so that two runs give the same bits, and
-// written after the S <= 256 kernels' (below: not every bit of the core's
-// equals theirs): the scores over head_dim in
-// k-steps of 16 (mma_rows_t); l and dot per lane over its keys 8 j + 2 t,
-// 8 j + 2 t + 1 in ascending order across every chunk, then the quad's
-// shuffles (xor 1, then xor 2); o, att and dQ over 16-key k-steps in
-// ascending order, dK and dV over 16-query k-steps in ascending order. A
-// key tile wholly past S is skipped: it would add exact zeros.
+// A row of a head is DH bf16: 32, 64, 96 or 160 bytes, and TMA and wgmma
+// have no swizzle for 96 or 160. So every operand is read as 64-row tiles
+// of GwShape<DH>::SLABS 64-column slabs in the 128-byte swizzle (one at
+// head_dim 16-48, two at 80), through a 4-D tensor map (DH values, heads,
+// S rows, B images) whose box (64 values, one head, 64 rows, one image) is
+// wider than the head: TMA writes zeros past DH (and past S) and fetches
+// nothing for them. The products read only the head's columns: the scores'
+// k-steps stop at DH (at 80, four in slab 0 and one in slab 1) and the RS
+// products take N = DH across the slabs (the descriptor's leading offset
+// steps from slab 0 to slab 1). A head_dim-16-48 tile is the head_dim-64
+// route's 8 KB, so the core keeps its S limit, long_core_max_seq() =
+// 15,168; at 80 a tile is 16 KB and the statistics beside one tile slot and
+// two ring stages leave room for 11,072 queries (gl_core_max_seq).
 //
-// The fused backward core is one launch, one block per (image, head), as the
-// S <= 256 core: its rows phase walks the queries in GL_ROWS rounds and
-// keeps each query's three statistics in shared memory, then its cols phase
-// walks the keys; so the layer backward's launch count does not change with
-// S. Its statistics bound S: 3 floats a query beside the staged rows, which
-// leaves room for more than long_core_max_seq() (the head_dim-64 core's
-// limit, 15,168) at head_dim 16-48, so the layer backwards state that one
-// limit there; at head_dim 80 the staged rows (88 bf16 apart) leave room for
-// 13,696 queries (gl_core_max_seq). The flash backward is two launches, as
-// every flash backward route: the rows launch writes the statistics to the
-// workspace (vit2spn_flash_bwd_workspace_floats), the cols launch reads them
-// a chunk at a time beside its Q and dO chunks, so S is not bounded.
+// Orders of the sums, fixed, so that two runs give the same bits, and those
+// of the mma.sync kernels these replace: the wgmma accumulator has the
+// m16n8 fragment positions (register i: row (i / 2) % 2 of the thread's two,
+// column 8 (i / 4) + 2 t + i % 2), so l and dot sum per lane over its keys
+// 8 j + 2 t, 8 j + 2 t + 1 in ascending order across every chunk, then the
+// quad's shuffles (xor 1, then xor 2); the scores over head_dim in k-steps
+// of 16; o, att and dQ over 16-key k-steps in ascending order, dK and dV
+// over 16-query k-steps in ascending order (on the card every output
+// equals the mma.sync kernels' bit for bit: tools/gl_long_sweep.py). Both
+// phases of the core and the stage form the same p, so the core's att
+// equals the stage's bit for bit.
 //
-// Why mma.sync and not long_attention.cuh's wgmma / TMA on DH: a simple
-// kernel that is right first. The S <= 256 kernels' fragment code already
-// takes every head_dim; TMA has no swizzle mode for a head_dim-48 row (96
-// bytes), and wgmma's N = DH for P v would need a second set of the long
-// routes' tiles. What bounds it on this card: at ViT-Tiny's width at 384 px
-// (S = 577, B = 64) the products are 2 S^2 dh a (image, head) each (2 in
-// the forward, 6 in the core's backward), against the recomputed scores (2
-// more passes in the forward, 3 in the core's rows phase and 1 in its cols
-// phase) and an expf and a division per score and pass on the CUDA cores,
-// which mma.sync from shared memory and 8 warps a block leave unhidden.
-// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase
-// 19): at that shape with head_dim 32 the stage takes 0.39 ms, the core
-// 1.40, the flash forward 0.43 and backward 1.20 ms, 3.4-4.3% of their
-// bounds (2.3-8.4% over the head_dims and shapes timed there). Why the S <=
-// 256 kernels keep S <= 256: at S = 197, B = 128, D 192 these take 1.17-1.49x
-// their time for the stage and the flash pair and 1.66-2.59x for the core,
-// with the same bits but for 5e-5 of the core's (tools/gl_short_probe.py,
-// same card). Head_dim 80 (five k-steps of 16 for the scores, ten n8 tiles
-// for P v) takes these kernels at every S: registering the S <= 256 kernels
-// there would add six key-tile instantiations to each attention kernel, and
-// the register-row core already spills 1.1-1.6 KB at 256 keys at head_dim
-// 16-48. Its rows and cols kernels of the flash backward hold dQ (dK and
-// dV) beside both operands' fragments: at two blocks an SM (128 registers)
-// they would spill, so at head_dim 80 they take one (GL_FLASH_MINB).
+// What bounds it on this card: at ViT-Tiny's width at 384 px (S = 577, B =
+// 64) the products are 2 S^2 dh a (image, head) each (2 in the forward, 6
+// in the core), which leaves the CUDA cores' work per score and pass (a
+// scale, a subtraction, an expf, the quotient) in front at head_dim 16-48.
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (tools/gl_long_sweep.py)
+// at that shape: the stage 0.5763 / 0.3137 / 0.2234 ms at head_dim 16 / 32
+// / 48 (2.9-7.6% of its bound, ~2.6x bf16 SDPA), the core 1.3929 / 0.9660 /
+// 0.5758 ms (3.6-8.6%); at ViT-Huge/14 (B = 64, S = 257) 0.3258 and 1.4012
+// ms. A forward that kept each exp(s - m) of pass 2 would save at most what
+// GL_ONE_PASS_PROBE measures (18-31% of the stage).
+//
+// The flash backward keeps the first design of this route: the S <= 256
+// mma.sync kernels' fragment code (one warp a 16-row tile, the m16n8k16
+// fragments, DH / 16 k-steps of head_dim) with the other side streamed
+// through shared memory in GL_CHUNK-row chunks by cp.async from every
+// thread, two launches: the rows launch writes each query's statistics to
+// the workspace (vit2spn_flash_bwd_workspace_floats), the cols launch reads
+// them a chunk at a time beside its Q and dO chunks, so S is not bounded.
+// Its rows and cols kernels hold dQ (dK and dV) beside both operands'
+// fragments: at two blocks an SM (128 registers) they would spill at head
+// dim 80, so there they take one (GL_FLASH_MINB). Why the S <= 256 kernels
+// keep S <= 256: tools/gl_short_probe.py times these at S = 197 beside them.
 // Limits: head dim 16, 32, 48 or 80; rows 16-byte aligned.
 
 #pragma once
 
 #include "common.cuh"
-#include "long_attention.cuh"  // split_pair, la_quad_sum, la_quad_max, LA_MAX_SMEM
+#include "long_attention.cuh"  // Ring, la_quot / la_divide, the chunk loops, split_pair
 
-#define GL_WARPS 8               // warps a block, 16 rows each
-#define GL_ROWS (16 * GL_WARPS)  // a block's rows at a time: queries, or keys (cols)
+#define GL_WARPS 8               // the flash backward: warps a block, 16 rows each
+#define GL_ROWS (16 * GL_WARPS)  // its block's rows at a time: queries, or keys (cols)
 #define GL_CHUNK 64              // rows of the other side a staged chunk
 
 // blocks an SM the flash backward's kernels are compiled for: two (at most
@@ -163,7 +175,798 @@ __device__ __forceinline__ void zero_acc(float acc[][4]) {
 }
 
 // ---------------------------------------------------------------------------
-// The passes
+// The wgmma routes: the forward (stage and flash) and the fused backward core
+// ---------------------------------------------------------------------------
+
+#ifndef GL_FWD_WG
+#define GL_FWD_WG 2  // the forward's consumer warpgroups: one 64-query tile each
+#endif
+#ifndef GL_FWD_RING
+#define GL_FWD_RING 0  // the forward's ring stages; 0: gl_fwd_stages' default
+#endif
+#ifndef GL_CORE_MINB
+#define GL_CORE_MINB 0  // the core's blocks an SM; 0: gl_core_minb's default
+#endif
+#ifndef GL_CORE_STAGES
+#define GL_CORE_STAGES 4  // the core's ring, where the statistics leave the room (at least 2)
+#endif
+// tools/gl_long_sweep.py's probe of a one-pass forward: 1 takes the
+// forward's pass-3 p from the raw score without its scale, subtraction and
+// expf, as if a pass-2 store had kept each a (the bits are then wrong: a
+// measurement only)
+#ifndef GL_ONE_PASS_PROBE
+#define GL_ONE_PASS_PROBE 0
+#endif
+#define GL_CORE_WG 1  // the core's consumer warpgroups
+
+// a 64-row tile of one operand at head_dim DH in 64-column slabs
+template <int DH>
+struct GwShape {
+  static_assert(DH % 16 == 0 && DH <= 128, "head_dim a multiple of 16 up to 128");
+  static constexpr int SLABS = (DH + 63) / 64;
+  static constexpr int TILE = SLABS * TMA_BOX_BYTES;  // one operand's tile, bytes
+  static constexpr int STAGE = 2 * TILE;              // a ring stage or a tile slot: two operands
+  static constexpr int ACC = DH / 2;                  // a 64 x DH fp32 fragment's registers a thread
+};
+
+// the forward's ring: 16 KB stages up to head_dim 48, 32 KB at 80
+template <int DH>
+__host__ __device__ constexpr int gl_fwd_stages() {
+  return GL_FWD_RING ? GL_FWD_RING : DH > 64 ? 4 : 6;
+}
+// the core's blocks an SM, which set its consumers' registers: two (232
+// registers) up to head_dim 48; one (240) at 80, whose cols phase holds dK
+// and dV at N = 80 beside the scores and spilled at two
+template <int DH>
+__host__ __device__ constexpr int gl_core_minb() {
+  return GL_CORE_MINB ? GL_CORE_MINB : DH > 64 ? 1 : 2;
+}
+// the core's dynamic shared memory that leaves room for gl_core_minb blocks
+// an SM (228 KB, 1 KB of it the system's a block, and the static mbarriers)
+template <int DH>
+__host__ __device__ constexpr int gl_core_shared_smem() {
+  return 233472 / gl_core_minb<DH>() - 1024 - 256;
+}
+
+// Host: the 4-D map (DH values, `heads`, S rows, B images) over bf16 rows,
+// head j of row s of image b at base + b lay + s ts + j DH (elements; ts and
+// lay multiples of 8), read in boxes of 64 values x 1 head x 64 rows x 1
+// image with the 128-byte swizzle: values past DH and rows past S read as
+// zeros.
+static int gw_tensor_map(CUtensorMap* map, const void* base, int dh, int heads, int S, int B,
+                         long long ts, long long lay) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorSharedObjectInitFailed;
+  static thread_local bool bound = false;  // a current context for the driver call (hopper.cuh)
+  if (!bound) {
+    LAUNCH((int)cudaFree(nullptr));
+    bound = true;
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)ts * 2, (cuuint64_t)lay * 2};
+  const cuuint32_t box[4] = {TMA_BOX, 1, TMA_BOX, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r == CUDA_SUCCESS) return 0;
+  fprintf(stderr, "vit2spn: cuTensorMapEncodeTiled: %d at %p, %d x %d heads x %d x %d\n", (int)r,
+          base, dh, heads, S, B);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the box at (value c0, head c1, row c2, image c3) into `dst`, completing
+// its bytes on `bar`
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                          int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// the 64-row tile of head `head` from row `row` of image b: its slabs
+template <int DH>
+__device__ __forceinline__ void gw_load(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                        int head, int row, int b) {
+#pragma unroll
+  for (int s = 0; s < GwShape<DH>::SLABS; ++s)
+    tma_load4(dst + s * TMA_BOX_BYTES, map, bar, 64 * s, head, row, b);
+}
+
+// d (64 x N fp32, N <= 64) = A B^T over head_dim, A the 64 rows of tile a,
+// B the N rows of tile b from row `b` on, the DH / 16 k-steps in order;
+// issued, not waited for. One descriptor a tile, each k-step's offset added
+// to its address field (16-byte units, no carry below 256 KB): one live
+// descriptor an operand, not one a k-step (at head_dim 80 the core spilled
+// with ten)
+template <int DH, int N = 64>
+__device__ __forceinline__ void gw_ss(float (&d)[N / 2], const uint8_t* a, const uint8_t* b) {
+  const uint64_t da = a_desc(a), db = k_desc(b);
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    const int off = (ks / 4 * TMA_BOX_BYTES + ks % 4 * 32) >> 4;
+    Wgmma<N>::template mma<0, 0, 0>(d, da + off, db + off, ks);
+  }
+}
+
+// d (64 x N fp32) = A B (+ d when acc != 0), A from registers as
+// wgmma_rs64 takes it, B N-major (b_desc) across the slabs
+template <int N> struct GwRs;
+template <> struct GwRs<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+template <> struct GwRs<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+template <> struct GwRs<48> {
+  __device__ __forceinline__ static void mma(float (&d)[24], const uint32_t (&a)[4], uint64_t db,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+template <> struct GwRs<80> {
+  __device__ __forceinline__ static void mma(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+
+// o += X B with X packed by la_pack (per 16-key k-step hi, then with SPLIT
+// lo), B the KS 16-row k-steps of the tile at `b` read N-major (row k of B
+// = row k there), N = DH; first: o = X B
+template <int DH, bool SPLIT, int KS = 4>
+__device__ __forceinline__ void gw_rs(float (&o)[DH / 2], const uint32_t (&hi)[KS][4],
+                                      const uint32_t (&lo)[KS][4], const uint8_t* b, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t db = b_desc(b + kk * 2048, TMA_BOX_BYTES);
+    GwRs<DH>::mma(o, hi[kk], db, first && kk == 0 ? 0 : 1);
+    if constexpr (SPLIT) GwRs<DH>::mma(o, lo[kk], db, 1);
+  }
+}
+
+// x (64 x 16 KS fp32, the fragment) as one bf16 term in the A registers of
+// its KS 16-column k-steps, as la_pack<false>
+template <int KS>
+__device__ __forceinline__ void gw_pack(uint32_t (&hi)[KS][4], const float (&x)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) hi[kk][r] = pack_f32(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// rows r0 and r0 + 8 of the 64 x DH fragment o, times `mul`, as bf16 into
+// `out` (row stride ld); rows >= S are not written
+template <int DH>
+__device__ __forceinline__ void gw_store(bf16* out, long long ld, const float (&o)[DH / 2],
+                                         float mul, int r0, int S, int t) {
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 4) {
+    const int c = la_col(i, t);
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(out + r0 * ld + c) = pack_f32(o[i] * mul, o[i + 1] * mul);
+    if (r0 + 8 < S)
+      *reinterpret_cast<uint32_t*>(out + (r0 + 8) * ld + c) =
+          pack_f32(o[i + 2] * mul, o[i + 3] * mul);
+  }
+}
+
+// a = expf(s - m) of a raw score x (s = x scale)
+__device__ __forceinline__ float gw_exp(float x, float m, float scale) {
+  return expf(__fsub_rn(__fmul_rn(x, scale), m));
+}
+
+// Passes 1 and 2 of the warpgroup's 64 query rows (Q tile qt) over the nc
+// key chunks of the ring, as la_stats: each row's max m over every key,
+// then l = sum exp(s - m), per lane in key order, then the quad; chunk c +
+// 1's scores issued before chunk c's are read (two accumulator sets).
+template <int DH>
+__device__ __forceinline__ void gw_stats(float (&m)[2], float (&l)[2], Ring& ring,
+                                         const uint8_t* qt, int nc, int S, float scale,
+                                         int lane) {
+  const int t = lane & 3, tail = S - (nc - 1) * LA_CHUNK;
+  float sa[32], sb[32];
+  auto issue = [&](float (&d)[32]) {
+    const int st = ring.take();
+    wgmma_fence();
+    gw_ss<DH>(d, qt, ring.at(st));
+    wgmma_commit();
+    fence_regs<32>(d);
+    return st;
+  };
+  auto scan = [&](auto&& f) {
+    int st = issue(sa);
+    la_chunk_loop(sa, sb, nc, [&](float (&cur)[32], float (&nxt)[32], int, auto more) {
+      int next = -1;
+      if constexpr (decltype(more)::value) {
+        next = issue(nxt);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs<32>(cur);
+      ring.release(st, lane);
+      la_masked(more, tail, [&](auto mask) { f(cur, mask); });
+      st = next;
+    });
+  };
+  // the max of the raw scores, then scaled: the rounding of x scale (scale
+  // > 0) does not decrease with x, so this is the max of the scaled scores
+  float mx[2] = {-INFINITY, -INFINITY};
+  scan([&](const float (&s)[32], auto mask) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (!decltype(mask)::value || la_col(i, t) < tail)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  });
+  // the function's row max starts at -3e38 and takes the padded keys' -1e30
+  const float pad = tail < LA_CHUNK ? NEG_INF : -3.0e38f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(fmaxf(__fmul_rn(la_quad_max(mx[r]), scale), -3.0e38f), pad);
+    l[r] = 0.0f;
+  }
+  // padded keys add exp(-1e30 - m) = 0: left out
+  scan([&](const float (&s)[32], auto mask) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (!decltype(mask)::value || la_col(i, t) < tail)
+        l[(i >> 1) & 1] += gw_exp(s[i], m[(i >> 1) & 1], scale);
+  });
+  l[0] = la_quad_sum(l[0]);
+  l[1] = la_quad_sum(l[1]);
+}
+
+// p = expf(s - m) / l of the fragment s in place: every a first, then the
+// quotients (la_divide); padded keys (mask: columns >= tail) 0. PROBE: a
+// from the raw score in [0.5, 1.5] without the expf (GL_ONE_PASS_PROBE)
+template <bool PROBE = false, class Mask>
+__device__ __forceinline__ void gw_probs(float (&s)[32], const float (&m)[2], const float (&l)[2],
+                                         const LaQuot (&q)[2], int t, int tail, float scale,
+                                         Mask) {
+  bool slow = l[0] > LA_QUOT_MAX_L || l[1] > LA_QUOT_MAX_L;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool live = !Mask::value || la_col(i, t) < tail;
+    const float e = PROBE ? fminf(fabsf(s[i]), 1.0f) + 0.5f : gw_exp(s[i], m[(i >> 1) & 1], scale);
+    const float a = live ? e : 0.0f;
+    slow |= live && a < LA_QUOT_MIN;
+    s[i] = a;
+  }
+  la_divide(s, l, q, slow);
+}
+
+// The forward's pass 3 over the nc chunks of the ring (K and V tiles), as
+// la_fwd_pv: o = p v, p one bf16 term or (SPLIT) two. Per chunk c: chunk c +
+// 1's scores issued, chunk c's softmax, then (chunk c - 1's P V done) its P
+// packed and its P V issued, in flight during chunk c + 1's softmax.
+template <int DH, bool SPLIT>
+__device__ __forceinline__ void gw_fwd_pv(float (&o)[DH / 2], const float (&m)[2],
+                                          const float (&l)[2], const LaQuot (&q)[2], Ring& ring,
+                                          const uint8_t* qt, int nc, int S, float scale,
+                                          int lane) {
+  const int t = lane & 3, tail = S - (nc - 1) * LA_CHUNK;
+  float sa[32], sb[32];
+  uint32_t hi[4][4], lo[4][4];
+  auto issue = [&](float (&d)[32]) {
+    const int st = ring.take();
+    wgmma_fence();
+    gw_ss<DH>(d, qt, ring.at(st));
+    wgmma_commit();
+    fence_regs<32>(d);
+    return st;
+  };
+  int st = issue(sa), prev = -1;
+  wgmma_commit();  // an empty group in the place of chunk -1's P V
+  la_chunk_loop(sa, sb, nc, [&](float (&cur)[32], float (&nxt)[32], int c, auto more) {
+    constexpr bool MORE = decltype(more)::value;
+    int next = -1;
+    if constexpr (MORE) {  // groups in flight: s(c), P V(c - 1), s(c + 1)
+      next = issue(nxt);
+      wgmma_wait<2>();
+    } else {
+      wgmma_wait<1>();
+    }
+    fence_regs<32>(cur);
+    la_masked(more, tail, [&](auto mask) {
+      gw_probs<GL_ONE_PASS_PROBE != 0>(cur, m, l, q, t, tail, scale, mask);
+    });
+    if constexpr (MORE)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+    fence_regs<DH / 2>(o);
+    fence_regs<4>(hi);
+    if constexpr (SPLIT) fence_regs<4>(lo);
+    if (prev >= 0) ring.release(prev, lane);
+    la_pack<SPLIT>(hi, lo, cur);
+    wgmma_fence();
+    gw_rs<DH, SPLIT>(o, hi, lo, ring.at(st) + GwShape<DH>::TILE, c == 0);
+    wgmma_commit();
+    fence_regs<DH / 2>(o);
+    prev = st;
+    st = next;
+  });
+  wgmma_wait<0>();
+  fence_regs<DH / 2>(o);
+  fence_regs<4>(hi);
+  if constexpr (SPLIT) fence_regs<4>(lo);
+  ring.release(prev, lane);
+}
+
+// The forward: persistent blocks of GL_FWD_WG consumer warpgroups and a
+// producer warpgroup over items (image b, head h, group g of GL_FWD_WG
+// 64-query tiles), item = (b H + h) ng + g; block i takes items i, i +
+// gridDim.x, ... q, k, v through their 4-D maps, head h at head qh (kh, vh)
+// + h of the map; o rows of (b, h) at o + b obs + h DH + r ots. SPLIT: flash
+// (p in two terms); else the fused layer's stage (bf16(p)). Shared memory:
+// two slots of the item's Q tiles, then the ring (K in passes 1-2, K and V
+// in pass 3).
+template <int DH, bool SPLIT>
+__global__ void __launch_bounds__((GL_FWD_WG + 1) * 128, 1)
+gl_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, int qh, int kh, int vh,
+              bf16* __restrict__ o, long long obs, long long ots, int S, int H, int items,
+              float scale) {
+  using G = GwShape<DH>;
+  constexpr int WG = GL_FWD_WG, STAGES = gl_fwd_stages<DH>();
+  __shared__ uint64_t full[STAGES], empty[STAGES], qfull[2], qempty[2];
+  extern __shared__ uint8_t raw[];
+  uint8_t* qbuf = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  Ring ring{full, empty, qbuf + 2 * WG * G::TILE, G::STAGE, STAGES, 0};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nc = (S + LA_CHUNK - 1) / LA_CHUNK, ng = (nc + WG - 1) / WG;
+  if (tid == 0) {
+    ring_init(full, empty, STAGES, WG * 4);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], WG * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= WG * 4) {  // the producer warpgroup: one lane issues every load
+    reg_dealloc<LA_PRODUCER_REGS>();
+    if (warp == WG * 4 && lane == 0) {
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int g = item % ng, h = item / ng % H, b = item / ng / H;
+        const int qs = n & 1, live = min(WG, nc - g * WG);  // Q tiles with a row below S
+        mbar_wait(&qempty[qs], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&qfull[qs], live * G::TILE);
+        for (int w = 0; w < live; ++w)
+          gw_load<DH>(qbuf + (qs * WG + w) * G::TILE, &qmap, &qfull[qs], qh + h,
+                      (g * WG + w) * LA_CHUNK, b);
+        for (int pass = 0; pass < 3; ++pass)
+          for (int c = 0; c < nc; ++c) {  // K, and in pass 3 V beside it
+            uint64_t* bar;
+            uint8_t* st = ring.fill(pass < 2 ? G::TILE : G::STAGE, &bar);
+            gw_load<DH>(st, &kmap, bar, kh + h, c * LA_CHUNK, b);
+            if (pass == 2) gw_load<DH>(st + G::TILE, &vmap, bar, vh + h, c * LA_CHUNK, b);
+          }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<la_consumer_regs(WG, 1)>();
+  const int w = warp >> 2, t = lane & 3;
+  const int lrow = (warp & 3) * 16 + (lane >> 2);
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int g = item % ng, h = item / ng % H, b = item / ng / H;
+    const int qs = n & 1, tile = g * WG + w;
+    if (WG > 1 && tile >= nc) {  // no row below S: keep pace with the ring
+      for (int i = 0; i < 3 * nc; ++i) ring.release(ring.take(), lane);
+      if (lane == 0) mbar_arrive(&qempty[qs]);
+      continue;
+    }
+    mbar_wait(&qfull[qs], (n >> 1) & 1);
+    const uint8_t* qt = qbuf + (qs * WG + w) * G::TILE;
+    float m[2], l[2], acc[G::ACC];
+    gw_stats<DH>(m, l, ring, qt, nc, S, scale, lane);
+    const LaQuot q[2] = {LaQuot(l[0]), LaQuot(l[1])};
+    gw_fwd_pv<DH, SPLIT>(acc, m, l, q, ring, qt, nc, S, scale, lane);
+    if (lane == 0) mbar_arrive(&qempty[qs]);
+    gw_store<DH>(o + (long long)b * obs + h * DH, ots, acc, 1.0f, tile * LA_CHUNK + lrow, S, t);
+  }
+}
+
+template <int DH>
+static size_t gl_fwd_smem() {
+  return 1024 + (size_t)(2 * GL_FWD_WG) * GwShape<DH>::TILE +
+         (size_t)gl_fwd_stages<DH>() * GwShape<DH>::STAGE;
+}
+
+// Passes 3 and 4 of the core for the warpgroup's 64 query rows (Q tile qt,
+// dO tile ot) over the nc chunks of the ring (K and V), as la_core_rows: s =
+// q k^T and dP = dO v^T on SS products, then per chunk
+//   DQ false (pass 3): p; dot += dP p (per lane in key order); acc += bf16(p) v
+//   DQ true  (pass 4): dS = p (dP - dot); acc += bf16(dS) k
+// with the next chunk's SS products issued right behind the RS product.
+template <int DH, bool DQ>
+__device__ __forceinline__ void gw_core_rows(float (&acc)[DH / 2], float (&dot)[2],
+                                             const float (&m)[2], const float (&l)[2],
+                                             const LaQuot (&q)[2], Ring& ring, const uint8_t* qt,
+                                             const uint8_t* ot, int nc, int S, float scale,
+                                             int lane) {
+  const int t = lane & 3, tail = S - (nc - 1) * LA_CHUNK;
+  float s[32], dp[32];
+  uint32_t pa[4][4], unused[4][4];
+  auto issue = [&]() {
+    const int st = ring.take();
+    wgmma_fence();
+    gw_ss<DH>(s, qt, ring.at(st));
+    gw_ss<DH>(dp, ot, ring.at(st) + GwShape<DH>::TILE);
+    wgmma_commit();
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
+    return st;
+  };
+  if (!DQ) dot[0] = dot[1] = 0.0f;
+  int st = issue(), prev = -1;
+  la_chunk_loop1(nc, [&](int c, auto more) {
+    wgmma_wait<0>();
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
+    fence_regs<DH / 2>(acc);
+    fence_regs<4>(pa);
+    if (prev >= 0) ring.release(prev, lane);
+    la_masked(more, tail, [&](auto mask) { gw_probs(s, m, l, q, t, tail, scale, mask); });
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if constexpr (DQ)
+        s[i] = s[i] * (dp[i] - dot[(i >> 1) & 1]);
+      else
+        dot[(i >> 1) & 1] += dp[i] * s[i];
+    }
+    la_pack<false>(pa, unused, s);
+    wgmma_fence();
+    gw_rs<DH, false>(acc, pa, unused, ring.at(st) + (DQ ? 0 : GwShape<DH>::TILE), c == 0);
+    prev = st;
+    if constexpr (decltype(more)::value)
+      st = issue();
+    else
+      wgmma_commit();
+    fence_regs<DH / 2>(acc);
+  });
+  wgmma_wait<0>();
+  fence_regs<DH / 2>(acc);
+  fence_regs<4>(pa);
+  ring.release(prev, lane);
+  if (!DQ) {
+    dot[0] = la_quad_sum(dot[0]);
+    dot[1] = la_quad_sum(dot[1]);
+  }
+}
+
+// The core's cols phase for the warpgroup's 64 keys (K tile kt, V tile vt)
+// over the nc query chunks of the ring (Q and dO), as la_core_cols, in
+// steps of NQ queries (a chunk's 64, or at head_dim 80 two steps of 32,
+// whose smaller score fragments leave the registers for dK and dV at N =
+// 80): s^T = k q^T and dP^T = v dO^T on SS products, p and dS = p (dP -
+// dot) from each column's query statistics (rmax, rsum, rdot: every
+// query's; queries >= S 0), then dV += bf16(p)^T dO and dK += bf16(dS)^T q
+// on RS products (the 16-query k-steps in order), the next step's SS
+// products issued once the RS products have read their A registers.
+template <int DH>
+__device__ __forceinline__ void gw_core_cols(float (&dk)[DH / 2], float (&dv)[DH / 2],
+                                             const float* rmax, const float* rsum,
+                                             const float* rdot, Ring& ring, const uint8_t* kt,
+                                             const uint8_t* vt, int nc, int S, float scale,
+                                             int lane) {
+  constexpr int NQ = DH > 64 ? 32 : 64, PARTS = LA_CHUNK / NQ, KS = NQ / 16;
+  const int t = lane & 3, g = lane >> 2, tail = S - (nc - 1) * LA_CHUNK;
+  float s[NQ / 2], dp[NQ / 2];
+  uint32_t pa[KS][4], da[KS][4], unused[KS][4];
+  int st = -1;
+  auto issue = [&](int part) {  // step `part` of a chunk; part 0 takes the chunk's stage
+    if (part == 0) st = ring.take();
+    wgmma_fence();
+    gw_ss<DH, NQ>(s, kt, ring.at(st) + part * NQ * 128);
+    gw_ss<DH, NQ>(dp, vt, ring.at(st) + GwShape<DH>::TILE + part * NQ * 128);
+    wgmma_commit();
+    fence_regs<NQ / 2>(s);
+    fence_regs<NQ / 2>(dp);
+  };
+  auto fence_acc = [&]() {
+    fence_regs<DH / 2>(dk);
+    fence_regs<DH / 2>(dv);
+    fence_regs<KS>(pa);
+    fence_regs<KS>(da);
+  };
+  issue(0);
+  la_chunk_loop1(nc * PARTS, [&](int n, auto more) {
+    const int c = n / PARTS, part = n % PARTS, q0 = part * NQ;
+    wgmma_wait<0>();
+    fence_regs<NQ / 2>(s);
+    fence_regs<NQ / 2>(dp);
+    fence_acc();
+    // register i: key row (i / 2) % 2, query column q0 + 8 (i / 4) + 2 t +
+    // i % 2, whose statistics are the pair j = i / 4 at q0 + 8 j + 2 t
+    const float* st_m = rmax + c * LA_CHUNK + q0 + 2 * t;
+    const float* st_l = rsum + c * LA_CHUNK + q0 + 2 * t;
+    const float* st_d = rdot + c * LA_CHUNK + q0 + 2 * t;
+    auto softmax = [&](auto mask) {
+      auto live = [&](int i) { return !decltype(mask)::value || q0 + la_col(i, t) < tail; };
+      // la_divide's rule for the warp: the IEEE division where an a falls
+      // below LA_QUOT_MIN (the core's S limit keeps every l below
+      // LA_QUOT_MAX_L). The 8 lanes of a quad position t share their
+      // columns: lane 4 g + t takes the reciprocals of pair g's row sums
+      // (columns q0 + 8 g + 2 t, + 1), the others read them by shuffle.
+      bool slow = false;
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j) {
+        const float2 m2 = *reinterpret_cast<const float2*>(st_m + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const float a = live(i) ? gw_exp(s[i], e & 1 ? m2.y : m2.x, scale) : 0.0f;
+          slow |= live(i) && a < LA_QUOT_MIN;
+          s[i] = a;
+        }
+      }
+      // the quotients, then dS; a column past S reads no statistics of its
+      // own: 0
+      auto finish = [&](auto ieee) {
+        float2 rg = make_float2(0.0f, 0.0f);
+        if constexpr (!decltype(ieee)::value) {
+          const float2 lg = *reinterpret_cast<const float2*>(st_l + 8 * (g % (NQ / 8)));
+          rg = make_float2(la_rcp(lg.x), la_rcp(lg.y));
+        }
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(st_l + 8 * j);
+          const float2 d2 = *reinterpret_cast<const float2*>(st_d + 8 * j);
+          float2 r2 = l2;
+          if constexpr (!decltype(ieee)::value)
+            r2 = make_float2(__shfl_sync(0xffffffffu, rg.x, 4 * j + t),
+                             __shfl_sync(0xffffffffu, rg.y, 4 * j + t));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const float l = e & 1 ? l2.y : l2.x;
+            const float p = decltype(ieee)::value ? __fdiv_rn(s[i], l)
+                                                  : la_quot(s[i], l, e & 1 ? r2.y : r2.x);
+            s[i] = live(i) ? p : 0.0f;
+            dp[i] = live(i) ? p * (dp[i] - (e & 1 ? d2.y : d2.x)) : 0.0f;
+          }
+        }
+      };
+      if (__any_sync(0xffffffffu, slow))
+        finish(std::true_type{});
+      else
+        finish(std::false_type{});
+    };
+    // columns past S only in the last chunk, and there in any of its steps
+    if constexpr (PARTS == 1)
+      la_masked(more, tail, softmax);
+    else if (c == nc - 1 && tail < q0 + NQ)
+      softmax(std::true_type{});
+    else
+      softmax(std::false_type{});
+    gw_pack<KS>(pa, s);
+    gw_pack<KS>(da, dp);
+    wgmma_fence();
+    gw_rs<DH, false, KS>(dv, pa, unused, ring.at(st) + GwShape<DH>::TILE + q0 * 128, n == 0);
+    gw_rs<DH, false, KS>(dk, da, unused, ring.at(st) + q0 * 128, n == 0);
+    wgmma_commit();
+    fence_regs<DH / 2>(dk);
+    fence_regs<DH / 2>(dv);
+    if constexpr (decltype(more)::value) {  // the next step's products once A is read
+      wgmma_wait<0>();
+      fence_acc();
+      if (part == PARTS - 1) ring.release(st, lane);
+      issue((n + 1) % PARTS);
+    }
+  });
+  wgmma_wait<0>();
+  fence_acc();
+  ring.release(st, lane);
+}
+
+// The fused block's backward core: one block per (image, head) (grid (H,
+// B)), GL_CORE_WG consumer warpgroups and a producer warpgroup; qkv (B S,
+// 3 D) and datt (B S, D) in through their 4-D maps (3 H and H heads), att
+// (B S, D) and dqkv (B S, 3 D) out. Phase 1 takes the query tiles in rounds
+// of GL_CORE_WG (passes 1-4: att, dq, and each query's statistics into
+// shared memory); phase 2 the key tiles (dk, dv), reading those statistics.
+// Shared memory: `slots` slots of each warpgroup's pair of tiles (Q and dO;
+// K and V), the ring of `stages`, the statistics.
+template <int DH>
+__global__ void __launch_bounds__((GL_CORE_WG + 1) * 128, gl_core_minb<DH>())
+gl_core_kernel(const __grid_constant__ CUtensorMap qkv_map,
+               const __grid_constant__ CUtensorMap datt_map, bf16* __restrict__ att,
+               bf16* __restrict__ dqkv, int S, int H, int slots, int stages, float scale) {
+  using G = GwShape<DH>;
+  constexpr int WG = GL_CORE_WG;
+  __shared__ uint64_t full[GL_CORE_STAGES], empty[GL_CORE_STAGES], tfull[2], tempty[2];
+  extern __shared__ uint8_t raw[];
+  uint8_t* tiles = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  Ring ring{full, empty, tiles + slots * WG * G::STAGE, G::STAGE, stages, 0};
+  const int nc = (S + LA_CHUNK - 1) / LA_CHUNK, rounds = (nc + WG - 1) / WG;
+  float* rmax = reinterpret_cast<float*>(tiles + (size_t)(slots * WG + stages) * G::STAGE);
+  float* rsum = rmax + nc * LA_CHUNK;
+  float* rdot = rsum + nc * LA_CHUNK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y, D = H * DH;
+  if (tid == 0) {
+    ring_init(full, empty, stages, WG * 4);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&tfull[s], 1);
+      mbar_init(&tempty[s], WG * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= WG * 4) {  // the producer warpgroup: one lane issues every load
+    reg_dealloc<LA_PRODUCER_REGS>();
+    if (warp == WG * 4 && lane == 0)
+      for (int r = 0; r < 2 * rounds; ++r) {
+        const bool keys = r >= rounds;  // phase 2
+        const int tile0 = (keys ? r - rounds : r) * WG, slot = r % slots;
+        const int live = min(WG, nc - tile0);
+        mbar_wait(&tempty[slot], ((r / slots) & 1) ^ 1);
+        mbar_expect_tx(&tfull[slot], live * G::STAGE);
+        for (int w = 0; w < live; ++w) {
+          uint8_t* dst = tiles + (slot * WG + w) * G::STAGE;
+          const int row = (tile0 + w) * LA_CHUNK;
+          if (keys) {
+            gw_load<DH>(dst, &qkv_map, &tfull[slot], H + h, row, b);
+            gw_load<DH>(dst + G::TILE, &qkv_map, &tfull[slot], 2 * H + h, row, b);
+          } else {
+            gw_load<DH>(dst, &qkv_map, &tfull[slot], h, row, b);
+            gw_load<DH>(dst + G::TILE, &datt_map, &tfull[slot], h, row, b);
+          }
+        }
+        for (int pass = keys ? 3 : 0; pass < 4; ++pass)
+          for (int c = 0; c < nc; ++c) {  // phase 1: K (and V in passes 3-4); phase 2: Q, dO
+            uint64_t* bar;
+            uint8_t* st = ring.fill(pass < 2 ? G::TILE : G::STAGE, &bar);
+            if (keys) {
+              gw_load<DH>(st, &qkv_map, bar, h, c * LA_CHUNK, b);
+              gw_load<DH>(st + G::TILE, &datt_map, bar, h, c * LA_CHUNK, b);
+            } else {
+              gw_load<DH>(st, &qkv_map, bar, H + h, c * LA_CHUNK, b);
+              if (pass >= 2) gw_load<DH>(st + G::TILE, &qkv_map, bar, 2 * H + h, c * LA_CHUNK, b);
+            }
+          }
+      }
+    return;
+  }
+
+  reg_alloc<la_consumer_regs(WG, gl_core_minb<DH>())>();
+  const int w = warp >> 2, t = lane & 3;
+  const int lrow = (warp & 3) * 16 + (lane >> 2);
+  const long long ld = 3LL * D;
+  bf16* dq = dqkv + (long long)b * S * ld + h * DH;
+  for (int r = 0; r < 2 * rounds; ++r) {
+    const bool keys = r >= rounds;
+    const int slot = r % slots, tile = (keys ? r - rounds : r) * WG + w;
+    if (r == rounds) named_sync(1, WG * 128);  // every query's statistics written
+    if (WG > 1 && tile >= nc) {  // no row below S: keep pace with the ring
+      for (int i = 0; i < (keys ? 1 : 4) * nc; ++i) ring.release(ring.take(), lane);
+      if (lane == 0) mbar_arrive(&tempty[slot]);
+      continue;
+    }
+    mbar_wait(&tfull[slot], (r / slots) & 1);
+    const uint8_t* ta = tiles + (slot * WG + w) * G::STAGE;
+    const int row = tile * LA_CHUNK + lrow;
+    if (!keys) {
+      float m[2], l[2], dot[2], acc[G::ACC];
+      gw_stats<DH>(m, l, ring, ta, nc, S, scale, lane);
+      const LaQuot q[2] = {LaQuot(l[0]), LaQuot(l[1])};
+      gw_core_rows<DH, false>(acc, dot, m, l, q, ring, ta, ta + G::TILE, nc, S, scale, lane);
+      gw_store<DH>(att + (long long)b * S * D + h * DH, D, acc, 1.0f, row, S, t);
+      gw_core_rows<DH, true>(acc, dot, m, l, q, ring, ta, ta + G::TILE, nc, S, scale, lane);
+      if (lane == 0) mbar_arrive(&tempty[slot]);
+      gw_store<DH>(dq, ld, acc, scale, row, S, t);
+      if (t == 0)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (row + 8 * i < S) {
+            rmax[row + 8 * i] = m[i];
+            rsum[row + 8 * i] = l[i];
+            rdot[row + 8 * i] = dot[i];
+          }
+    } else {
+      float dk[G::ACC], dv[G::ACC];
+      gw_core_cols<DH>(dk, dv, rmax, rsum, rdot, ring, ta, ta + G::TILE, nc, S, scale, lane);
+      if (lane == 0) mbar_arrive(&tempty[slot]);
+      gw_store<DH>(dq + D, ld, dk, scale, row, S, t);
+      gw_store<DH>(dq + 2 * D, ld, dv, 1.0f, row, S, t);
+    }
+  }
+}
+
+// the core's dynamic shared memory at S with `slots` tile slots and
+// `stages` ring stages
+template <int DH>
+static size_t gl_core_smem(int S, int slots, int stages) {
+  const size_t sp = (size_t)(S + LA_CHUNK - 1) / LA_CHUNK * LA_CHUNK;
+  return 1024 + (size_t)(slots * GL_CORE_WG + stages) * GwShape<DH>::STAGE +
+         3 * sp * sizeof(float);
+}
+
+// the longest S the core takes at head_dim DH: its statistics beside one
+// tile slot and two stages, and at most long_core_max_seq() (the head_dim-64
+// core's, whose layout the 8 KB tiles of head_dim 16-48 share: 15,168);
+// at 80 (16 KB tiles) (232,192 - 99,328) / 12 bytes = 11,072 queries
+template <int DH>
+static int gl_core_max_seq() {
+  const long long room = LA_CORE_SMEM - (long long)gl_core_smem<DH>(0, 1, 2);
+  const int fit = (int)(room / (3 * (long long)sizeof(float)) / LA_CHUNK * LA_CHUNK);
+  return fit < long_core_max_seq() ? fit : long_core_max_seq();
+}
+
+// the core's (tile slots, ring stages) at S: two slots and GL_CORE_STAGES
+// stages, then fewer stages down to 2, then one slot, first within
+// gl_core_shared_smem (gl_core_minb blocks an SM), then within one block's
+// LA_CORE_SMEM; false above gl_core_max_seq
+template <int DH>
+static bool gl_core_layout(int S, int* slots, int* stages) {
+  if (S > gl_core_max_seq<DH>()) return false;
+  const size_t rooms[2] = {(size_t)gl_core_shared_smem<DH>(), LA_CORE_SMEM};
+  for (const size_t room : rooms)
+    for (*slots = 2; *slots >= 1; --*slots)
+      for (*stages = GL_CORE_STAGES; *stages >= 2; --*stages)
+        if (gl_core_smem<DH>(S, *slots, *stages) <= room) return true;
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// The flash backward's passes (mma.sync)
 // ---------------------------------------------------------------------------
 
 // Rows r0 .. r0 + n - 1 of one (image, head) (global row stride ts, DH
@@ -245,21 +1048,17 @@ __device__ __forceinline__ void gl_stats(float m[2], float l[2], const uint32_t 
   }
 }
 
-// Passes 3 and 4 of a rows phase (the fused core, or with SPLIT the flash
-// backward's rows launch), the warp's 16 queries (qa, and their dO oa):
-// pass 3 dot = rowsum(dP p) (and without SPLIT att += bf16(p) v); pass 4
-// dS = p (dP - dot), dQ += dS k (dS one bf16 term, or with SPLIT two).
-// K and V stream through Ks and Vs.
-template <int DH, bool SPLIT>
-__device__ __forceinline__ void gl_rows_bwd(float att[][4], float dq[][4], float dot[2],
-                                            const uint32_t qa[][4], const uint32_t oa[][4],
-                                            const float m[2], const float l[2], bf16* Ks,
-                                            bf16* Vs, const bf16* kh, const bf16* vh,
-                                            long long ts, int S, float scale, bool live,
-                                            int lane) {
+// Passes 3 and 4 of the flash backward's rows launch, the warp's 16 queries
+// (qa, and their dO oa): pass 3 dot = rowsum(dP p); pass 4 dS = p (dP -
+// dot), dQ += dS k, dS in two bf16 terms. K and V stream through Ks and Vs.
+template <int DH>
+__device__ __forceinline__ void gl_rows_bwd(float dq[][4], float dot[2], const uint32_t qa[][4],
+                                            const uint32_t oa[][4], const float m[2],
+                                            const float l[2], bf16* Ks, bf16* Vs, const bf16* kh,
+                                            const bf16* vh, long long ts, int S, float scale,
+                                            bool live, int lane) {
   constexpr int LD = tile_ld<DH>();
   dot[0] = dot[1] = 0.0f;
-  if constexpr (!SPLIT) zero_acc<DH>(att);
   zero_acc<DH>(dq);
   for (int pass = 3; pass <= 4; ++pass) {
     for (int c0 = 0; c0 < S; c0 += GL_CHUNK) {
@@ -284,25 +1083,14 @@ __device__ __forceinline__ void gl_rows_bwd(float att[][4], float dq[][4], float
           for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
             for (int e = 0; e < 4; ++e) dot[e >> 1] += dp[hh][e] * p[hh][e];
-          if constexpr (!SPLIT) {
-            uint32_t pa[4];
-            pack_a(pa, p[0], p[1]);
-            mma_rows<DH>(att, pa, Vs + (size_t)16 * i * LD, lane);
-          }
         } else {
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
             for (int e = 0; e < 4; ++e) dp[hh][e] = p[hh][e] * (dp[hh][e] - dot[e >> 1]);
-          if constexpr (SPLIT) {
-            uint32_t hi[4], lo[4];
-            split_a(hi, lo, dp[0], dp[1]);
-            mma_rows_split<DH>(dq, hi, lo, Ks + (size_t)16 * i * LD, lane);
-          } else {
-            uint32_t da[4];
-            pack_a(da, dp[0], dp[1]);
-            mma_rows<DH>(dq, da, Ks + (size_t)16 * i * LD, lane);
-          }
+          uint32_t hi[4], lo[4];
+          split_a(hi, lo, dp[0], dp[1]);
+          mma_rows_split<DH>(dq, hi, lo, Ks + (size_t)16 * i * LD, lane);
         }
       }
     }
@@ -310,204 +1098,6 @@ __device__ __forceinline__ void gl_rows_bwd(float att[][4], float dq[][4], float
       dot[0] = la_quad_sum(dot[0]);
       dot[1] = la_quad_sum(dot[1]);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Forward: one block per GL_ROWS queries of one (image, head)
-// ---------------------------------------------------------------------------
-
-template <int DH>
-static size_t gl_fwd_smem() {
-  return (size_t)(GL_ROWS + 2 * GL_CHUNK) * tile_ld<DH>() * sizeof(bf16);
-}
-
-// o = bf16(p) v (the fused block's stage), or with SPLIT (p_hi + p_lo) v
-// (the flash forward). q, k, v: element (b, s, h, d) at b bs + s ts + h DH +
-// d; o at b obs + s ots + h DH + d.
-template <int DH, bool SPLIT>
-__global__ void __launch_bounds__(GL_WARPS * 32, 2)
-gl_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int S, long long bs,
-              long long ts, long long obs, long long ots, float scale) {
-  constexpr int LD = tile_ld<DH>();
-  extern __shared__ __align__(128) bf16 gl_smem[];
-  bf16* Qs = gl_smem;
-  bf16* Ks = Qs + GL_ROWS * LD;
-  bf16* Vs = Ks + GL_CHUNK * LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * GL_ROWS + 16 * warp;
-  const bool live = q0 < S;  // a warp past S only helps stage
-  const long long head = (long long)b * bs + h * DH;
-  gl_stage<DH>(Qs, q + head, ts, blockIdx.x * GL_ROWS, GL_ROWS, S);
-  gl_landed();
-  uint32_t qa[DH / 16][4];
-  load_a_rows<DH>(qa, Qs + (size_t)16 * warp * LD, lane);
-  float m[2], l[2];
-  gl_stats<DH>(m, l, qa, Ks, k + head, ts, S, scale, live, lane);
-  float acc[DH / 8][4];
-  zero_acc<DH>(acc);
-  for (int c0 = 0; c0 < S; c0 += GL_CHUNK) {  // pass 3
-    __syncthreads();
-    gl_stage<DH>(Ks, k + head, ts, c0, GL_CHUNK, S);
-    gl_stage<DH>(Vs, v + head, ts, c0, GL_CHUNK, S);
-    gl_landed();
-    if (!live) continue;
-#pragma unroll
-    for (int i = 0; i < GL_CHUNK / 16; ++i) {
-      if (c0 + 16 * i >= S) break;
-      float p[2][4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        gl_scores<DH>(p[hh], qa, Ks + (size_t)8 * (2 * i + hh) * LD, c0 + 8 * (2 * i + hh), S,
-                      scale, lane);
-      gl_probs(p, m, l);
-      if constexpr (SPLIT) {
-        uint32_t hi[4], lo[4];
-        split_a(hi, lo, p[0], p[1]);
-        mma_rows_split<DH>(acc, hi, lo, Vs + (size_t)16 * i * LD, lane);
-      } else {
-        uint32_t pa[4];
-        pack_a(pa, p[0], p[1]);
-        mma_rows<DH>(acc, pa, Vs + (size_t)16 * i * LD, lane);
-      }
-    }
-  }
-  if (live) store_rows<DH>(o + (long long)b * obs + h * DH, ots, acc, 1.0f, q0, S, lane);
-}
-
-// ---------------------------------------------------------------------------
-// The fused backward core: one block per (image, head), one launch
-// ---------------------------------------------------------------------------
-
-__host__ __device__ __forceinline__ int gl_chunks_rows(int S) {
-  return (S + GL_CHUNK - 1) / GL_CHUNK * GL_CHUNK;
-}
-
-// the staged rows (a round of two operands, a chunk of two) and the three
-// statistics of every query
-template <int DH>
-static size_t gl_core_smem(int S) {
-  return (size_t)2 * (GL_ROWS + GL_CHUNK) * tile_ld<DH>() * sizeof(bf16) +
-         (size_t)3 * gl_chunks_rows(S) * sizeof(float);
-}
-
-// the longest S the core takes at head_dim DH: the three statistics of every
-// query beside the staged rows, in whole GL_CHUNK-query chunks, and at most
-// long_core_max_seq() (the head_dim-64 core's): 15,168 at head_dim 16-48,
-// (232,448 - 67,584) / 12 bytes = 13,696 queries at 80
-template <int DH>
-static int gl_core_max_seq() {
-  const long long room = LA_MAX_SMEM - (long long)gl_core_smem<DH>(0);
-  const int fit = (int)(room / (3 * (long long)sizeof(float)) / GL_CHUNK * GL_CHUNK);
-  return fit < long_core_max_seq() ? fit : long_core_max_seq();
-}
-
-// att (B S, D) and dqkv (B S, 3 D) from qkv (B S, 3 D) and datt = dO (B S,
-// D), head h at column h DH of each third
-template <int DH>
-__global__ void __launch_bounds__(GL_WARPS * 32, 1)
-gl_core_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
-               bf16* __restrict__ att, bf16* __restrict__ dqkv, int S, int D, float scale) {
-  constexpr int LD = tile_ld<DH>();
-  extern __shared__ __align__(128) bf16 gl_smem[];
-  bf16* Ra = gl_smem;              // rows phase: Q; cols phase: K (a round)
-  bf16* Rb = Ra + GL_ROWS * LD;    // rows phase: dO; cols phase: V
-  bf16* Ca = Rb + GL_ROWS * LD;    // rows phase: K; cols phase: Q (a chunk)
-  bf16* Cb = Ca + GL_CHUNK * LD;   // rows phase: V; cols phase: dO
-  float* rmax = reinterpret_cast<float*>(Cb + GL_CHUNK * LD);
-  const int SPc = gl_chunks_rows(S);
-  float* rsum = rmax + SPc;
-  float* rdot = rsum + SPc;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const long long ts = 3LL * D;
-  const bf16* qh = qkv + (long long)b * S * ts + h * DH;
-  const bf16* kh = qh + D;
-  const bf16* vh = qh + 2 * D;
-  const bf16* oh = datt + (long long)b * S * D + h * DH;
-
-  // ---- rows phase: GL_ROWS queries a round, 16 a warp ----------------------
-  for (int r0 = 0; r0 < S; r0 += GL_ROWS) {
-    const int q0 = r0 + 16 * warp;
-    const bool live = q0 < S;
-    __syncthreads();  // every warp is done with the last round's rows
-    gl_stage<DH>(Ra, qh, ts, r0, GL_ROWS, S);
-    gl_stage<DH>(Rb, oh, D, r0, GL_ROWS, S);
-    gl_landed();
-    uint32_t qa[DH / 16][4], oa[DH / 16][4];
-    load_a_rows<DH>(qa, Ra + (size_t)16 * warp * LD, lane);
-    load_a_rows<DH>(oa, Rb + (size_t)16 * warp * LD, lane);
-    float m[2], l[2], dot[2], acc[DH / 8][4], dq[DH / 8][4];
-    gl_stats<DH>(m, l, qa, Ca, kh, ts, S, scale, live, lane);
-    gl_rows_bwd<DH, false>(acc, dq, dot, qa, oa, m, l, Ca, Cb, kh, vh, ts, S, scale, live,
-                           lane);
-    if (!live) continue;
-    store_rows<DH>(att + (long long)b * S * D + h * DH, D, acc, 1.0f, q0, S, lane);
-    store_rows<DH>(dqkv + (long long)b * S * ts + h * DH, ts, dq, scale, q0, S, lane);
-    if (t == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        rmax[q0 + g + 8 * r] = m[r];
-        rsum[q0 + g + 8 * r] = l[r];
-        rdot[q0 + g + 8 * r] = dot[r];
-      }
-    }
-  }
-
-  // ---- cols phase: GL_ROWS keys a round, 16 a warp, every query ------------
-  for (int r0 = 0; r0 < S; r0 += GL_ROWS) {
-    const int k0 = r0 + 16 * warp;
-    const bool live = k0 < S;
-    __syncthreads();  // the statistics are in; every warp is done with the rows
-    gl_stage<DH>(Ra, kh, ts, r0, GL_ROWS, S);
-    gl_stage<DH>(Rb, vh, ts, r0, GL_ROWS, S);
-    gl_landed();
-    uint32_t ka[DH / 16][4], va[DH / 16][4];
-    load_a_rows<DH>(ka, Ra + (size_t)16 * warp * LD, lane);
-    load_a_rows<DH>(va, Rb + (size_t)16 * warp * LD, lane);
-    float dk[DH / 8][4], dv[DH / 8][4];
-    zero_acc<DH>(dk);
-    zero_acc<DH>(dv);
-    for (int c0 = 0; c0 < S; c0 += GL_CHUNK) {
-      __syncthreads();
-      gl_stage<DH>(Ca, qh, ts, c0, GL_CHUNK, S);
-      gl_stage<DH>(Cb, oh, D, c0, GL_CHUNK, S);
-      gl_landed();
-      if (!live) continue;
-#pragma unroll
-      for (int i = 0; i < GL_CHUNK / 16; ++i) {
-        if (c0 + 16 * i >= S) break;
-        // P^T and dS^T of the warp's keys (rows) against queries c0 + 16 i..
-        float pt[2][4], dst[2][4];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int qj = 2 * i + hh;
-          mma_rows_t<DH>(pt[hh], ka, Ca + (size_t)8 * qj * LD, lane);
-          mma_rows_t<DH>(dst[hh], va, Cb + (size_t)8 * qj * LD, lane);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = k0 + g + 8 * (e >> 1);
-            const int qq = c0 + 8 * qj + 2 * t + (e & 1);
-            const float p =
-                (key < S && qq < S)
-                    ? expf(__fsub_rn(__fmul_rn(pt[hh][e], scale), rmax[qq])) / rsum[qq]
-                    : 0.0f;
-            pt[hh][e] = p;
-            dst[hh][e] = p * (dst[hh][e] - (qq < S ? rdot[qq] : 0.0f));
-          }
-        }
-        uint32_t pa[4], da[4];
-        pack_a(pa, pt[0], pt[1]);
-        pack_a(da, dst[0], dst[1]);
-        mma_rows<DH>(dv, pa, Cb + (size_t)16 * i * LD, lane);
-        mma_rows<DH>(dk, da, Ca + (size_t)16 * i * LD, lane);
-      }
-    }
-    if (!live) continue;
-    store_rows<DH>(dqkv + (long long)b * S * ts + D + h * DH, ts, dk, scale, k0, S, lane);
-    store_rows<DH>(dqkv + (long long)b * S * ts + 2 * D + h * DH, ts, dv, 1.0f, k0, S, lane);
   }
 }
 
@@ -549,8 +1139,8 @@ gl_flash_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_a_rows<DH>(oa, Os + (size_t)16 * warp * LD, lane);
   float m[2], l[2], dot[2], acc[DH / 8][4];
   gl_stats<DH>(m, l, qa, Ks, k + head, ts, S, scale, live, lane);
-  gl_rows_bwd<DH, true>(nullptr, acc, dot, qa, oa, m, l, Ks, Vs, k + head, v + head, ts, S,
-                        scale, live, lane);
+  gl_rows_bwd<DH>(acc, dot, qa, oa, m, l, Ks, Vs, k + head, v + head, ts, S, scale, live,
+                  lane);
   if (!live) return;
   store_rows<DH>(dq + ohead, ots, acc, scale, q0, S, lane);
   if (t == 0) {
@@ -655,26 +1245,47 @@ static int gl_set_smem(K kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-// the forward: o from q, k, v as gl_fwd_kernel takes them
+// the forward over B images x H heads of S tokens, q, k and v through their
+// 4-D maps at heads qh (kh, vh) + h; o rows of (b, h) at o + b obs + h DH +
+// r ots. Persistent: as many blocks as the card holds, never more than the
+// items.
 template <int DH, bool SPLIT>
-static int gl_launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S,
-                         int H, long long bs, long long ts, long long obs, long long ots,
-                         cudaStream_t st) {
+static int gl_launch_fwd(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                         int qh, int kh, int vh, bf16* o, long long obs, long long ots, int B,
+                         int S, int H, cudaStream_t st) {
+  const int nc = (S + LA_CHUNK - 1) / LA_CHUNK;
+  const int items = B * H * ((nc + GL_FWD_WG - 1) / GL_FWD_WG);
+  const int threads = (GL_FWD_WG + 1) * 128;
   const size_t smem = gl_fwd_smem<DH>();
-  LAUNCH(gl_set_smem(gl_fwd_kernel<DH, SPLIT>, smem));
-  const dim3 grid((S + GL_ROWS - 1) / GL_ROWS, H, B);
-  gl_fwd_kernel<DH, SPLIT><<<grid, GL_WARPS * 32, smem, st>>>(q, k, v, o, S, bs, ts, obs, ots,
-                                                              attention_scale(DH));
+  static int per_card = 0;
+  int grid;
+  LAUNCH(la_persistent_grid(gl_fwd_kernel<DH, SPLIT>, threads, smem, items, per_card, &grid));
+  gl_fwd_kernel<DH, SPLIT><<<grid, threads, smem, st>>>(qm, km, vm, qh, kh, vh, o, obs, ots, S, H,
+                                                        items, attention_scale(DH));
   return (int)cudaGetLastError();
 }
 
-// the fused block's forward stage: att (B S, D) from qkv (B S, 3 D)
+// the flash forward: q, k, v (B, S, H, DH) through (bs, ts) strides (ts
+// and, for B > 1, bs multiples of 8; 16-byte aligned), o contiguous
+template <int DH>
+static int gl_launch_flash_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int S,
+                               int H, long long bs, long long ts, cudaStream_t st) {
+  const long long lay = B > 1 ? bs : (long long)S * ts, ots = (long long)H * DH;
+  CUtensorMap qm, km, vm;
+  LAUNCH(gw_tensor_map(&qm, q, DH, H, S, B, ts, lay));
+  LAUNCH(gw_tensor_map(&km, k, DH, H, S, B, ts, lay));
+  LAUNCH(gw_tensor_map(&vm, v, DH, H, S, B, ts, lay));
+  return gl_launch_fwd<DH, true>(qm, km, vm, 0, 0, 0, o, S * ots, ots, B, S, H, st);
+}
+
+// the fused block's forward stage: att (B S, D) from qkv (B S, 3 D), its
+// thirds as 3 H heads of one map
 template <int DH>
 static int gl_launch_stage(const bf16* qkv, bf16* att, int B, int S, int H, int D,
                            cudaStream_t st) {
-  const long long ts = 3LL * D;
-  return gl_launch_fwd<DH, false>(qkv, qkv + D, qkv + 2 * D, att, B, S, H, S * ts, ts,
-                                  (long long)S * D, D, st);
+  CUtensorMap m;
+  LAUNCH(gw_tensor_map(&m, qkv, DH, 3 * H, S, B, 3LL * D, 3LL * S * D));
+  return gl_launch_fwd<DH, false>(m, m, m, 0, H, 2 * H, att, (long long)S * D, D, B, S, H, st);
 }
 
 // the fused block's backward core: att and dqkv from qkv and datt, one
@@ -682,16 +1293,20 @@ static int gl_launch_stage(const bf16* qkv, bf16* att, int B, int S, int H, int 
 template <int DH>
 static int gl_launch_core(const bf16* qkv, const bf16* datt, bf16* att, bf16* dqkv, int B, int S,
                           int H, int D, cudaStream_t st) {
-  const size_t smem = gl_core_smem<DH>(S);
-  if (S > gl_core_max_seq<DH>() || smem > LA_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  int slots, stages;
+  if (D != H * DH || !gl_core_layout<DH>(S, &slots, &stages)) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, om;
+  LAUNCH(gw_tensor_map(&qm, qkv, DH, 3 * H, S, B, 3LL * D, 3LL * S * D));
+  LAUNCH(gw_tensor_map(&om, datt, DH, H, S, B, D, (long long)S * D));
+  const size_t smem = gl_core_smem<DH>(S, slots, stages);
   LAUNCH(gl_set_smem(gl_core_kernel<DH>, smem));
-  gl_core_kernel<DH><<<dim3(H, B), GL_WARPS * 32, smem, st>>>(qkv, datt, att, dqkv, S, D,
-                                                              attention_scale(DH));
+  gl_core_kernel<DH><<<dim3(H, B), (GL_CORE_WG + 1) * 128, smem, st>>>(
+      qm, om, att, dqkv, S, H, slots, stages, attention_scale(DH));
   return (int)cudaGetLastError();
 }
 
 // the flash backward: dq, dk, dv contiguous (B, S, H, DH) from q, k, v (as
-// gl_fwd_kernel takes them) and a contiguous dout; ws: B H S 3 floats
+// gl_launch_flash_fwd takes them) and a contiguous dout; ws: B H S 3 floats
 template <int DH>
 static int gl_launch_flash_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                                bf16* dq, bf16* dk, bf16* dv, float* ws, int B, int S, int H,

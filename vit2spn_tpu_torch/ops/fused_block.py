@@ -77,9 +77,9 @@ KERNEL_MAX_SEQ = 256
 # statistics a query in shared memory beside at least one 16 KB tile slot
 # and two 16 KB ring stages: (232,448 - 256 - 50,176) / 12 bytes, in whole
 # 64-query tiles (long_core_max_seq, which chip_smoke.py holds this to);
-# csrc/general_long.cuh's core keeps them beside its staged rows and takes
-# the same limit at 16-48. At 80 its staged rows leave less room:
-# `attention_core_max_seq`
+# csrc/general_long.cuh's core keeps them beside slots and stages of the
+# same 16 KB and takes the same limit at 16-48. At 80 they are twice as wide
+# and leave less room: `attention_core_max_seq`
 LONG_CORE_MAX_SEQ = 15168
 # the widest LayerNorm row: 40 values a lane of a warp (csrc/common.cuh
 # LN_MAX_D; up to D = 768 the kernels keep 24, up to 1024 32, their code
@@ -449,13 +449,15 @@ def attention_core_max_seq(head_dim: int) -> int:
     """The longest S of the bf16 backward's attention core at `head_dim`
     (csrc/attention_bwd.cuh attention_core_max_seq, which chip_smoke.py holds
     this to): LONG_CORE_MAX_SEQ at 16-64; at 80 csrc/general_long.cuh's core
-    keeps the three statistics beside two 192-row buffers of 88 bf16 rows
-    (67,584 B): (232,448 - 67,584) / 12 bytes in whole 64-query chunks,
-    13,696."""
+    keeps the three statistics beside one tile slot and two ring stages of
+    two 64-row tiles, each two 8 KB slabs (98,304 B, and 1 KB to align
+    them), in 232,448 - 256 bytes: (232,192 - 99,328) / 12 bytes in whole
+    64-query chunks, 11,072."""
     if head_dim not in STREAMED_HEAD_DIMS:
         return LONG_CORE_MAX_SEQ
-    staged = 2 * (128 + 64) * (head_dim + 8) * 2
-    return min(LONG_CORE_MAX_SEQ, (232448 - staged) // 12 // 64 * 64)
+    slabs = (head_dim + 63) // 64
+    staged = 1024 + 3 * 2 * slabs * 8192
+    return min(LONG_CORE_MAX_SEQ, (232448 - 256 - staged) // 12 // 64 * 64)
 
 
 def check_seq_len(s: int, dtype: torch.dtype, what: str, core: bool = False,
