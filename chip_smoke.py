@@ -114,17 +114,18 @@ script exits non-zero without printing a result:
      included: its status equals `compute_status` of the written report,
      init_provenance "pretrained", every stage's entry present; for (c) and
      (d) the launches of backbone_fwd, mlp_bwd and attn_bwd predicted from
-     the protocols' sizes, exactly, and no other wrapper; (e) `run ssp
-     --profile --epochs 1` on a staged npz of PROFILE_IMAGES (cut from the
-     folder npz's 16,384 for time): its profile_op lines name the
-     three wrappers' ranges, device_memory reads nonzero, model_info's
-     backbone GFLOPs equal the products counted here; (f) `convert` of (d)'s
-     export to .pth and back with equal leaves, `inspect`, and `plot roc` /
-     `cm` of (c)'s cv_result.json;
+     the protocols' sizes, exactly, and no other wrapper; (e) `convert` of
+     (d)'s export to .pth and back with equal leaves, `inspect`, and `plot
+     roc` / `cm` of (c)'s cv_result.json (its former (e), a `run ssp
+     --profile` of its own, went for the script's time: phase 13 (a)'s plain
+     run carries --profile and takes its checks);
  13. several ranks (parallel/), at the end: (a) `run ssp` cut to one epoch of
      800 staged images at 2 x 128 with a checkpoint and --profile, plain
      and under torchrun (world size 1, NCCL), side by side: export and checkpoint equal bit
-     for bit, the wrappers' calls as predicted in both; (b) 2 gloo ranks
+     for bit, the wrappers' calls as predicted in both; the plain run's
+     profile_op lines name the three wrappers' ranges, device_memory reads
+     nonzero, model_info's backbone GFLOPs equal the products counted here
+     (check_profile_run); (b) 2 gloo ranks
      sharing cuda:0 against world size 1 from one state, fp32 and bf16: the
      SSP step with an uneven masked tail and a one-step fine-tune epoch with
      global BN (compare_steps), evaluate, each rank's launches equal world
@@ -193,7 +194,8 @@ script exits non-zero without printing a result:
      as close to fp32 as the twins, the core's att equal to the stage's
      bit for bit, two core runs equal; the flash pair as phase 5 holds it,
      two backward runs equal, and the flash backward once more at S =
-     65,600 (B = 1, one head; row sums on both sides of 2^16) against the
+     65,600 (B = 1, one head; row sums on both sides of 2^16), at head_dim
+     64 and at 16 and 80 (general_long.cuh; two heads), against the
      twin's function in blocks of 2,048 queries, two runs equal; a 2-layer
      fused_backbone, both backward
      halves and merged (equal to the split pair bit for bit, two runs of
@@ -1641,7 +1643,6 @@ UCSD_FILES = {"train": 480, "test": 32}  # per class: 2,048 merged over 4 classe
 UCSD_HW = (300, 320)
 FOLDER_FOLDS = 3  # `run ft-ucsdoct` cut from 10 folds
 FOLDER_STEP_IMAGES = 512  # the 256 px fine-tune step's dataset
-PROFILE_IMAGES = 4096  # (e): four `ssp` steps of 8 x 128 under the profiler
 # The augmentation at 256 px sources on the card against the same function on
 # the CPU from the same parameters: fp32 differs by the order of sums of the
 # band limit's and the resize's products and the warp's bilinear weights
@@ -1934,43 +1935,7 @@ def folder_path(ssp_trainer, card) -> dict:
         check_launches("run_parity", launches_d, want_d)
         total = {k: launches_c[k] + launches_d[k] for k in launches_c}
 
-        # (e) `run ssp --profile --epochs 1` on a staged npz of PROFILE_IMAGES
-        out_e, root_e = os.path.join(tmp, "ssp_profile"), os.path.join(tmp, "profile_data")
-        os.makedirs(root_e)
-        stage_octmnist(root_e, {"train": PROFILE_IMAGES, "val": 8, "test": 8}, SEED + 12)
-        t0 = time.perf_counter()
-        rc = cli_main(["run", "ssp", "--profile", "--epochs", "1", "--output-dir", out_e,
-                       "-o", f"data.root={root_e}"])
-        prof_s = time.perf_counter() - t0
-        with open(os.path.join(out_e, "metrics.jsonl")) as f:
-            events = [json.loads(line) for line in f]
-        ops = [e for e in events if e["event"] == "profile_op"]
-        info = next(e for e in events if e["event"] == "model_info")
-        mem = next((e for e in events if e["event"] == "device_memory"), {})
-        s, d, mlp = vit.seq_len, vit.hidden_size, vit.mlp_dim
-        backbone = (2 * (s - 1) * vit.patch_size ** 2 * 3 * d
-                    + layers * (2 * s * d * 3 * d + 2 * 2 * s * s * d + 2 * s * d * d
-                                + 2 * 2 * s * d * mlp))
-        cost = next(e for e in events if e["event"] == "profile_trace")
-        fit = [e for e in events if e["event"] == "ssp_epoch"]
-        log(f"[profile] run ssp --profile --epochs 1: rc {rc} in {prof_s:.1f} s (the epoch "
-            f"{fit[0]['seconds']:.1f} s under the profiler; the trace {cost['mib']:.1f} MiB "
-            f"gzipped, written in {cost['write_s']:.1f} s and read back in "
-            f"{cost['read_s']:.1f} s); profile_op "
-            + "; ".join(f"{e['source']} {e['total_us'] / 1e3:.3f} ms x{e['count']}" for e in ops))
-        log(f"[profile] model_info { {k: v for k, v in info.items() if k not in ('event', 'time')} }"
-            f" (one backbone's products counted here: {backbone / 1e9:.4f} GFLOP); "
-            f"device_memory {mem.get('0')}")
-        names = {e["source"] for e in ops}
-        missing = [f"vit2spn::{k}" for k in (KERNEL_NAME, "mlp_bwd", "attn_bwd")
-                   if f"vit2spn::{k}" not in names]
-        if rc != 0 or missing:
-            raise AssertionError(f"run ssp --profile: rc {rc}, profile_op lacks {missing}")
-        if info["backbone_gflops"] != round(backbone / 1e9, 4) \
-                or not mem.get("0", {}).get("bytes_in_use_mb", 0) > 0:
-            raise AssertionError(f"model_info {info} / device_memory {mem}")
-
-        # (f) convert (d)'s export to .pth and back, inspect, plot (c)'s result
+        # (e) convert (d)'s export to .pth and back, inspect, plot (c)'s result
         src = report["ssp"]["export"]
         pth, back = os.path.join(tmp, "export.pth"), os.path.join(tmp, "export_back.npz")
         with contextlib.redirect_stdout(io.StringIO()) as text, \
@@ -2113,6 +2078,42 @@ def profile_counts(out_dir: str) -> dict:
             if e["event"] == "profile_op" and e["source"].startswith("vit2spn::")}
 
 
+def check_profile_run(out_dir: str, vit, secs: float) -> None:
+    """A `run ssp --profile` run's metrics.jsonl in `out_dir` (ViT config
+    `vit`): its profile_op lines name the three wrappers' ranges,
+    device_memory reads nonzero, model_info's backbone GFLOPs equal the
+    products counted here."""
+    from vit2spn_tpu_torch.ops.fused_block import KERNEL_NAME
+
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    ops = [e for e in events if e["event"] == "profile_op"]
+    info = next(e for e in events if e["event"] == "model_info")
+    mem = next((e for e in events if e["event"] == "device_memory"), {})
+    s, d, mlp, layers = vit.seq_len, vit.hidden_size, vit.mlp_dim, vit.num_layers
+    backbone = (2 * (s - 1) * vit.patch_size ** 2 * 3 * d
+                + layers * (2 * s * d * 3 * d + 2 * 2 * s * s * d + 2 * s * d * d
+                            + 2 * 2 * s * d * mlp))
+    cost = next(e for e in events if e["event"] == "profile_trace")
+    fit = [e for e in events if e["event"] == "ssp_epoch"]
+    log(f"[profile] run ssp --profile --epochs 1 in {secs:.1f} s (the epoch "
+        f"{fit[0]['seconds']:.1f} s under the profiler; the trace {cost['mib']:.1f} MiB "
+        f"gzipped, written in {cost['write_s']:.1f} s and read back in "
+        f"{cost['read_s']:.1f} s); profile_op "
+        + "; ".join(f"{e['source']} {e['total_us'] / 1e3:.3f} ms x{e['count']}" for e in ops))
+    log(f"[profile] model_info { {k: v for k, v in info.items() if k not in ('event', 'time')} }"
+        f" (one backbone's products counted here: {backbone / 1e9:.4f} GFLOP); "
+        f"device_memory {mem.get('0')}")
+    names = {e["source"] for e in ops}
+    missing = [f"vit2spn::{k}" for k in (KERNEL_NAME, "mlp_bwd", "attn_bwd")
+               if f"vit2spn::{k}" not in names]
+    if missing:
+        raise AssertionError(f"run ssp --profile: profile_op lacks {missing}")
+    if info["backbone_gflops"] != round(backbone / 1e9, 4) \
+            or not mem.get("0", {}).get("bytes_in_use_mb", 0) > 0:
+        raise AssertionError(f"model_info {info} / device_memory {mem}")
+
+
 def parallel_path(card: str) -> dict:
     """Phase 13: (a) `run ssp` under torchrun vs plain; (b) 2 gloo ranks on
     cuda:0 vs world size 1 at fp32 and bf16, and their step's wall, device
@@ -2179,6 +2180,7 @@ def parallel_path(card: str) -> dict:
             raise AssertionError(f"run ssp under torchrun differs from the plain run: {same}")
         if got["plain"] != want or got["torchrun"] != want:
             raise AssertionError(f"run ssp launches {got}, predicted {want}")
+        check_profile_run(runs["plain"][0], cfg_a.vit, runs["plain"][1])
         # (b) 2 gloo ranks on cuda:0 against world size 1, fp32 and bf16
         batch = synthetic_dataset(image_size=28, split_sizes={"train": 256},
                                   seed=SEED + 1).images
@@ -3194,18 +3196,22 @@ def long_kernels(fb, fa, dev) -> dict:
             check_merged_bwd(tag, fb, x, x2, g, w, heads, eps, True, True)
             del wt, x, x2, g, w, got
             torch.cuda.empty_cache()
-    errs["flash_bwd"] = max(errs["flash_bwd"], long_flash_far(fa, dev))
+    for dh in LONG_FAR_HEAD_DIMS:
+        errs["flash_bwd"] = max(errs["flash_bwd"], long_flash_far(fa, dev, dh))
     return errs
 
 
 # (a) also takes the flash backward (which takes any bf16 S) to S = 65,600,
-# B = 1, one head: past 2^16 keys a row sum l can exceed LA_QUOT_MAX_L,
-# where the routes must take the IEEE division. The first half of the
-# queries is scaled by 1e-5 (scores near 0, so l near S, above 2^16), the
-# rest as drawn. The twin's four S^2 matrices (17 GB each) cannot run
-# whole: the reference is the twin's function in blocks of LONG_FAR_BLOCK
-# queries (each row's softmax whole), held to check_flash's tolerances.
-LONG_FAR_SEQ, LONG_FAR_BLOCK = 65600, 2048
+# B = 1, one head (two at head_dim 16 and 80, for D a multiple of 32): past
+# 2^16 keys a row sum l can exceed LA_QUOT_MAX_L, where the routes must take
+# the IEEE division; at head_dim 64 (long_attention.cuh) and at 16 and 80
+# (general_long.cuh, whose cols launch takes 64-query steps at 16-48 and
+# 32-query steps at 80). The first half of the queries is scaled by 1e-5
+# (scores near 0, so l near S, above 2^16), the rest as drawn. The twin's
+# four S^2 matrices (17 GB each) cannot run whole: the reference is the
+# twin's function in blocks of LONG_FAR_BLOCK queries (each row's softmax
+# whole), held to check_flash's tolerances.
+LONG_FAR_SEQ, LONG_FAR_BLOCK, LONG_FAR_HEAD_DIMS = 65600, 2048, (64, 16, 80)
 
 
 def flash_bwd_blocked(q, k, v, do, rows=LONG_FAR_BLOCK):
@@ -3237,38 +3243,40 @@ def flash_bwd_blocked(q, k, v, do, rows=LONG_FAR_BLOCK):
     return tuple(t.to(q.dtype) for t in (dq, dk, dv)), torch.cat(sums, dim=-1)
 
 
-def long_flash_far(fa, dev) -> float:
-    """Phase 15 (a): one flash backward at LONG_FAR_SEQ against
-    flash_bwd_blocked (FLASH_TOL), with rows on both sides of l = 2^16, and
-    two runs' bits. Returns the largest absolute difference."""
-    s = LONG_FAR_SEQ
-    q, k, v, do = flash_operands(torch.Generator().manual_seed(SEED + s), 1, s, 1,
-                                 torch.bfloat16, dev)
-    q[:, :s // 2] *= 1e-5  # q is a view of the (1, S, 192) qkv: scaled in place
+def long_flash_far(fa, dev, dh=64) -> float:
+    """Phase 15 (a): one flash backward at LONG_FAR_SEQ and head_dim `dh`
+    against flash_bwd_blocked (FLASH_TOL), with rows on both sides of l =
+    2^16, and two runs' bits. Returns the largest absolute difference."""
+    s, heads = LONG_FAR_SEQ, 32 // math.gcd(dh, 32)  # the wrapper takes D a multiple of 32
+    gen = torch.Generator().manual_seed(SEED + s + dh - 64)
+    q, k, v, do = flash_operands(gen, 1, s, heads, torch.bfloat16, dev, dh)
+    q[:, :s // 2] *= 1e-5  # q is a view of the (1, S, 3 D) qkv: scaled in place
     got = fa.flash_bwd(q, k, v, do)
     torch.cuda.synchronize()
     ms = time_ms(lambda: fa.flash_bwd(q, k, v, do), iters=2, warmup=0)
     again = fa.flash_bwd(q, k, v, do)
     torch.cuda.synchronize()
     ref, sums = flash_bwd_blocked(q, k, v, do)
-    over = int((sums > 65536.0).sum())
+    over, rows = int((sums > 65536.0).sum()), sums.numel()
     max_tol, mean_tol = FLASH_TOL[torch.bfloat16]
     worst, errs = 0.0, []
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         mx, mean = rel_err(a, b)
         if not (mx <= max_tol and mean <= mean_tol):
-            raise AssertionError(f"the flash backward at S = {s} disagrees with the blocked "
-                                 f"reference ({name}: max {mx:.3g}, mean {mean:.3g} relative)")
+            raise AssertionError(f"the flash backward at S = {s}, head_dim {dh} disagrees with "
+                                 f"the blocked reference ({name}: max {mx:.3g}, mean "
+                                 f"{mean:.3g} relative)")
         worst = max(worst, float((a.float() - b.float()).abs().max()))
         errs.append(f"{name} {mx:.3g}/{mean:.3g}")
     same = all(torch.equal(x_, y_) for x_, y_ in zip(got, again))
-    log(f"[flash-far] flash backward at S={s} B=1 heads=1 ({over} of {s} row sums above 2^16): "
-        f"largest / mean relative difference from the blocked fp32 reference {', '.join(errs)} "
+    log(f"[flash-far] flash backward at S={s} B=1 heads={heads} head_dim {dh} ({over} of {rows} "
+        f"row sums above 2^16): largest / mean relative difference from the blocked fp32 reference {', '.join(errs)} "
         f"(tol {max_tol}, {mean_tol}); two runs equal bit for bit {same}; {ms:.3f} ms a call")
     if not same:
-        raise AssertionError(f"the flash backward is not deterministic at S = {s}")
-    if not 0 < over < s:
-        raise AssertionError(f"at S = {s} {over} row sums lie above 2^16: both sides must occur")
+        raise AssertionError(f"the flash backward is not deterministic at S = {s}, head_dim {dh}")
+    if not 0 < over < rows:
+        raise AssertionError(f"at S = {s} {over} of {rows} row sums lie above 2^16: both sides "
+                             f"must occur")
     del q, k, v, do, got, again, ref, sums
     torch.cuda.empty_cache()
     return worst
@@ -5451,7 +5459,8 @@ def gl_times(fb, fa, card, dev) -> dict:
 
 
 # the general route's wgmma kernels, which must not spill
-GL_WGMMA_KERNELS = ("gl_fwd_kernel", "gl_core_kernel")
+GL_WGMMA_KERNELS = ("gl_fwd_kernel", "gl_core_kernel", "gl_flash_rows_kernel",
+                    "gl_flash_cols_kernel")
 
 
 def no_spill(tag, line) -> None:
@@ -5579,9 +5588,11 @@ def general_long_in_child() -> list:
 # twin, layer_fwd, mlp_bwd, attn_bwd, merged_bwd (equal to the split pair
 # bit for bit) against their twins, at the training shape also as close to
 # fp32 as the twins, 32 fused_block calls equal to one fused_backbone, the
-# C entries' CUDA launches as predicted, two runs of every backward equal,
-# the flash pair at head_dim 80 against its twins and float64, and fp32
-# (the four layer kernels and the flash pair) against their fp32 twins and
+# C entries' CUDA launches as predicted, two runs of every backward equal;
+# at both VH_SHAPES the flash pair at head_dim 80, bf16 and fp32, against
+# its twins and float64 (at S = 17 a ragged B at an S <= 256 off a
+# multiple of 64: the bf16 backward's workspace edge), at the training
+# shape fp32 (the four layer kernels) against their fp32 twins and
 # float64; the head_dim-80 attention kernels alone at VH_LONG (S = 577,
 # 1,024) in bf16 and fp32 (gl_check_shape); the core's S limit at head_dim
 # 80 (11,072) held at its edge; D = 1280 as 20 heads of 64 (the fast route
@@ -5623,7 +5634,7 @@ VH_REFUSED = (("head_dim 96", 768, 8, 3072, "head_dim in"),
 # every kernel and route of the step is the same at 8 layers. (c) serves
 # the full 32 layers from a trainer of its own.
 VH_TRAIN_LAYERS = 8
-VH_EXTRACT = 512
+VH_EXTRACT = 256  # one batch a stream (cut from 512 for the script's time)
 VH_CHILD_TIMEOUT = 900  # s
 VH_NEW_KERNELS = GL_NEW_KERNELS + ("layernorm_kernel", "ln_bwd_kernel")
 # the route each wrapper runs at D 1280, 16 heads (head_dim 80): the general
@@ -5696,6 +5707,20 @@ def vh_kernels(fb, fa, dev, wt) -> dict:
                                     against_fp32=train).items():
             note(k, v)
         note("merged_bwd", check_merged_bwd(tag, fb, x, x2, g, w, heads, eps, fast, True))
+        # the flash pair at head_dim 80, bf16 and fp32; at B = 3, S = 17 too:
+        # a ragged B at an S <= 256 off a multiple of 64, where the bf16
+        # backward's workspace (3 x 64 floats a 64-query chunk) ends
+        q, k, v, do = flash_operands(gen, b, s, heads, torch.bfloat16, dev, d // heads)
+        for name, e in check_flash(f"{VH_LABEL} B={b} S={s}", q, k, v, do).items():
+            note(name, e)
+            vh_counted_twice(fb, name, (lambda: fa.flash_fwd(q, k, v)) if name == "flash_fwd"
+                             else (lambda: fa.flash_bwd(q, k, v, do)),
+                             fb.cuda_launches(name, fa.KERNEL_NAME),
+                             hd_predicted_launches(name, d, heads, mlp, 0))
+        for name, e in check_flash(f"{VH_LABEL} fp32 B={b} S={s}",
+                                   *(t.float() for t in (q, k, v, do))).items():
+            note(f"{name} (fp32)", e)
+        del q, k, v, do
         if not train:
             log(f"[vh] (a) {tag}: {time.perf_counter() - t0:.1f} s")
             continue
@@ -5721,18 +5746,6 @@ def vh_kernels(fb, fa, dev, wt) -> dict:
             want = hd_predicted_launches(name, d, heads, mlp, 0) * (
                 VH_LAYERS if name == "backbone_fwd" else 1)
             vh_counted_twice(fb, name, fn, n_cuda, want)
-        # the flash pair at head_dim 80, bf16 and fp32
-        q, k, v, do = flash_operands(gen, b, s, heads, torch.bfloat16, dev, d // heads)
-        for name, e in check_flash(f"{VH_LABEL} B={b} S={s}", q, k, v, do).items():
-            note(name, e)
-            vh_counted_twice(fb, name, (lambda: fa.flash_fwd(q, k, v)) if name == "flash_fwd"
-                             else (lambda: fa.flash_bwd(q, k, v, do)),
-                             fb.cuda_launches(name, fa.KERNEL_NAME),
-                             hd_predicted_launches(name, d, heads, mlp, 0))
-        for name, e in check_flash(f"{VH_LABEL} fp32 B={b} S={s}",
-                                   *(t.float() for t in (q, k, v, do))).items():
-            note(f"{name} (fp32)", e)
-        del q, k, v, do
         for k_, e in check_fp32_layer(f"{VH_LABEL} fp32 B={b} S={s}", fb, x.float(),
                                       x2.float(), g.float(), w, heads, eps, fast).items():
             note(f"{k_} (fp32)", e)

@@ -23,10 +23,11 @@ Here, at tiny widths (2 layers, B = 2):
    64-key chunks) and the quad adds its four lanes, the IEEE quotient, the
    products with P and dS as fp32 sums over 16-key (16-query) k-steps in
    order, P and dS one bf16 term (the fused block's stage and core) or two
-   (the flash pair: hi = bf16(x), lo = bf16(x - hi)); the stage, the flash
-   forward and the core run on wgmma, whose accumulator holds each lane's
-   mma.sync fragment positions, and keep these orders, as the flash
-   backward's mma.sync kernels do; and the fp32 multi-pass route's order
+   (the flash pair: hi = bf16(x), lo = bf16(x - hi)); every one of these
+   kernels (the stage, the flash forward, the core and the flash
+   backward's two launches) runs on wgmma, whose accumulator holds each
+   lane's mma.sync fragment positions, and keeps the orders of the
+   mma.sync kernels it replaced; and the fp32 multi-pass route's order
    (per 256-key chunk, csrc/flash_f32.cuh) at the three head_dims;
 3. two SSP optimizer steps of the tiny model (D 32, 2 heads, mlp 64: head
    dim 16) at image_size 272 (S = 290) against the JAX trainer, the
@@ -278,8 +279,9 @@ def _gl_flash_fwd(q, k, v):
 
 def _gl_flash_bwd(q, k, v, do):
     """gl_flash_rows_kernel (rowsum(dP P) lane-ordered, dQ over 16-key
-    k-steps with dS in two terms) then gl_flash_cols_kernel (dK and dV over
-    16-query k-steps, P and dS in two terms)."""
+    k-steps with dS in two terms, hi before lo) then gl_flash_cols_kernel
+    (dK and dV over 16-query k-steps, P and dS in two terms), both on wgmma
+    with the orders of the mma.sync kernels they replaced."""
     qf, kf, vf, dof = (_heads(t) for t in (q, k, v, do))
     s, dh = qf.shape[-2], qf.shape[-1]
     p = _probs(qf, kf)
@@ -339,9 +341,10 @@ def test_general_core_order_matches_pallas_bf16(dh, s, monkeypatch):
 @pytest.mark.parametrize("s", SEQS)
 @pytest.mark.parametrize("dh", HEAD_DIMS)
 def test_general_flash_order_matches_pallas_bf16(dh, s, monkeypatch):
-    """mha_pallas with its twins replaced by the new flash kernels' order
-    of sums (P and dS in two bf16 terms), against the JAX mha_pallas in
-    interpret mode, at the bf16 bounds of section 1."""
+    """mha_pallas with its twins replaced by the flash kernels' order of
+    sums (P and dS in two bf16 terms; the wgmma flash forward and flash
+    backward keep it), against the JAX mha_pallas in interpret mode, at the
+    bf16 bounds of section 1."""
     q, k, v, cot = _attention_operands((B, s, 2, dh), s + dh + 5)
     ref, ref_g = _jax_mha(q, k, v, cot, jnp.bfloat16)
     monkeypatch.setattr(fa, "flash_attention_plain", _gl_flash_fwd)

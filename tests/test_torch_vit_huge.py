@@ -288,8 +288,9 @@ def test_streamed_order_matches_pallas_at_head_dim_80(s, route, monkeypatch):
     the kernel's order of sums (5 k-steps of 16 for the scores at head_dim
     80), against interpret-mode Pallas: the backbone (gl_fwd_kernel<80,
     false>), the split layer backward (gl_core_kernel<80>), mha_pallas in
-    bf16 (gl_fwd_kernel<80, true>, gl_flash_rows / _cols_kernel<80>) and in
-    fp32 (the multi-pass route on one image and head)."""
+    bf16 (gl_fwd_kernel<80, true>, gl_flash_rows / _cols_kernel<80>, all on
+    wgmma with the mma.sync kernels' orders) and in fp32 (the multi-pass
+    route on one image and head)."""
     d, heads, mlp = NARROW
     if route == "stage":
         rng, ws = _narrow_weights(s + 84, layers=L)

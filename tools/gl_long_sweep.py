@@ -1,45 +1,49 @@
 #!/usr/bin/env python3
 """Time the general route's wgmma attention kernels of the PyTorch port
 (vit2spn_tpu_torch/csrc/general_long.cuh: the forward stage, the flash
-forward and the fused backward core; head_dim 16, 32, 48 above 256 tokens,
-80 at every S) at other geometries, beside an earlier tree's, on one CUDA
-card:
+forward, the fused backward core and the flash backward's two launches;
+head_dim 16, 32, 48 above 256 tokens, 80 at every S) at other geometries,
+beside an earlier tree's, on one CUDA card:
 
     python tools/gl_long_sweep.py [--geometries 0,1,2] [--parent DIR]
-                                  [--step | --step-only] [--sdpa]
+                                  [--routes stage,core,flash_fwd,flash_bwd]
+                                  [--step | --step-only] [--step-impl fused|pallas]
+                                  [--sdpa]
 
 For each (GL_FWD_WG, GL_FWD_RING, GL_CORE_MINB, GL_CORE_STAGES,
 GL_ONE_PASS_PROBE) below (the forward's consumer warpgroups and ring stages,
 the core's blocks an SM and ring stages at most, a ring or block count of
 0 taking the source's default at the head_dim; and the probe of a one-pass
-forward, whose pass 3
-skips its expf: its time says what a forward that kept each exp(s - m)
-from pass 2 could save at most, its bits are not compared), or the
-ones `--geometries` picks by index (the first, the defaults, always runs),
-csrc/layer_fwd.cu, csrc/attn_bwd.cu and csrc/flash_attention.cu are
+forward, whose pass 3 skips its expf: its time says what a forward that
+kept each exp(s - m) from pass 2 could save at most, its bits are not
+compared), or the ones `--geometries` picks by index (the first, the
+defaults, always runs), the sources of the routes `--routes` names
+(csrc/layer_fwd.cu for the stage, csrc/attn_bwd.cu for the core,
+csrc/flash_attention.cu for the flash pair; all four by default) are
 compiled with those macros into build/gl_sweep/, every build started
 together. Then at each case of CASES (head_dim, heads, D, B, S: ViT-Tiny's
 width at 12 / 6 / 4 / 3 heads at B=64, S=577 and B=128, S=257; ViT-Huge/14's
-at B=64, S=257 and 577) each geometry runs the stage, the core, the flash
-forward and the flash backward on the same bf16 operands, timed with CUDA
-events after a warm-up; outputs must equal the first geometry's bit for
-bit. Prints the card, each build's ptxas lines for the gl_ and long_
-kernels (registers, spills, static shared memory, any wgmma ptxas
-serialized), and the times beside each route's bound (chip_smoke.py
-long_bound_ms) and, with --sdpa, bf16 SDPA (its backward for the core and
-the flash backward), a yardstick the port never calls.
+at B=64, S=257 and 577) each geometry runs those routes on the same bf16
+operands, timed with CUDA events after a warm-up; outputs must equal the
+first geometry's bit for bit. Prints the card, each build's ptxas lines
+for the gl_ and long_ kernels (registers, spills, static shared memory,
+any wgmma ptxas serialized), and the times beside each route's bound
+(chip_smoke.py long_bound_ms) and, with --sdpa, bf16 SDPA (its backward
+for the core and the flash backward), a yardstick the port never calls.
 
 With --parent DIR (an unpacked checkout of an earlier commit, e.g. the
-parent of a change), that tree's three sources are built too, with their
-own defaults, and run the same way before the geometries and again after
+parent of a change), that tree's sources are built too, with their own
+defaults, and run the same way before the geometries and again after
 them, with the share of each output's elements equal bit for bit to the
 first geometry's: the before and after of a change in one call. With
---step, ViT-Huge/14's 8-layer "fused" SSP step (2 x 64 images, as
-chip_smoke.py phase 20 (b) takes it: device time by wrapper, the
-gl_fwd_kernel and gl_core_kernel shares, idle) runs in a process of its own
-for this tree and, with --parent, for the parent (parent, this, this,
-parent), each tree's kernels built into its own build/kernels/;
---step-only runs that alone.
+--step, ViT-Huge/14's 8-layer SSP step (2 x 64 images, as chip_smoke.py
+phase 20 (b) takes it: device time by wrapper, the gl_fwd_kernel,
+gl_core_kernel and flash backward kernels' shares, idle) runs in a process
+of its own for this tree and, with --parent, for the parent (parent,
+this, this, parent), each tree's kernels built into its own
+build/kernels/; the step goes through `--step-impl` ("fused", whose
+layers run the stage and the core; "pallas", whose per-op blocks run the
+flash forward and the flash backward); --step-only runs that alone.
 """
 
 from __future__ import annotations
@@ -62,7 +66,9 @@ if "--step-child" not in sys.argv:
 GEOMETRIES = ((2, 0, 0, 4, 0), (3, 0, 0, 4, 0), (2, 0, 3, 4, 0), (4, 0, 0, 4, 0),
               (2, 4, 0, 4, 0), (2, 0, 0, 2, 0), (2, 0, 0, 4, 1))
 KNOBS = ("GL_FWD_WG", "GL_FWD_RING", "GL_CORE_MINB", "GL_CORE_STAGES", "GL_ONE_PASS_PROBE")
-SOURCES = ("layer_fwd", "attn_bwd", "flash_attention")
+# the routes and the source each is built from
+ROUTES = {"stage": "layer_fwd", "core": "attn_bwd", "flash_fwd": "flash_attention",
+          "flash_bwd": "flash_attention"}
 # (head_dim, heads, D, B, S)
 CASES = ((16, 12, 192, 64, 577), (16, 12, 192, 128, 257), (32, 6, 192, 64, 577),
          (32, 6, 192, 128, 257), (48, 4, 192, 64, 577), (48, 4, 192, 128, 257),
@@ -70,9 +76,10 @@ CASES = ((16, 12, 192, 64, 577), (16, 12, 192, 128, 257), (32, 6, 192, 64, 577),
          (80, 16, 1280, 64, 577))
 
 
-def build(geoms, parent, out):
-    """{geometry or "parent": {source: library}}, every build started
-    together; prints each build's ptxas lines of the attention kernels."""
+def build(geoms, parent, out, sources):
+    """{geometry or "parent": {source: library}} of `sources`, every build
+    started together; prints each build's ptxas lines of the attention
+    kernels."""
     from chip_smoke import ptxas_report
     from vit2spn_tpu_torch.ops import cuda_build
     from vit2spn_tpu_torch.ops.fused_block import _SIGNATURES
@@ -80,11 +87,11 @@ def build(geoms, parent, out):
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for g in geoms:
-        for src in SOURCES:
+        for src in sources:
             jobs[(g, src)] = (cuda_build.CSRC, [f"-D{n}={v}" for n, v in zip(KNOBS, g)],
                               out / f"{src}_{'_'.join(map(str, g))}.so")
     if parent is not None:
-        for src in SOURCES:
+        for src in sources:
             jobs[("parent", src)] = (parent / "vit2spn_tpu_torch" / "csrc", [],
                                      out / f"{src}_parent.so")
     procs = {}
@@ -104,7 +111,7 @@ def build(geoms, parent, out):
             getattr(lib, fn).restype = res
         libs.setdefault(g, {})[src] = lib
         report = [ln for ln in ptxas_report(log, None, head_dims=True)
-                  if ln.startswith(("gl_fwd", "gl_core", "long_attention"))]
+                  if ln.startswith(("gl_fwd", "gl_core", "gl_flash", "long_attention"))]
         print(f"[build] {g} {src}: " + "; ".join(report), flush=True)
         for line in log.splitlines():  # ptxas serializing a route's wgmma
             if "Performance Loss" in line and ("gl_" in line or "long_" in line):
@@ -113,8 +120,10 @@ def build(geoms, parent, out):
 
 
 def step_child() -> int:
-    """--step-child: ViT-Huge/14's 8-layer fused step through the tree this
-    process runs in (its chip_smoke.py helpers); one JSON line."""
+    """--step-child IMPL: ViT-Huge/14's 8-layer step through attn_impl IMPL
+    ("fused" or "pallas") in the tree this process runs in (its
+    chip_smoke.py helpers); one JSON line."""
+    impl = sys.argv[sys.argv.index("--step-child") + 1]
     root = Path(os.getcwd())
     sys.path.insert(0, str(root))
     import chip_smoke as cs
@@ -132,11 +141,13 @@ def step_child() -> int:
     cfg = _apply_overrides(get_preset("ssp-scratch"), [
         *cs.VH_OVERRIDES, f"batch_size={cs.VH_MICRO}", f"accumulation_steps={cs.VH_ACCUM}",
         f"vit.num_layers={cs.VH_TRAIN_LAYERS}"])
-    tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), attn_impl="fused", device="cuda")
+    tr = SSPTrainer(cfg, logger=MetricLogger(echo=False), attn_impl=impl, device="cuda")
     tr.attach_dataset(synthetic_dataset(image_size=28, split_sizes={"train": cfg.effective_batch},
                                         seed=cs.SEED).images)
-    totals, wrappers = {}, (fb.KERNEL_NAME, "mlp_bwd", "attn_bwd")
-    step_s = cs.time_steps(tr, cfg.effective_batch, f"fused ViT-Huge/14, {root.name}",
+    totals = {}
+    wrappers = ((fb.KERNEL_NAME, "mlp_bwd", "attn_bwd") if impl == "fused"
+                else ("flash_fwd", "flash_bwd"))
+    step_s = cs.time_steps(tr, cfg.effective_batch, f"{impl} ViT-Huge/14, {root.name}",
                            cs.card_line(), wrappers, "views, embed, heads, loss, Adam, EMA",
                            reps=3, totals=totals)
     device = totals.get("device", float("nan"))
@@ -145,8 +156,9 @@ def step_child() -> int:
         "tree": str(root), "wall_ms": 1e3 * step_s, "device_ms": device,
         "idle": 1 - device / (1e3 * step_s),
         "wrappers_ms": {w: totals.get(f"vit2spn::{w}") for w in wrappers},
-        "gl_fwd_kernel_ms": sum(ms for k, (ms, _) in kernels.items() if "gl_fwd_kernel" in k),
-        "gl_core_kernel_ms": sum(ms for k, (ms, _) in kernels.items() if "gl_core_kernel" in k),
+        **{f"{name}_ms": sum(ms for k, (ms, _) in kernels.items() if name in k)
+           for name in ("gl_fwd_kernel", "gl_core_kernel", "gl_flash_rows_kernel",
+                        "gl_flash_cols_kernel")},
     }), flush=True)
     return 0
 
@@ -160,11 +172,17 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked checkout whose kernels run beside these")
     ap.add_argument("--step", action="store_true",
-                    help="ViT-Huge/14's 8-layer fused step, this tree (and the parent's)")
+                    help="ViT-Huge/14's 8-layer step, this tree (and the parent's)")
+    ap.add_argument("--step-impl", default="fused", choices=("fused", "pallas"),
+                    help="the step's attn_impl (\"pallas\" runs the flash pair)")
     ap.add_argument("--step-only", action="store_true",
                     help="the step alone: no builds or times of the kernels")
     ap.add_argument("--sdpa", action="store_true", help="bf16 SDPA beside each time")
+    ap.add_argument("--routes", default=",".join(ROUTES),
+                    help="the routes to time, comma-separated (only their sources are built)")
     a = ap.parse_args()
+    routes = a.routes.split(",")
+    sources = tuple(dict.fromkeys(ROUTES[r] for r in routes))
     from chip_smoke import card_line, equal_bits, library_flash_bwd, long_bound_ms, time_ms
 
     picked = [GEOMETRIES[0]] + [GEOMETRIES[int(i)] for i in a.geometries.split(",") if int(i)]
@@ -180,7 +198,7 @@ def main() -> int:
                                   "from vit2spn_tpu_torch.ops import cuda_build, fused_block as "
                                   "fb; cuda_build.build_all(fb.KERNEL_NAMES)"], cwd=t)
                 for t in dict.fromkeys(trees)]
-    libs = {} if a.step_only else build(picked, a.parent, ROOT / "build" / "gl_sweep")
+    libs = {} if a.step_only else build(picked, a.parent, ROOT / "build" / "gl_sweep", sources)
     torch.backends.cuda.matmul.allow_tf32 = False
     stream = torch.cuda.current_stream().cuda_stream
     order = picked if a.parent is None else ["parent", *picked, "parent"]
@@ -195,11 +213,12 @@ def main() -> int:
         datt = (0.1 * torch.randn(b, s, d, generator=gen)).to(torch.bfloat16).cuda()
         q, k, v = (x.reshape(b, s, h, dh) for x in qkv.split(d, dim=-1))
         bs, ts = q.stride()[:2]
-        att, att2 = torch.empty_like(datt), torch.empty_like(datt)
-        dqkv, o = torch.empty_like(qkv), torch.empty_like(datt)
-        dq, dk, dv = (torch.empty_like(datt) for _ in range(3))
-        ws = torch.empty(max(lib["flash_attention"].vit2spn_flash_bwd_workspace_floats(b, s, h)
-                             for lib in libs.values()), dtype=torch.float32, device="cuda")
+        att, att2 = torch.zeros_like(datt), torch.zeros_like(datt)  # zeros: a route not run
+        dqkv, o = torch.zeros_like(qkv), torch.zeros_like(datt)      # compares equal
+        dq, dk, dv = (torch.zeros_like(datt) for _ in range(3))
+        ws = torch.empty(max([lib["flash_attention"].vit2spn_flash_bwd_workspace_floats(b, s, h)
+                              for lib in libs.values() if "flash_attention" in lib] + [1]),
+                         dtype=torch.float32, device="cuda")
         tag = f"head_dim {dh}, D={d}, B={b} S={s} heads={h}"
         if a.sdpa:
             sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
@@ -231,7 +250,7 @@ def main() -> int:
                     dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, s, h, dh, bs, ts, 0,
                     stream)),
             }
-            times = {n: time_ms(fn, iters=10, warmup=2) for n, fn in calls.items()}
+            times = {n: time_ms(fn, iters=10, warmup=2) for n, fn in calls.items() if n in routes}
             outs = [t.clone() for t in (att, att2, dqkv, o, dq, dk, dv)]
             if g == "parent":
                 if first is not None:
@@ -259,8 +278,9 @@ def main() -> int:
         for p in warm:
             p.wait()
         for t in trees:
-            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--step-child"],
-                                  cwd=t, capture_output=True, text=True, timeout=900)
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--step-child",
+                                   a.step_impl], cwd=t, capture_output=True, text=True,
+                                  timeout=900)
             lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
             for ln in proc.stdout.splitlines():
                 if ln.startswith("[profile]") or ln.startswith("[time]"):

@@ -65,6 +65,8 @@ extern "C" int gl_probe_flash_bwd(const void* q, const void* k, const void* v, c
   });
 }
 
+// the flash backward's workspace: 3 x 64 floats a 64-query chunk
+// (gl_flash_rows_kernel writes every row of its tiles, S <= 256 too)
 extern "C" long long gl_probe_ws_floats(int B, int S, int H) {
   return long_flash_bwd_ws_floats(B, S, H);
 }

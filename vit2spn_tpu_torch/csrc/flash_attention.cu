@@ -74,9 +74,10 @@
 //
 // Above 256 keys the warp's row of scores no longer fits its registers: bf16
 // inputs take the wgmma multi-pass route of csrc/long_attention.cuh at head
-// dim 64 and the mma.sync multi-pass route of csrc/general_long.cuh at 16,
-// 32 and 48 (the same function, P and dS in two bf16 terms, the same
-// two-launch backward with the same row statistics), fp32 inputs the routes
+// dim 64 and its design on the head_dim in csrc/general_long.cuh at 16, 32
+// and 48 (the same function, P and dS in two bf16 terms, the same
+// two-launch backward with the same row statistics in 64-query chunk
+// planes of the workspace), fp32 inputs the routes
 // of csrc/flash_f32.cuh (the one-pass route up to 1,152 keys at head_dim 64,
 // else the multi-pass route: 256-key chunks on the CUDA cores, the row
 // statistics through the same workspace). Head_dim 80 takes the multi-pass
@@ -548,11 +549,12 @@ extern "C" int vit2spn_flash_bwd(const void* q, const void* k, const void* v,
   });
 }
 
-// the row statistics between the two backward launches (above FA_MAX_S the
-// bf16 route's 3 x 64 floats a 64-query chunk, which also holds the fp32
-// route's 3 a query)
+// the row statistics between the two backward launches: 3 x 64 floats a
+// 64-query chunk, the bf16 multi-pass routes' planes (long_attention.cuh and
+// general_long.cuh), which cover the S <= 256 kernels' and the fp32 routes'
+// 3 floats a query at every S. It takes no head_dim, so it holds every route
 extern "C" long long vit2spn_flash_bwd_workspace_floats(int B, int S, int H) {
-  return S > FA_MAX_S ? long_flash_bwd_ws_floats(B, S, H) : (long long)B * H * S * 3;
+  return long_flash_bwd_ws_floats(B, S, H);
 }
 
 extern "C" int vit2spn_flash_fwd_launches() { return 1; }

@@ -35,26 +35,40 @@
 // no rescaled sum): several passes over the keys, the scores recomputed in
 // each.
 //
-// The forward (stage and flash) and the fused backward core are
-// long_attention.cuh's wgmma / TMA design on the head_dim (the gw_ helpers
-// below, its la_ helpers where nothing depends on the head_dim): a
-// warpgroup owns 64 rows; the scores and dP are SS products over DH / 16
-// k-steps of 16, P and dS are packed from the accumulator registers into
-// the A registers of RS products whose N is DH (o, att, dQ, dK, dV: DH / 2
-// accumulator registers a thread); the operands arrive by TMA through a
-// ring of 64-row chunks kept in flight by one lane of a producer warpgroup
-// that gives its registers to the consumers (setmaxnreg); the forward's
-// passes and the core's statistics passes issue chunk c + 1's scores before
-// chunk c's softmax (two accumulator sets); the quotient is la_quot (three
-// branch-free instructions with the IEEE division's bits, __fdiv_rn for a
-// warp whose chunk holds an a below 2^-100 or an l above 2^16). The forward
-// runs persistent blocks of GL_FWD_WG consumer warpgroups over (image, head,
+// All four are long_attention.cuh's wgmma / TMA design on the head_dim
+// (the gw_ helpers below, its la_ helpers where nothing depends on the
+// head_dim): a warpgroup owns 64 rows; the scores and dP are SS products
+// over DH / 16 k-steps of 16, P and dS are packed from the accumulator
+// registers into the A registers of RS products whose N is DH (o, att, dQ,
+// dK, dV: DH / 2 accumulator registers a thread), in one bf16 term or, in
+// the flash pair, two (la_pack<true> / gw_pack<KS, true>: per 16-wide
+// k-step hi, then lo); the operands arrive by TMA through a ring of 64-row
+// chunks kept in flight by one lane of a producer warpgroup that gives its
+// registers to the consumers (setmaxnreg); the forward's passes and every
+// statistics pass issue chunk c + 1's scores before chunk c's softmax (two
+// accumulator sets); the quotient is la_quot (three branch-free
+// instructions with the IEEE division's bits, __fdiv_rn for a warp whose
+// chunk holds an a below 2^-100 or an l above 2^16). The forward runs
+// persistent blocks of GL_FWD_WG consumer warpgroups over (image, head,
 // GL_FWD_WG query tiles) items; the core one block per (image, head),
 // gl_core_minb blocks an SM (two; one at 80), its rows phase (passes 1-4:
 // m, l, then dot = rowsum(dP p) with att, then dQ) and its cols phase (per
 // 64 keys every query chunk: s^T = k q^T and dP^T from each query's
 // statistics in shared memory, dV and dK) in ONE launch, so the layer
-// backward's launch count does not change with S.
+// backward's launch count does not change with S. The flash backward is
+// long_attention.cuh's two persistent launches on the head_dim: the rows
+// launch (gl_flash_rows_kernel: passes 1-2, then the core's passes 3-4
+// with dS in two terms and no att) writes each query's m, l and dot to the
+// workspace in 64-query chunk planes (LA_FBWD_STATS floats a chunk,
+// vit2spn_flash_bwd_workspace_floats); the cols launch
+// (gl_flash_cols_kernel: the core's cols phase with P and dS in two terms)
+// takes a chunk's statistics by one bulk copy in the ring stage beside its
+// Q and dO boxes, so S is not bounded by shared memory. Both run one
+// consumer warpgroup a block (a second, swept, was slower at head_dim 16-48
+// and 12% faster only at 80, S = 577), GL_FBWD_STAGES ring stages,
+// gl_fbwd_minb blocks an SM (two, 232 registers, at head_dim 16-48; one,
+// 240, at 80, where two slots of 32 KB tile pairs and the ring leave room
+// for one block anyway).
 //
 // A row of a head is DH bf16: 32, 64, 96 or 160 bytes, and TMA and wgmma
 // have no swizzle for 96 or 160. So every operand is read as 64-row tiles
@@ -77,51 +91,34 @@
 // 8 j + 2 t, 8 j + 2 t + 1 in ascending order across every chunk, then the
 // quad's shuffles (xor 1, then xor 2); the scores over head_dim in k-steps
 // of 16; o, att and dQ over 16-key k-steps in ascending order, dK and dV
-// over 16-query k-steps in ascending order (on the card every output
-// equals the mma.sync kernels' bit for bit: tools/gl_long_sweep.py). Both
-// phases of the core and the stage form the same p, so the core's att
-// equals the stage's bit for bit.
+// over 16-query k-steps in ascending order, hi before lo where a term is
+// split (on the card every output equals the mma.sync kernels' bit for
+// bit: tools/gl_long_sweep.py --parent). Both phases of the core and the
+// stage form the same p, so the core's att equals the stage's bit for bit.
 //
 // What bounds it on this card: at ViT-Tiny's width at 384 px (S = 577, B =
 // 64) the products are 2 S^2 dh a (image, head) each (2 in the forward, 6
-// in the core), which leaves the CUDA cores' work per score and pass (a
-// scale, a subtraction, an expf, the quotient) in front at head_dim 16-48.
+// in the core, 5 in the flash backward, its P and dS products twice), which
+// leaves the CUDA cores' work per score and pass (a scale, a subtraction,
+// an expf, the quotient, the hi / lo splits) in front at head_dim 16-48.
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (tools/gl_long_sweep.py)
 // at that shape: the stage 0.5763 / 0.3137 / 0.2234 ms at head_dim 16 / 32
 // / 48 (2.9-7.6% of its bound, ~2.6x bf16 SDPA), the core 1.3929 / 0.9660 /
-// 0.5758 ms (3.6-8.6%); at ViT-Huge/14 (B = 64, S = 257) 0.3258 and 1.4012
-// ms. A forward that kept each exp(s - m) of pass 2 would save at most what
-// GL_ONE_PASS_PROBE measures (18-31% of the stage).
-//
-// The flash backward keeps the first design of this route: the S <= 256
-// mma.sync kernels' fragment code (one warp a 16-row tile, the m16n8k16
-// fragments, DH / 16 k-steps of head_dim) with the other side streamed
-// through shared memory in GL_CHUNK-row chunks by cp.async from every
-// thread, two launches: the rows launch writes each query's statistics to
-// the workspace (vit2spn_flash_bwd_workspace_floats), the cols launch reads
-// them a chunk at a time beside its Q and dO chunks, so S is not bounded.
-// Its rows and cols kernels hold dQ (dK and dV) beside both operands'
-// fragments: at two blocks an SM (128 registers) they would spill at head
-// dim 80, so there they take one (GL_FLASH_MINB). Why the S <= 256 kernels
-// keep S <= 256: tools/gl_short_probe.py times these at S = 197 beside them.
-// Limits: head dim 16, 32, 48 or 80; rows 16-byte aligned.
+// 0.5758 ms (3.6-8.6%), the flash backward 1.3873 / 0.7637 / 0.5812 ms
+// (3.0-7.1%; the mma.sync kernels 1.7395 / 1.1763 / 0.9888); at ViT-Huge/14
+// (B = 64, S = 257) 0.3258, 1.4012 and 1.0757 ms (1.9646). A forward that
+// kept each exp(s - m) of pass 2 would save at most what GL_ONE_PASS_PROBE
+// measures (18-31% of the stage). Why the S <= 256 kernels keep S <= 256:
+// tools/gl_short_probe.py times these at S = 197 beside them. Limits: head
+// dim 16, 32, 48 or 80; rows 16-byte aligned.
 
 #pragma once
 
 #include "common.cuh"
 #include "long_attention.cuh"  // Ring, la_quot / la_divide, the chunk loops, split_pair
 
-#define GL_WARPS 8               // the flash backward: warps a block, 16 rows each
-#define GL_ROWS (16 * GL_WARPS)  // its block's rows at a time: queries, or keys (cols)
-#define GL_CHUNK 64              // rows of the other side a staged chunk
-
-// blocks an SM the flash backward's kernels are compiled for: two (at most
-// 128 registers) up to head_dim 48, one at 80, whose accumulators and
-// operand fragments need more
-#define GL_FLASH_MINB(DH) ((DH) > 64 ? 1 : 2)
-
 // ---------------------------------------------------------------------------
-// Fragment helpers (shared with csrc/flash_attention.cu's S <= 256 kernels)
+// Fragment helpers of csrc/flash_attention.cu's S <= 256 kernels (mma.sync)
 // ---------------------------------------------------------------------------
 
 // two 16 x 8 fp32 C tiles side by side as the hi and lo terms of one 16 x 16
@@ -374,14 +371,20 @@ __device__ __forceinline__ void gw_rs(float (&o)[DH / 2], const uint32_t (&hi)[K
   }
 }
 
-// x (64 x 16 KS fp32, the fragment) as one bf16 term in the A registers of
-// its KS 16-column k-steps, as la_pack<false>
-template <int KS>
-__device__ __forceinline__ void gw_pack(uint32_t (&hi)[KS][4], const float (&x)[8 * KS]) {
+// x (64 x 16 KS fp32, the fragment) in the A registers of its KS 16-column
+// k-steps, as la_pack: one bf16 term, or (SPLIT) two
+template <int KS, bool SPLIT>
+__device__ __forceinline__ void gw_pack(uint32_t (&hi)[KS][4], uint32_t (&lo)[KS][4],
+                                        const float (&x)[8 * KS]) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) hi[kk][r] = pack_f32(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+    for (int r = 0; r < 4; ++r) {
+      if constexpr (SPLIT)
+        split_pair(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
+      else
+        hi[kk][r] = pack_f32(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+    }
 }
 
 // rows r0 and r0 + 8 of the 64 x DH fragment o, times `mul`, as bf16 into
@@ -633,8 +636,10 @@ static size_t gl_fwd_smem() {
 // q k^T and dP = dO v^T on SS products, then per chunk
 //   DQ false (pass 3): p; dot += dP p (per lane in key order); acc += bf16(p) v
 //   DQ true  (pass 4): dS = p (dP - dot); acc += bf16(dS) k
-// with the next chunk's SS products issued right behind the RS product.
-template <int DH, bool DQ>
+// with the next chunk's SS products issued right behind the RS product. The
+// core: P and dS one bf16 term. SPLIT, the flash backward: dS in two terms,
+// and its pass 3 forms no att, so no RS product (acc untouched).
+template <int DH, bool DQ, bool SPLIT = false>
 __device__ __forceinline__ void gw_core_rows(float (&acc)[DH / 2], float (&dot)[2],
                                              const float (&m)[2], const float (&l)[2],
                                              const LaQuot (&q)[2], Ring& ring, const uint8_t* qt,
@@ -642,7 +647,7 @@ __device__ __forceinline__ void gw_core_rows(float (&acc)[DH / 2], float (&dot)[
                                              int lane) {
   const int t = lane & 3, tail = S - (nc - 1) * LA_CHUNK;
   float s[32], dp[32];
-  uint32_t pa[4][4], unused[4][4];
+  uint32_t pa[4][4], pl[4][4];
   auto issue = [&]() {
     const int st = ring.take();
     wgmma_fence();
@@ -653,14 +658,22 @@ __device__ __forceinline__ void gw_core_rows(float (&acc)[DH / 2], float (&dot)[
     fence_regs<32>(dp);
     return st;
   };
+  constexpr bool RS = DQ || !SPLIT;  // an RS product in this pass
+  // what the products in flight may read or write besides s and dP
+  auto fence_rs = [&]() {
+    if constexpr (RS) {
+      fence_regs<DH / 2>(acc);
+      fence_regs<4>(pa);
+    }
+    if constexpr (RS && SPLIT) fence_regs<4>(pl);
+  };
   if (!DQ) dot[0] = dot[1] = 0.0f;
   int st = issue(), prev = -1;
   la_chunk_loop1(nc, [&](int c, auto more) {
     wgmma_wait<0>();
     fence_regs<32>(s);
     fence_regs<32>(dp);
-    fence_regs<DH / 2>(acc);
-    fence_regs<4>(pa);
+    fence_rs();
     if (prev >= 0) ring.release(prev, lane);
     la_masked(more, tail, [&](auto mask) { gw_probs(s, m, l, q, t, tail, scale, mask); });
 #pragma unroll
@@ -670,19 +683,20 @@ __device__ __forceinline__ void gw_core_rows(float (&acc)[DH / 2], float (&dot)[
       else
         dot[(i >> 1) & 1] += dp[i] * s[i];
     }
-    la_pack<false>(pa, unused, s);
-    wgmma_fence();
-    gw_rs<DH, false>(acc, pa, unused, ring.at(st) + (DQ ? 0 : GwShape<DH>::TILE), c == 0);
+    if constexpr (RS) {
+      la_pack<SPLIT>(pa, pl, s);
+      wgmma_fence();
+      gw_rs<DH, SPLIT>(acc, pa, pl, ring.at(st) + (DQ ? 0 : GwShape<DH>::TILE), c == 0);
+    }
     prev = st;
     if constexpr (decltype(more)::value)
       st = issue();
     else
       wgmma_commit();
-    fence_regs<DH / 2>(acc);
+    if constexpr (RS) fence_regs<DH / 2>(acc);
   });
   wgmma_wait<0>();
-  fence_regs<DH / 2>(acc);
-  fence_regs<4>(pa);
+  fence_rs();
   ring.release(prev, lane);
   if (!DQ) {
     dot[0] = la_quad_sum(dot[0]);
@@ -690,25 +704,25 @@ __device__ __forceinline__ void gw_core_rows(float (&acc)[DH / 2], float (&dot)[
   }
 }
 
-// The core's cols phase for the warpgroup's 64 keys (K tile kt, V tile vt)
-// over the nc query chunks of the ring (Q and dO), as la_core_cols, in
-// steps of NQ queries (a chunk's 64, or at head_dim 80 two steps of 32,
-// whose smaller score fragments leave the registers for dK and dV at N =
-// 80): s^T = k q^T and dP^T = v dO^T on SS products, p and dS = p (dP -
-// dot) from each column's query statistics (rmax, rsum, rdot: every
-// query's; queries >= S 0), then dV += bf16(p)^T dO and dK += bf16(dS)^T q
-// on RS products (the 16-query k-steps in order), the next step's SS
-// products issued once the RS products have read their A registers.
-template <int DH>
+// The cols phase for the warpgroup's 64 keys (K tile kt, V tile vt) over
+// the nc query chunks of the ring (Q and dO), as la_core_cols, in steps of
+// NQ queries (a chunk's 64, or at head_dim 80 two steps of 32, whose smaller
+// score fragments leave the registers for dK and dV at N = 80): s^T = k q^T
+// and dP^T = v dO^T on SS products, p and dS = p (dP - dot) from each
+// column's query statistics (stats(c, stage): a LaStatRows of chunk c;
+// queries >= S 0), then dV += p^T dO and dK += dS^T q on RS products (the
+// 16-query k-steps in order), P and dS one bf16 term (the core) or (SPLIT:
+// flash) two, the next step's SS products issued once the RS products have
+// read their A registers.
+template <int DH, bool SPLIT = false, class Stats>
 __device__ __forceinline__ void gw_core_cols(float (&dk)[DH / 2], float (&dv)[DH / 2],
-                                             const float* rmax, const float* rsum,
-                                             const float* rdot, Ring& ring, const uint8_t* kt,
+                                             Stats&& stats, Ring& ring, const uint8_t* kt,
                                              const uint8_t* vt, int nc, int S, float scale,
                                              int lane) {
   constexpr int NQ = DH > 64 ? 32 : 64, PARTS = LA_CHUNK / NQ, KS = NQ / 16;
   const int t = lane & 3, g = lane >> 2, tail = S - (nc - 1) * LA_CHUNK;
   float s[NQ / 2], dp[NQ / 2];
-  uint32_t pa[KS][4], da[KS][4], unused[KS][4];
+  uint32_t pa[KS][4], pl[KS][4], da[KS][4], dl[KS][4];
   int st = -1;
   auto issue = [&](int part) {  // step `part` of a chunk; part 0 takes the chunk's stage
     if (part == 0) st = ring.take();
@@ -724,6 +738,10 @@ __device__ __forceinline__ void gw_core_cols(float (&dk)[DH / 2], float (&dv)[DH
     fence_regs<DH / 2>(dv);
     fence_regs<KS>(pa);
     fence_regs<KS>(da);
+    if constexpr (SPLIT) {
+      fence_regs<KS>(pl);
+      fence_regs<KS>(dl);
+    }
   };
   issue(0);
   la_chunk_loop1(nc * PARTS, [&](int n, auto more) {
@@ -734,17 +752,27 @@ __device__ __forceinline__ void gw_core_cols(float (&dk)[DH / 2], float (&dv)[DH
     fence_acc();
     // register i: key row (i / 2) % 2, query column q0 + 8 (i / 4) + 2 t +
     // i % 2, whose statistics are the pair j = i / 4 at q0 + 8 j + 2 t
-    const float* st_m = rmax + c * LA_CHUNK + q0 + 2 * t;
-    const float* st_l = rsum + c * LA_CHUNK + q0 + 2 * t;
-    const float* st_d = rdot + c * LA_CHUNK + q0 + 2 * t;
+    const LaStatRows rows = stats(c, st);
+    const float* st_m = rows.m + q0 + 2 * t;
+    const float* st_l = rows.l + q0 + 2 * t;
+    const float* st_d = rows.d + q0 + 2 * t;
+    // the 8 lanes of a quad position t share their columns: lane 4 g + t
+    // takes the reciprocals of pair jg's row sums (columns q0 + 8 jg + 2 t,
+    // + 1), the others read them by shuffle
+    const int jg = g % (NQ / 8);
     auto softmax = [&](auto mask) {
       auto live = [&](int i) { return !decltype(mask)::value || q0 + la_col(i, t) < tail; };
       // la_divide's rule for the warp: the IEEE division where an a falls
-      // below LA_QUOT_MIN (the core's S limit keeps every l below
-      // LA_QUOT_MAX_L). The 8 lanes of a quad position t share their
-      // columns: lane 4 g + t takes the reciprocals of pair g's row sums
-      // (columns q0 + 8 g + 2 t, + 1), the others read them by shuffle.
+      // below LA_QUOT_MIN or a live column's l exceeds LA_QUOT_MAX_L, which
+      // only the flash backward's S reaches (the core's S limit keeps every
+      // l below)
+      float2 lg = make_float2(0.0f, 0.0f);
       bool slow = false;
+      if constexpr (SPLIT) {
+        lg = *reinterpret_cast<const float2*>(st_l + 8 * jg);
+        slow = (live(4 * jg) && lg.x > LA_QUOT_MAX_L) ||
+               (live(4 * jg + 1) && lg.y > LA_QUOT_MAX_L);
+      }
 #pragma unroll
       for (int j = 0; j < NQ / 8; ++j) {
         const float2 m2 = *reinterpret_cast<const float2*>(st_m + 8 * j);
@@ -761,7 +789,7 @@ __device__ __forceinline__ void gw_core_cols(float (&dk)[DH / 2], float (&dv)[DH
       auto finish = [&](auto ieee) {
         float2 rg = make_float2(0.0f, 0.0f);
         if constexpr (!decltype(ieee)::value) {
-          const float2 lg = *reinterpret_cast<const float2*>(st_l + 8 * (g % (NQ / 8)));
+          if constexpr (!SPLIT) lg = *reinterpret_cast<const float2*>(st_l + 8 * jg);
           rg = make_float2(la_rcp(lg.x), la_rcp(lg.y));
         }
 #pragma unroll
@@ -795,11 +823,11 @@ __device__ __forceinline__ void gw_core_cols(float (&dk)[DH / 2], float (&dv)[DH
       softmax(std::true_type{});
     else
       softmax(std::false_type{});
-    gw_pack<KS>(pa, s);
-    gw_pack<KS>(da, dp);
+    gw_pack<KS, SPLIT>(pa, pl, s);
+    gw_pack<KS, SPLIT>(da, dl, dp);
     wgmma_fence();
-    gw_rs<DH, false, KS>(dv, pa, unused, ring.at(st) + GwShape<DH>::TILE + q0 * 128, n == 0);
-    gw_rs<DH, false, KS>(dk, da, unused, ring.at(st) + q0 * 128, n == 0);
+    gw_rs<DH, SPLIT, KS>(dv, pa, pl, ring.at(st) + GwShape<DH>::TILE + q0 * 128, n == 0);
+    gw_rs<DH, SPLIT, KS>(dk, da, dl, ring.at(st) + q0 * 128, n == 0);
     wgmma_commit();
     fence_regs<DH / 2>(dk);
     fence_regs<DH / 2>(dv);
@@ -922,7 +950,12 @@ gl_core_kernel(const __grid_constant__ CUtensorMap qkv_map,
           }
     } else {
       float dk[G::ACC], dv[G::ACC];
-      gw_core_cols<DH>(dk, dv, rmax, rsum, rdot, ring, ta, ta + G::TILE, nc, S, scale, lane);
+      gw_core_cols<DH>(
+          dk, dv,
+          [&](int c, int) {
+            return LaStatRows{rmax + c * LA_CHUNK, rsum + c * LA_CHUNK, rdot + c * LA_CHUNK};
+          },
+          ring, ta, ta + G::TILE, nc, S, scale, lane);
       if (lane == 0) mbar_arrive(&tempty[slot]);
       gw_store<DH>(dq + D, ld, dk, scale, row, S, t);
       gw_store<DH>(dq + 2 * D, ld, dv, 1.0f, row, S, t);
@@ -966,273 +999,195 @@ static bool gl_core_layout(int S, int* slots, int* stages) {
 }
 
 // ---------------------------------------------------------------------------
-// The flash backward's passes (mma.sync)
-// ---------------------------------------------------------------------------
-
-// Rows r0 .. r0 + n - 1 of one (image, head) (global row stride ts, DH
-// values each) into shared memory tile_ld<DH>() apart by every thread of
-// the block, with cp.async (rows >= S zeros); then every copy has landed
-// for every thread
-template <int DH>
-__device__ __forceinline__ void gl_stage(bf16* dst, const bf16* src, long long ts, int r0, int n,
-                                         int S) {
-  for (int i = threadIdx.x; i < n * (DH / 8); i += blockDim.x) {
-    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    const bool live = r0 + r < S;
-    cp_async16(dst + r * tile_ld<DH>() + c, src + (live ? r0 + r : 0) * ts + c, live);
-  }
-}
-__device__ __forceinline__ void gl_landed() {
-  cp_async_wait_all();
-  __syncthreads();
-}
-
-// the scaled scores of the warp's 16 queries (qa) against the 8 staged keys
-// at `keys`, key0 the first of them: keys >= S at -1e30
-template <int DH>
-__device__ __forceinline__ void gl_scores(float s[4], const uint32_t qa[][4], const bf16* keys,
-                                          int key0, int S, float scale, int lane) {
-  const int t = lane & 3;
-  mma_rows_t<DH>(s, qa, keys, lane);
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    s[e] = (key0 + 2 * t + (e & 1) < S) ? __fmul_rn(s[e], scale) : NEG_INF;
-}
-
-// p of two score tiles (rows g and g + 8: m[0], l[0] and m[1], l[1]), in place
-__device__ __forceinline__ void gl_probs(float p[2][4], const float m[2], const float l[2]) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[hh][e] = expf(__fsub_rn(p[hh][e], m[e >> 1])) / l[e >> 1];
-}
-
-// Passes 1 and 2: the row max m and the row sum l of the warp's 16 queries
-// (qa) over every key, K streamed in GL_CHUNK-key chunks through Ks. Every
-// thread of the block calls it (staging, barriers); `live` warps compute.
-template <int DH>
-__device__ __forceinline__ void gl_stats(float m[2], float l[2], const uint32_t qa[][4], bf16* Ks,
-                                         const bf16* kh, long long ts, int S, float scale,
-                                         bool live, int lane) {
-  constexpr int LD = tile_ld<DH>();
-  m[0] = m[1] = -3.0e38f;
-  l[0] = l[1] = 0.0f;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int c0 = 0; c0 < S; c0 += GL_CHUNK) {
-      __syncthreads();  // every warp is done with the buffer
-      gl_stage<DH>(Ks, kh, ts, c0, GL_CHUNK, S);
-      gl_landed();
-      if (!live) continue;
-#pragma unroll
-      for (int j = 0; j < GL_CHUNK / 8; ++j) {
-        if (c0 + 8 * j >= S) break;
-        float s[4];
-        gl_scores<DH>(s, qa, Ks + (size_t)8 * j * LD, c0 + 8 * j, S, scale, lane);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (pass == 0)
-            m[e >> 1] = fmaxf(m[e >> 1], s[e]);
-          else
-            l[e >> 1] += expf(__fsub_rn(s[e], m[e >> 1]));
-        }
-      }
-    }
-    if (live) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (pass == 0)
-          m[r] = la_quad_max(m[r]);
-        else
-          l[r] = la_quad_sum(l[r]);
-    }
-  }
-}
-
-// Passes 3 and 4 of the flash backward's rows launch, the warp's 16 queries
-// (qa, and their dO oa): pass 3 dot = rowsum(dP p); pass 4 dS = p (dP -
-// dot), dQ += dS k, dS in two bf16 terms. K and V stream through Ks and Vs.
-template <int DH>
-__device__ __forceinline__ void gl_rows_bwd(float dq[][4], float dot[2], const uint32_t qa[][4],
-                                            const uint32_t oa[][4], const float m[2],
-                                            const float l[2], bf16* Ks, bf16* Vs, const bf16* kh,
-                                            const bf16* vh, long long ts, int S, float scale,
-                                            bool live, int lane) {
-  constexpr int LD = tile_ld<DH>();
-  dot[0] = dot[1] = 0.0f;
-  zero_acc<DH>(dq);
-  for (int pass = 3; pass <= 4; ++pass) {
-    for (int c0 = 0; c0 < S; c0 += GL_CHUNK) {
-      __syncthreads();
-      gl_stage<DH>(Ks, kh, ts, c0, GL_CHUNK, S);
-      gl_stage<DH>(Vs, vh, ts, c0, GL_CHUNK, S);
-      gl_landed();
-      if (!live) continue;
-#pragma unroll
-      for (int i = 0; i < GL_CHUNK / 16; ++i) {
-        if (c0 + 16 * i >= S) break;
-        float p[2][4], dp[2][4];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int j = 2 * i + hh;
-          gl_scores<DH>(p[hh], qa, Ks + (size_t)8 * j * LD, c0 + 8 * j, S, scale, lane);
-          mma_rows_t<DH>(dp[hh], oa, Vs + (size_t)8 * j * LD, lane);
-        }
-        gl_probs(p, m, l);
-        if (pass == 3) {
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) dot[e >> 1] += dp[hh][e] * p[hh][e];
-        } else {
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) dp[hh][e] = p[hh][e] * (dp[hh][e] - dot[e >> 1]);
-          uint32_t hi[4], lo[4];
-          split_a(hi, lo, dp[0], dp[1]);
-          mma_rows_split<DH>(dq, hi, lo, Ks + (size_t)16 * i * LD, lane);
-        }
-      }
-    }
-    if (pass == 3 && live) {
-      dot[0] = la_quad_sum(dot[0]);
-      dot[1] = la_quad_sum(dot[1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // The flash backward: rows launch (statistics, dQ), cols launch (dK, dV)
 // ---------------------------------------------------------------------------
 
+// the flash backward's ring stages (both launches)
+#define GL_FBWD_STAGES 4
+
+// the flash backward's blocks an SM, which set its consumers' registers:
+// two (232 registers) up to head_dim 48, one (240) at 80, where two slots
+// of 32 KB tile pairs and the ring leave room for one block anyway
 template <int DH>
-static size_t gl_flash_smem() {  // a round of two operands, a chunk of two, a chunk's statistics
-  return (size_t)2 * (GL_ROWS + GL_CHUNK) * tile_ld<DH>() * sizeof(bf16) +
-         (size_t)3 * GL_CHUNK * sizeof(float);
+__host__ __device__ constexpr int gl_fbwd_minb() {
+  return DH > 64 ? 1 : 2;
+}
+// a cols ring stage: the Q and dO tiles, then the chunk's statistics
+// (LA_FBWD_STATS_BYTES) padded so that the next stage's boxes stay
+// 1024-aligned
+template <int DH>
+__host__ __device__ constexpr int gl_fbwd_col_stage() {
+  return GwShape<DH>::STAGE + 1024;
 }
 
-// one block per GL_ROWS queries: dq (contiguous (B, S, H, DH)) and each
-// query's m, l, dot at stats + ((b H + h) S + s) 3
+// The flash backward, launch 1 (query-major), long_flash_bwd_rows on the
+// head_dim: persistent blocks of one consumer warpgroup and a producer
+// warpgroup over items (image b, head h, 64-query tile), item = (b H + h)
+// nc + tile; block i takes items i, i + gridDim.x, ... Per query tile:
+// passes 1-2 (gw_stats: m, l), then gw_core_rows' pass 3 (dot) and pass 4
+// (dq += dS k, dS in two terms), the ring streaming K (passes 1-2), then K
+// and V. q, k, v, dO through their 4-D maps, head h at head h of the map;
+// dq rows of (b, h) at dq + b obs + h DH + r ots; the statistics of every
+// row of the tile (rows >= S too: zeros in, finite out) into `ws` in
+// long_attention.cuh's chunk planes (LA_FBWD_STATS floats a 64-query
+// chunk). Shared memory: two slots of the item's Q and dO tiles, then the
+// ring.
 template <int DH>
-__global__ void __launch_bounds__(GL_WARPS * 32, GL_FLASH_MINB(DH))
-gl_flash_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     bf16* __restrict__ dq, float* __restrict__ stats, int S, int H,
-                     long long bs, long long ts, float scale) {
-  constexpr int LD = tile_ld<DH>();
-  extern __shared__ __align__(128) bf16 gl_smem[];
-  bf16* Qs = gl_smem;
-  bf16* Os = Qs + GL_ROWS * LD;
-  bf16* Ks = Os + GL_ROWS * LD;
-  bf16* Vs = Ks + GL_CHUNK * LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int r0 = blockIdx.x * GL_ROWS, q0 = r0 + 16 * warp;
-  const bool live = q0 < S;
-  const long long head = (long long)b * bs + h * DH;
-  const long long ots = (long long)H * DH, ohead = (long long)b * S * ots + h * DH;
-  gl_stage<DH>(Qs, q + head, ts, r0, GL_ROWS, S);
-  gl_stage<DH>(Os, dout + ohead, ots, r0, GL_ROWS, S);
-  gl_landed();
-  uint32_t qa[DH / 16][4], oa[DH / 16][4];
-  load_a_rows<DH>(qa, Qs + (size_t)16 * warp * LD, lane);
-  load_a_rows<DH>(oa, Os + (size_t)16 * warp * LD, lane);
-  float m[2], l[2], dot[2], acc[DH / 8][4];
-  gl_stats<DH>(m, l, qa, Ks, k + head, ts, S, scale, live, lane);
-  gl_rows_bwd<DH>(acc, dot, qa, oa, m, l, Ks, Vs, k + head, v + head, ts, S, scale, live,
-                  lane);
-  if (!live) return;
-  store_rows<DH>(dq + ohead, ots, acc, scale, q0, S, lane);
-  if (t == 0) {
-    float* st = stats + ((long long)(b * H + h) * S) * 3;
+__global__ void __launch_bounds__(2 * 128, gl_fbwd_minb<DH>())
+gl_flash_rows_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap omap, bf16* __restrict__ dq,
+                     float* __restrict__ ws, long long obs, long long ots, int S, int H,
+                     int items, float scale) {
+  using G = GwShape<DH>;
+  __shared__ uint64_t full[GL_FBWD_STAGES], empty[GL_FBWD_STAGES], tfull[2], tempty[2];
+  extern __shared__ uint8_t raw[];
+  uint8_t* tiles = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  Ring ring{full, empty, tiles + 2 * G::STAGE, G::STAGE, GL_FBWD_STAGES, 0};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nc = (S + LA_CHUNK - 1) / LA_CHUNK;
+  if (tid == 0) {
+    ring_init(full, empty, GL_FBWD_STAGES, 4);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&tfull[s], 1);
+      mbar_init(&tempty[s], 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {  // the producer warpgroup: one lane issues every load
+    reg_dealloc<LA_PRODUCER_REGS>();
+    if (warp == 4 && lane == 0) {
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int tile = item % nc, h = item / nc % H, b = item / nc / H, ts = n & 1;
+        uint8_t* dst = tiles + ts * G::STAGE;
+        mbar_wait(&tempty[ts], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&tfull[ts], G::STAGE);
+        gw_load<DH>(dst, &qmap, &tfull[ts], h, tile * LA_CHUNK, b);
+        gw_load<DH>(dst + G::TILE, &omap, &tfull[ts], h, tile * LA_CHUNK, b);
+        for (int pass = 0; pass < 4; ++pass)
+          for (int c = 0; c < nc; ++c) {  // K, and in passes 3-4 V beside it
+            uint64_t* bar;
+            uint8_t* st = ring.fill(pass < 2 ? G::TILE : G::STAGE, &bar);
+            gw_load<DH>(st, &kmap, bar, h, c * LA_CHUNK, b);
+            if (pass >= 2) gw_load<DH>(st + G::TILE, &vmap, bar, h, c * LA_CHUNK, b);
+          }
+      }
+    }
+    return;
+  }
+
+  reg_alloc<la_consumer_regs(1, gl_fbwd_minb<DH>())>();
+  const int t = lane & 3, lrow = warp * 16 + (lane >> 2);
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int tile = item % nc, h = item / nc % H, b = item / nc / H, ts = n & 1;
+    mbar_wait(&tfull[ts], (n >> 1) & 1);
+    const uint8_t* qt = tiles + ts * G::STAGE;
+    float m[2], l[2], dot[2], acc[G::ACC];
+    gw_stats<DH>(m, l, ring, qt, nc, S, scale, lane);
+    const LaQuot q[2] = {LaQuot(l[0]), LaQuot(l[1])};
+    gw_core_rows<DH, false, true>(acc, dot, m, l, q, ring, qt, qt + G::TILE, nc, S, scale, lane);
+    gw_core_rows<DH, true, true>(acc, dot, m, l, q, ring, qt, qt + G::TILE, nc, S, scale, lane);
+    if (lane == 0) mbar_arrive(&tempty[ts]);
+    gw_store<DH>(dq + (long long)b * obs + h * DH, ots, acc, scale, tile * LA_CHUNK + lrow, S, t);
+    if (t == 0) {
+      float* st = ws + ((long long)(b * H + h) * nc + tile) * LA_FBWD_STATS;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + g + 8 * r;
-      if (row < S) {
-        st[row * 3 + 0] = m[r];
-        st[row * 3 + 1] = l[r];
-        st[row * 3 + 2] = dot[r];
+      for (int i = 0; i < 2; ++i) {
+        st[lrow + 8 * i] = m[i];
+        st[LA_CHUNK + lrow + 8 * i] = l[i];
+        st[2 * LA_CHUNK + lrow + 8 * i] = dot[i];
       }
     }
   }
 }
 
-// one block per GL_ROWS keys, every query in GL_CHUNK-query chunks: dK and
-// dV, with the operands in the rows launch's roles (queries as A, keys as
-// B: the same scores bit for bit), P and dS transposed by movmatrix
+// The flash backward, launch 2 (key-major), long_flash_bwd_cols on the
+// head_dim: launch 1's items with key tiles in the place of query tiles. Per
+// key tile (K and V in a slot), gw_core_cols<DH, true> over every query
+// chunk of the ring (each stage Q, dO and the chunk's statistics from `ws`
+// in one bulk copy): dv = p^T dO, dk = dS^T q / sqrt(dh), P and dS in two
+// terms. dk, dv rows as launch 1's dq.
 template <int DH>
-__global__ void __launch_bounds__(GL_WARPS * 32, GL_FLASH_MINB(DH))
-gl_flash_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ stats, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int S, int H, long long bs, long long ts,
-                     float scale) {
-  constexpr int LD = tile_ld<DH>();
-  extern __shared__ __align__(128) bf16 gl_smem[];
-  bf16* Kt = gl_smem;
-  bf16* Vt = Kt + GL_ROWS * LD;
-  bf16* Qc = Vt + GL_ROWS * LD;
-  bf16* Oc = Qc + GL_CHUNK * LD;
-  float* rmax = reinterpret_cast<float*>(Oc + GL_CHUNK * LD);
-  float* rsum = rmax + GL_CHUNK;
-  float* rdot = rsum + GL_CHUNK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int r0 = blockIdx.x * GL_ROWS, k0 = r0 + 16 * warp;
-  const bool live = k0 < S;
-  const long long head = (long long)b * bs + h * DH;
-  const long long ots = (long long)H * DH, ohead = (long long)b * S * ots + h * DH;
-  const float* st = stats + ((long long)(b * H + h) * S) * 3;
-  gl_stage<DH>(Kt, k + head, ts, r0, GL_ROWS, S);
-  gl_stage<DH>(Vt, v + head, ts, r0, GL_ROWS, S);
-  const bf16* Kw = Kt + (size_t)16 * warp * LD;
-  const bf16* Vw = Vt + (size_t)16 * warp * LD;
-  float ak[DH / 8][4], av[DH / 8][4];
-  zero_acc<DH>(ak);
-  zero_acc<DH>(av);
-  for (int c0 = 0; c0 < S; c0 += GL_CHUNK) {
-    __syncthreads();  // every warp is done with the last chunk
-    gl_stage<DH>(Qc, q + head, ts, c0, GL_CHUNK, S);
-    gl_stage<DH>(Oc, dout + ohead, ots, c0, GL_CHUNK, S);
-    for (int i = threadIdx.x; i < 3 * GL_CHUNK; i += blockDim.x) {  // pad queries: inert
-      const int c = i / 3, f = i % 3;
-      const bool ok = c0 + c < S;
-      cp_async4(rmax + f * GL_CHUNK + c, st + (ok ? (long long)c0 * 3 + i : 0), ok);
+__global__ void __launch_bounds__(2 * 128, gl_fbwd_minb<DH>())
+gl_flash_cols_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap omap, const float* __restrict__ ws,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, long long obs, long long ots,
+                     int S, int H, int items, float scale) {
+  using G = GwShape<DH>;
+  __shared__ uint64_t full[GL_FBWD_STAGES], empty[GL_FBWD_STAGES], tfull[2], tempty[2];
+  extern __shared__ uint8_t raw[];
+  uint8_t* tiles = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  Ring ring{full, empty, tiles + 2 * G::STAGE, gl_fbwd_col_stage<DH>(), GL_FBWD_STAGES, 0};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nc = (S + LA_CHUNK - 1) / LA_CHUNK;
+  if (tid == 0) {
+    ring_init(full, empty, GL_FBWD_STAGES, 4);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&tfull[s], 1);
+      mbar_init(&tempty[s], 4);
     }
-    gl_landed();
-    if (!live) continue;
-#pragma unroll
-    for (int i = 0; i < GL_CHUNK / 16; ++i) {
-      if (c0 + 16 * i >= S) break;
-      uint32_t qa[DH / 16][4], oa[DH / 16][4];
-      load_a_rows<DH>(qa, Qc + (size_t)16 * i * LD, lane);
-      load_a_rows<DH>(oa, Oc + (size_t)16 * i * LD, lane);
-      float p[2][4], ds[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        mma_rows_t<DH>(p[n], qa, Kw + (size_t)8 * n * LD, lane);
-        mma_rows_t<DH>(ds[n], oa, Vw + (size_t)8 * n * LD, lane);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = 16 * i + g + 8 * (e >> 1);  // the query, within the chunk
-          const bool ok = c0 + row < S && k0 + 8 * n + 2 * t + (e & 1) < S;
-          // the rows launch's p, bit for bit: the same score, the same operations
-          const float pr =
-              ok ? expf(__fsub_rn(__fmul_rn(p[n][e], scale), rmax[row])) / rsum[row] : 0.0f;
-          p[n][e] = pr;
-          ds[n][e] = pr * (ds[n][e] - rdot[row]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {  // the producer warpgroup: one lane issues every load
+    reg_dealloc<LA_PRODUCER_REGS>();
+    if (warp == 4 && lane == 0) {
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int tile = item % nc, h = item / nc % H, b = item / nc / H, ts = n & 1;
+        uint8_t* dst = tiles + ts * G::STAGE;
+        mbar_wait(&tempty[ts], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&tfull[ts], G::STAGE);
+        gw_load<DH>(dst, &kmap, &tfull[ts], h, tile * LA_CHUNK, b);
+        gw_load<DH>(dst + G::TILE, &vmap, &tfull[ts], h, tile * LA_CHUNK, b);
+        const float* head = ws + (long long)(b * H + h) * nc * LA_FBWD_STATS;
+        for (int c = 0; c < nc; ++c) {  // Q, dO and the statistics of query chunk c
+          uint64_t* bar;
+          uint8_t* st = ring.fill(G::STAGE + LA_FBWD_STATS_BYTES, &bar);
+          gw_load<DH>(st, &qmap, bar, h, c * LA_CHUNK, b);
+          gw_load<DH>(st + G::TILE, &omap, bar, h, c * LA_CHUNK, b);
+          bulk_load(st + G::STAGE, head + (long long)c * LA_FBWD_STATS, LA_FBWD_STATS_BYTES, bar);
         }
       }
-      uint32_t hi[4], lo[4];
-      split_a_t(hi, lo, p);  // P^T: rows key, columns query
-      mma_rows_split<DH>(av, hi, lo, Oc + (size_t)16 * i * LD, lane);
-      split_a_t(hi, lo, ds);
-      mma_rows_split<DH>(ak, hi, lo, Qc + (size_t)16 * i * LD, lane);
     }
+    return;
   }
-  if (!live) return;
-  store_rows<DH>(dk + ohead, ots, ak, scale, k0, S, lane);
-  store_rows<DH>(dv + ohead, ots, av, 1.0f, k0, S, lane);
+
+  reg_alloc<la_consumer_regs(1, gl_fbwd_minb<DH>())>();
+  const int t = lane & 3, lrow = warp * 16 + (lane >> 2);
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int tile = item % nc, h = item / nc % H, b = item / nc / H, ts = n & 1;
+    mbar_wait(&tfull[ts], (n >> 1) & 1);
+    const uint8_t* kt = tiles + ts * G::STAGE;
+    float ak[G::ACC], av[G::ACC];
+    gw_core_cols<DH, true>(
+        ak, av,
+        [&](int, int st) {
+          const float* p = reinterpret_cast<const float*>(ring.at(st) + G::STAGE);
+          return LaStatRows{p, p + LA_CHUNK, p + 2 * LA_CHUNK};
+        },
+        ring, kt, kt + G::TILE, nc, S, scale, lane);
+    if (lane == 0) mbar_arrive(&tempty[ts]);
+    const long long head = (long long)b * obs + h * DH;
+    gw_store<DH>(dk + head, ots, ak, scale, tile * LA_CHUNK + lrow, S, t);
+    gw_store<DH>(dv + head, ots, av, 1.0f, tile * LA_CHUNK + lrow, S, t);
+  }
+}
+
+// the flash backward's dynamic shared memory: two slots of tile pairs, then
+// the ring of stages of `stage_bytes`
+template <int DH>
+static size_t gl_fbwd_smem(int stage_bytes) {
+  return 1024 + (size_t)2 * GwShape<DH>::STAGE + (size_t)GL_FBWD_STAGES * stage_bytes;
 }
 
 // ---------------------------------------------------------------------------
@@ -1306,20 +1261,32 @@ static int gl_launch_core(const bf16* qkv, const bf16* datt, bf16* att, bf16* dq
 }
 
 // the flash backward: dq, dk, dv contiguous (B, S, H, DH) from q, k, v (as
-// gl_launch_flash_fwd takes them) and a contiguous dout; ws: B H S 3 floats
+// gl_launch_flash_fwd takes them) and a contiguous dout, two persistent
+// launches; ws: long_flash_bwd_ws_floats(B, S, H) floats
 template <int DH>
 static int gl_launch_flash_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                                bf16* dq, bf16* dk, bf16* dv, float* ws, int B, int S, int H,
                                long long bs, long long ts, cudaStream_t st) {
-  const size_t smem = gl_flash_smem<DH>();
-  const dim3 grid((S + GL_ROWS - 1) / GL_ROWS, H, B);
+  const long long lay = B > 1 ? bs : (long long)S * ts, ots = (long long)H * DH;
+  CUtensorMap qm, km, vm, om;
+  LAUNCH(gw_tensor_map(&qm, q, DH, H, S, B, ts, lay));
+  LAUNCH(gw_tensor_map(&km, k, DH, H, S, B, ts, lay));
+  LAUNCH(gw_tensor_map(&vm, v, DH, H, S, B, ts, lay));
+  LAUNCH(gw_tensor_map(&om, dout, DH, H, S, B, ots, S * ots));
+  const int items = B * H * ((S + LA_CHUNK - 1) / LA_CHUNK), threads = 2 * 128;
   const float scale = attention_scale(DH);
-  LAUNCH(gl_set_smem(gl_flash_rows_kernel<DH>, smem));
-  gl_flash_rows_kernel<DH><<<grid, GL_WARPS * 32, smem, st>>>(q, k, v, dout, dq, ws, S, H, bs,
-                                                              ts, scale);
+  static int rows_per_card = 0, cols_per_card = 0;
+  int grid;
+  const size_t smem_rows = gl_fbwd_smem<DH>(GwShape<DH>::STAGE);
+  LAUNCH(la_persistent_grid(gl_flash_rows_kernel<DH>, threads, smem_rows, items, rows_per_card,
+                            &grid));
+  gl_flash_rows_kernel<DH><<<grid, threads, smem_rows, st>>>(qm, km, vm, om, dq, ws, S * ots, ots,
+                                                             S, H, items, scale);
   LAUNCH((int)cudaGetLastError());
-  LAUNCH(gl_set_smem(gl_flash_cols_kernel<DH>, smem));
-  gl_flash_cols_kernel<DH><<<grid, GL_WARPS * 32, smem, st>>>(q, k, v, dout, ws, dk, dv, S, H,
-                                                              bs, ts, scale);
+  const size_t smem_cols = gl_fbwd_smem<DH>(gl_fbwd_col_stage<DH>());
+  LAUNCH(la_persistent_grid(gl_flash_cols_kernel<DH>, threads, smem_cols, items, cols_per_card,
+                            &grid));
+  gl_flash_cols_kernel<DH><<<grid, threads, smem_cols, st>>>(qm, km, vm, om, ws, dk, dv, S * ots,
+                                                             ots, S, H, items, scale);
   return (int)cudaGetLastError();
 }
